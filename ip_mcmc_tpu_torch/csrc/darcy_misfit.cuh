@@ -1,0 +1,201 @@
+// Batched Darcy misfit (K5) as a device function run by one CTA per chain:
+// the arithmetic of ip_mcmc_tpu/models/darcy.py make_batched_misfit
+// (l.542, differentiable=False) with _flat_transmissibilities l.337,
+// _apply_operator_flat l.347, _operator_diagonal_flat l.357, _cg_flat l.363
+// and _flat_truncated_dst_preconditioner l.490.
+//
+// Thread t owns cell t of the n x n grid (t < n*n); the CG vectors x, r,
+// z, Ap and the cell's face transmissibilities live in its registers.
+// Shared memory holds what neighbours or reductions read: the search
+// direction p (stencil), bf16(r) and the spectral coefficients
+// (preconditioner), and the warp partial sums. Every thread of the CTA
+// calls darcy_phi (threads t >= n*n contribute zeros), so every
+// __syncthreads is reached by the whole block.
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include <cstdint>
+
+extern "C" {
+// Mirrored by ip_mcmc_tpu_torch/ops/_build.py MisfitSpec.
+typedef struct {
+  const float* basis;   // (K, n*n) scaled KL basis, f32
+  const void* V;        // (modes, n*n) preconditioner modes, bf16
+  const float* lam;     // (modes,) their eigenvalues
+  const float* source;  // (n*n,)
+  const int* obs;       // (m,) observed cells
+  const float* data;    // (m,)
+  const float* noise;   // (m,) noise standard deviations
+  int n, K, modes, cg_iters, m;
+  float log_a_mean;
+} IpxMisfitSpec;
+}
+
+namespace ipx {
+
+struct MisfitSmem {
+  float* cell_a;  // [cells]: a, then t_h, then p, then x
+  float* cell_b;  // [cells]: t_v, then bf16(r)
+  float* modes;   // [modes]: bf16(V bf16(r) / (lam * a_bar))
+  float* red;     // [32] warp partials
+  float* scalar;  // [1] broadcast of the result
+};
+
+// Carves a MisfitSmem from `base`; returns the float count used.
+__host__ __device__ inline int misfit_smem_floats(int cells, int modes) {
+  return 2 * cells + modes + 33;
+}
+
+__device__ inline MisfitSmem carve_misfit_smem(float* base, int cells, int modes) {
+  MisfitSmem ws;
+  ws.cell_a = base;
+  ws.cell_b = base + cells;
+  ws.modes = base + 2 * cells;
+  ws.red = base + 2 * cells + modes;
+  ws.scalar = ws.red + 32;
+  return ws;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum over the block, returned to every thread (same order everywhere).
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.0f;
+  const int nw = blockDim.x >> 5;
+  for (int w = 0; w < nw; ++w) s += red[w];
+  __syncthreads();
+  return s;
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// M^-1 r = D^-1 r + V^T bf16(V bf16(r) / (lam a_bar)): bf16 inputs, f32
+// accumulation. modes == 0 is plain Jacobi.
+__device__ float apply_precond(const IpxMisfitSpec& s, float r, float inv_diag,
+                               float a_bar, const MisfitSmem& ws) {
+  const int t = threadIdx.x, cells = s.n * s.n;
+  const bool own = t < cells;
+  float z = inv_diag * r;
+  if (s.modes == 0) return z;
+  const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(s.V);
+  if (own) ws.cell_b[t] = bf16_round(r);
+  __syncthreads();
+  const int lane = t & 31, nw = blockDim.x >> 5;
+  for (int m = t >> 5; m < s.modes; m += nw) {
+    const __nv_bfloat16* row = V + static_cast<size_t>(m) * cells;
+    float acc = 0.0f;
+    for (int c = lane; c < cells; c += 32) acc += __bfloat162float(row[c]) * ws.cell_b[c];
+    acc = warp_sum(acc);
+    if (lane == 0) ws.modes[m] = bf16_round(acc / (s.lam[m] * a_bar));
+  }
+  __syncthreads();
+  if (own) {
+    float acc = 0.0f;
+    for (int m = 0; m < s.modes; ++m)
+      acc += __bfloat162float(V[static_cast<size_t>(m) * cells + t]) * ws.modes[m];
+    z = z + acc;
+  }
+  return z;
+}
+
+// Phi(u) for the chain whose coefficients u[0..K) sit in shared memory.
+// Returns the same value in every thread.
+__device__ float darcy_phi(const IpxMisfitSpec& s, const float* u,
+                           const MisfitSmem& ws) {
+  const int t = threadIdx.x, n = s.n, cells = n * n;
+  const bool own = t < cells;
+  const int i = own ? t / n : 0, j = own ? t % n : 0;
+  const float h2 = static_cast<float>(cells);
+
+  // KL reconstruction log a = log_a_mean + basis^T u, and a = exp(log a)
+  float a = 1.0f;
+  if (own) {
+    float acc = 0.0f;
+    for (int k = 0; k < s.K; ++k) acc += s.basis[static_cast<size_t>(k) * cells + t] * u[k];
+    a = expf(s.log_a_mean + acc);
+    ws.cell_a[t] = a;
+  }
+  __syncthreads();
+  // harmonic-mean transmissibilities of the faces right of and below the cell
+  float th = 0.0f, tv = 0.0f;
+  if (own) {
+    if (j < n - 1) {
+      const float ar = ws.cell_a[t + 1];
+      th = 2.0f * a * ar / (a + ar + 1e-38f) * h2;
+    }
+    if (i < n - 1) {
+      const float ad = ws.cell_a[t + n];
+      tv = 2.0f * a * ad / (a + ad + 1e-38f) * h2;
+    }
+  }
+  __syncthreads();
+  if (own) {
+    ws.cell_a[t] = th;
+    ws.cell_b[t] = tv;
+  }
+  __syncthreads();
+  float th_l = 0.0f, tv_u = 0.0f;
+  if (own) {
+    if (j > 0) th_l = ws.cell_a[t - 1];
+    if (i > 0) tv_u = ws.cell_b[t - n];
+  }
+  // Dirichlet faces at half-cell distance: 2 h^-2 a per boundary side
+  const float edge = static_cast<float>((i == 0) + (i == n - 1) + (j == 0) + (j == n - 1));
+  const float bnd = 2.0f * h2 * a * edge;
+  const float inv_diag = own ? 1.0f / (th + th_l + tv + tv_u + bnd) : 0.0f;
+  const float a_bar = expf(block_sum(own ? logf(a) : 0.0f, ws.red) / h2);
+
+  // fixed-count PCG from x = 0; alpha = 0 when pAp <= 0 and beta = 0 when
+  // rz <= 0, so a converged solve freezes instead of producing NaN
+  float x = 0.0f, r = own ? s.source[t] : 0.0f;
+  float z = apply_precond(s, r, inv_diag, a_bar, ws);
+  float p = z;
+  float rz = block_sum(r * z, ws.red);
+  for (int it = 0; it < s.cg_iters; ++it) {
+    if (own) ws.cell_a[t] = p;
+    __syncthreads();
+    float Ap = 0.0f;
+    if (own) {
+      const float pr = j < n - 1 ? ws.cell_a[t + 1] : 0.0f;
+      const float pd = i < n - 1 ? ws.cell_a[t + n] : 0.0f;
+      const float pl = j > 0 ? ws.cell_a[t - 1] : 0.0f;
+      const float pu = i > 0 ? ws.cell_a[t - n] : 0.0f;
+      Ap = th * (p - pr) - th_l * (pl - p) + tv * (p - pd) - tv_u * (pu - p) + bnd * p;
+    }
+    const float pAp = block_sum(p * Ap, ws.red);
+    const float alpha = pAp > 0.0f ? rz / pAp : 0.0f;
+    x = x + alpha * p;
+    r = r - alpha * Ap;
+    z = apply_precond(s, r, inv_diag, a_bar, ws);
+    const float rz_new = block_sum(r * z, ws.red);
+    const float beta = rz > 0.0f ? rz_new / rz : 0.0f;
+    p = z + beta * p;
+    rz = rz_new;
+  }
+
+  // pressure at the observed cells and 1/2 ||(y - pred) / sigma||^2
+  if (own) ws.cell_a[t] = x;
+  __syncthreads();
+  if (t < 32) {
+    float acc = 0.0f;
+    for (int o = t; o < s.m; o += 32) {
+      const float res = (s.data[o] - ws.cell_a[s.obs[o]]) / s.noise[o];
+      acc += res * res;
+    }
+    acc = warp_sum(acc);
+    if (t == 0) ws.scalar[0] = 0.5f * acc;
+  }
+  __syncthreads();
+  return ws.scalar[0];
+}
+
+}  // namespace ipx

@@ -1,0 +1,236 @@
+"""Darcy-flow misfit: −∇·(a(x)∇p) = f on the unit square, p|∂Ω = 0
+(mirrors ``ip_mcmc_tpu/models/darcy.py``).
+
+``darcy_aux`` builds the constants of ``make_darcy_forward`` (scaled KL
+basis, observation cells, source) in numpy. ``DarcyMisfit`` is
+``make_batched_misfit(..., differentiable=False)``: Φ for a features-first
+(K, B) batch of whitened KL coefficients — KL reconstruction, exp,
+harmonic-mean face transmissibilities, fixed-count PCG on the 5-point
+finite-volume operator with the Jacobi or ``dst_trunc`` preconditioner,
+pressure at the observation cells, ½‖(y − pred)/σ‖².
+
+``forward`` launches ``darcy_misfit_kernel`` (``csrc/fused_da_pcn.cu``) for
+CUDA tensors and runs ``_forward_plain`` for CPU tensors. The plain version
+uses the readable 2-D (n, n, B) layout; the JAX flat layout with wrap masks
+exists only because Mosaic lacks in-kernel reshapes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ip_mcmc_tpu_torch.models import kl
+from ip_mcmc_tpu_torch.ops import _build
+
+
+def default_observation_indices(n: int, n_obs_per_dim: int = 4):
+    """Evenly spaced interior observation cells (flattened indices)."""
+    pos = np.linspace(0, n - 1, n_obs_per_dim + 2)[1:-1].round().astype(int)
+    ii, jj = np.meshgrid(pos, pos, indexing="ij")
+    return (ii * n + jj).ravel()
+
+
+def darcy_aux(n_grid: int = 16, n_modes_per_dim: int = 8, alpha: float = 2.0,
+              field_scale: float = 10.0, obs_indices=None):
+    """The constants of ``make_darcy_forward``'s aux dict, as numpy:
+    scaled_basis (K, n²) f32, eigenvalues (K,), obs_indices (m,), n_grid,
+    source (n²,) f32 (the unit source)."""
+    basis, ij = kl.sine_basis_2d(n_modes_per_dim, n_grid)
+    lam = kl.laplacian_eigenvalues_2d(ij, alpha=alpha, scale=field_scale)
+    if obs_indices is None:
+        obs_indices = default_observation_indices(n_grid)
+    return {
+        "scaled_basis": (np.sqrt(lam)[:, None] * basis).astype(np.float32),
+        "eigenvalues": lam,
+        "obs_indices": np.asarray(obs_indices),
+        "n_grid": n_grid,
+        "source": np.ones(n_grid * n_grid, np.float32),
+    }
+
+
+def truncated_dst_modes(n: int, k_modes: int):
+    """The ``k_modes`` lowest-eigenvalue 2-D sine modes of the constant-
+    coefficient operator: (V (k_modes, n²) f64 rows, λ (k_modes,) f64), as
+    in ``_flat_truncated_dst_preconditioner``."""
+    j = np.arange(n) + 0.5
+    k = np.arange(1, n + 1)[:, None]
+    S = np.sin(np.pi * k * j[None, :] / n) * np.sqrt(2.0 / n)
+    S[-1] *= np.sqrt(0.5)
+    e = 2.0 - 2.0 * np.cos(np.pi * np.arange(1, n + 1) / n)
+    lam2d = float(n * n) * (e[:, None] + e[None, :])
+    order = np.argsort(lam2d.reshape(-1), kind="stable")[:k_modes]
+    k1, k2 = order // n, order % n
+    V = (S[k1][:, :, None] * S[k2][:, None, :]).reshape(k_modes, n * n)
+    return V, lam2d.reshape(-1)[order]
+
+
+class DarcyMisfit(nn.Module):
+    """Batched Darcy misfit Φ: (K, B) f32 → (B,) f32.
+
+    Buffers: ``basis`` (K, n²) scaled KL basis; ``V`` (modes, n²) bf16
+    preconditioner modes and ``lam`` (modes,) their eigenvalues (modes = 0
+    is plain Jacobi); ``source`` (n²,); ``obs`` (m,) int32 cells; ``data``
+    and ``noise`` (m,)."""
+
+    def __init__(self, scaled_basis, obs_indices, source, data, noise_scale,
+                 n_grid: int, cg_iters: int = 48, precond: str = "jacobi",
+                 precond_modes: int = 128, log_a_mean: float = 0.0):
+        super().__init__()
+        if precond not in ("jacobi", "dst_trunc"):
+            raise ValueError(
+                f"precond must be 'jacobi' or 'dst_trunc', got {precond!r}"
+            )
+        n = int(n_grid)
+        basis = np.asarray(scaled_basis, np.float32)
+        if basis.shape[1] != n * n:
+            raise ValueError(f"basis {basis.shape} does not match n_grid {n}")
+        obs = np.asarray(obs_indices).reshape(-1)
+        data = np.asarray(data, np.float32).reshape(-1)
+        noise = np.broadcast_to(
+            np.asarray(noise_scale, np.float32), data.shape
+        ).copy()
+        modes = int(precond_modes) if precond == "dst_trunc" else 0
+        if modes:
+            V, lam = truncated_dst_modes(n, modes)
+        else:
+            V, lam = np.zeros((0, n * n)), np.zeros((0,))
+        self.n, self.K, self.modes = n, basis.shape[0], modes
+        self.cg_iters, self.log_a_mean = int(cg_iters), float(log_a_mean)
+        self.register_buffer("basis", torch.tensor(basis))
+        self.register_buffer(
+            "V", torch.tensor(V.astype(np.float32)).to(torch.bfloat16)
+        )
+        self.register_buffer("lam", torch.tensor(lam.astype(np.float32)))
+        self.register_buffer(
+            "source", torch.tensor(np.asarray(source, np.float32).reshape(-1))
+        )
+        self.register_buffer("obs", torch.tensor(obs.astype(np.int32)))
+        self.register_buffer("data", torch.tensor(data))
+        self.register_buffer("noise", torch.tensor(noise))
+        i, j = np.divmod(np.arange(n * n), n)
+        edge = (i == 0).astype(np.float32) + (i == n - 1) + (j == 0) + (j == n - 1)
+        self.register_buffer("edge", torch.tensor(edge.reshape(n, n, 1)))
+
+    def forward(self, U: torch.Tensor) -> torch.Tensor:
+        if U.device.type == "cuda":
+            return self._forward_kernel(U)
+        if U.device.type == "cpu":
+            return self._forward_plain(U)
+        raise ValueError(f"DarcyMisfit: unsupported device {U.device}")
+
+    # --- the kernel -------------------------------------------------------
+
+    def spec(self) -> _build.MisfitSpec:
+        """The C view of this misfit (device pointers into the buffers)."""
+        if self.V.dtype != torch.bfloat16:
+            raise ValueError(f"the kernel takes bf16 modes, got {self.V.dtype}")
+        return _build.MisfitSpec(
+            basis=self.basis.data_ptr(), V=self.V.data_ptr(),
+            lam=self.lam.data_ptr(), source=self.source.data_ptr(),
+            obs=self.obs.data_ptr(), data=self.data.data_ptr(),
+            noise=self.noise.data_ptr(), n=self.n, K=self.K, modes=self.modes,
+            cg_iters=self.cg_iters, m=int(self.obs.numel()),
+            log_a_mean=self.log_a_mean,
+        )
+
+    def check_input(self, U: torch.Tensor, what: str = "U"):
+        if U.dtype != torch.float32 or U.dim() != 2 or U.shape[0] != self.K:
+            raise ValueError(
+                f"{what}: expected f32 (K={self.K}, B), got {U.dtype} "
+                f"{tuple(U.shape)}"
+            )
+        if U.device != self.basis.device:
+            raise ValueError(
+                f"{what} on {U.device} but the misfit's buffers are on "
+                f"{self.basis.device}"
+            )
+
+    def _forward_kernel(self, U: torch.Tensor) -> torch.Tensor:
+        self.check_input(U)
+        U = U.contiguous()
+        B = U.shape[1]
+        phi = torch.empty(B, dtype=torch.float32, device=U.device)
+        lib = _build.library()
+        spec = self.spec()
+        status = lib.ipx_darcy_misfit(
+            ctypes.byref(spec), U.data_ptr(), B, phi.data_ptr(),
+            torch.cuda.current_stream(U.device).cuda_stream,
+        )
+        _build.check(status, "darcy_misfit_kernel")
+        _build.launch_counts[f"darcy_misfit_kernel[n={self.n}]"] += 1
+        return phi
+
+    # --- the plain version ------------------------------------------------
+
+    def _precond(self, r, inv_diag, a_bar):
+        """M⁻¹r = D⁻¹r + Vᵀ q(V q(r) / (λ ā)), q rounding to the factors'
+        dtype (bf16: bf16 inputs with f32 accumulation — products of bf16
+        values are exact in f32)."""
+        z = inv_diag * r
+        if not self.modes:
+            return z
+        dt, Vf = self.V.dtype, self.V.to(torch.float32)
+        rt = (Vf @ r.to(dt).to(torch.float32)) / (
+            self.lam[:, None] * a_bar[None, :]
+        )
+        return z + Vf.T @ rt.to(dt).to(torch.float32)
+
+    def _forward_plain(self, U: torch.Tensor) -> torch.Tensor:
+        _build.launch_counts[f"darcy_misfit_plain[n={self.n}]"] += 1
+        n, B = self.n, U.shape[1]
+        N, h2 = n * n, float(n * n)
+        a = torch.exp(self.log_a_mean + self.basis.T @ U).reshape(n, n, B)
+        # face transmissibilities, zero-padded to (n, n, B): t_h at the
+        # face right of a cell, t_v at the face below it
+        t_h = F.pad(
+            2.0 * a[:, :-1] * a[:, 1:] / (a[:, :-1] + a[:, 1:] + 1e-38) * h2,
+            (0, 0, 0, 1),
+        )
+        t_v = F.pad(
+            2.0 * a[:-1] * a[1:] / (a[:-1] + a[1:] + 1e-38) * h2,
+            (0, 0, 0, 0, 0, 1),
+        )
+        t_h_left = F.pad(t_h[:, :-1], (0, 0, 1, 0))
+        t_v_up = F.pad(t_v[:-1], (0, 0, 0, 0, 1, 0))
+        boundary = 2.0 * h2 * a * self.edge
+        diag = t_h + t_h_left + t_v + t_v_up + boundary
+        inv_diag = (1.0 / diag).reshape(N, B)
+        a_bar = torch.exp(torch.mean(torch.log(a.reshape(N, B)), dim=0))
+
+        def apply(p):  # A(a) p on (n, n, B)
+            flux_h = t_h * (p - F.pad(p[:, 1:], (0, 0, 0, 1)))
+            flux_v = t_v * (p - F.pad(p[1:], (0, 0, 0, 0, 0, 1)))
+            out = flux_h - F.pad(flux_h[:, :-1], (0, 0, 1, 0))
+            out = out + flux_v - F.pad(flux_v[:-1], (0, 0, 0, 0, 1, 0))
+            return out + boundary * p
+
+        def dots(u, v):
+            return torch.sum(u * v, dim=0)
+
+        r = self.source[:, None].expand(N, B)
+        x = torch.zeros_like(r)
+        z = self._precond(r, inv_diag, a_bar)
+        p = z
+        rz = dots(r, z)
+        zero = torch.zeros_like(rz)
+        for _ in range(self.cg_iters):
+            Ap = apply(p.reshape(n, n, B)).reshape(N, B)
+            pAp = dots(p, Ap)
+            # guards: once converged (r = 0) the recurrences hit 0/0 — the
+            # iteration count is fixed, so freeze instead of emitting NaN
+            alpha = torch.where(pAp > 0.0, rz / torch.where(pAp > 0.0, pAp, 1.0), zero)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = self._precond(r, inv_diag, a_bar)
+            rz_new = dots(r, z)
+            beta = torch.where(rz > 0.0, rz_new / torch.where(rz > 0.0, rz, 1.0), zero)
+            p = z + beta * p
+            rz = rz_new
+        pred = x[self.obs.long()]
+        res = (self.data[:, None] - pred) / self.noise[:, None]
+        return 0.5 * torch.sum(res * res, dim=0)

@@ -1,0 +1,35 @@
+"""Karhunen–Loève pieces of the Darcy prior (mirrors
+``ip_mcmc_tpu/models/kl.py``: ``sine_basis_2d``, ``laplacian_eigenvalues_2d``).
+Pure numpy: these are build-time constants."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def sine_basis_2d(n_modes_per_dim: int, n_grid: int):
+    """(basis (K, n_grid²), eigen_index (K, 2)) with K = n_modes_per_dim²;
+    rows φ_ij(x, y) = 2 sin(iπx) sin(jπy) at the cell centres."""
+    centers = (np.arange(n_grid) + 0.5) / n_grid
+    b1 = np.sqrt(2.0) * np.sin(
+        np.pi * np.arange(1, n_modes_per_dim + 1)[:, None] * centers[None, :]
+    )
+    basis = np.einsum("ix,jy->ijxy", b1, b1).reshape(
+        n_modes_per_dim * n_modes_per_dim, n_grid * n_grid
+    )
+    ij = np.stack(
+        np.meshgrid(
+            np.arange(1, n_modes_per_dim + 1),
+            np.arange(1, n_modes_per_dim + 1),
+            indexing="ij",
+        ),
+        axis=-1,
+    ).reshape(-1, 2)
+    return basis, ij
+
+
+def laplacian_eigenvalues_2d(eigen_index, alpha: float = 2.0,
+                             scale: float = 1.0):
+    """λ_ij = scale · (π²(i² + j²))^(−α)."""
+    k2 = np.pi**2 * (eigen_index[:, 0] ** 2 + eigen_index[:, 1] ** 2)
+    return scale * k2 ** (-alpha)

@@ -1,0 +1,143 @@
+"""Problem runner: config → burn-in launch → recorded sampling launch →
+diagnostics (mirrors ``ip_mcmc_tpu/runner.py``: ``run_problem``,
+``_run_fused_mcmc``'s ``da_pcn`` branch, ``_finalize``). Returns the JAX
+runner's JSON-able metrics dict, key for key.
+
+Timing protocol (as the JAX runner's): the burn launch uses seed 1 and
+is timed as ``warmup_s`` (on the card it also pays the kernels' build at
+first use); the recorded launch uses seed 2 and runs twice — the first
+call builds and runs, the identical second call is timed as ``run_s``, and
+the difference is ``compile_s``. ``first_dispatch_s`` is the time of the
+first device synchronisation.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ip_mcmc_tpu_torch import diagnostics
+from ip_mcmc_tpu_torch.ops import fused_da_pcn
+
+# metric keys that name wall-time phases (attribution in _finalize)
+_PHASE_KEYS = ("warmup_s", "compile_s", "first_dispatch_s", "run_s", "diag_s")
+
+
+def _barrier(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _summarize_timed(samples):
+    t0 = time.perf_counter()
+    summ = diagnostics.summarize(samples)
+    summ = {k: v.cpu() for k, v in summ.items()}
+    return summ, time.perf_counter() - t0
+
+
+def _finalize(metrics, t_start):
+    """End-to-end wall, unattributed remainder, the per-invocation ESS rate
+    and the R̂ convergence flag (``runner._finalize``)."""
+    metrics["total_wall_s"] = time.perf_counter() - t_start
+    metrics["unattributed_s"] = metrics["total_wall_s"] - sum(
+        metrics.get(k, 0.0) for k in _PHASE_KEYS
+    )
+    if "min_ess" in metrics:
+        metrics["ess_per_total_wall_s"] = (
+            metrics["min_ess"] / metrics["total_wall_s"]
+        )
+    rhat = metrics.get("max_rhat")
+    if rhat is not None:
+        metrics["converged"] = bool(rhat < 1.1)
+        if not metrics["converged"]:
+            metrics["warning"] = (
+                f"max_rhat {rhat:.2f} > 1.1: chains not converged — treat "
+                "posterior_mean as unreliable; increase n_samples/burn_in"
+            )
+    return metrics
+
+
+def _run_fused_mcmc(problem, generator, n_chains, n_samples, device):
+    """The fused delayed-acceptance pCN path: burn-in launch + recorded
+    sampling launch, diagnostics on the recorded series."""
+    kp = dict(problem.kernel_params)
+    block = min(int(kp.get("block_chains", 512)), n_chains)
+    k = int(kp.get("subchain_len", 4))
+    run_kw = dict(
+        prior_mean=problem.prior.mean, prior_scale=problem.prior.scale,
+        beta=kp.get("beta", 0.2), subchain_len=k, block_chains=block,
+    )
+    exact, surr = problem.batched_potential_fn, problem.batched_surrogate_fn
+    if surr is None:
+        raise ValueError(
+            f"config {problem.name}: fused 'da_pcn' needs batched_surrogate_fn"
+        )
+    positions = problem.init_positions(generator, n_chains).to(device)
+
+    t0 = time.perf_counter()
+    _barrier(device)
+    first_dispatch_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    positions, _, inner = fused_da_pcn.fused_da_pcn_chain(
+        exact, surr, positions, seed=1, n_steps=problem.burn_in, **run_kw
+    )
+    inner = inner.cpu()  # transfer barrier
+    burn_s = time.perf_counter() - t0
+
+    rec_kw = dict(seed=2, n_steps=n_samples * problem.thin, thin=problem.thin,
+                  **run_kw)
+    t0 = time.perf_counter()
+    out1 = fused_da_pcn.fused_da_pcn_chain_recorded(exact, surr, positions,
+                                                    **rec_kw)
+    out1[1].cpu()
+    first_rec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, acc, samples = fused_da_pcn.fused_da_pcn_chain_recorded(
+        exact, surr, positions, **rec_kw
+    )
+    acc = acc.cpu()
+    run_s = time.perf_counter() - t0
+
+    summ, diag_s = _summarize_timed(samples)
+    outer_rate = n_chains * n_samples * problem.thin / run_s
+    return {
+        "inner_accept_rate": float(inner.mean()),
+        "config": problem.name,
+        "kernel": f"{problem.kernel}(fused)",
+        "n_chains": int(n_chains),
+        "n_samples": int(n_samples),
+        "dim": int(problem.dim),
+        "first_dispatch_s": first_dispatch_s,
+        "warmup_s": burn_s,
+        "compile_s": max(first_rec_s - run_s, 0.0),
+        "run_s": run_s,
+        "outer_steps_per_s": outer_rate,
+        "inner_steps_per_s": outer_rate * k,
+        "diag_s": diag_s,
+        "min_ess": float(summ["min_ess"]),
+        "ess_per_s": float(summ["min_ess"]) / run_s,
+        "max_rhat": float(summ["max_rhat"]),
+        "accept_rate": float(acc.mean()),
+        "posterior_mean": summ["mean"].tolist(),
+    }
+
+
+def run_problem(problem, device, seed: int = 0, n_chains=None,
+                n_samples=None):
+    """Execute a Problem end-to-end on ``device``; returns a metrics dict.
+    ``seed`` seeds the host-side ``torch.Generator`` of the initial
+    positions."""
+    t_start = time.perf_counter()
+    device = torch.device(device)
+    n_chains = n_chains or problem.n_chains
+    n_samples = n_samples or problem.n_samples
+    if not (problem.kernel == "da_pcn" and problem.kernel_params.get("fused")
+            and problem.batched_potential_fn is not None):
+        raise NotImplementedError(
+            f"config {problem.name}: only the fused da_pcn path is ported"
+        )
+    generator = torch.Generator().manual_seed(int(seed))
+    metrics = _run_fused_mcmc(problem, generator, n_chains, n_samples, device)
+    return _finalize(metrics, t_start)

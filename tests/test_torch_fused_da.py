@@ -1,0 +1,148 @@
+"""The port's fused delayed-acceptance pCN (ip_mcmc_tpu_torch/ops/fused_da_pcn.py,
+plain loop on the CPU) against the JAX Pallas kernel in interpret mode, on
+the darcy_da_fused potentials; and the algorithm properties of
+tests/test_fused_da.py on analytic targets."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ip_mcmc_tpu import ops as jops
+from ip_mcmc_tpu.models import darcy as jdarcy
+from ip_mcmc_tpu_torch import configs
+from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
+
+torch.set_num_threads(1)
+
+N, D, BLOCK, K, OUTER, SEED = 64, 64, 32, 4, 2, 5
+
+
+@pytest.fixture(scope="module")
+def potentials():
+    """The darcy_da_fused exact and surrogate misfits, JAX and port, from
+    the same frozen arrays (tests/test_torch_slice.py holds the fixture
+    against a fresh JAX config build)."""
+    fx = np.load(configs.FIXTURE)
+    _, aux16 = jdarcy.make_darcy_forward(n_grid=16, n_modes_per_dim=8,
+                                         alpha=2.0, field_scale=10.0)
+    _, aux8 = jdarcy.make_darcy_forward(n_grid=8, n_modes_per_dim=8, alpha=2.0,
+                                        field_scale=10.0,
+                                        obs_indices=fx["obs_coarse"])
+    jax_pots = (
+        jdarcy.make_batched_misfit(aux16, fx["y"], 0.002, cg_iters=12,
+                                   precond="dst_trunc", precond_modes=128),
+        jdarcy.make_batched_misfit(aux8, fx["y_surr"], fx["surr_scale"],
+                                   cg_iters=3, precond="dst_trunc",
+                                   precond_modes=64),
+    )
+    p = configs.build("darcy_da_fused", "cpu")
+    return jax_pots, (p.batched_potential_fn, p.batched_surrogate_fn)
+
+
+def _positions():
+    return np.random.default_rng(7).standard_normal((N, D)).astype(np.float32)
+
+
+def _agreeing(a, b):
+    return np.abs(np.asarray(a) - np.asarray(b)).max(axis=-1) <= 1e-4
+
+
+def test_da_chain_matches_jax(potentials):
+    """Same positions, seed and stream: at least 62 of 64 chains end within
+    1e-4 of JAX's (a rounding flip in a bf16 preconditioner input can turn
+    one MH decision), and those chains took the same decisions."""
+    (je, js), (te, ts) = potentials
+    pos, pm, ps = _positions(), np.zeros(D, np.float32), np.ones(D, np.float32)
+    fj, aj, ij = jops.fused_da_pcn_chain(
+        je, js, jnp.asarray(pos), pm, ps, 0.35, SEED, n_steps=OUTER,
+        subchain_len=K, block_chains=BLOCK)
+    ft, at, it = da.fused_da_pcn_chain(
+        te, ts, torch.from_numpy(pos), pm, ps, 0.35, SEED, n_steps=OUTER,
+        subchain_len=K, block_chains=BLOCK)
+    assert ft.shape == (N, D) and at.shape == it.shape == (N,)
+    ok = _agreeing(ft, fj)
+    assert ok.sum() >= 62
+    np.testing.assert_array_equal(at.numpy()[ok], np.asarray(aj)[ok])
+    np.testing.assert_array_equal(it.numpy()[ok], np.asarray(ij)[ok])
+
+
+def test_da_chain_recorded_matches_jax(potentials):
+    (je, js), (te, ts) = potentials
+    pos, pm, ps = _positions(), np.zeros(D, np.float32), np.ones(D, np.float32)
+    fj, aj, sj = jops.fused_da_pcn_chain_recorded(
+        je, js, jnp.asarray(pos), pm, ps, 0.35, SEED + 1, n_steps=OUTER,
+        thin=1, subchain_len=K, block_chains=BLOCK)
+    ft, at, st = da.fused_da_pcn_chain_recorded(
+        te, ts, torch.from_numpy(pos), pm, ps, 0.35, SEED + 1, n_steps=OUTER,
+        thin=1, subchain_len=K, block_chains=BLOCK)
+    assert st.shape == np.asarray(sj).shape == (OUTER, N, D)
+    ok = _agreeing(ft, fj) & _agreeing(st, sj).all(axis=0)
+    assert ok.sum() >= 62
+    np.testing.assert_array_equal(at.numpy()[ok], np.asarray(aj)[ok])
+
+
+def test_recorded_final_equals_plain_final(potentials):
+    _, (te, ts) = potentials
+    pos = torch.from_numpy(_positions())
+    args = (te, ts, pos, torch.zeros(D), torch.ones(D), 0.35, 9)
+    f1, a1, _ = da.fused_da_pcn_chain(*args, n_steps=4, subchain_len=3,
+                                      block_chains=BLOCK)
+    f2, a2, s2 = da.fused_da_pcn_chain_recorded(*args, n_steps=4, thin=2,
+                                                subchain_len=3,
+                                                block_chains=BLOCK)
+    assert torch.equal(f1, f2) and torch.equal(a1, a2)
+    assert s2.shape == (2, N, D) and torch.equal(s2[-1], f2)
+
+
+# --- algorithm properties on an analytic target (tests/test_fused_da.py) ---
+
+DA = 4
+PREC = torch.linspace(0.5, 2.0, DA)  # posterior precision = 1 + PREC
+PM, PS = torch.zeros(DA), torch.ones(DA)
+
+
+def phi_exact(U):  # (d, block) -> (block,)
+    return 0.5 * torch.sum(PREC[:, None] * U * U, dim=0)
+
+
+def test_exact_posterior_with_biased_surrogate():
+    """A deliberately wrong surrogate still yields the exact posterior."""
+
+    def surr(U):
+        return 0.8 * phi_exact(U + 0.3) + 1.7
+
+    g = torch.Generator().manual_seed(0)
+    pos = torch.randn(512, DA, generator=g)
+    n_steps = 400
+    _, _, samples = da.fused_da_pcn_chain_recorded(
+        phi_exact, surr, pos, PM, PS, 0.3, 3, n_steps=n_steps, thin=1,
+        subchain_len=4, block_chains=256)
+    flat = samples[n_steps // 4:].reshape(-1, DA).numpy()
+    np.testing.assert_allclose(flat.mean(axis=0), np.zeros(DA), atol=0.06)
+    np.testing.assert_allclose(flat.var(axis=0), 1.0 / (1.0 + PREC.numpy()),
+                               rtol=0.12)
+
+
+def test_perfect_surrogate_always_accepts_correction():
+    g = torch.Generator().manual_seed(1)
+    pos = torch.randn(256, DA, generator=g)
+    _, acc, inner = da.fused_da_pcn_chain(
+        phi_exact, phi_exact, pos, PM, PS, 0.3, 5, n_steps=100,
+        subchain_len=3, block_chains=256)
+    np.testing.assert_allclose(acc.numpy(), 1.0, atol=1e-6)
+    assert 0.3 < float(inner.mean()) < 1.0
+
+
+def test_shape_checks_and_kernel_potential_type():
+    pos = torch.zeros(48, DA)
+    with pytest.raises(ValueError, match="multiple of block_chains"):
+        da.fused_da_pcn_chain(phi_exact, phi_exact, pos, PM, PS, 0.3, 0,
+                              n_steps=2, block_chains=32)
+    with pytest.raises(ValueError, match="multiple of thin"):
+        da.fused_da_pcn_chain_recorded(phi_exact, phi_exact, pos, PM, PS, 0.3,
+                                       0, n_steps=3, thin=2, block_chains=16)
+    # the CUDA kernel takes DarcyMisfit specs only; it refuses a callable
+    # before touching any device
+    with pytest.raises(TypeError, match="DarcyMisfit"):
+        da._launch(phi_exact, phi_exact, pos, PM, PS, 0.3, 0, 2, 4, 16)

@@ -1,0 +1,106 @@
+"""The port's main path end to end (config, runner, CLI) against the JAX
+package on the CPU: the frozen fixture, the config's misfits, the CLI's
+JSON keys; and the rule that the port never imports JAX."""
+
+import dataclasses
+import json
+import pathlib
+import re
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ip_mcmc_tpu import configs as jconfigs
+from ip_mcmc_tpu import runner as jrunner
+from ip_mcmc_tpu_torch import configs, resolve_device, run
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "scripts"))
+import freeze_torch_fixtures  # noqa: E402
+from test_torch_darcy import assert_bf16_agreement  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def jax_problem():
+    return jconfigs.build("darcy_da_fused")
+
+
+def test_fixture_matches_fresh_jax_build(jax_problem):
+    fresh = freeze_torch_fixtures.fixture_arrays(jax_problem)
+    frozen = np.load(configs.FIXTURE)
+    assert set(frozen.files) == set(fresh)
+    for k, v in fresh.items():
+        np.testing.assert_allclose(frozen[k], v, rtol=1e-6, err_msg=k)
+
+
+def test_config_misfits_match_jax_problem(jax_problem):
+    """The port's config (numpy constants + fixture) gives the JAX config's
+    potentials. Exact: every prior draw within rtol 1e-5; surrogate: bf16
+    preconditioner rounding flips allowed as in test_torch_darcy.py."""
+    p = configs.build("darcy_da_fused", "cpu")
+    assert p.dim == jax_problem.dim and p.thin == jax_problem.thin
+    assert (p.n_chains, p.n_samples, p.burn_in) == (
+        jax_problem.n_chains, jax_problem.n_samples, jax_problem.burn_in)
+    assert p.kernel_params == jax_problem.kernel_params
+    U = np.random.default_rng(11).standard_normal((64, 128)).astype(np.float32)
+    want = np.asarray(jax_problem.batched_potential_fn(jnp.asarray(U)))
+    got = p.batched_potential_fn(torch.from_numpy(U)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    want = np.asarray(jax_problem.batched_surrogate_fn(jnp.asarray(U)))
+    got = p.batched_surrogate_fn(torch.from_numpy(U)).numpy()
+    assert_bf16_agreement(got, want)
+
+
+def test_cli_json_keys_match_jax_runner(jax_problem, capsys):
+    assert run.main(["--config", "darcy_da_fused", "--device", "cpu",
+                     "--n-chains", "64", "--n-samples", "4"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    m = json.loads(lines[0])
+
+    jp = dataclasses.replace(
+        jax_problem, n_chains=64, n_samples=4, burn_in=2,
+        kernel_params={**jax_problem.kernel_params, "subchain_len": 4,
+                       "block_chains": 32},
+    )
+    jm = jrunner.run_problem(jp, key=jax.random.key(0))
+    jm["setup_s"] = jm["cli_total_s"] = 0.0  # added by ip_mcmc_tpu.run
+    # "warning" appears exactly when R̂ > 1.1 (on either side)
+    for metrics in (m, jm):
+        assert ("warning" in metrics) == (not metrics["converged"])
+    assert set(m) - {"warning"} == set(jm) - {"warning"}
+
+    assert m["config"] == "darcy_da_fused" and m["kernel"] == "da_pcn(fused)"
+    assert (m["n_chains"], m["n_samples"], m["dim"]) == (64, 4, 64)
+    for k in ("outer_steps_per_s", "inner_steps_per_s", "ess_per_s",
+              "min_ess", "max_rhat", "run_s", "warmup_s"):
+        assert np.isfinite(m[k]) and m[k] > 0.0, k
+    assert m["inner_steps_per_s"] == pytest.approx(48 * m["outer_steps_per_s"])
+    for k in ("accept_rate", "inner_accept_rate"):
+        assert 0.0 <= m[k] <= 1.0
+    assert len(m["posterior_mean"]) == 64
+    assert np.isfinite(m["posterior_mean"]).all()
+
+
+def test_cuda_device_is_never_a_silent_fallback():
+    if torch.cuda.is_available():
+        assert resolve_device("cuda").type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_port_never_imports_jax():
+    pattern = re.compile(r"^\s*(import\s+jax|from\s+jax)\b", re.M)
+    files = sorted((ROOT / "ip_mcmc_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
