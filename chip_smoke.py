@@ -2,14 +2,23 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``ip_mcmc_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version on the card at the main path's shapes,
-times both, then drives ``darcy_da_fused`` (4096 chains, 40 burn-in outer
-steps, 400 samples at thin 4) through the port's CLI in-process and checks
-that it went through the kernels. Every phase raises on failure. Prints
-the card's name and power limit, a JSON line of per-kernel results, and as
-the last line ``{"ok": true, "device": {...}}``. Without CUDA it exits
-non-zero and prints no result.
+Builds the CUDA kernels from ``ip_mcmc_tpu_torch/csrc`` (one nvcc per
+``.cu``, in parallel), holds each kernel against its plain PyTorch version
+on the card at the shapes of the ported paths (4096 chains), times both,
+then drives the four ported configs through the port's CLI in-process at
+full width:
+
+    darcy_da_fused           delayed-acceptance pCN   (K1-K5)
+    darcy_pcn_warm           warm-started pCN         (K7)
+    darcy_ess_fused          elliptical slice sampling (K8)
+    darcy_pcn_4096 --fused   cold pCN                 (K6)
+
+Before each run the launch counts are set to 0; after it they must show
+that the run went through its kernels and through no plain version. Every
+phase raises on failure. Prints the card's name and power limit, a JSON
+line of per-kernel results (time, plain time, roofline bound, launches),
+and as the last line ``{"ok": true, "device": {...}}``. Without CUDA it
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -24,19 +33,35 @@ import time
 
 import torch
 
+# --- tolerances ---------------------------------------------------------------
 # Misfit kernel vs plain version: the same f32 arithmetic in different
-# summation orders. The preconditioner rounds its inputs to bf16, so an
-# ulp-level difference occasionally flips one rounding; with 3 CG
-# iterations (surrogate) such a flip moves Phi by up to ~1e-3 relative
-# (measured on the CPU against JAX; with f32 factors every draw agrees
-# within 6e-7). Hence the bounds of tests/test_torch_darcy.py: median
-# within MEDIAN_RTOL, a share MIN_FRAC within RTOL, all within RTOL_FLIP.
-MEDIAN_RTOL, RTOL, MIN_FRAC, RTOL_FLIP = 2e-6, 1e-5, 0.80, 5e-3
-# Fused kernel vs plain loop: chains within CHAIN_ATOL, mean rates within
-# RATE_ATOL (a rounding flip can turn one MH decision and part a chain).
+# summation orders. The spectral preconditioners round their inputs to
+# bf16, so an ulp-level difference occasionally flips one rounding; after a
+# few CG iterations such a flip moves Phi by up to ~1e-3 relative (measured
+# on the CPU against JAX; with f32 factors every draw agrees within 6e-7).
+# Each bound is (median rel, rtol, least share within rtol, max rel):
+BF16_TOL = (2e-6, 1e-5, 0.80, 5e-3)   # the bounds of tests/test_torch_darcy.py
+# 4 iterations from x0 = 0 stop in an unconverged solve, where a flip is
+# not damped (tests/test_torch_darcy_warm.py: median <= 5e-6, >= 94% within
+# 1e-4, max 7e-4 against JAX):
+BF16_COLD_START_TOL = (2e-5, 1e-4, 0.90, 5e-3)
+# every input f32 (Jacobi): summation order only
+F32_TOL = (2e-6, 1e-5, 0.99, 1e-4)
+# Fused kernel vs plain loop (whose solves are the misfits' plain versions):
+# chains within CHAIN_ATOL, mean rates within RATE_ATOL (a rounding flip can
+# turn one MH decision and part a chain; measured: >= 99.98% of chains).
 CHAIN_ATOL, MIN_CHAIN_FRAC, RATE_ATOL = 1e-4, 0.99, 1e-2
-N_CHAINS, BLOCK, K, OUTER = 4096, 512, 48, 2
+N_CHAINS = 4096
 RUN_BUDGET_S = 600.0  # the CLI phase's share of the 1200 s limit
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): f32 outside the
+# tensor cores, and HBM3 bandwidth. The kernels' multiply-adds are f32.
+PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+
+SRC = "ip_mcmc_tpu_torch/csrc/"
+JAX_OPS = "ip_mcmc_tpu/ops/fused_mcmc.py:"
+# the pallas_call sites of the plain and the recorded scaffold
+SCAFFOLD = {False: JAX_OPS + "260", True: JAX_OPS + "950"}
 
 
 def card_line() -> str:
@@ -59,109 +84,339 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_misfits(problem, gen, results):
+# --- the least time the card could take -------------------------------------
+
+
+def solve_flops(pot, warm: bool) -> float:
+    """f32 operations of one Darcy solve for one chain (a multiply-add is
+    two), counted from the misfit's shapes: KL reconstruction, exp and log,
+    transmissibilities and diagonal, then per CG iteration one stencil
+    apply (13 N), two dot products, three vector updates and one
+    preconditioner apply."""
+    n, N, K, m = pot.n, pot.n * pot.n, pot.K, int(pot.obs.numel())
+    precond = {"jacobi": N, "dst_trunc": N + 4 * pot.modes * N + pot.modes,
+               "dst": 8 * n * N + N}[pot.precond]
+    setup = 2 * K * N + 2 * N + 18 * N
+    start = precond + 2 * N + (14 * N if warm else 0)
+    return setup + start + pot.cg_iters * (23 * N + precond) + 3 * m
+
+
+def constant_bytes(pot) -> int:
+    return sum(t.numel() * t.element_size() for t in
+               (pot.basis, pot.V, pot.lam, pot.S, pot.source, pot.obs,
+                pot.data, pot.noise))
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """max(operations / f32 peak, bytes / memory rate), in ms."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def misfit_bound(pot, B, warm):
+    N = pot.n * pot.n
+    io_bytes = 4 * B * (pot.K + 1 + (2 * N if warm else 0))
+    return bound(B * solve_flops(pot, warm), io_bytes + constant_bytes(pot))
+
+
+def chain_bound(pots, n, d, per_step_flops, recorded):
+    """One step of a fused launch, counted as a launch of one step:
+    positions in and out, start values, acceptance and the constants once,
+    one record when recording, and the step's solves and draws."""
+    nbytes = 4 * n * (2 * d + 2) + sum(constant_bytes(p) for p in pots)
+    if recorded:
+        nbytes += 4 * n * d
+    return bound(n * per_step_flops, nbytes)
+
+
+RNG_FLOPS_PER_DRAW = 40  # hash, log, sqrt, sin/cos per normal coordinate
+
+
+# --- kernel against plain version ---------------------------------------------
+
+
+def plain_potential(pot, warm=False):
+    """The misfit's plain version as a callable. A misfit module given CUDA
+    tensors launches its kernel, so the plain loops below get this instead:
+    their every solve is plain PyTorch."""
+    return pot._forward_warm_plain if warm else pot._forward_plain
+
+
+def compare_misfit(results, pot, U, *, variant, paths, tol, x0=None,
+                   replaces):
+    """One misfit kernel launch against its plain version on the same
+    inputs; appends the result row. Returns the kernel's output."""
     from ip_mcmc_tpu_torch.ops import _build
 
-    U = problem.prior.sample(gen, N_CHAINS).T.contiguous()
-    for label, pot in (("exact", problem.batched_potential_fn),
-                       ("surrogate", problem.batched_surrogate_fn)):
-        name = f"darcy_misfit_kernel[n={pot.n}]"
-        before = _build.launch_counts[name]
-        got = pot(U)
-        assert _build.launch_counts[name] == before + 1, f"{name} did not launch"
-        ref = pot._forward_plain(U)
-        torch.cuda.synchronize()
-        assert got.shape == ref.shape == (N_CHAINS,)
-        assert bool(torch.isfinite(got).all()), f"{name}: non-finite Phi"
-        rel = ((got - ref).abs() / ref.abs()).cpu()
-        frac = float((rel <= RTOL).double().mean())
-        print(f"{name} ({label}, {N_CHAINS} prior draws): {frac:.4f} within "
-              f"rtol {RTOL}, median rel {float(rel.median()):.3e}, max rel "
-              f"{float(rel.max()):.3e}", flush=True)
-        if (float(rel.median()) > MEDIAN_RTOL or frac < MIN_FRAC
-                or float(rel.max()) > RTOL_FLIP):
-            raise AssertionError(f"{name} disagrees with its plain version")
-        ms = cuda_time_ms(lambda: pot(U), 20)
-        plain_ms = cuda_time_ms(lambda: pot._forward_plain(U), 3)
-        print(f"  time per call: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-        results.append({
-            "name": name, "route": "cuda",
-            "source": "ip_mcmc_tpu_torch/csrc/fused_da_pcn.cu",
-            "replaces": "ip_mcmc_tpu/models/darcy.py:542",
-            "max_abs_err": float((got - ref).abs().max()),
-            "max_rel_err": float(rel.max()), "frac_within_rtol": frac,
-            "ms": ms, "plain_ms": plain_ms,
-        })
+    warm = x0 is not None
+    name = "darcy_misfit_warm_kernel" if warm else f"darcy_misfit_kernel[n={pot.n}]"
+    kern = (lambda: pot(U, x0)) if warm else (lambda: pot(U))
+    plain = ((lambda: pot._forward_warm_plain(U, x0)) if warm
+             else (lambda: pot._forward_plain(U)))
+    before = _build.launch_counts[name]
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1, f"{name} did not launch"
+    phi, phi_ref = (got[0], ref[0]) if warm else (got, ref)
+    B = U.shape[1]
+    assert phi.shape == phi_ref.shape == (B,)
+    assert bool(torch.isfinite(phi).all()), f"{name}: non-finite Phi"
+    rel = ((phi - phi_ref).abs() / phi_ref.abs()).cpu()
+    median, rtol, min_frac, rtol_max = tol
+    frac = float((rel <= rtol).double().mean())
+    line = (f"{name} ({variant}, {B} draws): {frac:.4f} within rtol {rtol}, "
+            f"median rel {float(rel.median()):.3e}, max rel {float(rel.max()):.3e}")
+    max_abs = float((phi - phi_ref).abs().max())
+    bad = float(rel.median()) > median or frac < min_frac or float(rel.max()) > rtol_max
+    if warm:
+        assert got[1].shape == ref[1].shape == x0.shape
+        x_err = ((got[1] - ref[1]).abs().max(dim=0).values
+                 / ref[1].abs().max(dim=0).values).cpu()
+        line += (f"; solution: median {float(x_err.median()):.3e}, max "
+                 f"{float(x_err.max()):.3e} of its largest cell")
+        bad = bad or float(x_err.median()) > 10 * median or float(x_err.max()) > rtol_max
+    print(line, flush=True)
+    if bad:
+        raise AssertionError(f"{name} ({variant}) disagrees with its plain version")
+    ms, plain_ms = cuda_time_ms(kern, 20), cuda_time_ms(plain, 3)
+    row = {
+        "name": name, "variant": variant, "route": "cuda",
+        "source": SRC + ("fused_pcn.cu" if warm else "fused_da_pcn.cu"),
+        "replaces": replaces, "paths": paths, "max_abs_err": max_abs,
+        "max_rel_err": float(rel.max()), "frac_within_rtol": frac,
+        "ms": ms, "plain_ms": plain_ms, "ms_unit": f"one call, {B} draws",
+        **misfit_bound(pot, B, warm), "library_ms": None,
+    }
+    print(f"  time per call: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    results.append(row)
+    return got
 
 
-def check_fused(problem, gen, results):
+def compare_chain(results, stem, recorded, kern, plain, *, steps, variant,
+                  paths, source, pots, per_step_flops):
+    """One fused launch of ``steps`` steps against the plain loop from the
+    same start and seed; appends the result row."""
+    name = f"{stem}<{'true' if recorded else 'false'}>"
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    n, d = got[0].shape
+    assert got[0].shape == ref[0].shape
+    assert bool(torch.isfinite(got[0]).all()), f"{name}: non-finite state"
+    dev = (got[0] - ref[0]).abs().max(dim=1).values
+    frac = float((dev <= CHAIN_ATOL).double().mean())
+    rate_err = [abs(float(g.mean()) - float(r.mean()))
+                for g, r in zip(got[1:], ref[1:]) if g.dim() == 1]
+    line = (f"{name} ({variant}, {n} chains, {steps} steps): {frac:.4f} of "
+            f"chains within {CHAIN_ATOL}, mean acceptance kernel "
+            f"{float(got[1].mean()):.4f} plain {float(ref[1].mean()):.4f}")
+    if recorded:
+        assert got[2].shape == ref[2].shape and got[2].shape[1:] == (n, d)
+        rec_frac = float(((got[2] - ref[2]).abs().max(dim=2).values
+                          <= CHAIN_ATOL).double().mean())
+        line += f", records {rec_frac:.4f} within {CHAIN_ATOL}"
+        frac = min(frac, rec_frac)
+    elif len(got) > 2:
+        line += (f", inner kernel {float(got[2].mean()):.4f} plain "
+                 f"{float(ref[2].mean()):.4f}")
+    print(line, flush=True)
+    if frac < MIN_CHAIN_FRAC or max(rate_err) > RATE_ATOL:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    ms = cuda_time_ms(kern, 3) / steps
+    plain_ms = cuda_time_ms(plain, 1) / steps
+    row = {
+        "name": name, "variant": variant, "route": "cuda", "source": SRC + source,
+        "replaces": SCAFFOLD[recorded], "paths": paths,
+        "max_abs_err": float(dev.max()), "frac_chains_within_atol": frac,
+        "ms": ms, "plain_ms": plain_ms,
+        "ms_unit": f"one step (a launch of {steps} with its start misfit, / {steps})",
+        **chain_bound(pots, n, d, per_step_flops, recorded), "library_ms": None,
+    }
+    print(f"  one step at full width: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+          f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    results.append(row)
+
+
+def check_da(problem, gen, results):
     from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
 
-    pos = problem.init_positions(gen, N_CHAINS).cuda()
     exact, surr = problem.batched_potential_fn, problem.batched_surrogate_fn
+    U = problem.prior.sample(gen, N_CHAINS).T.contiguous()
+    compare_misfit(results, exact, U, variant="exact: dst_trunc-128, 12 CG",
+                   paths=["darcy_da_fused"], tol=BF16_TOL,
+                   replaces="ip_mcmc_tpu/models/darcy.py:542")
+    compare_misfit(results, surr, U, variant="surrogate: dst_trunc-64, 3 CG",
+                   paths=["darcy_da_fused"], tol=BF16_TOL,
+                   replaces="ip_mcmc_tpu/models/darcy.py:542")
+    pos = problem.init_positions(gen, N_CHAINS).cuda()
+    block, k, outer = 512, 48, 2
     args = (exact, surr, pos, problem.prior.mean, problem.prior.scale, 0.35, 11)
-    for record in (False, True):
-        name = f"fused_da_pcn_kernel<{'true' if record else 'false'}>"
-        if record:
-            kern = lambda: da.fused_da_pcn_chain_recorded(
-                *args, n_steps=OUTER, thin=1, subchain_len=K, block_chains=BLOCK)
-            plain = lambda: da._run_plain_recorded(
-                *args, n_steps=OUTER, thin=1, subchain_len=K, block_chains=BLOCK)
+    plain_args = (plain_potential(exact), plain_potential(surr), *args[2:])
+    d = pos.shape[1]
+    flops = (k * (solve_flops(surr, False) + RNG_FLOPS_PER_DRAW * d)
+             + solve_flops(exact, False))
+    for recorded in (False, True):
+        kw = dict(n_steps=outer, subchain_len=k, block_chains=block)
+        if recorded:
+            kern = lambda: da.fused_da_pcn_chain_recorded(*args, thin=1, **kw)
+            plain = lambda: da._run_plain_recorded(*plain_args, thin=1, **kw)
         else:
-            kern = lambda: da.fused_da_pcn_chain(
-                *args, n_steps=OUTER, subchain_len=K, block_chains=BLOCK)
-            plain = lambda: da._run_plain(
-                *args, n_steps=OUTER, subchain_len=K, block_chains=BLOCK)
-        got, ref = kern(), plain()
-        torch.cuda.synchronize()
-        assert got[0].shape == ref[0].shape == pos.shape
-        assert bool(torch.isfinite(got[0]).all()), f"{name}: non-finite state"
-        dev = (got[0] - ref[0]).abs().max(dim=1).values
-        frac = float((dev <= CHAIN_ATOL).double().mean())
-        rate_err = [abs(float(g.mean()) - float(r.mean()))
-                    for g, r in zip(got[1:], ref[1:]) if g.dim() == 1]
-        line = (f"{name} ({N_CHAINS} chains, block {BLOCK}, k={K}, {OUTER} outer "
-                f"steps): {frac:.4f} of chains within {CHAIN_ATOL}, mean "
-                f"acceptance kernel {float(got[1].mean()):.4f} plain "
-                f"{float(ref[1].mean()):.4f}")
-        if record:
-            assert got[2].shape == ref[2].shape == (OUTER, N_CHAINS, pos.shape[1])
-            rec_frac = float(((got[2] - ref[2]).abs().max(dim=2).values
-                              <= CHAIN_ATOL).double().mean())
-            line += f", records {rec_frac:.4f} within {CHAIN_ATOL}"
-            frac = min(frac, rec_frac)
-        else:
-            line += (f", inner kernel {float(got[2].mean()):.4f} plain "
-                     f"{float(ref[2].mean()):.4f}")
-        print(line, flush=True)
-        if frac < MIN_CHAIN_FRAC or max(rate_err) > RATE_ATOL:
-            raise AssertionError(f"{name} disagrees with its plain version")
-        ms = cuda_time_ms(kern, 3) / OUTER
-        plain_ms = cuda_time_ms(plain, 1) / OUTER
-        print(f"  one outer step at full width: kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms", flush=True)
-        results.append({
-            "name": name, "route": "cuda",
-            "source": "ip_mcmc_tpu_torch/csrc/fused_da_pcn.cu",
-            "replaces": ("ip_mcmc_tpu/ops/fused_mcmc.py:950" if record
-                         else "ip_mcmc_tpu/ops/fused_mcmc.py:260"),
-            "max_abs_err": float(dev.max()), "frac_chains_within_atol": frac,
-            "ms": ms, "plain_ms": plain_ms, "ms_unit": "one outer step",
-        })
+            kern = lambda: da.fused_da_pcn_chain(*args, **kw)
+            plain = lambda: da._run_plain(*plain_args, **kw)
+        compare_chain(results, "fused_da_pcn_kernel", recorded, kern, plain,
+                      steps=outer, variant=f"block {block}, k={k}",
+                      paths=["darcy_da_fused"], source="fused_da_pcn.cu",
+                      pots=(exact, surr), per_step_flops=flops)
 
 
-def run_main_path(n_samples):
+def check_warm_misfit(problem, gen, results):
+    """The warm misfit kernel: the shipped dst_trunc-64 / 4 CG from x0 = 0
+    and from a previous solution, the dense dst / 4 CG, and Jacobi."""
+    from ip_mcmc_tpu_torch.convert import darcy_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    warm, aux_dim = problem.batched_warm_potential
+    U = problem.prior.sample(gen, N_CHAINS).T.contiguous()
+    step = problem.prior.sample(gen, N_CHAINS).T.contiguous()
+    U2 = (math.sqrt(1 - 0.08 ** 2) * U + 0.08 * step).contiguous()  # a pCN move
+    zeros = torch.zeros(aux_dim, N_CHAINS, device="cuda")
+    replaces = "ip_mcmc_tpu/models/darcy.py:669"
+    _, x1 = compare_misfit(
+        results, warm, U, x0=zeros, variant="dst_trunc-64, 4 CG, x0 = 0",
+        paths=["darcy_pcn_warm"], tol=BF16_COLD_START_TOL, replaces=replaces)
+    compare_misfit(
+        results, warm, U2, x0=x1, variant="dst_trunc-64, 4 CG, x0 = previous solution",
+        paths=["darcy_pcn_warm"], tol=BF16_TOL, replaces=replaces)
+    aux = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    for precond, iters, tol in (("dst", 4, BF16_TOL), ("jacobi", 16, F32_TOL)):
+        other = darcy_warm_misfit_from_arrays(
+            aux, problem.data, 0.002, cg_iters=iters, precond=precond)[0].cuda()
+        compare_misfit(
+            results, other, U2, x0=x1,
+            variant=f"{precond}, {iters} CG, x0 = previous solution",
+            paths=["darcy_pcn_warm"], tol=tol, replaces=replaces)
+
+
+def check_single_level(problems, gen, results):
+    """K6, K7, K8 at their configs' blocks, each plain and recorded."""
+    from ip_mcmc_tpu_torch.ops import fused_ess, fused_pcn
+
+    warm_p, ess_p, cold_p = (problems[k] for k in
+                             ("darcy_pcn_warm", "darcy_ess_fused", "darcy_pcn_4096"))
+    jacobi = cold_p.batched_potential_fn
+    U = cold_p.prior.sample(gen, N_CHAINS).T.contiguous()
+    compare_misfit(results, jacobi, U, variant="cold: jacobi, 48 CG",
+                   paths=["darcy_ess_fused", "darcy_pcn_4096"], tol=F32_TOL,
+                   replaces="ip_mcmc_tpu/models/darcy.py:542")
+    pos = cold_p.init_positions(gen, N_CHAINS).cuda()
+    d = pos.shape[1]
+    pm, ps = cold_p.prior.mean, cold_p.prior.scale
+    warm, aux_dim = warm_p.batched_warm_potential
+    draws = RNG_FLOPS_PER_DRAW * d
+    pcn_cases = (
+        ("fused_pcn_kernel", fused_pcn.fused_pcn_chain,
+         fused_pcn.fused_pcn_chain_recorded, jacobi, 512, 4, {},
+         solve_flops(jacobi, False) + draws, "darcy_pcn_4096",
+         "jacobi, 48 CG, block 512"),
+        ("fused_pcn_warm_kernel", fused_pcn.fused_pcn_chain_warm,
+         fused_pcn.fused_pcn_chain_warm_recorded, warm, 256, 8,
+         {"aux_dim": aux_dim}, solve_flops(warm, True) + draws,
+         "darcy_pcn_warm", "dst_trunc-64, 4 CG, block 256"),
+    )
+    for (stem, chain, chain_rec, pot, block, steps, kw, flops, path,
+         variant) in pcn_cases:
+        args = (pot, pos, pm, ps, 0.08, 13)
+        plain_args = (plain_potential(pot, warm=bool(kw)), *args[1:])
+        for recorded in (False, True):
+            fn, kw_r = (chain_rec, dict(kw, thin=1)) if recorded else (chain, kw)
+            compare_chain(
+                results, stem, recorded,
+                lambda: fn(*args, n_steps=steps, block_chains=block, **kw_r),
+                lambda: fused_pcn._run_plain(*plain_args, steps, block, **kw_r),
+                steps=steps, variant=variant, paths=[path], source="fused_pcn.cu",
+                pots=(pot,), per_step_flops=flops)
+
+    shrink, block, steps = ess_p.kernel_params["max_shrink"], 256, 3
+    args = (jacobi, pos, pm, ps, 17, steps, shrink, block)
+    # what this run's data needs: the evaluations the slices took
+    evals = fused_ess._launch_counting(*args)[3]
+    per_step = float(evals.mean()) / steps
+    print(f"fused_ess_kernel: {per_step:.3f} misfit evaluations per step of a "
+          f"budget of {shrink}", flush=True)
+    for recorded in (False, True):
+        fn, kw_r = ((fused_ess.fused_ess_chain_recorded, {"thin": 1}) if recorded
+                    else (fused_ess.fused_ess_chain, {}))
+        compare_chain(
+            results, "fused_ess_kernel", recorded,
+            lambda: fn(*args[:5], n_steps=steps, max_shrink=shrink,
+                       block_chains=block, **kw_r),
+            lambda: fused_ess._run_plain(plain_potential(jacobi), *args[1:], **kw_r),
+            steps=steps, variant=f"jacobi, 48 CG, max_shrink {shrink}, block {block}",
+            paths=["darcy_ess_fused"], source="fused_ess.cu", pots=(jacobi,),
+            per_step_flops=per_step * solve_flops(jacobi, False) + draws)
+
+
+# --- the CLI runs ---------------------------------------------------------------
+
+# config -> (CLI flags, kernels the run must launch)
+PATHS = {
+    "darcy_da_fused": ([], ("darcy_misfit_kernel[n=16]", "darcy_misfit_kernel[n=8]",
+                            "fused_da_pcn_kernel<false>", "fused_da_pcn_kernel<true>")),
+    "darcy_pcn_warm": ([], ("darcy_misfit_warm_kernel", "fused_pcn_warm_kernel<false>",
+                            "fused_pcn_warm_kernel<true>")),
+    "darcy_ess_fused": ([], ("darcy_misfit_kernel[n=16]", "fused_ess_kernel<false>",
+                             "fused_ess_kernel<true>")),
+    "darcy_pcn_4096": (["--fused"], ("darcy_misfit_kernel[n=16]", "fused_pcn_kernel<false>",
+                                     "fused_pcn_kernel<true>")),
+}
+
+
+def run_cli(config, flags, n_samples):
     """The port's CLI in-process; returns its metrics dict."""
     from ip_mcmc_tpu_torch import run
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = run.main(["--config", "darcy_da_fused", "--device", "cuda",
-                       "--n-samples", str(n_samples)])
+        rc = run.main(["--config", config, "--device", "cuda",
+                       "--n-samples", str(n_samples), *flags])
     assert rc == 0, f"run.main returned {rc}"
     lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
     assert len(lines) == 1, f"expected one JSON line, got {len(lines)}"
     return json.loads(lines[0])
+
+
+def drive_path(config, problem, n_samples):
+    """Counts to 0, one CLI run, counts read; checks kernels, metrics."""
+    from ip_mcmc_tpu_torch.ops import _build
+
+    flags, kernels = PATHS[config]
+    _build.launch_counts.clear()
+    metrics = run_cli(config, flags, n_samples)
+    counts = dict(_build.launch_counts)
+    print(f"{config} metrics: " + json.dumps(metrics), flush=True)
+    print(f"{config} launch counts: " + json.dumps(counts), flush=True)
+    for name in kernels:
+        if counts.get(name, 0) < 1:
+            raise AssertionError(f"{name} was not launched by {config}")
+    plain = {k: v for k, v in counts.items() if "plain" in k and v}
+    if plain:
+        raise AssertionError(f"plain versions ran on {config}: {plain}")
+    assert metrics["n_chains"] == problem.n_chains == N_CHAINS
+    assert metrics["n_samples"] == n_samples
+    assert math.isfinite(metrics["max_rhat"]), "max_rhat is not finite"
+    rates = ["accept_rate"]
+    if problem.kernel == "da_pcn":
+        rates.append("inner_accept_rate")
+        assert metrics["outer_steps_per_s"] > 0.0
+    else:
+        assert "inner_accept_rate" not in metrics
+        assert metrics["steps_per_s"] > 0.0
+    for key in rates:
+        assert 0.0 < metrics[key] <= 1.0, f"{key} = {metrics[key]}"
+    assert all(math.isfinite(v) for v in metrics["posterior_mean"])
+    assert len(metrics["posterior_mean"]) == problem.dim
+    return counts
 
 
 def main() -> int:
@@ -179,43 +434,45 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0.0:.1f} s)",
-          flush=True)
+          f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0.0:.1f} s, "
+          f"{len(_build.sources()[1])} sources in parallel)", flush=True)
 
-    problem = configs.build("darcy_da_fused", "cuda")
+    problems = {name: configs.build(name, "cuda") for name in PATHS}
     gen = torch.Generator().manual_seed(1234)
     results = []
-    check_misfits(problem, gen, results)
-    check_fused(problem, gen, results)
+    check_da(problems["darcy_da_fused"], gen, results)
+    check_warm_misfit(problems["darcy_pcn_warm"], gen, results)
+    check_single_level(problems, gen, results)
 
-    # the main path, as shipped unless its predicted time exceeds the budget
-    step_ms = max(r["ms"] for r in results if r["name"].startswith("fused"))
-    n_samples = problem.n_samples
-    outer = lambda ns: problem.burn_in + 2 * ns * problem.thin
-    if outer(n_samples) * step_ms / 1e3 > RUN_BUDGET_S:
-        n_samples = max(8, int((RUN_BUDGET_S * 1e3 / step_ms - problem.burn_in)
-                               / (2 * problem.thin)))
-        print(f"n_samples cut from {problem.n_samples} to {n_samples} to fit "
-              f"the time limit (width unchanged: {problem.n_chains} chains)",
-              flush=True)
-    _build.launch_counts.clear()
-    metrics = run_main_path(n_samples)
-    counts = dict(_build.launch_counts)
-    print("darcy_da_fused metrics: " + json.dumps(metrics), flush=True)
-    print("launch counts: " + json.dumps(counts), flush=True)
+    # the four paths, as shipped unless their predicted time exceeds the
+    # budget: then every path's n_samples is cut by the same factor
+    step_ms = {
+        "darcy_da_fused": "fused_da_pcn_kernel<true>",
+        "darcy_pcn_warm": "fused_pcn_warm_kernel<true>",
+        "darcy_ess_fused": "fused_ess_kernel<true>",
+        "darcy_pcn_4096": "fused_pcn_kernel<true>",
+    }
+    step_ms = {cfg: next(r["ms"] for r in results if r["name"] == k)
+               for cfg, k in step_ms.items()}
+    steps = lambda p, ns: p.burn_in + 2 * ns * p.thin
+    predicted = sum(steps(p, p.n_samples) * step_ms[c] / 1e3
+                    for c, p in problems.items())
+    cut = min(1.0, RUN_BUDGET_S / predicted)
+    print(f"predicted device time of the four runs as shipped: {predicted:.1f} s",
+          flush=True)
+    counts = {}
+    for config, problem in problems.items():
+        n_samples = max(8, int(problem.n_samples * cut))
+        if n_samples != problem.n_samples:
+            print(f"{config}: n_samples cut from {problem.n_samples} to "
+                  f"{n_samples} to fit the time limit (width unchanged: "
+                  f"{problem.n_chains} chains)", flush=True)
+        counts[config] = drive_path(config, problem, n_samples)
+
     for r in results:
-        r["launches"] = counts.get(r["name"], 0)
+        r["launches"] = sum(counts[p].get(r["name"], 0) for p in r["paths"])
         if r["launches"] < 1:
-            raise AssertionError(f"{r['name']} was not launched by the main path")
-    plain = {k: v for k, v in counts.items() if "plain" in k and v}
-    if plain:
-        raise AssertionError(f"plain versions ran on the main path: {plain}")
-    assert metrics["n_chains"] == problem.n_chains
-    assert math.isfinite(metrics["max_rhat"]), "max_rhat is not finite"
-    for key in ("accept_rate", "inner_accept_rate"):
-        assert 0.0 < metrics[key] <= 1.0, f"{key} = {metrics[key]}"
-    assert all(math.isfinite(v) for v in metrics["posterior_mean"])
-    assert len(metrics["posterior_mean"]) == problem.dim
+            raise AssertionError(f"{r['name']} was launched by none of {r['paths']}")
 
     print(json.dumps({"kernels": results, "card": card}))
     print(json.dumps({"ok": True, "device": {

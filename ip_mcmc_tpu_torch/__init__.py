@@ -2,9 +2,10 @@
 
 The JAX package ``ip_mcmc_tpu`` stays the reference; this package mirrors
 its layout (``models/darcy.py``, ``ops/``, ``configs/``, ``runner.py``,
-``run.py``, ``diagnostics.py``) and runs the delayed-acceptance pCN Darcy
-main path (config ``darcy_da_fused``) through hand-written CUDA kernels
-(``csrc/``). Every kernel has a plain PyTorch version beside it; the
+``run.py``, ``diagnostics.py``) and runs the fused Darcy samplers on the
+16×16 grid (delayed-acceptance pCN, the main path ``darcy_da_fused``;
+cold and warm-started pCN; elliptical slice sampling) through
+hand-written CUDA kernels (``csrc/``). Every kernel has a plain PyTorch version beside it; the
 wrappers take the plain version only for tensors on the CPU.
 
 Importing the package builds nothing: the CUDA sources are compiled at

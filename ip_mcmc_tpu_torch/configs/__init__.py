@@ -1,9 +1,12 @@
 """Named configurations of the port (mirrors ``ip_mcmc_tpu/configs``).
 
-Only the main path is ported so far: ``darcy_da_fused``. The deterministic
-constants (KL basis, observation cells, source, preconditioner modes) are
-computed here in numpy; the arrays the JAX config draws with JAX keys are
-read from the committed fixture ``darcy16_da.npz`` (written by
+Ported so far, all on the 16×16 Darcy problem: ``darcy_da_fused``,
+``darcy_pcn_4096`` (its fused path), ``darcy_pcn_warm`` and
+``darcy_ess_fused``. The deterministic constants (KL basis, observation
+cells, source, preconditioner factors) are computed here in numpy; the
+arrays the JAX configs draw with JAX keys (the data ``y`` and the truth of
+``_darcy_problem``, the surrogate's calibration) are read from the
+committed fixture ``darcy16_da.npz`` (written by
 ``scripts/freeze_torch_fixtures.py``).
 """
 
@@ -17,7 +20,10 @@ import numpy as np
 import torch
 
 from ip_mcmc_tpu_torch import distributions as dist
-from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+from ip_mcmc_tpu_torch.convert import (
+    darcy_misfit_from_arrays,
+    darcy_warm_misfit_from_arrays,
+)
 from ip_mcmc_tpu_torch.models import darcy
 
 FIXTURE = pathlib.Path(__file__).resolve().parent / "darcy16_da.npz"
@@ -39,6 +45,8 @@ class Problem:
     notes: str = ""
     batched_potential_fn: Optional[Callable] = None  # (d, B) -> (B,)
     batched_surrogate_fn: Optional[Callable] = None  # fused da_pcn Φ*
+    # fused warm pCN: (module (U, x0) -> (Φ, x), aux_dim)
+    batched_warm_potential: Optional[tuple] = None
 
     def init_positions(self, generator: torch.Generator, n=None):
         """(n, d) prior draws from ``generator`` (host-side, so a seed gives
@@ -60,6 +68,89 @@ def build(name: str, device) -> Problem:
     if name not in REGISTRY:
         raise KeyError(f"unknown config '{name}'; have {sorted(REGISTRY)}")
     return REGISTRY[name](torch.device(device))
+
+
+def _darcy_problem(device):
+    """What the 16×16 Darcy configs share (``_darcy_problem`` of the JAX
+    configs): the whitened prior, the aux constants, y, the truth and the
+    cold Jacobi misfit of 48 CG iterations."""
+    fx = np.load(FIXTURE)
+    K = 64
+    prior = dist.DiagGaussian(
+        mean=torch.zeros(K, device=device), scale=torch.ones(K, device=device)
+    )
+    aux = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8, alpha=2.0,
+                          field_scale=10.0)
+    phi_batched = darcy_misfit_from_arrays(aux, fx["y"], 0.002).to(device)
+    return prior, aux, fx["y"], fx["u_true"], phi_batched
+
+
+@register
+def darcy_pcn_4096(device) -> Problem:
+    """Darcy coefficient inversion by pCN, 64-dim KL, 4096 chains; the port
+    runs its fused path (``--fused``)."""
+    prior, _, y, u_true, phi_batched = _darcy_problem(device)
+    return Problem(
+        name="darcy_pcn_4096",
+        dim=64,
+        prior=prior,
+        kernel="pcn",
+        kernel_params={"beta": 0.08, "adapt": True},
+        n_chains=4096,
+        n_samples=500,
+        burn_in=500,
+        data=y,
+        truth=u_true,
+        notes="elliptic PDE inversion; whitened KL coordinates",
+        batched_potential_fn=phi_batched,
+    )
+
+
+@register
+def darcy_pcn_warm(device) -> Problem:
+    """Warm-started fused pCN on Darcy: the CG solution rides the kernel
+    state and proposal solves start from it (4 iterations, dst_trunc with
+    the 64 lowest sine modes + the Jacobi remainder)."""
+    prior, aux, y, u_true, phi_batched = _darcy_problem(device)
+    warm, aux_dim = darcy_warm_misfit_from_arrays(
+        aux, y, 0.002, cg_iters=4, precond="dst_trunc", precond_modes=64)
+    return Problem(
+        name="darcy_pcn_warm",
+        dim=64,
+        prior=prior,
+        kernel="pcn",
+        kernel_params={"fused": True, "warm": True, "beta": 0.08,
+                       "block_chains": 256},
+        n_chains=4096,
+        n_samples=500,
+        burn_in=500,
+        data=y,
+        truth=u_true,
+        notes="warm dst_trunc-4 K=64",
+        batched_potential_fn=phi_batched,
+        batched_warm_potential=(warm.to(device), aux_dim),
+    )
+
+
+@register
+def darcy_ess_fused(device) -> Problem:
+    """Fused elliptical slice sampling on Darcy: tuning-free (no β), the
+    shrink loop runs the CG misfit up to max_shrink times per step."""
+    prior, _, y, u_true, phi_batched = _darcy_problem(device)
+    return Problem(
+        name="darcy_ess_fused",
+        dim=64,
+        prior=prior,
+        kernel="elliptical",
+        kernel_params={"fused": True, "max_shrink": 6, "block_chains": 256},
+        n_chains=4096,
+        n_samples=400,
+        burn_in=200,
+        data=y,
+        truth=u_true,
+        notes="rejection-free slice sampling, fixed shrink budget",
+        batched_potential_fn=phi_batched,
+    )
 
 
 @register

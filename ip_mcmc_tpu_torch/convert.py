@@ -4,22 +4,22 @@
 ``ip_mcmc_tpu.models.darcy.make_batched_misfit`` as numpy arrays — an aux
 dict (``scaled_basis``, ``obs_indices``, ``source``, ``n_grid``), the data
 and the noise scale(s) — and returns the port's ``DarcyMisfit`` with the
-same constants. It accepts the JAX package's aux dict (array leaves
-convert with ``np.asarray``) or ``models.darcy.darcy_aux``'s.
+same constants. ``darcy_warm_misfit_from_arrays`` does the same for
+``make_batched_misfit_warm`` and returns, as that does, the pair
+(``DarcyMisfitWarm``, ``aux_dim``). Both accept the JAX package's aux dict
+(array leaves convert with ``np.asarray``) or ``models.darcy.darcy_aux``'s.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ip_mcmc_tpu_torch.models.darcy import DarcyMisfit
+from ip_mcmc_tpu_torch.models.darcy import DarcyMisfit, DarcyMisfitWarm
 
 
-def darcy_misfit_from_arrays(aux, data, noise_scale, cg_iters: int = 48,
-                             precond: str = "jacobi",
-                             precond_modes: int = 128,
-                             log_a_mean: float = 0.0) -> DarcyMisfit:
-    return DarcyMisfit(
+def _from_arrays(cls, aux, data, noise_scale, cg_iters, precond,
+                 precond_modes, log_a_mean):
+    return cls(
         scaled_basis=np.asarray(aux["scaled_basis"], np.float32),
         obs_indices=np.asarray(aux["obs_indices"]),
         source=np.asarray(aux["source"], np.float32),
@@ -31,3 +31,20 @@ def darcy_misfit_from_arrays(aux, data, noise_scale, cg_iters: int = 48,
         precond_modes=precond_modes,
         log_a_mean=log_a_mean,
     )
+
+
+def darcy_misfit_from_arrays(aux, data, noise_scale, cg_iters: int = 48,
+                             precond: str = "jacobi",
+                             precond_modes: int = 128,
+                             log_a_mean: float = 0.0) -> DarcyMisfit:
+    return _from_arrays(DarcyMisfit, aux, data, noise_scale, cg_iters,
+                        precond, precond_modes, log_a_mean)
+
+
+def darcy_warm_misfit_from_arrays(aux, data, noise_scale, cg_iters: int = 16,
+                                  precond: str = "jacobi",
+                                  precond_modes: int = 128,
+                                  log_a_mean: float = 0.0):
+    warm = _from_arrays(DarcyMisfitWarm, aux, data, noise_scale, cg_iters,
+                        precond, precond_modes, log_a_mean)
+    return warm, warm.aux_dim

@@ -1,15 +1,16 @@
-// Batched Darcy misfit (K5) as a device function run by one CTA per chain:
-// the arithmetic of ip_mcmc_tpu/models/darcy.py make_batched_misfit
-// (l.542, differentiable=False) with _flat_transmissibilities l.337,
-// _apply_operator_flat l.347, _operator_diagonal_flat l.357, _cg_flat l.363
-// and _flat_truncated_dst_preconditioner l.490.
+// Batched Darcy misfit as a device function run by one CTA per chain: the
+// arithmetic of ip_mcmc_tpu/models/darcy.py make_batched_misfit (K5, l.542,
+// differentiable=False) and make_batched_misfit_warm (K7, l.669) with
+// _flat_transmissibilities l.337, _apply_operator_flat l.347,
+// _operator_diagonal_flat l.357, _cg_flat l.363, _flat_dst_preconditioner
+// l.445 and _flat_truncated_dst_preconditioner l.490.
 //
 // Thread t owns cell t of the n x n grid (t < n*n); the CG vectors x, r,
 // z, Ap and the cell's face transmissibilities live in its registers.
 // Shared memory holds what neighbours or reductions read: the search
 // direction p (stencil), bf16(r) and the spectral coefficients
 // (preconditioner), and the warp partial sums. Every thread of the CTA
-// calls darcy_phi (threads t >= n*n contribute zeros), so every
+// calls darcy_solve (threads t >= n*n contribute zeros), so every
 // __syncthreads is reached by the whole block.
 #pragma once
 
@@ -21,22 +22,26 @@ extern "C" {
 // Mirrored by ip_mcmc_tpu_torch/ops/_build.py MisfitSpec.
 typedef struct {
   const float* basis;   // (K, n*n) scaled KL basis, f32
-  const void* V;        // (modes, n*n) preconditioner modes, bf16
-  const float* lam;     // (modes,) their eigenvalues
+  const void* V;        // (modes, n*n) dst_trunc modes, bf16
+  const float* lam;     // dst_trunc: (modes,) eigenvalues; dst: (n*n,) flat
+  const void* S;        // dst: (n, n) sine matrix, bf16
   const float* source;  // (n*n,)
   const int* obs;       // (m,) observed cells
   const float* data;    // (m,)
   const float* noise;   // (m,) noise standard deviations
   int n, K, modes, cg_iters, m;
+  int precond;  // kPrecondJacobi / kPrecondDstTrunc / kPrecondDst
   float log_a_mean;
 } IpxMisfitSpec;
 }
 
+enum { kPrecondJacobi = 0, kPrecondDstTrunc = 1, kPrecondDst = 2 };
+
 namespace ipx {
 
 struct MisfitSmem {
-  float* cell_a;  // [cells]: a, then t_h, then p, then x
-  float* cell_b;  // [cells]: t_v, then bf16(r)
+  float* cell_a;  // [cells]: a, then t_h, then p, then x; dst stages
+  float* cell_b;  // [cells]: t_v, then bf16(r); dst stages
   float* modes;   // [modes]: bf16(V bf16(r) / (lam * a_bar))
   float* red;     // [32] warp partials
   float* scalar;  // [1] broadcast of the result
@@ -78,10 +83,49 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// M^-1 r = D^-1 r + V^T bf16(V bf16(r) / (lam a_bar)): bf16 inputs, f32
-// accumulation. modes == 0 is plain Jacobi.
+// Dense fast-Poisson apply (precond "dst"): the 2-D sine transform along
+// columns then rows, a divide by lam * a_bar, and the transposed transforms
+// back; n multiply-adds per thread per stage. Inputs of every stage are
+// rounded to bf16 (the four rounding points of _flat_dst_preconditioner's
+// Kronecker matmuls), sums are f32. No Jacobi term.
+__device__ float apply_dst(const IpxMisfitSpec& s, float r, float a_bar,
+                           const MisfitSmem& ws) {
+  const int t = threadIdx.x, n = s.n;
+  const bool own = t < n * n;
+  const int i = own ? t / n : 0, j = own ? t % n : 0;
+  const __nv_bfloat16* S = static_cast<const __nv_bfloat16*>(s.S);
+  if (own) ws.cell_b[t] = bf16_round(r);
+  __syncthreads();
+  float acc = 0.0f;
+  if (own) {  // y[i, k=j] = sum_q S[k, q] r[i, q]
+    for (int q = 0; q < n; ++q) acc += __bfloat162float(S[j * n + q]) * ws.cell_b[i * n + q];
+    ws.cell_a[t] = bf16_round(acc);
+  }
+  __syncthreads();
+  if (own) {  // rt[k1=i, k2=j] = sum_q S[k1, q] y[q, k2] / (lam a_bar)
+    acc = 0.0f;
+    for (int q = 0; q < n; ++q) acc += __bfloat162float(S[i * n + q]) * ws.cell_a[q * n + j];
+    ws.cell_b[t] = bf16_round(acc / (s.lam[t] * a_bar));
+  }
+  __syncthreads();
+  if (own) {  // w[i, k2=j] = sum_q S[q, i] rt[q, k2]
+    acc = 0.0f;
+    for (int q = 0; q < n; ++q) acc += __bfloat162float(S[q * n + i]) * ws.cell_b[q * n + j];
+    ws.cell_a[t] = bf16_round(acc);
+  }
+  __syncthreads();
+  acc = 0.0f;
+  if (own)  // z[i, j] = sum_q S[q, j] w[i, q]
+    for (int q = 0; q < n; ++q) acc += __bfloat162float(S[q * n + j]) * ws.cell_a[i * n + q];
+  __syncthreads();
+  return acc;
+}
+
+// dst_trunc: M^-1 r = D^-1 r + V^T bf16(V bf16(r) / (lam a_bar)), bf16
+// inputs, f32 accumulation; jacobi (modes == 0): D^-1 r; dst: apply_dst.
 __device__ float apply_precond(const IpxMisfitSpec& s, float r, float inv_diag,
                                float a_bar, const MisfitSmem& ws) {
+  if (s.precond == kPrecondDst) return apply_dst(s, r, a_bar, ws);
   const int t = threadIdx.x, cells = s.n * s.n;
   const bool own = t < cells;
   float z = inv_diag * r;
@@ -107,10 +151,34 @@ __device__ float apply_precond(const IpxMisfitSpec& s, float r, float inv_diag,
   return z;
 }
 
-// Phi(u) for the chain whose coefficients u[0..K) sit in shared memory.
-// Returns the same value in every thread.
-__device__ float darcy_phi(const IpxMisfitSpec& s, const float* u,
-                           const MisfitSmem& ws) {
+// The cell's stencil coefficients: faces right (th), left (th_l), below
+// (tv), above (tv_u) and the Dirichlet boundary term (bnd).
+struct CellStencil {
+  float th, th_l, tv, tv_u, bnd;
+};
+
+// (A p)[t] with p handed round through shared memory. The caller's next
+// write to cell_a must come after a later barrier (a block_sum has two).
+__device__ __forceinline__ float apply_operator(const CellStencil& k, float p, bool own,
+                                                int i, int j, int n, const MisfitSmem& ws) {
+  const int t = threadIdx.x;
+  if (own) ws.cell_a[t] = p;
+  __syncthreads();
+  if (!own) return 0.0f;
+  const float pr = j < n - 1 ? ws.cell_a[t + 1] : 0.0f;
+  const float pd = i < n - 1 ? ws.cell_a[t + n] : 0.0f;
+  const float pl = j > 0 ? ws.cell_a[t - 1] : 0.0f;
+  const float pu = i > 0 ? ws.cell_a[t - n] : 0.0f;
+  return k.th * (p - pr) - k.th_l * (pl - p) + k.tv * (p - pd) - k.tv_u * (pu - p) + k.bnd * p;
+}
+
+// Phi(u) for the chain whose coefficients u[0..K) sit in shared memory;
+// the same value in every thread. WARM: CG starts from this thread's cell
+// of the previous solution, passed in x (r = b - A x0); otherwise from 0.
+// On return x is this thread's cell of the solution.
+template <bool WARM>
+__device__ float darcy_solve(const IpxMisfitSpec& s, const float* u,
+                             const MisfitSmem& ws, float& x) {
   const int t = threadIdx.x, n = s.n, cells = n * n;
   const bool own = t < cells;
   const int i = own ? t / n : 0, j = own ? t % n : 0;
@@ -126,51 +194,48 @@ __device__ float darcy_phi(const IpxMisfitSpec& s, const float* u,
   }
   __syncthreads();
   // harmonic-mean transmissibilities of the faces right of and below the cell
-  float th = 0.0f, tv = 0.0f;
+  CellStencil k{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   if (own) {
     if (j < n - 1) {
       const float ar = ws.cell_a[t + 1];
-      th = 2.0f * a * ar / (a + ar + 1e-38f) * h2;
+      k.th = 2.0f * a * ar / (a + ar + 1e-38f) * h2;
     }
     if (i < n - 1) {
       const float ad = ws.cell_a[t + n];
-      tv = 2.0f * a * ad / (a + ad + 1e-38f) * h2;
+      k.tv = 2.0f * a * ad / (a + ad + 1e-38f) * h2;
     }
   }
   __syncthreads();
   if (own) {
-    ws.cell_a[t] = th;
-    ws.cell_b[t] = tv;
+    ws.cell_a[t] = k.th;
+    ws.cell_b[t] = k.tv;
   }
   __syncthreads();
-  float th_l = 0.0f, tv_u = 0.0f;
   if (own) {
-    if (j > 0) th_l = ws.cell_a[t - 1];
-    if (i > 0) tv_u = ws.cell_b[t - n];
+    if (j > 0) k.th_l = ws.cell_a[t - 1];
+    if (i > 0) k.tv_u = ws.cell_b[t - n];
   }
   // Dirichlet faces at half-cell distance: 2 h^-2 a per boundary side
   const float edge = static_cast<float>((i == 0) + (i == n - 1) + (j == 0) + (j == n - 1));
-  const float bnd = 2.0f * h2 * a * edge;
-  const float inv_diag = own ? 1.0f / (th + th_l + tv + tv_u + bnd) : 0.0f;
+  k.bnd = 2.0f * h2 * a * edge;
+  const float inv_diag = own ? 1.0f / (k.th + k.th_l + k.tv + k.tv_u + k.bnd) : 0.0f;
   const float a_bar = expf(block_sum(own ? logf(a) : 0.0f, ws.red) / h2);
 
-  // fixed-count PCG from x = 0; alpha = 0 when pAp <= 0 and beta = 0 when
-  // rz <= 0, so a converged solve freezes instead of producing NaN
-  float x = 0.0f, r = own ? s.source[t] : 0.0f;
+  // fixed-count PCG; alpha = 0 when pAp <= 0 and beta = 0 when rz <= 0, so
+  // a converged solve freezes instead of producing NaN
+  float r = own ? s.source[t] : 0.0f;
+  if (WARM) {
+    if (!own) x = 0.0f;
+    r = r - apply_operator(k, x, own, i, j, n, ws);
+    __syncthreads();  // the stencil's reads end before the preconditioner writes
+  } else {
+    x = 0.0f;
+  }
   float z = apply_precond(s, r, inv_diag, a_bar, ws);
   float p = z;
   float rz = block_sum(r * z, ws.red);
   for (int it = 0; it < s.cg_iters; ++it) {
-    if (own) ws.cell_a[t] = p;
-    __syncthreads();
-    float Ap = 0.0f;
-    if (own) {
-      const float pr = j < n - 1 ? ws.cell_a[t + 1] : 0.0f;
-      const float pd = i < n - 1 ? ws.cell_a[t + n] : 0.0f;
-      const float pl = j > 0 ? ws.cell_a[t - 1] : 0.0f;
-      const float pu = i > 0 ? ws.cell_a[t - n] : 0.0f;
-      Ap = th * (p - pr) - th_l * (pl - p) + tv * (p - pd) - tv_u * (pu - p) + bnd * p;
-    }
+    const float Ap = apply_operator(k, p, own, i, j, n, ws);
     const float pAp = block_sum(p * Ap, ws.red);
     const float alpha = pAp > 0.0f ? rz / pAp : 0.0f;
     x = x + alpha * p;
@@ -197,5 +262,15 @@ __device__ float darcy_phi(const IpxMisfitSpec& s, const float* u,
   __syncthreads();
   return ws.scalar[0];
 }
+
+// The cold misfit (K5): Phi(u) from a zero start.
+__device__ __forceinline__ float darcy_phi(const IpxMisfitSpec& s, const float* u,
+                                           const MisfitSmem& ws) {
+  float x;
+  return darcy_solve<false>(s, u, ws, x);
+}
+
+// Threads of a one-chain CTA over `cells` cells and d coordinates.
+inline int round_up32(int v) { return (v + 31) / 32 * 32; }
 
 }  // namespace ipx

@@ -2,11 +2,10 @@
 //
 // Replaces the Pallas TPU kernel of ip_mcmc_tpu/ops/fused_mcmc.py as
 // instantiated by fused_da_pcn_chain (l.1535) and
-// fused_da_pcn_chain_recorded (l.1653): the scaffolds _run_fused (K2,
-// pallas_call l.260) and _run_fused_recorded (K3, pallas_call l.950), the
-// step builder _make_da_pcn_step_builder (K4, l.325), the counter-hash RNG
-// (K1, counter_rng.cuh) and the inlined Darcy misfits (K5,
-// darcy_misfit.cuh).
+// fused_da_pcn_chain_recorded (l.1653): the step builder
+// _make_da_pcn_step_builder (K4, l.325) as a step on the scaffold of
+// fused_scaffold.cuh (K2, K3), with the counter-hash RNG (K1,
+// counter_rng.cuh) and the inlined Darcy misfits (K5, darcy_misfit.cuh).
 //
 //   darcy_misfit_kernel          Phi for a (K, B) batch at one misfit spec.
 //   fused_da_pcn_kernel<RECORD>  the whole n_steps loop in one launch;
@@ -16,10 +15,11 @@
 // Layout: one CTA per chain, one thread per cell of the largest grid
 // (256 threads at 16x16; the 8x8 surrogate stage uses 64 of them). Chain
 // state and CG vectors stay on chip; global memory is touched for the
-// positions in and out, the constant factors and the records.
+// positions in and out, the constant factors and the records. Phi and
+// Phi* at the start positions come in from darcy_misfit_kernel.
 //
 // What bounds it on the H100: per chain and outer step (k = 48) the misfits
-// do ~2.7 M multiply-adds (4096 chains: ~22 GFLOP, ~0.3 ms at the f32
+// do ~2.9 M multiply-adds (4096 chains: ~24 GFLOP, ~0.35 ms at the f32
 // peak), but they also re-read their constant factors on every use: the
 // surrogate's KL basis (16 KB) and modes (8 KB) 48 times and the exact
 // misfit's modes (64 KB) twice per CG iteration, ~5.5 MB per chain-step
@@ -38,8 +38,8 @@
 #include <cmath>
 #include <cstdint>
 
-#include "counter_rng.cuh"
 #include "darcy_misfit.cuh"
+#include "fused_scaffold.cuh"
 
 namespace ipx {
 
@@ -57,36 +57,77 @@ __global__ void darcy_misfit_kernel(IpxMisfitSpec s, const float* __restrict__ U
 
 struct DaArgs {
   IpxMisfitSpec exact, surr;
-  const float* pos_in;  // (n, d)
-  const float* phi0;    // (n,) Phi at pos_in
-  const float* surr0;   // (n,) Phi* at pos_in
-  const float* mean;    // (d,)
-  const float* scale;   // (d,)
+  IpxChainArgs chain;
+  const float* phi0;   // (n,) Phi at pos_in
+  const float* surr0;  // (n,) Phi* at pos_in
   float beta, contraction;
-  int seed, n, d, n_steps, k, block_chains, thin;
-  float* out;      // (n, d)
-  float* acc;      // (n,) exact acceptance rate
-  float* inner;    // (n,) inner (surrogate) acceptance rate
-  float* samples;  // (n_steps / thin, n, d) when recording
+  int k;
+  float* inner;  // (n,) inner (surrogate) acceptance rate
 };
 
-// 256 threads (one per cell of the 16x16 grid) and at least 4 CTAs per SM:
-// caps registers at 64 a thread (96 without the bound; 2 CTAs per SM).
-// Measured on the H100 at 4096 chains, k = 48: 11.07 ms per outer step
-// against 16.25 ms without the bound (40-48 bytes of spills).
-constexpr int kFusedThreads = 256;
+// K4: k pCN steps against the surrogate (tags 4j, 4j+1, 4j+2), then one
+// exact correction (Phi(u) - Phi(v)) - (Phi*(u) - Phi*(v)) with tag 4k+2.
+struct DaStep {
+  const DaArgs& a;
+  const IpxMisfitSpec& surr;  // a.surr with its factors staged on chip
+  float* pos0;                // current state
+  float* pos;                 // subchain state
+  float* prop;                // proposal
+  MisfitSmem ws;
+  float phi0, surr0, in_acc;
 
+  __device__ void init(const ChainCtx& c) {
+    phi0 = a.phi0[c.c];
+    surr0 = a.surr0[c.c];
+    if (c.own) pos[c.t] = pos0[c.t];
+    __syncthreads();
+  }
+
+  __device__ bool step(const ChainCtx& c, uint32_t i) {
+    float surr_v = surr0;
+    for (int j = 0; j < a.k; ++j) {
+      if (c.own) {
+        const float xi = c.scale_t * c.normal(i, 4u * j);
+        prop[c.t] = c.mean_t + a.contraction * (pos[c.t] - c.mean_t) + a.beta * xi;
+      }
+      __syncthreads();
+      const float sp = darcy_phi(surr, prop, ws);
+      if (logf(c.uniform(i, 4u * j + 2u)) < surr_v - sp) {  // the same in every thread
+        in_acc += 1.0f;
+        surr_v = sp;
+        if (c.own) pos[c.t] = prop[c.t];
+      }
+    }
+    __syncthreads();
+    const float pe = darcy_phi(a.exact, pos, ws);
+    float log_ratio = (phi0 - pe) - (surr0 - surr_v);
+    if (isnan(log_ratio)) log_ratio = -INFINITY;
+    const bool accept = logf(c.uniform(i, 4u * a.k + 2u)) < log_ratio;
+    if (accept) {
+      phi0 = pe;
+      surr0 = surr_v;
+      if (c.own) pos0[c.t] = pos[c.t];
+    } else if (c.own) {
+      pos[c.t] = pos0[c.t];
+    }
+    return accept;
+  }
+};
+
+// 256 threads and at least 4 CTAs per SM (fused_scaffold.cuh) cap registers
+// at 64 a thread (96 without the bound; 2 CTAs per SM). Measured on the
+// H100 at 4096 chains, k = 48: 11.07 ms per outer step against 16.25 ms
+// without the bound (40-48 bytes of spills).
 template <bool RECORD>
 __global__ void __launch_bounds__(kFusedThreads, 4) fused_da_pcn_kernel(DaArgs a) {
   extern __shared__ float smem[];
-  const int c = blockIdx.x, t = threadIdx.x, d = a.d;
+  const int t = threadIdx.x, d = a.chain.d;
   const int cells_e = a.exact.n * a.exact.n, cells_s = a.surr.n * a.surr.n;
   const int cells = cells_e > cells_s ? cells_e : cells_s;
   const int modes = a.exact.modes > a.surr.modes ? a.exact.modes : a.surr.modes;
-  float* pos0 = smem;      // current state
-  float* pos = pos0 + d;   // subchain state
-  float* prop = pos + d;   // proposal
-  const MisfitSmem ws = carve_misfit_smem(prop + d, cells, modes);
+  float* pos0 = smem;
+  float* pos = pos0 + d;
+  float* prop = pos + d;
   // the surrogate's factors, read 48x per outer step, staged on chip
   float* surr_basis = prop + d + misfit_smem_floats(cells, modes);
   __nv_bfloat16* surr_V = reinterpret_cast<__nv_bfloat16*>(surr_basis + a.surr.K * cells_s);
@@ -97,67 +138,13 @@ __global__ void __launch_bounds__(kFusedThreads, 4) fused_da_pcn_kernel(DaArgs a
   surr.basis = surr_basis;
   surr.V = surr_V;
 
-  const bool own = t < d;
-  const float mean_t = own ? a.mean[t] : 0.0f, scale_t = own ? a.scale[t] : 0.0f;
-  if (own) {
-    pos0[t] = a.pos_in[static_cast<size_t>(c) * d + t];
-    pos[t] = pos0[t];
-  }
-  float phi0 = a.phi0[c], surr0 = a.surr0[c];
-  const uint32_t bc = static_cast<uint32_t>(a.block_chains);
-  const uint32_t lane = static_cast<uint32_t>(c) % bc;
-  // per-block seed uint32(int32 seed + 7919 * block), fused_mcmc.py l.207
-  const uint32_t bseed = static_cast<uint32_t>(a.seed) + 7919u * (static_cast<uint32_t>(c) / bc);
-  const int half = (d + 1) / 2;
-  float acc = 0.0f, in_acc = 0.0f;
-  __syncthreads();
-
-  for (int i = 0; i < a.n_steps; ++i) {
-    const uint32_t step = static_cast<uint32_t>(i);
-    float surr_v = surr0;
-    for (int j = 0; j < a.k; ++j) {  // surrogate subchain; tags 4j, 4j+1, 4j+2
-      if (own) {
-        const float z = normal_coord(mix_key(bseed, step, 4u * j), mix_key(bseed, step, 4u * j + 1u),
-                                     t, half, lane, bc);
-        const float xi = scale_t * z;
-        prop[t] = mean_t + a.contraction * (pos[t] - mean_t) + a.beta * xi;
-      }
-      __syncthreads();
-      const float sp = darcy_phi(surr, prop, ws);
-      const float log_u = logf(uniform01(mix_key(bseed, step, 4u * j + 2u), lane));
-      if (log_u < surr_v - sp) {  // the same in every thread of the CTA
-        in_acc += 1.0f;
-        surr_v = sp;
-        if (own) pos[t] = prop[t];
-      }
-    }
-    __syncthreads();
-    // exact correction: (Phi(u) - Phi(v)) - (Phi*(u) - Phi*(v)); tag 4k+2
-    const float pe = darcy_phi(a.exact, pos, ws);
-    float log_ratio = (phi0 - pe) - (surr0 - surr_v);
-    if (isnan(log_ratio)) log_ratio = -INFINITY;
-    const float log_u = logf(uniform01(mix_key(bseed, step, 4u * a.k + 2u), lane));
-    if (log_u < log_ratio) {
-      acc += 1.0f;
-      phi0 = pe;
-      surr0 = surr_v;
-      if (own) pos0[t] = pos[t];
-    } else if (own) {
-      pos[t] = pos0[t];
-    }
-    if (RECORD && (i + 1) % a.thin == 0 && own) {
-      const size_t rec = static_cast<size_t>((i + 1) / a.thin - 1);
-      a.samples[(rec * a.n + c) * d + t] = pos0[t];
-    }
-  }
-  if (own) a.out[static_cast<size_t>(c) * d + t] = pos0[t];
-  if (t == 0) {
-    a.acc[c] = acc / static_cast<float>(a.n_steps);
-    a.inner[c] = in_acc / fmaxf(static_cast<float>(a.n_steps) * static_cast<float>(a.k), 1.0f);
-  }
+  DaStep step{a, surr, pos0, pos, prop, carve_misfit_smem(prop + d, cells, modes),
+              0.0f, 0.0f, 0.0f};
+  run_chain<RECORD>(a.chain, step, pos0);
+  if (t == 0)
+    a.inner[blockIdx.x] = step.in_acc / fmaxf(static_cast<float>(a.chain.n_steps) *
+                                                  static_cast<float>(a.k), 1.0f);
 }
-
-inline int round_up32(int v) { return (v + 31) / 32 * 32; }
 
 }  // namespace ipx
 
@@ -179,28 +166,22 @@ int ipx_darcy_misfit(const IpxMisfitSpec* s, const float* U, int B, float* phi,
 }
 
 int ipx_fused_da_pcn(const IpxMisfitSpec* exact, const IpxMisfitSpec* surr,
-                     const float* pos_in, const float* phi0, const float* surr0,
-                     const float* mean, const float* scale, float beta,
-                     float contraction, int seed, int n, int d, int n_steps,
-                     int k, int block_chains, int thin, float* out, float* acc,
-                     float* inner, float* samples, void* stream) {
+                     const IpxChainArgs* chain, const float* phi0, const float* surr0,
+                     float beta, float contraction, int k, float* inner, void* stream) {
   const int cells_e = exact->n * exact->n, cells_s = surr->n * surr->n;
   const int cells = cells_e > cells_s ? cells_e : cells_s;
   const int modes = exact->modes > surr->modes ? exact->modes : surr->modes;
-  const int threads = ipx::round_up32(cells > d ? cells : d);
-  const bool record = samples != nullptr;
-  if (threads > ipx::kFusedThreads || exact->K != d || surr->K != d || block_chains <= 0 || n < 0 ||
-      n_steps < 0 || k < 0 || (record && thin <= 0))
-    return cudaErrorInvalidValue;
+  const int threads = ipx::chain_threads(*chain, cells, exact->K);
+  const int d = chain->d, n = chain->n;
+  if (threads == 0 || surr->K != d || k < 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  ipx::DaArgs a{*exact, *surr, pos_in, phi0, surr0, mean, scale, beta, contraction,
-                seed, n, d, n_steps, k, block_chains, thin, out, acc, inner, samples};
+  const ipx::DaArgs a{*exact, *surr, *chain, phi0, surr0, beta, contraction, k, inner};
   // state (3d) + misfit workspace + staged surrogate basis (f32) and modes (bf16)
   const size_t smem = sizeof(float) * (3 * d + ipx::misfit_smem_floats(cells, modes) +
                                        surr->K * cells_s) +
                       sizeof(__nv_bfloat16) * surr->modes * cells_s;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (record) {
+  if (chain->samples != nullptr) {
     cudaFuncSetAttribute(ipx::fused_da_pcn_kernel<true>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     ipx::fused_da_pcn_kernel<true><<<n, threads, smem, st>>>(a);

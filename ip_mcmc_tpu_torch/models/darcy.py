@@ -7,12 +7,16 @@ basis, observation cells, source) in numpy. ``DarcyMisfit`` is
 (K, B) batch of whitened KL coefficients — KL reconstruction, exp,
 harmonic-mean face transmissibilities, fixed-count PCG on the 5-point
 finite-volume operator with the Jacobi or ``dst_trunc`` preconditioner,
-pressure at the observation cells, ½‖(y − pred)/σ‖².
+pressure at the observation cells, ½‖(y − pred)/σ‖². ``DarcyMisfitWarm``
+is ``make_batched_misfit_warm``: (U, x0) → (Φ, x), the CG started from
+``x0`` and its solution returned, with the dense ``dst`` preconditioner
+as a third choice.
 
-``forward`` launches ``darcy_misfit_kernel`` (``csrc/fused_da_pcn.cu``) for
-CUDA tensors and runs ``_forward_plain`` for CPU tensors. The plain version
-uses the readable 2-D (n, n, B) layout; the JAX flat layout with wrap masks
-exists only because Mosaic lacks in-kernel reshapes.
+``forward`` launches ``darcy_misfit_kernel`` (``csrc/fused_da_pcn.cu``) or
+``darcy_misfit_warm_kernel`` (``csrc/fused_pcn.cu``) for CUDA tensors and
+runs ``_forward_plain`` for CPU tensors. The plain version uses the
+readable 2-D (n, n, B) layout; the JAX flat layout with wrap masks and
+Kronecker factors exists only because Mosaic lacks in-kernel reshapes.
 """
 
 from __future__ import annotations
@@ -53,16 +57,23 @@ def darcy_aux(n_grid: int = 16, n_modes_per_dim: int = 8, alpha: float = 2.0,
     }
 
 
-def truncated_dst_modes(n: int, k_modes: int):
-    """The ``k_modes`` lowest-eigenvalue 2-D sine modes of the constant-
-    coefficient operator: (V (k_modes, n²) f64 rows, λ (k_modes,) f64), as
-    in ``_flat_truncated_dst_preconditioner``."""
+def dst_factors(n: int):
+    """The orthonormal sine matrix S (n, n) (mode k along rows) and the
+    eigenvalues λ (n, n) = n²(e_k1 + e_k2) of the constant-coefficient
+    operator, f64, as in ``_flat_dst_preconditioner``."""
     j = np.arange(n) + 0.5
     k = np.arange(1, n + 1)[:, None]
     S = np.sin(np.pi * k * j[None, :] / n) * np.sqrt(2.0 / n)
     S[-1] *= np.sqrt(0.5)
     e = 2.0 - 2.0 * np.cos(np.pi * np.arange(1, n + 1) / n)
-    lam2d = float(n * n) * (e[:, None] + e[None, :])
+    return S, float(n * n) * (e[:, None] + e[None, :])
+
+
+def truncated_dst_modes(n: int, k_modes: int):
+    """The ``k_modes`` lowest-eigenvalue 2-D sine modes of the constant-
+    coefficient operator: (V (k_modes, n²) f64 rows, λ (k_modes,) f64), as
+    in ``_flat_truncated_dst_preconditioner``."""
+    S, lam2d = dst_factors(n)
     order = np.argsort(lam2d.reshape(-1), kind="stable")[:k_modes]
     k1, k2 = order // n, order % n
     V = (S[k1][:, :, None] * S[k2][:, None, :]).reshape(k_modes, n * n)
@@ -74,16 +85,19 @@ class DarcyMisfit(nn.Module):
 
     Buffers: ``basis`` (K, n²) scaled KL basis; ``V`` (modes, n²) bf16
     preconditioner modes and ``lam`` (modes,) their eigenvalues (modes = 0
-    is plain Jacobi); ``source`` (n²,); ``obs`` (m,) int32 cells; ``data``
-    and ``noise`` (m,)."""
+    unless ``dst_trunc``); for ``dst`` the bf16 sine matrix ``S`` (n, n)
+    and ``lam`` (n²,); ``source`` (n²,); ``obs`` (m,) int32 cells;
+    ``data`` and ``noise`` (m,)."""
+
+    PRECONDS = ("jacobi", "dst_trunc")
 
     def __init__(self, scaled_basis, obs_indices, source, data, noise_scale,
                  n_grid: int, cg_iters: int = 48, precond: str = "jacobi",
                  precond_modes: int = 128, log_a_mean: float = 0.0):
         super().__init__()
-        if precond not in ("jacobi", "dst_trunc"):
+        if precond not in self.PRECONDS:
             raise ValueError(
-                f"precond must be 'jacobi' or 'dst_trunc', got {precond!r}"
+                f"precond must be one of {self.PRECONDS}, got {precond!r}"
             )
         n = int(n_grid)
         basis = np.asarray(scaled_basis, np.float32)
@@ -95,17 +109,23 @@ class DarcyMisfit(nn.Module):
             np.asarray(noise_scale, np.float32), data.shape
         ).copy()
         modes = int(precond_modes) if precond == "dst_trunc" else 0
+        V, lam, S = np.zeros((0, n * n)), np.zeros((0,)), np.zeros((0, 0))
         if modes:
             V, lam = truncated_dst_modes(n, modes)
-        else:
-            V, lam = np.zeros((0, n * n)), np.zeros((0,))
+        elif precond == "dst":
+            S, lam = dst_factors(n)
+            lam = lam.reshape(-1)
         self.n, self.K, self.modes = n, basis.shape[0], modes
+        self.precond = precond
         self.cg_iters, self.log_a_mean = int(cg_iters), float(log_a_mean)
         self.register_buffer("basis", torch.tensor(basis))
         self.register_buffer(
             "V", torch.tensor(V.astype(np.float32)).to(torch.bfloat16)
         )
         self.register_buffer("lam", torch.tensor(lam.astype(np.float32)))
+        self.register_buffer(
+            "S", torch.tensor(S.astype(np.float32)).to(torch.bfloat16)
+        )
         self.register_buffer(
             "source", torch.tensor(np.asarray(source, np.float32).reshape(-1))
         )
@@ -127,14 +147,19 @@ class DarcyMisfit(nn.Module):
 
     def spec(self) -> _build.MisfitSpec:
         """The C view of this misfit (device pointers into the buffers)."""
-        if self.V.dtype != torch.bfloat16:
-            raise ValueError(f"the kernel takes bf16 modes, got {self.V.dtype}")
+        if self.V.dtype != torch.bfloat16 or self.S.dtype != torch.bfloat16:
+            raise ValueError(
+                "the kernel takes bf16 preconditioner factors, got "
+                f"{self.V.dtype} / {self.S.dtype}"
+            )
         return _build.MisfitSpec(
             basis=self.basis.data_ptr(), V=self.V.data_ptr(),
-            lam=self.lam.data_ptr(), source=self.source.data_ptr(),
+            lam=self.lam.data_ptr(), S=self.S.data_ptr(),
+            source=self.source.data_ptr(),
             obs=self.obs.data_ptr(), data=self.data.data_ptr(),
             noise=self.noise.data_ptr(), n=self.n, K=self.K, modes=self.modes,
             cg_iters=self.cg_iters, m=int(self.obs.numel()),
+            precond=_build.PRECOND_CODES[self.precond],
             log_a_mean=self.log_a_mean,
         )
 
@@ -168,9 +193,13 @@ class DarcyMisfit(nn.Module):
     # --- the plain version ------------------------------------------------
 
     def _precond(self, r, inv_diag, a_bar):
-        """M⁻¹r = D⁻¹r + Vᵀ q(V q(r) / (λ ā)), q rounding to the factors'
+        """``dst_trunc``: M⁻¹r = D⁻¹r + Vᵀ q(V q(r) / (λ ā)); ``dst``: the
+        dense fast-Poisson apply Sᵀ-transforms(q(S-transforms(q(r)) / (λ ā)))
+        along columns then rows, no D⁻¹ term; q rounds to the factors'
         dtype (bf16: bf16 inputs with f32 accumulation — products of bf16
         values are exact in f32)."""
+        if self.precond == "dst":
+            return self._precond_dst(r, a_bar)
         z = inv_diag * r
         if not self.modes:
             return z
@@ -180,8 +209,26 @@ class DarcyMisfit(nn.Module):
         )
         return z + Vf.T @ rt.to(dt).to(torch.float32)
 
+    def _precond_dst(self, r, a_bar):
+        n, dt, S = self.n, self.S.dtype, self.S.to(torch.float32)
+
+        def q(v):
+            return v.to(dt).to(torch.float32)
+
+        y = torch.einsum("kj,ijb->ikb", S, q(r.reshape(n, n, -1)))
+        rt = torch.einsum("ki,ijb->kjb", S, q(y)) / (
+            self.lam.reshape(n, n, 1) * a_bar
+        )
+        w = torch.einsum("ki,kjb->ijb", S, q(rt))
+        return torch.einsum("kj,ikb->ijb", S, q(w)).reshape(n * n, -1)
+
     def _forward_plain(self, U: torch.Tensor) -> torch.Tensor:
         _build.launch_counts[f"darcy_misfit_plain[n={self.n}]"] += 1
+        return self._solve_plain(U)[0]
+
+    def _solve_plain(self, U, x0=None):
+        """(Φ (B,), x (n², B)); the CG starts from ``x0`` (n², B) when given
+        (r = b − A x0), else from 0."""
         n, B = self.n, U.shape[1]
         N, h2 = n * n, float(n * n)
         a = torch.exp(self.log_a_mean + self.basis.T @ U).reshape(n, n, B)
@@ -202,24 +249,28 @@ class DarcyMisfit(nn.Module):
         inv_diag = (1.0 / diag).reshape(N, B)
         a_bar = torch.exp(torch.mean(torch.log(a.reshape(N, B)), dim=0))
 
-        def apply(p):  # A(a) p on (n, n, B)
+        def apply(p):  # A(a) p on (N, B)
+            p = p.reshape(n, n, B)
             flux_h = t_h * (p - F.pad(p[:, 1:], (0, 0, 0, 1)))
             flux_v = t_v * (p - F.pad(p[1:], (0, 0, 0, 0, 0, 1)))
             out = flux_h - F.pad(flux_h[:, :-1], (0, 0, 1, 0))
             out = out + flux_v - F.pad(flux_v[:-1], (0, 0, 0, 0, 1, 0))
-            return out + boundary * p
+            return (out + boundary * p).reshape(N, B)
 
         def dots(u, v):
             return torch.sum(u * v, dim=0)
 
         r = self.source[:, None].expand(N, B)
-        x = torch.zeros_like(r)
+        if x0 is None:
+            x = torch.zeros_like(r)
+        else:
+            x, r = x0, r - apply(x0)
         z = self._precond(r, inv_diag, a_bar)
         p = z
         rz = dots(r, z)
         zero = torch.zeros_like(rz)
         for _ in range(self.cg_iters):
-            Ap = apply(p.reshape(n, n, B)).reshape(N, B)
+            Ap = apply(p)
             pAp = dots(p, Ap)
             # guards: once converged (r = 0) the recurrences hit 0/0 — the
             # iteration count is fixed, so freeze instead of emitting NaN
@@ -233,4 +284,49 @@ class DarcyMisfit(nn.Module):
             rz = rz_new
         pred = x[self.obs.long()]
         res = (self.data[:, None] - pred) / self.noise[:, None]
-        return 0.5 * torch.sum(res * res, dim=0)
+        return 0.5 * torch.sum(res * res, dim=0), x
+
+
+class DarcyMisfitWarm(DarcyMisfit):
+    """Warm-started batched Darcy misfit: (U (K, B), x0 (n², B)) →
+    (Φ (B,), x (n², B)). The fused warm pCN carries ``x`` (``aux_dim`` rows
+    per chain) so each proposal's solve starts from the current state's
+    solution; Φ then depends weakly on the chain's history through x0."""
+
+    PRECONDS = ("jacobi", "dst", "dst_trunc")
+
+    @property
+    def aux_dim(self) -> int:
+        return self.n * self.n
+
+    def forward(self, U: torch.Tensor, x0: torch.Tensor):
+        self.check_input(U)
+        if (x0.dtype != torch.float32 or x0.shape != (self.aux_dim, U.shape[1])
+                or x0.device != U.device):
+            raise ValueError(
+                f"x0: expected f32 ({self.aux_dim}, {U.shape[1]}) on "
+                f"{U.device}, got {x0.dtype} {tuple(x0.shape)} on {x0.device}"
+            )
+        if U.device.type == "cuda":
+            return self._forward_warm_kernel(U, x0)
+        if U.device.type == "cpu":
+            return self._forward_warm_plain(U, x0)
+        raise ValueError(f"DarcyMisfitWarm: unsupported device {U.device}")
+
+    def _forward_warm_kernel(self, U, x0):
+        U, x0 = U.contiguous(), x0.contiguous()
+        B = U.shape[1]
+        phi = torch.empty(B, dtype=torch.float32, device=U.device)
+        x = torch.empty_like(x0)
+        spec = self.spec()
+        status = _build.library().ipx_darcy_misfit_warm(
+            ctypes.byref(spec), U.data_ptr(), x0.data_ptr(), B, phi.data_ptr(),
+            x.data_ptr(), torch.cuda.current_stream(U.device).cuda_stream,
+        )
+        _build.check(status, "darcy_misfit_warm_kernel")
+        _build.launch_counts["darcy_misfit_warm_kernel"] += 1
+        return phi, x
+
+    def _forward_warm_plain(self, U, x0):
+        _build.launch_counts["darcy_misfit_warm_plain"] += 1
+        return self._solve_plain(U, x0)

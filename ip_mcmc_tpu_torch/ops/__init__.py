@@ -1,0 +1,27 @@
+"""The fused samplers of the port, under the names of ``ip_mcmc_tpu.ops``."""
+
+from ip_mcmc_tpu_torch.ops.fused_da_pcn import (
+    fused_da_pcn_chain,
+    fused_da_pcn_chain_recorded,
+)
+from ip_mcmc_tpu_torch.ops.fused_ess import (
+    fused_ess_chain,
+    fused_ess_chain_recorded,
+)
+from ip_mcmc_tpu_torch.ops.fused_pcn import (
+    fused_pcn_chain,
+    fused_pcn_chain_recorded,
+    fused_pcn_chain_warm,
+    fused_pcn_chain_warm_recorded,
+)
+
+__all__ = [
+    "fused_da_pcn_chain",
+    "fused_da_pcn_chain_recorded",
+    "fused_ess_chain",
+    "fused_ess_chain_recorded",
+    "fused_pcn_chain",
+    "fused_pcn_chain_recorded",
+    "fused_pcn_chain_warm",
+    "fused_pcn_chain_warm_recorded",
+]

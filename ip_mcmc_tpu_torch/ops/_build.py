@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels at first use.
 
-``nvcc`` compiles ``csrc/fused_da_pcn.cu`` into a shared library with a
-plain C interface, loaded with ``ctypes`` (no PyTorch headers: a build
-takes seconds, not minutes). The library lands in ``_build/`` inside the
-package (listed in ``.gitignore``), named by a hash of the sources and
-flags so an edited source is rebuilt. Nothing here runs at import.
+``nvcc`` compiles every ``csrc/*.cu`` into a shared library of its own
+with a plain C interface, all compilers started together, loaded with
+``ctypes`` (no PyTorch headers: a build takes seconds, not minutes). The
+libraries land in ``_build/`` inside the package (listed in
+``.gitignore``), named by a hash of every source and header under
+``csrc/`` and the flags, so an edited or added file is rebuilt. Nothing
+here runs at import.
 
 Also home of the launch counters: each wrapper adds one to its kernel's
 count where it launches the kernel, and each plain version to its own
@@ -25,7 +27,6 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_da_pcn.cu", "darcy_misfit.cuh", "counter_rng.cuh")
 # No --use_fast_math / -ftz: the transmissibility denominators add a
 # subnormal 1e-38, and the RNG needs accurate logf/cosf/sinf.
 NVCC_FLAGS = (
@@ -39,6 +40,13 @@ _lib = None
 build_seconds = None  # wall time of this process's build (None: not built)
 
 
+def sources():
+    """Every file under ``csrc/`` (hashed), and the ``.cu`` files among
+    them (each compiled into its own library)."""
+    files = sorted(f for f in CSRC.iterdir() if f.suffix in (".cu", ".cuh"))
+    return files, [f for f in files if f.suffix == ".cu"]
+
+
 class MisfitSpec(ctypes.Structure):
     """Mirror of ``IpxMisfitSpec`` in ``csrc/darcy_misfit.cuh``."""
 
@@ -46,6 +54,7 @@ class MisfitSpec(ctypes.Structure):
         ("basis", ctypes.c_void_p),
         ("V", ctypes.c_void_p),
         ("lam", ctypes.c_void_p),
+        ("S", ctypes.c_void_p),
         ("source", ctypes.c_void_p),
         ("obs", ctypes.c_void_p),
         ("data", ctypes.c_void_p),
@@ -55,7 +64,31 @@ class MisfitSpec(ctypes.Structure):
         ("modes", ctypes.c_int),
         ("cg_iters", ctypes.c_int),
         ("m", ctypes.c_int),
+        ("precond", ctypes.c_int),
         ("log_a_mean", ctypes.c_float),
+    ]
+
+
+# IpxMisfitSpec.precond
+PRECOND_CODES = {"jacobi": 0, "dst_trunc": 1, "dst": 2}
+
+
+class ChainArgs(ctypes.Structure):
+    """Mirror of ``IpxChainArgs`` in ``csrc/fused_scaffold.cuh``."""
+
+    _fields_ = [
+        ("pos_in", ctypes.c_void_p),
+        ("mean", ctypes.c_void_p),
+        ("scale", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("acc", ctypes.c_void_p),
+        ("samples", ctypes.c_void_p),
+        ("seed", ctypes.c_int),
+        ("n", ctypes.c_int),
+        ("d", ctypes.c_int),
+        ("n_steps", ctypes.c_int),
+        ("block_chains", ctypes.c_int),
+        ("thin", ctypes.c_int),
     ]
 
 
@@ -69,59 +102,86 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _digest() -> str:
+def _digest(files) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
+    for f in files:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> pathlib.Path:
-    """Compile the kernels (if this source's library is not built yet) and
-    return the library's path. The nvcc log (registers, spills) is kept
-    beside the library."""
+def build() -> list:
+    """Compile the kernels (those whose library is not built yet, in
+    parallel) and return the libraries' paths. The nvcc logs (registers,
+    spills) are kept beside them in ``nvcc.log``."""
     global build_seconds
+    files, units = sources()
+    digest = _digest(files)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"libipx_kernels_{_digest()}.so"
-    if so.exists():
-        return so
+    libs = [BUILD_DIR / f"libipx_{u.stem}_{digest}.so" for u in units]
+    todo = [(u, so) for u, so in zip(units, libs) if not so.exists()]
+    if not todo:
+        return libs
     t0 = time.perf_counter()
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / "fused_da_pcn.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    procs = []
+    for unit, so in todo:
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(unit)]
+        procs.append((cmd, tmp, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, tmp, so, proc in procs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) on {cmd[-1]}:\n{out}")
+        else:
+            os.replace(tmp, so)
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     build_seconds = time.perf_counter() - t0
-    return so
+    return libs
+
+
+class _Kernels:
+    """The C functions of every built library under one namespace."""
+
+    def __init__(self, paths):
+        self._libs = [ctypes.CDLL(str(p)) for p in paths]
+
+    def bind(self, name, argtypes, restype=ctypes.c_int):
+        for lib in self._libs:
+            try:
+                fn = getattr(lib, name)
+            except AttributeError:
+                continue
+            fn.argtypes, fn.restype = argtypes, restype
+            setattr(self, name, fn)
+            return
+        raise RuntimeError(f"{name} is in none of the built kernel libraries")
 
 
 def library():
-    """The loaded kernel library (built on first call in this process)."""
+    """The loaded kernels (built on first call in this process)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = _Kernels(build())
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        spec = ctypes.POINTER(MisfitSpec)
-        lib.ipx_darcy_misfit.argtypes = [spec, p, i, p, p]
-        lib.ipx_darcy_misfit.restype = i
-        lib.ipx_fused_da_pcn.argtypes = [
-            spec, spec,           # exact, surrogate
-            p, p, p,              # positions (n, d), Φ0 (n,), Φ*0 (n,)
-            p, p, f, f,           # prior mean (d,), scale (d,), β, √(1−β²)
-            i, i, i, i, i, i, i,  # seed, n, d, n_steps, k, block_chains, thin
-            p, p, p, p,           # out (n, d), acc (n,), inner (n,), samples
-            p,                    # stream
-        ]
-        lib.ipx_fused_da_pcn.restype = i
-        lib.ipx_error_string.argtypes = [i]
-        lib.ipx_error_string.restype = ctypes.c_char_p
+        spec, chain = ctypes.POINTER(MisfitSpec), ctypes.POINTER(ChainArgs)
+        # spec, U (K, B), B, Φ (B,), stream
+        lib.bind("ipx_darcy_misfit", [spec, p, i, p, p])
+        # spec, U (K, B), x0 (n², B), B, Φ (B,), x (n², B), stream
+        lib.bind("ipx_darcy_misfit_warm", [spec, p, p, i, p, p, p])
+        # exact, surrogate, chain, Φ0 (n,), Φ*0 (n,), β, √(1−β²), k,
+        # inner acceptance (n,), stream
+        lib.bind("ipx_fused_da_pcn", [spec, spec, chain, p, p, f, f, i, p, p])
+        # spec, chain, Φ0 (n,), x0 (n², n) or null (cold), β, √(1−β²), stream
+        lib.bind("ipx_fused_pcn", [spec, chain, p, p, f, f, p])
+        # spec, chain, Φ0 (n,), max_shrink, evaluations (n,), stream
+        lib.bind("ipx_fused_ess", [spec, chain, p, i, p, p])
+        lib.bind("ipx_error_string", [i], ctypes.c_char_p)
         _lib = lib
     return _lib
 

@@ -1,0 +1,162 @@
+"""The launch scaffold of the fused samplers (K2, K3; mirrors
+``ip_mcmc_tpu/ops/fused_mcmc.py`` ``_run_fused`` l.152 and
+``_run_fused_recorded`` l.826), plain PyTorch, and what the samplers'
+wrappers share.
+
+``run_plain`` is one loop for every sampler. It takes a step builder as the
+JAX scaffold does: ``step_builder(pot, *params) -> (init, step)`` with
+``init(pos) -> carry`` (``carry[0]`` is the (d, n) position) and
+``step(carry, rand_n, rand_u) -> (carry, accepted (1, n))``. ``rand_n(shape,
+tag)`` draws normals with the keys ``tag`` and ``tag + 1``, ``rand_u(shape,
+tag)`` uniforms with the key ``tag``, both from the counter-hash stream of
+``ops/rng.py``; ``shape`` is (rows, n), and column c holds what the JAX
+kernel draws for chain c: element ``lane`` of its block's (rows,
+block_chains) tile under the block's seed uint32(seed + 7919·block). All
+chains step together, so there is no loop over blocks. The step counter
+restarts at 0 in each launch. A builder's ``extra_out(carry)`` gives a
+third per-chain output.
+
+The CUDA side of the same scaffold is ``csrc/fused_scaffold.cuh``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ip_mcmc_tpu_torch.ops import _build, rng
+
+
+def as_param(x, device):
+    return torch.as_tensor(x, dtype=torch.float32).to(device).contiguous()
+
+
+def contraction(beta):
+    """(β, √(1 − β²)) in f32, as the JAX step builders compute them."""
+    b = torch.as_tensor(beta, dtype=torch.float32)
+    return b, torch.sqrt(1.0 - b * b)
+
+
+def validate(positions, n_steps, block_chains, thin=None):
+    if positions.dtype != torch.float32 or positions.dim() != 2:
+        raise ValueError(
+            f"positions: expected f32 (n_chains, d), got {positions.dtype} "
+            f"{tuple(positions.shape)}"
+        )
+    n = positions.shape[0]
+    if n % block_chains:
+        raise ValueError(
+            f"n_chains {n} must be a multiple of block_chains {block_chains}"
+        )
+    if thin is not None and n_steps % thin:
+        raise ValueError(f"n_steps {n_steps} must be a multiple of thin {thin}")
+
+
+def on_device(positions, kernel, plain):
+    """``kernel`` for CUDA positions, ``plain`` for CPU positions: the
+    plain version runs only because the tensor lies on the CPU."""
+    kind = positions.device.type
+    if kind == "cuda":
+        return kernel
+    if kind == "cpu":
+        return plain
+    raise ValueError(f"unsupported device {positions.device}")
+
+
+# --- the plain scaffold -------------------------------------------------------
+
+
+def run_plain(step_builder, potential_fn, positions, params, seed, n_steps,
+              block_chains, thin=None):
+    """(final (n, d), acceptance mean (n,), extra (n,) or None, samples
+    (n_steps // thin, n, d) or None when ``thin`` is None)."""
+    validate(positions, n_steps, block_chains, thin)
+    n, d = positions.shape
+    dev = positions.device
+    bseed, lane = rng.block_seeds(seed, n, block_chains, dev)
+
+    def tile_index(shape):
+        rows, cols = shape
+        if cols != n:
+            raise ValueError(f"draw of {cols} columns for {n} chains")
+        return torch.arange(rows, device=dev)[:, None] * block_chains + lane
+
+    step_init, step = step_builder(
+        potential_fn, *(as_param(p, dev) for p in params)
+    )
+    carry = step_init(positions.T.contiguous())
+    acc = torch.zeros((1, n), dtype=torch.float32, device=dev)
+    records = []
+    for i in range(n_steps):
+
+        def rand_u(shape, tag, i=i):
+            return rng.uniform_from_bits(
+                rng.hash_bits(rng.mix_key(bseed, i, tag), tile_index(shape))
+            )
+
+        def rand_n(shape, tag, i=i):
+            half = ((shape[0] + 1) // 2, shape[1])
+            z = rng.normal_from_uniforms(rand_u(half, tag), rand_u(half, tag + 1))
+            return z[: shape[0]]
+
+        carry, accepted = step(carry, rand_n, rand_u)
+        acc = acc + accepted.to(torch.float32)
+        if thin and (i + 1) % thin == 0:
+            records.append(carry[0].T)
+    extra_out = getattr(step_builder, "extra_out", None)
+    extra = None if extra_out is None else extra_out(carry)
+    samples = None
+    if thin is not None:
+        samples = (torch.stack(records) if records
+                   else positions.new_empty((0, n, d)))
+    return carry[0].T.contiguous(), acc[0] / n_steps, extra, samples
+
+
+# --- what the kernels' wrappers share -----------------------------------------
+
+
+def require_darcy(potential_fn, warm: bool, name: str = "potential_fn"):
+    """The CUDA kernels take Darcy misfit modules only (a kernel cannot
+    inline a Python callable): cold samplers a ``DarcyMisfit``, the warm
+    one a ``DarcyMisfitWarm``."""
+    # imported here: models.darcy itself imports ops._build
+    from ip_mcmc_tpu_torch.models.darcy import DarcyMisfit, DarcyMisfitWarm
+
+    want = DarcyMisfitWarm if warm else DarcyMisfit
+    if not isinstance(potential_fn, want) or (
+        not warm and isinstance(potential_fn, DarcyMisfitWarm)
+    ):
+        raise TypeError(
+            f"{name}: the CUDA kernel takes {want.__name__} potentials only, "
+            f"got {type(potential_fn).__name__}"
+        )
+
+
+def chain_args(positions, prior_mean, prior_scale, seed, n_steps,
+               block_chains, thin=None):
+    """Allocate a launch's outputs and fill the C view ``ChainArgs``.
+    Returns (args, keep): ``keep`` is (positions, mean, scale, out, acc,
+    samples or None), the tensors ``args`` points into."""
+    n, d = positions.shape
+    dev = positions.device
+    positions = positions.contiguous()
+    mean, scale = as_param(prior_mean, dev), as_param(prior_scale, dev)
+    if mean.shape != (d,) or scale.shape != (d,):
+        raise ValueError(f"prior mean/scale must have shape ({d},)")
+    out = torch.empty_like(positions)
+    acc = torch.empty(n, dtype=torch.float32, device=dev)
+    samples = None
+    if thin is not None:
+        samples = torch.empty((n_steps // thin, n, d), dtype=torch.float32,
+                              device=dev)
+    args = _build.ChainArgs(
+        pos_in=positions.data_ptr(), mean=mean.data_ptr(),
+        scale=scale.data_ptr(), out=out.data_ptr(), acc=acc.data_ptr(),
+        samples=None if samples is None else samples.data_ptr(),
+        seed=int(seed), n=n, d=d, n_steps=int(n_steps),
+        block_chains=int(block_chains), thin=int(thin or 0),
+    )
+    return args, (positions, mean, scale, out, acc, samples)
+
+
+def kernel_name(stem: str, recorded: bool) -> str:
+    return f"{stem}<{'true' if recorded else 'false'}>"

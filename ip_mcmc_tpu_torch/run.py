@@ -1,4 +1,5 @@
-"""CLI entry: ``python -m ip_mcmc_tpu_torch.run --config darcy_da_fused``.
+"""CLI entry: ``python -m ip_mcmc_tpu_torch.run --config darcy_da_fused``
+(``--list`` names the configs; ``darcy_pcn_4096`` needs ``--fused``).
 
 Prints one JSON line of metrics (the keys of ``ip_mcmc_tpu.run``). Runs on
 the card by default; ``--device cpu`` runs the kernels' plain versions.
@@ -22,6 +23,11 @@ def main(argv=None):
                     help="seed of the initial positions' torch.Generator")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; fails without a card) or 'cpu'")
+    ap.add_argument(
+        "--fused", action="store_true",
+        help="use the fully fused path (pCN configs with a batched "
+        "potential: darcy_pcn_4096)",
+    )
     ap.add_argument("--list", action="store_true", help="list configs and exit")
     args = ap.parse_args(argv)
 
@@ -41,6 +47,8 @@ def main(argv=None):
         )
     device = resolve_device(args.device)
     problem = configs.build(args.config, device)
+    if args.fused:
+        problem.kernel_params = {**problem.kernel_params, "fused": True}
     setup_s = time.perf_counter() - t_main
     metrics = runner.run_problem(
         problem, device, seed=args.seed, n_chains=args.n_chains,

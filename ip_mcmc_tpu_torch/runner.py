@@ -1,7 +1,8 @@
 """Problem runner: config → burn-in launch → recorded sampling launch →
 diagnostics (mirrors ``ip_mcmc_tpu/runner.py``: ``run_problem``,
-``_run_fused_mcmc``'s ``da_pcn`` branch, ``_finalize``). Returns the JAX
-runner's JSON-able metrics dict, key for key.
+``_run_fused_mcmc``'s ``da_pcn``, ``pcn`` (cold and warm) and
+``elliptical`` branches, ``_finalize``). Returns the JAX runner's JSON-able
+metrics dict, key for key.
 
 Timing protocol (as the JAX runner's): the burn launch uses seed 1 and
 is timed as ``warmup_s`` (on the card it also pays the kernels' build at
@@ -18,7 +19,7 @@ import time
 import torch
 
 from ip_mcmc_tpu_torch import diagnostics
-from ip_mcmc_tpu_torch.ops import fused_da_pcn
+from ip_mcmc_tpu_torch import ops
 
 # metric keys that name wall-time phases (attribution in _finalize)
 _PHASE_KEYS = ("warmup_s", "compile_s", "first_dispatch_s", "run_s", "diag_s")
@@ -59,19 +60,46 @@ def _finalize(metrics, t_start):
 
 
 def _run_fused_mcmc(problem, generator, n_chains, n_samples, device):
-    """The fused delayed-acceptance pCN path: burn-in launch + recorded
-    sampling launch, diagnostics on the recorded series."""
+    """The fused path: burn-in launch + recorded sampling launch,
+    diagnostics on the recorded series. pCN and ESS are prior-reversible,
+    so every branch consumes the data misfit alone."""
     kp = dict(problem.kernel_params)
     block = min(int(kp.get("block_chains", 512)), n_chains)
-    k = int(kp.get("subchain_len", 4))
-    run_kw = dict(
-        prior_mean=problem.prior.mean, prior_scale=problem.prior.scale,
-        beta=kp.get("beta", 0.2), subchain_len=k, block_chains=block,
-    )
-    exact, surr = problem.batched_potential_fn, problem.batched_surrogate_fn
-    if surr is None:
-        raise ValueError(
-            f"config {problem.name}: fused 'da_pcn' needs batched_surrogate_fn"
+    run_kw = dict(prior_mean=problem.prior.mean,
+                  prior_scale=problem.prior.scale, block_chains=block)
+    phi = problem.batched_potential_fn
+    if problem.kernel == "elliptical":
+        run_kw["max_shrink"] = kp.get("max_shrink", 8)
+        chain, chain_rec = ops.fused_ess_chain, ops.fused_ess_chain_recorded
+    elif problem.kernel == "da_pcn":
+        surr = problem.batched_surrogate_fn
+        if surr is None:
+            raise ValueError(
+                f"config {problem.name}: fused 'da_pcn' needs "
+                "batched_surrogate_fn"
+            )
+        if kp.get("k_mid"):
+            raise NotImplementedError(
+                f"config {problem.name}: three-level DA is not ported"
+            )
+        run_kw.update(beta=kp.get("beta", 0.2),
+                      subchain_len=kp.get("subchain_len", 4))
+        chain = lambda p, pos, **kw: ops.fused_da_pcn_chain(
+            p, surr, pos, **kw)
+        chain_rec = lambda p, pos, **kw: ops.fused_da_pcn_chain_recorded(
+            p, surr, pos, **kw)
+    elif problem.kernel == "pcn":
+        # kernel_params["adapt"] is ignored here, as on the JAX fused path
+        run_kw["beta"] = kp.get("beta", 0.2)
+        if kp.get("warm") and problem.batched_warm_potential is not None:
+            phi, run_kw["aux_dim"] = problem.batched_warm_potential
+            chain = ops.fused_pcn_chain_warm
+            chain_rec = ops.fused_pcn_chain_warm_recorded
+        else:
+            chain, chain_rec = ops.fused_pcn_chain, ops.fused_pcn_chain_recorded
+    else:
+        raise NotImplementedError(
+            f"config {problem.name}: fused '{problem.kernel}' is not ported"
         )
     positions = problem.init_positions(generator, n_chains).to(device)
 
@@ -80,30 +108,38 @@ def _run_fused_mcmc(problem, generator, n_chains, n_samples, device):
     first_dispatch_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    positions, _, inner = fused_da_pcn.fused_da_pcn_chain(
-        exact, surr, positions, seed=1, n_steps=problem.burn_in, **run_kw
-    )
-    inner = inner.cpu()  # transfer barrier
+    burn_out = chain(phi, positions, seed=1, n_steps=problem.burn_in, **run_kw)
+    positions = burn_out[0]
+    # third output: the kernel's extra_out channel (DA: inner acceptance)
+    extra_acc = burn_out[2].cpu() if len(burn_out) > 2 else None
+    burn_out[1].cpu()  # transfer barrier
     burn_s = time.perf_counter() - t0
 
     rec_kw = dict(seed=2, n_steps=n_samples * problem.thin, thin=problem.thin,
                   **run_kw)
     t0 = time.perf_counter()
-    out1 = fused_da_pcn.fused_da_pcn_chain_recorded(exact, surr, positions,
-                                                    **rec_kw)
+    out1 = chain_rec(phi, positions, **rec_kw)
     out1[1].cpu()
     first_rec_s = time.perf_counter() - t0
+    del out1  # the first call's record buffer, before the second allocates
     t0 = time.perf_counter()
-    _, acc, samples = fused_da_pcn.fused_da_pcn_chain_recorded(
-        exact, surr, positions, **rec_kw
-    )
+    _, acc, samples = chain_rec(phi, positions, **rec_kw)
     acc = acc.cpu()
     run_s = time.perf_counter() - t0
 
     summ, diag_s = _summarize_timed(samples)
-    outer_rate = n_chains * n_samples * problem.thin / run_s
+    rate = n_chains * n_samples * problem.thin / run_s
+    if problem.kernel == "da_pcn":
+        # an outer DA step hides k surrogate proposals: name the units
+        extra = {"inner_accept_rate": float(extra_acc.mean())}
+        rate_keys = {
+            "outer_steps_per_s": rate,
+            "inner_steps_per_s": rate * int(kp.get("subchain_len", 4)),
+        }
+    else:
+        extra, rate_keys = {}, {"steps_per_s": rate}
     return {
-        "inner_accept_rate": float(inner.mean()),
+        **extra,
         "config": problem.name,
         "kernel": f"{problem.kernel}(fused)",
         "n_chains": int(n_chains),
@@ -113,8 +149,7 @@ def _run_fused_mcmc(problem, generator, n_chains, n_samples, device):
         "warmup_s": burn_s,
         "compile_s": max(first_rec_s - run_s, 0.0),
         "run_s": run_s,
-        "outer_steps_per_s": outer_rate,
-        "inner_steps_per_s": outer_rate * k,
+        **rate_keys,
         "diag_s": diag_s,
         "min_ess": float(summ["min_ess"]),
         "ess_per_s": float(summ["min_ess"]) / run_s,
@@ -133,10 +168,13 @@ def run_problem(problem, device, seed: int = 0, n_chains=None,
     device = torch.device(device)
     n_chains = n_chains or problem.n_chains
     n_samples = n_samples or problem.n_samples
-    if not (problem.kernel == "da_pcn" and problem.kernel_params.get("fused")
+    if not (problem.kernel in ("pcn", "elliptical", "da_pcn")
+            and problem.kernel_params.get("fused")
             and problem.batched_potential_fn is not None):
         raise NotImplementedError(
-            f"config {problem.name}: only the fused da_pcn path is ported"
+            f"config {problem.name}: only the fused pcn, elliptical and "
+            "da_pcn paths are ported (pass --fused to a pCN config with a "
+            "batched potential)"
         )
     generator = torch.Generator().manual_seed(int(seed))
     metrics = _run_fused_mcmc(problem, generator, n_chains, n_samples, device)

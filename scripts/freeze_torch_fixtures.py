@@ -7,7 +7,9 @@ noise draw under key 301), and the surrogate calibration — 64 prior draws
 under key 402 give the bias-corrected surrogate data ``y_surr`` and the
 inflated per-observation noise ``surr_scale``. They are written with the
 coarse observation cells ``obs_coarse`` into
-``ip_mcmc_tpu_torch/configs/darcy16_da.npz``.
+``ip_mcmc_tpu_torch/configs/darcy16_da.npz``. ``u_true`` and ``y`` are
+those of ``_darcy_problem``, so the port's ``darcy_pcn_4096``,
+``darcy_pcn_warm`` and ``darcy_ess_fused`` read the same file.
 
 The arrays are read from the JAX package's own built Problem (its data,
 its truth, and the closure of its single-particle surrogate misfit), so

@@ -14,15 +14,25 @@ import torch
 from ip_mcmc_tpu_torch import configs
 from ip_mcmc_tpu_torch.ops import _build
 from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
+from ip_mcmc_tpu_torch.ops import fused_ess, fused_pcn
 
 pytestmark = pytest.mark.cuda
 
 
-@pytest.fixture
-def problem():
+def _build_on_card(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    return configs.build("darcy_da_fused", "cuda")
+    return configs.build(name, "cuda")
+
+
+@pytest.fixture
+def problem():
+    return _build_on_card("darcy_da_fused")
+
+
+@pytest.fixture
+def warm_problem():
+    return _build_on_card("darcy_pcn_warm")
 
 
 def test_misfit_kernel_matches_plain(problem):
@@ -45,16 +55,19 @@ def test_misfit_kernel_matches_plain(problem):
 def test_fused_kernel_matches_plain(problem, record):
     g = torch.Generator().manual_seed(1)
     pos = problem.init_positions(g, 512).cuda()
-    args = (problem.batched_potential_fn, problem.batched_surrogate_fn, pos,
-            problem.prior.mean, problem.prior.scale, 0.35, 3)
+    exact, surr = problem.batched_potential_fn, problem.batched_surrogate_fn
+    args = (exact, surr, pos, problem.prior.mean, problem.prior.scale, 0.35, 3)
+    # the plain loop's solves are plain too (a module given CUDA tensors
+    # would launch its kernel)
+    plain_args = (exact._forward_plain, surr._forward_plain, *args[2:])
     kw = dict(n_steps=4, subchain_len=6, block_chains=128)
     if record:
         got = da.fused_da_pcn_chain_recorded(*args, thin=2, **kw)
-        ref = da._run_plain_recorded(*args, thin=2, **kw)
+        ref = da._run_plain_recorded(*plain_args, thin=2, **kw)
         assert got[2].shape == ref[2].shape == (2, 512, 64)
     else:
         got = da.fused_da_pcn_chain(*args, **kw)
-        ref = da._run_plain(*args, **kw)
+        ref = da._run_plain(*plain_args, **kw)
     dev = (got[0] - ref[0]).abs().max(dim=1).values
     assert float((dev <= 1e-4).double().mean()) >= 0.99
     assert abs(float(got[1].mean()) - float(ref[1].mean())) <= 1e-2
@@ -66,3 +79,82 @@ def test_kernel_refuses_plain_callables(problem):
         da.fused_da_pcn_chain(lambda U: U.sum(0), problem.batched_surrogate_fn,
                               pos, problem.prior.mean, problem.prior.scale,
                               0.35, 0, n_steps=1, block_chains=64)
+
+
+def _rel(got, ref):
+    return ((got - ref).abs() / ref.abs()).cpu()
+
+
+def test_jacobi_misfit_kernel_matches_plain(warm_problem):
+    """The cold Jacobi-48 misfit of the pCN and ESS paths: f32 only."""
+    pot = warm_problem.batched_potential_fn
+    U = warm_problem.prior.sample(torch.Generator().manual_seed(0), 512).T.contiguous()
+    rel = _rel(pot(U), pot._forward_plain(U))
+    assert float((rel <= 1e-5).double().mean()) >= 0.99
+    assert float(rel.max()) <= 1e-4
+
+
+def test_warm_misfit_kernel_matches_plain(warm_problem):
+    """(Φ, x) from x0 = 0 and from that solution after a pCN-sized move;
+    bf16 rounding flips as in tests/test_torch_darcy_warm.py."""
+    warm, aux_dim = warm_problem.batched_warm_potential
+    g = torch.Generator().manual_seed(1)
+    U = warm_problem.prior.sample(g, 512).T.contiguous()
+    U2 = (0.9968 * U + 0.08 * warm_problem.prior.sample(g, 512).T).contiguous()
+    before = _build.launch_counts["darcy_misfit_warm_kernel"]
+    phi1, x1 = warm(U, torch.zeros(aux_dim, 512, device="cuda"))
+    phi2, x2 = warm(U2, x1)
+    assert _build.launch_counts["darcy_misfit_warm_kernel"] == before + 2
+    ref1 = warm._forward_warm_plain(U, torch.zeros(aux_dim, 512, device="cuda"))
+    ref2 = warm._forward_warm_plain(U2, x1)
+    rel1, rel2 = _rel(phi1, ref1[0]), _rel(phi2, ref2[0])
+    assert float(rel1.median()) <= 2e-5 and float(rel1.max()) <= 5e-3
+    assert float((rel1 <= 1e-4).double().mean()) >= 0.90
+    assert float(rel2.median()) <= 2e-6 and float(rel2.max()) <= 5e-3
+    assert float((rel2 <= 1e-5).double().mean()) >= 0.80
+    for x, ref in ((x1, ref1[1]), (x2, ref2[1])):
+        err = (x - ref).abs().max(dim=0).values / ref.abs().max(dim=0).values
+        assert float(err.max()) <= 5e-3
+
+
+@pytest.mark.parametrize("recorded", [False, True])
+@pytest.mark.parametrize("kind", ["pcn", "pcn_warm", "ess"])
+def test_single_level_kernel_matches_plain(warm_problem, kind, recorded):
+    pos = warm_problem.init_positions(torch.Generator().manual_seed(2), 512).cuda()
+    pm, ps = warm_problem.prior.mean, warm_problem.prior.scale
+    kw = {"thin": 2} if recorded else {}
+    pot = warm_problem.batched_potential_fn
+    plain_pot = pot._forward_plain  # the plain loop's solves are plain too
+    if kind == "ess":
+        args = (pos, pm, ps, 3, 4, 6, 128)
+        got = fused_ess._launch(pot, *args, **kw)
+        ref = fused_ess._run_plain(plain_pot, *args, **kw)
+    else:
+        if kind == "pcn_warm":
+            pot, kw["aux_dim"] = warm_problem.batched_warm_potential
+            plain_pot = pot._forward_warm_plain
+        args = (pos, pm, ps, 0.08, 3, 4, 128)
+        got = fused_pcn._launch(pot, *args, **kw)
+        ref = fused_pcn._run_plain(plain_pot, *args, **kw)
+    if recorded:
+        assert got[2].shape == ref[2].shape == (2, 512, 64)
+        assert torch.equal(got[2][-1], got[0])
+    dev = (got[0] - ref[0]).abs().max(dim=1).values
+    assert float((dev <= 1e-4).double().mean()) >= 0.99
+    assert abs(float(got[1].mean()) - float(ref[1].mean())) <= 1e-2
+
+
+def test_single_level_kernels_refuse_plain_callables(warm_problem):
+    pos = torch.zeros(64, 64, device="cuda")
+    pm, ps = warm_problem.prior.mean, warm_problem.prior.scale
+    phi = lambda U: U.sum(0)
+    with pytest.raises(TypeError, match="DarcyMisfit"):
+        fused_pcn.fused_pcn_chain(phi, pos, pm, ps, 0.08, 0, n_steps=1,
+                                  block_chains=64)
+    with pytest.raises(TypeError, match="DarcyMisfitWarm"):
+        fused_pcn.fused_pcn_chain_warm(lambda U, x: (U.sum(0), x), pos, pm, ps,
+                                       0.08, 0, n_steps=1, aux_dim=256,
+                                       block_chains=64)
+    with pytest.raises(TypeError, match="DarcyMisfit"):
+        fused_ess.fused_ess_chain(phi, pos, pm, ps, 0, n_steps=1,
+                                  block_chains=64)

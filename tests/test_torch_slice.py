@@ -1,5 +1,5 @@
-"""The port's main path end to end (config, runner, CLI) against the JAX
-package on the CPU: the frozen fixture, the config's misfits, the CLI's
+"""The port's paths end to end (configs, runner, CLI) against the JAX
+package on the CPU: the frozen fixture, the configs' misfits, the CLI's
 JSON keys; and the rule that the port never imports JAX."""
 
 import dataclasses
@@ -16,6 +16,7 @@ import torch
 
 from ip_mcmc_tpu import configs as jconfigs
 from ip_mcmc_tpu import runner as jrunner
+from ip_mcmc_tpu.models import darcy as jdarcy
 from ip_mcmc_tpu_torch import configs, resolve_device, run
 
 torch.set_num_threads(1)
@@ -86,6 +87,88 @@ def test_cli_json_keys_match_jax_runner(jax_problem, capsys):
         assert 0.0 <= m[k] <= 1.0
     assert len(m["posterior_mean"]) == 64
     assert np.isfinite(m["posterior_mean"]).all()
+
+
+SINGLE_LEVEL = ("darcy_pcn_4096", "darcy_pcn_warm", "darcy_ess_fused")
+
+
+@pytest.mark.parametrize("name", SINGLE_LEVEL)
+def test_single_level_configs_match_jax_problems(name):
+    """The pCN and ESS configs, built from the same fixture: sizes, kernel
+    parameters, data, and the cold Jacobi-48 misfit (every input f32: rtol
+    1e-5 on every draw); for darcy_pcn_warm the warm misfit too (bf16
+    factors: the bounds of test_torch_darcy_warm.py)."""
+    jp, p = jconfigs.build(name), configs.build(name, "cpu")
+    assert (p.name, p.dim, p.kernel, p.thin) == (jp.name, jp.dim, jp.kernel, jp.thin)
+    assert (p.n_chains, p.n_samples, p.burn_in) == (
+        jp.n_chains, jp.n_samples, jp.burn_in)
+    assert p.kernel_params == jp.kernel_params
+    np.testing.assert_allclose(p.data, np.asarray(jp.data), rtol=1e-6)
+    np.testing.assert_allclose(p.truth, np.asarray(jp.truth), rtol=1e-6)
+    U = np.random.default_rng(12).standard_normal((64, 64)).astype(np.float32)
+    want = np.asarray(jp.batched_potential_fn(jnp.asarray(U)))
+    got = p.batched_potential_fn(torch.from_numpy(U)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert (p.batched_warm_potential is None) == (jp.batched_warm_potential is None)
+    if p.batched_warm_potential is not None:
+        (warm_j, aux_j), (warm_t, aux_t) = (jp.batched_warm_potential,
+                                            p.batched_warm_potential)
+        assert aux_j == aux_t == 256
+        x0 = np.zeros((256, 64), np.float32)
+        pj, xj = warm_j(jnp.asarray(U), jnp.asarray(x0))
+        U2 = (0.9968 * U + 0.08 * U[:, ::-1]).astype(np.float32)
+        pj2, _ = warm_j(jnp.asarray(U2), xj)
+        pt, _ = warm_t(torch.from_numpy(U), torch.from_numpy(x0))
+        pt2, _ = warm_t(torch.from_numpy(U2), torch.tensor(np.asarray(xj)))
+        rel = np.abs(pt.numpy() - np.asarray(pj)) / np.abs(np.asarray(pj))
+        assert np.median(rel) <= 2e-5 and rel.max() <= 5e-3
+        assert_bf16_agreement(pt2.numpy(), np.asarray(pj2))
+
+
+@pytest.mark.parametrize("name,flags", [("darcy_pcn_warm", []),
+                                        ("darcy_ess_fused", []),
+                                        ("darcy_pcn_4096", ["--fused"])])
+def test_single_level_cli_json_keys_match_jax_runner(name, flags, capsys):
+    assert run.main(["--config", name, "--device", "cpu", "--n-chains", "64",
+                     "--n-samples", "4", *flags]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    m = json.loads(lines[0])
+
+    jp = jconfigs.build(name)
+    # short solves and burn-in for the interpret-mode kernel: the keys do
+    # not depend on them
+    aux = jdarcy.make_darcy_forward(n_grid=16, n_modes_per_dim=8, alpha=2.0,
+                                    field_scale=10.0)[1]
+    jp = dataclasses.replace(
+        jp, n_chains=64, n_samples=4, burn_in=2,
+        kernel_params={**jp.kernel_params, "fused": True, "block_chains": 32},
+        batched_potential_fn=jdarcy.make_batched_misfit(aux, jp.data, 0.002,
+                                                        cg_iters=4),
+    )
+    jm = jrunner.run_problem(jp, key=jax.random.key(0))
+    jm["setup_s"] = jm["cli_total_s"] = 0.0  # added by ip_mcmc_tpu.run
+    for metrics in (m, jm):
+        assert ("warning" in metrics) == (not metrics["converged"])
+    assert set(m) - {"warning"} == set(jm) - {"warning"}
+
+    assert m["config"] == name and m["kernel"] == jm["kernel"]
+    assert (m["n_chains"], m["n_samples"], m["dim"]) == (64, 4, 64)
+    assert "outer_steps_per_s" not in m and "inner_accept_rate" not in m
+    for k in ("steps_per_s", "ess_per_s", "min_ess", "max_rhat", "run_s",
+              "warmup_s"):
+        assert np.isfinite(m[k]) and m[k] > 0.0, k
+    assert m["steps_per_s"] == pytest.approx(64 * 4 / m["run_s"])
+    assert 0.0 < m["accept_rate"] <= 1.0
+    assert len(m["posterior_mean"]) == 64
+    assert np.isfinite(m["posterior_mean"]).all()
+
+
+def test_unfused_pcn_config_is_not_ported():
+    """darcy_pcn_4096 runs only with --fused; anything else raises."""
+    with pytest.raises(NotImplementedError, match="--fused"):
+        run.main(["--config", "darcy_pcn_4096", "--device", "cpu",
+                  "--n-chains", "64", "--n-samples", "4"])
 
 
 def test_cuda_device_is_never_a_silent_fallback():
