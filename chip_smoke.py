@@ -54,9 +54,11 @@ CHAIN_ATOL, MIN_CHAIN_FRAC, RATE_ATOL = 1e-4, 0.99, 1e-2
 N_CHAINS = 4096
 RUN_BUDGET_S = 600.0  # the CLI phase's share of the 1200 s limit
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): f32 outside the
-# tensor cores, and HBM3 bandwidth. The kernels' multiply-adds are f32.
-PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates): f32
+# outside the tensor cores, bf16 inputs with f32 accumulation on them, and
+# HBM3 bandwidth. The spectral preconditioners' products take bf16 inputs;
+# every other operation of the kernels is f32.
+PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
 
 SRC = "ip_mcmc_tpu_torch/csrc/"
 JAX_OPS = "ip_mcmc_tpu/ops/fused_mcmc.py:"
@@ -84,21 +86,46 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def slope_ms(run, short: int, long: int, reps: int) -> float:
+    """Time of one step as the slope between launches of ``short`` and of
+    ``long`` steps: what a launch pays once (the start misfit, the output
+    allocation, a transpose) cancels."""
+    t_long = cuda_time_ms(lambda: run(long), reps)
+    return (t_long - cuda_time_ms(lambda: run(short), reps)) / (long - short)
+
+
 # --- the least time the card could take -------------------------------------
 
 
-def solve_flops(pot, warm: bool) -> float:
-    """f32 operations of one Darcy solve for one chain (a multiply-add is
-    two), counted from the misfit's shapes: KL reconstruction, exp and log,
-    transmissibilities and diagonal, then per CG iteration one stencil
-    apply (13 N), two dot products, three vector updates and one
-    preconditioner apply."""
+class Ops:
+    """Operations by type (a multiply-add is two): ``f32``, and ``bf16``
+    for products of bf16 inputs accumulated in f32."""
+
+    def __init__(self, f32=0.0, bf16=0.0):
+        self.f32, self.bf16 = float(f32), float(bf16)
+
+    def __add__(self, other):
+        return Ops(self.f32 + other.f32, self.bf16 + other.bf16)
+
+    def __rmul__(self, k):
+        return Ops(k * self.f32, k * self.bf16)
+
+
+def solve_ops(pot, warm: bool) -> Ops:
+    """Operations of one Darcy solve for one chain, counted from the
+    misfit's shapes: KL reconstruction, exp and log, transmissibilities and
+    diagonal, then per CG iteration one stencil apply (13 N), two dot
+    products, three vector updates and one preconditioner apply. The
+    spectral preconditioners' products (V^T r and V rt of dst_trunc, the
+    four sine stages of dst) are the bf16 operations; all else is f32."""
     n, N, K, m = pot.n, pot.n * pot.n, pot.K, int(pot.obs.numel())
-    precond = {"jacobi": N, "dst_trunc": N + 4 * pot.modes * N + pot.modes,
-               "dst": 8 * n * N + N}[pot.precond]
+    precond = {"jacobi": Ops(N),
+               "dst_trunc": Ops(N + pot.modes, 4 * pot.modes * N),
+               "dst": Ops(N, 8 * n * N)}[pot.precond]
     setup = 2 * K * N + 2 * N + 18 * N
-    start = precond + 2 * N + (14 * N if warm else 0)
-    return setup + start + pot.cg_iters * (23 * N + precond) + 3 * m
+    start = 2 * N + (14 * N if warm else 0)
+    applies = 1 + pot.cg_iters
+    return Ops(setup + start + pot.cg_iters * 23 * N + 3 * m) + applies * precond
 
 
 def constant_bytes(pot) -> int:
@@ -107,30 +134,33 @@ def constant_bytes(pot) -> int:
                 pot.data, pot.noise))
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    """max(operations / f32 peak, bytes / memory rate), in ms."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(ops: Ops, nbytes: float) -> dict:
+    """max(f32 operations / f32 peak + bf16 operations / bf16 peak,
+    bytes / memory rate), in ms."""
+    t_ops = ops.f32 / PEAK_F32_FLOPS + ops.bf16 / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "f32_ops": ops.f32, "bf16_ops": ops.bf16, "bytes": nbytes}
 
 
 def misfit_bound(pot, B, warm):
     N = pot.n * pot.n
     io_bytes = 4 * B * (pot.K + 1 + (2 * N if warm else 0))
-    return bound(B * solve_flops(pot, warm), io_bytes + constant_bytes(pot))
+    return bound(B * solve_ops(pot, warm), io_bytes + constant_bytes(pot))
 
 
-def chain_bound(pots, n, d, per_step_flops, recorded):
+def chain_bound(pots, n, d, per_step_ops, recorded):
     """One step of a fused launch, counted as a launch of one step:
     positions in and out, start values, acceptance and the constants once,
     one record when recording, and the step's solves and draws."""
     nbytes = 4 * n * (2 * d + 2) + sum(constant_bytes(p) for p in pots)
     if recorded:
         nbytes += 4 * n * d
-    return bound(n * per_step_flops, nbytes)
+    return bound(n * per_step_ops, nbytes)
 
 
-RNG_FLOPS_PER_DRAW = 40  # hash, log, sqrt, sin/cos per normal coordinate
+RNG_OPS_PER_DRAW = 40  # f32: hash, log, sqrt, sin/cos per normal coordinate
 
 
 # --- kernel against plain version ---------------------------------------------
@@ -146,7 +176,9 @@ def plain_potential(pot, warm=False):
 def compare_misfit(results, pot, U, *, variant, paths, tol, x0=None,
                    replaces):
     """One misfit kernel launch against its plain version on the same
-    inputs; appends the result row. Returns the kernel's output."""
+    inputs; appends the result row. ``paths``: the configs whose CLI runs
+    launch this variant (none for an option that no shipped config uses).
+    Returns the kernel's output."""
     from ip_mcmc_tpu_torch.ops import _build
 
     warm = x0 is not None
@@ -194,12 +226,14 @@ def compare_misfit(results, pot, U, *, variant, paths, tol, x0=None,
     return got
 
 
-def compare_chain(results, stem, recorded, kern, plain, *, steps, variant,
-                  paths, source, pots, per_step_flops):
+def compare_chain(results, stem, recorded, kern, plain, *, steps, kernel_long,
+                  plain_long, variant, paths, source, pots, per_step_ops):
     """One fused launch of ``steps`` steps against the plain loop from the
-    same start and seed; appends the result row."""
+    same start and seed, then the time of one step of each as the slope up
+    to a longer launch; appends the result row. ``kern`` and ``plain`` take
+    the number of steps."""
     name = f"{stem}<{'true' if recorded else 'false'}>"
-    got, ref = kern(), plain()
+    got, ref = kern(steps), plain(steps)
     torch.cuda.synchronize()
     n, d = got[0].shape
     assert got[0].shape == ref[0].shape
@@ -223,15 +257,17 @@ def compare_chain(results, stem, recorded, kern, plain, *, steps, variant,
     print(line, flush=True)
     if frac < MIN_CHAIN_FRAC or max(rate_err) > RATE_ATOL:
         raise AssertionError(f"{name} disagrees with its plain version")
-    ms = cuda_time_ms(kern, 3) / steps
-    plain_ms = cuda_time_ms(plain, 1) / steps
+    del got, ref
+    ms = slope_ms(kern, steps, kernel_long, 3)
+    plain_ms = slope_ms(plain, steps, plain_long, 1)
     row = {
         "name": name, "variant": variant, "route": "cuda", "source": SRC + source,
         "replaces": SCAFFOLD[recorded], "paths": paths,
         "max_abs_err": float(dev.max()), "frac_chains_within_atol": frac,
         "ms": ms, "plain_ms": plain_ms,
-        "ms_unit": f"one step (a launch of {steps} with its start misfit, / {steps})",
-        **chain_bound(pots, n, d, per_step_flops, recorded), "library_ms": None,
+        "ms_unit": (f"one step: the slope between launches of {steps} and of "
+                    f"{kernel_long} steps (plain: {steps} and {plain_long})"),
+        **chain_bound(pots, n, d, per_step_ops, recorded), "library_ms": None,
     }
     print(f"  one step at full width: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
           f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
@@ -254,20 +290,21 @@ def check_da(problem, gen, results):
     args = (exact, surr, pos, problem.prior.mean, problem.prior.scale, 0.35, 11)
     plain_args = (plain_potential(exact), plain_potential(surr), *args[2:])
     d = pos.shape[1]
-    flops = (k * (solve_flops(surr, False) + RNG_FLOPS_PER_DRAW * d)
-             + solve_flops(exact, False))
+    ops = (k * (solve_ops(surr, False) + Ops(RNG_OPS_PER_DRAW * d))
+           + solve_ops(exact, False))
     for recorded in (False, True):
-        kw = dict(n_steps=outer, subchain_len=k, block_chains=block)
+        kw = dict(subchain_len=k, block_chains=block)
         if recorded:
-            kern = lambda: da.fused_da_pcn_chain_recorded(*args, thin=1, **kw)
-            plain = lambda: da._run_plain_recorded(*plain_args, thin=1, **kw)
+            kern = lambda s: da.fused_da_pcn_chain_recorded(*args, n_steps=s, thin=1, **kw)
+            plain = lambda s: da._run_plain_recorded(*plain_args, n_steps=s, thin=1, **kw)
         else:
-            kern = lambda: da.fused_da_pcn_chain(*args, **kw)
-            plain = lambda: da._run_plain(*plain_args, **kw)
+            kern = lambda s: da.fused_da_pcn_chain(*args, n_steps=s, **kw)
+            plain = lambda s: da._run_plain(*plain_args, n_steps=s, **kw)
         compare_chain(results, "fused_da_pcn_kernel", recorded, kern, plain,
-                      steps=outer, variant=f"block {block}, k={k}",
+                      steps=outer, kernel_long=outer + 8, plain_long=2 * outer,
+                      variant=f"block {block}, k={k}",
                       paths=["darcy_da_fused"], source="fused_da_pcn.cu",
-                      pots=(exact, surr), per_step_flops=flops)
+                      pots=(exact, surr), per_step_ops=ops)
 
 
 def check_warm_misfit(problem, gen, results):
@@ -289,13 +326,41 @@ def check_warm_misfit(problem, gen, results):
         results, warm, U2, x0=x1, variant="dst_trunc-64, 4 CG, x0 = previous solution",
         paths=["darcy_pcn_warm"], tol=BF16_TOL, replaces=replaces)
     aux = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    # options of the warm misfit that no shipped config uses: no path
+    # launches them
     for precond, iters, tol in (("dst", 4, BF16_TOL), ("jacobi", 16, F32_TOL)):
         other = darcy_warm_misfit_from_arrays(
             aux, problem.data, 0.002, cg_iters=iters, precond=precond)[0].cuda()
         compare_misfit(
             results, other, U2, x0=x1,
             variant=f"{precond}, {iters} CG, x0 = previous solution",
-            paths=["darcy_pcn_warm"], tol=tol, replaces=replaces)
+            paths=[], tol=tol, replaces=replaces)
+
+
+class CountingPotential:
+    """The plain cold misfit under the plain ESS loop, counting the
+    evaluations each step's slices need. The plain loop (as the TPU kernel)
+    evaluates every chain ``max_shrink`` times per step behind done masks;
+    a chain that is done keeps its angle, so its proposal no longer moves,
+    and a chain still searching draws a new one. An evaluation is needed
+    where the proposal differs from the round before (all of them in a
+    step's first round). ``per_step[i]``: mean evaluations per chain in
+    step i."""
+
+    def __init__(self, pot, max_shrink):
+        self.pot, self.max_shrink = pot, max_shrink
+        self.calls, self.last, self.per_step = -1, None, []  # call 0 is init
+
+    def __call__(self, U):
+        if self.calls >= 0:
+            if self.calls % self.max_shrink == 0:
+                self.per_step.append(1.0)
+            else:
+                moved = (U != self.last).any(dim=0)
+                self.per_step[-1] += float(moved.double().mean())
+            self.last = U
+        self.calls += 1
+        return self.pot._forward_plain(U)
 
 
 def check_single_level(problems, gen, results):
@@ -313,18 +378,18 @@ def check_single_level(problems, gen, results):
     d = pos.shape[1]
     pm, ps = cold_p.prior.mean, cold_p.prior.scale
     warm, aux_dim = warm_p.batched_warm_potential
-    draws = RNG_FLOPS_PER_DRAW * d
+    draws = Ops(RNG_OPS_PER_DRAW * d)
     pcn_cases = (
         ("fused_pcn_kernel", fused_pcn.fused_pcn_chain,
          fused_pcn.fused_pcn_chain_recorded, jacobi, 512, 4, {},
-         solve_flops(jacobi, False) + draws, "darcy_pcn_4096",
+         solve_ops(jacobi, False) + draws, "darcy_pcn_4096",
          "jacobi, 48 CG, block 512"),
         ("fused_pcn_warm_kernel", fused_pcn.fused_pcn_chain_warm,
          fused_pcn.fused_pcn_chain_warm_recorded, warm, 256, 8,
-         {"aux_dim": aux_dim}, solve_flops(warm, True) + draws,
+         {"aux_dim": aux_dim}, solve_ops(warm, True) + draws,
          "darcy_pcn_warm", "dst_trunc-64, 4 CG, block 256"),
     )
-    for (stem, chain, chain_rec, pot, block, steps, kw, flops, path,
+    for (stem, chain, chain_rec, pot, block, steps, kw, ops, path,
          variant) in pcn_cases:
         args = (pot, pos, pm, ps, 0.08, 13)
         plain_args = (plain_potential(pot, warm=bool(kw)), *args[1:])
@@ -332,29 +397,39 @@ def check_single_level(problems, gen, results):
             fn, kw_r = (chain_rec, dict(kw, thin=1)) if recorded else (chain, kw)
             compare_chain(
                 results, stem, recorded,
-                lambda: fn(*args, n_steps=steps, block_chains=block, **kw_r),
-                lambda: fused_pcn._run_plain(*plain_args, steps, block, **kw_r),
-                steps=steps, variant=variant, paths=[path], source="fused_pcn.cu",
-                pots=(pot,), per_step_flops=flops)
+                lambda s: fn(*args, n_steps=s, block_chains=block, **kw_r),
+                lambda s: fused_pcn._run_plain(*plain_args, s, block, **kw_r),
+                steps=steps, kernel_long=steps + 64, plain_long=3 * steps,
+                variant=variant, paths=[path], source="fused_pcn.cu",
+                pots=(pot,), per_step_ops=ops)
 
-    shrink, block, steps = ess_p.kernel_params["max_shrink"], 256, 3
-    args = (jacobi, pos, pm, ps, 17, steps, shrink, block)
-    # what this run's data needs: the evaluations the slices took
-    evals = fused_ess._launch_counting(*args)[3]
-    per_step = float(evals.mean()) / steps
+    shrink, block, steps, long = ess_p.kernel_params["max_shrink"], 256, 3, 67
+    args = (pos, pm, ps, 17)
+    # what this run's data needs: the evaluations that the slices of the
+    # timed steps (after the first ``steps``, up to ``long``) take, counted
+    # on the plain loop from the same start and seed
+    counting = CountingPotential(jacobi, shrink)
+    fused_ess._run_plain(counting, *args, long, shrink, block)
+    assert len(counting.per_step) == long
+    first = sum(counting.per_step[:steps]) / steps
+    per_step = sum(counting.per_step[steps:]) / (long - steps)
     print(f"fused_ess_kernel: {per_step:.3f} misfit evaluations per step of a "
-          f"budget of {shrink}", flush=True)
+          f"budget of {shrink} in steps {steps + 1}-{long} ({first:.3f} in the "
+          f"first {steps})", flush=True)
     for recorded in (False, True):
         fn, kw_r = ((fused_ess.fused_ess_chain_recorded, {"thin": 1}) if recorded
                     else (fused_ess.fused_ess_chain, {}))
         compare_chain(
             results, "fused_ess_kernel", recorded,
-            lambda: fn(*args[:5], n_steps=steps, max_shrink=shrink,
-                       block_chains=block, **kw_r),
-            lambda: fused_ess._run_plain(plain_potential(jacobi), *args[1:], **kw_r),
-            steps=steps, variant=f"jacobi, 48 CG, max_shrink {shrink}, block {block}",
+            lambda s: fn(jacobi, *args, n_steps=s, max_shrink=shrink,
+                         block_chains=block, **kw_r),
+            lambda s: fused_ess._run_plain(plain_potential(jacobi), *args, s,
+                                           shrink, block, **kw_r),
+            steps=steps, kernel_long=long, plain_long=3 * steps,
+            variant=f"jacobi, 48 CG, max_shrink {shrink}, block {block}",
             paths=["darcy_ess_fused"], source="fused_ess.cu", pots=(jacobi,),
-            per_step_flops=per_step * solve_flops(jacobi, False) + draws)
+            per_step_ops=per_step * solve_ops(jacobi, False) + draws)
+        results[-1]["solves_per_step"] = per_step
 
 
 # --- the CLI runs ---------------------------------------------------------------
@@ -469,9 +544,11 @@ def main() -> int:
                   f"{problem.n_chains} chains)", flush=True)
         counts[config] = drive_path(config, problem, n_samples)
 
+    # launches of each variant: those of the runs that use it (0 for an
+    # option that no shipped config uses)
     for r in results:
         r["launches"] = sum(counts[p].get(r["name"], 0) for p in r["paths"])
-        if r["launches"] < 1:
+        if r["paths"] and r["launches"] < 1:
             raise AssertionError(f"{r['name']} was launched by none of {r['paths']}")
 
     print(json.dumps({"kernels": results, "card": card}))

@@ -19,8 +19,10 @@
 // Phi* at the start positions come in from darcy_misfit_kernel.
 //
 // What bounds it on the H100: per chain and outer step (k = 48) the misfits
-// do ~2.9 M multiply-adds (4096 chains: ~24 GFLOP, ~0.35 ms at the f32
-// peak), but they also re-read their constant factors on every use: the
+// do ~2.9 M multiply-adds (4096 chains: ~24 GFLOP, ~20 of them the
+// preconditioners' products of bf16 inputs: ~0.08 ms at the tensor cores'
+// bf16 peak plus the f32 peak for the rest), but they run on the CUDA
+// cores, and they also re-read their constant factors on every use: the
 // surrogate's KL basis (16 KB) and modes (8 KB) 48 times and the exact
 // misfit's modes (64 KB) twice per CG iteration, ~5.5 MB per chain-step
 // from L2 before staging, and each CG iteration is a chain of dependent

@@ -20,7 +20,7 @@
 //
 // Layout and scaffold: fused_scaffold.cuh. What bounds it on the H100: the
 // cold Darcy solves (see fused_pcn.cu), as many per step as the slice
-// needs (the kernel reports the count per chain).
+// needs.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -36,7 +36,6 @@ struct EssArgs {
   IpxChainArgs chain;
   const float* phi0;  // (n,) Phi at pos_in
   int max_shrink;
-  float* evals;  // (n,) misfit evaluations of the chain in this launch
 };
 
 struct EssStep {
@@ -44,7 +43,7 @@ struct EssStep {
   float* pos;
   float* prop;
   MisfitSmem ws;
-  float phi, evals;
+  float phi;
 
   __device__ void init(const ChainCtx& c) { phi = a.phi0[c.c]; }
 
@@ -61,7 +60,6 @@ struct EssStep {
       if (c.own) prop[c.t] = centered * cosf(theta) + nu * sinf(theta) + c.mean_t;
       __syncthreads();
       const float phi_prop = darcy_phi(a.pot, prop, ws);
-      evals += 1.0f;
       if (-phi_prop > log_y) {
         phi = phi_prop;
         if (c.own) pos[c.t] = prop[c.t];
@@ -82,9 +80,8 @@ __global__ void __launch_bounds__(kFusedThreads, 4) fused_ess_kernel(EssArgs a) 
   float* pos = smem;
   float* prop = pos + a.chain.d;
   const int cells = a.pot.n * a.pot.n;
-  EssStep step{a, pos, prop, carve_misfit_smem(prop + a.chain.d, cells, a.pot.modes), 0.0f, 0.0f};
+  EssStep step{a, pos, prop, carve_misfit_smem(prop + a.chain.d, cells, a.pot.modes), 0.0f};
   run_chain<RECORD>(a.chain, step, pos);
-  if (threadIdx.x == 0) a.evals[blockIdx.x] = step.evals;
 }
 
 }  // namespace ipx
@@ -92,12 +89,12 @@ __global__ void __launch_bounds__(kFusedThreads, 4) fused_ess_kernel(EssArgs a) 
 extern "C" {
 
 int ipx_fused_ess(const IpxMisfitSpec* pot, const IpxChainArgs* chain, const float* phi0,
-                  int max_shrink, float* evals, void* stream) {
+                  int max_shrink, void* stream) {
   const int cells = pot->n * pot->n;
   const int threads = ipx::chain_threads(*chain, cells, pot->K);
   if (threads == 0 || max_shrink < 0) return cudaErrorInvalidValue;
   if (chain->n == 0) return cudaSuccess;
-  const ipx::EssArgs a{*pot, *chain, phi0, max_shrink, evals};
+  const ipx::EssArgs a{*pot, *chain, phi0, max_shrink};
   const size_t smem = sizeof(float) * (2 * chain->d + ipx::misfit_smem_floats(cells, pot->modes));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (chain->samples != nullptr) ipx::fused_ess_kernel<true><<<chain->n, threads, smem, st>>>(a);

@@ -180,7 +180,7 @@ def library():
         # spec, chain, Φ0 (n,), x0 (n², n) or null (cold), β, √(1−β²), stream
         lib.bind("ipx_fused_pcn", [spec, chain, p, p, f, f, p])
         # spec, chain, Φ0 (n,), max_shrink, evaluations (n,), stream
-        lib.bind("ipx_fused_ess", [spec, chain, p, i, p, p])
+        lib.bind("ipx_fused_ess", [spec, chain, p, i, p])
         lib.bind("ipx_error_string", [i], ctypes.c_char_p)
         _lib = lib
     return _lib

@@ -85,33 +85,23 @@ def _run_plain(potential_fn, positions, prior_mean, prior_scale, seed,
 # --- the kernel -------------------------------------------------------------
 
 
-def _launch_counting(potential_fn, positions, prior_mean, prior_scale, seed,
-                     n_steps, max_shrink, block_chains, thin=None):
-    """Launch the kernel: (final, acceptance, samples or None, evals (n,)),
-    ``evals`` the misfit evaluations each chain needed of its budget (the
-    work a roofline bound of the launch counts)."""
+def _launch(potential_fn, positions, prior_mean, prior_scale, seed, n_steps,
+            max_shrink, block_chains, thin=None):
     _scaffold.require_darcy(potential_fn, False)
     args, keep = _scaffold.chain_args(positions, prior_mean, prior_scale,
                                       seed, n_steps, block_chains, thin)
     U = keep[0].T.contiguous()
     potential_fn.check_input(U, "positions.T")
     phi0 = potential_fn(U)  # the step builder's init, by the misfit kernel
-    evals = torch.empty(U.shape[1], dtype=torch.float32, device=U.device)
     spec = potential_fn.spec()
     status = _build.library().ipx_fused_ess(
         ctypes.byref(spec), ctypes.byref(args), phi0.data_ptr(),
-        int(max_shrink), evals.data_ptr(),
-        torch.cuda.current_stream(U.device).cuda_stream,
+        int(max_shrink), torch.cuda.current_stream(U.device).cuda_stream,
     )
     name = _scaffold.kernel_name("fused_ess_kernel", thin is not None)
     _build.check(status, name)
     _build.launch_counts[name] += 1
     _, _, _, out, acc, samples = keep
-    return out, acc, samples, evals
-
-
-def _launch(*args, thin=None):
-    out, acc, samples, _ = _launch_counting(*args, thin=thin)
     return (out, acc) if thin is None else (out, acc, samples)
 
 
