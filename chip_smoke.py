@@ -5,13 +5,16 @@
 Builds the CUDA kernels from ``ip_mcmc_tpu_torch/csrc`` (one nvcc per
 ``.cu``, in parallel), holds each kernel against its plain PyTorch version
 on the card at the shapes of the ported paths (4096 chains), times both,
-then drives the four ported configs through the port's CLI in-process at
+then drives the seven ported configs through the port's CLI in-process at
 full width:
 
-    darcy_da_fused           delayed-acceptance pCN   (K1-K5)
-    darcy_pcn_warm           warm-started pCN         (K7)
-    darcy_ess_fused          elliptical slice sampling (K8)
-    darcy_pcn_4096 --fused   cold pCN                 (K6)
+    darcy_da_fused           delayed-acceptance pCN     (K1-K5)
+    darcy_pcn_warm           warm-started pCN           (K7)
+    darcy_ess_fused          elliptical slice sampling  (K8)
+    darcy_pcn_4096 --fused   cold pCN                   (K6)
+    darcy_mala_fused         MALA, adjoint gradient     (K10)
+    darcy_mala_warm          warm-started MALA          (K11)
+    darcy_fes_fused          functional ensemble sampler (K9)
 
 Before each run the launch counts are set to 0; after it they must show
 that the run went through its kernels and through no plain version. Every
@@ -47,6 +50,14 @@ BF16_TOL = (2e-6, 1e-5, 0.80, 5e-3)   # the bounds of tests/test_torch_darcy.py
 BF16_COLD_START_TOL = (2e-5, 1e-4, 0.90, 5e-3)
 # every input f32 (Jacobi): summation order only
 F32_TOL = (2e-6, 1e-5, 0.99, 1e-4)
+# Gradients and adjoint solutions, per draw relative to the draw's largest
+# entry. The residuals are divided by sigma^2 = 4e-6 on their way into the
+# adjoint's right-hand side, which amplifies rounding in the forward
+# solution (on the CPU two f32 adjoints each lie ~2e-5 from the float64
+# gradient on the worst of 24 draws, tests/test_torch_darcy_grad.py); with
+# bf16 preconditioner inputs a rounding flip in either solve carries over.
+GRAD_F32_TOL = (1e-5, 1e-4, 0.99, 2e-3)
+GRAD_BF16_TOL = (1e-4, 1e-3, 0.90, 5e-2)
 # Fused kernel vs plain loop (whose solves are the misfits' plain versions):
 # chains within CHAIN_ATOL, mean rates within RATE_ATOL (a rounding flip can
 # turn one MH decision and part a chain; measured: >= 99.98% of chains).
@@ -111,21 +122,39 @@ class Ops:
         return Ops(k * self.f32, k * self.bf16)
 
 
-def solve_ops(pot, warm: bool) -> Ops:
-    """Operations of one Darcy solve for one chain, counted from the
-    misfit's shapes: KL reconstruction, exp and log, transmissibilities and
-    diagonal, then per CG iteration one stencil apply (13 N), two dot
-    products, three vector updates and one preconditioner apply. The
-    spectral preconditioners' products (V^T r and V rt of dst_trunc, the
-    four sine stages of dst) are the bf16 operations; all else is f32."""
-    n, N, K, m = pot.n, pot.n * pot.n, pot.K, int(pot.obs.numel())
+def setup_ops(pot) -> Ops:
+    """KL reconstruction, exp and log, transmissibilities and diagonal."""
+    N = pot.n * pot.n
+    return Ops(2 * pot.K * N + 2 * N + 18 * N)
+
+
+def cg_ops(pot, warm: bool) -> Ops:
+    """One CG solve for one chain: per iteration one stencil apply (13 N),
+    two dot products, three vector updates and one preconditioner apply.
+    The spectral preconditioners' products (V^T r and V rt of dst_trunc,
+    the four sine stages of dst) are the bf16 operations; all else is
+    f32."""
+    n, N = pot.n, pot.n * pot.n
     precond = {"jacobi": Ops(N),
                "dst_trunc": Ops(N + pot.modes, 4 * pot.modes * N),
                "dst": Ops(N, 8 * n * N)}[pot.precond]
-    setup = 2 * K * N + 2 * N + 18 * N
     start = 2 * N + (14 * N if warm else 0)
-    applies = 1 + pot.cg_iters
-    return Ops(setup + start + pot.cg_iters * 23 * N + 3 * m) + applies * precond
+    return Ops(start + pot.cg_iters * 23 * N) + (1 + pot.cg_iters) * precond
+
+
+def solve_ops(pot, warm: bool) -> Ops:
+    """Operations of one Darcy solve for one chain, counted from the
+    misfit's shapes: set-up, one CG solve, the residuals."""
+    return setup_ops(pot) + cg_ops(pot, warm) + Ops(3 * int(pot.obs.numel()))
+
+
+def grad_ops(pot, warm: bool) -> Ops:
+    """Value and adjoint gradient for one chain: one set-up, two CG solves,
+    the residuals and their scatter, the face terms of dPhi/da (about 30
+    per cell) and the second KL product."""
+    N, m = pot.n * pot.n, int(pot.obs.numel())
+    return (setup_ops(pot) + 2 * cg_ops(pot, warm)
+            + Ops(5 * m + 30 * N + 2 * pot.K * N))
 
 
 def constant_bytes(pot) -> int:
@@ -251,8 +280,8 @@ def compare_chain(results, stem, recorded, kern, plain, *, steps, kernel_long,
                           <= CHAIN_ATOL).double().mean())
         line += f", records {rec_frac:.4f} within {CHAIN_ATOL}"
         frac = min(frac, rec_frac)
-    elif len(got) > 2:
-        line += (f", inner kernel {float(got[2].mean()):.4f} plain "
+    elif len(got) > 2:  # DA: inner acceptance; ensemble sampler: stretch
+        line += (f", third output kernel {float(got[2].mean()):.4f} plain "
                  f"{float(ref[2].mean()):.4f}")
     print(line, flush=True)
     if frac < MIN_CHAIN_FRAC or max(rate_err) > RATE_ATOL:
@@ -372,7 +401,8 @@ def check_single_level(problems, gen, results):
     jacobi = cold_p.batched_potential_fn
     U = cold_p.prior.sample(gen, N_CHAINS).T.contiguous()
     compare_misfit(results, jacobi, U, variant="cold: jacobi, 48 CG",
-                   paths=["darcy_ess_fused", "darcy_pcn_4096"], tol=F32_TOL,
+                   paths=["darcy_ess_fused", "darcy_pcn_4096", "darcy_fes_fused"],
+                   tol=F32_TOL,
                    replaces="ip_mcmc_tpu/models/darcy.py:542")
     pos = cold_p.init_positions(gen, N_CHAINS).cuda()
     d = pos.shape[1]
@@ -432,6 +462,152 @@ def check_single_level(problems, gen, results):
         results[-1]["solves_per_step"] = per_step
 
 
+def col_err(got, ref):
+    """Per draw: largest deviation over the rows, relative to the draw's
+    largest reference entry."""
+    return ((got - ref).abs().max(dim=0).values / ref.abs().max(dim=0).values).cpu()
+
+
+def within(err, tol, what):
+    """(line, bad) for per-draw errors under a (median, rtol, least share
+    within rtol, max) bound."""
+    median, rtol, min_frac, worst = tol
+    frac = float((err <= rtol).double().mean())
+    line = (f"{what}: {frac:.4f} within {rtol}, median {float(err.median()):.3e}, "
+            f"max {float(err.max()):.3e}")
+    bad = float(err.median()) > median or frac < min_frac or float(err.max()) > worst
+    return line, bad, frac
+
+
+def compare_grad_misfit(results, pot, U, *, variant, paths, phi_tol, grad_tol,
+                        aux0=None):
+    """One value-and-gradient kernel launch against its plain version on
+    the same inputs: Phi, the gradient and (warm) the two carried solutions
+    each under its own bound; appends the result row. Returns the kernel's
+    output."""
+    from ip_mcmc_tpu_torch.ops import _build
+
+    warm = aux0 is not None
+    N = pot.n * pot.n
+    if warm:
+        name = "darcy_misfit_grad_warm_kernel"
+        kern = lambda: pot(U, aux0)
+        plain = lambda: pot._value_and_grad_plain(U, aux0[:N], aux0[N:])
+        replaces = "ip_mcmc_tpu/models/darcy.py:783"
+    else:
+        name = f"darcy_misfit_grad_kernel[n={pot.n}]"
+        kern = lambda: pot.value_and_grad(U)
+        plain = lambda: pot._value_and_grad_plain(U)
+        replaces = "ip_mcmc_tpu/models/darcy.py:629"
+    before = _build.launch_counts[name]
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1, f"{name} did not launch"
+    B = U.shape[1]
+    assert got[0].shape == ref[0].shape == (B,) and got[1].shape == ref[1].shape == U.shape
+    assert all(bool(torch.isfinite(g).all()) for g in got), f"{name}: non-finite output"
+    rel = ((got[0] - ref[0]).abs() / ref[0].abs()).cpu()
+    checks = [within(rel, phi_tol, "Phi"), within(col_err(got[1], ref[1]), grad_tol, "gradient")]
+    if warm:
+        assert got[2].shape == aux0.shape
+        checks.append(within(col_err(got[2][:N], ref[2]), grad_tol, "forward solution"))
+        checks.append(within(col_err(got[2][N:], ref[3]), grad_tol, "adjoint solution"))
+    print(f"{name} ({variant}, {B} draws): " + "; ".join(c[0] for c in checks), flush=True)
+    if any(c[1] for c in checks):
+        raise AssertionError(f"{name} ({variant}) disagrees with its plain version")
+    ms, plain_ms = cuda_time_ms(kern, 20), cuda_time_ms(plain, 3)
+    io_bytes = 4 * B * (2 * pot.K + 1 + (4 * N if warm else 0))
+    row = {
+        "name": name, "variant": variant, "route": "cuda", "source": SRC + "fused_mala.cu",
+        "replaces": replaces, "paths": paths,
+        "max_abs_err": float((got[0] - ref[0]).abs().max()),
+        "max_rel_err": float(rel.max()), "frac_within_rtol": checks[0][2],
+        "grad_max_rel_err": float(col_err(got[1], ref[1]).max()),
+        "grad_frac_within_rtol": checks[1][2],
+        "ms": ms, "plain_ms": plain_ms, "ms_unit": f"one call, {B} draws",
+        **bound(B * grad_ops(pot, warm), io_bytes + constant_bytes(pot)),
+        "library_ms": None,
+    }
+    print(f"  time per call: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    results.append(row)
+    return got
+
+
+def check_gradient_and_ensemble(problems, gen, results):
+    """The two value-and-gradient misfit kernels, then K10, K11 and K9 at
+    their configs' blocks, each plain and recorded."""
+    from ip_mcmc_tpu_torch.ops import fused_fes, fused_mala
+    from ip_mcmc_tpu_torch.runner import _resolve_n_low_modes
+
+    cold_p, warm_p, fes_p = (problems[k] for k in
+                             ("darcy_mala_fused", "darcy_mala_warm", "darcy_fes_fused"))
+    jacobi = cold_p.batched_potential_fn
+    pag, aux_dim = warm_p.batched_warm_potential
+    eps = cold_p.kernel_params["step_size"]
+    U = cold_p.prior.sample(gen, N_CHAINS).T.contiguous()
+    U2 = (U + eps * cold_p.prior.sample(gen, N_CHAINS).T).contiguous()  # a MALA-sized move
+    compare_grad_misfit(results, jacobi, U, variant="cold: jacobi, 48 + 48 CG",
+                        paths=["darcy_mala_fused"], phi_tol=F32_TOL,
+                        grad_tol=GRAD_F32_TOL)
+    zeros = torch.zeros(aux_dim, N_CHAINS, device="cuda")
+    out = compare_grad_misfit(results, pag, U, aux0=zeros, variant="dst, 6 + 6 CG, aux0 = 0",
+                              paths=["darcy_mala_warm"], phi_tol=BF16_COLD_START_TOL,
+                              grad_tol=GRAD_BF16_TOL)
+    compare_grad_misfit(results, pag, U2, aux0=out[2],
+                        variant="dst, 6 + 6 CG, aux0 = previous solutions",
+                        paths=["darcy_mala_warm"], phi_tol=BF16_TOL,
+                        grad_tol=GRAD_BF16_TOL)
+
+    pos = cold_p.init_positions(gen, N_CHAINS).cuda()
+    d = pos.shape[1]
+    pm, ps = cold_p.prior.mean, cold_p.prior.scale
+    block = cold_p.kernel_params["block_chains"]
+    draws = Ops(RNG_OPS_PER_DRAW * d)
+    mala_cases = (
+        ("fused_mala_kernel", jacobi, plain_potential(jacobi), {}, 4,
+         grad_ops(jacobi, False) + draws, "darcy_mala_fused",
+         f"jacobi, 48 + 48 CG, block {block}"),
+        ("fused_mala_warm_kernel", pag, plain_potential(pag, warm=True),
+         {"aux_dim": aux_dim}, 8, grad_ops(pag, True) + draws, "darcy_mala_warm",
+         f"dst, 6 + 6 CG, block {block}"),
+    )
+    for stem, pot, plain_pot, kw, steps, ops, path, variant in mala_cases:
+        for recorded in (False, True):
+            kw_r = dict(kw, thin=1) if recorded else kw
+            compare_chain(
+                results, stem, recorded,
+                lambda s: fused_mala._launch(pot, pos, pm, ps, eps, 19, s, block, **kw_r),
+                lambda s: fused_mala._run_plain(plain_pot, pos, pm, ps, eps, 19, s,
+                                                block, **kw_r),
+                steps=steps, kernel_long=steps + 64, plain_long=3 * steps,
+                variant=variant, paths=[path], source="fused_mala.cu", pots=(pot,),
+                per_step_ops=ops)
+
+    kp = fes_p.kernel_params
+    n_low = _resolve_n_low_modes(kp, fes_p)
+    fes_pot = fes_p.batched_potential_fn
+    args = (pos, pm, ps, n_low, 23, kp["pcn_beta"], kp.get("stretch_a", 2.0))
+    # two solves per chain and step: a chain is evaluated only in its own
+    # parity's sub-step (the plain loop, as the TPU kernel, evaluates every
+    # chain three times behind the parity mask)
+    ops = 2 * solve_ops(fes_pot, False) + draws
+    for recorded in (False, True):
+        kw_r = {"thin": 1} if recorded else {}
+        compare_chain(
+            results, "fused_fes_kernel", recorded,
+            lambda s: fused_fes._launch(fes_pot, *args, s, block, **kw_r),
+            lambda s: fused_fes._run_plain(plain_potential(fes_pot), *args, s, block,
+                                           **kw_r),
+            steps=4, kernel_long=36, plain_long=12,
+            variant=(f"jacobi, 48 CG, M = {n_low}, block {block}; two launches "
+                     "per step, one per lane parity"),
+            paths=["darcy_fes_fused"], source="fused_fes.cu", pots=(fes_pot,),
+            per_step_ops=ops)
+        results[-1]["solves_per_step"] = 2.0
+        results[-1]["launches_per_step"] = 2
+
+
 # --- the CLI runs ---------------------------------------------------------------
 
 # config -> (CLI flags, kernels the run must launch)
@@ -444,6 +620,12 @@ PATHS = {
                              "fused_ess_kernel<true>")),
     "darcy_pcn_4096": (["--fused"], ("darcy_misfit_kernel[n=16]", "fused_pcn_kernel<false>",
                                      "fused_pcn_kernel<true>")),
+    "darcy_mala_fused": ([], ("darcy_misfit_grad_kernel[n=16]", "fused_mala_kernel<false>",
+                              "fused_mala_kernel<true>")),
+    "darcy_mala_warm": ([], ("darcy_misfit_grad_warm_kernel", "fused_mala_warm_kernel<false>",
+                             "fused_mala_warm_kernel<true>")),
+    "darcy_fes_fused": ([], ("darcy_misfit_kernel[n=16]", "fused_fes_kernel<false>",
+                             "fused_fes_kernel<true>")),
 }
 
 
@@ -487,6 +669,9 @@ def drive_path(config, problem, n_samples):
     else:
         assert "inner_accept_rate" not in metrics
         assert metrics["steps_per_s"] > 0.0
+    assert ("stretch_accept_rate" in metrics) == (problem.kernel == "fes")
+    if problem.kernel == "fes":
+        rates.append("stretch_accept_rate")
     for key in rates:
         assert 0.0 < metrics[key] <= 1.0, f"{key} = {metrics[key]}"
     assert all(math.isfinite(v) for v in metrics["posterior_mean"])
@@ -518,14 +703,18 @@ def main() -> int:
     check_da(problems["darcy_da_fused"], gen, results)
     check_warm_misfit(problems["darcy_pcn_warm"], gen, results)
     check_single_level(problems, gen, results)
+    check_gradient_and_ensemble(problems, gen, results)
 
-    # the four paths, as shipped unless their predicted time exceeds the
+    # the seven paths, as shipped unless their predicted time exceeds the
     # budget: then every path's n_samples is cut by the same factor
     step_ms = {
         "darcy_da_fused": "fused_da_pcn_kernel<true>",
         "darcy_pcn_warm": "fused_pcn_warm_kernel<true>",
         "darcy_ess_fused": "fused_ess_kernel<true>",
         "darcy_pcn_4096": "fused_pcn_kernel<true>",
+        "darcy_mala_fused": "fused_mala_kernel<true>",
+        "darcy_mala_warm": "fused_mala_warm_kernel<true>",
+        "darcy_fes_fused": "fused_fes_kernel<true>",
     }
     step_ms = {cfg: next(r["ms"] for r in results if r["name"] == k)
                for cfg, k in step_ms.items()}
@@ -533,7 +722,7 @@ def main() -> int:
     predicted = sum(steps(p, p.n_samples) * step_ms[c] / 1e3
                     for c, p in problems.items())
     cut = min(1.0, RUN_BUDGET_S / predicted)
-    print(f"predicted device time of the four runs as shipped: {predicted:.1f} s",
+    print(f"predicted device time of the seven runs as shipped: {predicted:.1f} s",
           flush=True)
     counts = {}
     for config, problem in problems.items():

@@ -1,8 +1,9 @@
 """Named configurations of the port (mirrors ``ip_mcmc_tpu/configs``).
 
 Ported so far, all on the 16×16 Darcy problem: ``darcy_da_fused``,
-``darcy_pcn_4096`` (its fused path), ``darcy_pcn_warm`` and
-``darcy_ess_fused``. The deterministic constants (KL basis, observation
+``darcy_pcn_4096`` (its fused path), ``darcy_pcn_warm``,
+``darcy_ess_fused``, ``darcy_fes_fused``, ``darcy_mala_fused`` and
+``darcy_mala_warm``. The deterministic constants (KL basis, observation
 cells, source, preconditioner factors) are computed here in numpy; the
 arrays the JAX configs draw with JAX keys (the data ``y`` and the truth of
 ``_darcy_problem``, the surrogate's calibration) are read from the
@@ -21,10 +22,11 @@ import torch
 
 from ip_mcmc_tpu_torch import distributions as dist
 from ip_mcmc_tpu_torch.convert import (
+    darcy_mala_warm_misfit_from_arrays,
     darcy_misfit_from_arrays,
     darcy_warm_misfit_from_arrays,
 )
-from ip_mcmc_tpu_torch.models import darcy
+from ip_mcmc_tpu_torch.models import darcy, kl
 
 FIXTURE = pathlib.Path(__file__).resolve().parent / "darcy16_da.npz"
 
@@ -45,7 +47,8 @@ class Problem:
     notes: str = ""
     batched_potential_fn: Optional[Callable] = None  # (d, B) -> (B,)
     batched_surrogate_fn: Optional[Callable] = None  # fused da_pcn Φ*
-    # fused warm pCN: (module (U, x0) -> (Φ, x), aux_dim)
+    # fused warm pCN: (module (U, x0) -> (Φ, x), aux_dim); fused warm MALA:
+    # (module (U, aux0) -> (Φ, ∇Φ, aux), aux_dim)
     batched_warm_potential: Optional[tuple] = None
 
     def init_positions(self, generator: torch.Generator, n=None):
@@ -150,6 +153,84 @@ def darcy_ess_fused(device) -> Problem:
         truth=u_true,
         notes="rejection-free slice sampling, fixed shrink budget",
         batched_potential_fn=phi_batched,
+    )
+
+
+@register
+def darcy_fes_fused(device) -> Problem:
+    """Fused functional ensemble sampler on Darcy: affine stretch moves on
+    the leading KL modes (partners within each block-ensemble) + pCN on the
+    complement. The stretch dimension is chosen by the spectral-energy
+    criterion ("auto": the smallest M capturing 90% of the field's KL
+    eigenvalue mass; ``ops.fused_fes.choose_n_low_modes``)."""
+    prior, _, y, u_true, phi_batched = _darcy_problem(device)
+    # the field spectrum behind the whitened parameterization (the geometry
+    # of _darcy_problem's darcy_aux call)
+    _, ij = kl.sine_basis_2d(8, 16)
+    lam = kl.laplacian_eigenvalues_2d(ij, alpha=2.0, scale=10.0)
+    return Problem(
+        name="darcy_fes_fused",
+        dim=64,
+        prior=prior,
+        kernel="fes",
+        kernel_params={"fused": True, "n_low_modes": "auto",
+                       "kl_eigenvalues": lam, "energy_frac": 0.9,
+                       "pcn_beta": 0.08, "block_chains": 256},
+        n_chains=4096,
+        n_samples=400,
+        burn_in=300,
+        data=y,
+        truth=u_true,
+        notes="block = one walker ensemble; 2 misfit solves per chain-step",
+        batched_potential_fn=phi_batched,
+    )
+
+
+@register
+def darcy_mala_fused(device) -> Problem:
+    """Fused MALA on Darcy: gradient-based proposals with the adjoint CG
+    solve inside the kernel (``DarcyMisfit.value_and_grad``; both solves
+    cold, Jacobi, 48 iterations)."""
+    prior, _, y, u_true, phi_batched = _darcy_problem(device)
+    return Problem(
+        name="darcy_mala_fused",
+        dim=64,
+        prior=prior,
+        kernel="mala",
+        kernel_params={"fused": True, "step_size": 0.012, "block_chains": 256},
+        n_chains=4096,
+        n_samples=400,
+        burn_in=300,
+        data=y,
+        truth=u_true,
+        notes="adjoint-method gradients inside the fused kernel",
+        batched_potential_fn=phi_batched,
+    )
+
+
+@register
+def darcy_mala_warm(device) -> Problem:
+    """Warm fused MALA on Darcy: the forward and the adjoint CG solution
+    carried in the kernel state, dense ``dst`` preconditioner, 6 + 6
+    iterations."""
+    prior, aux, y, u_true, phi_batched = _darcy_problem(device)
+    warm, aux_dim = darcy_mala_warm_misfit_from_arrays(
+        aux, y, 0.002, cg_iters=6, precond="dst")
+    return Problem(
+        name="darcy_mala_warm",
+        dim=64,
+        prior=prior,
+        kernel="mala",
+        kernel_params={"fused": True, "warm": True, "step_size": 0.012,
+                       "block_chains": 256},
+        n_chains=4096,
+        n_samples=400,
+        burn_in=300,
+        data=y,
+        truth=u_true,
+        notes="explicit adjoint, warm forward+adjoint solves",
+        batched_potential_fn=phi_batched,
+        batched_warm_potential=(warm.to(device), aux_dim),
     )
 
 

@@ -6,15 +6,23 @@ dict (``scaled_basis``, ``obs_indices``, ``source``, ``n_grid``), the data
 and the noise scale(s) — and returns the port's ``DarcyMisfit`` with the
 same constants. ``darcy_warm_misfit_from_arrays`` does the same for
 ``make_batched_misfit_warm`` and returns, as that does, the pair
-(``DarcyMisfitWarm``, ``aux_dim``). Both accept the JAX package's aux dict
-(array leaves convert with ``np.asarray``) or ``models.darcy.darcy_aux``'s.
+(``DarcyMisfitWarm``, ``aux_dim``); ``darcy_mala_warm_misfit_from_arrays``
+for ``make_batched_misfit_mala_warm`` (``DarcyMisfitMalaWarm``,
+``aux_dim`` = 2n²). All accept the JAX package's aux dict (array leaves
+convert with ``np.asarray``) or ``models.darcy.darcy_aux``'s. The adjoint
+gradient of ``differentiable=True`` is always there
+(``DarcyMisfit.value_and_grad``), so there is no flag for it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ip_mcmc_tpu_torch.models.darcy import DarcyMisfit, DarcyMisfitWarm
+from ip_mcmc_tpu_torch.models.darcy import (
+    DarcyMisfit,
+    DarcyMisfitMalaWarm,
+    DarcyMisfitWarm,
+)
 
 
 def _from_arrays(cls, aux, data, noise_scale, cg_iters, precond,
@@ -48,3 +56,13 @@ def darcy_warm_misfit_from_arrays(aux, data, noise_scale, cg_iters: int = 16,
     warm = _from_arrays(DarcyMisfitWarm, aux, data, noise_scale, cg_iters,
                         precond, precond_modes, log_a_mean)
     return warm, warm.aux_dim
+
+
+def darcy_mala_warm_misfit_from_arrays(aux, data, noise_scale,
+                                       cg_iters: int = 8,
+                                       precond: str = "dst",
+                                       precond_modes: int = 128,
+                                       log_a_mean: float = 0.0):
+    pag = _from_arrays(DarcyMisfitMalaWarm, aux, data, noise_scale, cg_iters,
+                       precond, precond_modes, log_a_mean)
+    return pag, pag.aux_dim

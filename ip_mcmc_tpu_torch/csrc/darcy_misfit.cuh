@@ -1,16 +1,25 @@
-// Batched Darcy misfit as a device function run by one CTA per chain: the
-// arithmetic of ip_mcmc_tpu/models/darcy.py make_batched_misfit (K5, l.542,
-// differentiable=False) and make_batched_misfit_warm (K7, l.669) with
-// _flat_transmissibilities l.337, _apply_operator_flat l.347,
+// Batched Darcy misfit as device functions run by one CTA per chain: the
+// arithmetic of ip_mcmc_tpu/models/darcy.py make_batched_misfit (K5, l.542;
+// with differentiable=True its adjoint phi_bwd, l.637),
+// make_batched_misfit_warm (K7, l.669) and make_batched_misfit_mala_warm
+// (l.783) with _flat_transmissibilities l.337, _apply_operator_flat l.347,
 // _operator_diagonal_flat l.357, _cg_flat l.363, _flat_dst_preconditioner
 // l.445 and _flat_truncated_dst_preconditioner l.490.
+//
+// The solve comes in three parts, so that a second right-hand side can be
+// solved on the same operator: darcy_setup (field, face transmissibilities,
+// diagonal, mean coefficient), darcy_cg (fixed-count PCG on any right-hand
+// side, from 0 or from a carried start) and darcy_observe (residuals at the
+// observed cells and Phi). darcy_solve chains them for the misfit alone;
+// darcy_value_and_grad adds the adjoint solve and the closed-form
+// derivative of the harmonic means.
 //
 // Thread t owns cell t of the n x n grid (t < n*n); the CG vectors x, r,
 // z, Ap and the cell's face transmissibilities live in its registers.
 // Shared memory holds what neighbours or reductions read: the search
 // direction p (stencil), bf16(r) and the spectral coefficients
 // (preconditioner), and the warp partial sums. Every thread of the CTA
-// calls darcy_solve (threads t >= n*n contribute zeros), so every
+// calls these functions (threads t >= n*n contribute zeros), so every
 // __syncthreads is reached by the whole block.
 #pragma once
 
@@ -172,13 +181,20 @@ __device__ __forceinline__ float apply_operator(const CellStencil& k, float p, b
   return k.th * (p - pr) - k.th_l * (pl - p) + k.tv * (p - pd) - k.tv_u * (pu - p) + k.bnd * p;
 }
 
-// Phi(u) for the chain whose coefficients u[0..K) sit in shared memory;
-// the same value in every thread. WARM: CG starts from this thread's cell
-// of the previous solution, passed in x (r = b - A x0); otherwise from 0.
-// On return x is this thread's cell of the solution.
-template <bool WARM>
-__device__ float darcy_solve(const IpxMisfitSpec& s, const float* u,
-                             const MisfitSmem& ws, float& x) {
+// One chain's operator A(a): what darcy_setup leaves in this thread's
+// registers for the solves that follow.
+struct DarcyOperator {
+  CellStencil k;
+  float a, inv_diag, a_bar;
+  int i, j;
+  bool own;  // t < n*n
+};
+
+// a = exp(log_a_mean + basis^T u) for the chain whose coefficients u[0..K)
+// sit in shared memory, the stencil of this thread's cell, the inverse
+// diagonal and the geometric-mean coefficient a_bar.
+__device__ DarcyOperator darcy_setup(const IpxMisfitSpec& s, const float* u,
+                                     const MisfitSmem& ws) {
   const int t = threadIdx.x, n = s.n, cells = n * n;
   const bool own = t < cells;
   const int i = own ? t / n : 0, j = own ? t % n : 0;
@@ -220,40 +236,56 @@ __device__ float darcy_solve(const IpxMisfitSpec& s, const float* u,
   k.bnd = 2.0f * h2 * a * edge;
   const float inv_diag = own ? 1.0f / (k.th + k.th_l + k.tv + k.tv_u + k.bnd) : 0.0f;
   const float a_bar = expf(block_sum(own ? logf(a) : 0.0f, ws.red) / h2);
+  return DarcyOperator{k, a, inv_diag, a_bar, i, j, own};
+}
 
-  // fixed-count PCG; alpha = 0 when pAp <= 0 and beta = 0 when rz <= 0, so
-  // a converged solve freezes instead of producing NaN
-  float r = own ? s.source[t] : 0.0f;
+// Fixed-count PCG on A x = b, b being this thread's cell of the right-hand
+// side. WARM: starts from this thread's cell of a previous solution, passed
+// in x (r = b - A x0); otherwise from 0. On return x is this thread's cell
+// of the solution. alpha = 0 when pAp <= 0 and beta = 0 when rz <= 0, so a
+// converged solve freezes instead of producing NaN.
+template <bool WARM>
+__device__ void darcy_cg(const IpxMisfitSpec& s, const DarcyOperator& op, float b,
+                         const MisfitSmem& ws, float& x) {
+  const int n = s.n;
+  float r = b;
   if (WARM) {
-    if (!own) x = 0.0f;
-    r = r - apply_operator(k, x, own, i, j, n, ws);
+    if (!op.own) x = 0.0f;
+    r = r - apply_operator(op.k, x, op.own, op.i, op.j, n, ws);
     __syncthreads();  // the stencil's reads end before the preconditioner writes
   } else {
     x = 0.0f;
   }
-  float z = apply_precond(s, r, inv_diag, a_bar, ws);
+  float z = apply_precond(s, r, op.inv_diag, op.a_bar, ws);
   float p = z;
   float rz = block_sum(r * z, ws.red);
   for (int it = 0; it < s.cg_iters; ++it) {
-    const float Ap = apply_operator(k, p, own, i, j, n, ws);
+    const float Ap = apply_operator(op.k, p, op.own, op.i, op.j, n, ws);
     const float pAp = block_sum(p * Ap, ws.red);
     const float alpha = pAp > 0.0f ? rz / pAp : 0.0f;
     x = x + alpha * p;
     r = r - alpha * Ap;
-    z = apply_precond(s, r, inv_diag, a_bar, ws);
+    z = apply_precond(s, r, op.inv_diag, op.a_bar, ws);
     const float rz_new = block_sum(r * z, ws.red);
     const float beta = rz > 0.0f ? rz_new / rz : 0.0f;
     p = z + beta * p;
     rz = rz_new;
   }
+}
 
-  // pressure at the observed cells and 1/2 ||(y - pred) / sigma||^2
+// Pressure at the observed cells and Phi = 1/2 ||(y - pred) / sigma||^2,
+// the same value in every thread. The residuals (y - pred) / sigma go to
+// res[0..m) in shared memory when res is given.
+__device__ float darcy_observe(const IpxMisfitSpec& s, float x, bool own,
+                               const MisfitSmem& ws, float* res_out) {
+  const int t = threadIdx.x;
   if (own) ws.cell_a[t] = x;
   __syncthreads();
   if (t < 32) {
     float acc = 0.0f;
     for (int o = t; o < s.m; o += 32) {
       const float res = (s.data[o] - ws.cell_a[s.obs[o]]) / s.noise[o];
+      if (res_out != nullptr) res_out[o] = res;
       acc += res * res;
     }
     acc = warp_sum(acc);
@@ -263,11 +295,111 @@ __device__ float darcy_solve(const IpxMisfitSpec& s, const float* u,
   return ws.scalar[0];
 }
 
+// Phi(u) for the chain whose coefficients u[0..K) sit in shared memory;
+// the same value in every thread. WARM: CG starts from this thread's cell
+// of the previous solution, passed in x; otherwise from 0. On return x is
+// this thread's cell of the solution.
+template <bool WARM>
+__device__ float darcy_solve(const IpxMisfitSpec& s, const float* u,
+                             const MisfitSmem& ws, float& x) {
+  const DarcyOperator op = darcy_setup(s, u, ws);
+  darcy_cg<WARM>(s, op, op.own ? s.source[threadIdx.x] : 0.0f, ws, x);
+  return darcy_observe(s, x, op.own, ws, nullptr);
+}
+
 // The cold misfit (K5): Phi(u) from a zero start.
 __device__ __forceinline__ float darcy_phi(const IpxMisfitSpec& s, const float* u,
                                            const MisfitSmem& ws) {
   float x;
   return darcy_solve<false>(s, u, ws, x);
+}
+
+// What the gradient keeps in shared memory beside the misfit's workspace:
+// the field a, the forward solution x and the adjoint solution lam, where
+// neighbours read them, and the residuals at the observed cells.
+struct GradSmem {
+  float* a;    // [cells]
+  float* x;    // [cells] WARM: the start on entry; the solution on return
+  float* lam;  // [cells] likewise for the adjoint solve
+  float* res;  // [m]
+};
+
+__host__ __device__ inline int grad_smem_floats(int cells, int m) { return 3 * cells + m; }
+
+__device__ inline GradSmem carve_grad_smem(float* base, int cells) {
+  return GradSmem{base, base + cells, base + 2 * cells, base + 3 * cells};
+}
+
+// Phi(u) and its gradient g[0..K) (shared memory, valid in every thread on
+// return) by the adjoint method: forward solve, adjoint solve
+// A lam = -O^T(res / sigma) on the same operator and preconditioner, then
+// dPhi/da per cell from x, lam and the harmonic means' closed-form
+// derivative dt/da_i = 2 h^-2 (a_j / (a_i + a_j))^2 over the cell's four
+// faces plus the Dirichlet term, and g = basis (a (-dPhi/da)). WARM: both
+// solves start from gs.x / gs.lam (thread t's own cell, written by thread
+// t before the call); the solutions are left there either way.
+template <bool WARM>
+__device__ float darcy_value_and_grad(const IpxMisfitSpec& s, const float* u,
+                                      const MisfitSmem& ws, const GradSmem& gs, float* g) {
+  const int t = threadIdx.x, n = s.n, cells = n * n;
+  const DarcyOperator op = darcy_setup(s, u, ws);
+  const bool own = op.own;
+  const int i = op.i, j = op.j;
+  if (own) gs.a[t] = op.a;
+
+  float x = (WARM && own) ? gs.x[t] : 0.0f;
+  darcy_cg<WARM>(s, op, own ? s.source[t] : 0.0f, ws, x);
+  const float phi = darcy_observe(s, x, own, ws, gs.res);
+  if (own) gs.x[t] = x;
+
+  // dPhi/dx = -O^T(res / sigma): a scatter to the observed cells
+  float b = 0.0f;
+  if (own) {
+    for (int o = 0; o < s.m; ++o)
+      if (s.obs[o] == t) b += gs.res[o] / s.noise[o];
+    b = -b;
+  }
+  float lam = (WARM && own) ? gs.lam[t] : 0.0f;
+  darcy_cg<WARM>(s, op, b, ws, lam);
+  if (own) gs.lam[t] = lam;
+  __syncthreads();
+
+  if (own) {
+    const float two_h2 = 2.0f * static_cast<float>(cells);
+    const float a = gs.a[t], xc = gs.x[t];
+    float t_r = 0.0f, t_l = 0.0f, t_d = 0.0f, t_u = 0.0f;
+    if (j < n - 1) {  // the face to the right: this cell's own share
+      const float ar = gs.a[t + 1], den = 1.0f / (a + ar + 1e-38f), q = ar * den;
+      t_r = two_h2 * (q * q) * ((xc - gs.x[t + 1]) * (lam - gs.lam[t + 1]));
+    }
+    if (j > 0) {  // the left neighbour's right face: the neighbour share
+      const float al = gs.a[t - 1], den = 1.0f / (al + a + 1e-38f), q = al * den;
+      t_l = two_h2 * (q * q) * ((gs.x[t - 1] - xc) * (gs.lam[t - 1] - lam));
+    }
+    if (i < n - 1) {
+      const float ad = gs.a[t + n], den = 1.0f / (a + ad + 1e-38f), q = ad * den;
+      t_d = two_h2 * (q * q) * ((xc - gs.x[t + n]) * (lam - gs.lam[t + n]));
+    }
+    if (i > 0) {
+      const float au = gs.a[t - n], den = 1.0f / (au + a + 1e-38f), q = au * den;
+      t_u = two_h2 * (q * q) * ((gs.x[t - n] - xc) * (gs.lam[t - n] - lam));
+    }
+    const float edge = static_cast<float>((i == 0) + (i == n - 1) + (j == 0) + (j == n - 1));
+    const float g_a = t_r + t_l + t_d + t_u + two_h2 * xc * lam * edge;
+    ws.cell_a[t] = a * (-g_a);  // chain rule through a = exp(log a)
+  }
+  __syncthreads();
+  // g[k] = sum_cells basis[k, cell] (a (-g_a))[cell]: a warp per mode
+  const int lane = t & 31, nw = blockDim.x >> 5;
+  for (int k = t >> 5; k < s.K; k += nw) {
+    const float* row = s.basis + static_cast<size_t>(k) * cells;
+    float acc = 0.0f;
+    for (int c = lane; c < cells; c += 32) acc += row[c] * ws.cell_a[c];
+    acc = warp_sum(acc);
+    if (lane == 0) g[k] = acc;
+  }
+  __syncthreads();
+  return phi;
 }
 
 // Threads of a one-chain CTA over `cells` cells and d coordinates.

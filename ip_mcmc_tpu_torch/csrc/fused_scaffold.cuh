@@ -13,7 +13,9 @@
 //                                         the same answer in every thread
 //
 // and keeps pos[t] written by thread t only. The step counter restarts at
-// 0 in every launch, as in the JAX scaffold.
+// 0 in every launch, as in the JAX scaffold. A sampler whose chains read
+// one another (fused_fes.cu) cannot loop inside a CTA: it takes ChainCtx
+// alone and leaves the step loop to the host.
 #pragma once
 
 #include <cstdint>
@@ -54,11 +56,16 @@ struct ChainCtx {
   __device__ __forceinline__ float uniform(uint32_t step, uint32_t tag) const {
     return uniform01(mix_key(bseed, step, tag), lane);
   }
+  // the (1, 1) uniform draw with tag `tag`: one number for the whole block
+  __device__ __forceinline__ float block_uniform(uint32_t step, uint32_t tag) const {
+    return uniform01(mix_key(bseed, step, tag), 0u);
+  }
 };
 
-__device__ __forceinline__ ChainCtx make_chain_ctx(const IpxChainArgs& a) {
+// The context of chain c in the CTA that runs it.
+__device__ __forceinline__ ChainCtx make_chain_ctx(const IpxChainArgs& a, int c) {
   ChainCtx x;
-  x.c = blockIdx.x;
+  x.c = c;
   x.t = threadIdx.x;
   x.d = a.d;
   x.half = (a.d + 1) / 2;
@@ -73,7 +80,7 @@ __device__ __forceinline__ ChainCtx make_chain_ctx(const IpxChainArgs& a) {
 
 template <bool RECORD, class Step>
 __device__ void run_chain(const IpxChainArgs& a, Step& step, float* pos) {
-  const ChainCtx x = make_chain_ctx(a);
+  const ChainCtx x = make_chain_ctx(a, blockIdx.x);
   if (x.own) pos[x.t] = a.pos_in[static_cast<size_t>(x.c) * x.d + x.t];
   __syncthreads();
   step.init(x);

@@ -3,20 +3,29 @@
 
 ``darcy_aux`` builds the constants of ``make_darcy_forward`` (scaled KL
 basis, observation cells, source) in numpy. ``DarcyMisfit`` is
-``make_batched_misfit(..., differentiable=False)``: Φ for a features-first
-(K, B) batch of whitened KL coefficients — KL reconstruction, exp,
-harmonic-mean face transmissibilities, fixed-count PCG on the 5-point
-finite-volume operator with the Jacobi or ``dst_trunc`` preconditioner,
-pressure at the observation cells, ½‖(y − pred)/σ‖². ``DarcyMisfitWarm``
-is ``make_batched_misfit_warm``: (U, x0) → (Φ, x), the CG started from
-``x0`` and its solution returned, with the dense ``dst`` preconditioner
-as a third choice.
+``make_batched_misfit``: Φ for a features-first (K, B) batch of whitened KL
+coefficients — KL reconstruction, exp, harmonic-mean face
+transmissibilities, fixed-count PCG on the 5-point finite-volume operator
+with the Jacobi or ``dst_trunc`` preconditioner, pressure at the
+observation cells, ½‖(y − pred)/σ‖². Its ``value_and_grad`` is the adjoint
+method of ``differentiable=True`` (one more CG solve A λ = −Oᵀ(res/σ) and
+the closed-form derivative of the harmonic means), and a tensor that
+requires grad goes through a ``torch.autograd.Function`` with that adjoint
+as its backward. ``DarcyMisfitWarm`` is ``make_batched_misfit_warm``:
+(U, x0) → (Φ, x), the CG started from ``x0`` and its solution returned,
+with the dense ``dst`` preconditioner as a third choice.
+``DarcyMisfitMalaWarm`` is ``make_batched_misfit_mala_warm``: (U, aux0) →
+(Φ, ∇Φ, aux), aux stacking the forward and the adjoint solution, both
+solves started from aux0.
 
-``forward`` launches ``darcy_misfit_kernel`` (``csrc/fused_da_pcn.cu``) or
-``darcy_misfit_warm_kernel`` (``csrc/fused_pcn.cu``) for CUDA tensors and
-runs ``_forward_plain`` for CPU tensors. The plain version uses the
-readable 2-D (n, n, B) layout; the JAX flat layout with wrap masks and
-Kronecker factors exists only because Mosaic lacks in-kernel reshapes.
+For CUDA tensors the modules launch ``darcy_misfit_kernel``
+(``csrc/fused_da_pcn.cu``), ``darcy_misfit_warm_kernel``
+(``csrc/fused_pcn.cu``), ``darcy_misfit_grad_kernel`` or
+``darcy_misfit_grad_warm_kernel`` (``csrc/fused_mala.cu``); for CPU tensors
+they run the plain versions. Those use the readable 2-D (n, n, B) layout;
+the JAX flat layout with wrap masks, Kronecker factors and one-hot
+observation matmuls exists only because Mosaic lacks in-kernel reshapes
+and gathers.
 """
 
 from __future__ import annotations
@@ -137,10 +146,21 @@ class DarcyMisfit(nn.Module):
         self.register_buffer("edge", torch.tensor(edge.reshape(n, n, 1)))
 
     def forward(self, U: torch.Tensor) -> torch.Tensor:
+        if U.requires_grad and torch.is_grad_enabled():
+            return _MisfitWithAdjoint.apply(U, self, False)
         if U.device.type == "cuda":
             return self._forward_kernel(U)
         if U.device.type == "cpu":
             return self._forward_plain(U)
+        raise ValueError(f"DarcyMisfit: unsupported device {U.device}")
+
+    def value_and_grad(self, U: torch.Tensor):
+        """(Φ (B,), ∇Φ (K, B)) by the adjoint method, both solves from 0."""
+        if U.device.type == "cuda":
+            return self._grad_kernel(U, None)[:2]
+        if U.device.type == "cpu":
+            _build.launch_counts[f"darcy_misfit_grad_plain[n={self.n}]"] += 1
+            return self._value_and_grad_plain(U)[:2]
         raise ValueError(f"DarcyMisfit: unsupported device {U.device}")
 
     # --- the kernel -------------------------------------------------------
@@ -190,6 +210,32 @@ class DarcyMisfit(nn.Module):
         _build.launch_counts[f"darcy_misfit_kernel[n={self.n}]"] += 1
         return phi
 
+    def _grad_kernel(self, U, aux0):
+        """``darcy_misfit_grad_kernel`` (``aux0`` None) or
+        ``darcy_misfit_grad_warm_kernel``: (Φ, ∇Φ, aux or None)."""
+        self.check_input(U)
+        U = U.contiguous()
+        B = U.shape[1]
+        phi = torch.empty(B, dtype=torch.float32, device=U.device)
+        grad = torch.empty_like(U)
+        warm = aux0 is not None
+        aux = None
+        if warm:
+            aux0 = aux0.contiguous()
+            aux = torch.empty_like(aux0)
+        spec = self.spec()
+        status = _build.library().ipx_darcy_misfit_grad(
+            ctypes.byref(spec), U.data_ptr(),
+            aux0.data_ptr() if warm else None, B, phi.data_ptr(),
+            grad.data_ptr(), aux.data_ptr() if warm else None,
+            torch.cuda.current_stream(U.device).cuda_stream,
+        )
+        name = ("darcy_misfit_grad_warm_kernel" if warm
+                else f"darcy_misfit_grad_kernel[n={self.n}]")
+        _build.check(status, name)
+        _build.launch_counts[name] += 1
+        return phi, grad, aux
+
     # --- the plain version ------------------------------------------------
 
     def _precond(self, r, inv_diag, a_bar):
@@ -223,12 +269,15 @@ class DarcyMisfit(nn.Module):
         return torch.einsum("kj,ikb->ijb", S, q(w)).reshape(n * n, -1)
 
     def _forward_plain(self, U: torch.Tensor) -> torch.Tensor:
+        """Plain Φ on any device; differentiable by the plain adjoint."""
+        if U.requires_grad and torch.is_grad_enabled():
+            return _MisfitWithAdjoint.apply(U, self, True)
         _build.launch_counts[f"darcy_misfit_plain[n={self.n}]"] += 1
         return self._solve_plain(U)[0]
 
-    def _solve_plain(self, U, x0=None):
-        """(Φ (B,), x (n², B)); the CG starts from ``x0`` (n², B) when given
-        (r = b − A x0), else from 0."""
+    def _operator(self, U):
+        """A(a) for the batch: (a (n, n, B), apply (N, B) → (N, B), inv_diag
+        (N, B), a_bar (B,))."""
         n, B = self.n, U.shape[1]
         N, h2 = n * n, float(n * n)
         a = torch.exp(self.log_a_mean + self.basis.T @ U).reshape(n, n, B)
@@ -257,14 +306,19 @@ class DarcyMisfit(nn.Module):
             out = out + flux_v - F.pad(flux_v[:-1], (0, 0, 0, 0, 1, 0))
             return (out + boundary * p).reshape(N, B)
 
+        return a, apply, inv_diag, a_bar
+
+    def _cg(self, apply, inv_diag, a_bar, b, x0=None):
+        """Fixed-count PCG on A x = b (N, B), from ``x0`` when given
+        (r = b − A x0), else from 0."""
+
         def dots(u, v):
             return torch.sum(u * v, dim=0)
 
-        r = self.source[:, None].expand(N, B)
         if x0 is None:
-            x = torch.zeros_like(r)
+            x, r = torch.zeros_like(b), b
         else:
-            x, r = x0, r - apply(x0)
+            x, r = x0, b - apply(x0)
         z = self._precond(r, inv_diag, a_bar)
         p = z
         rz = dots(r, z)
@@ -282,9 +336,77 @@ class DarcyMisfit(nn.Module):
             beta = torch.where(rz > 0.0, rz_new / torch.where(rz > 0.0, rz, 1.0), zero)
             p = z + beta * p
             rz = rz_new
-        pred = x[self.obs.long()]
-        res = (self.data[:, None] - pred) / self.noise[:, None]
+        return x
+
+    def _residuals(self, x):
+        """(y − x at the observed cells) / σ, (m, B)."""
+        return (self.data[:, None] - x[self.obs.long()]) / self.noise[:, None]
+
+    def _solve_plain(self, U, x0=None):
+        """(Φ (B,), x (n², B)); the CG starts from ``x0`` (n², B) when given,
+        else from 0."""
+        N, B = self.n * self.n, U.shape[1]
+        _, apply, inv_diag, a_bar = self._operator(U)
+        x = self._cg(apply, inv_diag, a_bar,
+                     self.source[:, None].expand(N, B), x0)
+        res = self._residuals(x)
         return 0.5 * torch.sum(res * res, dim=0), x
+
+    def _value_and_grad_plain(self, U, x0=None, lam0=None):
+        """(Φ (B,), ∇Φ (K, B), x, λ (n², B)): the adjoint method written out
+        (``phi_bwd`` and ``make_batched_misfit_mala_warm`` of the JAX
+        package). Forward solve, adjoint solve A λ = ∂Φ/∂x = −Oᵀ(res/σ) on
+        the same operator and preconditioner, then ∂Φ/∂a = −∇_a[λᵀ A(a) x]
+        per cell: each face contributes t(a_i, a_j)(x_i − x_j)(λ_i − λ_j)
+        with ∂t/∂a_i = 2h⁻²(a_j / (a_i + a_j))², the Dirichlet faces
+        2h⁻² x λ per boundary side; ∇Φ = basis · (a · (−∂Φ/∂a))."""
+        n, B = self.n, U.shape[1]
+        N, h2 = n * n, float(n * n)
+        a, apply, inv_diag, a_bar = self._operator(U)
+        x = self._cg(apply, inv_diag, a_bar,
+                     self.source[:, None].expand(N, B), x0)
+        res = self._residuals(x)
+        phi = 0.5 * torch.sum(res * res, dim=0)
+        dphi_dx = torch.zeros_like(x).index_add_(
+            0, self.obs.long(), res / self.noise[:, None]).neg_()
+        lam = self._cg(apply, inv_diag, a_bar, dphi_dx, lam0)
+
+        xg, lg = x.reshape(n, n, B), lam.reshape(n, n, B)
+        den_h = 1.0 / (a[:, :-1] + a[:, 1:] + 1e-38)  # faces right of a cell
+        den_v = 1.0 / (a[:-1] + a[1:] + 1e-38)        # faces below a cell
+        s_h = (xg[:, :-1] - xg[:, 1:]) * (lg[:, :-1] - lg[:, 1:])
+        s_v = (xg[:-1] - xg[1:]) * (lg[:-1] - lg[1:])
+        g_a = (
+            F.pad(2.0 * h2 * torch.square(a[:, 1:] * den_h) * s_h, (0, 0, 0, 1))
+            + F.pad(2.0 * h2 * torch.square(a[:, :-1] * den_h) * s_h, (0, 0, 1, 0))
+            + F.pad(2.0 * h2 * torch.square(a[1:] * den_v) * s_v, (0, 0, 0, 0, 0, 1))
+            + F.pad(2.0 * h2 * torch.square(a[:-1] * den_v) * s_v, (0, 0, 0, 0, 1, 0))
+            + 2.0 * h2 * xg * lg * self.edge
+        )
+        grad = self.basis @ (a * (-g_a)).reshape(N, B)
+        return phi, grad, x, lam
+
+
+class _MisfitWithAdjoint(torch.autograd.Function):
+    """Φ(U) whose backward is the adjoint method (the ``custom_vjp`` of
+    ``make_batched_misfit(differentiable=True)``): ∇Φ comes from
+    ``value_and_grad`` together with Φ (``plain``: from the plain version
+    whatever the device), and a cotangent t (B,) gives ∇Φ · t per draw."""
+
+    @staticmethod
+    def forward(ctx, U, misfit, plain):
+        if plain:
+            _build.launch_counts[f"darcy_misfit_grad_plain[n={misfit.n}]"] += 1
+            phi, grad = misfit._value_and_grad_plain(U.detach())[:2]
+        else:
+            phi, grad = misfit.value_and_grad(U.detach())
+        ctx.save_for_backward(grad)
+        return phi
+
+    @staticmethod
+    def backward(ctx, t):
+        (grad,) = ctx.saved_tensors
+        return grad * t[None, :], None, None
 
 
 class DarcyMisfitWarm(DarcyMisfit):
@@ -330,3 +452,39 @@ class DarcyMisfitWarm(DarcyMisfit):
     def _forward_warm_plain(self, U, x0):
         _build.launch_counts["darcy_misfit_warm_plain"] += 1
         return self._solve_plain(U, x0)
+
+
+class DarcyMisfitMalaWarm(DarcyMisfit):
+    """Warm-started value-and-gradient batched Darcy misfit for the fused
+    warm MALA: (U (K, B), aux0 (2n², B)) → (Φ (B,), ∇Φ (K, B), aux
+    (2n², B)). ``aux`` stacks the forward solution x (rows [0, n²)) and the
+    adjoint solution λ (rows [n², 2n²)) of the chain's accepted state; both
+    solves start from them. No prior term: the sampler folds it in."""
+
+    PRECONDS = ("jacobi", "dst", "dst_trunc")
+
+    @property
+    def aux_dim(self) -> int:
+        return 2 * self.n * self.n
+
+    def forward(self, U: torch.Tensor, aux0: torch.Tensor):
+        self.check_input(U)
+        if (aux0.dtype != torch.float32
+                or aux0.shape != (self.aux_dim, U.shape[1])
+                or aux0.device != U.device):
+            raise ValueError(
+                f"aux0: expected f32 ({self.aux_dim}, {U.shape[1]}) on "
+                f"{U.device}, got {aux0.dtype} {tuple(aux0.shape)} on "
+                f"{aux0.device}"
+            )
+        if U.device.type == "cuda":
+            return self._grad_kernel(U, aux0)
+        if U.device.type == "cpu":
+            return self._forward_warm_plain(U, aux0)
+        raise ValueError(f"DarcyMisfitMalaWarm: unsupported device {U.device}")
+
+    def _forward_warm_plain(self, U, aux0):
+        _build.launch_counts["darcy_misfit_grad_warm_plain"] += 1
+        N = self.n * self.n
+        phi, grad, x, lam = self._value_and_grad_plain(U, aux0[:N], aux0[N:])
+        return phi, grad, torch.cat([x, lam], dim=0)

@@ -8,6 +8,16 @@ from ip_mcmc_tpu_torch.ops.fused_ess import (
     fused_ess_chain,
     fused_ess_chain_recorded,
 )
+from ip_mcmc_tpu_torch.ops.fused_fes import (
+    fused_fes_chain,
+    fused_fes_chain_recorded,
+)
+from ip_mcmc_tpu_torch.ops.fused_mala import (
+    fused_mala_chain,
+    fused_mala_chain_recorded,
+    fused_mala_chain_warm,
+    fused_mala_chain_warm_recorded,
+)
 from ip_mcmc_tpu_torch.ops.fused_pcn import (
     fused_pcn_chain,
     fused_pcn_chain_recorded,
@@ -20,6 +30,12 @@ __all__ = [
     "fused_da_pcn_chain_recorded",
     "fused_ess_chain",
     "fused_ess_chain_recorded",
+    "fused_fes_chain",
+    "fused_fes_chain_recorded",
+    "fused_mala_chain",
+    "fused_mala_chain_recorded",
+    "fused_mala_chain_warm",
+    "fused_mala_chain_warm_recorded",
     "fused_pcn_chain",
     "fused_pcn_chain_recorded",
     "fused_pcn_chain_warm",

@@ -179,8 +179,18 @@ def library():
         lib.bind("ipx_fused_da_pcn", [spec, spec, chain, p, p, f, f, i, p, p])
         # spec, chain, Φ0 (n,), x0 (n², n) or null (cold), β, √(1−β²), stream
         lib.bind("ipx_fused_pcn", [spec, chain, p, p, f, f, p])
-        # spec, chain, Φ0 (n,), max_shrink, evaluations (n,), stream
+        # spec, chain, Φ0 (n,), max_shrink, stream
         lib.bind("ipx_fused_ess", [spec, chain, p, i, p])
+        # spec, U (K, B), aux0 (2n², B) or null (cold), B, Φ (B,), ∇Φ (K, B),
+        # aux (2n², B) or null, stream
+        lib.bind("ipx_darcy_misfit_grad", [spec, p, p, i, p, p, p, p])
+        # spec, chain, Φ0 (n,), ∇Φ0 (d, n), aux0 (2n², n) or null (cold), ε,
+        # CTAs per SM of the warm kernel (3/4), stream
+        lib.bind("ipx_fused_mala", [spec, chain, p, p, p, f, i, p])
+        # spec, chain (state in place), Φ (n,), pCN and stretch acceptance
+        # counts (n,), record (n, d) or null, β, √(1−β²), a, M, step, parity,
+        # stream
+        lib.bind("ipx_fused_fes", [spec, chain, p, p, p, p, f, f, f, i, i, i, p])
         lib.bind("ipx_error_string", [i], ctypes.c_char_p)
         _lib = lib
     return _lib

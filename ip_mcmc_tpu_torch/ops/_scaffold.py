@@ -11,10 +11,12 @@ tag)`` draws normals with the keys ``tag`` and ``tag + 1``, ``rand_u(shape,
 tag)`` uniforms with the key ``tag``, both from the counter-hash stream of
 ``ops/rng.py``; ``shape`` is (rows, n), and column c holds what the JAX
 kernel draws for chain c: element ``lane`` of its block's (rows,
-block_chains) tile under the block's seed uint32(seed + 7919·block). All
-chains step together, so there is no loop over blocks. The step counter
-restarts at 0 in each launch. A builder's ``extra_out(carry)`` gives a
-third per-chain output.
+block_chains) tile under the block's seed uint32(seed + 7919·block). A
+draw of shape (rows, 1) is one number per block (the JAX kernel's
+``rand_u((1, 1), tag)``): it comes back as (rows, n), every chain holding
+its block's number. All chains step together, so there is no loop over
+blocks. The step counter restarts at 0 in each launch. A builder's
+``extra_out(carry)`` gives a third per-chain output.
 
 The CUDA side of the same scaffold is ``csrc/fused_scaffold.cuh``.
 """
@@ -76,6 +78,8 @@ def run_plain(step_builder, potential_fn, positions, params, seed, n_steps,
 
     def tile_index(shape):
         rows, cols = shape
+        if cols == 1:  # per block: elements 0..rows of a (rows, 1) tile
+            return torch.arange(rows, device=dev)[:, None].expand(rows, n)
         if cols != n:
             raise ValueError(f"draw of {cols} columns for {n} chains")
         return torch.arange(rows, device=dev)[:, None] * block_chains + lane
@@ -114,16 +118,18 @@ def run_plain(step_builder, potential_fn, positions, params, seed, n_steps,
 # --- what the kernels' wrappers share -----------------------------------------
 
 
-def require_darcy(potential_fn, warm: bool, name: str = "potential_fn"):
+def require_darcy(potential_fn, warm, name: str = "potential_fn"):
     """The CUDA kernels take Darcy misfit modules only (a kernel cannot
-    inline a Python callable): cold samplers a ``DarcyMisfit``, the warm
-    one a ``DarcyMisfitWarm``."""
+    inline a Python callable): cold samplers (``warm`` False) a
+    ``DarcyMisfit``, warm pCN (True) a ``DarcyMisfitWarm``, warm MALA
+    (``"mala"``) a ``DarcyMisfitMalaWarm``."""
     # imported here: models.darcy itself imports ops._build
-    from ip_mcmc_tpu_torch.models.darcy import DarcyMisfit, DarcyMisfitWarm
+    from ip_mcmc_tpu_torch.models import darcy
 
-    want = DarcyMisfitWarm if warm else DarcyMisfit
+    carried = (darcy.DarcyMisfitWarm, darcy.DarcyMisfitMalaWarm)
+    want = {False: darcy.DarcyMisfit, True: carried[0], "mala": carried[1]}[warm]
     if not isinstance(potential_fn, want) or (
-        not warm and isinstance(potential_fn, DarcyMisfitWarm)
+        not warm and isinstance(potential_fn, carried)
     ):
         raise TypeError(
             f"{name}: the CUDA kernel takes {want.__name__} potentials only, "

@@ -1,8 +1,9 @@
 """Problem runner: config → burn-in launch → recorded sampling launch →
 diagnostics (mirrors ``ip_mcmc_tpu/runner.py``: ``run_problem``,
-``_run_fused_mcmc``'s ``da_pcn``, ``pcn`` (cold and warm) and
-``elliptical`` branches, ``_finalize``). Returns the JAX runner's JSON-able
-metrics dict, key for key.
+``_run_fused_mcmc``'s ``da_pcn``, ``pcn`` (cold and warm), ``elliptical``,
+``fes`` and ``mala`` (cold and warm) branches, ``_resolve_n_low_modes``,
+``_finalize``). Returns the JAX runner's JSON-able metrics dict, key for
+key.
 
 Timing protocol (as the JAX runner's): the burn launch uses seed 1 and
 is timed as ``warmup_s`` (on the card it also pays the kernels' build at
@@ -20,6 +21,7 @@ import torch
 
 from ip_mcmc_tpu_torch import diagnostics
 from ip_mcmc_tpu_torch import ops
+from ip_mcmc_tpu_torch.ops.fused_fes import choose_n_low_modes
 
 # metric keys that name wall-time phases (attribution in _finalize)
 _PHASE_KEYS = ("warmup_s", "compile_s", "first_dispatch_s", "run_s", "diag_s")
@@ -59,16 +61,53 @@ def _finalize(metrics, t_start):
     return metrics
 
 
+def _resolve_n_low_modes(kp, problem):
+    """The stretch dimension of the ensemble sampler: an int, or "auto" →
+    the spectral-energy criterion over the KL spectrum that the config
+    supplies as ``kernel_params["kl_eigenvalues"]`` (the whitened prior
+    scale is isotropic and carries no mode preference)."""
+    m = kp.get("n_low_modes")
+    if m == "auto":
+        lam = kp.get("kl_eigenvalues")
+        if lam is None:
+            raise ValueError(
+                'n_low_modes="auto" needs kernel_params["kl_eigenvalues"] '
+                "(the field's KL spectrum)"
+            )
+        return choose_n_low_modes(
+            lam, energy_frac=kp.get("energy_frac", 0.9),
+            max_modes=problem.dim,
+        )
+    if m is None:
+        return min(8, problem.dim)
+    return int(m)
+
+
 def _run_fused_mcmc(problem, generator, n_chains, n_samples, device):
     """The fused path: burn-in launch + recorded sampling launch,
-    diagnostics on the recorded series. pCN and ESS are prior-reversible,
-    so every branch consumes the data misfit alone."""
+    diagnostics on the recorded series. pCN, ESS and the ensemble sampler
+    are prior-reversible and consume the data misfit alone; MALA targets
+    the full posterior, so the whitened prior goes to the sampler, which
+    folds it in."""
     kp = dict(problem.kernel_params)
     block = min(int(kp.get("block_chains", 512)), n_chains)
     run_kw = dict(prior_mean=problem.prior.mean,
                   prior_scale=problem.prior.scale, block_chains=block)
     phi = problem.batched_potential_fn
-    if problem.kernel == "elliptical":
+    if problem.kernel == "fes":
+        run_kw.update(n_low_modes=_resolve_n_low_modes(kp, problem),
+                      pcn_beta=kp.get("pcn_beta", 0.2),
+                      stretch_a=kp.get("stretch_a", 2.0))
+        chain, chain_rec = ops.fused_fes_chain, ops.fused_fes_chain_recorded
+    elif problem.kernel == "mala":
+        run_kw["step_size"] = kp.get("step_size", 0.05)
+        if kp.get("warm") and problem.batched_warm_potential is not None:
+            phi, run_kw["aux_dim"] = problem.batched_warm_potential
+            chain = ops.fused_mala_chain_warm
+            chain_rec = ops.fused_mala_chain_warm_recorded
+        else:
+            chain, chain_rec = ops.fused_mala_chain, ops.fused_mala_chain_recorded
+    elif problem.kernel == "elliptical":
         run_kw["max_shrink"] = kp.get("max_shrink", 8)
         chain, chain_rec = ops.fused_ess_chain, ops.fused_ess_chain_recorded
     elif problem.kernel == "da_pcn":
@@ -110,7 +149,8 @@ def _run_fused_mcmc(problem, generator, n_chains, n_samples, device):
     t0 = time.perf_counter()
     burn_out = chain(phi, positions, seed=1, n_steps=problem.burn_in, **run_kw)
     positions = burn_out[0]
-    # third output: the kernel's extra_out channel (DA: inner acceptance)
+    # third output: the kernel's extra_out channel (DA: inner acceptance,
+    # the ensemble sampler: stretch-move acceptance)
     extra_acc = burn_out[2].cpu() if len(burn_out) > 2 else None
     burn_out[1].cpu()  # transfer barrier
     burn_s = time.perf_counter() - t0
@@ -137,7 +177,9 @@ def _run_fused_mcmc(problem, generator, n_chains, n_samples, device):
             "inner_steps_per_s": rate * int(kp.get("subchain_len", 4)),
         }
     else:
-        extra, rate_keys = {}, {"steps_per_s": rate}
+        extra = ({} if extra_acc is None
+                 else {"stretch_accept_rate": float(extra_acc.mean())})
+        rate_keys = {"steps_per_s": rate}
     return {
         **extra,
         "config": problem.name,
@@ -168,13 +210,13 @@ def run_problem(problem, device, seed: int = 0, n_chains=None,
     device = torch.device(device)
     n_chains = n_chains or problem.n_chains
     n_samples = n_samples or problem.n_samples
-    if not (problem.kernel in ("pcn", "elliptical", "da_pcn")
+    if not (problem.kernel in ("pcn", "elliptical", "da_pcn", "fes", "mala")
             and problem.kernel_params.get("fused")
             and problem.batched_potential_fn is not None):
         raise NotImplementedError(
-            f"config {problem.name}: only the fused pcn, elliptical and "
-            "da_pcn paths are ported (pass --fused to a pCN config with a "
-            "batched potential)"
+            f"config {problem.name}: only the fused pcn, elliptical, da_pcn, "
+            "fes and mala paths are ported (pass --fused to a pCN config "
+            "with a batched potential)"
         )
     generator = torch.Generator().manual_seed(int(seed))
     metrics = _run_fused_mcmc(problem, generator, n_chains, n_samples, device)

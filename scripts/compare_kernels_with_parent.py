@@ -1,0 +1,146 @@
+"""Old against new on one card: do two trees of the port give the same
+chains bit for bit, and at what speed?
+
+    git archive --prefix=_archive/parent/ <parent commit> | tar -x
+    python scripts/compare_kernels_with_parent.py --parent _archive/parent
+
+Runs the kernels that both trees have (the misfit kernels, DA-pCN, cold and
+warm pCN, ESS, each recorded, at 4096 chains on the 16x16 Darcy configs) in
+the order parent, this tree, this tree, parent, each in a process of its
+own with that tree first on the import path (each tree builds its own
+kernels). Every output tensor of the parent's first run must equal this
+tree's bit for bit, and each tree's two runs must equal one another; the
+per-step times (CUDA events, slope between two launch lengths) are printed
+side by side with the card's name and power limit. Exits non-zero on any
+difference.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import tempfile
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def worker(out_path: str) -> int:
+    import torch
+
+    from ip_mcmc_tpu_torch import configs, ops
+
+    def time_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def slope(run, short, long):
+        return (time_ms(lambda: run(long)) - time_ms(lambda: run(short))) / (long - short)
+
+    n = 4096
+    gen = torch.Generator().manual_seed(99)
+    da = configs.build("darcy_da_fused", "cuda")
+    warm_p = configs.build("darcy_pcn_warm", "cuda")
+    pos = da.init_positions(gen, n).cuda()
+    U = da.prior.sample(gen, n).T.contiguous()
+    pm, ps = da.prior.mean, da.prior.scale
+    exact, surr = da.batched_potential_fn, da.batched_surrogate_fn
+    jacobi = warm_p.batched_potential_fn
+    warm, aux_dim = warm_p.batched_warm_potential
+
+    outputs, times = {}, {}
+    for name, pot in (("misfit_exact", exact), ("misfit_surrogate", surr),
+                      ("misfit_jacobi48", jacobi)):
+        outputs[name] = pot(U)
+        times[name] = time_ms(lambda: pot(U), 20)
+    zeros = torch.zeros(aux_dim, n, device="cuda")
+    outputs["misfit_warm_phi"], outputs["misfit_warm_x"] = warm(U, zeros)
+    times["misfit_warm"] = time_ms(lambda: warm(U, zeros), 20)
+
+    runs = {
+        "da_pcn": (lambda s: ops.fused_da_pcn_chain_recorded(
+            exact, surr, pos, pm, ps, 0.35, 11, n_steps=s, thin=1, subchain_len=48,
+            block_chains=512), 4, 2, 10),
+        "pcn": (lambda s: ops.fused_pcn_chain_recorded(
+            jacobi, pos, pm, ps, 0.08, 13, n_steps=s, thin=1, block_chains=512),
+            16, 8, 72),
+        "pcn_warm": (lambda s: ops.fused_pcn_chain_warm_recorded(
+            warm, pos, pm, ps, 0.08, 13, n_steps=s, thin=1, aux_dim=aux_dim,
+            block_chains=256), 16, 8, 72),
+        "ess": (lambda s: ops.fused_ess_chain_recorded(
+            jacobi, pos, pm, ps, 17, n_steps=s, thin=1, max_shrink=6,
+            block_chains=256), 16, 8, 72),
+    }
+    for name, (run, steps, short, long) in runs.items():
+        out = run(steps)
+        for i, t in enumerate(out):
+            outputs[f"{name}_{i}"] = t
+        times[name] = slope(run, short, long)
+    torch.cuda.synchronize()
+    torch.save({k: v.cpu() for k, v in outputs.items()}, out_path)
+    print(json.dumps(times))
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="directory holding the other tree")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        return worker(args.worker)
+    if not args.parent:
+        ap.error("--parent is required")
+    import torch
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {card}")
+    trees = {"parent": pathlib.Path(args.parent).resolve(), "new": ROOT}
+    results = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, which in enumerate(("parent", "new", "new", "parent")):
+            out = os.path.join(tmp, f"{i}_{which}.pt")
+            env = dict(os.environ, PYTHONPATH=str(trees[which]))
+            proc = subprocess.run(
+                [sys.executable, str(pathlib.Path(__file__).resolve()), "--worker", out],
+                cwd=trees[which], env=env, capture_output=True, text=True)
+            if proc.returncode != 0:
+                print(proc.stdout, proc.stderr, file=sys.stderr)
+                return 1
+            times = json.loads(proc.stdout.strip().splitlines()[-1])
+            results.append((which, times, torch.load(out)))
+            print(f"{which}: " + json.dumps(times), flush=True)
+    ref = results[0][2]
+    differing = []
+    for which, _, tensors in results[1:]:
+        assert set(tensors) == set(ref)
+        for k in sorted(ref):
+            if not torch.equal(tensors[k], ref[k]):
+                differing.append(
+                    f"{k} ({which}): max abs diff "
+                    f"{float((tensors[k] - ref[k]).abs().max()):.3e}")
+    print("times in ms (per call for the misfits, per step for the samplers): "
+          "parent, new, new, parent")
+    for k in results[0][1]:
+        print(f"  {k:18s} " + "  ".join(f"{r[1][k]:9.4f}" for r in results))
+    if differing:
+        print("NOT bit for bit:\n  " + "\n  ".join(differing))
+        return 1
+    print(f"all {len(ref)} output tensors equal bit for bit in the four runs")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,7 +14,7 @@ import torch
 from ip_mcmc_tpu_torch import configs
 from ip_mcmc_tpu_torch.ops import _build
 from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
-from ip_mcmc_tpu_torch.ops import fused_ess, fused_pcn
+from ip_mcmc_tpu_torch.ops import fused_ess, fused_fes, fused_mala, fused_pcn
 
 pytestmark = pytest.mark.cuda
 
@@ -157,4 +157,106 @@ def test_single_level_kernels_refuse_plain_callables(warm_problem):
                                        block_chains=64)
     with pytest.raises(TypeError, match="DarcyMisfit"):
         fused_ess.fused_ess_chain(phi, pos, pm, ps, 0, n_steps=1,
+                                  block_chains=64)
+
+
+@pytest.fixture
+def mala_warm_problem():
+    return _build_on_card("darcy_mala_warm")
+
+
+def _col_err(got, ref):
+    """Per draw: the largest deviation over the rows, relative to the
+    draw's largest reference entry."""
+    return ((got - ref).abs().max(dim=0).values / ref.abs().max(dim=0).values).cpu()
+
+
+def test_grad_misfit_kernel_matches_plain(mala_warm_problem):
+    """Φ and ∇Φ of the cold Jacobi-48 adjoint pair: f32 only, so only the
+    order of the sums differs."""
+    pot = mala_warm_problem.batched_potential_fn
+    U = mala_warm_problem.prior.sample(torch.Generator().manual_seed(0), 512).T.contiguous()
+    name = f"darcy_misfit_grad_kernel[n={pot.n}]"
+    before = _build.launch_counts[name]
+    phi, grad = pot.value_and_grad(U)
+    assert _build.launch_counts[name] == before + 1
+    phi_ref, grad_ref = pot._value_and_grad_plain(U)[:2]
+    rel = _rel(phi, phi_ref)
+    assert float((rel <= 1e-5).double().mean()) >= 0.99 and float(rel.max()) <= 1e-4
+    assert float(_col_err(grad, grad_ref).max()) <= 1e-3
+    # through autograd: the backward is the same kernel's gradient
+    Ug = U.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(pot(Ug).sum(), Ug)
+    assert torch.equal(g, grad)
+
+
+def test_grad_warm_misfit_kernel_matches_plain(mala_warm_problem):
+    """(Φ, ∇Φ, aux) of the dst / 6 + 6 CG pair from aux0 = 0 and from that
+    aux after a MALA-sized move; bf16 rounding flips as in
+    tests/test_torch_darcy_warm.py."""
+    pag, aux_dim = mala_warm_problem.batched_warm_potential
+    g = torch.Generator().manual_seed(1)
+    U = mala_warm_problem.prior.sample(g, 512).T.contiguous()
+    U2 = (U + 0.012 * mala_warm_problem.prior.sample(g, 512).T).contiguous()
+    zeros = torch.zeros(aux_dim, 512, device="cuda")
+    before = _build.launch_counts["darcy_misfit_grad_warm_kernel"]
+    out1 = pag(U, zeros)
+    out2 = pag(U2, out1[2])
+    assert _build.launch_counts["darcy_misfit_grad_warm_kernel"] == before + 2
+    N = aux_dim // 2
+    for got, ref in ((out1, pag._value_and_grad_plain(U, zeros[:N], zeros[N:])),
+                     (out2, pag._value_and_grad_plain(U2, out1[2][:N], out1[2][N:]))):
+        rel = _rel(got[0], ref[0])
+        assert float(rel.median()) <= 2e-5 and float(rel.max()) <= 5e-3
+        assert float(_col_err(got[1], ref[1]).median()) <= 1e-4
+        assert float(_col_err(got[1], ref[1]).max()) <= 2e-2
+        assert float(_col_err(got[2][:N], ref[2]).max()) <= 5e-3
+        assert float(_col_err(got[2][N:], ref[3]).max()) <= 2e-2
+
+
+@pytest.mark.parametrize("recorded", [False, True])
+@pytest.mark.parametrize("kind", ["mala", "mala_warm", "fes"])
+def test_gradient_and_ensemble_kernels_match_plain(mala_warm_problem, kind, recorded):
+    p = mala_warm_problem
+    pos = p.init_positions(torch.Generator().manual_seed(2), 512).cuda()
+    pm, ps = p.prior.mean, p.prior.scale
+    kw = {"thin": 2} if recorded else {}
+    pot = p.batched_potential_fn
+    if kind == "fes":
+        args = (pos, pm, ps, 6, 3, 0.08, 2.0, 4, 128)
+        got = fused_fes._launch(pot, *args, **kw)
+        ref = fused_fes._run_plain(pot._forward_plain, *args, **kw)
+    else:
+        plain_pot = pot._forward_plain  # differentiable by the plain adjoint
+        if kind == "mala_warm":
+            pot, kw["aux_dim"] = p.batched_warm_potential
+            plain_pot = pot._forward_warm_plain
+        args = (pos, pm, ps, 0.012, 3, 4, 128)
+        got = fused_mala._launch(pot, *args, **kw)
+        ref = fused_mala._run_plain(plain_pot, *args, **kw)
+    if recorded:
+        assert got[2].shape == ref[2].shape == (2, 512, 64)
+        assert torch.equal(got[2][-1], got[0])
+    elif kind == "fes":
+        assert abs(float(got[2].mean()) - float(ref[2].mean())) <= 1e-2
+    dev = (got[0] - ref[0]).abs().max(dim=1).values
+    assert float((dev <= 1e-4).double().mean()) >= 0.99
+    assert abs(float(got[1].mean()) - float(ref[1].mean())) <= 1e-2
+
+
+def test_gradient_and_ensemble_kernels_refuse_plain_callables(mala_warm_problem):
+    pos = torch.zeros(64, 64, device="cuda")
+    pm, ps = mala_warm_problem.prior.mean, mala_warm_problem.prior.scale
+    phi = lambda U: U.sum(0)
+    with pytest.raises(TypeError, match="DarcyMisfit"):
+        fused_mala.fused_mala_chain(phi, pos, 0.01, 0, n_steps=1, block_chains=64)
+    with pytest.raises(ValueError, match="prior_mean and prior_scale"):
+        fused_mala.fused_mala_chain(mala_warm_problem.batched_potential_fn, pos,
+                                    0.01, 0, n_steps=1, block_chains=64)
+    with pytest.raises(TypeError, match="DarcyMisfitMalaWarm"):
+        fused_mala.fused_mala_chain_warm(
+            lambda U, a: (U.sum(0), U, a), pos, pm, ps, 0.01, 0, n_steps=1,
+            aux_dim=512, block_chains=64)
+    with pytest.raises(TypeError, match="DarcyMisfit"):
+        fused_fes.fused_fes_chain(phi, pos, pm, ps, 6, 0, n_steps=1,
                                   block_chains=64)

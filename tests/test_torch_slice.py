@@ -17,7 +17,7 @@ import torch
 from ip_mcmc_tpu import configs as jconfigs
 from ip_mcmc_tpu import runner as jrunner
 from ip_mcmc_tpu.models import darcy as jdarcy
-from ip_mcmc_tpu_torch import configs, resolve_device, run
+from ip_mcmc_tpu_torch import configs, resolve_device, run, runner
 
 torch.set_num_threads(1)
 
@@ -162,6 +162,107 @@ def test_single_level_cli_json_keys_match_jax_runner(name, flags, capsys):
     assert 0.0 < m["accept_rate"] <= 1.0
     assert len(m["posterior_mean"]) == 64
     assert np.isfinite(m["posterior_mean"]).all()
+
+
+GRADIENT_AND_ENSEMBLE = ("darcy_mala_fused", "darcy_mala_warm", "darcy_fes_fused")
+
+
+def _same_params(a, b):
+    assert set(a) == set(b)
+    for k in a:
+        if isinstance(a[k], np.ndarray) or isinstance(b[k], np.ndarray):
+            np.testing.assert_allclose(np.asarray(a[k]), np.asarray(b[k]), rtol=1e-12)
+        else:
+            assert a[k] == b[k], k
+
+
+@pytest.mark.parametrize("name", GRADIENT_AND_ENSEMBLE)
+def test_gradient_and_ensemble_configs_match_jax_problems(name):
+    """The MALA and ensemble-sampler configs: sizes, kernel parameters (the
+    KL spectrum included), data, the resolved stretch dimension, and for
+    darcy_mala_warm the value-and-gradient misfit from zeros (bf16 factors:
+    the statistical bounds of test_torch_darcy_grad.py)."""
+    jp, p = jconfigs.build(name), configs.build(name, "cpu")
+    assert (p.name, p.dim, p.kernel, p.thin) == (jp.name, jp.dim, jp.kernel, jp.thin)
+    assert (p.n_chains, p.n_samples, p.burn_in) == (
+        jp.n_chains, jp.n_samples, jp.burn_in)
+    _same_params(p.kernel_params, jp.kernel_params)
+    np.testing.assert_allclose(p.data, np.asarray(jp.data), rtol=1e-6)
+    assert (p.batched_warm_potential is None) == (jp.batched_warm_potential is None)
+    if name == "darcy_fes_fused":
+        # 8 on this spectrum (the JAX config's docstring says 6)
+        m = runner._resolve_n_low_modes(p.kernel_params, p)
+        assert m == jrunner._resolve_n_low_modes(jp.kernel_params, jp) == 8
+    if name == "darcy_mala_fused":
+        U = np.random.default_rng(12).standard_normal((64, 16)).astype(np.float32)
+        want = jax.grad(lambda u: jnp.sum(jp.batched_potential_fn(u)))(jnp.asarray(U))
+        got = p.batched_potential_fn.value_and_grad(torch.from_numpy(U))[1].numpy()
+        err = np.abs(got - np.asarray(want)).max(axis=0) / np.abs(np.asarray(want)).max(axis=0)
+        assert np.median(err) <= 1e-5 and err.max() <= 1e-4
+    if name == "darcy_mala_warm":
+        (pag_j, aux_j), (pag_t, aux_t) = (jp.batched_warm_potential,
+                                          p.batched_warm_potential)
+        assert aux_j == aux_t == 512
+        U = np.random.default_rng(12).standard_normal((64, 64)).astype(np.float32)
+        zeros = np.zeros((512, 64), np.float32)
+        want = [np.asarray(o) for o in pag_j(jnp.asarray(U), jnp.asarray(zeros))]
+        got = [o.numpy() for o in pag_t(torch.from_numpy(U), torch.from_numpy(zeros))]
+        rel = np.abs(got[0] - want[0]) / np.abs(want[0])
+        assert np.median(rel) <= 2e-5 and rel.max() <= 5e-3
+        for g, w in zip(got[1:], want[1:]):
+            err = np.abs(g - w).max(axis=0) / np.abs(w).max(axis=0)
+            assert np.median(err) <= 1e-4 and err.max() <= 2e-2
+
+
+@pytest.mark.parametrize("name", GRADIENT_AND_ENSEMBLE)
+def test_gradient_and_ensemble_runs_print_jax_runner_keys(name):
+    """Through run_problem on the CPU at 64 chains, 4 samples and a short
+    burn-in: the JAX runner's keys (stretch_accept_rate for the ensemble
+    sampler) and sane values."""
+    p = dataclasses.replace(configs.build(name, "cpu"), burn_in=4)
+    m = runner.run_problem(p, "cpu", seed=0, n_chains=64, n_samples=4)
+
+    jp = jconfigs.build(name)
+    # short solves for the interpret-mode kernel: the keys do not depend
+    # on them
+    aux = jdarcy.make_darcy_forward(n_grid=16, n_modes_per_dim=8, alpha=2.0,
+                                    field_scale=10.0)[1]
+    short = dict(
+        n_chains=64, n_samples=4, burn_in=2,
+        kernel_params={**jp.kernel_params, "block_chains": 32},
+        batched_potential_fn=jdarcy.make_batched_misfit(
+            aux, jp.data, 0.002, cg_iters=4, differentiable=True))
+    if jp.batched_warm_potential is not None:
+        short["batched_warm_potential"] = jdarcy.make_batched_misfit_mala_warm(
+            aux, jp.data, 0.002, cg_iters=2, precond="dst")
+    jm = jrunner.run_problem(dataclasses.replace(jp, **short), key=jax.random.key(0))
+    for metrics in (m, jm):
+        assert ("warning" in metrics) == (not metrics["converged"])
+    assert set(m) - {"warning"} == set(jm) - {"warning"}
+    assert ("stretch_accept_rate" in m) == (name == "darcy_fes_fused")
+
+    assert m["config"] == name and m["kernel"] == jm["kernel"]
+    assert (m["n_chains"], m["n_samples"], m["dim"]) == (64, 4, 64)
+    for k in ("steps_per_s", "ess_per_s", "min_ess", "max_rhat", "run_s",
+              "warmup_s"):
+        assert np.isfinite(m[k]) and m[k] > 0.0, k
+    rates = ["accept_rate"] + (["stretch_accept_rate"] if "fes" in name else [])
+    for k in rates:
+        assert 0.0 < m[k] <= 1.0, k
+    assert len(m["posterior_mean"]) == 64
+    assert np.isfinite(m["posterior_mean"]).all()
+
+
+def test_cli_lists_seven_configs(capsys):
+    assert run.main(["--list"]) == 0
+    names = [ln.split()[0] for ln in capsys.readouterr().out.strip().splitlines()]
+    assert names == sorted(SINGLE_LEVEL + GRADIENT_AND_ENSEMBLE + ("darcy_da_fused",))
+
+
+def test_rwm_is_not_ported():
+    p = dataclasses.replace(configs.build("darcy_mala_fused", "cpu"), kernel="rwm")
+    with pytest.raises(NotImplementedError, match="ported"):
+        runner.run_problem(p, "cpu", n_chains=64, n_samples=2)
 
 
 def test_unfused_pcn_config_is_not_ported():
