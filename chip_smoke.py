@@ -537,7 +537,7 @@ def compare_grad_misfit(results, pot, U, *, variant, paths, phi_tol, grad_tol,
 def check_gradient_and_ensemble(problems, gen, results):
     """The two value-and-gradient misfit kernels, then K10, K11 and K9 at
     their configs' blocks, each plain and recorded."""
-    from ip_mcmc_tpu_torch.ops import fused_fes, fused_mala
+    from ip_mcmc_tpu_torch.ops import _build, fused_fes, fused_mala
     from ip_mcmc_tpu_torch.runner import _resolve_n_low_modes
 
     cold_p, warm_p, fes_p = (problems[k] for k in
@@ -588,24 +588,35 @@ def check_gradient_and_ensemble(problems, gen, results):
     n_low = _resolve_n_low_modes(kp, fes_p)
     fes_pot = fes_p.batched_potential_fn
     args = (pos, pm, ps, n_low, 23, kp["pcn_beta"], kp.get("stretch_a", 2.0))
-    # two solves per chain and step: a chain is evaluated only in its own
-    # parity's sub-step (the plain loop, as the TPU kernel, evaluates every
-    # chain three times behind the parity mask)
-    ops = 2 * solve_ops(fes_pot, False) + draws
+    # A launch runs the chains of one lane parity, each through its stretch
+    # and its pCN solve: one solve per chain of the width, so a step costs
+    # as many solves per chain as it has launches. The launches are counted
+    # on every launch made here (the plain loop, as the TPU kernel,
+    # evaluates every chain three times behind the parity mask).
     for recorded in (False, True):
         kw_r = {"thin": 1} if recorded else {}
+        name = f"fused_fes_kernel<{'true' if recorded else 'false'}>"
+        per_step = set()
+
+        def kern(s):
+            before = _build.launch_counts[name]
+            out = fused_fes._launch(fes_pot, *args, s, block, **kw_r)
+            per_step.add((_build.launch_counts[name] - before) / s)
+            return out
+
+        kern(1)
+        (launches_per_step,) = per_step
         compare_chain(
-            results, "fused_fes_kernel", recorded,
-            lambda s: fused_fes._launch(fes_pot, *args, s, block, **kw_r),
+            results, "fused_fes_kernel", recorded, kern,
             lambda s: fused_fes._run_plain(plain_potential(fes_pot), *args, s, block,
                                            **kw_r),
             steps=4, kernel_long=36, plain_long=12,
-            variant=(f"jacobi, 48 CG, M = {n_low}, block {block}; two launches "
-                     "per step, one per lane parity"),
+            variant=(f"jacobi, 48 CG, M = {n_low}, block {block}; one launch "
+                     "per lane parity and step, two solves per chain and step"),
             paths=["darcy_fes_fused"], source="fused_fes.cu", pots=(fes_pot,),
-            per_step_ops=ops)
-        results[-1]["solves_per_step"] = 2.0
-        results[-1]["launches_per_step"] = 2
+            per_step_ops=launches_per_step * solve_ops(fes_pot, False) + draws)
+        assert per_step == {2.0}, f"{name}: launches per step {per_step}"
+        results[-1]["launches_per_step"] = launches_per_step
 
 
 # --- the CLI runs ---------------------------------------------------------------

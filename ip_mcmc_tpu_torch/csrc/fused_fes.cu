@@ -51,7 +51,7 @@ namespace ipx {
 
 struct FesArgs {
   IpxMisfitSpec pot;
-  IpxChainArgs chain;  // pos_in: the state (n, d), updated in place; out, acc, samples unused
+  IpxChainArgs chain;  // pos_in: the state (n, d), updated in place; out and acc are null
   float* phi;          // (n,) Phi of the state, updated in place
   float* pcn_acc;      // (n,) accepted pCN moves so far
   float* st_acc;       // (n,) accepted stretch moves so far

@@ -174,10 +174,8 @@ __global__ void __launch_bounds__(kFusedThreads, 4) fused_mala_kernel(MalaArgs a
   mala_chain<RECORD, false>(a);
 }
 
-// MIN_CTAS: CTAs per SM the register budget is held to (4: 64 registers a
-// thread, 3: 80).
-template <bool RECORD, int MIN_CTAS>
-__global__ void __launch_bounds__(kFusedThreads, MIN_CTAS) fused_mala_warm_kernel(MalaArgs a) {
+template <bool RECORD>
+__global__ void __launch_bounds__(kFusedThreads, 4) fused_mala_warm_kernel(MalaArgs a) {
   mala_chain<RECORD, true>(a);
 }
 
@@ -205,12 +203,12 @@ int ipx_darcy_misfit_grad(const IpxMisfitSpec* s, const float* U, const float* a
 }
 
 // aux0 == null: cold MALA (fused_mala_kernel); else warm
-// (fused_mala_warm_kernel, min_ctas 3 or 4 CTAs per SM).
+// (fused_mala_warm_kernel).
 int ipx_fused_mala(const IpxMisfitSpec* pot, const IpxChainArgs* chain, const float* phi0,
-                   const float* g0, const float* aux0, float eps, int min_ctas, void* stream) {
+                   const float* g0, const float* aux0, float eps, void* stream) {
   const int cells = pot->n * pot->n;
   const int threads = ipx::chain_threads(*chain, cells, pot->K);
-  if (threads == 0 || (min_ctas != 3 && min_ctas != 4)) return cudaErrorInvalidValue;
+  if (threads == 0) return cudaErrorInvalidValue;
   if (chain->n == 0) return cudaSuccess;
   const ipx::MalaArgs a{*pot, *chain, phi0, g0, aux0, eps};
   const bool warm = aux0 != nullptr;
@@ -222,12 +220,9 @@ int ipx_fused_mala(const IpxMisfitSpec* pot, const IpxChainArgs* chain, const fl
   if (!warm) {
     if (record) ipx::fused_mala_kernel<true><<<n, threads, smem, st>>>(a);
     else ipx::fused_mala_kernel<false><<<n, threads, smem, st>>>(a);
-  } else if (min_ctas == 4) {
-    if (record) ipx::fused_mala_warm_kernel<true, 4><<<n, threads, smem, st>>>(a);
-    else ipx::fused_mala_warm_kernel<false, 4><<<n, threads, smem, st>>>(a);
   } else {
-    if (record) ipx::fused_mala_warm_kernel<true, 3><<<n, threads, smem, st>>>(a);
-    else ipx::fused_mala_warm_kernel<false, 3><<<n, threads, smem, st>>>(a);
+    if (record) ipx::fused_mala_warm_kernel<true><<<n, threads, smem, st>>>(a);
+    else ipx::fused_mala_warm_kernel<false><<<n, threads, smem, st>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

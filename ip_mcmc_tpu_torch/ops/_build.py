@@ -185,8 +185,8 @@ def library():
         # aux (2n², B) or null, stream
         lib.bind("ipx_darcy_misfit_grad", [spec, p, p, i, p, p, p, p])
         # spec, chain, Φ0 (n,), ∇Φ0 (d, n), aux0 (2n², n) or null (cold), ε,
-        # CTAs per SM of the warm kernel (3/4), stream
-        lib.bind("ipx_fused_mala", [spec, chain, p, p, p, f, i, p])
+        # stream
+        lib.bind("ipx_fused_mala", [spec, chain, p, p, p, f, p])
         # spec, chain (state in place), Φ (n,), pCN and stretch acceptance
         # counts (n,), record (n, d) or null, β, √(1−β²), a, M, step, parity,
         # stream

@@ -138,25 +138,30 @@ def require_darcy(potential_fn, warm, name: str = "potential_fn"):
 
 
 def chain_args(positions, prior_mean, prior_scale, seed, n_steps,
-               block_chains, thin=None):
+               block_chains, thin=None, in_place=False):
     """Allocate a launch's outputs and fill the C view ``ChainArgs``.
     Returns (args, keep): ``keep`` is (positions, mean, scale, out, acc,
-    samples or None), the tensors ``args`` points into."""
+    samples or None), the tensors ``args`` points into. ``in_place``: for a
+    kernel that updates ``positions`` itself and counts its acceptances
+    elsewhere; ``out`` and ``acc`` are then None (null in ``args``)."""
     n, d = positions.shape
     dev = positions.device
     positions = positions.contiguous()
     mean, scale = as_param(prior_mean, dev), as_param(prior_scale, dev)
     if mean.shape != (d,) or scale.shape != (d,):
         raise ValueError(f"prior mean/scale must have shape ({d},)")
-    out = torch.empty_like(positions)
-    acc = torch.empty(n, dtype=torch.float32, device=dev)
-    samples = None
+    out = acc = samples = None
+    if not in_place:
+        out = torch.empty_like(positions)
+        acc = torch.empty(n, dtype=torch.float32, device=dev)
     if thin is not None:
         samples = torch.empty((n_steps // thin, n, d), dtype=torch.float32,
                               device=dev)
     args = _build.ChainArgs(
         pos_in=positions.data_ptr(), mean=mean.data_ptr(),
-        scale=scale.data_ptr(), out=out.data_ptr(), acc=acc.data_ptr(),
+        scale=scale.data_ptr(),
+        out=None if out is None else out.data_ptr(),
+        acc=None if acc is None else acc.data_ptr(),
         samples=None if samples is None else samples.data_ptr(),
         seed=int(seed), n=n, d=d, n_steps=int(n_steps),
         block_chains=int(block_chains), thin=int(thin or 0),

@@ -154,7 +154,8 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, n_low_modes,
     # the chain's state: updated in place by every launch
     state = positions.clone(memory_format=torch.contiguous_format)
     args, keep = _scaffold.chain_args(state, prior_mean, prior_scale, seed,
-                                      n_steps, block_chains, thin)
+                                      n_steps, block_chains, thin,
+                                      in_place=True)
     n, d = state.shape
     if not 0 <= int(n_low_modes) <= d:
         raise ValueError(f"n_low_modes {n_low_modes} outside [0, {d}]")

@@ -14,10 +14,9 @@ The cold form differs from JAX's in one argument. There the caller hands in
 a closure that already adds the prior, and the kernel differentiates it. A
 CUDA kernel cannot inline a closure, so ``fused_mala_chain`` takes the
 misfit and, as ``prior_mean`` / ``prior_scale``, the prior to fold in
-(both None, which only the plain version takes: the target is
-exp(−``potential_fn``) alone). The warm form's
-potential is ``pag(U, aux) -> (Φ, ∇Φ, aux)`` with the forward and the
-adjoint CG solution carried (``aux_dim`` rows per chain); its prior is
+(required, on the CPU as on the card). The warm form's potential is
+``pag(U, aux) -> (Φ, ∇Φ, aux)`` with the forward and the adjoint CG
+solution carried (``aux_dim`` rows per chain); its prior is
 folded in by the step builder, as in JAX. ``init`` solves from zeros in
 every launch: the carried aux is not an output, and the chain is weakly
 non-Markov through it, by design.
@@ -38,10 +37,6 @@ import ctypes
 import torch
 
 from ip_mcmc_tpu_torch.ops import _build, _scaffold
-
-# CTAs per SM that fused_mala_warm_kernel's register budget is held to (3
-# or 4); scripts/measure_mala_occupancy.py times both
-WARM_MIN_CTAS = 4
 
 # --- the plain versions -----------------------------------------------------
 
@@ -107,18 +102,16 @@ def _make_mala_warm_step_builder(aux_dim):
     return builder
 
 
-def value_and_grad_of(potential_fn, prior_mean=None, prior_scale=None):
-    """``x -> (φ, ∇φ)`` of ``potential_fn`` plus, when given, the whitened
-    prior's ½‖(x − m)/s‖²: the vector-Jacobian product with ones that the
-    JAX scaffold traces (``_trace_potential``)."""
+def value_and_grad_of(potential_fn, prior_mean, prior_scale):
+    """``x -> (φ, ∇φ)`` of ``potential_fn`` plus the whitened prior's
+    ½‖(x − m)/s‖²: the vector-Jacobian product with ones that the JAX
+    scaffold traces (``_trace_potential``)."""
 
     def pot_and_grad(x):
         x = x.detach().requires_grad_(True)
         with torch.enable_grad():
-            phi = potential_fn(x)
-            if prior_mean is not None:
-                z = (x - prior_mean[:, None]) / prior_scale[:, None]
-                phi = phi + 0.5 * torch.sum(z * z, dim=0)
+            z = (x - prior_mean[:, None]) / prior_scale[:, None]
+            phi = potential_fn(x) + 0.5 * torch.sum(z * z, dim=0)
             (g,) = torch.autograd.grad(phi, x, torch.ones_like(phi))
         return phi.detach(), g
 
@@ -126,10 +119,6 @@ def value_and_grad_of(potential_fn, prior_mean=None, prior_scale=None):
 
 
 def _prior_pair(prior_mean, prior_scale, d, device):
-    if (prior_mean is None) != (prior_scale is None):
-        raise ValueError("give both prior_mean and prior_scale, or neither")
-    if prior_mean is None:
-        return None, None
     pm = _scaffold.as_param(prior_mean, device)
     ps = _scaffold.as_param(prior_scale, device)
     if pm.shape != (d,) or ps.shape != (d,):
@@ -172,11 +161,6 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, step_size, seed,
             f"aux_dim {aux_dim} is not the misfit's {potential_fn.aux_dim}"
         )
     n = positions.shape[0]
-    if prior_mean is None or prior_scale is None:
-        raise ValueError(
-            "the CUDA kernel folds the whitened prior into the target: give "
-            "prior_mean and prior_scale"
-        )
     args, keep = _scaffold.chain_args(positions, prior_mean, prior_scale,
                                       seed, n_steps, block_chains, thin)
     U = keep[0].T.contiguous()
@@ -193,7 +177,8 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, step_size, seed,
     status = _build.library().ipx_fused_mala(
         ctypes.byref(spec), ctypes.byref(args), phi0.data_ptr(), g0.data_ptr(),
         aux0.data_ptr() if warm else None,
-        float(torch.as_tensor(step_size, dtype=torch.float32)), WARM_MIN_CTAS, torch.cuda.current_stream(U.device).cuda_stream,
+        float(torch.as_tensor(step_size, dtype=torch.float32)),
+        torch.cuda.current_stream(U.device).cuda_stream,
     )
     name = _scaffold.kernel_name(
         "fused_mala_warm_kernel" if warm else "fused_mala_kernel",
@@ -204,9 +189,14 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, step_size, seed,
     return (out, acc) if thin is None else (out, acc, samples)
 
 
-def _run(potential_fn, positions, *args, **kw):
+def _run(potential_fn, positions, prior_mean, prior_scale, *args, **kw):
+    if prior_mean is None or prior_scale is None:
+        raise ValueError(
+            "the prior is folded into the target: give both prior_mean and "
+            "prior_scale"
+        )
     return _scaffold.on_device(positions, _launch, _run_plain)(
-        potential_fn, positions, *args, **kw)
+        potential_fn, positions, prior_mean, prior_scale, *args, **kw)
 
 
 # --- entry points -----------------------------------------------------------
@@ -217,9 +207,9 @@ def fused_mala_chain(potential_fn, positions, step_size, seed, n_steps=100,
     """``n_steps`` of MALA on exp(−``potential_fn``)·N(prior_mean,
     prior_scale²), with the gradient computed inside the kernel.
     ``potential_fn``: (d, B) → (B,), differentiable; on the card a
-    ``DarcyMisfit``, and the prior is required there (on the CPU, no prior
-    given: on exp(−``potential_fn``)). Returns (final positions
-    (n, d), acceptance rate per chain (n,))."""
+    ``DarcyMisfit``. The prior is required: the defaults only keep the
+    JAX entry point's argument order. Returns (final positions (n, d),
+    acceptance rate per chain (n,))."""
     _scaffold.validate(positions, n_steps, block_chains)
     return _run(potential_fn, positions, prior_mean, prior_scale, step_size,
                 seed, n_steps, block_chains)

@@ -249,7 +249,8 @@ def test_gradient_and_ensemble_kernels_refuse_plain_callables(mala_warm_problem)
     pm, ps = mala_warm_problem.prior.mean, mala_warm_problem.prior.scale
     phi = lambda U: U.sum(0)
     with pytest.raises(TypeError, match="DarcyMisfit"):
-        fused_mala.fused_mala_chain(phi, pos, 0.01, 0, n_steps=1, block_chains=64)
+        fused_mala.fused_mala_chain(phi, pos, 0.01, 0, n_steps=1, block_chains=64,
+                                    prior_mean=pm, prior_scale=ps)
     with pytest.raises(ValueError, match="prior_mean and prior_scale"):
         fused_mala.fused_mala_chain(mala_warm_problem.batched_potential_fn, pos,
                                     0.01, 0, n_steps=1, block_chains=64)

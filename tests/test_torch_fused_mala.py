@@ -163,14 +163,16 @@ def test_warm_matches_cold_mala_acceptance(problem):
 
 
 def test_no_prior_targets_the_potential_alone():
-    """Without prior_mean / prior_scale the target is exp(−potential): MALA
+    """Under a flat prior (scale 1e4) the target is exp(−potential): MALA
     on an analytic Gaussian through the shared scaffold, gradient by
     autograd."""
     prec = torch.linspace(0.5, 2.0, 4)
     phi = lambda U: 0.5 * torch.sum(prec[:, None] * U * U, dim=0)
     pos = torch.randn(512, 4, generator=torch.Generator().manual_seed(0))
     _, acc, s = ops.fused_mala_chain_recorded(phi, pos, 0.7, 3, n_steps=200,
-                                              thin=1, block_chains=256)
+                                              thin=1, block_chains=256,
+                                              prior_mean=torch.zeros(4),
+                                              prior_scale=torch.full((4,), 1e4))
     flat = s[50:].reshape(-1, 4).numpy()
     np.testing.assert_allclose(flat.mean(axis=0), np.zeros(4), atol=0.06)
     np.testing.assert_allclose(flat.var(axis=0), 1.0 / prec.numpy(), rtol=0.12)
