@@ -4,9 +4,9 @@
 
 Builds the CUDA kernels from ``ip_mcmc_tpu_torch/csrc`` (one nvcc per
 ``.cu``, in parallel), holds each kernel against its plain PyTorch version
-on the card at the shapes of the ported paths (4096 chains), times both,
-then drives the seven ported configs through the port's CLI in-process at
-full width:
+on the card at the shapes of the ported paths (4096 chains on the Darcy
+problem, 2048 on Burgers), times both, then drives the eleven ported
+configs through the port's CLI in-process at full width:
 
     darcy_da_fused           delayed-acceptance pCN     (K1-K5)
     darcy_pcn_warm           warm-started pCN           (K7)
@@ -15,6 +15,10 @@ full width:
     darcy_mala_fused         MALA, adjoint gradient     (K10)
     darcy_mala_warm          warm-started MALA          (K11)
     darcy_fes_fused          functional ensemble sampler (K9)
+    burgers_da3_pcn          three-level delayed acceptance (K12, K13)
+    burgers_da_pcn           delayed acceptance on Burgers  (K4, K12)
+    burgers_pcn --fused      cold pCN on Burgers            (K6, K12)
+    burgers_multitime_pcn --fused   the same, three observation times
 
 Before each run the launch counts are set to 0; after it they must show
 that the run went through its kernels and through no plain version. Every
@@ -62,7 +66,13 @@ GRAD_BF16_TOL = (1e-4, 1e-3, 0.90, 5e-2)
 # chains within CHAIN_ATOL, mean rates within RATE_ATOL (a rounding flip can
 # turn one MH decision and part a chain; measured: >= 99.98% of chains).
 CHAIN_ATOL, MIN_CHAIN_FRAC, RATE_ATOL = 1e-4, 0.99, 1e-2
-N_CHAINS = 4096
+# The Burgers misfit is all f32 and its update is not contracted into an
+# FMA: from equal initial states kernel and plain version give equal bits.
+# The KL sum runs in another order, so an initial state may differ by an
+# ulp, which the monotone scheme does not grow (on the CPU against JAX: at
+# most 1.6e-6 relative, tests/test_torch_burgers.py).
+BURGERS_TOL = (2e-6, 1e-5, 0.99, 1e-4)
+N_CHAINS = 4096  # the Darcy configs; the Burgers configs ship 2048
 RUN_BUDGET_S = 600.0  # the CLI phase's share of the 1200 s limit
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates): f32
@@ -158,9 +168,12 @@ def grad_ops(pot, warm: bool) -> Ops:
 
 
 def constant_bytes(pot) -> int:
-    return sum(t.numel() * t.element_size() for t in
-               (pot.basis, pot.V, pot.lam, pot.S, pot.source, pot.obs,
-                pot.data, pot.noise))
+    if hasattr(pot, "segments"):  # a Burgers misfit
+        tensors = (pot.basis, pot.mean, pot.obs, pot.data, pot.noise)
+    else:
+        tensors = (pot.basis, pot.V, pot.lam, pot.S, pot.source, pot.obs,
+                   pot.data, pot.noise)
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def bound(ops: Ops, nbytes: float) -> dict:
@@ -177,6 +190,22 @@ def misfit_bound(pot, B, warm):
     N = pot.n * pot.n
     io_bytes = 4 * B * (pot.K + 1 + (2 * N if warm else 0))
     return bound(B * solve_ops(pot, warm), io_bytes + constant_bytes(pot))
+
+
+def burgers_solve_ops(pot) -> Ops:
+    """Operations of one Burgers solve for one chain, all f32, counted from
+    ``csrc/burgers_misfit.cuh``: the KL reconstruction (K multiply-adds and
+    the mean per cell); per Godunov step and cell 13 (each of the two face
+    fluxes a max, a min, two squares and a max; then subtract, multiply,
+    subtract); per observation a subtract, a divide, a multiply-add."""
+    n, m = pot.n, int(pot.obs.numel())
+    return Ops(2 * pot.K * n + n + 13 * n * sum(pot.segments)
+               + 4 * m * len(pot.segments))
+
+
+def burgers_misfit_bound(pot, B):
+    return bound(B * burgers_solve_ops(pot),
+                 4 * B * (pot.K + 1) + constant_bytes(pot))
 
 
 def chain_bound(pots, n, d, per_step_ops, recorded):
@@ -256,7 +285,8 @@ def compare_misfit(results, pot, U, *, variant, paths, tol, x0=None,
 
 
 def compare_chain(results, stem, recorded, kern, plain, *, steps, kernel_long,
-                  plain_long, variant, paths, source, pots, per_step_ops):
+                  plain_long, variant, paths, source, pots, per_step_ops,
+                  replaces=None):
     """One fused launch of ``steps`` steps against the plain loop from the
     same start and seed, then the time of one step of each as the slope up
     to a longer launch; appends the result row. ``kern`` and ``plain`` take
@@ -291,7 +321,7 @@ def compare_chain(results, stem, recorded, kern, plain, *, steps, kernel_long,
     plain_ms = slope_ms(plain, steps, plain_long, 1)
     row = {
         "name": name, "variant": variant, "route": "cuda", "source": SRC + source,
-        "replaces": SCAFFOLD[recorded], "paths": paths,
+        "replaces": replaces or SCAFFOLD[recorded], "paths": paths,
         "max_abs_err": float(dev.max()), "frac_chains_within_atol": frac,
         "ms": ms, "plain_ms": plain_ms,
         "ms_unit": (f"one step: the slope between launches of {steps} and of "
@@ -619,6 +649,129 @@ def check_gradient_and_ensemble(problems, gen, results):
         results[-1]["launches_per_step"] = launches_per_step
 
 
+def compare_burgers_misfit(results, pot, U, *, variant, paths):
+    """One ``burgers_misfit_kernel`` launch against the plain version on the
+    same draws (and a NaN draw, which must come back NaN and alone);
+    appends the result row."""
+    from ip_mcmc_tpu_torch.ops import _build
+
+    name = pot.kernel_label
+    kern, plain = (lambda: pot(U)), (lambda: pot._forward_plain(U))
+    before = _build.launch_counts[name]
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1, f"{name} did not launch"
+    B = U.shape[1]
+    assert got.shape == ref.shape == (B,)
+    assert bool(torch.isfinite(got).all()), f"{name}: non-finite Phi"
+    rel = ((got - ref).abs() / ref.abs()).cpu()
+    line, bad, frac = within(rel, BURGERS_TOL, "Phi")
+    print(f"{name} ({variant}, {B} draws): {line}, equal bits on "
+          f"{float((got == ref).double().mean()):.4f}", flush=True)
+    U_nan = U[:, :64].clone()
+    U_nan[3, 5] = float("nan")
+    nan_out = pot(U_nan)
+    if bad or not bool(torch.isnan(nan_out[5])) or int(torch.isnan(nan_out).sum()) != 1:
+        raise AssertionError(f"{name} ({variant}) disagrees with its plain version")
+    # a call is tens of microseconds: many, so that one hiccup of the host
+    # does not show
+    ms, plain_ms = cuda_time_ms(kern, 200), cuda_time_ms(plain, 3)
+    row = {
+        "name": name, "variant": variant, "route": "cuda",
+        "source": SRC + "fused_da3_pcn.cu", "replaces": "ip_mcmc_tpu/models/burgers.py:153",
+        "paths": paths, "max_abs_err": float((got - ref).abs().max()),
+        "max_rel_err": float(rel.max()), "frac_within_rtol": frac,
+        "ms": ms, "plain_ms": plain_ms, "ms_unit": f"one call, {B} draws",
+        **burgers_misfit_bound(pot, B), "library_ms": None,
+    }
+    print(f"  time per call: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']})", flush=True)
+    results.append(row)
+
+
+def check_burgers(problems, gen, results):
+    """K12 at the four specs of the Burgers configs, then K13 and the
+    Burgers instantiations of K4 and K6 at the configs' sizes (2048 chains
+    in blocks of 512), each plain and recorded. The plain loops run one
+    small PyTorch call per Godunov operation (a DA3 outer step is 6394 time
+    steps), so they take few steps."""
+    from ip_mcmc_tpu_torch.ops import fused_da3_pcn as da3
+    from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
+    from ip_mcmc_tpu_torch.ops import fused_pcn
+
+    da3_p, da_p, pcn_p, multi_p = (problems[k] for k in (
+        "burgers_da3_pcn", "burgers_da_pcn", "burgers_pcn", "burgers_multitime_pcn"))
+    fine, mid, coarse = (da3_p.batched_potential_fn, da3_p.batched_mid_fn,
+                         da3_p.batched_surrogate_fn)
+    multi = multi_p.batched_potential_fn
+    n = da3_p.n_chains
+    U = da3_p.prior.sample(gen, n).T.contiguous()
+    for pot, variant, paths in (
+            (fine, "fine: 128 cells, 154 steps",
+             ["burgers_da3_pcn", "burgers_da_pcn", "burgers_pcn"]),
+            (mid, "middle: 128 cells, 52 steps, calibrated", ["burgers_da3_pcn"]),
+            (coarse, "coarse: 64 cells, 26 steps, calibrated",
+             ["burgers_da3_pcn", "burgers_da_pcn"]),
+            (multi, "multi-time: 128 cells, 54 + 54 + 46 steps, 48 observations",
+             ["burgers_multitime_pcn"])):
+        compare_burgers_misfit(results, pot, U, variant=variant, paths=paths)
+
+    pos = da3_p.init_positions(gen, n).cuda()
+    d, block = pos.shape[1], 512
+    pm, ps = da3_p.prior.mean, da3_p.prior.scale
+    draws = Ops(RNG_OPS_PER_DRAW * d)
+    ops_of = burgers_solve_ops
+
+    kp = da3_p.kernel_params
+    k1, k2 = kp["k_inner"], kp["k_mid"]
+    levels = (fine, mid, coarse)
+    plain_levels = tuple(plain_potential(p) for p in levels)
+    tail = lambda s: (pos, pm, ps, kp["beta"], 29, s, k1, k2, block)
+    for recorded in (False, True):
+        kw = {"thin": 1} if recorded else {}
+        compare_chain(
+            results, "fused_da3_pcn_kernel", recorded,
+            lambda s: da3._launch(*levels, *tail(s), **kw),
+            lambda s: da3._run_plain(*plain_levels, *tail(s), **kw),
+            steps=2, kernel_long=18, plain_long=3,
+            variant=f"128 / 128 / 64 cells, k_inner {k1}, k_mid {k2}, block {block}",
+            paths=["burgers_da3_pcn"], source="fused_da3_pcn.cu", pots=levels,
+            per_step_ops=(k1 * k2 * (ops_of(coarse) + draws) + k2 * ops_of(mid)
+                          + ops_of(fine)),
+            replaces=JAX_OPS + "391")
+
+    k = da_p.kernel_params["subchain_len"]
+    exact, surr = da_p.batched_potential_fn, da_p.batched_surrogate_fn
+    args = (pos, pm, ps, da_p.kernel_params["beta"], 31)
+    for recorded in (False, True):
+        kw = dict(subchain_len=k, block_chains=block, **({"thin": 1} if recorded else {}))
+        plain_fn = da._run_plain_recorded if recorded else da._run_plain
+        compare_chain(
+            results, "fused_da_pcn_burgers_kernel", recorded,
+            lambda s: da._launch(exact, surr, *args, n_steps=s, **kw),
+            lambda s: plain_fn(plain_potential(exact), plain_potential(surr), *args,
+                               n_steps=s, **kw),
+            steps=4, kernel_long=68, plain_long=8,
+            variant=f"128 / 64 cells, k={k}, block {block}",
+            paths=["burgers_da_pcn"], source="fused_da_pcn.cu", pots=(exact, surr),
+            per_step_ops=k * (ops_of(surr) + draws) + ops_of(exact))
+
+    for pot, path, variant in (
+            (pcn_p.batched_potential_fn, "burgers_pcn", "128 cells, 154 steps"),
+            (multi, "burgers_multitime_pcn", "128 cells, 54 + 54 + 46 steps")):
+        beta = problems[path].kernel_params["beta"]
+        for recorded in (False, True):
+            kw = {"thin": 1} if recorded else {}
+            compare_chain(
+                results, "fused_pcn_burgers_kernel", recorded,
+                lambda s: fused_pcn._launch(pot, pos, pm, ps, beta, 37, s, block, **kw),
+                lambda s: fused_pcn._run_plain(plain_potential(pot), pos, pm, ps, beta,
+                                               37, s, block, **kw),
+                steps=8, kernel_long=264, plain_long=24,
+                variant=f"{variant}, block {block}", paths=[path],
+                source="fused_pcn.cu", pots=(pot,), per_step_ops=ops_of(pot) + draws)
+
+
 # --- the CLI runs ---------------------------------------------------------------
 
 # config -> (CLI flags, kernels the run must launch)
@@ -637,6 +790,19 @@ PATHS = {
                              "fused_mala_warm_kernel<true>")),
     "darcy_fes_fused": ([], ("darcy_misfit_kernel[n=16]", "fused_fes_kernel<false>",
                              "fused_fes_kernel<true>")),
+    "burgers_da3_pcn": ([], (
+        "burgers_misfit_kernel[n=128,steps=154]", "burgers_misfit_kernel[n=128,steps=52]",
+        "burgers_misfit_kernel[n=64,steps=26]", "fused_da3_pcn_kernel<false>",
+        "fused_da3_pcn_kernel<true>")),
+    "burgers_da_pcn": ([], (
+        "burgers_misfit_kernel[n=128,steps=154]", "burgers_misfit_kernel[n=64,steps=26]",
+        "fused_da_pcn_burgers_kernel<false>", "fused_da_pcn_burgers_kernel<true>")),
+    "burgers_pcn": (["--fused"], (
+        "burgers_misfit_kernel[n=128,steps=154]", "fused_pcn_burgers_kernel<false>",
+        "fused_pcn_burgers_kernel<true>")),
+    "burgers_multitime_pcn": (["--fused"], (
+        "burgers_misfit_kernel[n=128,steps=54+54+46]", "fused_pcn_burgers_kernel<false>",
+        "fused_pcn_burgers_kernel<true>")),
 }
 
 
@@ -670,15 +836,23 @@ def drive_path(config, problem, n_samples):
     plain = {k: v for k, v in counts.items() if "plain" in k and v}
     if plain:
         raise AssertionError(f"plain versions ran on {config}: {plain}")
-    assert metrics["n_chains"] == problem.n_chains == N_CHAINS
+    assert metrics["n_chains"] == problem.n_chains
     assert metrics["n_samples"] == n_samples
     assert math.isfinite(metrics["max_rhat"]), "max_rhat is not finite"
     rates = ["accept_rate"]
+    kp = problem.kernel_params
     if problem.kernel == "da_pcn":
-        rates.append("inner_accept_rate")
+        # three levels report the middle correction's rate, two the inner
+        three = bool(kp.get("k_mid"))
+        rates.append("mid_accept_rate" if three else "inner_accept_rate")
+        assert ("mid_accept_rate" in metrics) == three
+        assert ("inner_accept_rate" in metrics) == (not three)
         assert metrics["outer_steps_per_s"] > 0.0
+        inner = kp["k_inner"] * kp["k_mid"] if three else kp["subchain_len"]
+        assert math.isclose(metrics["inner_steps_per_s"],
+                            metrics["outer_steps_per_s"] * inner, rel_tol=1e-9)
     else:
-        assert "inner_accept_rate" not in metrics
+        assert "inner_accept_rate" not in metrics and "mid_accept_rate" not in metrics
         assert metrics["steps_per_s"] > 0.0
     assert ("stretch_accept_rate" in metrics) == (problem.kernel == "fes")
     if problem.kernel == "fes":
@@ -715,8 +889,9 @@ def main() -> int:
     check_warm_misfit(problems["darcy_pcn_warm"], gen, results)
     check_single_level(problems, gen, results)
     check_gradient_and_ensemble(problems, gen, results)
+    check_burgers(problems, gen, results)
 
-    # the seven paths, as shipped unless their predicted time exceeds the
+    # the eleven paths, as shipped unless their predicted time exceeds the
     # budget: then every path's n_samples is cut by the same factor
     step_ms = {
         "darcy_da_fused": "fused_da_pcn_kernel<true>",
@@ -726,14 +901,19 @@ def main() -> int:
         "darcy_mala_fused": "fused_mala_kernel<true>",
         "darcy_mala_warm": "fused_mala_warm_kernel<true>",
         "darcy_fes_fused": "fused_fes_kernel<true>",
+        "burgers_da3_pcn": "fused_da3_pcn_kernel<true>",
+        "burgers_da_pcn": "fused_da_pcn_burgers_kernel<true>",
+        "burgers_pcn": "fused_pcn_burgers_kernel<true>",
+        "burgers_multitime_pcn": "fused_pcn_burgers_kernel<true>",
     }
-    step_ms = {cfg: next(r["ms"] for r in results if r["name"] == k)
+    step_ms = {cfg: next(r["ms"] for r in results
+                         if r["name"] == k and cfg in r["paths"])
                for cfg, k in step_ms.items()}
     steps = lambda p, ns: p.burn_in + 2 * ns * p.thin
     predicted = sum(steps(p, p.n_samples) * step_ms[c] / 1e3
                     for c, p in problems.items())
     cut = min(1.0, RUN_BUDGET_S / predicted)
-    print(f"predicted device time of the seven runs as shipped: {predicted:.1f} s",
+    print(f"predicted device time of the eleven runs as shipped: {predicted:.1f} s",
           flush=True)
     counts = {}
     for config, problem in problems.items():

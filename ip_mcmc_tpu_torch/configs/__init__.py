@@ -1,14 +1,16 @@
 """Named configurations of the port (mirrors ``ip_mcmc_tpu/configs``).
 
-Ported so far, all on the 16×16 Darcy problem: ``darcy_da_fused``,
+Ported so far: on the 16×16 Darcy problem ``darcy_da_fused``,
 ``darcy_pcn_4096`` (its fused path), ``darcy_pcn_warm``,
 ``darcy_ess_fused``, ``darcy_fes_fused``, ``darcy_mala_fused`` and
-``darcy_mala_warm``. The deterministic constants (KL basis, observation
-cells, source, preconditioner factors) are computed here in numpy; the
-arrays the JAX configs draw with JAX keys (the data ``y`` and the truth of
-``_darcy_problem``, the surrogate's calibration) are read from the
-committed fixture ``darcy16_da.npz`` (written by
-``scripts/freeze_torch_fixtures.py``).
+``darcy_mala_warm``; on the 128-cell Burgers initial-data inversion
+``burgers_pcn`` and ``burgers_multitime_pcn`` (their fused paths),
+``burgers_da_pcn`` and ``burgers_da3_pcn``. The deterministic constants
+(KL bases, means, observation cells, sources, time steps, preconditioner
+factors) are computed here in numpy; the arrays the JAX configs draw with
+JAX keys (the data, the truths, the surrogates' calibrations) are read
+from the committed fixtures ``darcy16_da.npz`` and ``burgers128.npz``
+(written by ``scripts/freeze_torch_fixtures.py``).
 """
 
 from __future__ import annotations
@@ -22,13 +24,15 @@ import torch
 
 from ip_mcmc_tpu_torch import distributions as dist
 from ip_mcmc_tpu_torch.convert import (
+    burgers_misfit_from_arrays,
     darcy_mala_warm_misfit_from_arrays,
     darcy_misfit_from_arrays,
     darcy_warm_misfit_from_arrays,
 )
-from ip_mcmc_tpu_torch.models import darcy, kl
+from ip_mcmc_tpu_torch.models import burgers, darcy, kl
 
 FIXTURE = pathlib.Path(__file__).resolve().parent / "darcy16_da.npz"
+BURGERS_FIXTURE = pathlib.Path(__file__).resolve().parent / "burgers128.npz"
 
 
 @dataclasses.dataclass
@@ -47,6 +51,7 @@ class Problem:
     notes: str = ""
     batched_potential_fn: Optional[Callable] = None  # (d, B) -> (B,)
     batched_surrogate_fn: Optional[Callable] = None  # fused da_pcn Φ*
+    batched_mid_fn: Optional[Callable] = None  # 3-level DA middle level
     # fused warm pCN: (module (U, x0) -> (Φ, x), aux_dim); fused warm MALA:
     # (module (U, aux0) -> (Φ, ∇Φ, aux), aux_dim)
     batched_warm_potential: Optional[tuple] = None
@@ -270,4 +275,148 @@ def darcy_da_fused(device) -> Problem:
         "exact posterior",
         batched_potential_fn=exact.to(device),
         batched_surrogate_fn=surrogate.to(device),
+    )
+
+
+# --- the Burgers initial-data inversion ---------------------------------------
+
+
+def _sine_mean(n_cells):
+    return np.sin(2 * np.pi * (np.arange(n_cells) + 0.5) / n_cells)
+
+
+def _burgers_problem(device, obs_times=None):
+    """What the Burgers configs share: the whitened prior of 16 KL modes,
+    the fine model's aux (128 cells, t = 0.2, the conservative CFL bound)
+    and the frozen arrays."""
+    fx = np.load(BURGERS_FIXTURE)
+    K = 16
+    prior = dist.DiagGaussian(
+        mean=torch.zeros(K, device=device), scale=torch.ones(K, device=device)
+    )
+    aux = burgers.burgers_aux(
+        n_cells=128, n_modes=K, alpha=1.5, field_scale=1.0, t_final=0.2,
+        mean_profile=_sine_mean(128), obs_times=obs_times,
+    )
+    return prior, aux, fx
+
+
+def _burgers_calibrated_surrogate(aux, fx, n_coarse):
+    """The two-level-calibrated coarse Burgers misfit
+    (``_burgers_calibrated_surrogate`` of the JAX configs): ``n_coarse``
+    cells at ``cfl_amax`` 1.0 (about three times the fine model's time
+    step), observed at the coarse cells nearest the fine observation
+    points; data bias-corrected by the mean fine-coarse discrepancy over
+    prior draws and per-observation noise inflated by its spread, both
+    frozen in the fixture."""
+    n_fine = int(aux["n_cells"])
+    obs_c = np.clip(
+        np.round((aux["obs_indices"] + 0.5) * n_coarse / n_fine - 0.5).astype(int),
+        0, n_coarse - 1,
+    )
+    aux_c = burgers.burgers_aux(
+        n_cells=n_coarse, n_modes=16, alpha=1.5, field_scale=1.0, t_final=0.2,
+        mean_profile=_sine_mean(n_coarse), obs_indices=obs_c, cfl_amax=1.0,
+    )
+    return burgers_misfit_from_arrays(
+        aux_c, fx[f"y_surr_{n_coarse}"], fx[f"scale_{n_coarse}"])
+
+
+@register
+def burgers_pcn(device) -> Problem:
+    """Burgers initial-data inversion by pCN (shock-forming forward map);
+    the port runs its fused path (``--fused``)."""
+    prior, aux, fx = _burgers_problem(device)
+    return Problem(
+        name="burgers_pcn",
+        dim=16,
+        prior=prior,
+        kernel="pcn",
+        kernel_params={"beta": 0.15, "adapt": True},
+        n_chains=2048,
+        n_samples=500,
+        burn_in=500,
+        data=fx["y"],
+        truth=fx["u_true"],
+        notes="shock-forming forward map: derivative-free kernels only",
+        batched_potential_fn=burgers_misfit_from_arrays(
+            aux, fx["y"], 0.02).to(device),
+    )
+
+
+@register
+def burgers_multitime_pcn(device) -> Problem:
+    """Burgers inversion observing the evolution at three times (48
+    observations); the port runs its fused path (``--fused``)."""
+    prior, aux, fx = _burgers_problem(device, obs_times=[0.07, 0.14, 0.2])
+    return Problem(
+        name="burgers_multitime_pcn",
+        dim=16,
+        prior=prior,
+        kernel="pcn",
+        kernel_params={"beta": 0.15, "adapt": True},
+        n_chains=2048,
+        n_samples=500,
+        burn_in=500,
+        data=fx["y_multitime"],
+        truth=fx["u_true"],
+        notes="evolution observed at t=0.07/0.14/0.2 (48 observations)",
+        batched_potential_fn=burgers_misfit_from_arrays(
+            aux, fx["y_multitime"], 0.02).to(device),
+    )
+
+
+@register
+def burgers_da_pcn(device) -> Problem:
+    """Burgers inversion by fused delayed acceptance: a 16-step subchain on
+    the calibrated 64-cell surrogate at a three times coarser time step,
+    one exact correction per outer step. The posterior is that of
+    ``burgers_pcn``."""
+    prior, aux, fx = _burgers_problem(device)
+    return Problem(
+        name="burgers_da_pcn",
+        dim=16,
+        prior=prior,
+        kernel="da_pcn",
+        kernel_params={"beta": 0.15, "subchain_len": 16, "fused": True},
+        n_chains=2048,
+        n_samples=500,
+        burn_in=100,  # outer DA steps (each = 16 inner pCN steps)
+        data=fx["y"],
+        truth=fx["u_true"],
+        notes="coarse-FV surrogate subchain + exact correction; posterior "
+        "identical to burgers_pcn",
+        batched_potential_fn=burgers_misfit_from_arrays(
+            aux, fx["y"], 0.02).to(device),
+        batched_surrogate_fn=_burgers_calibrated_surrogate(
+            aux, fx, 64).to(device),
+    )
+
+
+@register
+def burgers_da3_pcn(device) -> Problem:
+    """Three-level fused delayed-acceptance pCN on the Burgers inversion:
+    inner pCN subchain on the 64-cell surrogate, middle corrections against
+    the 128-cell surrogate at the coarse time step, one exact fine
+    correction per outer step. The posterior is that of ``burgers_pcn``."""
+    prior, aux, fx = _burgers_problem(device)
+    return Problem(
+        name="burgers_da3_pcn",
+        dim=16,
+        prior=prior,
+        kernel="da_pcn",
+        kernel_params={"beta": 0.25, "k_inner": 8, "k_mid": 24,
+                       "fused": True},
+        n_chains=2048,
+        n_samples=400,
+        burn_in=100,  # outer steps (each = k_inner*k_mid inner pCN steps)
+        data=fx["y"],
+        truth=fx["u_true"],
+        notes="3-level DA: 64c inner subchain, 128c middle, exact fine "
+        "correction; posterior identical to burgers_pcn",
+        batched_potential_fn=burgers_misfit_from_arrays(
+            aux, fx["y"], 0.02).to(device),
+        batched_surrogate_fn=_burgers_calibrated_surrogate(
+            aux, fx, 64).to(device),
+        batched_mid_fn=_burgers_calibrated_surrogate(aux, fx, 128).to(device),
     )

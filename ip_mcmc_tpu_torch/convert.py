@@ -12,12 +12,18 @@ for ``make_batched_misfit_mala_warm`` (``DarcyMisfitMalaWarm``,
 convert with ``np.asarray``) or ``models.darcy.darcy_aux``'s. The adjoint
 gradient of ``differentiable=True`` is always there
 (``DarcyMisfit.value_and_grad``), so there is no flag for it.
+
+``burgers_misfit_from_arrays`` takes the arguments of
+``ip_mcmc_tpu.models.burgers.make_batched_misfit`` — that package's aux dict
+or ``models.burgers.burgers_aux``'s, the data and a scalar or
+per-observation noise scale — and returns the port's ``BurgersMisfit``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ip_mcmc_tpu_torch.models.burgers import BurgersMisfit
 from ip_mcmc_tpu_torch.models.darcy import (
     DarcyMisfit,
     DarcyMisfitMalaWarm,
@@ -66,3 +72,17 @@ def darcy_mala_warm_misfit_from_arrays(aux, data, noise_scale,
     pag = _from_arrays(DarcyMisfitMalaWarm, aux, data, noise_scale, cg_iters,
                        precond, precond_modes, log_a_mean)
     return pag, pag.aux_dim
+
+
+def burgers_misfit_from_arrays(aux, data, noise_scale) -> BurgersMisfit:
+    return BurgersMisfit(
+        scaled_basis=np.asarray(aux["scaled_basis"], np.float32),
+        mean=np.asarray(aux["mean"], np.float32),
+        obs_indices=np.asarray(aux["obs_indices"]),
+        data=np.asarray(data, np.float32),
+        noise_scale=np.asarray(noise_scale, np.float32),
+        n_cells=int(aux["n_cells"]),
+        dt=float(aux["dt"]),
+        segment_steps=[int(s) for s in
+                       aux.get("segment_steps", [aux["n_steps"]])],
+    )

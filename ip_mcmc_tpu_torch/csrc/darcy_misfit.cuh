@@ -27,6 +27,8 @@
 
 #include <cstdint>
 
+#include "block_reduce.cuh"
+
 extern "C" {
 // Mirrored by ip_mcmc_tpu_torch/ops/_build.py MisfitSpec.
 typedef struct {
@@ -69,23 +71,6 @@ __device__ inline MisfitSmem carve_misfit_smem(float* base, int cells, int modes
   ws.red = base + 2 * cells + modes;
   ws.scalar = ws.red + 32;
   return ws;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Sum over the block, returned to every thread (same order everywhere).
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.0f;
-  const int nw = blockDim.x >> 5;
-  for (int w = 0; w < nw; ++w) s += red[w];
-  __syncthreads();
-  return s;
 }
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -402,7 +387,57 @@ __device__ float darcy_value_and_grad(const IpxMisfitSpec& s, const float* u,
   return phi;
 }
 
-// Threads of a one-chain CTA over `cells` cells and d coordinates.
-inline int round_up32(int v) { return (v + 31) / 32 * 32; }
+// The Darcy misfit as the potential type of the samplers that take one
+// (DaStep, PcnStep, Da3Step): what a step needs to know of a potential.
+struct DarcyPotential {
+  using Spec = IpxMisfitSpec;
+  using Workspace = MisfitSmem;
+  // the CTA of the samplers: one thread per cell of a 16x16 grid and at
+  // least 4 CTAs per SM, which caps registers at 64 a thread
+  static constexpr int kMaxThreads = 256;
+  static constexpr int kMinCtasPerSm = 4;
+
+  // What a workspace must hold; one workspace serves every spec it was
+  // joined over.
+  struct Extent {
+    int cells, modes;
+  };
+  static __host__ __device__ __forceinline__ Extent extent(const Spec& s) {
+    return {s.n * s.n, s.modes};
+  }
+  static __host__ __device__ __forceinline__ Extent join(Extent a, Extent b) {
+    return {a.cells > b.cells ? a.cells : b.cells, a.modes > b.modes ? a.modes : b.modes};
+  }
+  static __host__ __device__ __forceinline__ int workspace_floats(Extent e) {
+    return misfit_smem_floats(e.cells, e.modes);
+  }
+  static __device__ __forceinline__ Workspace carve(float* base, Extent e) {
+    return carve_misfit_smem(base, e.cells, e.modes);
+  }
+  static bool valid(const Spec& s) { return s.K > 0 && s.modes >= 0 && s.n > 0; }
+
+  static __device__ __forceinline__ float phi(const Spec& s, const float* u,
+                                              const Workspace& ws) {
+    return darcy_phi(s, u, ws);
+  }
+
+  // A spec evaluated many times per step has its factors staged on chip:
+  // the KL basis (f32) and the preconditioner's modes (bf16).
+  static __host__ __device__ size_t staged_bytes(const Spec& s) {
+    return sizeof(float) * s.K * s.n * s.n + sizeof(__nv_bfloat16) * s.modes * s.n * s.n;
+  }
+  // Copies the factors of `s` to `base` in shared memory (every thread of
+  // the CTA calls) and points `out`, a copy of `s`, at them.
+  static __device__ __forceinline__ void stage(const Spec& s, Spec& out, float* base) {
+    const int cells = s.n * s.n;
+    float* basis = base;
+    __nv_bfloat16* V = reinterpret_cast<__nv_bfloat16*>(basis + s.K * cells);
+    for (int e = threadIdx.x; e < s.K * cells; e += blockDim.x) basis[e] = s.basis[e];
+    const __nv_bfloat16* gV = static_cast<const __nv_bfloat16*>(s.V);
+    for (int e = threadIdx.x; e < s.modes * cells; e += blockDim.x) V[e] = gV[e];
+    out.basis = basis;
+    out.V = V;
+  }
+};
 
 }  // namespace ipx

@@ -1,24 +1,30 @@
-// Hand-written Hopper kernels of the delayed-acceptance pCN Darcy path.
+// Hand-written Hopper kernels of the delayed-acceptance pCN paths.
 //
 // Replaces the Pallas TPU kernel of ip_mcmc_tpu/ops/fused_mcmc.py as
 // instantiated by fused_da_pcn_chain (l.1535) and
 // fused_da_pcn_chain_recorded (l.1653): the step builder
 // _make_da_pcn_step_builder (K4, l.325) as a step on the scaffold of
 // fused_scaffold.cuh (K2, K3), with the counter-hash RNG (K1,
-// counter_rng.cuh) and the inlined Darcy misfits (K5, darcy_misfit.cuh).
+// counter_rng.cuh) and the inlined misfits. The potential is a type (the
+// Pallas kernel inlines any traced JAX function; a CUDA kernel is compiled
+// per potential): DarcyPotential (K5, darcy_misfit.cuh) or
+// BurgersPotential (K12, burgers_misfit.cuh).
 //
-//   darcy_misfit_kernel          Phi for a (K, B) batch at one misfit spec.
-//   fused_da_pcn_kernel<RECORD>  the whole n_steps loop in one launch;
-//                                RECORD stores every thin-th state into
-//                                (n_rec, n, d) with a plain store.
+//   darcy_misfit_kernel               Phi for a (K, B) batch at one Darcy
+//                                     misfit spec.
+//   fused_da_pcn_kernel<Pot, RECORD>  the whole n_steps loop in one launch;
+//                                     RECORD stores every thin-th state
+//                                     into (n_rec, n, d) with a plain store.
 //
 // Layout: one CTA per chain, one thread per cell of the largest grid
-// (256 threads at 16x16; the 8x8 surrogate stage uses 64 of them). Chain
-// state and CG vectors stay on chip; global memory is touched for the
-// positions in and out, the constant factors and the records. Phi and
-// Phi* at the start positions come in from darcy_misfit_kernel.
+// (Darcy: 256 threads at 16x16, the 8x8 surrogate stage uses 64 of them;
+// Burgers: 128 threads, the 64-cell surrogate uses half). Chain state and
+// solver vectors stay on chip; global memory is touched for the positions
+// in and out, the constant factors and the records. Phi and Phi* at the
+// start positions come in from the standalone misfit kernels.
 //
-// What bounds it on the H100: per chain and outer step (k = 48) the misfits
+// What bounds the Darcy instantiation on the H100: per chain and outer
+// step (k = 48) the misfits
 // do ~2.9 M multiply-adds (4096 chains: ~24 GFLOP, ~20 of them the
 // preconditioners' products of bf16 inputs: ~0.08 ms at the tensor cores'
 // bf16 peak plus the f32 peak for the rest), but they run on the CUDA
@@ -29,7 +35,9 @@
 // block reductions (about 30 barriers per surrogate solve). This first
 // design stages the surrogate's factors in shared memory once per CTA
 // (removing ~70% of the L2 traffic) and keeps the rest simple: no wgmma,
-// no TMA, one chain per CTA.
+// no TMA, one chain per CTA. The Burgers instantiation (k = 16: 16
+// surrogate solves of 26 Godunov steps and one exact solve of 154) is
+// bound by the barrier per time step: see burgers_misfit.cuh.
 //
 // Numerics follow the JAX kernel: f32 everywhere except the
 // preconditioner's bf16 inputs (f32 accumulation); no fast math (the
@@ -40,6 +48,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "burgers_misfit.cuh"
 #include "darcy_misfit.cuh"
 #include "fused_scaffold.cuh"
 
@@ -57,8 +66,9 @@ __global__ void darcy_misfit_kernel(IpxMisfitSpec s, const float* __restrict__ U
   if (threadIdx.x == 0) phi[b] = v;
 }
 
+template <class Pot>
 struct DaArgs {
-  IpxMisfitSpec exact, surr;
+  typename Pot::Spec exact, surr;
   IpxChainArgs chain;
   const float* phi0;   // (n,) Phi at pos_in
   const float* surr0;  // (n,) Phi* at pos_in
@@ -69,13 +79,14 @@ struct DaArgs {
 
 // K4: k pCN steps against the surrogate (tags 4j, 4j+1, 4j+2), then one
 // exact correction (Phi(u) - Phi(v)) - (Phi*(u) - Phi*(v)) with tag 4k+2.
+template <class Pot>
 struct DaStep {
-  const DaArgs& a;
-  const IpxMisfitSpec& surr;  // a.surr with its factors staged on chip
-  float* pos0;                // current state
-  float* pos;                 // subchain state
-  float* prop;                // proposal
-  MisfitSmem ws;
+  const DaArgs<Pot>& a;
+  const typename Pot::Spec& surr;  // a.surr with its factors staged on chip
+  float* pos0;                     // current state
+  float* pos;                      // subchain state
+  float* prop;                     // proposal
+  typename Pot::Workspace ws;
   float phi0, surr0, in_acc;
 
   __device__ void init(const ChainCtx& c) {
@@ -93,7 +104,7 @@ struct DaStep {
         prop[c.t] = c.mean_t + a.contraction * (pos[c.t] - c.mean_t) + a.beta * xi;
       }
       __syncthreads();
-      const float sp = darcy_phi(surr, prop, ws);
+      const float sp = Pot::phi(surr, prop, ws);
       if (logf(c.uniform(i, 4u * j + 2u)) < surr_v - sp) {  // the same in every thread
         in_acc += 1.0f;
         surr_v = sp;
@@ -101,7 +112,7 @@ struct DaStep {
       }
     }
     __syncthreads();
-    const float pe = darcy_phi(a.exact, pos, ws);
+    const float pe = Pot::phi(a.exact, pos, ws);
     float log_ratio = (phi0 - pe) - (surr0 - surr_v);
     if (isnan(log_ratio)) log_ratio = -INFINITY;
     const bool accept = logf(c.uniform(i, 4u * a.k + 2u)) < log_ratio;
@@ -116,36 +127,64 @@ struct DaStep {
   }
 };
 
-// 256 threads and at least 4 CTAs per SM (fused_scaffold.cuh) cap registers
-// at 64 a thread (96 without the bound; 2 CTAs per SM). Measured on the
-// H100 at 4096 chains, k = 48: 11.07 ms per outer step against 16.25 ms
-// without the bound (40-48 bytes of spills).
-template <bool RECORD>
-__global__ void __launch_bounds__(kFusedThreads, 4) fused_da_pcn_kernel(DaArgs a) {
+// Darcy: 256 threads and at least 4 CTAs per SM cap registers at 64 a
+// thread (96 without the bound; 2 CTAs per SM). Measured on the H100 at
+// 4096 chains, k = 48: 11.07 ms per outer step against 16.25 ms without the
+// bound (40-48 bytes of spills).
+template <class Pot, bool RECORD>
+__global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
+    fused_da_pcn_kernel(DaArgs<Pot> a) {
   extern __shared__ float smem[];
   const int t = threadIdx.x, d = a.chain.d;
-  const int cells_e = a.exact.n * a.exact.n, cells_s = a.surr.n * a.surr.n;
-  const int cells = cells_e > cells_s ? cells_e : cells_s;
-  const int modes = a.exact.modes > a.surr.modes ? a.exact.modes : a.surr.modes;
+  const typename Pot::Extent extent = Pot::join(Pot::extent(a.exact), Pot::extent(a.surr));
   float* pos0 = smem;
   float* pos = pos0 + d;
   float* prop = pos + d;
-  // the surrogate's factors, read 48x per outer step, staged on chip
-  float* surr_basis = prop + d + misfit_smem_floats(cells, modes);
-  __nv_bfloat16* surr_V = reinterpret_cast<__nv_bfloat16*>(surr_basis + a.surr.K * cells_s);
-  IpxMisfitSpec surr = a.surr;
-  for (int e = t; e < a.surr.K * cells_s; e += blockDim.x) surr_basis[e] = a.surr.basis[e];
-  const __nv_bfloat16* gV = static_cast<const __nv_bfloat16*>(a.surr.V);
-  for (int e = t; e < a.surr.modes * cells_s; e += blockDim.x) surr_V[e] = gV[e];
-  surr.basis = surr_basis;
-  surr.V = surr_V;
+  // The surrogate's factors, read k times per outer step, staged on chip.
+  // The assumption tells the compiler what it no longer infers once the
+  // copy sits in a function of the potential: the staged factors lie in
+  // shared memory. Without it the Darcy kernel addresses them generically
+  // and spills (48-64 bytes of stores at 64 registers, 6 % slower per
+  // step). ptxas is touchy here: naming the address in a variable first,
+  // or staging from the local copy instead of the parameter, brings the
+  // spills back (nvcc 12.8), so keep this form and read nvcc.log.
+  typename Pot::Spec surr = a.surr;
+  __builtin_assume(__isShared(prop + d + Pot::workspace_floats(extent)));
+  Pot::stage(a.surr, surr, prop + d + Pot::workspace_floats(extent));
 
-  DaStep step{a, surr, pos0, pos, prop, carve_misfit_smem(prop + d, cells, modes),
-              0.0f, 0.0f, 0.0f};
+  DaStep<Pot> step{a, surr, pos0, pos, prop, Pot::carve(prop + d, extent), 0.0f, 0.0f, 0.0f};
   run_chain<RECORD>(a.chain, step, pos0);
   if (t == 0)
     a.inner[blockIdx.x] = step.in_acc / fmaxf(static_cast<float>(a.chain.n_steps) *
                                                   static_cast<float>(a.k), 1.0f);
+}
+
+// Launches fused_da_pcn_kernel<Pot, RECORD> (RECORD: chain.samples given).
+template <class Pot>
+int launch_da_pcn(const typename Pot::Spec& exact, const typename Pot::Spec& surr,
+                  const IpxChainArgs& chain, const float* phi0, const float* surr0,
+                  float beta, float contraction, int k, float* inner, void* stream) {
+  const typename Pot::Extent extent = Pot::join(Pot::extent(exact), Pot::extent(surr));
+  const int threads = chain_threads(chain, extent.cells, exact.K, Pot::kMaxThreads);
+  const int d = chain.d, n = chain.n;
+  if (threads == 0 || !Pot::valid(exact) || !Pot::valid(surr) || surr.K != d || k < 0)
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const DaArgs<Pot> a{exact, surr, chain, phi0, surr0, beta, contraction, k, inner};
+  // state (3d) + misfit workspace + the staged factors of the surrogate
+  const size_t smem =
+      sizeof(float) * (3 * d + Pot::workspace_floats(extent)) + Pot::staged_bytes(surr);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (chain.samples != nullptr) {
+    cudaFuncSetAttribute(fused_da_pcn_kernel<Pot, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    fused_da_pcn_kernel<Pot, true><<<n, threads, smem, st>>>(a);
+  } else {
+    cudaFuncSetAttribute(fused_da_pcn_kernel<Pot, false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    fused_da_pcn_kernel<Pot, false><<<n, threads, smem, st>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace ipx
@@ -170,29 +209,16 @@ int ipx_darcy_misfit(const IpxMisfitSpec* s, const float* U, int B, float* phi,
 int ipx_fused_da_pcn(const IpxMisfitSpec* exact, const IpxMisfitSpec* surr,
                      const IpxChainArgs* chain, const float* phi0, const float* surr0,
                      float beta, float contraction, int k, float* inner, void* stream) {
-  const int cells_e = exact->n * exact->n, cells_s = surr->n * surr->n;
-  const int cells = cells_e > cells_s ? cells_e : cells_s;
-  const int modes = exact->modes > surr->modes ? exact->modes : surr->modes;
-  const int threads = ipx::chain_threads(*chain, cells, exact->K);
-  const int d = chain->d, n = chain->n;
-  if (threads == 0 || surr->K != d || k < 0) return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  const ipx::DaArgs a{*exact, *surr, *chain, phi0, surr0, beta, contraction, k, inner};
-  // state (3d) + misfit workspace + staged surrogate basis (f32) and modes (bf16)
-  const size_t smem = sizeof(float) * (3 * d + ipx::misfit_smem_floats(cells, modes) +
-                                       surr->K * cells_s) +
-                      sizeof(__nv_bfloat16) * surr->modes * cells_s;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (chain->samples != nullptr) {
-    cudaFuncSetAttribute(ipx::fused_da_pcn_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    ipx::fused_da_pcn_kernel<true><<<n, threads, smem, st>>>(a);
-  } else {
-    cudaFuncSetAttribute(ipx::fused_da_pcn_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    ipx::fused_da_pcn_kernel<false><<<n, threads, smem, st>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return ipx::launch_da_pcn<ipx::DarcyPotential>(*exact, *surr, *chain, phi0, surr0, beta,
+                                                 contraction, k, inner, stream);
+}
+
+int ipx_fused_da_pcn_burgers(const IpxBurgersSpec* exact, const IpxBurgersSpec* surr,
+                             const IpxChainArgs* chain, const float* phi0, const float* surr0,
+                             float beta, float contraction, int k, float* inner,
+                             void* stream) {
+  return ipx::launch_da_pcn<ipx::BurgersPotential>(*exact, *surr, *chain, phi0, surr0, beta,
+                                                   contraction, k, inner, stream);
 }
 
 }  // extern "C"

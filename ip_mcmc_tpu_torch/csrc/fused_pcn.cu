@@ -1,4 +1,4 @@
-// Hand-written Hopper kernels of the single-level pCN Darcy paths.
+// Hand-written Hopper kernels of the single-level pCN paths.
 //
 // Replaces the Pallas TPU kernel of ip_mcmc_tpu/ops/fused_mcmc.py as
 // instantiated by fused_pcn_chain (l.1502) / fused_pcn_chain_recorded
@@ -9,7 +9,10 @@
 //
 //   darcy_misfit_warm_kernel       (U (K, B), x0 (n*n, B)) -> (Phi (B,),
 //                                  x (n*n, B)): the warm-started misfit.
-//   fused_pcn_kernel<RECORD>       cold pCN: proposal, Phi from x = 0, MH.
+//   fused_pcn_kernel<Pot, RECORD>  cold pCN: proposal, Phi, MH. The
+//                                  potential is a type: DarcyPotential
+//                                  (Phi from x = 0) or BurgersPotential
+//                                  (K12, burgers_misfit.cuh).
 //   fused_pcn_warm_kernel<RECORD>  pCN carrying each chain's CG solution:
 //                                  thread t keeps its cell of the accepted
 //                                  x in a register, the proposal's solve
@@ -20,7 +23,8 @@
 // per cell). Phi (and x) at the start positions come in from the
 // standalone misfit kernels. Tags: normals 0 (keys 0, 1), MH uniform 2.
 //
-// What bounds them on the H100: per chain and step one Darcy solve. The
+// What bounds them on the H100: per chain and step one solve (Burgers: the
+// barrier per Godunov step, see burgers_misfit.cuh). The Darcy
 // cold Jacobi solve of 48 CG iterations is ~0.3 M multiply-adds but ~100
 // dependent block reductions of 256 threads, so barrier latency, not the
 // f32 rate or memory, sets its time; the warm dst_trunc solve (4
@@ -32,6 +36,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "burgers_misfit.cuh"
 #include "darcy_misfit.cuh"
 #include "fused_scaffold.cuh"
 
@@ -52,8 +57,9 @@ __global__ void darcy_misfit_warm_kernel(IpxMisfitSpec s, const float* __restric
   if (t == 0) phi[b] = v;
 }
 
+template <class Pot>
 struct PcnArgs {
-  IpxMisfitSpec pot;
+  typename Pot::Spec pot;
   IpxChainArgs chain;
   const float* phi0;  // (n,) Phi at pos_in
   const float* x0;    // (cells, n) solutions at pos_in (warm only)
@@ -62,18 +68,22 @@ struct PcnArgs {
 
 // K6 / K7: prop = m + sqrt(1 - beta^2) (pos - m) + beta scale xi; accept
 // when log u < Phi(pos) - Phi(prop), so a NaN Phi(prop) rejects.
-template <bool WARM>
+// WARM (Darcy only): x is this thread's cell of the accepted CG solution.
+template <class Pot, bool WARM>
 struct PcnStep {
-  const PcnArgs& a;
+  const PcnArgs<Pot>& a;
   float* pos;
   float* prop;
-  MisfitSmem ws;
+  typename Pot::Workspace ws;
   float phi, x;
 
   __device__ void init(const ChainCtx& c) {
     phi = a.phi0[c.c];
-    const int cells = a.pot.n * a.pot.n;
-    x = (WARM && c.t < cells) ? a.x0[static_cast<size_t>(c.t) * a.chain.n + c.c] : 0.0f;
+    x = 0.0f;
+    if constexpr (WARM) {
+      const int cells = a.pot.n * a.pot.n;
+      if (c.t < cells) x = a.x0[static_cast<size_t>(c.t) * a.chain.n + c.c];
+    }
   }
 
   __device__ bool step(const ChainCtx& c, uint32_t i) {
@@ -83,7 +93,9 @@ struct PcnStep {
     }
     __syncthreads();
     float x_prop = x;
-    const float phi_prop = darcy_solve<WARM>(a.pot, prop, ws, x_prop);
+    float phi_prop;
+    if constexpr (WARM) phi_prop = darcy_solve<true>(a.pot, prop, ws, x_prop);
+    else phi_prop = Pot::phi(a.pot, prop, ws);
     const bool accept = logf(c.uniform(i, 2u)) < phi - phi_prop;
     if (accept) {
       phi = phi_prop;
@@ -94,25 +106,42 @@ struct PcnStep {
   }
 };
 
-template <bool RECORD, bool WARM>
-__device__ void pcn_chain(const PcnArgs& a) {
+template <class Pot, bool RECORD, bool WARM>
+__device__ void pcn_chain(const PcnArgs<Pot>& a) {
   extern __shared__ float smem[];
   float* pos = smem;
   float* prop = pos + a.chain.d;
-  const int cells = a.pot.n * a.pot.n;
-  PcnStep<WARM> step{a, pos, prop, carve_misfit_smem(prop + a.chain.d, cells, a.pot.modes),
-                     0.0f, 0.0f};
+  PcnStep<Pot, WARM> step{a, pos, prop, Pot::carve(prop + a.chain.d, Pot::extent(a.pot)),
+                          0.0f, 0.0f};
   run_chain<RECORD>(a.chain, step, pos);
 }
 
-template <bool RECORD>
-__global__ void __launch_bounds__(kFusedThreads, 4) fused_pcn_kernel(PcnArgs a) {
-  pcn_chain<RECORD, false>(a);
+template <class Pot, bool RECORD>
+__global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
+    fused_pcn_kernel(PcnArgs<Pot> a) {
+  pcn_chain<Pot, RECORD, false>(a);
 }
 
 template <bool RECORD>
-__global__ void __launch_bounds__(kFusedThreads, 4) fused_pcn_warm_kernel(PcnArgs a) {
-  pcn_chain<RECORD, true>(a);
+__global__ void __launch_bounds__(kFusedThreads, 4)
+    fused_pcn_warm_kernel(PcnArgs<DarcyPotential> a) {
+  pcn_chain<DarcyPotential, RECORD, true>(a);
+}
+
+// Launches fused_pcn_kernel<Pot, RECORD> (RECORD: chain.samples given).
+template <class Pot>
+int launch_pcn(const typename Pot::Spec& pot, const IpxChainArgs& chain, const float* phi0,
+               float beta, float contraction, void* stream) {
+  const typename Pot::Extent extent = Pot::extent(pot);
+  const int threads = chain_threads(chain, extent.cells, pot.K, Pot::kMaxThreads);
+  if (threads == 0 || !Pot::valid(pot)) return cudaErrorInvalidValue;
+  if (chain.n == 0) return cudaSuccess;
+  const PcnArgs<Pot> a{pot, chain, phi0, nullptr, beta, contraction};
+  const size_t smem = sizeof(float) * (2 * chain.d + Pot::workspace_floats(extent));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (chain.samples != nullptr) fused_pcn_kernel<Pot, true><<<chain.n, threads, smem, st>>>(a);
+  else fused_pcn_kernel<Pot, false><<<chain.n, threads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace ipx
@@ -134,22 +163,25 @@ int ipx_darcy_misfit_warm(const IpxMisfitSpec* s, const float* U, const float* x
 // x0 == null: cold pCN (fused_pcn_kernel); else warm (fused_pcn_warm_kernel).
 int ipx_fused_pcn(const IpxMisfitSpec* pot, const IpxChainArgs* chain, const float* phi0,
                   const float* x0, float beta, float contraction, void* stream) {
+  if (x0 == nullptr)
+    return ipx::launch_pcn<ipx::DarcyPotential>(*pot, *chain, phi0, beta, contraction, stream);
   const int cells = pot->n * pot->n;
   const int threads = ipx::chain_threads(*chain, cells, pot->K);
   if (threads == 0) return cudaErrorInvalidValue;
   if (chain->n == 0) return cudaSuccess;
-  const ipx::PcnArgs a{*pot, *chain, phi0, x0, beta, contraction};
+  const ipx::PcnArgs<ipx::DarcyPotential> a{*pot, *chain, phi0, x0, beta, contraction};
   const size_t smem = sizeof(float) * (2 * chain->d + ipx::misfit_smem_floats(cells, pot->modes));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool record = chain->samples != nullptr;
-  if (x0 == nullptr) {
-    if (record) ipx::fused_pcn_kernel<true><<<chain->n, threads, smem, st>>>(a);
-    else ipx::fused_pcn_kernel<false><<<chain->n, threads, smem, st>>>(a);
-  } else {
-    if (record) ipx::fused_pcn_warm_kernel<true><<<chain->n, threads, smem, st>>>(a);
-    else ipx::fused_pcn_warm_kernel<false><<<chain->n, threads, smem, st>>>(a);
-  }
+  if (chain->samples != nullptr)
+    ipx::fused_pcn_warm_kernel<true><<<chain->n, threads, smem, st>>>(a);
+  else
+    ipx::fused_pcn_warm_kernel<false><<<chain->n, threads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+int ipx_fused_pcn_burgers(const IpxBurgersSpec* pot, const IpxChainArgs* chain,
+                          const float* phi0, float beta, float contraction, void* stream) {
+  return ipx::launch_pcn<ipx::BurgersPotential>(*pot, *chain, phi0, beta, contraction, stream);
 }
 
 }  // extern "C"

@@ -37,8 +37,8 @@ typedef struct {
 
 namespace ipx {
 
-// 256 threads (one per cell of a 16x16 grid) and at least 4 CTAs per SM,
-// which caps registers at 64 a thread.
+// The Darcy samplers' CTA: 256 threads (one per cell of a 16x16 grid) and
+// at least 4 CTAs per SM, which caps registers at 64 a thread.
 constexpr int kFusedThreads = 256;
 
 struct ChainCtx {
@@ -96,11 +96,13 @@ __device__ void run_chain(const IpxChainArgs& a, Step& step, float* pos) {
   if (x.t == 0) a.acc[x.c] = acc / static_cast<float>(a.n_steps);
 }
 
-// What every launch of a one-misfit sampler checks; threads for it or 0.
-inline int chain_threads(const IpxChainArgs& a, int cells, int K) {
+// What every launch of a sampler checks; threads for it (one per cell of
+// the largest grid, at least d, at most the kernel's launch bound) or 0.
+inline int chain_threads(const IpxChainArgs& a, int cells, int K,
+                         int max_threads = kFusedThreads) {
   const int threads = ((cells > a.d ? cells : a.d) + 31) / 32 * 32;
   const bool record = a.samples != nullptr;
-  if (threads > kFusedThreads || K != a.d || a.block_chains <= 0 || a.n < 0 || a.n_steps < 0 ||
+  if (threads > max_threads || K != a.d || a.block_chains <= 0 || a.n < 0 || a.n_steps < 0 ||
       (record && a.thin <= 0))
     return 0;
   return threads;

@@ -1,10 +1,23 @@
-"""Karhunen–Loève pieces of the Darcy prior (mirrors
-``ip_mcmc_tpu/models/kl.py``: ``sine_basis_2d``, ``laplacian_eigenvalues_2d``).
-Pure numpy: these are build-time constants."""
+"""Karhunen–Loève pieces of the priors (mirrors ``ip_mcmc_tpu/models/kl.py``:
+``sine_basis_2d`` and ``laplacian_eigenvalues_2d`` for Darcy,
+``fourier_basis`` for Burgers). Pure numpy: these are build-time constants."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def fourier_basis(n_modes: int, grid: np.ndarray) -> np.ndarray:
+    """Orthonormal periodic basis (n_modes, len(grid)): 1, √2 cos(2πx),
+    √2 sin(2πx), √2 cos(4πx), ... ."""
+    rows = [np.ones_like(grid)]
+    j = 1
+    while len(rows) < n_modes:
+        rows.append(np.sqrt(2.0) * np.cos(2.0 * np.pi * j * grid))
+        if len(rows) < n_modes:
+            rows.append(np.sqrt(2.0) * np.sin(2.0 * np.pi * j * grid))
+        j += 1
+    return np.stack(rows[:n_modes])
 
 
 def sine_basis_2d(n_modes_per_dim: int, n_grid: int):

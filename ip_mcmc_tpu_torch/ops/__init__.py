@@ -1,5 +1,9 @@
 """The fused samplers of the port, under the names of ``ip_mcmc_tpu.ops``."""
 
+from ip_mcmc_tpu_torch.ops.fused_da3_pcn import (
+    fused_da3_pcn_chain,
+    fused_da3_pcn_chain_recorded,
+)
 from ip_mcmc_tpu_torch.ops.fused_da_pcn import (
     fused_da_pcn_chain,
     fused_da_pcn_chain_recorded,
@@ -26,6 +30,8 @@ from ip_mcmc_tpu_torch.ops.fused_pcn import (
 )
 
 __all__ = [
+    "fused_da3_pcn_chain",
+    "fused_da3_pcn_chain_recorded",
     "fused_da_pcn_chain",
     "fused_da_pcn_chain_recorded",
     "fused_ess_chain",

@@ -73,6 +73,24 @@ class MisfitSpec(ctypes.Structure):
 PRECOND_CODES = {"jacobi": 0, "dst_trunc": 1, "dst": 2}
 
 
+class BurgersSpec(ctypes.Structure):
+    """Mirror of ``IpxBurgersSpec`` in ``csrc/burgers_misfit.cuh``."""
+
+    _fields_ = [
+        ("basis", ctypes.c_void_p),
+        ("mean", ctypes.c_void_p),
+        ("obs", ctypes.c_void_p),
+        ("data", ctypes.c_void_p),
+        ("noise", ctypes.c_void_p),
+        ("n_cells", ctypes.c_int),
+        ("K", ctypes.c_int),
+        ("m", ctypes.c_int),
+        ("n_segments", ctypes.c_int),
+        ("seg_steps", ctypes.c_int * 8),  # IPX_MAX_SEGMENTS
+        ("half_dt_over_h", ctypes.c_float),
+    ]
+
+
 class ChainArgs(ctypes.Structure):
     """Mirror of ``IpxChainArgs`` in ``csrc/fused_scaffold.cuh``."""
 
@@ -170,6 +188,7 @@ def library():
         lib = _Kernels(build())
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         spec, chain = ctypes.POINTER(MisfitSpec), ctypes.POINTER(ChainArgs)
+        bspec = ctypes.POINTER(BurgersSpec)
         # spec, U (K, B), B, Φ (B,), stream
         lib.bind("ipx_darcy_misfit", [spec, p, i, p, p])
         # spec, U (K, B), x0 (n², B), B, Φ (B,), x (n², B), stream
@@ -191,6 +210,15 @@ def library():
         # counts (n,), record (n, d) or null, β, √(1−β²), a, M, step, parity,
         # stream
         lib.bind("ipx_fused_fes", [spec, chain, p, p, p, p, f, f, f, i, i, i, p])
+        # the Burgers instantiations: the same arguments on the other spec
+        lib.bind("ipx_burgers_misfit", [bspec, p, i, p, p])
+        lib.bind("ipx_fused_da_pcn_burgers", [bspec, bspec, chain, p, p, f, f, i, p, p])
+        # spec, chain, Φ0 (n,), β, √(1−β²), stream
+        lib.bind("ipx_fused_pcn_burgers", [bspec, chain, p, f, f, p])
+        # fine, middle, coarse, chain, Φf0, Φm0, Φc0 (n,), β, √(1−β²),
+        # k_inner, k_mid, middle acceptance (n,), stream
+        lib.bind("ipx_fused_da3_pcn_burgers",
+                 [bspec, bspec, bspec, chain, p, p, p, f, f, i, i, p, p])
         lib.bind("ipx_error_string", [i], ctypes.c_char_p)
         _lib = lib
     return _lib

@@ -118,23 +118,40 @@ def run_plain(step_builder, potential_fn, positions, params, seed, n_steps,
 # --- what the kernels' wrappers share -----------------------------------------
 
 
-def require_darcy(potential_fn, warm, name: str = "potential_fn"):
-    """The CUDA kernels take Darcy misfit modules only (a kernel cannot
-    inline a Python callable): cold samplers (``warm`` False) a
-    ``DarcyMisfit``, warm pCN (True) a ``DarcyMisfitWarm``, warm MALA
-    (``"mala"``) a ``DarcyMisfitMalaWarm``."""
-    # imported here: models.darcy itself imports ops._build
-    from ip_mcmc_tpu_torch.models import darcy
+def require_family(pots: dict, families=("darcy",), warm=False) -> str:
+    """The family of a launch's potentials, ``"darcy"`` or ``"burgers"``.
+
+    A CUDA kernel cannot inline a Python callable: it is compiled per
+    family of misfit module, and every potential of one launch is of one
+    family. ``pots`` maps argument names to potentials; ``families`` are
+    those the kernel is instantiated for. Cold samplers (``warm`` False)
+    take a ``DarcyMisfit`` or a ``BurgersMisfit``, warm pCN (True) a
+    ``DarcyMisfitWarm``, warm MALA (``"mala"``) a ``DarcyMisfitMalaWarm``.
+    Raises ``TypeError`` for anything else and for a mixed launch."""
+    # imported here: the models import ops._build
+    from ip_mcmc_tpu_torch.models import burgers, darcy
 
     carried = (darcy.DarcyMisfitWarm, darcy.DarcyMisfitMalaWarm)
-    want = {False: darcy.DarcyMisfit, True: carried[0], "mala": carried[1]}[warm]
-    if not isinstance(potential_fn, want) or (
-        not warm and isinstance(potential_fn, carried)
-    ):
+    if warm:
+        classes = {"darcy": carried[1] if warm == "mala" else carried[0]}
+    else:
+        classes = {"burgers": burgers.BurgersMisfit, "darcy": darcy.DarcyMisfit}
+    classes = {f: classes[f] for f in sorted(families)}
+    wanted = " or ".join(c.__name__ for c in classes.values())
+    found = {}
+    for name, pot in pots.items():
+        family = next((f for f, c in classes.items() if isinstance(pot, c)), None)
+        if family is None or (not warm and isinstance(pot, carried)):
+            raise TypeError(
+                f"{name}: the CUDA kernel takes {wanted} potentials only, "
+                f"got {type(pot).__name__}"
+            )
+        found[name] = family
+    if len(set(found.values())) != 1:
         raise TypeError(
-            f"{name}: the CUDA kernel takes {want.__name__} potentials only, "
-            f"got {type(potential_fn).__name__}"
+            f"the potentials of one launch must be of one family, got {found}"
         )
+    return family
 
 
 def chain_args(positions, prior_mean, prior_scale, seed, n_steps,

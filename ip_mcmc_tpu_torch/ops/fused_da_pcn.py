@@ -8,9 +8,11 @@ Each outer step runs ``subchain_len`` pCN steps against the surrogate Φ*,
 then one exact correction (Christen–Fox): accept with
 log u < (Φ(u) − Φ(v)) − (Φ*(u) − Φ*(v)), a NaN ratio rejecting.
 
-For CUDA tensors the entry points launch ``fused_da_pcn_kernel<RECORD>``
+For CUDA tensors the entry points launch ``fused_da_pcn_kernel<Pot, RECORD>``
 (``csrc/fused_da_pcn.cu``), which runs the whole ``n_steps`` loop in one
-launch; it takes ``DarcyMisfit`` potentials only. For CPU tensors they run
+launch; it is instantiated for a pair of ``DarcyMisfit`` and for a pair of
+``BurgersMisfit`` potentials, and the wrapper picks by the potentials'
+family. For CPU tensors they run
 ``_run_plain`` / ``_run_plain_recorded``: the step builder below on the
 plain scaffold ``_scaffold.run_plain``, which takes any features-first
 callable (d, B) → (B,), so the algorithm tests can use analytic targets.
@@ -119,8 +121,9 @@ def _run_plain_recorded(pot_exact, pot_surr, positions, prior_mean,
 
 def _launch(pot_exact, pot_surr, positions, prior_mean, prior_scale, beta,
             seed, n_steps, subchain_len, block_chains, thin=None):
-    _scaffold.require_darcy(pot_exact, False, "potential_fn")
-    _scaffold.require_darcy(pot_surr, False, "surrogate_fn")
+    family = _scaffold.require_family(
+        {"potential_fn": pot_exact, "surrogate_fn": pot_surr},
+        families=("darcy", "burgers"))
     args, keep = _scaffold.chain_args(positions, prior_mean, prior_scale,
                                       seed, n_steps, block_chains, thin)
     U = keep[0].T.contiguous()
@@ -132,13 +135,17 @@ def _launch(pot_exact, pot_surr, positions, prior_mean, prior_scale, beta,
     inner = torch.empty(U.shape[1], dtype=torch.float32, device=U.device)
     beta_t, contraction = _scaffold.contraction(beta)
     es, ss = pot_exact.spec(), pot_surr.spec()
-    status = _build.library().ipx_fused_da_pcn(
+    lib = _build.library()
+    fn, stem = {"darcy": (lib.ipx_fused_da_pcn, "fused_da_pcn_kernel"),
+                "burgers": (lib.ipx_fused_da_pcn_burgers,
+                            "fused_da_pcn_burgers_kernel")}[family]
+    status = fn(
         ctypes.byref(es), ctypes.byref(ss), ctypes.byref(args),
         phi0.data_ptr(), surr0.data_ptr(), float(beta_t), float(contraction),
         int(subchain_len), inner.data_ptr(),
         torch.cuda.current_stream(U.device).cuda_stream,
     )
-    name = _scaffold.kernel_name("fused_da_pcn_kernel", thin is not None)
+    name = _scaffold.kernel_name(stem, thin is not None)
     _build.check(status, name)
     _build.launch_counts[name] += 1
     _, _, _, out, acc, samples = keep

@@ -87,7 +87,7 @@ def _run_plain(potential_fn, positions, prior_mean, prior_scale, seed,
 
 def _launch(potential_fn, positions, prior_mean, prior_scale, seed, n_steps,
             max_shrink, block_chains, thin=None):
-    _scaffold.require_darcy(potential_fn, False)
+    _scaffold.require_family({"potential_fn": potential_fn})
     args, keep = _scaffold.chain_args(positions, prior_mean, prior_scale,
                                       seed, n_steps, block_chains, thin)
     U = keep[0].T.contiguous()

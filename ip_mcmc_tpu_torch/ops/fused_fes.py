@@ -150,7 +150,7 @@ def _run_plain(potential_fn, positions, prior_mean, prior_scale, n_low_modes,
 
 def _launch(potential_fn, positions, prior_mean, prior_scale, n_low_modes,
             seed, pcn_beta, stretch_a, n_steps, block_chains, thin=None):
-    _scaffold.require_darcy(potential_fn, False)
+    _scaffold.require_family({"potential_fn": potential_fn})
     # the chain's state: updated in place by every launch
     state = positions.clone(memory_format=torch.contiguous_format)
     args, keep = _scaffold.chain_args(state, prior_mean, prior_scale, seed,

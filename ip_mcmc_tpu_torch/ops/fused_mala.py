@@ -155,7 +155,8 @@ def _run_plain(potential_fn, positions, prior_mean, prior_scale, step_size,
 def _launch(potential_fn, positions, prior_mean, prior_scale, step_size, seed,
             n_steps, block_chains, thin=None, aux_dim=None):
     warm = aux_dim is not None
-    _scaffold.require_darcy(potential_fn, "mala" if warm else False)
+    _scaffold.require_family({"potential_fn": potential_fn},
+                             warm="mala" if warm else False)
     if warm and aux_dim != potential_fn.aux_dim:
         raise ValueError(
             f"aux_dim {aux_dim} is not the misfit's {potential_fn.aux_dim}"

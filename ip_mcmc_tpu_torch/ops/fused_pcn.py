@@ -11,10 +11,11 @@ of its current state (``aux_dim`` rows), the proposal's solve starts from
 it, and x follows the accept/reject select. ``init`` solves from zeros, in
 every launch: the carried x is not an output.
 
-For CUDA tensors the entry points launch ``fused_pcn_kernel<RECORD>`` /
+For CUDA tensors the entry points launch ``fused_pcn_kernel<Pot, RECORD>`` /
 ``fused_pcn_warm_kernel<RECORD>`` (``csrc/fused_pcn.cu``), the whole
-``n_steps`` loop in one launch, on ``DarcyMisfit`` / ``DarcyMisfitWarm``
-potentials only. For CPU tensors they run the step builders below on the
+``n_steps`` loop in one launch: the cold kernel on a ``DarcyMisfit`` or a
+``BurgersMisfit`` (picked by the potential's family), the warm one on a
+``DarcyMisfitWarm``. For CPU tensors they run the step builders below on the
 plain scaffold ``_scaffold.run_plain``, with any features-first callable.
 Tags: normals 0 (keys 0, 1), MH uniform 2.
 """
@@ -106,7 +107,9 @@ def _run_plain(potential_fn, positions, prior_mean, prior_scale, beta, seed,
 def _launch(potential_fn, positions, prior_mean, prior_scale, beta, seed,
             n_steps, block_chains, thin=None, aux_dim=None):
     warm = aux_dim is not None
-    _scaffold.require_darcy(potential_fn, warm)
+    family = _scaffold.require_family(
+        {"potential_fn": potential_fn},
+        families=("darcy",) if warm else ("darcy", "burgers"), warm=warm)
     if warm and aux_dim != potential_fn.aux_dim:
         raise ValueError(
             f"aux_dim {aux_dim} is not the misfit's {potential_fn.aux_dim}"
@@ -125,14 +128,21 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, beta, seed,
         phi0, x0 = potential_fn(U), None
     beta_t, contraction = _scaffold.contraction(beta)
     spec = potential_fn.spec()
-    status = _build.library().ipx_fused_pcn(
-        ctypes.byref(spec), ctypes.byref(args), phi0.data_ptr(),
-        x0.data_ptr() if warm else None, float(beta_t), float(contraction),
-        torch.cuda.current_stream(U.device).cuda_stream,
-    )
-    name = _scaffold.kernel_name(
-        "fused_pcn_warm_kernel" if warm else "fused_pcn_kernel",
-        thin is not None)
+    stream = torch.cuda.current_stream(U.device).cuda_stream
+    if family == "burgers":
+        stem = "fused_pcn_burgers_kernel"
+        status = _build.library().ipx_fused_pcn_burgers(
+            ctypes.byref(spec), ctypes.byref(args), phi0.data_ptr(),
+            float(beta_t), float(contraction), stream,
+        )
+    else:
+        stem = "fused_pcn_warm_kernel" if warm else "fused_pcn_kernel"
+        status = _build.library().ipx_fused_pcn(
+            ctypes.byref(spec), ctypes.byref(args), phi0.data_ptr(),
+            x0.data_ptr() if warm else None, float(beta_t),
+            float(contraction), stream,
+        )
+    name = _scaffold.kernel_name(stem, thin is not None)
     _build.check(status, name)
     _build.launch_counts[name] += 1
     _, _, _, out, acc, samples = keep

@@ -1,5 +1,6 @@
 """CLI entry: ``python -m ip_mcmc_tpu_torch.run --config darcy_da_fused``
-(``--list`` names the configs; ``darcy_pcn_4096`` needs ``--fused``).
+(``--list`` names the configs; ``darcy_pcn_4096``, ``burgers_pcn`` and
+``burgers_multitime_pcn`` need ``--fused``).
 
 Prints one JSON line of metrics (the keys of ``ip_mcmc_tpu.run``). Runs on
 the card by default; ``--device cpu`` runs the kernels' plain versions.
@@ -26,7 +27,7 @@ def main(argv=None):
     ap.add_argument(
         "--fused", action="store_true",
         help="use the fully fused path (pCN configs with a batched "
-        "potential: darcy_pcn_4096)",
+        "potential: darcy_pcn_4096, burgers_pcn, burgers_multitime_pcn)",
     )
     ap.add_argument("--list", action="store_true", help="list configs and exit")
     args = ap.parse_args(argv)

@@ -1,8 +1,8 @@
 """Problem runner: config → burn-in launch → recorded sampling launch →
 diagnostics (mirrors ``ip_mcmc_tpu/runner.py``: ``run_problem``,
-``_run_fused_mcmc``'s ``da_pcn``, ``pcn`` (cold and warm), ``elliptical``,
-``fes`` and ``mala`` (cold and warm) branches, ``_resolve_n_low_modes``,
-``_finalize``). Returns the JAX runner's JSON-able metrics dict, key for
+``_run_fused_mcmc``'s ``da_pcn`` (two- and three-level), ``pcn`` (cold and
+warm), ``elliptical``, ``fes`` and ``mala`` (cold and warm) branches,
+``_resolve_n_low_modes``, ``_finalize``). Returns the JAX runner's JSON-able metrics dict, key for
 key.
 
 Timing protocol (as the JAX runner's): the burn launch uses seed 1 and
@@ -117,16 +117,27 @@ def _run_fused_mcmc(problem, generator, n_chains, n_samples, device):
                 f"config {problem.name}: fused 'da_pcn' needs "
                 "batched_surrogate_fn"
             )
+        run_kw["beta"] = kp.get("beta", 0.2)
         if kp.get("k_mid"):
-            raise NotImplementedError(
-                f"config {problem.name}: three-level DA is not ported"
-            )
-        run_kw.update(beta=kp.get("beta", 0.2),
-                      subchain_len=kp.get("subchain_len", 4))
-        chain = lambda p, pos, **kw: ops.fused_da_pcn_chain(
-            p, surr, pos, **kw)
-        chain_rec = lambda p, pos, **kw: ops.fused_da_pcn_chain_recorded(
-            p, surr, pos, **kw)
+            # three levels: inner pCN on the coarse surrogate, middle
+            # corrections against batched_mid_fn, one fine correction
+            mid = problem.batched_mid_fn
+            if mid is None:
+                raise ValueError(
+                    f"config {problem.name}: fused 3-level 'da_pcn' needs "
+                    "batched_mid_fn"
+                )
+            run_kw.update(k_inner=kp.get("k_inner", 8), k_mid=kp["k_mid"])
+            chain = lambda p, pos, **kw: ops.fused_da3_pcn_chain(
+                p, mid, surr, pos, **kw)
+            chain_rec = lambda p, pos, **kw: ops.fused_da3_pcn_chain_recorded(
+                p, mid, surr, pos, **kw)
+        else:
+            run_kw["subchain_len"] = kp.get("subchain_len", 4)
+            chain = lambda p, pos, **kw: ops.fused_da_pcn_chain(
+                p, surr, pos, **kw)
+            chain_rec = lambda p, pos, **kw: ops.fused_da_pcn_chain_recorded(
+                p, surr, pos, **kw)
     elif problem.kernel == "pcn":
         # kernel_params["adapt"] is ignored here, as on the JAX fused path
         run_kw["beta"] = kp.get("beta", 0.2)
@@ -150,7 +161,8 @@ def _run_fused_mcmc(problem, generator, n_chains, n_samples, device):
     burn_out = chain(phi, positions, seed=1, n_steps=problem.burn_in, **run_kw)
     positions = burn_out[0]
     # third output: the kernel's extra_out channel (DA: inner acceptance,
-    # the ensemble sampler: stretch-move acceptance)
+    # three-level DA: middle-correction acceptance, the ensemble sampler:
+    # stretch-move acceptance)
     extra_acc = burn_out[2].cpu() if len(burn_out) > 2 else None
     burn_out[1].cpu()  # transfer barrier
     burn_s = time.perf_counter() - t0
@@ -170,11 +182,19 @@ def _run_fused_mcmc(problem, generator, n_chains, n_samples, device):
     summ, diag_s = _summarize_timed(samples)
     rate = n_chains * n_samples * problem.thin / run_s
     if problem.kernel == "da_pcn":
-        # an outer DA step hides k surrogate proposals: name the units
-        extra = {"inner_accept_rate": float(extra_acc.mean())}
+        # an outer DA step hides k (or k_inner·k_mid) surrogate proposals:
+        # name the units. The three-level kernel reports its middle rate
+        # (its inner rate is the two-level kernel's at the same β).
+        if kp.get("k_mid"):
+            extra_key = "mid_accept_rate"
+            k_total = int(kp.get("k_inner", 8)) * int(kp["k_mid"])
+        else:
+            extra_key = "inner_accept_rate"
+            k_total = int(kp.get("subchain_len", 4))
+        extra = {extra_key: float(extra_acc.mean())}
         rate_keys = {
             "outer_steps_per_s": rate,
-            "inner_steps_per_s": rate * int(kp.get("subchain_len", 4)),
+            "inner_steps_per_s": rate * k_total,
         }
     else:
         extra = ({} if extra_acc is None

@@ -1,7 +1,9 @@
-"""Freeze the JAX-drawn constants of ``darcy_da_fused`` for the PyTorch port.
+"""Freeze the JAX-drawn constants of the ported configs for the PyTorch port.
 
-The port never imports JAX, but four arrays of the config are drawn with
-JAX threefry keys and cannot be recomputed without it: the true
+The port never imports JAX, but some arrays of the configs are drawn with
+JAX threefry keys and cannot be recomputed without it.
+
+``darcy_da_fused``: the true
 coefficients ``u_true`` (key 300), the data ``y`` (forward solve plus the
 noise draw under key 301), and the surrogate calibration — 64 prior draws
 under key 402 give the bias-corrected surrogate data ``y_surr`` and the
@@ -11,11 +13,21 @@ coarse observation cells ``obs_coarse`` into
 those of ``_darcy_problem``, so the port's ``darcy_pcn_4096``,
 ``darcy_pcn_warm`` and ``darcy_ess_fused`` read the same file.
 
-The arrays are read from the JAX package's own built Problem (its data,
-its truth, and the closure of its single-particle surrogate misfit), so
-nothing of the calibration is re-implemented here.
+The Burgers configs (``burgers_pcn``, ``burgers_da_pcn``,
+``burgers_da3_pcn``, ``burgers_multitime_pcn``): ``u_true`` (key 400), the
+final-time data ``y`` (noise key 401) shared by the first three, the
+three-time data ``y_multitime`` (noise key 402), and the two calibrated
+surrogates of ``burgers_da3_pcn`` — 64 cells (``y_surr_64``, ``scale_64``;
+also the surrogate of ``burgers_da_pcn``) and 128 cells at the coarse time
+step (``y_surr_128``, ``scale_128``) — into
+``ip_mcmc_tpu_torch/configs/burgers128.npz``.
 
-    JAX_PLATFORMS=cpu python scripts/freeze_torch_fixtures.py
+The arrays are read from the JAX package's own built Problems (their data,
+their truth, and the closures of their surrogate misfits), so nothing of
+the calibrations is re-implemented here. With no argument both files are
+written; ``darcy`` or ``burgers`` writes one.
+
+    JAX_PLATFORMS=cpu python scripts/freeze_torch_fixtures.py [darcy|burgers]
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FIXTURE = ROOT / "ip_mcmc_tpu_torch" / "configs" / "darcy16_da.npz"
+BURGERS_FIXTURE = ROOT / "ip_mcmc_tpu_torch" / "configs" / "burgers128.npz"
 
 
 def _closure(fn):
@@ -49,16 +62,43 @@ def fixture_arrays(problem) -> dict:
     }
 
 
-def main():
+def burgers_fixture_arrays(da3, multitime) -> dict:
+    """The frozen arrays, from built JAX ``burgers_da3_pcn`` and
+    ``burgers_multitime_pcn`` Problems."""
+    coarse = _closure(da3.surrogate_potential_fn)  # potentials.misfit_potential
+    mid = _closure(da3.batched_mid_fn)  # burgers.make_batched_misfit's phi
+    return {
+        "u_true": np.asarray(da3.truth, np.float32),
+        "y": np.asarray(da3.data, np.float32),
+        "y_multitime": np.asarray(multitime.data, np.float32),
+        "y_surr_64": np.asarray(coarse["data"], np.float32),
+        "scale_64": np.asarray(coarse["noise"].scale, np.float32),
+        "y_surr_128": np.asarray(mid["data"], np.float32),
+        "scale_128": np.asarray(mid["noise_scale"], np.float32).reshape(-1),
+    }
+
+
+def main(argv=None):
+    which = set(argv or sys.argv[1:]) or {"darcy", "burgers"}
+    if not which <= {"darcy", "burgers"}:
+        raise SystemExit(f"usage: {sys.argv[0]} [darcy|burgers]")
     sys.path.insert(0, str(ROOT))
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     from ip_mcmc_tpu import configs
 
-    arrays = fixture_arrays(configs.build("darcy_da_fused"))
-    np.savez(FIXTURE, **arrays)
-    print(f"wrote {FIXTURE} ({FIXTURE.stat().st_size} bytes)")
+    written = []
+    if "darcy" in which:
+        np.savez(FIXTURE, **fixture_arrays(configs.build("darcy_da_fused")))
+        written.append(FIXTURE)
+    if "burgers" in which:
+        np.savez(BURGERS_FIXTURE, **burgers_fixture_arrays(
+            configs.build("burgers_da3_pcn"),
+            configs.build("burgers_multitime_pcn")))
+        written.append(BURGERS_FIXTURE)
+    for path in written:
+        print(f"wrote {path} ({path.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":

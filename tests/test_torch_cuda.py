@@ -261,3 +261,97 @@ def test_gradient_and_ensemble_kernels_refuse_plain_callables(mala_warm_problem)
     with pytest.raises(TypeError, match="DarcyMisfit"):
         fused_fes.fused_fes_chain(phi, pos, pm, ps, 6, 0, n_steps=1,
                                   block_chains=64)
+
+
+# --- the Burgers path: K12, K13 and the Burgers instantiations of K4 / K6 ------
+
+
+@pytest.fixture
+def burgers_problem():
+    return _build_on_card("burgers_da3_pcn")
+
+
+def _burgers_levels(p):
+    return p.batched_potential_fn, p.batched_mid_fn, p.batched_surrogate_fn
+
+
+def test_burgers_misfit_kernel_matches_plain(burgers_problem):
+    """Fine (128 cells / 154 steps), middle (128 / 52), coarse (64 / 26) and
+    the three-segment misfit. The update is not contracted into an FMA, so
+    from equal initial states kernel and plain give equal bits; the KL sum
+    runs in another order, which moves an initial state by an ulp: Φ within
+    1e-5 relative."""
+    multitime = _build_on_card("burgers_multitime_pcn").batched_potential_fn
+    U = burgers_problem.prior.sample(torch.Generator().manual_seed(0), 512).T.contiguous()
+    for pot in (*_burgers_levels(burgers_problem), multitime):
+        before = _build.launch_counts[pot.kernel_label]
+        got = pot(U)
+        assert _build.launch_counts[pot.kernel_label] == before + 1
+        ref = pot._forward_plain(U)
+        assert got.shape == ref.shape == (512,)
+        assert float(_rel(got, ref).max()) <= 1e-5
+
+
+def test_burgers_misfit_kernel_passes_nan_on(burgers_problem):
+    pot = burgers_problem.batched_potential_fn
+    U = burgers_problem.prior.sample(torch.Generator().manual_seed(1), 64).T.contiguous()
+    U[5, 7] = float("nan")
+    got = pot(U)
+    assert bool(torch.isnan(got[7])) and int(torch.isnan(got).sum()) == 1
+
+
+@pytest.mark.parametrize("recorded", [False, True])
+@pytest.mark.parametrize("kind", ["da3", "da", "pcn"])
+def test_burgers_kernels_match_plain(burgers_problem, kind, recorded):
+    from ip_mcmc_tpu_torch.ops import fused_da3_pcn as da3
+
+    p = burgers_problem
+    fine, mid, coarse = _burgers_levels(p)
+    pos = p.init_positions(torch.Generator().manual_seed(2), 512).cuda()
+    pm, ps = p.prior.mean, p.prior.scale
+    kw = {"thin": 2} if recorded else {}
+    if kind == "da3":
+        name = "fused_da3_pcn_kernel"
+        args = (pos, pm, ps, 0.25, 3, 4, 3, 2, 128)
+        got = da3._launch(fine, mid, coarse, *args, **kw)
+        ref = da3._run_plain(fine._forward_plain, mid._forward_plain,
+                             coarse._forward_plain, *args, **kw)
+    elif kind == "da":
+        name = "fused_da_pcn_burgers_kernel"
+        args = (pos, pm, ps, 0.15, 3)
+        kw.update(n_steps=4, subchain_len=6, block_chains=128)
+        got = da._launch(fine, coarse, *args, **kw)
+        plain = da._run_plain_recorded if recorded else da._run_plain
+        ref = plain(fine._forward_plain, coarse._forward_plain, *args, **kw)
+    else:
+        name = "fused_pcn_burgers_kernel"
+        args = (pos, pm, ps, 0.15, 3, 4, 128)
+        got = fused_pcn._launch(fine, *args, **kw)
+        ref = fused_pcn._run_plain(fine._forward_plain, *args, **kw)
+    assert _build.launch_counts[f"{name}<{'true' if recorded else 'false'}>"] >= 1
+    if recorded:
+        assert got[2].shape == ref[2].shape == (2, 512, 16)
+        assert torch.equal(got[2][-1], got[0])
+    elif kind != "pcn":  # inner (DA) or middle (DA3) acceptance
+        assert abs(float(got[2].mean()) - float(ref[2].mean())) <= 1e-2
+    dev = (got[0] - ref[0]).abs().max(dim=1).values
+    assert float((dev <= 1e-4).double().mean()) >= 0.99
+    assert abs(float(got[1].mean()) - float(ref[1].mean())) <= 1e-2
+    assert 0.0 < float(got[1].mean()) < 1.0
+
+
+def test_burgers_kernels_refuse_mixed_and_plain_potentials(burgers_problem, problem):
+    from ip_mcmc_tpu_torch import ops
+
+    fine, mid, coarse = _burgers_levels(burgers_problem)
+    pos = torch.zeros(64, 16, device="cuda")
+    pm, ps = burgers_problem.prior.mean, burgers_problem.prior.scale
+    with pytest.raises(TypeError, match="one family"):
+        da.fused_da_pcn_chain(fine, problem.batched_surrogate_fn, pos, pm, ps,
+                              0.15, 0, n_steps=1, block_chains=64)
+    with pytest.raises(TypeError, match="BurgersMisfit"):
+        ops.fused_da3_pcn_chain(fine, lambda U: U.sum(0), coarse, pos, pm, ps,
+                                0.25, 0, n_steps=1, block_chains=64)
+    with pytest.raises(TypeError, match="DarcyMisfit"):
+        fused_ess.fused_ess_chain(fine, pos, pm, ps, 0, n_steps=1,
+                                  block_chains=64)

@@ -146,3 +146,61 @@ def test_shape_checks_and_kernel_potential_type():
     # before touching any device
     with pytest.raises(TypeError, match="DarcyMisfit"):
         da._launch(phi_exact, phi_exact, pos, PM, PS, 0.3, 0, 2, 4, 16)
+
+
+# --- the Burgers instantiation of K4 ------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def burgers_levels():
+    from test_torch_burgers import small_burgers_levels
+
+    return small_burgers_levels()
+
+
+@pytest.mark.parametrize("recorded", [False, True])
+def test_burgers_da_chain_matches_jax(burgers_levels, recorded):
+    """Fine (32 cells / 10 steps) corrected, coarse (16 / 2) inside, d = 16,
+    two blocks. Every input is f32 and the misfits agree to ~1e-6
+    (tests/test_torch_burgers.py): at least 62 of 64 chains end within 1e-4
+    of JAX's, with the same outer and inner decisions."""
+    (jf, _, jc), (tf, _, tc) = burgers_levels
+    pos = np.random.default_rng(8).standard_normal((N, 16)).astype(np.float32)
+    pm, ps = np.zeros(16, np.float32), np.ones(16, np.float32)
+    kw = dict(n_steps=3, subchain_len=K, block_chains=BLOCK)
+    if recorded:
+        kw["thin"] = 1
+        jfn, tfn = jops.fused_da_pcn_chain_recorded, da.fused_da_pcn_chain_recorded
+    else:
+        jfn, tfn = jops.fused_da_pcn_chain, da.fused_da_pcn_chain
+    fj, aj, xj = jfn(jf, jc, jnp.asarray(pos), pm, ps, 0.15, SEED, **kw)
+    ft, at, xt = tfn(tf, tc, torch.from_numpy(pos), pm, ps, 0.15, SEED, **kw)
+    ok = _agreeing(ft, fj)
+    if recorded:
+        assert xt.shape == np.asarray(xj).shape == (3, N, 16)
+        ok &= _agreeing(xt, xj).all(axis=0)
+    else:  # inner acceptance: a count over n_steps * k
+        np.testing.assert_array_equal(np.rint(xt.numpy()[ok] * 3 * K),
+                                      np.rint(np.asarray(xj)[ok] * 3 * K))
+    assert ok.sum() >= 62
+    np.testing.assert_array_equal(np.rint(at.numpy()[ok] * 3),
+                                  np.rint(np.asarray(aj)[ok] * 3))
+    assert 0.0 < float(at.mean()) < 1.0
+
+
+def test_kernel_refuses_potentials_of_two_families(potentials, burgers_levels):
+    """One launch runs one family's instantiation: a Darcy misfit beside a
+    Burgers one raises before any device is touched."""
+    _, (darcy_exact, _) = potentials
+    _, (fine, _, coarse) = burgers_levels
+    pos = torch.zeros(32, 16)
+    with pytest.raises(TypeError, match="one family"):
+        da._launch(fine, darcy_exact, pos, torch.zeros(16), torch.ones(16),
+                   0.15, 0, 2, 4, 16)
+    from ip_mcmc_tpu_torch.ops import _scaffold
+    assert _scaffold.require_family(
+        {"potential_fn": fine, "surrogate_fn": coarse},
+        families=("darcy", "burgers")) == "burgers"
+    assert _scaffold.require_family({"potential_fn": darcy_exact}) == "darcy"
+    with pytest.raises(TypeError, match="DarcyMisfit potentials only"):
+        _scaffold.require_family({"potential_fn": fine})

@@ -197,3 +197,35 @@ def test_argument_checks_and_kernel_potential_types(problem):
         fused_pcn._launch(warm, pos, PM, PS, BETA, 0, 2, 64)
     with pytest.raises(TypeError, match="DarcyMisfitWarm"):
         fused_pcn._launch(cold, pos, PM, PS, BETA, 0, 2, 64, aux_dim=aux_dim)
+
+
+# --- the Burgers instantiation of K6 ------------------------------------------
+
+
+@pytest.mark.parametrize("recorded", [False, True])
+def test_burgers_pcn_chain_matches_jax(recorded):
+    """Cold pCN on the small Burgers problem of tests/test_torch_burgers.py
+    (32 cells, 10 Godunov steps): every input f32, so the strict bound."""
+    from test_torch_burgers import small_burgers_levels
+
+    jax_pots, pots = small_burgers_levels()
+    pos = np.random.default_rng(4).standard_normal((N, K)).astype(np.float32)
+    if recorded:
+        out = run_both(jops.fused_pcn_chain_recorded, ops.fused_pcn_chain_recorded,
+                       jax_pots[0], pots[0], pos, 6, n_steps=STEPS, thin=2)
+        assert out[1][2].shape == (STEPS // 2, N, K)
+    else:
+        out = run_both(jops.fused_pcn_chain, ops.fused_pcn_chain, jax_pots[0],
+                       pots[0], pos, 6, n_steps=STEPS)
+    assert_strict(*out)
+
+
+def test_warm_kernel_refuses_a_burgers_potential():
+    """No warm Burgers kernel exists: the launch names what it takes before
+    touching any device."""
+    from test_torch_burgers import small_burgers_levels
+
+    _, pots = small_burgers_levels()
+    with pytest.raises(TypeError, match="DarcyMisfitWarm"):
+        fused_pcn._launch(pots[0], torch.zeros(32, K), PM, PS, BETA, 0, 2, 16,
+                          aux_dim=32)

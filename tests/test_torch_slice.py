@@ -253,10 +253,16 @@ def test_gradient_and_ensemble_runs_print_jax_runner_keys(name):
     assert np.isfinite(m["posterior_mean"]).all()
 
 
+BURGERS = ("burgers_pcn", "burgers_multitime_pcn", "burgers_da_pcn",
+           "burgers_da3_pcn")
+
+
 def test_cli_lists_seven_configs(capsys):
+    """The seven Darcy configs and, since the Burgers path, its four."""
     assert run.main(["--list"]) == 0
     names = [ln.split()[0] for ln in capsys.readouterr().out.strip().splitlines()]
-    assert names == sorted(SINGLE_LEVEL + GRADIENT_AND_ENSEMBLE + ("darcy_da_fused",))
+    assert names == sorted(SINGLE_LEVEL + GRADIENT_AND_ENSEMBLE
+                           + ("darcy_da_fused",) + BURGERS)
 
 
 def test_rwm_is_not_ported():
@@ -288,3 +294,113 @@ def test_port_never_imports_jax():
     assert len(files) > 10
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
+
+
+# --- the Burgers configs -------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_burgers():
+    return {name: jconfigs.build(name) for name in BURGERS}
+
+
+def test_burgers_fixture_matches_fresh_jax_build(jax_burgers):
+    fresh = freeze_torch_fixtures.burgers_fixture_arrays(
+        jax_burgers["burgers_da3_pcn"], jax_burgers["burgers_multitime_pcn"])
+    frozen = np.load(configs.BURGERS_FIXTURE)
+    assert set(frozen.files) == set(fresh)
+    for k, v in fresh.items():
+        assert frozen[k].shape == v.shape, k
+        np.testing.assert_allclose(frozen[k], v, rtol=1e-6, err_msg=k)
+    assert frozen["y"].shape == (16,) and frozen["y_multitime"].shape == (48,)
+    # one data vector and one 64-cell calibration serve three configs
+    for name in ("burgers_pcn", "burgers_da_pcn"):
+        np.testing.assert_array_equal(np.asarray(jax_burgers[name].data),
+                                      np.asarray(jax_burgers["burgers_da3_pcn"].data))
+    surr = freeze_torch_fixtures._closure(
+        jax_burgers["burgers_da_pcn"].surrogate_potential_fn)
+    np.testing.assert_array_equal(np.asarray(surr["data"], np.float32),
+                                  fresh["y_surr_64"])
+    np.testing.assert_array_equal(np.asarray(surr["noise"].scale, np.float32),
+                                  fresh["scale_64"])
+
+
+@pytest.mark.parametrize("name", BURGERS)
+def test_burgers_configs_match_jax_problems(jax_burgers, name):
+    """Sizes, kernel parameters, data, truth, and every batched potential
+    the JAX config has (fine; the calibrated 64-cell surrogate; the 128-cell
+    middle level) on 64 prior draws: all f32, rtol 1e-5 as in
+    tests/test_torch_burgers.py."""
+    jp, p = jax_burgers[name], configs.build(name, "cpu")
+    assert (p.name, p.dim, p.kernel, p.thin) == (jp.name, jp.dim, jp.kernel, jp.thin)
+    assert (p.n_chains, p.n_samples, p.burn_in) == (
+        jp.n_chains, jp.n_samples, jp.burn_in)
+    assert p.kernel_params == jp.kernel_params
+    np.testing.assert_allclose(p.data, np.asarray(jp.data), rtol=1e-6)
+    np.testing.assert_allclose(p.truth, np.asarray(jp.truth), rtol=1e-6)
+    U = np.random.default_rng(13).standard_normal((16, 64)).astype(np.float32)
+    steps = {"batched_potential_fn": (154,), "batched_surrogate_fn": (26,),
+             "batched_mid_fn": (52,)}
+    if name == "burgers_multitime_pcn":
+        steps["batched_potential_fn"] = (54, 54, 46)
+    for attr, segments in steps.items():
+        fj, ft = getattr(jp, attr), getattr(p, attr)
+        assert (fj is None) == (ft is None), attr
+        if fj is None:
+            continue
+        assert ft.segments == segments
+        np.testing.assert_allclose(ft(torch.from_numpy(U)).numpy(),
+                                   np.asarray(fj(jnp.asarray(U))), rtol=1e-5,
+                                   err_msg=attr)
+    assert (p.batched_mid_fn is not None) == (name == "burgers_da3_pcn")
+
+
+@pytest.mark.parametrize("name", BURGERS)
+def test_burgers_runs_print_jax_runner_keys(jax_burgers, name):
+    """Through run_problem on the CPU at 64 chains, 4 samples, a short
+    burn-in and short subchains (the keys do not depend on them): the JAX
+    runner's keys, mid_accept_rate for the three-level config only, and
+    inner_steps_per_s = outer x the inner steps of an outer step."""
+    jp, p = jax_burgers[name], configs.build(name, "cpu")
+    short = {"k_inner": 2, "k_mid": 2} if name == "burgers_da3_pcn" else (
+        {"subchain_len": 2} if name == "burgers_da_pcn" else {})
+    # "fused": what --fused sets for the two pCN configs
+    p = dataclasses.replace(
+        p, burn_in=2, kernel_params={**p.kernel_params, **short, "fused": True})
+    m = runner.run_problem(p, "cpu", seed=0, n_chains=64, n_samples=4)
+    jp = dataclasses.replace(
+        jp, n_chains=64, n_samples=4, burn_in=2,
+        kernel_params={**jp.kernel_params, **short, "fused": True,
+                       "block_chains": 32})
+    jm = jrunner.run_problem(jp, key=jax.random.key(0))
+    for metrics in (m, jm):
+        assert ("warning" in metrics) == (not metrics["converged"])
+    assert set(m) - {"warning"} == set(jm) - {"warning"}
+    assert m["config"] == name and m["kernel"] == jm["kernel"]
+    assert (m["n_chains"], m["n_samples"], m["dim"]) == (64, 4, 16)
+    assert ("mid_accept_rate" in m) == (name == "burgers_da3_pcn")
+    assert ("inner_accept_rate" in m) == (name == "burgers_da_pcn")
+    rates = ["accept_rate"]
+    if p.kernel == "da_pcn":
+        rates.append("mid_accept_rate" if "k_mid" in short else "inner_accept_rate")
+        assert m["inner_steps_per_s"] == pytest.approx(
+            (4 if "k_mid" in short else 2) * m["outer_steps_per_s"])
+    else:
+        assert m["steps_per_s"] == pytest.approx(64 * 4 / m["run_s"])
+    for k in rates:
+        assert 0.0 <= m[k] <= 1.0, k
+    assert len(m["posterior_mean"]) == 16
+    assert np.isfinite(m["posterior_mean"]).all()
+
+
+def test_three_level_da_needs_the_middle_potential():
+    p = dataclasses.replace(configs.build("burgers_da3_pcn", "cpu"),
+                            batched_mid_fn=None)
+    with pytest.raises(ValueError, match="batched_mid_fn"):
+        runner.run_problem(p, "cpu", n_chains=64, n_samples=2)
+
+
+def test_unfused_burgers_pcn_is_not_ported():
+    with pytest.raises(NotImplementedError, match="--fused"):
+        run.main(["--config", "burgers_pcn", "--device", "cpu",
+                  "--n-chains", "64", "--n-samples", "4"])
