@@ -20,8 +20,8 @@
 // same operands give the same bits, so the update stays conservative to the
 // bit and one exchange per step suffices.
 //
-// What bounds it on the H100: a step is ~11 f32 operations per cell behind
-// a block barrier, and the steps of a solve depend on one another (154 for
+// What bounds it on the H100: a step is 13 f32 operations per cell (8 if
+// each flux were computed once and exchanged) behind a block barrier, and the steps of a solve depend on one another (154 for
 // the fine grid), so barrier latency sets the time, not the f32 rate and
 // not memory (a solve reads 64 bytes of coefficients and writes 4). The
 // design keeps everything on chip and leaves the latency to be hidden by

@@ -24,7 +24,7 @@
 //
 // What bounds it on the H100: at the shipped k_inner = 8, k_mid = 24 an
 // outer step is 192 coarse solves of 26 Godunov steps, 24 middle solves of
-// 52 and one fine solve of 154: 6394 dependent time steps, each ~11 f32
+// 52 and one fine solve of 154: 6394 dependent time steps, each 13 f32
 // operations per cell behind one block barrier, so barrier latency sets
 // the time (see burgers_misfit.cuh); memory sees the positions in and out
 // and the records only.
@@ -70,8 +70,7 @@ struct Da3Args {
 // ratio maps to -inf; every inner MH test is log u < delta, so NaN rejects.
 template <class Pot>
 struct Da3Step {
-  const Da3Args<Pot>& a;
-  const typename Pot::Spec& coarse;  // a.coarse with its factors staged on chip
+ const Da3Args<Pot>& a;
   float* pos0;                       // outer state
   float* pos;                        // middle-level state
   float* p1;                         // inner (coarse) state
@@ -99,7 +98,7 @@ struct Da3Step {
           prop[c.t] = c.mean_t + a.contraction * (p1[c.t] - c.mean_t) + a.beta * xi;
         }
         __syncthreads();
-        const float sp = Pot::phi(coarse, prop, ws);
+        const float sp = Pot::phi(a.coarse, prop, ws);
         if (logf(c.uniform(i, tag + 2u)) < s1 - sp) {  // the same in every thread
           s1 = sp;
           if (c.own) p1[c.t] = prop[c.t];
@@ -146,14 +145,10 @@ __global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
   float* pos = pos0 + d;
   float* p1 = pos + d;
   float* prop = p1 + d;
-  // the coarse level's factors, read k_inner k_mid times per outer step,
-  // staged in shared memory (the form of fused_da_pcn_kernel)
-  typename Pot::Spec coarse = a.coarse;
-  __builtin_assume(__isShared(prop + d + Pot::workspace_floats(extent)));
-  Pot::stage(a.coarse, coarse, prop + d + Pot::workspace_floats(extent));
-
-  Da3Step<Pot> step{a,    coarse, pos0, pos,  p1,  prop, Pot::carve(prop + d, extent),
-                    0.0f, 0.0f,   0.0f, 0.0f};
+  // no level's constants are staged on chip: the only potential this
+  // kernel is instantiated for keeps none there
+  Da3Step<Pot> step{a,    pos0, pos,  p1,  prop, Pot::carve(prop + d, extent),
+                    0.0f, 0.0f, 0.0f, 0.0f};
   run_chain<RECORD>(a.chain, step, pos0);
   if (threadIdx.x == 0)
     a.mid_rate[blockIdx.x] =
@@ -177,9 +172,8 @@ int launch_da3_pcn(const typename Pot::Spec& fine, const typename Pot::Spec& mid
   if (n == 0) return cudaSuccess;
   const Da3Args<Pot> a{fine, mid,  coarse,      chain,   phi0,  mid0,    surr0,
                        beta, contraction, k_inner, k_mid, mid_rate};
-  // state (4d) + misfit workspace + the staged factors of the coarse level
-  const size_t smem =
-      sizeof(float) * (4 * d + Pot::workspace_floats(extent)) + Pot::staged_bytes(coarse);
+  // state (4d) + misfit workspace
+  const size_t smem = sizeof(float) * (4 * d + Pot::workspace_floats(extent));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (chain.samples != nullptr) {
     cudaFuncSetAttribute(fused_da3_pcn_kernel<Pot, true>,

@@ -129,19 +129,19 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, beta, seed,
     beta_t, contraction = _scaffold.contraction(beta)
     spec = potential_fn.spec()
     stream = torch.cuda.current_stream(U.device).cuda_stream
-    if family == "burgers":
-        stem = "fused_pcn_burgers_kernel"
-        status = _build.library().ipx_fused_pcn_burgers(
-            ctypes.byref(spec), ctypes.byref(args), phi0.data_ptr(),
-            float(beta_t), float(contraction), stream,
-        )
-    else:
-        stem = "fused_pcn_warm_kernel" if warm else "fused_pcn_kernel"
-        status = _build.library().ipx_fused_pcn(
-            ctypes.byref(spec), ctypes.byref(args), phi0.data_ptr(),
-            x0.data_ptr() if warm else None, float(beta_t),
-            float(contraction), stream,
-        )
+    lib = _build.library()
+    # family -> (C entry point, kernel, its arguments after Φ0): the Darcy
+    # entry takes the carried solution, null for the cold kernel
+    fn, stem, carried = {
+        "darcy": (lib.ipx_fused_pcn,
+                  "fused_pcn_warm_kernel" if warm else "fused_pcn_kernel",
+                  (x0.data_ptr() if warm else None,)),
+        "burgers": (lib.ipx_fused_pcn_burgers, "fused_pcn_burgers_kernel", ()),
+    }[family]
+    status = fn(
+        ctypes.byref(spec), ctypes.byref(args), phi0.data_ptr(), *carried,
+        float(beta_t), float(contraction), stream,
+    )
     name = _scaffold.kernel_name(stem, thin is not None)
     _build.check(status, name)
     _build.launch_counts[name] += 1

@@ -1,22 +1,17 @@
-"""The Burgers kernels on one card: device time of the misfit kernel at its
-four specs, the samplers at 16, 8 and 4 CTAs per SM, and the device's busy
-share in one CLI run.
+"""The Burgers kernels on one card: the samplers at 16, 8 and 4 CTAs per SM,
+and the device's busy share in one CLI run. (The misfit kernel's own times
+are ``chip_smoke.py``'s.)
 
     python scripts/measure_burgers_kernels.py
 
-1. ``burgers_misfit_kernel`` per call at 2048 draws through the wrapper
-   (CUDA events around 50 calls: what a caller sees, launch path included)
-   and per 2048 draws inside one call of 16384 draws (device time with the
-   launch path amortised), for the fine, middle, coarse and multi-time
-   specs of the shipped configs.
-2. The samplers ship under ``__launch_bounds__(128, 16)`` (32 registers a
+1. The samplers ship under ``__launch_bounds__(128, 16)`` (32 registers a
    thread; 2048 chains resident at once). This copies ``csrc/`` twice with
    ``BurgersPotential::kMinCtasPerSm`` patched to 8 (64 registers) and 4,
    builds each copy as the package builds its own, and times one step of
    three-level DA, DA and pCN at the shipped sizes as the slope between two
    launch lengths, in the order 16, 8, 4, 4, 8, 16. All must give the same
    chains. Prints what ptxas reports for each.
-3. ``burgers_da3_pcn`` through the runner under ``torch.profiler``: device
+2. ``burgers_da3_pcn`` through the runner under ``torch.profiler``: device
    time by kernel, and the share of the runner's ``total_wall_s`` in which
    the device was idle.
 
@@ -27,54 +22,26 @@ from __future__ import annotations
 
 import json
 import pathlib
-import re
-import shutil
-import subprocess
 import sys
 
 import torch
+
+from _kernel_variants import build_patched, card_line, print_ptxas, slope_ms
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 SHIPPED = "static constexpr int kMinCtasPerSm = 16;"
 
 
-def event_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def build_variants(_build):
     """{CTAs per SM: the loaded kernels of a tree built with that bound}."""
-    shipped_csrc, shipped_out = _build.CSRC, _build.BUILD_DIR
-    header = (shipped_csrc / "burgers_misfit.cuh").read_text()
-    assert header.count(SHIPPED) == 1, "the Burgers launch bound moved"
     libs = {16: _build.library()}
+    print_ptxas(_build.BUILD_DIR, "16 CTAs", "BurgersPotential")
     for ctas in (8, 4):
-        tree = shipped_out / f"occupancy_ctas{ctas}"
-        shutil.rmtree(tree, ignore_errors=True)
-        shutil.copytree(shipped_csrc, tree / "csrc")
-        (tree / "csrc" / "burgers_misfit.cuh").write_text(
-            header.replace(SHIPPED, SHIPPED.replace("16", str(ctas))))
-        _build.CSRC, _build.BUILD_DIR, _build._lib = tree / "csrc", tree / "lib", None
-        libs[ctas] = _build.library()
-    _build.CSRC, _build.BUILD_DIR, _build._lib = shipped_csrc, shipped_out, libs[16]
-    for ctas, out in ((16, shipped_out), (8, shipped_out / "occupancy_ctas8" / "lib"),
-                      (4, shipped_out / "occupancy_ctas4" / "lib")):
-        log = (out / "nvcc.log").read_text().splitlines()
-        for i, line in enumerate(log):
-            if "Compiling entry" in line and "BurgersPotential" in line:
-                name = re.search(r"ipx\d+(\w+?)INS", line).group(1)
-                record = "<true>" if "ELb1E" in line else "<false>"
-                print(f"({ctas} CTAs) {name}{record}: "
-                      + " ".join(s.strip() for s in log[i + 1:i + 3]))
+        libs[ctas], out = build_patched(
+            _build, f"occupancy_ctas{ctas}", "burgers_misfit.cuh", SHIPPED,
+            SHIPPED.replace("16", str(ctas)))
+        print_ptxas(out, f"{ctas} CTAs", "BurgersPotential")
     return libs
 
 
@@ -85,32 +52,16 @@ def main() -> int:
     from ip_mcmc_tpu_torch import configs, ops, runner
     from ip_mcmc_tpu_torch.ops import _build
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = card_line()
     print(f"card: {card}")
     da3 = configs.build("burgers_da3_pcn", "cuda")
-    multi = configs.build("burgers_multitime_pcn", "cuda").batched_potential_fn
     fine, mid, coarse = (da3.batched_potential_fn, da3.batched_mid_fn,
                          da3.batched_surrogate_fn)
     gen = torch.Generator().manual_seed(7)
     n = da3.n_chains
     out = {"card": card}
 
-    # 1. the misfit kernel
-    U = da3.prior.sample(gen, n).T.contiguous()
-    U8 = da3.prior.sample(gen, 8 * n).T.contiguous()
-    out["misfit_ms"] = {}
-    for name, pot in (("fine", fine), ("middle", mid), ("coarse", coarse),
-                      ("multitime", multi)):
-        per_call = event_ms(lambda: pot(U), 50)
-        per_width = event_ms(lambda: pot(U8), 20) / 8
-        out["misfit_ms"][name] = {"per_call_2048": per_call,
-                                  "per_2048_of_16384": per_width}
-        print(f"burgers_misfit_kernel {name}: {per_call:.4f} ms per call at {n} "
-              f"draws, {per_width:.4f} ms per {n} draws of {8 * n}", flush=True)
-
-    # 2. the samplers at three launch bounds
+    # 1. the samplers at three launch bounds
     libs = build_variants(_build)
     pos = da3.init_positions(gen, n).cuda()
     pm, ps, kp = da3.prior.mean, da3.prior.scale, da3.kernel_params
@@ -130,8 +81,7 @@ def main() -> int:
         row = {"ctas_per_sm": ctas}
         for name, (run, short, long) in runs.items():
             finals.setdefault((name, ctas), run(short)[0])
-            row[name] = (event_ms(lambda: run(long), 3)
-                         - event_ms(lambda: run(short), 3)) / (long - short)
+            row[name] = slope_ms(run, short, long)
         steps_ms.append(row)
         print("ms per step: " + json.dumps(row), flush=True)
     _build._lib = libs[16]
@@ -139,7 +89,7 @@ def main() -> int:
                for name in runs for c in (8, 4))
     out["ms_per_step"], out["same_chains"] = steps_ms, same
 
-    # 3. the device's share of one CLI-sized run
+    # 2. the device's share of one CLI-sized run
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
