@@ -5,8 +5,8 @@
 Builds the CUDA kernels from ``ip_mcmc_tpu_torch/csrc`` (one nvcc per
 ``.cu``, in parallel), holds each kernel against its plain PyTorch version
 on the card at the shapes of the ported paths (4096 chains on the Darcy
-problem, 2048 on Burgers), times both, then drives the eleven ported
-configs through the port's CLI in-process at full width:
+problem, 2048 on Burgers and lingauss_pcn, 8192 and 1024 on the 2-D
+Gaussians), times both, then drives the ported paths at full width:
 
     darcy_da_fused           delayed-acceptance pCN     (K1-K5)
     darcy_pcn_warm           warm-started pCN           (K7)
@@ -19,13 +19,23 @@ configs through the port's CLI in-process at full width:
     burgers_da_pcn           delayed acceptance on Burgers  (K4, K12)
     burgers_pcn --fused      cold pCN on Burgers            (K6, K12)
     burgers_multitime_pcn --fused   the same, three observation times
+    compare_paths            fused RWM on benchmarks/compare_paths.py's target,
+                             8192 chains x 2000 steps, beside the scan path (K14)
+    gauss2d_rwm --fused      the runner's fused RWM branch, the config's
+                             phi_batched set by the caller (K14)
+    lingauss_pcn fused       burn-in with in-kernel beta adaptation (K16),
+                             then dense-prior pCN (K15)
+    gauss2d_rwm, lingauss_pcn   the scan path through the CLI (no kernel)
 
-Before each run the launch counts are set to 0; after it they must show
-that the run went through its kernels and through no plain version. Every
-phase raises on failure. Prints the card's name and power limit, a JSON
-line of per-kernel results (time, plain time, roofline bound, launches),
-and as the last line ``{"ok": true, "device": {...}}``. Without CUDA it
-exits non-zero and prints no result.
+The eleven fused configs and the two scan configs run through the port's
+CLI, the three other paths through the entry points (``runner``, ``ops``).
+Before each path the launch counts are set to 0; after it they must show
+that the path went through its kernels (the scan path: its steps on the
+card) and through no plain version. Every phase raises on failure. Prints
+the card's name and power limit, a JSON line of per-kernel results (time,
+plain time, roofline bound, launches), and as the last line
+``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
+no result.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # --- tolerances ---------------------------------------------------------------
@@ -170,6 +181,8 @@ def grad_ops(pot, warm: bool) -> Ops:
 def constant_bytes(pot) -> int:
     if hasattr(pot, "segments"):  # a Burgers misfit
         tensors = (pot.basis, pot.mean, pot.obs, pot.data, pot.noise)
+    elif hasattr(pot, "center"):  # a linear-Gaussian potential
+        tensors = (pot.At, pot.center, pot.data, pot.noise)
     else:
         tensors = (pot.basis, pot.V, pot.lam, pot.S, pot.source, pot.obs,
                    pot.data, pot.noise)
@@ -223,6 +236,12 @@ def chain_bound(pots, n, d, per_step_ops, recorded):
 
 
 RNG_OPS_PER_DRAW = 40  # f32: hash, log, sqrt, sin/cos per normal coordinate
+
+
+def linear_ops(pot) -> Ops:
+    """Φ of a linear-Gaussian potential for one chain, all f32: U − c (d),
+    per row d multiply-adds, a subtract, a divide and a multiply-add."""
+    return Ops(pot.K + pot.m * (2 * pot.K + 4))
 
 
 # --- kernel against plain version ---------------------------------------------
@@ -653,10 +672,13 @@ def check_gradient_and_ensemble(problems, gen, results):
         results[-1]["launches_per_step"] = launches_per_step
 
 
-def compare_burgers_misfit(results, pot, U, *, variant, paths):
-    """One ``burgers_misfit_kernel`` launch against the plain version on the
-    same draws (and a NaN draw, which must come back NaN and alone);
-    appends the result row."""
+def compare_small_misfit(results, pot, U, *, variant, paths, tol, source, replaces,
+                         bound_row):
+    """One launch of a misfit kernel whose call at B draws is a few
+    microseconds (``burgers_misfit_kernel``, ``linear_gaussian_misfit_kernel``)
+    against its plain version on the same draws, and a NaN draw, which must
+    come back NaN and alone; appends the result row. ``tol``: (median rel,
+    rtol, least share within rtol, max rel); ``bound_row``: the bound."""
     from ip_mcmc_tpu_torch.ops import _build
 
     name = pot.kernel_label
@@ -669,11 +691,11 @@ def compare_burgers_misfit(results, pot, U, *, variant, paths):
     assert got.shape == ref.shape == (B,)
     assert bool(torch.isfinite(got).all()), f"{name}: non-finite Phi"
     rel = ((got - ref).abs() / ref.abs()).cpu()
-    line, bad, frac = within(rel, BURGERS_TOL, "Phi")
+    line, bad, frac = within(rel, tol, "Phi")
     print(f"{name} ({variant}, {B} draws): {line}, equal bits on "
           f"{float((got == ref).double().mean()):.4f}", flush=True)
     U_nan = U[:, :64].clone()
-    U_nan[3, 5] = float("nan")
+    U_nan[min(3, U.shape[0] - 1), 5] = float("nan")
     nan_out = pot(U_nan)
     if bad or not bool(torch.isnan(nan_out[5])) or int(torch.isnan(nan_out).sum()) != 1:
         raise AssertionError(f"{name} ({variant}) disagrees with its plain version")
@@ -686,18 +708,17 @@ def compare_burgers_misfit(results, pot, U, *, variant, paths):
     ms = cuda_time_ms(lambda: pot(wide), 50) / 8
     call_ms, plain_ms = cuda_time_ms(kern, 200), cuda_time_ms(plain, 3)
     row = {
-        "name": name, "variant": variant, "route": "cuda",
-        "source": SRC + "fused_da3_pcn.cu", "replaces": "ip_mcmc_tpu/models/burgers.py:153",
-        "paths": paths, "max_abs_err": float((got - ref).abs().max()),
+        "name": name, "variant": variant, "route": "cuda", "source": SRC + source,
+        "replaces": replaces, "paths": paths, "max_abs_err": float((got - ref).abs().max()),
         "max_rel_err": float(rel.max()), "frac_within_rtol": frac,
         "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
         "ms_unit": (f"{B} draws: ms per {B} of one call of {8 * B}, call_ms and "
                     f"plain_ms one call of {B}"),
-        **burgers_misfit_bound(pot, B), "library_ms": None,
+        **bound_row, "library_ms": None,
     }
-    print(f"  time per {B} draws: kernel {ms:.4f} ms (one call of {B} through the "
+    print(f"  time per {B} draws: kernel {ms:.5f} ms (one call of {B} through the "
           f"wrapper {call_ms:.4f}), plain {plain_ms:.3f} ms, bound "
-          f"{row['bound_ms']:.5f} ms ({row['bound_by']})", flush=True)
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']})", flush=True)
     results.append(row)
 
 
@@ -726,7 +747,10 @@ def check_burgers(problems, gen, results):
              ["burgers_da3_pcn", "burgers_da_pcn"]),
             (multi, "multi-time: 128 cells, 54 + 54 + 46 steps, 48 observations",
              ["burgers_multitime_pcn"])):
-        compare_burgers_misfit(results, pot, U, variant=variant, paths=paths)
+        compare_small_misfit(results, pot, U, variant=variant, paths=paths,
+                             tol=BURGERS_TOL, source="fused_da3_pcn.cu",
+                             replaces="ip_mcmc_tpu/models/burgers.py:153",
+                             bound_row=burgers_misfit_bound(pot, U.shape[1]))
 
     pos = da3_p.init_positions(gen, n).cuda()
     d, block = pos.shape[1], 512
@@ -784,6 +808,325 @@ def check_burgers(problems, gen, results):
                 source="fused_pcn.cu", pots=(pot,), per_step_ops=ops_of(pot) + draws)
 
 
+# --- the linear-Gaussian family: RWM (K14), dense pCN (K15), adaptive pCN (K16)
+
+# benchmarks/compare_paths.py: RWM on N([1, -0.5], diag(2, 0.5)) from zeros,
+# step 0.9, 8192 chains x 2000 steps in blocks of 1024
+CP_MEAN, CP_VAR = (1.0, -0.5), (2.0, 0.5)
+CP_CHAINS, CP_STEPS, CP_BLOCK = 8192, 2000, 1024
+# Linear-Gaussian Φ, kernel vs plain version: all f32, the row sums in
+# another order (on the CPU against JAX: within 1e-6,
+# tests/test_torch_linear.py). (median rel, rtol, least share, max rel):
+LINEAR_TOL = (1e-6, 1e-5, 1.0, 1e-5)
+# K16's β, kernel vs plain loop: the pooled sum in the same order and the
+# update without FMA, so β differs only where Φ does
+BETA_RTOL = 1e-5
+LINGAUSS_BLOCK, LINGAUSS_BURN, LINGAUSS_SAMPLES = 256, 500, 1000
+
+
+def compare_paths_potential():
+    from ip_mcmc_tpu_torch.convert import linear_gaussian_from_arrays
+
+    return linear_gaussian_from_arrays(np.eye(2), np.zeros(2), np.sqrt(CP_VAR),
+                                       center=CP_MEAN).cuda()
+
+
+def lingauss_potential():
+    """lingauss_pcn's misfit as a LinearGaussianPotential, its prior scale
+    √λ and the prior's dense Cholesky factor (diag √λ)."""
+    from ip_mcmc_tpu_torch import configs
+    from ip_mcmc_tpu_torch.convert import linear_gaussian_from_arrays
+
+    A, lam, y, sigma = configs.lingauss_arrays()
+    scale = torch.tensor(lam, dtype=torch.float32, device="cuda").sqrt()
+    return linear_gaussian_from_arrays(A, y, sigma).cuda(), scale, torch.diag(scale)
+
+
+def check_linear_family(problems, gen, results):
+    """K14 on the compare_paths target and on gauss2d_rwm's with the prior,
+    and on Darcy (an instantiation no shipped path launches); the
+    linear-Gaussian misfit kernel, K15 and K16 on lingauss_pcn's misfit at
+    2048 chains; each against its plain version, timed."""
+    from ip_mcmc_tpu_torch import configs
+    from ip_mcmc_tpu_torch.ops import fused_pcn_adapt, fused_pcn_dense, fused_rwm
+
+    cp = compare_paths_potential()
+    pos = torch.randn(CP_CHAINS, 2, generator=gen).cuda()
+    per_step = linear_ops(cp) + Ops(RNG_OPS_PER_DRAW * 2)
+    compare_chain(
+        results, "fused_rwm_kernel", False,
+        lambda s: fused_rwm._launch(cp, pos, 0.9, 41, s, CP_BLOCK),
+        lambda s: fused_rwm._run_plain(cp._forward_plain, pos, 0.9, 41, s, CP_BLOCK),
+        steps=20, kernel_long=420, plain_long=40,
+        variant=f"compare_paths target (d = 2, A = I), no prior, block {CP_BLOCK}",
+        paths=["compare_paths"], source="fused_rwm.cu", pots=(cp,),
+        per_step_ops=per_step, replaces=JAX_OPS + "284")
+
+    g2 = configs.gauss2d_batched_potential().cuda()
+    p2 = problems["gauss2d_rwm"]
+    pos2 = p2.init_positions(gen, p2.n_chains).cuda()
+    prior = dict(prior_mean=p2.prior.mean, prior_scale=p2.prior.scale)
+    step = p2.kernel_params["step_size"]
+    for recorded in (False, True):
+        kw = dict(prior, **({"thin": 1} if recorded else {}))
+        compare_chain(
+            results, "fused_rwm_kernel", recorded,
+            lambda s: fused_rwm._launch(g2, pos2, step, 43, s, 512, **kw),
+            lambda s: fused_rwm._run_plain(g2._forward_plain, pos2, step, 43, s, 512, **kw),
+            steps=20, kernel_long=420, plain_long=40,
+            variant="gauss2d_rwm target (A = L^T, P = L L^T) + prior N(0, 10^2), block 512",
+            paths=["gauss2d_rwm --fused"], source="fused_rwm.cu", pots=(g2,),
+            per_step_ops=linear_ops(g2) + Ops((RNG_OPS_PER_DRAW + 4) * 2),
+            replaces=JAX_OPS + "284")
+
+    darcy_p = problems["darcy_pcn_4096"]
+    jacobi = darcy_p.batched_potential_fn
+    pos_d = darcy_p.init_positions(gen, N_CHAINS).cuda()
+    dprior = dict(prior_mean=darcy_p.prior.mean, prior_scale=darcy_p.prior.scale)
+    for recorded in (False, True):
+        kw = dict(dprior, **({"thin": 1} if recorded else {}))
+        compare_chain(
+            results, "fused_rwm_darcy_kernel", recorded,
+            lambda s: fused_rwm._launch(jacobi, pos_d, 0.01, 47, s, 256, **kw),
+            lambda s: fused_rwm._run_plain(jacobi._forward_plain, pos_d, 0.01, 47, s, 256,
+                                           **kw),
+            steps=4, kernel_long=68, plain_long=12,
+            variant="Darcy jacobi, 48 CG + whitened prior, block 256 (the runner's fused "
+                    "RWM branch on a Darcy config; no shipped config)",
+            paths=[], source="fused_rwm.cu", pots=(jacobi,),
+            per_step_ops=solve_ops(jacobi, False) + Ops((RNG_OPS_PER_DRAW + 4) * 64),
+            replaces=JAX_OPS + "284")
+
+    pot, scale, chol = lingauss_potential()
+    n, d = problems["lingauss_pcn"].n_chains, pot.K
+    U = (torch.randn(d, n, generator=gen).cuda() * scale[:, None]).contiguous()
+    compare_small_misfit(results, pot, U, variant="lingauss_pcn misfit, m = 16, d = 32",
+                         paths=["lingauss_pcn fused"], tol=LINEAR_TOL, source="fused_rwm.cu",
+                         replaces=JAX_OPS + "99",
+                         bound_row=bound(n * linear_ops(pot),
+                                         4 * n * (pot.K + 1) + constant_bytes(pot)))
+    pos_l = (torch.randn(n, d, generator=gen).cuda() * scale).contiguous()
+    zeros = torch.zeros(d, device="cuda")
+    for recorded in (False, True):
+        kw = {"thin": 1} if recorded else {}
+        compare_chain(
+            results, "fused_pcn_dense_kernel", recorded,
+            lambda s: fused_pcn_dense._launch(pot, pos_l, zeros, chol, 0.2, 53, s,
+                                              LINGAUSS_BLOCK, **kw),
+            lambda s: fused_pcn_dense._run_plain(pot._forward_plain, pos_l, zeros, chol,
+                                                 0.2, 53, s, LINGAUSS_BLOCK, **kw),
+            steps=20, kernel_long=420, plain_long=40,
+            variant=f"lingauss_pcn misfit, prior as a dense 32 x 32 Cholesky, block "
+                    f"{LINGAUSS_BLOCK}",
+            paths=["lingauss_pcn fused"], source="fused_pcn_dense.cu", pots=(pot,),
+            per_step_ops=linear_ops(pot) + Ops((RNG_OPS_PER_DRAW + 2 * d + 4) * d),
+            replaces=JAX_OPS + "653")
+
+    # K16: the step loop runs on the host (two launches a step), so a step's
+    # time is the slope over whole launches of the wrapper
+    args = lambda s: (pos_l, zeros, scale, 0.5, 59, s, 0.3, 0.5, LINGAUSS_BLOCK)  # noqa: E731
+    got = fused_pcn_adapt._launch(pot, *args(20))
+    ref = fused_pcn_adapt._run_plain(pot._forward_plain, *args(20))
+    torch.cuda.synchronize()
+    dev = (got[0] - ref[0]).abs().max(dim=1).values
+    frac = float((dev <= CHAIN_ATOL).double().mean())
+    beta_rel = float(((got[2] - ref[2]).abs() / ref[2]).max())
+    print(f"fused_pcn_adapt_kernel + pcn_adapt_update_kernel ({n} chains, 20 steps, block "
+          f"{LINGAUSS_BLOCK}): {frac:.4f} of chains within {CHAIN_ATOL}, beta max rel "
+          f"{beta_rel:.3e} (equal on {float((got[2] == ref[2]).double().mean()):.4f}), "
+          f"acceptance kernel {float(got[1].mean()):.4f} plain {float(ref[1].mean()):.4f}",
+          flush=True)
+    if (frac < MIN_CHAIN_FRAC or beta_rel > BETA_RTOL
+            or abs(float(got[1].mean()) - float(ref[1].mean())) > RATE_ATOL):
+        raise AssertionError("fused_pcn_adapt disagrees with its plain version")
+    ms = slope_ms(lambda s: fused_pcn_adapt._launch(pot, *args(s)), 20, 220, 3)
+    plain_ms = slope_ms(lambda s: fused_pcn_adapt._run_plain(pot._forward_plain, *args(s)),
+                        20, 40, 1)
+    row = {
+        "name": "fused_pcn_adapt_kernel", "variant": f"lingauss_pcn misfit, diagonal prior, "
+        f"block {LINGAUSS_BLOCK}", "route": "cuda", "source": SRC + "fused_pcn_adapt.cu",
+        "replaces": JAX_OPS + "520", "paths": ["lingauss_pcn fused"],
+        "max_abs_err": float(dev.max()), "frac_chains_within_atol": frac,
+        "beta_max_rel_err": beta_rel, "ms": ms, "plain_ms": plain_ms,
+        "ms_unit": ("one step, both launches and the host loop: the slope between "
+                    "launches of 20 and 220 steps (plain: 20 and 40)"),
+        **chain_bound((pot,), n, d, linear_ops(pot) + Ops((RNG_OPS_PER_DRAW + 4) * d + 8),
+                      False),
+        "library_ms": None,
+    }
+    print(f"  one step at full width: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']})", flush=True)
+    results.append(row)
+
+    # the update kernel alone, on this run's acceptance probabilities: from
+    # the same p, log beta to the bit
+    p = torch.rand(n, generator=gen).cuda()
+    lb0 = torch.full((n // LINGAUSS_BLOCK,), fused_pcn_adapt.initial_log_beta(0.5),
+                     device="cuda")
+    gamma, target = fused_pcn_adapt.gain_at(0.5, 3), 0.3
+    lb, beta = lb0.clone(), torch.empty(n, device="cuda")
+    fused_pcn_adapt._update_kernel(p, lb, beta, LINGAUSS_BLOCK, gamma, target)
+    lb_ref, beta_ref = fused_pcn_adapt._update_plain(p, lb0, LINGAUSS_BLOCK, gamma, target)
+    torch.cuda.synchronize()
+    b_rel = float(((beta - beta_ref).abs() / beta_ref).max())
+    print(f"pcn_adapt_update_kernel ({n // LINGAUSS_BLOCK} blocks of {LINGAUSS_BLOCK}): "
+          f"log beta equal bits {bool(torch.equal(lb, lb_ref))}, beta max rel {b_rel:.3e}",
+          flush=True)
+    if not torch.equal(lb, lb_ref) or b_rel > 2.4e-7:
+        raise AssertionError("pcn_adapt_update_kernel disagrees with its plain version")
+    # in place, call after call: the values drift, the work does not
+    ms = cuda_time_ms(lambda: fused_pcn_adapt._update_kernel(
+        p, lb, beta, LINGAUSS_BLOCK, gamma, target), 200)
+    plain_ms = cuda_time_ms(
+        lambda: fused_pcn_adapt._update_plain(p, lb0, LINGAUSS_BLOCK, gamma, target), 20)
+    nb = n // LINGAUSS_BLOCK
+    row = {
+        "name": "pcn_adapt_update_kernel", "variant": f"{nb} blocks of {LINGAUSS_BLOCK}",
+        "route": "cuda", "source": SRC + "fused_pcn_adapt.cu", "replaces": JAX_OPS + "552",
+        "paths": ["lingauss_pcn fused"], "max_abs_err": float((beta - beta_ref).abs().max()),
+        "ms": ms, "plain_ms": plain_ms, "ms_unit": "one call",
+        **bound(Ops(n + 8 * nb), 4 * (2 * n + 2 * nb)), "library_ms": None,
+    }
+    print(f"  one call: {ms:.5f} ms, plain {plain_ms:.4f} ms, bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']})", flush=True)
+    results.append(row)
+
+
+def drive_phase(name, kernels, fn):
+    """Counts to 0, ``fn()``, counts read: every kernel of ``kernels``
+    launched, no plain version run. Returns (counts, what ``fn`` returns)."""
+    from ip_mcmc_tpu_torch.ops import _build
+
+    _build.launch_counts.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    print(f"{name} launch counts: " + json.dumps(counts), flush=True)
+    for k in kernels:
+        if counts.get(k, 0) < 1:
+            raise AssertionError(f"{k} was not launched by {name}")
+    plain = {k: v for k, v in counts.items() if "plain" in k and v}
+    if plain:
+        raise AssertionError(f"plain versions ran on {name}: {plain}")
+    return counts, out
+
+
+def run_compare_paths():
+    """benchmarks/compare_paths.py on the port: the fused RWM kernel, then
+    the scan path, each at 8192 chains x 2000 steps (seed 0 first, then the
+    timed seed-1 launch, as that script does); the chains' moments against
+    the target's."""
+    from ip_mcmc_tpu_torch import driver
+    from ip_mcmc_tpu_torch.kernels import rwm
+    from ip_mcmc_tpu_torch.ops import fused_rwm
+
+    pot = compare_paths_potential()
+    zeros = torch.zeros(CP_CHAINS, 2, device="cuda")
+    fused = lambda seed: fused_rwm.fused_rwm_chain(  # noqa: E731
+        pot, zeros, 0.9, seed, n_steps=CP_STEPS, block_chains=CP_BLOCK)
+    fused(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, acc = fused(1)
+    acc.cpu()
+    fused_s = time.perf_counter() - t0
+
+    mean = torch.tensor(CP_MEAN, device="cuda")
+    var = torch.tensor(CP_VAR, device="cuda")
+    logpi = lambda x: -0.5 * torch.sum((x - mean) ** 2 / var, dim=-1)  # noqa: E731
+    kernel = rwm.build_kernel(logpi, step_size=0.9)
+
+    def scan():
+        state = driver.init_chains(rwm.init, zeros, logpi)
+        g = torch.Generator("cuda").manual_seed(0)
+        state, _, _ = driver.sample_chains(kernel, state, g, n_samples=1,
+                                           burn_in=CP_STEPS - 1)
+        return state.position
+
+    scan()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan_pos = scan().cpu()
+    scan_s = time.perf_counter() - t0
+    fused_rate, scan_rate = CP_CHAINS * CP_STEPS / fused_s, CP_CHAINS * CP_STEPS / scan_s
+    print(f"compare_paths ({CP_CHAINS} chains x {CP_STEPS} steps): scan {scan_rate:,.0f} "
+          f"steps/s ({scan_s:.3f} s), fused {fused_rate:,.0f} steps/s ({fused_s:.4f} s), "
+          f"speedup {fused_rate / scan_rate:.2f}x (fused accept {float(acc.mean()):.3f})",
+          flush=True)
+    for x in (out.cpu(), scan_pos):
+        m, v = x.mean(0), x.var(0)
+        if (not bool(torch.isfinite(x).all())
+                or float((m - mean.cpu()).abs().max()) > 0.1
+                or float(((v - var.cpu()) / var.cpu()).abs().max()) > 0.1):
+            raise AssertionError(f"compare_paths chains off the target: mean {m}, var {v}")
+    return {"fused_steps_per_s": fused_rate, "scan_steps_per_s": scan_rate,
+            "fused_s": fused_s, "scan_s": scan_s, "accept_rate": float(acc.mean())}
+
+
+def run_gauss2d_fused(problem):
+    """gauss2d_rwm with the JAX config's phi_batched set by the caller, run
+    through the runner's fused RWM branch at the config's size."""
+    import dataclasses
+
+    from ip_mcmc_tpu_torch import configs, runner
+
+    p = dataclasses.replace(
+        problem, batched_potential_fn=configs.gauss2d_batched_potential().cuda(),
+        kernel_params={**problem.kernel_params, "fused": True})
+    m = runner.run_problem(p, "cuda")
+    print("gauss2d_rwm --fused metrics: " + json.dumps(m), flush=True)
+    assert m["kernel"] == "rwm(fused)" and m["n_chains"] == p.n_chains
+    assert 0.0 < m["accept_rate"] < 1.0 and math.isfinite(m["max_rhat"])
+    # the target is N(m, Σ) times the N(0, 10^2) prior: the mean moves ~1 %
+    err = max(abs(a - b) for a, b in zip(m["posterior_mean"], p.truth))
+    assert err < 0.1, f"gauss2d_rwm --fused posterior mean off by {err}"
+    return m
+
+
+def run_lingauss_fused(problem):
+    """lingauss_pcn fused: K16 adapts β over the config's burn-in, then K15
+    with the prior as a dense Cholesky and β frozen at the chains' mean:
+    500 steps more, then 1000 recorded; the posterior mean against the
+    conjugate one within Monte Carlo error."""
+    from ip_mcmc_tpu_torch import configs, diagnostics, ops
+    from ip_mcmc_tpu_torch.models import linear
+
+    pot, scale, chol = lingauss_potential()
+    n, d = problem.n_chains, problem.dim
+    zeros = torch.zeros(d, device="cuda")
+    pos = problem.init_positions(torch.Generator().manual_seed(61), n).cuda()
+    t0 = time.perf_counter()
+    pos, acc, beta = ops.fused_pcn_chain_adapt(
+        pot, pos, zeros, scale, problem.kernel_params["beta"], 61,
+        n_steps=problem.burn_in, target_accept=0.234, block_chains=LINGAUSS_BLOCK)
+    b = float(beta.mean())
+    burn_s = time.perf_counter() - t0
+    pos, _ = ops.fused_pcn_chain_dense(pot, pos, zeros, chol, b, 62,
+                                       n_steps=LINGAUSS_BURN, block_chains=LINGAUSS_BLOCK)
+    t0 = time.perf_counter()
+    _, acc_s, samples = ops.fused_pcn_chain_dense_recorded(
+        pot, pos, zeros, chol, b, 63, n_steps=LINGAUSS_SAMPLES, thin=1,
+        block_chains=LINGAUSS_BLOCK)
+    acc_s.cpu()
+    run_s = time.perf_counter() - t0
+    summ = diagnostics.summarize(samples)
+    A, lam, y, sigma = configs.lingauss_arrays()
+    exact, cov = linear.conjugate_posterior(A, np.zeros(d), lam, sigma**2 * np.ones(len(y)), y)
+    got = summ["mean"].cpu().numpy()
+    se = np.sqrt(np.diag(cov) / summ["ess"].cpu().numpy())
+    z = float(np.max(np.abs(got - exact) / se))
+    out = {"beta": b, "burn_accept_rate": float(acc.mean()), "burn_s": burn_s,
+           "accept_rate": float(acc_s.mean()), "run_s": run_s,
+           "steps_per_s": n * LINGAUSS_SAMPLES / run_s,
+           "min_ess": float(summ["min_ess"]), "max_rhat": float(summ["max_rhat"]),
+           "mean_error_vs_exact": float(np.max(np.abs(got - exact))),
+           "max_z_vs_exact": z}
+    print("lingauss_pcn fused (K16 burn-in, K15 sampling): " + json.dumps(out), flush=True)
+    if not (0.0 < b < 1.0 and 0.1 < out["accept_rate"] < 0.5 and z < 6.0):
+        raise AssertionError(f"lingauss_pcn fused is off the conjugate posterior: {out}")
+    return out
+
+
 # --- the CLI runs ---------------------------------------------------------------
 
 # config -> (CLI flags, kernels the run must launch)
@@ -815,7 +1158,12 @@ PATHS = {
     "burgers_multitime_pcn": (["--fused"], (
         "burgers_misfit_kernel[n=128,steps=54+54+46]", "fused_pcn_burgers_kernel<false>",
         "fused_pcn_burgers_kernel<true>")),
+    # the scan path: plain PyTorch on the card, no kernel of the port; the
+    # scan steps count themselves by the device they ran on
+    "gauss2d_rwm": ([], ("scan_rwm_step[cuda]",)),
+    "lingauss_pcn": ([], ("scan_pcn_step[cuda]",)),
 }
+SCAN_PATHS = ("gauss2d_rwm", "lingauss_pcn")
 
 
 def run_cli(config, flags, n_samples):
@@ -845,7 +1193,8 @@ def drive_path(config, problem, n_samples):
     for name in kernels:
         if counts.get(name, 0) < 1:
             raise AssertionError(f"{name} was not launched by {config}")
-    plain = {k: v for k, v in counts.items() if "plain" in k and v}
+    plain = {k: v for k, v in counts.items()
+             if ("plain" in k or k.endswith("[cpu]")) and v}
     if plain:
         raise AssertionError(f"plain versions ran on {config}: {plain}")
     assert metrics["n_chains"] == problem.n_chains
@@ -873,6 +1222,11 @@ def drive_path(config, problem, n_samples):
         assert 0.0 < metrics[key] <= 1.0, f"{key} = {metrics[key]}"
     assert all(math.isfinite(v) for v in metrics["posterior_mean"])
     assert len(metrics["posterior_mean"]) == problem.dim
+    if config in SCAN_PATHS:  # the JAX one-dispatch keys
+        assert metrics["program_count"] == 1 and metrics["sampling_steps_per_s"] > 0.0
+        assert ("mean_error_vs_exact" in metrics) == (config == "lingauss_pcn")
+        err = max(abs(a - b) for a, b in zip(metrics["posterior_mean"], problem.truth))
+        assert err < 0.1, f"{config}: posterior mean off the closed form by {err}"
     return counts
 
 
@@ -902,9 +1256,25 @@ def main() -> int:
     check_single_level(problems, gen, results)
     check_gradient_and_ensemble(problems, gen, results)
     check_burgers(problems, gen, results)
+    check_linear_family(problems, gen, results)
 
-    # the eleven paths, as shipped unless their predicted time exceeds the
-    # budget: then every path's n_samples is cut by the same factor
+    # the fused linear-Gaussian paths, each with the counts set to 0 before it
+    counts = {}
+    counts["compare_paths"], compare_paths = drive_phase(
+        "compare_paths", ("fused_rwm_kernel<false>", "scan_rwm_step[cuda]"),
+        run_compare_paths)
+    counts["gauss2d_rwm --fused"], _ = drive_phase(
+        "gauss2d_rwm --fused", ("fused_rwm_kernel<false>", "fused_rwm_kernel<true>"),
+        lambda: run_gauss2d_fused(problems["gauss2d_rwm"]))
+    counts["lingauss_pcn fused"], _ = drive_phase(
+        "lingauss_pcn fused",
+        ("linear_gaussian_misfit_kernel", "fused_pcn_adapt_kernel", "pcn_adapt_update_kernel",
+         "fused_pcn_dense_kernel<false>", "fused_pcn_dense_kernel<true>"),
+        lambda: run_lingauss_fused(problems["lingauss_pcn"]))
+
+    # the eleven fused CLI paths, as shipped unless their predicted time
+    # exceeds the budget: then every path's n_samples is cut by the same
+    # factor; the two scan paths (host-bound, a few seconds) as shipped
     step_ms = {
         "darcy_da_fused": "fused_da_pcn_kernel<true>",
         "darcy_pcn_warm": "fused_pcn_warm_kernel<true>",
@@ -923,13 +1293,14 @@ def main() -> int:
                for cfg, k in step_ms.items()}
     steps = lambda p, ns: p.burn_in + 2 * ns * p.thin
     predicted = sum(steps(p, p.n_samples) * step_ms[c] / 1e3
-                    for c, p in problems.items())
+                    for c, p in problems.items() if c in step_ms)
     cut = min(1.0, RUN_BUDGET_S / predicted)
-    print(f"predicted device time of the eleven runs as shipped: {predicted:.1f} s",
+    print(f"predicted device time of the eleven fused runs as shipped: {predicted:.1f} s",
           flush=True)
-    counts = {}
     for config, problem in problems.items():
-        n_samples = max(8, int(problem.n_samples * cut))
+        n_samples = problem.n_samples
+        if config not in SCAN_PATHS:
+            n_samples = max(8, int(problem.n_samples * cut))
         if n_samples != problem.n_samples:
             print(f"{config}: n_samples cut from {problem.n_samples} to "
                   f"{n_samples} to fit the time limit (width unchanged: "
@@ -943,7 +1314,7 @@ def main() -> int:
         if r["paths"] and r["launches"] < 1:
             raise AssertionError(f"{r['name']} was launched by none of {r['paths']}")
 
-    print(json.dumps({"kernels": results, "card": card}))
+    print(json.dumps({"kernels": results, "card": card, "compare_paths": compare_paths}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

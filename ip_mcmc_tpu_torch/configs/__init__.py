@@ -5,12 +5,15 @@ Ported so far: on the 16×16 Darcy problem ``darcy_da_fused``,
 ``darcy_ess_fused``, ``darcy_fes_fused``, ``darcy_mala_fused`` and
 ``darcy_mala_warm``; on the 128-cell Burgers initial-data inversion
 ``burgers_pcn`` and ``burgers_multitime_pcn`` (their fused paths),
-``burgers_da_pcn`` and ``burgers_da3_pcn``. The deterministic constants
-(KL bases, means, observation cells, sources, time steps, preconditioner
-factors) are computed here in numpy; the arrays the JAX configs draw with
-JAX keys (the data, the truths, the surrogates' calibrations) are read
-from the committed fixtures ``darcy16_da.npz`` and ``burgers128.npz``
-(written by ``scripts/freeze_torch_fixtures.py``).
+``burgers_da_pcn`` and ``burgers_da3_pcn``; on the scan path BASELINE
+configs 1 and 2, ``gauss2d_rwm`` (RWM on a 2-D Gaussian) and
+``lingauss_pcn`` (pCN on a linear-Gaussian inverse problem). The
+deterministic constants (KL bases, means, observation cells, sources, time
+steps, preconditioner factors, the numpy-drawn forward matrix) are computed
+here in numpy; the arrays the JAX configs draw with JAX keys (the data, the
+truths, the surrogates' calibrations) are read from the committed fixtures
+``darcy16_da.npz``, ``burgers128.npz`` and ``lingauss32.npz`` (written by
+``scripts/freeze_torch_fixtures.py``).
 """
 
 from __future__ import annotations
@@ -23,16 +26,19 @@ import numpy as np
 import torch
 
 from ip_mcmc_tpu_torch import distributions as dist
+from ip_mcmc_tpu_torch import potentials
 from ip_mcmc_tpu_torch.convert import (
     burgers_misfit_from_arrays,
     darcy_mala_warm_misfit_from_arrays,
     darcy_misfit_from_arrays,
     darcy_warm_misfit_from_arrays,
+    linear_gaussian_from_arrays,
 )
-from ip_mcmc_tpu_torch.models import burgers, darcy, kl
+from ip_mcmc_tpu_torch.models import burgers, darcy, kl, linear
 
 FIXTURE = pathlib.Path(__file__).resolve().parent / "darcy16_da.npz"
 BURGERS_FIXTURE = pathlib.Path(__file__).resolve().parent / "burgers128.npz"
+LINGAUSS_FIXTURE = pathlib.Path(__file__).resolve().parent / "lingauss32.npz"
 
 
 @dataclasses.dataclass
@@ -40,7 +46,7 @@ class Problem:
     name: str
     dim: int
     prior: dist.DiagGaussian
-    kernel: str
+    kernel: str  # rwm | pcn | elliptical | da_pcn | fes | mala
     kernel_params: dict
     n_chains: int
     n_samples: int
@@ -49,12 +55,19 @@ class Problem:
     data: Optional[np.ndarray] = None
     truth: Optional[np.ndarray] = None
     notes: str = ""
+    # the scan path's Φ: (n, d) -> (n,), chains first (None: the config's
+    # single-particle forward model is not ported)
+    potential_fn: Optional[Callable] = None
     batched_potential_fn: Optional[Callable] = None  # (d, B) -> (B,)
     batched_surrogate_fn: Optional[Callable] = None  # fused da_pcn Φ*
     batched_mid_fn: Optional[Callable] = None  # 3-level DA middle level
     # fused warm pCN: (module (U, x0) -> (Φ, x), aux_dim); fused warm MALA:
     # (module (U, aux0) -> (Φ, ∇Φ, aux), aux_dim)
     batched_warm_potential: Optional[tuple] = None
+
+    @property
+    def log_density_fn(self):
+        return potentials.posterior_log_density(self.potential_fn, self.prior)
 
     def init_positions(self, generator: torch.Generator, n=None):
         """(n, d) prior draws from ``generator`` (host-side, so a seed gives
@@ -76,6 +89,89 @@ def build(name: str, device) -> Problem:
     if name not in REGISTRY:
         raise KeyError(f"unknown config '{name}'; have {sorted(REGISTRY)}")
     return REGISTRY[name](torch.device(device))
+
+
+# --- the analytic and linear-Gaussian configs (the scan path) -----------------
+
+GAUSS2D_MEAN = np.array([1.0, -0.5], np.float32)
+GAUSS2D_COV = np.array([[2.0, 0.8], [0.8, 1.0]], np.float32)
+
+
+@register
+def gauss2d_rwm(device) -> Problem:
+    """BASELINE config 1: RWM, 2D Gaussian posterior, analytic likelihood."""
+    mean = torch.tensor(GAUSS2D_MEAN, device=device)
+    target = dist.Gaussian.from_covariance(mean, torch.tensor(GAUSS2D_COV))
+    prior = dist.DiagGaussian(mean=torch.zeros(2, device=device),
+                              scale=10.0 * torch.ones(2, device=device))
+    return Problem(
+        name="gauss2d_rwm",
+        dim=2,
+        prior=prior,
+        kernel="rwm",
+        kernel_params={"step_size": 1.0, "adapt": True},
+        n_chains=1024,
+        n_samples=1000,
+        burn_in=500,
+        truth=GAUSS2D_MEAN.copy(),
+        notes="analytic target; truth = exact posterior mean (≈, flat prior)",
+        potential_fn=potentials.analytic_potential(target.log_prob),
+    )
+
+
+def gauss2d_batched_potential():
+    """The JAX config's ``phi_batched``, ½ (U − m)ᵀ Σ⁻¹ (U − m) for a
+    (2, B) batch, as a ``LinearGaussianPotential``: A = Lᵀ with Σ⁻¹ = L Lᵀ,
+    c = m, y = 0, σ = 1. The JAX config builds that closure and attaches it
+    to nothing, so ``gauss2d_rwm`` has no batched potential; a caller sets
+    this one as ``batched_potential_fn`` (with ``fused``) to run the fused
+    RWM branch on the same target."""
+    prec = np.linalg.inv(GAUSS2D_COV.astype(np.float64))
+    return linear_gaussian_from_arrays(np.linalg.cholesky(prec).T, np.zeros(2),
+                                       1.0, center=GAUSS2D_MEAN)
+
+
+def lingauss_arrays():
+    """The constants of ``lingauss_pcn``: A (16, 32) from
+    ``default_rng(42)``, the prior's KL spectrum λ (32,), y (16,) (frozen:
+    drawn with JAX keys 100 and 101) and the noise scale."""
+    d, m = 32, 16
+    lam = kl.laplacian_eigenvalues(d, alpha=1.0, scale=4.0)
+    rng = np.random.default_rng(42)
+    A = (rng.standard_normal((m, d)) / np.sqrt(d)).astype(np.float32)
+    return A, lam, np.load(LINGAUSS_FIXTURE)["y"], 0.05
+
+
+@register
+def lingauss_pcn(device) -> Problem:
+    """BASELINE config 2: pCN, linear-Gaussian IP, KL-truncated GP prior."""
+    A, lam, y, sigma = lingauss_arrays()
+    m, d = A.shape
+    prior = dist.gaussian_kl_prior(lam, device=device)
+    noise = dist.DiagGaussian(mean=torch.zeros(m, device=device),
+                              scale=sigma * torch.ones(m, device=device))
+    phi = potentials.misfit_potential(
+        linear.make_forward(torch.tensor(A, device=device)),
+        torch.tensor(y, device=device), noise)
+    exact_mean, _ = linear.conjugate_posterior(A, np.zeros(d), lam,
+                                               sigma**2 * np.ones(m), y)
+    return Problem(
+        name="lingauss_pcn",
+        dim=d,
+        prior=prior,
+        kernel="pcn",
+        kernel_params={"beta": 0.2, "adapt": True},
+        n_chains=2048,
+        n_samples=1000,
+        burn_in=500,
+        data=y,
+        truth=exact_mean,
+        notes="closed-form posterior available (conjugate)",
+        potential_fn=phi,
+    )
+
+
+# --- the Darcy coefficient inversion ------------------------------------------
 
 
 def _darcy_problem(device):

@@ -17,6 +17,10 @@ gradient of ``differentiable=True`` is always there
 ``ip_mcmc_tpu.models.burgers.make_batched_misfit`` — that package's aux dict
 or ``models.burgers.burgers_aux``'s, the data and a scalar or
 per-observation noise scale — and returns the port's ``BurgersMisfit``.
+
+``linear_gaussian_from_arrays`` takes A (m, d), y (m,), a scalar or
+per-row σ and an optional center c (d,) and returns the
+``LinearGaussianPotential`` ½‖(y − A(U − c))/σ‖².
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 
 from ip_mcmc_tpu_torch.models.burgers import BurgersMisfit
+from ip_mcmc_tpu_torch.models.linear import LinearGaussianPotential
 from ip_mcmc_tpu_torch.models.darcy import (
     DarcyMisfit,
     DarcyMisfitMalaWarm,
@@ -85,4 +90,13 @@ def burgers_misfit_from_arrays(aux, data, noise_scale) -> BurgersMisfit:
         dt=float(aux["dt"]),
         segment_steps=[int(s) for s in
                        aux.get("segment_steps", [aux["n_steps"]])],
+    )
+
+
+def linear_gaussian_from_arrays(A, data, noise_scale,
+                                center=None) -> LinearGaussianPotential:
+    return LinearGaussianPotential(
+        np.asarray(A, np.float32), np.asarray(data, np.float32),
+        np.asarray(noise_scale, np.float32),
+        None if center is None else np.asarray(center, np.float32),
     )

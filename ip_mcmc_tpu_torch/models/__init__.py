@@ -1,1 +1,1 @@
-"""Forward models of the port (Darcy only in this slice)."""
+"""Forward models of the port: Darcy, Burgers, and the linear model."""

@@ -113,7 +113,7 @@ class BurgersMisfit(nn.Module):
                  n_cells: int, dt: float, segment_steps):
         super().__init__()
         n = int(n_cells)
-        basis = np.asarray(scaled_basis, np.float32)
+        basis = np.ascontiguousarray(scaled_basis, np.float32)  # read row-major by the kernel
         mean = np.asarray(mean, np.float32).reshape(-1)
         if basis.ndim != 2 or basis.shape[1] != n or mean.shape != (n,):
             raise ValueError(

@@ -109,7 +109,7 @@ class DarcyMisfit(nn.Module):
                 f"precond must be one of {self.PRECONDS}, got {precond!r}"
             )
         n = int(n_grid)
-        basis = np.asarray(scaled_basis, np.float32)
+        basis = np.ascontiguousarray(scaled_basis, np.float32)  # read row-major by the kernel
         if basis.shape[1] != n * n:
             raise ValueError(f"basis {basis.shape} does not match n_grid {n}")
         obs = np.asarray(obs_indices).reshape(-1)

@@ -1,6 +1,7 @@
 """Karhunen–Loève pieces of the priors (mirrors ``ip_mcmc_tpu/models/kl.py``:
 ``sine_basis_2d`` and ``laplacian_eigenvalues_2d`` for Darcy,
-``fourier_basis`` for Burgers). Pure numpy: these are build-time constants."""
+``fourier_basis`` for Burgers, ``laplacian_eigenvalues`` for the
+linear-Gaussian problem). Pure numpy: these are build-time constants."""
 
 from __future__ import annotations
 
@@ -18,6 +19,13 @@ def fourier_basis(n_modes: int, grid: np.ndarray) -> np.ndarray:
             rows.append(np.sqrt(2.0) * np.sin(2.0 * np.pi * j * grid))
         j += 1
     return np.stack(rows[:n_modes])
+
+
+def laplacian_eigenvalues(n_modes: int, alpha: float = 2.0, scale: float = 1.0):
+    """λ_k = scale · (πk)^(−2α), k = 1..n: the KL spectrum of
+    C = scale·(−Δ)^(−α)."""
+    k = np.arange(1, n_modes + 1)
+    return scale * (np.pi * k) ** (-2.0 * alpha)
 
 
 def sine_basis_2d(n_modes_per_dim: int, n_grid: int):

@@ -28,6 +28,15 @@ from ip_mcmc_tpu_torch.ops.fused_pcn import (
     fused_pcn_chain_warm,
     fused_pcn_chain_warm_recorded,
 )
+from ip_mcmc_tpu_torch.ops.fused_pcn_adapt import fused_pcn_chain_adapt
+from ip_mcmc_tpu_torch.ops.fused_pcn_dense import (
+    fused_pcn_chain_dense,
+    fused_pcn_chain_dense_recorded,
+)
+from ip_mcmc_tpu_torch.ops.fused_rwm import (
+    fused_rwm_chain,
+    fused_rwm_chain_recorded,
+)
 
 __all__ = [
     "fused_da3_pcn_chain",
@@ -43,7 +52,12 @@ __all__ = [
     "fused_mala_chain_warm",
     "fused_mala_chain_warm_recorded",
     "fused_pcn_chain",
+    "fused_pcn_chain_adapt",
+    "fused_pcn_chain_dense",
+    "fused_pcn_chain_dense_recorded",
     "fused_pcn_chain_recorded",
     "fused_pcn_chain_warm",
     "fused_pcn_chain_warm_recorded",
+    "fused_rwm_chain",
+    "fused_rwm_chain_recorded",
 ]

@@ -10,7 +10,8 @@ here runs at import.
 
 Also home of the launch counters: each wrapper adds one to its kernel's
 count where it launches the kernel, and each plain version to its own
-count, so a run can show which path it went through.
+count, so a run can show which path it went through. The scan path, which
+has no kernel, counts its steps by device (``scan_rwm_step[cuda]``).
 """
 
 from __future__ import annotations
@@ -88,6 +89,19 @@ class BurgersSpec(ctypes.Structure):
         ("n_segments", ctypes.c_int),
         ("seg_steps", ctypes.c_int * 8),  # IPX_MAX_SEGMENTS
         ("half_dt_over_h", ctypes.c_float),
+    ]
+
+
+class GaussianSpec(ctypes.Structure):
+    """Mirror of ``IpxGaussianSpec`` in ``csrc/gaussian_potential.cuh``."""
+
+    _fields_ = [
+        ("At", ctypes.c_void_p),
+        ("center", ctypes.c_void_p),
+        ("data", ctypes.c_void_p),
+        ("noise", ctypes.c_void_p),
+        ("m", ctypes.c_int),
+        ("K", ctypes.c_int),
     ]
 
 
@@ -189,6 +203,7 @@ def library():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         spec, chain = ctypes.POINTER(MisfitSpec), ctypes.POINTER(ChainArgs)
         bspec = ctypes.POINTER(BurgersSpec)
+        gspec = ctypes.POINTER(GaussianSpec)
         # spec, U (K, B), B, Φ (B,), stream
         lib.bind("ipx_darcy_misfit", [spec, p, i, p, p])
         # spec, U (K, B), x0 (n², B), B, Φ (B,), x (n², B), stream
@@ -219,6 +234,19 @@ def library():
         # k_inner, k_mid, middle acceptance (n,), stream
         lib.bind("ipx_fused_da3_pcn_burgers",
                  [bspec, bspec, bspec, chain, p, p, p, f, f, i, i, p, p])
+        # the linear-Gaussian potential: spec, U (d, B), B, Φ (B,), stream
+        lib.bind("ipx_linear_gaussian_misfit", [gspec, p, i, p, p])
+        # spec, chain, step size, prior (0 / 1), stream
+        lib.bind("ipx_fused_rwm", [gspec, chain, f, i, p])
+        lib.bind("ipx_fused_rwm_darcy", [spec, chain, f, i, p])
+        # spec, chain, Lᵀ (d, d), β, √(1−β²), stream
+        lib.bind("ipx_fused_pcn_dense", [gspec, chain, p, f, f, p])
+        # spec, chain (state in place), Φ (n,), acceptance count (n,),
+        # acceptance probability (n,), log β per block, step, stream
+        lib.bind("ipx_fused_pcn_adapt", [gspec, chain, p, p, p, p, i, p])
+        # acceptance probability (n,), log β per block, β (n,), n,
+        # block_chains, γ_i, target, log 1e-4, log 0.999, stream
+        lib.bind("ipx_pcn_adapt_update", [p, p, p, i, i, f, f, f, f, p])
         lib.bind("ipx_error_string", [i], ctypes.c_char_p)
         _lib = lib
     return _lib

@@ -119,23 +119,26 @@ def run_plain(step_builder, potential_fn, positions, params, seed, n_steps,
 
 
 def require_family(pots: dict, families=("darcy",), warm=False) -> str:
-    """The family of a launch's potentials, ``"darcy"`` or ``"burgers"``.
+    """The family of a launch's potentials, ``"darcy"``, ``"burgers"`` or
+    ``"linear"``.
 
     A CUDA kernel cannot inline a Python callable: it is compiled per
     family of misfit module, and every potential of one launch is of one
     family. ``pots`` maps argument names to potentials; ``families`` are
     those the kernel is instantiated for. Cold samplers (``warm`` False)
-    take a ``DarcyMisfit`` or a ``BurgersMisfit``, warm pCN (True) a
-    ``DarcyMisfitWarm``, warm MALA (``"mala"``) a ``DarcyMisfitMalaWarm``.
-    Raises ``TypeError`` for anything else and for a mixed launch."""
+    take a ``DarcyMisfit``, a ``BurgersMisfit`` or a
+    ``LinearGaussianPotential``, warm pCN (True) a ``DarcyMisfitWarm``, warm
+    MALA (``"mala"``) a ``DarcyMisfitMalaWarm``. Raises ``TypeError`` for
+    anything else and for a mixed launch."""
     # imported here: the models import ops._build
-    from ip_mcmc_tpu_torch.models import burgers, darcy
+    from ip_mcmc_tpu_torch.models import burgers, darcy, linear
 
     carried = (darcy.DarcyMisfitWarm, darcy.DarcyMisfitMalaWarm)
     if warm:
         classes = {"darcy": carried[1] if warm == "mala" else carried[0]}
     else:
-        classes = {"burgers": burgers.BurgersMisfit, "darcy": darcy.DarcyMisfit}
+        classes = {"burgers": burgers.BurgersMisfit, "darcy": darcy.DarcyMisfit,
+                   "linear": linear.LinearGaussianPotential}
     classes = {f: classes[f] for f in sorted(families)}
     wanted = " or ".join(c.__name__ for c in classes.values())
     found = {}

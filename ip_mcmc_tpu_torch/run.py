@@ -1,6 +1,7 @@
 """CLI entry: ``python -m ip_mcmc_tpu_torch.run --config darcy_da_fused``
 (``--list`` names the configs; ``darcy_pcn_4096``, ``burgers_pcn`` and
-``burgers_multitime_pcn`` need ``--fused``).
+``burgers_multitime_pcn`` need ``--fused``; ``gauss2d_rwm`` and
+``lingauss_pcn`` run the scan path).
 
 Prints one JSON line of metrics (the keys of ``ip_mcmc_tpu.run``). Runs on
 the card by default; ``--device cpu`` runs the kernels' plain versions.
@@ -26,8 +27,10 @@ def main(argv=None):
                     help="'cuda' (default; fails without a card) or 'cpu'")
     ap.add_argument(
         "--fused", action="store_true",
-        help="use the fully fused path (pCN configs with a batched "
-        "potential: darcy_pcn_4096, burgers_pcn, burgers_multitime_pcn)",
+        help="use the fully fused path (the pCN configs whose scan path "
+        "is not ported: darcy_pcn_4096, burgers_pcn, burgers_multitime_pcn; "
+        "the other fused configs set it themselves, and gauss2d_rwm and "
+        "lingauss_pcn have no batched potential and run the scan path)",
     )
     ap.add_argument("--list", action="store_true", help="list configs and exit")
     args = ap.parse_args(argv)

@@ -1,30 +1,38 @@
-"""Problem runner: config → burn-in launch → recorded sampling launch →
-diagnostics (mirrors ``ip_mcmc_tpu/runner.py``: ``run_problem``,
-``_run_fused_mcmc``'s ``da_pcn`` (two- and three-level), ``pcn`` (cold and
-warm), ``elliptical``, ``fes`` and ``mala`` (cold and warm) branches,
-``_resolve_n_low_modes``, ``_finalize``). Returns the JAX runner's JSON-able metrics dict, key for
-key.
+"""Problem runner: config → (warm-up) → sampling → diagnostics (mirrors
+``ip_mcmc_tpu/runner.py``: ``run_problem``; ``_run_fused_mcmc``'s ``da_pcn``
+(two- and three-level), ``pcn`` (cold and warm), ``elliptical``, ``fes``,
+``mala`` (cold and warm) and ``rwm`` branches; the scan path's
+``_setup_kernel_state`` (``rwm``, ``pcn``) and ``_run_one_dispatch``;
+``_resolve_n_low_modes``, ``_finalize``). Returns the JAX runner's
+JSON-able metrics dict, key for key.
 
-Timing protocol (as the JAX runner's): the burn launch uses seed 1 and
-is timed as ``warmup_s`` (on the card it also pays the kernels' build at
-first use); the recorded launch uses seed 2 and runs twice — the first
+Fused timing protocol (as the JAX runner's): the burn launch uses seed 1
+and is timed as ``warmup_s`` (on the card it also pays the kernels' build
+at first use); the recorded launch uses seed 2 and runs twice — the first
 call builds and runs, the identical second call is timed as ``run_s``, and
 the difference is ``compile_s``. ``first_dispatch_s`` is the time of the
-first device synchronisation.
+first device synchronisation. The scan path's protocol is
+``_run_one_dispatch``'s.
 """
 
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
-from ip_mcmc_tpu_torch import diagnostics
-from ip_mcmc_tpu_torch import ops
+from ip_mcmc_tpu_torch import diagnostics, driver, ops
+from ip_mcmc_tpu_torch.adapt import warmup_pcn, warmup_rwm
+from ip_mcmc_tpu_torch.kernels import pcn, rwm
 from ip_mcmc_tpu_torch.ops.fused_fes import choose_n_low_modes
 
 # metric keys that name wall-time phases (attribution in _finalize)
-_PHASE_KEYS = ("warmup_s", "compile_s", "first_dispatch_s", "run_s", "diag_s")
+_PHASE_KEYS = ("warmup_s", "trace_s", "compile_s", "first_dispatch_s", "run_s",
+               "diag_s")
+# the kernels with a fused path, and those with a scan path
+FUSED_KERNELS = ("pcn", "elliptical", "da_pcn", "fes", "mala", "rwm")
+SCAN_KERNELS = ("rwm", "pcn")
 
 
 def _barrier(device):
@@ -86,9 +94,9 @@ def _resolve_n_low_modes(kp, problem):
 def _run_fused_mcmc(problem, generator, n_chains, n_samples, device):
     """The fused path: burn-in launch + recorded sampling launch,
     diagnostics on the recorded series. pCN, ESS and the ensemble sampler
-    are prior-reversible and consume the data misfit alone; MALA targets
-    the full posterior, so the whitened prior goes to the sampler, which
-    folds it in."""
+    are prior-reversible and consume the data misfit alone; MALA and RWM
+    target the full posterior, so the whitened prior goes to the sampler,
+    which adds it in its step."""
     kp = dict(problem.kernel_params)
     block = min(int(kp.get("block_chains", 512)), n_chains)
     run_kw = dict(prior_mean=problem.prior.mean,
@@ -147,6 +155,11 @@ def _run_fused_mcmc(problem, generator, n_chains, n_samples, device):
             chain_rec = ops.fused_pcn_chain_warm_recorded
         else:
             chain, chain_rec = ops.fused_pcn_chain, ops.fused_pcn_chain_recorded
+    elif problem.kernel == "rwm":
+        # misfit + prior, as the JAX runner's phi_full; kernel_params["adapt"]
+        # is ignored here, as on the JAX fused path
+        run_kw["step_size"] = kp.get("step_size", 0.05)
+        chain, chain_rec = ops.fused_rwm_chain, ops.fused_rwm_chain_recorded
     else:
         raise NotImplementedError(
             f"config {problem.name}: fused '{problem.kernel}' is not ported"
@@ -221,23 +234,138 @@ def _run_fused_mcmc(problem, generator, n_chains, n_samples, device):
     }
 
 
+# --- the scan path -------------------------------------------------------------
+
+
+def _setup_kernel_state(problem, positions, generator):
+    """(kernel, state, warm_steps) of the scan path. With
+    ``kernel_params["adapt"]`` the warm-up (``problem.burn_in`` steps,
+    drawn from ``generator``) replaces the burn-in, and ``warm_steps``
+    counts its chain steps."""
+    kp = dict(problem.kernel_params)
+    adapt = kp.pop("adapt", False)
+    kp.pop("fused", None)
+    kp.pop("block_chains", None)
+    warm_steps = 0
+    if problem.kernel == "rwm":
+        logpi = problem.log_density_fn
+        state = driver.init_chains(rwm.init, positions, logpi)
+        if adapt:
+            warm_steps += problem.burn_in or 300
+            state, step_size, chol = warmup_rwm(
+                logpi, state, generator, num_steps=problem.burn_in or 300,
+                initial_step_size=kp.get("step_size", 0.5))
+            kernel = rwm.build_kernel(logpi, step_size=step_size, scale=chol)
+        else:
+            kernel = rwm.build_kernel(logpi, **kp)
+    elif problem.kernel == "pcn":
+        phi, prior = problem.potential_fn, problem.prior
+        state = driver.init_chains(pcn.init, positions, phi)
+        if adapt:
+            warm_steps += problem.burn_in or 300
+            state, beta = warmup_pcn(
+                phi, prior, state, generator, num_steps=problem.burn_in or 300,
+                initial_beta=kp.get("beta", 0.2))
+            kernel = pcn.build_kernel(phi, prior, beta=beta)
+        else:
+            kernel = pcn.build_kernel(phi, prior, **kp)
+    else:
+        raise ValueError(f"unknown scan kernel {problem.kernel}")
+    return kernel, state, warm_steps
+
+
+def _run_one_dispatch(problem, seed, n_chains, n_samples, device):
+    """The scan path (the JAX runner's ``_run_one_dispatch``): warm-up +
+    burn-in + sampling + ESS/R̂ diagnostics, run twice from the same seed;
+    the second, identical run is timed as ``run_s`` and the first one's
+    excess is ``first_dispatch_s``. The JAX package traces and compiles all
+    of it into one program; PyTorch runs it eagerly, so nothing is traced or
+    compiled (``trace_s`` and ``compile_s`` are 0.0), and the scan path
+    launches no kernel of the port, so nothing is built. ``program_count``
+    stays 1: one pass of the pipeline per run. The initial positions come
+    from a host generator seeded with ``seed``; the warm-up and the sampling
+    draw from two generators on ``device``, seeded with ``seed`` + 1 and
+    ``seed`` + 2. ``steps_per_s`` counts every chain step of a run (warm-up,
+    burn-in, sampling); ``sampling_steps_per_s`` the sampling steps."""
+    kp = problem.kernel_params
+    burn = 0 if kp.get("adapt", False) else problem.burn_in
+    thin = problem.thin
+    positions = problem.init_positions(
+        torch.Generator().manual_seed(int(seed)), n_chains).to(device)
+
+    def pipeline():
+        gen_warm = torch.Generator(device).manual_seed(int(seed) + 1)
+        gen_run = torch.Generator(device).manual_seed(int(seed) + 2)
+        kernel, state, warm_steps = _setup_kernel_state(problem, positions,
+                                                        gen_warm)
+        _, samples, info_means = driver.sample_chains(
+            kernel, state, gen_run, n_samples=n_samples, burn_in=burn,
+            thin=thin)
+        summ = diagnostics.summarize(samples)
+        float(summ["min_ess"])  # the device's work is done
+        return summ, info_means, warm_steps
+
+    t0 = time.perf_counter()
+    pipeline()
+    first_call_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summ, info_means, warm_steps = pipeline()
+    run_s = time.perf_counter() - t0
+
+    total_steps = (warm_steps + burn + n_samples * thin) * n_chains
+    flat_mean = summ["mean"].cpu().numpy()
+    metrics = {
+        "config": problem.name,
+        "kernel": problem.kernel,
+        "n_chains": int(n_chains),
+        "n_samples": int(n_samples),
+        "dim": int(problem.dim),
+        "program_count": 1,
+        "trace_s": 0.0,
+        "compile_s": 0.0,
+        "first_dispatch_s": max(first_call_s - run_s, 0.0),
+        "run_s": run_s,
+        "warm_steps": int(warm_steps),
+        "burn_steps": int(burn),
+        "sampling_steps": int(n_samples * thin),
+        "sampling_steps_per_s": n_samples * thin * n_chains / run_s,
+        "min_ess": float(summ["min_ess"]),
+        "ess_per_s": float(summ["min_ess"]) / run_s,
+        "max_rhat": float(summ["max_rhat"]),
+        "posterior_mean": flat_mean.tolist(),
+        "steps_per_s": total_steps / run_s,
+        "accept_rate": float(info_means.accepted.mean()),
+    }
+    if problem.truth is not None and problem.name == "lingauss_pcn":
+        metrics["mean_error_vs_exact"] = float(
+            np.abs(flat_mean - problem.truth).max())
+    return metrics
+
+
 def run_problem(problem, device, seed: int = 0, n_chains=None,
                 n_samples=None):
     """Execute a Problem end-to-end on ``device``; returns a metrics dict.
     ``seed`` seeds the host-side ``torch.Generator`` of the initial
-    positions."""
+    positions (and, on the scan path, the device generators of the
+    warm-up and the sampling)."""
     t_start = time.perf_counter()
     device = torch.device(device)
     n_chains = n_chains or problem.n_chains
     n_samples = n_samples or problem.n_samples
-    if not (problem.kernel in ("pcn", "elliptical", "da_pcn", "fes", "mala")
-            and problem.kernel_params.get("fused")
+    if (problem.kernel in FUSED_KERNELS and problem.kernel_params.get("fused")
             and problem.batched_potential_fn is not None):
+        generator = torch.Generator().manual_seed(int(seed))
+        metrics = _run_fused_mcmc(problem, generator, n_chains, n_samples,
+                                  device)
+    elif problem.kernel in SCAN_KERNELS and problem.potential_fn is not None:
+        metrics = _run_one_dispatch(problem, seed, n_chains, n_samples, device)
+    else:
         raise NotImplementedError(
-            f"config {problem.name}: only the fused pcn, elliptical, da_pcn, "
-            "fes and mala paths are ported (pass --fused to a pCN config "
-            "with a batched potential)"
+            f"config {problem.name}: not ported. Ported are the fused "
+            f"{', '.join(FUSED_KERNELS)} paths (kernel_params['fused'] and a "
+            "batched potential; pass --fused to a pCN config that has one) "
+            f"and the scan {' and '.join(SCAN_KERNELS)} paths of the configs "
+            "with a potential_fn (gauss2d_rwm, lingauss_pcn); the "
+            "single-particle Darcy and Burgers forward models are not"
         )
-    generator = torch.Generator().manual_seed(int(seed))
-    metrics = _run_fused_mcmc(problem, generator, n_chains, n_samples, device)
     return _finalize(metrics, t_start)

@@ -22,12 +22,18 @@ also the surrogate of ``burgers_da_pcn``) and 128 cells at the coarse time
 step (``y_surr_128``, ``scale_128``) — into
 ``ip_mcmc_tpu_torch/configs/burgers128.npz``.
 
+``lingauss_pcn``: the true coefficients ``u_true`` (the prior draw under
+key 100) and the data ``y`` (A u_true plus the noise draw under key 101)
+into ``ip_mcmc_tpu_torch/configs/lingauss32.npz``.
+
 The arrays are read from the JAX package's own built Problems (their data,
 their truth, and the closures of their surrogate misfits), so nothing of
-the calibrations is re-implemented here. With no argument both files are
-written; ``darcy`` or ``burgers`` writes one.
+the calibrations is re-implemented here; ``lingauss_pcn``'s truth is the
+exact posterior mean, so its ``u_true`` is drawn again by the config's own
+call. With no argument all three files are written; ``darcy``, ``burgers``
+or ``lingauss`` writes one.
 
-    JAX_PLATFORMS=cpu python scripts/freeze_torch_fixtures.py [darcy|burgers]
+    JAX_PLATFORMS=cpu python scripts/freeze_torch_fixtures.py [darcy|burgers|lingauss]
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FIXTURE = ROOT / "ip_mcmc_tpu_torch" / "configs" / "darcy16_da.npz"
 BURGERS_FIXTURE = ROOT / "ip_mcmc_tpu_torch" / "configs" / "burgers128.npz"
+LINGAUSS_FIXTURE = ROOT / "ip_mcmc_tpu_torch" / "configs" / "lingauss32.npz"
 
 
 def _closure(fn):
@@ -78,10 +85,22 @@ def burgers_fixture_arrays(da3, multitime) -> dict:
     }
 
 
+def lingauss_fixture_arrays(problem) -> dict:
+    """The frozen arrays, from a built JAX ``lingauss_pcn`` Problem: its
+    data, and ``u_true`` drawn again as the config draws it."""
+    import jax
+
+    return {
+        "u_true": np.asarray(problem.prior.sample(jax.random.key(100)), np.float32),
+        "y": np.asarray(problem.data, np.float32),
+    }
+
+
 def main(argv=None):
-    which = set(argv or sys.argv[1:]) or {"darcy", "burgers"}
-    if not which <= {"darcy", "burgers"}:
-        raise SystemExit(f"usage: {sys.argv[0]} [darcy|burgers]")
+    kinds = {"darcy", "burgers", "lingauss"}
+    which = set(argv or sys.argv[1:]) or kinds
+    if not which <= kinds:
+        raise SystemExit(f"usage: {sys.argv[0]} [darcy|burgers|lingauss]")
     sys.path.insert(0, str(ROOT))
     import jax
 
@@ -97,6 +116,10 @@ def main(argv=None):
             configs.build("burgers_da3_pcn"),
             configs.build("burgers_multitime_pcn")))
         written.append(BURGERS_FIXTURE)
+    if "lingauss" in which:
+        np.savez(LINGAUSS_FIXTURE,
+                 **lingauss_fixture_arrays(configs.build("lingauss_pcn")))
+        written.append(LINGAUSS_FIXTURE)
     for path in written:
         print(f"wrote {path} ({path.stat().st_size} bytes)")
 

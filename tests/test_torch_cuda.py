@@ -355,3 +355,117 @@ def test_burgers_kernels_refuse_mixed_and_plain_potentials(burgers_problem, prob
     with pytest.raises(TypeError, match="DarcyMisfit"):
         fused_ess.fused_ess_chain(fine, pos, pm, ps, 0, n_steps=1,
                                   block_chains=64)
+
+
+# --- the linear-Gaussian family: RWM (K14), dense pCN (K15), adaptive pCN (K16)
+
+
+@pytest.fixture
+def lingauss():
+    """lingauss_pcn's misfit as a LinearGaussianPotential on the card, and
+    its prior's KL spectrum."""
+    from ip_mcmc_tpu_torch.convert import linear_gaussian_from_arrays
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    A, lam, y, sigma = configs.lingauss_arrays()
+    return linear_gaussian_from_arrays(A, y, sigma).cuda(), torch.tensor(lam).float().cuda()
+
+
+def _chains_agree(got, ref, steps):
+    dev = (got[0] - ref[0]).abs().max(dim=1).values
+    assert float((dev <= 1e-4).double().mean()) >= 0.99
+    assert abs(float(got[1].mean()) - float(ref[1].mean())) <= 1e-2
+    assert 0.0 < float(got[1].mean()) <= 1.0
+
+
+def test_linear_gaussian_misfit_kernel_matches_plain(lingauss):
+    """All f32, the row sums in another order: Φ within 1e-5 relative; the
+    m = 0 potential is 0."""
+    from ip_mcmc_tpu_torch.convert import linear_gaussian_from_arrays
+
+    pot, lam = lingauss
+    U = (torch.randn(32, 512, generator=torch.Generator().manual_seed(0)).cuda()
+         * lam.sqrt()[:, None]).contiguous()
+    before = _build.launch_counts[pot.kernel_label]
+    got = pot(U)
+    assert _build.launch_counts[pot.kernel_label] == before + 1
+    assert float(_rel(got, pot._forward_plain(U)).max()) <= 1e-5
+    # an upper-triangular A = L^T: the row-major layout matters
+    g2 = configs.gauss2d_batched_potential().cuda()
+    U2 = (10.0 * torch.randn(2, 512, generator=torch.Generator().manual_seed(1))).cuda()
+    assert float(_rel(g2(U2), g2._forward_plain(U2)).max()) <= 1e-5
+    zero = linear_gaussian_from_arrays(torch.zeros(0, 32).numpy(), [], 1.0).cuda()
+    assert torch.equal(zero(U), torch.zeros(512, device="cuda"))
+
+
+@pytest.mark.parametrize("recorded", [False, True])
+@pytest.mark.parametrize("kind", ["rwm", "rwm_prior", "rwm_darcy", "pcn_dense"])
+def test_linear_gaussian_kernels_match_plain(lingauss, warm_problem, kind, recorded):
+    from ip_mcmc_tpu_torch.ops import fused_pcn_dense, fused_rwm
+
+    pot, lam = lingauss
+    g = torch.Generator().manual_seed(3)
+    pos = (torch.randn(512, 32, generator=g).cuda() * lam.sqrt()).contiguous()
+    kw = {"thin": 2} if recorded else {}
+    steps, block = 8, 128
+    if kind == "pcn_dense":
+        name = "fused_pcn_dense_kernel"
+        args = (pos, torch.zeros(32), torch.diag(lam.sqrt()), 0.2, 5, steps, block)
+        got = fused_pcn_dense._launch(pot, *args, **kw)
+        ref = fused_pcn_dense._run_plain(pot._forward_plain, *args, **kw)
+    else:
+        prior = {}
+        if kind == "rwm_darcy":
+            pot = warm_problem.batched_potential_fn
+            pos = warm_problem.init_positions(g, 512).cuda()
+        if kind != "rwm":
+            prior = dict(prior_mean=torch.zeros(pos.shape[1]),
+                         prior_scale=torch.ones(pos.shape[1]))
+        name = "fused_rwm_darcy_kernel" if kind == "rwm_darcy" else "fused_rwm_kernel"
+        args = (pos, 0.01 if kind == "rwm_darcy" else 0.05, 5, steps, block)
+        got = fused_rwm._launch(pot, *args, **kw, **prior)
+        ref = fused_rwm._run_plain(pot._forward_plain, *args, **kw, **prior)
+    assert _build.launch_counts[f"{name}<{'true' if recorded else 'false'}>"] >= 1
+    if recorded:
+        assert got[2].shape == ref[2].shape == (steps // 2, 512, pos.shape[1])
+        assert torch.equal(got[2][-1], got[0])
+    _chains_agree(got, ref, steps)
+
+
+def test_pcn_adapt_kernels_match_plain(lingauss):
+    """Kernel and plain loop pool each block in the same order and update
+    log β without FMA contraction: β within 1e-5 relative (what differs is
+    Φ's rounding), the chains within 1e-4."""
+    from ip_mcmc_tpu_torch.ops import fused_pcn_adapt
+
+    pot, lam = lingauss
+    pos = (torch.randn(512, 32, generator=torch.Generator().manual_seed(4)).cuda()
+           * lam.sqrt()).contiguous()
+    args = (pos, torch.zeros(32), lam.sqrt(), 0.5, 6, 20, 0.3, 0.5, 128)
+    before = _build.launch_counts["fused_pcn_adapt_kernel"]
+    got = fused_pcn_adapt._launch(pot, *args)
+    assert _build.launch_counts["fused_pcn_adapt_kernel"] == before + 20
+    ref = fused_pcn_adapt._run_plain(pot._forward_plain, *args)
+    _chains_agree(got, ref, 20)
+    assert float(_rel(got[2], ref[2]).max()) <= 1e-5
+    blocks = got[2].reshape(-1, 128)
+    assert torch.equal(blocks, blocks[:, :1].expand_as(blocks))  # one β per block
+    assert bool(((blocks[:, 0] - 0.5).abs() > 1e-3).all())  # moved from β0
+    assert bool(((got[2] > 1e-4) & (got[2] < 0.999 + 1e-6)).all())
+
+
+def test_linear_gaussian_kernels_refuse_other_potentials(lingauss, burgers_problem):
+    from ip_mcmc_tpu_torch import ops
+
+    pot, lam = lingauss
+    fine = burgers_problem.batched_potential_fn
+    pos = torch.zeros(64, 16, device="cuda")
+    with pytest.raises(TypeError, match="LinearGaussianPotential"):
+        ops.fused_rwm_chain(fine, pos, 0.1, 0, n_steps=1, block_chains=64)
+    with pytest.raises(TypeError, match="LinearGaussianPotential"):
+        ops.fused_pcn_chain_dense(fine, pos, torch.zeros(16), torch.eye(16), 0.2, 0,
+                                  n_steps=1, block_chains=64)
+    with pytest.raises(TypeError, match="LinearGaussianPotential"):
+        ops.fused_pcn_chain_adapt(lambda U: U.sum(0), pos, torch.zeros(16),
+                                  torch.ones(16), 0.5, 0, n_steps=1, block_chains=64)

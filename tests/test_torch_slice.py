@@ -258,15 +258,22 @@ BURGERS = ("burgers_pcn", "burgers_multitime_pcn", "burgers_da_pcn",
 
 
 def test_cli_lists_seven_configs(capsys):
-    """The seven Darcy configs and, since the Burgers path, its four."""
+    """The seven Darcy configs and, since the Burgers path, its four; since
+    the scan path, gauss2d_rwm and lingauss_pcn."""
     assert run.main(["--list"]) == 0
     names = [ln.split()[0] for ln in capsys.readouterr().out.strip().splitlines()]
     assert names == sorted(SINGLE_LEVEL + GRADIENT_AND_ENSEMBLE
-                           + ("darcy_da_fused",) + BURGERS)
+                           + ("darcy_da_fused",) + BURGERS
+                           + ("gauss2d_rwm", "lingauss_pcn"))
 
 
 def test_rwm_is_not_ported():
-    p = dataclasses.replace(configs.build("darcy_mala_fused", "cpu"), kernel="rwm")
+    """RWM runs fused on a batched potential and on the scan path of a
+    config with a potential_fn; on Darcy's scan path (the single-particle
+    forward model) it is not ported."""
+    p = dataclasses.replace(configs.build("darcy_mala_fused", "cpu"), kernel="rwm",
+                            kernel_params={"step_size": 0.01})
+    assert p.potential_fn is None
     with pytest.raises(NotImplementedError, match="ported"):
         runner.run_problem(p, "cpu", n_chains=64, n_samples=2)
 
@@ -288,7 +295,12 @@ def test_cuda_device_is_never_a_silent_fallback():
 
 
 def test_port_never_imports_jax():
-    pattern = re.compile(r"^\s*(import\s+jax|from\s+jax)\b", re.M)
+    """Neither JAX nor the JAX package (``ip_mcmc_tpu``, not the port's own
+    ``ip_mcmc_tpu_torch``), in any module of the port or chip_smoke.py."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|ip_mcmc_tpu)\b", re.M)
+    assert pattern.search("from ip_mcmc_tpu.models import kl")
+    assert pattern.search("import jax.numpy as jnp")
+    assert not pattern.search("from ip_mcmc_tpu_torch import ops")
     files = sorted((ROOT / "ip_mcmc_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
