@@ -833,13 +833,26 @@ def compare_paths_potential():
 
 def lingauss_potential():
     """lingauss_pcn's misfit as a LinearGaussianPotential, its prior scale
-    √λ and the prior's dense Cholesky factor (diag √λ)."""
+    √λ and its prior's Cholesky factor as a (d, d) matrix (diagonal: diag
+    √λ)."""
     from ip_mcmc_tpu_torch import configs
     from ip_mcmc_tpu_torch.convert import linear_gaussian_from_arrays
 
     A, lam, y, sigma = configs.lingauss_arrays()
     scale = torch.tensor(lam, dtype=torch.float32, device="cuda").sqrt()
     return linear_gaussian_from_arrays(A, y, sigma).cuda(), scale, torch.diag(scale)
+
+
+def dense_cholesky(lam, seed=7):
+    """A lower-triangular L with every entry below the diagonal nonzero:
+    the Cholesky factor of D (G Gᵀ / d + I / 2) D, D = diag √λ, G a seeded
+    normal (d, d). Reading L where Lᵀ is meant changes ξ = L z."""
+    d = len(lam)
+    g = np.random.default_rng(seed).standard_normal((d, d))
+    D = np.diag(np.sqrt(np.asarray(lam, dtype=np.float64)))
+    L = np.linalg.cholesky(D @ (g @ g.T / d + 0.5 * np.eye(d)) @ D)
+    assert np.all(np.tril(L, -1)[np.tril_indices(d, -1)] != 0.0)
+    return torch.tensor(L, dtype=torch.float32, device="cuda")
 
 
 def check_linear_family(problems, gen, results):
@@ -907,20 +920,26 @@ def check_linear_family(problems, gen, results):
                                          4 * n * (pot.K + 1) + constant_bytes(pot)))
     pos_l = (torch.randn(n, d, generator=gen).cuda() * scale).contiguous()
     zeros = torch.zeros(d, device="cuda")
-    for recorded in (False, True):
-        kw = {"thin": 1} if recorded else {}
-        compare_chain(
-            results, "fused_pcn_dense_kernel", recorded,
-            lambda s: fused_pcn_dense._launch(pot, pos_l, zeros, chol, 0.2, 53, s,
-                                              LINGAUSS_BLOCK, **kw),
-            lambda s: fused_pcn_dense._run_plain(pot._forward_plain, pos_l, zeros, chol,
-                                                 0.2, 53, s, LINGAUSS_BLOCK, **kw),
-            steps=20, kernel_long=420, plain_long=40,
-            variant=f"lingauss_pcn misfit, prior as a dense 32 x 32 Cholesky, block "
-                    f"{LINGAUSS_BLOCK}",
-            paths=["lingauss_pcn fused"], source="fused_pcn_dense.cu", pots=(pot,),
-            per_step_ops=linear_ops(pot) + Ops((RNG_OPS_PER_DRAW + 2 * d + 4) * d),
-            replaces=JAX_OPS + "653")
+    # the main path's L is diag √λ, symmetric; a dense L also tests that the
+    # kernel forms L z and not Lᵀ z. The bound counts L's nonzeros.
+    dense = dense_cholesky(scale.double().cpu().numpy() ** 2)
+    for L, variant, paths in (
+            (chol, "prior's L = diag sqrt(lambda) (32 x 32, diagonal)", ["lingauss_pcn fused"]),
+            (dense, "a dense lower-triangular 32 x 32 L (no shipped path)", [])):
+        for recorded in (False, True):
+            kw = {"thin": 1} if recorded else {}
+            compare_chain(
+                results, "fused_pcn_dense_kernel", recorded,
+                lambda s: fused_pcn_dense._launch(pot, pos_l, zeros, L, 0.2, 53, s,
+                                                  LINGAUSS_BLOCK, **kw),
+                lambda s: fused_pcn_dense._run_plain(pot._forward_plain, pos_l, zeros, L,
+                                                     0.2, 53, s, LINGAUSS_BLOCK, **kw),
+                steps=20, kernel_long=420, plain_long=40,
+                variant=f"lingauss_pcn misfit, {variant}, block {LINGAUSS_BLOCK}",
+                paths=paths, source="fused_pcn_dense.cu", pots=(pot,),
+                per_step_ops=linear_ops(pot) + Ops((RNG_OPS_PER_DRAW + 4) * d
+                                                   + 2 * int(torch.count_nonzero(L))),
+                replaces=JAX_OPS + "653")
 
     # K16: the step loop runs on the host (two launches a step), so a step's
     # time is the slope over whole launches of the wrapper
@@ -969,6 +988,7 @@ def check_linear_family(problems, gen, results):
     lb_ref, beta_ref = fused_pcn_adapt._update_plain(p, lb0, LINGAUSS_BLOCK, gamma, target)
     torch.cuda.synchronize()
     b_rel = float(((beta - beta_ref).abs() / beta_ref).max())
+    b_abs = float((beta - beta_ref).abs().max())
     print(f"pcn_adapt_update_kernel ({n // LINGAUSS_BLOCK} blocks of {LINGAUSS_BLOCK}): "
           f"log beta equal bits {bool(torch.equal(lb, lb_ref))}, beta max rel {b_rel:.3e}",
           flush=True)
@@ -983,7 +1003,7 @@ def check_linear_family(problems, gen, results):
     row = {
         "name": "pcn_adapt_update_kernel", "variant": f"{nb} blocks of {LINGAUSS_BLOCK}",
         "route": "cuda", "source": SRC + "fused_pcn_adapt.cu", "replaces": JAX_OPS + "552",
-        "paths": ["lingauss_pcn fused"], "max_abs_err": float((beta - beta_ref).abs().max()),
+        "paths": ["lingauss_pcn fused"], "max_abs_err": b_abs,
         "ms": ms, "plain_ms": plain_ms, "ms_unit": "one call",
         **bound(Ops(n + 8 * nb), 4 * (2 * n + 2 * nb)), "library_ms": None,
     }
@@ -992,9 +1012,16 @@ def check_linear_family(problems, gen, results):
     results.append(row)
 
 
+def ran_on_host(label):
+    """A count of work that did not run on the card: a plain version, or a
+    scan step on the CPU."""
+    return "plain" in label or label.endswith("[cpu]")
+
+
 def drive_phase(name, kernels, fn):
     """Counts to 0, ``fn()``, counts read: every kernel of ``kernels``
-    launched, no plain version run. Returns (counts, what ``fn`` returns)."""
+    launched, nothing run on the host. Returns (counts, what ``fn``
+    returns)."""
     from ip_mcmc_tpu_torch.ops import _build
 
     _build.launch_counts.clear()
@@ -1005,7 +1032,7 @@ def drive_phase(name, kernels, fn):
     for k in kernels:
         if counts.get(k, 0) < 1:
             raise AssertionError(f"{k} was not launched by {name}")
-    plain = {k: v for k, v in counts.items() if "plain" in k and v}
+    plain = {k: v for k, v in counts.items() if ran_on_host(k) and v}
     if plain:
         raise AssertionError(f"plain versions ran on {name}: {plain}")
     return counts, out
@@ -1181,22 +1208,11 @@ def run_cli(config, flags, n_samples):
 
 
 def drive_path(config, problem, n_samples):
-    """Counts to 0, one CLI run, counts read; checks kernels, metrics."""
-    from ip_mcmc_tpu_torch.ops import _build
-
+    """One CLI run as a ``drive_phase``; checks its metrics."""
     flags, kernels = PATHS[config]
-    _build.launch_counts.clear()
-    metrics = run_cli(config, flags, n_samples)
-    counts = dict(_build.launch_counts)
+    counts, metrics = drive_phase(config, kernels,
+                                  lambda: run_cli(config, flags, n_samples))
     print(f"{config} metrics: " + json.dumps(metrics), flush=True)
-    print(f"{config} launch counts: " + json.dumps(counts), flush=True)
-    for name in kernels:
-        if counts.get(name, 0) < 1:
-            raise AssertionError(f"{name} was not launched by {config}")
-    plain = {k: v for k, v in counts.items()
-             if ("plain" in k or k.endswith("[cpu]")) and v}
-    if plain:
-        raise AssertionError(f"plain versions ran on {config}: {plain}")
     assert metrics["n_chains"] == problem.n_chains
     assert metrics["n_samples"] == n_samples
     assert math.isfinite(metrics["max_rhat"]), "max_rhat is not finite"
@@ -1224,7 +1240,7 @@ def drive_path(config, problem, n_samples):
     assert len(metrics["posterior_mean"]) == problem.dim
     if config in SCAN_PATHS:  # the JAX one-dispatch keys
         assert metrics["program_count"] == 1 and metrics["sampling_steps_per_s"] > 0.0
-        assert ("mean_error_vs_exact" in metrics) == (config == "lingauss_pcn")
+        assert ("mean_error_vs_exact" in metrics) == (problem.exact_mean is not None)
         err = max(abs(a - b) for a, b in zip(metrics["posterior_mean"], problem.truth))
         assert err < 0.1, f"{config}: posterior mean off the closed form by {err}"
     return counts

@@ -54,6 +54,9 @@ class Problem:
     thin: int = 1
     data: Optional[np.ndarray] = None
     truth: Optional[np.ndarray] = None
+    # the closed-form posterior mean, where the posterior has one: the scan
+    # path then reports mean_error_vs_exact against it
+    exact_mean: Optional[np.ndarray] = None
     notes: str = ""
     # the scan path's Φ: (n, d) -> (n,), chains first (None: the config's
     # single-particle forward model is not ported)
@@ -166,6 +169,7 @@ def lingauss_pcn(device) -> Problem:
         burn_in=500,
         data=y,
         truth=exact_mean,
+        exact_mean=exact_mean,
         notes="closed-form posterior available (conjugate)",
         potential_fn=phi,
     )

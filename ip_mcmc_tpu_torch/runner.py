@@ -336,9 +336,9 @@ def _run_one_dispatch(problem, seed, n_chains, n_samples, device):
         "steps_per_s": total_steps / run_s,
         "accept_rate": float(info_means.accepted.mean()),
     }
-    if problem.truth is not None and problem.name == "lingauss_pcn":
+    if problem.exact_mean is not None:
         metrics["mean_error_vs_exact"] = float(
-            np.abs(flat_mean - problem.truth).max())
+            np.abs(flat_mean - problem.exact_mean).max())
     return metrics
 
 

@@ -400,7 +400,8 @@ def test_linear_gaussian_misfit_kernel_matches_plain(lingauss):
 
 
 @pytest.mark.parametrize("recorded", [False, True])
-@pytest.mark.parametrize("kind", ["rwm", "rwm_prior", "rwm_darcy", "pcn_dense"])
+@pytest.mark.parametrize("kind", ["rwm", "rwm_prior", "rwm_darcy", "pcn_dense",
+                                  "pcn_dense_full"])
 def test_linear_gaussian_kernels_match_plain(lingauss, warm_problem, kind, recorded):
     from ip_mcmc_tpu_torch.ops import fused_pcn_dense, fused_rwm
 
@@ -409,9 +410,16 @@ def test_linear_gaussian_kernels_match_plain(lingauss, warm_problem, kind, recor
     pos = (torch.randn(512, 32, generator=g).cuda() * lam.sqrt()).contiguous()
     kw = {"thin": 2} if recorded else {}
     steps, block = 8, 128
-    if kind == "pcn_dense":
+    if kind.startswith("pcn_dense"):
         name = "fused_pcn_dense_kernel"
-        args = (pos, torch.zeros(32), torch.diag(lam.sqrt()), 0.2, 5, steps, block)
+        chol = torch.diag(lam.sqrt())
+        if kind == "pcn_dense_full":  # every entry below the diagonal nonzero
+            G = torch.randn(32, 32, generator=g, dtype=torch.float64)
+            D = torch.diag(lam.double().sqrt().cpu())
+            chol = torch.linalg.cholesky(D @ (G @ G.T / 32 + 0.5 * torch.eye(32)) @ D)
+            assert bool((chol.tril(-1)[tuple(torch.tril_indices(32, 32, -1))] != 0).all())
+            chol = chol.float()
+        args = (pos, torch.zeros(32), chol, 0.2, 5, steps, block)
         got = fused_pcn_dense._launch(pot, *args, **kw)
         ref = fused_pcn_dense._run_plain(pot._forward_plain, *args, **kw)
     else:

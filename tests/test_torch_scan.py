@@ -191,7 +191,8 @@ def test_scan_runs_print_jax_one_dispatch_keys(name, capsys):
     assert (m["warm_steps"], m["burn_steps"], m["sampling_steps"]) == (4, 0, 4)
     assert m["steps_per_s"] == pytest.approx(64 * 8 / m["run_s"])
     assert m["sampling_steps_per_s"] == pytest.approx(64 * 4 / m["run_s"])
-    assert ("mean_error_vs_exact" in m) == (name == "lingauss_pcn")
+    assert ("mean_error_vs_exact" in m) == (p.exact_mean is not None)
+    assert (p.exact_mean is not None) == (name == "lingauss_pcn")
     assert 0.0 <= m["accept_rate"] <= 1.0
     assert len(m["posterior_mean"]) == p.dim and np.isfinite(m["posterior_mean"]).all()
 
