@@ -9,7 +9,12 @@ problem, 2048 on Burgers and lingauss_pcn, 8192 and 1024 on the 2-D
 Gaussians), times both, then drives the ported paths at full width:
 
     darcy_da_fused           delayed-acceptance pCN     (K1-K5)
+    darcy_da_richardson      the same with each surrogate of
+                             benchmarks/darcy_da_richardson.py: three solved
+                             by Richardson (K17), the CG one beside them
     darcy_pcn_warm           warm-started pCN           (K7)
+    darcy32_pcn_warm         warm pCN on 32 x 32 cells  (K5, K7)
+    darcy64_pcn_warm         warm pCN on 64 x 64 cells  (K5, K7)
     darcy_ess_fused          elliptical slice sampling  (K8)
     darcy_pcn_4096 --fused   cold pCN                   (K6)
     darcy_mala_fused         MALA, adjoint gradient     (K10)
@@ -27,13 +32,14 @@ Gaussians), times both, then drives the ported paths at full width:
                              then dense-prior pCN (K15)
     gauss2d_rwm, lingauss_pcn   the scan path through the CLI (no kernel)
 
-The eleven fused configs and the two scan configs run through the port's
-CLI, the three other paths through the entry points (``runner``, ``ops``).
+The thirteen fused configs and the two scan configs run through the port's
+CLI, the other paths through the entry points (``runner``, ``ops``).
 Before each path the launch counts are set to 0; after it they must show
 that the path went through its kernels (the scan path: its steps on the
 card) and through no plain version. Every phase raises on failure. Prints
-the card's name and power limit, a JSON line of per-kernel results (time,
-plain time, roofline bound, launches), and as the last line
+the card's name and power limit, the registers and spills that ptxas reported
+for every Darcy kernel, a JSON line of per-kernel results (time, plain
+time, roofline bound, launches), and as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
 no result.
 """
@@ -44,6 +50,7 @@ import contextlib
 import io
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -65,6 +72,17 @@ BF16_TOL = (2e-6, 1e-5, 0.80, 5e-3)   # the bounds of tests/test_torch_darcy.py
 BF16_COLD_START_TOL = (2e-5, 1e-4, 0.90, 5e-3)
 # every input f32 (Jacobi): summation order only
 F32_TOL = (2e-6, 1e-5, 0.99, 1e-4)
+# K17: Richardson recomputes its residual as b - Ax, which loses digits to
+# cancellation as x converges, so more bf16 roundings sit near a tie than
+# in CG (on the CPU against JAX, 2048 draws of 8x8 and 16x16, 2-4
+# iterations: median <= 1.7e-5, >= 93.6% within 1e-4, max 1.5e-3;
+# tests/test_torch_darcy_richardson.py)
+RICH_BF16_TOL = (5e-5, 1e-4, 0.80, 5e-3)
+# 32x32 and 64x64: four times and sixteen times the cells of 16x16 and 128
+# or 256 modes, so more bf16 roundings per solve; 4 iterations from x0 = 0
+# stop unconverged (on the CPU against JAX: up to 2.3e-4 from x0 = 0, 3.6e-5
+# from a carried solution; tests/test_torch_darcy_large.py)
+LARGE_BF16_TOL = (2e-4, 1e-3, 0.90, 5e-3)
 # Gradients and adjoint solutions, per draw relative to the draw's largest
 # entry. The residuals are divided by sigma^2 = 4e-6 on their way into the
 # adjoint's right-hand side, which amplifies rounding in the forward
@@ -94,6 +112,7 @@ PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
 
 SRC = "ip_mcmc_tpu_torch/csrc/"
 JAX_OPS = "ip_mcmc_tpu/ops/fused_mcmc.py:"
+JAX_DARCY = "ip_mcmc_tpu/models/darcy.py:"
 # the pallas_call sites of the plain and the recorded scaffold
 SCAFFOLD = {False: JAX_OPS + "260", True: JAX_OPS + "950"}
 
@@ -155,18 +174,31 @@ def cg_ops(pot, warm: bool) -> Ops:
     The spectral preconditioners' products (V^T r and V rt of dst_trunc,
     the four sine stages of dst) are the bf16 operations; all else is
     f32."""
-    n, N = pot.n, pot.n * pot.n
-    precond = {"jacobi": Ops(N),
-               "dst_trunc": Ops(N + pot.modes, 4 * pot.modes * N),
-               "dst": Ops(N, 8 * n * N)}[pot.precond]
+    N = pot.n * pot.n
     start = 2 * N + (14 * N if warm else 0)
-    return Ops(start + pot.cg_iters * 23 * N) + (1 + pot.cg_iters) * precond
+    return Ops(start + pot.cg_iters * 23 * N) + (1 + pot.cg_iters) * precond_ops(pot)
+
+
+def precond_ops(pot) -> Ops:
+    n, N = pot.n, pot.n * pot.n
+    return {"jacobi": Ops(N),
+            "dst_trunc": Ops(N + pot.modes, 4 * pot.modes * N),
+            "dst": Ops(N, 8 * n * N)}[pot.precond]
+
+
+def richardson_ops(pot) -> Ops:
+    """K17 for one chain: x_1 = omega M^-1 b, then per further iteration one
+    stencil apply (13 N), the residual (N), the update (2 N) and one
+    preconditioner apply; no dot products."""
+    N, updates = pot.n * pot.n, max(pot.cg_iters - 1, 0)
+    return Ops(N + updates * 16 * N) + (1 + updates) * precond_ops(pot)
 
 
 def solve_ops(pot, warm: bool) -> Ops:
     """Operations of one Darcy solve for one chain, counted from the
-    misfit's shapes: set-up, one CG solve, the residuals."""
-    return setup_ops(pot) + cg_ops(pot, warm) + Ops(3 * int(pot.obs.numel()))
+    misfit's shapes: set-up, one CG (or Richardson) solve, the residuals."""
+    solve = richardson_ops(pot) if pot.solver == "richardson" else cg_ops(pot, warm)
+    return setup_ops(pot) + solve + Ops(3 * int(pot.obs.numel()))
 
 
 def grad_ops(pot, warm: bool) -> Ops:
@@ -263,7 +295,7 @@ def compare_misfit(results, pot, U, *, variant, paths, tol, x0=None,
     from ip_mcmc_tpu_torch.ops import _build
 
     warm = x0 is not None
-    name = "darcy_misfit_warm_kernel" if warm else f"darcy_misfit_kernel[n={pot.n}]"
+    name = "darcy_misfit_warm_kernel" if warm else pot.kernel_label
     kern = (lambda: pot(U, x0)) if warm else (lambda: pot(U))
     plain = ((lambda: pot._forward_warm_plain(U, x0)) if warm
              else (lambda: pot._forward_plain(U)))
@@ -808,6 +840,177 @@ def check_burgers(problems, gen, results):
                 source="fused_pcn.cu", pots=(pot,), per_step_ops=ops_of(pot) + draws)
 
 
+# --- K17 (Richardson) and the large Darcy grids ----------------------------------
+
+# benchmarks/darcy_da_richardson.json (the JAX package on a TPU v5e): what of
+# each surrogate's run does not depend on the hardware
+TPU_RICHARDSON = {
+    "cg3": {"outer_accept": 0.6422, "inner_accept": 0.2353, "ess_per_outer_step_chain": 0.18039},
+    "rich3_w0.9": {"outer_accept": 0.6719, "inner_accept": 0.2262,
+                   "ess_per_outer_step_chain": 0.02912},
+    "rich4_w0.8": {"outer_accept": 0.5822, "inner_accept": 0.2328,
+                   "ess_per_outer_step_chain": 0.07008},
+    "rich2_w0.9": {"outer_accept": 0.1411, "inner_accept": 0.2468,
+                   "ess_per_outer_step_chain": 0.0062},
+}
+
+
+def richardson_path(variant):
+    return f"darcy_da_richardson[{variant}]"
+
+
+def check_richardson(richardson, gen, results):
+    """K17 in the standalone misfit kernel at each Richardson surrogate of
+    benchmarks/darcy_da_richardson.py, then the DA kernel's Richardson
+    surrogate instantiation against its plain loop at 4096 chains."""
+    from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
+
+    rich = [v for v, p in richardson.items() if p.batched_surrogate_fn.solver == "richardson"]
+    for variant in rich:
+        p = richardson[variant]
+        surr = p.batched_surrogate_fn
+        U = p.prior.sample(gen, N_CHAINS).T.contiguous()
+        compare_misfit(results, surr, U,
+                       variant=(f"{variant}: 8x8 dst_trunc-64, {surr.cg_iters} Richardson "
+                                f"iterations, omega {surr.omega:.1f}"),
+                       paths=[richardson_path(variant)], tol=RICH_BF16_TOL,
+                       replaces=JAX_DARCY + "401")
+    p = richardson["rich3_w0.9"]
+    exact, surr = p.batched_potential_fn, p.batched_surrogate_fn
+    pos = p.init_positions(gen, N_CHAINS).cuda()
+    kp = p.kernel_params
+    block, k = kp["block_chains"], kp["subchain_len"]
+    args = (exact, surr, pos, p.prior.mean, p.prior.scale, kp["beta"], 11)
+    plain_args = (plain_potential(exact), plain_potential(surr), *args[2:])
+    ops = (k * (solve_ops(surr, False) + Ops(RNG_OPS_PER_DRAW * p.dim))
+           + solve_ops(exact, False))
+    for recorded in (False, True):
+        kw = dict(subchain_len=k, block_chains=block)
+        if recorded:
+            kern = lambda s: da.fused_da_pcn_chain_recorded(*args, n_steps=s, thin=1, **kw)
+            plain = lambda s: da._run_plain_recorded(*plain_args, n_steps=s, thin=1, **kw)
+        else:
+            kern = lambda s: da.fused_da_pcn_chain(*args, n_steps=s, **kw)
+            plain = lambda s: da._run_plain(*plain_args, n_steps=s, **kw)
+        compare_chain(results, "fused_da_pcn_kernel[surrogate=richardson]", recorded, kern,
+                      plain, steps=2, kernel_long=10, plain_long=4,
+                      variant=f"rich3_w0.9 surrogate (3 Richardson iterations), block "
+                              f"{block}, k={k}",
+                      paths=[richardson_path(v) for v in rich], source="fused_da_pcn.cu",
+                      pots=(exact, surr), per_step_ops=ops)
+
+
+def check_large_grids(problems, gen, results):
+    """K5 and K7 on the 32x32 and 64x64 grids at their configs' widths: the
+    cold misfit kernel (no path launches it: the warm runs start from the
+    warm misfit), the warm misfit kernel from x0 = 0 and from a previous
+    solution, and the warm pCN kernel, plain and recorded."""
+    from ip_mcmc_tpu_torch.ops import fused_pcn
+
+    for config in ("darcy32_pcn_warm", "darcy64_pcn_warm"):
+        p = problems[config]
+        n_chains, beta = p.n_chains, p.kernel_params["beta"]
+        cold = p.batched_potential_fn
+        warm, aux_dim = p.batched_warm_potential
+        grid = f"{cold.n}x{cold.n}"
+        U = p.prior.sample(gen, n_chains).T.contiguous()
+        cold_pc = "jacobi" if cold.precond == "jacobi" else f"dst_trunc-{cold.modes}"
+        compare_misfit(results, cold, U, variant=f"{grid} cold: {cold_pc}, {cold.cg_iters} CG",
+                       paths=[], tol=F32_TOL if cold.precond == "jacobi" else LARGE_BF16_TOL,
+                       replaces=JAX_DARCY + "542")
+        step = p.prior.sample(gen, n_chains).T.contiguous()
+        U2 = (math.sqrt(1 - beta ** 2) * U + beta * step).contiguous()  # a pCN move
+        zeros = torch.zeros(aux_dim, n_chains, device="cuda")
+        what = f"{grid}: dst_trunc-{warm.modes}, {warm.cg_iters} CG"
+        _, x1 = compare_misfit(results, warm, U, x0=zeros, variant=f"{what}, x0 = 0",
+                               paths=[config], tol=LARGE_BF16_TOL,
+                               replaces=JAX_DARCY + "669")
+        compare_misfit(results, warm, U2, x0=x1, variant=f"{what}, x0 = previous solution",
+                       paths=[config], tol=LARGE_BF16_TOL, replaces=JAX_DARCY + "669")
+        pos = p.init_positions(gen, n_chains).cuda()
+        block = p.kernel_params["block_chains"]
+        args = (warm, pos, p.prior.mean, p.prior.scale, beta, 13)
+        plain_args = (plain_potential(warm, warm=True), *args[1:])
+        ops = solve_ops(warm, True) + Ops(RNG_OPS_PER_DRAW * p.dim)
+        for recorded in (False, True):
+            kw = dict(aux_dim=aux_dim, **({"thin": 1} if recorded else {}))
+            compare_chain(
+                results, "fused_pcn_warm_kernel", recorded,
+                lambda s: fused_pcn._launch(*args, s, block, **kw),
+                lambda s: fused_pcn._run_plain(*plain_args, s, block, **kw),
+                steps=4, kernel_long=36, plain_long=8,
+                variant=f"{what}, block {block}", paths=[config], source="fused_pcn.cu",
+                pots=(warm,), per_step_ops=ops)
+
+
+def run_richardson_da(richardson):
+    """benchmarks/darcy_da_richardson.py on the port: each surrogate's DA run
+    through the runner at 4096 chains (40 outer steps of burn-in, 200
+    recorded), each as a ``drive_phase``; prints outer and inner acceptance
+    and ESS per outer step per chain beside the TPU's figures. Returns (the
+    counts of each run, a row per surrogate)."""
+    from ip_mcmc_tpu_torch import runner
+
+    counts, rows = {}, {}
+    for variant, p in richardson.items():
+        surr = p.batched_surrogate_fn
+        da = ("fused_da_pcn_kernel" if surr.solver == "cg"
+              else f"fused_da_pcn_kernel[surrogate={surr.solver}]")
+        kernels = (p.batched_potential_fn.kernel_label, surr.kernel_label,
+                   f"{da}<false>", f"{da}<true>")
+        counts[p.name], m = drive_phase(p.name, kernels, lambda: runner.run_problem(p, "cuda"))
+        assert m["n_chains"] == p.n_chains and math.isfinite(m["max_rhat"])
+        assert all(math.isfinite(v) for v in m["posterior_mean"])
+        assert 0.0 < m["accept_rate"] <= 1.0 and 0.0 < m["inner_accept_rate"] <= 1.0
+        row = {"outer_accept": m["accept_rate"], "inner_accept": m["inner_accept_rate"],
+               "ess_per_outer_step_chain": m["min_ess"] / (p.n_chains * m["n_samples"]),
+               "outer_steps_per_s": m["outer_steps_per_s"], "ess_per_s": m["ess_per_s"],
+               "max_rhat": m["max_rhat"], "run_s": m["run_s"],
+               "tpu": TPU_RICHARDSON[variant]}
+        rows[variant] = row
+        tpu = row["tpu"]
+        print(f"{p.name}: outer accept {row['outer_accept']:.4f} (TPU {tpu['outer_accept']}), "
+              f"inner {row['inner_accept']:.4f} (TPU {tpu['inner_accept']}), ESS per outer "
+              f"step per chain {row['ess_per_outer_step_chain']:.5f} (TPU "
+              f"{tpu['ess_per_outer_step_chain']}); {row['outer_steps_per_s']:,.0f} outer "
+              f"steps/s, {row['ess_per_s']:,.0f} ESS/s, R-hat {row['max_rhat']:.4f}",
+              flush=True)
+    return counts, rows
+
+
+# the sources of the Darcy kernels (their Burgers and linear-Gaussian
+# instantiations are left out by name)
+DARCY_UNITS = ("fused_da_pcn.cu", "fused_pcn.cu", "fused_ess.cu", "fused_fes.cu",
+               "fused_mala.cu", "fused_rwm.cu")
+
+
+def darcy_ptxas_report():
+    """Registers and spill bytes of every Darcy kernel of this process's
+    build (``_build.ptxas_report``), printed one kernel a line, so that a
+    spill in the DA kernel (one cost it 6 % once) shows in every run."""
+    from ip_mcmc_tpu_torch.ops import _build
+
+    rows = [r for r in _build.ptxas_report() if r["unit"] in DARCY_UNITS
+            and not any(k in r["kernel"].lower()
+                        for k in ("burgers", "lineargaussian", "linear_gaussian"))]
+    if not rows:
+        print("ptxas: no nvcc.log (the kernels were built by another process)", flush=True)
+        return rows
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r["kernel"] for r in rows),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, name in zip(rows, names):
+                r["kernel"] = name
+    for r in rows:
+        print(f"ptxas ({r['unit']}): {r['kernel']}: {r['registers']} registers, "
+              f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads",
+              flush=True)
+    spilled = [r["kernel"] for r in rows if r["spill_stores"] or r["spill_loads"]]
+    print(f"ptxas: {len(rows)} Darcy kernels, {len(spilled)} with spills", flush=True)
+    return rows
+
+
 # --- the linear-Gaussian family: RWM (K14), dense pCN (K15), adaptive pCN (K16)
 
 # benchmarks/compare_paths.py: RWM on N([1, -0.5], diag(2, 0.5)) from zeros,
@@ -1162,6 +1365,10 @@ PATHS = {
                             "fused_da_pcn_kernel<false>", "fused_da_pcn_kernel<true>")),
     "darcy_pcn_warm": ([], ("darcy_misfit_warm_kernel", "fused_pcn_warm_kernel<false>",
                             "fused_pcn_warm_kernel<true>")),
+    "darcy32_pcn_warm": ([], ("darcy_misfit_warm_kernel", "fused_pcn_warm_kernel<false>",
+                              "fused_pcn_warm_kernel<true>")),
+    "darcy64_pcn_warm": ([], ("darcy_misfit_warm_kernel", "fused_pcn_warm_kernel<false>",
+                              "fused_pcn_warm_kernel<true>")),
     "darcy_ess_fused": ([], ("darcy_misfit_kernel[n=16]", "fused_ess_kernel<false>",
                              "fused_ess_kernel<true>")),
     "darcy_pcn_4096": (["--fused"], ("darcy_misfit_kernel[n=16]", "fused_pcn_kernel<false>",
@@ -1263,13 +1470,18 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0.0:.1f} s, "
           f"{len(_build.sources()[1])} sources in parallel)", flush=True)
+    ptxas = darcy_ptxas_report()
 
     problems = {name: configs.build(name, "cuda") for name in PATHS}
     gen = torch.Generator().manual_seed(1234)
     results = []
     check_da(problems["darcy_da_fused"], gen, results)
+    richardson = {v: configs.darcy_da_richardson(v, "cuda")
+                  for v in configs.RICHARDSON_VARIANTS}
+    check_richardson(richardson, gen, results)
     check_warm_misfit(problems["darcy_pcn_warm"], gen, results)
     check_single_level(problems, gen, results)
+    check_large_grids(problems, gen, results)
     check_gradient_and_ensemble(problems, gen, results)
     check_burgers(problems, gen, results)
     check_linear_family(problems, gen, results)
@@ -1287,13 +1499,17 @@ def main() -> int:
         ("linear_gaussian_misfit_kernel", "fused_pcn_adapt_kernel", "pcn_adapt_update_kernel",
          "fused_pcn_dense_kernel<false>", "fused_pcn_dense_kernel<true>"),
         lambda: run_lingauss_fused(problems["lingauss_pcn"]))
+    richardson_counts, richardson_da = run_richardson_da(richardson)
+    counts.update(richardson_counts)
 
-    # the eleven fused CLI paths, as shipped unless their predicted time
+    # the thirteen fused CLI paths, as shipped unless their predicted time
     # exceeds the budget: then every path's n_samples is cut by the same
     # factor; the two scan paths (host-bound, a few seconds) as shipped
     step_ms = {
         "darcy_da_fused": "fused_da_pcn_kernel<true>",
         "darcy_pcn_warm": "fused_pcn_warm_kernel<true>",
+        "darcy32_pcn_warm": "fused_pcn_warm_kernel<true>",
+        "darcy64_pcn_warm": "fused_pcn_warm_kernel<true>",
         "darcy_ess_fused": "fused_ess_kernel<true>",
         "darcy_pcn_4096": "fused_pcn_kernel<true>",
         "darcy_mala_fused": "fused_mala_kernel<true>",
@@ -1311,7 +1527,7 @@ def main() -> int:
     predicted = sum(steps(p, p.n_samples) * step_ms[c] / 1e3
                     for c, p in problems.items() if c in step_ms)
     cut = min(1.0, RUN_BUDGET_S / predicted)
-    print(f"predicted device time of the eleven fused runs as shipped: {predicted:.1f} s",
+    print(f"predicted device time of the thirteen fused runs as shipped: {predicted:.1f} s",
           flush=True)
     for config, problem in problems.items():
         n_samples = problem.n_samples
@@ -1330,7 +1546,8 @@ def main() -> int:
         if r["paths"] and r["launches"] < 1:
             raise AssertionError(f"{r['name']} was launched by none of {r['paths']}")
 
-    print(json.dumps({"kernels": results, "card": card, "compare_paths": compare_paths}))
+    print(json.dumps({"kernels": results, "card": card, "compare_paths": compare_paths,
+                      "richardson_da": richardson_da, "ptxas": ptxas}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

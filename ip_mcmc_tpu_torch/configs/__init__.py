@@ -3,7 +3,10 @@
 Ported so far: on the 16×16 Darcy problem ``darcy_da_fused``,
 ``darcy_pcn_4096`` (its fused path), ``darcy_pcn_warm``,
 ``darcy_ess_fused``, ``darcy_fes_fused``, ``darcy_mala_fused`` and
-``darcy_mala_warm``; on the 128-cell Burgers initial-data inversion
+``darcy_mala_warm``, and the builder ``darcy_da_richardson(variant)``
+(``benchmarks/darcy_da_richardson.py``'s DA runs; JAX registers no config
+for them); on the 32×32 and 64×64 grids ``darcy32_pcn_warm`` and
+``darcy64_pcn_warm``; on the 128-cell Burgers initial-data inversion
 ``burgers_pcn`` and ``burgers_multitime_pcn`` (their fused paths),
 ``burgers_da_pcn`` and ``burgers_da3_pcn``; on the scan path BASELINE
 configs 1 and 2, ``gauss2d_rwm`` (RWM on a 2-D Gaussian) and
@@ -12,7 +15,8 @@ deterministic constants (KL bases, means, observation cells, sources, time
 steps, preconditioner factors, the numpy-drawn forward matrix) are computed
 here in numpy; the arrays the JAX configs draw with JAX keys (the data, the
 truths, the surrogates' calibrations) are read from the committed fixtures
-``darcy16_da.npz``, ``burgers128.npz`` and ``lingauss32.npz`` (written by
+``darcy16_da.npz``, ``darcy16_richardson.npz``, ``darcy32.npz``,
+``darcy64.npz``, ``burgers128.npz`` and ``lingauss32.npz`` (written by
 ``scripts/freeze_torch_fixtures.py``).
 """
 
@@ -36,9 +40,13 @@ from ip_mcmc_tpu_torch.convert import (
 )
 from ip_mcmc_tpu_torch.models import burgers, darcy, kl, linear
 
-FIXTURE = pathlib.Path(__file__).resolve().parent / "darcy16_da.npz"
-BURGERS_FIXTURE = pathlib.Path(__file__).resolve().parent / "burgers128.npz"
-LINGAUSS_FIXTURE = pathlib.Path(__file__).resolve().parent / "lingauss32.npz"
+_HERE = pathlib.Path(__file__).resolve().parent
+FIXTURE = _HERE / "darcy16_da.npz"
+RICHARDSON_FIXTURE = _HERE / "darcy16_richardson.npz"
+DARCY32_FIXTURE = _HERE / "darcy32.npz"
+DARCY64_FIXTURE = _HERE / "darcy64.npz"
+BURGERS_FIXTURE = _HERE / "burgers128.npz"
+LINGAUSS_FIXTURE = _HERE / "lingauss32.npz"
 
 
 @dataclasses.dataclass
@@ -375,6 +383,131 @@ def darcy_da_fused(device) -> Problem:
         "exact posterior",
         batched_potential_fn=exact.to(device),
         batched_surrogate_fn=surrogate.to(device),
+    )
+
+
+# benchmarks/darcy_da_richardson.py's 8×8 surrogates: name -> (solver,
+# iterations, ω), each calibrated with its own solver; cg3 is the one
+# darcy_da_fused ships
+RICHARDSON_VARIANTS = {
+    "cg3": ("cg", 3, 1.0),
+    "rich3_w0.9": ("richardson", 3, 0.9),
+    "rich4_w0.8": ("richardson", 4, 0.8),
+    "rich2_w0.9": ("richardson", 2, 0.9),
+}
+
+
+def richardson_fixture_key(variant: str) -> str:
+    """The suffix of ``variant``'s arrays in ``darcy16_richardson.npz``."""
+    return variant.replace(".", "")
+
+
+def darcy_da_richardson(variant: str, device) -> Problem:
+    """``benchmarks/darcy_da_richardson.py``'s fused DA run with the 8×8
+    surrogate ``variant`` (``RICHARDSON_VARIANTS``): 4096 chains in blocks
+    of 512, k = 48, β = 0.35; exact misfit 16², dst_trunc-128, 12 CG; the
+    surrogate dst_trunc-64 solved by CG or by K17's Richardson iteration.
+    The data is the NumPy oracle's (``default_rng(7)``) and each
+    calibration ran the surrogate's own solver (frozen in
+    ``darcy16_richardson.npz``). Burn-in 40 outer steps, then 200 recorded,
+    as the benchmark's ESS run."""
+    if variant not in RICHARDSON_VARIANTS:
+        raise KeyError(f"unknown surrogate {variant!r}; have "
+                       f"{sorted(RICHARDSON_VARIANTS)}")
+    solver, iters, omega = RICHARDSON_VARIANTS[variant]
+    fx, key = np.load(RICHARDSON_FIXTURE), richardson_fixture_key(variant)
+    K = 64
+    device = torch.device(device)
+    prior = dist.DiagGaussian(
+        mean=torch.zeros(K, device=device), scale=torch.ones(K, device=device)
+    )
+    aux16 = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8, alpha=2.0,
+                            field_scale=10.0)
+    aux8 = darcy.darcy_aux(n_grid=8, n_modes_per_dim=8, alpha=2.0,
+                           field_scale=10.0,
+                           obs_indices=np.load(FIXTURE)["obs_coarse"])
+    exact = darcy_misfit_from_arrays(aux16, fx["y"], 0.002, cg_iters=12,
+                                     precond="dst_trunc", precond_modes=128)
+    surrogate = darcy_misfit_from_arrays(
+        aux8, fx[f"y_surr_{key}"], fx[f"scale_{key}"], cg_iters=iters,
+        precond="dst_trunc", precond_modes=64, solver=solver, omega=omega)
+    return Problem(
+        name=f"darcy_da_richardson[{variant}]",
+        dim=K,
+        prior=prior,
+        kernel="da_pcn",
+        kernel_params={"beta": 0.35, "subchain_len": 48, "fused": True,
+                       "block_chains": 512},
+        n_chains=4096,
+        n_samples=200,
+        burn_in=40,
+        data=fx["y"],
+        truth=fx["u_true"],
+        notes=f"surrogate {variant}: {solver}, {iters} iterations, "
+        f"omega {omega}",
+        batched_potential_fn=exact.to(device),
+        batched_surrogate_fn=surrogate.to(device),
+    )
+
+
+# --- the Darcy inversion on the large grids ----------------------------------
+
+
+def _large_grid_warm(device, name, fixture, n, n_modes_per_dim, modes, cold):
+    """What darcy32_pcn_warm and darcy64_pcn_warm share: the whitened
+    prior, the frozen data, the warm dst_trunc misfit (``modes`` lowest
+    sine modes + Jacobi, 4 CG from the carried solution) and the cold
+    misfit of the config (``cold``: its keyword arguments; not on the fused
+    path)."""
+    fx = np.load(fixture)
+    K = n_modes_per_dim ** 2
+    prior = dist.DiagGaussian(
+        mean=torch.zeros(K, device=device), scale=torch.ones(K, device=device)
+    )
+    aux = darcy.darcy_aux(n_grid=n, n_modes_per_dim=n_modes_per_dim,
+                          alpha=2.0, field_scale=10.0)
+    warm, aux_dim = darcy_warm_misfit_from_arrays(
+        aux, fx["y"], 0.002, cg_iters=4, precond="dst_trunc",
+        precond_modes=modes)
+    return dict(
+        name=name, dim=K, prior=prior, kernel="pcn", data=fx["y"],
+        truth=fx["u_true"],
+        batched_potential_fn=darcy_misfit_from_arrays(
+            aux, fx["y"], 0.002, **cold).to(device),
+        batched_warm_potential=(warm.to(device), aux_dim),
+    )
+
+
+@register
+def darcy32_pcn_warm(device) -> Problem:
+    """Fused warm pCN at 32×32 cells, 64-dim KL: dst_trunc-128 + Jacobi,
+    4 CG from the carried solution; cold misfit Jacobi, 96 CG."""
+    return Problem(
+        **_large_grid_warm(device, "darcy32_pcn_warm", DARCY32_FIXTURE, 32, 8,
+                           128, dict(cg_iters=96)),
+        kernel_params={"fused": True, "warm": True, "beta": 0.08,
+                       "block_chains": 128},
+        n_chains=4096,
+        n_samples=400,
+        burn_in=300,
+        notes="32x32 grid entirely in the fused kernel",
+    )
+
+
+@register
+def darcy64_pcn_warm(device) -> Problem:
+    """Fused warm pCN at 64×64 cells, 144-dim KL: dst_trunc-256 + Jacobi,
+    4 CG from the carried solution; cold misfit dst_trunc-256, 30 CG."""
+    return Problem(
+        **_large_grid_warm(device, "darcy64_pcn_warm", DARCY64_FIXTURE, 64, 12,
+                           256, dict(cg_iters=30, precond="dst_trunc",
+                                     precond_modes=256)),
+        kernel_params={"fused": True, "warm": True, "beta": 0.06,
+                       "block_chains": 128},
+        n_chains=2048,
+        n_samples=300,
+        burn_in=300,
+        notes="64x64 grid entirely in the fused kernel (dst_trunc)",
     )
 
 

@@ -4,7 +4,8 @@
 ``ip_mcmc_tpu.models.darcy.make_batched_misfit`` as numpy arrays — an aux
 dict (``scaled_basis``, ``obs_indices``, ``source``, ``n_grid``), the data
 and the noise scale(s) — and returns the port's ``DarcyMisfit`` with the
-same constants. ``darcy_warm_misfit_from_arrays`` does the same for
+same constants (``solver`` and ``omega`` too: K17's Richardson solve).
+``darcy_warm_misfit_from_arrays`` does the same for
 ``make_batched_misfit_warm`` and returns, as that does, the pair
 (``DarcyMisfitWarm``, ``aux_dim``); ``darcy_mala_warm_misfit_from_arrays``
 for ``make_batched_misfit_mala_warm`` (``DarcyMisfitMalaWarm``,
@@ -37,7 +38,7 @@ from ip_mcmc_tpu_torch.models.darcy import (
 
 
 def _from_arrays(cls, aux, data, noise_scale, cg_iters, precond,
-                 precond_modes, log_a_mean):
+                 precond_modes, log_a_mean, **solve):
     return cls(
         scaled_basis=np.asarray(aux["scaled_basis"], np.float32),
         obs_indices=np.asarray(aux["obs_indices"]),
@@ -49,15 +50,18 @@ def _from_arrays(cls, aux, data, noise_scale, cg_iters, precond,
         precond=precond,
         precond_modes=precond_modes,
         log_a_mean=log_a_mean,
+        **solve,
     )
 
 
 def darcy_misfit_from_arrays(aux, data, noise_scale, cg_iters: int = 48,
                              precond: str = "jacobi",
                              precond_modes: int = 128,
-                             log_a_mean: float = 0.0) -> DarcyMisfit:
+                             log_a_mean: float = 0.0, solver: str = "cg",
+                             omega: float = 1.0) -> DarcyMisfit:
     return _from_arrays(DarcyMisfit, aux, data, noise_scale, cg_iters,
-                        precond, precond_modes, log_a_mean)
+                        precond, precond_modes, log_a_mean, solver=solver,
+                        omega=omega)
 
 
 def darcy_warm_misfit_from_arrays(aux, data, noise_scale, cg_iters: int = 16,

@@ -136,6 +136,7 @@ struct BurgersPotential {
   // on the card's 132 SMs, which caps registers at 32 a thread
   static constexpr int kMaxThreads = 128;
   static constexpr int kMinCtasPerSm = 16;
+  static constexpr int kCellsPerThread = 1;
 
   struct Extent {
     int cells;

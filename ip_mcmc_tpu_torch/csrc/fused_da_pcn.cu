@@ -54,16 +54,36 @@
 
 namespace ipx {
 
-__global__ void darcy_misfit_kernel(IpxMisfitSpec s, const float* __restrict__ U,
-                                    int B, float* __restrict__ phi) {
+// Phi for a (K, B) batch at one spec, one CTA per draw.
+template <class Pot>
+__device__ __forceinline__ void misfit_batch(const IpxMisfitSpec& s, const float* __restrict__ U,
+                                             int B, float* __restrict__ phi) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, cells = s.n * s.n;
   float* u = smem;
   const MisfitSmem ws = carve_misfit_smem(smem + s.K, cells, s.modes);
   for (int k = threadIdx.x; k < s.K; k += blockDim.x) u[k] = U[static_cast<size_t>(k) * B + b];
   __syncthreads();
-  const float v = darcy_phi(s, u, ws);
+  const float v = Pot::phi(s, u, ws);
   if (threadIdx.x == 0) phi[b] = v;
+}
+
+// Layouts of up to 256 threads need no launch bound (a thread may have all
+// 255 registers) and get none, as the kernel always had: a bound changes
+// ptxas' register allocation. The wider layouts carry the samplers' bound,
+// which caps a thread's registers so that the CTA (or kMinCtas of them)
+// fits on an SM.
+template <class Pot>
+__global__ void darcy_misfit_kernel(IpxMisfitSpec s, const float* __restrict__ U, int B,
+                                    float* __restrict__ phi) {
+  misfit_batch<Pot>(s, U, B, phi);
+}
+
+template <class Pot>
+__global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
+    darcy_misfit_wide_kernel(IpxMisfitSpec s, const float* __restrict__ U, int B,
+                             float* __restrict__ phi) {
+  misfit_batch<Pot>(s, U, B, phi);
 }
 
 template <class Pot>
@@ -79,7 +99,9 @@ struct DaArgs {
 
 // K4: k pCN steps against the surrogate (tags 4j, 4j+1, 4j+2), then one
 // exact correction (Phi(u) - Phi(v)) - (Phi*(u) - Phi*(v)) with tag 4k+2.
-template <class Pot>
+// Surr: the surrogate's potential type (Pot's, or Pot's with another
+// solve).
+template <class Pot, class Surr = Pot>
 struct DaStep {
   const DaArgs<Pot>& a;
   const typename Pot::Spec& surr;  // a.surr with its factors staged on chip
@@ -104,7 +126,7 @@ struct DaStep {
         prop[c.t] = c.mean_t + a.contraction * (pos[c.t] - c.mean_t) + a.beta * xi;
       }
       __syncthreads();
-      const float sp = Pot::phi(surr, prop, ws);
+      const float sp = Surr::phi(surr, prop, ws);
       if (logf(c.uniform(i, 4u * j + 2u)) < surr_v - sp) {  // the same in every thread
         in_acc += 1.0f;
         surr_v = sp;
@@ -131,7 +153,7 @@ struct DaStep {
 // thread (96 without the bound; 2 CTAs per SM). Measured on the H100 at
 // 4096 chains, k = 48: 11.07 ms per outer step against 16.25 ms without the
 // bound (40-48 bytes of spills).
-template <class Pot, bool RECORD>
+template <class Pot, bool RECORD, class Surr = Pot>
 __global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
     fused_da_pcn_kernel(DaArgs<Pot> a) {
   extern __shared__ float smem[];
@@ -152,22 +174,25 @@ __global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
   __builtin_assume(__isShared(prop + d + Pot::workspace_floats(extent)));
   Pot::stage(a.surr, surr, prop + d + Pot::workspace_floats(extent));
 
-  DaStep<Pot> step{a, surr, pos0, pos, prop, Pot::carve(prop + d, extent), 0.0f, 0.0f, 0.0f};
+  DaStep<Pot, Surr> step{a, surr, pos0, pos, prop, Pot::carve(prop + d, extent),
+                         0.0f, 0.0f, 0.0f};
   run_chain<RECORD>(a.chain, step, pos0);
   if (t == 0)
     a.inner[blockIdx.x] = step.in_acc / fmaxf(static_cast<float>(a.chain.n_steps) *
                                                   static_cast<float>(a.k), 1.0f);
 }
 
-// Launches fused_da_pcn_kernel<Pot, RECORD> (RECORD: chain.samples given).
-template <class Pot>
+// Launches fused_da_pcn_kernel<Pot, RECORD, Surr> (RECORD: chain.samples
+// given).
+template <class Pot, class Surr = Pot>
 int launch_da_pcn(const typename Pot::Spec& exact, const typename Pot::Spec& surr,
                   const IpxChainArgs& chain, const float* phi0, const float* surr0,
                   float beta, float contraction, int k, float* inner, void* stream) {
   const typename Pot::Extent extent = Pot::join(Pot::extent(exact), Pot::extent(surr));
-  const int threads = chain_threads(chain, extent.cells, exact.K, Pot::kMaxThreads);
+  const int threads =
+      chain_threads(chain, extent.cells, exact.K, Pot::kMaxThreads, Pot::kCellsPerThread);
   const int d = chain.d, n = chain.n;
-  if (threads == 0 || !Pot::valid(exact) || !Pot::valid(surr) || surr.K != d || k < 0)
+  if (threads == 0 || !Pot::valid(exact) || !Surr::valid(surr) || surr.K != d || k < 0)
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const DaArgs<Pot> a{exact, surr, chain, phi0, surr0, beta, contraction, k, inner};
@@ -176,14 +201,30 @@ int launch_da_pcn(const typename Pot::Spec& exact, const typename Pot::Spec& sur
       sizeof(float) * (3 * d + Pot::workspace_floats(extent)) + Pot::staged_bytes(surr);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (chain.samples != nullptr) {
-    cudaFuncSetAttribute(fused_da_pcn_kernel<Pot, true>,
+    cudaFuncSetAttribute(fused_da_pcn_kernel<Pot, true, Surr>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    fused_da_pcn_kernel<Pot, true><<<n, threads, smem, st>>>(a);
+    fused_da_pcn_kernel<Pot, true, Surr><<<n, threads, smem, st>>>(a);
   } else {
-    cudaFuncSetAttribute(fused_da_pcn_kernel<Pot, false>,
+    cudaFuncSetAttribute(fused_da_pcn_kernel<Pot, false, Surr>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    fused_da_pcn_kernel<Pot, false><<<n, threads, smem, st>>>(a);
+    fused_da_pcn_kernel<Pot, false, Surr><<<n, threads, smem, st>>>(a);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches darcy_misfit_kernel<Pot> (or its bounded form).
+template <class Pot>
+int launch_misfit(const IpxMisfitSpec& s, const float* U, int B, float* phi, void* stream) {
+  const int cells = s.n * s.n;
+  const int threads = round_up32((cells + Pot::kCellsPerThread - 1) / Pot::kCellsPerThread);
+  if (threads > Pot::kMaxThreads || !Pot::valid(s) || B < 0) return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const size_t smem = sizeof(float) * (s.K + misfit_smem_floats(cells, s.modes));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (Pot::kMaxThreads <= 256)
+    darcy_misfit_kernel<Pot><<<B, threads, smem, st>>>(s, U, B, phi);
+  else
+    darcy_misfit_wide_kernel<Pot><<<B, threads, smem, st>>>(s, U, B, phi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -195,22 +236,30 @@ const char* ipx_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// sizeof(IpxMisfitSpec), against which the ctypes mirror is checked.
+int ipx_misfit_spec_size() { return static_cast<int>(sizeof(IpxMisfitSpec)); }
+
+// The layout follows the spec's grid, the solve its solver.
 int ipx_darcy_misfit(const IpxMisfitSpec* s, const float* U, int B, float* phi,
                      void* stream) {
-  const int cells = s->n * s->n;
-  const int threads = ipx::round_up32(cells);
-  if (threads > 1024 || s->K <= 0 || s->modes < 0 || B < 0) return cudaErrorInvalidValue;
-  if (B == 0) return cudaSuccess;
-  const size_t smem = sizeof(float) * (s->K + ipx::misfit_smem_floats(cells, s->modes));
-  ipx::darcy_misfit_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(*s, U, B, phi);
-  return static_cast<int>(cudaGetLastError());
+  const auto launch = [&](auto pot) {
+    return ipx::launch_misfit<decltype(pot)>(*s, U, B, phi, stream);
+  };
+  if (s->solver == kSolverRichardson)
+    return ipx::with_darcy_layout<kSolverRichardson>(*s, launch);
+  return ipx::with_darcy_layout<kSolverCg>(*s, launch);
 }
 
+// The exact misfit is solved by CG; the surrogate by CG or by Richardson.
 int ipx_fused_da_pcn(const IpxMisfitSpec* exact, const IpxMisfitSpec* surr,
                      const IpxChainArgs* chain, const float* phi0, const float* surr0,
                      float beta, float contraction, int k, float* inner, void* stream) {
-  return ipx::launch_da_pcn<ipx::DarcyPotential>(*exact, *surr, *chain, phi0, surr0, beta,
-                                                 contraction, k, inner, stream);
+  using ipx::DarcyPotential;
+  if (surr->solver == kSolverRichardson)
+    return ipx::launch_da_pcn<DarcyPotential, ipx::DarcyPot<ipx::Layout16, kSolverRichardson>>(
+        *exact, *surr, *chain, phi0, surr0, beta, contraction, k, inner, stream);
+  return ipx::launch_da_pcn<DarcyPotential>(*exact, *surr, *chain, phi0, surr0, beta,
+                                            contraction, k, inner, stream);
 }
 
 int ipx_fused_da_pcn_burgers(const IpxBurgersSpec* exact, const IpxBurgersSpec* surr,

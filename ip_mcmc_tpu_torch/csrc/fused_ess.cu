@@ -92,7 +92,7 @@ int ipx_fused_ess(const IpxMisfitSpec* pot, const IpxChainArgs* chain, const flo
                   int max_shrink, void* stream) {
   const int cells = pot->n * pot->n;
   const int threads = ipx::chain_threads(*chain, cells, pot->K);
-  if (threads == 0 || max_shrink < 0) return cudaErrorInvalidValue;
+  if (threads == 0 || max_shrink < 0 || pot->solver != kSolverCg) return cudaErrorInvalidValue;
   if (chain->n == 0) return cudaSuccess;
   const ipx::EssArgs a{*pot, *chain, phi0, max_shrink};
   const size_t smem = sizeof(float) * (2 * chain->d + ipx::misfit_smem_floats(cells, pot->modes));

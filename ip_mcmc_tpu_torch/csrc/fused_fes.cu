@@ -138,8 +138,9 @@ int ipx_fused_fes(const IpxMisfitSpec* pot, const IpxChainArgs* chain, float* ph
                   float stretch_a, int n_low, int step, int sub, void* stream) {
   const int cells = pot->n * pot->n;
   const int threads = ipx::chain_threads(*chain, cells, pot->K);
-  if (threads == 0 || chain->block_chains % 2 || chain->n % chain->block_chains || n_low < 0 ||
-      n_low > chain->d || step < 0 || (sub != 0 && sub != 1))
+  if (threads == 0 || pot->solver != kSolverCg || chain->block_chains % 2 ||
+      chain->n % chain->block_chains || n_low < 0 || n_low > chain->d || step < 0 ||
+      (sub != 0 && sub != 1))
     return cudaErrorInvalidValue;
   if (chain->n == 0) return cudaSuccess;
   const ipx::FesArgs a{*pot, *chain, phi, pcn_acc, st_acc, record, beta, contraction,

@@ -189,7 +189,8 @@ int ipx_darcy_misfit_grad(const IpxMisfitSpec* s, const float* U, const float* a
                           float* phi, float* grad, float* aux, void* stream) {
   const int cells = s->n * s->n;
   const int threads = ipx::round_up32(cells);
-  if (threads > 1024 || s->K <= 0 || s->modes < 0 || B < 0) return cudaErrorInvalidValue;
+  if (threads > 1024 || s->K <= 0 || s->modes < 0 || B < 0 || s->solver != kSolverCg)
+    return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const size_t smem = sizeof(float) * (2 * s->K + ipx::misfit_smem_floats(cells, s->modes) +
                                        ipx::grad_smem_floats(cells, s->m));
@@ -208,7 +209,7 @@ int ipx_fused_mala(const IpxMisfitSpec* pot, const IpxChainArgs* chain, const fl
                    const float* g0, const float* aux0, float eps, void* stream) {
   const int cells = pot->n * pot->n;
   const int threads = ipx::chain_threads(*chain, cells, pot->K);
-  if (threads == 0) return cudaErrorInvalidValue;
+  if (threads == 0 || pot->solver != kSolverCg) return cudaErrorInvalidValue;
   if (chain->n == 0) return cudaSuccess;
   const ipx::MalaArgs a{*pot, *chain, phi0, g0, aux0, eps};
   const bool warm = aux0 != nullptr;

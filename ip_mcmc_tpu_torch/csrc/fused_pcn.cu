@@ -7,21 +7,24 @@
 // _make_pcn_warm_step_builder (K7, l.486) around
 // darcy.make_batched_misfit_warm (ip_mcmc_tpu/models/darcy.py l.669).
 //
-//   darcy_misfit_warm_kernel       (U (K, B), x0 (n*n, B)) -> (Phi (B,),
+//   darcy_misfit_warm_kernel<Pot>  (U (K, B), x0 (n*n, B)) -> (Phi (B,),
 //                                  x (n*n, B)): the warm-started misfit.
 //   fused_pcn_kernel<Pot, RECORD>  cold pCN: proposal, Phi, MH. The
-//                                  potential is a type: DarcyPotential
-//                                  (Phi from x = 0) or BurgersPotential
-//                                  (K12, burgers_misfit.cuh).
-//   fused_pcn_warm_kernel<RECORD>  pCN carrying each chain's CG solution:
-//                                  thread t keeps its cell of the accepted
-//                                  x in a register, the proposal's solve
-//                                  starts from it, and x follows the MH
-//                                  select.
+//                                  potential is a type: DarcyPot (Phi from
+//                                  x = 0) or BurgersPotential (K12,
+//                                  burgers_misfit.cuh).
+//   fused_pcn_warm_kernel<Pot, RECORD>  pCN carrying each chain's CG
+//                                  solution: each thread keeps its cells of
+//                                  the accepted x in registers, the
+//                                  proposal's solve starts from them, and x
+//                                  follows the MH select.
 //
-// Layout and scaffold: fused_scaffold.cuh (one CTA per chain, one thread
-// per cell). Phi (and x) at the start positions come in from the
-// standalone misfit kernels. Tags: normals 0 (keys 0, 1), MH uniform 2.
+// Layout and scaffold: fused_scaffold.cuh (one CTA per chain) and the
+// Darcy layouts of darcy_misfit.cuh: up to 16 x 16 one thread per cell; the
+// 32 x 32 and 64 x 64 grids (darcy32_pcn_warm, darcy64_pcn_warm) several
+// cells per thread, picked from the spec's grid at launch. Phi (and x) at
+// the start positions come in from the standalone misfit kernels. Tags:
+// normals 0 (keys 0, 1), MH uniform 2.
 //
 // What bounds them on the H100: per chain and step one solve (Burgers: the
 // barrier per Godunov step, see burgers_misfit.cuh). The Darcy
@@ -29,12 +32,17 @@
 // dependent block reductions of 256 threads, so barrier latency, not the
 // f32 rate or memory, sets its time; the warm dst_trunc solve (4
 // iterations, 64 modes) re-reads the 32 KB of bf16 modes from L1/L2 ten
-// times per step. This first design keeps the factors in global memory and
-// one chain per CTA: no staging, no wgmma, no TMA.
+// times per step. On the large grids the factors are megabytes (64 x 64:
+// the f32 KL basis 2.4 MB, the 256 bf16 modes 2 MB), so each chain-step
+// reads ~22 MB from L2 there (the basis once, V twice in each of five
+// preconditioner applies) and L2 bandwidth bounds the step. This first
+// design keeps the factors in global memory and one chain per CTA: no
+// staging, no wgmma, no TMA.
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "burgers_misfit.cuh"
 #include "darcy_misfit.cuh"
@@ -42,19 +50,50 @@
 
 namespace ipx {
 
-__global__ void darcy_misfit_warm_kernel(IpxMisfitSpec s, const float* __restrict__ U,
-                                         const float* __restrict__ x0, int B,
-                                         float* __restrict__ phi, float* __restrict__ x_out) {
+// (Phi, x) for a (K, B) batch from the starts x0, one CTA per draw.
+template <class Pot>
+__device__ __forceinline__ void misfit_warm_batch(const IpxMisfitSpec& s,
+                                                  const float* __restrict__ U,
+                                                  const float* __restrict__ x0, int B,
+                                                  float* __restrict__ phi,
+                                                  float* __restrict__ x_out) {
+  constexpr int C = Pot::kCellsPerThread;
   extern __shared__ float smem[];
   const int b = blockIdx.x, t = threadIdx.x, cells = s.n * s.n;
   float* u = smem;
   const MisfitSmem ws = carve_misfit_smem(smem + s.K, cells, s.modes);
   for (int k = t; k < s.K; k += blockDim.x) u[k] = U[static_cast<size_t>(k) * B + b];
-  float x = t < cells ? x0[static_cast<size_t>(t) * B + b] : 0.0f;
+  float x[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int cell = own_cell(c);
+    x[c] = cell < cells ? x0[static_cast<size_t>(cell) * B + b] : 0.0f;
+  }
   __syncthreads();
-  const float v = darcy_solve<true>(s, u, ws, x);
-  if (t < cells) x_out[static_cast<size_t>(t) * B + b] = x;
+  const float v = darcy_solve<true, C>(s, u, ws, x);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int cell = own_cell(c);
+    if (cell < cells) x_out[static_cast<size_t>(cell) * B + b] = x[c];
+  }
   if (t == 0) phi[b] = v;
+}
+
+// No launch bound up to 256 threads, the wider layouts' bound above (see
+// darcy_misfit_kernel in fused_da_pcn.cu).
+template <class Pot>
+__global__ void darcy_misfit_warm_kernel(IpxMisfitSpec s, const float* __restrict__ U,
+                                         const float* __restrict__ x0, int B,
+                                         float* __restrict__ phi, float* __restrict__ x_out) {
+  misfit_warm_batch<Pot>(s, U, x0, B, phi, x_out);
+}
+
+template <class Pot>
+__global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
+    darcy_misfit_warm_wide_kernel(IpxMisfitSpec s, const float* __restrict__ U,
+                                  const float* __restrict__ x0, int B, float* __restrict__ phi,
+                                  float* __restrict__ x_out) {
+  misfit_warm_batch<Pot>(s, U, x0, B, phi, x_out);
 }
 
 template <class Pot>
@@ -68,21 +107,29 @@ struct PcnArgs {
 
 // K6 / K7: prop = m + sqrt(1 - beta^2) (pos - m) + beta scale xi; accept
 // when log u < Phi(pos) - Phi(prop), so a NaN Phi(prop) rejects.
-// WARM (Darcy only): x is this thread's cell of the accepted CG solution.
+// WARM (Darcy only): x holds this thread's cells of the accepted CG
+// solution.
 template <class Pot, bool WARM>
 struct PcnStep {
+  static constexpr int C = Pot::kCellsPerThread;
   const PcnArgs<Pot>& a;
   float* pos;
   float* prop;
   typename Pot::Workspace ws;
-  float phi, x;
+  float phi;
+  float x[C];
 
   __device__ void init(const ChainCtx& c) {
     phi = a.phi0[c.c];
-    x = 0.0f;
+#pragma unroll
+    for (int k = 0; k < C; ++k) x[k] = 0.0f;
     if constexpr (WARM) {
       const int cells = a.pot.n * a.pot.n;
-      if (c.t < cells) x = a.x0[static_cast<size_t>(c.t) * a.chain.n + c.c];
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const int cell = own_cell(k);
+        if (cell < cells) x[k] = a.x0[static_cast<size_t>(cell) * a.chain.n + c.c];
+      }
     }
   }
 
@@ -92,14 +139,19 @@ struct PcnStep {
       prop[c.t] = c.mean_t + a.contraction * (pos[c.t] - c.mean_t) + a.beta * xi;
     }
     __syncthreads();
-    float x_prop = x;
+    float x_prop[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k) x_prop[k] = x[k];
     float phi_prop;
-    if constexpr (WARM) phi_prop = darcy_solve<true>(a.pot, prop, ws, x_prop);
+    if constexpr (WARM) phi_prop = darcy_solve<true, C>(a.pot, prop, ws, x_prop);
     else phi_prop = Pot::phi(a.pot, prop, ws);
     const bool accept = logf(c.uniform(i, 2u)) < phi - phi_prop;
     if (accept) {
       phi = phi_prop;
-      if (WARM) x = x_prop;
+      if (WARM) {
+#pragma unroll
+        for (int k = 0; k < C; ++k) x[k] = x_prop[k];
+      }
       if (c.own) pos[c.t] = prop[c.t];
     }
     return accept;
@@ -112,7 +164,7 @@ __device__ void pcn_chain(const PcnArgs<Pot>& a) {
   float* pos = smem;
   float* prop = pos + a.chain.d;
   PcnStep<Pot, WARM> step{a, pos, prop, Pot::carve(prop + a.chain.d, Pot::extent(a.pot)),
-                          0.0f, 0.0f};
+                          0.0f, {}};
   run_chain<RECORD>(a.chain, step, pos);
 }
 
@@ -122,25 +174,52 @@ __global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
   pcn_chain<Pot, RECORD, false>(a);
 }
 
-template <bool RECORD>
-__global__ void __launch_bounds__(kFusedThreads, 4)
-    fused_pcn_warm_kernel(PcnArgs<DarcyPotential> a) {
-  pcn_chain<DarcyPotential, RECORD, true>(a);
+template <class Pot, bool RECORD>
+__global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
+    fused_pcn_warm_kernel(PcnArgs<Pot> a) {
+  pcn_chain<Pot, RECORD, true>(a);
 }
 
-// Launches fused_pcn_kernel<Pot, RECORD> (RECORD: chain.samples given).
+// Launches fused_pcn_kernel<Pot, RECORD> or, with x0 given (Darcy only),
+// fused_pcn_warm_kernel<Pot, RECORD> (RECORD: chain.samples given).
 template <class Pot>
 int launch_pcn(const typename Pot::Spec& pot, const IpxChainArgs& chain, const float* phi0,
-               float beta, float contraction, void* stream) {
+               const float* x0, float beta, float contraction, void* stream) {
   const typename Pot::Extent extent = Pot::extent(pot);
-  const int threads = chain_threads(chain, extent.cells, pot.K, Pot::kMaxThreads);
+  const int threads =
+      chain_threads(chain, extent.cells, pot.K, Pot::kMaxThreads, Pot::kCellsPerThread);
   if (threads == 0 || !Pot::valid(pot)) return cudaErrorInvalidValue;
   if (chain.n == 0) return cudaSuccess;
-  const PcnArgs<Pot> a{pot, chain, phi0, nullptr, beta, contraction};
+  const PcnArgs<Pot> a{pot, chain, phi0, x0, beta, contraction};
   const size_t smem = sizeof(float) * (2 * chain.d + Pot::workspace_floats(extent));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (chain.samples != nullptr) fused_pcn_kernel<Pot, true><<<chain.n, threads, smem, st>>>(a);
-  else fused_pcn_kernel<Pot, false><<<chain.n, threads, smem, st>>>(a);
+  const bool record = chain.samples != nullptr;
+  if (x0 == nullptr) {
+    if (record) fused_pcn_kernel<Pot, true><<<chain.n, threads, smem, st>>>(a);
+    else fused_pcn_kernel<Pot, false><<<chain.n, threads, smem, st>>>(a);
+  } else if constexpr (std::is_same_v<typename Pot::Spec, IpxMisfitSpec>) {
+    if (record) fused_pcn_warm_kernel<Pot, true><<<chain.n, threads, smem, st>>>(a);
+    else fused_pcn_warm_kernel<Pot, false><<<chain.n, threads, smem, st>>>(a);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches darcy_misfit_warm_kernel<Pot> (or its bounded form).
+template <class Pot>
+int launch_misfit_warm(const IpxMisfitSpec& s, const float* U, const float* x0, int B,
+                       float* phi, float* x, void* stream) {
+  const int cells = s.n * s.n;
+  const int threads = round_up32((cells + Pot::kCellsPerThread - 1) / Pot::kCellsPerThread);
+  if (threads > Pot::kMaxThreads || !Pot::valid(s) || B < 0) return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const size_t smem = sizeof(float) * (s.K + misfit_smem_floats(cells, s.modes));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (Pot::kMaxThreads <= 256)
+    darcy_misfit_warm_kernel<Pot><<<B, threads, smem, st>>>(s, U, x0, B, phi, x);
+  else
+    darcy_misfit_warm_wide_kernel<Pot><<<B, threads, smem, st>>>(s, U, x0, B, phi, x);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -150,38 +229,24 @@ extern "C" {
 
 int ipx_darcy_misfit_warm(const IpxMisfitSpec* s, const float* U, const float* x0, int B,
                           float* phi, float* x, void* stream) {
-  const int cells = s->n * s->n;
-  const int threads = ipx::round_up32(cells);
-  if (threads > 1024 || s->K <= 0 || s->modes < 0 || B < 0) return cudaErrorInvalidValue;
-  if (B == 0) return cudaSuccess;
-  const size_t smem = sizeof(float) * (s->K + ipx::misfit_smem_floats(cells, s->modes));
-  ipx::darcy_misfit_warm_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      *s, U, x0, B, phi, x);
-  return static_cast<int>(cudaGetLastError());
+  return ipx::with_darcy_layout<kSolverCg>(*s, [&](auto pot) {
+    return ipx::launch_misfit_warm<decltype(pot)>(*s, U, x0, B, phi, x, stream);
+  });
 }
 
 // x0 == null: cold pCN (fused_pcn_kernel); else warm (fused_pcn_warm_kernel).
+// The layout follows the spec's grid.
 int ipx_fused_pcn(const IpxMisfitSpec* pot, const IpxChainArgs* chain, const float* phi0,
                   const float* x0, float beta, float contraction, void* stream) {
-  if (x0 == nullptr)
-    return ipx::launch_pcn<ipx::DarcyPotential>(*pot, *chain, phi0, beta, contraction, stream);
-  const int cells = pot->n * pot->n;
-  const int threads = ipx::chain_threads(*chain, cells, pot->K);
-  if (threads == 0) return cudaErrorInvalidValue;
-  if (chain->n == 0) return cudaSuccess;
-  const ipx::PcnArgs<ipx::DarcyPotential> a{*pot, *chain, phi0, x0, beta, contraction};
-  const size_t smem = sizeof(float) * (2 * chain->d + ipx::misfit_smem_floats(cells, pot->modes));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (chain->samples != nullptr)
-    ipx::fused_pcn_warm_kernel<true><<<chain->n, threads, smem, st>>>(a);
-  else
-    ipx::fused_pcn_warm_kernel<false><<<chain->n, threads, smem, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return ipx::with_darcy_layout<kSolverCg>(*pot, [&](auto p) {
+    return ipx::launch_pcn<decltype(p)>(*pot, *chain, phi0, x0, beta, contraction, stream);
+  });
 }
 
 int ipx_fused_pcn_burgers(const IpxBurgersSpec* pot, const IpxChainArgs* chain,
                           const float* phi0, float beta, float contraction, void* stream) {
-  return ipx::launch_pcn<ipx::BurgersPotential>(*pot, *chain, phi0, beta, contraction, stream);
+  return ipx::launch_pcn<ipx::BurgersPotential>(*pot, *chain, phi0, nullptr, beta, contraction,
+                                                stream);
 }
 
 }  // extern "C"

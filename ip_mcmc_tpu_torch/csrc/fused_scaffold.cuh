@@ -37,8 +37,9 @@ typedef struct {
 
 namespace ipx {
 
-// The Darcy samplers' CTA: 256 threads (one per cell of a 16x16 grid) and
-// at least 4 CTAs per SM, which caps registers at 64 a thread.
+// The CTA of the 16x16 Darcy samplers that take no layout of their own
+// (ESS, FES, MALA): 256 threads, one per cell, and at least 4 CTAs per SM,
+// which caps registers at 64 a thread.
 constexpr int kFusedThreads = 256;
 
 struct ChainCtx {
@@ -96,11 +97,13 @@ __device__ void run_chain(const IpxChainArgs& a, Step& step, float* pos) {
   if (x.t == 0) a.acc[x.c] = acc / static_cast<float>(a.n_steps);
 }
 
-// What every launch of a sampler checks; threads for it (one per cell of
-// the largest grid, at least d, at most the kernel's launch bound) or 0.
+// What every launch of a sampler checks; threads for it (enough for the
+// cells of the largest grid at cells_per_thread each, at least d, at most
+// the kernel's launch bound) or 0.
 inline int chain_threads(const IpxChainArgs& a, int cells, int K,
-                         int max_threads = kFusedThreads) {
-  const int threads = ((cells > a.d ? cells : a.d) + 31) / 32 * 32;
+                         int max_threads = kFusedThreads, int cells_per_thread = 1) {
+  const int owners = (cells + cells_per_thread - 1) / cells_per_thread;
+  const int threads = ((owners > a.d ? owners : a.d) + 31) / 32 * 32;
   const bool record = a.samples != nullptr;
   if (threads > max_threads || K != a.d || a.block_chains <= 0 || a.n < 0 || a.n_steps < 0 ||
       (record && a.thin <= 0))

@@ -68,6 +68,7 @@ struct LinearGaussianPotential {
   // 64 registers a thread that 4 CTAs of 256 threads allow
   static constexpr int kMaxThreads = 256;
   static constexpr int kMinCtasPerSm = 4;
+  static constexpr int kCellsPerThread = 1;  // one thread per row
 
   struct Extent {
     int cells;  // rows that get a thread of their own

@@ -6,8 +6,10 @@ basis, observation cells, source) in numpy. ``DarcyMisfit`` is
 ``make_batched_misfit``: Φ for a features-first (K, B) batch of whitened KL
 coefficients — KL reconstruction, exp, harmonic-mean face
 transmissibilities, fixed-count PCG on the 5-point finite-volume operator
-with the Jacobi or ``dst_trunc`` preconditioner, pressure at the
-observation cells, ½‖(y − pred)/σ‖². Its ``value_and_grad`` is the adjoint
+with the Jacobi or ``dst_trunc`` preconditioner (or, with
+``solver="richardson"``, fixed-ω preconditioned Richardson: K17,
+``_richardson_flat``), pressure at the observation cells,
+½‖(y − pred)/σ‖². Its ``value_and_grad`` is the adjoint
 method of ``differentiable=True`` (one more CG solve A λ = −Oᵀ(res/σ) and
 the closed-form derivative of the harmonic means), and a tensor that
 requires grad goes through a ``torch.autograd.Function`` with that adjoint
@@ -96,17 +98,27 @@ class DarcyMisfit(nn.Module):
     preconditioner modes and ``lam`` (modes,) their eigenvalues (modes = 0
     unless ``dst_trunc``); for ``dst`` the bf16 sine matrix ``S`` (n, n)
     and ``lam`` (n²,); ``source`` (n²,); ``obs`` (m,) int32 cells;
-    ``data`` and ``noise`` (m,)."""
+    ``data`` and ``noise`` (m,).
+
+    ``solver``: "cg" or "richardson" (``cg_iters`` iterations either way;
+    ``omega`` is Richardson's relaxation). As in JAX, Richardson takes
+    either preconditioner and has no adjoint gradient."""
 
     PRECONDS = ("jacobi", "dst_trunc")
+    SOLVERS = ("cg", "richardson")
 
     def __init__(self, scaled_basis, obs_indices, source, data, noise_scale,
                  n_grid: int, cg_iters: int = 48, precond: str = "jacobi",
-                 precond_modes: int = 128, log_a_mean: float = 0.0):
+                 precond_modes: int = 128, log_a_mean: float = 0.0,
+                 solver: str = "cg", omega: float = 1.0):
         super().__init__()
         if precond not in self.PRECONDS:
             raise ValueError(
                 f"precond must be one of {self.PRECONDS}, got {precond!r}"
+            )
+        if solver not in self.SOLVERS:
+            raise ValueError(
+                f"solver must be one of {self.SOLVERS}, got {solver!r}"
             )
         n = int(n_grid)
         basis = np.ascontiguousarray(scaled_basis, np.float32)  # read row-major by the kernel
@@ -125,8 +137,9 @@ class DarcyMisfit(nn.Module):
             S, lam = dst_factors(n)
             lam = lam.reshape(-1)
         self.n, self.K, self.modes = n, basis.shape[0], modes
-        self.precond = precond
+        self.precond, self.solver = precond, solver
         self.cg_iters, self.log_a_mean = int(cg_iters), float(log_a_mean)
+        self.omega = float(np.float32(omega))  # the f32 ω of the JAX solve
         self.register_buffer("basis", torch.tensor(basis))
         self.register_buffer(
             "V", torch.tensor(V.astype(np.float32)).to(torch.bfloat16)
@@ -156,12 +169,29 @@ class DarcyMisfit(nn.Module):
 
     def value_and_grad(self, U: torch.Tensor):
         """(Φ (B,), ∇Φ (K, B)) by the adjoint method, both solves from 0."""
+        self._require_cg("the adjoint gradient")
         if U.device.type == "cuda":
             return self._grad_kernel(U, None)[:2]
         if U.device.type == "cpu":
             _build.launch_counts[f"darcy_misfit_grad_plain[n={self.n}]"] += 1
             return self._value_and_grad_plain(U)[:2]
         raise ValueError(f"DarcyMisfit: unsupported device {U.device}")
+
+    def _require_cg(self, what: str):
+        """JAX refuses solver="richardson" with differentiable=True: the
+        adjoint solve reuses the forward solver, and Richardson is meant
+        for surrogates, which are never differentiated."""
+        if self.solver != "cg":
+            raise ValueError(
+                f"{what} needs solver='cg' (solver={self.solver!r} is for "
+                "surrogate misfits, which are never differentiated)"
+            )
+
+    @property
+    def kernel_label(self) -> str:
+        """The launch count's name of this misfit's kernel."""
+        tag = "" if self.solver == "cg" else f",{self.solver}"
+        return f"darcy_misfit_kernel[n={self.n}{tag}]"
 
     # --- the kernel -------------------------------------------------------
 
@@ -181,6 +211,7 @@ class DarcyMisfit(nn.Module):
             cg_iters=self.cg_iters, m=int(self.obs.numel()),
             precond=_build.PRECOND_CODES[self.precond],
             log_a_mean=self.log_a_mean,
+            solver=_build.SOLVER_CODES[self.solver], omega=self.omega,
         )
 
     def check_input(self, U: torch.Tensor, what: str = "U"):
@@ -206,8 +237,8 @@ class DarcyMisfit(nn.Module):
             ctypes.byref(spec), U.data_ptr(), B, phi.data_ptr(),
             torch.cuda.current_stream(U.device).cuda_stream,
         )
-        _build.check(status, "darcy_misfit_kernel")
-        _build.launch_counts[f"darcy_misfit_kernel[n={self.n}]"] += 1
+        _build.check(status, self.kernel_label)
+        _build.launch_counts[self.kernel_label] += 1
         return phi
 
     def _grad_kernel(self, U, aux0):
@@ -338,6 +369,17 @@ class DarcyMisfit(nn.Module):
             rz = rz_new
         return x
 
+    def _richardson(self, apply, inv_diag, a_bar, b):
+        """Fixed-ω preconditioned Richardson on A x = b (N, B) from 0
+        (``_richardson_flat``): x₁ = ω M⁻¹b, then ``cg_iters`` − 1 updates
+        x ← x + ω M⁻¹(b − A x); ``cg_iters`` ≤ 1 leaves x₁. No dot products
+        and no guards."""
+        om = self.omega
+        x = om * self._precond(b, inv_diag, a_bar)
+        for _ in range(self.cg_iters - 1):
+            x = x + om * self._precond(b - apply(x), inv_diag, a_bar)
+        return x
+
     def _residuals(self, x):
         """(y − x at the observed cells) / σ, (m, B)."""
         return (self.data[:, None] - x[self.obs.long()]) / self.noise[:, None]
@@ -347,8 +389,11 @@ class DarcyMisfit(nn.Module):
         else from 0."""
         N, B = self.n * self.n, U.shape[1]
         _, apply, inv_diag, a_bar = self._operator(U)
-        x = self._cg(apply, inv_diag, a_bar,
-                     self.source[:, None].expand(N, B), x0)
+        b = self.source[:, None].expand(N, B)
+        if self.solver == "richardson":
+            x = self._richardson(apply, inv_diag, a_bar, b)
+        else:
+            x = self._cg(apply, inv_diag, a_bar, b, x0)
         res = self._residuals(x)
         return 0.5 * torch.sum(res * res, dim=0), x
 
@@ -395,6 +440,7 @@ class _MisfitWithAdjoint(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, U, misfit, plain):
+        misfit._require_cg("the autograd path (the adjoint gradient)")
         if plain:
             _build.launch_counts[f"darcy_misfit_grad_plain[n={misfit.n}]"] += 1
             phi, grad = misfit._value_and_grad_plain(U.detach())[:2]
@@ -416,6 +462,7 @@ class DarcyMisfitWarm(DarcyMisfit):
     solution; Φ then depends weakly on the chain's history through x0."""
 
     PRECONDS = ("jacobi", "dst", "dst_trunc")
+    SOLVERS = ("cg",)  # JAX's warm builders take no solver
 
     @property
     def aux_dim(self) -> int:
@@ -462,6 +509,7 @@ class DarcyMisfitMalaWarm(DarcyMisfit):
     solves start from them. No prior term: the sampler folds it in."""
 
     PRECONDS = ("jacobi", "dst", "dst_trunc")
+    SOLVERS = ("cg",)
 
     @property
     def aux_dim(self) -> int:

@@ -21,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -67,11 +68,14 @@ class MisfitSpec(ctypes.Structure):
         ("m", ctypes.c_int),
         ("precond", ctypes.c_int),
         ("log_a_mean", ctypes.c_float),
+        ("solver", ctypes.c_int),
+        ("omega", ctypes.c_float),
     ]
 
 
-# IpxMisfitSpec.precond
+# IpxMisfitSpec.precond and .solver
 PRECOND_CODES = {"jacobi": 0, "dst_trunc": 1, "dst": 2}
+SOLVER_CODES = {"cg": 0, "richardson": 1}
 
 
 class BurgersSpec(ctypes.Structure):
@@ -177,6 +181,32 @@ def build() -> list:
     return libs
 
 
+def ptxas_report(log_path=None) -> list:
+    """What ptxas reported for each kernel of a build, read from its
+    ``nvcc.log`` (default: this package's): dicts of ``unit`` (the
+    ``.cu``), ``kernel`` (the mangled name), ``registers``,
+    ``spill_stores`` and ``spill_loads`` (bytes). Empty when there is no
+    log (the libraries were built by another process)."""
+    log_path = pathlib.Path(log_path or BUILD_DIR / "nvcc.log")
+    if not log_path.exists():
+        return []
+    rows, unit, entry, spills = [], None, None, (0, 0)
+    for line in log_path.read_text().splitlines():
+        if line.rstrip().endswith(".cu") and " -o " in line:  # an nvcc command
+            unit = line.rstrip().rsplit("/", 1)[-1]
+        elif "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif "Used" in line and "registers" in line and entry is not None:
+            rows.append({"unit": unit, "kernel": entry,
+                         "registers": int(re.search(r"Used (\d+) registers", line).group(1)),
+                         "spill_stores": spills[0], "spill_loads": spills[1]})
+            entry, spills = None, (0, 0)
+    return rows
+
+
 class _Kernels:
     """The C functions of every built library under one namespace."""
 
@@ -248,6 +278,7 @@ def library():
         # block_chains, γ_i, target, log 1e-4, log 0.999, stream
         lib.bind("ipx_pcn_adapt_update", [p, p, p, i, i, f, f, f, f, p])
         lib.bind("ipx_error_string", [i], ctypes.c_char_p)
+        lib.bind("ipx_misfit_spec_size", [])
         _lib = lib
     return _lib
 

@@ -118,7 +118,8 @@ def run_plain(step_builder, potential_fn, positions, params, seed, n_steps,
 # --- what the kernels' wrappers share -----------------------------------------
 
 
-def require_family(pots: dict, families=("darcy",), warm=False) -> str:
+def require_family(pots: dict, families=("darcy",), warm=False,
+                   richardson=()) -> str:
     """The family of a launch's potentials, ``"darcy"``, ``"burgers"`` or
     ``"linear"``.
 
@@ -128,8 +129,10 @@ def require_family(pots: dict, families=("darcy",), warm=False) -> str:
     those the kernel is instantiated for. Cold samplers (``warm`` False)
     take a ``DarcyMisfit``, a ``BurgersMisfit`` or a
     ``LinearGaussianPotential``, warm pCN (True) a ``DarcyMisfitWarm``, warm
-    MALA (``"mala"``) a ``DarcyMisfitMalaWarm``. Raises ``TypeError`` for
-    anything else and for a mixed launch."""
+    MALA (``"mala"``) a ``DarcyMisfitMalaWarm``. The Darcy kernels solve by
+    CG; ``richardson`` names the arguments that may instead be solved by
+    K17's Richardson iteration (the delayed-acceptance surrogate). Raises
+    ``TypeError`` for anything else and for a mixed launch."""
     # imported here: the models import ops._build
     from ip_mcmc_tpu_torch.models import burgers, darcy, linear
 
@@ -150,6 +153,13 @@ def require_family(pots: dict, families=("darcy",), warm=False) -> str:
                 f"got {type(pot).__name__}"
             )
         found[name] = family
+        solver = getattr(pot, "solver", "cg")
+        if solver != "cg" and name not in richardson:
+            raise TypeError(
+                f"{name}: this CUDA kernel solves a Darcy misfit by CG, got "
+                f"solver={solver!r} (Richardson runs in the standalone misfit "
+                "kernel and as a delayed-acceptance surrogate)"
+            )
     if len(set(found.values())) != 1:
         raise TypeError(
             f"the potentials of one launch must be of one family, got {found}"

@@ -123,7 +123,7 @@ def _launch(pot_exact, pot_surr, positions, prior_mean, prior_scale, beta,
             seed, n_steps, subchain_len, block_chains, thin=None):
     family = _scaffold.require_family(
         {"potential_fn": pot_exact, "surrogate_fn": pot_surr},
-        families=("darcy", "burgers"))
+        families=("darcy", "burgers"), richardson=("surrogate_fn",))
     args, keep = _scaffold.chain_args(positions, prior_mean, prior_scale,
                                       seed, n_steps, block_chains, thin)
     U = keep[0].T.contiguous()
@@ -136,7 +136,10 @@ def _launch(pot_exact, pot_surr, positions, prior_mean, prior_scale, beta,
     beta_t, contraction = _scaffold.contraction(beta)
     es, ss = pot_exact.spec(), pot_surr.spec()
     lib = _build.library()
-    fn, stem = {"darcy": (lib.ipx_fused_da_pcn, "fused_da_pcn_kernel"),
+    darcy_stem = ("fused_da_pcn_kernel"
+                  if getattr(pot_surr, "solver", "cg") == "cg"
+                  else f"fused_da_pcn_kernel[surrogate={pot_surr.solver}]")
+    fn, stem = {"darcy": (lib.ipx_fused_da_pcn, darcy_stem),
                 "burgers": (lib.ipx_fused_da_pcn_burgers,
                             "fused_da_pcn_burgers_kernel")}[family]
     status = fn(

@@ -60,9 +60,9 @@ def build_patched(_build, tag: str, filename: str, old: str, new: str):
 def print_ptxas(build_dir, label: str, needle: str) -> None:
     """Prints what ptxas reported (registers, spills) for every kernel whose
     mangled name holds ``needle``, from the build's ``nvcc.log``."""
-    log = (build_dir / "nvcc.log").read_text().splitlines()
-    for i, line in enumerate(log):
-        if "Compiling entry" in line and needle in line:
-            entry = line.split("'")[1]
-            print(f"({label}) {entry}: "
-                  + " ".join(s.strip() for s in log[i + 2:i + 4]))
+    from ip_mcmc_tpu_torch.ops import _build
+
+    for r in _build.ptxas_report(build_dir / "nvcc.log"):
+        if needle in r["kernel"]:
+            print(f"({label}) {r['kernel']}: {r['registers']} registers, "
+                  f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")

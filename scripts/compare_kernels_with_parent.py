@@ -4,8 +4,10 @@ chains bit for bit, and at what speed?
     git archive --prefix=_archive/parent/ <parent commit> | tar -x
     python scripts/compare_kernels_with_parent.py --parent _archive/parent
 
-Runs the kernels that both trees have (the misfit kernels, DA-pCN, cold and
-warm pCN, ESS, each recorded, at 4096 chains on the 16x16 Darcy configs) in
+Runs the 16x16 Darcy kernels that both trees have (the misfit kernels with
+and without the adjoint gradient, DA-pCN, cold and warm pCN, ESS, cold and
+warm MALA, the ensemble sampler and the Darcy RWM, each recorded, at 4096
+chains on the 16x16 Darcy configs) in
 the order parent, this tree, this tree, parent, each in a process of its
 own with that tree first on the import path (each tree builds its own
 kernels). Every output tensor of the parent's first run must equal this
@@ -32,6 +34,7 @@ def worker(out_path: str) -> int:
     import torch
 
     from ip_mcmc_tpu_torch import configs, ops
+    from ip_mcmc_tpu_torch.ops import fused_fes, fused_mala, fused_rwm
 
     def time_ms(fn, reps=3):
         fn()
@@ -57,6 +60,7 @@ def worker(out_path: str) -> int:
     exact, surr = da.batched_potential_fn, da.batched_surrogate_fn
     jacobi = warm_p.batched_potential_fn
     warm, aux_dim = warm_p.batched_warm_potential
+    pag, pag_dim = configs.build("darcy_mala_warm", "cuda").batched_warm_potential
 
     outputs, times = {}, {}
     for name, pot in (("misfit_exact", exact), ("misfit_surrogate", surr),
@@ -66,6 +70,12 @@ def worker(out_path: str) -> int:
     zeros = torch.zeros(aux_dim, n, device="cuda")
     outputs["misfit_warm_phi"], outputs["misfit_warm_x"] = warm(U, zeros)
     times["misfit_warm"] = time_ms(lambda: warm(U, zeros), 20)
+    outputs["misfit_grad_phi"], outputs["misfit_grad_g"] = jacobi.value_and_grad(U)
+    times["misfit_grad"] = time_ms(lambda: jacobi.value_and_grad(U), 5)
+    pag_zeros = torch.zeros(pag_dim, n, device="cuda")
+    for i, t in enumerate(pag(U, pag_zeros)):
+        outputs[f"misfit_grad_warm_{i}"] = t
+    times["misfit_grad_warm"] = time_ms(lambda: pag(U, pag_zeros), 5)
 
     runs = {
         "da_pcn": (lambda s: ops.fused_da_pcn_chain_recorded(
@@ -80,6 +90,15 @@ def worker(out_path: str) -> int:
         "ess": (lambda s: ops.fused_ess_chain_recorded(
             jacobi, pos, pm, ps, 17, n_steps=s, thin=1, max_shrink=6,
             block_chains=256), 16, 8, 72),
+        "mala": (lambda s: fused_mala._launch(
+            jacobi, pos, pm, ps, 0.012, 19, s, 256, thin=1), 8, 4, 36),
+        "mala_warm": (lambda s: fused_mala._launch(
+            pag, pos, pm, ps, 0.012, 19, s, 256, thin=1, aux_dim=pag_dim), 8, 4, 36),
+        "fes": (lambda s: fused_fes._launch(
+            jacobi, pos, pm, ps, 8, 23, 0.08, 2.0, s, 256, thin=1), 8, 4, 36),
+        "rwm_darcy": (lambda s: fused_rwm._launch(
+            jacobi, pos, 0.01, 47, s, 256, prior_mean=pm, prior_scale=ps, thin=1),
+            16, 8, 72),
     }
     for name, (run, steps, short, long) in runs.items():
         out = run(steps)

@@ -26,14 +26,26 @@ step (``y_surr_128``, ``scale_128``) — into
 key 100) and the data ``y`` (A u_true plus the noise draw under key 101)
 into ``ip_mcmc_tpu_torch/configs/lingauss32.npz``.
 
+``darcy32_pcn_warm`` / ``darcy64_pcn_warm``: ``u_true`` (keys 310 / 500)
+and ``y`` (the single-particle forward plus the noise draw under keys 311 /
+501) into ``darcy32.npz`` / ``darcy64.npz``.
+
+The Richardson DA runs of ``benchmarks/darcy_da_richardson.py``
+(``configs.darcy_da_richardson``): the NumPy oracle's ``u_true`` and ``y``
+(``default_rng(7)``, noise 0.002) and, for each 8×8 surrogate of
+``RICHARDSON_VARIANTS``, its calibration (64 prior draws under key 402
+through the single-particle forward with the surrogate's own solver):
+``y_surr_<variant>`` and ``scale_<variant>`` into
+``darcy16_richardson.npz``.
+
 The arrays are read from the JAX package's own built Problems (their data,
 their truth, and the closures of their surrogate misfits), so nothing of
 the calibrations is re-implemented here; ``lingauss_pcn``'s truth is the
 exact posterior mean, so its ``u_true`` is drawn again by the config's own
-call. With no argument all three files are written; ``darcy``, ``burgers``
-or ``lingauss`` writes one.
+call. With no argument every file is written; a kind writes its own.
 
-    JAX_PLATFORMS=cpu python scripts/freeze_torch_fixtures.py [darcy|burgers|lingauss]
+    JAX_PLATFORMS=cpu python scripts/freeze_torch_fixtures.py \
+        [darcy|burgers|lingauss|darcy32|darcy64|richardson]
 """
 
 from __future__ import annotations
@@ -47,6 +59,11 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FIXTURE = ROOT / "ip_mcmc_tpu_torch" / "configs" / "darcy16_da.npz"
 BURGERS_FIXTURE = ROOT / "ip_mcmc_tpu_torch" / "configs" / "burgers128.npz"
 LINGAUSS_FIXTURE = ROOT / "ip_mcmc_tpu_torch" / "configs" / "lingauss32.npz"
+LARGE_GRID = {  # kind -> (JAX config, fixture)
+    "darcy32": ("darcy32_pcn_warm", ROOT / "ip_mcmc_tpu_torch" / "configs" / "darcy32.npz"),
+    "darcy64": ("darcy64_pcn_warm", ROOT / "ip_mcmc_tpu_torch" / "configs" / "darcy64.npz"),
+}
+RICHARDSON_FIXTURE = ROOT / "ip_mcmc_tpu_torch" / "configs" / "darcy16_richardson.npz"
 
 
 def _closure(fn):
@@ -96,11 +113,45 @@ def lingauss_fixture_arrays(problem) -> dict:
     }
 
 
+def truth_and_data(problem) -> dict:
+    """``u_true`` and ``y`` of a built JAX Problem."""
+    return {"u_true": np.asarray(problem.truth, np.float32),
+            "y": np.asarray(problem.data, np.float32)}
+
+
+def richardson_fixture_arrays() -> dict:
+    """The oracle's truth and data and each surrogate's calibration, as
+    ``benchmarks/darcy_da_richardson.py`` builds them."""
+    import jax.numpy as jnp
+
+    from benchmarks.oracle_darcy import OracleDarcyPCN
+    from ip_mcmc_tpu import distributions
+    from ip_mcmc_tpu.configs import _darcy_coarse_surrogate
+    from ip_mcmc_tpu_torch.configs import RICHARDSON_VARIANTS, richardson_fixture_key
+
+    oracle = OracleDarcyPCN()
+    rng = np.random.default_rng(7)
+    u_true = rng.standard_normal(oracle.K)
+    y = oracle.forward(u_true) + 0.002 * rng.standard_normal(len(oracle.obs))
+    yj = jnp.asarray(y, jnp.float32)
+    prior = distributions.DiagGaussian(mean=jnp.zeros(64), scale=jnp.ones(64))
+    out = {"u_true": np.asarray(u_true, np.float32), "y": np.asarray(yj)}
+    for variant, (solver, iters, omega) in RICHARDSON_VARIANTS.items():
+        _, phi_surr = _darcy_coarse_surrogate(
+            prior, yj, cg_iters=iters, precond="dst_trunc", solver=solver,
+            omega=omega, return_unfused=True)
+        surr = _closure(phi_surr)  # potentials.misfit_potential
+        key = richardson_fixture_key(variant)
+        out[f"y_surr_{key}"] = np.asarray(surr["data"], np.float32)
+        out[f"scale_{key}"] = np.asarray(surr["noise"].scale, np.float32)
+    return out
+
+
 def main(argv=None):
-    kinds = {"darcy", "burgers", "lingauss"}
+    kinds = {"darcy", "burgers", "lingauss", *LARGE_GRID, "richardson"}
     which = set(argv or sys.argv[1:]) or kinds
     if not which <= kinds:
-        raise SystemExit(f"usage: {sys.argv[0]} [darcy|burgers|lingauss]")
+        raise SystemExit(f"usage: {sys.argv[0]} [{'|'.join(sorted(kinds))}]")
     sys.path.insert(0, str(ROOT))
     import jax
 
@@ -120,6 +171,13 @@ def main(argv=None):
         np.savez(LINGAUSS_FIXTURE,
                  **lingauss_fixture_arrays(configs.build("lingauss_pcn")))
         written.append(LINGAUSS_FIXTURE)
+    for kind, (config, path) in LARGE_GRID.items():
+        if kind in which:
+            np.savez(path, **truth_and_data(configs.build(config)))
+            written.append(path)
+    if "richardson" in which:
+        np.savez(RICHARDSON_FIXTURE, **richardson_fixture_arrays())
+        written.append(RICHARDSON_FIXTURE)
     for path in written:
         print(f"wrote {path} ({path.stat().st_size} bytes)")
 

@@ -477,3 +477,141 @@ def test_linear_gaussian_kernels_refuse_other_potentials(lingauss, burgers_probl
     with pytest.raises(TypeError, match="LinearGaussianPotential"):
         ops.fused_pcn_chain_adapt(lambda U: U.sum(0), pos, torch.zeros(16),
                                   torch.ones(16), 0.5, 0, n_steps=1, block_chains=64)
+
+
+# --- K17 (Richardson) and the large Darcy grids --------------------------------
+
+
+def test_misfit_spec_layout_matches_the_c_struct():
+    """IpxMisfitSpec and its ctypes mirror: a field added on one side only
+    would shift every field after it."""
+    import ctypes
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels build with nvcc)")
+    assert _build.library().ipx_misfit_spec_size() == ctypes.sizeof(_build.MisfitSpec)
+
+
+@pytest.fixture
+def richardson_problems():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return {v: configs.darcy_da_richardson(v, "cuda") for v in configs.RICHARDSON_VARIANTS}
+
+
+def test_richardson_misfit_kernel_matches_plain(richardson_problems):
+    """K17 on each surrogate of benchmarks/darcy_da_richardson.py: bf16
+    rounding flips as in tests/test_torch_darcy_richardson.py (Richardson's
+    recomputed residual b - Ax flips more roundings than CG's)."""
+    g = torch.Generator().manual_seed(5)
+    for variant, p in richardson_problems.items():
+        surr = p.batched_surrogate_fn
+        U = p.prior.sample(g, 512).T.contiguous()
+        before = _build.launch_counts[surr.kernel_label]
+        got = surr(U)
+        assert _build.launch_counts[surr.kernel_label] == before + 1
+        assert surr.kernel_label.endswith(",richardson]") == (variant != "cg3")
+        rel = _rel(got, surr._forward_plain(U))
+        assert float(rel.median()) <= 5e-5, variant
+        assert float((rel <= 1e-4).double().mean()) >= 0.80, variant
+        assert float(rel.max()) <= 5e-3, variant
+
+
+@pytest.mark.parametrize("record", [False, True])
+def test_da_kernel_with_richardson_surrogate_matches_plain(richardson_problems, record):
+    p = richardson_problems["rich3_w0.9"]
+    pos = p.init_positions(torch.Generator().manual_seed(6), 512).cuda()
+    exact, surr = p.batched_potential_fn, p.batched_surrogate_fn
+    args = (exact, surr, pos, p.prior.mean, p.prior.scale, 0.35, 3)
+    plain_args = (exact._forward_plain, surr._forward_plain, *args[2:])
+    kw = dict(n_steps=4, subchain_len=6, block_chains=128)
+    name = f"fused_da_pcn_kernel[surrogate=richardson]<{'true' if record else 'false'}>"
+    before = _build.launch_counts[name]
+    if record:
+        got = da.fused_da_pcn_chain_recorded(*args, thin=2, **kw)
+        ref = da._run_plain_recorded(*plain_args, thin=2, **kw)
+    else:
+        got = da.fused_da_pcn_chain(*args, **kw)
+        ref = da._run_plain(*plain_args, **kw)
+    assert _build.launch_counts[name] == before + 1
+    _chains_agree(got, ref, 4)
+
+
+def test_cg_kernels_refuse_a_richardson_misfit(richardson_problems):
+    surr = richardson_problems["rich3_w0.9"].batched_surrogate_fn
+    pos = torch.zeros(64, 64, device="cuda")
+    with pytest.raises(TypeError, match="by CG"):
+        fused_pcn.fused_pcn_chain(surr, pos, torch.zeros(64), torch.ones(64), 0.08, 0,
+                                  n_steps=1, block_chains=64)
+    with pytest.raises(TypeError, match="by CG"):
+        da.fused_da_pcn_chain(surr, surr, pos, torch.zeros(64), torch.ones(64), 0.35, 0,
+                              n_steps=1, block_chains=64)
+
+
+@pytest.fixture(params=["darcy32_pcn_warm", "darcy64_pcn_warm"])
+def large_problem(request):
+    return _build_on_card(request.param)
+
+
+def test_large_grid_misfit_kernels_match_plain(large_problem):
+    """The cold misfit (32²: Jacobi-96, all f32; 64²: dst_trunc-256, 30 CG)
+    and the warm dst_trunc misfit from x0 = 0 and from that solution after
+    a pCN-sized move, several cells a thread; bf16 rounding flips as in
+    tests/test_torch_darcy_large.py."""
+    p = large_problem
+    g = torch.Generator().manual_seed(7)
+    U = p.prior.sample(g, 256).T.contiguous()
+    cold = p.batched_potential_fn
+    rel = _rel(cold(U), cold._forward_plain(U))
+    assert _build.launch_counts[cold.kernel_label] >= 1
+    assert float(rel.max()) <= (1e-4 if cold.precond == "jacobi" else 5e-3)
+    assert float(rel.median()) <= 2e-5
+    warm, aux_dim = p.batched_warm_potential
+    U2 = (0.9968 * U + 0.08 * p.prior.sample(g, 256).T).contiguous()
+    x0 = torch.zeros(aux_dim, 256, device="cuda")
+    for V in (U, U2):
+        phi, x = warm(V, x0)
+        ref_phi, ref_x = warm._forward_warm_plain(V, x0)
+        assert float(_rel(phi, ref_phi).max()) <= 5e-3
+        assert float(_rel(phi, ref_phi).median()) <= 2e-4
+        assert float(_col_err(x, ref_x).max()) <= 5e-3
+        x0 = ref_x
+
+
+@pytest.mark.parametrize("recorded", [False, True])
+def test_large_grid_warm_pcn_matches_plain(large_problem, recorded):
+    p = large_problem
+    warm, aux_dim = p.batched_warm_potential
+    pos = p.init_positions(torch.Generator().manual_seed(8), 256).cuda()
+    kw = {"thin": 2} if recorded else {}
+    args = (pos, p.prior.mean, p.prior.scale, p.kernel_params["beta"], 3, 4, 128)
+    got = fused_pcn._launch(warm, *args, aux_dim=aux_dim, **kw)
+    ref = fused_pcn._run_plain(warm._forward_warm_plain, *args, aux_dim=aux_dim, **kw)
+    assert _build.launch_counts[f"fused_pcn_warm_kernel<{'true' if recorded else 'false'}>"] >= 1
+    if recorded:
+        assert got[2].shape == ref[2].shape == (2, 256, p.dim)
+        assert torch.equal(got[2][-1], got[0])
+    _chains_agree(got, ref, 4)
+    # the cold kernel on the same grid
+    cold = p.batched_potential_fn
+    got = fused_pcn._launch(cold, *args, **kw)
+    ref = fused_pcn._run_plain(cold._forward_plain, *args, **kw)
+    _chains_agree(got, ref, 4)
+
+
+def test_grids_beyond_64_are_refused():
+    """No layout takes more than 64 x 64 cells: the launch is refused
+    (cudaErrorInvalidValue), and the wrapper raises."""
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays, darcy_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    aux = darcy.darcy_aux(n_grid=72, n_modes_per_dim=4)
+    y = torch.zeros(16).numpy()
+    U = torch.zeros(16, 4, device="cuda")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        darcy_misfit_from_arrays(aux, y, 0.01, cg_iters=2).cuda()(U)
+    warm, aux_dim = darcy_warm_misfit_from_arrays(aux, y, 0.01, cg_iters=2)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        warm.cuda()(U, torch.zeros(aux_dim, 4, device="cuda"))
