@@ -15,6 +15,8 @@ Gaussians), times both, then drives the ported paths at full width:
     darcy_pcn_warm           warm-started pCN           (K7)
     darcy32_pcn_warm         warm pCN on 32 x 32 cells  (K5, K7)
     darcy64_pcn_warm         warm pCN on 64 x 64 cells  (K5, K7)
+    darcy64_da_fused         delayed acceptance on 64 x 64 cells with a
+                             32 x 32 surrogate (K4, K5)
     darcy_ess_fused          elliptical slice sampling  (K8)
     darcy_pcn_4096 --fused   cold pCN                   (K6)
     darcy_mala_fused         MALA, adjoint gradient     (K10)
@@ -32,7 +34,7 @@ Gaussians), times both, then drives the ported paths at full width:
                              then dense-prior pCN (K15)
     gauss2d_rwm, lingauss_pcn   the scan path through the CLI (no kernel)
 
-The thirteen fused configs and the two scan configs run through the port's
+The fourteen fused configs and the two scan configs run through the port's
 CLI, the other paths through the entry points (``runner``, ``ops``).
 Before each path the launch counts are set to 0; after it they must show
 that the path went through its kernels (the scan path: its steps on the
@@ -943,6 +945,69 @@ def check_large_grids(problems, gen, results):
                 pots=(warm,), per_step_ops=ops)
 
 
+# darcy64_da_fused on the JAX package on a TPU v5e (config comment, l.861-867
+# and l.907-912; BASELINE.md round 5, item 7): what does not depend on the
+# hardware
+TPU_DARCY64_DA = {"outer_accept": 0.82, "inner_accept": 0.184,
+                  "ess_per_outer_step_chain": 0.277, "max_rhat": 1.010}
+DA64 = "fused_da_pcn_kernel[n=64,surrogate n=32]"
+
+
+def check_da64(problem, gen, results):
+    """darcy64_da_fused at its width (1024 chains, blocks of 128, k = 48):
+    the exact (64 x 64) and surrogate (32 x 32) misfit kernels, then the DA
+    kernel's 64 x 64 instantiation, plain and recorded, against the plain
+    loop."""
+    from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
+
+    exact, surr = problem.batched_potential_fn, problem.batched_surrogate_fn
+    n_chains, kp = problem.n_chains, problem.kernel_params
+    U = problem.prior.sample(gen, n_chains).T.contiguous()
+    for pot, level in ((exact, "exact"), (surr, "surrogate")):
+        compare_misfit(results, pot, U,
+                       variant=(f"{level}: {pot.n}x{pot.n} dst_trunc-{pot.modes}, "
+                                f"{pot.cg_iters} CG, K {pot.K}"),
+                       paths=["darcy64_da_fused"], tol=LARGE_BF16_TOL,
+                       replaces=JAX_DARCY + "542")
+    pos = problem.init_positions(gen, n_chains).cuda()
+    block, k = kp["block_chains"], kp["subchain_len"]
+    args = (exact, surr, pos, problem.prior.mean, problem.prior.scale, kp["beta"], 11)
+    plain_args = (plain_potential(exact), plain_potential(surr), *args[2:])
+    ops = (k * (solve_ops(surr, False) + Ops(RNG_OPS_PER_DRAW * problem.dim))
+           + solve_ops(exact, False))
+    for recorded in (False, True):
+        kw = dict(subchain_len=k, block_chains=block)
+        if recorded:
+            kern = lambda s: da.fused_da_pcn_chain_recorded(*args, n_steps=s, thin=1, **kw)
+            plain = lambda s: da._run_plain_recorded(*plain_args, n_steps=s, thin=1, **kw)
+        else:
+            kern = lambda s: da.fused_da_pcn_chain(*args, n_steps=s, **kw)
+            plain = lambda s: da._run_plain(*plain_args, n_steps=s, **kw)
+        compare_chain(results, DA64, recorded, kern, plain, steps=2, kernel_long=6,
+                      plain_long=4, variant=f"64x64 exact, 32x32 surrogate, block {block}, k={k}",
+                      paths=["darcy64_da_fused"], source="fused_da_pcn.cu",
+                      pots=(exact, surr), per_step_ops=ops)
+
+
+def report_da64(problem, metrics):
+    """darcy64_da_fused's CLI run beside the TPU's figures that do not
+    depend on the hardware."""
+    row = {"outer_accept": metrics["accept_rate"], "inner_accept": metrics["inner_accept_rate"],
+           "ess_per_outer_step_chain": metrics["min_ess"] / (problem.n_chains
+                                                             * metrics["n_samples"]),
+           "max_rhat": metrics["max_rhat"], "run_s": metrics["run_s"],
+           "outer_steps_per_s": metrics["outer_steps_per_s"], "ess_per_s": metrics["ess_per_s"],
+           "tpu": TPU_DARCY64_DA}
+    tpu = TPU_DARCY64_DA
+    print(f"darcy64_da_fused: outer accept {row['outer_accept']:.4f} (TPU {tpu['outer_accept']}), "
+          f"inner {row['inner_accept']:.4f} (TPU {tpu['inner_accept']}), ESS per outer step per "
+          f"chain {row['ess_per_outer_step_chain']:.5f} (TPU {tpu['ess_per_outer_step_chain']}), "
+          f"R-hat {row['max_rhat']:.4f} (TPU {tpu['max_rhat']}); "
+          f"{row['outer_steps_per_s']:,.0f} outer steps/s, {row['ess_per_s']:,.0f} ESS/s",
+          flush=True)
+    return row
+
+
 def run_richardson_da(richardson):
     """benchmarks/darcy_da_richardson.py on the port: each surrogate's DA run
     through the runner at 4096 chains (40 outer steps of burn-in, 200
@@ -1369,6 +1434,8 @@ PATHS = {
                               "fused_pcn_warm_kernel<true>")),
     "darcy64_pcn_warm": ([], ("darcy_misfit_warm_kernel", "fused_pcn_warm_kernel<false>",
                               "fused_pcn_warm_kernel<true>")),
+    "darcy64_da_fused": ([], ("darcy_misfit_kernel[n=64]", "darcy_misfit_kernel[n=32]",
+                              f"{DA64}<false>", f"{DA64}<true>")),
     "darcy_ess_fused": ([], ("darcy_misfit_kernel[n=16]", "fused_ess_kernel<false>",
                              "fused_ess_kernel<true>")),
     "darcy_pcn_4096": (["--fused"], ("darcy_misfit_kernel[n=16]", "fused_pcn_kernel<false>",
@@ -1415,7 +1482,8 @@ def run_cli(config, flags, n_samples):
 
 
 def drive_path(config, problem, n_samples):
-    """One CLI run as a ``drive_phase``; checks its metrics."""
+    """One CLI run as a ``drive_phase``; checks its metrics. Returns (the
+    counts, the metrics)."""
     flags, kernels = PATHS[config]
     counts, metrics = drive_phase(config, kernels,
                                   lambda: run_cli(config, flags, n_samples))
@@ -1450,7 +1518,7 @@ def drive_path(config, problem, n_samples):
         assert ("mean_error_vs_exact" in metrics) == (problem.exact_mean is not None)
         err = max(abs(a - b) for a, b in zip(metrics["posterior_mean"], problem.truth))
         assert err < 0.1, f"{config}: posterior mean off the closed form by {err}"
-    return counts
+    return counts, metrics
 
 
 def main() -> int:
@@ -1482,6 +1550,7 @@ def main() -> int:
     check_warm_misfit(problems["darcy_pcn_warm"], gen, results)
     check_single_level(problems, gen, results)
     check_large_grids(problems, gen, results)
+    check_da64(problems["darcy64_da_fused"], gen, results)
     check_gradient_and_ensemble(problems, gen, results)
     check_burgers(problems, gen, results)
     check_linear_family(problems, gen, results)
@@ -1502,7 +1571,7 @@ def main() -> int:
     richardson_counts, richardson_da = run_richardson_da(richardson)
     counts.update(richardson_counts)
 
-    # the thirteen fused CLI paths, as shipped unless their predicted time
+    # the fourteen fused CLI paths, as shipped unless their predicted time
     # exceeds the budget: then every path's n_samples is cut by the same
     # factor; the two scan paths (host-bound, a few seconds) as shipped
     step_ms = {
@@ -1510,6 +1579,7 @@ def main() -> int:
         "darcy_pcn_warm": "fused_pcn_warm_kernel<true>",
         "darcy32_pcn_warm": "fused_pcn_warm_kernel<true>",
         "darcy64_pcn_warm": "fused_pcn_warm_kernel<true>",
+        "darcy64_da_fused": f"{DA64}<true>",
         "darcy_ess_fused": "fused_ess_kernel<true>",
         "darcy_pcn_4096": "fused_pcn_kernel<true>",
         "darcy_mala_fused": "fused_mala_kernel<true>",
@@ -1527,7 +1597,7 @@ def main() -> int:
     predicted = sum(steps(p, p.n_samples) * step_ms[c] / 1e3
                     for c, p in problems.items() if c in step_ms)
     cut = min(1.0, RUN_BUDGET_S / predicted)
-    print(f"predicted device time of the thirteen fused runs as shipped: {predicted:.1f} s",
+    print(f"predicted device time of the fourteen fused runs as shipped: {predicted:.1f} s",
           flush=True)
     for config, problem in problems.items():
         n_samples = problem.n_samples
@@ -1537,7 +1607,9 @@ def main() -> int:
             print(f"{config}: n_samples cut from {problem.n_samples} to "
                   f"{n_samples} to fit the time limit (width unchanged: "
                   f"{problem.n_chains} chains)", flush=True)
-        counts[config] = drive_path(config, problem, n_samples)
+        counts[config], metrics = drive_path(config, problem, n_samples)
+        if config == "darcy64_da_fused":
+            darcy64_da = report_da64(problem, metrics)
 
     # launches of each variant: those of the runs that use it (0 for an
     # option that no shipped config uses)
@@ -1547,7 +1619,8 @@ def main() -> int:
             raise AssertionError(f"{r['name']} was launched by none of {r['paths']}")
 
     print(json.dumps({"kernels": results, "card": card, "compare_paths": compare_paths,
-                      "richardson_da": richardson_da, "ptxas": ptxas}))
+                      "richardson_da": richardson_da, "darcy64_da": darcy64_da,
+                      "ptxas": ptxas}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

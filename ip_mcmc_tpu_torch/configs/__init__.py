@@ -5,8 +5,9 @@ Ported so far: on the 16×16 Darcy problem ``darcy_da_fused``,
 ``darcy_ess_fused``, ``darcy_fes_fused``, ``darcy_mala_fused`` and
 ``darcy_mala_warm``, and the builder ``darcy_da_richardson(variant)``
 (``benchmarks/darcy_da_richardson.py``'s DA runs; JAX registers no config
-for them); on the 32×32 and 64×64 grids ``darcy32_pcn_warm`` and
-``darcy64_pcn_warm``; on the 128-cell Burgers initial-data inversion
+for them); on the 32×32 and 64×64 grids ``darcy32_pcn_warm``,
+``darcy64_pcn_warm`` and ``darcy64_da_fused`` (64×64 exact, 32×32
+surrogate); on the 128-cell Burgers initial-data inversion
 ``burgers_pcn`` and ``burgers_multitime_pcn`` (their fused paths),
 ``burgers_da_pcn`` and ``burgers_da3_pcn``; on the scan path BASELINE
 configs 1 and 2, ``gauss2d_rwm`` (RWM on a 2-D Gaussian) and
@@ -16,7 +17,8 @@ steps, preconditioner factors, the numpy-drawn forward matrix) are computed
 here in numpy; the arrays the JAX configs draw with JAX keys (the data, the
 truths, the surrogates' calibrations) are read from the committed fixtures
 ``darcy16_da.npz``, ``darcy16_richardson.npz``, ``darcy32.npz``,
-``darcy64.npz``, ``burgers128.npz`` and ``lingauss32.npz`` (written by
+``darcy64.npz``, ``darcy64_da.npz``, ``burgers128.npz`` and
+``lingauss32.npz`` (written by
 ``scripts/freeze_torch_fixtures.py``).
 """
 
@@ -45,6 +47,7 @@ FIXTURE = _HERE / "darcy16_da.npz"
 RICHARDSON_FIXTURE = _HERE / "darcy16_richardson.npz"
 DARCY32_FIXTURE = _HERE / "darcy32.npz"
 DARCY64_FIXTURE = _HERE / "darcy64.npz"
+DARCY64_DA_FIXTURE = _HERE / "darcy64_da.npz"
 BURGERS_FIXTURE = _HERE / "burgers128.npz"
 LINGAUSS_FIXTURE = _HERE / "lingauss32.npz"
 
@@ -508,6 +511,46 @@ def darcy64_pcn_warm(device) -> Problem:
         n_samples=300,
         burn_in=300,
         notes="64x64 grid entirely in the fused kernel (dst_trunc)",
+    )
+
+
+@register
+def darcy64_da_fused(device) -> Problem:
+    """Fused 2-level delayed-acceptance pCN at 64×64 cells, 144-dim KL: a
+    48-step subchain on a calibrated 32×32 surrogate (dst_trunc-128, 3 CG,
+    on the coarse observation cells), one exact correction per outer step
+    (dst_trunc-256, 16 CG). The data are those of ``darcy64_pcn_warm``; the
+    calibration (32 prior draws) is frozen in ``darcy64_da.npz``."""
+    fx = np.load(DARCY64_DA_FIXTURE)
+    K = 144
+    prior = dist.DiagGaussian(
+        mean=torch.zeros(K, device=device), scale=torch.ones(K, device=device)
+    )
+    aux64 = darcy.darcy_aux(n_grid=64, n_modes_per_dim=12, alpha=2.0,
+                            field_scale=10.0)
+    aux32 = darcy.darcy_aux(n_grid=32, n_modes_per_dim=12, alpha=2.0,
+                            field_scale=10.0, obs_indices=fx["obs_coarse"])
+    exact = darcy_misfit_from_arrays(aux64, fx["y"], 0.002, cg_iters=16,
+                                     precond="dst_trunc", precond_modes=256)
+    surrogate = darcy_misfit_from_arrays(aux32, fx["y_surr"], fx["surr_scale"],
+                                         cg_iters=3, precond="dst_trunc",
+                                         precond_modes=128)
+    return Problem(
+        name="darcy64_da_fused",
+        dim=K,
+        prior=prior,
+        kernel="da_pcn",
+        kernel_params={"beta": 0.4, "subchain_len": 48, "fused": True,
+                       "block_chains": 128},
+        n_chains=1024,
+        n_samples=300,
+        burn_in=30,  # outer steps (each = 48 inner surrogate steps)
+        data=fx["y"],
+        truth=fx["u_true"],
+        notes="32c calibrated dst_trunc-3 surrogate subchain + exact "
+        "dst_trunc-16 correction; exact posterior",
+        batched_potential_fn=exact.to(device),
+        batched_surrogate_fn=surrogate.to(device),
     )
 
 

@@ -167,9 +167,9 @@ struct BurgersPotential {
     return burgers_phi(s, u, ws);
   }
 
-  // Nothing is staged: the 8 KB basis is read once per solve and stays in L1.
-  static __host__ __device__ size_t staged_bytes(const Spec&) { return 0; }
-  static __device__ __forceinline__ void stage(const Spec&, Spec&, float*) {}
+  // A surrogate's factors are not staged: the 8 KB basis is read once per
+  // solve and stays in L1.
+  static constexpr bool kStaged = false;
 };
 
 }  // namespace ipx

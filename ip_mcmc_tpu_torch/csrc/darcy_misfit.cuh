@@ -564,6 +564,17 @@ struct Layout64 {
   static constexpr int kCells = 8, kThreads = 512, kMinCtas = 2;
 };
 
+// The layout of a surrogate solved in the CTA of an exact level whose
+// layout is Exact (the DA kernel runs both levels in one CTA): Exact's
+// threads and CTAs per SM, and as many cells a thread as the surrogate's
+// N x N grid needs on them (32 x 32 on 1024 threads: 1; on 512: 2), so that
+// no register of a surrogate cell stands empty.
+template <class Exact, int N>
+struct SurrogateLayout {
+  static constexpr int kThreads = Exact::kThreads, kMinCtas = Exact::kMinCtas;
+  static constexpr int kCells = (N * N + kThreads - 1) / kThreads;
+};
+
 // The Darcy misfit as the potential type of the samplers that take one
 // (DaStep, PcnStep, RwmStep): what a step needs to know of a potential.
 // Layout: the CTA (above); SOLVER: the solve of phi (CG, or K17's
@@ -603,8 +614,14 @@ struct DarcyPot {
     return darcy_phi<kCellsPerThread, SOLVER>(s, u, ws);
   }
 
-  // A spec evaluated many times per step has its factors staged on chip:
-  // the KL basis (f32) and the preconditioner's modes (bf16).
+  // A surrogate, evaluated k times per DA step, has its factors staged on
+  // chip (stage, staged_bytes) where they fit: the KL basis (f32) and the
+  // preconditioner's modes (bf16) of up to 16 x 16 cells, ~24 KB at K = 64.
+  // Those of a larger grid do not fit a CTA's 227 KB (32 x 32, K = 144,
+  // 128 modes: 0.85 MB) and are read from global memory through L2, as the
+  // large grids' warm pCN reads its factors.
+  static constexpr bool kStaged = kMaxCells <= 256;
+
   static __host__ __device__ size_t staged_bytes(const Spec& s) {
     return sizeof(float) * s.K * s.n * s.n + sizeof(__nv_bfloat16) * s.modes * s.n * s.n;
   }

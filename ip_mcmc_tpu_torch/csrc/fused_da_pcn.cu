@@ -8,7 +8,9 @@
 // counter_rng.cuh) and the inlined misfits. The potential is a type (the
 // Pallas kernel inlines any traced JAX function; a CUDA kernel is compiled
 // per potential): DarcyPotential (K5, darcy_misfit.cuh) or
-// BurgersPotential (K12, burgers_misfit.cuh).
+// BurgersPotential (K12, burgers_misfit.cuh); the surrogate's type may
+// differ from the exact level's in its solve (K17) or in its layout (the
+// 64 x 64 kernel below).
 //
 //   darcy_misfit_kernel               Phi for a (K, B) batch at one Darcy
 //                                     misfit spec.
@@ -18,7 +20,10 @@
 //
 // Layout: one CTA per chain, one thread per cell of the largest grid
 // (Darcy: 256 threads at 16x16, the 8x8 surrogate stage uses 64 of them;
-// Burgers: 128 threads, the 64-cell surrogate uses half). Chain state and
+// Burgers: 128 threads, the 64-cell surrogate uses half). The 64x64 Darcy
+// kernel of darcy64_da_fused takes the exact level's layout (DaLayout64:
+// 4 cells a thread on 1024 threads) and solves its 32x32 surrogate on the
+// same threads, one cell each (SurrogateLayout). Chain state and
 // solver vectors stay on chip; global memory is touched for the positions
 // in and out, the constant factors and the records. Phi and Phi* at the
 // start positions come in from the standalone misfit kernels.
@@ -35,7 +40,14 @@
 // block reductions (about 30 barriers per surrogate solve). This first
 // design stages the surrogate's factors in shared memory once per CTA
 // (removing ~70% of the L2 traffic) and keeps the rest simple: no wgmma,
-// no TMA, one chain per CTA. The Burgers instantiation (k = 16: 16
+// no TMA, one chain per CTA. At 64x64 with the 32x32 surrogate (K = 144,
+// k = 48) the factors do not fit on chip: per chain and outer step the
+// surrogate re-reads its basis (0.59 MB) and modes (0.26 MB, twice per
+// preconditioner apply) 48 times and the exact solve its basis (2.4 MB)
+// and modes (2 MB) 34 times, ~200 MB from L2 (~200 GB an outer step at
+// 1024 chains) for ~100 M multiply-adds, so L2 bandwidth bounds it; the
+// design that reads them once for many chains is a later one. The Burgers
+// instantiation (k = 16: 16
 // surrogate solves of 26 Godunov steps and one exact solve of 154) is
 // bound by the barrier per time step: see burgers_misfit.cuh.
 //
@@ -100,11 +112,13 @@ struct DaArgs {
 // K4: k pCN steps against the surrogate (tags 4j, 4j+1, 4j+2), then one
 // exact correction (Phi(u) - Phi(v)) - (Phi*(u) - Phi*(v)) with tag 4k+2.
 // Surr: the surrogate's potential type (Pot's, or Pot's with another
-// solve).
+// solve, or with a layout on Pot's threads).
 template <class Pot, class Surr = Pot>
 struct DaStep {
+  static_assert(Surr::kMaxThreads == Pot::kMaxThreads,
+                "both levels run on the threads of one CTA");
   const DaArgs<Pot>& a;
-  const typename Pot::Spec& surr;  // a.surr with its factors staged on chip
+  const typename Pot::Spec& surr;  // a.surr, its factors staged on chip if Surr::kStaged
   float* pos0;                     // current state
   float* pos;                      // subchain state
   float* prop;                     // proposal
@@ -162,17 +176,20 @@ __global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
   float* pos0 = smem;
   float* pos = pos0 + d;
   float* prop = pos + d;
-  // The surrogate's factors, read k times per outer step, staged on chip.
-  // The assumption tells the compiler what it no longer infers once the
-  // copy sits in a function of the potential: the staged factors lie in
-  // shared memory. Without it the Darcy kernel addresses them generically
-  // and spills (48-64 bytes of stores at 64 registers, 6 % slower per
-  // step). ptxas is touchy here: naming the address in a variable first,
-  // or staging from the local copy instead of the parameter, brings the
-  // spills back (nvcc 12.8), so keep this form and read nvcc.log.
+  // The surrogate's factors, read k times per outer step, staged on chip
+  // where they fit (Surr::kStaged; else read through L2). The assumption
+  // tells the compiler what it no longer infers once the copy sits in a
+  // function of the potential: the staged factors lie in shared memory.
+  // Without it the Darcy kernel addresses them generically and spills
+  // (48-64 bytes of stores at 64 registers, 6 % slower per step). ptxas is
+  // touchy here: naming the address in a variable first, or staging from
+  // the local copy instead of the parameter, brings the spills back (nvcc
+  // 12.8), so keep this form and read nvcc.log.
   typename Pot::Spec surr = a.surr;
-  __builtin_assume(__isShared(prop + d + Pot::workspace_floats(extent)));
-  Pot::stage(a.surr, surr, prop + d + Pot::workspace_floats(extent));
+  if constexpr (Surr::kStaged) {
+    __builtin_assume(__isShared(prop + d + Pot::workspace_floats(extent)));
+    Surr::stage(a.surr, surr, prop + d + Pot::workspace_floats(extent));
+  }
 
   DaStep<Pot, Surr> step{a, surr, pos0, pos, prop, Pot::carve(prop + d, extent),
                          0.0f, 0.0f, 0.0f};
@@ -192,13 +209,16 @@ int launch_da_pcn(const typename Pot::Spec& exact, const typename Pot::Spec& sur
   const int threads =
       chain_threads(chain, extent.cells, exact.K, Pot::kMaxThreads, Pot::kCellsPerThread);
   const int d = chain.d, n = chain.n;
-  if (threads == 0 || !Pot::valid(exact) || !Surr::valid(surr) || surr.K != d || k < 0)
+  // the surrogate is solved on the exact level's threads, which must own
+  // its every cell
+  if (threads == 0 || !Pot::valid(exact) || !Surr::valid(surr) || surr.K != d || k < 0 ||
+      threads * Surr::kCellsPerThread < Surr::extent(surr).cells)
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const DaArgs<Pot> a{exact, surr, chain, phi0, surr0, beta, contraction, k, inner};
-  // state (3d) + misfit workspace + the staged factors of the surrogate
-  const size_t smem =
-      sizeof(float) * (3 * d + Pot::workspace_floats(extent)) + Pot::staged_bytes(surr);
+  // state (3d) + misfit workspace (+ the staged factors of the surrogate)
+  size_t smem = sizeof(float) * (3 * d + Pot::workspace_floats(extent));
+  if constexpr (Surr::kStaged) smem += Surr::staged_bytes(surr);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (chain.samples != nullptr) {
     cudaFuncSetAttribute(fused_da_pcn_kernel<Pot, true, Surr>,
@@ -228,6 +248,17 @@ int launch_misfit(const IpxMisfitSpec& s, const float* U, int B, float* phi, voi
   return static_cast<int>(cudaGetLastError());
 }
 
+// The 64x64 DA kernel of darcy64_da_fused: the exact level on 4 cells a
+// thread x 1024 threads, 1 CTA per SM, and the 32x32 surrogate, which
+// carries most of the work, on the same threads at one cell each. On an
+// H100 80GB HBM3 (700 W), 1024 chains, k = 48: 45.0 ms an outer step
+// against 47.4 ms on the 64x64 warm pCN's CTA (8 x 512, 2 CTAs per SM;
+// the surrogate then 2 cells a thread), which also spills 3.7 times the
+// bytes (scripts/measure_darcy_layouts.py, PERF.md).
+struct DaLayout64 { static constexpr int kCells = 4, kThreads = 1024, kMinCtas = 1; };
+using DaExact64 = DarcyPot<DaLayout64>;
+using DaSurrogate32 = DarcyPot<SurrogateLayout<DaLayout64, 32>>;
+
 }  // namespace ipx
 
 extern "C" {
@@ -250,16 +281,29 @@ int ipx_darcy_misfit(const IpxMisfitSpec* s, const float* U, int B, float* phi,
   return ipx::with_darcy_layout<kSolverCg>(*s, launch);
 }
 
-// The exact misfit is solved by CG; the surrogate by CG or by Richardson.
+// The instantiation follows the two grids: both up to 16x16 (the exact
+// misfit solved by CG, the surrogate by CG or by Richardson), or an exact
+// grid of the 64x64 class (above 32x32 cells) with a CG surrogate of the
+// 32x32 class (above 16x16). Any other pair is refused with
+// cudaErrorNotSupported, not run by another instantiation.
 int ipx_fused_da_pcn(const IpxMisfitSpec* exact, const IpxMisfitSpec* surr,
                      const IpxChainArgs* chain, const float* phi0, const float* surr0,
                      float beta, float contraction, int k, float* inner, void* stream) {
   using ipx::DarcyPotential;
-  if (surr->solver == kSolverRichardson)
-    return ipx::launch_da_pcn<DarcyPotential, ipx::DarcyPot<ipx::Layout16, kSolverRichardson>>(
+  const int exact_cells = exact->n * exact->n, surr_cells = surr->n * surr->n;
+  if (exact_cells <= DarcyPotential::kMaxCells && surr_cells <= DarcyPotential::kMaxCells) {
+    if (surr->solver == kSolverRichardson)
+      return ipx::launch_da_pcn<DarcyPotential, ipx::DarcyPot<ipx::Layout16, kSolverRichardson>>(
+          *exact, *surr, *chain, phi0, surr0, beta, contraction, k, inner, stream);
+    return ipx::launch_da_pcn<DarcyPotential>(*exact, *surr, *chain, phi0, surr0, beta,
+                                              contraction, k, inner, stream);
+  }
+  if (exact_cells > ipx::DarcyPot<ipx::Layout32>::kMaxCells &&
+      exact_cells <= ipx::DaExact64::kMaxCells && surr_cells > DarcyPotential::kMaxCells &&
+      surr_cells <= ipx::DaSurrogate32::kMaxCells && surr->solver == kSolverCg)
+    return ipx::launch_da_pcn<ipx::DaExact64, ipx::DaSurrogate32>(
         *exact, *surr, *chain, phi0, surr0, beta, contraction, k, inner, stream);
-  return ipx::launch_da_pcn<DarcyPotential>(*exact, *surr, *chain, phi0, surr0, beta,
-                                            contraction, k, inner, stream);
+  return cudaErrorNotSupported;
 }
 
 int ipx_fused_da_pcn_burgers(const IpxBurgersSpec* exact, const IpxBurgersSpec* surr,

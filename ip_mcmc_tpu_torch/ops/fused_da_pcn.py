@@ -12,7 +12,11 @@ For CUDA tensors the entry points launch ``fused_da_pcn_kernel<Pot, RECORD>``
 (``csrc/fused_da_pcn.cu``), which runs the whole ``n_steps`` loop in one
 launch; it is instantiated for a pair of ``DarcyMisfit`` and for a pair of
 ``BurgersMisfit`` potentials, and the wrapper picks by the potentials'
-family. For CPU tensors they run
+family. The Darcy kernel comes in two instantiations chosen by the grids:
+both levels up to 16×16 (the surrogate solved by CG or Richardson), or a
+64×64 exact level with a 32×32 CG surrogate (``darcy64_da_fused``); the
+kernel refuses any other pair and the wrapper raises. For CPU tensors they
+run
 ``_run_plain`` / ``_run_plain_recorded``: the step builder below on the
 plain scaffold ``_scaffold.run_plain``, which takes any features-first
 callable (d, B) → (B,), so the algorithm tests can use analytic targets.
@@ -119,6 +123,16 @@ def _run_plain_recorded(pot_exact, pot_surr, positions, prior_mean,
 # --- the kernel -------------------------------------------------------------
 
 
+def _darcy_stem(pot_exact, pot_surr):
+    """The launch count's name of the Darcy instantiation: the 16×16 one
+    by its surrogate's solver, a larger one by its grids."""
+    if max(pot_exact.n, pot_surr.n) > 16:
+        return f"fused_da_pcn_kernel[n={pot_exact.n},surrogate n={pot_surr.n}]"
+    if pot_surr.solver != "cg":
+        return f"fused_da_pcn_kernel[surrogate={pot_surr.solver}]"
+    return "fused_da_pcn_kernel"
+
+
 def _launch(pot_exact, pot_surr, positions, prior_mean, prior_scale, beta,
             seed, n_steps, subchain_len, block_chains, thin=None):
     family = _scaffold.require_family(
@@ -136,12 +150,10 @@ def _launch(pot_exact, pot_surr, positions, prior_mean, prior_scale, beta,
     beta_t, contraction = _scaffold.contraction(beta)
     es, ss = pot_exact.spec(), pot_surr.spec()
     lib = _build.library()
-    darcy_stem = ("fused_da_pcn_kernel"
-                  if getattr(pot_surr, "solver", "cg") == "cg"
-                  else f"fused_da_pcn_kernel[surrogate={pot_surr.solver}]")
-    fn, stem = {"darcy": (lib.ipx_fused_da_pcn, darcy_stem),
-                "burgers": (lib.ipx_fused_da_pcn_burgers,
-                            "fused_da_pcn_burgers_kernel")}[family]
+    if family == "darcy":
+        fn, stem = lib.ipx_fused_da_pcn, _darcy_stem(pot_exact, pot_surr)
+    else:
+        fn, stem = lib.ipx_fused_da_pcn_burgers, "fused_da_pcn_burgers_kernel"
     status = fn(
         ctypes.byref(es), ctypes.byref(ss), ctypes.byref(args),
         phi0.data_ptr(), surr0.data_ptr(), float(beta_t), float(contraction),

@@ -5,16 +5,19 @@ chains bit for bit, and at what speed?
     python scripts/compare_kernels_with_parent.py --parent _archive/parent
 
 Runs the 16x16 Darcy kernels that both trees have (the misfit kernels with
-and without the adjoint gradient, DA-pCN, cold and warm pCN, ESS, cold and
-warm MALA, the ensemble sampler and the Darcy RWM, each recorded, at 4096
-chains on the 16x16 Darcy configs) in
+and without the adjoint gradient, DA-pCN with the CG and with the rich3
+Richardson surrogate, cold and warm pCN, ESS, cold and warm MALA, the
+ensemble sampler and the Darcy RWM, each recorded, at 4096 chains on the
+16x16 Darcy configs) and the Burgers DA-pCN kernel (2048 chains) in
 the order parent, this tree, this tree, parent, each in a process of its
 own with that tree first on the import path (each tree builds its own
 kernels). Every output tensor of the parent's first run must equal this
 tree's bit for bit, and each tree's two runs must equal one another; the
 per-step times (CUDA events, slope between two launch lengths) are printed
-side by side with the card's name and power limit. Exits non-zero on any
-difference.
+side by side with the card's name and power limit. Then the registers and
+spill bytes that ptxas reported for each kernel of both trees' builds
+(``_build/nvcc.log``) are set side by side. Exits non-zero on any
+difference, in the outputs or in ptxas' report.
 """
 
 from __future__ import annotations
@@ -61,6 +64,9 @@ def worker(out_path: str) -> int:
     jacobi = warm_p.batched_potential_fn
     warm, aux_dim = warm_p.batched_warm_potential
     pag, pag_dim = configs.build("darcy_mala_warm", "cuda").batched_warm_potential
+    rich = configs.darcy_da_richardson("rich3_w0.9", "cuda")
+    burgers = configs.build("burgers_da_pcn", "cuda")
+    bpos = burgers.init_positions(gen, 2048).cuda()
 
     outputs, times = {}, {}
     for name, pot in (("misfit_exact", exact), ("misfit_surrogate", surr),
@@ -81,6 +87,13 @@ def worker(out_path: str) -> int:
         "da_pcn": (lambda s: ops.fused_da_pcn_chain_recorded(
             exact, surr, pos, pm, ps, 0.35, 11, n_steps=s, thin=1, subchain_len=48,
             block_chains=512), 4, 2, 10),
+        "da_pcn_richardson": (lambda s: ops.fused_da_pcn_chain_recorded(
+            rich.batched_potential_fn, rich.batched_surrogate_fn, pos, pm, ps, 0.35, 11,
+            n_steps=s, thin=1, subchain_len=48, block_chains=512), 4, 2, 10),
+        "da_pcn_burgers": (lambda s: ops.fused_da_pcn_chain_recorded(
+            burgers.batched_potential_fn, burgers.batched_surrogate_fn, bpos,
+            burgers.prior.mean, burgers.prior.scale, 0.15, 11, n_steps=s, thin=1,
+            subchain_len=16, block_chains=512), 16, 8, 72),
         "pcn": (lambda s: ops.fused_pcn_chain_recorded(
             jacobi, pos, pm, ps, 0.08, 13, n_steps=s, thin=1, block_chains=512),
             16, 8, 72),
@@ -154,11 +167,36 @@ def main() -> int:
           "parent, new, new, parent")
     for k in results[0][1]:
         print(f"  {k:18s} " + "  ".join(f"{r[1][k]:9.4f}" for r in results))
+    bad = compare_ptxas(trees)
     if differing:
         print("NOT bit for bit:\n  " + "\n  ".join(differing))
         return 1
     print(f"all {len(ref)} output tensors equal bit for bit in the four runs")
-    return 0
+    return 1 if bad else 0
+
+
+def compare_ptxas(trees) -> bool:
+    """Registers and spills of every kernel that both trees' builds hold,
+    side by side; True if any differ (or a log is missing)."""
+    sys.path.insert(0, str(ROOT))
+    from ip_mcmc_tpu_torch.ops import _build
+
+    reports = {which: {r["kernel"]: r for r in _build.ptxas_report(
+        tree / "ip_mcmc_tpu_torch" / "_build" / "nvcc.log")} for which, tree in trees.items()}
+    if not all(reports.values()):
+        print("ptxas: a tree has no nvcc.log (its kernels were built earlier): not compared")
+        return True
+    common = sorted(set(reports["parent"]) & set(reports["new"]))
+    keys = ("registers", "spill_stores", "spill_loads")
+    changed = [k for k in common
+               if any(reports["parent"][k][f] != reports["new"][k][f] for f in keys)]
+    print(f"ptxas: {len(common)} kernels in both builds (registers, spill stores, spill "
+          f"loads: parent -> new), {len(changed)} changed; only in the new build: "
+          f"{len(set(reports['new']) - set(common))}")
+    for k in common:
+        a, b = (tuple(reports[w][k][f] for f in keys) for w in ("parent", "new"))
+        print(f"  {'CHANGED ' if k in changed else ''}{k}: {a} -> {b}")
+    return bool(changed)
 
 
 if __name__ == "__main__":

@@ -30,6 +30,13 @@ into ``ip_mcmc_tpu_torch/configs/lingauss32.npz``.
 and ``y`` (the single-particle forward plus the noise draw under keys 311 /
 501) into ``darcy32.npz`` / ``darcy64.npz``.
 
+``darcy64_da_fused``: as ``darcy_da_fused``'s, the arrays of the 64×64
+problem (``u_true`` and ``y`` under keys 500 / 501, those of
+``darcy64.npz``) and of its 32×32 surrogate, calibrated by 32 prior draws
+under key 402 through the single-particle forwards (dense ``dst``, 24 CG
+at 64², 3 at 32²): ``y_surr``, ``surr_scale`` and ``obs_coarse`` into
+``darcy64_da.npz``.
+
 The Richardson DA runs of ``benchmarks/darcy_da_richardson.py``
 (``configs.darcy_da_richardson``): the NumPy oracle's ``u_true`` and ``y``
 (``default_rng(7)``, noise 0.002) and, for each 8×8 surrogate of
@@ -45,7 +52,7 @@ exact posterior mean, so its ``u_true`` is drawn again by the config's own
 call. With no argument every file is written; a kind writes its own.
 
     JAX_PLATFORMS=cpu python scripts/freeze_torch_fixtures.py \
-        [darcy|burgers|lingauss|darcy32|darcy64|richardson]
+        [darcy|burgers|lingauss|darcy32|darcy64|darcy64_da|richardson]
 """
 
 from __future__ import annotations
@@ -64,6 +71,11 @@ LARGE_GRID = {  # kind -> (JAX config, fixture)
     "darcy64": ("darcy64_pcn_warm", ROOT / "ip_mcmc_tpu_torch" / "configs" / "darcy64.npz"),
 }
 RICHARDSON_FIXTURE = ROOT / "ip_mcmc_tpu_torch" / "configs" / "darcy16_richardson.npz"
+DA_FIXTURES = {  # kind -> (JAX config, fixture)
+    "darcy": ("darcy_da_fused", FIXTURE),
+    "darcy64_da": ("darcy64_da_fused",
+                   ROOT / "ip_mcmc_tpu_torch" / "configs" / "darcy64_da.npz"),
+}
 
 
 def _closure(fn):
@@ -74,9 +86,10 @@ def _closure(fn):
 
 
 def fixture_arrays(problem) -> dict:
-    """The frozen arrays, from a built JAX ``darcy_da_fused`` Problem."""
+    """The frozen arrays, from a built JAX ``darcy_da_fused`` or
+    ``darcy64_da_fused`` Problem."""
     surr = _closure(problem.surrogate_potential_fn)  # potentials.misfit_potential
-    fwd_c = _closure(surr["forward_fn"])  # darcy.make_darcy_forward(n_grid=8)
+    fwd_c = _closure(surr["forward_fn"])  # darcy.make_darcy_forward (the coarse grid)
     return {
         "u_true": np.asarray(problem.truth, np.float32),
         "y": np.asarray(problem.data, np.float32),
@@ -148,7 +161,7 @@ def richardson_fixture_arrays() -> dict:
 
 
 def main(argv=None):
-    kinds = {"darcy", "burgers", "lingauss", *LARGE_GRID, "richardson"}
+    kinds = {*DA_FIXTURES, "burgers", "lingauss", *LARGE_GRID, "richardson"}
     which = set(argv or sys.argv[1:]) or kinds
     if not which <= kinds:
         raise SystemExit(f"usage: {sys.argv[0]} [{'|'.join(sorted(kinds))}]")
@@ -159,9 +172,10 @@ def main(argv=None):
     from ip_mcmc_tpu import configs
 
     written = []
-    if "darcy" in which:
-        np.savez(FIXTURE, **fixture_arrays(configs.build("darcy_da_fused")))
-        written.append(FIXTURE)
+    for kind, (config, path) in DA_FIXTURES.items():
+        if kind in which:
+            np.savez(path, **fixture_arrays(configs.build(config)))
+            written.append(path)
     if "burgers" in which:
         np.savez(BURGERS_FIXTURE, **burgers_fixture_arrays(
             configs.build("burgers_da3_pcn"),

@@ -1,17 +1,21 @@
 """The CTA layouts of the large Darcy grids on one card: cells per thread,
 threads per CTA and the launch bound's CTAs per SM.
 
-    python scripts/measure_darcy_layouts.py
+    python scripts/measure_darcy_layouts.py [Layout32] [Layout64] [DaLayout64]
 
 ``csrc/darcy_misfit.cuh`` ships one layout per grid class (``Layout32``,
-``Layout64``). This builds a copy of ``csrc/`` for each alternative with
+``Layout64``), and ``csrc/fused_da_pcn.cu`` one for the 64x64 DA kernel
+(``DaLayout64``: the exact level's CTA, on whose threads the 32x32
+surrogate runs). This builds a copy of ``csrc/`` for each alternative with
 that one line patched (``_kernel_variants.build_patched``), prints the
-registers and spills that ptxas reports for the warm pCN kernel, and times
+registers and spills that ptxas reports for the kernel timed, and times
 one step of ``darcy32_pcn_warm`` (4096 chains) and ``darcy64_pcn_warm``
-(2048 chains) at full width under each, as the slope between two launch
-lengths, in the order shipped, alternatives, shipped. Each run's acceptance
-is printed beside its time: the layouts sum in other orders, so the chains
-agree to rounding, not to the bit. Prints the card's name and power limit
+(2048 chains) for the first two, one outer step of ``darcy64_da_fused``
+(1024 chains, k = 48) for the third, at full width under each, as the
+slope between two launch lengths, in the order shipped, alternatives,
+shipped. Each run's acceptance is printed beside its time: the layouts sum
+in other orders, so the chains agree to rounding, not to the bit. With no
+argument every layout is measured. Prints the card's name and power limit
 and one JSON line.
 """
 
@@ -27,11 +31,13 @@ from _kernel_variants import build_patched, card_line, print_ptxas, slope_ms
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-# grid class -> (config, the shipped line, alternatives (cells, threads, CTAs))
+# layout -> (config, alternatives (cells, threads, CTAs))
 LAYOUTS = {
     "Layout32": ("darcy32_pcn_warm", ((2, 512, 2), (4, 256, 2))),
     "Layout64": ("darcy64_pcn_warm", ((8, 512, 1), (4, 1024, 1), (16, 256, 4))),
+    "DaLayout64": ("darcy64_da_fused", ((8, 512, 2),)),
 }
+DA_SOURCE = "fused_da_pcn.cu"
 
 
 def layout_line(cells: int, threads: int, ctas: int) -> str:
@@ -39,51 +45,92 @@ def layout_line(cells: int, threads: int, ctas: int) -> str:
             f"kMinCtas = {ctas};")
 
 
+def _values(line: str) -> tuple:
+    line = line[line.index("kCells"):line.index(";")]
+    return tuple(int(part.split("=")[1]) for part in line.split(","))
+
+
 def shipped_layout(csrc: pathlib.Path, name: str) -> tuple:
+    """(the shipped values, the file and line that a variant replaces)."""
+    if name == "DaLayout64":  # an alias of a layout, or a struct of one line
+        line = next(ln for ln in (csrc / DA_SOURCE).read_text().splitlines()
+                    if ln.startswith(("using DaLayout64 ", "struct DaLayout64 ")))
+        if line.startswith("using"):
+            alias = line.split("=")[1].strip(" ;")
+            return shipped_layout(csrc, alias)[0], (DA_SOURCE, line)
+        return _values(line), (DA_SOURCE, line)
     text = (csrc / "darcy_misfit.cuh").read_text()
     line = text[text.index(f"struct {name} {{"):].splitlines()[1].strip()
-    vals = [int(part.split("=")[1]) for part in line.rstrip(";").split(",")]
-    return tuple(vals)
+    return _values(line), ("darcy_misfit.cuh", line)
+
+
+def variant_line(name: str, layout: tuple) -> str:
+    if name == "DaLayout64":
+        return f"struct DaLayout64 {{ {layout_line(*layout)} }};"
+    return layout_line(*layout)
+
+
+def runner_of(name, p):
+    """One launch of ``steps`` steps of the config's fused kernel, and the
+    name of that kernel in ptxas' report."""
+    from ip_mcmc_tpu_torch import ops
+
+    pos = p.init_positions(torch.Generator().manual_seed(5), p.n_chains).cuda()
+    kp = p.kernel_params
+    if name == "DaLayout64":
+        exact, surr = p.batched_potential_fn, p.batched_surrogate_fn
+
+        def run(steps):
+            return ops.fused_da_pcn_chain(exact, surr, pos, p.prior.mean, p.prior.scale,
+                                          kp["beta"], 7, n_steps=steps,
+                                          subchain_len=kp["subchain_len"],
+                                          block_chains=kp["block_chains"])
+        return run, "fused_da_pcn_kernel", (2, 2, 6)
+    warm, aux_dim = p.batched_warm_potential
+
+    def run(steps):
+        return ops.fused_pcn_chain_warm(warm, pos, p.prior.mean, p.prior.scale, kp["beta"], 7,
+                                        n_steps=steps, aux_dim=aux_dim,
+                                        block_chains=kp["block_chains"])
+    return run, "fused_pcn_warm_kernel", (8, 4, 36)
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    from ip_mcmc_tpu_torch import configs, ops
+    from ip_mcmc_tpu_torch import configs
     from ip_mcmc_tpu_torch.ops import _build
 
+    which = sys.argv[1:] or list(LAYOUTS)
+    if not set(which) <= set(LAYOUTS):
+        raise SystemExit(f"usage: {sys.argv[0]} [{'] ['.join(LAYOUTS)}]")
     card = card_line()
     print(f"card: {card}")
     shipped_lib = _build.library()
     out = {"card": card}
-    for name, (config, alternatives) in LAYOUTS.items():
+    for name in which:
+        config, alternatives = LAYOUTS[name]
         p = configs.build(config, "cuda")
-        warm, aux_dim = p.batched_warm_potential
-        pos = p.init_positions(torch.Generator().manual_seed(5), p.n_chains).cuda()
-        beta, block = p.kernel_params["beta"], p.kernel_params["block_chains"]
-
-        def run(steps):
-            return ops.fused_pcn_chain_warm(warm, pos, p.prior.mean, p.prior.scale, beta, 7,
-                                            n_steps=steps, aux_dim=aux_dim,
-                                            block_chains=block)
-
-        shipped = shipped_layout(_build.CSRC, name)
+        run, kernel, (acc_steps, short, long) = runner_of(name, p)
+        shipped, (source, line) = shipped_layout(_build.CSRC, name)
+        alternatives = [alt for alt in alternatives if alt != shipped]
         libs = {shipped: shipped_lib}
-        print_ptxas(_build.BUILD_DIR, f"{name} {shipped}", "fused_pcn_warm_kernel")
+        print_ptxas(_build.BUILD_DIR, f"{name} {shipped}", kernel)
         for alt in alternatives:
             tag = f"{name}_{'_'.join(map(str, alt))}"
-            libs[alt], build_dir = build_patched(_build, tag, "darcy_misfit.cuh",
-                                                 layout_line(*shipped), layout_line(*alt))
-            print_ptxas(build_dir, f"{name} {alt}", "fused_pcn_warm_kernel")
+            libs[alt], build_dir = build_patched(_build, tag, source, line,
+                                                 variant_line(name, alt))
+            print_ptxas(build_dir, f"{name} {alt}", kernel)
         rows = []
         for layout in (shipped, *alternatives, shipped):
             _build._lib = libs[layout]
-            acc = float(run(8)[1].mean())
-            ms = slope_ms(run, 4, 36)
-            rows.append({"layout": list(layout), "ms_per_step": ms, "accept_8_steps": acc})
+            acc = float(run(acc_steps)[1].mean())
+            ms = slope_ms(run, short, long)
+            rows.append({"layout": list(layout), "ms_per_step": ms,
+                         f"accept_{acc_steps}_steps": acc})
             print(f"{config} {name} (cells, threads, CTAs) = {layout}: {ms:.4f} ms a step, "
-                  f"acceptance over 8 steps {acc:.4f}", flush=True)
+                  f"acceptance over {acc_steps} steps {acc:.4f}", flush=True)
         _build._lib = shipped_lib
         out[config] = rows
     print(json.dumps(out))

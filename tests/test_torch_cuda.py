@@ -615,3 +615,77 @@ def test_grids_beyond_64_are_refused():
     warm, aux_dim = darcy_warm_misfit_from_arrays(aux, y, 0.01, cg_iters=2)
     with pytest.raises(RuntimeError, match="launch failed"):
         warm.cuda()(U, torch.zeros(aux_dim, 4, device="cuda"))
+
+
+@pytest.fixture
+def darcy64_da():
+    return _build_on_card("darcy64_da_fused")
+
+
+def test_darcy64_da_misfit_kernels_match_plain(darcy64_da):
+    """The exact misfit (64², dst_trunc-256, 16 CG, Layout64) and the
+    surrogate (32², dst_trunc-128, 3 CG, Layout32) of darcy64_da_fused;
+    bf16 rounding flips as in tests/test_torch_darcy64_da.py."""
+    p = darcy64_da
+    U = p.prior.sample(torch.Generator().manual_seed(10), 256).T.contiguous()
+    for pot in (p.batched_potential_fn, p.batched_surrogate_fn):
+        before = _build.launch_counts[pot.kernel_label]
+        rel = _rel(pot(U), pot._forward_plain(U))
+        assert _build.launch_counts[pot.kernel_label] == before + 1
+        assert float(rel.median()) <= 2e-4, pot.n
+        assert float((rel <= 1e-3).double().mean()) >= 0.90, pot.n
+        assert float(rel.max()) <= 5e-3, pot.n
+
+
+@pytest.mark.parametrize("record", [False, True])
+def test_da_kernel_at_64_with_32_surrogate_matches_plain(darcy64_da, record):
+    """fused_da_pcn_kernel's 64² instantiation: the exact level on
+    DaLayout64 (4 cells x 1024 threads), the 32² surrogate on the same
+    threads, its factors read through L2."""
+    p = darcy64_da
+    pos = p.init_positions(torch.Generator().manual_seed(11), 256).cuda()
+    exact, surr = p.batched_potential_fn, p.batched_surrogate_fn
+    args = (exact, surr, pos, p.prior.mean, p.prior.scale, p.kernel_params["beta"], 3)
+    plain_args = (exact._forward_plain, surr._forward_plain, *args[2:])
+    kw = dict(n_steps=2, subchain_len=8, block_chains=128)
+    name = f"fused_da_pcn_kernel[n=64,surrogate n=32]<{'true' if record else 'false'}>"
+    before = _build.launch_counts[name]
+    if record:
+        got = da.fused_da_pcn_chain_recorded(*args, thin=1, **kw)
+        ref = da._run_plain_recorded(*plain_args, thin=1, **kw)
+        assert got[2].shape == ref[2].shape == (2, 256, p.dim)
+        assert torch.equal(got[2][-1], got[0])
+    else:
+        got = da.fused_da_pcn_chain(*args, **kw)
+        ref = da._run_plain(*plain_args, **kw)
+        assert 0.0 < float(got[2].mean()) < 1.0
+        assert abs(float(got[2].mean()) - float(ref[2].mean())) <= 1e-2
+    assert _build.launch_counts[name] == before + 1
+    _chains_agree(got, ref, 2)
+
+
+def test_da_kernel_refuses_other_grid_pairs(darcy64_da):
+    """Two instantiations take 16² with 8² and 64² with a 32² CG surrogate;
+    any other pair of grids (or a Richardson surrogate at 32²) is refused
+    by the kernel (cudaErrorNotSupported) and the wrapper raises. An exact
+    grid of the 64² class too small for its threads to own every cell of
+    the 32² surrogate (40²: 416 threads) is refused as invalid."""
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    p = darcy64_da
+    exact, surr = p.batched_potential_fn, p.batched_surrogate_fn
+    y = surr.data.cpu().numpy()
+
+    def misfit(n, **kw):
+        aux = darcy.darcy_aux(n_grid=n, n_modes_per_dim=12, alpha=2.0, field_scale=10.0)
+        return darcy_misfit_from_arrays(aux, y, 0.002, cg_iters=3, precond="dst_trunc",
+                                        precond_modes=64, **kw).cuda()
+
+    pos = p.init_positions(torch.Generator().manual_seed(12), 128).cuda()
+    pairs = [(exact, misfit(16)), (misfit(16), surr), (misfit(32), surr),
+             (exact, misfit(32, solver="richardson", omega=0.9))]
+    for (e, s), why in zip(pairs + [(misfit(40), surr)], ["not supported"] * 4 + ["invalid"]):
+        with pytest.raises(RuntimeError, match=f"launch failed.*{why}"):
+            da.fused_da_pcn_chain(e, s, pos, p.prior.mean, p.prior.scale, 0.4, 0,
+                                  n_steps=1, subchain_len=2, block_chains=128)

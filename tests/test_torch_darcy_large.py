@@ -40,7 +40,8 @@ def _draws(K, n, seed=3):
 
 def _f32_factors(monkeypatch, *pots):
     """f32 preconditioner factors on both sides (JAX traces its misfits
-    anew at each call, so the patch reaches the built configs)."""
+    anew at each call, so the patch reaches the built configs), both
+    undone after the test: the port's problems are shared by the module."""
     orig = jdarcy._flat_truncated_dst_preconditioner
     monkeypatch.setattr(
         jdarcy, "_flat_truncated_dst_preconditioner",
@@ -48,8 +49,8 @@ def _f32_factors(monkeypatch, *pots):
     )
     for pot in pots:
         if pot.modes:
-            pot.V = torch.tensor(darcy.truncated_dst_modes(pot.n, pot.modes)[0],
-                                 dtype=torch.float32)
+            monkeypatch.setattr(pot, "V", torch.tensor(
+                darcy.truncated_dst_modes(pot.n, pot.modes)[0], dtype=torch.float32))
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))

@@ -260,13 +260,13 @@ BURGERS = ("burgers_pcn", "burgers_multitime_pcn", "burgers_da_pcn",
 def test_cli_lists_seven_configs(capsys):
     """The seven Darcy configs and, since the Burgers path, its four; since
     the scan path, gauss2d_rwm and lingauss_pcn; since the large grids,
-    darcy32_pcn_warm and darcy64_pcn_warm."""
+    darcy32_pcn_warm, darcy64_pcn_warm and darcy64_da_fused."""
     assert run.main(["--list"]) == 0
     names = [ln.split()[0] for ln in capsys.readouterr().out.strip().splitlines()]
     assert names == sorted(SINGLE_LEVEL + GRADIENT_AND_ENSEMBLE
                            + ("darcy_da_fused",) + BURGERS
                            + ("gauss2d_rwm", "lingauss_pcn")
-                           + ("darcy32_pcn_warm", "darcy64_pcn_warm"))
+                           + ("darcy32_pcn_warm", "darcy64_pcn_warm", "darcy64_da_fused"))
 
 
 def test_rwm_is_not_ported():
