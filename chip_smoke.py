@@ -390,6 +390,11 @@ def compare_chain(results, stem, recorded, kern, plain, *, steps, kernel_long,
     results.append(row)
 
 
+# the 16x16 DA kernel: one warp per chain, the preconditioner's products
+# on the tensor cores over a CTA's chains
+DA16 = "fused_da_pcn_warp_kernel"
+
+
 def check_da(problem, gen, results):
     from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
 
@@ -416,7 +421,7 @@ def check_da(problem, gen, results):
         else:
             kern = lambda s: da.fused_da_pcn_chain(*args, n_steps=s, **kw)
             plain = lambda s: da._run_plain(*plain_args, n_steps=s, **kw)
-        compare_chain(results, "fused_da_pcn_kernel", recorded, kern, plain,
+        compare_chain(results, DA16, recorded, kern, plain,
                       steps=outer, kernel_long=outer + 8, plain_long=2 * outer,
                       variant=f"block {block}, k={k}",
                       paths=["darcy_da_fused"], source="fused_da_pcn.cu",
@@ -894,7 +899,7 @@ def check_richardson(richardson, gen, results):
         else:
             kern = lambda s: da.fused_da_pcn_chain(*args, n_steps=s, **kw)
             plain = lambda s: da._run_plain(*plain_args, n_steps=s, **kw)
-        compare_chain(results, "fused_da_pcn_kernel[surrogate=richardson]", recorded, kern,
+        compare_chain(results, f"{DA16}[surrogate=richardson]", recorded, kern,
                       plain, steps=2, kernel_long=10, plain_long=4,
                       variant=f"rich3_w0.9 surrogate (3 Richardson iterations), block "
                               f"{block}, k={k}",
@@ -1019,8 +1024,7 @@ def run_richardson_da(richardson):
     counts, rows = {}, {}
     for variant, p in richardson.items():
         surr = p.batched_surrogate_fn
-        da = ("fused_da_pcn_kernel" if surr.solver == "cg"
-              else f"fused_da_pcn_kernel[surrogate={surr.solver}]")
+        da = DA16 if surr.solver == "cg" else f"{DA16}[surrogate={surr.solver}]"
         kernels = (p.batched_potential_fn.kernel_label, surr.kernel_label,
                    f"{da}<false>", f"{da}<true>")
         counts[p.name], m = drive_phase(p.name, kernels, lambda: runner.run_problem(p, "cuda"))
@@ -1427,7 +1431,7 @@ def run_lingauss_fused(problem):
 # config -> (CLI flags, kernels the run must launch)
 PATHS = {
     "darcy_da_fused": ([], ("darcy_misfit_kernel[n=16]", "darcy_misfit_kernel[n=8]",
-                            "fused_da_pcn_kernel<false>", "fused_da_pcn_kernel<true>")),
+                            f"{DA16}<false>", f"{DA16}<true>")),
     "darcy_pcn_warm": ([], ("darcy_misfit_warm_kernel", "fused_pcn_warm_kernel<false>",
                             "fused_pcn_warm_kernel<true>")),
     "darcy32_pcn_warm": ([], ("darcy_misfit_warm_kernel", "fused_pcn_warm_kernel<false>",
@@ -1575,7 +1579,7 @@ def main() -> int:
     # exceeds the budget: then every path's n_samples is cut by the same
     # factor; the two scan paths (host-bound, a few seconds) as shipped
     step_ms = {
-        "darcy_da_fused": "fused_da_pcn_kernel<true>",
+        "darcy_da_fused": f"{DA16}<true>",
         "darcy_pcn_warm": "fused_pcn_warm_kernel<true>",
         "darcy32_pcn_warm": "fused_pcn_warm_kernel<true>",
         "darcy64_pcn_warm": "fused_pcn_warm_kernel<true>",

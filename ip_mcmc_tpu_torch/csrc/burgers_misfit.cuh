@@ -167,9 +167,6 @@ struct BurgersPotential {
     return burgers_phi(s, u, ws);
   }
 
-  // A surrogate's factors are not staged: the 8 KB basis is read once per
-  // solve and stays in L1.
-  static constexpr bool kStaged = false;
 };
 
 }  // namespace ipx

@@ -614,29 +614,6 @@ struct DarcyPot {
     return darcy_phi<kCellsPerThread, SOLVER>(s, u, ws);
   }
 
-  // A surrogate, evaluated k times per DA step, has its factors staged on
-  // chip (stage, staged_bytes) where they fit: the KL basis (f32) and the
-  // preconditioner's modes (bf16) of up to 16 x 16 cells, ~24 KB at K = 64.
-  // Those of a larger grid do not fit a CTA's 227 KB (32 x 32, K = 144,
-  // 128 modes: 0.85 MB) and are read from global memory through L2, as the
-  // large grids' warm pCN reads its factors.
-  static constexpr bool kStaged = kMaxCells <= 256;
-
-  static __host__ __device__ size_t staged_bytes(const Spec& s) {
-    return sizeof(float) * s.K * s.n * s.n + sizeof(__nv_bfloat16) * s.modes * s.n * s.n;
-  }
-  // Copies the factors of `s` to `base` in shared memory (every thread of
-  // the CTA calls) and points `out`, a copy of `s`, at them.
-  static __device__ __forceinline__ void stage(const Spec& s, Spec& out, float* base) {
-    const int cells = s.n * s.n;
-    float* basis = base;
-    __nv_bfloat16* V = reinterpret_cast<__nv_bfloat16*>(basis + s.K * cells);
-    for (int e = threadIdx.x; e < s.K * cells; e += blockDim.x) basis[e] = s.basis[e];
-    const __nv_bfloat16* gV = static_cast<const __nv_bfloat16*>(s.V);
-    for (int e = threadIdx.x; e < s.modes * cells; e += blockDim.x) V[e] = gV[e];
-    out.basis = basis;
-    out.V = V;
-  }
 };
 
 using DarcyPotential = DarcyPot<Layout16>;
@@ -650,6 +627,460 @@ int with_darcy_layout(const IpxMisfitSpec& s, F&& f) {
   if (cells <= DarcyPot<Layout16, SOLVER>::kMaxCells) return f(DarcyPot<Layout16, SOLVER>{});
   if (cells <= DarcyPot<Layout32, SOLVER>::kMaxCells) return f(DarcyPot<Layout32, SOLVER>{});
   return f(DarcyPot<Layout64, SOLVER>{});
+}
+
+// --- one chain a warp: the 16 x 16 delayed-acceptance kernel ----------------
+//
+// The functions below run the same arithmetic for one chain on one warp
+// of a CTA that holds several chains. Lane l owns the cells l, l + 32,
+// ... of the N x N grid: C = N^2 / 32 of them (8 x 8: 2; 16 x 16: 8), so
+// every lane owns C cells and no cell is left over. Dot products are
+// warp_sum; neighbours are read from the warp's own slice of shared memory
+// (WarpSmem) after __syncwarp. The stencil's face terms stay in that slice,
+// so that at 16 x 16 a lane keeps in registers only x, r, z, p and Ap, the
+// boundary term and the inverse diagonal of its 8 cells. The dst_trunc
+// preconditioner's two products run over all the CTA's chains at once, as
+// bf16 tensor-core products with f32 accumulation (apply_precond_cta): every
+// warp of the CTA calls the solves together, with the same iteration
+// counts, so each of their CTA barriers is reached by every warp.
+
+struct WarpSmem {
+  float* p;   // [N^2] a during the set-up; then the vector the stencil reads
+  float* th;  // [N^2] transmissibility of the face right of each cell
+  float* tv;  // [N^2] ... of the face below it
+};
+
+// The CTA's exchange for the preconditioner's products: a row per chain
+// (rows: the chains of the CTA rounded up to the 8 columns of an mma
+// tile), strides of 4 words mod 32 so that the eight rows of a fragment
+// load fall in distinct banks. Sized for up to 256 cells and modes.
+constexpr int kXRbStride = 264, kXCbStride = 264, kXBackStride = 260;
+struct PrecondXchg {
+  __nv_bfloat16* rb;  // [rows][kXRbStride]: bf16(r)
+  __nv_bfloat16* cb;  // [rows][kXCbStride]: bf16(V bf16(r) / (lam a_bar))
+  float* back;        // [rows][kXBackStride]: V^T cb
+  float* abar;        // [rows]: each chain's a_bar
+};
+
+__host__ __device__ inline size_t xchg_bytes(int rows) {
+  return static_cast<size_t>(rows) *
+         (sizeof(__nv_bfloat16) * (kXRbStride + kXCbStride) + sizeof(float) * (kXBackStride + 1));
+}
+
+__device__ inline PrecondXchg carve_xchg(unsigned char* base, int rows) {
+  PrecondXchg x;
+  x.rb = reinterpret_cast<__nv_bfloat16*>(base);
+  x.cb = x.rb + rows * kXRbStride;
+  x.back = reinterpret_cast<float*>(x.cb + rows * kXCbStride);
+  x.abar = x.back + rows * kXBackStride;
+  return x;
+}
+
+// A level's factors as a warp-level solve reads them: staged in shared
+// memory (SHARED; V's rows padded to cells + 8 elements, so that the eight
+// 16-byte rows of an ldmatrix fall in distinct banks) or in global memory,
+// read through L2.
+template <bool SHARED>
+struct WarpFactors {
+  const float* basis;        // (64, cells)
+  const __nv_bfloat16* V;    // (modes, v_stride)
+  const float* lam;          // (modes,)
+  int v_stride;
+};
+
+// Bytes of a level's staged factors, a multiple of 16.
+__host__ __device__ inline size_t warp_staged_bytes(const IpxMisfitSpec& s) {
+  const size_t cells = static_cast<size_t>(s.n) * s.n;
+  const size_t b = sizeof(float) * (s.K * cells + s.modes) +
+                   sizeof(__nv_bfloat16) * s.modes * (cells + 8);
+  return (b + 15) / 16 * 16;
+}
+
+__device__ inline WarpFactors<false> global_factors(const IpxMisfitSpec& s) {
+  return {s.basis, static_cast<const __nv_bfloat16*>(s.V), s.lam, s.n * s.n};
+}
+
+// Copies the factors of `s` to `base` (every thread of the CTA calls; a
+// barrier must follow before they are read).
+__device__ inline WarpFactors<true> stage_factors(const IpxMisfitSpec& s, unsigned char* base) {
+  const int cells = s.n * s.n, stride = cells + 8;
+  __nv_bfloat16* V = reinterpret_cast<__nv_bfloat16*>(base);
+  float* basis = reinterpret_cast<float*>(V + s.modes * stride);
+  float* lam = basis + s.K * cells;
+  const __nv_bfloat16* gV = static_cast<const __nv_bfloat16*>(s.V);
+  for (int e = threadIdx.x; e < s.modes * cells; e += blockDim.x)
+    V[(e / cells) * stride + e % cells] = gV[e];
+  for (int e = threadIdx.x; e < s.K * cells; e += blockDim.x) basis[e] = s.basis[e];
+  for (int e = threadIdx.x; e < s.modes; e += blockDim.x) lam[e] = s.lam[e];
+  return {basis, V, lam, stride};
+}
+
+// A level's factors where SHARED says: staged at `base`, or in global memory.
+template <bool SHARED>
+__device__ inline WarpFactors<SHARED> level_factors(const IpxMisfitSpec& s, unsigned char* base) {
+  if constexpr (SHARED) return stage_factors(s, base);
+  else return global_factors(s);
+}
+
+// m16n8k16 bf16 x bf16 + f32 on the tensor cores: d += a b (A row-major
+// 16 x 16, B 16 x 8 "col"; PTX ISA fragment layouts: with g = lane / 4 and
+// t = lane % 4, a holds A[g][2t..], A[g+8][2t..], A[g][2t+8..],
+// A[g+8][2t+8..]; b holds B[2t..][g], B[2t+8..][g]; d holds D[g][2t],
+// D[g][2t+1], D[g+8][2t], D[g+8][2t+1]).
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// The A fragment of V's tile (modes m0.., cells k0..): A[i][k] = V[m0+i][k0+k].
+template <bool SHARED>
+__device__ __forceinline__ void load_a_v(uint32_t (&a)[4], const __nv_bfloat16* V, int stride,
+                                         int m0, int k0) {
+  const int l = threadIdx.x & 31;
+  if constexpr (SHARED) {
+    const int q = l >> 3;  // 8x8 matrix q: rows (q & 1) * 8, columns (q >> 1) * 8
+    ldmatrix_x4(a, V + (m0 + (q & 1) * 8 + (l & 7)) * stride + k0 + (q >> 1) * 8);
+  } else {
+    const __nv_bfloat16* p = V + (m0 + (l >> 2)) * stride + k0 + 2 * (l & 3);
+    a[0] = ld_pair(p);
+    a[1] = ld_pair(p + 8 * stride);
+    a[2] = ld_pair(p + 8);
+    a[3] = ld_pair(p + 8 * stride + 8);
+  }
+}
+
+// The A fragment of V^T's tile (cells c0.., modes k0..): A[i][k] = V[k0+k][c0+i].
+template <bool SHARED>
+__device__ __forceinline__ void load_a_vt(uint32_t (&a)[4], const __nv_bfloat16* V, int stride,
+                                          int c0, int k0) {
+  const int l = threadIdx.x & 31;
+  if constexpr (SHARED) {
+    const int q = l >> 3;  // the stored rows are modes, the columns cells
+    ldmatrix_x4_trans(a, V + (k0 + (q >> 1) * 8 + (l & 7)) * stride + c0 + (q & 1) * 8);
+  } else {
+    const __nv_bfloat16* p = V + (k0 + 2 * (l & 3)) * stride + c0 + (l >> 2);
+    a[0] = pack_pair(p[0], p[stride]);
+    a[1] = pack_pair(p[8], p[stride + 8]);
+    a[2] = pack_pair(p[8 * stride], p[9 * stride]);
+    a[3] = pack_pair(p[8 * stride + 8], p[9 * stride + 8]);
+  }
+}
+
+// One level of the warp-level solve: its spec, its factors, the CTA's
+// exchange and the warp's workspace. N: the grid side (8 or 16); NT: mma
+// tiles of 8 chains the CTA's chains take; MMA: the preconditioner's
+// products on the tensor cores (else as f32 loops on the CUDA cores, the
+// same roundings).
+template <int N, int NT, bool SHARED, bool MMA>
+struct WarpLevel {
+  static constexpr int kN = N, kCells = N * N, kC = N * N / 32;
+  static constexpr bool kShared = SHARED;
+  static_assert(kCells % 32 == 0 && kCells <= 256, "every lane owns N^2 / 32 cells");
+  const IpxMisfitSpec* s;
+  WarpFactors<SHARED> f;
+  PrecondXchg xg;
+  WarpSmem ws;
+
+  // z = D^-1 r + V^T bf16(V bf16(r) / (lam a_bar)) for the CTA's chains at
+  // once (dst_trunc), z = D^-1 r with no modes (Jacobi). Every warp of the
+  // CTA calls; three CTA barriers.
+  __device__ void precond(const float (&r)[kC], const float (&inv_diag)[kC],
+                          float (&z)[kC]) const {
+#pragma unroll
+    for (int c = 0; c < kC; ++c) z[c] = inv_diag[c] * r[c];
+    const int modes = s->modes;
+    if (modes == 0) return;
+    const int l = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+    const int g = l >> 2, t = l & 3;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) xg.rb[w * kXRbStride + l + 32 * c] = __float2bfloat16(r[c]);
+    __syncthreads();
+    // coef[m][ch] = sum_cell V[m][cell] bf16(r)[ch][cell]; M modes, N chains
+    if constexpr (MMA) {
+      for (int mt = w; mt < modes / 16; mt += nw) {
+        float acc[NT][4] = {};
+#pragma unroll 4
+        for (int k0 = 0; k0 < kCells; k0 += 16) {
+          uint32_t a[4];
+          load_a_v<SHARED>(a, f.V, f.v_stride, mt * 16, k0);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const __nv_bfloat16* b = xg.rb + (nt * 8 + g) * kXRbStride + k0 + 2 * t;
+            mma_16816(acc[nt], a, ld_pair(b), ld_pair(b + 8));
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int m = mt * 16 + g + 8 * (e >> 1), ch = nt * 8 + 2 * t + (e & 1);
+            if (ch < nw)
+              xg.cb[ch * kXCbStride + m] = __float2bfloat16(acc[nt][e] / (f.lam[m] * xg.abar[ch]));
+          }
+      }
+    } else {
+      for (int e = threadIdx.x; e < modes * nw; e += blockDim.x) {
+        const int m = e % modes, ch = e / modes;
+        float acc = 0.0f;
+        for (int q = 0; q < kCells; ++q)
+          acc += __bfloat162float(f.V[m * f.v_stride + q]) *
+                 __bfloat162float(xg.rb[ch * kXRbStride + q]);
+        xg.cb[ch * kXCbStride + m] = __float2bfloat16(acc / (f.lam[m] * xg.abar[ch]));
+      }
+    }
+    __syncthreads();
+    // back[cell][ch] = sum_m V[m][cell] coef[m][ch]; M cells, N chains
+    if constexpr (MMA) {
+      for (int mt = w; mt < kCells / 16; mt += nw) {
+        float acc[NT][4] = {};
+#pragma unroll 4
+        for (int k0 = 0; k0 < modes; k0 += 16) {
+          uint32_t a[4];
+          load_a_vt<SHARED>(a, f.V, f.v_stride, mt * 16, k0);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const __nv_bfloat16* b = xg.cb + (nt * 8 + g) * kXCbStride + k0 + 2 * t;
+            mma_16816(acc[nt], a, ld_pair(b), ld_pair(b + 8));
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int cell = mt * 16 + g + 8 * (e >> 1), ch = nt * 8 + 2 * t + (e & 1);
+            if (ch < nw) xg.back[ch * kXBackStride + cell] = acc[nt][e];
+          }
+      }
+    } else {
+      for (int e = threadIdx.x; e < kCells * nw; e += blockDim.x) {
+        const int cell = e % kCells, ch = e / kCells;
+        float acc = 0.0f;
+        for (int m = 0; m < modes; ++m)
+          acc += __bfloat162float(f.V[m * f.v_stride + cell]) *
+                 __bfloat162float(xg.cb[ch * kXCbStride + m]);
+        xg.back[ch * kXBackStride + cell] = acc;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < kC; ++c) z[c] = z[c] + xg.back[w * kXBackStride + l + 32 * c];
+  }
+};
+
+// One chain's operator on a warp: what lies in registers (the face terms
+// lie in WarpSmem::th, tv).
+template <int C>
+struct WarpOperator {
+  float bnd[C], inv_diag[C];
+  float a_bar;
+};
+
+// (A p) on the lane's cells, p handed round through the warp's slice.
+template <class L>
+__device__ __forceinline__ void apply_operator_warp(const L& lv, const WarpOperator<L::kC>& op,
+                                                    const float (&p)[L::kC],
+                                                    float (&Ap)[L::kC]) {
+  constexpr int n = L::kN;
+  const int l = threadIdx.x & 31;
+  const WarpSmem& ws = lv.ws;
+#pragma unroll
+  for (int c = 0; c < L::kC; ++c) ws.p[l + 32 * c] = p[c];
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < L::kC; ++c) {
+    const int t = l + 32 * c, i = t / n, j = t % n;
+    const float pr = j < n - 1 ? ws.p[t + 1] : 0.0f;
+    const float pd = i < n - 1 ? ws.p[t + n] : 0.0f;
+    const float pl = j > 0 ? ws.p[t - 1] : 0.0f;
+    const float pu = i > 0 ? ws.p[t - n] : 0.0f;
+    const float th_l = j > 0 ? ws.th[t - 1] : 0.0f;
+    const float tv_u = i > 0 ? ws.tv[t - n] : 0.0f;
+    Ap[c] = ws.th[t] * (p[c] - pr) - th_l * (pl - p[c]) + ws.tv[t] * (p[c] - pd) -
+            tv_u * (pu - p[c]) + op.bnd[c] * p[c];
+  }
+  __syncwarp();  // the reads end before the next write to p
+}
+
+// a = exp(log_a_mean + basis^T u) for the chain whose 64 coefficients sit
+// in the warp's u[0..64), the face terms (to ws.th, ws.tv), the boundary
+// terms, the inverse diagonal and a_bar (also to the exchange's abar row of
+// this warp, for the preconditioner).
+template <class L>
+__device__ WarpOperator<L::kC> darcy_setup_warp(const L& lv, const float* u) {
+  constexpr int n = L::kN, C = L::kC, cells = L::kCells, K = 64;
+  const float h2 = static_cast<float>(cells);
+  const int l = threadIdx.x & 31;
+  const WarpSmem& ws = lv.ws;
+  WarpOperator<C> op;
+  if constexpr (L::kShared) __builtin_assume(__isShared(lv.f.basis));
+  float a[C], acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+#pragma unroll 8
+  for (int k = 0; k < K; ++k) {
+    const float uk = u[k];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] += lv.f.basis[k * cells + l + 32 * c] * uk;
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    a[c] = expf(lv.s->log_a_mean + acc[c]);
+    ws.p[l + 32 * c] = a[c];
+  }
+  __syncwarp();
+  float th[C], tv[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int t = l + 32 * c, i = t / n, j = t % n;
+    th[c] = 0.0f;
+    tv[c] = 0.0f;
+    if (j < n - 1) {
+      const float ar = ws.p[t + 1];
+      th[c] = 2.0f * a[c] * ar / (a[c] + ar + 1e-38f) * h2;
+    }
+    if (i < n - 1) {
+      const float ad = ws.p[t + n];
+      tv[c] = 2.0f * a[c] * ad / (a[c] + ad + 1e-38f) * h2;
+    }
+    ws.th[t] = th[c];
+    ws.tv[t] = tv[c];
+  }
+  __syncwarp();
+  float log_a = 0.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int t = l + 32 * c, i = t / n, j = t % n;
+    const float th_l = j > 0 ? ws.th[t - 1] : 0.0f;
+    const float tv_u = i > 0 ? ws.tv[t - n] : 0.0f;
+    // Dirichlet faces at half-cell distance: 2 h^-2 a per boundary side
+    const float edge = static_cast<float>((i == 0) + (i == n - 1) + (j == 0) + (j == n - 1));
+    op.bnd[c] = 2.0f * h2 * a[c] * edge;
+    op.inv_diag[c] = 1.0f / (th[c] + th_l + tv[c] + tv_u + op.bnd[c]);
+    log_a = c == 0 ? logf(a[c]) : log_a + logf(a[c]);
+  }
+  op.a_bar = expf(warp_sum(log_a) / h2);
+  if (l == 0) lv.xg.abar[threadIdx.x >> 5] = op.a_bar;
+  return op;
+}
+
+template <int C>
+__device__ __forceinline__ float lane_dot(const float (&a)[C], const float (&b)[C]) {
+  float v = a[0] * b[0];
+#pragma unroll
+  for (int c = 1; c < C; ++c) v += a[c] * b[c];
+  return v;
+}
+
+// darcy_cg (cold) on a warp: fixed-count PCG on A x = b from 0, with the
+// same guards (alpha = 0 when pAp <= 0, beta = 0 when rz <= 0).
+template <class L>
+__device__ void darcy_cg_warp(const L& lv, const WarpOperator<L::kC>& op,
+                              const float (&b)[L::kC], float (&x)[L::kC]) {
+  constexpr int C = L::kC;
+  float r[C], z[C], p[C], Ap[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    r[c] = b[c];
+    x[c] = 0.0f;
+  }
+  lv.precond(r, op.inv_diag, z);
+#pragma unroll
+  for (int c = 0; c < C; ++c) p[c] = z[c];
+  float rz = warp_sum(lane_dot<C>(r, z));
+  for (int it = 0; it < lv.s->cg_iters; ++it) {
+    apply_operator_warp(lv, op, p, Ap);
+    const float pAp = warp_sum(lane_dot<C>(p, Ap));
+    const float alpha = pAp > 0.0f ? rz / pAp : 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      x[c] = x[c] + alpha * p[c];
+      r[c] = r[c] - alpha * Ap[c];
+    }
+    lv.precond(r, op.inv_diag, z);
+    const float rz_new = warp_sum(lane_dot<C>(r, z));
+    const float beta = rz > 0.0f ? rz_new / rz : 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) p[c] = z[c] + beta * p[c];
+    rz = rz_new;
+  }
+}
+
+// darcy_richardson (K17) on a warp: x_1 = omega M^-1 b, then cg_iters - 1
+// updates x <- x + omega M^-1 (b - A x).
+template <class L>
+__device__ void darcy_richardson_warp(const L& lv, const WarpOperator<L::kC>& op,
+                                      const float (&b)[L::kC], float (&x)[L::kC]) {
+  constexpr int C = L::kC;
+  const float omega = lv.s->omega;
+  float z[C];
+  lv.precond(b, op.inv_diag, z);
+#pragma unroll
+  for (int c = 0; c < C; ++c) x[c] = omega * z[c];
+  for (int it = 1; it < lv.s->cg_iters; ++it) {
+    float r[C];
+    apply_operator_warp(lv, op, x, r);
+#pragma unroll
+    for (int c = 0; c < C; ++c) r[c] = b[c] - r[c];
+    lv.precond(r, op.inv_diag, z);
+#pragma unroll
+    for (int c = 0; c < C; ++c) x[c] = x[c] + omega * z[c];
+  }
+}
+
+// Phi(u) for the chain of this warp, whose coefficients sit in the warp's
+// u[0..64): the same value in every lane. Every warp of the CTA calls.
+template <int SOLVER, class L>
+__device__ float darcy_phi_warp(const L& lv, const float* u) {
+  constexpr int C = L::kC;
+  const int l = threadIdx.x & 31;
+  const IpxMisfitSpec& s = *lv.s;
+  const WarpOperator<C> op = darcy_setup_warp(lv, u);
+  float b[C], x[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) b[c] = s.source[l + 32 * c];
+  if constexpr (SOLVER == kSolverRichardson) darcy_richardson_warp(lv, op, b, x);
+  else darcy_cg_warp(lv, op, b, x);
+  // the residuals at the observed cells, as darcy_observe sums them
+#pragma unroll
+  for (int c = 0; c < C; ++c) lv.ws.p[l + 32 * c] = x[c];
+  __syncwarp();
+  float acc = 0.0f;
+  for (int o = l; o < s.m; o += 32) {
+    const float res = (s.data[o] - lv.ws.p[s.obs[o]]) / s.noise[o];
+    acc += res * res;
+  }
+  const float phi = 0.5f * warp_sum(acc);
+  __syncwarp();
+  return phi;
 }
 
 }  // namespace ipx

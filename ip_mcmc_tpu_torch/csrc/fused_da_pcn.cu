@@ -5,51 +5,62 @@
 // fused_da_pcn_chain_recorded (l.1653): the step builder
 // _make_da_pcn_step_builder (K4, l.325) as a step on the scaffold of
 // fused_scaffold.cuh (K2, K3), with the counter-hash RNG (K1,
-// counter_rng.cuh) and the inlined misfits. The potential is a type (the
-// Pallas kernel inlines any traced JAX function; a CUDA kernel is compiled
-// per potential): DarcyPotential (K5, darcy_misfit.cuh) or
-// BurgersPotential (K12, burgers_misfit.cuh); the surrogate's type may
-// differ from the exact level's in its solve (K17) or in its layout (the
-// 64 x 64 kernel below).
+// counter_rng.cuh) and the inlined misfits (K5, K17: darcy_misfit.cuh;
+// K12: burgers_misfit.cuh). A CUDA kernel is compiled per potential (the
+// Pallas kernel inlines any traced JAX function):
 //
-//   darcy_misfit_kernel               Phi for a (K, B) batch at one Darcy
-//                                     misfit spec.
-//   fused_da_pcn_kernel<Pot, RECORD>  the whole n_steps loop in one launch;
-//                                     RECORD stores every thin-th state
-//                                     into (n_rec, n, d) with a plain store.
+//   darcy_misfit_kernel                 Phi for a (K, B) batch at one
+//                                       Darcy misfit spec.
+//   fused_da_pcn_warp_kernel<SOLVER, RECORD>
+//                                       the 16x16 Darcy DA loop (8x8
+//                                       surrogate solved by CG or K17's
+//                                       Richardson), one chain per warp.
+//   fused_da_pcn_kernel<Pot, RECORD, Surr>
+//                                       the 64x64 Darcy (32x32
+//                                       surrogate) and the Burgers DA
+//                                       loops, one chain per CTA.
 //
-// Layout: one CTA per chain, one thread per cell of the largest grid
-// (Darcy: 256 threads at 16x16, the 8x8 surrogate stage uses 64 of them;
-// Burgers: 128 threads, the 64-cell surrogate uses half). The 64x64 Darcy
-// kernel of darcy64_da_fused takes the exact level's layout (DaLayout64:
-// 4 cells a thread on 1024 threads) and solves its 32x32 surrogate on the
-// same threads, one cell each (SurrogateLayout). Chain state and
+// Each runs the whole n_steps loop in one launch; RECORD stores every
+// thin-th state into (n_rec, n, d) with a plain store. Chain state and
 // solver vectors stay on chip; global memory is touched for the positions
 // in and out, the constant factors and the records. Phi and Phi* at the
 // start positions come in from the standalone misfit kernels.
 //
-// What bounds the Darcy instantiation on the H100: per chain and outer
-// step (k = 48) the misfits
-// do ~2.9 M multiply-adds (4096 chains: ~24 GFLOP, ~20 of them the
-// preconditioners' products of bf16 inputs: ~0.08 ms at the tensor cores'
-// bf16 peak plus the f32 peak for the rest), but they run on the CUDA
-// cores, and they also re-read their constant factors on every use: the
-// surrogate's KL basis (16 KB) and modes (8 KB) 48 times and the exact
-// misfit's modes (64 KB) twice per CG iteration, ~5.5 MB per chain-step
-// from L2 before staging, and each CG iteration is a chain of dependent
-// block reductions (about 30 barriers per surrogate solve). This first
-// design stages the surrogate's factors in shared memory once per CTA
-// (removing ~70% of the L2 traffic) and keeps the rest simple: no wgmma,
-// no TMA, one chain per CTA. At 64x64 with the 32x32 surrogate (K = 144,
-// k = 48) the factors do not fit on chip: per chain and outer step the
-// surrogate re-reads its basis (0.59 MB) and modes (0.26 MB, twice per
+// The 16x16 kernel (main path, darcy_da_fused). Per chain and outer step
+// (k = 48) the misfits do ~2.9 M multiply-adds, ~20 of 24 GFLOP at 4096
+// chains being the dst_trunc preconditioner's products of bf16 inputs
+// (0.077 ms at the card's peaks), but the work is a chain of small
+// dependent steps: 48 surrogate solves of 3 CG iterations, each with two
+// dot products and a preconditioner apply. So the kernel runs one chain
+// per warp (lane l owns cells l, l + 32, ...: 2 of the 8x8 surrogate, 8 of
+// the 16x16 exact level; coordinates l and l + 32 of d = 64): the dot
+// products are warp sums and the stencil reads the warp's own shared
+// memory, with no block barrier. DaWarpDesign::kWarps chains share a CTA,
+// and their preconditioner products run together on the tensor cores: M =
+// modes or cells, N = the CTA's chains, K = cells or modes, bf16
+// mma.sync.m16n8k16 with f32 accumulation, three CTA barriers an apply.
+// All chains of a CTA make the same solves at fixed iteration counts, so
+// every warp reaches each barrier. The 8x8 surrogate's factors (25 KB) are
+// staged once per CTA; the exact level's (130 KB) are read through L2 by
+// fragments, once per apply for the CTA's 8 chains. Measured on an H100
+// 80GB HBM3 (700 W), 4096 chains, k = 48 (scripts/measure_da_warp_design.py,
+// PERF.md): 1.03-1.06 ms an outer step at 128 registers (80: 1.09, 268
+// bytes spilled), against 10.2 ms for one chain per CTA; W = 4 1.77, W =
+// 16 1.18; the exact factors staged 1.47; the products as CUDA-core loops
+// 6.5-11.4. The exact correction takes 0.32 ms of it (k = 0).
+//
+// The 64x64 kernel of darcy64_da_fused takes the exact level's layout
+// (DaLayout64: 4 cells a thread on 1024 threads) and solves its 32x32
+// surrogate on the same threads, one cell each (SurrogateLayout). Its
+// factors do not fit on chip (K = 144, k = 48): per chain and outer step
+// the surrogate re-reads its basis (0.59 MB) and modes (0.26 MB, twice per
 // preconditioner apply) 48 times and the exact solve its basis (2.4 MB)
 // and modes (2 MB) 34 times, ~200 MB from L2 (~200 GB an outer step at
 // 1024 chains) for ~100 M multiply-adds, so L2 bandwidth bounds it; the
 // design that reads them once for many chains is a later one. The Burgers
-// instantiation (k = 16: 16
-// surrogate solves of 26 Godunov steps and one exact solve of 154) is
-// bound by the barrier per time step: see burgers_misfit.cuh.
+// kernel (128 threads, k = 16: 16 surrogate solves of 26 Godunov steps and
+// one exact solve of 154) is bound by the barrier per time step: see
+// burgers_misfit.cuh.
 //
 // Numerics follow the JAX kernel: f32 everywhere except the
 // preconditioner's bf16 inputs (f32 accumulation); no fast math (the
@@ -118,7 +129,7 @@ struct DaStep {
   static_assert(Surr::kMaxThreads == Pot::kMaxThreads,
                 "both levels run on the threads of one CTA");
   const DaArgs<Pot>& a;
-  const typename Pot::Spec& surr;  // a.surr, its factors staged on chip if Surr::kStaged
+  const typename Pot::Spec& surr;  // a.surr
   float* pos0;                     // current state
   float* pos;                      // subchain state
   float* prop;                     // proposal
@@ -163,10 +174,8 @@ struct DaStep {
   }
 };
 
-// Darcy: 256 threads and at least 4 CTAs per SM cap registers at 64 a
-// thread (96 without the bound; 2 CTAs per SM). Measured on the H100 at
-// 4096 chains, k = 48: 11.07 ms per outer step against 16.25 ms without the
-// bound (40-48 bytes of spills).
+// One chain per CTA, launch-bounded by the exact level's layout (the 64x64
+// Darcy kernel: 1024 threads, 1 CTA per SM; Burgers: 128 threads).
 template <class Pot, bool RECORD, class Surr = Pot>
 __global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
     fused_da_pcn_kernel(DaArgs<Pot> a) {
@@ -176,20 +185,9 @@ __global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
   float* pos0 = smem;
   float* pos = pos0 + d;
   float* prop = pos + d;
-  // The surrogate's factors, read k times per outer step, staged on chip
-  // where they fit (Surr::kStaged; else read through L2). The assumption
-  // tells the compiler what it no longer infers once the copy sits in a
-  // function of the potential: the staged factors lie in shared memory.
-  // Without it the Darcy kernel addresses them generically and spills
-  // (48-64 bytes of stores at 64 registers, 6 % slower per step). ptxas is
-  // touchy here: naming the address in a variable first, or staging from
-  // the local copy instead of the parameter, brings the spills back (nvcc
-  // 12.8), so keep this form and read nvcc.log.
+  // the surrogate's factors are read through L2 (32 x 32: 0.85 MB fit no
+  // CTA); the 16 x 16 kernel below stages its 8 x 8 surrogate's
   typename Pot::Spec surr = a.surr;
-  if constexpr (Surr::kStaged) {
-    __builtin_assume(__isShared(prop + d + Pot::workspace_floats(extent)));
-    Surr::stage(a.surr, surr, prop + d + Pot::workspace_floats(extent));
-  }
 
   DaStep<Pot, Surr> step{a, surr, pos0, pos, prop, Pot::carve(prop + d, extent),
                          0.0f, 0.0f, 0.0f};
@@ -216,9 +214,8 @@ int launch_da_pcn(const typename Pot::Spec& exact, const typename Pot::Spec& sur
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const DaArgs<Pot> a{exact, surr, chain, phi0, surr0, beta, contraction, k, inner};
-  // state (3d) + misfit workspace (+ the staged factors of the surrogate)
-  size_t smem = sizeof(float) * (3 * d + Pot::workspace_floats(extent));
-  if constexpr (Surr::kStaged) smem += Surr::staged_bytes(surr);
+  // state (3d) + misfit workspace
+  const size_t smem = sizeof(float) * (3 * d + Pot::workspace_floats(extent));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (chain.samples != nullptr) {
     cudaFuncSetAttribute(fused_da_pcn_kernel<Pot, true, Surr>,
@@ -259,6 +256,178 @@ struct DaLayout64 { static constexpr int kCells = 4, kThreads = 1024, kMinCtas =
 using DaExact64 = DarcyPot<DaLayout64>;
 using DaSurrogate32 = DarcyPot<SurrogateLayout<DaLayout64, 32>>;
 
+// --- the 16 x 16 kernel: one warp per chain, W chains a CTA -------------------
+//
+// The design (scripts/measure_da_warp_design.py times the alternatives):
+// kWarps chains a CTA, one a warp; the launch bound's warps an SM
+// (kSmWarps: 16 caps a thread at 65536 / 512 = 128 registers, 24 at 80);
+// the exact level's factors staged in shared memory or read through L2
+// (kExactStaged); the preconditioner's products on the tensor cores or as
+// loops on the CUDA cores (kMma).
+struct DaWarpDesign { static constexpr int kWarps = 8, kSmWarps = 16; static constexpr bool kExactStaged = false, kMma = true; };
+constexpr int kDaWarpTiles = (DaWarpDesign::kWarps + 7) / 8;  // mma tiles of 8 chains
+constexpr int kDaWarpMinCtas =
+    DaWarpDesign::kSmWarps >= 2 * DaWarpDesign::kWarps ? DaWarpDesign::kSmWarps / DaWarpDesign::kWarps : 1;
+constexpr int kDaWarpExactN = 16, kDaWarpSurrN = 8, kDaWarpD = 64;
+// a warp's slice: pos0, pos, prop (64 each), then p, th, tv of 256 cells
+constexpr int kDaWarpFloats = 3 * kDaWarpD + 3 * kDaWarpExactN * kDaWarpExactN;
+
+using DaWarpSurr = WarpLevel<kDaWarpSurrN, kDaWarpTiles, true, DaWarpDesign::kMma>;
+using DaWarpExact =
+    WarpLevel<kDaWarpExactN, kDaWarpTiles, DaWarpDesign::kExactStaged, DaWarpDesign::kMma>;
+
+// K4 on a warp: k pCN steps against the surrogate (tags 4j, 4j+1, 4j+2),
+// then one exact correction with tag 4k+2, as DaStep. Every warp makes the
+// same solves whatever it accepts, so the CTA's barriers inside them line
+// up.
+template <int SURR_SOLVER>
+struct DaWarpStep {
+  const DaArgs<DarcyPotential>& a;
+  DaWarpSurr surr;
+  DaWarpExact exact;
+  float* pos0;  // current state
+  float* pos;   // subchain state
+  float* prop;  // proposal
+  float phi0, surr0, in_acc;
+
+  __device__ void init(const WarpChainCtx& x) {
+    const int l = threadIdx.x & 31;
+    phi0 = x.live ? a.phi0[x.c] : 0.0f;
+    surr0 = x.live ? a.surr0[x.c] : 0.0f;
+    pos[l] = pos0[l];
+    pos[l + 32] = pos0[l + 32];
+    __syncwarp();
+  }
+
+  __device__ bool step(const WarpChainCtx& x, uint32_t i) {
+    const int l = threadIdx.x & 31;
+    float surr_v = surr0;
+    for (int j = 0; j < a.k; ++j) {
+      float z[2];
+      x.normal2(i, 4u * j, z);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float xi = x.scale[h] * z[h];
+        prop[l + 32 * h] = x.mean[h] + a.contraction * (pos[l + 32 * h] - x.mean[h]) + a.beta * xi;
+      }
+      __syncwarp();
+      const float sp = darcy_phi_warp<SURR_SOLVER>(surr, prop);
+      if (logf(x.uniform(i, 4u * j + 2u)) < surr_v - sp) {  // the same in every lane
+        in_acc += 1.0f;
+        surr_v = sp;
+        pos[l] = prop[l];
+        pos[l + 32] = prop[l + 32];
+      }
+    }
+    __syncwarp();
+    const float pe = darcy_phi_warp<kSolverCg>(exact, pos);
+    float log_ratio = (phi0 - pe) - (surr0 - surr_v);
+    if (isnan(log_ratio)) log_ratio = -INFINITY;
+    const bool accept = logf(x.uniform(i, 4u * a.k + 2u)) < log_ratio;
+    if (accept) {
+      phi0 = pe;
+      surr0 = surr_v;
+      pos0[l] = pos[l];
+      pos0[l + 32] = pos[l + 32];
+    } else {
+      pos[l] = pos0[l];
+      pos[l + 32] = pos0[l + 32];
+    }
+    __syncwarp();
+    return accept;
+  }
+};
+
+// What a launch of the 16 x 16 kernel takes: warps (chains) a CTA, CTAs,
+// dynamic shared memory.
+struct DaWarpGeometry {
+  int warps, ctas;
+  size_t smem;
+};
+
+// A grid side, d = K = 64 and a preconditioner this kernel takes: dst_trunc
+// with a multiple of 16 modes up to the cells, or Jacobi (no modes).
+inline bool da_warp_level_ok(const IpxMisfitSpec& s, int n, int solver) {
+  const bool precond = (s.precond == kPrecondDstTrunc && s.modes > 0 && s.modes % 16 == 0 &&
+                        s.modes <= n * n) ||
+                       (s.precond == kPrecondJacobi && s.modes == 0);
+  return s.n == n && s.K == kDaWarpD && precond && s.solver == solver && s.m >= 0;
+}
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_da_pcn.py warp_geometry. W: the
+// largest power of two up to kWarps that divides block_chains (so that a
+// CTA's chains share their RNG block); a ragged last CTA runs spare warps.
+inline int da_warp_geometry(const IpxMisfitSpec& exact, const IpxMisfitSpec& surr,
+                            const IpxChainArgs& chain, int surr_solver, DaWarpGeometry* geo) {
+  if (!da_warp_level_ok(exact, kDaWarpExactN, kSolverCg) ||
+      !da_warp_level_ok(surr, kDaWarpSurrN, surr_solver) || chain.d != kDaWarpD)
+    return cudaErrorNotSupported;
+  if (chain.block_chains <= 0 || chain.n < 0 || chain.n_steps < 0 ||
+      (chain.samples != nullptr && chain.thin <= 0))
+    return cudaErrorInvalidValue;
+  int w = DaWarpDesign::kWarps;
+  while (chain.block_chains % w) w /= 2;
+  geo->warps = w;
+  geo->ctas = (chain.n + w - 1) / w;
+  geo->smem = xchg_bytes(8 * kDaWarpTiles) + warp_staged_bytes(surr) +
+              (DaWarpDesign::kExactStaged ? warp_staged_bytes(exact) : 0) +
+              sizeof(float) * kDaWarpFloats * w;
+  return geo->smem <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int SURR_SOLVER, bool RECORD>
+__global__ void __launch_bounds__(32 * DaWarpDesign::kWarps, kDaWarpMinCtas)
+    fused_da_pcn_warp_kernel(const __grid_constant__ DaArgs<DarcyPotential> a) {
+  extern __shared__ float4 da_warp_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(da_warp_smem);
+  const PrecondXchg xg = carve_xchg(base, 8 * kDaWarpTiles);
+  base += xchg_bytes(8 * kDaWarpTiles);
+  const WarpFactors<true> sf = stage_factors(a.surr, base);
+  base += warp_staged_bytes(a.surr);
+  const auto ef = level_factors<DaWarpDesign::kExactStaged>(a.exact, base);
+  if (DaWarpDesign::kExactStaged) base += warp_staged_bytes(a.exact);
+  float* w = reinterpret_cast<float*>(base) + (threadIdx.x >> 5) * kDaWarpFloats;
+  const WarpSmem ws{w + 3 * kDaWarpD, w + 3 * kDaWarpD + 256, w + 3 * kDaWarpD + 512};
+  __syncthreads();  // the staged factors
+
+  const DaWarpSurr surr{&a.surr, sf, xg, ws};
+  const DaWarpExact exact{&a.exact, ef, xg, ws};
+  DaWarpStep<SURR_SOLVER> step{a,    surr, exact, w, w + kDaWarpD, w + 2 * kDaWarpD,
+                               0.0f, 0.0f, 0.0f};
+  run_warp_chain<RECORD>(a.chain, step, w);
+  const int c = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if ((threadIdx.x & 31) == 0 && c < a.chain.n)
+    a.inner[c] = step.in_acc / fmaxf(static_cast<float>(a.chain.n_steps) *
+                                         static_cast<float>(a.k),
+                                     1.0f);
+}
+
+// Launches fused_da_pcn_warp_kernel<SURR_SOLVER, RECORD> (RECORD:
+// chain.samples given).
+template <int SURR_SOLVER>
+int launch_da_pcn_warp(const IpxMisfitSpec& exact, const IpxMisfitSpec& surr,
+                       const IpxChainArgs& chain, const float* phi0, const float* surr0,
+                       float beta, float contraction, int k, float* inner, void* stream) {
+  DaWarpGeometry geo;
+  const int status = da_warp_geometry(exact, surr, chain, SURR_SOLVER, &geo);
+  if (status != cudaSuccess) return status;
+  if (k < 0) return cudaErrorInvalidValue;
+  if (chain.n == 0) return cudaSuccess;
+  const DaArgs<DarcyPotential> a{exact, surr, chain, phi0, surr0, beta, contraction, k, inner};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = 32 * geo.warps, smem = static_cast<int>(geo.smem);
+  if (chain.samples != nullptr) {
+    cudaFuncSetAttribute(fused_da_pcn_warp_kernel<SURR_SOLVER, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    fused_da_pcn_warp_kernel<SURR_SOLVER, true><<<geo.ctas, threads, smem, st>>>(a);
+  } else {
+    cudaFuncSetAttribute(fused_da_pcn_warp_kernel<SURR_SOLVER, false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    fused_da_pcn_warp_kernel<SURR_SOLVER, false><<<geo.ctas, threads, smem, st>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace ipx
 
 extern "C" {
@@ -293,9 +462,9 @@ int ipx_fused_da_pcn(const IpxMisfitSpec* exact, const IpxMisfitSpec* surr,
   const int exact_cells = exact->n * exact->n, surr_cells = surr->n * surr->n;
   if (exact_cells <= DarcyPotential::kMaxCells && surr_cells <= DarcyPotential::kMaxCells) {
     if (surr->solver == kSolverRichardson)
-      return ipx::launch_da_pcn<DarcyPotential, ipx::DarcyPot<ipx::Layout16, kSolverRichardson>>(
-          *exact, *surr, *chain, phi0, surr0, beta, contraction, k, inner, stream);
-    return ipx::launch_da_pcn<DarcyPotential>(*exact, *surr, *chain, phi0, surr0, beta,
+      return ipx::launch_da_pcn_warp<kSolverRichardson>(*exact, *surr, *chain, phi0, surr0,
+                                                        beta, contraction, k, inner, stream);
+    return ipx::launch_da_pcn_warp<kSolverCg>(*exact, *surr, *chain, phi0, surr0, beta,
                                               contraction, k, inner, stream);
   }
   if (exact_cells > ipx::DarcyPot<ipx::Layout32>::kMaxCells &&
@@ -304,6 +473,20 @@ int ipx_fused_da_pcn(const IpxMisfitSpec* exact, const IpxMisfitSpec* surr,
     return ipx::launch_da_pcn<ipx::DaExact64, ipx::DaSurrogate32>(
         *exact, *surr, *chain, phi0, surr0, beta, contraction, k, inner, stream);
   return cudaErrorNotSupported;
+}
+
+// The 16 x 16 kernel's launch geometry for these specs and chain
+// arguments: out = {chains a CTA, CTAs, dynamic shared-memory bytes}; the
+// status the launch would return for them (the wrapper's mirror of it is
+// checked against this on the card).
+int ipx_da_pcn_warp_geometry(const IpxMisfitSpec* exact, const IpxMisfitSpec* surr,
+                             const IpxChainArgs* chain, int* out) {
+  ipx::DaWarpGeometry geo{0, 0, 0};
+  const int status = ipx::da_warp_geometry(*exact, *surr, *chain, surr->solver, &geo);
+  out[0] = geo.warps;
+  out[1] = geo.ctas;
+  out[2] = static_cast<int>(geo.smem);
+  return status;
 }
 
 int ipx_fused_da_pcn_burgers(const IpxBurgersSpec* exact, const IpxBurgersSpec* surr,

@@ -2,11 +2,12 @@
 // every step: replaces _run_fused (ip_mcmc_tpu/ops/fused_mcmc.py l.152,
 // pallas_call l.260) and _run_fused_recorded (l.826, pallas_call l.950).
 //
-// One CTA per chain. run_chain loads the chain's position into shared
-// memory, derives the per-block seed uint32(seed + 7919 * block) and the
-// chain's lane, runs the n_steps loop around a Step, counts acceptances,
-// stores every thin-th state into (n_rec, n, d) when RECORD, and writes
-// the final position and the acceptance mean. A Step provides
+// run_chain runs one chain per CTA (run_warp_chain below: one a warp). It
+// loads the chain's position into shared memory, derives the per-block
+// seed uint32(seed + 7919 * block) and the chain's lane, runs the
+// n_steps loop around a Step, counts acceptances, stores every thin-th
+// state into (n_rec, n, d) when RECORD, and writes the final position and
+// the acceptance mean. A Step provides
 //
 //   void init(const ChainCtx&)            state beside the position
 //   bool step(const ChainCtx&, uint32_t)  one transition on pos[0..d);
@@ -95,6 +96,81 @@ __device__ void run_chain(const IpxChainArgs& a, Step& step, float* pos) {
   }
   if (x.own) a.out[static_cast<size_t>(x.c) * x.d + x.t] = pos[x.t];
   if (x.t == 0) a.acc[x.c] = acc / static_cast<float>(a.n_steps);
+}
+
+// The context of one chain run by one warp (run_warp_chain): the chain c,
+// whether it is one of the launch's (a spare warp of a ragged last CTA runs
+// a chain of zeros in lockstep with the others and stores nothing), and the
+// two coordinates a lane holds, t = lane and t + 32 of a d = 64 state.
+// With half = 32 they are the cos and the sin of Box-Muller row `lane`.
+struct WarpChainCtx {
+  int c;
+  bool live;
+  uint32_t bseed, lane, bc;  // lane: the chain's column in its block's tile
+  float mean[2], scale[2];
+
+  // coordinates lane and lane + 32 of the (64, block) normal draw with
+  // tags tag, tag + 1: one uniform pair serves both
+  __device__ __forceinline__ void normal2(uint32_t step, uint32_t tag, float (&z)[2]) const {
+    const uint32_t idx = static_cast<uint32_t>(threadIdx.x & 31) * bc + lane;
+    const float r = sqrtf(-2.0f * logf(uniform01(mix_key(bseed, step, tag), idx)));
+    const float theta = kTwoPi * uniform01(mix_key(bseed, step, tag + 1u), idx);
+    z[0] = r * cosf(theta);
+    z[1] = r * sinf(theta);
+  }
+  // this chain's element of the (1, block) uniform draw with tag `tag`
+  __device__ __forceinline__ float uniform(uint32_t step, uint32_t tag) const {
+    return uniform01(mix_key(bseed, step, tag), lane);
+  }
+};
+
+// The scaffold of the samplers that run a chain on each warp, W chains a
+// CTA: warp w of CTA b runs chain c = b W + w, with the seed and lane of
+// make_chain_ctx (bseed = seed + 7919 (c / block_chains), lane c %
+// block_chains), so that its draws are those of run_chain's chain c. The
+// state is d = 64 coordinates, two a lane, in the warp's pos[0..64); a
+// Step provides
+//
+//   void init(const WarpChainCtx&)
+//   bool step(const WarpChainCtx&, uint32_t)  the same answer in every lane
+//
+// and keeps pos[t] written by the lane that holds t. Every warp of the CTA,
+// a spare one too, makes the same number of Step calls, so that a step may
+// hold barriers of the whole CTA.
+template <bool RECORD, class Step>
+__device__ void run_warp_chain(const IpxChainArgs& a, Step& step, float* pos) {
+  constexpr int kD = 64;
+  const int l = threadIdx.x & 31;
+  WarpChainCtx x;
+  x.c = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  x.live = x.c < a.n;
+  x.bc = static_cast<uint32_t>(a.block_chains);
+  x.lane = static_cast<uint32_t>(x.c) % x.bc;
+  x.bseed = static_cast<uint32_t>(a.seed) + 7919u * (static_cast<uint32_t>(x.c) / x.bc);
+  const size_t row = static_cast<size_t>(x.c) * kD;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = l + 32 * h;
+    x.mean[h] = a.mean[t];
+    x.scale[h] = a.scale[t];
+    pos[t] = x.live ? a.pos_in[row + t] : 0.0f;
+  }
+  __syncwarp();
+  step.init(x);
+  float acc = 0.0f;
+  for (int i = 0; i < a.n_steps; ++i) {
+    if (step.step(x, static_cast<uint32_t>(i))) acc += 1.0f;
+    if (RECORD && (i + 1) % a.thin == 0 && x.live) {
+      const size_t rec = static_cast<size_t>((i + 1) / a.thin - 1);
+      a.samples[(rec * a.n + x.c) * kD + l] = pos[l];
+      a.samples[(rec * a.n + x.c) * kD + l + 32] = pos[l + 32];
+    }
+  }
+  if (x.live) {
+    a.out[row + l] = pos[l];
+    a.out[row + l + 32] = pos[l + 32];
+    if (l == 0) a.acc[x.c] = acc / static_cast<float>(a.n_steps);
+  }
 }
 
 // What every launch of a sampler checks; threads for it (enough for the

@@ -8,15 +8,16 @@ Each outer step runs ``subchain_len`` pCN steps against the surrogate Φ*,
 then one exact correction (Christen–Fox): accept with
 log u < (Φ(u) − Φ(v)) − (Φ*(u) − Φ*(v)), a NaN ratio rejecting.
 
-For CUDA tensors the entry points launch ``fused_da_pcn_kernel<Pot, RECORD>``
-(``csrc/fused_da_pcn.cu``), which runs the whole ``n_steps`` loop in one
-launch; it is instantiated for a pair of ``DarcyMisfit`` and for a pair of
-``BurgersMisfit`` potentials, and the wrapper picks by the potentials'
-family. The Darcy kernel comes in two instantiations chosen by the grids:
-both levels up to 16×16 (the surrogate solved by CG or Richardson), or a
-64×64 exact level with a 32×32 CG surrogate (``darcy64_da_fused``); the
-kernel refuses any other pair and the wrapper raises. For CPU tensors they
-run
+For CUDA tensors the entry points launch a kernel of
+``csrc/fused_da_pcn.cu`` that runs the whole ``n_steps`` loop in one
+launch, picked by the potentials' family and grids: for a 16×16 exact
+level with an 8×8 surrogate (solved by CG or Richardson),
+``fused_da_pcn_warp_kernel<SOLVER, RECORD>``, one warp per chain and
+``warp_geometry``'s chains a CTA, the preconditioner's products on the
+tensor cores; for a 64×64 exact level with a 32×32 CG surrogate
+(``darcy64_da_fused``) and for a pair of ``BurgersMisfit`` potentials,
+``fused_da_pcn_kernel<Pot, RECORD>``, one CTA per chain. The kernels
+refuse any other pair and the wrapper raises. For CPU tensors they run
 ``_run_plain`` / ``_run_plain_recorded``: the step builder below on the
 plain scaffold ``_scaffold.run_plain``, which takes any features-first
 callable (d, B) → (B,), so the algorithm tests can use analytic targets.
@@ -123,14 +124,67 @@ def _run_plain_recorded(pot_exact, pot_surr, positions, prior_mean,
 # --- the kernel -------------------------------------------------------------
 
 
+# The 16×16 kernel's design (``DaWarpDesign`` in ``csrc/fused_da_pcn.cu``):
+# chains a CTA at most, and whether the exact level's factors are staged in
+# shared memory (else read through L2). What it takes: an exact grid of
+# WARP_EXACT_N², a surrogate of WARP_SURR_N², d = K = WARP_D.
+WARP_CHAINS, WARP_EXACT_STAGED = 8, False
+WARP_EXACT_N, WARP_SURR_N, WARP_D = 16, 8, 64
+MAX_SMEM_BYTES = 232_448  # what a CTA of the H100 may use
+# the CTA's exchange rows (bf16 r, bf16 coefficients, f32 back-projection,
+# a_bar) and a warp's slice (pos0, pos, prop; p, th, tv of 256 cells)
+_XCHG_ROW_BYTES = 2 * (264 + 264) + 4 * (260 + 1)
+_WARP_SLICE_BYTES = 4 * (3 * WARP_D + 3 * WARP_EXACT_N ** 2)
+
+
+def _staged_bytes(n, modes, K=WARP_D):
+    """A level's factors staged in shared memory: the f32 basis and
+    eigenvalues, the bf16 modes with rows padded by 8 (a multiple of 16)."""
+    b = 4 * (K * n * n + modes) + 2 * modes * (n * n + 8)
+    return -(-b // 16) * 16
+
+
+def warp_geometry(n_chains, block_chains, *, exact_n=WARP_EXACT_N,
+                  exact_modes=128, surr_n=WARP_SURR_N, surr_modes=64,
+                  d=WARP_D, chains=WARP_CHAINS, exact_staged=WARP_EXACT_STAGED):
+    """The 16×16 kernel's launch: (CTAs, chains a CTA, dynamic shared-memory
+    bytes), as ``da_warp_geometry`` in ``csrc/fused_da_pcn.cu`` computes
+    it. Chains a CTA: the largest power of two up to ``chains`` that divides
+    ``block_chains`` (a CTA's chains share an RNG block); a ragged last CTA
+    runs spare warps. Raises ``ValueError`` for grids, d or modes the kernel
+    does not take and for shared memory the card cannot give a CTA."""
+    if (exact_n, surr_n, d) != (WARP_EXACT_N, WARP_SURR_N, WARP_D):
+        raise ValueError(
+            f"the 16x16 DA kernel takes a {WARP_EXACT_N}x{WARP_EXACT_N} exact grid, "
+            f"a {WARP_SURR_N}x{WARP_SURR_N} surrogate and d = {WARP_D}; got "
+            f"{exact_n}x{exact_n}, {surr_n}x{surr_n}, d = {d}")
+    for n, modes in ((exact_n, exact_modes), (surr_n, surr_modes)):
+        if modes % 16 or not 0 <= modes <= n * n:
+            raise ValueError(f"{n}x{n}: {modes} preconditioner modes are not a "
+                             f"multiple of 16 up to {n * n}")
+    if block_chains <= 0 or n_chains < 0:
+        raise ValueError(f"n_chains {n_chains}, block_chains {block_chains}")
+    w = chains
+    while block_chains % w:
+        w //= 2
+    tiles = -(-chains // 8)
+    smem = (8 * tiles * _XCHG_ROW_BYTES + _staged_bytes(surr_n, surr_modes)
+            + (_staged_bytes(exact_n, exact_modes) if exact_staged else 0)
+            + w * _WARP_SLICE_BYTES)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{smem} bytes of shared memory a CTA: the card gives "
+                         f"{MAX_SMEM_BYTES}")
+    return -(-n_chains // w), w, smem
+
+
 def _darcy_stem(pot_exact, pot_surr):
-    """The launch count's name of the Darcy instantiation: the 16×16 one
-    by its surrogate's solver, a larger one by its grids."""
+    """The launch count's name of the Darcy kernel: the 16×16 one by its
+    surrogate's solver, a larger one by its grids."""
     if max(pot_exact.n, pot_surr.n) > 16:
         return f"fused_da_pcn_kernel[n={pot_exact.n},surrogate n={pot_surr.n}]"
     if pot_surr.solver != "cg":
-        return f"fused_da_pcn_kernel[surrogate={pot_surr.solver}]"
-    return "fused_da_pcn_kernel"
+        return f"fused_da_pcn_warp_kernel[surrogate={pot_surr.solver}]"
+    return "fused_da_pcn_warp_kernel"
 
 
 def _launch(pot_exact, pot_surr, positions, prior_mean, prior_scale, beta,
@@ -151,6 +205,10 @@ def _launch(pot_exact, pot_surr, positions, prior_mean, prior_scale, beta,
     es, ss = pot_exact.spec(), pot_surr.spec()
     lib = _build.library()
     if family == "darcy":
+        if max(pot_exact.n, pot_surr.n) <= 16:  # refused here with the reason
+            warp_geometry(U.shape[1], block_chains, exact_n=pot_exact.n,
+                          exact_modes=pot_exact.modes, surr_n=pot_surr.n,
+                          surr_modes=pot_surr.modes, d=U.shape[0])
         fn, stem = lib.ipx_fused_da_pcn, _darcy_stem(pot_exact, pot_surr)
     else:
         fn, stem = lib.ipx_fused_da_pcn_burgers, "fused_da_pcn_burgers_kernel"

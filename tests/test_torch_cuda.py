@@ -525,7 +525,7 @@ def test_da_kernel_with_richardson_surrogate_matches_plain(richardson_problems, 
     args = (exact, surr, pos, p.prior.mean, p.prior.scale, 0.35, 3)
     plain_args = (exact._forward_plain, surr._forward_plain, *args[2:])
     kw = dict(n_steps=4, subchain_len=6, block_chains=128)
-    name = f"fused_da_pcn_kernel[surrogate=richardson]<{'true' if record else 'false'}>"
+    name = f"fused_da_pcn_warp_kernel[surrogate=richardson]<{'true' if record else 'false'}>"
     before = _build.launch_counts[name]
     if record:
         got = da.fused_da_pcn_chain_recorded(*args, thin=2, **kw)
@@ -689,3 +689,115 @@ def test_da_kernel_refuses_other_grid_pairs(darcy64_da):
         with pytest.raises(RuntimeError, match=f"launch failed.*{why}"):
             da.fused_da_pcn_chain(e, s, pos, p.prior.mean, p.prior.scale, 0.4, 0,
                                   n_steps=1, subchain_len=2, block_chains=128)
+
+
+# --- the 16² DA kernel: one warp per chain (fused_da_pcn_warp_kernel) ----------
+
+
+def _da16(name):
+    p = _build_on_card("darcy_da_fused")
+    if name != "darcy_da_fused":  # a surrogate of benchmarks/darcy_da_richardson.py
+        p = configs.darcy_da_richardson(name, "cuda")
+    return p, p.batched_potential_fn, p.batched_surrogate_fn
+
+
+@pytest.mark.parametrize("record", [False, True])
+def test_da16_kernel_with_ragged_last_cta_matches_plain(record):
+    """13 chains in blocks of 8: two CTAs of 8 warps, the last with 3 spare
+    warps that store nothing. Chain c's draws depend on its block and lane
+    only, so the plain loop over 16 chains gives the 13 chains' reference."""
+    p, exact, surr = _da16("darcy_da_fused")
+    pos = p.init_positions(torch.Generator().manual_seed(21), 16).cuda()
+    plain = (exact._forward_plain, surr._forward_plain)
+    args = (p.prior.mean, p.prior.scale, 0.35, 9)
+    kw = dict(n_steps=3, subchain_len=6, block_chains=8)
+    thin = 1 if record else None
+    got = da._launch(exact, surr, pos[:13], *args, kw["n_steps"], kw["subchain_len"], 8,
+                     thin=thin)
+    if record:
+        ref = da._run_plain_recorded(*plain, pos, *args, thin=1, **kw)
+        assert got[2].shape == (3, 13, 64)
+        assert torch.equal(got[2][-1], got[0])
+        rec = (got[2] - ref[2][:, :13]).abs().amax(dim=(0, 2))
+        assert float((rec <= 1e-4).double().mean()) >= 0.99
+    else:
+        ref = da._run_plain(*plain, pos, *args, **kw)
+        assert abs(float(got[2].mean()) - float(ref[2][:13].mean())) <= 1e-2
+    _chains_agree(got, tuple(r[:13] for r in ref[:2]), 3)
+
+
+@pytest.mark.parametrize("record", [False, True])
+@pytest.mark.parametrize("name", ["darcy_da_fused", "rich3_w0.9"])
+def test_da16_kernel_at_full_width_matches_plain(name, record):
+    """4096 chains in blocks of 512 (512 CTAs of 8 warps), with the CG and
+    the rich3 Richardson surrogate, plain and recorded."""
+    p, exact, surr = _da16(name)
+    pos = p.init_positions(torch.Generator().manual_seed(22), 4096).cuda()
+    args = (exact, surr, pos, p.prior.mean, p.prior.scale, 0.35, 13)
+    plain_args = (exact._forward_plain, surr._forward_plain, *args[2:])
+    kw = dict(n_steps=2, subchain_len=8, block_chains=512)
+    stem = da._darcy_stem(exact, surr)
+    name = f"{stem}<{'true' if record else 'false'}>"
+    before = _build.launch_counts[name]
+    if record:
+        got = da.fused_da_pcn_chain_recorded(*args, thin=1, **kw)
+        ref = da._run_plain_recorded(*plain_args, thin=1, **kw)
+        assert float(((got[2] - ref[2]).abs().amax(dim=2) <= 1e-4).double().mean()) >= 0.99
+    else:
+        got = da.fused_da_pcn_chain(*args, **kw)
+        ref = da._run_plain(*plain_args, **kw)
+        assert 0.0 < float(got[2].mean()) < 1.0
+        assert abs(float(got[2].mean()) - float(ref[2].mean())) <= 1e-2
+    assert _build.launch_counts[name] == before + 1
+    _chains_agree(got, ref, 2)
+
+
+def test_da16_geometry_matches_the_kernel():
+    """warp_geometry (Python) gives what the kernel's launch computes."""
+    import ctypes
+
+    p, exact, surr = _da16("darcy_da_fused")
+    lib = _build.library()
+    es, ss = exact.spec(), surr.spec()
+    for n, block in ((4096, 512), (13, 8), (13, 13), (20, 4), (12, 6)):
+        pos = torch.zeros(n, 64, device="cuda")
+        args, _ = da._scaffold.chain_args(pos, p.prior.mean, p.prior.scale, 0, 1, block)
+        out = (ctypes.c_int * 3)()
+        assert lib.ipx_da_pcn_warp_geometry(ctypes.byref(es), ctypes.byref(ss),
+                                            ctypes.byref(args), out) == 0
+        ctas, w, smem = da.warp_geometry(n, block, exact_modes=exact.modes,
+                                         surr_modes=surr.modes)
+        assert (out[0], out[1], out[2]) == (w, ctas, smem), (n, block)
+
+
+def test_da16_kernel_refuses_what_it_does_not_take():
+    """d other than 64 (a KL basis of 36 modes), an 8² exact level: the
+    wrapper raises before launching, and the kernel itself refuses them
+    (cudaErrorNotSupported)."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    p, exact, surr = _da16("darcy_da_fused")
+    y = surr.data.cpu().numpy()
+
+    def misfit(n, per_dim):
+        aux = darcy.darcy_aux(n_grid=n, n_modes_per_dim=per_dim, alpha=2.0, field_scale=10.0)
+        return darcy_misfit_from_arrays(aux, y, 0.002, cg_iters=3, precond="dst_trunc",
+                                        precond_modes=64).cuda()
+
+    lib = _build.library()
+    for e, s, why in ((misfit(16, 6), misfit(8, 6), "d = 64"),
+                      (misfit(8, 8), surr, "16x16 exact grid")):
+        d = e.K
+        pos = torch.zeros(16, d, device="cuda")
+        mean, scale = torch.zeros(d), torch.ones(d)
+        with pytest.raises(ValueError, match=why):
+            da.fused_da_pcn_chain(e, s, pos, mean, scale, 0.35, 0, n_steps=1,
+                                  subchain_len=2, block_chains=16)
+        args, _ = da._scaffold.chain_args(pos, mean, scale, 0, 1, 16)
+        out = (ctypes.c_int * 3)()
+        status = lib.ipx_da_pcn_warp_geometry(ctypes.byref(e.spec()), ctypes.byref(s.spec()),
+                                              ctypes.byref(args), out)
+        assert "not supported" in lib.ipx_error_string(status).decode()

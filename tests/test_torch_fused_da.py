@@ -204,3 +204,51 @@ def test_kernel_refuses_potentials_of_two_families(potentials, burgers_levels):
     assert _scaffold.require_family({"potential_fn": darcy_exact}) == "darcy"
     with pytest.raises(TypeError, match="DarcyMisfit potentials only"):
         _scaffold.require_family({"potential_fn": fine})
+
+
+# --- the 16x16 kernel's launch geometry (csrc/fused_da_pcn.cu) ------------------
+
+
+def _levels(name):
+    p = (configs.build(name, "cpu") if name == "darcy_da_fused"
+         else configs.darcy_da_richardson(name, "cpu"))
+    e, s = p.batched_potential_fn, p.batched_surrogate_fn
+    return dict(exact_n=e.n, exact_modes=e.modes, surr_n=s.n, surr_modes=s.modes,
+                d=e.K), s.solver
+
+
+@pytest.mark.parametrize("name", ["darcy_da_fused", "rich3_w0.9"])
+def test_warp_geometry_fits_the_card_for_both_surrogate_solvers(name):
+    """The shipped path (4096 chains in blocks of 512) at both surrogate
+    solves: W chains a CTA dividing block_chains, every chain in a CTA, the
+    shared memory within the 232,448 bytes a CTA of the H100 may take; the
+    exact level's factors staged would fit too at the shipped W."""
+    levels, solver = _levels(name)
+    assert solver == ("cg" if name == "darcy_da_fused" else "richardson")
+    ctas, w, smem = da.warp_geometry(4096, 512, **levels)
+    assert w == da.WARP_CHAINS and 512 % w == 0 and ctas * w == 4096
+    assert smem <= da.MAX_SMEM_BYTES
+    staged = da.warp_geometry(4096, 512, exact_staged=True, **levels)[2]
+    assert smem < staged <= da.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("n, block, want_w, want_ctas",
+                         [(13, 8, 8, 2), (13, 13, 1, 13), (20, 4, 4, 5), (12, 6, 2, 6),
+                          (0, 8, 8, 0), (4096, 512, 8, 512)])
+def test_warp_geometry_ragged_and_dividing(n, block, want_w, want_ctas):
+    """W is the largest power of two up to the shipped 8 that divides
+    block_chains, and a ragged n gets a last CTA of spare warps."""
+    ctas, w, _ = da.warp_geometry(n, block)
+    assert (w, ctas) == (want_w, want_ctas)
+    assert block % w == 0 and (ctas - 1) * w < max(n, 1) <= ctas * w or n == 0
+
+
+def test_warp_geometry_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="d = 64"):
+        da.warp_geometry(64, 64, d=36)
+    with pytest.raises(ValueError, match="16x16 exact grid"):
+        da.warp_geometry(64, 64, exact_n=8)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        da.warp_geometry(64, 64, exact_modes=100)
+    with pytest.raises(ValueError, match="232448"):
+        da.warp_geometry(64, 64, chains=16, exact_staged=True)
