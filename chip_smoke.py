@@ -14,9 +14,11 @@ Gaussians), times both, then drives the ported paths at full width:
                              by Richardson (K17), the CG one beside them
     darcy_pcn_warm           warm-started pCN           (K7)
     darcy32_pcn_warm         warm pCN on 32 x 32 cells  (K5, K7)
-    darcy64_pcn_warm         warm pCN on 64 x 64 cells  (K5, K7)
+    darcy64_pcn_warm         warm pCN on 64 x 64 cells  (K5, K7), G chains
+                             a thread-block cluster
     darcy64_da_fused         delayed acceptance on 64 x 64 cells with a
-                             32 x 32 surrogate (K4, K5)
+                             32 x 32 surrogate (K4, K5), G chains a
+                             thread-block cluster
     darcy_ess_fused          elliptical slice sampling  (K8)
     darcy_pcn_4096 --fused   cold pCN                   (K6)
     darcy_mala_fused         MALA, adjoint gradient     (K10)
@@ -911,7 +913,8 @@ def check_large_grids(problems, gen, results):
     """K5 and K7 on the 32x32 and 64x64 grids at their configs' widths: the
     cold misfit kernel (no path launches it: the warm runs start from the
     warm misfit), the warm misfit kernel from x0 = 0 and from a previous
-    solution, and the warm pCN kernel, plain and recorded."""
+    solution, and the warm pCN kernel (at 64x64 the cluster kernel), plain
+    and recorded."""
     from ip_mcmc_tpu_torch.ops import fused_pcn
 
     for config in ("darcy32_pcn_warm", "darcy64_pcn_warm"):
@@ -942,7 +945,7 @@ def check_large_grids(problems, gen, results):
         for recorded in (False, True):
             kw = dict(aux_dim=aux_dim, **({"thin": 1} if recorded else {}))
             compare_chain(
-                results, "fused_pcn_warm_kernel", recorded,
+                results, fused_pcn._darcy_stem(warm, True), recorded,
                 lambda s: fused_pcn._launch(*args, s, block, **kw),
                 lambda s: fused_pcn._run_plain(*plain_args, s, block, **kw),
                 steps=4, kernel_long=36, plain_long=8,
@@ -955,7 +958,10 @@ def check_large_grids(problems, gen, results):
 # hardware
 TPU_DARCY64_DA = {"outer_accept": 0.82, "inner_accept": 0.184,
                   "ess_per_outer_step_chain": 0.277, "max_rhat": 1.010}
-DA64 = "fused_da_pcn_kernel[n=64,surrogate n=32]"
+# the 64x64 kernels: one chain a CTA, the chains of a thread-block cluster
+# sharing each read of the factors
+DA64 = "fused_da_pcn_cluster_kernel"
+PCN64 = "fused_pcn_warm_cluster_kernel"
 
 
 def check_da64(problem, gen, results):
@@ -992,6 +998,81 @@ def check_da64(problem, gen, results):
                       plain_long=4, variant=f"64x64 exact, 32x32 surrogate, block {block}, k={k}",
                       paths=["darcy64_da_fused"], source="fused_da_pcn.cu",
                       pots=(exact, surr), per_step_ops=ops)
+
+
+def check_cluster(problems):
+    """What the 64x64 cluster kernels add beside their twins: the Python
+    mirror of the launch geometry against the C function, and a ragged
+    width, 13 chains (two clusters of 8 CTAs, 3 of them spare, running on
+    zeros): equal bit for bit to the first 13 of the kernel's own 16-chain
+    run, and within CHAIN_ATOL of the plain twin's 16-chain run, plain and
+    recorded, for both kernels."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.ops import _build, _cluster, _scaffold, fused_pcn
+    from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
+
+    lib = _build.library()
+    da_p, pcn_p = problems["darcy64_da_fused"], problems["darcy64_pcn_warm"]
+    exact, surr = da_p.batched_potential_fn, da_p.batched_surrogate_fn
+    warm, aux_dim = pcn_p.batched_warm_potential
+    for p, e, s in ((da_p, exact, surr), (pcn_p, warm, None)):
+        for n, block in ((p.n_chains, p.kernel_params["block_chains"]), (13, 8), (16, 4),
+                         (1, 128)):
+            pos = torch.zeros(n, p.dim, device="cuda")
+            args, _ = _scaffold.chain_args(pos, p.prior.mean, p.prior.scale, 0, 1, block)
+            out = (ctypes.c_int * 4)()
+            status = lib.ipx_darcy_cluster_geometry(
+                ctypes.byref(e.spec()), None if s is None else ctypes.byref(s.spec()),
+                ctypes.byref(args), out)
+            want = _cluster.cluster_geometry(
+                n, block, d=p.dim, exact_modes=e.modes, surr_n=None if s is None else s.n,
+                surr_modes=128 if s is None else s.modes)
+            if status != 0 or tuple(out) != want:
+                raise AssertionError(f"cluster geometry of {p.name} at {n} chains, block "
+                                     f"{block}: C {tuple(out)} (status {status}), Python {want}")
+    print(f"cluster geometry: Python mirror equals the C function for {DA64} and {PCN64} "
+          f"(G = {_cluster.CLUSTER_G}; shipped: "
+          f"{_cluster.cluster_geometry(da_p.n_chains, 128)} and "
+          f"{_cluster.cluster_geometry(pcn_p.n_chains, 128, surr_n=None)})", flush=True)
+
+    block, steps = 8, 3
+    for p, stem in ((da_p, DA64), (pcn_p, PCN64)):
+        pos = p.init_positions(torch.Generator().manual_seed(71), 16).cuda()
+        beta = p.kernel_params["beta"]
+        for recorded in (False, True):
+            thin = 1 if recorded else None
+            if stem == DA64:
+                kern = lambda n: da._launch(exact, surr, pos[:n], p.prior.mean, p.prior.scale,  # noqa: E731
+                                            beta, 73, steps, 4, block, thin=thin)
+                plain = (plain_potential(exact), plain_potential(surr))
+                tail = (p.prior.mean, p.prior.scale, beta, 73, steps)
+                ref = (da._run_plain_recorded(*plain, pos, *tail, 1, 4, block) if recorded
+                       else da._run_plain(*plain, pos, *tail, 4, block))
+            else:
+                kern = lambda n: fused_pcn._launch(warm, pos[:n], p.prior.mean, p.prior.scale,  # noqa: E731
+                                                   beta, 73, steps, block, thin=thin,
+                                                   aux_dim=aux_dim)
+                ref = fused_pcn._run_plain(plain_potential(warm, warm=True), pos, p.prior.mean,
+                                           p.prior.scale, beta, 73, steps, block, thin=thin,
+                                           aux_dim=aux_dim)
+            got, full = kern(13), kern(16)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(g, f[:, :13] if g.dim() == 3 else f[:13])
+                        for g, f in zip(got, full))
+            dev = (got[0] - ref[0][:13]).abs().max(dim=1).values
+            frac = float((dev <= CHAIN_ATOL).double().mean())
+            if recorded:
+                rec = (got[2] - ref[2][:, :13]).abs().amax(dim=(0, 2))
+                frac = min(frac, float((rec <= CHAIN_ATOL).double().mean()))
+            rate = abs(float(got[1].mean()) - float(ref[1][:13].mean()))
+            name = f"{stem}<{'true' if recorded else 'false'}>"
+            print(f"{name} ragged (13 chains in clusters of {_cluster.CLUSTER_G}, {steps} "
+                  f"steps): equal to the first 13 of 16 {equal}; {frac:.4f} of chains within "
+                  f"{CHAIN_ATOL} of the plain twin, acceptance {float(got[1].mean()):.4f} plain "
+                  f"{float(ref[1][:13].mean()):.4f}", flush=True)
+            if not equal or frac < MIN_CHAIN_FRAC or rate > RATE_ATOL:
+                raise AssertionError(f"{name} on a ragged width disagrees")
 
 
 def report_da64(problem, metrics):
@@ -1436,8 +1517,8 @@ PATHS = {
                             "fused_pcn_warm_kernel<true>")),
     "darcy32_pcn_warm": ([], ("darcy_misfit_warm_kernel", "fused_pcn_warm_kernel<false>",
                               "fused_pcn_warm_kernel<true>")),
-    "darcy64_pcn_warm": ([], ("darcy_misfit_warm_kernel", "fused_pcn_warm_kernel<false>",
-                              "fused_pcn_warm_kernel<true>")),
+    "darcy64_pcn_warm": ([], ("darcy_misfit_warm_kernel", f"{PCN64}<false>",
+                              f"{PCN64}<true>")),
     "darcy64_da_fused": ([], ("darcy_misfit_kernel[n=64]", "darcy_misfit_kernel[n=32]",
                               f"{DA64}<false>", f"{DA64}<true>")),
     "darcy_ess_fused": ([], ("darcy_misfit_kernel[n=16]", "fused_ess_kernel<false>",
@@ -1555,6 +1636,7 @@ def main() -> int:
     check_single_level(problems, gen, results)
     check_large_grids(problems, gen, results)
     check_da64(problems["darcy64_da_fused"], gen, results)
+    check_cluster(problems)
     check_gradient_and_ensemble(problems, gen, results)
     check_burgers(problems, gen, results)
     check_linear_family(problems, gen, results)
@@ -1582,7 +1664,7 @@ def main() -> int:
         "darcy_da_fused": f"{DA16}<true>",
         "darcy_pcn_warm": "fused_pcn_warm_kernel<true>",
         "darcy32_pcn_warm": "fused_pcn_warm_kernel<true>",
-        "darcy64_pcn_warm": "fused_pcn_warm_kernel<true>",
+        "darcy64_pcn_warm": f"{PCN64}<true>",
         "darcy64_da_fused": f"{DA64}<true>",
         "darcy_ess_fused": "fused_ess_kernel<true>",
         "darcy_pcn_4096": "fused_pcn_kernel<true>",

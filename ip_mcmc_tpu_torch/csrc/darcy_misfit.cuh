@@ -30,11 +30,13 @@
 // zeros), so every __syncthreads is reached by the whole block.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
 #include <cstdint>
 
 #include "block_reduce.cuh"
+#include "fused_scaffold.cuh"
 
 extern "C" {
 // Mirrored by ip_mcmc_tpu_torch/ops/_build.py MisfitSpec.
@@ -564,17 +566,6 @@ struct Layout64 {
   static constexpr int kCells = 8, kThreads = 512, kMinCtas = 2;
 };
 
-// The layout of a surrogate solved in the CTA of an exact level whose
-// layout is Exact (the DA kernel runs both levels in one CTA): Exact's
-// threads and CTAs per SM, and as many cells a thread as the surrogate's
-// N x N grid needs on them (32 x 32 on 1024 threads: 1; on 512: 2), so that
-// no register of a surrogate cell stands empty.
-template <class Exact, int N>
-struct SurrogateLayout {
-  static constexpr int kThreads = Exact::kThreads, kMinCtas = Exact::kMinCtas;
-  static constexpr int kCells = (N * N + kThreads - 1) / kThreads;
-};
-
 // The Darcy misfit as the potential type of the samplers that take one
 // (DaStep, PcnStep, RwmStep): what a step needs to know of a potential.
 // Layout: the CTA (above); SOLVER: the solve of phi (CG, or K17's
@@ -754,6 +745,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
 
 __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Eight bf16 values (a 16-byte load) as floats, in memory order.
+__device__ __forceinline__ void unpack_bf16x8(const uint4& q, float (&v)[8]) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -1081,6 +1082,653 @@ __device__ float darcy_phi_warp(const L& lv, const float* u) {
   const float phi = 0.5f * warp_sum(acc);
   __syncwarp();
   return phi;
+}
+
+// --- one chain a CTA, G chains a thread-block cluster: the 64 x 64 kernels ----
+//
+// The functions below run darcy_setup / darcy_cg for one chain per CTA, with
+// the cells-per-thread layout of the functions above (C cells a thread, the
+// CG vectors in registers), for the 64 x 64 grid and its 32 x 32 surrogate,
+// whose factors (K = 144: the f32 basis 2.4 MB and 0.59 MB, the bf16 modes
+// 2.1 MB and 0.26 MB) fit in no CTA. The G CTAs of a thread-block cluster
+// run G chains in lockstep and meet in the three products that read the
+// factors, so that each factor byte is read from L2 once a cluster instead
+// of once a chain. CTA rho of the cluster computes, for all G chains:
+//
+//   the KL reconstruction  a = exp(log_a_mean + basis^T u) on cells slice
+//                          rho, from the chains' u read through distributed
+//                          shared memory (DSMEM); f32 on the CUDA cores, k
+//                          in ascending order as darcy_setup sums it, each
+//                          a written to its chain's CTA;
+//   coef = V bf16(r)       on modes slice rho, bf16 mma.sync.m16n8k16 with
+//                          f32 accumulation, the chains as N; bf16(coef /
+//                          (lam a_bar)) goes to every CTA of the cluster;
+//   back = V^T coef        on cells slice rho, the same way (the
+//                          surrogate's on the CUDA cores: see Numerics);
+//                          each chain's slice goes to its CTA.
+//
+// Every output's sum over K runs in one CTA (its warps split the k-steps
+// and their partial sums are added in k order), so nothing is added across
+// CTAs. Three cluster barriers an apply, two a set-up. Every CTA of a
+// cluster calls these functions together with the same iteration counts
+// (a spare CTA of a ragged last cluster on a chain of zeros), so every
+// cluster barrier is reached by all of them.
+//
+// The work is a chain of small dependent phases (a surrogate solve: two
+// cluster barriers in the set-up, three in each of 4 preconditioner
+// applies), so the design runs two chains an SM (two CTAs of 512 threads,
+// 8 cells a thread), each hiding the other's waits, and bounds a thread's
+// registers at 64. A spilled register goes to L2 when the spills of the
+// SM's threads overflow L1, so a thread keeps only the CG vectors x, r, p
+// (and z, Ap while they live) in registers; the stencil's face terms,
+// boundary terms and the inverse diagonal lie in shared memory, every
+// buffer at an offset fixed at compile time (ClusterSmem), so that a
+// thread keeps no pointer to one in a register; the products' k-loops are
+// not unrolled and the KL sums keep 16 loads in flight, which spill least
+// (scripts/measure_da64_cluster_design.py, PERF.md).
+//
+// Numerics: the tensor cores sum a product in another order, with another
+// rounding, than an f32 loop. For V bf16(r) that rarely shows (its result is
+// rounded to bf16); for the surrogate's V^T coef, an f32 term of z, it parts
+// about 2 % of the chains from the plain twin within two outer steps of
+// darcy64_da_fused. So the surrogate's V^T coef runs on the CUDA cores, an
+// f32 FMA loop over the modes in ascending order from this CTA's columns of
+// V kept in shared memory through an outer step (stage_columns); the exact
+// level's products and the surrogate's V bf16(r) run on the tensor cores.
+
+namespace cg = cooperative_groups;
+
+// The cluster design of the 64 x 64 kernels (fused_da_pcn_cluster_kernel,
+// fused_pcn_warm_cluster_kernel; scripts/measure_da64_cluster_design.py
+// times the alternatives): kG chains (CTAs) a cluster; the CTA's layout
+// (kCells cells a thread at 64 x 64 on kThreads threads, kMinCtas CTAs an
+// SM for the launch bound); kSurrMmaCoef, kSurrMmaBack: the surrogate's
+// V bf16(r) and its V^T coef on the tensor cores (bf16 mma.sync, f32
+// accumulation), else as f32 FMAs on the CUDA cores (the same bf16
+// roundings, the sums in another order). The exact level's products run
+// on the tensor cores (on the CUDA cores its columns of V would not fit in
+// shared memory).
+struct ClusterDesign { static constexpr int kG = 8, kCells = 8, kThreads = 512, kMinCtas = 2; static constexpr bool kSurrMmaCoef = true, kSurrMmaBack = false; };
+
+// The grids the cluster kernels take, and the largest K (= d) and number
+// of dst_trunc modes (the exact level's; the surrogate's) their shared
+// memory holds.
+constexpr int kClusterExactN = 64, kClusterSurrN = 32, kClusterMaxK = 144;
+constexpr int kClusterMaxModes = 256, kClusterSurrMaxModes = 128;
+
+// The shared memory of a CTA of the cluster kernels (the same in every CTA,
+// so that a peer's buffer is this CTA's offset mapped to its rank).
+struct ClusterSmem {
+  static constexpr int kCells = kClusterExactN * kClusterExactN, kG = ClusterDesign::kG;
+  static constexpr int kNT = (kG + 7) / 8, kWarps = ClusterDesign::kThreads / 32;
+  // f32 offsets
+  // [5][cells] a level's per-cell arrays (ClusterLevel::kArr*), each of
+  // the level's cells, packed from the start: the 32 x 32 surrogate leaves
+  // the rest of the region free for its products' staging
+  static constexpr int kCellArrays = 0;
+  static constexpr int kPart = kCellArrays + 5 * kCells;  // [warps][16][8 NT] partial sums
+  static constexpr int kUall = kPart + kWarps * 16 * 8 * kNT;  // [G][K] the cluster's u
+  static constexpr int kState = kUall + kG * kClusterMaxK;     // [3][d] the sampler's state
+  static constexpr int kRed = kState + 3 * kClusterMaxK;       // [32] warp partials
+  static constexpr int kScalar = kRed + 32;                    // [1] broadcast of Phi
+  static constexpr int kAbar = kScalar + 1;                    // [1] this chain's a_bar
+  static constexpr int kAbarAll = kAbar + 1;                   // [G] the cluster's a_bar
+  static constexpr int kLam = kAbarAll + kG;  // [modes] eigenvalues of this CTA's modes slice
+  static constexpr int kF32 = (kLam + kClusterMaxModes + 3) / 4 * 4;  // floats before the bf16 ones
+  // bf16 offsets after the floats
+  static constexpr int kRb = 0;                                // [cells] this chain's bf16(r)
+  static constexpr int kCbStride = kClusterMaxModes + 8;       // 4 words mod 32: no bank conflict
+  static constexpr int kCb = kRb + kCells;                     // [G][kCbStride] the coefficients
+  static constexpr int kBytes = 4 * kF32 + 2 * (kCb + kG * kCbStride);
+};
+
+extern __shared__ float4 ipx_cluster_smem[];
+
+__device__ __forceinline__ float* cluster_f32(int offset) {
+  return reinterpret_cast<float*>(ipx_cluster_smem) + offset;
+}
+__device__ __forceinline__ __nv_bfloat16* cluster_bf16(int offset) {
+  return reinterpret_cast<__nv_bfloat16*>(cluster_f32(ClusterSmem::kF32)) + offset;
+}
+// The misfit workspace inside it (no modes row: the cluster's products
+// keep theirs in the exchange).
+// (darcy_observe reads cell_a, the level's first per-cell array).
+__device__ __forceinline__ MisfitSmem cluster_ws() {
+  return {cluster_f32(ClusterSmem::kCellArrays), nullptr, nullptr,
+          cluster_f32(ClusterSmem::kRed), cluster_f32(ClusterSmem::kScalar)};
+}
+
+// D (rows x G) = A (rows x K) B (K x G) for this CTA's `tiles` row tiles of
+// 16: mac(acc, tile, kstep) adds one k-step's mma products (of its
+// fragments; zeros in the columns of no chain) to acc, and finish(tile,
+// row, ch, value) takes each sum (fragment row 0..16 of the tile, chain ch
+// < G). With at least as many tiles as warps a warp takes whole tiles;
+// else the W / tiles warps of a tile split its k-steps into chunks, and
+// their partial sums are added in chunk order. Every thread of the CTA
+// calls (a CTA barrier when the k-steps are split).
+template <int G, class MAC, class F>
+__device__ void cta_tile_products(int tiles, int ksteps, MAC mac, F finish) {
+  constexpr int NT = (G + 7) / 8;
+  if (tiles == 0) return;
+  float* part = cluster_f32(ClusterSmem::kPart);
+  const int l = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int g = l >> 2, t = l & 3;
+  const bool split = tiles < nw;
+  const int ks_n = split ? nw / tiles : 1;
+  const int chunk = (ksteps + ks_n - 1) / ks_n;
+  for (int job = w; job < (split ? tiles * ks_n : tiles); job += nw) {
+    const int tile = split ? job / ks_n : job, ks = split ? job % ks_n : 0;
+    const int k_lo = split ? ks * chunk : 0;
+    const int k_hi = split ? min(ksteps, k_lo + chunk) : ksteps;
+    float acc[NT][4] = {};
+#pragma unroll 1
+    for (int k = k_lo; k < k_hi; ++k) mac(acc, tile, k);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = g + 8 * (e >> 1), ch = nt * 8 + 2 * t + (e & 1);
+        if (split) part[(job * 16 + row) * 8 * NT + ch] = acc[nt][e];
+        else if (ch < G) finish(tile, row, ch, acc[nt][e]);
+      }
+  }
+  if (!split) return;
+  __syncthreads();
+  for (int e = threadIdx.x; e < tiles * 16 * G; e += blockDim.x) {
+    const int tile = e / (16 * G), row = (e / G) % 16, ch = e % G;
+    float v = 0.0f;
+    for (int ks = 0; ks < ks_n; ++ks) v += part[((tile * ks_n + ks) * 16 + row) * 8 * NT + ch];
+    finish(tile, row, ch, v);
+  }
+}
+
+// One level of the cluster-level solve: an N x N grid on T threads, C cells
+// a thread (every thread owns C cells), G chains a cluster, each of the
+// preconditioner's products (V bf16(r): MMA_COEF; V^T coef: MMA_BACK) on
+// the tensor cores or the CUDA cores, and its spec.
+template <int N, int C, int T, int G, bool MMA_COEF, bool MMA_BACK>
+struct ClusterLevel {
+  static constexpr int kN = N, kCells = N * N, kC = C, kG = G;
+  static constexpr int kSlice = kCells / G;  // cells of a CTA's slice
+  static_assert(C * T == kCells, "every thread owns C cells");
+  static_assert(kSlice % 16 == 0 && (T % kSlice == 0 || kSlice % T == 0),
+                "a cells slice is whole mma tiles and fits the threads");
+  static_assert(kCells <= ClusterSmem::kCells && G == ClusterSmem::kG, "ClusterSmem holds it");
+  // the per-cell arrays (f32 offsets): a, the vector the stencil reads, the
+  // cluster's V^T coef, x (cell_a); face terms below (cell_b) and right of
+  // each cell (th); boundary terms; inverse diagonal; then free floats
+  static constexpr int kArrCellA = ClusterSmem::kCellArrays, kArrCellB = kArrCellA + kCells;
+  static constexpr int kArrTh = kArrCellB + kCells, kArrBnd = kArrTh + kCells;
+  static constexpr int kArrInv = kArrBnd + kCells, kArrFree = kArrInv + kCells;
+  static constexpr int kFreeFloats = ClusterSmem::kCellArrays + 5 * ClusterSmem::kCells - kArrFree;
+  static constexpr int kMaxModes = N == kClusterExactN ? kClusterMaxModes : kClusterSurrMaxModes;
+  // the staged columns of V: a row of modes a cell, padded to 4 words mod
+  // 32 so that 8 lanes' 16-byte loads of 8 cells fall in distinct banks
+  static constexpr int kVStride = kMaxModes + 8;
+  static constexpr int kKlBatch = 16;  // basis loads a thread keeps in flight
+  static_assert(kClusterMaxModes / 16 / G < T / 32, "the mode tiles of V.r split over warps");
+  static_assert(G + kClusterMaxModes / G <= T, "a thread a cluster a_bar or slice eigenvalue");
+  const IpxMisfitSpec* s;
+
+  // a = exp(log_a_mean + basis^T u) on this CTA's cells slice for the
+  // cluster's chains, each written to its chain's cell_a; u: this chain's
+  // coefficients (the same buffer in every CTA). Two cluster barriers:
+  // after them cell_a holds this chain's field.
+  __device__ void reconstruct(const float* u) const {
+    cg::cluster_group cl = cg::this_cluster();
+    const int K = s->K, rho = static_cast<int>(cl.block_rank()), tid = threadIdx.x;
+    float* uall = cluster_f32(ClusterSmem::kUall);
+    float* cell_a = cluster_f32(kArrCellA);
+    cl.sync();  // every chain's u is written; the last solve's reads of cell_a are done
+    for (int e = tid; e < G * K; e += T) uall[e] = cl.map_shared_rank(u, e / K)[e % K];
+    __syncthreads();
+    const float* basis = s->basis;
+    const float mean = s->log_a_mean;
+    const int slice0 = rho * kSlice;
+    if constexpr (T % kSlice == 0) {  // a cell a thread, the chains ch0, ch0 + R, ...
+      constexpr int R = T / kSlice, J = (G + R - 1) / R;
+      const int cell = slice0 + tid % kSlice, ch0 = tid / kSlice;
+      float acc[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) acc[j] = 0.0f;
+      for (int k0 = 0; k0 < K; k0 += kKlBatch) {  // a batch of loads in flight, then the sums
+        float b[kKlBatch];
+#pragma unroll
+        for (int i = 0; i < kKlBatch; ++i)
+          b[i] = k0 + i < K ? basis[static_cast<size_t>(k0 + i) * kCells + cell] : 0.0f;
+#pragma unroll
+        for (int i = 0; i < kKlBatch; ++i)
+#pragma unroll
+          for (int j = 0; j < J; ++j)
+            if (ch0 + j * R < G && k0 + i < K) acc[j] += b[i] * uall[(ch0 + j * R) * K + k0 + i];
+      }
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        if (ch0 + j * R < G) cl.map_shared_rank(cell_a, ch0 + j * R)[cell] = expf(mean + acc[j]);
+    } else {  // kSlice / T cells a thread, every chain
+      for (int i = 0; i < kSlice / T; ++i) {
+        const int cell = slice0 + tid + i * T;
+        float acc[G];
+#pragma unroll
+        for (int ch = 0; ch < G; ++ch) acc[ch] = 0.0f;
+        for (int k0 = 0; k0 < K; k0 += kKlBatch) {
+          float b[kKlBatch];
+#pragma unroll
+          for (int i = 0; i < kKlBatch; ++i)
+            b[i] = k0 + i < K ? basis[static_cast<size_t>(k0 + i) * kCells + cell] : 0.0f;
+#pragma unroll
+          for (int i = 0; i < kKlBatch; ++i)
+#pragma unroll
+            for (int ch = 0; ch < G; ++ch)
+              if (k0 + i < K) acc[ch] += b[i] * uall[ch * K + k0 + i];
+        }
+#pragma unroll
+        for (int ch = 0; ch < G; ++ch) cl.map_shared_rank(cell_a, ch)[cell] = expf(mean + acc[ch]);
+      }
+    }
+    cl.sync();
+  }
+
+  // With V^T coef on the CUDA cores: copies this CTA's slice of V's
+  // columns (every mode on the cells of slice rho) to the free floats,
+  // transposed (a row of modes a cell), where precond reads it; 16-byte
+  // loads all in flight. They stay there through the level's solves, until
+  // a solve of the other level, whose per-cell arrays cover them; every
+  // thread of the CTA calls, and a barrier must follow before a solve reads
+  // them (the set-up's first).
+  __device__ void stage_columns() const {
+    if constexpr (!MMA_BACK) {
+      static_assert(2 * kSlice * kVStride <= 4 * kFreeFloats,
+                    "the free floats hold the slice's columns of V");
+      constexpr int kRow = kSlice / 8;  // 16-byte loads a mode
+      const int c0 = static_cast<int>(cg::this_cluster().block_rank()) * kSlice;
+      const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(s->V);
+      __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(cluster_f32(kArrFree));
+      for (int e = threadIdx.x; e < s->modes * kRow; e += blockDim.x) {
+        const int m = e / kRow, cell = 8 * (e % kRow);
+        const uint4 q = *reinterpret_cast<const uint4*>(V + static_cast<size_t>(m) * kCells + c0 +
+                                                        cell);
+        const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&q);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) vs[(cell + i) * kVStride + m] = v[i];
+      }
+    }
+  }
+
+  // z = D^-1 r + V^T bf16(V bf16(r) / (lam a_bar)) for this chain, the
+  // products over the cluster's chains; three cluster barriers.
+  __device__ void precond(const float (&r)[C], float (&z)[C]) const {
+    cg::cluster_group cl = cg::this_cluster();
+    const int modes = s->modes, rho = static_cast<int>(cl.block_rank());
+    const int l = threadIdx.x & 31, g = l >> 2, t = l & 3;
+    const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(s->V);
+    constexpr int cbs = ClusterSmem::kCbStride;
+    __nv_bfloat16* rb = cluster_bf16(ClusterSmem::kRb);
+    __nv_bfloat16* cb = cluster_bf16(ClusterSmem::kCb);
+    float* back = cluster_f32(kArrCellA);
+    float* abar = cluster_f32(ClusterSmem::kAbarAll);
+#pragma unroll
+    for (int c = 0; c < C; ++c) rb[own_cell(c)] = __float2bfloat16(r[c]);
+    cl.sync();  // every chain's bf16(r) is written (and its a_bar, after its set-up)
+    // the cluster's a_bar and the eigenvalues of this CTA's modes, which
+    // coef_out reads after a CTA barrier: that of the split k-steps below
+    // (a CTA holds fewer mode tiles than warps) or of the CUDA-core path
+    const int mtiles = modes / 16, per = (mtiles + G - 1) / G;
+    const int tile0 = rho * per, tiles = max(0, min(per, mtiles - tile0));
+    float* lam = cluster_f32(ClusterSmem::kLam);
+    if (threadIdx.x < G)
+      abar[threadIdx.x] = *cl.map_shared_rank(cluster_f32(ClusterSmem::kAbar), threadIdx.x);
+    else if (threadIdx.x - G < tiles * 16)
+      lam[threadIdx.x - G] = s->lam[tile0 * 16 + threadIdx.x - G];
+    // coef[m][ch] = sum_cell V[m][cell] bf16(r)[ch][cell] on modes slice rho
+    const auto coef_out = [&](int tile, int row, int ch, float v) {
+      const int m = (tile0 + tile) * 16 + row;
+      const __nv_bfloat16 c = __float2bfloat16(v / (lam[tile * 16 + row] * abar[ch]));
+      for (int q = 0; q < G; ++q) cl.map_shared_rank(cb, q)[ch * cbs + m] = c;
+    };
+    if constexpr (MMA_COEF) {
+      // a k-step is 32 cells, two mma k-steps: lane (g, t) holds cells
+      // 8t..8t+7 of the chunk, of V's rows g and g + 8 and of chain g's
+      // bf16(r), one 16-byte load each (the sum is over the cells, so their
+      // order in the mma's k slots is free: step 0 takes cells 8t..8t+3 in
+      // slots 2t, 2t + 1, 2t + 8, 2t + 9; step 1 cells 8t + 4..8t + 7)
+      cta_tile_products<G>(
+          tiles, kCells / 32,
+          [&](float(&acc)[(G + 7) / 8][4], int tile, int k) {
+            const __nv_bfloat16* row = V + static_cast<size_t>((tile0 + tile) * 16 + g) * kCells +
+                                       k * 32 + 8 * t;
+            const uint4 lo = *reinterpret_cast<const uint4*>(row);
+            const uint4 hi = *reinterpret_cast<const uint4*>(row + 8 * kCells);
+            const uint32_t a0[4] = {lo.x, hi.x, lo.y, hi.y}, a1[4] = {lo.z, hi.z, lo.w, hi.w};
+#pragma unroll
+            for (int nt = 0; nt < (G + 7) / 8; ++nt) {
+              const int ch = nt * 8 + g;
+              const uint4 b = ch < G ? *reinterpret_cast<const uint4*>(
+                                           cl.map_shared_rank(rb, ch) + k * 32 + 8 * t)
+                                     : make_uint4(0u, 0u, 0u, 0u);
+              mma_16816(acc[nt], a0, b.x, b.y);
+              mma_16816(acc[nt], a1, b.z, b.w);
+            }
+          },
+          coef_out);
+    } else {
+      // the cluster's bf16(r) copied to the free floats (after the staged
+      // columns of V), then a warp a mode of the slice: lane l sums, for
+      // every chain, cells 8 l..8 l + 7 of each block of 256 in order
+      // (16-byte loads), the blocks in order, then a warp sum: f32 FMAs on
+      // the CUDA cores
+      static_assert(2 * G * kCells + (MMA_BACK ? 0 : 2 * kSlice * kVStride) <= 4 * kFreeFloats,
+                    "the free floats hold the cluster's r");
+      uint4* rb_all = reinterpret_cast<uint4*>(
+          cluster_f32(kArrFree + (MMA_BACK ? 0 : kSlice * kVStride / 2)));
+      for (int e = threadIdx.x; e < G * kCells / 8; e += blockDim.x)
+        rb_all[e] = reinterpret_cast<const uint4*>(cl.map_shared_rank(rb, e / (kCells / 8)))[
+            e % (kCells / 8)];
+      __syncthreads();  // the cluster's r, a_bar and the eigenvalues
+      const int w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+      for (int mi = w; mi < tiles * 16; mi += nw) {
+        const __nv_bfloat16* row = V + static_cast<size_t>(tile0 * 16 + mi) * kCells;
+        float acc[G];
+#pragma unroll
+        for (int ch = 0; ch < G; ++ch) acc[ch] = 0.0f;
+        for (int c8 = l; c8 < kCells / 8; c8 += 32) {
+          float v[8];
+          unpack_bf16x8(*reinterpret_cast<const uint4*>(row + 8 * c8), v);
+#pragma unroll
+          for (int ch = 0; ch < G; ++ch) {
+            float x[8];
+            unpack_bf16x8(rb_all[ch * (kCells / 8) + c8], x);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[ch] += v[i] * x[i];
+          }
+        }
+#pragma unroll
+        for (int ch = 0; ch < G; ++ch) {
+          const float sum = warp_sum(acc[ch]);
+          if (l == ch) coef_out(mi / 16, mi % 16, ch, sum);
+        }
+      }
+    }
+    cl.sync();  // every coefficient is in every CTA
+    // back[cell][ch] = sum_m V[m][cell] coef[m][ch] on cells slice rho
+    const int c0 = rho * kSlice;
+    // fragment row r of a tile is its cell 2 (r % 8) + r / 8 (see below)
+    const auto back_out = [&](int tile, int row, int ch, float v) {
+      cl.map_shared_rank(back, ch)[c0 + tile * 16 + 2 * (row % 8) + row / 8] = v;
+    };
+    if constexpr (MMA_BACK) {
+      // the tile's rows are its 16 cells in the order 0, 2, ..., 14 (rows
+      // g), 1, 3, ..., 15 (rows g + 8), so that lane (g, t) reads cells
+      // 2g, 2g + 1 of a mode's row in one 32-bit word and a warp's load
+      // covers 32 contiguous bytes of four rows of V; a byte permute pairs
+      // the two modes of one cell
+      cta_tile_products<G>(
+          kSlice / 16, modes / 16,
+          [&](float(&acc)[(G + 7) / 8][4], int tile, int k) {
+            const __nv_bfloat16* p =
+                V + static_cast<size_t>(k * 16 + 2 * t) * kCells + c0 + tile * 16 + 2 * g;
+            const uint32_t w0 = ld_pair(p), w1 = ld_pair(p + kCells);
+            const uint32_t w2 = ld_pair(p + 8 * kCells), w3 = ld_pair(p + 9 * kCells);
+            const uint32_t a[4] = {__byte_perm(w0, w1, 0x5410), __byte_perm(w0, w1, 0x7632),
+                                   __byte_perm(w2, w3, 0x5410), __byte_perm(w2, w3, 0x7632)};
+#pragma unroll
+            for (int nt = 0; nt < (G + 7) / 8; ++nt) {
+              const int ch = nt * 8 + g;
+              const __nv_bfloat16* b = cb + ch * cbs + k * 16 + 2 * t;
+              mma_16816(acc[nt], a, ch < G ? ld_pair(b) : 0u, ch < G ? ld_pair(b + 8) : 0u);
+            }
+          },
+          back_out);
+    } else {
+      // a thread a cell of the slice and the chains q, q + R, ...: f32
+      // FMAs on the CUDA cores over the modes in ascending order, the order
+      // of a plain f32 product, from the slice's columns of V staged by
+      // stage_columns (the tensor cores sum V^T coef, an f32 term of z, in
+      // another order, and part more chains from the plain twin)
+      constexpr int R = T >= kSlice ? T / kSlice : 1, J = (G + R - 1) / R;
+      const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(cluster_f32(kArrFree));
+      for (int e = threadIdx.x; e < kSlice * R; e += blockDim.x) {
+        const int cell = e % kSlice, q = e / kSlice;
+        float acc[J];
+#pragma unroll
+        for (int j = 0; j < J; ++j) acc[j] = 0.0f;
+        for (int m0 = 0; m0 < modes; m0 += 8) {  // 8 modes: a 16-byte load of each row
+          float v[8];
+          unpack_bf16x8(*reinterpret_cast<const uint4*>(vs + cell * kVStride + m0), v);
+#pragma unroll
+          for (int j = 0; j < J; ++j)
+            if (q + j * R < G) {
+              float c[8];
+              unpack_bf16x8(*reinterpret_cast<const uint4*>(cb + (q + j * R) * cbs + m0), c);
+#pragma unroll
+              for (int i = 0; i < 8; ++i) acc[j] += v[i] * c[i];
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          if (q + j * R < G) back_out(cell / 16, cell % 2 * 8 + cell % 16 / 2, q + j * R, acc[j]);
+      }
+    }
+    cl.sync();  // this chain's back is whole
+    const float* inv_diag = cluster_f32(kArrInv);
+#pragma unroll
+    for (int c = 0; c < C; ++c) z[c] = inv_diag[own_cell(c)] * r[c] + back[own_cell(c)];
+  }
+};
+
+// darcy_setup on a cluster level: the field from the cluster's
+// reconstruction, then this chain's face terms, boundary terms, inverse
+// diagonal (to shared memory) and a_bar (to the cluster's exchange) as
+// darcy_setup computes them.
+template <class L>
+__device__ void darcy_setup_cluster(const L& lv, const float* u) {
+  constexpr int C = L::kC, n = L::kN, cells = L::kCells;
+  const float h2 = static_cast<float>(cells);
+  float* cell_a = cluster_f32(L::kArrCellA);
+  float* cell_b = cluster_f32(L::kArrCellB);
+  float* th_s = cluster_f32(L::kArrTh);
+  lv.reconstruct(u);
+  float a[C], th[C], tv[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) a[c] = cell_a[own_cell(c)];
+  // harmonic-mean transmissibilities of the faces right of and below the cell
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int t = own_cell(c), i = t / n, j = t % n;
+    th[c] = 0.0f;
+    tv[c] = 0.0f;
+    if (j < n - 1) {
+      const float ar = cell_a[t + 1];
+      th[c] = 2.0f * a[c] * ar / (a[c] + ar + 1e-38f) * h2;
+    }
+    if (i < n - 1) {
+      const float ad = cell_a[t + n];
+      tv[c] = 2.0f * a[c] * ad / (a[c] + ad + 1e-38f) * h2;
+    }
+    th_s[t] = th[c];
+    cell_b[t] = tv[c];
+  }
+  __syncthreads();
+  float log_a[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int t = own_cell(c), i = t / n, j = t % n;
+    const float th_l = j > 0 ? th_s[t - 1] : 0.0f;
+    const float tv_u = i > 0 ? cell_b[t - n] : 0.0f;
+    // Dirichlet faces at half-cell distance: 2 h^-2 a per boundary side
+    const float edge = static_cast<float>((i == 0) + (i == n - 1) + (j == 0) + (j == n - 1));
+    const float bnd = 2.0f * h2 * a[c] * edge;
+    cluster_f32(L::kArrBnd)[t] = bnd;
+    cluster_f32(L::kArrInv)[t] = 1.0f / (th[c] + th_l + tv[c] + tv_u + bnd);
+    log_a[c] = logf(a[c]);
+  }
+  const float a_bar = expf(block_sum(cells_sum<C>(log_a), cluster_f32(ClusterSmem::kRed)) / h2);
+  // read by the cluster after the next cluster barrier
+  if (threadIdx.x == 0) *cluster_f32(ClusterSmem::kAbar) = a_bar;
+}
+
+// apply_operator on a cluster level: (A p) on this thread's cells, p
+// handed round through cell_a, the stencil's terms read from shared
+// memory. The caller's next write to cell_a must come after a later
+// barrier.
+template <class L>
+__device__ __forceinline__ void apply_operator_cluster(const float (&p)[L::kC],
+                                                       float (&Ap)[L::kC]) {
+  constexpr int n = L::kN;
+  float* cell = cluster_f32(L::kArrCellA);
+  const float* th = cluster_f32(L::kArrTh);
+  const float* tv = cluster_f32(L::kArrCellB);
+  const float* bnd = cluster_f32(L::kArrBnd);
+#pragma unroll
+  for (int c = 0; c < L::kC; ++c) cell[own_cell(c)] = p[c];
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < L::kC; ++c) {
+    const int t = own_cell(c), i = t / n, j = t % n;
+    const float pr = j < n - 1 ? cell[t + 1] : 0.0f;
+    const float pd = i < n - 1 ? cell[t + n] : 0.0f;
+    const float pl = j > 0 ? cell[t - 1] : 0.0f;
+    const float pu = i > 0 ? cell[t - n] : 0.0f;
+    const float th_l = j > 0 ? th[t - 1] : 0.0f;
+    const float tv_u = i > 0 ? tv[t - n] : 0.0f;
+    Ap[c] = th[t] * (p[c] - pr) - th_l * (pl - p[c]) + tv[t] * (p[c] - pd) -
+            tv_u * (pu - p[c]) + bnd[t] * p[c];
+  }
+}
+
+// darcy_cg<WARM, C> on a cluster level: the same guards and order of
+// operations, the cluster-level preconditioner.
+template <bool WARM, class L>
+__device__ void darcy_cg_cluster(const L& lv, const float (&b)[L::kC], float (&x)[L::kC]) {
+  constexpr int C = L::kC;
+  float* red = cluster_f32(ClusterSmem::kRed);
+  float r[C], z[C], p[C], Ap[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) r[c] = b[c];
+  if (WARM) {
+    apply_operator_cluster<L>(x, Ap);
+#pragma unroll
+    for (int c = 0; c < C; ++c) r[c] = r[c] - Ap[c];
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) x[c] = 0.0f;
+  }
+  lv.precond(r, z);
+#pragma unroll
+  for (int c = 0; c < C; ++c) p[c] = z[c];
+  float rz = block_sum(cells_dot<C>(r, z), red);
+  for (int it = 0; it < lv.s->cg_iters; ++it) {
+    apply_operator_cluster<L>(p, Ap);
+    const float pAp = block_sum(cells_dot<C>(p, Ap), red);
+    const float alpha = pAp > 0.0f ? rz / pAp : 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      x[c] = x[c] + alpha * p[c];
+      r[c] = r[c] - alpha * Ap[c];
+    }
+    lv.precond(r, z);
+    const float rz_new = block_sum(cells_dot<C>(r, z), red);
+    const float beta = rz > 0.0f ? rz_new / rz : 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) p[c] = z[c] + beta * p[c];
+    rz = rz_new;
+  }
+}
+
+// darcy_solve on a cluster level: Phi(u) for this CTA's chain, whose
+// coefficients sit in shared memory at u (the same buffer in every CTA);
+// WARM starts from this thread's cells of x. Every CTA of the cluster calls.
+template <bool WARM, class L>
+__device__ float darcy_solve_cluster(const L& lv, const float* u, float (&x)[L::kC]) {
+  constexpr int C = L::kC;
+  darcy_setup_cluster(lv, u);
+  float b[C];
+  bool own[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    b[c] = lv.s->source[own_cell(c)];
+    own[c] = true;
+  }
+  darcy_cg_cluster<WARM>(lv, b, x);
+  return darcy_observe<C>(*lv.s, x, own, cluster_ws(), nullptr);
+}
+
+// The launch of a cluster kernel: chains (CTAs) a cluster, clusters, CTAs
+// (a multiple of G: the spare CTAs of a ragged last cluster run on zeros)
+// and dynamic shared memory.
+struct ClusterGeometry {
+  int g, clusters, ctas;
+  size_t smem;
+};
+
+// A level the cluster kernels take: an n x n grid, K = d up to
+// kClusterMaxK, dst_trunc with a multiple of 16 modes up to the cells and
+// max_modes, solved by CG.
+inline bool cluster_level_ok(const IpxMisfitSpec& s, int n, int d, int max_modes) {
+  return s.n == n && s.K == d && s.K <= kClusterMaxK && s.precond == kPrecondDstTrunc &&
+         s.modes > 0 && s.modes % 16 == 0 && s.modes <= n * n && s.modes <= max_modes &&
+         s.solver == kSolverCg && s.m >= 0;
+}
+
+// Mirrored by ip_mcmc_tpu_torch/ops/_cluster.py cluster_geometry. surr:
+// null for the warm pCN kernel (one level). G is the design's kG whatever
+// block_chains: a CTA runs chain blockIdx.x with the seed and lane of
+// run_chain, so the chains of a cluster need not share an RNG block.
+inline int cluster_geometry(const IpxMisfitSpec& exact, const IpxMisfitSpec* surr,
+                            const IpxChainArgs& chain, ClusterGeometry* geo) {
+  if (!cluster_level_ok(exact, kClusterExactN, chain.d, kClusterMaxModes) ||
+      (surr != nullptr &&
+       !cluster_level_ok(*surr, kClusterSurrN, chain.d, kClusterSurrMaxModes)))
+    return cudaErrorNotSupported;
+  if (chain.block_chains <= 0 || chain.n < 0 || chain.n_steps < 0 ||
+      (chain.samples != nullptr && chain.thin <= 0))
+    return cudaErrorInvalidValue;
+  geo->g = ClusterDesign::kG;
+  geo->clusters = (chain.n + geo->g - 1) / geo->g;
+  geo->ctas = geo->clusters * geo->g;
+  geo->smem = ClusterSmem::kBytes;
+  return geo->smem <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The two levels of the 64 x 64 kernels on the design's threads: the
+// 32 x 32 surrogate with as many cells a thread as its grid needs.
+constexpr int kClusterSurrC =
+    (kClusterSurrN * kClusterSurrN + ClusterDesign::kThreads - 1) / ClusterDesign::kThreads;
+using ClusterExact = ClusterLevel<kClusterExactN, ClusterDesign::kCells, ClusterDesign::kThreads,
+                                  ClusterDesign::kG, true, true>;
+using ClusterSurr = ClusterLevel<kClusterSurrN, kClusterSurrC, ClusterDesign::kThreads,
+                                 ClusterDesign::kG, ClusterDesign::kSurrMmaCoef,
+                                 ClusterDesign::kSurrMmaBack>;
+
+// Launches kernel<<<geo>>> in clusters of geo.g CTAs of the design's
+// threads (cudaLaunchKernelEx), after checking that such a cluster fits on
+// the card; the status of the launch or of the check.
+template <class... Args>
+int launch_cluster(void (*kernel)(Args...), const ClusterGeometry& geo, void* stream,
+                   Args... args) {
+  const int smem = static_cast<int>(geo.smem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && geo.g > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = geo.g;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(geo.ctas);
+  cfg.blockDim = dim3(ClusterDesign::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
 }
 
 }  // namespace ipx

@@ -15,10 +15,12 @@
 //                                       the 16x16 Darcy DA loop (8x8
 //                                       surrogate solved by CG or K17's
 //                                       Richardson), one chain per warp.
-//   fused_da_pcn_kernel<Pot, RECORD, Surr>
-//                                       the 64x64 Darcy (32x32
-//                                       surrogate) and the Burgers DA
-//                                       loops, one chain per CTA.
+//   fused_da_pcn_cluster_kernel<RECORD>
+//                                       the 64x64 Darcy DA loop (32x32
+//                                       surrogate), one chain per CTA, G
+//                                       chains a thread-block cluster.
+//   fused_da_pcn_kernel<Pot, RECORD>    the Burgers DA loop, one chain per
+//                                       CTA.
 //
 // Each runs the whole n_steps loop in one launch; RECORD stores every
 // thin-th state into (n_rec, n, d) with a plain store. Chain state and
@@ -49,18 +51,24 @@
 // 16 1.18; the exact factors staged 1.47; the products as CUDA-core loops
 // 6.5-11.4. The exact correction takes 0.32 ms of it (k = 0).
 //
-// The 64x64 kernel of darcy64_da_fused takes the exact level's layout
-// (DaLayout64: 4 cells a thread on 1024 threads) and solves its 32x32
-// surrogate on the same threads, one cell each (SurrogateLayout). Its
-// factors do not fit on chip (K = 144, k = 48): per chain and outer step
-// the surrogate re-reads its basis (0.59 MB) and modes (0.26 MB, twice per
-// preconditioner apply) 48 times and the exact solve its basis (2.4 MB)
-// and modes (2 MB) 34 times, ~200 MB from L2 (~200 GB an outer step at
-// 1024 chains) for ~100 M multiply-adds, so L2 bandwidth bounds it; the
-// design that reads them once for many chains is a later one. The Burgers
-// kernel (128 threads, k = 16: 16 surrogate solves of 26 Godunov steps and
-// one exact solve of 154) is bound by the barrier per time step: see
-// burgers_misfit.cuh.
+// The 64x64 kernel of darcy64_da_fused (K = 144, k = 48). Its factors fit
+// in no CTA (the 64x64 basis 2.4 MB and modes 2.1 MB, the 32x32 surrogate's
+// 0.59 and 0.26 MB): per chain and outer step the exact solve reads the
+// basis once and the modes 34 times, the 48 surrogate solves theirs 48 and
+// 8 x 48 times, ~200 MB from L2, and ~90 % of its ~96 M multiply-adds are
+// the preconditioner's products. So each CTA keeps one chain (8 cells a
+// thread on 512 threads, two CTAs an SM), and the G CTAs of a thread-block
+// cluster share each read of the factors: the KL reconstruction and both
+// dst_trunc products run over the cluster's chains, the products as bf16
+// mma.sync with the chains as N, each CTA on its slice of the outputs
+// (ClusterLevel in darcy_misfit.cuh). That divides the L2 bytes by G; what
+// is left is the latency chain of 48 surrogate solves, each with 4
+// preconditioner applies of 3 cluster barriers. The design is the line
+// ClusterDesign, shared with the 64x64 warm pCN kernel
+// (scripts/measure_da64_cluster_design.py times the alternatives, PERF.md
+// the numbers). The Burgers kernel (128 threads, k = 16: 16 surrogate
+// solves of 26 Godunov steps and one exact solve of 154) is bound by the
+// barrier per time step: see burgers_misfit.cuh.
 //
 // Numerics follow the JAX kernel: f32 everywhere except the
 // preconditioner's bf16 inputs (f32 accumulation); no fast math (the
@@ -245,16 +253,98 @@ int launch_misfit(const IpxMisfitSpec& s, const float* U, int B, float* phi, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// The 64x64 DA kernel of darcy64_da_fused: the exact level on 4 cells a
-// thread x 1024 threads, 1 CTA per SM, and the 32x32 surrogate, which
-// carries most of the work, on the same threads at one cell each. On an
-// H100 80GB HBM3 (700 W), 1024 chains, k = 48: 45.0 ms an outer step
-// against 47.4 ms on the 64x64 warm pCN's CTA (8 x 512, 2 CTAs per SM;
-// the surrogate then 2 cells a thread), which also spills 3.7 times the
-// bytes (scripts/measure_darcy_layouts.py, PERF.md).
-struct DaLayout64 { static constexpr int kCells = 4, kThreads = 1024, kMinCtas = 1; };
-using DaExact64 = DarcyPot<DaLayout64>;
-using DaSurrogate32 = DarcyPot<SurrogateLayout<DaLayout64, 32>>;
+// --- the 64 x 64 kernel: one chain a CTA, G chains a thread-block cluster ------
+//
+// darcy64_da_fused: the exact level on 64 x 64 cells and its 32 x 32
+// surrogate on the threads of one CTA (ClusterDesign in darcy_misfit.cuh),
+// the cluster's chains sharing each read of the factors in the KL
+// reconstruction and the preconditioner's products (ClusterLevel).
+
+// K4 on a CTA of a cluster: k pCN steps against the surrogate (tags 4j,
+// 4j+1, 4j+2), then one exact correction with tag 4k+2, as DaStep. Every
+// CTA makes the same solves whatever it accepts, so the cluster's barriers
+// inside them line up; a spare CTA (not live) runs on zeros.
+struct DaClusterStep {
+  const DaArgs<DarcyPotential>& a;
+  ClusterSurr surr;
+  ClusterExact exact;
+  float* pos0;  // current state
+  float* pos;   // subchain state
+  float* prop;  // proposal
+  bool live;
+  float phi0, surr0, in_acc;
+
+  __device__ void init(const ChainCtx& c) {
+    phi0 = live ? a.phi0[c.c] : 0.0f;
+    surr0 = live ? a.surr0[c.c] : 0.0f;
+    if (c.own) pos[c.t] = pos0[c.t];
+    __syncthreads();
+  }
+
+  __device__ bool step(const ChainCtx& c, uint32_t i) {
+    float surr_v = surr0;
+    surr.stage_columns();  // the exact solve of the last step covered them
+    for (int j = 0; j < a.k; ++j) {
+      if (c.own) {
+        const float xi = c.scale_t * c.normal(i, 4u * j);
+        prop[c.t] = c.mean_t + a.contraction * (pos[c.t] - c.mean_t) + a.beta * xi;
+      }
+      __syncthreads();
+      float xs[ClusterSurr::kC];
+      const float sp = darcy_solve_cluster<false>(surr, prop, xs);
+      if (logf(c.uniform(i, 4u * j + 2u)) < surr_v - sp) {  // the same in every thread
+        in_acc += 1.0f;
+        surr_v = sp;
+        if (c.own) pos[c.t] = prop[c.t];
+      }
+    }
+    __syncthreads();
+    float xe[ClusterExact::kC];
+    const float pe = darcy_solve_cluster<false>(exact, pos, xe);
+    float log_ratio = (phi0 - pe) - (surr0 - surr_v);
+    if (isnan(log_ratio)) log_ratio = -INFINITY;
+    const bool accept = logf(c.uniform(i, 4u * a.k + 2u)) < log_ratio;
+    if (accept) {
+      phi0 = pe;
+      surr0 = surr_v;
+      if (c.own) pos0[c.t] = pos[c.t];
+    } else if (c.own) {
+      pos[c.t] = pos0[c.t];
+    }
+    return accept;
+  }
+};
+
+template <bool RECORD>
+__global__ void __launch_bounds__(ClusterDesign::kThreads, ClusterDesign::kMinCtas)
+    fused_da_pcn_cluster_kernel(const __grid_constant__ DaArgs<DarcyPotential> a) {
+  const int d = a.chain.d;
+  float* state = cluster_f32(ClusterSmem::kState);
+  const bool live = static_cast<int>(blockIdx.x) < a.chain.n;
+  DaClusterStep step{a,    {&a.surr}, {&a.exact}, state, state + d, state + 2 * d,
+                     live, 0.0f,      0.0f,       0.0f};
+  run_cluster_chain<RECORD>(a.chain, step, state, live);
+  if (threadIdx.x == 0 && live)
+    a.inner[blockIdx.x] = step.in_acc / fmaxf(static_cast<float>(a.chain.n_steps) *
+                                                  static_cast<float>(a.k),
+                                              1.0f);
+  cg::this_cluster().sync();  // no peer reads this CTA's shared memory after it exits
+}
+
+// Launches fused_da_pcn_cluster_kernel<RECORD> (RECORD: chain.samples given).
+inline int launch_da_pcn_cluster(const IpxMisfitSpec& exact, const IpxMisfitSpec& surr,
+                                 const IpxChainArgs& chain, const float* phi0,
+                                 const float* surr0, float beta, float contraction, int k,
+                                 float* inner, void* stream) {
+  ClusterGeometry geo;
+  const int status = cluster_geometry(exact, &surr, chain, &geo);
+  if (status != cudaSuccess) return status;
+  if (k < 0) return cudaErrorInvalidValue;
+  if (chain.n == 0) return cudaSuccess;
+  const DaArgs<DarcyPotential> a{exact, surr, chain, phi0, surr0, beta, contraction, k, inner};
+  if (chain.samples != nullptr) return launch_cluster(fused_da_pcn_cluster_kernel<true>, geo, stream, a);
+  return launch_cluster(fused_da_pcn_cluster_kernel<false>, geo, stream, a);
+}
 
 // --- the 16 x 16 kernel: one warp per chain, W chains a CTA -------------------
 //
@@ -450,11 +540,11 @@ int ipx_darcy_misfit(const IpxMisfitSpec* s, const float* U, int B, float* phi,
   return ipx::with_darcy_layout<kSolverCg>(*s, launch);
 }
 
-// The instantiation follows the two grids: both up to 16x16 (the exact
-// misfit solved by CG, the surrogate by CG or by Richardson), or an exact
-// grid of the 64x64 class (above 32x32 cells) with a CG surrogate of the
-// 32x32 class (above 16x16). Any other pair is refused with
-// cudaErrorNotSupported, not run by another instantiation.
+// The kernel follows the two grids: both up to 16x16 (the exact misfit
+// solved by CG, the surrogate by CG or by Richardson) the warp kernel, a
+// 64x64 exact grid with a 32x32 surrogate the cluster kernel, which takes a
+// dst_trunc CG solve at both levels. Any other pair or solve is refused
+// with cudaErrorNotSupported, not run by another kernel.
 int ipx_fused_da_pcn(const IpxMisfitSpec* exact, const IpxMisfitSpec* surr,
                      const IpxChainArgs* chain, const float* phi0, const float* surr0,
                      float beta, float contraction, int k, float* inner, void* stream) {
@@ -467,11 +557,9 @@ int ipx_fused_da_pcn(const IpxMisfitSpec* exact, const IpxMisfitSpec* surr,
     return ipx::launch_da_pcn_warp<kSolverCg>(*exact, *surr, *chain, phi0, surr0, beta,
                                               contraction, k, inner, stream);
   }
-  if (exact_cells > ipx::DarcyPot<ipx::Layout32>::kMaxCells &&
-      exact_cells <= ipx::DaExact64::kMaxCells && surr_cells > DarcyPotential::kMaxCells &&
-      surr_cells <= ipx::DaSurrogate32::kMaxCells && surr->solver == kSolverCg)
-    return ipx::launch_da_pcn<ipx::DaExact64, ipx::DaSurrogate32>(
-        *exact, *surr, *chain, phi0, surr0, beta, contraction, k, inner, stream);
+  if (exact->n == ipx::kClusterExactN && surr->n == ipx::kClusterSurrN)
+    return ipx::launch_da_pcn_cluster(*exact, *surr, *chain, phi0, surr0, beta, contraction, k,
+                                      inner, stream);
   return cudaErrorNotSupported;
 }
 
@@ -486,6 +574,22 @@ int ipx_da_pcn_warp_geometry(const IpxMisfitSpec* exact, const IpxMisfitSpec* su
   out[0] = geo.warps;
   out[1] = geo.ctas;
   out[2] = static_cast<int>(geo.smem);
+  return status;
+}
+
+// The cluster kernels' launch geometry (fused_da_pcn_cluster_kernel; with
+// surr null, fused_pcn_warm_cluster_kernel of fused_pcn.cu): out = {chains
+// a cluster, clusters, CTAs, dynamic shared-memory bytes}; the status the
+// launch would return before its occupancy check (the wrapper's mirror is
+// checked against this on the card).
+int ipx_darcy_cluster_geometry(const IpxMisfitSpec* exact, const IpxMisfitSpec* surr,
+                               const IpxChainArgs* chain, int* out) {
+  ipx::ClusterGeometry geo{0, 0, 0, 0};
+  const int status = ipx::cluster_geometry(*exact, surr, *chain, &geo);
+  out[0] = geo.g;
+  out[1] = geo.clusters;
+  out[2] = geo.ctas;
+  out[3] = static_cast<int>(geo.smem);
   return status;
 }
 

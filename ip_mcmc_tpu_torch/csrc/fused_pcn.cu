@@ -13,6 +13,8 @@
 //                                  potential is a type: DarcyPot (Phi from
 //                                  x = 0) or BurgersPotential (K12,
 //                                  burgers_misfit.cuh).
+//   fused_pcn_warm_cluster_kernel<RECORD>  the same on 64 x 64, G chains
+//                                  a thread-block cluster.
 //   fused_pcn_warm_kernel<Pot, RECORD>  pCN carrying each chain's CG
 //                                  solution: each thread keeps its cells of
 //                                  the accepted x in registers, the
@@ -37,7 +39,11 @@
 // reads ~22 MB from L2 there (the basis once, V twice in each of five
 // preconditioner applies) and L2 bandwidth bounds the step. This first
 // design keeps the factors in global memory and one chain per CTA: no
-// staging, no wgmma, no TMA.
+// staging, no wgmma, no TMA. At 64 x 64 the warm kernel is the cluster
+// kernel fused_pcn_warm_cluster_kernel: the G chains of a thread-block
+// cluster share each read of the factors and run the preconditioner's
+// products on the tensor cores (ClusterLevel in darcy_misfit.cuh, the
+// design ClusterDesign, as in fused_da_pcn.cu's 64 x 64 DA kernel).
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -180,7 +186,80 @@ __global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
   pcn_chain<Pot, RECORD, true>(a);
 }
 
-// Launches fused_pcn_kernel<Pot, RECORD> or, with x0 given (Darcy only),
+// K7 on a CTA of a thread-block cluster (the 64 x 64 grid): PcnStep<Pot,
+// true>'s step with the cluster-level solve (darcy_misfit.cuh
+// ClusterLevel). Each thread keeps its cells of the accepted x in
+// registers; every CTA makes one warm solve a step whatever it accepts, so
+// the cluster's barriers line up; a spare CTA (not live) runs on zeros.
+struct PcnClusterStep {
+  static constexpr int C = ClusterExact::kC;
+  const PcnArgs<DarcyPotential>& a;
+  ClusterExact lv;
+  float* pos;
+  float* prop;
+  bool live;
+  float phi;
+  float x[C];
+
+  __device__ void init(const ChainCtx& c) {
+    phi = live ? a.phi0[c.c] : 0.0f;
+    const int cells = a.pot.n * a.pot.n;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int cell = own_cell(k);
+      x[k] = live && cell < cells ? a.x0[static_cast<size_t>(cell) * a.chain.n + c.c] : 0.0f;
+    }
+  }
+
+  __device__ bool step(const ChainCtx& c, uint32_t i) {
+    if (c.own) {
+      const float xi = c.scale_t * c.normal(i, 0u);
+      prop[c.t] = c.mean_t + a.contraction * (pos[c.t] - c.mean_t) + a.beta * xi;
+    }
+    __syncthreads();
+    float x_prop[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k) x_prop[k] = x[k];
+    const float phi_prop = darcy_solve_cluster<true>(lv, prop, x_prop);
+    const bool accept = logf(c.uniform(i, 2u)) < phi - phi_prop;
+    if (accept) {
+      phi = phi_prop;
+#pragma unroll
+      for (int k = 0; k < C; ++k) x[k] = x_prop[k];
+      if (c.own) pos[c.t] = prop[c.t];
+    }
+    return accept;
+  }
+};
+
+template <bool RECORD>
+__global__ void __launch_bounds__(ClusterDesign::kThreads, ClusterDesign::kMinCtas)
+    fused_pcn_warm_cluster_kernel(const __grid_constant__ PcnArgs<DarcyPotential> a) {
+  const int d = a.chain.d;
+  float* state = cluster_f32(ClusterSmem::kState);
+  const bool live = static_cast<int>(blockIdx.x) < a.chain.n;
+  PcnClusterStep step{a, {&a.pot}, state, state + d, live, 0.0f, {}};
+  run_cluster_chain<RECORD>(a.chain, step, state, live);
+  cg::this_cluster().sync();  // no peer reads this CTA's shared memory after it exits
+}
+
+// Launches fused_pcn_warm_cluster_kernel<RECORD> (RECORD: chain.samples
+// given).
+inline int launch_pcn_warm_cluster(const IpxMisfitSpec& pot, const IpxChainArgs& chain,
+                                   const float* phi0, const float* x0, float beta,
+                                   float contraction, void* stream) {
+  ClusterGeometry geo;
+  const int status = cluster_geometry(pot, nullptr, chain, &geo);
+  if (status != cudaSuccess) return status;
+  if (chain.n == 0) return cudaSuccess;
+  const PcnArgs<DarcyPotential> a{pot, chain, phi0, x0, beta, contraction};
+  if (chain.samples != nullptr)
+    return launch_cluster(fused_pcn_warm_cluster_kernel<true>, geo, stream, a);
+  return launch_cluster(fused_pcn_warm_cluster_kernel<false>, geo, stream, a);
+}
+
+// Launches fused_pcn_kernel<Pot, RECORD> or, with x0 given (Darcy up to
+// 32 x 32: the 64 x 64 grid has the cluster kernel above),
 // fused_pcn_warm_kernel<Pot, RECORD> (RECORD: chain.samples given).
 template <class Pot>
 int launch_pcn(const typename Pot::Spec& pot, const IpxChainArgs& chain, const float* phi0,
@@ -198,8 +277,12 @@ int launch_pcn(const typename Pot::Spec& pot, const IpxChainArgs& chain, const f
     if (record) fused_pcn_kernel<Pot, true><<<chain.n, threads, smem, st>>>(a);
     else fused_pcn_kernel<Pot, false><<<chain.n, threads, smem, st>>>(a);
   } else if constexpr (std::is_same_v<typename Pot::Spec, IpxMisfitSpec>) {
-    if (record) fused_pcn_warm_kernel<Pot, true><<<chain.n, threads, smem, st>>>(a);
-    else fused_pcn_warm_kernel<Pot, false><<<chain.n, threads, smem, st>>>(a);
+    if constexpr (Pot::kMaxCells <= DarcyPot<Layout32>::kMaxCells) {
+      if (record) fused_pcn_warm_kernel<Pot, true><<<chain.n, threads, smem, st>>>(a);
+      else fused_pcn_warm_kernel<Pot, false><<<chain.n, threads, smem, st>>>(a);
+    } else {
+      return cudaErrorInvalidValue;
+    }
   } else {
     return cudaErrorInvalidValue;
   }
@@ -234,10 +317,14 @@ int ipx_darcy_misfit_warm(const IpxMisfitSpec* s, const float* U, const float* x
   });
 }
 
-// x0 == null: cold pCN (fused_pcn_kernel); else warm (fused_pcn_warm_kernel).
-// The layout follows the spec's grid.
+// x0 == null: cold pCN (fused_pcn_kernel); else warm (fused_pcn_warm_kernel,
+// on a grid of the 64 x 64 class fused_pcn_warm_cluster_kernel, which takes
+// 64 x 64 with a dst_trunc CG solve and refuses the rest of the class with
+// cudaErrorNotSupported). The layout follows the spec's grid.
 int ipx_fused_pcn(const IpxMisfitSpec* pot, const IpxChainArgs* chain, const float* phi0,
                   const float* x0, float beta, float contraction, void* stream) {
+  if (x0 != nullptr && pot->n * pot->n > ipx::DarcyPot<ipx::Layout32>::kMaxCells)
+    return ipx::launch_pcn_warm_cluster(*pot, *chain, phi0, x0, beta, contraction, stream);
   return ipx::with_darcy_layout<kSolverCg>(*pot, [&](auto p) {
     return ipx::launch_pcn<decltype(p)>(*pot, *chain, phi0, x0, beta, contraction, stream);
   });

@@ -2,7 +2,8 @@
 // every step: replaces _run_fused (ip_mcmc_tpu/ops/fused_mcmc.py l.152,
 // pallas_call l.260) and _run_fused_recorded (l.826, pallas_call l.950).
 //
-// run_chain runs one chain per CTA (run_warp_chain below: one a warp). It
+// run_chain runs one chain per CTA (run_cluster_chain: the same in a
+// thread-block cluster; run_warp_chain below: one a warp). It
 // loads the chain's position into shared memory, derives the per-block
 // seed uint32(seed + 7919 * block) and the chain's lane, runs the
 // n_steps loop around a Step, counts acceptances, stores every thin-th
@@ -94,6 +95,29 @@ __device__ void run_chain(const IpxChainArgs& a, Step& step, float* pos) {
       a.samples[(rec * a.n + x.c) * x.d + x.t] = pos[x.t];
     }
   }
+  if (x.own) a.out[static_cast<size_t>(x.c) * x.d + x.t] = pos[x.t];
+  if (x.t == 0) a.acc[x.c] = acc / static_cast<float>(a.n_steps);
+}
+
+// run_chain for a CTA of a thread-block cluster (the 64 x 64 Darcy kernels):
+// the same loop, but a CTA that is not `live` (a spare of a ragged last
+// cluster, blockIdx.x >= n) runs a chain of zeros in lockstep with the
+// others, so that its Step's cluster barriers line up, and stores nothing.
+template <bool RECORD, class Step>
+__device__ void run_cluster_chain(const IpxChainArgs& a, Step& step, float* pos, bool live) {
+  const ChainCtx x = make_chain_ctx(a, blockIdx.x);
+  if (x.own) pos[x.t] = live ? a.pos_in[static_cast<size_t>(x.c) * x.d + x.t] : 0.0f;
+  __syncthreads();
+  step.init(x);
+  float acc = 0.0f;
+  for (int i = 0; i < a.n_steps; ++i) {
+    if (step.step(x, static_cast<uint32_t>(i))) acc += 1.0f;
+    if (RECORD && live && (i + 1) % a.thin == 0 && x.own) {
+      const size_t rec = static_cast<size_t>((i + 1) / a.thin - 1);
+      a.samples[(rec * a.n + x.c) * x.d + x.t] = pos[x.t];
+    }
+  }
+  if (!live) return;
   if (x.own) a.out[static_cast<size_t>(x.c) * x.d + x.t] = pos[x.t];
   if (x.t == 0) a.acc[x.c] = acc / static_cast<float>(a.n_steps);
 }

@@ -1,0 +1,66 @@
+"""The launch geometry of the 64×64 Darcy kernels that run in thread-block
+clusters: ``fused_da_pcn_cluster_kernel`` (``darcy64_da_fused``) and
+``fused_pcn_warm_cluster_kernel`` (``darcy64_pcn_warm``).
+
+One chain runs per CTA, and the G CTAs of a cluster share each read of the
+factors (``ClusterLevel`` in ``csrc/darcy_misfit.cuh``). ``cluster_geometry``
+mirrors ``cluster_geometry`` there; ``ipx_darcy_cluster_geometry`` returns
+the C side's, and the card tests and ``chip_smoke.py`` hold the two equal.
+"""
+
+from __future__ import annotations
+
+# ClusterDesign in csrc/darcy_misfit.cuh: chains (CTAs) a cluster, threads a CTA
+CLUSTER_G, CLUSTER_THREADS = 8, 512
+EXACT_N, SURR_N = 64, 32  # the grids the kernels take
+MAX_SMEM_BYTES = 232_448  # what a CTA of the H100 may use
+# the largest K (= d) and dst_trunc modes (exact level, surrogate) the
+# kernels' shared memory holds
+MAX_K, MAX_MODES, MAX_SURR_MODES = 144, 256, 128
+
+
+def smem_bytes(G=CLUSTER_G, threads=CLUSTER_THREADS):
+    """``ClusterSmem::kBytes``: five f32 arrays of 64×64 cells (the
+    stencil's vector, the face terms right of and below each cell, the
+    boundary terms, the inverse diagonal), the warps' partial sums (16 rows × 8 columns an
+    mma tile of chains), the cluster's coefficients u, the sampler's state
+    (3 × MAX_K), the warp partials (32), Φ, a_bar, the cluster's G a_bar
+    and the eigenvalues of a modes slice (MAX_MODES), rounded to 16 bytes;
+    then bf16(r) on the cells and the cluster's coefficients in rows of
+    MAX_MODES + 8."""
+    cells, nt = EXACT_N * EXACT_N, -(-G // 8)
+    f32 = 5 * cells + threads // 32 * 16 * 8 * nt + G * MAX_K + 3 * MAX_K + 32 + 1 + 1 + G + MAX_MODES
+    return 4 * (-(-f32 // 4) * 4) + 2 * (cells + G * (MAX_MODES + 8))
+
+
+def cluster_geometry(n_chains, block_chains, *, d=144, exact_n=EXACT_N, exact_modes=256,
+                     surr_n=SURR_N, surr_modes=128, G=CLUSTER_G, threads=CLUSTER_THREADS):
+    """(chains a cluster, clusters, CTAs, dynamic shared-memory bytes) of a
+    launch: the DA kernel with a surrogate, the warm pCN kernel with
+    ``surr_n=None``. Every cluster has G CTAs, the spare ones of a ragged
+    last cluster run on zeros. A CTA runs chain ``blockIdx.x`` with the seed
+    and lane of the one-chain-a-CTA kernels, so G does not depend on
+    ``block_chains``; the shared memory is laid out at compile time, so it
+    depends on the design alone. Raises ``ValueError`` for grids, d or
+    modes the kernels do not take (a 64×64 exact level, a 32×32 surrogate,
+    d up to MAX_K, dst_trunc with a multiple of 16 modes up to the cells
+    and MAX_MODES, MAX_SURR_MODES for the surrogate) and for shared memory
+    the card cannot give a CTA."""
+    levels = [(exact_n, EXACT_N, exact_modes, MAX_MODES)]
+    if surr_n is not None:
+        levels.append((surr_n, SURR_N, surr_modes, MAX_SURR_MODES))
+    for n, want, modes, most in levels:
+        if n != want:
+            raise ValueError(f"the cluster kernels take a {EXACT_N}x{EXACT_N} exact grid and a "
+                             f"{SURR_N}x{SURR_N} surrogate; got {n}x{n} for {want}x{want}")
+        if modes <= 0 or modes % 16 or modes > min(n * n, most):
+            raise ValueError(f"{n}x{n}: {modes} dst_trunc modes are not a positive multiple "
+                             f"of 16 up to {min(n * n, most)}")
+    if block_chains <= 0 or n_chains < 0 or not 0 < d <= MAX_K:
+        raise ValueError(f"n_chains {n_chains}, block_chains {block_chains}, d {d} (at most "
+                         f"{MAX_K})")
+    smem = smem_bytes(G, threads)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{smem} bytes of shared memory a CTA: the card gives {MAX_SMEM_BYTES}")
+    clusters = -(-n_chains // G)
+    return G, clusters, clusters * G, smem

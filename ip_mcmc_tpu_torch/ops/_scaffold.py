@@ -15,8 +15,9 @@ block_chains) tile under the block's seed uint32(seed + 7919·block). A
 draw of shape (rows, 1) is one number per block (the JAX kernel's
 ``rand_u((1, 1), tag)``): it comes back as (rows, n), every chain holding
 its block's number. All chains step together, so there is no loop over
-blocks. The step counter restarts at 0 in each launch. A builder's
-``extra_out(carry)`` gives a third per-chain output.
+blocks, and a ragged last block is taken: chain c's draws depend on its
+block and lane only. The step counter restarts at 0 in each launch. A
+builder's ``extra_out(carry)`` gives a third per-chain output.
 
 The CUDA side of the same scaffold is ``csrc/fused_scaffold.cuh``.
 """
@@ -38,14 +39,17 @@ def contraction(beta):
     return b, torch.sqrt(1.0 - b * b)
 
 
-def validate(positions, n_steps, block_chains, thin=None):
+def validate(positions, n_steps, block_chains, thin=None, whole_blocks=True):
+    """What every entry point checks. ``whole_blocks`` False lets a ragged
+    last block through: the plain scaffold takes one, as the twin of a
+    kernel launched on a ragged width (the entry points refuse it)."""
     if positions.dtype != torch.float32 or positions.dim() != 2:
         raise ValueError(
             f"positions: expected f32 (n_chains, d), got {positions.dtype} "
             f"{tuple(positions.shape)}"
         )
     n = positions.shape[0]
-    if n % block_chains:
+    if whole_blocks and n % block_chains:
         raise ValueError(
             f"n_chains {n} must be a multiple of block_chains {block_chains}"
         )
@@ -71,7 +75,7 @@ def run_plain(step_builder, potential_fn, positions, params, seed, n_steps,
               block_chains, thin=None):
     """(final (n, d), acceptance mean (n,), extra (n,) or None, samples
     (n_steps // thin, n, d) or None when ``thin`` is None)."""
-    validate(positions, n_steps, block_chains, thin)
+    validate(positions, n_steps, block_chains, thin, whole_blocks=False)
     n, d = positions.shape
     dev = positions.device
     bseed, lane = rng.block_seeds(seed, n, block_chains, dev)

@@ -14,10 +14,13 @@ launch, picked by the potentials' family and grids: for a 16×16 exact
 level with an 8×8 surrogate (solved by CG or Richardson),
 ``fused_da_pcn_warp_kernel<SOLVER, RECORD>``, one warp per chain and
 ``warp_geometry``'s chains a CTA, the preconditioner's products on the
-tensor cores; for a 64×64 exact level with a 32×32 CG surrogate
-(``darcy64_da_fused``) and for a pair of ``BurgersMisfit`` potentials,
-``fused_da_pcn_kernel<Pot, RECORD>``, one CTA per chain. The kernels
-refuse any other pair and the wrapper raises. For CPU tensors they run
+tensor cores; for a 64×64 exact level with a 32×32 dst_trunc CG
+surrogate (``darcy64_da_fused``), ``fused_da_pcn_cluster_kernel<RECORD>``,
+one CTA per chain and ``_cluster.cluster_geometry``'s chains a thread-block
+cluster sharing each read of the factors, the preconditioner's products on
+the tensor cores; for a pair of ``BurgersMisfit`` potentials,
+``fused_da_pcn_kernel<Pot, RECORD>``, one CTA per chain. The kernels refuse
+any other pair and the wrapper raises. For CPU tensors they run
 ``_run_plain`` / ``_run_plain_recorded``: the step builder below on the
 plain scaffold ``_scaffold.run_plain``, which takes any features-first
 callable (d, B) → (B,), so the algorithm tests can use analytic targets.
@@ -179,9 +182,9 @@ def warp_geometry(n_chains, block_chains, *, exact_n=WARP_EXACT_N,
 
 def _darcy_stem(pot_exact, pot_surr):
     """The launch count's name of the Darcy kernel: the 16×16 one by its
-    surrogate's solver, a larger one by its grids."""
+    surrogate's solver, the 64×64 one (thread-block clusters) alone."""
     if max(pot_exact.n, pot_surr.n) > 16:
-        return f"fused_da_pcn_kernel[n={pot_exact.n},surrogate n={pot_surr.n}]"
+        return "fused_da_pcn_cluster_kernel"
     if pot_surr.solver != "cg":
         return f"fused_da_pcn_warp_kernel[surrogate={pot_surr.solver}]"
     return "fused_da_pcn_warp_kernel"

@@ -15,8 +15,11 @@ For CUDA tensors the entry points launch ``fused_pcn_kernel<Pot, RECORD>`` /
 ``fused_pcn_warm_kernel<RECORD>`` (``csrc/fused_pcn.cu``), the whole
 ``n_steps`` loop in one launch: the cold kernel on a ``DarcyMisfit`` or a
 ``BurgersMisfit`` (picked by the potential's family), the warm one on a
-``DarcyMisfitWarm``. For CPU tensors they run the step builders below on the
-plain scaffold ``_scaffold.run_plain``, with any features-first callable.
+``DarcyMisfitWarm``; on a 64×64 grid the warm one is
+``fused_pcn_warm_cluster_kernel<RECORD>``, whose thread-block clusters of
+``_cluster.cluster_geometry``'s chains share each read of the factors.
+For CPU tensors they run the step builders below on the plain scaffold
+``_scaffold.run_plain``, with any features-first callable.
 Tags: normals 0 (keys 0, 1), MH uniform 2.
 """
 
@@ -104,6 +107,14 @@ def _run_plain(potential_fn, positions, prior_mean, prior_scale, beta, seed,
 # --- the kernels ------------------------------------------------------------
 
 
+def _darcy_stem(pot, warm):
+    """The launch count's name of the Darcy kernel: the warm one on the
+    64×64 class runs in thread-block clusters (``_cluster``)."""
+    if not warm:
+        return "fused_pcn_kernel"
+    return "fused_pcn_warm_cluster_kernel" if pot.n > 32 else "fused_pcn_warm_kernel"
+
+
 def _launch(potential_fn, positions, prior_mean, prior_scale, beta, seed,
             n_steps, block_chains, thin=None, aux_dim=None):
     warm = aux_dim is not None
@@ -133,8 +144,7 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, beta, seed,
     # family -> (C entry point, kernel, its arguments after Φ0): the Darcy
     # entry takes the carried solution, null for the cold kernel
     fn, stem, carried = {
-        "darcy": (lib.ipx_fused_pcn,
-                  "fused_pcn_warm_kernel" if warm else "fused_pcn_kernel",
+        "darcy": (lib.ipx_fused_pcn, _darcy_stem(potential_fn, warm),
                   (x0.data_ptr() if warm else None,)),
         "burgers": (lib.ipx_fused_pcn_burgers, "fused_pcn_burgers_kernel", ()),
     }[family]

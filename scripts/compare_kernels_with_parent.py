@@ -8,14 +8,18 @@ Runs the 16x16 Darcy kernels that both trees have (the misfit kernels with
 and without the adjoint gradient, DA-pCN with the CG and with the rich3
 Richardson surrogate, cold and warm pCN, ESS, cold and warm MALA, the
 ensemble sampler and the Darcy RWM, each recorded, at 4096 chains on the
-16x16 Darcy configs) and the Burgers DA-pCN kernel (2048 chains) in
+16x16 Darcy configs), the Burgers DA-pCN kernel (2048 chains), the cold
+and warm misfit kernels at 32x32 and 64x64, and the 64x64 DA-pCN
+(``darcy64_da_fused``: 1024 chains, blocks of 128, k = 48) and warm pCN
+(``darcy64_pcn_warm``: 2048 chains) kernels, each recorded, in
 the order parent, this tree, this tree, parent, each in a process of its
 own with that tree first on the import path (each tree builds its own
 kernels). Each tree's two runs must equal one another bit for bit. Every
 output tensor of this tree must equal the parent's bit for bit, except
 those of the kernels in ``OLD_VS_NEW``, which this tree replaced by
-another design (the 16x16 DA kernel, one warp per chain, whose sums run
-in another order): there the share of chains (final state and records)
+another design (the 16x16 DA kernel, one warp per chain; the 64x64 DA and
+warm pCN kernels, G chains a thread-block cluster; their sums run in
+another order): there the share of chains (final state and records)
 within ``CHAIN_ATOL`` of the parent's and both acceptance rates are
 printed (two kernels that each round differently from the plain twin;
 chip_smoke.py holds each against the twin). The per-step times
@@ -39,7 +43,7 @@ import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # kernels this tree replaced by another design: compared, not bit for bit
-OLD_VS_NEW = ("da_pcn", "da_pcn_richardson")
+OLD_VS_NEW = ("da_pcn", "da_pcn_richardson", "da_pcn_64", "pcn_warm_64")
 CHAIN_ATOL = 1e-4  # chip_smoke.py's
 
 
@@ -110,6 +114,25 @@ def worker(out_path: str) -> int:
     for i, t in enumerate(pag(U, pag_zeros)):
         outputs[f"misfit_grad_warm_{i}"] = t
     times["misfit_grad_warm"] = time_ms(lambda: pag(U, pag_zeros), 5)
+    # the large grids: darcy64_da_fused's two misfits, the cold and warm
+    # misfits of darcy32_pcn_warm and darcy64_pcn_warm, 1024 draws each
+    da64 = configs.build("darcy64_da_fused", "cuda")
+    pcn64, pcn32 = (configs.build(c, "cuda") for c in ("darcy64_pcn_warm", "darcy32_pcn_warm"))
+    U144 = da64.prior.sample(gen, 1024).T.contiguous()
+    U64 = pcn32.prior.sample(gen, 1024).T.contiguous()
+    for name, pot, V in (("misfit64_exact", da64.batched_potential_fn, U144),
+                         ("misfit64_surrogate", da64.batched_surrogate_fn, U144),
+                         ("misfit64_cold", pcn64.batched_potential_fn, U144),
+                         ("misfit32_cold", pcn32.batched_potential_fn, U64)):
+        outputs[name] = pot(V)
+        times[name] = time_ms(lambda: pot(V), 5)
+    for name, p, V in (("misfit64_warm", pcn64, U144), ("misfit32_warm", pcn32, U64)):
+        w, dim = p.batched_warm_potential
+        z = torch.zeros(dim, 1024, device="cuda")
+        outputs[f"{name}_phi"], outputs[f"{name}_x"] = w(V, z)
+        times[name] = time_ms(lambda: w(V, z), 5)
+    w64, w64_dim = pcn64.batched_warm_potential
+    pos64 = da64.init_positions(gen, 2048).cuda()
 
     runs = {
         "da_pcn": (lambda s: ops.fused_da_pcn_chain_recorded(
@@ -122,6 +145,13 @@ def worker(out_path: str) -> int:
             burgers.batched_potential_fn, burgers.batched_surrogate_fn, bpos,
             burgers.prior.mean, burgers.prior.scale, 0.15, 11, n_steps=s, thin=1,
             subchain_len=16, block_chains=512), 16, 8, 72),
+        "da_pcn_64": (lambda s: ops.fused_da_pcn_chain_recorded(
+            da64.batched_potential_fn, da64.batched_surrogate_fn, pos64[:1024],
+            da64.prior.mean, da64.prior.scale, 0.4, 11, n_steps=s, thin=1, subchain_len=48,
+            block_chains=128), 2, 2, 6),
+        "pcn_warm_64": (lambda s: ops.fused_pcn_chain_warm_recorded(
+            w64, pos64, da64.prior.mean, da64.prior.scale, 0.06, 13, n_steps=s, thin=1,
+            aux_dim=w64_dim, block_chains=128), 8, 4, 36),
         "pcn": (lambda s: ops.fused_pcn_chain_recorded(
             jacobi, pos, pm, ps, 0.08, 13, n_steps=s, thin=1, block_chains=512),
             16, 8, 72),

@@ -1,0 +1,53 @@
+"""Where the time goes on the two 64x64 Darcy paths, on one NVIDIA GPU.
+
+    python scripts/measure_darcy64_paths.py
+
+``darcy64_da_fused`` and ``darcy64_pcn_warm`` each run once through the
+runner as the CLI runs them (the metrics of that run are printed), then
+once more under ``torch.profiler`` (``measure_linear_paths.profiled``):
+the device time of every kernel and copy, summed, against the host wall
+of the same run gives the device's idle share, and the trace gives each
+kernel's device time and calls. Prints the card's name and power limit and
+one JSON line.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import sys
+
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+
+import chip_smoke  # noqa: E402
+from measure_linear_paths import profiled, summary  # noqa: E402
+
+KEYS = ("run_s", "ess_per_s", "min_ess", "max_rhat", "accept_rate", "inner_accept_rate",
+        "steps_per_s", "outer_steps_per_s", "total_wall_s")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("measure_darcy64_paths: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    card = chip_smoke.card_line()
+    print(f"card: {card}", flush=True)
+    from ip_mcmc_tpu_torch import configs, runner
+
+    out = {"card": card}
+    for name in ("darcy64_da_fused", "darcy64_pcn_warm"):
+        p = configs.build(name, "cuda")
+        runs = []
+        row = summary(*profiled(lambda: runs.append(runner.run_problem(p, "cuda"))))
+        row["metrics_unprofiled"] = {k: runs[0][k] for k in KEYS if k in runs[0]}
+        row["metrics_profiled"] = {k: runs[1][k] for k in KEYS if k in runs[1]}
+        out[name] = row
+        print(name + ": " + json.dumps(row), flush=True)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,22 +1,19 @@
-"""The CTA layouts of the large Darcy grids on one card: cells per thread,
-threads per CTA and the launch bound's CTAs per SM.
+"""The CTA layout of the 32x32 Darcy kernels on one card: cells per
+thread, threads per CTA and the launch bound's CTAs per SM.
 
-    python scripts/measure_darcy_layouts.py [Layout32] [Layout64] [DaLayout64]
+    python scripts/measure_darcy_layouts.py [Layout32]
 
-``csrc/darcy_misfit.cuh`` ships one layout per grid class (``Layout32``,
-``Layout64``), and ``csrc/fused_da_pcn.cu`` one for the 64x64 DA kernel
-(``DaLayout64``: the exact level's CTA, on whose threads the 32x32
-surrogate runs). This builds a copy of ``csrc/`` for each alternative with
-that one line patched (``_kernel_variants.build_patched``), prints the
-registers and spills that ptxas reports for the kernel timed, and times
-one step of ``darcy32_pcn_warm`` (4096 chains) and ``darcy64_pcn_warm``
-(2048 chains) for the first two, one outer step of ``darcy64_da_fused``
-(1024 chains, k = 48) for the third, at full width under each, as the
-slope between two launch lengths, in the order shipped, alternatives,
-shipped. Each run's acceptance is printed beside its time: the layouts sum
-in other orders, so the chains agree to rounding, not to the bit. With no
-argument every layout is measured. Prints the card's name and power limit
-and one JSON line.
+``csrc/darcy_misfit.cuh`` ships one layout per grid class. This builds a
+copy of ``csrc/`` for each alternative of ``Layout32`` with that one line
+patched (``_kernel_variants.build_patched``), prints the registers and
+spills that ptxas reports for the kernel timed, and times one step of
+``darcy32_pcn_warm`` (4096 chains) at full width under each, as the slope
+between two launch lengths, in the order shipped, alternatives, shipped.
+Each run's acceptance is printed beside its time: the layouts sum in other
+orders, so the chains agree to rounding, not to the bit. The 64x64
+samplers run in thread-block clusters, whose design (layout included) is
+one line of its own: ``scripts/measure_da64_cluster_design.py`` times it.
+Prints the card's name and power limit and one JSON line.
 """
 
 from __future__ import annotations
@@ -34,10 +31,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 # layout -> (config, alternatives (cells, threads, CTAs))
 LAYOUTS = {
     "Layout32": ("darcy32_pcn_warm", ((2, 512, 2), (4, 256, 2))),
-    "Layout64": ("darcy64_pcn_warm", ((8, 512, 1), (4, 1024, 1), (16, 256, 4))),
-    "DaLayout64": ("darcy64_da_fused", ((8, 512, 2),)),
 }
-DA_SOURCE = "fused_da_pcn.cu"
 
 
 def layout_line(cells: int, threads: int, ctas: int) -> str:
@@ -52,21 +46,12 @@ def _values(line: str) -> tuple:
 
 def shipped_layout(csrc: pathlib.Path, name: str) -> tuple:
     """(the shipped values, the file and line that a variant replaces)."""
-    if name == "DaLayout64":  # an alias of a layout, or a struct of one line
-        line = next(ln for ln in (csrc / DA_SOURCE).read_text().splitlines()
-                    if ln.startswith(("using DaLayout64 ", "struct DaLayout64 ")))
-        if line.startswith("using"):
-            alias = line.split("=")[1].strip(" ;")
-            return shipped_layout(csrc, alias)[0], (DA_SOURCE, line)
-        return _values(line), (DA_SOURCE, line)
     text = (csrc / "darcy_misfit.cuh").read_text()
     line = text[text.index(f"struct {name} {{"):].splitlines()[1].strip()
     return _values(line), ("darcy_misfit.cuh", line)
 
 
 def variant_line(name: str, layout: tuple) -> str:
-    if name == "DaLayout64":
-        return f"struct DaLayout64 {{ {layout_line(*layout)} }};"
     return layout_line(*layout)
 
 
@@ -77,15 +62,6 @@ def runner_of(name, p):
 
     pos = p.init_positions(torch.Generator().manual_seed(5), p.n_chains).cuda()
     kp = p.kernel_params
-    if name == "DaLayout64":
-        exact, surr = p.batched_potential_fn, p.batched_surrogate_fn
-
-        def run(steps):
-            return ops.fused_da_pcn_chain(exact, surr, pos, p.prior.mean, p.prior.scale,
-                                          kp["beta"], 7, n_steps=steps,
-                                          subchain_len=kp["subchain_len"],
-                                          block_chains=kp["block_chains"])
-        return run, "fused_da_pcn_kernel", (2, 2, 6)
     warm, aux_dim = p.batched_warm_potential
 
     def run(steps):

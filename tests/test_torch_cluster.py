@@ -1,0 +1,118 @@
+"""The 64×64 Darcy kernels that run in thread-block clusters
+(``fused_da_pcn_cluster_kernel``, ``fused_pcn_warm_cluster_kernel``): their
+launch geometry's Python mirror (``ops/_cluster.py``; the card tests hold
+it against the C function) and the plain twins on a ragged width, which
+the kernels' spare CTAs must match on the card."""
+
+import pytest
+import torch
+
+from ip_mcmc_tpu_torch import configs
+from ip_mcmc_tpu_torch.ops import _cluster
+from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
+from ip_mcmc_tpu_torch.ops import fused_pcn
+
+torch.set_num_threads(1)
+
+G = _cluster.CLUSTER_G
+# the shipped design's bytes (512 threads, 16 warps): f32 buffers of 5 ×
+# 4096 cells, partial sums 16 warps × 16 × 8, u 8 × 144, the state 3 × 144,
+# 32 warp partials, Φ and a_bar, 8 a_bar and 256 eigenvalues (24,410
+# floats, 24,412 after rounding to 16 bytes), then bf16(r) on 4096 cells
+# and the coefficients 8 × 264
+SMEM = 4 * 24_412 + 2 * (4096 + 8 * 264)
+
+
+def test_geometry_of_the_shipped_paths():
+    """darcy64_da_fused (1024 chains, blocks of 128) and darcy64_pcn_warm
+    (2048): G chains a cluster, every chain a CTA, the bytes counted."""
+    for config, surr_n in (("darcy64_da_fused", 32), ("darcy64_pcn_warm", None)):
+        p = configs.build(config, "cpu")
+        pot = p.batched_potential_fn
+        kw = dict(d=p.dim, exact_n=pot.n, exact_modes=pot.modes, surr_n=surr_n)
+        if surr_n is not None:
+            kw["surr_modes"] = p.batched_surrogate_fn.modes
+        else:
+            kw["exact_modes"] = p.batched_warm_potential[0].modes
+        got = _cluster.cluster_geometry(p.n_chains, p.kernel_params["block_chains"], **kw)
+        assert got == (G, p.n_chains // G, p.n_chains, SMEM)
+    assert SMEM == _cluster.smem_bytes() <= _cluster.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("n, block, clusters", [(13, 8, 2), (13, 13, 2), (16, 4, 2),
+                                                (1, 128, 1), (0, 128, 0), (1024, 128, 128)])
+def test_geometry_ragged_widths_and_any_block(n, block, clusters):
+    """G does not follow block_chains (a CTA's draws are those of chain
+    blockIdx.x); a ragged n gets a last cluster of spare CTAs."""
+    g, c, ctas, _ = _cluster.cluster_geometry(n, block)
+    assert (g, c, ctas) == (G, clusters, clusters * G)
+    assert ctas - n < G
+
+
+def test_geometry_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="64x64 exact grid"):
+        _cluster.cluster_geometry(64, 64, exact_n=40)
+    with pytest.raises(ValueError, match="32x32 surrogate"):
+        _cluster.cluster_geometry(64, 64, surr_n=16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        _cluster.cluster_geometry(64, 64, exact_modes=100)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        _cluster.cluster_geometry(64, 64, surr_modes=0)
+    with pytest.raises(ValueError, match="block_chains"):
+        _cluster.cluster_geometry(64, 0)
+    with pytest.raises(ValueError, match="d 200 "):
+        _cluster.cluster_geometry(64, 64, d=200)
+    with pytest.raises(ValueError, match="up to 256"):
+        _cluster.cluster_geometry(64, 64, exact_modes=272)
+    with pytest.raises(ValueError, match="up to 128"):
+        _cluster.cluster_geometry(64, 64, surr_modes=144)
+    # a cluster of 64 chains on 1024 threads would need more shared memory
+    # than a CTA has
+    with pytest.raises(ValueError, match="232448"):
+        _cluster.cluster_geometry(64, 64, G=64, threads=1024)
+
+
+def _agree(got, ref):
+    """Chain by chain, the first 13 of the 16-chain run: the plain solves
+    batch the chains into one matrix product, whose sums may round in
+    another order at another width."""
+    assert (got[0] - ref[0][:13]).abs().max() <= 1e-5
+    assert torch.equal(got[1], ref[1][:13])
+
+
+def test_da_twin_on_a_ragged_width_gives_the_first_chains():
+    """The 64² DA twin on 13 chains in blocks of 8 (two clusters of 8 on the
+    card, 3 spare CTAs) gives the first 13 chains of the 16-chain run."""
+    p = configs.build("darcy64_da_fused", "cpu")
+    pos = p.init_positions(torch.Generator().manual_seed(21), 16)
+    plain = (p.batched_potential_fn._forward_plain, p.batched_surrogate_fn._forward_plain)
+    args = (p.prior.mean, p.prior.scale, p.kernel_params["beta"], 9)
+    kw = dict(n_steps=2, subchain_len=3, block_chains=8)
+    ref = da._run_plain(*plain, pos, *args, **kw)
+    got = da._run_plain(*plain, pos[:13], *args, **kw)
+    _agree(got, ref)
+    assert torch.equal(got[2], ref[2][:13])
+    rec = da._run_plain_recorded(*plain, pos[:13], *args, thin=1, **kw)
+    assert rec[2].shape == (2, 13, p.dim) and torch.equal(rec[2][-1], rec[0])
+
+
+def test_warm_pcn_twin_on_a_ragged_width_gives_the_first_chains():
+    """The 64² warm pCN twin on 13 chains in blocks of 8 gives the first 13
+    chains of the 16-chain run."""
+    p = configs.build("darcy64_pcn_warm", "cpu")
+    warm, aux_dim = p.batched_warm_potential
+    pos = p.init_positions(torch.Generator().manual_seed(22), 16)
+    args = (p.prior.mean, p.prior.scale, p.kernel_params["beta"], 9, 3, 8)
+    ref = fused_pcn._run_plain(warm._forward_warm_plain, pos, *args, aux_dim=aux_dim)
+    got = fused_pcn._run_plain(warm._forward_warm_plain, pos[:13], *args, aux_dim=aux_dim)
+    _agree(got, ref)
+
+
+def test_cluster_kernel_names():
+    """The launch counts name the 64² cluster kernels apart from the warm
+    pCN kernel of the smaller grids."""
+    big, small = (configs.build(c, "cpu") for c in ("darcy64_pcn_warm", "darcy32_pcn_warm"))
+    assert fused_pcn._darcy_stem(big.batched_warm_potential[0], True) == (
+        "fused_pcn_warm_cluster_kernel")
+    assert fused_pcn._darcy_stem(small.batched_warm_potential[0], True) == "fused_pcn_warm_kernel"
+    assert fused_pcn._darcy_stem(big.batched_potential_fn, False) == "fused_pcn_kernel"

@@ -587,7 +587,8 @@ def test_large_grid_warm_pcn_matches_plain(large_problem, recorded):
     args = (pos, p.prior.mean, p.prior.scale, p.kernel_params["beta"], 3, 4, 128)
     got = fused_pcn._launch(warm, *args, aux_dim=aux_dim, **kw)
     ref = fused_pcn._run_plain(warm._forward_warm_plain, *args, aux_dim=aux_dim, **kw)
-    assert _build.launch_counts[f"fused_pcn_warm_kernel<{'true' if recorded else 'false'}>"] >= 1
+    stem = fused_pcn._darcy_stem(warm, True)  # 64²: the cluster kernel
+    assert _build.launch_counts[f"{stem}<{'true' if recorded else 'false'}>"] >= 1
     if recorded:
         assert got[2].shape == ref[2].shape == (2, 256, p.dim)
         assert torch.equal(got[2][-1], got[0])
@@ -639,16 +640,16 @@ def test_darcy64_da_misfit_kernels_match_plain(darcy64_da):
 
 @pytest.mark.parametrize("record", [False, True])
 def test_da_kernel_at_64_with_32_surrogate_matches_plain(darcy64_da, record):
-    """fused_da_pcn_kernel's 64² instantiation: the exact level on
-    DaLayout64 (4 cells x 1024 threads), the 32² surrogate on the same
-    threads, its factors read through L2."""
+    """The 64² DA kernel (fused_da_pcn_cluster_kernel): one chain a CTA of
+    ClusterDesign's layout, the 32² surrogate on the same threads, the
+    chains of a thread-block cluster sharing each read of the factors."""
     p = darcy64_da
     pos = p.init_positions(torch.Generator().manual_seed(11), 256).cuda()
     exact, surr = p.batched_potential_fn, p.batched_surrogate_fn
     args = (exact, surr, pos, p.prior.mean, p.prior.scale, p.kernel_params["beta"], 3)
     plain_args = (exact._forward_plain, surr._forward_plain, *args[2:])
     kw = dict(n_steps=2, subchain_len=8, block_chains=128)
-    name = f"fused_da_pcn_kernel[n=64,surrogate n=32]<{'true' if record else 'false'}>"
+    name = f"fused_da_pcn_cluster_kernel<{'true' if record else 'false'}>"
     before = _build.launch_counts[name]
     if record:
         got = da.fused_da_pcn_chain_recorded(*args, thin=1, **kw)
@@ -665,11 +666,11 @@ def test_da_kernel_at_64_with_32_surrogate_matches_plain(darcy64_da, record):
 
 
 def test_da_kernel_refuses_other_grid_pairs(darcy64_da):
-    """Two instantiations take 16² with 8² and 64² with a 32² CG surrogate;
-    any other pair of grids (or a Richardson surrogate at 32²) is refused
-    by the kernel (cudaErrorNotSupported) and the wrapper raises. An exact
-    grid of the 64² class too small for its threads to own every cell of
-    the 32² surrogate (40²: 416 threads) is refused as invalid."""
+    """Two kernels take 16² with 8² and 64² with a 32² CG surrogate; any
+    other pair of grids (or a Richardson surrogate at 32²) is refused by
+    the kernel (cudaErrorNotSupported) and the wrapper raises. The cluster
+    kernel takes a 64² exact grid only, so an exact grid of the 64² class
+    that is not 64² (40²) is refused as not supported too."""
     from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
     from ip_mcmc_tpu_torch.models import darcy
 
@@ -685,7 +686,7 @@ def test_da_kernel_refuses_other_grid_pairs(darcy64_da):
     pos = p.init_positions(torch.Generator().manual_seed(12), 128).cuda()
     pairs = [(exact, misfit(16)), (misfit(16), surr), (misfit(32), surr),
              (exact, misfit(32, solver="richardson", omega=0.9))]
-    for (e, s), why in zip(pairs + [(misfit(40), surr)], ["not supported"] * 4 + ["invalid"]):
+    for (e, s), why in zip(pairs + [(misfit(40), surr)], ["not supported"] * 5):
         with pytest.raises(RuntimeError, match=f"launch failed.*{why}"):
             da.fused_da_pcn_chain(e, s, pos, p.prior.mean, p.prior.scale, 0.4, 0,
                                   n_steps=1, subchain_len=2, block_chains=128)
@@ -800,4 +801,106 @@ def test_da16_kernel_refuses_what_it_does_not_take():
         out = (ctypes.c_int * 3)()
         status = lib.ipx_da_pcn_warp_geometry(ctypes.byref(e.spec()), ctypes.byref(s.spec()),
                                               ctypes.byref(args), out)
+        assert "not supported" in lib.ipx_error_string(status).decode()
+
+
+# --- the 64² cluster kernels (fused_da_pcn_cluster_kernel, ---------------------
+# --- fused_pcn_warm_cluster_kernel): ragged widths, geometry, refusals ----------
+
+
+def _cluster_runs(config, record):
+    """(kernel on n chains, plain twin on 16) for the 64² DA or warm pCN
+    kernel in blocks of 8, 3 steps."""
+    p = _build_on_card(config)
+    pos = p.init_positions(torch.Generator().manual_seed(23), 16).cuda()
+    thin = 1 if record else None
+    if config == "darcy64_da_fused":
+        exact, surr = p.batched_potential_fn, p.batched_surrogate_fn
+        args = (p.prior.mean, p.prior.scale, p.kernel_params["beta"], 9, 3, 4, 8)
+        kern = lambda n: da._launch(exact, surr, pos[:n], *args, thin=thin)  # noqa: E731
+        plain = (exact._forward_plain, surr._forward_plain)
+        if record:
+            ref = da._run_plain_recorded(*plain, pos, *args[:5], 1, args[5], args[6])
+        else:
+            ref = da._run_plain(*plain, pos, *args)
+    else:
+        warm, aux_dim = p.batched_warm_potential
+        args = (p.prior.mean, p.prior.scale, p.kernel_params["beta"], 9, 3, 8)
+        kern = lambda n: fused_pcn._launch(warm, pos[:n], *args, thin=thin,  # noqa: E731
+                                           aux_dim=aux_dim)
+        ref = fused_pcn._run_plain(warm._forward_warm_plain, pos, *args, thin=thin,
+                                   aux_dim=aux_dim)
+    return kern, ref
+
+
+@pytest.mark.parametrize("record", [False, True])
+@pytest.mark.parametrize("config", ["darcy64_da_fused", "darcy64_pcn_warm"])
+def test_cluster_kernel_with_ragged_last_cluster(config, record):
+    """13 chains: two clusters of 8 CTAs, the last with 3 spare CTAs that run
+    on zeros and store nothing. A chain's draws and its columns of the
+    cluster's products depend on it alone, so the 13 chains equal the first
+    13 of the kernel's 16-chain run bit for bit, and agree with the plain
+    twin's."""
+    kern, ref = _cluster_runs(config, record)
+    got, full = kern(13), kern(16)
+    for g, f in zip(got, full):
+        assert torch.equal(g, f[:, :13] if g.dim() == 3 else f[:13])
+    if record:
+        assert got[2].shape == (3, 13, got[0].shape[1]) and torch.equal(got[2][-1], got[0])
+        rec = (got[2] - ref[2][:, :13]).abs().amax(dim=(0, 2))
+        assert float((rec <= 1e-4).double().mean()) >= 0.99
+    _chains_agree(got, tuple(r[:13] for r in ref[:2]), 3)
+
+
+def test_cluster_geometry_matches_the_kernel():
+    """ops/_cluster.py cluster_geometry gives what the C launch computes,
+    for the DA kernel (with its surrogate) and the warm pCN kernel."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.ops import _cluster
+
+    da_p = _build_on_card("darcy64_da_fused")
+    pcn_p = _build_on_card("darcy64_pcn_warm")
+    lib = _build.library()
+    warm = pcn_p.batched_warm_potential[0]
+    for p, exact, surr in ((da_p, da_p.batched_potential_fn, da_p.batched_surrogate_fn),
+                           (pcn_p, warm, None)):
+        for n, block in ((p.n_chains, 128), (13, 8), (16, 4), (1, 128), (0, 128)):
+            pos = torch.zeros(n, p.dim, device="cuda")
+            args, _ = da._scaffold.chain_args(pos, p.prior.mean, p.prior.scale, 0, 1, block)
+            out = (ctypes.c_int * 4)()
+            es = exact.spec()
+            ss = None if surr is None else ctypes.byref(surr.spec())
+            assert lib.ipx_darcy_cluster_geometry(ctypes.byref(es), ss, ctypes.byref(args),
+                                                  out) == 0
+            kw = dict(d=p.dim, exact_modes=exact.modes,
+                      surr_n=None if surr is None else surr.n,
+                      surr_modes=128 if surr is None else surr.modes)
+            assert tuple(out) == _cluster.cluster_geometry(n, block, **kw), (n, block)
+
+
+def test_cluster_kernels_refuse_what_they_do_not_take():
+    """A 64² warm misfit with Jacobi (no modes) or with modes not a multiple
+    of 16: the warm pCN cluster kernel refuses it (cudaErrorNotSupported),
+    the geometry function too, and the wrapper raises."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.convert import darcy_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    p = _build_on_card("darcy64_pcn_warm")
+    aux = darcy.darcy_aux(n_grid=64, n_modes_per_dim=12, alpha=2.0, field_scale=10.0)
+    y = p.batched_potential_fn.data.cpu().numpy()
+    lib = _build.library()
+    pos = p.init_positions(torch.Generator().manual_seed(24), 16).cuda()
+    for kw in (dict(precond="jacobi"), dict(precond="dst_trunc", precond_modes=100)):
+        warm, aux_dim = darcy_warm_misfit_from_arrays(aux, y, 0.002, cg_iters=4, **kw)
+        warm = warm.cuda()
+        with pytest.raises(RuntimeError, match="launch failed.*not supported"):
+            fused_pcn.fused_pcn_chain_warm(warm, pos, p.prior.mean, p.prior.scale, 0.06, 0,
+                                           n_steps=1, aux_dim=aux_dim, block_chains=16)
+        args, _ = da._scaffold.chain_args(pos, p.prior.mean, p.prior.scale, 0, 1, 16)
+        out = (ctypes.c_int * 4)()
+        status = lib.ipx_darcy_cluster_geometry(ctypes.byref(warm.spec()), None,
+                                                ctypes.byref(args), out)
         assert "not supported" in lib.ipx_error_string(status).decode()

@@ -162,13 +162,13 @@ def test_da_chain_matches_jax(problems, recorded):
 
 
 def test_kernel_names_follow_the_grids(problems):
-    """The launch counts tell the 64² instantiation from the 16² kernel's
+    """The launch counts tell the 64² cluster kernel from the 16² kernel's
     two surrogate solves."""
     _, tp = problems
     small = configs.build("darcy_da_fused", "cpu")
     rich = configs.darcy_da_richardson("rich3_w0.9", "cpu")
     assert da._darcy_stem(tp.batched_potential_fn, tp.batched_surrogate_fn) == (
-        "fused_da_pcn_kernel[n=64,surrogate n=32]")
+        "fused_da_pcn_cluster_kernel")
     assert da._darcy_stem(small.batched_potential_fn, small.batched_surrogate_fn) == (
         "fused_da_pcn_warp_kernel")
     assert da._darcy_stem(rich.batched_potential_fn, rich.batched_surrogate_fn) == (
