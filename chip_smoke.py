@@ -13,13 +13,15 @@ Gaussians), times both, then drives the ported paths at full width:
                              benchmarks/darcy_da_richardson.py: three solved
                              by Richardson (K17), the CG one beside them
     darcy_pcn_warm           warm-started pCN           (K7)
-    darcy32_pcn_warm         warm pCN on 32 x 32 cells  (K5, K7)
+    darcy32_pcn_warm         warm pCN on 32 x 32 cells  (K5, K7), G chains
+                             a thread-block cluster, the modes' slices
+                             resident in its shared memory
     darcy64_pcn_warm         warm pCN on 64 x 64 cells  (K5, K7), G chains
                              a thread-block cluster
     darcy64_da_fused         delayed acceptance on 64 x 64 cells with a
                              32 x 32 surrogate (K4, K5), G chains a
                              thread-block cluster
-    darcy_ess_fused          elliptical slice sampling  (K8)
+    darcy_ess_fused          elliptical slice sampling  (K8), a chain a warp
     darcy_pcn_4096 --fused   cold pCN                   (K6)
     darcy_mala_fused         MALA, adjoint gradient     (K10)
     darcy_mala_warm          warm-started MALA          (K11)
@@ -395,6 +397,8 @@ def compare_chain(results, stem, recorded, kern, plain, *, steps, kernel_long,
 # the 16x16 DA kernel: one warp per chain, the preconditioner's products
 # on the tensor cores over a CTA's chains
 DA16 = "fused_da_pcn_warp_kernel"
+# elliptical slice sampling: one warp per chain, Jacobi solves
+ESS = "fused_ess_warp_kernel"
 
 
 def check_da(problem, gen, results):
@@ -528,6 +532,7 @@ def check_single_level(problems, gen, results):
                 pots=(pot,), per_step_ops=ops)
 
     shrink, block, steps, long = ess_p.kernel_params["max_shrink"], 256, 3, 67
+    w = fused_ess.warp_geometry(N_CHAINS, block)[1]
     args = (pos, pm, ps, 17)
     # what this run's data needs: the evaluations that the slices of the
     # timed steps (after the first ``steps``, up to ``long``) take, counted
@@ -537,20 +542,20 @@ def check_single_level(problems, gen, results):
     assert len(counting.per_step) == long
     first = sum(counting.per_step[:steps]) / steps
     per_step = sum(counting.per_step[steps:]) / (long - steps)
-    print(f"fused_ess_kernel: {per_step:.3f} misfit evaluations per step of a "
+    print(f"{ESS}: {per_step:.3f} misfit evaluations per step of a "
           f"budget of {shrink} in steps {steps + 1}-{long} ({first:.3f} in the "
           f"first {steps})", flush=True)
     for recorded in (False, True):
         fn, kw_r = ((fused_ess.fused_ess_chain_recorded, {"thin": 1}) if recorded
                     else (fused_ess.fused_ess_chain, {}))
         compare_chain(
-            results, "fused_ess_kernel", recorded,
+            results, ESS, recorded,
             lambda s: fn(jacobi, *args, n_steps=s, max_shrink=shrink,
                          block_chains=block, **kw_r),
             lambda s: fused_ess._run_plain(plain_potential(jacobi), *args, s,
                                            shrink, block, **kw_r),
             steps=steps, kernel_long=long, plain_long=3 * steps,
-            variant=f"jacobi, 48 CG, max_shrink {shrink}, block {block}",
+            variant=f"jacobi, 48 CG, max_shrink {shrink}, block {block}, {w} chains a CTA",
             paths=["darcy_ess_fused"], source="fused_ess.cu", pots=(jacobi,),
             per_step_ops=per_step * solve_ops(jacobi, False) + draws)
         results[-1]["solves_per_step"] = per_step
@@ -958,10 +963,11 @@ def check_large_grids(problems, gen, results):
 # hardware
 TPU_DARCY64_DA = {"outer_accept": 0.82, "inner_accept": 0.184,
                   "ess_per_outer_step_chain": 0.277, "max_rhat": 1.010}
-# the 64x64 kernels: one chain a CTA, the chains of a thread-block cluster
-# sharing each read of the factors
+# the 64x64 kernels and the 32x32 warm pCN: one chain a CTA, the chains of a
+# thread-block cluster sharing each read of the factors
 DA64 = "fused_da_pcn_cluster_kernel"
 PCN64 = "fused_pcn_warm_cluster_kernel"
+PCN32 = "fused_pcn_warm_cluster32_kernel"
 
 
 def check_da64(problem, gen, results):
@@ -1001,12 +1007,12 @@ def check_da64(problem, gen, results):
 
 
 def check_cluster(problems):
-    """What the 64x64 cluster kernels add beside their twins: the Python
-    mirror of the launch geometry against the C function, and a ragged
-    width, 13 chains (two clusters of 8 CTAs, 3 of them spare, running on
-    zeros): equal bit for bit to the first 13 of the kernel's own 16-chain
-    run, and within CHAIN_ATOL of the plain twin's 16-chain run, plain and
-    recorded, for both kernels."""
+    """What the cluster kernels add beside their twins: the Python mirror of
+    the launch geometry against the C function, and a ragged width, 13
+    chains (two clusters of 8 CTAs, 3 of them spare, running on zeros):
+    equal bit for bit to the first 13 of the kernel's own 16-chain run, and
+    within CHAIN_ATOL of the plain twin's 16-chain run, plain and recorded,
+    for the 64x64 DA and warm pCN kernels and the 32x32 warm pCN kernel."""
     import ctypes
 
     from ip_mcmc_tpu_torch.ops import _build, _cluster, _scaffold, fused_pcn
@@ -1014,9 +1020,12 @@ def check_cluster(problems):
 
     lib = _build.library()
     da_p, pcn_p = problems["darcy64_da_fused"], problems["darcy64_pcn_warm"]
+    p32 = problems["darcy32_pcn_warm"]
     exact, surr = da_p.batched_potential_fn, da_p.batched_surrogate_fn
-    warm, aux_dim = pcn_p.batched_warm_potential
-    for p, e, s in ((da_p, exact, surr), (pcn_p, warm, None)):
+    levels = ((da_p, exact, surr), (pcn_p, pcn_p.batched_warm_potential[0], None),
+              (p32, p32.batched_warm_potential[0], None))
+    shipped = []
+    for p, e, s in levels:
         for n, block in ((p.n_chains, p.kernel_params["block_chains"]), (13, 8), (16, 4),
                          (1, 128)):
             pos = torch.zeros(n, p.dim, device="cuda")
@@ -1026,20 +1035,21 @@ def check_cluster(problems):
                 ctypes.byref(e.spec()), None if s is None else ctypes.byref(s.spec()),
                 ctypes.byref(args), out)
             want = _cluster.cluster_geometry(
-                n, block, d=p.dim, exact_modes=e.modes, surr_n=None if s is None else s.n,
-                surr_modes=128 if s is None else s.modes)
+                n, block, d=p.dim, exact_n=e.n, exact_modes=e.modes,
+                surr_n=None if s is None else s.n, surr_modes=128 if s is None else s.modes)
             if status != 0 or tuple(out) != want:
                 raise AssertionError(f"cluster geometry of {p.name} at {n} chains, block "
                                      f"{block}: C {tuple(out)} (status {status}), Python {want}")
-    print(f"cluster geometry: Python mirror equals the C function for {DA64} and {PCN64} "
-          f"(G = {_cluster.CLUSTER_G}; shipped: "
-          f"{_cluster.cluster_geometry(da_p.n_chains, 128)} and "
-          f"{_cluster.cluster_geometry(pcn_p.n_chains, 128, surr_n=None)})", flush=True)
+            if n == p.n_chains:
+                shipped.append(want)
+    print(f"cluster geometry: Python mirror equals the C function for {DA64}, {PCN64} and "
+          f"{PCN32} (shipped: {shipped[0]}, {shipped[1]} and {shipped[2]})", flush=True)
 
     block, steps = 8, 3
-    for p, stem in ((da_p, DA64), (pcn_p, PCN64)):
+    for p, stem in ((da_p, DA64), (pcn_p, PCN64), (p32, PCN32)):
         pos = p.init_positions(torch.Generator().manual_seed(71), 16).cuda()
         beta = p.kernel_params["beta"]
+        warm, aux_dim = p.batched_warm_potential or (None, None)
         for recorded in (False, True):
             thin = 1 if recorded else None
             if stem == DA64:
@@ -1067,12 +1077,63 @@ def check_cluster(problems):
                 frac = min(frac, float((rec <= CHAIN_ATOL).double().mean()))
             rate = abs(float(got[1].mean()) - float(ref[1][:13].mean()))
             name = f"{stem}<{'true' if recorded else 'false'}>"
-            print(f"{name} ragged (13 chains in clusters of {_cluster.CLUSTER_G}, {steps} "
-                  f"steps): equal to the first 13 of 16 {equal}; {frac:.4f} of chains within "
-                  f"{CHAIN_ATOL} of the plain twin, acceptance {float(got[1].mean()):.4f} plain "
+            g = _cluster.CLUSTER32_G if stem == PCN32 else _cluster.CLUSTER_G
+            print(f"{name} ragged (13 chains in clusters of {g}, {steps} steps): equal to the "
+                  f"first 13 of 16 {equal}; {frac:.4f} of chains within {CHAIN_ATOL} of the "
+                  f"plain twin, acceptance {float(got[1].mean()):.4f} plain "
                   f"{float(ref[1][:13].mean()):.4f}", flush=True)
             if not equal or frac < MIN_CHAIN_FRAC or rate > RATE_ATOL:
                 raise AssertionError(f"{name} on a ragged width disagrees")
+
+
+def check_ess_warp(problem):
+    """What the ESS kernel's warps add beside its twin: the Python mirror of
+    the launch geometry against the C function, and a ragged width, 13
+    chains in blocks of 8 (two CTAs of 8 warps, 3 of them spare): equal bit
+    for bit to the first 13 of the kernel's own 16-chain run, and within
+    CHAIN_ATOL of the plain twin's 16-chain run, plain and recorded."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.ops import _build, _scaffold, fused_ess
+
+    lib = _build.library()
+    pot, shrink = problem.batched_potential_fn, problem.kernel_params["max_shrink"]
+    pm, ps = problem.prior.mean, problem.prior.scale
+    for n, block in ((problem.n_chains, problem.kernel_params["block_chains"]), (13, 8),
+                     (13, 13), (20, 4), (1, 256)):
+        args, _ = _scaffold.chain_args(torch.zeros(n, problem.dim, device="cuda"), pm, ps, 0, 1,
+                                       block)
+        out = (ctypes.c_int * 3)()
+        status = lib.ipx_ess_warp_geometry(ctypes.byref(pot.spec()), ctypes.byref(args), shrink,
+                                           out)
+        ctas, w, smem = fused_ess.warp_geometry(n, block)
+        if status != 0 or tuple(out) != (w, ctas, smem):
+            raise AssertionError(f"ESS geometry at {n} chains, block {block}: C {tuple(out)} "
+                                 f"(status {status}), Python {(w, ctas, smem)}")
+    print(f"ESS geometry: Python mirror equals the C function (shipped: "
+          f"{fused_ess.warp_geometry(problem.n_chains, 256)})", flush=True)
+    pos = problem.init_positions(torch.Generator().manual_seed(72), 16).cuda()
+    for recorded in (False, True):
+        thin = 1 if recorded else None
+        got, full = (fused_ess._launch(pot, pos[:n], pm, ps, 73, 3, shrink, 8, thin=thin)
+                     for n in (13, 16))
+        ref = fused_ess._run_plain(plain_potential(pot), pos, pm, ps, 73, 3, shrink, 8,
+                                   thin=thin)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(g, f[:, :13] if g.dim() == 3 else f[:13])
+                    for g, f in zip(got, full))
+        frac = float(((got[0] - ref[0][:13]).abs().amax(dim=1) <= CHAIN_ATOL).double().mean())
+        if recorded:
+            rec = (got[2] - ref[2][:, :13]).abs().amax(dim=(0, 2))
+            frac = min(frac, float((rec <= CHAIN_ATOL).double().mean()))
+        rate = abs(float(got[1].mean()) - float(ref[1][:13].mean()))
+        name = f"{ESS}<{'true' if recorded else 'false'}>"
+        print(f"{name} ragged (13 chains, 8 warps a CTA, 3 steps): equal to the first 13 of "
+              f"16 {equal}; {frac:.4f} of chains within {CHAIN_ATOL} of the plain twin, "
+              f"acceptance {float(got[1].mean()):.4f} plain {float(ref[1][:13].mean()):.4f}",
+              flush=True)
+        if not equal or frac < MIN_CHAIN_FRAC or rate > RATE_ATOL:
+            raise AssertionError(f"{name} on a ragged width disagrees")
 
 
 def report_da64(problem, metrics):
@@ -1515,14 +1576,12 @@ PATHS = {
                             f"{DA16}<false>", f"{DA16}<true>")),
     "darcy_pcn_warm": ([], ("darcy_misfit_warm_kernel", "fused_pcn_warm_kernel<false>",
                             "fused_pcn_warm_kernel<true>")),
-    "darcy32_pcn_warm": ([], ("darcy_misfit_warm_kernel", "fused_pcn_warm_kernel<false>",
-                              "fused_pcn_warm_kernel<true>")),
+    "darcy32_pcn_warm": ([], ("darcy_misfit_warm_kernel", f"{PCN32}<false>", f"{PCN32}<true>")),
     "darcy64_pcn_warm": ([], ("darcy_misfit_warm_kernel", f"{PCN64}<false>",
                               f"{PCN64}<true>")),
     "darcy64_da_fused": ([], ("darcy_misfit_kernel[n=64]", "darcy_misfit_kernel[n=32]",
                               f"{DA64}<false>", f"{DA64}<true>")),
-    "darcy_ess_fused": ([], ("darcy_misfit_kernel[n=16]", "fused_ess_kernel<false>",
-                             "fused_ess_kernel<true>")),
+    "darcy_ess_fused": ([], ("darcy_misfit_kernel[n=16]", f"{ESS}<false>", f"{ESS}<true>")),
     "darcy_pcn_4096": (["--fused"], ("darcy_misfit_kernel[n=16]", "fused_pcn_kernel<false>",
                                      "fused_pcn_kernel<true>")),
     "darcy_mala_fused": ([], ("darcy_misfit_grad_kernel[n=16]", "fused_mala_kernel<false>",
@@ -1637,6 +1696,7 @@ def main() -> int:
     check_large_grids(problems, gen, results)
     check_da64(problems["darcy64_da_fused"], gen, results)
     check_cluster(problems)
+    check_ess_warp(problems["darcy_ess_fused"])
     check_gradient_and_ensemble(problems, gen, results)
     check_burgers(problems, gen, results)
     check_linear_family(problems, gen, results)
@@ -1663,10 +1723,10 @@ def main() -> int:
     step_ms = {
         "darcy_da_fused": f"{DA16}<true>",
         "darcy_pcn_warm": "fused_pcn_warm_kernel<true>",
-        "darcy32_pcn_warm": "fused_pcn_warm_kernel<true>",
+        "darcy32_pcn_warm": f"{PCN32}<true>",
         "darcy64_pcn_warm": f"{PCN64}<true>",
         "darcy64_da_fused": f"{DA64}<true>",
-        "darcy_ess_fused": "fused_ess_kernel<true>",
+        "darcy_ess_fused": f"{ESS}<true>",
         "darcy_pcn_4096": "fused_pcn_kernel<true>",
         "darcy_mala_fused": "fused_mala_kernel<true>",
         "darcy_mala_warm": "fused_mala_warm_kernel<true>",

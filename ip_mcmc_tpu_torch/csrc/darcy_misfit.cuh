@@ -34,6 +34,7 @@
 #include <cuda_bf16.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "block_reduce.cuh"
 #include "fused_scaffold.cuh"
@@ -551,11 +552,12 @@ __device__ float darcy_value_and_grad(const IpxMisfitSpec& s, const float* u,
 // dozen floats of CG state per cell in registers (x, r, z, p, Ap, five
 // stencil terms, the inverse diagonal), so their layouts trade cells per
 // thread against the register cap. Their solves wait on L2 (the basis and
-// the modes are re-read by every chain), and measured on the H100
-// (scripts/measure_darcy_layouts.py) the layouts with the most warps per
-// SM win even where they spill: 32 x 32 one cell a thread at 1024 threads
-// (64 registers), 64 x 64 eight cells a thread at 512 threads and 2 CTAs
-// per SM (64 registers, spilling) before 8 x 512 x 1 (128 registers).
+// the modes are re-read by every chain), and measured on the H100 on the
+// one-chain-a-CTA warm pCN kernels (PERF.md; the warm pCN now runs in
+// thread-block clusters above 16 x 16) the layouts with the most warps
+// per SM win even where they spill: 32 x 32 one cell a thread at 1024
+// threads (64 registers), 64 x 64 eight cells a thread at 512 threads and
+// 2 CTAs per SM (64 registers, spilling) before 8 x 512 x 1 (128 registers).
 struct Layout16 {
   static constexpr int kCells = 1, kThreads = 256, kMinCtas = 4;
 };
@@ -796,6 +798,14 @@ __device__ __forceinline__ void load_a_vt(uint32_t (&a)[4], const __nv_bfloat16*
   }
 }
 
+template <int C>
+__device__ __forceinline__ float lane_dot(const float (&a)[C], const float (&b)[C]) {
+  float v = a[0] * b[0];
+#pragma unroll
+  for (int c = 1; c < C; ++c) v += a[c] * b[c];
+  return v;
+}
+
 // One level of the warp-level solve: its spec, its factors, the CTA's
 // exchange and the warp's workspace. N: the grid side (8 or 16); NT: mma
 // tiles of 8 chains the CTA's chains take; MMA: the preconditioner's
@@ -895,6 +905,11 @@ struct WarpLevel {
 #pragma unroll
     for (int c = 0; c < kC; ++c) z[c] = z[c] + xg.back[w * kXBackStride + l + 32 * c];
   }
+
+  // a dot product over the warp's cells: the lane's own sum first
+  __device__ static float dot(const float (&a)[kC], const float (&b)[kC]) {
+    return warp_sum(lane_dot<kC>(a, b));
+  }
 };
 
 // One chain's operator on a warp: what lies in registers (the face terms
@@ -993,16 +1008,9 @@ __device__ WarpOperator<L::kC> darcy_setup_warp(const L& lv, const float* u) {
   return op;
 }
 
-template <int C>
-__device__ __forceinline__ float lane_dot(const float (&a)[C], const float (&b)[C]) {
-  float v = a[0] * b[0];
-#pragma unroll
-  for (int c = 1; c < C; ++c) v += a[c] * b[c];
-  return v;
-}
-
 // darcy_cg (cold) on a warp: fixed-count PCG on A x = b from 0, with the
-// same guards (alpha = 0 when pAp <= 0, beta = 0 when rz <= 0).
+// same guards (alpha = 0 when pAp <= 0, beta = 0 when rz <= 0) and the
+// level's dot products.
 template <class L>
 __device__ void darcy_cg_warp(const L& lv, const WarpOperator<L::kC>& op,
                               const float (&b)[L::kC], float (&x)[L::kC]) {
@@ -1016,10 +1024,10 @@ __device__ void darcy_cg_warp(const L& lv, const WarpOperator<L::kC>& op,
   lv.precond(r, op.inv_diag, z);
 #pragma unroll
   for (int c = 0; c < C; ++c) p[c] = z[c];
-  float rz = warp_sum(lane_dot<C>(r, z));
+  float rz = lv.dot(r, z);
   for (int it = 0; it < lv.s->cg_iters; ++it) {
     apply_operator_warp(lv, op, p, Ap);
-    const float pAp = warp_sum(lane_dot<C>(p, Ap));
+    const float pAp = lv.dot(p, Ap);
     const float alpha = pAp > 0.0f ? rz / pAp : 0.0f;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -1027,7 +1035,7 @@ __device__ void darcy_cg_warp(const L& lv, const WarpOperator<L::kC>& op,
       r[c] = r[c] - alpha * Ap[c];
     }
     lv.precond(r, op.inv_diag, z);
-    const float rz_new = warp_sum(lane_dot<C>(r, z));
+    const float rz_new = lv.dot(r, z);
     const float beta = rz > 0.0f ? rz_new / rz : 0.0f;
 #pragma unroll
     for (int c = 0; c < C; ++c) p[c] = z[c] + beta * p[c];
@@ -1082,6 +1090,203 @@ __device__ float darcy_phi_warp(const L& lv, const float* u) {
   const float phi = 0.5f * warp_sum(acc);
   __syncwarp();
   return phi;
+}
+
+// --- the Jacobi solve on a warp: elliptical slice sampling -------------------
+//
+// With the Jacobi preconditioner (z = D^-1 r) a warp's solve needs no other
+// chain and no CTA barrier, so each warp of fused_ess.cu's kernel runs its
+// own data-dependent number of solves. Two levels give it: WarpJacobiLevel,
+// lane l owning cells l + 32 c as WarpLevel does, its dot products the
+// lane's own cells first and one warp_sum; and WarpSliceLevel, whose dot
+// products add in the order in which block_sum adds on a CTA that holds one
+// cell a thread (darcy_cg), so that its solves give that CTA's bits.
+
+// WarpLevel with modes = 0 at compile time: no exchange, no barrier.
+template <int N, bool SHARED>
+struct WarpJacobiLevel : WarpLevel<N, 1, SHARED, false> {
+  static constexpr int kC = N * N / 32;
+  __device__ void precond(const float (&r)[kC], const float (&inv_diag)[kC],
+                          float (&z)[kC]) const {
+#pragma unroll
+    for (int c = 0; c < kC; ++c) z[c] = inv_diag[c] * r[c];
+  }
+  __device__ float phi(const float* u) const { return darcy_phi_warp<kSolverCg>(*this, u); }
+};
+
+// The 16 x 16 grid in block_sum's order. block_sum over a CTA of 256
+// threads, one cell a thread, adds warp w's cells 32 w + j by warp_sum's
+// butterfly (pairs j ^ 16, then j ^ 8, ^ 4, ^ 2, ^ 1), then 0 + warp 0 + ...
+// + warp 7. Here lane l owns the eight cells 32 (l / 4) + (l % 4) + 4 k of
+// one such slice, k = 0..7: the butterfly's first three levels pair cells
+// of one lane (k ^ 4, ^ 2, ^ 1), so they are adds in registers, and the
+// last two pair lanes l ^ 2, l ^ 1: two shuffles, the same pairs of the
+// same values as block_sum. Lanes 0, 4, ..., 28 then hand the eight slice
+// sums round through the warp's shared memory, and every lane adds them in
+// order. Shared memory holds the cells padded by 4 after every 32 (cell t
+// at t + 4 (t / 32)), so that the 32 lanes' k-th cells, and each of their
+// neighbours, fall in 32 distinct banks; the staged basis likewise.
+template <bool SHARED>
+struct WarpSliceLevel {
+  static constexpr int kN = 16, kCells = 256, kC = 8, kStride = 288, kK = 64;
+  const IpxMisfitSpec* s;
+  const float* basis;  // (64, kStride) staged, padded; else (64, 256) in global memory
+  WarpSmem ws;         // p, th, tv: kStride floats each
+
+  static __device__ __forceinline__ int pad(int t) { return t + 4 * (t >> 5); }
+  // the lane's k-th cell and its padded index
+  static __device__ __forceinline__ int cell(int k) {
+    const int l = threadIdx.x & 31;
+    return 32 * (l >> 2) + (l & 3) + 4 * k;
+  }
+  static __device__ __forceinline__ int at(int k) {
+    const int l = threadIdx.x & 31;
+    return 36 * (l >> 2) + (l & 3) + 4 * k;
+  }
+
+  // Copies the basis of `s` padded to `base` (every thread of the CTA
+  // calls; a barrier must follow before it is read).
+  static __device__ const float* stage(const IpxMisfitSpec& s, float* base) {
+    for (int e = threadIdx.x; e < kK * kCells; e += blockDim.x)
+      base[(e / kCells) * kStride + pad(e % kCells)] = s.basis[e];
+    return base;
+  }
+  static constexpr size_t staged_bytes() { return sizeof(float) * kK * kStride; }
+
+  __device__ void precond(const float (&r)[kC], const float (&inv_diag)[kC],
+                          float (&z)[kC]) const {
+#pragma unroll
+    for (int c = 0; c < kC; ++c) z[c] = inv_diag[c] * r[c];
+  }
+
+  // sum over the warp's cells of a b, in block_sum's order, in every lane
+  // (the products rounded before any add, as block_sum's threads round them)
+  __device__ float dot(const float (&a)[kC], const float (&b)[kC]) const {
+    float v[kC];
+#pragma unroll
+    for (int k = 0; k < kC; ++k) v[k] = __fmul_rn(a[k], b[k]);
+    const float b0 = (v[0] + v[4]) + (v[2] + v[6]), b1 = (v[1] + v[5]) + (v[3] + v[7]);
+    float t = b0 + b1;
+    t += __shfl_xor_sync(0xffffffffu, t, 2);
+    t += __shfl_xor_sync(0xffffffffu, t, 1);  // the slice's warp_sum
+    float* sums = ws.p;  // free: no one reads it between a stencil's reads and the next write
+    const int l = threadIdx.x & 31;
+    if ((l & 3) == 0) sums[l >> 2] = t;
+    __syncwarp();
+    const float4 lo = *reinterpret_cast<const float4*>(sums);
+    const float4 hi = *reinterpret_cast<const float4*>(sums + 4);
+    __syncwarp();  // the reads end before the next write
+    return 0.0f + lo.x + lo.y + lo.z + lo.w + hi.x + hi.y + hi.z + hi.w;
+  }
+
+  // darcy_setup on the lane's cells: the field, the face terms (to ws.th,
+  // ws.tv), the boundary terms and the inverse diagonal (Jacobi: no a_bar).
+  __device__ WarpOperator<kC> setup(const float* u) const {
+    constexpr int n = kN;
+    const float h2 = static_cast<float>(kCells);
+    WarpOperator<kC> op;
+    op.a_bar = 1.0f;
+    float a[kC], acc[kC];
+#pragma unroll
+    for (int k = 0; k < kC; ++k) acc[k] = 0.0f;
+    if constexpr (SHARED) __builtin_assume(__isShared(basis));
+#pragma unroll 8
+    for (int m = 0; m < kK; ++m) {
+      const float um = u[m];
+#pragma unroll
+      for (int k = 0; k < kC; ++k) {
+        const float bv = SHARED ? basis[m * kStride + at(k)] : basis[m * kCells + cell(k)];
+        acc[k] += bv * um;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      a[k] = expf(s->log_a_mean + acc[k]);
+      ws.p[at(k)] = a[k];
+    }
+    __syncwarp();
+    float th[kC], tv[kC];
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      const int t = cell(k), i = t / n, j = t % n, q = at(k);
+      th[k] = 0.0f;
+      tv[k] = 0.0f;
+      if (j < n - 1) {
+        const float ar = ws.p[q + 1];
+        th[k] = 2.0f * a[k] * ar / (a[k] + ar + 1e-38f) * h2;
+      }
+      if (i < n - 1) {
+        const float ad = ws.p[q + (k < 4 ? 16 : 20)];
+        tv[k] = 2.0f * a[k] * ad / (a[k] + ad + 1e-38f) * h2;
+      }
+      ws.th[q] = th[k];
+      ws.tv[q] = tv[k];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      const int t = cell(k), i = t / n, j = t % n, q = at(k);
+      const float th_l = j > 0 ? ws.th[q - 1] : 0.0f;
+      const float tv_u = i > 0 ? ws.tv[q - (k < 4 ? 20 : 16)] : 0.0f;
+      // Dirichlet faces at half-cell distance: 2 h^-2 a per boundary side
+      const float edge = static_cast<float>((i == 0) + (i == n - 1) + (j == 0) + (j == n - 1));
+      op.bnd[k] = 2.0f * h2 * a[k] * edge;
+      op.inv_diag[k] = 1.0f / (th[k] + th_l + tv[k] + tv_u + op.bnd[k]);
+    }
+    return op;
+  }
+
+  // (A p) on the lane's cells, p handed round through ws.p
+  __device__ void stencil(const WarpOperator<kC>& op, const float (&p)[kC],
+                          float (&Ap)[kC]) const {
+    constexpr int n = kN;
+#pragma unroll
+    for (int k = 0; k < kC; ++k) ws.p[at(k)] = p[k];
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      const int t = cell(k), i = t / n, j = t % n, q = at(k);
+      const int down = k < 4 ? 16 : 20, up = k < 4 ? 20 : 16;
+      const float pr = j < n - 1 ? ws.p[q + 1] : 0.0f;
+      const float pd = i < n - 1 ? ws.p[q + down] : 0.0f;
+      const float pl = j > 0 ? ws.p[q - 1] : 0.0f;
+      const float pu = i > 0 ? ws.p[q - up] : 0.0f;
+      const float th_l = j > 0 ? ws.th[q - 1] : 0.0f;
+      const float tv_u = i > 0 ? ws.tv[q - up] : 0.0f;
+      Ap[k] = ws.th[q] * (p[k] - pr) - th_l * (pl - p[k]) + ws.tv[q] * (p[k] - pd) -
+              tv_u * (pu - p[k]) + op.bnd[k] * p[k];
+    }
+    __syncwarp();  // the reads end before the next write to p
+  }
+
+  // Phi(u) for the chain of this warp, as darcy_phi_warp.
+  __device__ float phi(const float* u) const {
+    const WarpOperator<kC> op = setup(u);
+    float b[kC], x[kC];
+#pragma unroll
+    for (int k = 0; k < kC; ++k) b[k] = s->source[cell(k)];
+    darcy_cg_warp(*this, op, b, x);
+#pragma unroll
+    for (int k = 0; k < kC; ++k) ws.p[at(k)] = x[k];
+    __syncwarp();
+    const int l = threadIdx.x & 31;
+    float acc = 0.0f;
+    for (int o = l; o < s->m; o += 32) {
+      const float res = (s->data[o] - ws.p[pad(s->obs[o])]) / s->noise[o];
+      acc += res * res;
+    }
+    const float phi = 0.5f * warp_sum(acc);
+    __syncwarp();
+    return phi;
+  }
+};
+
+// apply_operator_warp on a WarpSliceLevel (darcy_cg_warp's stencil)
+template <bool SHARED>
+__device__ __forceinline__ void apply_operator_warp(const WarpSliceLevel<SHARED>& lv,
+                                                    const WarpOperator<8>& op, const float (&p)[8],
+                                                    float (&Ap)[8]) {
+  lv.stencil(op, p, Ap);
 }
 
 // --- one chain a CTA, G chains a thread-block cluster: the 64 x 64 kernels ----
@@ -1150,52 +1355,82 @@ namespace cg = cooperative_groups;
 // shared memory).
 struct ClusterDesign { static constexpr int kG = 8, kCells = 8, kThreads = 512, kMinCtas = 2; static constexpr bool kSurrMmaCoef = true, kSurrMmaBack = false; };
 
+// The 32 x 32 warm pCN kernel (fused_pcn_warm_cluster32_kernel;
+// scripts/measure_pcn32_cluster_design.py times the alternatives): kG
+// chains (CTAs) a cluster, kCells cells a thread on kThreads threads,
+// kMinCtas CTAs an SM for the launch bound; kResident: which factors each
+// CTA keeps in shared memory for the whole launch (kResidentV: its slices
+// of the modes, a rows slice for V bf16(r) and a columns slice for V^T
+// coef; kResidentBasis: its cells slice of the KL basis), the rest read
+// through L2; kMmaCoef, kMmaBack: V bf16(r) and V^T coef on the tensor
+// cores, else as f32 FMAs on the CUDA cores. Keeping the factors resident
+// fits (two 32 KB slices of V at G = 8) but leaves room for two CTAs an
+// SM; the cluster's chain of barriers runs faster at seven small CTAs an
+// SM with the factors through L2 (PERF.md).
+constexpr int kResidentV = 1, kResidentBasis = 2;
+struct Cluster32Design { static constexpr int kG = 8, kCells = 8, kThreads = 128, kMinCtas = 8, kResident = 0; static constexpr bool kMmaCoef = true, kMmaBack = true; };
+
 // The grids the cluster kernels take, and the largest K (= d) and number
 // of dst_trunc modes (the exact level's; the surrogate's) their shared
-// memory holds.
+// memory holds: the 64 x 64 kernels, and the 32 x 32 warm pCN kernel.
 constexpr int kClusterExactN = 64, kClusterSurrN = 32, kClusterMaxK = 144;
 constexpr int kClusterMaxModes = 256, kClusterSurrMaxModes = 128;
+constexpr int kCluster32N = 32, kCluster32MaxK = 64, kCluster32MaxModes = 128;
 
 // The shared memory of a CTA of the cluster kernels (the same in every CTA,
-// so that a peer's buffer is this CTA's offset mapped to its rank).
-struct ClusterSmem {
-  static constexpr int kCells = kClusterExactN * kClusterExactN, kG = ClusterDesign::kG;
-  static constexpr int kNT = (kG + 7) / 8, kWarps = ClusterDesign::kThreads / 32;
+// so that a peer's buffer is this CTA's offset mapped to its rank), for
+// levels of up to CELLS cells, G chains a cluster on THREADS threads, K up
+// to MAX_K and MAX_MODES dst_trunc modes; after each part of it a region of
+// RES_F32 floats and of RES_BF16 bf16 values that a level keeps for the
+// launch (ClusterRegion32: none in the 64 x 64 kernels).
+template <int CELLS, int G, int THREADS, int MAX_K, int MAX_MODES, int RES_F32 = 0,
+          int RES_BF16 = 0>
+struct ClusterSmemT {
+  static constexpr int kCells = CELLS, kG = G, kMaxK = MAX_K, kMaxModes = MAX_MODES;
+  static constexpr int kNT = (kG + 7) / 8, kWarps = THREADS / 32;
   // f32 offsets
   // [5][cells] a level's per-cell arrays (ClusterLevel::kArr*), each of
-  // the level's cells, packed from the start: the 32 x 32 surrogate leaves
-  // the rest of the region free for its products' staging
+  // the level's cells, packed from the start: the 32 x 32 surrogate of the
+  // 64 x 64 kernels leaves the rest free for its products' staging
   static constexpr int kCellArrays = 0;
   static constexpr int kPart = kCellArrays + 5 * kCells;  // [warps][16][8 NT] partial sums
   static constexpr int kUall = kPart + kWarps * 16 * 8 * kNT;  // [G][K] the cluster's u
-  static constexpr int kState = kUall + kG * kClusterMaxK;     // [3][d] the sampler's state
-  static constexpr int kRed = kState + 3 * kClusterMaxK;       // [32] warp partials
+  static constexpr int kState = kUall + kG * MAX_K;            // [3][d] the sampler's state
+  static constexpr int kRed = kState + 3 * MAX_K;              // [32] warp partials
   static constexpr int kScalar = kRed + 32;                    // [1] broadcast of Phi
   static constexpr int kAbar = kScalar + 1;                    // [1] this chain's a_bar
   static constexpr int kAbarAll = kAbar + 1;                   // [G] the cluster's a_bar
   static constexpr int kLam = kAbarAll + kG;  // [modes] eigenvalues of this CTA's modes slice
-  static constexpr int kF32 = (kLam + kClusterMaxModes + 3) / 4 * 4;  // floats before the bf16 ones
+  static constexpr int kResF32 = (kLam + MAX_MODES + 3) / 4 * 4;  // [RES_F32] the level's region
+  static constexpr int kF32 = (kResF32 + RES_F32 + 3) / 4 * 4;  // floats before the bf16 ones
   // bf16 offsets after the floats
   static constexpr int kRb = 0;                                // [cells] this chain's bf16(r)
-  static constexpr int kCbStride = kClusterMaxModes + 8;       // 4 words mod 32: no bank conflict
+  static constexpr int kCbStride = MAX_MODES + 8;              // 4 words mod 32: no bank conflict
   static constexpr int kCb = kRb + kCells;                     // [G][kCbStride] the coefficients
-  static constexpr int kBytes = 4 * kF32 + 2 * (kCb + kG * kCbStride);
+  static constexpr int kResBf16 = kCb + kG * kCbStride;        // [RES_BF16] the level's region
+  static constexpr int kBytes = 4 * kF32 + 2 * (kResBf16 + RES_BF16);
 };
+
+// The layout of the 64 x 64 kernels.
+using ClusterSmem = ClusterSmemT<kClusterExactN * kClusterExactN, ClusterDesign::kG,
+                                 ClusterDesign::kThreads, kClusterMaxK, kClusterMaxModes>;
 
 extern __shared__ float4 ipx_cluster_smem[];
 
 __device__ __forceinline__ float* cluster_f32(int offset) {
   return reinterpret_cast<float*>(ipx_cluster_smem) + offset;
 }
+template <class Smem>
 __device__ __forceinline__ __nv_bfloat16* cluster_bf16(int offset) {
-  return reinterpret_cast<__nv_bfloat16*>(cluster_f32(ClusterSmem::kF32)) + offset;
+  return reinterpret_cast<__nv_bfloat16*>(cluster_f32(Smem::kF32)) + offset;
 }
 // The misfit workspace inside it (no modes row: the cluster's products
 // keep theirs in the exchange).
 // (darcy_observe reads cell_a, the level's first per-cell array).
+template <class Smem>
 __device__ __forceinline__ MisfitSmem cluster_ws() {
-  return {cluster_f32(ClusterSmem::kCellArrays), nullptr, nullptr,
-          cluster_f32(ClusterSmem::kRed), cluster_f32(ClusterSmem::kScalar)};
+  return {cluster_f32(Smem::kCellArrays), nullptr, nullptr, cluster_f32(Smem::kRed),
+          cluster_f32(Smem::kScalar)};
 }
 
 // D (rows x G) = A (rows x K) B (K x G) for this CTA's `tiles` row tiles of
@@ -1206,11 +1441,11 @@ __device__ __forceinline__ MisfitSmem cluster_ws() {
 // else the W / tiles warps of a tile split its k-steps into chunks, and
 // their partial sums are added in chunk order. Every thread of the CTA
 // calls (a CTA barrier when the k-steps are split).
-template <int G, class MAC, class F>
+template <int G, class Smem, class MAC, class F>
 __device__ void cta_tile_products(int tiles, int ksteps, MAC mac, F finish) {
   constexpr int NT = (G + 7) / 8;
   if (tiles == 0) return;
-  float* part = cluster_f32(ClusterSmem::kPart);
+  float* part = cluster_f32(Smem::kPart);
   const int l = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int g = l >> 2, t = l & 3;
   const bool split = tiles < nw;
@@ -1242,33 +1477,125 @@ __device__ void cta_tile_products(int tiles, int ksteps, MAC mac, F finish) {
   }
 }
 
+// What a level of its own layout (the 32 x 32 warm pCN kernel's) keeps in
+// shared memory for the whole launch, in the layout's regions
+// (ClusterSmemT), by the design's choices: with kResidentV its rows slice
+// of V (the modes of its mode tiles on every cell, rows padded by 32
+// elements so that the 16-byte loads of a quarter warp fall in distinct
+// banks) and its columns slice (every mode on the cells of its slice:
+// [modes][slice + 8], so that the tensor cores' 32-bit loads of a warp
+// fall in distinct banks, or transposed, [slice][modes + 8], as the CUDA
+// cores read it; V^T coef on the CUDA cores keeps that one whatever
+// kResident says); the cluster's bf16(r) when V bf16(r) runs on the CUDA
+// cores; with kResidentBasis its cells slice of the KL basis, [K][slice]
+// f32. The rest is read through L2. NoRegion: the 64 x 64 kernels' levels,
+// whose surrogate stages its columns in the free floats each outer step.
+struct NoRegion {
+  static constexpr bool kV = false, kBasis = false;
+};
+template <int G, bool MMA_COEF, bool MMA_BACK, int RESIDENT>
+struct ClusterRegion32 {
+  static constexpr int kCells = kCluster32N * kCluster32N, kSlice = kCells / G;
+  static constexpr int kModes = kCluster32MaxModes;
+  static constexpr bool kV = RESIDENT & kResidentV, kBasis = RESIDENT & kResidentBasis;
+  static constexpr int kRowStride = kCells + 32, kRows = (kModes / 16 + G - 1) / G * 16;
+  static constexpr int kColStride = MMA_BACK ? kSlice + 8 : kModes + 8;
+  static constexpr int kColRows = MMA_BACK ? kModes : kSlice;
+  static constexpr bool kCols = kV || !MMA_BACK;
+  // bf16 offsets in the region
+  static constexpr int kVRows = 0;
+  static constexpr int kVCols = kVRows + (kV ? kRows * kRowStride : 0);
+  static constexpr int kRAll = kVCols + (kCols ? kColRows * kColStride : 0);
+  static constexpr int kBf16 = kRAll + (MMA_COEF ? 0 : G * kCells);
+  static constexpr int kF32 = kBasis ? kCluster32MaxK * kSlice : 0;  // the basis at f32 offset 0
+};
+
 // One level of the cluster-level solve: an N x N grid on T threads, C cells
 // a thread (every thread owns C cells), G chains a cluster, each of the
 // preconditioner's products (V bf16(r): MMA_COEF; V^T coef: MMA_BACK) on
-// the tensor cores or the CUDA cores, and its spec.
-template <int N, int C, int T, int G, bool MMA_COEF, bool MMA_BACK>
+// the tensor cores or the CUDA cores, its spec, the shared-memory layout
+// SMEM it runs in, and what it keeps there for the launch (REGION).
+template <int N, int C, int T, int G, bool MMA_COEF, bool MMA_BACK, class SMEM = ClusterSmem,
+          class REGION = NoRegion>
 struct ClusterLevel {
+  using Smem = SMEM;
   static constexpr int kN = N, kCells = N * N, kC = C, kG = G;
   static constexpr int kSlice = kCells / G;  // cells of a CTA's slice
+  static constexpr bool kOwnRegion = !std::is_same_v<REGION, NoRegion>;
   static_assert(C * T == kCells, "every thread owns C cells");
   static_assert(kSlice % 16 == 0 && (T % kSlice == 0 || kSlice % T == 0),
                 "a cells slice is whole mma tiles and fits the threads");
-  static_assert(kCells <= ClusterSmem::kCells && G == ClusterSmem::kG, "ClusterSmem holds it");
+  static_assert(kCells <= Smem::kCells && G == Smem::kG, "the layout holds it");
   // the per-cell arrays (f32 offsets): a, the vector the stencil reads, the
   // cluster's V^T coef, x (cell_a); face terms below (cell_b) and right of
   // each cell (th); boundary terms; inverse diagonal; then free floats
-  static constexpr int kArrCellA = ClusterSmem::kCellArrays, kArrCellB = kArrCellA + kCells;
+  static constexpr int kArrCellA = Smem::kCellArrays, kArrCellB = kArrCellA + kCells;
   static constexpr int kArrTh = kArrCellB + kCells, kArrBnd = kArrTh + kCells;
   static constexpr int kArrInv = kArrBnd + kCells, kArrFree = kArrInv + kCells;
-  static constexpr int kFreeFloats = ClusterSmem::kCellArrays + 5 * ClusterSmem::kCells - kArrFree;
+  static constexpr int kFreeFloats = Smem::kCellArrays + 5 * Smem::kCells - kArrFree;
   static constexpr int kMaxModes = N == kClusterExactN ? kClusterMaxModes : kClusterSurrMaxModes;
   // the staged columns of V: a row of modes a cell, padded to 4 words mod
   // 32 so that 8 lanes' 16-byte loads of 8 cells fall in distinct banks
   static constexpr int kVStride = kMaxModes + 8;
   static constexpr int kKlBatch = 16;  // basis loads a thread keeps in flight
-  static_assert(kClusterMaxModes / 16 / G < T / 32, "the mode tiles of V.r split over warps");
-  static_assert(G + kClusterMaxModes / G <= T, "a thread a cluster a_bar or slice eigenvalue");
+  // where the products read V and the KL sums the basis: this CTA's
+  // resident slices, or the global arrays (row strides in elements)
+  static constexpr int kVRowStride = REGION::kV ? kCells + 32 : kCells;
+  static constexpr int kVColStride = REGION::kV ? kSlice + 8 : kCells;
+  static constexpr int kBasisStride = REGION::kBasis ? kSlice : kCells;
+  static_assert(Smem::kMaxModes / 16 / G < T / 32, "the mode tiles of V.r split over warps");
+  static_assert(G + Smem::kMaxModes / G <= T, "a thread a cluster a_bar or slice eigenvalue");
   const IpxMisfitSpec* s;
+
+  __device__ __forceinline__ __nv_bfloat16* region_bf16(int offset) const {
+    return cluster_bf16<Smem>(Smem::kResBf16 + offset);
+  }
+
+  // With a region of its own: copies this CTA's slices of the factors that
+  // the design keeps resident (and, with V^T coef on the CUDA cores, its
+  // columns of V whatever it keeps) into it, 16-byte loads all in flight.
+  // Every thread of the CTA calls once, before the first solve, whose first
+  // cluster barrier orders the copies before their reads.
+  __device__ void stage() const {
+    if constexpr (kOwnRegion) {
+      const int rho = static_cast<int>(cg::this_cluster().block_rank()), c0 = rho * kSlice;
+      const int modes = s->modes;
+      const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(s->V);
+      if constexpr (REGION::kV) {  // rows: the modes of this CTA's mode tiles, every cell
+        const int mtiles = modes / 16, per = (mtiles + G - 1) / G, tile0 = rho * per;
+        const int rows = 16 * max(0, min(per, mtiles - tile0));
+        __nv_bfloat16* vr = region_bf16(REGION::kVRows);
+        for (int e = threadIdx.x; e < rows * (kCells / 8); e += T) {
+          const int m = e / (kCells / 8), c = 8 * (e % (kCells / 8));
+          *reinterpret_cast<uint4*>(vr + m * REGION::kRowStride + c) =
+              *reinterpret_cast<const uint4*>(V + static_cast<size_t>(tile0 * 16 + m) * kCells + c);
+        }
+      }
+      if constexpr (REGION::kCols) {  // columns: every mode on this CTA's cells slice
+        __nv_bfloat16* vc = region_bf16(REGION::kVCols);
+        for (int e = threadIdx.x; e < modes * (kSlice / 8); e += T) {
+          const int m = e / (kSlice / 8), c = 8 * (e % (kSlice / 8));
+          const uint4 q = *reinterpret_cast<const uint4*>(V + static_cast<size_t>(m) * kCells +
+                                                          c0 + c);
+          if constexpr (MMA_BACK) {
+            *reinterpret_cast<uint4*>(vc + m * REGION::kColStride + c) = q;
+          } else {
+            const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&q);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) vc[(c + i) * REGION::kColStride + m] = v[i];
+          }
+        }
+      }
+      if constexpr (REGION::kBasis) {  // this CTA's cells slice of every mode of the basis
+        float* b = cluster_f32(Smem::kResF32);
+        for (int e = threadIdx.x; e < s->K * (kSlice / 4); e += T) {
+          const int k = e / (kSlice / 4), c = 4 * (e % (kSlice / 4));
+          *reinterpret_cast<float4*>(b + k * kSlice + c) =
+              *reinterpret_cast<const float4*>(s->basis + static_cast<size_t>(k) * kCells + c0 + c);
+        }
+      }
+    }
+  }
 
   // a = exp(log_a_mean + basis^T u) on this CTA's cells slice for the
   // cluster's chains, each written to its chain's cell_a; u: this chain's
@@ -1277,14 +1604,16 @@ struct ClusterLevel {
   __device__ void reconstruct(const float* u) const {
     cg::cluster_group cl = cg::this_cluster();
     const int K = s->K, rho = static_cast<int>(cl.block_rank()), tid = threadIdx.x;
-    float* uall = cluster_f32(ClusterSmem::kUall);
+    float* uall = cluster_f32(Smem::kUall);
     float* cell_a = cluster_f32(kArrCellA);
     cl.sync();  // every chain's u is written; the last solve's reads of cell_a are done
     for (int e = tid; e < G * K; e += T) uall[e] = cl.map_shared_rank(u, e / K)[e % K];
     __syncthreads();
-    const float* basis = s->basis;
-    const float mean = s->log_a_mean;
     const int slice0 = rho * kSlice;
+    // basis[k * kBasisStride + cell]: a row of the global basis, or of this
+    // CTA's resident slice (which starts at cell slice0)
+    const float* basis = REGION::kBasis ? cluster_f32(Smem::kResF32) - slice0 : s->basis;
+    const float mean = s->log_a_mean;
     if constexpr (T % kSlice == 0) {  // a cell a thread, the chains ch0, ch0 + R, ...
       constexpr int R = T / kSlice, J = (G + R - 1) / R;
       const int cell = slice0 + tid % kSlice, ch0 = tid / kSlice;
@@ -1295,7 +1624,7 @@ struct ClusterLevel {
         float b[kKlBatch];
 #pragma unroll
         for (int i = 0; i < kKlBatch; ++i)
-          b[i] = k0 + i < K ? basis[static_cast<size_t>(k0 + i) * kCells + cell] : 0.0f;
+          b[i] = k0 + i < K ? basis[static_cast<size_t>(k0 + i) * kBasisStride + cell] : 0.0f;
 #pragma unroll
         for (int i = 0; i < kKlBatch; ++i)
 #pragma unroll
@@ -1315,7 +1644,7 @@ struct ClusterLevel {
           float b[kKlBatch];
 #pragma unroll
           for (int i = 0; i < kKlBatch; ++i)
-            b[i] = k0 + i < K ? basis[static_cast<size_t>(k0 + i) * kCells + cell] : 0.0f;
+            b[i] = k0 + i < K ? basis[static_cast<size_t>(k0 + i) * kBasisStride + cell] : 0.0f;
 #pragma unroll
           for (int i = 0; i < kKlBatch; ++i)
 #pragma unroll
@@ -1335,9 +1664,10 @@ struct ClusterLevel {
   // loads all in flight. They stay there through the level's solves, until
   // a solve of the other level, whose per-cell arrays cover them; every
   // thread of the CTA calls, and a barrier must follow before a solve reads
-  // them (the set-up's first).
+  // them (the set-up's first). A level with a region of its own staged
+  // them there once (stage).
   __device__ void stage_columns() const {
-    if constexpr (!MMA_BACK) {
+    if constexpr (!MMA_BACK && !kOwnRegion) {
       static_assert(2 * kSlice * kVStride <= 4 * kFreeFloats,
                     "the free floats hold the slice's columns of V");
       constexpr int kRow = kSlice / 8;  // 16-byte loads a mode
@@ -1362,11 +1692,11 @@ struct ClusterLevel {
     const int modes = s->modes, rho = static_cast<int>(cl.block_rank());
     const int l = threadIdx.x & 31, g = l >> 2, t = l & 3;
     const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(s->V);
-    constexpr int cbs = ClusterSmem::kCbStride;
-    __nv_bfloat16* rb = cluster_bf16(ClusterSmem::kRb);
-    __nv_bfloat16* cb = cluster_bf16(ClusterSmem::kCb);
+    constexpr int cbs = Smem::kCbStride;
+    __nv_bfloat16* rb = cluster_bf16<Smem>(Smem::kRb);
+    __nv_bfloat16* cb = cluster_bf16<Smem>(Smem::kCb);
     float* back = cluster_f32(kArrCellA);
-    float* abar = cluster_f32(ClusterSmem::kAbarAll);
+    float* abar = cluster_f32(Smem::kAbarAll);
 #pragma unroll
     for (int c = 0; c < C; ++c) rb[own_cell(c)] = __float2bfloat16(r[c]);
     cl.sync();  // every chain's bf16(r) is written (and its a_bar, after its set-up)
@@ -1375,9 +1705,9 @@ struct ClusterLevel {
     // (a CTA holds fewer mode tiles than warps) or of the CUDA-core path
     const int mtiles = modes / 16, per = (mtiles + G - 1) / G;
     const int tile0 = rho * per, tiles = max(0, min(per, mtiles - tile0));
-    float* lam = cluster_f32(ClusterSmem::kLam);
+    float* lam = cluster_f32(Smem::kLam);
     if (threadIdx.x < G)
-      abar[threadIdx.x] = *cl.map_shared_rank(cluster_f32(ClusterSmem::kAbar), threadIdx.x);
+      abar[threadIdx.x] = *cl.map_shared_rank(cluster_f32(Smem::kAbar), threadIdx.x);
     else if (threadIdx.x - G < tiles * 16)
       lam[threadIdx.x - G] = s->lam[tile0 * 16 + threadIdx.x - G];
     // coef[m][ch] = sum_cell V[m][cell] bf16(r)[ch][cell] on modes slice rho
@@ -1391,14 +1721,18 @@ struct ClusterLevel {
       // 8t..8t+7 of the chunk, of V's rows g and g + 8 and of chain g's
       // bf16(r), one 16-byte load each (the sum is over the cells, so their
       // order in the mma's k slots is free: step 0 takes cells 8t..8t+3 in
-      // slots 2t, 2t + 1, 2t + 8, 2t + 9; step 1 cells 8t + 4..8t + 7)
-      cta_tile_products<G>(
+      // slots 2t, 2t + 1, 2t + 8, 2t + 9; step 1 cells 8t + 4..8t + 7).
+      // V's rows: global, or the resident rows of this CTA's tiles
+      cta_tile_products<G, Smem>(
           tiles, kCells / 32,
           [&](float(&acc)[(G + 7) / 8][4], int tile, int k) {
-            const __nv_bfloat16* row = V + static_cast<size_t>((tile0 + tile) * 16 + g) * kCells +
-                                       k * 32 + 8 * t;
+            const __nv_bfloat16* row;
+            if constexpr (REGION::kV)
+              row = region_bf16(REGION::kVRows) + (tile * 16 + g) * kVRowStride + k * 32 + 8 * t;
+            else
+              row = V + static_cast<size_t>((tile0 + tile) * 16 + g) * kCells + k * 32 + 8 * t;
             const uint4 lo = *reinterpret_cast<const uint4*>(row);
-            const uint4 hi = *reinterpret_cast<const uint4*>(row + 8 * kCells);
+            const uint4 hi = *reinterpret_cast<const uint4*>(row + 8 * kVRowStride);
             const uint32_t a0[4] = {lo.x, hi.x, lo.y, hi.y}, a1[4] = {lo.z, hi.z, lo.w, hi.w};
 #pragma unroll
             for (int nt = 0; nt < (G + 7) / 8; ++nt) {
@@ -1416,18 +1750,25 @@ struct ClusterLevel {
       // columns of V), then a warp a mode of the slice: lane l sums, for
       // every chain, cells 8 l..8 l + 7 of each block of 256 in order
       // (16-byte loads), the blocks in order, then a warp sum: f32 FMAs on
-      // the CUDA cores
-      static_assert(2 * G * kCells + (MMA_BACK ? 0 : 2 * kSlice * kVStride) <= 4 * kFreeFloats,
+      // the CUDA cores (a level with a region of its own keeps the cluster's
+      // r there)
+      static_assert(kOwnRegion ||
+                        2 * G * kCells + (MMA_BACK ? 0 : 2 * kSlice * kVStride) <= 4 * kFreeFloats,
                     "the free floats hold the cluster's r");
-      uint4* rb_all = reinterpret_cast<uint4*>(
-          cluster_f32(kArrFree + (MMA_BACK ? 0 : kSlice * kVStride / 2)));
+      uint4* rb_all;
+      if constexpr (kOwnRegion) rb_all = reinterpret_cast<uint4*>(region_bf16(REGION::kRAll));
+      else
+        rb_all = reinterpret_cast<uint4*>(
+            cluster_f32(kArrFree + (MMA_BACK ? 0 : kSlice * kVStride / 2)));
       for (int e = threadIdx.x; e < G * kCells / 8; e += blockDim.x)
         rb_all[e] = reinterpret_cast<const uint4*>(cl.map_shared_rank(rb, e / (kCells / 8)))[
             e % (kCells / 8)];
       __syncthreads();  // the cluster's r, a_bar and the eigenvalues
       const int w = threadIdx.x >> 5, nw = blockDim.x >> 5;
       for (int mi = w; mi < tiles * 16; mi += nw) {
-        const __nv_bfloat16* row = V + static_cast<size_t>(tile0 * 16 + mi) * kCells;
+        const __nv_bfloat16* row =
+            REGION::kV ? region_bf16(REGION::kVRows) + mi * kVRowStride
+                       : V + static_cast<size_t>(tile0 * 16 + mi) * kCells;
         float acc[G];
 #pragma unroll
         for (int ch = 0; ch < G; ++ch) acc[ch] = 0.0f;
@@ -1461,14 +1802,18 @@ struct ClusterLevel {
       // g), 1, 3, ..., 15 (rows g + 8), so that lane (g, t) reads cells
       // 2g, 2g + 1 of a mode's row in one 32-bit word and a warp's load
       // covers 32 contiguous bytes of four rows of V; a byte permute pairs
-      // the two modes of one cell
-      cta_tile_products<G>(
+      // the two modes of one cell. V's columns: global, or this CTA's
+      // resident ones
+      cta_tile_products<G, Smem>(
           kSlice / 16, modes / 16,
           [&](float(&acc)[(G + 7) / 8][4], int tile, int k) {
-            const __nv_bfloat16* p =
-                V + static_cast<size_t>(k * 16 + 2 * t) * kCells + c0 + tile * 16 + 2 * g;
-            const uint32_t w0 = ld_pair(p), w1 = ld_pair(p + kCells);
-            const uint32_t w2 = ld_pair(p + 8 * kCells), w3 = ld_pair(p + 9 * kCells);
+            const __nv_bfloat16* p;
+            if constexpr (REGION::kV)
+              p = region_bf16(REGION::kVCols) + (k * 16 + 2 * t) * kVColStride + tile * 16 + 2 * g;
+            else
+              p = V + static_cast<size_t>(k * 16 + 2 * t) * kCells + c0 + tile * 16 + 2 * g;
+            const uint32_t w0 = ld_pair(p), w1 = ld_pair(p + kVColStride);
+            const uint32_t w2 = ld_pair(p + 8 * kVColStride), w3 = ld_pair(p + 9 * kVColStride);
             const uint32_t a[4] = {__byte_perm(w0, w1, 0x5410), __byte_perm(w0, w1, 0x7632),
                                    __byte_perm(w2, w3, 0x5410), __byte_perm(w2, w3, 0x7632)};
 #pragma unroll
@@ -1483,10 +1828,12 @@ struct ClusterLevel {
       // a thread a cell of the slice and the chains q, q + R, ...: f32
       // FMAs on the CUDA cores over the modes in ascending order, the order
       // of a plain f32 product, from the slice's columns of V staged by
-      // stage_columns (the tensor cores sum V^T coef, an f32 term of z, in
-      // another order, and part more chains from the plain twin)
+      // stage_columns or stage (the tensor cores sum V^T coef, an f32 term
+      // of z, in another order, and part more chains from the plain twin)
       constexpr int R = T >= kSlice ? T / kSlice : 1, J = (G + R - 1) / R;
-      const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(cluster_f32(kArrFree));
+      const __nv_bfloat16* vs;
+      if constexpr (kOwnRegion) vs = region_bf16(REGION::kVCols);
+      else vs = reinterpret_cast<const __nv_bfloat16*>(cluster_f32(kArrFree));
       for (int e = threadIdx.x; e < kSlice * R; e += blockDim.x) {
         const int cell = e % kSlice, q = e / kSlice;
         float acc[J];
@@ -1562,9 +1909,9 @@ __device__ void darcy_setup_cluster(const L& lv, const float* u) {
     cluster_f32(L::kArrInv)[t] = 1.0f / (th[c] + th_l + tv[c] + tv_u + bnd);
     log_a[c] = logf(a[c]);
   }
-  const float a_bar = expf(block_sum(cells_sum<C>(log_a), cluster_f32(ClusterSmem::kRed)) / h2);
+  const float a_bar = expf(block_sum(cells_sum<C>(log_a), cluster_f32(L::Smem::kRed)) / h2);
   // read by the cluster after the next cluster barrier
-  if (threadIdx.x == 0) *cluster_f32(ClusterSmem::kAbar) = a_bar;
+  if (threadIdx.x == 0) *cluster_f32(L::Smem::kAbar) = a_bar;
 }
 
 // apply_operator on a cluster level: (A p) on this thread's cells, p
@@ -1601,7 +1948,7 @@ __device__ __forceinline__ void apply_operator_cluster(const float (&p)[L::kC],
 template <bool WARM, class L>
 __device__ void darcy_cg_cluster(const L& lv, const float (&b)[L::kC], float (&x)[L::kC]) {
   constexpr int C = L::kC;
-  float* red = cluster_f32(ClusterSmem::kRed);
+  float* red = cluster_f32(L::Smem::kRed);
   float r[C], z[C], p[C], Ap[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) r[c] = b[c];
@@ -1651,44 +1998,7 @@ __device__ float darcy_solve_cluster(const L& lv, const float* u, float (&x)[L::
     own[c] = true;
   }
   darcy_cg_cluster<WARM>(lv, b, x);
-  return darcy_observe<C>(*lv.s, x, own, cluster_ws(), nullptr);
-}
-
-// The launch of a cluster kernel: chains (CTAs) a cluster, clusters, CTAs
-// (a multiple of G: the spare CTAs of a ragged last cluster run on zeros)
-// and dynamic shared memory.
-struct ClusterGeometry {
-  int g, clusters, ctas;
-  size_t smem;
-};
-
-// A level the cluster kernels take: an n x n grid, K = d up to
-// kClusterMaxK, dst_trunc with a multiple of 16 modes up to the cells and
-// max_modes, solved by CG.
-inline bool cluster_level_ok(const IpxMisfitSpec& s, int n, int d, int max_modes) {
-  return s.n == n && s.K == d && s.K <= kClusterMaxK && s.precond == kPrecondDstTrunc &&
-         s.modes > 0 && s.modes % 16 == 0 && s.modes <= n * n && s.modes <= max_modes &&
-         s.solver == kSolverCg && s.m >= 0;
-}
-
-// Mirrored by ip_mcmc_tpu_torch/ops/_cluster.py cluster_geometry. surr:
-// null for the warm pCN kernel (one level). G is the design's kG whatever
-// block_chains: a CTA runs chain blockIdx.x with the seed and lane of
-// run_chain, so the chains of a cluster need not share an RNG block.
-inline int cluster_geometry(const IpxMisfitSpec& exact, const IpxMisfitSpec* surr,
-                            const IpxChainArgs& chain, ClusterGeometry* geo) {
-  if (!cluster_level_ok(exact, kClusterExactN, chain.d, kClusterMaxModes) ||
-      (surr != nullptr &&
-       !cluster_level_ok(*surr, kClusterSurrN, chain.d, kClusterSurrMaxModes)))
-    return cudaErrorNotSupported;
-  if (chain.block_chains <= 0 || chain.n < 0 || chain.n_steps < 0 ||
-      (chain.samples != nullptr && chain.thin <= 0))
-    return cudaErrorInvalidValue;
-  geo->g = ClusterDesign::kG;
-  geo->clusters = (chain.n + geo->g - 1) / geo->g;
-  geo->ctas = geo->clusters * geo->g;
-  geo->smem = ClusterSmem::kBytes;
-  return geo->smem <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
+  return darcy_observe<C>(*lv.s, x, own, cluster_ws<typename L::Smem>(), nullptr);
 }
 
 // The two levels of the 64 x 64 kernels on the design's threads: the
@@ -1701,7 +2011,64 @@ using ClusterSurr = ClusterLevel<kClusterSurrN, kClusterSurrC, ClusterDesign::kT
                                  ClusterDesign::kG, ClusterDesign::kSurrMmaCoef,
                                  ClusterDesign::kSurrMmaBack>;
 
-// Launches kernel<<<geo>>> in clusters of geo.g CTAs of the design's
+// The level of the 32 x 32 warm pCN kernel, in a layout of its own sized
+// for 32 x 32 cells, K up to 64 and 128 modes, with the region of the
+// factors its design keeps resident.
+using Cluster32Region = ClusterRegion32<Cluster32Design::kG, Cluster32Design::kMmaCoef,
+                                        Cluster32Design::kMmaBack, Cluster32Design::kResident>;
+using Cluster32Smem =
+    ClusterSmemT<kCluster32N * kCluster32N, Cluster32Design::kG, Cluster32Design::kThreads,
+                 kCluster32MaxK, kCluster32MaxModes, Cluster32Region::kF32, Cluster32Region::kBf16>;
+using Cluster32Exact =
+    ClusterLevel<kCluster32N, Cluster32Design::kCells, Cluster32Design::kThreads,
+                 Cluster32Design::kG, Cluster32Design::kMmaCoef, Cluster32Design::kMmaBack,
+                 Cluster32Smem, Cluster32Region>;
+
+// The launch of a cluster kernel: chains (CTAs) a cluster, clusters, CTAs
+// (a multiple of G: the spare CTAs of a ragged last cluster run on zeros),
+// threads a CTA and dynamic shared memory.
+struct ClusterGeometry {
+  int g, clusters, ctas, threads;
+  size_t smem;
+};
+
+// A level the cluster kernels take: an n x n grid, K = d up to max_k,
+// dst_trunc with a multiple of 16 modes up to the cells and max_modes,
+// solved by CG.
+inline bool cluster_level_ok(const IpxMisfitSpec& s, int n, int d, int max_modes,
+                             int max_k = kClusterMaxK) {
+  return s.n == n && s.K == d && s.K <= max_k && s.precond == kPrecondDstTrunc &&
+         s.modes > 0 && s.modes % 16 == 0 && s.modes <= n * n && s.modes <= max_modes &&
+         s.solver == kSolverCg && s.m >= 0;
+}
+
+// Mirrored by ip_mcmc_tpu_torch/ops/_cluster.py cluster_geometry: the 64 x 64
+// kernels (surr: null for the warm pCN kernel, one level) and, for a 32 x 32
+// exact level with no surrogate, the 32 x 32 warm pCN kernel. G is the
+// design's kG whatever block_chains: a CTA runs chain blockIdx.x with the
+// seed and lane of run_chain, so the chains of a cluster need not share an
+// RNG block.
+inline int cluster_geometry(const IpxMisfitSpec& exact, const IpxMisfitSpec* surr,
+                            const IpxChainArgs& chain, ClusterGeometry* geo) {
+  const bool n32 = exact.n == kCluster32N;
+  if (n32 ? surr != nullptr ||
+                !cluster_level_ok(exact, kCluster32N, chain.d, kCluster32MaxModes, kCluster32MaxK)
+          : !cluster_level_ok(exact, kClusterExactN, chain.d, kClusterMaxModes) ||
+                (surr != nullptr &&
+                 !cluster_level_ok(*surr, kClusterSurrN, chain.d, kClusterSurrMaxModes)))
+    return cudaErrorNotSupported;
+  if (chain.block_chains <= 0 || chain.n < 0 || chain.n_steps < 0 ||
+      (chain.samples != nullptr && chain.thin <= 0))
+    return cudaErrorInvalidValue;
+  geo->g = n32 ? Cluster32Design::kG : ClusterDesign::kG;
+  geo->clusters = (chain.n + geo->g - 1) / geo->g;
+  geo->ctas = geo->clusters * geo->g;
+  geo->threads = n32 ? Cluster32Design::kThreads : ClusterDesign::kThreads;
+  geo->smem = n32 ? Cluster32Smem::kBytes : ClusterSmem::kBytes;
+  return geo->smem <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Launches kernel<<<geo>>> in clusters of geo.g CTAs of geo.threads
 // threads (cudaLaunchKernelEx), after checking that such a cluster fits on
 // the card; the status of the launch or of the check.
 template <class... Args>
@@ -1719,7 +2086,7 @@ int launch_cluster(void (*kernel)(Args...), const ClusterGeometry& geo, void* st
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(geo.ctas);
-  cfg.blockDim = dim3(ClusterDesign::kThreads);
+  cfg.blockDim = dim3(geo.threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;

@@ -584,7 +584,7 @@ int ipx_da_pcn_warp_geometry(const IpxMisfitSpec* exact, const IpxMisfitSpec* su
 // checked against this on the card).
 int ipx_darcy_cluster_geometry(const IpxMisfitSpec* exact, const IpxMisfitSpec* surr,
                                const IpxChainArgs* chain, int* out) {
-  ipx::ClusterGeometry geo{0, 0, 0, 0};
+  ipx::ClusterGeometry geo{0, 0, 0, 0, 0};
   const int status = ipx::cluster_geometry(*exact, surr, *chain, &geo);
   out[0] = geo.g;
   out[1] = geo.clusters;

@@ -4,32 +4,87 @@
 // instantiated by fused_ess_chain (l.1250) / fused_ess_chain_recorded
 // (l.1282) with _make_ess_step_builder (K8, l.680).
 //
-//   fused_ess_kernel<RECORD>  per step: nu ~ N(0, scale^2), a slice level
-//                             log y = -Phi + log u, an angle theta on a
-//                             bracket that shrinks towards 0, at most
-//                             max_shrink misfit evaluations.
+//   fused_ess_warp_kernel<RECORD>  per step: nu ~ N(0, scale^2), a slice
+//                                  level log y = -Phi + log u, an angle
+//                                  theta on a bracket that shrinks towards
+//                                  0, at most max_shrink misfit evaluations.
 //
 // The Pallas kernel pays max_shrink batched evaluations per step behind
 // per-chain done masks, because its chains share lanes. Here a chain is a
-// CTA, so a chain that is done leaves the shrink loop: the masked
+// warp, so a chain that is done leaves the shrink loop: the masked
 // evaluations change nothing and the counter RNG needs no draws consumed.
 // A chain that exhausts the budget stays put (not accepted).
 //
 // Tags: nu 0 (keys 0, 1), log_y uniform 2, theta uniform 4, shrink draw k
 // 16 + k. Accept when -Phi' > log y, so a NaN Phi' never accepts.
 //
-// Layout and scaffold: fused_scaffold.cuh. What bounds it on the H100: the
-// cold Darcy solves (see fused_pcn.cu), as many per step as the slice
-// needs.
+// What bounds it on the H100: the cold Darcy solves (16 x 16, Jacobi, 48
+// CG), 4.5 a step on average, each ~0.3 M multiply-adds but ~100 dependent
+// dot products. One chain a CTA of 256 threads (the first design, 1.83 ms a
+// step at 4096 chains) paid three CTA barriers a CG iteration, two of them
+// block reductions, at 4 CTAs an SM. So the kernel runs one chain a warp
+// on fused_scaffold.cuh's run_warp_chain: lane l owns cells l, l + 32, ...
+// (8 of them) and coordinates l, l + 32 of d = 64; the dot products are
+// shuffles, the stencil reads the warp's own shared memory after
+// __syncwarp, and the Jacobi preconditioner needs no other chain
+// (WarpJacobiLevel in darcy_misfit.cuh), so each warp runs its own shrink
+// loop and nothing makes the warps of a CTA step together. Its dot
+// products keep block_sum's order (slices_sum), so that the chains take the
+// bits of the one-chain-a-CTA kernel. The design is the line
+// EssWarpDesign (scripts/measure_ess_warp_design.py times the alternatives,
+// PERF.md the numbers).
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "darcy_misfit.cuh"
 #include "fused_scaffold.cuh"
 
 namespace ipx {
+
+// The design: kWarps chains a CTA at most, one a warp; the launch bound's
+// warps an SM (kSmWarps: 32 caps a thread at 65536 / 1024 = 64 registers,
+// 24 at 80, 16 at 128); the KL basis staged in shared memory once a CTA
+// (kBasisStaged, else read through L2); the dot products in block_sum's
+// order (kOrderedSums, else the lane's own cells first).
+struct EssWarpDesign { static constexpr int kWarps = 16, kSmWarps = 16; static constexpr bool kBasisStaged = true, kOrderedSums = true; };
+constexpr int kEssWarpMinCtas = EssWarpDesign::kSmWarps >= 2 * EssWarpDesign::kWarps
+                                    ? EssWarpDesign::kSmWarps / EssWarpDesign::kWarps
+                                    : 1;
+constexpr int kEssN = 16, kEssD = 64;
+// The level: the dot products in block_sum's order (WarpSliceLevel), or
+// the lane's own cells first (WarpJacobiLevel).
+using EssLevel = std::conditional_t<EssWarpDesign::kOrderedSums,
+                                    WarpSliceLevel<EssWarpDesign::kBasisStaged>,
+                                    WarpJacobiLevel<kEssN, EssWarpDesign::kBasisStaged>>;
+// a warp's slice: pos, prop (64 each), then p, th, tv (the level's cells,
+// padded or not); before the slices, every warp's a_bar (32 floats, what
+// darcy_setup_warp writes), and before that the staged basis
+constexpr int kEssStride =
+    EssWarpDesign::kOrderedSums ? WarpSliceLevel<true>::kStride : kEssN * kEssN;
+constexpr int kEssWarpFloats = 2 * kEssD + 3 * kEssStride, kEssAbarBytes = 4 * 32;
+
+// Bytes of the staged basis of `s` (0 when read through L2).
+__host__ __device__ inline size_t ess_basis_bytes(const IpxMisfitSpec& s) {
+  if (!EssWarpDesign::kBasisStaged) return 0;
+  return EssWarpDesign::kOrderedSums ? WarpSliceLevel<true>::staged_bytes() : warp_staged_bytes(s);
+}
+
+// The level on the spec `s`, its basis staged at `staged` when the design
+// says (every thread of the CTA calls; a barrier must follow), the warp's
+// workspace ws and the CTA's a_bar row.
+template <class L>
+__device__ L ess_level(const IpxMisfitSpec& s, float* staged, float* abar, const WarpSmem& ws) {
+  constexpr bool kStaged = EssWarpDesign::kBasisStaged;
+  if constexpr (EssWarpDesign::kOrderedSums) {
+    return L{&s, kStaged ? L::stage(s, staged) : s.basis, ws};
+  } else {
+    const auto f = level_factors<kStaged>(s, reinterpret_cast<unsigned char*>(staged));
+    return L{{&s, f, {nullptr, nullptr, nullptr, abar}, ws}};
+  }
+}
 
 struct EssArgs {
   IpxMisfitSpec pot;
@@ -38,50 +93,90 @@ struct EssArgs {
   int max_shrink;
 };
 
-struct EssStep {
+// K8 on a warp: the lane holds coordinates l and l + 32 of pos and prop.
+struct EssWarpStep {
   const EssArgs& a;
+  EssLevel lv;
   float* pos;
   float* prop;
-  MisfitSmem ws;
   float phi;
 
-  __device__ void init(const ChainCtx& c) { phi = a.phi0[c.c]; }
+  __device__ void init(const WarpChainCtx& x) { phi = x.live ? a.phi0[x.c] : 0.0f; }
 
-  __device__ bool step(const ChainCtx& c, uint32_t i) {
-    float nu = 0.0f, centered = 0.0f;
-    if (c.own) {
-      nu = c.scale_t * c.normal(i, 0u);
-      centered = pos[c.t] - c.mean_t;
+  __device__ bool step(const WarpChainCtx& x, uint32_t i) {
+    const int l = threadIdx.x & 31;
+    float nu[2], centered[2];
+    x.normal2(i, 0u, nu);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      nu[h] = x.scale[h] * nu[h];
+      centered[h] = pos[l + 32 * h] - x.mean[h];
     }
-    const float log_y = -phi + logf(c.uniform(i, 2u));
-    float theta = kTwoPi * c.uniform(i, 4u);
+    const float log_y = -phi + logf(x.uniform(i, 2u));
+    float theta = kTwoPi * x.uniform(i, 4u);
     float lo = theta - kTwoPi, hi = theta;
     for (int k = 0; k < a.max_shrink; ++k) {
-      if (c.own) prop[c.t] = centered * cosf(theta) + nu * sinf(theta) + c.mean_t;
-      __syncthreads();
-      const float phi_prop = darcy_phi(a.pot, prop, ws);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        prop[l + 32 * h] = centered[h] * cosf(theta) + nu[h] * sinf(theta) + x.mean[h];
+      __syncwarp();
+      const float phi_prop = lv.phi(prop);
       if (-phi_prop > log_y) {
         phi = phi_prop;
-        if (c.own) pos[c.t] = prop[c.t];
+        pos[l] = prop[l];
+        pos[l + 32] = prop[l + 32];
         return true;
       }
       // shrink the bracket towards 0
       if (theta >= 0.0f) hi = theta;
       else lo = theta;
-      theta = lo + (hi - lo) * c.uniform(i, 16u + static_cast<uint32_t>(k));
+      theta = lo + (hi - lo) * x.uniform(i, 16u + static_cast<uint32_t>(k));
     }
     return false;
   }
 };
 
 template <bool RECORD>
-__global__ void __launch_bounds__(kFusedThreads, 4) fused_ess_kernel(EssArgs a) {
-  extern __shared__ float smem[];
-  float* pos = smem;
-  float* prop = pos + a.chain.d;
-  const int cells = a.pot.n * a.pot.n;
-  EssStep step{a, pos, prop, carve_misfit_smem(prop + a.chain.d, cells, a.pot.modes), 0.0f};
-  run_chain<RECORD>(a.chain, step, pos);
+__global__ void __launch_bounds__(32 * EssWarpDesign::kWarps, kEssWarpMinCtas)
+    fused_ess_warp_kernel(const __grid_constant__ EssArgs a) {
+  extern __shared__ float4 ess_warp_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(ess_warp_smem);
+  float* staged = reinterpret_cast<float*>(base);
+  base += ess_basis_bytes(a.pot);
+  float* abar = reinterpret_cast<float*>(base);
+  float* w =
+      reinterpret_cast<float*>(base + kEssAbarBytes) + (threadIdx.x >> 5) * kEssWarpFloats;
+  const WarpSmem ws{w + 2 * kEssD, w + 2 * kEssD + kEssStride, w + 2 * kEssD + 2 * kEssStride};
+  const EssLevel lv = ess_level<EssLevel>(a.pot, staged, abar, ws);
+  if (EssWarpDesign::kBasisStaged) __syncthreads();  // the staged basis
+  EssWarpStep step{a, lv, w, w + kEssD, 0.0f};
+  run_warp_chain<RECORD>(a.chain, step, w);
+}
+
+// What a launch takes: warps (chains) a CTA, CTAs, dynamic shared memory.
+struct EssWarpGeometry {
+  int warps, ctas;
+  size_t smem;
+};
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_ess.py warp_geometry: a 16 x 16
+// Jacobi CG misfit with d = K = 64 (else cudaErrorNotSupported). W: the
+// largest power of two up to kWarps that divides block_chains; a ragged
+// last CTA runs spare warps.
+inline int ess_warp_geometry(const IpxMisfitSpec& s, const IpxChainArgs& chain, int max_shrink,
+                             EssWarpGeometry* geo) {
+  if (s.n != kEssN || s.K != kEssD || chain.d != kEssD || s.precond != kPrecondJacobi ||
+      s.modes != 0 || s.solver != kSolverCg || s.m < 0)
+    return cudaErrorNotSupported;
+  if (chain.block_chains <= 0 || chain.n < 0 || chain.n_steps < 0 || max_shrink < 0 ||
+      (chain.samples != nullptr && chain.thin <= 0))
+    return cudaErrorInvalidValue;
+  int w = EssWarpDesign::kWarps;
+  while (chain.block_chains % w) w /= 2;
+  geo->warps = w;
+  geo->ctas = (chain.n + w - 1) / w;
+  geo->smem = ess_basis_bytes(s) + kEssAbarBytes + sizeof(float) * kEssWarpFloats * w;
+  return geo->smem <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace ipx
@@ -90,16 +185,37 @@ extern "C" {
 
 int ipx_fused_ess(const IpxMisfitSpec* pot, const IpxChainArgs* chain, const float* phi0,
                   int max_shrink, void* stream) {
-  const int cells = pot->n * pot->n;
-  const int threads = ipx::chain_threads(*chain, cells, pot->K);
-  if (threads == 0 || max_shrink < 0 || pot->solver != kSolverCg) return cudaErrorInvalidValue;
+  ipx::EssWarpGeometry geo;
+  const int status = ipx::ess_warp_geometry(*pot, *chain, max_shrink, &geo);
+  if (status != cudaSuccess) return status;
   if (chain->n == 0) return cudaSuccess;
   const ipx::EssArgs a{*pot, *chain, phi0, max_shrink};
-  const size_t smem = sizeof(float) * (2 * chain->d + ipx::misfit_smem_floats(cells, pot->modes));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (chain->samples != nullptr) ipx::fused_ess_kernel<true><<<chain->n, threads, smem, st>>>(a);
-  else ipx::fused_ess_kernel<false><<<chain->n, threads, smem, st>>>(a);
+  const int threads = 32 * geo.warps, smem = static_cast<int>(geo.smem);
+  if (chain->samples != nullptr) {
+    cudaFuncSetAttribute(ipx::fused_ess_warp_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    ipx::fused_ess_warp_kernel<true><<<geo.ctas, threads, smem, st>>>(a);
+  } else {
+    cudaFuncSetAttribute(ipx::fused_ess_warp_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    ipx::fused_ess_warp_kernel<false><<<geo.ctas, threads, smem, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel's launch geometry for this spec and these chain arguments:
+// out = {chains a CTA, CTAs, dynamic shared-memory bytes}; the status the
+// launch would return for them (the wrapper's mirror is checked against
+// this on the card).
+int ipx_ess_warp_geometry(const IpxMisfitSpec* pot, const IpxChainArgs* chain, int max_shrink,
+                          int* out) {
+  ipx::EssWarpGeometry geo{0, 0, 0};
+  const int status = ipx::ess_warp_geometry(*pot, *chain, max_shrink, &geo);
+  out[0] = geo.warps;
+  out[1] = geo.ctas;
+  out[2] = static_cast<int>(geo.smem);
+  return status;
 }
 
 }  // extern "C"

@@ -13,18 +13,22 @@
 //                                  potential is a type: DarcyPot (Phi from
 //                                  x = 0) or BurgersPotential (K12,
 //                                  burgers_misfit.cuh).
-//   fused_pcn_warm_cluster_kernel<RECORD>  the same on 64 x 64, G chains
-//                                  a thread-block cluster.
 //   fused_pcn_warm_kernel<Pot, RECORD>  pCN carrying each chain's CG
 //                                  solution: each thread keeps its cells of
 //                                  the accepted x in registers, the
 //                                  proposal's solve starts from them, and x
-//                                  follows the MH select.
+//                                  follows the MH select (up to 16 x 16).
+//   fused_pcn_warm_cluster_kernel<RECORD>  the same on 64 x 64, G chains
+//                                  a thread-block cluster.
+//   fused_pcn_warm_cluster32_kernel<RECORD>  the same on 32 x 32, the
+//                                  factors' slices resident in the
+//                                  cluster's shared memory.
 //
 // Layout and scaffold: fused_scaffold.cuh (one CTA per chain) and the
 // Darcy layouts of darcy_misfit.cuh: up to 16 x 16 one thread per cell; the
-// 32 x 32 and 64 x 64 grids (darcy32_pcn_warm, darcy64_pcn_warm) several
-// cells per thread, picked from the spec's grid at launch. Phi (and x) at
+// 32 x 32 and 64 x 64 grids (the cold misfit and cold pCN; the warm ones
+// run in clusters) several cells per thread, picked from the spec's grid at
+// launch. Phi (and x) at
 // the start positions come in from the standalone misfit kernels. Tags:
 // normals 0 (keys 0, 1), MH uniform 2.
 //
@@ -39,11 +43,20 @@
 // reads ~22 MB from L2 there (the basis once, V twice in each of five
 // preconditioner applies) and L2 bandwidth bounds the step. This first
 // design keeps the factors in global memory and one chain per CTA: no
-// staging, no wgmma, no TMA. At 64 x 64 the warm kernel is the cluster
-// kernel fused_pcn_warm_cluster_kernel: the G chains of a thread-block
-// cluster share each read of the factors and run the preconditioner's
-// products on the tensor cores (ClusterLevel in darcy_misfit.cuh, the
-// design ClusterDesign, as in fused_da_pcn.cu's 64 x 64 DA kernel).
+// staging, no wgmma, no TMA. Above 16 x 16 the warm kernels run in
+// thread-block clusters: the G chains of a cluster share each read of the
+// factors and run the preconditioner's products on the tensor cores
+// (ClusterLevel in darcy_misfit.cuh). At 64 x 64 (design ClusterDesign, as
+// in fused_da_pcn.cu's 64 x 64 DA kernel) the factors stay in L2. At
+// 32 x 32 (darcy32_pcn_warm, design Cluster32Design) one chain a CTA read
+// ~2.8 MB of factors from L2 a step (the basis once, V twice in each of
+// five applies), ~11.5 GB a step at 4096 chains, and took 2.32 ms. There a
+// CTA's slices of the modes (two of 32 KB at G = 8) fit in its shared
+// memory for the launch, but then only two CTAs fit an SM; measured on the
+// H100 (scripts/measure_pcn32_cluster_design.py, PERF.md) the cluster's
+// phases wait on latency more than on L2, and the smallest CTA wins: 8
+// cells a thread on 128 threads, 7 CTAs an SM, the factors read through L2
+// (0.56 ms; resident at 2 CTAs an SM 0.80-0.85).
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -186,15 +199,17 @@ __global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
   pcn_chain<Pot, RECORD, true>(a);
 }
 
-// K7 on a CTA of a thread-block cluster (the 64 x 64 grid): PcnStep<Pot,
-// true>'s step with the cluster-level solve (darcy_misfit.cuh
-// ClusterLevel). Each thread keeps its cells of the accepted x in
-// registers; every CTA makes one warm solve a step whatever it accepts, so
-// the cluster's barriers line up; a spare CTA (not live) runs on zeros.
+// K7 on a CTA of a thread-block cluster (the 64 x 64 and 32 x 32 grids):
+// PcnStep<Pot, true>'s step with the cluster-level solve on the level L
+// (darcy_misfit.cuh ClusterLevel). Each thread keeps its cells of the
+// accepted x in registers; every CTA makes one warm solve a step whatever
+// it accepts, so the cluster's barriers line up; a spare CTA (not live)
+// runs on zeros.
+template <class L>
 struct PcnClusterStep {
-  static constexpr int C = ClusterExact::kC;
+  static constexpr int C = L::kC;
   const PcnArgs<DarcyPotential>& a;
-  ClusterExact lv;
+  L lv;
   float* pos;
   float* prop;
   bool live;
@@ -238,13 +253,29 @@ __global__ void __launch_bounds__(ClusterDesign::kThreads, ClusterDesign::kMinCt
   const int d = a.chain.d;
   float* state = cluster_f32(ClusterSmem::kState);
   const bool live = static_cast<int>(blockIdx.x) < a.chain.n;
-  PcnClusterStep step{a, {&a.pot}, state, state + d, live, 0.0f, {}};
+  PcnClusterStep<ClusterExact> step{a, {&a.pot}, state, state + d, live, 0.0f, {}};
   run_cluster_chain<RECORD>(a.chain, step, state, live);
   cg::this_cluster().sync();  // no peer reads this CTA's shared memory after it exits
 }
 
-// Launches fused_pcn_warm_cluster_kernel<RECORD> (RECORD: chain.samples
-// given).
+// The same on the 32 x 32 grid (darcy32_pcn_warm): its own layout and
+// design (Cluster32Design), each CTA keeping its slices of the factors
+// that the design makes resident in shared memory for the whole launch.
+template <bool RECORD>
+__global__ void __launch_bounds__(Cluster32Design::kThreads, Cluster32Design::kMinCtas)
+    fused_pcn_warm_cluster32_kernel(const __grid_constant__ PcnArgs<DarcyPotential> a) {
+  const int d = a.chain.d;
+  float* state = cluster_f32(Cluster32Smem::kState);
+  const bool live = static_cast<int>(blockIdx.x) < a.chain.n;
+  PcnClusterStep<Cluster32Exact> step{a, {&a.pot}, state, state + d, live, 0.0f, {}};
+  step.lv.stage();  // ordered before its reads by the first set-up's cluster barrier
+  run_cluster_chain<RECORD>(a.chain, step, state, live);
+  cg::this_cluster().sync();  // no peer reads this CTA's shared memory after it exits
+}
+
+// Launches fused_pcn_warm_cluster_kernel<RECORD> (64 x 64) or
+// fused_pcn_warm_cluster32_kernel<RECORD> (32 x 32), by the spec's grid
+// (RECORD: chain.samples given).
 inline int launch_pcn_warm_cluster(const IpxMisfitSpec& pot, const IpxChainArgs& chain,
                                    const float* phi0, const float* x0, float beta,
                                    float contraction, void* stream) {
@@ -253,13 +284,17 @@ inline int launch_pcn_warm_cluster(const IpxMisfitSpec& pot, const IpxChainArgs&
   if (status != cudaSuccess) return status;
   if (chain.n == 0) return cudaSuccess;
   const PcnArgs<DarcyPotential> a{pot, chain, phi0, x0, beta, contraction};
-  if (chain.samples != nullptr)
-    return launch_cluster(fused_pcn_warm_cluster_kernel<true>, geo, stream, a);
+  const bool record = chain.samples != nullptr;
+  if (pot.n == kCluster32N) {
+    if (record) return launch_cluster(fused_pcn_warm_cluster32_kernel<true>, geo, stream, a);
+    return launch_cluster(fused_pcn_warm_cluster32_kernel<false>, geo, stream, a);
+  }
+  if (record) return launch_cluster(fused_pcn_warm_cluster_kernel<true>, geo, stream, a);
   return launch_cluster(fused_pcn_warm_cluster_kernel<false>, geo, stream, a);
 }
 
 // Launches fused_pcn_kernel<Pot, RECORD> or, with x0 given (Darcy up to
-// 32 x 32: the 64 x 64 grid has the cluster kernel above),
+// 16 x 16: the larger grids have the cluster kernels above),
 // fused_pcn_warm_kernel<Pot, RECORD> (RECORD: chain.samples given).
 template <class Pot>
 int launch_pcn(const typename Pot::Spec& pot, const IpxChainArgs& chain, const float* phi0,
@@ -277,7 +312,7 @@ int launch_pcn(const typename Pot::Spec& pot, const IpxChainArgs& chain, const f
     if (record) fused_pcn_kernel<Pot, true><<<chain.n, threads, smem, st>>>(a);
     else fused_pcn_kernel<Pot, false><<<chain.n, threads, smem, st>>>(a);
   } else if constexpr (std::is_same_v<typename Pot::Spec, IpxMisfitSpec>) {
-    if constexpr (Pot::kMaxCells <= DarcyPot<Layout32>::kMaxCells) {
+    if constexpr (Pot::kMaxCells <= DarcyPot<Layout16>::kMaxCells) {
       if (record) fused_pcn_warm_kernel<Pot, true><<<chain.n, threads, smem, st>>>(a);
       else fused_pcn_warm_kernel<Pot, false><<<chain.n, threads, smem, st>>>(a);
     } else {
@@ -317,13 +352,13 @@ int ipx_darcy_misfit_warm(const IpxMisfitSpec* s, const float* U, const float* x
   });
 }
 
-// x0 == null: cold pCN (fused_pcn_kernel); else warm (fused_pcn_warm_kernel,
-// on a grid of the 64 x 64 class fused_pcn_warm_cluster_kernel, which takes
-// 64 x 64 with a dst_trunc CG solve and refuses the rest of the class with
-// cudaErrorNotSupported). The layout follows the spec's grid.
+// x0 == null: cold pCN (fused_pcn_kernel); else warm (up to 16 x 16
+// fused_pcn_warm_kernel; above, the cluster kernels, which take 32 x 32 and
+// 64 x 64 with a dst_trunc CG solve and refuse the rest of the grids above
+// 16 x 16 with cudaErrorNotSupported). The layout follows the spec's grid.
 int ipx_fused_pcn(const IpxMisfitSpec* pot, const IpxChainArgs* chain, const float* phi0,
                   const float* x0, float beta, float contraction, void* stream) {
-  if (x0 != nullptr && pot->n * pot->n > ipx::DarcyPot<ipx::Layout32>::kMaxCells)
+  if (x0 != nullptr && pot->n * pot->n > ipx::DarcyPotential::kMaxCells)
     return ipx::launch_pcn_warm_cluster(*pot, *chain, phi0, x0, beta, contraction, stream);
   return ipx::with_darcy_layout<kSolverCg>(*pot, [&](auto p) {
     return ipx::launch_pcn<decltype(p)>(*pot, *chain, phi0, x0, beta, contraction, stream);

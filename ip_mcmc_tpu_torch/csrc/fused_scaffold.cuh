@@ -159,8 +159,11 @@ struct WarpChainCtx {
 //   bool step(const WarpChainCtx&, uint32_t)  the same answer in every lane
 //
 // and keeps pos[t] written by the lane that holds t. Every warp of the CTA,
-// a spare one too, makes the same number of Step calls, so that a step may
-// hold barriers of the whole CTA.
+// a spare one too, makes the same number of Step calls. A Step that holds
+// barriers of the whole CTA (the DA kernel's preconditioner products) must
+// make the same barriers in every warp, whatever its chain does; a Step
+// with none (elliptical slice sampling's Jacobi solves) may take a
+// different number of solves in each warp.
 template <bool RECORD, class Step>
 __device__ void run_warp_chain(const IpxChainArgs& a, Step& step, float* pos) {
   constexpr int kD = 64;

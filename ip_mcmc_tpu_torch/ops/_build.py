@@ -243,13 +243,15 @@ def library():
         lib.bind("ipx_fused_da_pcn", [spec, spec, chain, p, p, f, f, i, p, p])
         # exact, surrogate, chain, out (3,): the 16x16 DA kernel's geometry
         lib.bind("ipx_da_pcn_warp_geometry", [spec, spec, chain, p])
-        # exact, surrogate or null (warm pCN), chain, out (4,): the 64x64
-        # cluster kernels' geometry
+        # exact, surrogate or null (warm pCN), chain, out (4,): the cluster
+        # kernels' geometry (64x64, and the 32x32 warm pCN)
         lib.bind("ipx_darcy_cluster_geometry", [spec, spec, chain, p])
         # spec, chain, Φ0 (n,), x0 (n², n) or null (cold), β, √(1−β²), stream
         lib.bind("ipx_fused_pcn", [spec, chain, p, p, f, f, p])
         # spec, chain, Φ0 (n,), max_shrink, stream
         lib.bind("ipx_fused_ess", [spec, chain, p, i, p])
+        # spec, chain, max_shrink, out (3,): the ESS kernel's geometry
+        lib.bind("ipx_ess_warp_geometry", [spec, chain, i, p])
         # spec, U (K, B), aux0 (2n², B) or null (cold), B, Φ (B,), ∇Φ (K, B),
         # aux (2n², B) or null, stream
         lib.bind("ipx_darcy_misfit_grad", [spec, p, p, i, p, p, p, p])

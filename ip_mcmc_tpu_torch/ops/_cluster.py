@@ -1,11 +1,15 @@
-"""The launch geometry of the 64×64 Darcy kernels that run in thread-block
-clusters: ``fused_da_pcn_cluster_kernel`` (``darcy64_da_fused``) and
-``fused_pcn_warm_cluster_kernel`` (``darcy64_pcn_warm``).
+"""The launch geometry of the Darcy kernels that run in thread-block
+clusters: at 64×64 ``fused_da_pcn_cluster_kernel`` (``darcy64_da_fused``)
+and ``fused_pcn_warm_cluster_kernel`` (``darcy64_pcn_warm``), at 32×32
+``fused_pcn_warm_cluster32_kernel`` (``darcy32_pcn_warm``).
 
 One chain runs per CTA, and the G CTAs of a cluster share each read of the
-factors (``ClusterLevel`` in ``csrc/darcy_misfit.cuh``). ``cluster_geometry``
-mirrors ``cluster_geometry`` there; ``ipx_darcy_cluster_geometry`` returns
-the C side's, and the card tests and ``chip_smoke.py`` hold the two equal.
+factors (``ClusterLevel`` in ``csrc/darcy_misfit.cuh``); at 32×32 in a
+layout of its own, whose design may keep each CTA's slices of the factors
+in shared memory for the launch (the shipped one reads them through L2, at
+seven CTAs an SM). ``cluster_geometry`` mirrors ``cluster_geometry`` there;
+``ipx_darcy_cluster_geometry`` returns the C side's, and the card tests and
+``chip_smoke.py`` hold the two equal.
 """
 
 from __future__ import annotations
@@ -17,49 +21,99 @@ MAX_SMEM_BYTES = 232_448  # what a CTA of the H100 may use
 # the largest K (= d) and dst_trunc modes (exact level, surrogate) the
 # kernels' shared memory holds
 MAX_K, MAX_MODES, MAX_SURR_MODES = 144, 256, 128
+# Cluster32Design: chains a cluster, threads a CTA, the factors each CTA
+# keeps resident (RESIDENT_V: its slices of the modes; RESIDENT_BASIS: its
+# slice of the KL basis), V·bf16(r) and Vᵀ·coef on the tensor cores
+RESIDENT_V, RESIDENT_BASIS = 1, 2
+CLUSTER32_G, CLUSTER32_THREADS, CLUSTER32_RESIDENT = 8, 128, 0
+CLUSTER32_MMA_COEF, CLUSTER32_MMA_BACK = True, True
+N32, MAX_K32, MAX_MODES32 = 32, 64, 128  # its grid, largest K and modes
+
+
+def _layout_bytes(cells, G, threads, max_k, max_modes, res_f32=0, res_bf16=0):
+    """``ClusterSmemT<...>::kBytes``: five f32 arrays of the cells (the
+    stencil's vector, the face terms right of and below each cell, the
+    boundary terms, the inverse diagonal), the warps' partial sums (16 rows
+    × 8 columns an mma tile of chains), the cluster's coefficients u, the
+    sampler's state (3 × max_k), the warp partials (32), Φ, a_bar, the
+    cluster's G a_bar, the eigenvalues of a modes slice (max_modes) and the
+    level's f32 region, rounded to 16 bytes; then bf16(r) on the cells, the
+    cluster's coefficients in rows of max_modes + 8 and the level's bf16
+    region."""
+    nt = -(-G // 8)
+    f32 = (5 * cells + threads // 32 * 16 * 8 * nt + G * max_k + 3 * max_k + 32 + 1 + 1 + G
+           + max_modes + res_f32)
+    return 4 * (-(-f32 // 4) * 4) + 2 * (cells + G * (max_modes + 8) + res_bf16)
 
 
 def smem_bytes(G=CLUSTER_G, threads=CLUSTER_THREADS):
-    """``ClusterSmem::kBytes``: five f32 arrays of 64×64 cells (the
-    stencil's vector, the face terms right of and below each cell, the
-    boundary terms, the inverse diagonal), the warps' partial sums (16 rows × 8 columns an
-    mma tile of chains), the cluster's coefficients u, the sampler's state
-    (3 × MAX_K), the warp partials (32), Φ, a_bar, the cluster's G a_bar
-    and the eigenvalues of a modes slice (MAX_MODES), rounded to 16 bytes;
-    then bf16(r) on the cells and the cluster's coefficients in rows of
-    MAX_MODES + 8."""
-    cells, nt = EXACT_N * EXACT_N, -(-G // 8)
-    f32 = 5 * cells + threads // 32 * 16 * 8 * nt + G * MAX_K + 3 * MAX_K + 32 + 1 + 1 + G + MAX_MODES
-    return 4 * (-(-f32 // 4) * 4) + 2 * (cells + G * (MAX_MODES + 8))
+    """The 64×64 kernels' ``ClusterSmem::kBytes`` (no region)."""
+    return _layout_bytes(EXACT_N * EXACT_N, G, threads, MAX_K, MAX_MODES)
+
+
+def region32_elems(G=CLUSTER32_G, resident=CLUSTER32_RESIDENT, mma_coef=CLUSTER32_MMA_COEF,
+                   mma_back=CLUSTER32_MMA_BACK):
+    """``ClusterRegion32``'s (f32, bf16) counts: with the modes resident a
+    rows slice (the 16-row tiles of the CTA's modes, rows of cells + 32)
+    and a columns slice (every mode on cells / G cells, rows padded by 8),
+    which Vᵀ·coef on the CUDA cores keeps whatever ``resident`` says; the
+    cluster's bf16(r) (G × cells) when V·bf16(r) runs on the CUDA cores;
+    with the basis resident its K × cells / G floats."""
+    cells, sl = N32 * N32, N32 * N32 // G
+    rows = -(-(MAX_MODES32 // 16) // G) * 16
+    cols = (resident & RESIDENT_V) or not mma_back
+    bf16 = ((rows * (cells + 32) if resident & RESIDENT_V else 0)
+            + ((MAX_MODES32 * (sl + 8) if mma_back else sl * (MAX_MODES32 + 8)) if cols else 0)
+            + (0 if mma_coef else G * cells))
+    return (MAX_K32 * sl if resident & RESIDENT_BASIS else 0), bf16
+
+
+def smem_bytes32(G=CLUSTER32_G, threads=CLUSTER32_THREADS, **region):
+    """The 32×32 kernel's ``Cluster32Smem::kBytes``: its layout sized for
+    32×32 cells, K up to 64 and 128 modes, with its region."""
+    f32, bf16 = region32_elems(G, **region)
+    return _layout_bytes(N32 * N32, G, threads, MAX_K32, MAX_MODES32, f32, bf16)
 
 
 def cluster_geometry(n_chains, block_chains, *, d=144, exact_n=EXACT_N, exact_modes=256,
-                     surr_n=SURR_N, surr_modes=128, G=CLUSTER_G, threads=CLUSTER_THREADS):
+                     surr_n=SURR_N, surr_modes=128, G=None, threads=None):
     """(chains a cluster, clusters, CTAs, dynamic shared-memory bytes) of a
-    launch: the DA kernel with a surrogate, the warm pCN kernel with
-    ``surr_n=None``. Every cluster has G CTAs, the spare ones of a ragged
-    last cluster run on zeros. A CTA runs chain ``blockIdx.x`` with the seed
-    and lane of the one-chain-a-CTA kernels, so G does not depend on
-    ``block_chains``; the shared memory is laid out at compile time, so it
-    depends on the design alone. Raises ``ValueError`` for grids, d or
-    modes the kernels do not take (a 64×64 exact level, a 32×32 surrogate,
-    d up to MAX_K, dst_trunc with a multiple of 16 modes up to the cells
-    and MAX_MODES, MAX_SURR_MODES for the surrogate) and for shared memory
-    the card cannot give a CTA."""
-    levels = [(exact_n, EXACT_N, exact_modes, MAX_MODES)]
-    if surr_n is not None:
-        levels.append((surr_n, SURR_N, surr_modes, MAX_SURR_MODES))
+    launch: the 64×64 DA kernel with a surrogate, the 64×64 warm pCN kernel
+    with ``surr_n=None``, the 32×32 warm pCN kernel with ``exact_n=32`` and
+    ``surr_n=None``. Every cluster has G CTAs (the design's, unless given),
+    the spare ones of a ragged last cluster run on zeros. A CTA runs chain
+    ``blockIdx.x`` with the seed and lane of the one-chain-a-CTA kernels, so
+    G does not depend on ``block_chains``; the shared memory is laid out at
+    compile time, so it depends on the design alone. Raises ``ValueError``
+    for grids, d or modes the kernels do not take (a 64×64 exact level with
+    a 32×32 surrogate or none, d up to MAX_K; a 32×32 exact level with none,
+    d up to MAX_K32; dst_trunc with a multiple of 16 modes up to the cells
+    and MAX_MODES, MAX_SURR_MODES for the surrogate, MAX_MODES32 at 32×32)
+    and for shared memory the card cannot give a CTA."""
+    n32 = exact_n == N32
+    if n32:
+        if surr_n is not None:
+            raise ValueError(f"the {N32}x{N32} cluster kernel takes no surrogate; got "
+                             f"{surr_n}x{surr_n}")
+        levels, most_k = [(exact_n, N32, exact_modes, MAX_MODES32)], MAX_K32
+        G, threads = G or CLUSTER32_G, threads or CLUSTER32_THREADS
+    else:
+        levels, most_k = [(exact_n, EXACT_N, exact_modes, MAX_MODES)], MAX_K
+        if surr_n is not None:
+            levels.append((surr_n, SURR_N, surr_modes, MAX_SURR_MODES))
+        G, threads = G or CLUSTER_G, threads or CLUSTER_THREADS
     for n, want, modes, most in levels:
         if n != want:
             raise ValueError(f"the cluster kernels take a {EXACT_N}x{EXACT_N} exact grid and a "
-                             f"{SURR_N}x{SURR_N} surrogate; got {n}x{n} for {want}x{want}")
+                             f"{SURR_N}x{SURR_N} surrogate, or a {N32}x{N32} exact grid alone; "
+                             f"got {n}x{n} for {want}x{want}")
         if modes <= 0 or modes % 16 or modes > min(n * n, most):
             raise ValueError(f"{n}x{n}: {modes} dst_trunc modes are not a positive multiple "
                              f"of 16 up to {min(n * n, most)}")
-    if block_chains <= 0 or n_chains < 0 or not 0 < d <= MAX_K:
+    if block_chains <= 0 or n_chains < 0 or not 0 < d <= most_k:
         raise ValueError(f"n_chains {n_chains}, block_chains {block_chains}, d {d} (at most "
-                         f"{MAX_K})")
-    smem = smem_bytes(G, threads)
+                         f"{most_k})")
+    smem = smem_bytes32(G, threads) if n32 else smem_bytes(G, threads)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"{smem} bytes of shared memory a CTA: the card gives {MAX_SMEM_BYTES}")
     clusters = -(-n_chains // G)

@@ -10,13 +10,15 @@ angle θ on a bracket of width 2π, then proposes (pos − m)·cos θ + ν·sin 
 always in the slice); the returned "acceptance" is the share of steps that
 found a point within the budget. A NaN Φ(prop) never accepts.
 
-For CUDA tensors the entry points launch ``fused_ess_kernel<RECORD>``
-(``csrc/fused_ess.cu``) on ``DarcyMisfit`` potentials only; there a chain
-that is done leaves the shrink loop, where the plain version (and the JAX
-kernel) evaluate every chain ``max_shrink`` times behind done masks: the
-masked evaluations change nothing. For CPU tensors they run the step
-builder below on ``_scaffold.run_plain``. Tags: ν 0 (keys 0, 1), log y
-uniform 2, θ uniform 4, shrink draw k 16 + k.
+For CUDA tensors the entry points launch ``fused_ess_warp_kernel<RECORD>``
+(``csrc/fused_ess.cu``) on a 16×16 Jacobi ``DarcyMisfit`` with d = 64 (the
+kernel refuses any other and the wrapper raises): one chain a warp,
+``warp_geometry``'s chains a CTA. There a chain that is done leaves the
+shrink loop, where the plain version (and the JAX kernel) evaluate every
+chain ``max_shrink`` times behind done masks: the masked evaluations change
+nothing. For CPU tensors they run the step builder below on
+``_scaffold.run_plain``. Tags: ν 0 (keys 0, 1), log y uniform 2, θ uniform
+4, shrink draw k 16 + k.
 """
 
 from __future__ import annotations
@@ -84,6 +86,45 @@ def _run_plain(potential_fn, positions, prior_mean, prior_scale, seed,
 
 # --- the kernel -------------------------------------------------------------
 
+# ``EssWarpDesign`` in ``csrc/fused_ess.cu``: chains (warps) a CTA at most,
+# whether the KL basis is staged in shared memory once a CTA, and whether
+# the dot products keep block_sum's order (the cells then padded by 4 after
+# every 32 in shared memory: ``WarpSliceLevel`` in ``csrc/darcy_misfit.cuh``).
+# What it takes: a WARP_N² grid, d = K = WARP_D, Jacobi (no modes).
+WARP_CHAINS, WARP_BASIS_STAGED, WARP_ORDERED = 16, True, True
+WARP_N, WARP_D = 16, 64
+MAX_SMEM_BYTES = 232_448  # what a CTA of the H100 may use
+KERNEL = "fused_ess_warp_kernel"  # the launch count's stem
+
+
+def warp_geometry(n_chains, block_chains, *, n=WARP_N, d=WARP_D, precond="jacobi",
+                  modes=0, chains=WARP_CHAINS, basis_staged=WARP_BASIS_STAGED,
+                  ordered=WARP_ORDERED):
+    """The kernel's launch: (CTAs, chains a CTA, dynamic shared-memory
+    bytes), as ``ess_warp_geometry`` in ``csrc/fused_ess.cu`` computes it.
+    Chains a CTA: the largest power of two up to ``chains`` that divides
+    ``block_chains``; a ragged last CTA runs spare warps. The bytes: the
+    staged basis (d rows of n² floats, padded to 288 when ``ordered``), an
+    a_bar row of 32 floats and a slice a warp (pos and prop, d floats each;
+    the stencil's vector and face terms, n² floats each, padded likewise).
+    Raises ``ValueError`` for a grid, d or preconditioner the kernel does
+    not take and for shared memory the card cannot give a CTA."""
+    if (n, d, precond, modes) != (WARP_N, WARP_D, "jacobi", 0):
+        raise ValueError(
+            f"the ESS kernel takes a {WARP_N}x{WARP_N} grid, d = {WARP_D} and the Jacobi "
+            f"preconditioner; got {n}x{n}, d = {d}, {precond} with {modes} modes")
+    if block_chains <= 0 or n_chains < 0:
+        raise ValueError(f"n_chains {n_chains}, block_chains {block_chains}")
+    w = chains
+    while block_chains % w:
+        w //= 2
+    cells = n * n + (4 * n * n // 32 if ordered else 0)
+    smem = (4 * d * cells if basis_staged else 0) + 4 * 32 + w * 4 * (2 * d + 3 * cells)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{smem} bytes of shared memory a CTA: the card gives "
+                         f"{MAX_SMEM_BYTES}")
+    return -(-n_chains // w), w, smem
+
 
 def _launch(potential_fn, positions, prior_mean, prior_scale, seed, n_steps,
             max_shrink, block_chains, thin=None):
@@ -98,7 +139,7 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, seed, n_steps,
         ctypes.byref(spec), ctypes.byref(args), phi0.data_ptr(),
         int(max_shrink), torch.cuda.current_stream(U.device).cuda_stream,
     )
-    name = _scaffold.kernel_name("fused_ess_kernel", thin is not None)
+    name = _scaffold.kernel_name(KERNEL, thin is not None)
     _build.check(status, name)
     _build.launch_counts[name] += 1
     _, _, _, out, acc, samples = keep

@@ -16,7 +16,8 @@ For CUDA tensors the entry points launch ``fused_pcn_kernel<Pot, RECORD>`` /
 ``n_steps`` loop in one launch: the cold kernel on a ``DarcyMisfit`` or a
 ``BurgersMisfit`` (picked by the potential's family), the warm one on a
 ``DarcyMisfitWarm``; on a 64×64 grid the warm one is
-``fused_pcn_warm_cluster_kernel<RECORD>``, whose thread-block clusters of
+``fused_pcn_warm_cluster_kernel<RECORD>`` and on a 32×32 grid
+``fused_pcn_warm_cluster32_kernel<RECORD>``, whose thread-block clusters of
 ``_cluster.cluster_geometry``'s chains share each read of the factors.
 For CPU tensors they run the step builders below on the plain scaffold
 ``_scaffold.run_plain``, with any features-first callable.
@@ -108,11 +109,14 @@ def _run_plain(potential_fn, positions, prior_mean, prior_scale, beta, seed,
 
 
 def _darcy_stem(pot, warm):
-    """The launch count's name of the Darcy kernel: the warm one on the
-    64×64 class runs in thread-block clusters (``_cluster``)."""
+    """The launch count's name of the Darcy kernel: the warm one above
+    16×16 runs in thread-block clusters (``_cluster``), on the 64×64 class
+    and on the 32×32 class (which takes 32×32 only)."""
     if not warm:
         return "fused_pcn_kernel"
-    return "fused_pcn_warm_cluster_kernel" if pot.n > 32 else "fused_pcn_warm_kernel"
+    if pot.n > 32:
+        return "fused_pcn_warm_cluster_kernel"
+    return "fused_pcn_warm_cluster32_kernel" if pot.n > 16 else "fused_pcn_warm_kernel"
 
 
 def _launch(potential_fn, positions, prior_mean, prior_scale, beta, seed,

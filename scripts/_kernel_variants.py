@@ -66,3 +66,64 @@ def print_ptxas(build_dir, label: str, needle: str) -> None:
         if needle in r["kernel"]:
             print(f"({label}) {r['kernel']}: {r['registers']} registers, "
                   f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")
+
+
+def build_designs(_build, filename: str, units, shipped: str, designs: dict, tag: str) -> dict:
+    """Builds ``units`` (``.cu`` names) of a copy of ``csrc/`` once for each
+    design, the one line ``shipped`` of ``filename`` replaced by the
+    design's line, every compiler started together: {key of ``designs``:
+    (library paths, the directory holding its ``nvcc.log``)}, or {key: the
+    compiler's first error} for a design that does not build (a
+    static_assert of the design)."""
+    text = (_build.CSRC / filename).read_text()
+    assert text.count(shipped) == 1, f"{shipped!r} is not once in {filename}"
+    procs = []
+    for key, line in designs.items():
+        tree = _build.BUILD_DIR / f"{tag}_{len(procs)}"
+        shutil.rmtree(tree, ignore_errors=True)
+        shutil.copytree(_build.CSRC, tree / "csrc")
+        (tree / "csrc" / filename).write_text(text.replace(shipped, line))
+        (tree / "lib").mkdir()
+        for unit in units:
+            so = tree / "lib" / f"libipx_{unit[:-3]}.so"
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(tree / "csrc"), "-o", str(so),
+                   str(tree / "csrc" / unit)]
+            procs.append((key, cmd, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                         stderr=subprocess.STDOUT, text=True)))
+    out, logs, failed = {}, {}, {}
+    for key, cmd, so, proc in procs:
+        log = " ".join(cmd) + "\n" + proc.communicate()[0]
+        logs.setdefault(key, []).append(log)
+        if proc.returncode != 0:
+            failed.setdefault(key, next((ln.strip() for ln in log.splitlines() if "error" in ln),
+                                        "nvcc failed"))
+        out.setdefault(key, []).append(so)
+    for key, parts in logs.items():
+        (out[key][0].parent / "nvcc.log").write_text("\n".join(parts))
+    return {key: failed.get(key) or (sos, sos[0].parent) for key, sos in out.items()}
+
+
+def load_with(_build, sos):
+    """The package's kernels with the libraries of some units swapped for
+    ``sos`` (``libipx_<unit>.so``; the other units as shipped)."""
+    swap = {so.name.rsplit(".", 1)[0]: so for so in sos}
+    # the package's libraries are libipx_<unit>_<digest>.so
+    paths = [swap.get(p.name.rsplit("_", 1)[0], p) for p in _build.build()]
+    build, lib = _build.build, _build._lib
+    _build.build, _build._lib = (lambda: paths), None
+    try:
+        return _build.library()
+    finally:
+        _build.build, _build._lib = build, lib
+
+
+def ptxas_row(build_dir, needle: str):
+    """What ptxas reported for the first kernel whose mangled name holds
+    ``needle`` in the build's ``nvcc.log``: (registers, spill stores, spill
+    loads), or None."""
+    from ip_mcmc_tpu_torch.ops import _build
+
+    for r in _build.ptxas_report(build_dir / "nvcc.log"):
+        if needle in r["kernel"]:
+            return r["registers"], r["spill_stores"], r["spill_loads"]
+    return None

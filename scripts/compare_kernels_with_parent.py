@@ -9,17 +9,19 @@ and without the adjoint gradient, DA-pCN with the CG and with the rich3
 Richardson surrogate, cold and warm pCN, ESS, cold and warm MALA, the
 ensemble sampler and the Darcy RWM, each recorded, at 4096 chains on the
 16x16 Darcy configs), the Burgers DA-pCN kernel (2048 chains), the cold
-and warm misfit kernels at 32x32 and 64x64, and the 64x64 DA-pCN
+and warm misfit kernels at 32x32 and 64x64, the 64x64 DA-pCN
 (``darcy64_da_fused``: 1024 chains, blocks of 128, k = 48) and warm pCN
-(``darcy64_pcn_warm``: 2048 chains) kernels, each recorded, in
+(``darcy64_pcn_warm``: 2048 chains) kernels and the 32x32 warm pCN kernel
+(``darcy32_pcn_warm``: 4096 chains, blocks of 128), each recorded, in
 the order parent, this tree, this tree, parent, each in a process of its
 own with that tree first on the import path (each tree builds its own
 kernels). Each tree's two runs must equal one another bit for bit. Every
 output tensor of this tree must equal the parent's bit for bit, except
 those of the kernels in ``OLD_VS_NEW``, which this tree replaced by
 another design (the 16x16 DA kernel, one warp per chain; the 64x64 DA and
-warm pCN kernels, G chains a thread-block cluster; their sums run in
-another order): there the share of chains (final state and records)
+warm pCN kernels and the 32x32 warm pCN kernel, G chains a thread-block
+cluster; their sums run in another order): there the share of chains
+(final state and records)
 within ``CHAIN_ATOL`` of the parent's and both acceptance rates are
 printed (two kernels that each round differently from the plain twin;
 chip_smoke.py holds each against the twin). The per-step times
@@ -43,7 +45,7 @@ import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # kernels this tree replaced by another design: compared, not bit for bit
-OLD_VS_NEW = ("da_pcn", "da_pcn_richardson", "da_pcn_64", "pcn_warm_64")
+OLD_VS_NEW = ("da_pcn", "da_pcn_richardson", "da_pcn_64", "pcn_warm_64", "pcn_warm_32")
 CHAIN_ATOL = 1e-4  # chip_smoke.py's
 
 
@@ -133,6 +135,8 @@ def worker(out_path: str) -> int:
         times[name] = time_ms(lambda: w(V, z), 5)
     w64, w64_dim = pcn64.batched_warm_potential
     pos64 = da64.init_positions(gen, 2048).cuda()
+    w32, w32_dim = pcn32.batched_warm_potential
+    pos32 = pcn32.init_positions(gen, n).cuda()
 
     runs = {
         "da_pcn": (lambda s: ops.fused_da_pcn_chain_recorded(
@@ -152,6 +156,9 @@ def worker(out_path: str) -> int:
         "pcn_warm_64": (lambda s: ops.fused_pcn_chain_warm_recorded(
             w64, pos64, da64.prior.mean, da64.prior.scale, 0.06, 13, n_steps=s, thin=1,
             aux_dim=w64_dim, block_chains=128), 8, 4, 36),
+        "pcn_warm_32": (lambda s: ops.fused_pcn_chain_warm_recorded(
+            w32, pos32, pcn32.prior.mean, pcn32.prior.scale, 0.08, 13, n_steps=s, thin=1,
+            aux_dim=w32_dim, block_chains=128), 8, 4, 36),
         "pcn": (lambda s: ops.fused_pcn_chain_recorded(
             jacobi, pos, pm, ps, 0.08, 13, n_steps=s, thin=1, block_chains=512),
             16, 8, 72),

@@ -35,13 +35,11 @@ from __future__ import annotations
 import json
 import pathlib
 import re
-import shutil
-import subprocess
 import sys
 
 import torch
 
-from _kernel_variants import card_line, print_ptxas, slope_ms
+from _kernel_variants import build_designs, card_line, load_with, print_ptxas, slope_ms
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
@@ -71,53 +69,6 @@ def label(d) -> str:
     what = lambda v: "mma.sync" if v else "CUDA cores"  # noqa: E731
     return (f"G={g}, {cells} cells x {threads} threads x {ctas} CTA/SM, surrogate V.r "
             f"{what(coef_mma)}, V^T.coef {what(back_mma)}")
-
-
-def build_variants(_build, designs):
-    """The two sources built once per design, every compiler started
-    together: {design: (library paths, nvcc log directory)}, or {design:
-    the compiler's first error} for a design that does not build (a
-    static_assert of the design: its staging does not fit)."""
-    text = (_build.CSRC / HEADER).read_text()
-    shipped = LINE.search(text).group(0)
-    procs = []
-    for d in designs:
-        tree = _build.BUILD_DIR / ("cluster_" + "_".join(str(v).lower() for v in d))
-        shutil.rmtree(tree, ignore_errors=True)
-        shutil.copytree(_build.CSRC, tree / "csrc")
-        (tree / "csrc" / HEADER).write_text(text.replace(shipped, design_line(*d)))
-        (tree / "lib").mkdir()
-        for unit in UNITS:
-            so = tree / "lib" / f"libipx_{unit[:-3]}.so"
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(tree / "csrc"), "-o", str(so),
-                   str(tree / "csrc" / unit)]
-            procs.append((d, cmd, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                       stderr=subprocess.STDOUT, text=True)))
-    out, logs, failed = {}, {}, {}
-    for d, cmd, so, proc in procs:
-        log = " ".join(cmd) + "\n" + proc.communicate()[0]
-        logs.setdefault(d, []).append(log)
-        if proc.returncode != 0:
-            failed.setdefault(d, next((ln.strip() for ln in log.splitlines() if "error" in ln),
-                                      "nvcc failed"))
-        out.setdefault(d, []).append(so)
-    for d, parts in logs.items():
-        (out[d][0].parent / "nvcc.log").write_text("\n".join(parts))
-    return {d: failed.get(d) or (sos, sos[0].parent) for d, sos in out.items()}
-
-
-def load_with(_build, sos):
-    """The package's kernels with the two units' libraries swapped for
-    ``sos`` (the other units as shipped)."""
-    swap = {so.name.rsplit(".", 1)[0]: so for so in sos}
-    # the package's libraries are libipx_<unit>_<digest>.so
-    paths = [swap.get(p.name.rsplit("_", 1)[0], p) for p in _build.build()]
-    build, lib = _build.build, _build._lib
-    _build.build, _build._lib = (lambda: paths), None
-    try:
-        return _build.library()
-    finally:
-        _build.build, _build._lib = build, lib
 
 
 def resident_v_bytes(g, threads=512):
@@ -153,7 +104,8 @@ def main() -> int:
         rows.append({"design": f"G={g}, modes resident", "smem_bytes": b, "refused":
                      b > _cluster.MAX_SMEM_BYTES})
     alternatives = [d for d in DESIGNS if d != shipped]
-    builds = build_variants(_build, alternatives)
+    builds = build_designs(_build, HEADER, UNITS, m.group(0),
+                           {d: design_line(*d) for d in alternatives}, "cluster")
     for d in [d for d in alternatives if isinstance(builds[d], str)]:
         print(f"{label(d)}: not built ({builds[d]})", flush=True)
         rows.append({"design": label(d), "refused": builds[d]})

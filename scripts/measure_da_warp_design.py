@@ -29,13 +29,11 @@ from __future__ import annotations
 import json
 import pathlib
 import re
-import shutil
-import subprocess
 import sys
 
 import torch
 
-from _kernel_variants import card_line, print_ptxas, slope_ms
+from _kernel_variants import build_designs, card_line, load_with, print_ptxas, slope_ms
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
@@ -58,46 +56,6 @@ def label(design) -> str:
     w, smw, staged, mma = design
     return (f"W={w}, {smw} warps/SM, exact factors {'staged' if staged else 'via L2'}, "
             f"{'mma.sync' if mma else 'CUDA-core loops'}")
-
-
-def build_variants(_build, designs):
-    """One library of fused_da_pcn.cu per design, compiled in parallel:
-    {design: (library path, nvcc log directory)}."""
-    text = (_build.CSRC / SOURCE).read_text()
-    shipped = LINE.search(text).group(0)
-    procs = {}
-    for d in designs:
-        tree = _build.BUILD_DIR / ("da_warp_" + "_".join(str(v).lower() for v in d))
-        shutil.rmtree(tree, ignore_errors=True)
-        shutil.copytree(_build.CSRC, tree / "csrc")
-        (tree / "csrc" / SOURCE).write_text(text.replace(shipped, design_line(*d)))
-        (tree / "lib").mkdir()
-        so = tree / "lib" / "libipx_fused_da_pcn.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(tree / "csrc"), "-o", str(so),
-               str(tree / "csrc" / SOURCE)]
-        procs[d] = (cmd, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                               stderr=subprocess.STDOUT, text=True))
-    out = {}
-    for d, (cmd, so, proc) in procs.items():
-        log = " ".join(cmd) + "\n" + proc.communicate()[0]
-        (so.parent / "nvcc.log").write_text(log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {label(d)}:\n{log}")
-        out[d] = (so, so.parent)
-    return out
-
-
-def load_with(_build, da_so):
-    """The package's kernels with fused_da_pcn.cu's library swapped for
-    ``da_so`` (the other units as shipped)."""
-    shipped = _build.build()
-    paths = [da_so if p.name.startswith("libipx_fused_da_pcn_") else p for p in shipped]
-    build, lib = _build.build, _build._lib
-    _build.build, _build._lib = (lambda: paths), None
-    try:
-        return _build.library()
-    finally:
-        _build.build, _build._lib = build, lib
 
 
 def main() -> int:
@@ -124,7 +82,11 @@ def main() -> int:
         except ValueError as e:
             print(f"{label(d)}: not run ({e})", flush=True)
             rows.append({"design": label(d), "ms_per_outer_step": None, "refused": str(e)})
-    builds = build_variants(_build, fits[1:])
+    builds = build_designs(_build, SOURCE, (SOURCE,), m.group(0),
+                           {d: design_line(*d) for d in fits[1:]}, "da_warp")
+    failed = {label(d): b for d, b in builds.items() if isinstance(b, str)}
+    if failed:
+        raise RuntimeError(f"nvcc failed: {failed}")
     libs = {shipped: shipped_lib}
     print_ptxas(_build.BUILD_DIR, label(shipped), "fused_da_pcn_warp_kernel")
     for d in fits[1:]:

@@ -1,8 +1,9 @@
-"""The 64×64 Darcy kernels that run in thread-block clusters
-(``fused_da_pcn_cluster_kernel``, ``fused_pcn_warm_cluster_kernel``): their
-launch geometry's Python mirror (``ops/_cluster.py``; the card tests hold
-it against the C function) and the plain twins on a ragged width, which
-the kernels' spare CTAs must match on the card."""
+"""The Darcy kernels that run in thread-block clusters (at 64×64
+``fused_da_pcn_cluster_kernel``, ``fused_pcn_warm_cluster_kernel``; at
+32×32 ``fused_pcn_warm_cluster32_kernel``): their launch geometry's Python
+mirror (``ops/_cluster.py``; the card tests hold it against the C
+function) and the plain twins on a ragged width, which the kernels' spare
+CTAs must match on the card."""
 
 import pytest
 import torch
@@ -21,6 +22,14 @@ G = _cluster.CLUSTER_G
 # floats, 24,412 after rounding to 16 bytes), then bf16(r) on 4096 cells
 # and the coefficients 8 × 264
 SMEM = 4 * 24_412 + 2 * (4096 + 8 * 264)
+# the 32² warm pCN kernel's (128 threads, 4 warps, G = 8, the factors
+# through L2): f32 buffers of 5 × 1024 cells, partial sums 4 × 16 × 8, u
+# 8 × 64, the state 3 × 64, 32 warp partials, Φ and a_bar, 8 a_bar and 128
+# eigenvalues (6,506 floats, 6,508 after rounding), then bf16(r) on 1024
+# cells and the coefficients 8 × 136
+SMEM32 = 4 * 6_508 + 2 * (1024 + 8 * 136)
+G32 = _cluster.CLUSTER32_G
+KW32 = dict(d=64, exact_n=32, exact_modes=128, surr_n=None)
 
 
 def test_geometry_of_the_shipped_paths():
@@ -96,23 +105,77 @@ def test_da_twin_on_a_ragged_width_gives_the_first_chains():
     assert rec[2].shape == (2, 13, p.dim) and torch.equal(rec[2][-1], rec[0])
 
 
-def test_warm_pcn_twin_on_a_ragged_width_gives_the_first_chains():
-    """The 64² warm pCN twin on 13 chains in blocks of 8 gives the first 13
-    chains of the 16-chain run."""
-    p = configs.build("darcy64_pcn_warm", "cpu")
+def _warm_twin_ragged(config, seed):
+    p = configs.build(config, "cpu")
     warm, aux_dim = p.batched_warm_potential
-    pos = p.init_positions(torch.Generator().manual_seed(22), 16)
+    pos = p.init_positions(torch.Generator().manual_seed(seed), 16)
     args = (p.prior.mean, p.prior.scale, p.kernel_params["beta"], 9, 3, 8)
     ref = fused_pcn._run_plain(warm._forward_warm_plain, pos, *args, aux_dim=aux_dim)
     got = fused_pcn._run_plain(warm._forward_warm_plain, pos[:13], *args, aux_dim=aux_dim)
     _agree(got, ref)
 
 
+def test_warm_pcn_twin_on_a_ragged_width_gives_the_first_chains():
+    """The 64² warm pCN twin on 13 chains in blocks of 8 gives the first 13
+    chains of the 16-chain run."""
+    _warm_twin_ragged("darcy64_pcn_warm", 22)
+
+
+@pytest.mark.parametrize("seed", [22, 23])
+def test_warm_pcn_twin_at_32_on_a_ragged_width_gives_the_first_chains(seed):
+    """The same at 32² (fused_pcn_warm_cluster32_kernel's twin): 13 chains,
+    two clusters of 8 CTAs on the card, 3 of them spare."""
+    _warm_twin_ragged("darcy32_pcn_warm", seed)
+
+
 def test_cluster_kernel_names():
-    """The launch counts name the 64² cluster kernels apart from the warm
-    pCN kernel of the smaller grids."""
-    big, small = (configs.build(c, "cpu") for c in ("darcy64_pcn_warm", "darcy32_pcn_warm"))
+    """The launch counts name the cluster kernels (64² and 32²) apart from
+    the warm pCN kernel of 16²."""
+    big, mid, small = (configs.build(c, "cpu")
+                       for c in ("darcy64_pcn_warm", "darcy32_pcn_warm", "darcy_pcn_warm"))
     assert fused_pcn._darcy_stem(big.batched_warm_potential[0], True) == (
         "fused_pcn_warm_cluster_kernel")
+    assert fused_pcn._darcy_stem(mid.batched_warm_potential[0], True) == (
+        "fused_pcn_warm_cluster32_kernel")
     assert fused_pcn._darcy_stem(small.batched_warm_potential[0], True) == "fused_pcn_warm_kernel"
     assert fused_pcn._darcy_stem(big.batched_potential_fn, False) == "fused_pcn_kernel"
+
+
+def test_geometry_of_the_32_warm_path():
+    """darcy32_pcn_warm (4096 chains, blocks of 128): G chains a cluster,
+    every chain a CTA, the bytes counted by hand; seven CTAs fit an SM."""
+    p = configs.build("darcy32_pcn_warm", "cpu")
+    warm = p.batched_warm_potential[0]
+    got = _cluster.cluster_geometry(p.n_chains, p.kernel_params["block_chains"], d=p.dim,
+                                    exact_n=warm.n, exact_modes=warm.modes, surr_n=None)
+    assert got == (G32, p.n_chains // G32, p.n_chains, SMEM32)
+    assert SMEM32 == _cluster.smem_bytes32() and 7 * (SMEM32 + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("n, block, clusters", [(13, 8, 2), (13, 13, 2), (16, 4, 2),
+                                                (1, 128, 1), (0, 128, 0), (4095, 128, 512)])
+def test_geometry_32_at_ragged_widths(n, block, clusters):
+    """At 32² too G does not follow block_chains, and a ragged n gets a last
+    cluster of spare CTAs."""
+    assert _cluster.cluster_geometry(n, block, **KW32) == (G32, clusters, clusters * G32, SMEM32)
+
+
+@pytest.mark.parametrize("kw, why", [
+    (dict(surr_n=16), "takes no surrogate"),
+    (dict(exact_modes=100), "multiple of 16"),
+    (dict(exact_modes=144), "up to 128"),
+    (dict(d=65), "d 65 .at most 64"),
+])
+def test_geometry_32_refuses_what_the_kernel_does_not_take(kw, why):
+    """A 32² level with a surrogate, modes not a multiple of 16 or above
+    the layout's 128, d above its K = 64."""
+    with pytest.raises(ValueError, match=why):
+        _cluster.cluster_geometry(64, 64, **{**KW32, **kw})
+
+
+def test_64_geometry_is_unchanged_by_the_32_layout():
+    """The 64² kernels keep their layout: the bytes, G and threads of the
+    shipped design, whatever the 32² kernel's."""
+    assert _cluster.cluster_geometry(1024, 128) == (8, 128, 1024, SMEM)
+    assert _cluster.cluster_geometry(2048, 128, surr_n=None) == (8, 256, 2048, SMEM)
+    assert (_cluster.CLUSTER_G, _cluster.CLUSTER_THREADS) == (8, 512)

@@ -834,7 +834,7 @@ def _cluster_runs(config, record):
 
 
 @pytest.mark.parametrize("record", [False, True])
-@pytest.mark.parametrize("config", ["darcy64_da_fused", "darcy64_pcn_warm"])
+@pytest.mark.parametrize("config", ["darcy64_da_fused", "darcy64_pcn_warm", "darcy32_pcn_warm"])
 def test_cluster_kernel_with_ragged_last_cluster(config, record):
     """13 chains: two clusters of 8 CTAs, the last with 3 spare CTAs that run
     on zeros and store nothing. A chain's draws and its columns of the
@@ -854,17 +854,19 @@ def test_cluster_kernel_with_ragged_last_cluster(config, record):
 
 def test_cluster_geometry_matches_the_kernel():
     """ops/_cluster.py cluster_geometry gives what the C launch computes,
-    for the DA kernel (with its surrogate) and the warm pCN kernel."""
+    for the 64² DA kernel (with its surrogate) and warm pCN kernel, and for
+    the 32² warm pCN kernel."""
     import ctypes
 
     from ip_mcmc_tpu_torch.ops import _cluster
 
     da_p = _build_on_card("darcy64_da_fused")
     pcn_p = _build_on_card("darcy64_pcn_warm")
+    p32 = _build_on_card("darcy32_pcn_warm")
     lib = _build.library()
     warm = pcn_p.batched_warm_potential[0]
     for p, exact, surr in ((da_p, da_p.batched_potential_fn, da_p.batched_surrogate_fn),
-                           (pcn_p, warm, None)):
+                           (pcn_p, warm, None), (p32, p32.batched_warm_potential[0], None)):
         for n, block in ((p.n_chains, 128), (13, 8), (16, 4), (1, 128), (0, 128)):
             pos = torch.zeros(n, p.dim, device="cuda")
             args, _ = da._scaffold.chain_args(pos, p.prior.mean, p.prior.scale, 0, 1, block)
@@ -873,7 +875,7 @@ def test_cluster_geometry_matches_the_kernel():
             ss = None if surr is None else ctypes.byref(surr.spec())
             assert lib.ipx_darcy_cluster_geometry(ctypes.byref(es), ss, ctypes.byref(args),
                                                   out) == 0
-            kw = dict(d=p.dim, exact_modes=exact.modes,
+            kw = dict(d=p.dim, exact_n=exact.n, exact_modes=exact.modes,
                       surr_n=None if surr is None else surr.n,
                       surr_modes=128 if surr is None else surr.modes)
             assert tuple(out) == _cluster.cluster_geometry(n, block, **kw), (n, block)
@@ -903,4 +905,98 @@ def test_cluster_kernels_refuse_what_they_do_not_take():
         out = (ctypes.c_int * 4)()
         status = lib.ipx_darcy_cluster_geometry(ctypes.byref(warm.spec()), None,
                                                 ctypes.byref(args), out)
+        assert "not supported" in lib.ipx_error_string(status).decode()
+
+
+def test_cluster32_kernel_refuses_what_it_does_not_take():
+    """A 32² warm misfit with Jacobi (no modes) or with modes not a multiple
+    of 16, and a grid of the 32² class that is not 32² (24²): the 32² warm
+    pCN cluster kernel refuses them (cudaErrorNotSupported), the geometry
+    function too, and the wrapper raises."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.convert import darcy_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    p = _build_on_card("darcy32_pcn_warm")
+    y = p.batched_potential_fn.data.cpu().numpy()
+    lib = _build.library()
+    pos = p.init_positions(torch.Generator().manual_seed(25), 16).cuda()
+    for n, kw in ((32, dict(precond="jacobi")), (32, dict(precond="dst_trunc", precond_modes=100)),
+                  (24, dict(precond="dst_trunc", precond_modes=128))):
+        aux = darcy.darcy_aux(n_grid=n, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+        warm, aux_dim = darcy_warm_misfit_from_arrays(aux, y, 0.002, cg_iters=4, **kw)
+        warm = warm.cuda()
+        with pytest.raises(RuntimeError, match="launch failed.*not supported"):
+            fused_pcn.fused_pcn_chain_warm(warm, pos, p.prior.mean, p.prior.scale, 0.08, 0,
+                                           n_steps=1, aux_dim=aux_dim, block_chains=16)
+        args, _ = da._scaffold.chain_args(pos, p.prior.mean, p.prior.scale, 0, 1, 16)
+        out = (ctypes.c_int * 4)()
+        status = lib.ipx_darcy_cluster_geometry(ctypes.byref(warm.spec()), None,
+                                                ctypes.byref(args), out)
+        assert "not supported" in lib.ipx_error_string(status).decode()
+
+
+# --- elliptical slice sampling: one warp per chain (fused_ess_warp_kernel) -----
+
+
+@pytest.mark.parametrize("record", [False, True])
+def test_ess_warp_kernel_with_ragged_last_cta(warm_problem, record):
+    """13 chains in blocks of 8: two CTAs of 8 warps, the last with 3 spare
+    warps that run on zeros and store nothing. The 13 chains equal the first
+    13 of the kernel's 16-chain run bit for bit and agree with the plain
+    twin's."""
+    pot = warm_problem.batched_potential_fn
+    pm, ps = warm_problem.prior.mean, warm_problem.prior.scale
+    pos = warm_problem.init_positions(torch.Generator().manual_seed(26), 16).cuda()
+    thin = 1 if record else None
+    name = f"{fused_ess.KERNEL}<{'true' if record else 'false'}>"
+    before = _build.launch_counts[name]
+    got, full = (fused_ess._launch(pot, pos[:n], pm, ps, 9, 3, 6, 8, thin=thin) for n in (13, 16))
+    assert _build.launch_counts[name] == before + 2
+    for g, f in zip(got, full):
+        assert torch.equal(g, f[:, :13] if g.dim() == 3 else f[:13])
+    ref = fused_ess._run_plain(pot._forward_plain, pos, pm, ps, 9, 3, 6, 8, thin=thin)
+    if record:
+        assert got[2].shape == (3, 13, 64) and torch.equal(got[2][-1], got[0])
+        rec = (got[2] - ref[2][:, :13]).abs().amax(dim=(0, 2))
+        assert float((rec <= 1e-4).double().mean()) >= 0.99
+    _chains_agree(got, tuple(r[:13] for r in ref[:2]), 3)
+
+
+def test_ess_warp_geometry_matches_the_kernel(warm_problem):
+    """fused_ess.warp_geometry (Python) gives what the kernel's launch
+    computes."""
+    import ctypes
+
+    pot = warm_problem.batched_potential_fn
+    lib = _build.library()
+    for n, block in ((4096, 256), (13, 8), (13, 13), (20, 4), (0, 256)):
+        pos = torch.zeros(n, 64, device="cuda")
+        args, _ = da._scaffold.chain_args(pos, warm_problem.prior.mean, warm_problem.prior.scale,
+                                          0, 1, block)
+        out = (ctypes.c_int * 3)()
+        assert lib.ipx_ess_warp_geometry(ctypes.byref(pot.spec()), ctypes.byref(args), 6,
+                                         out) == 0
+        ctas, w, smem = fused_ess.warp_geometry(n, block)
+        assert (out[0], out[1], out[2]) == (w, ctas, smem), (n, block)
+
+
+def test_ess_warp_kernel_refuses_what_it_does_not_take(problem):
+    """A dst_trunc misfit (darcy_da_fused's exact level) and a 32² Jacobi
+    misfit: the kernel refuses them (cudaErrorNotSupported) and the wrapper
+    raises; the geometry function says the same."""
+    import ctypes
+
+    big = _build_on_card("darcy32_pcn_warm").batched_potential_fn
+    lib = _build.library()
+    pos = problem.init_positions(torch.Generator().manual_seed(27), 16).cuda()
+    pm, ps = problem.prior.mean, problem.prior.scale
+    for pot in (problem.batched_potential_fn, big):
+        with pytest.raises(RuntimeError, match="launch failed.*not supported"):
+            fused_ess.fused_ess_chain(pot, pos, pm, ps, 0, n_steps=1, max_shrink=2,
+                                      block_chains=16)
+        args, _ = da._scaffold.chain_args(pos, pm, ps, 0, 1, 16)
+        out = (ctypes.c_int * 3)()
+        status = lib.ipx_ess_warp_geometry(ctypes.byref(pot.spec()), ctypes.byref(args), 2, out)
         assert "not supported" in lib.ipx_error_string(status).decode()
