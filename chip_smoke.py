@@ -14,8 +14,8 @@ Gaussians), times both, then drives the ported paths at full width:
                              by Richardson (K17), the CG one beside them
     darcy_pcn_warm           warm-started pCN           (K7)
     darcy32_pcn_warm         warm pCN on 32 x 32 cells  (K5, K7), G chains
-                             a thread-block cluster, the modes' slices
-                             resident in its shared memory
+                             a thread-block cluster, 7 CTAs an SM, the
+                             factors read through L2
     darcy64_pcn_warm         warm pCN on 64 x 64 cells  (K5, K7), G chains
                              a thread-block cluster
     darcy64_da_fused         delayed acceptance on 64 x 64 cells with a

@@ -34,7 +34,6 @@
 #include <cuda_bf16.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "block_reduce.cuh"
 #include "fused_scaffold.cuh"
@@ -1096,24 +1095,10 @@ __device__ float darcy_phi_warp(const L& lv, const float* u) {
 //
 // With the Jacobi preconditioner (z = D^-1 r) a warp's solve needs no other
 // chain and no CTA barrier, so each warp of fused_ess.cu's kernel runs its
-// own data-dependent number of solves. Two levels give it: WarpJacobiLevel,
-// lane l owning cells l + 32 c as WarpLevel does, its dot products the
-// lane's own cells first and one warp_sum; and WarpSliceLevel, whose dot
-// products add in the order in which block_sum adds on a CTA that holds one
-// cell a thread (darcy_cg), so that its solves give that CTA's bits.
-
-// WarpLevel with modes = 0 at compile time: no exchange, no barrier.
-template <int N, bool SHARED>
-struct WarpJacobiLevel : WarpLevel<N, 1, SHARED, false> {
-  static constexpr int kC = N * N / 32;
-  __device__ void precond(const float (&r)[kC], const float (&inv_diag)[kC],
-                          float (&z)[kC]) const {
-#pragma unroll
-    for (int c = 0; c < kC; ++c) z[c] = inv_diag[c] * r[c];
-  }
-  __device__ float phi(const float* u) const { return darcy_phi_warp<kSolverCg>(*this, u); }
-};
-
+// own data-dependent number of solves. WarpSliceLevel gives it, its dot
+// products added in the order in which block_sum adds on a CTA that holds
+// one cell a thread (darcy_cg), so that its solves give that CTA's bits.
+//
 // The 16 x 16 grid in block_sum's order. block_sum over a CTA of 256
 // threads, one cell a thread, adds warp w's cells 32 w + j by warp_sum's
 // butterfly (pairs j ^ 16, then j ^ 8, ^ 4, ^ 2, ^ 1), then 0 + warp 0 + ...
@@ -1125,12 +1110,12 @@ struct WarpJacobiLevel : WarpLevel<N, 1, SHARED, false> {
 // sums round through the warp's shared memory, and every lane adds them in
 // order. Shared memory holds the cells padded by 4 after every 32 (cell t
 // at t + 4 (t / 32)), so that the 32 lanes' k-th cells, and each of their
-// neighbours, fall in 32 distinct banks; the staged basis likewise.
-template <bool SHARED>
+// neighbours, fall in 32 distinct banks; the basis, staged once a CTA in
+// shared memory, likewise.
 struct WarpSliceLevel {
   static constexpr int kN = 16, kCells = 256, kC = 8, kStride = 288, kK = 64;
   const IpxMisfitSpec* s;
-  const float* basis;  // (64, kStride) staged, padded; else (64, 256) in global memory
+  const float* basis;  // (64, kStride) staged, padded
   WarpSmem ws;         // p, th, tv: kStride floats each
 
   static __device__ __forceinline__ int pad(int t) { return t + 4 * (t >> 5); }
@@ -1151,7 +1136,9 @@ struct WarpSliceLevel {
       base[(e / kCells) * kStride + pad(e % kCells)] = s.basis[e];
     return base;
   }
-  static constexpr size_t staged_bytes() { return sizeof(float) * kK * kStride; }
+  __host__ __device__ static constexpr size_t staged_bytes() {
+    return sizeof(float) * kK * kStride;
+  }
 
   __device__ void precond(const float (&r)[kC], const float (&inv_diag)[kC],
                           float (&z)[kC]) const {
@@ -1189,14 +1176,13 @@ struct WarpSliceLevel {
     float a[kC], acc[kC];
 #pragma unroll
     for (int k = 0; k < kC; ++k) acc[k] = 0.0f;
-    if constexpr (SHARED) __builtin_assume(__isShared(basis));
+    __builtin_assume(__isShared(basis));
 #pragma unroll 8
     for (int m = 0; m < kK; ++m) {
       const float um = u[m];
 #pragma unroll
       for (int k = 0; k < kC; ++k) {
-        const float bv = SHARED ? basis[m * kStride + at(k)] : basis[m * kCells + cell(k)];
-        acc[k] += bv * um;
+        acc[k] += basis[m * kStride + at(k)] * um;
       }
     }
 #pragma unroll
@@ -1282,8 +1268,7 @@ struct WarpSliceLevel {
 };
 
 // apply_operator_warp on a WarpSliceLevel (darcy_cg_warp's stencil)
-template <bool SHARED>
-__device__ __forceinline__ void apply_operator_warp(const WarpSliceLevel<SHARED>& lv,
+__device__ __forceinline__ void apply_operator_warp(const WarpSliceLevel& lv,
                                                     const WarpOperator<8>& op, const float (&p)[8],
                                                     float (&Ap)[8]) {
   lv.stencil(op, p, Ap);
@@ -1358,17 +1343,13 @@ struct ClusterDesign { static constexpr int kG = 8, kCells = 8, kThreads = 512, 
 // The 32 x 32 warm pCN kernel (fused_pcn_warm_cluster32_kernel;
 // scripts/measure_pcn32_cluster_design.py times the alternatives): kG
 // chains (CTAs) a cluster, kCells cells a thread on kThreads threads,
-// kMinCtas CTAs an SM for the launch bound; kResident: which factors each
-// CTA keeps in shared memory for the whole launch (kResidentV: its slices
-// of the modes, a rows slice for V bf16(r) and a columns slice for V^T
-// coef; kResidentBasis: its cells slice of the KL basis), the rest read
-// through L2; kMmaCoef, kMmaBack: V bf16(r) and V^T coef on the tensor
-// cores, else as f32 FMAs on the CUDA cores. Keeping the factors resident
-// fits (two 32 KB slices of V at G = 8) but leaves room for two CTAs an
-// SM; the cluster's chain of barriers runs faster at seven small CTAs an
-// SM with the factors through L2 (PERF.md).
-constexpr int kResidentV = 1, kResidentBasis = 2;
-struct Cluster32Design { static constexpr int kG = 8, kCells = 8, kThreads = 128, kMinCtas = 8, kResident = 0; static constexpr bool kMmaCoef = true, kMmaBack = true; };
+// kMinCtas CTAs an SM for the launch bound. It reads the factors through
+// L2 and runs both products on the tensor cores, as the 64 x 64 exact
+// level does. Keeping a CTA's slices of the factors in shared memory for
+// the launch fits at 32 x 32 (two 32 KB slices of V at G = 8) but leaves
+// room for two CTAs an SM; the cluster's chain of barriers runs faster at
+// seven small CTAs an SM with the factors through L2 (PERF.md).
+struct Cluster32Design { static constexpr int kG = 8, kCells = 8, kThreads = 128, kMinCtas = 8; };
 
 // The grids the cluster kernels take, and the largest K (= d) and number
 // of dst_trunc modes (the exact level's; the surrogate's) their shared
@@ -1380,11 +1361,8 @@ constexpr int kCluster32N = 32, kCluster32MaxK = 64, kCluster32MaxModes = 128;
 // The shared memory of a CTA of the cluster kernels (the same in every CTA,
 // so that a peer's buffer is this CTA's offset mapped to its rank), for
 // levels of up to CELLS cells, G chains a cluster on THREADS threads, K up
-// to MAX_K and MAX_MODES dst_trunc modes; after each part of it a region of
-// RES_F32 floats and of RES_BF16 bf16 values that a level keeps for the
-// launch (ClusterRegion32: none in the 64 x 64 kernels).
-template <int CELLS, int G, int THREADS, int MAX_K, int MAX_MODES, int RES_F32 = 0,
-          int RES_BF16 = 0>
+// to MAX_K and MAX_MODES dst_trunc modes.
+template <int CELLS, int G, int THREADS, int MAX_K, int MAX_MODES>
 struct ClusterSmemT {
   static constexpr int kCells = CELLS, kG = G, kMaxK = MAX_K, kMaxModes = MAX_MODES;
   static constexpr int kNT = (kG + 7) / 8, kWarps = THREADS / 32;
@@ -1401,14 +1379,12 @@ struct ClusterSmemT {
   static constexpr int kAbar = kScalar + 1;                    // [1] this chain's a_bar
   static constexpr int kAbarAll = kAbar + 1;                   // [G] the cluster's a_bar
   static constexpr int kLam = kAbarAll + kG;  // [modes] eigenvalues of this CTA's modes slice
-  static constexpr int kResF32 = (kLam + MAX_MODES + 3) / 4 * 4;  // [RES_F32] the level's region
-  static constexpr int kF32 = (kResF32 + RES_F32 + 3) / 4 * 4;  // floats before the bf16 ones
+  static constexpr int kF32 = (kLam + MAX_MODES + 3) / 4 * 4;  // floats before the bf16 ones
   // bf16 offsets after the floats
   static constexpr int kRb = 0;                                // [cells] this chain's bf16(r)
   static constexpr int kCbStride = MAX_MODES + 8;              // 4 words mod 32: no bank conflict
   static constexpr int kCb = kRb + kCells;                     // [G][kCbStride] the coefficients
-  static constexpr int kResBf16 = kCb + kG * kCbStride;        // [RES_BF16] the level's region
-  static constexpr int kBytes = 4 * kF32 + 2 * (kResBf16 + RES_BF16);
+  static constexpr int kBytes = 4 * kF32 + 2 * (kCb + kG * kCbStride);
 };
 
 // The layout of the 64 x 64 kernels.
@@ -1477,51 +1453,16 @@ __device__ void cta_tile_products(int tiles, int ksteps, MAC mac, F finish) {
   }
 }
 
-// What a level of its own layout (the 32 x 32 warm pCN kernel's) keeps in
-// shared memory for the whole launch, in the layout's regions
-// (ClusterSmemT), by the design's choices: with kResidentV its rows slice
-// of V (the modes of its mode tiles on every cell, rows padded by 32
-// elements so that the 16-byte loads of a quarter warp fall in distinct
-// banks) and its columns slice (every mode on the cells of its slice:
-// [modes][slice + 8], so that the tensor cores' 32-bit loads of a warp
-// fall in distinct banks, or transposed, [slice][modes + 8], as the CUDA
-// cores read it; V^T coef on the CUDA cores keeps that one whatever
-// kResident says); the cluster's bf16(r) when V bf16(r) runs on the CUDA
-// cores; with kResidentBasis its cells slice of the KL basis, [K][slice]
-// f32. The rest is read through L2. NoRegion: the 64 x 64 kernels' levels,
-// whose surrogate stages its columns in the free floats each outer step.
-struct NoRegion {
-  static constexpr bool kV = false, kBasis = false;
-};
-template <int G, bool MMA_COEF, bool MMA_BACK, int RESIDENT>
-struct ClusterRegion32 {
-  static constexpr int kCells = kCluster32N * kCluster32N, kSlice = kCells / G;
-  static constexpr int kModes = kCluster32MaxModes;
-  static constexpr bool kV = RESIDENT & kResidentV, kBasis = RESIDENT & kResidentBasis;
-  static constexpr int kRowStride = kCells + 32, kRows = (kModes / 16 + G - 1) / G * 16;
-  static constexpr int kColStride = MMA_BACK ? kSlice + 8 : kModes + 8;
-  static constexpr int kColRows = MMA_BACK ? kModes : kSlice;
-  static constexpr bool kCols = kV || !MMA_BACK;
-  // bf16 offsets in the region
-  static constexpr int kVRows = 0;
-  static constexpr int kVCols = kVRows + (kV ? kRows * kRowStride : 0);
-  static constexpr int kRAll = kVCols + (kCols ? kColRows * kColStride : 0);
-  static constexpr int kBf16 = kRAll + (MMA_COEF ? 0 : G * kCells);
-  static constexpr int kF32 = kBasis ? kCluster32MaxK * kSlice : 0;  // the basis at f32 offset 0
-};
-
 // One level of the cluster-level solve: an N x N grid on T threads, C cells
 // a thread (every thread owns C cells), G chains a cluster, each of the
 // preconditioner's products (V bf16(r): MMA_COEF; V^T coef: MMA_BACK) on
-// the tensor cores or the CUDA cores, its spec, the shared-memory layout
-// SMEM it runs in, and what it keeps there for the launch (REGION).
-template <int N, int C, int T, int G, bool MMA_COEF, bool MMA_BACK, class SMEM = ClusterSmem,
-          class REGION = NoRegion>
+// the tensor cores or the CUDA cores, its spec, and the shared-memory
+// layout SMEM it runs in.
+template <int N, int C, int T, int G, bool MMA_COEF, bool MMA_BACK, class SMEM = ClusterSmem>
 struct ClusterLevel {
   using Smem = SMEM;
   static constexpr int kN = N, kCells = N * N, kC = C, kG = G;
   static constexpr int kSlice = kCells / G;  // cells of a CTA's slice
-  static constexpr bool kOwnRegion = !std::is_same_v<REGION, NoRegion>;
   static_assert(C * T == kCells, "every thread owns C cells");
   static_assert(kSlice % 16 == 0 && (T % kSlice == 0 || kSlice % T == 0),
                 "a cells slice is whole mma tiles and fits the threads");
@@ -1538,64 +1479,9 @@ struct ClusterLevel {
   // 32 so that 8 lanes' 16-byte loads of 8 cells fall in distinct banks
   static constexpr int kVStride = kMaxModes + 8;
   static constexpr int kKlBatch = 16;  // basis loads a thread keeps in flight
-  // where the products read V and the KL sums the basis: this CTA's
-  // resident slices, or the global arrays (row strides in elements)
-  static constexpr int kVRowStride = REGION::kV ? kCells + 32 : kCells;
-  static constexpr int kVColStride = REGION::kV ? kSlice + 8 : kCells;
-  static constexpr int kBasisStride = REGION::kBasis ? kSlice : kCells;
   static_assert(Smem::kMaxModes / 16 / G < T / 32, "the mode tiles of V.r split over warps");
   static_assert(G + Smem::kMaxModes / G <= T, "a thread a cluster a_bar or slice eigenvalue");
   const IpxMisfitSpec* s;
-
-  __device__ __forceinline__ __nv_bfloat16* region_bf16(int offset) const {
-    return cluster_bf16<Smem>(Smem::kResBf16 + offset);
-  }
-
-  // With a region of its own: copies this CTA's slices of the factors that
-  // the design keeps resident (and, with V^T coef on the CUDA cores, its
-  // columns of V whatever it keeps) into it, 16-byte loads all in flight.
-  // Every thread of the CTA calls once, before the first solve, whose first
-  // cluster barrier orders the copies before their reads.
-  __device__ void stage() const {
-    if constexpr (kOwnRegion) {
-      const int rho = static_cast<int>(cg::this_cluster().block_rank()), c0 = rho * kSlice;
-      const int modes = s->modes;
-      const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(s->V);
-      if constexpr (REGION::kV) {  // rows: the modes of this CTA's mode tiles, every cell
-        const int mtiles = modes / 16, per = (mtiles + G - 1) / G, tile0 = rho * per;
-        const int rows = 16 * max(0, min(per, mtiles - tile0));
-        __nv_bfloat16* vr = region_bf16(REGION::kVRows);
-        for (int e = threadIdx.x; e < rows * (kCells / 8); e += T) {
-          const int m = e / (kCells / 8), c = 8 * (e % (kCells / 8));
-          *reinterpret_cast<uint4*>(vr + m * REGION::kRowStride + c) =
-              *reinterpret_cast<const uint4*>(V + static_cast<size_t>(tile0 * 16 + m) * kCells + c);
-        }
-      }
-      if constexpr (REGION::kCols) {  // columns: every mode on this CTA's cells slice
-        __nv_bfloat16* vc = region_bf16(REGION::kVCols);
-        for (int e = threadIdx.x; e < modes * (kSlice / 8); e += T) {
-          const int m = e / (kSlice / 8), c = 8 * (e % (kSlice / 8));
-          const uint4 q = *reinterpret_cast<const uint4*>(V + static_cast<size_t>(m) * kCells +
-                                                          c0 + c);
-          if constexpr (MMA_BACK) {
-            *reinterpret_cast<uint4*>(vc + m * REGION::kColStride + c) = q;
-          } else {
-            const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&q);
-#pragma unroll
-            for (int i = 0; i < 8; ++i) vc[(c + i) * REGION::kColStride + m] = v[i];
-          }
-        }
-      }
-      if constexpr (REGION::kBasis) {  // this CTA's cells slice of every mode of the basis
-        float* b = cluster_f32(Smem::kResF32);
-        for (int e = threadIdx.x; e < s->K * (kSlice / 4); e += T) {
-          const int k = e / (kSlice / 4), c = 4 * (e % (kSlice / 4));
-          *reinterpret_cast<float4*>(b + k * kSlice + c) =
-              *reinterpret_cast<const float4*>(s->basis + static_cast<size_t>(k) * kCells + c0 + c);
-        }
-      }
-    }
-  }
 
   // a = exp(log_a_mean + basis^T u) on this CTA's cells slice for the
   // cluster's chains, each written to its chain's cell_a; u: this chain's
@@ -1609,11 +1495,9 @@ struct ClusterLevel {
     cl.sync();  // every chain's u is written; the last solve's reads of cell_a are done
     for (int e = tid; e < G * K; e += T) uall[e] = cl.map_shared_rank(u, e / K)[e % K];
     __syncthreads();
-    const int slice0 = rho * kSlice;
-    // basis[k * kBasisStride + cell]: a row of the global basis, or of this
-    // CTA's resident slice (which starts at cell slice0)
-    const float* basis = REGION::kBasis ? cluster_f32(Smem::kResF32) - slice0 : s->basis;
+    const float* basis = s->basis;
     const float mean = s->log_a_mean;
+    const int slice0 = rho * kSlice;
     if constexpr (T % kSlice == 0) {  // a cell a thread, the chains ch0, ch0 + R, ...
       constexpr int R = T / kSlice, J = (G + R - 1) / R;
       const int cell = slice0 + tid % kSlice, ch0 = tid / kSlice;
@@ -1624,7 +1508,7 @@ struct ClusterLevel {
         float b[kKlBatch];
 #pragma unroll
         for (int i = 0; i < kKlBatch; ++i)
-          b[i] = k0 + i < K ? basis[static_cast<size_t>(k0 + i) * kBasisStride + cell] : 0.0f;
+          b[i] = k0 + i < K ? basis[static_cast<size_t>(k0 + i) * kCells + cell] : 0.0f;
 #pragma unroll
         for (int i = 0; i < kKlBatch; ++i)
 #pragma unroll
@@ -1644,7 +1528,7 @@ struct ClusterLevel {
           float b[kKlBatch];
 #pragma unroll
           for (int i = 0; i < kKlBatch; ++i)
-            b[i] = k0 + i < K ? basis[static_cast<size_t>(k0 + i) * kBasisStride + cell] : 0.0f;
+            b[i] = k0 + i < K ? basis[static_cast<size_t>(k0 + i) * kCells + cell] : 0.0f;
 #pragma unroll
           for (int i = 0; i < kKlBatch; ++i)
 #pragma unroll
@@ -1664,10 +1548,9 @@ struct ClusterLevel {
   // loads all in flight. They stay there through the level's solves, until
   // a solve of the other level, whose per-cell arrays cover them; every
   // thread of the CTA calls, and a barrier must follow before a solve reads
-  // them (the set-up's first). A level with a region of its own staged
-  // them there once (stage).
+  // them (the set-up's first).
   __device__ void stage_columns() const {
-    if constexpr (!MMA_BACK && !kOwnRegion) {
+    if constexpr (!MMA_BACK) {
       static_assert(2 * kSlice * kVStride <= 4 * kFreeFloats,
                     "the free floats hold the slice's columns of V");
       constexpr int kRow = kSlice / 8;  // 16-byte loads a mode
@@ -1721,18 +1604,14 @@ struct ClusterLevel {
       // 8t..8t+7 of the chunk, of V's rows g and g + 8 and of chain g's
       // bf16(r), one 16-byte load each (the sum is over the cells, so their
       // order in the mma's k slots is free: step 0 takes cells 8t..8t+3 in
-      // slots 2t, 2t + 1, 2t + 8, 2t + 9; step 1 cells 8t + 4..8t + 7).
-      // V's rows: global, or the resident rows of this CTA's tiles
+      // slots 2t, 2t + 1, 2t + 8, 2t + 9; step 1 cells 8t + 4..8t + 7)
       cta_tile_products<G, Smem>(
           tiles, kCells / 32,
           [&](float(&acc)[(G + 7) / 8][4], int tile, int k) {
-            const __nv_bfloat16* row;
-            if constexpr (REGION::kV)
-              row = region_bf16(REGION::kVRows) + (tile * 16 + g) * kVRowStride + k * 32 + 8 * t;
-            else
-              row = V + static_cast<size_t>((tile0 + tile) * 16 + g) * kCells + k * 32 + 8 * t;
+            const __nv_bfloat16* row = V + static_cast<size_t>((tile0 + tile) * 16 + g) * kCells +
+                                       k * 32 + 8 * t;
             const uint4 lo = *reinterpret_cast<const uint4*>(row);
-            const uint4 hi = *reinterpret_cast<const uint4*>(row + 8 * kVRowStride);
+            const uint4 hi = *reinterpret_cast<const uint4*>(row + 8 * kCells);
             const uint32_t a0[4] = {lo.x, hi.x, lo.y, hi.y}, a1[4] = {lo.z, hi.z, lo.w, hi.w};
 #pragma unroll
             for (int nt = 0; nt < (G + 7) / 8; ++nt) {
@@ -1750,25 +1629,18 @@ struct ClusterLevel {
       // columns of V), then a warp a mode of the slice: lane l sums, for
       // every chain, cells 8 l..8 l + 7 of each block of 256 in order
       // (16-byte loads), the blocks in order, then a warp sum: f32 FMAs on
-      // the CUDA cores (a level with a region of its own keeps the cluster's
-      // r there)
-      static_assert(kOwnRegion ||
-                        2 * G * kCells + (MMA_BACK ? 0 : 2 * kSlice * kVStride) <= 4 * kFreeFloats,
+      // the CUDA cores
+      static_assert(2 * G * kCells + (MMA_BACK ? 0 : 2 * kSlice * kVStride) <= 4 * kFreeFloats,
                     "the free floats hold the cluster's r");
-      uint4* rb_all;
-      if constexpr (kOwnRegion) rb_all = reinterpret_cast<uint4*>(region_bf16(REGION::kRAll));
-      else
-        rb_all = reinterpret_cast<uint4*>(
-            cluster_f32(kArrFree + (MMA_BACK ? 0 : kSlice * kVStride / 2)));
+      uint4* rb_all = reinterpret_cast<uint4*>(
+          cluster_f32(kArrFree + (MMA_BACK ? 0 : kSlice * kVStride / 2)));
       for (int e = threadIdx.x; e < G * kCells / 8; e += blockDim.x)
         rb_all[e] = reinterpret_cast<const uint4*>(cl.map_shared_rank(rb, e / (kCells / 8)))[
             e % (kCells / 8)];
       __syncthreads();  // the cluster's r, a_bar and the eigenvalues
       const int w = threadIdx.x >> 5, nw = blockDim.x >> 5;
       for (int mi = w; mi < tiles * 16; mi += nw) {
-        const __nv_bfloat16* row =
-            REGION::kV ? region_bf16(REGION::kVRows) + mi * kVRowStride
-                       : V + static_cast<size_t>(tile0 * 16 + mi) * kCells;
+        const __nv_bfloat16* row = V + static_cast<size_t>(tile0 * 16 + mi) * kCells;
         float acc[G];
 #pragma unroll
         for (int ch = 0; ch < G; ++ch) acc[ch] = 0.0f;
@@ -1802,18 +1674,14 @@ struct ClusterLevel {
       // g), 1, 3, ..., 15 (rows g + 8), so that lane (g, t) reads cells
       // 2g, 2g + 1 of a mode's row in one 32-bit word and a warp's load
       // covers 32 contiguous bytes of four rows of V; a byte permute pairs
-      // the two modes of one cell. V's columns: global, or this CTA's
-      // resident ones
+      // the two modes of one cell
       cta_tile_products<G, Smem>(
           kSlice / 16, modes / 16,
           [&](float(&acc)[(G + 7) / 8][4], int tile, int k) {
-            const __nv_bfloat16* p;
-            if constexpr (REGION::kV)
-              p = region_bf16(REGION::kVCols) + (k * 16 + 2 * t) * kVColStride + tile * 16 + 2 * g;
-            else
-              p = V + static_cast<size_t>(k * 16 + 2 * t) * kCells + c0 + tile * 16 + 2 * g;
-            const uint32_t w0 = ld_pair(p), w1 = ld_pair(p + kVColStride);
-            const uint32_t w2 = ld_pair(p + 8 * kVColStride), w3 = ld_pair(p + 9 * kVColStride);
+            const __nv_bfloat16* p =
+                V + static_cast<size_t>(k * 16 + 2 * t) * kCells + c0 + tile * 16 + 2 * g;
+            const uint32_t w0 = ld_pair(p), w1 = ld_pair(p + kCells);
+            const uint32_t w2 = ld_pair(p + 8 * kCells), w3 = ld_pair(p + 9 * kCells);
             const uint32_t a[4] = {__byte_perm(w0, w1, 0x5410), __byte_perm(w0, w1, 0x7632),
                                    __byte_perm(w2, w3, 0x5410), __byte_perm(w2, w3, 0x7632)};
 #pragma unroll
@@ -1828,12 +1696,10 @@ struct ClusterLevel {
       // a thread a cell of the slice and the chains q, q + R, ...: f32
       // FMAs on the CUDA cores over the modes in ascending order, the order
       // of a plain f32 product, from the slice's columns of V staged by
-      // stage_columns or stage (the tensor cores sum V^T coef, an f32 term
-      // of z, in another order, and part more chains from the plain twin)
+      // stage_columns (the tensor cores sum V^T coef, an f32 term of z, in
+      // another order, and part more chains from the plain twin)
       constexpr int R = T >= kSlice ? T / kSlice : 1, J = (G + R - 1) / R;
-      const __nv_bfloat16* vs;
-      if constexpr (kOwnRegion) vs = region_bf16(REGION::kVCols);
-      else vs = reinterpret_cast<const __nv_bfloat16*>(cluster_f32(kArrFree));
+      const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(cluster_f32(kArrFree));
       for (int e = threadIdx.x; e < kSlice * R; e += blockDim.x) {
         const int cell = e % kSlice, q = e / kSlice;
         float acc[J];
@@ -2012,17 +1878,13 @@ using ClusterSurr = ClusterLevel<kClusterSurrN, kClusterSurrC, ClusterDesign::kT
                                  ClusterDesign::kSurrMmaBack>;
 
 // The level of the 32 x 32 warm pCN kernel, in a layout of its own sized
-// for 32 x 32 cells, K up to 64 and 128 modes, with the region of the
-// factors its design keeps resident.
-using Cluster32Region = ClusterRegion32<Cluster32Design::kG, Cluster32Design::kMmaCoef,
-                                        Cluster32Design::kMmaBack, Cluster32Design::kResident>;
+// for 32 x 32 cells, K up to 64 and 128 modes.
 using Cluster32Smem =
     ClusterSmemT<kCluster32N * kCluster32N, Cluster32Design::kG, Cluster32Design::kThreads,
-                 kCluster32MaxK, kCluster32MaxModes, Cluster32Region::kF32, Cluster32Region::kBf16>;
+                 kCluster32MaxK, kCluster32MaxModes>;
 using Cluster32Exact =
     ClusterLevel<kCluster32N, Cluster32Design::kCells, Cluster32Design::kThreads,
-                 Cluster32Design::kG, Cluster32Design::kMmaCoef, Cluster32Design::kMmaBack,
-                 Cluster32Smem, Cluster32Region>;
+                 Cluster32Design::kG, true, true, Cluster32Smem>;
 
 // The launch of a cluster kernel: chains (CTAs) a cluster, clusters, CTAs
 // (a multiple of G: the spare CTAs of a ragged last cluster run on zeros),

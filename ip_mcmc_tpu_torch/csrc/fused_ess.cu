@@ -23,21 +23,21 @@
 // dot products. One chain a CTA of 256 threads (the first design, 1.83 ms a
 // step at 4096 chains) paid three CTA barriers a CG iteration, two of them
 // block reductions, at 4 CTAs an SM. So the kernel runs one chain a warp
-// on fused_scaffold.cuh's run_warp_chain: lane l owns cells l, l + 32, ...
-// (8 of them) and coordinates l, l + 32 of d = 64; the dot products are
+// on fused_scaffold.cuh's run_warp_chain: lane l owns eight cells of one
+// 32-cell slice and coordinates l, l + 32 of d = 64; the dot products are
 // shuffles, the stencil reads the warp's own shared memory after
 // __syncwarp, and the Jacobi preconditioner needs no other chain
-// (WarpJacobiLevel in darcy_misfit.cuh), so each warp runs its own shrink
+// (WarpSliceLevel in darcy_misfit.cuh), so each warp runs its own shrink
 // loop and nothing makes the warps of a CTA step together. Its dot
-// products keep block_sum's order (slices_sum), so that the chains take the
-// bits of the one-chain-a-CTA kernel. The design is the line
-// EssWarpDesign (scripts/measure_ess_warp_design.py times the alternatives,
-// PERF.md the numbers).
+// products add in block_sum's order (WarpSliceLevel::dot), so that the
+// chains take the bits of the one-chain-a-CTA kernel; the KL basis is
+// staged in shared memory once a CTA. The design is the line EssWarpDesign
+// (scripts/measure_ess_warp_design.py times the alternatives, PERF.md the
+// numbers).
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
 #include "darcy_misfit.cuh"
 #include "fused_scaffold.cuh"
@@ -46,45 +46,15 @@ namespace ipx {
 
 // The design: kWarps chains a CTA at most, one a warp; the launch bound's
 // warps an SM (kSmWarps: 32 caps a thread at 65536 / 1024 = 64 registers,
-// 24 at 80, 16 at 128); the KL basis staged in shared memory once a CTA
-// (kBasisStaged, else read through L2); the dot products in block_sum's
-// order (kOrderedSums, else the lane's own cells first).
-struct EssWarpDesign { static constexpr int kWarps = 16, kSmWarps = 16; static constexpr bool kBasisStaged = true, kOrderedSums = true; };
+// 24 at 80, 16 at 128).
+struct EssWarpDesign { static constexpr int kWarps = 16, kSmWarps = 16; };
 constexpr int kEssWarpMinCtas = EssWarpDesign::kSmWarps >= 2 * EssWarpDesign::kWarps
                                     ? EssWarpDesign::kSmWarps / EssWarpDesign::kWarps
                                     : 1;
 constexpr int kEssN = 16, kEssD = 64;
-// The level: the dot products in block_sum's order (WarpSliceLevel), or
-// the lane's own cells first (WarpJacobiLevel).
-using EssLevel = std::conditional_t<EssWarpDesign::kOrderedSums,
-                                    WarpSliceLevel<EssWarpDesign::kBasisStaged>,
-                                    WarpJacobiLevel<kEssN, EssWarpDesign::kBasisStaged>>;
-// a warp's slice: pos, prop (64 each), then p, th, tv (the level's cells,
-// padded or not); before the slices, every warp's a_bar (32 floats, what
-// darcy_setup_warp writes), and before that the staged basis
-constexpr int kEssStride =
-    EssWarpDesign::kOrderedSums ? WarpSliceLevel<true>::kStride : kEssN * kEssN;
-constexpr int kEssWarpFloats = 2 * kEssD + 3 * kEssStride, kEssAbarBytes = 4 * 32;
-
-// Bytes of the staged basis of `s` (0 when read through L2).
-__host__ __device__ inline size_t ess_basis_bytes(const IpxMisfitSpec& s) {
-  if (!EssWarpDesign::kBasisStaged) return 0;
-  return EssWarpDesign::kOrderedSums ? WarpSliceLevel<true>::staged_bytes() : warp_staged_bytes(s);
-}
-
-// The level on the spec `s`, its basis staged at `staged` when the design
-// says (every thread of the CTA calls; a barrier must follow), the warp's
-// workspace ws and the CTA's a_bar row.
-template <class L>
-__device__ L ess_level(const IpxMisfitSpec& s, float* staged, float* abar, const WarpSmem& ws) {
-  constexpr bool kStaged = EssWarpDesign::kBasisStaged;
-  if constexpr (EssWarpDesign::kOrderedSums) {
-    return L{&s, kStaged ? L::stage(s, staged) : s.basis, ws};
-  } else {
-    const auto f = level_factors<kStaged>(s, reinterpret_cast<unsigned char*>(staged));
-    return L{{&s, f, {nullptr, nullptr, nullptr, abar}, ws}};
-  }
-}
+// a warp's slice: pos, prop (64 each), then p, th, tv (the level's padded
+// cells); before the slices, the staged basis
+constexpr int kEssWarpFloats = 2 * kEssD + 3 * WarpSliceLevel::kStride;
 
 struct EssArgs {
   IpxMisfitSpec pot;
@@ -96,7 +66,7 @@ struct EssArgs {
 // K8 on a warp: the lane holds coordinates l and l + 32 of pos and prop.
 struct EssWarpStep {
   const EssArgs& a;
-  EssLevel lv;
+  WarpSliceLevel lv;
   float* pos;
   float* prop;
   float phi;
@@ -140,15 +110,13 @@ template <bool RECORD>
 __global__ void __launch_bounds__(32 * EssWarpDesign::kWarps, kEssWarpMinCtas)
     fused_ess_warp_kernel(const __grid_constant__ EssArgs a) {
   extern __shared__ float4 ess_warp_smem[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(ess_warp_smem);
-  float* staged = reinterpret_cast<float*>(base);
-  base += ess_basis_bytes(a.pot);
-  float* abar = reinterpret_cast<float*>(base);
-  float* w =
-      reinterpret_cast<float*>(base + kEssAbarBytes) + (threadIdx.x >> 5) * kEssWarpFloats;
-  const WarpSmem ws{w + 2 * kEssD, w + 2 * kEssD + kEssStride, w + 2 * kEssD + 2 * kEssStride};
-  const EssLevel lv = ess_level<EssLevel>(a.pot, staged, abar, ws);
-  if (EssWarpDesign::kBasisStaged) __syncthreads();  // the staged basis
+  constexpr int kStride = WarpSliceLevel::kStride;
+  float* staged = reinterpret_cast<float*>(ess_warp_smem);
+  float* w = staged + WarpSliceLevel::staged_bytes() / sizeof(float) +
+             (threadIdx.x >> 5) * kEssWarpFloats;
+  const WarpSmem ws{w + 2 * kEssD, w + 2 * kEssD + kStride, w + 2 * kEssD + 2 * kStride};
+  const WarpSliceLevel lv{&a.pot, WarpSliceLevel::stage(a.pot, staged), ws};
+  __syncthreads();  // the staged basis
   EssWarpStep step{a, lv, w, w + kEssD, 0.0f};
   run_warp_chain<RECORD>(a.chain, step, w);
 }
@@ -175,7 +143,7 @@ inline int ess_warp_geometry(const IpxMisfitSpec& s, const IpxChainArgs& chain, 
   while (chain.block_chains % w) w /= 2;
   geo->warps = w;
   geo->ctas = (chain.n + w - 1) / w;
-  geo->smem = ess_basis_bytes(s) + kEssAbarBytes + sizeof(float) * kEssWarpFloats * w;
+  geo->smem = WarpSliceLevel::staged_bytes() + sizeof(float) * kEssWarpFloats * w;
   return geo->smem <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -20,9 +20,9 @@
 //                                  follows the MH select (up to 16 x 16).
 //   fused_pcn_warm_cluster_kernel<RECORD>  the same on 64 x 64, G chains
 //                                  a thread-block cluster.
-//   fused_pcn_warm_cluster32_kernel<RECORD>  the same on 32 x 32, the
-//                                  factors' slices resident in the
-//                                  cluster's shared memory.
+//   fused_pcn_warm_cluster32_kernel<RECORD>  the same on 32 x 32, in a
+//                                  layout of its own at 7 CTAs an SM, the
+//                                  factors read through L2.
 //
 // Layout and scaffold: fused_scaffold.cuh (one CTA per chain) and the
 // Darcy layouts of darcy_misfit.cuh: up to 16 x 16 one thread per cell; the
@@ -259,8 +259,7 @@ __global__ void __launch_bounds__(ClusterDesign::kThreads, ClusterDesign::kMinCt
 }
 
 // The same on the 32 x 32 grid (darcy32_pcn_warm): its own layout and
-// design (Cluster32Design), each CTA keeping its slices of the factors
-// that the design makes resident in shared memory for the whole launch.
+// design (Cluster32Design), the factors read through L2.
 template <bool RECORD>
 __global__ void __launch_bounds__(Cluster32Design::kThreads, Cluster32Design::kMinCtas)
     fused_pcn_warm_cluster32_kernel(const __grid_constant__ PcnArgs<DarcyPotential> a) {
@@ -268,7 +267,6 @@ __global__ void __launch_bounds__(Cluster32Design::kThreads, Cluster32Design::kM
   float* state = cluster_f32(Cluster32Smem::kState);
   const bool live = static_cast<int>(blockIdx.x) < a.chain.n;
   PcnClusterStep<Cluster32Exact> step{a, {&a.pot}, state, state + d, live, 0.0f, {}};
-  step.lv.stage();  // ordered before its reads by the first set-up's cluster barrier
   run_cluster_chain<RECORD>(a.chain, step, state, live);
   cg::this_cluster().sync();  // no peer reads this CTA's shared memory after it exits
 }

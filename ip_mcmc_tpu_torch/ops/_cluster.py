@@ -4,10 +4,9 @@ and ``fused_pcn_warm_cluster_kernel`` (``darcy64_pcn_warm``), at 32×32
 ``fused_pcn_warm_cluster32_kernel`` (``darcy32_pcn_warm``).
 
 One chain runs per CTA, and the G CTAs of a cluster share each read of the
-factors (``ClusterLevel`` in ``csrc/darcy_misfit.cuh``); at 32×32 in a
-layout of its own, whose design may keep each CTA's slices of the factors
-in shared memory for the launch (the shipped one reads them through L2, at
-seven CTAs an SM). ``cluster_geometry`` mirrors ``cluster_geometry`` there;
+factors (``ClusterLevel`` in ``csrc/darcy_misfit.cuh``), read through L2;
+at 32×32 in a layout of its own, at seven CTAs an SM. ``cluster_geometry``
+mirrors ``cluster_geometry`` there;
 ``ipx_darcy_cluster_geometry`` returns the C side's, and the card tests and
 ``chip_smoke.py`` hold the two equal.
 """
@@ -21,58 +20,35 @@ MAX_SMEM_BYTES = 232_448  # what a CTA of the H100 may use
 # the largest K (= d) and dst_trunc modes (exact level, surrogate) the
 # kernels' shared memory holds
 MAX_K, MAX_MODES, MAX_SURR_MODES = 144, 256, 128
-# Cluster32Design: chains a cluster, threads a CTA, the factors each CTA
-# keeps resident (RESIDENT_V: its slices of the modes; RESIDENT_BASIS: its
-# slice of the KL basis), V·bf16(r) and Vᵀ·coef on the tensor cores
-RESIDENT_V, RESIDENT_BASIS = 1, 2
-CLUSTER32_G, CLUSTER32_THREADS, CLUSTER32_RESIDENT = 8, 128, 0
-CLUSTER32_MMA_COEF, CLUSTER32_MMA_BACK = True, True
+# Cluster32Design: chains a cluster, threads a CTA
+CLUSTER32_G, CLUSTER32_THREADS = 8, 128
 N32, MAX_K32, MAX_MODES32 = 32, 64, 128  # its grid, largest K and modes
 
 
-def _layout_bytes(cells, G, threads, max_k, max_modes, res_f32=0, res_bf16=0):
+def _layout_bytes(cells, G, threads, max_k, max_modes):
     """``ClusterSmemT<...>::kBytes``: five f32 arrays of the cells (the
     stencil's vector, the face terms right of and below each cell, the
     boundary terms, the inverse diagonal), the warps' partial sums (16 rows
     × 8 columns an mma tile of chains), the cluster's coefficients u, the
     sampler's state (3 × max_k), the warp partials (32), Φ, a_bar, the
-    cluster's G a_bar, the eigenvalues of a modes slice (max_modes) and the
-    level's f32 region, rounded to 16 bytes; then bf16(r) on the cells, the
-    cluster's coefficients in rows of max_modes + 8 and the level's bf16
-    region."""
+    cluster's G a_bar and the eigenvalues of a modes slice (max_modes),
+    rounded to 16 bytes; then bf16(r) on the cells and the cluster's
+    coefficients in rows of max_modes + 8."""
     nt = -(-G // 8)
     f32 = (5 * cells + threads // 32 * 16 * 8 * nt + G * max_k + 3 * max_k + 32 + 1 + 1 + G
-           + max_modes + res_f32)
-    return 4 * (-(-f32 // 4) * 4) + 2 * (cells + G * (max_modes + 8) + res_bf16)
+           + max_modes)
+    return 4 * (-(-f32 // 4) * 4) + 2 * (cells + G * (max_modes + 8))
 
 
 def smem_bytes(G=CLUSTER_G, threads=CLUSTER_THREADS):
-    """The 64×64 kernels' ``ClusterSmem::kBytes`` (no region)."""
+    """The 64×64 kernels' ``ClusterSmem::kBytes``."""
     return _layout_bytes(EXACT_N * EXACT_N, G, threads, MAX_K, MAX_MODES)
 
 
-def region32_elems(G=CLUSTER32_G, resident=CLUSTER32_RESIDENT, mma_coef=CLUSTER32_MMA_COEF,
-                   mma_back=CLUSTER32_MMA_BACK):
-    """``ClusterRegion32``'s (f32, bf16) counts: with the modes resident a
-    rows slice (the 16-row tiles of the CTA's modes, rows of cells + 32)
-    and a columns slice (every mode on cells / G cells, rows padded by 8),
-    which Vᵀ·coef on the CUDA cores keeps whatever ``resident`` says; the
-    cluster's bf16(r) (G × cells) when V·bf16(r) runs on the CUDA cores;
-    with the basis resident its K × cells / G floats."""
-    cells, sl = N32 * N32, N32 * N32 // G
-    rows = -(-(MAX_MODES32 // 16) // G) * 16
-    cols = (resident & RESIDENT_V) or not mma_back
-    bf16 = ((rows * (cells + 32) if resident & RESIDENT_V else 0)
-            + ((MAX_MODES32 * (sl + 8) if mma_back else sl * (MAX_MODES32 + 8)) if cols else 0)
-            + (0 if mma_coef else G * cells))
-    return (MAX_K32 * sl if resident & RESIDENT_BASIS else 0), bf16
-
-
-def smem_bytes32(G=CLUSTER32_G, threads=CLUSTER32_THREADS, **region):
+def smem_bytes32(G=CLUSTER32_G, threads=CLUSTER32_THREADS):
     """The 32×32 kernel's ``Cluster32Smem::kBytes``: its layout sized for
-    32×32 cells, K up to 64 and 128 modes, with its region."""
-    f32, bf16 = region32_elems(G, **region)
-    return _layout_bytes(N32 * N32, G, threads, MAX_K32, MAX_MODES32, f32, bf16)
+    32×32 cells, K up to 64 and 128 modes."""
+    return _layout_bytes(N32 * N32, G, threads, MAX_K32, MAX_MODES32)
 
 
 def cluster_geometry(n_chains, block_chains, *, d=144, exact_n=EXACT_N, exact_modes=256,

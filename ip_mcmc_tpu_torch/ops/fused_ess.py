@@ -86,27 +86,27 @@ def _run_plain(potential_fn, positions, prior_mean, prior_scale, seed,
 
 # --- the kernel -------------------------------------------------------------
 
-# ``EssWarpDesign`` in ``csrc/fused_ess.cu``: chains (warps) a CTA at most,
-# whether the KL basis is staged in shared memory once a CTA, and whether
-# the dot products keep block_sum's order (the cells then padded by 4 after
-# every 32 in shared memory: ``WarpSliceLevel`` in ``csrc/darcy_misfit.cuh``).
+# ``EssWarpDesign`` in ``csrc/fused_ess.cu``: chains (warps) a CTA at most.
 # What it takes: a WARP_N² grid, d = K = WARP_D, Jacobi (no modes).
-WARP_CHAINS, WARP_BASIS_STAGED, WARP_ORDERED = 16, True, True
+WARP_CHAINS = 16
 WARP_N, WARP_D = 16, 64
+# ``WarpSliceLevel`` in ``csrc/darcy_misfit.cuh`` pads the cells by 4 after
+# every 32 in shared memory: the staged basis (d rows) and, a warp, pos and
+# prop (d floats each) and the stencil's vector and face terms
+PADDED_CELLS = WARP_N * WARP_N + 4 * WARP_N * WARP_N // 32
+BASIS_BYTES = 4 * WARP_D * PADDED_CELLS
+WARP_SLICE_BYTES = 4 * (2 * WARP_D + 3 * PADDED_CELLS)
 MAX_SMEM_BYTES = 232_448  # what a CTA of the H100 may use
 KERNEL = "fused_ess_warp_kernel"  # the launch count's stem
 
 
 def warp_geometry(n_chains, block_chains, *, n=WARP_N, d=WARP_D, precond="jacobi",
-                  modes=0, chains=WARP_CHAINS, basis_staged=WARP_BASIS_STAGED,
-                  ordered=WARP_ORDERED):
+                  modes=0):
     """The kernel's launch: (CTAs, chains a CTA, dynamic shared-memory
     bytes), as ``ess_warp_geometry`` in ``csrc/fused_ess.cu`` computes it.
-    Chains a CTA: the largest power of two up to ``chains`` that divides
+    Chains a CTA: the largest power of two up to WARP_CHAINS that divides
     ``block_chains``; a ragged last CTA runs spare warps. The bytes: the
-    staged basis (d rows of n² floats, padded to 288 when ``ordered``), an
-    a_bar row of 32 floats and a slice a warp (pos and prop, d floats each;
-    the stencil's vector and face terms, n² floats each, padded likewise).
+    staged basis and a slice a warp (BASIS_BYTES, WARP_SLICE_BYTES).
     Raises ``ValueError`` for a grid, d or preconditioner the kernel does
     not take and for shared memory the card cannot give a CTA."""
     if (n, d, precond, modes) != (WARP_N, WARP_D, "jacobi", 0):
@@ -115,11 +115,10 @@ def warp_geometry(n_chains, block_chains, *, n=WARP_N, d=WARP_D, precond="jacobi
             f"preconditioner; got {n}x{n}, d = {d}, {precond} with {modes} modes")
     if block_chains <= 0 or n_chains < 0:
         raise ValueError(f"n_chains {n_chains}, block_chains {block_chains}")
-    w = chains
+    w = WARP_CHAINS
     while block_chains % w:
         w //= 2
-    cells = n * n + (4 * n * n // 32 if ordered else 0)
-    smem = (4 * d * cells if basis_staged else 0) + 4 * 32 + w * 4 * (2 * d + 3 * cells)
+    smem = BASIS_BYTES + w * WARP_SLICE_BYTES
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"{smem} bytes of shared memory a CTA: the card gives "
                          f"{MAX_SMEM_BYTES}")

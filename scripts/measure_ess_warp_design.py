@@ -1,20 +1,15 @@
 """The design of the elliptical slice sampling kernel, one chain a warp, on
-one card: chains a CTA, registers, where the KL basis lies, and the order
-of the dot products.
+one card: chains a CTA and registers.
 
     python scripts/measure_ess_warp_design.py
 
 ``fused_ess_warp_kernel`` (``csrc/fused_ess.cu``) takes its design from one
 line, ``EssWarpDesign``: ``kWarps`` chains a CTA at most (W), ``kSmWarps``
 warps an SM for the launch bound (which caps a thread's registers at
-65536 / (32 kSmWarps), or 64 when a CTA has 32 warps), ``kBasisStaged``
-(the KL basis staged in shared memory once a CTA, else read through L2)
-and ``kOrderedSums`` (the dot products in block_sum's order,
-``WarpSliceLevel``: a lane owns eight cells of one slice of 32, so that the
-chains take the bits of the one-chain-a-CTA kernel; else ``WarpJacobiLevel``,
-the lane owning cells l + 32 c, its own cells summed first and one
-warp_sum). This builds ``fused_ess.cu`` once
-for each alternative with that line patched, all compilers started
+65536 / (32 kSmWarps), or 64 when a CTA has 32 warps). Its solve,
+``WarpSliceLevel``, stages the KL basis in shared memory once a CTA and
+adds its dot products in block_sum's order. This builds ``fused_ess.cu``
+once for each alternative with that line patched, all compilers started
 together; prints the registers and spills that ptxas reports; and times
 one step of ``darcy_ess_fused`` (4096 chains, blocks of 256, max_shrink 6)
 under each, as the slope between two launch lengths, in the order shipped,
@@ -39,28 +34,19 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 SOURCE = "fused_ess.cu"
 LINE = re.compile(r"struct EssWarpDesign \{ static constexpr int kWarps = (\d+), "
-                  r"kSmWarps = (\d+); static constexpr bool kBasisStaged = (\w+), "
-                  r"kOrderedSums = (\w+); \};")
+                  r"kSmWarps = (\d+); \};")
 KERNEL = "fused_ess_warp_kernelILb0"  # the mangled name of <false>
-# (W, warps an SM, basis staged, ordered sums)
-DESIGNS = [(16, 16, True, True), (16, 16, True, False), (32, 32, True, True),
-           (32, 32, True, False), (16, 16, False, True), (8, 16, False, True),
-           (8, 16, False, False), (16, 32, False, True), (8, 32, True, True),
-           (8, 32, False, True), (4, 32, False, True), (8, 24, False, True),
-           (32, 32, False, True)]
+# (W, warps an SM for the launch bound)
+DESIGNS = [(16, 16), (32, 32), (8, 16), (8, 24), (8, 32), (4, 16)]
 
 
-def design_line(w, sm_warps, staged, ordered) -> str:
-    b = lambda v: "true" if v else "false"  # noqa: E731
+def design_line(w, sm_warps) -> str:
     return (f"struct EssWarpDesign {{ static constexpr int kWarps = {w}, kSmWarps = "
-            f"{sm_warps}; static constexpr bool kBasisStaged = {b(staged)}, kOrderedSums = "
-            f"{b(ordered)}; }};")
+            f"{sm_warps}; }};")
 
 
 def label(d) -> str:
-    w, smw, staged, ordered = d
-    return (f"W={w}, {smw} warps/SM bound, basis {'staged' if staged else 'via L2'}, "
-            f"{'ordered sums' if ordered else 'lane sums first'}")
+    return f"W={d[0]}, {d[1]} warps/SM bound"
 
 
 def main() -> int:
@@ -74,7 +60,7 @@ def main() -> int:
     print(f"card: {card}")
     shipped_lib = _build.library()
     m = LINE.search((_build.CSRC / SOURCE).read_text())
-    shipped = (int(m.group(1)), int(m.group(2)), m.group(3) == "true", m.group(4) == "true")
+    shipped = (int(m.group(1)), int(m.group(2)))
     alternatives = [d for d in DESIGNS if d != shipped]
     builds = build_designs(_build, SOURCE, (SOURCE,), m.group(0),
                            {d: design_line(*d) for d in alternatives}, "ess_warp")
@@ -86,8 +72,7 @@ def main() -> int:
             continue
         libs[d], ptxas[d] = load_with(_build, builds[d][0]), ptxas_row(builds[d][1], KERNEL)
     for d in libs:
-        smem = fused_ess.warp_geometry(4096, 256, chains=d[0], basis_staged=d[2],
-                                       ordered=d[3])[2]
+        smem = fused_ess.BASIS_BYTES + d[0] * fused_ess.WARP_SLICE_BYTES
         print(f"({label(d)}) {KERNEL}: registers, spill stores, spill loads {ptxas[d]}; "
               f"{smem} bytes of shared memory a CTA", flush=True)
 

@@ -1,27 +1,22 @@
 """The design of the 32x32 warm pCN kernel that runs in thread-block
-clusters, on one card: chains a cluster, the CTA's layout, which factors
-stay resident in shared memory, and what runs the preconditioner's
-products.
+clusters, on one card: chains a cluster and the CTA's layout.
 
     python scripts/measure_pcn32_cluster_design.py
 
 ``fused_pcn_warm_cluster32_kernel`` (``darcy32_pcn_warm``) takes its
 design from one line of ``csrc/darcy_misfit.cuh``, ``Cluster32Design``:
 ``kG`` chains (CTAs) a cluster, ``kCells`` cells a thread on ``kThreads``
-threads, ``kMinCtas`` CTAs an SM for the launch bound, ``kResident`` (1:
-each CTA keeps its two slices of the modes in shared memory for the
-launch; 2: its slice of the KL basis; 3: both; 0: every factor through
-L2) and ``kMmaCoef``, ``kMmaBack`` (V·bf16(r) and Vᵀ·coef as bf16
-``mma.sync`` on the tensor cores, else as f32 FMAs on the CUDA cores).
-This builds ``fused_pcn.cu`` once for each alternative with that line
-patched, all compilers started together; prints the registers and spills
-that ptxas reports and the shared memory of a CTA; and times one step of
-``darcy32_pcn_warm`` (4096 chains, blocks of 128) under each, as the slope
-between two launch lengths, in the order shipped, alternatives, shipped.
-Beside each time: the share of the chains (8 steps, final state and
-records) within 1e-4 of the plain twin's, which ``chip_smoke.py`` holds at
-0.99 or more, and the acceptance. A design that does not build (its
-layout exceeds a CTA's shared memory) or whose cluster the card cannot
+threads, ``kMinCtas`` CTAs an SM for the launch bound. Every design reads
+the factors through L2 and runs both of the preconditioner's products as
+bf16 ``mma.sync`` on the tensor cores. This builds ``fused_pcn.cu`` once
+for each alternative with that line patched, all compilers started
+together; prints the registers and spills that ptxas reports and the
+shared memory of a CTA; and times one step of ``darcy32_pcn_warm`` (4096
+chains, blocks of 128) under each, as the slope between two launch
+lengths, in the order shipped, alternatives, shipped. Beside each time:
+the share of the chains (8 steps, final state and records) within 1e-4 of
+the plain twin's, which ``chip_smoke.py`` holds at 0.99 or more, and the
+acceptance. A design that does not build or whose cluster the card cannot
 place is reported and not run. Prints the card's name and power limit and
 one JSON line.
 """
@@ -41,43 +36,27 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 HEADER = "darcy_misfit.cuh"
 LINE = re.compile(r"struct Cluster32Design \{ static constexpr int kG = (\d+), kCells = (\d+), "
-                  r"kThreads = (\d+), kMinCtas = (\d+), kResident = (\d+); static constexpr "
-                  r"bool kMmaCoef = (\w+), kMmaBack = (\w+); \};")
+                  r"kThreads = (\d+), kMinCtas = (\d+); \};")
 KERNEL = "fused_pcn_warm_cluster32_kernelILb0"  # the mangled name of <false>
-# (G, cells a thread, threads, CTAs an SM, resident, V.r on mma, V^T.coef on mma)
-DESIGNS = [(8, 8, 128, 8, 0, True, True), (8, 8, 128, 7, 0, True, True),
-           (8, 8, 128, 6, 0, True, True), (8, 4, 256, 4, 0, True, True),
-           (8, 4, 256, 5, 0, True, True), (8, 4, 256, 3, 0, True, True),
-           (4, 4, 256, 4, 0, True, True), (16, 4, 256, 4, 0, True, True),
-           (8, 2, 512, 2, 0, True, True), (8, 1, 1024, 1, 0, True, True),
-           (8, 2, 512, 2, 1, True, True), (8, 4, 256, 2, 1, True, True),
-           (8, 1, 1024, 1, 1, True, True), (16, 2, 512, 2, 1, True, True),
-           (8, 2, 512, 1, 3, True, True), (8, 4, 256, 4, 0, True, False),
-           (8, 4, 256, 4, 0, False, True), (8, 2, 512, 2, 1, True, False)]
-RESIDENT = {0: "factors via L2", 1: "modes resident", 2: "basis resident",
-            3: "modes and basis resident"}
+# (G, cells a thread, threads, CTAs an SM for the launch bound)
+DESIGNS = [(8, 8, 128, 8), (8, 8, 128, 7), (8, 8, 128, 6), (8, 4, 256, 4), (8, 4, 256, 5),
+           (8, 4, 256, 3), (4, 4, 256, 4), (16, 4, 256, 4), (8, 2, 512, 2), (8, 1, 1024, 1)]
 
 
-def design_line(g, cells, threads, ctas, resident, coef_mma, back_mma) -> str:
-    b = lambda v: "true" if v else "false"  # noqa: E731
+def design_line(g, cells, threads, ctas) -> str:
     return (f"struct Cluster32Design {{ static constexpr int kG = {g}, kCells = {cells}, "
-            f"kThreads = {threads}, kMinCtas = {ctas}, kResident = {resident}; static constexpr "
-            f"bool kMmaCoef = {b(coef_mma)}, kMmaBack = {b(back_mma)}; }};")
+            f"kThreads = {threads}, kMinCtas = {ctas}; }};")
 
 
 def label(d) -> str:
-    g, cells, threads, ctas, resident, coef_mma, back_mma = d
-    what = lambda v: "mma.sync" if v else "CUDA cores"  # noqa: E731
-    return (f"G={g}, {cells} cells x {threads} threads, launch bound {ctas} CTA/SM, "
-            f"{RESIDENT[resident]}, V.r {what(coef_mma)}, V^T.coef {what(back_mma)}")
+    g, cells, threads, ctas = d
+    return f"G={g}, {cells} cells x {threads} threads, launch bound {ctas} CTA/SM"
 
 
 def smem_bytes(d) -> int:
     from ip_mcmc_tpu_torch.ops import _cluster
 
-    g, _, threads, _, resident, coef_mma, back_mma = d
-    return _cluster.smem_bytes32(g, threads, resident=resident, mma_coef=coef_mma,
-                                 mma_back=back_mma)
+    return _cluster.smem_bytes32(d[0], d[2])
 
 
 def ctas_per_sm(d, registers) -> int:
@@ -99,7 +78,7 @@ def main() -> int:
     print(f"card: {card}")
     shipped_lib = _build.library()
     m = LINE.search((_build.CSRC / HEADER).read_text())
-    shipped = tuple(int(v) for v in m.groups()[:5]) + tuple(v == "true" for v in m.groups()[5:])
+    shipped = tuple(int(v) for v in m.groups())
     alternatives = [d for d in DESIGNS if d != shipped]
     builds = build_designs(_build, HEADER, ("fused_pcn.cu",), m.group(0),
                            {d: design_line(*d) for d in alternatives}, "pcn32")

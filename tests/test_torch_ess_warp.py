@@ -17,7 +17,6 @@ torch.set_num_threads(1)
 # the cells in shared memory, padded by 4 after every 32 (8 × 36 floats)
 CELLS = 288
 BASIS = 4 * 64 * CELLS  # the staged KL basis: 64 modes, f32
-ABAR = 4 * 32           # every warp's a_bar
 SLICE = 4 * (2 * 64 + 3 * CELLS)  # a warp's pos, prop and p, th, tv
 
 
@@ -30,9 +29,9 @@ SLICE = 4 * (2 * 64 + 3 * CELLS)  # a warp's pos, prop and p, th, tv
 ])
 def test_warp_geometry(n, block, ctas, w):
     """(CTAs, chains a CTA, bytes): W is the largest power of two up to 16
-    that divides block_chains, and the bytes are the staged basis, the
-    a_bar row and W warps' slices."""
-    assert fused_ess.warp_geometry(n, block) == (ctas, w, BASIS + ABAR + w * SLICE)
+    that divides block_chains, and the bytes are the staged basis and W
+    warps' slices."""
+    assert fused_ess.warp_geometry(n, block) == (ctas, w, BASIS + w * SLICE)
 
 
 def test_warp_geometry_of_the_shipped_config():
@@ -40,10 +39,8 @@ def test_warp_geometry_of_the_shipped_config():
     pot = p.batched_potential_fn
     got = fused_ess.warp_geometry(p.n_chains, p.kernel_params["block_chains"], n=pot.n,
                                   d=p.dim, precond=pot.precond, modes=pot.modes)
-    assert got == (256, 16, 137_344) and got[2] <= fused_ess.MAX_SMEM_BYTES
-    # the lane sums' layout: cells not padded
-    unpadded = 4 * 64 * 256 + ABAR + 16 * 4 * (2 * 64 + 3 * 256)
-    assert fused_ess.warp_geometry(4096, 256, ordered=False)[2] == unpadded
+    assert got == (256, 16, 137_216) and got[2] <= fused_ess.MAX_SMEM_BYTES
+    assert (fused_ess.BASIS_BYTES, fused_ess.WARP_SLICE_BYTES) == (BASIS, SLICE)
 
 
 @pytest.mark.parametrize("kw, why", [
