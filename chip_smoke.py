@@ -25,8 +25,9 @@ Gaussians), times both, then drives the ported paths at full width:
     darcy_pcn_4096 --fused   cold pCN                   (K6)
     darcy_mala_fused         MALA, adjoint gradient     (K10)
     darcy_mala_warm          warm-started MALA          (K11)
-    darcy_fes_fused          functional ensemble sampler (K9)
-    burgers_da3_pcn          three-level delayed acceptance (K12, K13)
+    darcy_fes_fused          functional ensemble sampler (K9), a chain a warp
+    burgers_da3_pcn          three-level delayed acceptance (K12, K13), a
+                             chain a warp
     burgers_da_pcn           delayed acceptance on Burgers  (K4, K12)
     burgers_pcn --fused      cold pCN on Burgers            (K6, K12)
     burgers_multitime_pcn --fused   the same, three observation times
@@ -43,9 +44,10 @@ CLI, the other paths through the entry points (``runner``, ``ops``).
 Before each path the launch counts are set to 0; after it they must show
 that the path went through its kernels (the scan path: its steps on the
 card) and through no plain version. Every phase raises on failure. Prints
-the card's name and power limit, the registers and spills that ptxas reported
-for every Darcy kernel, a JSON line of per-kernel results (time, plain
-time, roofline bound, launches), and as the last line
+the card's name and power limit, the registers and spills that ptxas
+reported for every Darcy kernel and the three-level Burgers DA's, a JSON
+line of per-kernel results (time, plain time, roofline bound, launches),
+and as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
 no result.
 """
@@ -399,6 +401,9 @@ def compare_chain(results, stem, recorded, kern, plain, *, steps, kernel_long,
 DA16 = "fused_da_pcn_warp_kernel"
 # elliptical slice sampling: one warp per chain, Jacobi solves
 ESS = "fused_ess_warp_kernel"
+# the ensemble sampler and the three-level Burgers DA: one warp per chain
+FES = "fused_fes_warp_kernel"
+DA3 = "fused_da3_pcn_warp_kernel"
 
 
 def check_da(problem, gen, results):
@@ -694,7 +699,7 @@ def check_gradient_and_ensemble(problems, gen, results):
     # evaluates every chain three times behind the parity mask).
     for recorded in (False, True):
         kw_r = {"thin": 1} if recorded else {}
-        name = f"fused_fes_kernel<{'true' if recorded else 'false'}>"
+        name = f"{FES}<{'true' if recorded else 'false'}>"
         per_step = set()
 
         def kern(s):
@@ -706,12 +711,13 @@ def check_gradient_and_ensemble(problems, gen, results):
         kern(1)
         (launches_per_step,) = per_step
         compare_chain(
-            results, "fused_fes_kernel", recorded, kern,
+            results, FES, recorded, kern,
             lambda s: fused_fes._run_plain(plain_potential(fes_pot), *args, s, block,
                                            **kw_r),
             steps=4, kernel_long=36, plain_long=12,
             variant=(f"jacobi, 48 CG, M = {n_low}, block {block}; one launch "
-                     "per lane parity and step, two solves per chain and step"),
+                     "per lane parity and step, two solves per chain and step, "
+                     f"{fused_fes.warp_geometry(N_CHAINS, block)[1]} chains a CTA"),
             paths=["darcy_fes_fused"], source="fused_fes.cu", pots=(fes_pot,),
             per_step_ops=launches_per_step * solve_ops(fes_pot, False) + draws)
         assert per_step == {2.0}, f"{name}: launches per step {per_step}"
@@ -812,11 +818,12 @@ def check_burgers(problems, gen, results):
     for recorded in (False, True):
         kw = {"thin": 1} if recorded else {}
         compare_chain(
-            results, "fused_da3_pcn_kernel", recorded,
+            results, DA3, recorded,
             lambda s: da3._launch(*levels, *tail(s), **kw),
             lambda s: da3._run_plain(*plain_levels, *tail(s), **kw),
             steps=2, kernel_long=18, plain_long=3,
-            variant=f"128 / 128 / 64 cells, k_inner {k1}, k_mid {k2}, block {block}",
+            variant=(f"128 / 128 / 64 cells, k_inner {k1}, k_mid {k2}, block {block}, "
+                     f"{da3.warp_geometry(n, block)[1]} chains a CTA"),
             paths=["burgers_da3_pcn"], source="fused_da3_pcn.cu", pots=levels,
             per_step_ops=(k1 * k2 * (ops_of(coarse) + draws) + k2 * ops_of(mid)
                           + ops_of(fine)),
@@ -1086,32 +1093,75 @@ def check_cluster(problems):
                 raise AssertionError(f"{name} on a ragged width disagrees")
 
 
+def check_geometry(what, cases, c_geometry, py_geometry):
+    """A warp kernel's launch geometry: for each (n, block) of ``cases`` the
+    C function (``c_geometry(n, block)`` -> (status, (warps, CTAs, bytes)))
+    against the Python mirror (``py_geometry(n, block)`` -> (CTAs, warps,
+    bytes))."""
+    for n, block in cases:
+        status, out = c_geometry(n, block)
+        ctas, w, smem = py_geometry(n, block)
+        if status != 0 or tuple(out) != (w, ctas, smem):
+            raise AssertionError(f"{what} geometry at {n} chains, block {block}: C {tuple(out)} "
+                                 f"(status {status}), Python {(w, ctas, smem)}")
+    print(f"{what} geometry: Python mirror equals the C function (shipped: "
+          f"{py_geometry(*cases[0])})", flush=True)
+
+
+def check_ragged(name, what, got, full, ref, recorded):
+    """A warp kernel's run on some chains, ``got``, against its own run on
+    more, ``full``, cut to got's chains (bit for bit; one of the two runs has
+    a ragged last CTA), and against the plain twin's, ``ref``, cut likewise
+    (within CHAIN_ATOL); outputs as the entry points return them, recorded
+    with samples third."""
+    torch.cuda.synchronize()
+    n = got[0].shape[0]
+    cut = lambda t: t[:, :n] if t.dim() == 3 else t[:n]
+    equal = all(torch.equal(g, cut(f)) for g, f in zip(got, full))
+    frac = float(((got[0] - cut(ref[0])).abs().amax(dim=1) <= CHAIN_ATOL).double().mean())
+    if recorded:
+        rec = (got[2] - cut(ref[2])).abs().amax(dim=(0, 2))
+        frac = min(frac, float((rec <= CHAIN_ATOL).double().mean()))
+    rate = abs(float(got[1].mean()) - float(cut(ref[1]).mean()))
+    print(f"{name} ragged ({what}): equal to the kernel's wider run {equal}; {frac:.4f} of "
+          f"chains within {CHAIN_ATOL} of the plain twin, acceptance {float(got[1].mean()):.4f} "
+          f"plain {float(cut(ref[1]).mean()):.4f}", flush=True)
+    if not equal or frac < MIN_CHAIN_FRAC or rate > RATE_ATOL:
+        raise AssertionError(f"{name} on a ragged width disagrees")
+
+
+def c_geometry_of(fn, specs, extra, problem):
+    """``fn`` (an ``ipx_*_warp_geometry`` C function) of ``specs`` and
+    ``extra`` as a function of (n, block), for ``check_geometry``, on
+    chains of the problem's dimension."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.ops import _scaffold
+
+    pm, ps = problem.prior.mean, problem.prior.scale
+
+    def call(n, block):
+        pos = torch.zeros(n, problem.dim, device="cuda")
+        args, _ = _scaffold.chain_args(pos, pm, ps, 0, 1, block)
+        out = (ctypes.c_int * 3)()
+        return fn(*(ctypes.byref(s) for s in specs), ctypes.byref(args), *extra, out), out
+    return call
+
+
 def check_ess_warp(problem):
     """What the ESS kernel's warps add beside its twin: the Python mirror of
     the launch geometry against the C function, and a ragged width, 13
     chains in blocks of 8 (two CTAs of 8 warps, 3 of them spare): equal bit
     for bit to the first 13 of the kernel's own 16-chain run, and within
     CHAIN_ATOL of the plain twin's 16-chain run, plain and recorded."""
-    import ctypes
+    from ip_mcmc_tpu_torch.ops import _build, fused_ess
 
-    from ip_mcmc_tpu_torch.ops import _build, _scaffold, fused_ess
-
-    lib = _build.library()
     pot, shrink = problem.batched_potential_fn, problem.kernel_params["max_shrink"]
     pm, ps = problem.prior.mean, problem.prior.scale
-    for n, block in ((problem.n_chains, problem.kernel_params["block_chains"]), (13, 8),
-                     (13, 13), (20, 4), (1, 256)):
-        args, _ = _scaffold.chain_args(torch.zeros(n, problem.dim, device="cuda"), pm, ps, 0, 1,
-                                       block)
-        out = (ctypes.c_int * 3)()
-        status = lib.ipx_ess_warp_geometry(ctypes.byref(pot.spec()), ctypes.byref(args), shrink,
-                                           out)
-        ctas, w, smem = fused_ess.warp_geometry(n, block)
-        if status != 0 or tuple(out) != (w, ctas, smem):
-            raise AssertionError(f"ESS geometry at {n} chains, block {block}: C {tuple(out)} "
-                                 f"(status {status}), Python {(w, ctas, smem)}")
-    print(f"ESS geometry: Python mirror equals the C function (shipped: "
-          f"{fused_ess.warp_geometry(problem.n_chains, 256)})", flush=True)
+    check_geometry("ESS", ((problem.n_chains, problem.kernel_params["block_chains"]), (13, 8),
+                           (13, 13), (20, 4), (1, 256)),
+                   c_geometry_of(_build.library().ipx_ess_warp_geometry, [pot.spec()],
+                                 [shrink], problem), fused_ess.warp_geometry)
     pos = problem.init_positions(torch.Generator().manual_seed(72), 16).cuda()
     for recorded in (False, True):
         thin = 1 if recorded else None
@@ -1119,21 +1169,65 @@ def check_ess_warp(problem):
                      for n in (13, 16))
         ref = fused_ess._run_plain(plain_potential(pot), pos, pm, ps, 73, 3, shrink, 8,
                                    thin=thin)
-        torch.cuda.synchronize()
-        equal = all(torch.equal(g, f[:, :13] if g.dim() == 3 else f[:13])
-                    for g, f in zip(got, full))
-        frac = float(((got[0] - ref[0][:13]).abs().amax(dim=1) <= CHAIN_ATOL).double().mean())
-        if recorded:
-            rec = (got[2] - ref[2][:, :13]).abs().amax(dim=(0, 2))
-            frac = min(frac, float((rec <= CHAIN_ATOL).double().mean()))
-        rate = abs(float(got[1].mean()) - float(ref[1][:13].mean()))
-        name = f"{ESS}<{'true' if recorded else 'false'}>"
-        print(f"{name} ragged (13 chains, 8 warps a CTA, 3 steps): equal to the first 13 of "
-              f"16 {equal}; {frac:.4f} of chains within {CHAIN_ATOL} of the plain twin, "
-              f"acceptance {float(got[1].mean()):.4f} plain {float(ref[1][:13].mean()):.4f}",
-              flush=True)
-        if not equal or frac < MIN_CHAIN_FRAC or rate > RATE_ATOL:
-            raise AssertionError(f"{name} on a ragged width disagrees")
+        check_ragged(f"{ESS}<{'true' if recorded else 'false'}>",
+                     "13 chains, 8 warps a CTA, 3 steps", got, full, ref, recorded)
+
+
+def check_da3_warp(problem):
+    """What the three-level Burgers DA kernel's warps add beside its twin:
+    the Python mirror of the launch geometry against the C function, and a
+    ragged width, 13 chains in blocks of 8 (two CTAs of 8 warps, 3 of them
+    spare): equal bit for bit to the first 13 of the kernel's own 16-chain
+    run, and within CHAIN_ATOL of the plain twin's 16-chain run, plain and
+    recorded."""
+    from ip_mcmc_tpu_torch.ops import _build
+    from ip_mcmc_tpu_torch.ops import fused_da3_pcn as da3
+
+    levels = (problem.batched_potential_fn, problem.batched_mid_fn,
+              problem.batched_surrogate_fn)
+    pm, ps = problem.prior.mean, problem.prior.scale
+    kp = problem.kernel_params
+    check_geometry("DA3", ((problem.n_chains, 512), (13, 8), (13, 13), (20, 4), (1, 512)),
+                   c_geometry_of(_build.library().ipx_da3_warp_geometry,
+                                 [lv.spec() for lv in levels], [kp["k_inner"], kp["k_mid"]],
+                                 problem), da3.warp_geometry)
+    pos = problem.init_positions(torch.Generator().manual_seed(74), 16).cuda()
+    tail = (pm, ps, kp["beta"], 75, 3, 2, 3, 8)
+    for recorded in (False, True):
+        thin = 1 if recorded else None
+        got, full = (da3._launch(*levels, pos[:n], *tail, thin=thin) for n in (13, 16))
+        ref = da3._run_plain(*(plain_potential(lv) for lv in levels), pos, *tail, thin=thin)
+        check_ragged(f"{DA3}<{'true' if recorded else 'false'}>",
+                     "13 chains, 8 warps a CTA, 3 steps of k_inner 2, k_mid 3", got, full, ref,
+                     recorded)
+
+
+def check_fes_warp(problem):
+    """What the ensemble sampler's warps add beside its twin: the Python
+    mirror of the launch geometry against the C function, and a ragged count
+    of ensembles, three of 8 chains (a launch runs the 12 chains of one
+    parity in two CTAs of 8 warps, 4 of them spare): its first two ensembles
+    equal bit for bit a run of those two alone, which lies within
+    CHAIN_ATOL of the plain twin's run of three, plain and recorded."""
+    from ip_mcmc_tpu_torch.ops import _build, fused_fes
+    from ip_mcmc_tpu_torch.runner import _resolve_n_low_modes
+
+    pot = problem.batched_potential_fn
+    pm, ps = problem.prior.mean, problem.prior.scale
+    kp = problem.kernel_params
+    n_low = _resolve_n_low_modes(kp, problem)
+    check_geometry("FES", ((problem.n_chains, kp["block_chains"]), (24, 8), (12, 6), (2, 2)),
+                   c_geometry_of(_build.library().ipx_fes_warp_geometry, [pot.spec()], [n_low],
+                                 problem), fused_fes.warp_geometry)
+    pos = problem.init_positions(torch.Generator().manual_seed(76), 24).cuda()
+    tail = (pm, ps, n_low, 77, kp["pcn_beta"], kp.get("stretch_a", 2.0), 3, 8)
+    for recorded in (False, True):
+        kw = {"thin": 1} if recorded else {}
+        got, full = (fused_fes._launch(pot, pos[:n], *tail, **kw) for n in (16, 24))
+        ref = fused_fes._run_plain(plain_potential(pot), pos, *tail, **kw)
+        check_ragged(f"{FES}<{'true' if recorded else 'false'}>",
+                     "the first 16 of 3 ensembles of 8, 8 warps a CTA, 3 steps", got, full, ref,
+                     recorded)
 
 
 def report_da64(problem, metrics):
@@ -1190,20 +1284,23 @@ def run_richardson_da(richardson):
 
 
 # the sources of the Darcy kernels (their Burgers and linear-Gaussian
-# instantiations are left out by name)
+# instantiations are left out by name), and of the three-level Burgers DA
 DARCY_UNITS = ("fused_da_pcn.cu", "fused_pcn.cu", "fused_ess.cu", "fused_fes.cu",
                "fused_mala.cu", "fused_rwm.cu")
+BURGERS_UNITS = ("fused_da3_pcn.cu",)
 
 
 def darcy_ptxas_report():
-    """Registers and spill bytes of every Darcy kernel of this process's
-    build (``_build.ptxas_report``), printed one kernel a line, so that a
-    spill in the DA kernel (one cost it 6 % once) shows in every run."""
+    """Registers and spill bytes of every Darcy kernel and of the kernels of
+    the three-level Burgers DA's source in this process's build
+    (``_build.ptxas_report``), printed one kernel a line, so that a spill in
+    the DA kernel (one cost it 6 % once) shows in every run."""
     from ip_mcmc_tpu_torch.ops import _build
 
-    rows = [r for r in _build.ptxas_report() if r["unit"] in DARCY_UNITS
-            and not any(k in r["kernel"].lower()
-                        for k in ("burgers", "lineargaussian", "linear_gaussian"))]
+    rows = [r for r in _build.ptxas_report() if r["unit"] in BURGERS_UNITS
+            or (r["unit"] in DARCY_UNITS
+                and not any(k in r["kernel"].lower()
+                            for k in ("burgers", "lineargaussian", "linear_gaussian")))]
     if not rows:
         print("ptxas: no nvcc.log (the kernels were built by another process)", flush=True)
         return rows
@@ -1218,7 +1315,8 @@ def darcy_ptxas_report():
               f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads",
               flush=True)
     spilled = [r["kernel"] for r in rows if r["spill_stores"] or r["spill_loads"]]
-    print(f"ptxas: {len(rows)} Darcy kernels, {len(spilled)} with spills", flush=True)
+    print(f"ptxas: {len(rows)} Darcy and three-level Burgers kernels, {len(spilled)} with "
+          "spills", flush=True)
     return rows
 
 
@@ -1588,12 +1686,10 @@ PATHS = {
                               "fused_mala_kernel<true>")),
     "darcy_mala_warm": ([], ("darcy_misfit_grad_warm_kernel", "fused_mala_warm_kernel<false>",
                              "fused_mala_warm_kernel<true>")),
-    "darcy_fes_fused": ([], ("darcy_misfit_kernel[n=16]", "fused_fes_kernel<false>",
-                             "fused_fes_kernel<true>")),
+    "darcy_fes_fused": ([], ("darcy_misfit_kernel[n=16]", f"{FES}<false>", f"{FES}<true>")),
     "burgers_da3_pcn": ([], (
         "burgers_misfit_kernel[n=128,steps=154]", "burgers_misfit_kernel[n=128,steps=52]",
-        "burgers_misfit_kernel[n=64,steps=26]", "fused_da3_pcn_kernel<false>",
-        "fused_da3_pcn_kernel<true>")),
+        "burgers_misfit_kernel[n=64,steps=26]", f"{DA3}<false>", f"{DA3}<true>")),
     "burgers_da_pcn": ([], (
         "burgers_misfit_kernel[n=128,steps=154]", "burgers_misfit_kernel[n=64,steps=26]",
         "fused_da_pcn_burgers_kernel<false>", "fused_da_pcn_burgers_kernel<true>")),
@@ -1697,6 +1793,8 @@ def main() -> int:
     check_da64(problems["darcy64_da_fused"], gen, results)
     check_cluster(problems)
     check_ess_warp(problems["darcy_ess_fused"])
+    check_da3_warp(problems["burgers_da3_pcn"])
+    check_fes_warp(problems["darcy_fes_fused"])
     check_gradient_and_ensemble(problems, gen, results)
     check_burgers(problems, gen, results)
     check_linear_family(problems, gen, results)
@@ -1730,8 +1828,8 @@ def main() -> int:
         "darcy_pcn_4096": "fused_pcn_kernel<true>",
         "darcy_mala_fused": "fused_mala_kernel<true>",
         "darcy_mala_warm": "fused_mala_warm_kernel<true>",
-        "darcy_fes_fused": "fused_fes_kernel<true>",
-        "burgers_da3_pcn": "fused_da3_pcn_kernel<true>",
+        "darcy_fes_fused": f"{FES}<true>",
+        "burgers_da3_pcn": f"{DA3}<true>",
         "burgers_da_pcn": "fused_da_pcn_burgers_kernel<true>",
         "burgers_pcn": "fused_pcn_burgers_kernel<true>",
         "burgers_multitime_pcn": "fused_pcn_burgers_kernel<true>",

@@ -1,9 +1,11 @@
-// Batched Burgers misfit (K12) as a device function run by one CTA per
-// chain: the arithmetic of ip_mcmc_tpu/models/burgers.py
-// make_batched_misfit (l.153) with godunov_flux2 (l.25). On the TPU the
-// whole finite-volume time loop is traced into the fused Pallas kernel
-// with chains on the vector lanes; here thread t owns cell t of the
-// periodic grid (t < n_cells).
+// Batched Burgers misfit (K12) as device functions: the arithmetic of
+// ip_mcmc_tpu/models/burgers.py make_batched_misfit (l.153) with
+// godunov_flux2 (l.25). On the TPU the whole finite-volume time loop is
+// traced into the fused Pallas kernel with chains on the vector lanes.
+// Here burgers_phi runs one chain on a CTA, thread t owning cell t of the
+// periodic grid (t < n_cells): the misfit kernel and the Burgers DA and
+// pCN samplers. burgers_phi_warp (below) runs one chain on a warp, with
+// the same bits: the three-level DA kernel.
 //
 //   state = mean + basis^T u                  16 multiply-adds per cell
 //   per segment: seg_steps Godunov steps      u -= c (2F_{i+1/2} - 2F_{i-1/2}),
@@ -125,6 +127,155 @@ __device__ float burgers_phi(const IpxBurgersSpec& s, const float* u, const Burg
     }
   }
   return 0.5f * block_sum(sq, ws.red);
+}
+
+// --- the Burgers solve on a warp: the three-level DA kernel ------------------
+//
+// burgers_phi's arithmetic for one chain on one warp, with no CTA barrier:
+// lane l owns the C = n_cells / 32 cells C l .. C l + C - 1 (4 of the
+// 128-cell grid, 2 of the 64-cell one) in registers. A time step fetches
+// the two edge cells of the neighbouring lanes, cell C l - 1 from lane
+// l - 1 and cell C l + C from lane l + 1 (periodic: lane 0 and lane 31 are
+// neighbours), by two independent shuffles (edge_cells), then computes the
+// C + 1 fluxes through its cells' faces once each (burgers_phi computes
+// both faces of every cell: 13 f32 operations a cell where this takes 8)
+// and updates its cells. The same operands give the same bits, so every
+// cell takes burgers_phi's values. The state goes through the warp's shared
+// memory only at a segment's end, where the observed cells are gathered.
+//
+// Phi in burgers_phi's order. There block_sum adds over the samplers' CTA of
+// kBurgersOldThreads threads: thread t sums the squared residuals o = t,
+// t + 128, ... of every segment, then each warp's warp_sum, then 0 + warp
+// 0 + ... + warp 3. Here lane l keeps one partial for each old warp w
+// (residuals o = 32 w + l + 128 r, in the same order), runs each through
+// warp_sum's butterfly over the same lanes, and adds them 0 + w0 + w1 + ...
+// A partial of an old warp that had no residual is +0, which adds nothing,
+// so only the warps up to the last residual are summed. The KL sum runs
+// over k in ascending order from the basis staged in shared memory, as
+// burgers_phi sums it from global memory.
+
+// The threads of the CTA that the one-chain-a-CTA samplers run a Burgers
+// chain on, whose block_sum order Phi keeps: one a cell of the 128-cell grid.
+constexpr int kBurgersOldThreads = 128;
+constexpr int kBurgersWarpK = 16;  // the KL coefficients the warp solve takes
+
+// One level on a warp: its spec, its basis and mean staged in shared memory
+// once a CTA, and the warp's gather buffer (n_cells floats, shared memory).
+struct BurgersWarpLevel {
+  const IpxBurgersSpec* s;
+  const float* basis;  // (K, n_cells)
+  const float* mean;   // (n_cells,)
+  float* state;        // [n_cells] the warp's
+
+  // Copies the level's basis and mean to `base` (every thread of the CTA
+  // calls; a barrier must follow before they are read); returns the end.
+  __device__ float* stage(float* base) {
+    const int n = s->n_cells, kn = kBurgersWarpK * n;
+    for (int e = threadIdx.x; e < kn + n; e += blockDim.x)
+      base[e] = e < kn ? s->basis[e] : s->mean[e - kn];
+    basis = base;
+    mean = base + kn;
+    return base + kn + n;
+  }
+  __host__ __device__ static int staged_floats(int n_cells) {
+    return (kBurgersWarpK + 1) * n_cells;
+  }
+};
+
+// C consecutive floats from 4 C-byte aligned shared memory.
+template <int C>
+__device__ __forceinline__ void load_cells(const float* p, float (&v)[C]) {
+  static_assert(C == 2 || C == 4, "2 or 4 cells a lane");
+  if constexpr (C == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x, v[1] = q.y;
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void store_cells(float* p, const float (&v)[C]) {
+  if constexpr (C == 4) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+
+// The edge cells of the neighbouring lanes: left = cell C l - 1 (lane l - 1's
+// last), right = cell C l + C (lane l + 1's first), periodic.
+template <int C>
+__device__ __forceinline__ void edge_cells(const float (&v)[C], float& left, float& right) {
+  const int l = threadIdx.x & 31;
+  left = __shfl_sync(0xffffffffu, v[C - 1], (l + 31) & 31);
+  right = __shfl_sync(0xffffffffu, v[0], (l + 1) & 31);
+}
+
+// Phi(u) for the chain of this warp at a level of C x 32 cells, whose
+// kBurgersWarpK coefficients sit in the warp's u[0..K) (shared memory,
+// written before a __syncwarp); the same value in every lane.
+template <int C>
+__device__ float burgers_phi_warp(const BurgersWarpLevel& lv, const float* u) {
+  constexpr int n = 32 * C;
+  const IpxBurgersSpec& s = *lv.s;
+  const int l = threadIdx.x & 31;
+  float v[C], acc[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) acc[j] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kBurgersWarpK; ++k) {
+    const float uk = u[k];
+    float b[C];
+    load_cells<C>(lv.basis + k * n + C * l, b);
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[j] += b[j] * uk;
+  }
+  float m[C];
+  load_cells<C>(lv.mean + C * l, m);
+#pragma unroll
+  for (int j = 0; j < C; ++j) v[j] = m[j] + acc[j];
+  const float c = s.half_dt_over_h;
+  constexpr int kOldWarps = kBurgersOldThreads / 32;
+  float sq[kOldWarps];
+#pragma unroll
+  for (int w = 0; w < kOldWarps; ++w) sq[w] = 0.0f;
+  for (int seg = 0; seg < s.n_segments; ++seg) {
+#pragma unroll 2
+    for (int it = 0; it < s.seg_steps[seg]; ++it) {
+      float left, right;
+      edge_cells<C>(v, left, right);
+      float flux2[C + 1];  // flux2[j]: through the left face of cell C l + j
+      flux2[0] = godunov_flux2(left, v[0]);
+#pragma unroll
+      for (int j = 1; j < C; ++j) flux2[j] = godunov_flux2(v[j - 1], v[j]);
+      flux2[C] = godunov_flux2(v[C - 1], right);
+#pragma unroll
+      for (int j = 0; j < C; ++j)
+        v[j] = __fsub_rn(v[j], __fmul_rn(c, __fsub_rn(flux2[j + 1], flux2[j])));
+    }
+    store_cells<C>(lv.state + C * l, v);
+    __syncwarp();
+#pragma unroll
+    for (int w = 0; w < kOldWarps; ++w) {
+      for (int o = 32 * w + l; o < s.m; o += kBurgersOldThreads) {
+        const int e = seg * s.m + o;
+        const float res = (s.data[e] - lv.state[s.obs[o]]) / s.noise[e];
+        sq[w] += res * res;
+      }
+    }
+    __syncwarp();  // the reads end before the next write
+  }
+  const int old_warps = s.m < kBurgersOldThreads ? (s.m + 31) / 32 : kOldWarps;
+  float total = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kOldWarps; ++w)
+    if (w < old_warps) total += warp_sum(sq[w]);
+  return 0.5f * total;
+}
+
+// Phi at a level of 64 or 128 cells (the warp kernel's geometry refuses
+// others).
+__device__ __forceinline__ float burgers_level_phi(const BurgersWarpLevel& lv, const float* u) {
+  return lv.s->n_cells == 64 ? burgers_phi_warp<2>(lv, u) : burgers_phi_warp<4>(lv, u);
 }
 
 // The Burgers misfit as the potential type of the samplers that take one.

@@ -9,25 +9,32 @@
 // inlined Burgers misfits (K12, burgers_misfit.cuh; replaces
 // ip_mcmc_tpu/models/burgers.py make_batched_misfit l.153).
 //
-//   burgers_misfit_kernel              Phi for a (K, B) batch at one
-//                                      Burgers misfit spec.
-//   fused_da3_pcn_kernel<Pot, RECORD>  the whole n_steps loop in one
-//                                      launch.
+//   burgers_misfit_kernel                 Phi for a (K, B) batch at one
+//                                         Burgers misfit spec.
+//   fused_da3_pcn_warp_kernel<RECORD>     the whole n_steps loop in one
+//                                         launch, one chain a warp.
 //
 // Per outer step: k_mid times (k_inner pCN steps against the coarse
-// potential, then a middle correction), then one fine correction. Layout:
-// one CTA per chain, one thread per cell of the largest grid (128; the
-// 64-cell coarse level uses half of them). The chain keeps four positions
-// in shared memory (outer, middle-level, inner, proposal) and seven
-// potential values in registers. Phi at the start positions comes in from
-// three burgers_misfit_kernel launches.
+// potential, then a middle correction), then one fine correction. Phi at
+// the start positions comes in from three burgers_misfit_kernel launches.
 //
 // What bounds it on the H100: at the shipped k_inner = 8, k_mid = 24 an
 // outer step is 192 coarse solves of 26 Godunov steps, 24 middle solves of
-// 52 and one fine solve of 154: 6394 dependent time steps, each 13 f32
-// operations per cell behind one block barrier, so barrier latency sets
-// the time (see burgers_misfit.cuh); memory sees the positions in and out
-// and the records only.
+// 52 and one fine solve of 154: 6394 dependent time steps; memory sees the
+// positions in and out and the records only. One chain a CTA of 128
+// threads, one thread a cell (the first design, 2.04 ms an outer step at
+// 2048 chains), paid a block barrier a time step and left half its threads
+// idle on the 64-cell coarse grid. So the kernel runs one chain a warp on
+// run_warp_chain<RECORD, 16>: the Burgers solves of burgers_misfit.cuh's
+// warp level (C cells a lane, the edge cells by shuffle, each face flux
+// once, no barrier), lanes 0..15 holding the 16 coordinates of the chain's
+// four positions (outer, middle, inner, proposal) in the warp's shared
+// memory. The three levels' bases and means are staged once a CTA. What is
+// left is the Godunov arithmetic, ~16 warps an SM (2048 chains on 132
+// SMs) to hide its latency. Phi adds in burgers_phi's order, so the chains
+// take the one-chain-a-CTA kernel's bits. The design is the line
+// Da3WarpDesign (scripts/measure_da3_warp_design.py times the
+// alternatives, PERF.md the numbers).
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -51,9 +58,21 @@ __global__ void __launch_bounds__(1024)
   if (threadIdx.x == 0) phi[b] = v;
 }
 
-template <class Pot>
+// The design: kWarps chains a CTA at most, one a warp; the launch bound's
+// warps an SM (kSmWarps: 32 caps a thread at 64 registers, 16 at 128;
+// 2048 chains on 132 SMs are 16 warps an SM at most).
+struct Da3WarpDesign { static constexpr int kWarps = 16, kSmWarps = 16; };
+constexpr int kDa3WarpMinCtas = Da3WarpDesign::kSmWarps >= 2 * Da3WarpDesign::kWarps
+                                    ? Da3WarpDesign::kSmWarps / Da3WarpDesign::kWarps
+                                    : 1;
+constexpr int kDa3D = kBurgersWarpK;  // coordinates of a chain, one a lane of lanes 0..15
+// a warp's slice: pos0, pos, p1, prop (kDa3D each), then the gather buffer
+// of the largest level; before the slices, the three levels' staged
+// bases and means
+constexpr int kDa3WarpFloats = 4 * kDa3D + 128;
+
 struct Da3Args {
-  typename Pot::Spec fine, mid, coarse;
+  IpxBurgersSpec fine, mid, coarse;
   IpxChainArgs chain;
   const float* phi0;   // (n,) fine Phi at pos_in
   const float* mid0;   // (n,) middle Phi at pos_in
@@ -63,128 +82,130 @@ struct Da3Args {
   float* mid_rate;  // (n,) middle-correction acceptance rate
 };
 
-// K13. Tags as in the JAX step builder (l.442-466): inner step (j2, j1)
-// draws its normals with t = 4 (j2 k_inner + j1) (keys t, t + 1) and its
-// uniform with t + 2; middle correction j2 uses 4 k_inner k_mid + 4 j2 + 2,
-// the fine correction 4 k_inner k_mid + 4 k_mid + 2. A NaN correction
-// ratio maps to -inf; every inner MH test is log u < delta, so NaN rejects.
-template <class Pot>
-struct Da3Step {
- const Da3Args<Pot>& a;
-  float* pos0;                       // outer state
-  float* pos;                        // middle-level state
-  float* p1;                         // inner (coarse) state
-  float* prop;                       // proposal
-  typename Pot::Workspace ws;
+// K13 on a warp. Tags as in the JAX step builder (l.442-466): inner step
+// (j2, j1) draws its normals with t = 4 (j2 k_inner + j1) (keys t, t + 1)
+// and its uniform with t + 2; middle correction j2 uses 4 k_inner k_mid +
+// 4 j2 + 2, the fine correction 4 k_inner k_mid + 4 k_mid + 2. A NaN
+// correction ratio maps to -inf; every inner MH test is log u < delta, so
+// NaN rejects. Lane t < 16 holds coordinate t of the four positions.
+struct Da3WarpStep {
+  using Ctx = WarpChainCtxT<kDa3D>;
+  const Da3Args& a;
+  BurgersWarpLevel fine, mid, coarse;
+  float* pos0;  // outer state
+  float* pos;   // middle-level state
+  float* p1;    // inner (coarse) state
+  float* prop;  // proposal
   float phi0, mid0, surr0, mid_acc;
 
-  __device__ void init(const ChainCtx& c) {
-    phi0 = a.phi0[c.c];
-    mid0 = a.mid0[c.c];
-    surr0 = a.surr0[c.c];
-    if (c.own) pos[c.t] = p1[c.t] = pos0[c.t];
-    __syncthreads();
+  __device__ void init(const Ctx& x) {
+    const int t = threadIdx.x & 31;
+    phi0 = x.live ? a.phi0[x.c] : 0.0f;
+    mid0 = x.live ? a.mid0[x.c] : 0.0f;
+    surr0 = x.live ? a.surr0[x.c] : 0.0f;
+    if (Ctx::holds(0)) pos[t] = p1[t] = pos0[t];
+    __syncwarp();
   }
 
-  __device__ bool step(const ChainCtx& c, uint32_t i) {
+  __device__ bool step(const Ctx& x, uint32_t i) {
+    const int t = threadIdx.x & 31;
+    const bool own = Ctx::holds(0);
     const uint32_t k1 = static_cast<uint32_t>(a.k_inner), k2 = static_cast<uint32_t>(a.k_mid);
-    float mid = mid0, surr = surr0;  // at pos, which equals pos0 here
+    float mid_phi = mid0, surr = surr0;  // at pos, which equals pos0 here
     for (uint32_t j2 = 0; j2 < k2; ++j2) {
       float s1 = surr;  // at p1, which equals pos here
       for (uint32_t j1 = 0; j1 < k1; ++j1) {
         const uint32_t tag = 4u * (j2 * k1 + j1);
-        if (c.own) {
-          const float xi = c.scale_t * c.normal(i, tag);
-          prop[c.t] = c.mean_t + a.contraction * (p1[c.t] - c.mean_t) + a.beta * xi;
+        if (own) {
+          const float xi = x.scale[0] * x.normal1(i, tag);
+          prop[t] = x.mean[0] + a.contraction * (p1[t] - x.mean[0]) + a.beta * xi;
         }
-        __syncthreads();
-        const float sp = Pot::phi(a.coarse, prop, ws);
-        if (logf(c.uniform(i, tag + 2u)) < s1 - sp) {  // the same in every thread
+        __syncwarp();
+        const float sp = burgers_level_phi(coarse, prop);
+        if (logf(x.uniform(i, tag + 2u)) < s1 - sp) {  // the same in every lane
           s1 = sp;
-          if (c.own) p1[c.t] = prop[c.t];
+          if (own) p1[t] = prop[t];
         }
       }
-      __syncthreads();
-      const float mid_end = Pot::phi(a.mid, p1, ws);
-      float lr = (mid - mid_end) - (surr - s1);  // coarse -> middle correction
+      __syncwarp();
+      const float mid_end = burgers_level_phi(mid, p1);
+      float lr = (mid_phi - mid_end) - (surr - s1);  // coarse -> middle correction
       if (isnan(lr)) lr = -INFINITY;
-      if (logf(c.uniform(i, 4u * k1 * k2 + 4u * j2 + 2u)) < lr) {
+      if (logf(x.uniform(i, 4u * k1 * k2 + 4u * j2 + 2u)) < lr) {
         mid_acc += 1.0f;
-        mid = mid_end;
+        mid_phi = mid_end;
         surr = s1;
-        if (c.own) pos[c.t] = p1[c.t];
-      } else if (c.own) {
-        p1[c.t] = pos[c.t];
+        if (own) pos[t] = p1[t];
+      } else if (own) {
+        p1[t] = pos[t];
       }
     }
-    __syncthreads();
-    const float pe = Pot::phi(a.fine, pos, ws);
-    float log_ratio = (phi0 - pe) - (mid0 - mid);  // middle -> fine correction
+    __syncwarp();
+    const float pe = burgers_level_phi(fine, pos);
+    float log_ratio = (phi0 - pe) - (mid0 - mid_phi);  // middle -> fine correction
     if (isnan(log_ratio)) log_ratio = -INFINITY;
-    const bool accept = logf(c.uniform(i, 4u * k1 * k2 + 4u * k2 + 2u)) < log_ratio;
+    const bool accept = logf(x.uniform(i, 4u * k1 * k2 + 4u * k2 + 2u)) < log_ratio;
     if (accept) {
       phi0 = pe;
-      mid0 = mid;
+      mid0 = mid_phi;
       surr0 = surr;
-      if (c.own) pos0[c.t] = pos[c.t];
-    } else if (c.own) {
-      pos[c.t] = p1[c.t] = pos0[c.t];
+      if (own) pos0[t] = pos[t];
+    } else if (own) {
+      pos[t] = p1[t] = pos0[t];
     }
     return accept;
   }
 };
 
-template <class Pot, bool RECORD>
-__global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
-    fused_da3_pcn_kernel(Da3Args<Pot> a) {
-  extern __shared__ float smem[];
-  const int d = a.chain.d;
-  const typename Pot::Extent extent =
-      Pot::join(Pot::extent(a.fine), Pot::join(Pot::extent(a.mid), Pot::extent(a.coarse)));
-  float* pos0 = smem;
-  float* pos = pos0 + d;
-  float* p1 = pos + d;
-  float* prop = p1 + d;
-  // no level's constants are staged on chip: the only potential this
-  // kernel is instantiated for keeps none there
-  Da3Step<Pot> step{a,    pos0, pos,  p1,  prop, Pot::carve(prop + d, extent),
-                    0.0f, 0.0f, 0.0f, 0.0f};
-  run_chain<RECORD>(a.chain, step, pos0);
-  if (threadIdx.x == 0)
-    a.mid_rate[blockIdx.x] =
+template <bool RECORD>
+__global__ void __launch_bounds__(32 * Da3WarpDesign::kWarps, kDa3WarpMinCtas)
+    fused_da3_pcn_warp_kernel(const __grid_constant__ Da3Args a) {
+  extern __shared__ float4 da3_warp_smem[];
+  float* staged = reinterpret_cast<float*>(da3_warp_smem);
+  BurgersWarpLevel fine{&a.fine}, mid{&a.mid}, coarse{&a.coarse};
+  float* w = coarse.stage(mid.stage(fine.stage(staged))) + (threadIdx.x >> 5) * kDa3WarpFloats;
+  fine.state = mid.state = coarse.state = w + 4 * kDa3D;
+  __syncthreads();  // the staged levels
+  Da3WarpStep step{a,         fine,          mid,  coarse, w,    w + kDa3D,
+                   w + 2 * kDa3D, w + 3 * kDa3D, 0.0f, 0.0f,   0.0f, 0.0f};
+  run_warp_chain<RECORD, kDa3D>(a.chain, step, w);
+  const int c = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (c < a.chain.n && (threadIdx.x & 31) == 0)
+    a.mid_rate[c] =
         step.mid_acc /
         fmaxf(static_cast<float>(a.chain.n_steps) * static_cast<float>(a.k_mid), 1.0f);
 }
 
-// Launches fused_da3_pcn_kernel<Pot, RECORD> (RECORD: chain.samples given).
-template <class Pot>
-int launch_da3_pcn(const typename Pot::Spec& fine, const typename Pot::Spec& mid,
-                   const typename Pot::Spec& coarse, const IpxChainArgs& chain,
-                   const float* phi0, const float* mid0, const float* surr0, float beta,
-                   float contraction, int k_inner, int k_mid, float* mid_rate, void* stream) {
-  const typename Pot::Extent extent =
-      Pot::join(Pot::extent(fine), Pot::join(Pot::extent(mid), Pot::extent(coarse)));
-  const int threads = chain_threads(chain, extent.cells, fine.K, Pot::kMaxThreads);
-  const int d = chain.d, n = chain.n;
-  if (threads == 0 || !Pot::valid(fine) || !Pot::valid(mid) || !Pot::valid(coarse) ||
-      mid.K != d || coarse.K != d || k_inner < 0 || k_mid < 0)
-    return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  const Da3Args<Pot> a{fine, mid,  coarse,      chain,   phi0,  mid0,    surr0,
-                       beta, contraction, k_inner, k_mid, mid_rate};
-  // state (4d) + misfit workspace
-  const size_t smem = sizeof(float) * (4 * d + Pot::workspace_floats(extent));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (chain.samples != nullptr) {
-    cudaFuncSetAttribute(fused_da3_pcn_kernel<Pot, true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    fused_da3_pcn_kernel<Pot, true><<<n, threads, smem, st>>>(a);
-  } else {
-    cudaFuncSetAttribute(fused_da3_pcn_kernel<Pot, false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    fused_da3_pcn_kernel<Pot, false><<<n, threads, smem, st>>>(a);
+// What a launch takes: warps (chains) a CTA, CTAs, dynamic shared memory.
+struct Da3WarpGeometry {
+  int warps, ctas;
+  size_t smem;
+};
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_da3_pcn.py warp_geometry: three
+// Burgers levels of 64 or 128 cells each, K = d = 16 (else
+// cudaErrorNotSupported). W: the largest power of two up to kWarps that
+// divides block_chains; a ragged last CTA runs spare warps.
+inline int da3_warp_geometry(const IpxBurgersSpec& fine, const IpxBurgersSpec& mid,
+                             const IpxBurgersSpec& coarse, const IpxChainArgs& chain,
+                             int k_inner, int k_mid, Da3WarpGeometry* geo) {
+  const IpxBurgersSpec* levels[3] = {&fine, &mid, &coarse};
+  int staged = 0;
+  for (const IpxBurgersSpec* s : levels) {
+    if (!BurgersPotential::valid(*s)) return cudaErrorInvalidValue;
+    if ((s->n_cells != 64 && s->n_cells != 128) || s->K != kDa3D) return cudaErrorNotSupported;
+    staged += BurgersWarpLevel::staged_floats(s->n_cells);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (chain.d != kDa3D) return cudaErrorNotSupported;
+  if (chain.block_chains <= 0 || chain.n < 0 || chain.n_steps < 0 || k_inner < 0 ||
+      k_mid < 0 || (chain.samples != nullptr && chain.thin <= 0))
+    return cudaErrorInvalidValue;
+  int w = Da3WarpDesign::kWarps;
+  while (chain.block_chains % w) w /= 2;
+  geo->warps = w;
+  geo->ctas = (chain.n + w - 1) / w;
+  geo->smem = sizeof(float) * (staged + kDa3WarpFloats * w);
+  return geo->smem <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace ipx
@@ -209,9 +230,41 @@ int ipx_fused_da3_pcn_burgers(const IpxBurgersSpec* fine, const IpxBurgersSpec* 
                               const float* phi0, const float* mid0, const float* surr0,
                               float beta, float contraction, int k_inner, int k_mid,
                               float* mid_rate, void* stream) {
-  return ipx::launch_da3_pcn<ipx::BurgersPotential>(*fine, *mid, *coarse, *chain, phi0, mid0,
-                                                    surr0, beta, contraction, k_inner, k_mid,
-                                                    mid_rate, stream);
+  ipx::Da3WarpGeometry geo;
+  const int status =
+      ipx::da3_warp_geometry(*fine, *mid, *coarse, *chain, k_inner, k_mid, &geo);
+  if (status != cudaSuccess) return status;
+  if (chain->n == 0) return cudaSuccess;
+  const ipx::Da3Args a{*fine, *mid, *coarse, *chain, phi0,    mid0, surr0,
+                       beta,  contraction,   k_inner, k_mid, mid_rate};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = 32 * geo.warps, smem = static_cast<int>(geo.smem);
+  if (chain->samples != nullptr) {
+    cudaFuncSetAttribute(ipx::fused_da3_pcn_warp_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    ipx::fused_da3_pcn_warp_kernel<true><<<geo.ctas, threads, smem, st>>>(a);
+  } else {
+    cudaFuncSetAttribute(ipx::fused_da3_pcn_warp_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    ipx::fused_da3_pcn_warp_kernel<false><<<geo.ctas, threads, smem, st>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel's launch geometry for these specs and chain arguments: out =
+// {chains a CTA, CTAs, dynamic shared-memory bytes}; the status the launch
+// would return for them (the wrapper's mirror is checked against this on
+// the card).
+int ipx_da3_warp_geometry(const IpxBurgersSpec* fine, const IpxBurgersSpec* mid,
+                          const IpxBurgersSpec* coarse, const IpxChainArgs* chain, int k_inner,
+                          int k_mid, int* out) {
+  ipx::Da3WarpGeometry geo{0, 0, 0};
+  const int status =
+      ipx::da3_warp_geometry(*fine, *mid, *coarse, *chain, k_inner, k_mid, &geo);
+  out[0] = geo.warps;
+  out[1] = geo.ctas;
+  out[2] = static_cast<int>(geo.smem);
+  return status;
 }
 
 }  // extern "C"

@@ -16,8 +16,8 @@
 //
 // and keeps pos[t] written by thread t only. The step counter restarts at
 // 0 in every launch, as in the JAX scaffold. A sampler whose chains read
-// one another (fused_fes.cu) cannot loop inside a CTA: it takes ChainCtx
-// alone and leaves the step loop to the host.
+// one another (fused_fes.cu) cannot loop inside a CTA: it sets up a
+// WarpChainCtx of its own and leaves the step loop to the host.
 #pragma once
 
 #include <cstdint>
@@ -40,7 +40,7 @@ typedef struct {
 namespace ipx {
 
 // The CTA of the 16x16 Darcy samplers that take no layout of their own
-// (ESS, FES, MALA): 256 threads, one per cell, and at least 4 CTAs per SM,
+// (MALA): 256 threads, one per cell, and at least 4 CTAs per SM,
 // which caps registers at 64 a thread.
 constexpr int kFusedThreads = 256;
 
@@ -58,10 +58,6 @@ struct ChainCtx {
   // this chain's element of the (1, block) uniform draw with tag `tag`
   __device__ __forceinline__ float uniform(uint32_t step, uint32_t tag) const {
     return uniform01(mix_key(bseed, step, tag), lane);
-  }
-  // the (1, 1) uniform draw with tag `tag`: one number for the whole block
-  __device__ __forceinline__ float block_uniform(uint32_t step, uint32_t tag) const {
-    return uniform01(mix_key(bseed, step, tag), 0u);
   }
 };
 
@@ -122,65 +118,96 @@ __device__ void run_cluster_chain(const IpxChainArgs& a, Step& step, float* pos,
   if (x.t == 0) a.acc[x.c] = acc / static_cast<float>(a.n_steps);
 }
 
-// The context of one chain run by one warp (run_warp_chain): the chain c,
-// whether it is one of the launch's (a spare warp of a ragged last CTA runs
-// a chain of zeros in lockstep with the others and stores nothing), and the
-// two coordinates a lane holds, t = lane and t + 32 of a d = 64 state.
-// With half = 32 they are the cos and the sin of Box-Muller row `lane`.
-struct WarpChainCtx {
+// The context of one chain run by one warp (run_warp_chain<RECORD, D>):
+// the chain c, whether it is one of the launch's (a spare warp of a ragged
+// last CTA runs a chain of zeros in lockstep with the others and stores
+// nothing), and the coordinates of the D-coordinate state that a lane
+// holds. D = 64: two a lane, t = lane and t + 32; with half = 32 they are
+// the cos and the sin of Box-Muller row `lane` (normal2). D <= 32: lane
+// t < D holds coordinate t and the other lanes none (normal1).
+template <int D>
+struct WarpChainCtxT {
+  static_assert(D == 64 || (D > 0 && D <= 32), "a warp holds d = 64 or d <= 32");
+  static constexpr int kPer = D > 32 ? 2 : 1;  // coordinates a lane
   int c;
   bool live;
   uint32_t bseed, lane, bc;  // lane: the chain's column in its block's tile
-  float mean[2], scale[2];
+  float mean[kPer], scale[kPer];
 
+  // whether this lane holds coordinate lane + 32 h
+  static __device__ __forceinline__ bool holds(int h) {
+    return D % 32 == 0 || static_cast<int>(threadIdx.x & 31) + 32 * h < D;
+  }
   // coordinates lane and lane + 32 of the (64, block) normal draw with
   // tags tag, tag + 1: one uniform pair serves both
   __device__ __forceinline__ void normal2(uint32_t step, uint32_t tag, float (&z)[2]) const {
+    static_assert(D == 64, "two coordinates a lane");
     const uint32_t idx = static_cast<uint32_t>(threadIdx.x & 31) * bc + lane;
     const float r = sqrtf(-2.0f * logf(uniform01(mix_key(bseed, step, tag), idx)));
     const float theta = kTwoPi * uniform01(mix_key(bseed, step, tag + 1u), idx);
     z[0] = r * cosf(theta);
     z[1] = r * sinf(theta);
   }
+  // coordinate lane (< D) of the (D, block) normal draw with tags tag,
+  // tag + 1, as ChainCtx::normal draws it (rows t and t - half share a pair)
+  __device__ __forceinline__ float normal1(uint32_t step, uint32_t tag) const {
+    static_assert(D <= 32, "one coordinate a lane");
+    return normal_coord(mix_key(bseed, step, tag), mix_key(bseed, step, tag + 1u),
+                        static_cast<int>(threadIdx.x & 31), (D + 1) / 2, lane, bc);
+  }
   // this chain's element of the (1, block) uniform draw with tag `tag`
   __device__ __forceinline__ float uniform(uint32_t step, uint32_t tag) const {
     return uniform01(mix_key(bseed, step, tag), lane);
   }
+  // the (1, 1) uniform draw with tag `tag`: one number for the whole block
+  __device__ __forceinline__ float block_uniform(uint32_t step, uint32_t tag) const {
+    return uniform01(mix_key(bseed, step, tag), 0u);
+  }
 };
+using WarpChainCtx = WarpChainCtxT<64>;
+
+// Chain c of a launch on a warp, with make_chain_ctx's seed and lane (the
+// coordinates' prior mean and scale are the caller's to load).
+template <int D>
+__device__ __forceinline__ WarpChainCtxT<D> warp_chain_ctx(const IpxChainArgs& a, int c) {
+  WarpChainCtxT<D> x;
+  x.c = c;
+  x.live = c < a.n;
+  x.bc = static_cast<uint32_t>(a.block_chains);
+  x.lane = static_cast<uint32_t>(c) % x.bc;
+  x.bseed = static_cast<uint32_t>(a.seed) + 7919u * (static_cast<uint32_t>(c) / x.bc);
+  return x;
+}
 
 // The scaffold of the samplers that run a chain on each warp, W chains a
 // CTA: warp w of CTA b runs chain c = b W + w, with the seed and lane of
 // make_chain_ctx (bseed = seed + 7919 (c / block_chains), lane c %
 // block_chains), so that its draws are those of run_chain's chain c. The
-// state is d = 64 coordinates, two a lane, in the warp's pos[0..64); a
-// Step provides
+// state is D coordinates in the warp's pos[0..D), held as WarpChainCtxT<D>
+// says; a Step provides
 //
-//   void init(const WarpChainCtx&)
-//   bool step(const WarpChainCtx&, uint32_t)  the same answer in every lane
+//   void init(const WarpChainCtxT<D>&)
+//   bool step(const WarpChainCtxT<D>&, uint32_t)  the same answer in every lane
 //
 // and keeps pos[t] written by the lane that holds t. Every warp of the CTA,
 // a spare one too, makes the same number of Step calls. A Step that holds
 // barriers of the whole CTA (the DA kernel's preconditioner products) must
 // make the same barriers in every warp, whatever its chain does; a Step
-// with none (elliptical slice sampling's Jacobi solves) may take a
-// different number of solves in each warp.
-template <bool RECORD, class Step>
+// with none (elliptical slice sampling's Jacobi solves, the Burgers solves
+// of the three-level DA kernel) may take a different number of solves in
+// each warp.
+template <bool RECORD, int D = 64, class Step>
 __device__ void run_warp_chain(const IpxChainArgs& a, Step& step, float* pos) {
-  constexpr int kD = 64;
+  using Ctx = WarpChainCtxT<D>;
   const int l = threadIdx.x & 31;
-  WarpChainCtx x;
-  x.c = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  x.live = x.c < a.n;
-  x.bc = static_cast<uint32_t>(a.block_chains);
-  x.lane = static_cast<uint32_t>(x.c) % x.bc;
-  x.bseed = static_cast<uint32_t>(a.seed) + 7919u * (static_cast<uint32_t>(x.c) / x.bc);
-  const size_t row = static_cast<size_t>(x.c) * kD;
+  Ctx x = warp_chain_ctx<D>(a, blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5));
+  const size_t row = static_cast<size_t>(x.c) * D;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < Ctx::kPer; ++h) {
     const int t = l + 32 * h;
-    x.mean[h] = a.mean[t];
-    x.scale[h] = a.scale[t];
-    pos[t] = x.live ? a.pos_in[row + t] : 0.0f;
+    x.mean[h] = Ctx::holds(h) ? a.mean[t] : 0.0f;
+    x.scale[h] = Ctx::holds(h) ? a.scale[t] : 0.0f;
+    if (Ctx::holds(h)) pos[t] = x.live ? a.pos_in[row + t] : 0.0f;
   }
   __syncwarp();
   step.init(x);
@@ -189,13 +216,15 @@ __device__ void run_warp_chain(const IpxChainArgs& a, Step& step, float* pos) {
     if (step.step(x, static_cast<uint32_t>(i))) acc += 1.0f;
     if (RECORD && (i + 1) % a.thin == 0 && x.live) {
       const size_t rec = static_cast<size_t>((i + 1) / a.thin - 1);
-      a.samples[(rec * a.n + x.c) * kD + l] = pos[l];
-      a.samples[(rec * a.n + x.c) * kD + l + 32] = pos[l + 32];
+#pragma unroll
+      for (int h = 0; h < Ctx::kPer; ++h)
+        if (Ctx::holds(h)) a.samples[(rec * a.n + x.c) * D + l + 32 * h] = pos[l + 32 * h];
     }
   }
   if (x.live) {
-    a.out[row + l] = pos[l];
-    a.out[row + l + 32] = pos[l + 32];
+#pragma unroll
+    for (int h = 0; h < Ctx::kPer; ++h)
+      if (Ctx::holds(h)) a.out[row + l + 32 * h] = pos[l + 32 * h];
     if (l == 0) a.acc[x.c] = acc / static_cast<float>(a.n_steps);
   }
 }

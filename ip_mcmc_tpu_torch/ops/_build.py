@@ -262,6 +262,8 @@ def library():
         # counts (n,), record (n, d) or null, β, √(1−β²), a, M, step, parity,
         # stream
         lib.bind("ipx_fused_fes", [spec, chain, p, p, p, p, f, f, f, i, i, i, p])
+        # spec, chain, M, out (3,): the ensemble kernel's geometry
+        lib.bind("ipx_fes_warp_geometry", [spec, chain, i, p])
         # the Burgers instantiations: the same arguments on the other spec
         lib.bind("ipx_burgers_misfit", [bspec, p, i, p, p])
         lib.bind("ipx_fused_da_pcn_burgers", [bspec, bspec, chain, p, p, f, f, i, p, p])
@@ -271,6 +273,8 @@ def library():
         # k_inner, k_mid, middle acceptance (n,), stream
         lib.bind("ipx_fused_da3_pcn_burgers",
                  [bspec, bspec, bspec, chain, p, p, p, f, f, i, i, p, p])
+        # fine, middle, coarse, chain, k_inner, k_mid, out (3,): its geometry
+        lib.bind("ipx_da3_warp_geometry", [bspec, bspec, bspec, chain, i, i, p])
         # the linear-Gaussian potential: spec, U (d, B), B, Φ (B,), stream
         lib.bind("ipx_linear_gaussian_misfit", [gspec, p, i, p, p])
         # spec, chain, step size, prior (0 / 1), stream

@@ -12,9 +12,11 @@ so the level above may take its endpoint as a proposal. The main
 acceptance output is the fine correction's; the third output of the plain
 entry point is the middle correction's rate.
 
-For CUDA tensors the entry points launch ``fused_da3_pcn_kernel<Pot,
-RECORD>`` (``csrc/fused_da3_pcn.cu``), the whole ``n_steps`` loop in one
-launch, on three ``BurgersMisfit`` potentials. For CPU tensors they run
+For CUDA tensors the entry points launch ``fused_da3_pcn_warp_kernel<RECORD>``
+(``csrc/fused_da3_pcn.cu``), the whole ``n_steps`` loop in one launch, one
+chain a warp, ``warp_geometry``'s chains a CTA, on three ``BurgersMisfit``
+potentials of 64 or 128 cells with d = K = 16 (the kernel refuses others
+and the wrapper raises). For CPU tensors they run
 the step builder below on the plain scaffold ``_scaffold.run_plain``,
 which takes any three features-first callables (d, B) → (B,). Tags: inner
 step (j2, j1) draws with t = 4(j2·k_inner + j1) (normals t, t+1; uniform
@@ -100,7 +102,7 @@ def _make_da3_pcn_step_builder(k_inner, k_mid):
 def _run_plain(pot_fine, pot_mid, pot_coarse, positions, prior_mean,
                prior_scale, beta, seed, n_steps, k_inner, k_mid, block_chains,
                thin=None):
-    """Plain twin of ``fused_da3_pcn_kernel``: (final (n, d), fine
+    """Plain twin of ``fused_da3_pcn_warp_kernel``: (final (n, d), fine
     acceptance (n,), middle acceptance (n,)), or with ``thin`` (final, fine
     acceptance, samples (n_steps // thin, n, d))."""
     _build.launch_counts[
@@ -114,6 +116,42 @@ def _run_plain(pot_fine, pot_mid, pot_coarse, positions, prior_mean,
 
 
 # --- the kernel -------------------------------------------------------------
+
+# ``Da3WarpDesign`` in ``csrc/fused_da3_pcn.cu``: chains (warps) a CTA at
+# most. What it takes: levels of WARP_CELLS cells, d = K = WARP_D.
+WARP_CHAINS = 16
+WARP_CELLS, WARP_D = (64, 128), 16
+# Shared memory: each level's basis and mean staged once a CTA ((K + 1)
+# rows of its cells), and a warp's four positions and gather buffer
+LEVEL_FLOATS = WARP_D + 1
+WARP_SLICE_BYTES = 4 * (4 * WARP_D + max(WARP_CELLS))
+MAX_SMEM_BYTES = 232_448  # what a CTA of the H100 may use
+KERNEL = "fused_da3_pcn_warp_kernel"  # the launch count's stem
+
+
+def warp_geometry(n_chains, block_chains, *, cells=(128, 128, 64), d=WARP_D,
+                  K=WARP_D):
+    """The kernel's launch: (CTAs, chains a CTA, dynamic shared-memory
+    bytes), as ``da3_warp_geometry`` in ``csrc/fused_da3_pcn.cu`` computes
+    it for levels of ``cells`` (fine, middle, coarse). Chains a CTA: the
+    largest power of two up to WARP_CHAINS that divides ``block_chains``; a
+    ragged last CTA runs spare warps. Raises ``ValueError`` for cells, d or
+    K the kernel does not take and for shared memory the card cannot give
+    a CTA."""
+    if any(c not in WARP_CELLS for c in cells) or (d, K) != (WARP_D, WARP_D):
+        raise ValueError(
+            f"the three-level DA kernel takes levels of {WARP_CELLS} cells and "
+            f"d = K = {WARP_D}; got {tuple(cells)} cells, d = {d}, K = {K}")
+    if block_chains <= 0 or n_chains < 0:
+        raise ValueError(f"n_chains {n_chains}, block_chains {block_chains}")
+    w = WARP_CHAINS
+    while block_chains % w:
+        w //= 2
+    smem = 4 * LEVEL_FLOATS * sum(cells) + w * WARP_SLICE_BYTES
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{smem} bytes of shared memory a CTA: the card gives "
+                         f"{MAX_SMEM_BYTES}")
+    return -(-n_chains // w), w, smem
 
 
 def _launch(pot_fine, pot_mid, pot_coarse, positions, prior_mean, prior_scale,
@@ -138,7 +176,7 @@ def _launch(pot_fine, pot_mid, pot_coarse, positions, prior_mean, prior_scale,
         int(k_inner), int(k_mid), mid_rate.data_ptr(),
         torch.cuda.current_stream(U.device).cuda_stream,
     )
-    name = _scaffold.kernel_name("fused_da3_pcn_kernel", thin is not None)
+    name = _scaffold.kernel_name(KERNEL, thin is not None)
     _build.check(status, name)
     _build.launch_counts[name] += 1
     _, _, _, out, acc, samples = keep

@@ -13,12 +13,13 @@ accepted with log ratio (M − 1)·log z − (Φ' − Φ) − ½Σ_{rows<M}(w'²
 then pCN on the other rows. Returns the pCN move's acceptance and, third,
 the stretch move's (both sub-steps count, the steps divide).
 
-For CUDA tensors the entry points launch ``fused_fes_kernel<RECORD>``
-(``csrc/fused_fes.cu``) on ``DarcyMisfit`` potentials only. A chain reads
-other chains of its block there, and a block of 256 chains fits no CTA, so
-the state lives in device memory and the step loop is here: two launches
-per step, one per parity, stream order being the barrier between the
-sub-steps. A chain is evaluated only in its own parity's sub-step (the
+For CUDA tensors the entry points launch ``fused_fes_warp_kernel<RECORD>``
+(``csrc/fused_fes.cu``) on a 16×16 Jacobi ``DarcyMisfit`` with d = 64 (the
+kernel refuses any other and the wrapper raises): one chain a warp,
+``warp_geometry``'s chains a CTA. A chain reads other chains of its block
+there, so the state lives in device memory and the step loop is here: two
+launches per step, each running the chains of one parity, stream order
+being the barrier between the sub-steps. A chain is evaluated only in its own parity's sub-step (the
 JAX kernel evaluates every lane in both behind the parity mask, 3 misfit
 calls per step; here 2 per chain and step: a masked lane can never accept,
 and the counter RNG needs no draws consumed). For CPU tensors they run the
@@ -34,7 +35,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ip_mcmc_tpu_torch.ops import _build, _scaffold
+from ip_mcmc_tpu_torch.ops import _build, _scaffold, fused_ess
 
 
 def choose_n_low_modes(eigenvalues, energy_frac=0.9, min_modes=2,
@@ -132,7 +133,7 @@ def _make_fes_step_builder(n_low_modes, stretch_a, block_chains):
 
 def _run_plain(potential_fn, positions, prior_mean, prior_scale, n_low_modes,
                seed, pcn_beta, stretch_a, n_steps, block_chains, thin=None):
-    """Plain twin of ``fused_fes_kernel``: (final (n, d), pCN acceptance
+    """Plain twin of ``fused_fes_warp_kernel``: (final (n, d), pCN acceptance
     (n,), stretch acceptance (n,)); with ``thin``, samples in third place
     as from the JAX recorded entry point."""
     _build.launch_counts[
@@ -146,6 +147,43 @@ def _run_plain(potential_fn, positions, prior_mean, prior_scale, n_low_modes,
 
 
 # --- the kernel -------------------------------------------------------------
+
+# ``FesWarpDesign`` in ``csrc/fused_fes.cu``: chains (warps) a CTA at most.
+# What it takes: a WARP_N² grid, d = K = WARP_D, Jacobi (no modes); its
+# solve is elliptical slice sampling's (``fused_ess``: the staged basis and
+# a warp's slice, here without pos)
+WARP_CHAINS = 16
+WARP_N, WARP_D = fused_ess.WARP_N, fused_ess.WARP_D
+BASIS_BYTES = fused_ess.BASIS_BYTES
+WARP_SLICE_BYTES = fused_ess.WARP_SLICE_BYTES - 4 * WARP_D
+MAX_SMEM_BYTES = fused_ess.MAX_SMEM_BYTES
+KERNEL = "fused_fes_warp_kernel"  # the launch count's stem
+
+
+def warp_geometry(n_chains, block_chains, *, n=WARP_N, d=WARP_D,
+                  precond="jacobi", modes=0):
+    """A launch of the kernel, which runs the ``n_chains // 2`` chains of
+    one parity: (CTAs, chains a CTA, dynamic shared-memory bytes), as
+    ``fes_warp_geometry`` in ``csrc/fused_fes.cu`` computes it. Chains a
+    CTA: the largest power of two up to WARP_CHAINS that divides
+    ``block_chains``; a ragged last CTA runs spare warps. Raises
+    ``ValueError`` for a grid, d or preconditioner the kernel does not
+    take, for an odd ``block_chains`` or a ragged last ensemble."""
+    if (n, d, precond, modes) != (WARP_N, WARP_D, "jacobi", 0):
+        raise ValueError(
+            f"the ensemble kernel takes a {WARP_N}x{WARP_N} grid, d = {WARP_D} and the "
+            f"Jacobi preconditioner; got {n}x{n}, d = {d}, {precond} with {modes} modes")
+    if block_chains <= 0 or block_chains % 2 or n_chains < 0 or n_chains % block_chains:
+        raise ValueError(f"n_chains {n_chains}, block_chains {block_chains}: whole "
+                         "ensembles of an even block_chains")
+    w = WARP_CHAINS
+    while block_chains % w:
+        w //= 2
+    smem = BASIS_BYTES + w * WARP_SLICE_BYTES
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{smem} bytes of shared memory a CTA: the card gives "
+                         f"{MAX_SMEM_BYTES}")
+    return -(-(n_chains // 2) // w), w, smem
 
 
 def _launch(potential_fn, positions, prior_mean, prior_scale, n_low_modes,
@@ -173,7 +211,7 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, n_low_modes,
         record = None
         if thin is not None and (i + 1) % thin == 0:
             record = samples[(i + 1) // thin - 1].data_ptr()
-        name = _scaffold.kernel_name("fused_fes_kernel", record is not None)
+        name = _scaffold.kernel_name(KERNEL, record is not None)
         for sub in (0, 1):  # stream order is the barrier between them
             status = fes(
                 ctypes.byref(spec), ctypes.byref(args), phi.data_ptr(),

@@ -1,9 +1,10 @@
-"""Where the time goes on the two 64x64 Darcy paths, on one NVIDIA GPU.
+"""Where the time goes on CLI paths, by default the two 64x64 Darcy ones, on
+one NVIDIA GPU.
 
-    python scripts/measure_darcy64_paths.py
+    python scripts/measure_darcy64_paths.py [config ...]
 
-``darcy64_da_fused`` and ``darcy64_pcn_warm`` each run once through the
-runner as the CLI runs them (the metrics of that run are printed), then
+Each config (by default ``darcy64_da_fused`` and ``darcy64_pcn_warm``) runs
+once through the runner as the CLI runs it (the metrics of that run are printed), then
 once more under ``torch.profiler`` (``measure_linear_paths.profiled``):
 the device time of every kernel and copy, summed, against the host wall
 of the same run gives the device's idle share, and the trace gives each
@@ -13,6 +14,7 @@ one JSON line.
 
 from __future__ import annotations
 
+import argparse
 import json
 import pathlib
 import sys
@@ -25,7 +27,8 @@ import chip_smoke  # noqa: E402
 from measure_linear_paths import profiled, summary  # noqa: E402
 
 KEYS = ("run_s", "ess_per_s", "min_ess", "max_rhat", "accept_rate", "inner_accept_rate",
-        "steps_per_s", "outer_steps_per_s", "total_wall_s")
+        "mid_accept_rate", "stretch_accept_rate", "steps_per_s", "outer_steps_per_s",
+        "total_wall_s")
 
 
 def main() -> int:
@@ -36,8 +39,10 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     from ip_mcmc_tpu_torch import configs, runner
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("configs", nargs="*", default=["darcy64_da_fused", "darcy64_pcn_warm"])
     out = {"card": card}
-    for name in ("darcy64_da_fused", "darcy64_pcn_warm"):
+    for name in ap.parse_args().configs:
         p = configs.build(name, "cuda")
         runs = []
         row = summary(*profiled(lambda: runs.append(runner.run_problem(p, "cuda"))))

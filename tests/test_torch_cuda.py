@@ -8,6 +8,7 @@ skip elsewhere. On the card:
 chip_smoke.py runs the same comparisons at the main path's full width.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -311,7 +312,7 @@ def test_burgers_kernels_match_plain(burgers_problem, kind, recorded):
     pm, ps = p.prior.mean, p.prior.scale
     kw = {"thin": 2} if recorded else {}
     if kind == "da3":
-        name = "fused_da3_pcn_kernel"
+        name = da3.KERNEL
         args = (pos, pm, ps, 0.25, 3, 4, 3, 2, 128)
         got = da3._launch(fine, mid, coarse, *args, **kw)
         ref = da3._run_plain(fine._forward_plain, mid._forward_plain,
@@ -1000,3 +1001,190 @@ def test_ess_warp_kernel_refuses_what_it_does_not_take(problem):
         out = (ctypes.c_int * 3)()
         status = lib.ipx_ess_warp_geometry(ctypes.byref(pot.spec()), ctypes.byref(args), 2, out)
         assert "not supported" in lib.ipx_error_string(status).decode()
+
+
+# --- the three-level Burgers DA: one warp per chain (fused_da3_pcn_warp_kernel)
+
+
+def _da3_args(p, n):
+    return (p.prior.mean, p.prior.scale, p.kernel_params["beta"], 9, 3, 2, 3, n)
+
+
+@pytest.mark.parametrize("record", [False, True])
+def test_da3_warp_kernel_with_ragged_last_cta(burgers_problem, record):
+    """13 chains in blocks of 8: two CTAs of 8 warps, the last with 3 spare
+    warps that run on zeros and store nothing. The 13 chains equal the first
+    13 of the kernel's 16-chain run bit for bit and agree with the plain
+    twin's."""
+    from ip_mcmc_tpu_torch.ops import fused_da3_pcn as da3
+
+    p = burgers_problem
+    levels = _burgers_levels(p)
+    pos = p.init_positions(torch.Generator().manual_seed(28), 16).cuda()
+    thin = 1 if record else None
+    name = f"{da3.KERNEL}<{'true' if record else 'false'}>"
+    before = _build.launch_counts[name]
+    got, full = (da3._launch(*levels, pos[:n], *_da3_args(p, 8), thin=thin) for n in (13, 16))
+    assert _build.launch_counts[name] == before + 2
+    for g, f in zip(got, full):
+        assert torch.equal(g, f[:, :13] if g.dim() == 3 else f[:13])
+    ref = da3._run_plain(*(lv._forward_plain for lv in levels), pos, *_da3_args(p, 8),
+                         thin=thin)
+    if record:
+        assert got[2].shape == (3, 13, 16) and torch.equal(got[2][-1], got[0])
+        rec = (got[2] - ref[2][:, :13]).abs().amax(dim=(0, 2))
+        assert float((rec <= 1e-4).double().mean()) >= 0.99
+    else:
+        assert abs(float(got[2].mean()) - float(ref[2][:13].mean())) <= 1e-2
+    _chains_agree(got, tuple(r[:13] for r in ref[:2]), 3)
+
+
+def test_da3_warp_chain_at_d16_draws_the_normals_of_make_chain_ctx(burgers_problem):
+    """run_warp_chain<RECORD, 16>: lane t < 16 draws coordinate t of the
+    (16, block) normal with Box-Muller rows t and t - 8 paired, as
+    make_chain_ctx's chain does. With beta 1 one inner step proposes
+    mean + scale * xi, so every chain that moved in one outer step of one
+    inner step (k_inner = k_mid = 1) sits at the plain twin's proposal."""
+    from ip_mcmc_tpu_torch.ops import fused_da3_pcn as da3
+
+    p = burgers_problem
+    levels = _burgers_levels(p)
+    pos = p.init_positions(torch.Generator().manual_seed(29), 2048).cuda()
+    args = (p.prior.mean, p.prior.scale, 1.0, 5, 1, 1, 1, 512)
+    got = da3._launch(*levels, pos, *args)
+    ref = da3._run_plain(*(lv._forward_plain for lv in levels), pos, *args)
+    moved = (got[0] != pos).any(dim=1) & (ref[0] != pos).any(dim=1)
+    assert int(moved.sum()) >= 20
+    assert float((got[0][moved] - ref[0][moved]).abs().max()) <= 1e-5
+    assert float((got[0] - ref[0]).abs().amax(dim=1).le(1e-5).double().mean()) >= 0.99
+
+
+def test_da3_warp_geometry_matches_the_kernel(burgers_problem):
+    """fused_da3_pcn.warp_geometry (Python) gives what the kernel's launch
+    computes."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.ops import fused_da3_pcn as da3
+
+    p = burgers_problem
+    specs = [lv.spec() for lv in _burgers_levels(p)]
+    lib = _build.library()
+    for n, block in ((2048, 512), (13, 8), (13, 13), (20, 4), (0, 512)):
+        pos = torch.zeros(n, 16, device="cuda")
+        args, _ = da._scaffold.chain_args(pos, p.prior.mean, p.prior.scale, 0, 1, block)
+        out = (ctypes.c_int * 3)()
+        assert lib.ipx_da3_warp_geometry(*(ctypes.byref(s) for s in specs),
+                                         ctypes.byref(args), 8, 24, out) == 0
+        ctas, w, smem = da3.warp_geometry(n, block)
+        assert (out[0], out[1], out[2]) == (w, ctas, smem), (n, block)
+
+
+def test_da3_warp_kernel_refuses_what_it_does_not_take(burgers_problem):
+    """A level of 32 cells and a prior of 8 modes: the kernel refuses them
+    (cudaErrorNotSupported) and the wrapper raises; the geometry function
+    says the same."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.configs import burgers_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import burgers
+    from ip_mcmc_tpu_torch.ops import fused_da3_pcn as da3
+
+    p = burgers_problem
+    fine, mid, coarse = _burgers_levels(p)
+    lib = _build.library()
+
+    def small(n_cells, n_modes):
+        aux = burgers.burgers_aux(n_cells=n_cells, n_modes=n_modes, alpha=1.5, field_scale=1.0,
+                                  t_final=0.2)
+        m = len(aux["obs_indices"])
+        return burgers_misfit_from_arrays(aux, np.zeros(m, np.float32), 0.02).cuda()
+
+    for levels, d in (((fine, mid, small(32, 16)), 16),
+                      ((small(128, 8), small(128, 8), small(64, 8)), 8)):
+        pos = torch.zeros(16, d, device="cuda")
+        pm, ps = torch.zeros(d, device="cuda"), torch.ones(d, device="cuda")
+        with pytest.raises(RuntimeError, match="launch failed.*not supported"):
+            da3.fused_da3_pcn_chain(*levels, pos, pm, ps, 0.25, 0, n_steps=1, k_inner=1,
+                                    k_mid=1, block_chains=16)
+        args, _ = da._scaffold.chain_args(pos, pm, ps, 0, 1, 16)
+        out = (ctypes.c_int * 3)()
+        status = lib.ipx_da3_warp_geometry(*(ctypes.byref(lv.spec()) for lv in levels),
+                                           ctypes.byref(args), 1, 1, out)
+        assert "not supported" in lib.ipx_error_string(status).decode()
+
+
+# --- the functional ensemble sampler: one warp per chain (fused_fes_warp_kernel)
+
+
+@pytest.mark.parametrize("record", [False, True])
+def test_fes_warp_kernel_on_a_ragged_count_of_ensembles(warm_problem, record):
+    """Three ensembles of 8: a launch runs the 12 chains of one parity in two
+    CTAs of 8 warps, the last with 4 spare warps, which return. The first
+    two ensembles equal a run of those two alone bit for bit and agree with
+    the plain twin's."""
+    pot = warm_problem.batched_potential_fn
+    pm, ps = warm_problem.prior.mean, warm_problem.prior.scale
+    pos = warm_problem.init_positions(torch.Generator().manual_seed(30), 24).cuda()
+    kw = {"thin": 1} if record else {}
+    name = f"{fused_fes.KERNEL}<{'true' if record else 'false'}>"
+    before = _build.launch_counts[name]
+    args = (pm, ps, 8, 9, 0.08, 2.0, 3, 8)
+    got, part = (fused_fes._launch(pot, pos[:n], *args, **kw) for n in (24, 16))
+    assert _build.launch_counts[name] == before + 2 * 3 * 2
+    for g, f in zip(got, part):
+        assert torch.equal(g[:, :16] if g.dim() == 3 else g[:16], f)
+    ref = fused_fes._run_plain(pot._forward_plain, pos, *args, **kw)
+    if record:
+        assert got[2].shape == (3, 24, 64) and torch.equal(got[2][-1], got[0])
+        rec = (got[2] - ref[2]).abs().amax(dim=(0, 2))
+        assert float((rec <= 1e-4).double().mean()) >= 0.99
+    else:
+        assert abs(float(got[2].mean()) - float(ref[2].mean())) <= 1e-2
+    _chains_agree(got, ref, 3)
+
+
+def test_fes_warp_geometry_matches_the_kernel(warm_problem):
+    """fused_fes.warp_geometry (Python) gives what the kernel's launch
+    computes."""
+    import ctypes
+
+    pot = warm_problem.batched_potential_fn
+    lib = _build.library()
+    for n, block in ((4096, 256), (24, 8), (12, 6), (0, 256)):
+        pos = torch.zeros(n, 64, device="cuda")
+        args, _ = da._scaffold.chain_args(pos, warm_problem.prior.mean,
+                                          warm_problem.prior.scale, 0, 1, block)
+        out = (ctypes.c_int * 3)()
+        assert lib.ipx_fes_warp_geometry(ctypes.byref(pot.spec()), ctypes.byref(args), 8,
+                                         out) == 0
+        ctas, w, smem = fused_fes.warp_geometry(n, block)
+        assert (out[0], out[1], out[2]) == (w, ctas, smem), (n, block)
+
+
+def test_fes_warp_kernel_refuses_what_it_does_not_take(problem):
+    """A dst_trunc misfit (darcy_da_fused's exact level) and a 32² Jacobi
+    misfit: the kernel refuses them (cudaErrorNotSupported) and the wrapper
+    raises; the geometry function says the same. An odd ensemble or a
+    ragged last one: the entry point raises, the geometry function returns
+    cudaErrorInvalidValue."""
+    import ctypes
+
+    big = _build_on_card("darcy32_pcn_warm").batched_potential_fn
+    lib = _build.library()
+    pos = problem.init_positions(torch.Generator().manual_seed(31), 16).cuda()
+    pm, ps = problem.prior.mean, problem.prior.scale
+    out = (ctypes.c_int * 3)()
+    for pot in (problem.batched_potential_fn, big):
+        with pytest.raises(RuntimeError, match="launch failed.*not supported"):
+            fused_fes.fused_fes_chain(pot, pos, pm, ps, 8, 0, n_steps=1, block_chains=16)
+        args, _ = da._scaffold.chain_args(pos, pm, ps, 0, 1, 16)
+        status = lib.ipx_fes_warp_geometry(ctypes.byref(pot.spec()), ctypes.byref(args), 8, out)
+        assert "not supported" in lib.ipx_error_string(status).decode()
+    jacobi = _build_on_card("darcy_pcn_warm").batched_potential_fn
+    with pytest.raises(ValueError, match="must be even"):
+        fused_fes.fused_fes_chain(jacobi, pos[:15], pm, ps, 8, 0, n_steps=1, block_chains=5)
+    for n, block in ((15, 5), (12, 8)):
+        args, _ = da._scaffold.chain_args(pos[:n], pm, ps, 0, 1, block)
+        status = lib.ipx_fes_warp_geometry(ctypes.byref(jacobi.spec()), ctypes.byref(args), 8,
+                                           out)
+        assert "invalid argument" in lib.ipx_error_string(status).decode()
