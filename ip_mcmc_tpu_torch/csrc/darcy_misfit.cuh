@@ -1007,18 +1007,24 @@ __device__ WarpOperator<L::kC> darcy_setup_warp(const L& lv, const float* u) {
   return op;
 }
 
-// darcy_cg (cold) on a warp: fixed-count PCG on A x = b from 0, with the
-// same guards (alpha = 0 when pAp <= 0, beta = 0 when rz <= 0) and the
-// level's dot products.
-template <class L>
+// darcy_cg on a warp: fixed-count PCG on A x = b from 0, or (WARM) from
+// the lane's cells of a start passed in x, with the same guards (alpha = 0
+// when pAp <= 0, beta = 0 when rz <= 0) and the level's dot products.
+template <bool WARM = false, class L>
 __device__ void darcy_cg_warp(const L& lv, const WarpOperator<L::kC>& op,
                               const float (&b)[L::kC], float (&x)[L::kC]) {
   constexpr int C = L::kC;
   float r[C], z[C], p[C], Ap[C];
+  if constexpr (WARM) {  // from the start in x: r = b - A x
+    apply_operator_warp(lv, op, x, Ap);
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    r[c] = b[c];
-    x[c] = 0.0f;
+    for (int c = 0; c < C; ++c) r[c] = b[c] - Ap[c];
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      r[c] = b[c];
+      x[c] = 0.0f;
+    }
   }
   lv.precond(r, op.inv_diag, z);
 #pragma unroll
@@ -1114,6 +1120,7 @@ __device__ float darcy_phi_warp(const L& lv, const float* u) {
 // shared memory, likewise.
 struct WarpSliceLevel {
   static constexpr int kN = 16, kCells = 256, kC = 8, kStride = 288, kK = 64;
+  static constexpr int kPrecond = kPrecondJacobi;
   const IpxMisfitSpec* s;
   const float* basis;  // (64, kStride) staged, padded
   WarpSmem ws;         // p, th, tv: kStride floats each
@@ -1152,6 +1159,11 @@ struct WarpSliceLevel {
     float v[kC];
 #pragma unroll
     for (int k = 0; k < kC; ++k) v[k] = __fmul_rn(a[k], b[k]);
+    return sum(v);
+  }
+
+  // sum over the warp's cells of v, in block_sum's order, in every lane
+  __device__ float sum(const float (&v)[kC]) const {
     const float b0 = (v[0] + v[4]) + (v[2] + v[6]), b1 = (v[1] + v[5]) + (v[3] + v[7]);
     float t = b0 + b1;
     t += __shfl_xor_sync(0xffffffffu, t, 2);
@@ -1272,6 +1284,306 @@ __device__ __forceinline__ void apply_operator_warp(const WarpSliceLevel& lv,
                                                     const WarpOperator<8>& op, const float (&p)[8],
                                                     float (&Ap)[8]) {
   lv.stencil(op, p, Ap);
+}
+
+// --- the adjoint gradient on a warp: MALA ------------------------------------
+//
+// The value and gradient of darcy_value_and_grad for one chain on one warp,
+// in WarpSliceLevel's layout: the lane's eight cells of one 32-cell slice,
+// every sum in the order of the one-chain-a-CTA kernel's threads, so that
+// its chains keep their bits. Jacobi (cold MALA) solves on WarpSliceLevel;
+// the dense dst preconditioner (warm MALA) on WarpDstSliceLevel below.
+
+// The dense fast-Poisson apply (apply_dst) on a warp. A stage computes each
+// output cell as its 16 multiply-adds q = 0..15 in sequence, in f32 on the
+// CUDA cores, from inputs rounded to bf16 at apply_dst's four points; the
+// stages are handed round through the warp's slices p and q between
+// __syncwarp. The lane's cells are (i, j) = (2 (l / 4) + h, l % 4 + 4 m),
+// k = 4 h + m. Each stage reads whole rows (four float4): the column
+// stages' inputs are written transposed by the stage before (y^T, rt^T),
+// and S^T is staged beside S. S, S^T and lam are staged once a CTA as f32
+// (exact: S is bf16) in the cells' padded layout, which puts the lanes'
+// rows in distinct banks.
+struct WarpDstSliceLevel : WarpSliceLevel {
+  static constexpr int kPrecond = kPrecondDst;
+  const float* S;    // (16, 16) padded
+  const float* St;   // its transpose
+  const float* lam;  // (16, 16) padded: the eigenvalues of the flat grid
+  float* q;          // the warp's second stage buffer (kStride)
+  float a_bar;       // the chain's geometric-mean coefficient
+
+  // Copies S (as its transpose too) and lam of `s` to `base`, 3 kStride
+  // floats (every thread of the CTA calls; a barrier must follow).
+  static __device__ void stage_dst(const IpxMisfitSpec& s, float* base) {
+    const __nv_bfloat16* gS = static_cast<const __nv_bfloat16*>(s.S);
+    for (int e = threadIdx.x; e < kCells; e += blockDim.x) {
+      const float v = __bfloat162float(gS[e]);
+      base[pad(e)] = v;
+      base[kStride + pad((e % kN) * kN + e / kN)] = v;
+      base[2 * kStride + pad(e)] = s.lam[e];
+    }
+  }
+  __host__ __device__ static constexpr size_t staged_dst_bytes() {
+    return sizeof(float) * 3 * kStride;
+  }
+
+  // half `half` (8 floats) of row `row` of a padded (16, 16) array
+  static __device__ __forceinline__ void row8(const float* base, int row, int half,
+                                              float (&v)[8]) {
+    const float4* p4 = reinterpret_cast<const float4*>(base + pad(kN * row) + 8 * half);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float4 f = p4[e];
+      v[4 * e] = f.x;
+      v[4 * e + 1] = f.y;
+      v[4 * e + 2] = f.z;
+      v[4 * e + 3] = f.w;
+    }
+  }
+
+  // One stage: f(h, m, sum_q A[i0 + h, q] B[j0 + 4 m, q]) for the lane's
+  // eight outputs, each adding q = 0..15 in sequence as apply_dst's loops
+  // do (a product inside an fma is exact: which factor comes first is no
+  // matter). The eight sums run side by side over q's two halves, the two
+  // rows of A in registers, B's rows read in turn.
+  template <class F>
+  static __device__ __forceinline__ void stage(const float* A, const float* B, F&& f) {
+    const int l = threadIdx.x & 31, i0 = 2 * (l >> 2), j0 = l & 3;
+    float acc[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) acc[h][m] = 0.0f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float a[2][8];
+      row8(A, i0, half, a[0]);
+      row8(A, i0 + 1, half, a[1]);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        float b[8];
+        row8(B, j0 + 4 * m, half, b);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) acc[h][m] += a[h][e] * b[e];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) f(h, m, acc[h][m]);
+  }
+
+  __device__ void precond(const float (&r)[kC], const float (&inv_diag)[kC],
+                          float (&z)[kC]) const {
+    const int l = threadIdx.x & 31, i0 = 2 * (l >> 2), j0 = l & 3;
+    float* const y = ws.p;
+    float* const qb = q;
+    const float* const lm = lam;
+    const float ab = a_bar;
+    __builtin_assume(__isShared(S) && __isShared(St) && __isShared(lam) && __isShared(q));
+#pragma unroll
+    for (int k = 0; k < kC; ++k) qb[at(k)] = bf16_round(r[k]);
+    __syncwarp();
+    // y[i, j] = sum_q S[j, q] r[i, q], stored as y^T
+    stage(qb, S, [&](int h, int m, float v) {
+      y[pad(kN * (j0 + 4 * m) + i0 + h)] = bf16_round(v);
+    });
+    __syncwarp();
+    // rt[i, j] = sum_q S[i, q] y[q, j] / (lam a_bar), stored as rt^T
+    stage(S, y, [&](int h, int m, float v) {
+      const int t = kN * (i0 + h) + j0 + 4 * m;
+      qb[pad(kN * (j0 + 4 * m) + i0 + h)] = bf16_round(v / (lm[pad(t)] * ab));
+    });
+    __syncwarp();
+    // w[i, j] = sum_q S[q, i] rt[q, j]
+    stage(St, qb, [&](int h, int m, float v) { y[at(4 * h + m)] = bf16_round(v); });
+    __syncwarp();
+    // z[i, j] = sum_q S[q, j] w[i, q]
+    stage(y, St, [&](int h, int m, float v) { z[4 * h + m] = v; });
+    __syncwarp();  // the reads end before the next write to p
+  }
+};
+
+// apply_operator_warp on a WarpDstSliceLevel (darcy_cg_warp's stencil)
+__device__ __forceinline__ void apply_operator_warp(const WarpDstSliceLevel& lv,
+                                                    const WarpOperator<8>& op, const float (&p)[8],
+                                                    float (&Ap)[8]) {
+  lv.stencil(op, p, Ap);
+}
+
+// The order of g = basis (a (-dPhi/da)): the parent's, lane L adding cells
+// L, L + 32, ..., L + 224 of each mode and a warp_sum a mode
+// (kGradShuffle); or the same partial sums reduced and scattered over the
+// warp, lane L keeping mode L of each 32 (kGradScatter): at each level the
+// lane keeps the modes of its half and adds the other lane's sums of them,
+// the pairs of warp_sum's butterfly, 31 shuffles for 32 modes instead of
+// 160. Both give the same bits.
+enum { kGradShuffle = 0, kGradScatter = 1 };
+
+// One level of kGradScatter: the lane's 2 O sums v[0..2 O) become the O of
+// its half (v[e + O] when bit O of the lane is set, else v[e]), each plus
+// the other lane's sum of the same mode.
+template <int O>
+__device__ __forceinline__ void scatter_level(float (&v)[32]) {
+  const bool upper = (threadIdx.x & O) != 0;
+#pragma unroll
+  for (int e = 0; e < O; ++e) {
+    const float keep = upper ? v[e + O] : v[e];
+    const float send = upper ? v[e] : v[e + O];
+    v[e] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+// Phi(u) and g (coordinates l, l + 32 of the 64-mode gradient) for the chain
+// of this warp, whose coefficients sit in the warp's u[0..64): the adjoint
+// method of darcy_value_and_grad, the same value in every lane. WARM: both
+// solves start from the lane's cells x0, lam0. On return the lane's cells
+// of the forward solution are in xf (a slice of kStride floats) and those
+// of the adjoint solution in lv.ws.th. No CTA barrier.
+template <int GRAD, bool WARM, class L>
+__device__ float darcy_value_and_grad_warp(L& lv, const float* u, float* xf,
+                                           const float (&x0)[8], const float (&lam0)[8],
+                                           float (&g)[2]) {
+  constexpr int n = L::kN, C = L::kC, kStride = L::kStride;
+  const int l = threadIdx.x & 31;
+  const IpxMisfitSpec& s = *lv.s;
+  const WarpOperator<C> op = lv.setup(u);
+  float a[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) a[k] = lv.ws.p[L::at(k)];  // where setup left it
+  __syncwarp();  // the reads end before the next write to p
+  if constexpr (L::kPrecond == kPrecondDst) {
+    float log_a[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k) log_a[k] = logf(a[k]);
+    lv.a_bar = expf(lv.sum(log_a) / static_cast<float>(L::kCells));
+  }
+
+  float b[C], x[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    b[k] = s.source[L::cell(k)];
+    x[k] = WARM ? x0[k] : 0.0f;
+  }
+  darcy_cg_warp<WARM>(lv, op, b, x);
+  // the residuals at the observed cells, as darcy_observe sums them, and the
+  // adjoint right-hand side -O^T(res / sigma), o in order, per cell
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    lv.ws.p[L::at(k)] = x[k];
+    xf[L::at(k)] = x[k];
+    b[k] = 0.0f;
+  }
+  __syncwarp();
+  float acc = 0.0f;
+  for (int o0 = 0; o0 < s.m; o0 += 32) {
+    const int o = o0 + l;
+    float q = 0.0f;
+    if (o < s.m) {
+      const float res = (s.data[o] - lv.ws.p[L::pad(s.obs[o])]) / s.noise[o];
+      acc += res * res;
+      q = res / s.noise[o];
+    }
+    const int count = s.m - o0 < 32 ? s.m - o0 : 32;
+    for (int e = 0; e < count; ++e) {
+      const float qe = __shfl_sync(0xffffffffu, q, e);
+      const int t = s.obs[o0 + e];
+#pragma unroll
+      for (int k = 0; k < C; ++k)
+        if (t == L::cell(k)) b[k] += qe;
+    }
+  }
+  const float phi = 0.5f * warp_sum(acc);
+  __syncwarp();  // the reads end before the adjoint solve writes p
+  float lam[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    b[k] = -b[k];
+    lam[k] = WARM ? lam0[k] : 0.0f;
+  }
+  darcy_cg_warp<WARM>(lv, op, b, lam);
+
+  // dPhi/da per cell, the parent's expressions; a, x and lam where the
+  // neighbours read them: the slices th and tv are free after the solves
+  float* const la = lv.ws.th;
+  float* const aa = lv.ws.tv;
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    la[L::at(k)] = lam[k];
+    aa[L::at(k)] = a[k];
+  }
+  __syncwarp();
+  // Each face term is rounded before the adds (__fmul_rn): the parent's
+  // branches on i and j are runtime ones, so its adds take rounded
+  // products, where here many of them are known at compile time and the
+  // compiler would contract the product into the add.
+  const float two_h2 = 2.0f * static_cast<float>(L::kCells);
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int t = L::cell(k), i = t / n, j = t % n, q = L::at(k);
+    const int down = k < 4 ? 16 : 20, up = k < 4 ? 20 : 16;
+    const float ac = aa[q], xc = xf[q], lc = lam[k];
+    float t_r = 0.0f, t_l = 0.0f, t_d = 0.0f, t_u = 0.0f;
+    if (j < n - 1) {  // the face to the right: this cell's own share
+      const float ar = aa[q + 1], den = 1.0f / (ac + ar + 1e-38f), qq = ar * den;
+      t_r = __fmul_rn(two_h2 * (qq * qq), (xc - xf[q + 1]) * (lc - la[q + 1]));
+    }
+    if (j > 0) {  // the left neighbour's right face: the neighbour share
+      const float al = aa[q - 1], den = 1.0f / (al + ac + 1e-38f), qq = al * den;
+      t_l = __fmul_rn(two_h2 * (qq * qq), (xf[q - 1] - xc) * (la[q - 1] - lc));
+    }
+    if (i < n - 1) {
+      const float ad = aa[q + down], den = 1.0f / (ac + ad + 1e-38f), qq = ad * den;
+      t_d = __fmul_rn(two_h2 * (qq * qq), (xc - xf[q + down]) * (lc - la[q + down]));
+    }
+    if (i > 0) {
+      const float au = aa[q - up], den = 1.0f / (au + ac + 1e-38f), qq = au * den;
+      t_u = __fmul_rn(two_h2 * (qq * qq), (xf[q - up] - xc) * (la[q - up] - lc));
+    }
+    const float edge = static_cast<float>((i == 0) + (i == n - 1) + (j == 0) + (j == n - 1));
+    const float g_a = t_r + t_l + t_d + t_u + two_h2 * xc * lc * edge;
+    lv.ws.p[q] = ac * (-g_a);  // chain rule through a = exp(log a)
+  }
+  __syncwarp();
+  // g[k] = sum_cells basis[k, cell] w[cell]: lane l's partial over the
+  // cells l + 32 j, j in order, as the parent's lane l adds them
+  float w[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) w[j] = lv.ws.p[36 * j + l];
+  __builtin_assume(__isShared(lv.basis));
+  __syncwarp();  // the reads end before the next write to p
+  if constexpr (GRAD == kGradShuffle) {
+    for (int m = 0; m < 2 * 32; ++m) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc += lv.basis[m * kStride + 36 * j + l] * w[j];
+      acc = warp_sum(acc);
+      if (m == l) g[0] = acc;
+      if (m == l + 32) g[1] = acc;
+    }
+  } else {
+#pragma unroll
+    for (int hb = 0; hb < 2; ++hb) {
+      float v[32];
+#pragma unroll
+      for (int m = 0; m < 32; ++m) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc += lv.basis[(32 * hb + m) * kStride + 36 * j + l] * w[j];
+        v[m] = acc;
+      }
+      scatter_level<16>(v);
+      scatter_level<8>(v);
+      scatter_level<4>(v);
+      scatter_level<2>(v);
+      scatter_level<1>(v);
+      g[hb] = v[0];
+    }
+  }
+  return phi;
 }
 
 // --- one chain a CTA, G chains a thread-block cluster: the 64 x 64 kernels ----

@@ -15,9 +15,12 @@
 //                                  rows [0, n*n) of aux carry the forward
 //                                  solution, rows [n*n, 2 n*n) the adjoint
 //                                  one; both solves start from aux0.
-//   fused_mala_kernel<RECORD>      MALA on Phi + the whitened prior.
-//   fused_mala_warm_kernel<RECORD> the same, each chain carrying the two
-//                                  solutions of its current state.
+//   fused_mala_warp_kernel<RECORD, PRECOND>
+//                                  MALA on Phi + the whitened prior, one
+//                                  chain a warp: PRECOND kPrecondJacobi is
+//                                  the cold kernel (K10), kPrecondDst the
+//                                  warm one (K11), each chain carrying the
+//                                  two solutions of its current state.
 //
 // One step: prop = pos - eps^2/2 g + eps xi, value and gradient at prop,
 // log ratio (phi - phi') + log q(pos | prop) - log q(prop | pos) with NaN
@@ -27,20 +30,34 @@
 // builder (K11); a CUDA kernel takes the prior as arguments.
 // Tags: normals 0 (keys 0, 1), MH uniform 2.
 //
-// Layout and scaffold: fused_scaffold.cuh (one CTA per chain, one thread
-// per cell). The sums over the d coordinates are block reductions, so every
-// thread takes the same decision. Phi, the gradient (and the solutions) at
-// the start positions come in from the standalone kernels. The carried
-// solutions of the accepted state sit in shared memory, not in registers:
-// only their owner thread reads them.
-//
-// What bounds them on the H100: per chain and step two Darcy solves on one
-// operator (see fused_pcn.cu: dependent block reductions, not the f32
-// rate), and two reductions of 64 modes x 256 cells for the KL products.
+// What bounds them on the H100: per chain and step a forward and an
+// adjoint solve on one operator, Jacobi / 48 + 48 CG (cold) or dense dst
+// / 6 + 6 CG (warm), each ~0.3 M (cold) or ~0.1 M (warm) multiply-adds,
+// but chains of dependent dot products and preconditioner stages. One
+// chain a CTA of 256 threads (the first design, 0.83 / 0.64 ms a step at
+// 4096 chains) paid a CTA barrier for every stencil, dst stage and block
+// reduction, ~480 / ~110 a step. So the kernel runs one chain a warp on
+// fused_scaffold.cuh's run_warp_chain: lane l holds coordinates l, l + 32
+// of d = 64 and eight cells of one 32-cell slice of the 16 x 16 grid
+// (WarpSliceLevel in darcy_misfit.cuh); the whole step (proposal, both
+// solves, dPhi/da, g = basis (a (-dPhi/da)), prior fold, MH test) runs in
+// the warp with no CTA barrier after the staging. Every sum adds in the
+// order of the one-chain-a-CTA kernel's threads, so the chains keep its
+// bits: the dot products and a_bar in block_sum's (WarpSliceLevel::sum),
+// the dense dst's 16 terms a cell in sequence on the CUDA cores with its
+// four bf16 roundings (WarpDstSliceLevel), the KL product per mode over
+// the parent's lane-strided cells (darcy_value_and_grad_warp), the prior
+// and proposal sums as a block_sum whose warps 0 and 1 hold the 64
+// coordinates. The KL basis, S, S^T and the dst eigenvalues are staged
+// in shared memory once a CTA; a warp's slices hold the state, the solve's
+// vectors, the forward solution and (warm) the carried solutions. The
+// design is the line MalaWarpDesign (scripts/measure_mala_warp_design.py
+// times the alternatives, PERF.md the numbers).
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "darcy_misfit.cuh"
 #include "fused_scaffold.cuh"
@@ -82,101 +99,209 @@ struct MalaArgs {
   float eps;
 };
 
-template <bool WARM>
-struct MalaStep {
+// The design: kWarps chains a CTA at most, one a warp; the launch bound's
+// warps an SM (kSmWarps: 32 caps a thread at 65536 / 1024 = 64 registers,
+// 24 at 80, 16 at 128); the order of the KL product (kGrad:
+// kGradShuffle, kGradScatter in darcy_misfit.cuh); where the warm kernel
+// keeps the carried solutions of the accepted state (kCarry).
+enum { kCarryRegisters = 0, kCarrySlices = 1 };
+struct MalaWarpDesign { static constexpr int kWarps = 16, kSmWarps = 16, kGrad = kGradScatter, kCarry = kCarrySlices; };
+constexpr int kMalaWarpMinCtas = MalaWarpDesign::kSmWarps >= 2 * MalaWarpDesign::kWarps
+                                     ? MalaWarpDesign::kSmWarps / MalaWarpDesign::kWarps
+                                     : 1;
+constexpr int kMalaD = WarpSliceLevel::kK;
+
+// MALA (K10 / K11) on a warp: the lane holds coordinates l and l + 32 of
+// pos, prop and the gradient g.
+template <int PRECOND>
+struct MalaWarpStep {
+  static constexpr bool kWarm = PRECOND == kPrecondDst;
+  static constexpr bool kSlices = kWarm && MalaWarpDesign::kCarry == kCarrySlices;
+  static constexpr int kCarried = kWarm && !kSlices ? 8 : 1;  // cells in registers
+  static constexpr int kStride = WarpSliceLevel::kStride;
+  using Level = std::conditional_t<kWarm, WarpDstSliceLevel, WarpSliceLevel>;
+  // a warp's floats: pos, prop, then slices: the forward solution, p, th,
+  // tv, (warm) the dst stage buffer, (kSlices) the carried x and lam
+  static constexpr int kWarpFloats =
+      2 * kMalaD + (4 + (kWarm ? 1 : 0) + (kSlices ? 2 : 0)) * kStride;
+  // the CTA's staged floats before the warps: the basis, (warm) S, S^T, lam
+  static constexpr size_t kStagedBytes =
+      WarpSliceLevel::staged_bytes() + (kWarm ? WarpDstSliceLevel::staged_dst_bytes() : 0);
+
   const MalaArgs& a;
+  Level lv;
   float* pos;
   float* prop;
-  float* gp;  // gradient of the misfit at the proposal
-  MisfitSmem ws;
-  GradSmem gs;
-  float* xs;  // [cells] forward solution of the accepted state (warm)
-  float* ls;  // [cells] adjoint solution of the accepted state (warm)
-  float phi, g;
+  float* xf;  // the forward solution at prop
+  float* xs;  // kSlices: the accepted state's forward solution
+  float* ls;  // ... and adjoint solution
+  float phi, g[2];
+  float cx[kCarried], cl[kCarried];  // the same in registers (warm, not kSlices)
 
-  // adds the prior's 1/2 |z|^2 to phi_v and z / scale to this thread's g_v
-  __device__ void fold(const ChainCtx& c, const float* u, float& phi_v, float& g_v) const {
-    const float z = c.own ? (u[c.t] - c.mean_t) / c.scale_t : 0.0f;
-    phi_v = phi_v + 0.5f * block_sum(z * z, ws.red);
-    if (c.own) g_v = g_v + z / c.scale_t;
+  // block_sum over the parent's 256 threads of the terms v0, v1 of the
+  // coordinates l, l + 32: warps 0 and 1 hold them, the six others 0
+  static __device__ __forceinline__ float sum64(float v0, float v1) {
+    return 0.0f + warp_sum(v0) + warp_sum(v1);
   }
 
-  __device__ void init(const ChainCtx& c) {
-    const int n = a.chain.n, cells = a.pot.n * a.pot.n;
-    phi = a.phi0[c.c];
-    g = c.own ? a.g0[static_cast<size_t>(c.t) * n + c.c] : 0.0f;
-    fold(c, pos, phi, g);
-    if (WARM && c.t < cells) {
-      xs[c.t] = a.aux0[static_cast<size_t>(c.t) * n + c.c];
-      ls[c.t] = a.aux0[static_cast<size_t>(cells + c.t) * n + c.c];
+  // adds the prior's 1/2 |z|^2 to phi_v and z / scale to g_v
+  __device__ void fold(const WarpChainCtx& x, const float* u, float& phi_v,
+                       float (&g_v)[2]) const {
+    const int l = threadIdx.x & 31;
+    float z[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) z[h] = (u[l + 32 * h] - x.mean[h]) / x.scale[h];
+    phi_v = phi_v + 0.5f * sum64(z[0] * z[0], z[1] * z[1]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) g_v[h] = g_v[h] + z[h] / x.scale[h];
+  }
+
+  // the carried solutions of cell k (warm)
+  __device__ __forceinline__ void carried(int k, float& x0, float& l0) const {
+    if constexpr (kSlices) {
+      x0 = xs[Level::at(k)];
+      l0 = ls[Level::at(k)];
+    } else {
+      x0 = cx[k];
+      l0 = cl[k];
+    }
+  }
+  __device__ __forceinline__ void carry(int k, float x0, float l0) {
+    if constexpr (kSlices) {
+      xs[Level::at(k)] = x0;
+      ls[Level::at(k)] = l0;
+    } else {
+      cx[k] = x0;
+      cl[k] = l0;
     }
   }
 
-  __device__ bool step(const ChainCtx& c, uint32_t i) {
-    const int cells = a.pot.n * a.pot.n;
+  __device__ void init(const WarpChainCtx& x) {
+    const int l = threadIdx.x & 31, n = a.chain.n;
+    phi = x.live ? a.phi0[x.c] : 0.0f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      g[h] = x.live ? a.g0[static_cast<size_t>(l + 32 * h) * n + x.c] : 0.0f;
+    fold(x, pos, phi, g);
+    if constexpr (kWarm) {
+      constexpr int cells = WarpSliceLevel::kCells;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const size_t t = Level::cell(k);
+        carry(k, x.live ? a.aux0[t * n + x.c] : 0.0f,
+              x.live ? a.aux0[(cells + t) * n + x.c] : 0.0f);
+      }
+    }
+  }
+
+  __device__ bool step(const WarpChainCtx& x, uint32_t i) {
+    const int l = threadIdx.x & 31;
     const float eps = a.eps;
     const float half_eps2 = 0.5f * eps * eps;
     const float inv2e2 = 1.0f / (2.0f * eps * eps);
-    float xi = 0.0f;
-    if (c.own) {
-      xi = c.normal(i, 0u);
-      prop[c.t] = (pos[c.t] - half_eps2 * g) + eps * xi;
+    float xi[2];
+    x.normal2(i, 0u, xi);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      prop[l + 32 * h] = (pos[l + 32 * h] - half_eps2 * g[h]) + eps * xi[h];
+    __syncwarp();
+    float x0[8], l0[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      x0[k] = l0[k] = 0.0f;
+      if constexpr (kWarm) carried(k, x0[k], l0[k]);
     }
-    if (WARM && c.t < cells) {
-      gs.x[c.t] = xs[c.t];
-      gs.lam[c.t] = ls[c.t];
-    }
-    __syncthreads();
-    float phi_p = darcy_value_and_grad<WARM>(a.pot, prop, ws, gs, gp);
-    float g_p = c.own ? gp[c.t] : 0.0f;
-    fold(c, prop, phi_p, g_p);
-    const float d_rev = c.own ? pos[c.t] - (prop[c.t] - half_eps2 * g_p) : 0.0f;
-    const float log_q_rev = -block_sum(d_rev * d_rev, ws.red) * inv2e2;
-    const float log_q_fwd = -block_sum(xi * xi, ws.red) * 0.5f;
+    float g_p[2];
+    float phi_p =
+        darcy_value_and_grad_warp<MalaWarpDesign::kGrad, kWarm>(lv, prop, xf, x0, l0, g_p);
+    fold(x, prop, phi_p, g_p);
+    float d_rev[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      d_rev[h] = pos[l + 32 * h] - (prop[l + 32 * h] - half_eps2 * g_p[h]);
+    const float log_q_rev = -sum64(d_rev[0] * d_rev[0], d_rev[1] * d_rev[1]) * inv2e2;
+    const float log_q_fwd = -sum64(xi[0] * xi[0], xi[1] * xi[1]) * 0.5f;
     float log_ratio = (phi - phi_p) + log_q_rev - log_q_fwd;
     if (isnan(log_ratio)) log_ratio = -INFINITY;
-    const bool accept = logf(c.uniform(i, 2u)) < log_ratio;
+    const bool accept = logf(x.uniform(i, 2u)) < log_ratio;
     if (accept) {
       phi = phi_p;
-      g = g_p;
-      if (c.own) pos[c.t] = prop[c.t];
-      if (WARM && c.t < cells) {
-        xs[c.t] = gs.x[c.t];
-        ls[c.t] = gs.lam[c.t];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        g[h] = g_p[h];
+        pos[l + 32 * h] = prop[l + 32 * h];
+      }
+      if constexpr (kWarm) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) carry(k, xf[Level::at(k)], lv.ws.th[Level::at(k)]);
       }
     }
     return accept;
   }
 };
 
-inline size_t mala_smem_floats(int d, int cells, int modes, int m, bool warm) {
-  return 3 * d + misfit_smem_floats(cells, modes) + grad_smem_floats(cells, m) +
-         (warm ? 2 * cells : 0);
+template <bool RECORD, int PRECOND>
+__global__ void __launch_bounds__(32 * MalaWarpDesign::kWarps, kMalaWarpMinCtas)
+    fused_mala_warp_kernel(const __grid_constant__ MalaArgs a) {
+  using Step = MalaWarpStep<PRECOND>;
+  constexpr int kStride = WarpSliceLevel::kStride;
+  extern __shared__ float4 mala_warp_smem[];
+  float* staged = reinterpret_cast<float*>(mala_warp_smem);
+  float* dst = staged + WarpSliceLevel::staged_bytes() / sizeof(float);
+  float* w = staged + Step::kStagedBytes / sizeof(float) + (threadIdx.x >> 5) * Step::kWarpFloats;
+  float* slice = w + 2 * kMalaD;  // xf, p, th, tv, (q), (xs, ls)
+  const WarpSmem ws{slice + kStride, slice + 2 * kStride, slice + 3 * kStride};
+  const WarpSliceLevel base{&a.pot, WarpSliceLevel::stage(a.pot, staged), ws};
+  float* carried = slice + (Step::kWarm ? 5 : 4) * kStride;
+  typename Step::Level lv;
+  if constexpr (Step::kWarm) {
+    WarpDstSliceLevel::stage_dst(a.pot, dst);
+    lv = WarpDstSliceLevel{base, dst, dst + kStride, dst + 2 * kStride, slice + 4 * kStride, 1.0f};
+  } else {
+    lv = base;
+  }
+  __syncthreads();  // the staged factors
+  Step step{a, lv, w, w + kMalaD, slice, carried, carried + kStride, 0.0f, {0.0f, 0.0f}};
+  run_warp_chain<RECORD>(a.chain, step, w);
 }
 
-template <bool RECORD, bool WARM>
-__device__ void mala_chain(const MalaArgs& a) {
-  extern __shared__ float smem[];
-  const int d = a.chain.d, cells = a.pot.n * a.pot.n;
-  float* pos = smem;
-  float* prop = pos + d;
-  float* gp = prop + d;
-  float* work = gp + d;
-  float* grad = work + misfit_smem_floats(cells, a.pot.modes);
-  float* xs = grad + grad_smem_floats(cells, a.pot.m);
-  MalaStep<WARM> step{a,  pos, prop, gp, carve_misfit_smem(work, cells, a.pot.modes),
-                      carve_grad_smem(grad, cells), xs, xs + cells, 0.0f, 0.0f};
-  run_chain<RECORD>(a.chain, step, pos);
+// What a launch takes: warps (chains) a CTA, CTAs, dynamic shared memory.
+struct MalaWarpGeometry {
+  int warps, ctas;
+  size_t smem;
+};
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_mala.py warp_geometry: a 16 x 16
+// CG misfit with d = K = 64, Jacobi (cold) or dense dst (warm), else
+// cudaErrorNotSupported. W: the largest power of two up to kWarps that
+// divides block_chains; a ragged last CTA runs spare warps.
+inline int mala_warp_geometry(const IpxMisfitSpec& s, const IpxChainArgs& chain, bool warm,
+                              MalaWarpGeometry* geo) {
+  if (s.n != WarpSliceLevel::kN || s.K != kMalaD || chain.d != kMalaD ||
+      s.precond != (warm ? kPrecondDst : kPrecondJacobi) || s.modes != 0 ||
+      s.solver != kSolverCg || s.m < 0)
+    return cudaErrorNotSupported;
+  if (chain.block_chains <= 0 || chain.n < 0 || chain.n_steps < 0 ||
+      (chain.samples != nullptr && chain.thin <= 0))
+    return cudaErrorInvalidValue;
+  int w = MalaWarpDesign::kWarps;
+  while (chain.block_chains % w) w /= 2;
+  geo->warps = w;
+  geo->ctas = (chain.n + w - 1) / w;
+  geo->smem = warm ? MalaWarpStep<kPrecondDst>::kStagedBytes +
+                         sizeof(float) * MalaWarpStep<kPrecondDst>::kWarpFloats * w
+                   : MalaWarpStep<kPrecondJacobi>::kStagedBytes +
+                         sizeof(float) * MalaWarpStep<kPrecondJacobi>::kWarpFloats * w;
+  return geo->smem <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <bool RECORD>
-__global__ void __launch_bounds__(kFusedThreads, 4) fused_mala_kernel(MalaArgs a) {
-  mala_chain<RECORD, false>(a);
-}
-
-template <bool RECORD>
-__global__ void __launch_bounds__(kFusedThreads, 4) fused_mala_warm_kernel(MalaArgs a) {
-  mala_chain<RECORD, true>(a);
+template <bool RECORD, int PRECOND>
+int launch_mala_warp(const MalaArgs& a, const MalaWarpGeometry& geo, cudaStream_t st) {
+  const int smem = static_cast<int>(geo.smem);
+  cudaFuncSetAttribute(fused_mala_warp_kernel<RECORD, PRECOND>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  fused_mala_warp_kernel<RECORD, PRECOND><<<geo.ctas, 32 * geo.warps, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace ipx
@@ -203,29 +328,37 @@ int ipx_darcy_misfit_grad(const IpxMisfitSpec* s, const float* U, const float* a
   return static_cast<int>(cudaGetLastError());
 }
 
-// aux0 == null: cold MALA (fused_mala_kernel); else warm
-// (fused_mala_warm_kernel).
+// aux0 == null: cold MALA (fused_mala_warp_kernel<RECORD, kPrecondJacobi>);
+// else warm (<RECORD, kPrecondDst>).
 int ipx_fused_mala(const IpxMisfitSpec* pot, const IpxChainArgs* chain, const float* phi0,
                    const float* g0, const float* aux0, float eps, void* stream) {
-  const int cells = pot->n * pot->n;
-  const int threads = ipx::chain_threads(*chain, cells, pot->K);
-  if (threads == 0 || pot->solver != kSolverCg) return cudaErrorInvalidValue;
+  const bool warm = aux0 != nullptr;
+  ipx::MalaWarpGeometry geo;
+  const int status = ipx::mala_warp_geometry(*pot, *chain, warm, &geo);
+  if (status != cudaSuccess) return status;
   if (chain->n == 0) return cudaSuccess;
   const ipx::MalaArgs a{*pot, *chain, phi0, g0, aux0, eps};
-  const bool warm = aux0 != nullptr;
-  const size_t smem =
-      sizeof(float) * ipx::mala_smem_floats(chain->d, cells, pot->modes, pot->m, warm);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool record = chain->samples != nullptr;
-  const int n = chain->n;
-  if (!warm) {
-    if (record) ipx::fused_mala_kernel<true><<<n, threads, smem, st>>>(a);
-    else ipx::fused_mala_kernel<false><<<n, threads, smem, st>>>(a);
-  } else {
-    if (record) ipx::fused_mala_warm_kernel<true><<<n, threads, smem, st>>>(a);
-    else ipx::fused_mala_warm_kernel<false><<<n, threads, smem, st>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (!warm)
+    return record ? ipx::launch_mala_warp<true, kPrecondJacobi>(a, geo, st)
+                  : ipx::launch_mala_warp<false, kPrecondJacobi>(a, geo, st);
+  return record ? ipx::launch_mala_warp<true, kPrecondDst>(a, geo, st)
+                : ipx::launch_mala_warp<false, kPrecondDst>(a, geo, st);
+}
+
+// The kernel's launch geometry for this spec, these chain arguments and
+// warm (0: cold, Jacobi; else warm, dst): out = {chains a CTA, CTAs,
+// dynamic shared-memory bytes}; the status the launch would return for them
+// (the wrapper's mirror is checked against this on the card).
+int ipx_mala_warp_geometry(const IpxMisfitSpec* pot, const IpxChainArgs* chain, int warm,
+                           int* out) {
+  ipx::MalaWarpGeometry geo{0, 0, 0};
+  const int status = ipx::mala_warp_geometry(*pot, *chain, warm != 0, &geo);
+  out[0] = geo.warps;
+  out[1] = geo.ctas;
+  out[2] = static_cast<int>(geo.smem);
+  return status;
 }
 
 }  // extern "C"

@@ -39,11 +39,6 @@ typedef struct {
 
 namespace ipx {
 
-// The CTA of the 16x16 Darcy samplers that take no layout of their own
-// (MALA): 256 threads, one per cell, and at least 4 CTAs per SM,
-// which caps registers at 64 a thread.
-constexpr int kFusedThreads = 256;
-
 struct ChainCtx {
   int c, t, d, half;
   bool own;  // t < d: this thread holds coordinate t of the state
@@ -232,8 +227,8 @@ __device__ void run_warp_chain(const IpxChainArgs& a, Step& step, float* pos) {
 // What every launch of a sampler checks; threads for it (enough for the
 // cells of the largest grid at cells_per_thread each, at least d, at most
 // the kernel's launch bound) or 0.
-inline int chain_threads(const IpxChainArgs& a, int cells, int K,
-                         int max_threads = kFusedThreads, int cells_per_thread = 1) {
+inline int chain_threads(const IpxChainArgs& a, int cells, int K, int max_threads,
+                         int cells_per_thread = 1) {
   const int owners = (cells + cells_per_thread - 1) / cells_per_thread;
   const int threads = ((owners > a.d ? owners : a.d) + 31) / 32 * 32;
   const bool record = a.samples != nullptr;

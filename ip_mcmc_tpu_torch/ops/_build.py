@@ -258,6 +258,8 @@ def library():
         # spec, chain, Φ0 (n,), ∇Φ0 (d, n), aux0 (2n², n) or null (cold), ε,
         # stream
         lib.bind("ipx_fused_mala", [spec, chain, p, p, p, f, p])
+        # spec, chain, warm, out (3,): the MALA kernel's geometry
+        lib.bind("ipx_mala_warp_geometry", [spec, chain, i, p])
         # spec, chain (state in place), Φ (n,), pCN and stretch acceptance
         # counts (n,), record (n, d) or null, β, √(1−β²), a, M, step, parity,
         # stream

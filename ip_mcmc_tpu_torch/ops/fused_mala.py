@@ -21,12 +21,14 @@ folded in by the step builder, as in JAX. ``init`` solves from zeros in
 every launch: the carried aux is not an output, and the chain is weakly
 non-Markov through it, by design.
 
-For CUDA tensors the entry points launch ``fused_mala_kernel<RECORD>`` /
-``fused_mala_warm_kernel<RECORD>`` (``csrc/fused_mala.cu``), the whole
-``n_steps`` loop in one launch, on ``DarcyMisfit`` /
-``DarcyMisfitMalaWarm`` potentials only. For CPU tensors they run the step
-builders below on the plain scaffold ``_scaffold.run_plain``; the cold one
-takes any differentiable features-first callable (a ``DarcyMisfit``
+For CUDA tensors the entry points launch ``fused_mala_warp_kernel<RECORD,
+PRECOND>`` (``csrc/fused_mala.cu``), the whole ``n_steps`` loop in one
+launch, one chain a warp, ``warp_geometry``'s chains a CTA: the cold form on
+a 16×16 Jacobi CG ``DarcyMisfit``, the warm one on a 16×16 dense-``dst`` CG
+``DarcyMisfitMalaWarm``, both with d = K = 64 (anything else raises
+``ValueError``). For CPU tensors they run the step builders below on the
+plain scaffold ``_scaffold.run_plain``, which take every misfit; the cold
+one takes any differentiable features-first callable (a ``DarcyMisfit``
 differentiates by its adjoint). Tags: normals 0 (keys 0, 1), MH uniform 2.
 """
 
@@ -151,6 +153,64 @@ def _run_plain(potential_fn, positions, prior_mean, prior_scale, step_size,
 
 # --- the kernels ------------------------------------------------------------
 
+# ``MalaWarpDesign`` in ``csrc/fused_mala.cu``: chains (warps) a CTA at most,
+# and whether the warm kernel keeps the carried solutions in its slices.
+WARP_CHAINS = 16
+CARRY_SLICES = True
+# What it takes: a WARP_N² CG grid, d = K = WARP_D, Jacobi (cold) or dense
+# dst (warm).
+WARP_N, WARP_D = 16, 64
+# ``WarpSliceLevel`` in ``csrc/darcy_misfit.cuh`` pads the cells by 4 after
+# every 32 in shared memory (a slice): the staged basis (d rows); warm: S,
+# Sᵀ and the dst eigenvalues; a warp: pos and prop (d floats each) and the
+# slices of the forward solution and of the solve (p, th, tv); warm: the
+# dst stage buffer and, with CARRY_SLICES, the carried x and λ
+SLICE_FLOATS = WARP_N * WARP_N + 4 * WARP_N * WARP_N // 32
+BASIS_BYTES = 4 * WARP_D * SLICE_FLOATS
+DST_BYTES = 4 * 3 * SLICE_FLOATS
+MAX_SMEM_BYTES = 232_448  # what a CTA of the H100 may use
+KERNEL = "fused_mala_warp_kernel"  # the launch count's stem, with the preconditioner
+
+
+def warp_slice_bytes(warm):
+    """Bytes of one warp's part of the kernel's shared memory."""
+    slices = 4 + (1 + 2 * CARRY_SLICES if warm else 0)
+    return 4 * (2 * WARP_D + slices * SLICE_FLOATS)
+
+
+def stem(warm):
+    """The launch count's stem of the cold (Jacobi) or warm (dst) kernel."""
+    return f"{KERNEL}[{'dst' if warm else 'jacobi'}]"
+
+
+def warp_geometry(n_chains, block_chains, *, warm=False, n=WARP_N, d=WARP_D,
+                  precond=None, modes=0, solver="cg"):
+    """The kernel's launch: (CTAs, chains a CTA, dynamic shared-memory
+    bytes), as ``mala_warp_geometry`` in ``csrc/fused_mala.cu`` computes it.
+    Chains a CTA: the largest power of two up to WARP_CHAINS that divides
+    ``block_chains``; a ragged last CTA runs spare warps. The bytes: the
+    staged basis (warm: and S, Sᵀ, λ) and a slice a warp. Raises
+    ``ValueError`` for a grid, d, preconditioner or solver the kernel does
+    not take (cold: Jacobi, warm: dense ``dst``; ``precond`` None is the one
+    it takes) and for shared memory the card cannot give a CTA."""
+    want = "dst" if warm else "jacobi"
+    precond = want if precond is None else precond
+    if (n, d, precond, modes, solver) != (WARP_N, WARP_D, want, 0, "cg"):
+        raise ValueError(
+            f"the {'warm' if warm else 'cold'} MALA kernel takes a {WARP_N}x{WARP_N} "
+            f"CG grid, d = {WARP_D} and the {want} preconditioner; got {n}x{n}, "
+            f"d = {d}, {solver}, {precond} with {modes} modes")
+    if block_chains <= 0 or n_chains < 0:
+        raise ValueError(f"n_chains {n_chains}, block_chains {block_chains}")
+    w = WARP_CHAINS
+    while block_chains % w:
+        w //= 2
+    smem = BASIS_BYTES + (DST_BYTES if warm else 0) + w * warp_slice_bytes(warm)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{smem} bytes of shared memory a CTA: the card gives "
+                         f"{MAX_SMEM_BYTES}")
+    return -(-n_chains // w), w, smem
+
 
 def _launch(potential_fn, positions, prior_mean, prior_scale, step_size, seed,
             n_steps, block_chains, thin=None, aux_dim=None):
@@ -161,7 +221,10 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, step_size, seed,
         raise ValueError(
             f"aux_dim {aux_dim} is not the misfit's {potential_fn.aux_dim}"
         )
-    n = positions.shape[0]
+    n, d = positions.shape
+    warp_geometry(n, block_chains, warm=warm, n=potential_fn.n, d=d,
+                  precond=potential_fn.precond, modes=potential_fn.modes,
+                  solver=potential_fn.solver)
     args, keep = _scaffold.chain_args(positions, prior_mean, prior_scale,
                                       seed, n_steps, block_chains, thin)
     U = keep[0].T.contiguous()
@@ -181,9 +244,7 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, step_size, seed,
         float(torch.as_tensor(step_size, dtype=torch.float32)),
         torch.cuda.current_stream(U.device).cuda_stream,
     )
-    name = _scaffold.kernel_name(
-        "fused_mala_warm_kernel" if warm else "fused_mala_kernel",
-        thin is not None)
+    name = _scaffold.kernel_name(stem(warm), thin is not None)
     _build.check(status, name)
     _build.launch_counts[name] += 1
     _, _, _, out, acc, samples = keep
