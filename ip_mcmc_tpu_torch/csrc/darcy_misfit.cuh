@@ -1299,46 +1299,49 @@ __device__ __forceinline__ void apply_operator_warp(const WarpSliceLevel& lv,
 // CUDA cores, from inputs rounded to bf16 at apply_dst's four points; the
 // stages are handed round through the warp's slices p and q between
 // __syncwarp. The lane's cells are (i, j) = (2 (l / 4) + h, l % 4 + 4 m),
-// k = 4 h + m. Each stage reads whole rows (four float4): the column
-// stages' inputs are written transposed by the stage before (y^T, rt^T),
-// and S^T is staged beside S. S, S^T and lam are staged once a CTA as f32
-// (exact: S is bf16) in the cells' padded layout, which puts the lanes'
-// rows in distinct banks.
+// k = 4 h + m. Each stage reads whole rows: the column stages' inputs are
+// written transposed by the stage before (y^T, rt^T), and S^T is staged
+// beside S. Every operand of a stage is a bf16 value (S, and the stages'
+// rounded inputs), so the stages keep them as bf16, 16 x 16 with rows of
+// kRow elements (48 bytes: the lanes' rows fall in distinct banks), and a
+// 16-byte load brings 8 of them: half the shared-memory traffic of f32, the
+// same bits. S, S^T and lam (f32, padded as the cells) are staged once a
+// CTA.
 struct WarpDstSliceLevel : WarpSliceLevel {
   static constexpr int kPrecond = kPrecondDst;
-  const float* S;    // (16, 16) padded
-  const float* St;   // its transpose
-  const float* lam;  // (16, 16) padded: the eigenvalues of the flat grid
-  float* q;          // the warp's second stage buffer (kStride)
-  float a_bar;       // the chain's geometric-mean coefficient
+  static constexpr int kRow = 24;  // a bf16 row's stride in elements
+  const __nv_bfloat16* S;   // (16, kRow)
+  const __nv_bfloat16* St;  // its transpose
+  const float* lam;         // (16, 16) padded: the eigenvalues of the flat grid
+  __nv_bfloat16* q;         // the warp's second stage buffer (in a slice)
+  float a_bar;              // the chain's geometric-mean coefficient
 
-  // Copies S (as its transpose too) and lam of `s` to `base`, 3 kStride
-  // floats (every thread of the CTA calls; a barrier must follow).
-  static __device__ void stage_dst(const IpxMisfitSpec& s, float* base) {
+  // Copies S, S^T and lam of `s` to `base` (every thread of the CTA calls;
+  // a barrier must follow).
+  static __device__ void stage_dst(const IpxMisfitSpec& s, unsigned char* base) {
     const __nv_bfloat16* gS = static_cast<const __nv_bfloat16*>(s.S);
+    __nv_bfloat16* Sb = reinterpret_cast<__nv_bfloat16*>(base);
+    float* lb = reinterpret_cast<float*>(Sb + 2 * kN * kRow);
     for (int e = threadIdx.x; e < kCells; e += blockDim.x) {
-      const float v = __bfloat162float(gS[e]);
-      base[pad(e)] = v;
-      base[kStride + pad((e % kN) * kN + e / kN)] = v;
-      base[2 * kStride + pad(e)] = s.lam[e];
+      Sb[kRow * (e / kN) + e % kN] = gS[e];
+      Sb[kN * kRow + kRow * (e % kN) + e / kN] = gS[e];
+      lb[pad(e)] = s.lam[e];
     }
   }
   __host__ __device__ static constexpr size_t staged_dst_bytes() {
-    return sizeof(float) * 3 * kStride;
+    return sizeof(__nv_bfloat16) * 2 * kN * kRow + sizeof(float) * kStride;
+  }
+  __device__ static const __nv_bfloat16* staged_S(unsigned char* base) {
+    return reinterpret_cast<const __nv_bfloat16*>(base);
+  }
+  __device__ static const float* staged_lam(unsigned char* base) {
+    return reinterpret_cast<const float*>(base + sizeof(__nv_bfloat16) * 2 * kN * kRow);
   }
 
-  // half `half` (8 floats) of row `row` of a padded (16, 16) array
-  static __device__ __forceinline__ void row8(const float* base, int row, int half,
+  // half `half` (8 values) of row `row` as floats
+  static __device__ __forceinline__ void row8(const __nv_bfloat16* base, int row, int half,
                                               float (&v)[8]) {
-    const float4* p4 = reinterpret_cast<const float4*>(base + pad(kN * row) + 8 * half);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float4 f = p4[e];
-      v[4 * e] = f.x;
-      v[4 * e + 1] = f.y;
-      v[4 * e + 2] = f.z;
-      v[4 * e + 3] = f.w;
-    }
+    unpack_bf16x8(*reinterpret_cast<const uint4*>(base + kRow * row + 8 * half), v);
   }
 
   // One stage: f(h, m, sum_q A[i0 + h, q] B[j0 + 4 m, q]) for the lane's
@@ -1347,7 +1350,8 @@ struct WarpDstSliceLevel : WarpSliceLevel {
   // matter). The eight sums run side by side over q's two halves, the two
   // rows of A in registers, B's rows read in turn.
   template <class F>
-  static __device__ __forceinline__ void stage(const float* A, const float* B, F&& f) {
+  static __device__ __forceinline__ void stage(const __nv_bfloat16* A, const __nv_bfloat16* B,
+                                               F&& f) {
     const int l = threadIdx.x & 31, i0 = 2 * (l >> 2), j0 = l & 3;
     float acc[2][4];
 #pragma unroll
@@ -1378,27 +1382,30 @@ struct WarpDstSliceLevel : WarpSliceLevel {
   __device__ void precond(const float (&r)[kC], const float (&inv_diag)[kC],
                           float (&z)[kC]) const {
     const int l = threadIdx.x & 31, i0 = 2 * (l >> 2), j0 = l & 3;
-    float* const y = ws.p;
-    float* const qb = q;
+    __nv_bfloat16* const y = reinterpret_cast<__nv_bfloat16*>(ws.p);
+    __nv_bfloat16* const qb = q;
     const float* const lm = lam;
     const float ab = a_bar;
-    __builtin_assume(__isShared(S) && __isShared(St) && __isShared(lam) && __isShared(q));
+    __builtin_assume(__isShared(S) && __isShared(St) && __isShared(lam) && __isShared(q) &&
+                     __isShared(y));
 #pragma unroll
-    for (int k = 0; k < kC; ++k) qb[at(k)] = bf16_round(r[k]);
+    for (int k = 0; k < kC; ++k) qb[kRow * (i0 + (k >> 2)) + j0 + 4 * (k & 3)] = __float2bfloat16(r[k]);
     __syncwarp();
     // y[i, j] = sum_q S[j, q] r[i, q], stored as y^T
     stage(qb, S, [&](int h, int m, float v) {
-      y[pad(kN * (j0 + 4 * m) + i0 + h)] = bf16_round(v);
+      y[kRow * (j0 + 4 * m) + i0 + h] = __float2bfloat16(v);
     });
     __syncwarp();
     // rt[i, j] = sum_q S[i, q] y[q, j] / (lam a_bar), stored as rt^T
     stage(S, y, [&](int h, int m, float v) {
       const int t = kN * (i0 + h) + j0 + 4 * m;
-      qb[pad(kN * (j0 + 4 * m) + i0 + h)] = bf16_round(v / (lm[pad(t)] * ab));
+      qb[kRow * (j0 + 4 * m) + i0 + h] = __float2bfloat16(v / (lm[pad(t)] * ab));
     });
     __syncwarp();
     // w[i, j] = sum_q S[q, i] rt[q, j]
-    stage(St, qb, [&](int h, int m, float v) { y[at(4 * h + m)] = bf16_round(v); });
+    stage(St, qb, [&](int h, int m, float v) {
+      y[kRow * (i0 + h) + j0 + 4 * m] = __float2bfloat16(v);
+    });
     __syncwarp();
     // z[i, j] = sum_q S[q, j] w[i, q]
     stage(y, St, [&](int h, int m, float v) { z[4 * h + m] = v; });

@@ -48,7 +48,7 @@
 // four bf16 roundings (WarpDstSliceLevel), the KL product per mode over
 // the parent's lane-strided cells (darcy_value_and_grad_warp), the prior
 // and proposal sums as a block_sum whose warps 0 and 1 hold the 64
-// coordinates. The KL basis, S, S^T and the dst eigenvalues are staged
+// coordinates. The KL basis, S, S^T (bf16) and the dst eigenvalues are staged
 // in shared memory once a CTA; a warp's slices hold the state, the solve's
 // vectors, the forward solution and (warm) the carried solutions. The
 // design is the line MalaWarpDesign (scripts/measure_mala_warp_design.py
@@ -247,7 +247,8 @@ __global__ void __launch_bounds__(32 * MalaWarpDesign::kWarps, kMalaWarpMinCtas)
   constexpr int kStride = WarpSliceLevel::kStride;
   extern __shared__ float4 mala_warp_smem[];
   float* staged = reinterpret_cast<float*>(mala_warp_smem);
-  float* dst = staged + WarpSliceLevel::staged_bytes() / sizeof(float);
+  unsigned char* dst =
+      reinterpret_cast<unsigned char*>(mala_warp_smem) + WarpSliceLevel::staged_bytes();
   float* w = staged + Step::kStagedBytes / sizeof(float) + (threadIdx.x >> 5) * Step::kWarpFloats;
   float* slice = w + 2 * kMalaD;  // xf, p, th, tv, (q), (xs, ls)
   const WarpSmem ws{slice + kStride, slice + 2 * kStride, slice + 3 * kStride};
@@ -256,7 +257,13 @@ __global__ void __launch_bounds__(32 * MalaWarpDesign::kWarps, kMalaWarpMinCtas)
   typename Step::Level lv;
   if constexpr (Step::kWarm) {
     WarpDstSliceLevel::stage_dst(a.pot, dst);
-    lv = WarpDstSliceLevel{base, dst, dst + kStride, dst + 2 * kStride, slice + 4 * kStride, 1.0f};
+    const __nv_bfloat16* S = WarpDstSliceLevel::staged_S(dst);
+    lv = WarpDstSliceLevel{base,
+                           S,
+                           S + WarpSliceLevel::kN * WarpDstSliceLevel::kRow,
+                           WarpDstSliceLevel::staged_lam(dst),
+                           reinterpret_cast<__nv_bfloat16*>(slice + 4 * kStride),
+                           1.0f};
   } else {
     lv = base;
   }

@@ -161,13 +161,15 @@ CARRY_SLICES = True
 # dst (warm).
 WARP_N, WARP_D = 16, 64
 # ``WarpSliceLevel`` in ``csrc/darcy_misfit.cuh`` pads the cells by 4 after
-# every 32 in shared memory (a slice): the staged basis (d rows); warm: S,
-# Sᵀ and the dst eigenvalues; a warp: pos and prop (d floats each) and the
-# slices of the forward solution and of the solve (p, th, tv); warm: the
-# dst stage buffer and, with CARRY_SLICES, the carried x and λ
+# every 32 in shared memory (a slice): the staged basis (d rows); warm: S
+# and Sᵀ as bf16 rows of DST_ROW elements and the dst eigenvalues (a slice);
+# a warp: pos and prop (d floats each) and the slices of the forward
+# solution and of the solve (p, th, tv); warm: the dst stage buffer and,
+# with CARRY_SLICES, the carried x and λ
 SLICE_FLOATS = WARP_N * WARP_N + 4 * WARP_N * WARP_N // 32
+DST_ROW = 24
 BASIS_BYTES = 4 * WARP_D * SLICE_FLOATS
-DST_BYTES = 4 * 3 * SLICE_FLOATS
+DST_BYTES = 2 * 2 * WARP_N * DST_ROW + 4 * SLICE_FLOATS
 MAX_SMEM_BYTES = 232_448  # what a CTA of the H100 may use
 KERNEL = "fused_mala_warp_kernel"  # the launch count's stem, with the preconditioner
 
