@@ -23,8 +23,8 @@ Gaussians), times both, then drives the ported paths at full width:
                              thread-block cluster
     darcy_ess_fused          elliptical slice sampling  (K8), a chain a warp
     darcy_pcn_4096 --fused   cold pCN                   (K6)
-    darcy_mala_fused         MALA, adjoint gradient     (K10)
-    darcy_mala_warm          warm-started MALA          (K11)
+    darcy_mala_fused         MALA, adjoint gradient     (K10), a chain a warp
+    darcy_mala_warm          warm-started MALA          (K11), a chain a warp
     darcy_fes_fused          functional ensemble sampler (K9), a chain a warp
     burgers_da3_pcn          three-level delayed acceptance (K12, K13), a
                              chain a warp
@@ -404,6 +404,10 @@ ESS = "fused_ess_warp_kernel"
 # the ensemble sampler and the three-level Burgers DA: one warp per chain
 FES = "fused_fes_warp_kernel"
 DA3 = "fused_da3_pcn_warp_kernel"
+# MALA: one warp per chain, the adjoint gradient on the warp; cold (Jacobi)
+# and warm (dense dst) instantiations (ops/fused_mala.py stem)
+MALA_COLD = "fused_mala_warp_kernel[jacobi]"
+MALA_WARM = "fused_mala_warp_kernel[dst]"
 
 
 def check_da(problem, gen, results):
@@ -668,13 +672,15 @@ def check_gradient_and_ensemble(problems, gen, results):
     pm, ps = cold_p.prior.mean, cold_p.prior.scale
     block = cold_p.kernel_params["block_chains"]
     draws = Ops(RNG_OPS_PER_DRAW * d)
+    w = {warm: fused_mala.warp_geometry(N_CHAINS, block, warm=warm)[1]
+         for warm in (False, True)}
     mala_cases = (
-        ("fused_mala_kernel", jacobi, plain_potential(jacobi), {}, 4,
+        (MALA_COLD, jacobi, plain_potential(jacobi), {}, 4,
          grad_ops(jacobi, False) + draws, "darcy_mala_fused",
-         f"jacobi, 48 + 48 CG, block {block}"),
-        ("fused_mala_warm_kernel", pag, plain_potential(pag, warm=True),
+         f"jacobi, 48 + 48 CG, block {block}, {w[False]} chains a CTA"),
+        (MALA_WARM, pag, plain_potential(pag, warm=True),
          {"aux_dim": aux_dim}, 8, grad_ops(pag, True) + draws, "darcy_mala_warm",
-         f"dst, 6 + 6 CG, block {block}"),
+         f"dst, 6 + 6 CG, block {block}, {w[True]} chains a CTA"),
     )
     for stem, pot, plain_pot, kw, steps, ops, path, variant in mala_cases:
         for recorded in (False, True):
@@ -1230,6 +1236,65 @@ def check_fes_warp(problem):
                      recorded)
 
 
+def check_mala_warp(problem):
+    """What the MALA kernel's warps add beside its twin, cold and warm: the
+    Python mirror of the launch geometry against the C function, and a
+    ragged width, 13 chains in blocks of 8 (two CTAs of 8 warps, 3 of them
+    spare): equal bit for bit to the first 13 of the kernel's own 16-chain
+    run, and within CHAIN_ATOL of the plain twin's 16-chain run, plain and
+    recorded."""
+    from ip_mcmc_tpu_torch.ops import _build, fused_mala
+
+    pm, ps = problem.prior.mean, problem.prior.scale
+    eps, block = problem.kernel_params["step_size"], problem.kernel_params["block_chains"]
+    pos = problem.init_positions(torch.Generator().manual_seed(78), 16).cuda()
+    jacobi = problem.batched_potential_fn
+    pag, aux_dim = problem.batched_warm_potential
+    for warm, pot, plain, kw in ((False, jacobi, plain_potential(jacobi), {}),
+                                 (True, pag, plain_potential(pag, warm=True),
+                                  {"aux_dim": aux_dim})):
+        check_geometry(f"MALA ({'warm, dst' if warm else 'cold, jacobi'})",
+                       ((problem.n_chains, block), (13, 8), (13, 13), (20, 4), (1, 256)),
+                       c_geometry_of(_build.library().ipx_mala_warp_geometry, [pot.spec()],
+                                     [int(warm)], problem),
+                       lambda n, b, warm=warm: fused_mala.warp_geometry(n, b, warm=warm))
+        for recorded in (False, True):
+            kw_r = dict(kw, thin=1) if recorded else kw
+            got, full = (fused_mala._launch(pot, pos[:n], pm, ps, eps, 79, 3, 8, **kw_r)
+                         for n in (13, 16))
+            ref = fused_mala._run_plain(plain, pos, pm, ps, eps, 79, 3, 8, **kw_r)
+            check_ragged(f"{fused_mala.stem(warm)}<{'true' if recorded else 'false'}>",
+                         "13 chains, 8 warps a CTA, 3 steps", got, full, ref, recorded)
+
+
+def attach_ptxas(results, ptxas, names):
+    """Adds to each result row named in ``names`` (count name -> the
+    kernel's instantiation as ptxas names it, mangled and demangled) the
+    registers and spill bytes of that instantiation; raises if the build
+    reported none for it (nothing without an nvcc.log)."""
+    if not ptxas:
+        return
+    for r in results:
+        if r["name"] not in names:
+            continue
+        needles = names[r["name"]]
+        rows = [p for p in ptxas if any(k in p["kernel"] for k in needles)]
+        if len(rows) != 1:
+            raise AssertionError(f"ptxas: {len(rows)} rows for {r['name']} ({needles})")
+        r.update(registers=rows[0]["registers"], spill_stores=rows[0]["spill_stores"],
+                 spill_loads=rows[0]["spill_loads"])
+        print(f"{r['name']}: {r['registers']} registers, {r['spill_stores']} / "
+              f"{r['spill_loads']} bytes spill stores / loads", flush=True)
+
+
+# the instantiations of fused_mala_warp_kernel<RECORD, PRECOND> (PRECOND:
+# kPrecondJacobi 0, kPrecondDst 2), mangled and demangled
+MALA_PTXAS = {
+    f"{stem}<{rec}>": (f"fused_mala_warp_kernelILb{int(rec == 'true')}ELi{pc}E",
+                       f"fused_mala_warp_kernel<{rec}, {pc}>")
+    for stem, pc in ((MALA_COLD, 0), (MALA_WARM, 2)) for rec in ("false", "true")}
+
+
 def report_da64(problem, metrics):
     """darcy64_da_fused's CLI run beside the TPU's figures that do not
     depend on the hardware."""
@@ -1682,10 +1747,10 @@ PATHS = {
     "darcy_ess_fused": ([], ("darcy_misfit_kernel[n=16]", f"{ESS}<false>", f"{ESS}<true>")),
     "darcy_pcn_4096": (["--fused"], ("darcy_misfit_kernel[n=16]", "fused_pcn_kernel<false>",
                                      "fused_pcn_kernel<true>")),
-    "darcy_mala_fused": ([], ("darcy_misfit_grad_kernel[n=16]", "fused_mala_kernel<false>",
-                              "fused_mala_kernel<true>")),
-    "darcy_mala_warm": ([], ("darcy_misfit_grad_warm_kernel", "fused_mala_warm_kernel<false>",
-                             "fused_mala_warm_kernel<true>")),
+    "darcy_mala_fused": ([], ("darcy_misfit_grad_kernel[n=16]", f"{MALA_COLD}<false>",
+                              f"{MALA_COLD}<true>")),
+    "darcy_mala_warm": ([], ("darcy_misfit_grad_warm_kernel", f"{MALA_WARM}<false>",
+                             f"{MALA_WARM}<true>")),
     "darcy_fes_fused": ([], ("darcy_misfit_kernel[n=16]", f"{FES}<false>", f"{FES}<true>")),
     "burgers_da3_pcn": ([], (
         "burgers_misfit_kernel[n=128,steps=154]", "burgers_misfit_kernel[n=128,steps=52]",
@@ -1795,7 +1860,9 @@ def main() -> int:
     check_ess_warp(problems["darcy_ess_fused"])
     check_da3_warp(problems["burgers_da3_pcn"])
     check_fes_warp(problems["darcy_fes_fused"])
+    check_mala_warp(problems["darcy_mala_warm"])
     check_gradient_and_ensemble(problems, gen, results)
+    attach_ptxas(results, ptxas, MALA_PTXAS)
     check_burgers(problems, gen, results)
     check_linear_family(problems, gen, results)
 
@@ -1826,8 +1893,8 @@ def main() -> int:
         "darcy64_da_fused": f"{DA64}<true>",
         "darcy_ess_fused": f"{ESS}<true>",
         "darcy_pcn_4096": "fused_pcn_kernel<true>",
-        "darcy_mala_fused": "fused_mala_kernel<true>",
-        "darcy_mala_warm": "fused_mala_warm_kernel<true>",
+        "darcy_mala_fused": f"{MALA_COLD}<true>",
+        "darcy_mala_warm": f"{MALA_WARM}<true>",
         "darcy_fes_fused": f"{FES}<true>",
         "burgers_da3_pcn": f"{DA3}<true>",
         "burgers_da_pcn": "fused_da_pcn_burgers_kernel<true>",

@@ -1446,11 +1446,12 @@ __device__ __forceinline__ void scatter_level(float (&v)[32]) {
 // Phi(u) and g (coordinates l, l + 32 of the 64-mode gradient) for the chain
 // of this warp, whose coefficients sit in the warp's u[0..64): the adjoint
 // method of darcy_value_and_grad, the same value in every lane. WARM: both
-// solves start from the lane's cells x0, lam0. On return the lane's cells
-// of the forward solution are in xf (a slice of kStride floats) and those
-// of the adjoint solution in lv.ws.th. No CTA barrier.
+// solves start from the lane's cells x0, lam0. af and xf are slices of
+// kStride floats: the field a waits in af through the solves (not in
+// registers), and on return the lane's cells of the forward solution are in
+// xf, those of the adjoint solution in lv.ws.th. No CTA barrier.
 template <int GRAD, bool WARM, class L>
-__device__ float darcy_value_and_grad_warp(L& lv, const float* u, float* xf,
+__device__ float darcy_value_and_grad_warp(L& lv, const float* u, float* af, float* xf,
                                            const float (&x0)[8], const float (&lam0)[8],
                                            float (&g)[2]) {
   constexpr int n = L::kN, C = L::kC, kStride = L::kStride;
@@ -1459,7 +1460,10 @@ __device__ float darcy_value_and_grad_warp(L& lv, const float* u, float* xf,
   const WarpOperator<C> op = lv.setup(u);
   float a[C];
 #pragma unroll
-  for (int k = 0; k < C; ++k) a[k] = lv.ws.p[L::at(k)];  // where setup left it
+  for (int k = 0; k < C; ++k) {
+    a[k] = lv.ws.p[L::at(k)];  // where setup left it
+    af[L::at(k)] = a[k];
+  }
   __syncwarp();  // the reads end before the next write to p
   if constexpr (L::kPrecond == kPrecondDst) {
     float log_a[C];
@@ -1513,14 +1517,11 @@ __device__ float darcy_value_and_grad_warp(L& lv, const float* u, float* xf,
   darcy_cg_warp<WARM>(lv, op, b, lam);
 
   // dPhi/da per cell, the parent's expressions; a, x and lam where the
-  // neighbours read them: the slices th and tv are free after the solves
+  // neighbours read them: the slice th is free after the solves
   float* const la = lv.ws.th;
-  float* const aa = lv.ws.tv;
+  const float* const aa = af;
 #pragma unroll
-  for (int k = 0; k < C; ++k) {
-    la[L::at(k)] = lam[k];
-    aa[L::at(k)] = a[k];
-  }
+  for (int k = 0; k < C; ++k) la[L::at(k)] = lam[k];
   __syncwarp();
   // Each face term is rounded before the adds (__fmul_rn): the parent's
   // branches on i and j are runtime ones, so its adds take rounded

@@ -120,10 +120,11 @@ struct MalaWarpStep {
   static constexpr int kCarried = kWarm && !kSlices ? 8 : 1;  // cells in registers
   static constexpr int kStride = WarpSliceLevel::kStride;
   using Level = std::conditional_t<kWarm, WarpDstSliceLevel, WarpSliceLevel>;
-  // a warp's floats: pos, prop, then slices: the forward solution, p, th,
-  // tv, (warm) the dst stage buffer, (kSlices) the carried x and lam
+  // a warp's floats: pos, prop, then slices: the field a, the forward
+  // solution, p, th, tv, (warm) the dst stage buffer, (kSlices) the carried
+  // x and lam
   static constexpr int kWarpFloats =
-      2 * kMalaD + (4 + (kWarm ? 1 : 0) + (kSlices ? 2 : 0)) * kStride;
+      2 * kMalaD + (5 + (kWarm ? 1 : 0) + (kSlices ? 2 : 0)) * kStride;
   // the CTA's staged floats before the warps: the basis, (warm) S, S^T, lam
   static constexpr size_t kStagedBytes =
       WarpSliceLevel::staged_bytes() + (kWarm ? WarpDstSliceLevel::staged_dst_bytes() : 0);
@@ -132,6 +133,7 @@ struct MalaWarpStep {
   Level lv;
   float* pos;
   float* prop;
+  float* af;  // the field a at prop
   float* xf;  // the forward solution at prop
   float* xs;  // kSlices: the accepted state's forward solution
   float* ls;  // ... and adjoint solution
@@ -213,7 +215,7 @@ struct MalaWarpStep {
     }
     float g_p[2];
     float phi_p =
-        darcy_value_and_grad_warp<MalaWarpDesign::kGrad, kWarm>(lv, prop, xf, x0, l0, g_p);
+        darcy_value_and_grad_warp<MalaWarpDesign::kGrad, kWarm>(lv, prop, af, xf, x0, l0, g_p);
     fold(x, prop, phi_p, g_p);
     float d_rev[2];
 #pragma unroll
@@ -250,10 +252,10 @@ __global__ void __launch_bounds__(32 * MalaWarpDesign::kWarps, kMalaWarpMinCtas)
   unsigned char* dst =
       reinterpret_cast<unsigned char*>(mala_warp_smem) + WarpSliceLevel::staged_bytes();
   float* w = staged + Step::kStagedBytes / sizeof(float) + (threadIdx.x >> 5) * Step::kWarpFloats;
-  float* slice = w + 2 * kMalaD;  // xf, p, th, tv, (q), (xs, ls)
-  const WarpSmem ws{slice + kStride, slice + 2 * kStride, slice + 3 * kStride};
+  float* slice = w + 2 * kMalaD;  // af, xf, p, th, tv, (q), (xs, ls)
+  const WarpSmem ws{slice + 2 * kStride, slice + 3 * kStride, slice + 4 * kStride};
   const WarpSliceLevel base{&a.pot, WarpSliceLevel::stage(a.pot, staged), ws};
-  float* carried = slice + (Step::kWarm ? 5 : 4) * kStride;
+  float* carry = slice + (Step::kWarm ? 6 : 5) * kStride;  // (xs, ls)
   typename Step::Level lv;
   if constexpr (Step::kWarm) {
     WarpDstSliceLevel::stage_dst(a.pot, dst);
@@ -262,13 +264,14 @@ __global__ void __launch_bounds__(32 * MalaWarpDesign::kWarps, kMalaWarpMinCtas)
                            S,
                            S + WarpSliceLevel::kN * WarpDstSliceLevel::kRow,
                            WarpDstSliceLevel::staged_lam(dst),
-                           reinterpret_cast<__nv_bfloat16*>(slice + 4 * kStride),
+                           reinterpret_cast<__nv_bfloat16*>(slice + 5 * kStride),
                            1.0f};
   } else {
     lv = base;
   }
   __syncthreads();  // the staged factors
-  Step step{a, lv, w, w + kMalaD, slice, carried, carried + kStride, 0.0f, {0.0f, 0.0f}};
+  Step step{a,     lv,    w, w + kMalaD, slice, slice + kStride, carry, carry + kStride,
+            0.0f,  {0.0f, 0.0f}};
   run_warp_chain<RECORD>(a.chain, step, w);
 }
 

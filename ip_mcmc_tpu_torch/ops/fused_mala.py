@@ -163,9 +163,9 @@ WARP_N, WARP_D = 16, 64
 # ``WarpSliceLevel`` in ``csrc/darcy_misfit.cuh`` pads the cells by 4 after
 # every 32 in shared memory (a slice): the staged basis (d rows); warm: S
 # and Sᵀ as bf16 rows of DST_ROW elements and the dst eigenvalues (a slice);
-# a warp: pos and prop (d floats each) and the slices of the forward
-# solution and of the solve (p, th, tv); warm: the dst stage buffer and,
-# with CARRY_SLICES, the carried x and λ
+# a warp: pos and prop (d floats each) and the slices of the field a, the
+# forward solution and the solve (p, th, tv); warm: the dst stage buffer
+# and, with CARRY_SLICES, the carried x and λ
 SLICE_FLOATS = WARP_N * WARP_N + 4 * WARP_N * WARP_N // 32
 DST_ROW = 24
 BASIS_BYTES = 4 * WARP_D * SLICE_FLOATS
@@ -176,7 +176,7 @@ KERNEL = "fused_mala_warp_kernel"  # the launch count's stem, with the precondit
 
 def warp_slice_bytes(warm):
     """Bytes of one warp's part of the kernel's shared memory."""
-    slices = 4 + (1 + 2 * CARRY_SLICES if warm else 0)
+    slices = 5 + (1 + 2 * CARRY_SLICES if warm else 0)
     return 4 * (2 * WARP_D + slices * SLICE_FLOATS)
 
 

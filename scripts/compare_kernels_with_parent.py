@@ -3,6 +3,7 @@ chains bit for bit, and at what speed?
 
     git archive --prefix=_archive/parent/ <parent commit> | tar -x
     python scripts/compare_kernels_with_parent.py --parent _archive/parent
+    python scripts/compare_kernels_with_parent.py --parent _archive/parent --rows mala,mala_warm
 
 Runs the 16x16 Darcy kernels that both trees have (the misfit kernels with
 and without the adjoint gradient, DA-pCN with the CG and with the rich3
@@ -31,7 +32,8 @@ with the parent's over this tree's, with the card's name and power limit.
 Then the registers and spill bytes that ptxas reported for each kernel of
 both trees' builds (``_build/nvcc.log``) are set side by side. Exits
 non-zero on any difference beyond these, in the outputs or in ptxas'
-report.
+report. ``--rows`` runs only the named sampler rows (``misfits`` names the
+misfit kernels' rows), to compare two designs of a few kernels in turns.
 """
 
 from __future__ import annotations
@@ -60,6 +62,8 @@ def old_vs_new(parent: dict, new: dict) -> None:
     import torch
 
     for row in OLD_VS_NEW:
+        if f"{row}_0" not in new:
+            continue
         final = (new[f"{row}_0"] - parent[f"{row}_0"]).abs().amax(dim=1)
         rec = (new[f"{row}_2"] - parent[f"{row}_2"]).abs().amax(dim=(0, 2))
         frac = float((torch.maximum(final, rec) <= CHAIN_ATOL).double().mean())
@@ -68,7 +72,7 @@ def old_vs_new(parent: dict, new: dict) -> None:
               f"state and records), acceptance parent {acc_p:.4f} new {acc_n:.4f}")
 
 
-def worker(out_path: str) -> int:
+def worker(out_path: str, rows) -> int:
     import torch
 
     from ip_mcmc_tpu_torch import configs, ops
@@ -106,19 +110,23 @@ def worker(out_path: str) -> int:
     da3_kp = da3.kernel_params
 
     outputs, times = {}, {}
+    misfits = rows is None or "misfits" in rows
     for name, pot in (("misfit_exact", exact), ("misfit_surrogate", surr),
                       ("misfit_jacobi48", jacobi)):
+        if not misfits:
+            break
         outputs[name] = pot(U)
         times[name] = time_ms(lambda: pot(U), 20)
     zeros = torch.zeros(aux_dim, n, device="cuda")
-    outputs["misfit_warm_phi"], outputs["misfit_warm_x"] = warm(U, zeros)
-    times["misfit_warm"] = time_ms(lambda: warm(U, zeros), 20)
-    outputs["misfit_grad_phi"], outputs["misfit_grad_g"] = jacobi.value_and_grad(U)
-    times["misfit_grad"] = time_ms(lambda: jacobi.value_and_grad(U), 5)
     pag_zeros = torch.zeros(pag_dim, n, device="cuda")
-    for i, t in enumerate(pag(U, pag_zeros)):
-        outputs[f"misfit_grad_warm_{i}"] = t
-    times["misfit_grad_warm"] = time_ms(lambda: pag(U, pag_zeros), 5)
+    if misfits:
+        outputs["misfit_warm_phi"], outputs["misfit_warm_x"] = warm(U, zeros)
+        times["misfit_warm"] = time_ms(lambda: warm(U, zeros), 20)
+        outputs["misfit_grad_phi"], outputs["misfit_grad_g"] = jacobi.value_and_grad(U)
+        times["misfit_grad"] = time_ms(lambda: jacobi.value_and_grad(U), 5)
+        for i, t in enumerate(pag(U, pag_zeros)):
+            outputs[f"misfit_grad_warm_{i}"] = t
+        times["misfit_grad_warm"] = time_ms(lambda: pag(U, pag_zeros), 5)
     # the large grids: darcy64_da_fused's two misfits, the cold and warm
     # misfits of darcy32_pcn_warm and darcy64_pcn_warm, 1024 draws each
     da64 = configs.build("darcy64_da_fused", "cuda")
@@ -129,9 +137,13 @@ def worker(out_path: str) -> int:
                          ("misfit64_surrogate", da64.batched_surrogate_fn, U144),
                          ("misfit64_cold", pcn64.batched_potential_fn, U144),
                          ("misfit32_cold", pcn32.batched_potential_fn, U64)):
+        if not misfits:
+            break
         outputs[name] = pot(V)
         times[name] = time_ms(lambda: pot(V), 5)
     for name, p, V in (("misfit64_warm", pcn64, U144), ("misfit32_warm", pcn32, U64)):
+        if not misfits:
+            break
         w, dim = p.batched_warm_potential
         z = torch.zeros(dim, 1024, device="cuda")
         outputs[f"{name}_phi"], outputs[f"{name}_x"] = w(V, z)
@@ -186,6 +198,8 @@ def worker(out_path: str) -> int:
             16, 8, 72),
     }
     for name, (run, steps, short, long) in runs.items():
+        if rows is not None and name not in rows:
+            continue
         out = run(steps)
         for i, t in enumerate(out):
             outputs[f"{name}_{i}"] = t
@@ -199,10 +213,12 @@ def worker(out_path: str) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="directory holding the other tree")
+    ap.add_argument("--rows", help="comma-separated rows to run (default: all)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    rows = None if args.rows is None else set(args.rows.split(","))
     if args.worker:
-        return worker(args.worker)
+        return worker(args.worker, rows)
     if not args.parent:
         ap.error("--parent is required")
     import torch
@@ -218,7 +234,8 @@ def main() -> int:
             out = os.path.join(tmp, f"{i}_{which}.pt")
             env = dict(os.environ, PYTHONPATH=str(trees[which]))
             proc = subprocess.run(
-                [sys.executable, str(pathlib.Path(__file__).resolve()), "--worker", out],
+                [sys.executable, str(pathlib.Path(__file__).resolve()), "--worker", out,
+                 *(["--rows", args.rows] if args.rows else [])],
                 cwd=trees[which], env=env, capture_output=True, text=True)
             if proc.returncode != 0:
                 print(proc.stdout, proc.stderr, file=sys.stderr)

@@ -233,7 +233,10 @@ def test_gradient_and_ensemble_kernels_match_plain(mala_warm_problem, kind, reco
             pot, kw["aux_dim"] = p.batched_warm_potential
             plain_pot = pot._forward_warm_plain
         args = (pos, pm, ps, 0.012, 3, 4, 128)
+        name = _scaffold_name(fused_mala.stem(kind == "mala_warm"), recorded)
+        before = _build.launch_counts[name]
         got = fused_mala._launch(pot, *args, **kw)
+        assert _build.launch_counts[name] == before + 1
         ref = fused_mala._run_plain(plain_pot, *args, **kw)
     if recorded:
         assert got[2].shape == ref[2].shape == (2, 512, 64)
@@ -243,6 +246,10 @@ def test_gradient_and_ensemble_kernels_match_plain(mala_warm_problem, kind, reco
     dev = (got[0] - ref[0]).abs().max(dim=1).values
     assert float((dev <= 1e-4).double().mean()) >= 0.99
     assert abs(float(got[1].mean()) - float(ref[1].mean())) <= 1e-2
+
+
+def _scaffold_name(stem, recorded):
+    return f"{stem}<{'true' if recorded else 'false'}>"
 
 
 def test_gradient_and_ensemble_kernels_refuse_plain_callables(mala_warm_problem):
@@ -1188,3 +1195,90 @@ def test_fes_warp_kernel_refuses_what_it_does_not_take(problem):
         status = lib.ipx_fes_warp_geometry(ctypes.byref(jacobi.spec()), ctypes.byref(args), 8,
                                            out)
         assert "invalid argument" in lib.ipx_error_string(status).decode()
+
+
+# --- MALA: one warp per chain (fused_mala_warp_kernel<RECORD, PRECOND>) ---------
+
+
+def _mala_pots(p, warm):
+    """(the potential the kernel takes, its plain version, extra arguments)."""
+    if warm:
+        pag, aux_dim = p.batched_warm_potential
+        return pag, pag._forward_warm_plain, {"aux_dim": aux_dim}
+    pot = p.batched_potential_fn
+    return pot, pot._forward_plain, {}
+
+
+@pytest.mark.parametrize("record", [False, True])
+@pytest.mark.parametrize("warm", [False, True])
+def test_mala_warp_kernel_with_ragged_last_cta(mala_warm_problem, warm, record):
+    """13 chains in blocks of 8: two CTAs of 8 warps, the last with 3 spare
+    warps that run on zeros and store nothing. The 13 chains equal the first
+    13 of the kernel's 16-chain run bit for bit and agree with the plain
+    twin's."""
+    p = mala_warm_problem
+    pot, plain, kw = _mala_pots(p, warm)
+    pm, ps = p.prior.mean, p.prior.scale
+    pos = p.init_positions(torch.Generator().manual_seed(28), 16).cuda()
+    if record:
+        kw = dict(kw, thin=1)
+    name = _scaffold_name(fused_mala.stem(warm), record)
+    before = _build.launch_counts[name]
+    got, full = (fused_mala._launch(pot, pos[:n], pm, ps, 0.012, 9, 3, 8, **kw)
+                 for n in (13, 16))
+    assert _build.launch_counts[name] == before + 2
+    for g, f in zip(got, full):
+        assert torch.equal(g, f[:, :13] if g.dim() == 3 else f[:13])
+    ref = fused_mala._run_plain(plain, pos, pm, ps, 0.012, 9, 3, 8, **kw)
+    if record:
+        assert got[2].shape == (3, 13, 64) and torch.equal(got[2][-1], got[0])
+        rec = (got[2] - ref[2][:, :13]).abs().amax(dim=(0, 2))
+        assert float((rec <= 1e-4).double().mean()) >= 0.99
+    _chains_agree(got, tuple(r[:13] for r in ref[:2]), 3)
+
+
+def test_mala_warp_geometry_matches_the_kernel(mala_warm_problem):
+    """fused_mala.warp_geometry (Python) gives what the kernel's launch
+    computes, cold and warm."""
+    import ctypes
+
+    p = mala_warm_problem
+    lib = _build.library()
+    for warm in (False, True):
+        pot = _mala_pots(p, warm)[0]
+        for n, block in ((4096, 256), (13, 8), (13, 13), (20, 4), (0, 256)):
+            pos = torch.zeros(n, 64, device="cuda")
+            args, _ = da._scaffold.chain_args(pos, p.prior.mean, p.prior.scale, 0, 1, block)
+            out = (ctypes.c_int * 3)()
+            assert lib.ipx_mala_warp_geometry(ctypes.byref(pot.spec()), ctypes.byref(args),
+                                              int(warm), out) == 0
+            ctas, w, smem = fused_mala.warp_geometry(n, block, warm=warm)
+            assert (out[0], out[1], out[2]) == (w, ctas, smem), (warm, n, block)
+
+
+def test_mala_warp_kernel_refuses_what_it_does_not_take(problem):
+    """A dst_trunc misfit (darcy_da_fused's exact level) and a 32² Jacobi
+    misfit: the entry point raises ValueError (the geometry mirror) before
+    any launch, and the C geometry function says "not supported", as it
+    does for the cold Jacobi misfit given to the warm kernel."""
+    import ctypes
+
+    big = _build_on_card("darcy32_pcn_warm").batched_potential_fn
+    jacobi = _build_on_card("darcy_pcn_warm").batched_potential_fn
+    lib = _build.library()
+    pos = problem.init_positions(torch.Generator().manual_seed(29), 16).cuda()
+    pm, ps = problem.prior.mean, problem.prior.scale
+    out = (ctypes.c_int * 3)()
+    for pot in (problem.batched_potential_fn, big):
+        before = dict(_build.launch_counts)
+        with pytest.raises(ValueError, match="MALA kernel takes"):
+            fused_mala.fused_mala_chain(pot, pos, 0.01, 0, n_steps=1, block_chains=16,
+                                        prior_mean=pm, prior_scale=ps)
+        assert dict(_build.launch_counts) == before
+        args, _ = da._scaffold.chain_args(pos, pm, ps, 0, 1, 16)
+        status = lib.ipx_mala_warp_geometry(ctypes.byref(pot.spec()), ctypes.byref(args), 0,
+                                            out)
+        assert "not supported" in lib.ipx_error_string(status).decode()
+    args, _ = da._scaffold.chain_args(pos, pm, ps, 0, 1, 16)
+    status = lib.ipx_mala_warp_geometry(ctypes.byref(jacobi.spec()), ctypes.byref(args), 1, out)
+    assert "not supported" in lib.ipx_error_string(status).decode()
