@@ -1389,7 +1389,8 @@ struct WarpDstSliceLevel : WarpSliceLevel {
     __builtin_assume(__isShared(S) && __isShared(St) && __isShared(lam) && __isShared(q) &&
                      __isShared(y));
 #pragma unroll
-    for (int k = 0; k < kC; ++k) qb[kRow * (i0 + (k >> 2)) + j0 + 4 * (k & 3)] = __float2bfloat16(r[k]);
+    for (int k = 0; k < kC; ++k)
+      qb[kRow * (i0 + (k >> 2)) + j0 + 4 * (k & 3)] = __float2bfloat16(r[k]);
     __syncwarp();
     // y[i, j] = sum_q S[j, q] r[i, q], stored as y^T
     stage(qb, S, [&](int h, int m, float v) {
@@ -1420,18 +1421,9 @@ __device__ __forceinline__ void apply_operator_warp(const WarpDstSliceLevel& lv,
   lv.stencil(op, p, Ap);
 }
 
-// The order of g = basis (a (-dPhi/da)): the parent's, lane L adding cells
-// L, L + 32, ..., L + 224 of each mode and a warp_sum a mode
-// (kGradShuffle); or the same partial sums reduced and scattered over the
-// warp, lane L keeping mode L of each 32 (kGradScatter): at each level the
-// lane keeps the modes of its half and adds the other lane's sums of them,
-// the pairs of warp_sum's butterfly, 31 shuffles for 32 modes instead of
-// 160. Both give the same bits.
-enum { kGradShuffle = 0, kGradScatter = 1 };
-
-// One level of kGradScatter: the lane's 2 O sums v[0..2 O) become the O of
-// its half (v[e + O] when bit O of the lane is set, else v[e]), each plus
-// the other lane's sum of the same mode.
+// One level of the KL product's reduce-and-scatter: the lane's 2 O sums
+// v[0..2 O) become the O of its half (v[e + O] when bit O of the lane is
+// set, else v[e]), each plus the other lane's sum of the same mode.
 template <int O>
 __device__ __forceinline__ void scatter_level(float (&v)[32]) {
   const bool upper = (threadIdx.x & O) != 0;
@@ -1450,7 +1442,7 @@ __device__ __forceinline__ void scatter_level(float (&v)[32]) {
 // kStride floats: the field a waits in af through the solves (not in
 // registers), and on return the lane's cells of the forward solution are in
 // xf, those of the adjoint solution in lv.ws.th. No CTA barrier.
-template <int GRAD, bool WARM, class L>
+template <bool WARM, class L>
 __device__ float darcy_value_and_grad_warp(L& lv, const float* u, float* af, float* xf,
                                            const float (&x0)[8], const float (&lam0)[8],
                                            float (&g)[2]) {
@@ -1556,40 +1548,31 @@ __device__ float darcy_value_and_grad_warp(L& lv, const float* u, float* af, flo
   }
   __syncwarp();
   // g[k] = sum_cells basis[k, cell] w[cell]: lane l's partial over the
-  // cells l + 32 j, j in order, as the parent's lane l adds them
+  // cells l + 32 j, j in order, as the parent's lane l adds them; then, per
+  // 32 modes, the partials reduced and scattered over the warp, lane l
+  // keeping mode l: each level adds the pairs of warp_sum's butterfly, so
+  // the parent's bits, with 31 shuffles for 32 modes instead of 160
   float w[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) w[j] = lv.ws.p[36 * j + l];
   __builtin_assume(__isShared(lv.basis));
   __syncwarp();  // the reads end before the next write to p
-  if constexpr (GRAD == kGradShuffle) {
-    for (int m = 0; m < 2 * 32; ++m) {
+#pragma unroll
+  for (int hb = 0; hb < 2; ++hb) {
+    float v[32];
+#pragma unroll
+    for (int m = 0; m < 32; ++m) {
       float acc = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc += lv.basis[m * kStride + 36 * j + l] * w[j];
-      acc = warp_sum(acc);
-      if (m == l) g[0] = acc;
-      if (m == l + 32) g[1] = acc;
+      for (int j = 0; j < 8; ++j) acc += lv.basis[(32 * hb + m) * kStride + 36 * j + l] * w[j];
+      v[m] = acc;
     }
-  } else {
-#pragma unroll
-    for (int hb = 0; hb < 2; ++hb) {
-      float v[32];
-#pragma unroll
-      for (int m = 0; m < 32; ++m) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          acc += lv.basis[(32 * hb + m) * kStride + 36 * j + l] * w[j];
-        v[m] = acc;
-      }
-      scatter_level<16>(v);
-      scatter_level<8>(v);
-      scatter_level<4>(v);
-      scatter_level<2>(v);
-      scatter_level<1>(v);
-      g[hb] = v[0];
-    }
+    scatter_level<16>(v);
+    scatter_level<8>(v);
+    scatter_level<4>(v);
+    scatter_level<2>(v);
+    scatter_level<1>(v);
+    g[hb] = v[0];
   }
   return phi;
 }

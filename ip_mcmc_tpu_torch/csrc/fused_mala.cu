@@ -45,13 +45,14 @@
 // order of the one-chain-a-CTA kernel's threads, so the chains keep its
 // bits: the dot products and a_bar in block_sum's (WarpSliceLevel::sum),
 // the dense dst's 16 terms a cell in sequence on the CUDA cores with its
-// four bf16 roundings (WarpDstSliceLevel), the KL product per mode over
-// the parent's lane-strided cells (darcy_value_and_grad_warp), the prior
-// and proposal sums as a block_sum whose warps 0 and 1 hold the 64
-// coordinates. The KL basis, S, S^T (bf16) and the dst eigenvalues are staged
-// in shared memory once a CTA; a warp's slices hold the state, the solve's
-// vectors, the forward solution and (warm) the carried solutions. The
-// design is the line MalaWarpDesign (scripts/measure_mala_warp_design.py
+// four bf16 roundings (WarpDstSliceLevel), the KL product's partials over
+// the parent's lane-strided cells, reduced and scattered in the pairs of
+// warp_sum's butterfly (darcy_value_and_grad_warp), the prior and proposal
+// sums as a block_sum whose warps 0 and 1 hold the 64 coordinates. The KL
+// basis, S, S^T (bf16) and the dst eigenvalues are staged in shared memory
+// once a CTA; a warp's slices hold the state, the solve's vectors, the
+// forward solution and (warm) the carried solutions. W and the launch
+// bound are the line MalaWarpDesign (scripts/measure_mala_warp_design.py
 // times the alternatives, PERF.md the numbers).
 #include <cuda_runtime.h>
 
@@ -101,11 +102,8 @@ struct MalaArgs {
 
 // The design: kWarps chains a CTA at most, one a warp; the launch bound's
 // warps an SM (kSmWarps: 32 caps a thread at 65536 / 1024 = 64 registers,
-// 24 at 80, 16 at 128); the order of the KL product (kGrad:
-// kGradShuffle, kGradScatter in darcy_misfit.cuh); where the warm kernel
-// keeps the carried solutions of the accepted state (kCarry).
-enum { kCarryRegisters = 0, kCarrySlices = 1 };
-struct MalaWarpDesign { static constexpr int kWarps = 16, kSmWarps = 16, kGrad = kGradScatter, kCarry = kCarrySlices; };
+// 24 at 80, 16 at 128).
+struct MalaWarpDesign { static constexpr int kWarps = 16, kSmWarps = 16; };
 constexpr int kMalaWarpMinCtas = MalaWarpDesign::kSmWarps >= 2 * MalaWarpDesign::kWarps
                                      ? MalaWarpDesign::kSmWarps / MalaWarpDesign::kWarps
                                      : 1;
@@ -116,15 +114,12 @@ constexpr int kMalaD = WarpSliceLevel::kK;
 template <int PRECOND>
 struct MalaWarpStep {
   static constexpr bool kWarm = PRECOND == kPrecondDst;
-  static constexpr bool kSlices = kWarm && MalaWarpDesign::kCarry == kCarrySlices;
-  static constexpr int kCarried = kWarm && !kSlices ? 8 : 1;  // cells in registers
   static constexpr int kStride = WarpSliceLevel::kStride;
   using Level = std::conditional_t<kWarm, WarpDstSliceLevel, WarpSliceLevel>;
   // a warp's floats: pos, prop, then slices: the field a, the forward
-  // solution, p, th, tv, (warm) the dst stage buffer, (kSlices) the carried
-  // x and lam
-  static constexpr int kWarpFloats =
-      2 * kMalaD + (5 + (kWarm ? 1 : 0) + (kSlices ? 2 : 0)) * kStride;
+  // solution, p, th, tv, (warm) the dst stage buffer and the carried x and
+  // lam
+  static constexpr int kWarpFloats = 2 * kMalaD + (kWarm ? 8 : 5) * kStride;
   // the CTA's staged floats before the warps: the basis, (warm) S, S^T, lam
   static constexpr size_t kStagedBytes =
       WarpSliceLevel::staged_bytes() + (kWarm ? WarpDstSliceLevel::staged_dst_bytes() : 0);
@@ -135,10 +130,9 @@ struct MalaWarpStep {
   float* prop;
   float* af;  // the field a at prop
   float* xf;  // the forward solution at prop
-  float* xs;  // kSlices: the accepted state's forward solution
+  float* xs;  // warm: the accepted state's forward solution
   float* ls;  // ... and adjoint solution
   float phi, g[2];
-  float cx[kCarried], cl[kCarried];  // the same in registers (warm, not kSlices)
 
   // block_sum over the parent's 256 threads of the terms v0, v1 of the
   // coordinates l, l + 32: warps 0 and 1 hold them, the six others 0
@@ -158,26 +152,6 @@ struct MalaWarpStep {
     for (int h = 0; h < 2; ++h) g_v[h] = g_v[h] + z[h] / x.scale[h];
   }
 
-  // the carried solutions of cell k (warm)
-  __device__ __forceinline__ void carried(int k, float& x0, float& l0) const {
-    if constexpr (kSlices) {
-      x0 = xs[Level::at(k)];
-      l0 = ls[Level::at(k)];
-    } else {
-      x0 = cx[k];
-      l0 = cl[k];
-    }
-  }
-  __device__ __forceinline__ void carry(int k, float x0, float l0) {
-    if constexpr (kSlices) {
-      xs[Level::at(k)] = x0;
-      ls[Level::at(k)] = l0;
-    } else {
-      cx[k] = x0;
-      cl[k] = l0;
-    }
-  }
-
   __device__ void init(const WarpChainCtx& x) {
     const int l = threadIdx.x & 31, n = a.chain.n;
     phi = x.live ? a.phi0[x.c] : 0.0f;
@@ -190,8 +164,8 @@ struct MalaWarpStep {
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         const size_t t = Level::cell(k);
-        carry(k, x.live ? a.aux0[t * n + x.c] : 0.0f,
-              x.live ? a.aux0[(cells + t) * n + x.c] : 0.0f);
+        xs[Level::at(k)] = x.live ? a.aux0[t * n + x.c] : 0.0f;
+        ls[Level::at(k)] = x.live ? a.aux0[(cells + t) * n + x.c] : 0.0f;
       }
     }
   }
@@ -210,12 +184,11 @@ struct MalaWarpStep {
     float x0[8], l0[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      x0[k] = l0[k] = 0.0f;
-      if constexpr (kWarm) carried(k, x0[k], l0[k]);
+      x0[k] = kWarm ? xs[Level::at(k)] : 0.0f;
+      l0[k] = kWarm ? ls[Level::at(k)] : 0.0f;
     }
     float g_p[2];
-    float phi_p =
-        darcy_value_and_grad_warp<MalaWarpDesign::kGrad, kWarm>(lv, prop, af, xf, x0, l0, g_p);
+    float phi_p = darcy_value_and_grad_warp<kWarm>(lv, prop, af, xf, x0, l0, g_p);
     fold(x, prop, phi_p, g_p);
     float d_rev[2];
 #pragma unroll
@@ -235,7 +208,10 @@ struct MalaWarpStep {
       }
       if constexpr (kWarm) {
 #pragma unroll
-        for (int k = 0; k < 8; ++k) carry(k, xf[Level::at(k)], lv.ws.th[Level::at(k)]);
+        for (int k = 0; k < 8; ++k) {
+          xs[Level::at(k)] = xf[Level::at(k)];
+          ls[Level::at(k)] = lv.ws.th[Level::at(k)];
+        }
       }
     }
     return accept;

@@ -153,10 +153,8 @@ def _run_plain(potential_fn, positions, prior_mean, prior_scale, step_size,
 
 # --- the kernels ------------------------------------------------------------
 
-# ``MalaWarpDesign`` in ``csrc/fused_mala.cu``: chains (warps) a CTA at most,
-# and whether the warm kernel keeps the carried solutions in its slices.
+# ``MalaWarpDesign`` in ``csrc/fused_mala.cu``: chains (warps) a CTA at most.
 WARP_CHAINS = 16
-CARRY_SLICES = True
 # What it takes: a WARP_N² CG grid, d = K = WARP_D, Jacobi (cold) or dense
 # dst (warm).
 WARP_N, WARP_D = 16, 64
@@ -165,7 +163,7 @@ WARP_N, WARP_D = 16, 64
 # and Sᵀ as bf16 rows of DST_ROW elements and the dst eigenvalues (a slice);
 # a warp: pos and prop (d floats each) and the slices of the field a, the
 # forward solution and the solve (p, th, tv); warm: the dst stage buffer
-# and, with CARRY_SLICES, the carried x and λ
+# and the carried x and λ
 SLICE_FLOATS = WARP_N * WARP_N + 4 * WARP_N * WARP_N // 32
 DST_ROW = 24
 BASIS_BYTES = 4 * WARP_D * SLICE_FLOATS
@@ -176,8 +174,7 @@ KERNEL = "fused_mala_warp_kernel"  # the launch count's stem, with the precondit
 
 def warp_slice_bytes(warm):
     """Bytes of one warp's part of the kernel's shared memory."""
-    slices = 5 + (1 + 2 * CARRY_SLICES if warm else 0)
-    return 4 * (2 * WARP_D + slices * SLICE_FLOATS)
+    return 4 * (2 * WARP_D + (8 if warm else 5) * SLICE_FLOATS)
 
 
 def stem(warm):

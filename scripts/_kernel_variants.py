@@ -75,14 +75,23 @@ def build_designs(_build, filename: str, units, shipped: str, designs: dict, tag
     (library paths, the directory holding its ``nvcc.log``)}, or {key: the
     compiler's first error} for a design that does not build (a
     static_assert of the design)."""
-    text = (_build.CSRC / filename).read_text()
-    assert text.count(shipped) == 1, f"{shipped!r} is not once in {filename}"
+    return build_patch_sets(_build, units, {key: [(filename, shipped, line)]
+                                            for key, line in designs.items()}, tag)
+
+
+def build_patch_sets(_build, units, designs: dict, tag: str) -> dict:
+    """As ``build_designs``, a design being a list of patches (file name,
+    text that is once in it, its replacement) applied in order."""
     procs = []
-    for key, line in designs.items():
+    for key, patches in designs.items():
         tree = _build.BUILD_DIR / f"{tag}_{len(procs)}"
         shutil.rmtree(tree, ignore_errors=True)
         shutil.copytree(_build.CSRC, tree / "csrc")
-        (tree / "csrc" / filename).write_text(text.replace(shipped, line))
+        for filename, old, new in patches:
+            path = tree / "csrc" / filename
+            text = path.read_text()
+            assert text.count(old) == 1, f"{old!r} is not once in {filename}"
+            path.write_text(text.replace(old, new))
         (tree / "lib").mkdir()
         for unit in units:
             so = tree / "lib" / f"libipx_{unit[:-3]}.so"

@@ -56,13 +56,14 @@ def _row(key: str) -> str:
     return key.rsplit("_", 1)[0]
 
 
-def old_vs_new(parent: dict, new: dict) -> None:
-    """Prints the OLD_VS_NEW rows: the share of chains within CHAIN_ATOL over
-    the final states and the records, the parent's and the new acceptance."""
+def old_vs_new(parent: dict, new: dict, rows) -> None:
+    """Prints the OLD_VS_NEW rows (those of ``rows``, when given): the share
+    of chains within CHAIN_ATOL over the final states and the records, the
+    parent's and the new acceptance."""
     import torch
 
     for row in OLD_VS_NEW:
-        if f"{row}_0" not in new:
+        if rows is not None and row not in rows:
             continue
         final = (new[f"{row}_0"] - parent[f"{row}_0"]).abs().amax(dim=1)
         rec = (new[f"{row}_2"] - parent[f"{row}_2"]).abs().amax(dim=(0, 2))
@@ -109,45 +110,39 @@ def worker(out_path: str, rows) -> int:
     da3 = configs.build("burgers_da3_pcn", "cuda")
     da3_kp = da3.kernel_params
 
-    outputs, times = {}, {}
-    misfits = rows is None or "misfits" in rows
-    for name, pot in (("misfit_exact", exact), ("misfit_surrogate", surr),
-                      ("misfit_jacobi48", jacobi)):
-        if not misfits:
-            break
-        outputs[name] = pot(U)
-        times[name] = time_ms(lambda: pot(U), 20)
-    zeros = torch.zeros(aux_dim, n, device="cuda")
-    pag_zeros = torch.zeros(pag_dim, n, device="cuda")
-    if misfits:
-        outputs["misfit_warm_phi"], outputs["misfit_warm_x"] = warm(U, zeros)
-        times["misfit_warm"] = time_ms(lambda: warm(U, zeros), 20)
-        outputs["misfit_grad_phi"], outputs["misfit_grad_g"] = jacobi.value_and_grad(U)
-        times["misfit_grad"] = time_ms(lambda: jacobi.value_and_grad(U), 5)
-        for i, t in enumerate(pag(U, pag_zeros)):
-            outputs[f"misfit_grad_warm_{i}"] = t
-        times["misfit_grad_warm"] = time_ms(lambda: pag(U, pag_zeros), 5)
     # the large grids: darcy64_da_fused's two misfits, the cold and warm
     # misfits of darcy32_pcn_warm and darcy64_pcn_warm, 1024 draws each
     da64 = configs.build("darcy64_da_fused", "cuda")
     pcn64, pcn32 = (configs.build(c, "cuda") for c in ("darcy64_pcn_warm", "darcy32_pcn_warm"))
     U144 = da64.prior.sample(gen, 1024).T.contiguous()
     U64 = pcn32.prior.sample(gen, 1024).T.contiguous()
-    for name, pot, V in (("misfit64_exact", da64.batched_potential_fn, U144),
-                         ("misfit64_surrogate", da64.batched_surrogate_fn, U144),
-                         ("misfit64_cold", pcn64.batched_potential_fn, U144),
-                         ("misfit32_cold", pcn32.batched_potential_fn, U64)):
-        if not misfits:
-            break
-        outputs[name] = pot(V)
-        times[name] = time_ms(lambda: pot(V), 5)
-    for name, p, V in (("misfit64_warm", pcn64, U144), ("misfit32_warm", pcn32, U64)):
-        if not misfits:
-            break
-        w, dim = p.batched_warm_potential
-        z = torch.zeros(dim, 1024, device="cuda")
-        outputs[f"{name}_phi"], outputs[f"{name}_x"] = w(V, z)
-        times[name] = time_ms(lambda: w(V, z), 5)
+
+    outputs, times = {}, {}
+    if rows is None or "misfits" in rows:
+        for name, pot in (("misfit_exact", exact), ("misfit_surrogate", surr),
+                          ("misfit_jacobi48", jacobi)):
+            outputs[name] = pot(U)
+            times[name] = time_ms(lambda: pot(U), 20)
+        zeros = torch.zeros(aux_dim, n, device="cuda")
+        outputs["misfit_warm_phi"], outputs["misfit_warm_x"] = warm(U, zeros)
+        times["misfit_warm"] = time_ms(lambda: warm(U, zeros), 20)
+        outputs["misfit_grad_phi"], outputs["misfit_grad_g"] = jacobi.value_and_grad(U)
+        times["misfit_grad"] = time_ms(lambda: jacobi.value_and_grad(U), 5)
+        pag_zeros = torch.zeros(pag_dim, n, device="cuda")
+        for i, t in enumerate(pag(U, pag_zeros)):
+            outputs[f"misfit_grad_warm_{i}"] = t
+        times["misfit_grad_warm"] = time_ms(lambda: pag(U, pag_zeros), 5)
+        for name, pot, V in (("misfit64_exact", da64.batched_potential_fn, U144),
+                             ("misfit64_surrogate", da64.batched_surrogate_fn, U144),
+                             ("misfit64_cold", pcn64.batched_potential_fn, U144),
+                             ("misfit32_cold", pcn32.batched_potential_fn, U64)):
+            outputs[name] = pot(V)
+            times[name] = time_ms(lambda: pot(V), 5)
+        for name, p, V in (("misfit64_warm", pcn64, U144), ("misfit32_warm", pcn32, U64)):
+            w, dim = p.batched_warm_potential
+            z = torch.zeros(dim, 1024, device="cuda")
+            outputs[f"{name}_phi"], outputs[f"{name}_x"] = w(V, z)
+            times[name] = time_ms(lambda: w(V, z), 5)
     w64, w64_dim = pcn64.batched_warm_potential
     pos64 = da64.init_positions(gen, 2048).cuda()
     w32, w32_dim = pcn32.batched_warm_potential
@@ -265,7 +260,7 @@ def main() -> int:
         print(f"  {k:18s} " + "  ".join(f"{v:9.4f}" for v in t)
               + f"  {(t[0] + t[3]) / (t[1] + t[2]):7.3f}x")
     print(f"another design ({', '.join(OLD_VS_NEW)}), new against parent:")
-    old_vs_new(ref["parent"], ref["new"])
+    old_vs_new(ref["parent"], ref["new"], rows)
     bad = compare_ptxas(trees)
     if differing:
         print("NOT bit for bit:\n  " + "\n  ".join(differing))

@@ -159,58 +159,69 @@ def test_prior_and_proposal_sums_add_in_block_sums_order(seed):
     assert _sum64(sq[:32], sq[32:]) == _block_sum(threads)
 
 
-def _lane_partials(basis, w):
-    """(64 modes, 32 lanes): lane L's partial sum of mode k over the cells
-    L, L + 32, ..., L + 224 in order, as the parent's lane L adds them."""
+def _pad(c):
+    """WarpSliceLevel::pad: cell c's place in a slice of shared memory."""
+    return c + 4 * (c // 32)
+
+
+def _grad_parent(basis, w):
+    """The one-chain-a-CTA kernel's g (darcy_value_and_grad): a warp a mode,
+    lane L adding cells L, L + 32, ..., L + 224 in order, then a warp_sum;
+    lane 0's value."""
     part = np.zeros((64, 32), np.float32)
     for j in range(8):
         part = (part + basis[:, 32 * j:32 * j + 32] * w[32 * j:32 * j + 32]).astype(np.float32)
-    return part
-
-
-def _grad_shuffle(part):
-    """kGradShuffle: a warp_sum a mode; lane 0's value."""
     return np.array([_warp_sum(part[k])[0] for k in range(64)], np.float32)
 
 
-def _grad_scatter(part):
-    """kGradScatter (darcy_misfit.cuh scatter_level): per 32 modes, level O
-    = 16, 8, 4, 2, 1 keeps in lane L the modes of its half (v[e + O] when
-    bit O of L is set) plus lane L ^ O's sums of them; lane L ends with mode
-    L. Returns the 64 modes."""
-    out = np.zeros(64, np.float32)
+def _grad_warp(basis, w):
+    """darcy_value_and_grad_warp's g: the basis staged as 64 rows of a slice
+    (288 floats) and w in a slice, the pads NaN; lane L reads w[36 j + L]
+    and basis[m, 36 j + L], j = 0..7, and adds them in order; then per 32
+    modes the reduce-and-scatter (scatter_level): level O = 16, 8, 4, 2, 1
+    keeps in lane L the modes of its half (v[e + O] when bit O of L is set)
+    plus lane L ^ O's sums of them; lane L ends with mode L."""
+    staged = np.full((64, 288), np.nan, np.float32)
+    slice_w = np.full(288, np.nan, np.float32)
+    cells = np.arange(256)
+    staged[:, _pad(cells)] = basis
+    slice_w[_pad(cells)] = w
+    lanes = np.arange(32)
+    part = np.zeros((64, 32), np.float32)
+    for j in range(8):
+        part = (part + staged[:, 36 * j + lanes] * slice_w[36 * j + lanes]).astype(np.float32)
+    g = np.zeros(64, np.float32)
     for hb in range(2):
         v = [part[32 * hb:32 * hb + 32, lane].copy() for lane in range(32)]  # v[lane][mode]
         for o in (16, 8, 4, 2, 1):
             nxt = []
             for lane in range(32):
-                up = bool(lane & o)
-                keep = v[lane][o:2 * o] if up else v[lane][:o]
+                keep = v[lane][o:2 * o] if lane & o else v[lane][:o]
                 other = v[lane ^ o]
                 send = other[:o] if (lane ^ o) & o else other[o:2 * o]
                 nxt.append((keep + send).astype(np.float32))
             v = nxt
         for lane in range(32):
-            out[32 * hb + lane] = v[lane][0]
-    return out
+            g[32 * hb + lane] = v[lane][0]
+    return g
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_gradient_product_orders_give_the_parents_bits(seed):
-    """g = basis (a (-dPhi/da)): the warp's two orders (a warp_sum a mode,
-    the parent's; the reduce-and-scatter over the warp) give the same bits,
-    and an order that adds each mode's cells in sequence gives others."""
+    """g = basis (a (-dPhi/da)) from the warp's padded slices, reduced and
+    scattered over the warp, gives the bits of the parent's order (a warp a
+    mode, lane-strided cells, a warp_sum), and an order that adds each
+    mode's cells in sequence gives others."""
     rng = np.random.default_rng(seed)
     basis = (rng.standard_normal((64, 256)) * 10.0 ** rng.uniform(-2, 2, (64, 256))).astype(
         np.float32)
     w = (rng.standard_normal(256) * 10.0 ** rng.uniform(-3, 3, 256)).astype(np.float32)
-    part = _lane_partials(basis, w)
-    shuffle = _grad_shuffle(part)
-    assert np.array_equal(_grad_scatter(part), shuffle)
+    parent = _grad_parent(basis, w)
+    assert np.array_equal(_grad_warp(basis, w), parent)
     seq = np.zeros(64, np.float32)
     for c in range(256):
         seq = (seq + basis[:, c] * w[c]).astype(np.float32)
-    assert not np.array_equal(seq, shuffle)
+    assert not np.array_equal(seq, parent)
 
 
 def _bf16(x):
