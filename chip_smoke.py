@@ -12,7 +12,7 @@ Gaussians), times both, then drives the ported paths at full width:
     darcy_da_richardson      the same with each surrogate of
                              benchmarks/darcy_da_richardson.py: three solved
                              by Richardson (K17), the CG one beside them
-    darcy_pcn_warm           warm-started pCN           (K7)
+    darcy_pcn_warm           warm-started pCN           (K7), a chain a warp
     darcy32_pcn_warm         warm pCN on 32 x 32 cells  (K5, K7), G chains
                              a thread-block cluster, 7 CTAs an SM, the
                              factors read through L2
@@ -22,7 +22,7 @@ Gaussians), times both, then drives the ported paths at full width:
                              32 x 32 surrogate (K4, K5), G chains a
                              thread-block cluster
     darcy_ess_fused          elliptical slice sampling  (K8), a chain a warp
-    darcy_pcn_4096 --fused   cold pCN                   (K6)
+    darcy_pcn_4096 --fused   cold pCN                   (K6), a chain a warp
     darcy_mala_fused         MALA, adjoint gradient     (K10), a chain a warp
     darcy_mala_warm          warm-started MALA          (K11), a chain a warp
     darcy_fes_fused          functional ensemble sampler (K9), a chain a warp
@@ -408,6 +408,11 @@ DA3 = "fused_da3_pcn_warp_kernel"
 # and warm (dense dst) instantiations (ops/fused_mala.py stem)
 MALA_COLD = "fused_mala_warp_kernel[jacobi]"
 MALA_WARM = "fused_mala_warp_kernel[dst]"
+# single-level pCN on 16x16, d = 64: one warp per chain; cold (Jacobi) and
+# warm (dst_trunc) instantiations (ops/fused_pcn.py stem); the other specs
+# on the one-chain-a-CTA kernels
+PCN_COLD = "fused_pcn_warp_kernel[jacobi]"
+PCN_WARM = "fused_pcn_warp_kernel[dst_trunc]"
 
 
 def check_da(problem, gen, results):
@@ -500,7 +505,12 @@ class CountingPotential:
 
 
 def check_single_level(problems, gen, results):
-    """K6, K7, K8 at their configs' blocks, each plain and recorded."""
+    """K6, K7, K8 at their configs' blocks, each plain and recorded: the
+    pCN warp kernels on the two configs' misfits, and the one-chain-a-CTA
+    pCN kernels on two 16x16 specs the warp kernel does not take (a cold
+    dst_trunc and a warm Jacobi misfit; no shipped config)."""
+    from ip_mcmc_tpu_torch.convert import darcy_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
     from ip_mcmc_tpu_torch.ops import fused_ess, fused_pcn
 
     warm_p, ess_p, cold_p = (problems[k] for k in
@@ -516,18 +526,34 @@ def check_single_level(problems, gen, results):
     pm, ps = cold_p.prior.mean, cold_p.prior.scale
     warm, aux_dim = warm_p.batched_warm_potential
     draws = Ops(RNG_OPS_PER_DRAW * d)
+    cta_cold = problems["darcy_da_fused"].batched_potential_fn
+    aux = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    cta_warm = darcy_warm_misfit_from_arrays(aux, warm_p.data, 0.002, cg_iters=16,
+                                             precond="jacobi")[0].cuda()
+    w_cold, w_warm = (fused_pcn.warp_geometry(N_CHAINS, b, warm=h)[1]
+                      for b, h in ((512, False), (256, True)))
     pcn_cases = (
-        ("fused_pcn_kernel", fused_pcn.fused_pcn_chain,
+        (PCN_COLD, fused_pcn.fused_pcn_chain,
          fused_pcn.fused_pcn_chain_recorded, jacobi, 512, 4, {},
-         solve_ops(jacobi, False) + draws, "darcy_pcn_4096",
-         "jacobi, 48 CG, block 512"),
-        ("fused_pcn_warm_kernel", fused_pcn.fused_pcn_chain_warm,
+         solve_ops(jacobi, False) + draws, ["darcy_pcn_4096"],
+         f"jacobi, 48 CG, block 512, {w_cold} chains a CTA"),
+        (PCN_WARM, fused_pcn.fused_pcn_chain_warm,
          fused_pcn.fused_pcn_chain_warm_recorded, warm, 256, 8,
          {"aux_dim": aux_dim}, solve_ops(warm, True) + draws,
-         "darcy_pcn_warm", "dst_trunc-64, 4 CG, block 256"),
+         ["darcy_pcn_warm"], f"dst_trunc-64 (its products by mma.sync over a CTA's chains), "
+         f"4 CG, block 256, {w_warm} chains a CTA"),
+        # the specs the warp kernel leaves to the one-chain-a-CTA kernels
+        ("fused_pcn_kernel", fused_pcn.fused_pcn_chain,
+         fused_pcn.fused_pcn_chain_recorded, cta_cold, 256, 2, {},
+         solve_ops(cta_cold, False) + draws, [], "dst_trunc-128, 12 CG, block 256"),
+        ("fused_pcn_warm_kernel", fused_pcn.fused_pcn_chain_warm,
+         fused_pcn.fused_pcn_chain_warm_recorded, cta_warm, 256, 4,
+         {"aux_dim": aux_dim}, solve_ops(cta_warm, True) + draws, [],
+         "jacobi, 16 CG, block 256"),
     )
-    for (stem, chain, chain_rec, pot, block, steps, kw, ops, path,
+    for (stem, chain, chain_rec, pot, block, steps, kw, ops, paths,
          variant) in pcn_cases:
+        assert fused_pcn._darcy_stem(pot, bool(kw), d) == stem, f"{variant}: not on {stem}"
         args = (pot, pos, pm, ps, 0.08, 13)
         plain_args = (plain_potential(pot, warm=bool(kw)), *args[1:])
         for recorded in (False, True):
@@ -537,7 +563,7 @@ def check_single_level(problems, gen, results):
                 lambda s: fn(*args, n_steps=s, block_chains=block, **kw_r),
                 lambda s: fused_pcn._run_plain(*plain_args, s, block, **kw_r),
                 steps=steps, kernel_long=steps + 64, plain_long=3 * steps,
-                variant=variant, paths=[path], source="fused_pcn.cu",
+                variant=variant, paths=paths, source="fused_pcn.cu",
                 pots=(pot,), per_step_ops=ops)
 
     shrink, block, steps, long = ess_p.kernel_params["max_shrink"], 256, 3, 67
@@ -1267,6 +1293,54 @@ def check_mala_warp(problem):
                          "13 chains, 8 warps a CTA, 3 steps", got, full, ref, recorded)
 
 
+def check_pcn_warp(problems):
+    """What the pCN warp kernel's warps add beside its twin, cold and warm:
+    the Python mirror of the launch geometry against the C function, and of
+    which specs it takes (the C function refuses the others with
+    cudaErrorNotSupported: they run on the one-chain-a-CTA kernels); and a
+    ragged width, 13 chains in blocks of 8 (two CTAs of 8 warps, 3 of them
+    spare): equal bit for bit to the first 13 of the kernel's own 16-chain
+    run, and within CHAIN_ATOL of the plain twin's 16-chain run, plain and
+    recorded."""
+    from ip_mcmc_tpu_torch.ops import _build, fused_pcn
+
+    cold_p, warm_p = problems["darcy_pcn_4096"], problems["darcy_pcn_warm"]
+    pm, ps = warm_p.prior.mean, warm_p.prior.scale
+    jacobi = cold_p.batched_potential_fn
+    warm, aux_dim = warm_p.batched_warm_potential
+    geometry = _build.library().ipx_pcn_warp_geometry
+    for is_warm, pot, block in ((False, jacobi, 512), (True, warm, 256)):
+        check_geometry(f"pCN ({'warm, dst_trunc' if is_warm else 'cold, jacobi'})",
+                       ((N_CHAINS, block), (13, 8), (13, 13), (20, 4), (1, 256)),
+                       c_geometry_of(geometry, [pot.spec()], [int(is_warm)], warm_p),
+                       lambda n, b, w=is_warm: fused_pcn.warp_geometry(n, b, warm=w))
+    # specs that go to another kernel: C refuses them, Python's mirror too
+    others = ((False, problems["darcy_da_fused"].batched_potential_fn),
+              (False, problems["darcy_da_fused"].batched_surrogate_fn),
+              (True, problems["darcy_mala_warm"].batched_warm_potential[0]),
+              (True, problems["darcy32_pcn_warm"].batched_warm_potential[0]))
+    for is_warm, pot in others:
+        status, _ = c_geometry_of(geometry, [pot.spec()], [int(is_warm)], warm_p)(64, 64)
+        takes = fused_pcn.warp_takes(is_warm, n=pot.n, d=warm_p.dim, precond=pot.precond,
+                                     modes=pot.modes, solver=pot.solver)
+        if status != 801 or takes:  # cudaErrorNotSupported
+            raise AssertionError(f"pCN warp kernel on {pot.n}x{pot.n} {pot.precond}: C status "
+                                 f"{status}, Python takes {takes}")
+    print(f"pCN warp kernel: C and Python leave the same {len(others)} other specs to the "
+          "one-chain-a-CTA kernels", flush=True)
+    pos = warm_p.init_positions(torch.Generator().manual_seed(80), 16).cuda()
+    for is_warm, pot, plain, kw in ((False, jacobi, plain_potential(jacobi), {}),
+                                    (True, warm, plain_potential(warm, warm=True),
+                                     {"aux_dim": aux_dim})):
+        for recorded in (False, True):
+            kw_r = dict(kw, thin=1) if recorded else kw
+            got, full = (fused_pcn._launch(pot, pos[:n], pm, ps, 0.08, 81, 3, 8, **kw_r)
+                         for n in (13, 16))
+            ref = fused_pcn._run_plain(plain, pos, pm, ps, 0.08, 81, 3, 8, **kw_r)
+            check_ragged(f"{fused_pcn.stem(is_warm)}<{'true' if recorded else 'false'}>",
+                         "13 chains, 8 warps a CTA, 3 steps", got, full, ref, recorded)
+
+
 def attach_ptxas(results, ptxas, names):
     """Adds to each result row named in ``names`` (count name -> the
     kernel's instantiation as ptxas names it, mangled and demangled) the
@@ -1293,6 +1367,12 @@ MALA_PTXAS = {
     f"{stem}<{rec}>": (f"fused_mala_warp_kernelILb{int(rec == 'true')}ELi{pc}E",
                        f"fused_mala_warp_kernel<{rec}, {pc}>")
     for stem, pc in ((MALA_COLD, 0), (MALA_WARM, 2)) for rec in ("false", "true")}
+# ... of fused_pcn_warp_kernel<RECORD, PRECOND> (kPrecondJacobi 0,
+# kPrecondDstTrunc 1)
+PCN_PTXAS = {
+    f"{stem}<{rec}>": (f"fused_pcn_warp_kernelILb{int(rec == 'true')}ELi{pc}E",
+                       f"fused_pcn_warp_kernel<{rec}, {pc}>")
+    for stem, pc in ((PCN_COLD, 0), (PCN_WARM, 1)) for rec in ("false", "true")}
 
 
 def report_da64(problem, metrics):
@@ -1737,16 +1817,16 @@ def run_lingauss_fused(problem):
 PATHS = {
     "darcy_da_fused": ([], ("darcy_misfit_kernel[n=16]", "darcy_misfit_kernel[n=8]",
                             f"{DA16}<false>", f"{DA16}<true>")),
-    "darcy_pcn_warm": ([], ("darcy_misfit_warm_kernel", "fused_pcn_warm_kernel<false>",
-                            "fused_pcn_warm_kernel<true>")),
+    "darcy_pcn_warm": ([], ("darcy_misfit_warm_kernel", f"{PCN_WARM}<false>",
+                            f"{PCN_WARM}<true>")),
     "darcy32_pcn_warm": ([], ("darcy_misfit_warm_kernel", f"{PCN32}<false>", f"{PCN32}<true>")),
     "darcy64_pcn_warm": ([], ("darcy_misfit_warm_kernel", f"{PCN64}<false>",
                               f"{PCN64}<true>")),
     "darcy64_da_fused": ([], ("darcy_misfit_kernel[n=64]", "darcy_misfit_kernel[n=32]",
                               f"{DA64}<false>", f"{DA64}<true>")),
     "darcy_ess_fused": ([], ("darcy_misfit_kernel[n=16]", f"{ESS}<false>", f"{ESS}<true>")),
-    "darcy_pcn_4096": (["--fused"], ("darcy_misfit_kernel[n=16]", "fused_pcn_kernel<false>",
-                                     "fused_pcn_kernel<true>")),
+    "darcy_pcn_4096": (["--fused"], ("darcy_misfit_kernel[n=16]", f"{PCN_COLD}<false>",
+                                     f"{PCN_COLD}<true>")),
     "darcy_mala_fused": ([], ("darcy_misfit_grad_kernel[n=16]", f"{MALA_COLD}<false>",
                               f"{MALA_COLD}<true>")),
     "darcy_mala_warm": ([], ("darcy_misfit_grad_warm_kernel", f"{MALA_WARM}<false>",
@@ -1861,8 +1941,9 @@ def main() -> int:
     check_da3_warp(problems["burgers_da3_pcn"])
     check_fes_warp(problems["darcy_fes_fused"])
     check_mala_warp(problems["darcy_mala_warm"])
+    check_pcn_warp(problems)
     check_gradient_and_ensemble(problems, gen, results)
-    attach_ptxas(results, ptxas, MALA_PTXAS)
+    attach_ptxas(results, ptxas, {**MALA_PTXAS, **PCN_PTXAS})
     check_burgers(problems, gen, results)
     check_linear_family(problems, gen, results)
 
@@ -1887,12 +1968,12 @@ def main() -> int:
     # factor; the two scan paths (host-bound, a few seconds) as shipped
     step_ms = {
         "darcy_da_fused": f"{DA16}<true>",
-        "darcy_pcn_warm": "fused_pcn_warm_kernel<true>",
+        "darcy_pcn_warm": f"{PCN_WARM}<true>",
         "darcy32_pcn_warm": f"{PCN32}<true>",
         "darcy64_pcn_warm": f"{PCN64}<true>",
         "darcy64_da_fused": f"{DA64}<true>",
         "darcy_ess_fused": f"{ESS}<true>",
-        "darcy_pcn_4096": "fused_pcn_kernel<true>",
+        "darcy_pcn_4096": f"{PCN_COLD}<true>",
         "darcy_mala_fused": f"{MALA_COLD}<true>",
         "darcy_mala_warm": f"{MALA_WARM}<true>",
         "darcy_fes_fused": f"{FES}<true>",

@@ -1264,6 +1264,12 @@ struct WarpSliceLevel {
 #pragma unroll
     for (int k = 0; k < kC; ++k) b[k] = s->source[cell(k)];
     darcy_cg_warp(*this, op, b, x);
+    return observe(x);
+  }
+
+  // Phi from the lane's cells x of the solution: the residuals at the
+  // observed cells, as darcy_observe sums them; the same value in every lane.
+  __device__ __forceinline__ float observe(const float (&x)[kC]) const {
 #pragma unroll
     for (int k = 0; k < kC; ++k) ws.p[at(k)] = x[k];
     __syncwarp();
@@ -1575,6 +1581,140 @@ __device__ float darcy_value_and_grad_warp(L& lv, const float* u, float* af, flo
     g[hb] = v[0];
   }
   return phi;
+}
+
+// --- the dst_trunc preconditioner over a CTA's chains: warm pCN -------------
+//
+// apply_precond's dst_trunc, z = D^-1 r + V^T bf16(V bf16(r) / (lam a_bar)),
+// for the chains of a CTA, one a warp in WarpSliceLevel's layout. The
+// warps hand bf16(r) and a_bar to the CTA's exchange (PrecondXchg), and
+// both products run over all its chains at once, bf16 mma.sync with f32
+// accumulation, as WarpLevel::precond runs them for the 16 x 16 DA kernel:
+// V bf16(r) on modes tiles, rounded to bf16 over lam a_bar, then V^T coef on
+// cells tiles, each warp taking tiles in turn, V staged once a CTA in rows
+// of kCells + 8 (the eight 16-byte rows of an ldmatrix in distinct banks).
+// Three CTA barriers an apply: every warp of the CTA makes the same applies
+// (the warm pCN's fixed CG count), a spare warp on a chain of zeros. The
+// tensor cores add the products in another order than apply_precond's
+// loops; everything else of the step adds in the parent's order. V read
+// through L2, and the products on the warp's CUDA cores in the parent's
+// order, are the alternatives that scripts/measure_pcn_warp_design.py
+// times.
+struct WarpTruncSliceLevel : WarpSliceLevel {
+  static constexpr int kPrecond = kPrecondDstTrunc;
+  static constexpr int kRows = 16;  // the exchange's chains: two mma tiles of 8, W at most
+  static constexpr int kVRow = kCells + 8;  // a staged row of V, in bf16
+  // the modes it takes: a multiple of 16 (an mma tile), as many as the
+  // shared memory of a CTA of 16 warps holds beside the basis and the
+  // exchange (232,448 bytes: 112)
+  static constexpr int kModeTile = 16, kMaxModes = 112;
+  PrecondXchg xg;          // the CTA's exchange
+  const __nv_bfloat16* V;  // (modes, kVRow) staged
+  float a_bar;             // the chain's geometric-mean coefficient
+
+  // Bytes the CTA stages before its warps' slices for a misfit of `modes`
+  // modes: the exchange, then V.
+  __host__ __device__ static size_t staged_bytes(int modes) {
+    return xchg_bytes(kRows) + sizeof(__nv_bfloat16) * modes * kVRow;
+  }
+  // The level of a warp on `base`, the CTA's staged bytes at `staged`
+  // (every thread of the CTA calls; a barrier must follow before the level
+  // is used).
+  static __device__ WarpTruncSliceLevel make(const WarpSliceLevel& base, unsigned char* staged) {
+    const IpxMisfitSpec& s = *base.s;
+    __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(staged + xchg_bytes(kRows));
+    const __nv_bfloat16* gV = static_cast<const __nv_bfloat16*>(s.V);
+    for (int e = threadIdx.x; e < s.modes * kCells; e += blockDim.x)
+      Vs[(e / kCells) * kVRow + e % kCells] = gV[e];
+    return {base, carve_xchg(staged, kRows), Vs, 1.0f};
+  }
+
+  __device__ void precond(const float (&r)[kC], const float (&inv_diag)[kC],
+                          float (&z)[kC]) const {
+    const int l = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+    const int g = l >> 2, t = l & 3;
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      // rounded before the add below, as the parent's z, which it adds in
+      // another block
+      z[k] = __fmul_rn(inv_diag[k], r[k]);
+      xg.rb[w * kXRbStride + cell(k)] = __float2bfloat16(r[k]);
+    }
+    if (l == 0) xg.abar[w] = a_bar;
+    __syncthreads();
+    const int modes = s->modes;
+    // coef[m][ch] = sum_cell V[m][cell] bf16(r)[ch][cell]
+    for (int mt = w; mt < modes / 16; mt += nw) {
+      float acc[2][4] = {};
+#pragma unroll 4
+      for (int k0 = 0; k0 < kCells; k0 += 16) {
+        uint32_t a[4];
+        load_a_v<true>(a, V, kVRow, mt * 16, k0);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const __nv_bfloat16* b = xg.rb + (nt * 8 + g) * kXRbStride + k0 + 2 * t;
+          mma_16816(acc[nt], a, ld_pair(b), ld_pair(b + 8));
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = mt * 16 + g + 8 * (e >> 1), ch = nt * 8 + 2 * t + (e & 1);
+          if (ch < nw)
+            xg.cb[ch * kXCbStride + m] = __float2bfloat16(acc[nt][e] / (s->lam[m] * xg.abar[ch]));
+        }
+    }
+    __syncthreads();
+    // back[cell][ch] = sum_m V[m][cell] coef[m][ch]
+    for (int ct = w; ct < kCells / 16; ct += nw) {
+      float acc[2][4] = {};
+#pragma unroll 4
+      for (int k0 = 0; k0 < modes; k0 += 16) {
+        uint32_t a[4];
+        load_a_vt<true>(a, V, kVRow, ct * 16, k0);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const __nv_bfloat16* b = xg.cb + (nt * 8 + g) * kXCbStride + k0 + 2 * t;
+          mma_16816(acc[nt], a, ld_pair(b), ld_pair(b + 8));
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = ct * 16 + g + 8 * (e >> 1), ch = nt * 8 + 2 * t + (e & 1);
+          if (ch < nw) xg.back[ch * kXBackStride + c] = acc[nt][e];
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kC; ++k) z[k] = z[k] + xg.back[w * kXBackStride + cell(k)];
+  }
+
+  // Phi(u) for the chain of this warp from the lane's cells x of a previous
+  // solution, which the solve replaces by its own: the set-up, a_bar (Sum
+  // log a in block_sum's order), the warm CG, the residuals.
+  __device__ float phi_warm(const float* u, float (&x)[kC]) {
+    const WarpOperator<kC> op = setup(u);
+    float log_a[kC], b[kC];
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      log_a[k] = logf(ws.p[at(k)]);  // a, where setup left it
+      b[k] = s->source[cell(k)];
+    }
+    __syncwarp();  // the reads end before sum writes p
+    a_bar = expf(sum(log_a) / static_cast<float>(kCells));
+    darcy_cg_warp<true>(*this, op, b, x);
+    return observe(x);
+  }
+};
+
+// apply_operator_warp on a WarpTruncSliceLevel (darcy_cg_warp's stencil)
+__device__ __forceinline__ void apply_operator_warp(const WarpTruncSliceLevel& lv,
+                                                    const WarpOperator<8>& op, const float (&p)[8],
+                                                    float (&Ap)[8]) {
+  lv.stencil(op, p, Ap);
 }
 
 // --- one chain a CTA, G chains a thread-block cluster: the 64 x 64 kernels ----

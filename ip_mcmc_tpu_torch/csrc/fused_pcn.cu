@@ -23,6 +23,13 @@
 //   fused_pcn_warm_cluster32_kernel<RECORD>  the same on 32 x 32, in a
 //                                  layout of its own at 7 CTAs an SM, the
 //                                  factors read through L2.
+//   fused_pcn_warp_kernel<RECORD, PRECOND>  the 16 x 16 grid with d = K =
+//                                  64, one chain a warp: cold on a Jacobi
+//                                  CG misfit (PRECOND kPrecondJacobi, K6),
+//                                  warm on a dst_trunc CG one (a multiple
+//                                  of 16 modes up to 112; kPrecondDstTrunc,
+//                                  K7). ipx_fused_pcn sends it every spec
+//                                  it takes, the kernels above the rest.
 //
 // Layout and scaffold: fused_scaffold.cuh (one CTA per chain) and the
 // Darcy layouts of darcy_misfit.cuh: up to 16 x 16 one thread per cell; the
@@ -57,6 +64,25 @@
 // phases wait on latency more than on L2, and the smallest CTA wins: 8
 // cells a thread on 128 threads, 7 CTAs an SM, the factors read through L2
 // (0.56 ms; resident at 2 CTAs an SM 0.80-0.85).
+//
+// On the 16 x 16 grid one chain a CTA of 256 threads (the first design,
+// 0.414 ms a cold and 0.337 ms a warm step at 4096 chains) paid a CTA
+// barrier for every stencil and block reduction, and the warm solve two
+// more and two reads of V from L1/L2 for every dst_trunc apply. So there
+// the kernel runs one chain a warp on fused_scaffold.cuh's
+// run_warp_chain, 16 chains a CTA, lane l holding coordinates l, l + 32 of
+// d = 64 and eight cells of one 32-cell slice (darcy_misfit.cuh). The cold
+// solve runs on WarpSliceLevel, as fused_ess.cu's: every sum in the
+// one-chain-a-CTA kernel's order, so the chains keep its bits, and no CTA
+// barrier after the staging of the basis. The warm one runs on
+// WarpTruncSliceLevel, the carried solution in eight registers a lane:
+// everything in the parent's order but the dst_trunc products, which run
+// over the CTA's 16 chains on the tensor cores from the modes staged once
+// a CTA (three CTA barriers an apply). Measured on the H100
+// (scripts/measure_pcn_warp_design.py, PERF.md), a warm step takes 0.051
+// ms so, 0.071 with the modes read through L2 and 0.093 with the products
+// on the warp's CUDA cores in the parent's order. W and the launch bound
+// are the line PcnWarpDesign.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -291,6 +317,177 @@ inline int launch_pcn_warm_cluster(const IpxMisfitSpec& pot, const IpxChainArgs&
   return launch_cluster(fused_pcn_warm_cluster_kernel<false>, geo, stream, a);
 }
 
+// --- one chain a warp: K6 and K7 on the 16 x 16 grid -------------------------
+
+// The design: kWarps chains a CTA at most, one a warp; the launch bound's
+// warps an SM (kSmWarps: 32 caps a thread at 65536 / 1024 = 64 registers,
+// 24 at 80, 16 at 128).
+struct PcnWarpDesign { static constexpr int kWarps = 16, kSmWarps = 16; };
+constexpr int kPcnWarpMinCtas = PcnWarpDesign::kSmWarps >= 2 * PcnWarpDesign::kWarps
+                                    ? PcnWarpDesign::kSmWarps / PcnWarpDesign::kWarps
+                                    : 1;
+constexpr int kPcnD = WarpSliceLevel::kK;
+// a warp's floats: pos, prop, then the slices p, th, tv
+constexpr int kPcnWarpFloats = 2 * kPcnD + 3 * WarpSliceLevel::kStride;
+
+// K6 / K7 on a warp: the lane holds coordinates l and l + 32 of pos and
+// prop and (warm) its eight cells of the accepted CG solution in x.
+template <int PRECOND>
+struct PcnWarpStep {
+  static constexpr bool kWarm = PRECOND == kPrecondDstTrunc;
+  static constexpr int kC = WarpSliceLevel::kC;
+  using Level = std::conditional_t<kWarm, WarpTruncSliceLevel, WarpSliceLevel>;
+  // the CTA's staged bytes before the warps: the basis, (warm) what the
+  // level stages (the products' exchange, V)
+  __host__ __device__ static size_t staged_bytes(int modes) {
+    return WarpSliceLevel::staged_bytes() + (kWarm ? WarpTruncSliceLevel::staged_bytes(modes) : 0);
+  }
+
+  const PcnArgs<DarcyPotential>& a;
+  Level lv;
+  float* pos;
+  float* prop;
+  float phi;
+  float x[kC];
+
+  __device__ void init(const WarpChainCtx& c) {
+    phi = c.live ? a.phi0[c.c] : 0.0f;
+    if constexpr (kWarm) {
+#pragma unroll
+      for (int k = 0; k < kC; ++k)
+        x[k] = c.live ? a.x0[static_cast<size_t>(Level::cell(k)) * a.chain.n + c.c] : 0.0f;
+    }
+  }
+
+  __device__ bool step(const WarpChainCtx& c, uint32_t i) {
+    const int l = threadIdx.x & 31;
+    float z[2];
+    c.normal2(i, 0u, z);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float xi = c.scale[h] * z[h];
+      prop[l + 32 * h] = c.mean[h] + a.contraction * (pos[l + 32 * h] - c.mean[h]) + a.beta * xi;
+    }
+    __syncwarp();
+    float x_prop[kC];
+    float phi_prop;
+    if constexpr (kWarm) {
+#pragma unroll
+      for (int k = 0; k < kC; ++k) x_prop[k] = x[k];
+      phi_prop = lv.phi_warm(prop, x_prop);
+    } else {
+      phi_prop = lv.phi(prop);
+    }
+    const bool accept = logf(c.uniform(i, 2u)) < phi - phi_prop;
+    if (accept) {
+      phi = phi_prop;
+      if constexpr (kWarm) {
+#pragma unroll
+        for (int k = 0; k < kC; ++k) x[k] = x_prop[k];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) pos[l + 32 * h] = prop[l + 32 * h];
+    }
+    return accept;
+  }
+};
+
+template <bool RECORD, int PRECOND>
+__global__ void __launch_bounds__(32 * PcnWarpDesign::kWarps, kPcnWarpMinCtas)
+    fused_pcn_warp_kernel(const __grid_constant__ PcnArgs<DarcyPotential> a) {
+  using Step = PcnWarpStep<PRECOND>;
+  static_assert(PcnWarpDesign::kWarps <= WarpTruncSliceLevel::kRows, "the exchange's rows");
+  constexpr int kStride = WarpSliceLevel::kStride;
+  extern __shared__ float4 pcn_warp_smem[];
+  unsigned char* const base = reinterpret_cast<unsigned char*>(pcn_warp_smem);
+  const int modes = a.pot.modes;
+  float* w = reinterpret_cast<float*>(base + Step::staged_bytes(modes)) +
+             (threadIdx.x >> 5) * kPcnWarpFloats;
+  float* slice = w + 2 * kPcnD;  // p, th, tv
+  const WarpSmem ws{slice, slice + kStride, slice + 2 * kStride};
+  const WarpSliceLevel lv0{&a.pot, WarpSliceLevel::stage(a.pot, reinterpret_cast<float*>(base)),
+                           ws};
+  typename Step::Level lv;
+  if constexpr (Step::kWarm)
+    lv = WarpTruncSliceLevel::make(lv0, base + WarpSliceLevel::staged_bytes());
+  else
+    lv = lv0;
+  __syncthreads();  // the staged factors
+  Step step{a, lv, w, w + kPcnD, 0.0f, {}};
+  run_warp_chain<RECORD>(a.chain, step, w);
+}
+
+// What a launch takes: warps (chains) a CTA, CTAs, dynamic shared memory.
+struct PcnWarpGeometry {
+  int warps, ctas;
+  size_t smem;
+};
+
+// Whether fused_pcn_warp_kernel takes this spec and d: a 16 x 16 CG misfit
+// with d = K = 64, Jacobi (cold) or dst_trunc with a multiple of kModeTile
+// modes up to kMaxModes (warm). Mirrored by ip_mcmc_tpu_torch/ops/fused_pcn.py
+// warp_takes.
+inline bool pcn_warp_takes(const IpxMisfitSpec& s, int d, bool warm) {
+  if (s.n != WarpSliceLevel::kN || s.K != kPcnD || d != kPcnD || s.solver != kSolverCg ||
+      s.m < 0)
+    return false;
+  if (warm)
+    return s.precond == kPrecondDstTrunc && s.modes > 0 &&
+           s.modes % WarpTruncSliceLevel::kModeTile == 0 &&
+           s.modes <= WarpTruncSliceLevel::kMaxModes;
+  return s.precond == kPrecondJacobi && s.modes == 0;
+}
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_pcn.py warp_geometry: what
+// pcn_warp_takes refuses, cudaErrorNotSupported. W: the largest power of
+// two up to kWarps that divides block_chains; a ragged last CTA runs spare
+// warps.
+inline int pcn_warp_geometry(const IpxMisfitSpec& s, const IpxChainArgs& chain, bool warm,
+                             PcnWarpGeometry* geo) {
+  if (!pcn_warp_takes(s, chain.d, warm)) return cudaErrorNotSupported;
+  if (chain.block_chains <= 0 || chain.n < 0 || chain.n_steps < 0 ||
+      (chain.samples != nullptr && chain.thin <= 0))
+    return cudaErrorInvalidValue;
+  int w = PcnWarpDesign::kWarps;
+  while (chain.block_chains % w) w /= 2;
+  geo->warps = w;
+  geo->ctas = (chain.n + w - 1) / w;
+  geo->smem = (warm ? PcnWarpStep<kPrecondDstTrunc>::staged_bytes(s.modes)
+                     : PcnWarpStep<kPrecondJacobi>::staged_bytes(0)) +
+              sizeof(float) * kPcnWarpFloats * w;
+  return geo->smem <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <bool RECORD, int PRECOND>
+int launch_pcn_warp(const PcnArgs<DarcyPotential>& a, const PcnWarpGeometry& geo,
+                    cudaStream_t st) {
+  const int smem = static_cast<int>(geo.smem);
+  cudaFuncSetAttribute(fused_pcn_warp_kernel<RECORD, PRECOND>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  fused_pcn_warp_kernel<RECORD, PRECOND><<<geo.ctas, 32 * geo.warps, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches fused_pcn_warp_kernel<RECORD, kPrecondJacobi> (x0 null) or
+// <RECORD, kPrecondDstTrunc> (RECORD: chain.samples given).
+inline int launch_pcn_warps(const IpxMisfitSpec& pot, const IpxChainArgs& chain,
+                            const float* phi0, const float* x0, float beta, float contraction,
+                            void* stream) {
+  const bool warm = x0 != nullptr;
+  PcnWarpGeometry geo;
+  const int status = pcn_warp_geometry(pot, chain, warm, &geo);
+  if (status != cudaSuccess) return status;
+  if (chain.n == 0) return cudaSuccess;
+  const PcnArgs<DarcyPotential> a{pot, chain, phi0, x0, beta, contraction};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool record = chain.samples != nullptr;
+  if (!warm)
+    return record ? launch_pcn_warp<true, kPrecondJacobi>(a, geo, st)
+                  : launch_pcn_warp<false, kPrecondJacobi>(a, geo, st);
+  return record ? launch_pcn_warp<true, kPrecondDstTrunc>(a, geo, st)
+                : launch_pcn_warp<false, kPrecondDstTrunc>(a, geo, st);
+}
+
 // Launches fused_pcn_kernel<Pot, RECORD> or, with x0 given (Darcy up to
 // 16 x 16: the larger grids have the cluster kernels above),
 // fused_pcn_warm_kernel<Pot, RECORD> (RECORD: chain.samples given).
@@ -350,17 +547,36 @@ int ipx_darcy_misfit_warm(const IpxMisfitSpec* s, const float* U, const float* x
   });
 }
 
-// x0 == null: cold pCN (fused_pcn_kernel); else warm (up to 16 x 16
-// fused_pcn_warm_kernel; above, the cluster kernels, which take 32 x 32 and
-// 64 x 64 with a dst_trunc CG solve and refuse the rest of the grids above
-// 16 x 16 with cudaErrorNotSupported). The layout follows the spec's grid.
+// x0 == null: cold pCN, else warm. What fused_pcn_warp_kernel takes
+// (pcn_warp_takes: 16 x 16, d = K = 64, Jacobi cold or dst_trunc warm) goes
+// to it; the rest to fused_pcn_kernel, to fused_pcn_warm_kernel (up to
+// 16 x 16) or to the cluster kernels (above, which take 32 x 32 and 64 x 64
+// with a dst_trunc CG solve and refuse the rest of the grids above 16 x 16
+// with cudaErrorNotSupported). The layout follows the spec's grid.
 int ipx_fused_pcn(const IpxMisfitSpec* pot, const IpxChainArgs* chain, const float* phi0,
                   const float* x0, float beta, float contraction, void* stream) {
+  if (ipx::pcn_warp_takes(*pot, chain->d, x0 != nullptr))
+    return ipx::launch_pcn_warps(*pot, *chain, phi0, x0, beta, contraction, stream);
   if (x0 != nullptr && pot->n * pot->n > ipx::DarcyPotential::kMaxCells)
     return ipx::launch_pcn_warm_cluster(*pot, *chain, phi0, x0, beta, contraction, stream);
   return ipx::with_darcy_layout<kSolverCg>(*pot, [&](auto p) {
     return ipx::launch_pcn<decltype(p)>(*pot, *chain, phi0, x0, beta, contraction, stream);
   });
+}
+
+// The warp kernel's launch geometry for this spec, these chain arguments
+// and warm (0: cold, Jacobi; else warm, dst_trunc): out = {chains a CTA,
+// CTAs, dynamic shared-memory bytes}; the status the launch would return
+// for them, cudaErrorNotSupported for a spec that goes to another kernel
+// (the wrapper's mirror is checked against this on the card).
+int ipx_pcn_warp_geometry(const IpxMisfitSpec* pot, const IpxChainArgs* chain, int warm,
+                          int* out) {
+  ipx::PcnWarpGeometry geo{0, 0, 0};
+  const int status = ipx::pcn_warp_geometry(*pot, *chain, warm != 0, &geo);
+  out[0] = geo.warps;
+  out[1] = geo.ctas;
+  out[2] = static_cast<int>(geo.smem);
+  return status;
 }
 
 int ipx_fused_pcn_burgers(const IpxBurgersSpec* pot, const IpxChainArgs* chain,

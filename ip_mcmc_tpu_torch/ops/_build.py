@@ -248,6 +248,8 @@ def library():
         lib.bind("ipx_darcy_cluster_geometry", [spec, spec, chain, p])
         # spec, chain, Φ0 (n,), x0 (n², n) or null (cold), β, √(1−β²), stream
         lib.bind("ipx_fused_pcn", [spec, chain, p, p, f, f, p])
+        # spec, chain, warm, out (3,): the 16x16 pCN warp kernel's geometry
+        lib.bind("ipx_pcn_warp_geometry", [spec, chain, i, p])
         # spec, chain, Φ0 (n,), max_shrink, stream
         lib.bind("ipx_fused_ess", [spec, chain, p, i, p])
         # spec, chain, max_shrink, out (3,): the ESS kernel's geometry

@@ -11,14 +11,23 @@ of its current state (``aux_dim`` rows), the proposal's solve starts from
 it, and x follows the accept/reject select. ``init`` solves from zeros, in
 every launch: the carried x is not an output.
 
-For CUDA tensors the entry points launch ``fused_pcn_kernel<Pot, RECORD>`` /
-``fused_pcn_warm_kernel<RECORD>`` (``csrc/fused_pcn.cu``), the whole
-``n_steps`` loop in one launch: the cold kernel on a ``DarcyMisfit`` or a
-``BurgersMisfit`` (picked by the potential's family), the warm one on a
-``DarcyMisfitWarm``; on a 64×64 grid the warm one is
-``fused_pcn_warm_cluster_kernel<RECORD>`` and on a 32×32 grid
-``fused_pcn_warm_cluster32_kernel<RECORD>``, whose thread-block clusters of
-``_cluster.cluster_geometry``'s chains share each read of the factors.
+For CUDA tensors the entry points launch a kernel of ``csrc/fused_pcn.cu``,
+the whole ``n_steps`` loop in one launch, picked by the spec
+(``_darcy_stem`` names it; ``ipx_fused_pcn`` picks it):
+
+- ``fused_pcn_warp_kernel<RECORD, PRECOND>`` for what ``warp_takes``: a
+  16×16 CG ``DarcyMisfit`` with d = K = 64, Jacobi (cold), or a
+  ``DarcyMisfitWarm`` with dst_trunc of a multiple of ``MODE_TILE`` modes
+  up to ``MAX_WARP_MODES`` (warm); one chain a warp, ``warp_geometry``'s
+  chains a CTA;
+- else ``fused_pcn_kernel<Pot, RECORD>``, the cold kernel on a
+  ``DarcyMisfit`` or a ``BurgersMisfit`` (picked by the potential's
+  family), and ``fused_pcn_warm_kernel<RECORD>`` on a ``DarcyMisfitWarm``
+  up to 16×16, one chain a CTA; on a 64×64 grid the warm one is
+  ``fused_pcn_warm_cluster_kernel<RECORD>`` and on a 32×32 grid
+  ``fused_pcn_warm_cluster32_kernel<RECORD>``, whose thread-block clusters
+  of ``_cluster.cluster_geometry``'s chains share each read of the factors.
+
 For CPU tensors they run the step builders below on the plain scaffold
 ``_scaffold.run_plain``, with any features-first callable.
 Tags: normals 0 (keys 0, 1), MH uniform 2.
@@ -108,10 +117,87 @@ def _run_plain(potential_fn, positions, prior_mean, prior_scale, beta, seed,
 # --- the kernels ------------------------------------------------------------
 
 
-def _darcy_stem(pot, warm):
-    """The launch count's name of the Darcy kernel: the warm one above
-    16×16 runs in thread-block clusters (``_cluster``), on the 64×64 class
-    and on the 32×32 class (which takes 32×32 only)."""
+# ``PcnWarpDesign`` in ``csrc/fused_pcn.cu``: chains (warps) a CTA at most.
+WARP_CHAINS = 16
+# What it takes (``pcn_warp_takes``): a WARP_N² CG grid, d = K = WARP_D;
+# Jacobi cold, dst_trunc of a multiple of MODE_TILE modes (an mma tile) up
+# to MAX_WARP_MODES warm (what the shared memory of 16 warps holds).
+WARP_N, WARP_D, MODE_TILE, MAX_WARP_MODES = 16, 64, 16, 112
+# ``WarpSliceLevel`` in ``csrc/darcy_misfit.cuh`` pads the cells by 4 after
+# every 32 in shared memory (a slice): the staged basis (d rows); warm
+# (``WarpTruncSliceLevel``): the exchange of the dst_trunc products over
+# the CTA's chains (``PrecondXchg``: 16 rows of bf16(r), of the bf16
+# coefficients, of the f32 back products and a_bar), then V staged in rows
+# of V_ROW bf16; a warp: pos and prop (d floats each), the slices p, th, tv
+SLICE_FLOATS = WARP_N * WARP_N + 4 * WARP_N * WARP_N // 32
+BASIS_BYTES = 4 * WARP_D * SLICE_FLOATS
+XCHG_ROWS = 16
+XCHG_BYTES = XCHG_ROWS * (2 * (264 + 264) + 4 * (260 + 1))
+V_ROW = WARP_N * WARP_N + 8
+WARP_SLICE_BYTES = 4 * (2 * WARP_D + 3 * SLICE_FLOATS)
+MAX_SMEM_BYTES = 232_448  # what a CTA of the H100 may use
+KERNEL = "fused_pcn_warp_kernel"  # the launch count's stem, with the preconditioner
+
+
+def stem(warm):
+    """The launch count's stem of the cold (Jacobi) or warm (dst_trunc)
+    warp kernel."""
+    return f"{KERNEL}[{'dst_trunc' if warm else 'jacobi'}]"
+
+
+def warp_takes(warm, *, n, d, precond, modes, solver="cg"):
+    """Whether ``fused_pcn_warp_kernel`` takes the spec, as
+    ``pcn_warp_takes`` in ``csrc/fused_pcn.cu`` decides: the card sends it
+    there, and every other spec to another kernel."""
+    if (n, d, solver) != (WARP_N, WARP_D, "cg"):
+        return False
+    if warm:
+        return precond == "dst_trunc" and 0 < modes <= MAX_WARP_MODES and modes % MODE_TILE == 0
+    return precond == "jacobi" and modes == 0
+
+
+def warp_geometry(n_chains, block_chains, *, warm=False, n=WARP_N, d=WARP_D,
+                  precond=None, modes=None, solver="cg"):
+    """The warp kernel's launch: (CTAs, chains a CTA, dynamic shared-memory
+    bytes), as ``pcn_warp_geometry`` in ``csrc/fused_pcn.cu`` computes it.
+    Chains a CTA: the largest power of two up to WARP_CHAINS that divides
+    ``block_chains``; a ragged last CTA runs spare warps. The bytes: the
+    staged basis (warm: and the products' exchange and V) and a slice a
+    warp (BASIS_BYTES, XCHG_BYTES + 2 V_ROW modes, WARP_SLICE_BYTES).
+    ``precond`` and ``modes`` None are the shipped configs' (cold Jacobi;
+    warm dst_trunc of 64 modes). Raises ``ValueError`` for a spec the kernel does not take
+    (``warp_takes``: the card runs it on another kernel) and for shared
+    memory the card cannot give a CTA."""
+    precond = precond or ("dst_trunc" if warm else "jacobi")
+    modes = (64 if warm else 0) if modes is None else modes
+    if not warp_takes(warm, n=n, d=d, precond=precond, modes=modes, solver=solver):
+        raise ValueError(
+            f"the {'warm' if warm else 'cold'} pCN warp kernel takes a {WARP_N}x{WARP_N} "
+            f"CG grid, d = {WARP_D} and "
+            + (f"dst_trunc with a multiple of {MODE_TILE} modes up to {MAX_WARP_MODES}"
+               if warm else "Jacobi")
+            + f"; got {n}x{n}, d = {d}, {solver}, {precond} with {modes} modes")
+    if block_chains <= 0 or n_chains < 0:
+        raise ValueError(f"n_chains {n_chains}, block_chains {block_chains}")
+    w = WARP_CHAINS
+    while block_chains % w:
+        w //= 2
+    smem = BASIS_BYTES + (XCHG_BYTES + 2 * V_ROW * modes if warm else 0) + w * WARP_SLICE_BYTES
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{smem} bytes of shared memory a CTA: the card gives "
+                         f"{MAX_SMEM_BYTES}")
+    return -(-n_chains // w), w, smem
+
+
+def _darcy_stem(pot, warm, d=WARP_D):
+    """The launch count's name of the Darcy kernel that ``ipx_fused_pcn``
+    picks for the misfit ``pot`` and d: the warp kernel for what
+    ``warp_takes``; else one chain a CTA, the warm one above 16×16 in
+    thread-block clusters (``_cluster``), on the 64×64 class and on the
+    32×32 class (which takes 32×32 only)."""
+    if warp_takes(warm, n=pot.n, d=d, precond=pot.precond, modes=pot.modes,
+                  solver=pot.solver):
+        return stem(warm)
     if not warm:
         return "fused_pcn_kernel"
     if pot.n > 32:
@@ -145,18 +231,18 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, beta, seed,
     spec = potential_fn.spec()
     stream = torch.cuda.current_stream(U.device).cuda_stream
     lib = _build.library()
-    # family -> (C entry point, kernel, its arguments after Φ0): the Darcy
-    # entry takes the carried solution, null for the cold kernel
-    fn, stem, carried = {
-        "darcy": (lib.ipx_fused_pcn, _darcy_stem(potential_fn, warm),
-                  (x0.data_ptr() if warm else None,)),
-        "burgers": (lib.ipx_fused_pcn_burgers, "fused_pcn_burgers_kernel", ()),
-    }[family]
+    # the C entry point, the kernel, its arguments after Φ0: the Darcy entry
+    # takes the carried solution, null for the cold kernel
+    if family == "darcy":
+        fn, name = lib.ipx_fused_pcn, _darcy_stem(potential_fn, warm, positions.shape[1])
+        carried = (x0.data_ptr() if warm else None,)
+    else:
+        fn, name, carried = lib.ipx_fused_pcn_burgers, "fused_pcn_burgers_kernel", ()
     status = fn(
         ctypes.byref(spec), ctypes.byref(args), phi0.data_ptr(), *carried,
         float(beta_t), float(contraction), stream,
     )
-    name = _scaffold.kernel_name(stem, thin is not None)
+    name = _scaffold.kernel_name(name, thin is not None)
     _build.check(status, name)
     _build.launch_counts[name] += 1
     _, _, _, out, acc, samples = keep

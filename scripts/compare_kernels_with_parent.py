@@ -22,8 +22,9 @@ output tensor of this tree must equal the parent's bit for bit, except
 those of the kernels in ``OLD_VS_NEW``, which this tree replaced by
 another design (the 16x16 DA kernel, one warp per chain; the 64x64 DA and
 warm pCN kernels and the 32x32 warm pCN kernel, G chains a thread-block
-cluster; their sums run in another order): there the share of chains
-(final state and records)
+cluster; the 16x16 warm pCN, whose dst_trunc products run on the tensor
+cores; their sums run in another order): there whether the outputs equal
+the parent's all the same, the share of chains (final state and records)
 within ``CHAIN_ATOL`` of the parent's and both acceptance rates are
 printed (two kernels that each round differently from the plain twin;
 chip_smoke.py holds each against the twin). The per-step times
@@ -48,7 +49,8 @@ import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # kernels this tree replaced by another design: compared, not bit for bit
-OLD_VS_NEW = ("da_pcn", "da_pcn_richardson", "da_pcn_64", "pcn_warm_64", "pcn_warm_32")
+OLD_VS_NEW = ("da_pcn", "da_pcn_richardson", "da_pcn_64", "pcn_warm_64", "pcn_warm_32",
+              "pcn_warm")
 CHAIN_ATOL = 1e-4  # chip_smoke.py's
 
 
@@ -57,9 +59,10 @@ def _row(key: str) -> str:
 
 
 def old_vs_new(parent: dict, new: dict, rows) -> None:
-    """Prints the OLD_VS_NEW rows (those of ``rows``, when given): the share
-    of chains within CHAIN_ATOL over the final states and the records, the
-    parent's and the new acceptance."""
+    """Prints the OLD_VS_NEW rows (those of ``rows``, when given): whether
+    their outputs equal the parent's, the share of chains within CHAIN_ATOL
+    over the final states and the records, the parent's and the new
+    acceptance."""
     import torch
 
     for row in OLD_VS_NEW:
@@ -69,8 +72,9 @@ def old_vs_new(parent: dict, new: dict, rows) -> None:
         rec = (new[f"{row}_2"] - parent[f"{row}_2"]).abs().amax(dim=(0, 2))
         frac = float((torch.maximum(final, rec) <= CHAIN_ATOL).double().mean())
         acc_p, acc_n = float(parent[f"{row}_1"].mean()), float(new[f"{row}_1"].mean())
-        print(f"  {row}: {frac:.4f} of chains within {CHAIN_ATOL} of the parent's (final "
-              f"state and records), acceptance parent {acc_p:.4f} new {acc_n:.4f}")
+        equal = all(torch.equal(parent[f"{row}_{i}"], new[f"{row}_{i}"]) for i in range(3))
+        print(f"  {row}: bit for bit {equal}; {frac:.4f} of chains within {CHAIN_ATOL} of the "
+              f"parent's (final state and records), acceptance parent {acc_p:.4f} new {acc_n:.4f}")
 
 
 def worker(out_path: str, rows) -> int:

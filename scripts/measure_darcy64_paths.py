@@ -1,10 +1,12 @@
 """Where the time goes on CLI paths, by default the two 64x64 Darcy ones, on
 one NVIDIA GPU.
 
-    python scripts/measure_darcy64_paths.py [config ...]
+    python scripts/measure_darcy64_paths.py [--fused] [config ...]
 
 Each config (by default ``darcy64_da_fused`` and ``darcy64_pcn_warm``) runs
-once through the runner as the CLI runs it (the metrics of that run are printed), then
+once through the runner as the CLI runs it, ``--fused`` as the CLI's flag
+sets it (``darcy_pcn_4096`` and the Burgers pCN configs need it; the metrics
+of that run are printed), then
 once more under ``torch.profiler`` (``measure_linear_paths.profiled``):
 the device time of every kernel and copy, summed, against the host wall
 of the same run gives the device's idle share, and the trace gives each
@@ -41,9 +43,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("configs", nargs="*", default=["darcy64_da_fused", "darcy64_pcn_warm"])
+    ap.add_argument("--fused", action="store_true", help="the CLI's --fused")
+    args = ap.parse_args()
     out = {"card": card}
-    for name in ap.parse_args().configs:
+    for name in args.configs:
         p = configs.build(name, "cuda")
+        if args.fused:  # as ip_mcmc_tpu_torch/run.py sets it
+            p.kernel_params = {**p.kernel_params, "fused": True}
         runs = []
         row = summary(*profiled(lambda: runs.append(runner.run_problem(p, "cuda"))))
         row["metrics_unprofiled"] = {k: runs[0][k] for k in KEYS if k in runs[0]}

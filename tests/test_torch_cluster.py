@@ -130,14 +130,16 @@ def test_warm_pcn_twin_at_32_on_a_ragged_width_gives_the_first_chains(seed):
 
 def test_cluster_kernel_names():
     """The launch counts name the cluster kernels (64² and 32²) apart from
-    the warm pCN kernel of 16²."""
+    the warm pCN kernel of 16² (the warp kernel, which takes darcy_pcn_warm's
+    dst_trunc spec)."""
     big, mid, small = (configs.build(c, "cpu")
                        for c in ("darcy64_pcn_warm", "darcy32_pcn_warm", "darcy_pcn_warm"))
     assert fused_pcn._darcy_stem(big.batched_warm_potential[0], True) == (
         "fused_pcn_warm_cluster_kernel")
     assert fused_pcn._darcy_stem(mid.batched_warm_potential[0], True) == (
         "fused_pcn_warm_cluster32_kernel")
-    assert fused_pcn._darcy_stem(small.batched_warm_potential[0], True) == "fused_pcn_warm_kernel"
+    assert fused_pcn._darcy_stem(small.batched_warm_potential[0], True) == (
+        "fused_pcn_warp_kernel[dst_trunc]")
     assert fused_pcn._darcy_stem(big.batched_potential_fn, False) == "fused_pcn_kernel"
 
 
