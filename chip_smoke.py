@@ -28,8 +28,10 @@ Gaussians), times both, then drives the ported paths at full width:
     darcy_fes_fused          functional ensemble sampler (K9), a chain a warp
     burgers_da3_pcn          three-level delayed acceptance (K12, K13), a
                              chain a warp
-    burgers_da_pcn           delayed acceptance on Burgers  (K4, K12)
-    burgers_pcn --fused      cold pCN on Burgers            (K6, K12)
+    burgers_da_pcn           delayed acceptance on Burgers  (K4, K12), a
+                             chain a warp
+    burgers_pcn --fused      cold pCN on Burgers            (K6, K12), a
+                             chain a warp
     burgers_multitime_pcn --fused   the same, three observation times
     compare_paths            fused RWM on benchmarks/compare_paths.py's target,
                              8192 chains x 2000 steps, beside the scan path (K14)
@@ -45,7 +47,7 @@ Before each path the launch counts are set to 0; after it they must show
 that the path went through its kernels (the scan path: its steps on the
 card) and through no plain version. Every phase raises on failure. Prints
 the card's name and power limit, the registers and spills that ptxas
-reported for every Darcy kernel and the three-level Burgers DA's, a JSON
+reported for every Darcy and Burgers sampler kernel, a JSON
 line of per-kernel results (time, plain time, roofline bound, launches),
 and as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
@@ -413,6 +415,10 @@ MALA_WARM = "fused_mala_warp_kernel[dst]"
 # on the one-chain-a-CTA kernels
 PCN_COLD = "fused_pcn_warp_kernel[jacobi]"
 PCN_WARM = "fused_pcn_warp_kernel[dst_trunc]"
+# the Burgers DA and pCN: one warp per chain on the configs' specs, the
+# other specs on the one-chain-a-CTA kernels
+DA_BURGERS = "fused_da_pcn_burgers_warp_kernel"
+PCN_BURGERS = "fused_pcn_burgers_warp_kernel"
 
 
 def check_da(problem, gen, results):
@@ -808,7 +814,7 @@ def compare_small_misfit(results, pot, U, *, variant, paths, tol, source, replac
 
 def check_burgers(problems, gen, results):
     """K12 at the four specs of the Burgers configs, then K13 and the
-    Burgers instantiations of K4 and K6 at the configs' sizes (2048 chains
+    Burgers warp kernels of K4 and K6 at the configs' sizes (2048 chains
     in blocks of 512), each plain and recorded. The plain loops run one
     small PyTorch call per Godunov operation (a DA3 outer step is 6394 time
     steps), so they take few steps."""
@@ -864,16 +870,19 @@ def check_burgers(problems, gen, results):
     k = da_p.kernel_params["subchain_len"]
     exact, surr = da_p.batched_potential_fn, da_p.batched_surrogate_fn
     args = (pos, pm, ps, da_p.kernel_params["beta"], 31)
+    stem = da._burgers_stem(exact, surr, d)
+    assert stem == da.BURGERS_KERNEL, f"burgers_da_pcn runs on {stem}"
     for recorded in (False, True):
         kw = dict(subchain_len=k, block_chains=block, **({"thin": 1} if recorded else {}))
         plain_fn = da._run_plain_recorded if recorded else da._run_plain
         compare_chain(
-            results, "fused_da_pcn_burgers_kernel", recorded,
+            results, stem, recorded,
             lambda s: da._launch(exact, surr, *args, n_steps=s, **kw),
             lambda s: plain_fn(plain_potential(exact), plain_potential(surr), *args,
                                n_steps=s, **kw),
             steps=4, kernel_long=68, plain_long=8,
-            variant=f"128 / 64 cells, k={k}, block {block}",
+            variant=(f"128 / 64 cells, k={k}, block {block}, "
+                     f"{da.burgers_warp_geometry(n, block)[1]} chains a CTA"),
             paths=["burgers_da_pcn"], source="fused_da_pcn.cu", pots=(exact, surr),
             per_step_ops=k * (ops_of(surr) + draws) + ops_of(exact))
 
@@ -881,16 +890,143 @@ def check_burgers(problems, gen, results):
             (pcn_p.batched_potential_fn, "burgers_pcn", "128 cells, 154 steps"),
             (multi, "burgers_multitime_pcn", "128 cells, 54 + 54 + 46 steps")):
         beta = problems[path].kernel_params["beta"]
+        stem = fused_pcn._burgers_stem(pot, d)
+        assert stem == fused_pcn.BURGERS_KERNEL, f"{path} runs on {stem}"
         for recorded in (False, True):
             kw = {"thin": 1} if recorded else {}
             compare_chain(
-                results, "fused_pcn_burgers_kernel", recorded,
+                results, stem, recorded,
                 lambda s: fused_pcn._launch(pot, pos, pm, ps, beta, 37, s, block, **kw),
                 lambda s: fused_pcn._run_plain(plain_potential(pot), pos, pm, ps, beta,
                                                37, s, block, **kw),
                 steps=8, kernel_long=264, plain_long=24,
-                variant=f"{variant}, block {block}", paths=[path],
+                variant=(f"{variant}, block {block}, "
+                         f"{fused_pcn.burgers_warp_geometry(n, block)[1]} chains a CTA"),
+                paths=[path],
                 source="fused_pcn.cu", pots=(pot,), per_step_ops=ops_of(pot) + draws)
+
+
+def burgers_level(n_cells, *, n_modes=16, seed):
+    """A Burgers misfit on the card at ``n_cells`` cells (t = 0.2, 16
+    observed cells; a spec no config ships), its data the plain forward at
+    coefficients drawn from ``seed`` plus noise of 0.02 (numpy): levels of
+    one seed observe the same truth."""
+    from ip_mcmc_tpu_torch.configs import burgers_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import burgers
+
+    obs = np.linspace(0, n_cells - 1, 16).round().astype(int)
+    aux = burgers.burgers_aux(n_cells=n_cells, n_modes=n_modes, alpha=1.5, field_scale=1.0,
+                              t_final=0.2, obs_indices=obs,
+                              mean_profile=np.sin(2 * np.pi * (np.arange(n_cells) + 0.5)
+                                                  / n_cells))
+    r = np.random.default_rng(seed)
+    truth = burgers_misfit_from_arrays(aux, np.zeros(16), 0.02)
+    (state,) = truth.final_states(torch.from_numpy(
+        r.standard_normal((n_modes, 1)).astype(np.float32)))
+    y = (state[obs, 0].numpy() + 0.02 * r.standard_normal(16)).astype(np.float32)
+    return burgers_misfit_from_arrays(aux, y, 0.02).cuda()
+
+
+def check_burgers_warp(problems, gen, results):
+    """What the Burgers DA and pCN warp kernels add beside their twins: the
+    Python mirrors of the launch geometry against the C functions, and of
+    which specs they take (the C functions refuse the others with
+    cudaErrorNotSupported: they run on the one-chain-a-CTA kernels); a
+    ragged width, 13 chains in blocks of 8 (two CTAs of 8 warps, 3 of them
+    spare), equal bit for bit to the first 13 of the kernel's own 16-chain
+    run and within CHAIN_ATOL of the plain twin's, plain and recorded (pCN
+    on one and on three segments); then the one-chain-a-CTA kernels on a
+    96-cell level (DA: with a 64-cell surrogate) that the warp kernels
+    leave, each against its twin at 2048 chains, plain and recorded, so
+    that their path stays driven (no shipped config takes it)."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.ops import _build, _scaffold, fused_pcn
+    from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
+
+    da_p, pcn_p, multi_p = (problems[k] for k in (
+        "burgers_da_pcn", "burgers_pcn", "burgers_multitime_pcn"))
+    exact, surr = da_p.batched_potential_fn, da_p.batched_surrogate_fn
+    fine, multi = pcn_p.batched_potential_fn, multi_p.batched_potential_fn
+    k = da_p.kernel_params["subchain_len"]
+    lib = _build.library()
+    cases = ((da_p.n_chains, 512), (13, 8), (13, 13), (20, 4), (1, 512))
+    check_geometry("Burgers DA", cases,
+                   c_geometry_of(lib.ipx_da_pcn_burgers_warp_geometry,
+                                 [exact.spec(), surr.spec()], [k], da_p),
+                   da.burgers_warp_geometry)
+    check_geometry("Burgers pCN", cases,
+                   c_geometry_of(lib.ipx_pcn_burgers_warp_geometry, [fine.spec()], [], pcn_p),
+                   fused_pcn.burgers_warp_geometry)
+
+    # specs that go to the one-chain-a-CTA kernels: C refuses them, the
+    # Python mirror names the one-chain-a-CTA kernel
+    wide, wide_surr = burgers_level(96, seed=5), burgers_level(64, seed=5)
+    others = (((wide, wide_surr), 16),
+              ((burgers_level(128, n_modes=8, seed=6), burgers_level(64, n_modes=8, seed=6)), 8))
+    for (lv, lv_surr), d in others:
+        pos = torch.zeros(64, d, device="cuda")
+        args, _ = _scaffold.chain_args(pos, torch.zeros(d, device="cuda"),
+                                       torch.ones(d, device="cuda"), 0, 1, 32)
+        out = (ctypes.c_int * 3)()
+        status = (lib.ipx_da_pcn_burgers_warp_geometry(
+                      ctypes.byref(lv.spec()), ctypes.byref(lv_surr.spec()),
+                      ctypes.byref(args), k, out),
+                  lib.ipx_pcn_burgers_warp_geometry(ctypes.byref(lv.spec()),
+                                                    ctypes.byref(args), out))
+        stems = da._burgers_stem(lv, lv_surr, d), fused_pcn._burgers_stem(lv, d)
+        if status != (801, 801) or stems != ("fused_da_pcn_burgers_kernel",
+                                             "fused_pcn_burgers_kernel"):
+            raise AssertionError(f"Burgers warp kernels on {lv.n} / {lv_surr.n} cells, d = {d}: "
+                                 f"C status {status}, Python {stems}")
+    print(f"Burgers warp kernels: C and Python leave the same {len(others)} other spec "
+          "pairs to the one-chain-a-CTA kernels", flush=True)
+
+    pm, ps = da_p.prior.mean, da_p.prior.scale
+    pos = da_p.init_positions(torch.Generator().manual_seed(82), 16).cuda()
+    for recorded in (False, True):
+        kw = {"thin": 1} if recorded else {}
+        rec = "true" if recorded else "false"
+        da_kw = dict(n_steps=3, subchain_len=4, block_chains=8, **kw)
+        got, full = (da._launch(exact, surr, pos[:n], pm, ps, 0.15, 83, **da_kw)
+                     for n in (13, 16))
+        plain_fn = da._run_plain_recorded if recorded else da._run_plain
+        ref = plain_fn(plain_potential(exact), plain_potential(surr), pos, pm, ps, 0.15, 83,
+                       **da_kw)
+        check_ragged(f"{DA_BURGERS}<{rec}>", "13 chains, 8 warps a CTA, 3 steps of k 4",
+                     got, full, ref, recorded)
+        for pot, what in ((fine, "one segment"), (multi, "three segments")):
+            got, full = (fused_pcn._launch(pot, pos[:n], pm, ps, 0.15, 85, 3, 8, **kw)
+                         for n in (13, 16))
+            ref = fused_pcn._run_plain(plain_potential(pot), pos, pm, ps, 0.15, 85, 3, 8, **kw)
+            check_ragged(f"{PCN_BURGERS}<{rec}>", f"13 chains, 8 warps a CTA, 3 steps, {what}",
+                         got, full, ref, recorded)
+
+    n, block = da_p.n_chains, 512
+    pos = da_p.init_positions(gen, n).cuda()
+    draws = Ops(RNG_OPS_PER_DRAW * pos.shape[1])
+    ops_of = burgers_solve_ops
+    for recorded in (False, True):
+        kw = {"thin": 1} if recorded else {}
+        plain_fn = da._run_plain_recorded if recorded else da._run_plain
+        da_kw = dict(subchain_len=k, block_chains=block, **kw)
+        compare_chain(
+            results, "fused_da_pcn_burgers_kernel", recorded,
+            lambda s: da._launch(wide, wide_surr, pos, pm, ps, 0.15, 87, n_steps=s, **da_kw),
+            lambda s: plain_fn(plain_potential(wide), plain_potential(wide_surr), pos, pm, ps,
+                               0.15, 87, n_steps=s, **da_kw),
+            steps=2, kernel_long=34, plain_long=4,
+            variant=f"96 / 64 cells (a pair the warp kernel leaves), k={k}, block {block}",
+            paths=[], source="fused_da_pcn.cu", pots=(wide, wide_surr),
+            per_step_ops=k * (ops_of(wide_surr) + draws) + ops_of(wide))
+        compare_chain(
+            results, "fused_pcn_burgers_kernel", recorded,
+            lambda s: fused_pcn._launch(wide, pos, pm, ps, 0.15, 89, s, block, **kw),
+            lambda s: fused_pcn._run_plain(plain_potential(wide), pos, pm, ps, 0.15, 89, s,
+                                           block, **kw),
+            steps=4, kernel_long=132, plain_long=12,
+            variant=f"96 cells (a spec the warp kernel leaves), block {block}",
+            paths=[], source="fused_pcn.cu", pots=(wide,), per_step_ops=ops_of(wide) + draws)
 
 
 # --- K17 (Richardson) and the large Darcy grids ----------------------------------
@@ -1373,6 +1509,14 @@ PCN_PTXAS = {
     f"{stem}<{rec}>": (f"fused_pcn_warp_kernelILb{int(rec == 'true')}ELi{pc}E",
                        f"fused_pcn_warp_kernel<{rec}, {pc}>")
     for stem, pc in ((PCN_COLD, 0), (PCN_WARM, 1)) for rec in ("false", "true")}
+# ... of the Burgers DA and pCN kernels, a chain a warp and a chain a CTA
+BURGERS_PTXAS = {
+    **{f"{stem}<{rec}>": (f"{stem}ILb{int(rec == 'true')}E", f"{stem}<{rec}>")
+       for stem in (DA_BURGERS, PCN_BURGERS) for rec in ("false", "true")},
+    **{f"{name}_burgers_kernel<{rec}>": (
+        f"{name}_kernelIN3ipx16BurgersPotentialELb{int(rec == 'true')}E",
+        f"{name}_kernel<ipx::BurgersPotential, {rec}")
+       for name in ("fused_da_pcn", "fused_pcn") for rec in ("false", "true")}}
 
 
 def report_da64(problem, metrics):
@@ -1428,24 +1572,21 @@ def run_richardson_da(richardson):
     return counts, rows
 
 
-# the sources of the Darcy kernels (their Burgers and linear-Gaussian
-# instantiations are left out by name), and of the three-level Burgers DA
-DARCY_UNITS = ("fused_da_pcn.cu", "fused_pcn.cu", "fused_ess.cu", "fused_fes.cu",
-               "fused_mala.cu", "fused_rwm.cu")
-BURGERS_UNITS = ("fused_da3_pcn.cu",)
+# the sources of the Darcy and Burgers kernels (their linear-Gaussian
+# instantiations are left out by name)
+SAMPLER_UNITS = ("fused_da_pcn.cu", "fused_pcn.cu", "fused_ess.cu", "fused_fes.cu",
+                 "fused_mala.cu", "fused_rwm.cu", "fused_da3_pcn.cu")
 
 
-def darcy_ptxas_report():
-    """Registers and spill bytes of every Darcy kernel and of the kernels of
-    the three-level Burgers DA's source in this process's build
-    (``_build.ptxas_report``), printed one kernel a line, so that a spill in
-    the DA kernel (one cost it 6 % once) shows in every run."""
+def sampler_ptxas_report():
+    """Registers and spill bytes of every Darcy and Burgers kernel in this
+    process's build (``_build.ptxas_report``), printed one kernel a line,
+    so that a spill in a sampler (one cost the Darcy DA kernel 6 % once)
+    shows in every run."""
     from ip_mcmc_tpu_torch.ops import _build
 
-    rows = [r for r in _build.ptxas_report() if r["unit"] in BURGERS_UNITS
-            or (r["unit"] in DARCY_UNITS
-                and not any(k in r["kernel"].lower()
-                            for k in ("burgers", "lineargaussian", "linear_gaussian")))]
+    rows = [r for r in _build.ptxas_report() if r["unit"] in SAMPLER_UNITS
+            and not any(k in r["kernel"].lower() for k in ("lineargaussian", "linear_gaussian"))]
     if not rows:
         print("ptxas: no nvcc.log (the kernels were built by another process)", flush=True)
         return rows
@@ -1460,8 +1601,8 @@ def darcy_ptxas_report():
               f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads",
               flush=True)
     spilled = [r["kernel"] for r in rows if r["spill_stores"] or r["spill_loads"]]
-    print(f"ptxas: {len(rows)} Darcy and three-level Burgers kernels, {len(spilled)} with "
-          "spills", flush=True)
+    print(f"ptxas: {len(rows)} Darcy and Burgers kernels, {len(spilled)} with spills",
+          flush=True)
     return rows
 
 
@@ -1837,13 +1978,13 @@ PATHS = {
         "burgers_misfit_kernel[n=64,steps=26]", f"{DA3}<false>", f"{DA3}<true>")),
     "burgers_da_pcn": ([], (
         "burgers_misfit_kernel[n=128,steps=154]", "burgers_misfit_kernel[n=64,steps=26]",
-        "fused_da_pcn_burgers_kernel<false>", "fused_da_pcn_burgers_kernel<true>")),
+        f"{DA_BURGERS}<false>", f"{DA_BURGERS}<true>")),
     "burgers_pcn": (["--fused"], (
-        "burgers_misfit_kernel[n=128,steps=154]", "fused_pcn_burgers_kernel<false>",
-        "fused_pcn_burgers_kernel<true>")),
+        "burgers_misfit_kernel[n=128,steps=154]", f"{PCN_BURGERS}<false>",
+        f"{PCN_BURGERS}<true>")),
     "burgers_multitime_pcn": (["--fused"], (
-        "burgers_misfit_kernel[n=128,steps=54+54+46]", "fused_pcn_burgers_kernel<false>",
-        "fused_pcn_burgers_kernel<true>")),
+        "burgers_misfit_kernel[n=128,steps=54+54+46]", f"{PCN_BURGERS}<false>",
+        f"{PCN_BURGERS}<true>")),
     # the scan path: plain PyTorch on the card, no kernel of the port; the
     # scan steps count themselves by the device they ran on
     "gauss2d_rwm": ([], ("scan_rwm_step[cuda]",)),
@@ -1923,7 +2064,7 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0.0:.1f} s, "
           f"{len(_build.sources()[1])} sources in parallel)", flush=True)
-    ptxas = darcy_ptxas_report()
+    ptxas = sampler_ptxas_report()
 
     problems = {name: configs.build(name, "cuda") for name in PATHS}
     gen = torch.Generator().manual_seed(1234)
@@ -1943,8 +2084,9 @@ def main() -> int:
     check_mala_warp(problems["darcy_mala_warm"])
     check_pcn_warp(problems)
     check_gradient_and_ensemble(problems, gen, results)
-    attach_ptxas(results, ptxas, {**MALA_PTXAS, **PCN_PTXAS})
     check_burgers(problems, gen, results)
+    check_burgers_warp(problems, gen, results)
+    attach_ptxas(results, ptxas, {**MALA_PTXAS, **PCN_PTXAS, **BURGERS_PTXAS})
     check_linear_family(problems, gen, results)
 
     # the fused linear-Gaussian paths, each with the counts set to 0 before it
@@ -1978,9 +2120,9 @@ def main() -> int:
         "darcy_mala_warm": f"{MALA_WARM}<true>",
         "darcy_fes_fused": f"{FES}<true>",
         "burgers_da3_pcn": f"{DA3}<true>",
-        "burgers_da_pcn": "fused_da_pcn_burgers_kernel<true>",
-        "burgers_pcn": "fused_pcn_burgers_kernel<true>",
-        "burgers_multitime_pcn": "fused_pcn_burgers_kernel<true>",
+        "burgers_da_pcn": f"{DA_BURGERS}<true>",
+        "burgers_pcn": f"{PCN_BURGERS}<true>",
+        "burgers_multitime_pcn": f"{PCN_BURGERS}<true>",
     }
     step_ms = {cfg: next(r["ms"] for r in results
                          if r["name"] == k and cfg in r["paths"])

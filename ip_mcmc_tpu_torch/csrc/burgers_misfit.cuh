@@ -3,9 +3,12 @@
 // godunov_flux2 (l.25). On the TPU the whole finite-volume time loop is
 // traced into the fused Pallas kernel with chains on the vector lanes.
 // Here burgers_phi runs one chain on a CTA, thread t owning cell t of the
-// periodic grid (t < n_cells): the misfit kernel and the Burgers DA and
-// pCN samplers. burgers_phi_warp (below) runs one chain on a warp, with
-// the same bits: the three-level DA kernel.
+// periodic grid (t < n_cells): the misfit kernel, and the Burgers DA and
+// pCN samplers on a spec that the warp solve does not take (a level of
+// other than 64 or 128 cells, or K != 16: burgers_warp_takes).
+// burgers_phi_warp (below) runs one chain on a warp, with the same bits:
+// the three-level DA kernel, and the Burgers DA and pCN samplers on every
+// spec that it takes (the shipped configs').
 //
 //   state = mean + basis^T u                  16 multiply-adds per cell
 //   per segment: seg_steps Godunov steps      u -= c (2F_{i+1/2} - 2F_{i-1/2}),
@@ -14,20 +17,21 @@
 //                then the state at the m observed cells (a gather)
 //   Phi = 1/2 sum ((y - pred) / sigma)^2
 //
-// The state is double-buffered in shared memory, so a time step costs one
-// __syncthreads: every thread reads its two neighbours from the current
-// buffer, writes its cell into the other, and the buffers swap. Each thread
-// recomputes the flux through its left face from (u_{i-1}, u_i) instead of
-// fetching its neighbour's right flux (the roll of burgers.py l.188): the
-// same operands give the same bits, so the update stays conservative to the
-// bit and one exchange per step suffices.
+// In burgers_phi the state is double-buffered in shared memory, so a time
+// step costs one __syncthreads: every thread reads its two neighbours from
+// the current buffer, writes its cell into the other, and the buffers swap.
+// Each thread recomputes the flux through its left face from (u_{i-1}, u_i)
+// instead of fetching its neighbour's right flux (the roll of burgers.py
+// l.188): the same operands give the same bits, so the update stays
+// conservative to the bit and one exchange per step suffices.
 //
 // What bounds it on the H100: a step is 13 f32 operations per cell (8 if
-// each flux were computed once and exchanged) behind a block barrier, and the steps of a solve depend on one another (154 for
-// the fine grid), so barrier latency sets the time, not the f32 rate and
-// not memory (a solve reads 64 bytes of coefficients and writes 4). The
-// design keeps everything on chip and leaves the latency to be hidden by
-// many resident CTAs (128 threads each).
+// each flux were computed once and exchanged) behind a block barrier, and
+// the steps of a solve depend on one another (154 for the fine grid), so
+// barrier latency sets the time, not the f32 rate and not memory (a solve
+// reads 64 bytes of coefficients and writes 4). burgers_phi_warp has no
+// barrier and computes each flux once; what is left there is the Godunov
+// arithmetic, with ~16 warps an SM to hide its latency.
 //
 // Numerics follow the JAX kernel in f32: max and min propagate NaN (PTX
 // max.NaN / min.NaN; fmaxf would drop it), so a NaN state reaches Phi as
@@ -129,7 +133,7 @@ __device__ float burgers_phi(const IpxBurgersSpec& s, const float* u, const Burg
   return 0.5f * block_sum(sq, ws.red);
 }
 
-// --- the Burgers solve on a warp: the three-level DA kernel ------------------
+// --- the Burgers solve on a warp: the warp kernels of the three samplers -----
 //
 // burgers_phi's arithmetic for one chain on one warp, with no CTA barrier:
 // lane l owns the C = n_cells / 32 cells C l .. C l + C - 1 (4 of the
@@ -144,20 +148,23 @@ __device__ float burgers_phi(const IpxBurgersSpec& s, const float* u, const Burg
 // memory only at a segment's end, where the observed cells are gathered.
 //
 // Phi in burgers_phi's order. There block_sum adds over the samplers' CTA of
-// kBurgersOldThreads threads: thread t sums the squared residuals o = t,
-// t + 128, ... of every segment, then each warp's warp_sum, then 0 + warp
-// 0 + ... + warp 3. Here lane l keeps one partial for each old warp w
-// (residuals o = 32 w + l + 128 r, in the same order), runs each through
-// warp_sum's butterfly over the same lanes, and adds them 0 + w0 + w1 + ...
-// A partial of an old warp that had no residual is +0, which adds nothing,
-// so only the warps up to the last residual are summed. The KL sum runs
-// over k in ascending order from the basis staged in shared memory, as
-// burgers_phi sums it from global memory.
+// T threads (round_up32 of the largest level's cells: 128, or 64 where
+// every level of the sampler has 64 cells): thread t sums the squared
+// residuals o = t, t + T, ... of every segment, then each warp's warp_sum,
+// then 0 + warp 0 + warp 1 + ... Here lane l keeps one partial for each
+// old warp w (residuals o = 32 w + l + T r, in the same order, across the
+// segments), runs each through warp_sum's butterfly over the same lanes,
+// and adds them 0 + w0 + w1 + ... A partial of an old warp that had no
+// residual is +0, which adds nothing, so only the warps up to the last
+// residual are summed. The KL sum runs over k in ascending order from the
+// basis staged in shared memory, as burgers_phi sums it from global memory.
 
 // The threads of the CTA that the one-chain-a-CTA samplers run a Burgers
 // chain on, whose block_sum order Phi keeps: one a cell of the 128-cell grid.
 constexpr int kBurgersOldThreads = 128;
 constexpr int kBurgersWarpK = 16;  // the KL coefficients the warp solve takes
+// the larger of the two cell counts it takes: a warp's gather buffer
+constexpr int kBurgersWarpCells = 128;
 
 // One level on a warp: its spec, its basis and mean staged in shared memory
 // once a CTA, and the warp's gather buffer (n_cells floats, shared memory).
@@ -212,9 +219,11 @@ __device__ __forceinline__ void edge_cells(const float (&v)[C], float& left, flo
 
 // Phi(u) for the chain of this warp at a level of C x 32 cells, whose
 // kBurgersWarpK coefficients sit in the warp's u[0..K) (shared memory,
-// written before a __syncwarp); the same value in every lane.
-template <int C>
+// written before a __syncwarp), added in block_sum's order over a CTA of T
+// threads; the same value in every lane.
+template <int C, int T = kBurgersOldThreads>
 __device__ float burgers_phi_warp(const BurgersWarpLevel& lv, const float* u) {
+  static_assert(T % 32 == 0 && 32 * C <= T && T <= kBurgersOldThreads, "T: the old CTA's threads");
   constexpr int n = 32 * C;
   const IpxBurgersSpec& s = *lv.s;
   const int l = threadIdx.x & 31;
@@ -234,7 +243,7 @@ __device__ float burgers_phi_warp(const BurgersWarpLevel& lv, const float* u) {
 #pragma unroll
   for (int j = 0; j < C; ++j) v[j] = m[j] + acc[j];
   const float c = s.half_dt_over_h;
-  constexpr int kOldWarps = kBurgersOldThreads / 32;
+  constexpr int kOldWarps = T / 32;
   float sq[kOldWarps];
 #pragma unroll
   for (int w = 0; w < kOldWarps; ++w) sq[w] = 0.0f;
@@ -256,7 +265,7 @@ __device__ float burgers_phi_warp(const BurgersWarpLevel& lv, const float* u) {
     __syncwarp();
 #pragma unroll
     for (int w = 0; w < kOldWarps; ++w) {
-      for (int o = 32 * w + l; o < s.m; o += kBurgersOldThreads) {
+      for (int o = 32 * w + l; o < s.m; o += T) {
         const int e = seg * s.m + o;
         const float res = (s.data[e] - lv.state[s.obs[o]]) / s.noise[e];
         sq[w] += res * res;
@@ -264,7 +273,7 @@ __device__ float burgers_phi_warp(const BurgersWarpLevel& lv, const float* u) {
     }
     __syncwarp();  // the reads end before the next write
   }
-  const int old_warps = s.m < kBurgersOldThreads ? (s.m + 31) / 32 : kOldWarps;
+  const int old_warps = s.m < T ? (s.m + 31) / 32 : kOldWarps;
   float total = 0.0f;
 #pragma unroll
   for (int w = 0; w < kOldWarps; ++w)
@@ -272,19 +281,27 @@ __device__ float burgers_phi_warp(const BurgersWarpLevel& lv, const float* u) {
   return 0.5f * total;
 }
 
-// Phi at a level of 64 or 128 cells (the warp kernel's geometry refuses
-// others).
+// Phi at a level of 64 or 128 cells (the warp kernels' geometry refuses
+// others), in block_sum's order over 128 threads.
 __device__ __forceinline__ float burgers_level_phi(const BurgersWarpLevel& lv, const float* u) {
   return lv.s->n_cells == 64 ? burgers_phi_warp<2>(lv, u) : burgers_phi_warp<4>(lv, u);
+}
+
+// The same over the `threads` threads of the one-chain-a-CTA sampler that
+// the calling kernel replaces (the largest of its levels' cells: 64 or 128).
+__device__ __forceinline__ float burgers_level_phi(const BurgersWarpLevel& lv, const float* u,
+                                                   int threads) {
+  return threads == 64 ? burgers_phi_warp<2, 64>(lv, u) : burgers_level_phi(lv, u);
 }
 
 // The Burgers misfit as the potential type of the samplers that take one.
 struct BurgersPotential {
   using Spec = IpxBurgersSpec;
   using Workspace = BurgersSmem;
-  // the CTA of the samplers: one thread per cell of the 128-cell grid, and
-  // 16 CTAs per SM (2048 threads) so that 2048 chains are resident at once
-  // on the card's 132 SMs, which caps registers at 32 a thread
+  // the CTA of the one-chain-a-CTA samplers (the specs that the warp solve
+  // leaves): one thread per cell of a grid of up to 128 cells, and 16 CTAs
+  // per SM (2048 threads) so that 2048 chains are resident at once on the
+  // card's 132 SMs, which caps registers at 32 a thread
   static constexpr int kMaxThreads = 128;
   static constexpr int kMinCtasPerSm = 16;
   static constexpr int kCellsPerThread = 1;
@@ -317,7 +334,16 @@ struct BurgersPotential {
                                               const Workspace& ws) {
     return burgers_phi(s, u, ws);
   }
-
 };
+
+// Whether the warp solve takes this level for chains of d coordinates: a
+// valid spec of 64 or 128 cells and K = d = kBurgersWarpK. The samplers'
+// entry points send what it takes to their warp kernels and the rest to
+// the one-chain-a-CTA kernels. Mirrored by
+// ip_mcmc_tpu_torch/ops/_burgers_warp.py takes.
+inline bool burgers_warp_takes(const IpxBurgersSpec& s, int d) {
+  return BurgersPotential::valid(s) && (s.n_cells == 64 || s.n_cells == kBurgersWarpCells) &&
+         s.K == kBurgersWarpK && d == kBurgersWarpK;
+}
 
 }  // namespace ipx

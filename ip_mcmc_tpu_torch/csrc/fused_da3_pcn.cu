@@ -69,7 +69,7 @@ constexpr int kDa3D = kBurgersWarpK;  // coordinates of a chain, one a lane of l
 // a warp's slice: pos0, pos, p1, prop (kDa3D each), then the gather buffer
 // of the largest level; before the slices, the three levels' staged
 // bases and means
-constexpr int kDa3WarpFloats = 4 * kDa3D + 128;
+constexpr int kDa3WarpFloats = 4 * kDa3D + kBurgersWarpCells;
 
 struct Da3Args {
   IpxBurgersSpec fine, mid, coarse;
@@ -183,9 +183,9 @@ struct Da3WarpGeometry {
 };
 
 // Mirrored by ip_mcmc_tpu_torch/ops/fused_da3_pcn.py warp_geometry: three
-// Burgers levels of 64 or 128 cells each, K = d = 16 (else
-// cudaErrorNotSupported). W: the largest power of two up to kWarps that
-// divides block_chains; a ragged last CTA runs spare warps.
+// Burgers levels that burgers_warp_takes (64 or 128 cells each, K = d =
+// 16; else cudaErrorNotSupported). W: the largest power of two up to
+// kWarps that divides block_chains; a ragged last CTA runs spare warps.
 inline int da3_warp_geometry(const IpxBurgersSpec& fine, const IpxBurgersSpec& mid,
                              const IpxBurgersSpec& coarse, const IpxChainArgs& chain,
                              int k_inner, int k_mid, Da3WarpGeometry* geo) {
@@ -193,7 +193,7 @@ inline int da3_warp_geometry(const IpxBurgersSpec& fine, const IpxBurgersSpec& m
   int staged = 0;
   for (const IpxBurgersSpec* s : levels) {
     if (!BurgersPotential::valid(*s)) return cudaErrorInvalidValue;
-    if ((s->n_cells != 64 && s->n_cells != 128) || s->K != kDa3D) return cudaErrorNotSupported;
+    if (!burgers_warp_takes(*s, kDa3D)) return cudaErrorNotSupported;
     staged += BurgersWarpLevel::staged_floats(s->n_cells);
   }
   if (chain.d != kDa3D) return cudaErrorNotSupported;

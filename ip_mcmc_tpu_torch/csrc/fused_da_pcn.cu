@@ -19,8 +19,14 @@
 //                                       the 64x64 Darcy DA loop (32x32
 //                                       surrogate), one chain per CTA, G
 //                                       chains a thread-block cluster.
-//   fused_da_pcn_kernel<Pot, RECORD>    the Burgers DA loop, one chain per
-//                                       CTA.
+//   fused_da_pcn_burgers_warp_kernel<RECORD>
+//                                       the Burgers DA loop on levels of 64
+//                                       or 128 cells with d = K = 16 (the
+//                                       shipped config's), one chain per
+//                                       warp (burgers_misfit.cuh's warp
+//                                       solve).
+//   fused_da_pcn_kernel<Pot, RECORD>    the Burgers DA loop on the other
+//                                       specs, one chain per CTA.
 //
 // Each runs the whole n_steps loop in one launch; RECORD stores every
 // thin-th state into (n_rec, n, d) with a plain store. Chain state and
@@ -66,9 +72,9 @@
 // preconditioner applies of 3 cluster barriers. The design is the line
 // ClusterDesign, shared with the 64x64 warm pCN kernel
 // (scripts/measure_da64_cluster_design.py times the alternatives, PERF.md
-// the numbers). The Burgers kernel (128 threads, k = 16: 16 surrogate
-// solves of 26 Godunov steps and one exact solve of 154) is bound by the
-// barrier per time step: see burgers_misfit.cuh.
+// the numbers). The Burgers kernels: see the section of the warp kernel
+// below (one chain a CTA is bound by the barrier per time step, see
+// burgers_misfit.cuh).
 //
 // Numerics follow the JAX kernel: f32 everywhere except the
 // preconditioner's bf16 inputs (f32 accumulation); no fast math (the
@@ -182,8 +188,8 @@ struct DaStep {
   }
 };
 
-// One chain per CTA, launch-bounded by the exact level's layout (the 64x64
-// Darcy kernel: 1024 threads, 1 CTA per SM; Burgers: 128 threads).
+// One chain per CTA, launch-bounded by the exact level's layout (Burgers:
+// 128 threads, on the specs that the warp kernel below leaves).
 template <class Pot, bool RECORD, class Surr = Pot>
 __global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
     fused_da_pcn_kernel(DaArgs<Pot> a) {
@@ -518,6 +524,157 @@ int launch_da_pcn_warp(const IpxMisfitSpec& exact, const IpxMisfitSpec& surr,
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- one chain a warp: K4 on Burgers -------------------------------------------
+//
+// burgers_da_pcn (k = 16: 16 surrogate solves of 64 cells / 26 Godunov steps and one exact solve of
+// 128 / 154 an outer step, 570 dependent time steps). One chain a CTA of 128 threads, one thread a
+// cell (0.191 ms an outer step at 2048 chains on an H100 80GB HBM3, PERF.md), paid a block barrier
+// a time step and left half its threads idle on the 64-cell surrogate. So every pair of specs that
+// burgers_warp_takes runs a chain a warp on run_warp_chain<RECORD, 16>, as the three-level DA
+// kernel does: lanes 0..15 hold the coordinates of the chain's three positions (current, subchain,
+// proposal) in the warp's shared memory, both levels' bases and means are staged once a CTA, and
+// Phi comes from burgers_phi_warp in the one-chain-a-CTA kernel's block_sum order (its CTA had as
+// many threads as the larger level has cells), so the chains keep that kernel's bits. The design is
+// the line DaBurgersWarpDesign (scripts/measure_burgers_warp_design.py times the alternatives,
+// PERF.md the numbers).
+
+// The design: kWarps chains a CTA at most, one a warp; the launch bound's
+// warps an SM (kSmWarps: 32 caps a thread at 64 registers, 16 at 128;
+// 2048 chains on 132 SMs are 16 warps an SM at most).
+struct DaBurgersWarpDesign { static constexpr int kWarps = 16, kSmWarps = 16; };
+constexpr int kDaBurgersWarpMinCtas =
+    DaBurgersWarpDesign::kSmWarps >= 2 * DaBurgersWarpDesign::kWarps
+        ? DaBurgersWarpDesign::kSmWarps / DaBurgersWarpDesign::kWarps
+        : 1;
+constexpr int kDaBurgersD = kBurgersWarpK;  // coordinates, one a lane of lanes 0..15
+// a warp's slice: pos0, pos, prop (kDaBurgersD each), then the gather
+// buffer of the larger level; before the slices, both levels' staged bases
+// and means
+constexpr int kDaBurgersWarpFloats = 3 * kDaBurgersD + kBurgersWarpCells;
+
+// K4 on a warp, DaStep's tags: k pCN steps against the surrogate (tags 4j,
+// 4j+1, 4j+2), then one exact correction with tag 4k+2 whose NaN log-ratio
+// maps to -inf; every inner MH test is log u < delta, so NaN rejects.
+// Lane t < 16 holds coordinate t of the three positions.
+struct DaBurgersWarpStep {
+  using Ctx = WarpChainCtxT<kDaBurgersD>;
+  const DaArgs<BurgersPotential>& a;
+  BurgersWarpLevel exact, surr;
+  int threads;  // the one-chain-a-CTA kernel's, whose block_sum order Phi keeps
+  float* pos0;  // current state
+  float* pos;   // subchain state
+  float* prop;  // proposal
+  float phi0, surr0, in_acc;
+
+  __device__ void init(const Ctx& x) {
+    const int t = threadIdx.x & 31;
+    phi0 = x.live ? a.phi0[x.c] : 0.0f;
+    surr0 = x.live ? a.surr0[x.c] : 0.0f;
+    if (Ctx::holds(0)) pos[t] = pos0[t];
+    __syncwarp();
+  }
+
+  __device__ bool step(const Ctx& x, uint32_t i) {
+    const int t = threadIdx.x & 31;
+    const bool own = Ctx::holds(0);
+    float surr_v = surr0;
+    for (int j = 0; j < a.k; ++j) {
+      if (own) {
+        const float xi = x.scale[0] * x.normal1(i, 4u * j);
+        prop[t] = x.mean[0] + a.contraction * (pos[t] - x.mean[0]) + a.beta * xi;
+      }
+      __syncwarp();
+      const float sp = burgers_level_phi(surr, prop, threads);
+      if (logf(x.uniform(i, 4u * j + 2u)) < surr_v - sp) {  // the same in every lane
+        in_acc += 1.0f;
+        surr_v = sp;
+        if (own) pos[t] = prop[t];
+      }
+    }
+    __syncwarp();
+    const float pe = burgers_level_phi(exact, pos, threads);
+    float log_ratio = (phi0 - pe) - (surr0 - surr_v);
+    if (isnan(log_ratio)) log_ratio = -INFINITY;
+    const bool accept = logf(x.uniform(i, 4u * a.k + 2u)) < log_ratio;
+    if (accept) {
+      phi0 = pe;
+      surr0 = surr_v;
+      if (own) pos0[t] = pos[t];
+    } else if (own) {
+      pos[t] = pos0[t];
+    }
+    return accept;
+  }
+};
+
+template <bool RECORD>
+__global__ void __launch_bounds__(32 * DaBurgersWarpDesign::kWarps, kDaBurgersWarpMinCtas)
+    fused_da_pcn_burgers_warp_kernel(const __grid_constant__ DaArgs<BurgersPotential> a) {
+  extern __shared__ float4 da_burgers_warp_smem[];
+  float* staged = reinterpret_cast<float*>(da_burgers_warp_smem);
+  BurgersWarpLevel exact{&a.exact}, surr{&a.surr};
+  float* w = surr.stage(exact.stage(staged)) + (threadIdx.x >> 5) * kDaBurgersWarpFloats;
+  exact.state = surr.state = w + 3 * kDaBurgersD;
+  __syncthreads();  // the staged levels
+  // the one-chain-a-CTA kernel's threads: a thread a cell of the larger level
+  const int threads = max(a.exact.n_cells, a.surr.n_cells);
+  DaBurgersWarpStep step{a,    exact,         surr,          threads, w,
+                         w + kDaBurgersD, w + 2 * kDaBurgersD, 0.0f, 0.0f, 0.0f};
+  run_warp_chain<RECORD, kDaBurgersD>(a.chain, step, w);
+  const int c = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (c < a.chain.n && (threadIdx.x & 31) == 0)
+    a.inner[c] = step.in_acc / fmaxf(static_cast<float>(a.chain.n_steps) *
+                                         static_cast<float>(a.k),
+                                     1.0f);
+}
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_da_pcn.py burgers_warp_geometry:
+// a pair that burgers_warp_takes refuses, cudaErrorNotSupported (the entry
+// point sends it to fused_da_pcn_kernel<BurgersPotential, ·>). W: the
+// largest power of two up to kWarps that divides block_chains; a ragged
+// last CTA runs spare warps.
+inline int da_burgers_warp_geometry(const IpxBurgersSpec& exact, const IpxBurgersSpec& surr,
+                                    const IpxChainArgs& chain, int k, DaWarpGeometry* geo) {
+  if (!burgers_warp_takes(exact, chain.d) || !burgers_warp_takes(surr, chain.d))
+    return cudaErrorNotSupported;
+  if (chain.block_chains <= 0 || chain.n < 0 || chain.n_steps < 0 || k < 0 ||
+      (chain.samples != nullptr && chain.thin <= 0))
+    return cudaErrorInvalidValue;
+  int w = DaBurgersWarpDesign::kWarps;
+  while (chain.block_chains % w) w /= 2;
+  geo->warps = w;
+  geo->ctas = (chain.n + w - 1) / w;
+  geo->smem = sizeof(float) * (BurgersWarpLevel::staged_floats(exact.n_cells) +
+                               BurgersWarpLevel::staged_floats(surr.n_cells) +
+                               kDaBurgersWarpFloats * w);
+  return geo->smem <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Launches fused_da_pcn_burgers_warp_kernel<RECORD> (RECORD: chain.samples
+// given).
+inline int launch_da_pcn_burgers_warp(const IpxBurgersSpec& exact, const IpxBurgersSpec& surr,
+                                      const IpxChainArgs& chain, const float* phi0,
+                                      const float* surr0, float beta, float contraction, int k,
+                                      float* inner, void* stream) {
+  DaWarpGeometry geo;
+  const int status = da_burgers_warp_geometry(exact, surr, chain, k, &geo);
+  if (status != cudaSuccess) return status;
+  if (chain.n == 0) return cudaSuccess;
+  const DaArgs<BurgersPotential> a{exact, surr, chain, phi0, surr0, beta, contraction, k, inner};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = 32 * geo.warps, smem = static_cast<int>(geo.smem);
+  if (chain.samples != nullptr) {
+    cudaFuncSetAttribute(fused_da_pcn_burgers_warp_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    fused_da_pcn_burgers_warp_kernel<true><<<geo.ctas, threads, smem, st>>>(a);
+  } else {
+    cudaFuncSetAttribute(fused_da_pcn_burgers_warp_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    fused_da_pcn_burgers_warp_kernel<false><<<geo.ctas, threads, smem, st>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace ipx
 
 extern "C" {
@@ -593,12 +750,33 @@ int ipx_darcy_cluster_geometry(const IpxMisfitSpec* exact, const IpxMisfitSpec* 
   return status;
 }
 
+// A pair that burgers_warp_takes (64 or 128 cells each, d = K = 16) goes to
+// fused_da_pcn_burgers_warp_kernel, any other to
+// fused_da_pcn_kernel<BurgersPotential, ·>, one chain a CTA.
 int ipx_fused_da_pcn_burgers(const IpxBurgersSpec* exact, const IpxBurgersSpec* surr,
                              const IpxChainArgs* chain, const float* phi0, const float* surr0,
                              float beta, float contraction, int k, float* inner,
                              void* stream) {
+  if (ipx::burgers_warp_takes(*exact, chain->d) && ipx::burgers_warp_takes(*surr, chain->d))
+    return ipx::launch_da_pcn_burgers_warp(*exact, *surr, *chain, phi0, surr0, beta,
+                                           contraction, k, inner, stream);
   return ipx::launch_da_pcn<ipx::BurgersPotential>(*exact, *surr, *chain, phi0, surr0, beta,
                                                    contraction, k, inner, stream);
+}
+
+// The Burgers warp kernel's launch geometry for these specs, chain
+// arguments and k: out = {chains a CTA, CTAs, dynamic shared-memory bytes};
+// the status the launch would return for them, cudaErrorNotSupported for a
+// pair that goes to the one-chain-a-CTA kernel (the wrapper's mirror is
+// checked against this on the card).
+int ipx_da_pcn_burgers_warp_geometry(const IpxBurgersSpec* exact, const IpxBurgersSpec* surr,
+                                     const IpxChainArgs* chain, int k, int* out) {
+  ipx::DaWarpGeometry geo{0, 0, 0};
+  const int status = ipx::da_burgers_warp_geometry(*exact, *surr, *chain, k, &geo);
+  out[0] = geo.warps;
+  out[1] = geo.ctas;
+  out[2] = static_cast<int>(geo.smem);
+  return status;
 }
 
 }  // extern "C"

@@ -30,6 +30,13 @@
 //                                  of 16 modes up to 112; kPrecondDstTrunc,
 //                                  K7). ipx_fused_pcn sends it every spec
 //                                  it takes, the kernels above the rest.
+//   fused_pcn_burgers_warp_kernel<RECORD>  K6 on a Burgers misfit of 64
+//                                  or 128 cells with d = K = 16, one chain
+//                                  a warp (burgers_misfit.cuh's warp
+//                                  solve). ipx_fused_pcn_burgers sends it
+//                                  every spec it takes (burgers_warp_takes:
+//                                  the shipped configs'), the rest to
+//                                  fused_pcn_kernel<BurgersPotential, ·>.
 //
 // Layout and scaffold: fused_scaffold.cuh (one CTA per chain) and the
 // Darcy layouts of darcy_misfit.cuh: up to 16 x 16 one thread per cell; the
@@ -39,8 +46,9 @@
 // the start positions come in from the standalone misfit kernels. Tags:
 // normals 0 (keys 0, 1), MH uniform 2.
 //
-// What bounds them on the H100: per chain and step one solve (Burgers: the
-// barrier per Godunov step, see burgers_misfit.cuh). The Darcy
+// What bounds them on the H100: per chain and step one solve (Burgers one
+// chain a CTA: the barrier per Godunov step, see burgers_misfit.cuh; the
+// Burgers warp kernel: the Godunov arithmetic, see below). The Darcy
 // cold Jacobi solve of 48 CG iterations is ~0.3 M multiply-adds but ~100
 // dependent block reductions of 256 threads, so barrier latency, not the
 // f32 rate or memory, sets its time; the warm dst_trunc solve (4
@@ -488,6 +496,123 @@ inline int launch_pcn_warps(const IpxMisfitSpec& pot, const IpxChainArgs& chain,
                 : launch_pcn_warp<false, kPrecondDstTrunc>(a, geo, st);
 }
 
+// --- one chain a warp: K6 on Burgers -----------------------------------------
+//
+// burgers_pcn and burgers_multitime_pcn (128 cells; 154 Godunov steps a pCN step, one segment or
+// three). One chain a CTA of 128 threads, one thread a cell (0.0558 ms a step at 2048 chains on an
+// H100 80GB HBM3, PERF.md), paid a block barrier a Godunov step. So every spec that
+// burgers_warp_takes runs a chain a warp on run_warp_chain<RECORD, 16>, as the three-level DA
+// kernel does: lanes 0..15 hold the coordinates of pos and prop in the warp's shared memory, the
+// level's basis and mean are staged once a CTA, and Phi comes from burgers_phi_warp in the
+// one-chain-a-CTA kernel's block_sum order (its CTA had as many threads as the level has cells), so
+// the chains keep that kernel's bits. The design is the line PcnBurgersWarpDesign
+// (scripts/measure_burgers_warp_design.py times the alternatives, PERF.md the numbers).
+
+// The design: kWarps chains a CTA at most, one a warp; the launch bound's
+// warps an SM (kSmWarps: 32 caps a thread at 64 registers, which the solve
+// fits without a spill, 16 at 128; 2048 chains on 132 SMs are 16 warps an
+// SM at most).
+struct PcnBurgersWarpDesign { static constexpr int kWarps = 16, kSmWarps = 32; };
+constexpr int kPcnBurgersWarpMinCtas =
+    PcnBurgersWarpDesign::kSmWarps >= 2 * PcnBurgersWarpDesign::kWarps
+        ? PcnBurgersWarpDesign::kSmWarps / PcnBurgersWarpDesign::kWarps
+        : 1;
+constexpr int kPcnBurgersD = kBurgersWarpK;  // coordinates, one a lane of lanes 0..15
+// a warp's slice: pos, prop (kPcnBurgersD each), then the gather buffer;
+// before the slices, the level's staged basis and mean
+constexpr int kPcnBurgersWarpFloats = 2 * kPcnBurgersD + kBurgersWarpCells;
+
+// K6 on a warp: prop = m + sqrt(1 - beta^2) (pos - m) + beta scale xi
+// (normals tags 0, 1), accepted when log u < Phi(pos) - Phi(prop) (tag 2),
+// so a NaN Phi(prop) rejects. Lane t < 16 holds coordinate t of pos and
+// prop.
+struct PcnBurgersWarpStep {
+  using Ctx = WarpChainCtxT<kPcnBurgersD>;
+  const PcnArgs<BurgersPotential>& a;
+  BurgersWarpLevel lv;
+  float* pos;
+  float* prop;
+  float phi;
+
+  __device__ void init(const Ctx& x) { phi = x.live ? a.phi0[x.c] : 0.0f; }
+
+  __device__ bool step(const Ctx& x, uint32_t i) {
+    const int t = threadIdx.x & 31;
+    const bool own = Ctx::holds(0);
+    if (own) {
+      const float xi = x.scale[0] * x.normal1(i, 0u);
+      prop[t] = x.mean[0] + a.contraction * (pos[t] - x.mean[0]) + a.beta * xi;
+    }
+    __syncwarp();
+    // the one-chain-a-CTA kernel's CTA: a thread a cell
+    const float phi_prop = a.pot.n_cells == 64 ? burgers_phi_warp<2, 64>(lv, prop)
+                                               : burgers_phi_warp<4, 128>(lv, prop);
+    const bool accept = logf(x.uniform(i, 2u)) < phi - phi_prop;  // the same in every lane
+    if (accept) {
+      phi = phi_prop;
+      if (own) pos[t] = prop[t];
+    }
+    return accept;
+  }
+};
+
+template <bool RECORD>
+__global__ void __launch_bounds__(32 * PcnBurgersWarpDesign::kWarps, kPcnBurgersWarpMinCtas)
+    fused_pcn_burgers_warp_kernel(const __grid_constant__ PcnArgs<BurgersPotential> a) {
+  extern __shared__ float4 pcn_burgers_warp_smem[];
+  BurgersWarpLevel lv{&a.pot};
+  float* w = lv.stage(reinterpret_cast<float*>(pcn_burgers_warp_smem)) +
+             (threadIdx.x >> 5) * kPcnBurgersWarpFloats;
+  lv.state = w + 2 * kPcnBurgersD;
+  __syncthreads();  // the staged level
+  PcnBurgersWarpStep step{a, lv, w, w + kPcnBurgersD, 0.0f};
+  run_warp_chain<RECORD, kPcnBurgersD>(a.chain, step, w);
+}
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_pcn.py burgers_warp_geometry:
+// what burgers_warp_takes refuses, cudaErrorNotSupported (the entry point
+// sends it to fused_pcn_kernel<BurgersPotential, ·>). W: the largest power
+// of two up to kWarps that divides block_chains; a ragged last CTA runs
+// spare warps.
+inline int pcn_burgers_warp_geometry(const IpxBurgersSpec& s, const IpxChainArgs& chain,
+                                     PcnWarpGeometry* geo) {
+  if (!burgers_warp_takes(s, chain.d)) return cudaErrorNotSupported;
+  if (chain.block_chains <= 0 || chain.n < 0 || chain.n_steps < 0 ||
+      (chain.samples != nullptr && chain.thin <= 0))
+    return cudaErrorInvalidValue;
+  int w = PcnBurgersWarpDesign::kWarps;
+  while (chain.block_chains % w) w /= 2;
+  geo->warps = w;
+  geo->ctas = (chain.n + w - 1) / w;
+  geo->smem = sizeof(float) * (BurgersWarpLevel::staged_floats(s.n_cells) +
+                               kPcnBurgersWarpFloats * w);
+  return geo->smem <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Launches fused_pcn_burgers_warp_kernel<RECORD> (RECORD: chain.samples
+// given).
+inline int launch_pcn_burgers_warp(const IpxBurgersSpec& pot, const IpxChainArgs& chain,
+                                   const float* phi0, float beta, float contraction,
+                                   void* stream) {
+  PcnWarpGeometry geo;
+  const int status = pcn_burgers_warp_geometry(pot, chain, &geo);
+  if (status != cudaSuccess) return status;
+  if (chain.n == 0) return cudaSuccess;
+  const PcnArgs<BurgersPotential> a{pot, chain, phi0, nullptr, beta, contraction};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = 32 * geo.warps, smem = static_cast<int>(geo.smem);
+  if (chain.samples != nullptr) {
+    cudaFuncSetAttribute(fused_pcn_burgers_warp_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    fused_pcn_burgers_warp_kernel<true><<<geo.ctas, threads, smem, st>>>(a);
+  } else {
+    cudaFuncSetAttribute(fused_pcn_burgers_warp_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    fused_pcn_burgers_warp_kernel<false><<<geo.ctas, threads, smem, st>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Launches fused_pcn_kernel<Pot, RECORD> or, with x0 given (Darcy up to
 // 16 x 16: the larger grids have the cluster kernels above),
 // fused_pcn_warm_kernel<Pot, RECORD> (RECORD: chain.samples given).
@@ -579,10 +704,30 @@ int ipx_pcn_warp_geometry(const IpxMisfitSpec* pot, const IpxChainArgs* chain, i
   return status;
 }
 
+// What fused_pcn_burgers_warp_kernel takes (burgers_warp_takes: 64 or 128
+// cells, d = K = 16) goes to it, the rest to
+// fused_pcn_kernel<BurgersPotential, ·>, one chain a CTA.
 int ipx_fused_pcn_burgers(const IpxBurgersSpec* pot, const IpxChainArgs* chain,
                           const float* phi0, float beta, float contraction, void* stream) {
+  if (ipx::burgers_warp_takes(*pot, chain->d))
+    return ipx::launch_pcn_burgers_warp(*pot, *chain, phi0, beta, contraction, stream);
   return ipx::launch_pcn<ipx::BurgersPotential>(*pot, *chain, phi0, nullptr, beta, contraction,
                                                 stream);
+}
+
+// The Burgers warp kernel's launch geometry for this spec and these chain
+// arguments: out = {chains a CTA, CTAs, dynamic shared-memory bytes}; the
+// status the launch would return for them, cudaErrorNotSupported for a
+// spec that goes to the one-chain-a-CTA kernel (the wrapper's mirror is
+// checked against this on the card).
+int ipx_pcn_burgers_warp_geometry(const IpxBurgersSpec* pot, const IpxChainArgs* chain,
+                                  int* out) {
+  ipx::PcnWarpGeometry geo{0, 0, 0};
+  const int status = ipx::pcn_burgers_warp_geometry(*pot, *chain, &geo);
+  out[0] = geo.warps;
+  out[1] = geo.ctas;
+  out[2] = static_cast<int>(geo.smem);
+  return status;
 }
 
 }  // extern "C"

@@ -271,8 +271,13 @@ def library():
         # the Burgers instantiations: the same arguments on the other spec
         lib.bind("ipx_burgers_misfit", [bspec, p, i, p, p])
         lib.bind("ipx_fused_da_pcn_burgers", [bspec, bspec, chain, p, p, f, f, i, p, p])
+        # exact, surrogate, chain, k, out (3,): the Burgers DA warp kernel's
+        # geometry
+        lib.bind("ipx_da_pcn_burgers_warp_geometry", [bspec, bspec, chain, i, p])
         # spec, chain, Φ0 (n,), β, √(1−β²), stream
         lib.bind("ipx_fused_pcn_burgers", [bspec, chain, p, f, f, p])
+        # spec, chain, out (3,): the Burgers pCN warp kernel's geometry
+        lib.bind("ipx_pcn_burgers_warp_geometry", [bspec, chain, p])
         # fine, middle, coarse, chain, Φf0, Φm0, Φc0 (n,), β, √(1−β²),
         # k_inner, k_mid, middle acceptance (n,), stream
         lib.bind("ipx_fused_da3_pcn_burgers",

@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from ip_mcmc_tpu_torch.ops import _build, _scaffold
+from ip_mcmc_tpu_torch.ops import _build, _burgers_warp, _scaffold
 
 
 # --- the plain version ------------------------------------------------------
@@ -118,14 +118,12 @@ def _run_plain(pot_fine, pot_mid, pot_coarse, positions, prior_mean,
 # --- the kernel -------------------------------------------------------------
 
 # ``Da3WarpDesign`` in ``csrc/fused_da3_pcn.cu``: chains (warps) a CTA at
-# most. What it takes: levels of WARP_CELLS cells, d = K = WARP_D.
+# most. What it takes: levels that ``_burgers_warp.takes`` (64 or 128
+# cells, d = K = WARP_D); a warp's slice holds four positions.
 WARP_CHAINS = 16
-WARP_CELLS, WARP_D = (64, 128), 16
-# Shared memory: each level's basis and mean staged once a CTA ((K + 1)
-# rows of its cells), and a warp's four positions and gather buffer
-LEVEL_FLOATS = WARP_D + 1
-WARP_SLICE_BYTES = 4 * (4 * WARP_D + max(WARP_CELLS))
-MAX_SMEM_BYTES = 232_448  # what a CTA of the H100 may use
+WARP_D = _burgers_warp.WARP_D
+LEVEL_FLOATS, MAX_SMEM_BYTES = _burgers_warp.LEVEL_FLOATS, _burgers_warp.MAX_SMEM_BYTES
+WARP_SLICE_BYTES = _burgers_warp.slice_bytes(4)
 KERNEL = "fused_da3_pcn_warp_kernel"  # the launch count's stem
 
 
@@ -133,25 +131,12 @@ def warp_geometry(n_chains, block_chains, *, cells=(128, 128, 64), d=WARP_D,
                   K=WARP_D):
     """The kernel's launch: (CTAs, chains a CTA, dynamic shared-memory
     bytes), as ``da3_warp_geometry`` in ``csrc/fused_da3_pcn.cu`` computes
-    it for levels of ``cells`` (fine, middle, coarse). Chains a CTA: the
-    largest power of two up to WARP_CHAINS that divides ``block_chains``; a
-    ragged last CTA runs spare warps. Raises ``ValueError`` for cells, d or
-    K the kernel does not take and for shared memory the card cannot give
-    a CTA."""
-    if any(c not in WARP_CELLS for c in cells) or (d, K) != (WARP_D, WARP_D):
-        raise ValueError(
-            f"the three-level DA kernel takes levels of {WARP_CELLS} cells and "
-            f"d = K = {WARP_D}; got {tuple(cells)} cells, d = {d}, K = {K}")
-    if block_chains <= 0 or n_chains < 0:
-        raise ValueError(f"n_chains {n_chains}, block_chains {block_chains}")
-    w = WARP_CHAINS
-    while block_chains % w:
-        w //= 2
-    smem = 4 * LEVEL_FLOATS * sum(cells) + w * WARP_SLICE_BYTES
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{smem} bytes of shared memory a CTA: the card gives "
-                         f"{MAX_SMEM_BYTES}")
-    return -(-n_chains // w), w, smem
+    it for levels of ``cells`` (fine, middle, coarse): the three staged
+    levels and a slice a warp (``_burgers_warp.geometry``). Raises
+    ``ValueError`` for cells, d or K the kernel does not take and for
+    shared memory the card cannot give a CTA."""
+    return _burgers_warp.geometry("three-level DA kernel", n_chains, block_chains,
+                                  cells=cells, d=d, K=K, chains=WARP_CHAINS, positions=4)
 
 
 def _launch(pot_fine, pot_mid, pot_coarse, positions, prior_mean, prior_scale,

@@ -18,9 +18,13 @@ tensor cores; for a 64×64 exact level with a 32×32 dst_trunc CG
 surrogate (``darcy64_da_fused``), ``fused_da_pcn_cluster_kernel<RECORD>``,
 one CTA per chain and ``_cluster.cluster_geometry``'s chains a thread-block
 cluster sharing each read of the factors, the preconditioner's products on
-the tensor cores; for a pair of ``BurgersMisfit`` potentials,
-``fused_da_pcn_kernel<Pot, RECORD>``, one CTA per chain. The kernels refuse
-any other pair and the wrapper raises. For CPU tensors they run
+the tensor cores; for a pair of ``BurgersMisfit`` potentials that
+``_burgers_warp.takes`` (64 or 128 cells each, d = K = 16: the shipped
+config's), ``fused_da_pcn_burgers_warp_kernel<RECORD>``, one warp per chain
+and ``burgers_warp_geometry``'s chains a CTA, and for any other Burgers
+pair ``fused_da_pcn_kernel<Pot, RECORD>``, one CTA per chain
+(``_burgers_stem`` names the kernel the pair gets). The kernels refuse any
+other Darcy pair and the wrapper raises. For CPU tensors they run
 ``_run_plain`` / ``_run_plain_recorded``: the step builder below on the
 plain scaffold ``_scaffold.run_plain``, which takes any features-first
 callable (d, B) → (B,), so the algorithm tests can use analytic targets.
@@ -36,7 +40,7 @@ import math
 
 import torch
 
-from ip_mcmc_tpu_torch.ops import _build, _scaffold
+from ip_mcmc_tpu_torch.ops import _build, _burgers_warp, _scaffold
 
 
 # --- the plain version ------------------------------------------------------
@@ -101,7 +105,7 @@ def _plain(pot_exact, pot_surr, positions, prior_mean, prior_scale, beta,
 
 def _run_plain(pot_exact, pot_surr, positions, prior_mean, prior_scale, beta,
                seed, n_steps, subchain_len, block_chains):
-    """Plain twin of ``fused_da_pcn_kernel<false>``: (final (n, d),
+    """Plain twin of the DA kernels, not recording: (final (n, d),
     exact acceptance (n,), inner acceptance (n,))."""
     _build.launch_counts["fused_da_pcn_plain"] += 1
     final, acc, inner, _ = _plain(
@@ -114,7 +118,7 @@ def _run_plain(pot_exact, pot_surr, positions, prior_mean, prior_scale, beta,
 def _run_plain_recorded(pot_exact, pot_surr, positions, prior_mean,
                         prior_scale, beta, seed, n_steps, thin, subchain_len,
                         block_chains):
-    """Plain twin of ``fused_da_pcn_kernel<true>``: (final (n, d),
+    """Plain twin of the DA kernels, recording: (final (n, d),
     exact acceptance (n,), samples (n_steps // thin, n, d))."""
     _build.launch_counts["fused_da_pcn_plain_recorded"] += 1
     final, acc, _, samples = _plain(
@@ -180,6 +184,35 @@ def warp_geometry(n_chains, block_chains, *, exact_n=WARP_EXACT_N,
     return -(-n_chains // w), w, smem
 
 
+# ``DaBurgersWarpDesign`` in ``csrc/fused_da_pcn.cu``: chains (warps) a CTA
+# at most; a warp's slice holds pos0, pos and prop.
+BURGERS_WARP_CHAINS = 16
+BURGERS_KERNEL = "fused_da_pcn_burgers_warp_kernel"
+
+
+def burgers_warp_geometry(n_chains, block_chains, *, cells=(128, 64), d=_burgers_warp.WARP_D,
+                          K=_burgers_warp.WARP_D):
+    """The Burgers warp kernel's launch: (CTAs, chains a CTA, dynamic
+    shared-memory bytes), as ``da_burgers_warp_geometry`` in
+    ``csrc/fused_da_pcn.cu`` computes it for levels of ``cells`` (exact,
+    surrogate): both staged levels and a slice a warp
+    (``_burgers_warp.geometry``). Raises ``ValueError`` for levels the
+    kernel does not take (the card runs them on ``fused_da_pcn_kernel``)
+    and for shared memory the card cannot give a CTA."""
+    return _burgers_warp.geometry("Burgers DA warp kernel", n_chains, block_chains,
+                                  cells=cells, d=d, K=K, chains=BURGERS_WARP_CHAINS,
+                                  positions=3)
+
+
+def _burgers_stem(pot_exact, pot_surr, d=_burgers_warp.WARP_D):
+    """The launch count's name of the Burgers kernel that
+    ``ipx_fused_da_pcn_burgers`` picks for the pair and d: the warp kernel
+    when ``_burgers_warp.takes`` both levels, else one chain a CTA."""
+    if all(_burgers_warp.takes(p.n, p.K, d) for p in (pot_exact, pot_surr)):
+        return BURGERS_KERNEL
+    return "fused_da_pcn_burgers_kernel"
+
+
 def _darcy_stem(pot_exact, pot_surr):
     """The launch count's name of the Darcy kernel: the 16×16 one by its
     surrogate's solver, the 64×64 one (thread-block clusters) alone."""
@@ -214,7 +247,8 @@ def _launch(pot_exact, pot_surr, positions, prior_mean, prior_scale, beta,
                           surr_modes=pot_surr.modes, d=U.shape[0])
         fn, stem = lib.ipx_fused_da_pcn, _darcy_stem(pot_exact, pot_surr)
     else:
-        fn, stem = lib.ipx_fused_da_pcn_burgers, "fused_da_pcn_burgers_kernel"
+        fn = lib.ipx_fused_da_pcn_burgers
+        stem = _burgers_stem(pot_exact, pot_surr, U.shape[0])
     status = fn(
         ctypes.byref(es), ctypes.byref(ss), ctypes.byref(args),
         phi0.data_ptr(), surr0.data_ptr(), float(beta_t), float(contraction),

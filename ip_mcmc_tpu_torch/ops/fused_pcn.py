@@ -20,6 +20,10 @@ the whole ``n_steps`` loop in one launch, picked by the spec
   ``DarcyMisfitWarm`` with dst_trunc of a multiple of ``MODE_TILE`` modes
   up to ``MAX_WARP_MODES`` (warm); one chain a warp, ``warp_geometry``'s
   chains a CTA;
+- ``fused_pcn_burgers_warp_kernel<RECORD>`` for a ``BurgersMisfit`` that
+  ``_burgers_warp.takes`` (64 or 128 cells, d = K = 16: the shipped
+  configs'), one chain a warp, ``burgers_warp_geometry``'s chains a CTA
+  (``ipx_fused_pcn_burgers`` picks it; ``_burgers_stem`` names it);
 - else ``fused_pcn_kernel<Pot, RECORD>``, the cold kernel on a
   ``DarcyMisfit`` or a ``BurgersMisfit`` (picked by the potential's
   family), and ``fused_pcn_warm_kernel<RECORD>`` on a ``DarcyMisfitWarm``
@@ -39,7 +43,7 @@ import ctypes
 
 import torch
 
-from ip_mcmc_tpu_torch.ops import _build, _scaffold
+from ip_mcmc_tpu_torch.ops import _build, _burgers_warp, _scaffold
 
 # --- the plain version ------------------------------------------------------
 
@@ -205,6 +209,34 @@ def _darcy_stem(pot, warm, d=WARP_D):
     return "fused_pcn_warm_cluster32_kernel" if pot.n > 16 else "fused_pcn_warm_kernel"
 
 
+# ``PcnBurgersWarpDesign`` in ``csrc/fused_pcn.cu``: chains (warps) a CTA
+# at most; a warp's slice holds pos and prop.
+BURGERS_WARP_CHAINS = 16
+BURGERS_KERNEL = "fused_pcn_burgers_warp_kernel"
+
+
+def burgers_warp_geometry(n_chains, block_chains, *, cells=128, d=_burgers_warp.WARP_D,
+                          K=_burgers_warp.WARP_D):
+    """The Burgers warp kernel's launch: (CTAs, chains a CTA, dynamic
+    shared-memory bytes), as ``pcn_burgers_warp_geometry`` in
+    ``csrc/fused_pcn.cu`` computes it: the staged level and a slice a warp
+    (``_burgers_warp.geometry``). Raises ``ValueError`` for a level the
+    kernel does not take (the card runs it on ``fused_pcn_kernel``) and for
+    shared memory the card cannot give a CTA."""
+    return _burgers_warp.geometry("Burgers pCN warp kernel", n_chains, block_chains,
+                                  cells=(cells,), d=d, K=K, chains=BURGERS_WARP_CHAINS,
+                                  positions=2)
+
+
+def _burgers_stem(pot, d=_burgers_warp.WARP_D):
+    """The launch count's name of the Burgers kernel that
+    ``ipx_fused_pcn_burgers`` picks for the misfit ``pot`` and d: the warp
+    kernel for what ``_burgers_warp.takes``, else one chain a CTA."""
+    if _burgers_warp.takes(pot.n, pot.K, d):
+        return BURGERS_KERNEL
+    return "fused_pcn_burgers_kernel"
+
+
 def _launch(potential_fn, positions, prior_mean, prior_scale, beta, seed,
             n_steps, block_chains, thin=None, aux_dim=None):
     warm = aux_dim is not None
@@ -237,7 +269,8 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, beta, seed,
         fn, name = lib.ipx_fused_pcn, _darcy_stem(potential_fn, warm, positions.shape[1])
         carried = (x0.data_ptr() if warm else None,)
     else:
-        fn, name, carried = lib.ipx_fused_pcn_burgers, "fused_pcn_burgers_kernel", ()
+        fn, carried = lib.ipx_fused_pcn_burgers, ()
+        name = _burgers_stem(potential_fn, positions.shape[1])
     status = fn(
         ctypes.byref(spec), ctypes.byref(args), phi0.data_ptr(), *carried,
         float(beta_t), float(contraction), stream,

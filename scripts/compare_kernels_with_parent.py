@@ -9,8 +9,9 @@ Runs the 16x16 Darcy kernels that both trees have (the misfit kernels with
 and without the adjoint gradient, DA-pCN with the CG and with the rich3
 Richardson surrogate, cold and warm pCN, ESS, cold and warm MALA, the
 ensemble sampler and the Darcy RWM, each recorded, at 4096 chains on the
-16x16 Darcy configs), the Burgers DA-pCN and three-level DA-pCN kernels
-(``burgers_da_pcn`` and ``burgers_da3_pcn``: 2048 chains), the cold
+16x16 Darcy configs), the Burgers DA-pCN, three-level DA-pCN and pCN
+kernels (``burgers_da_pcn``, ``burgers_da3_pcn``, ``burgers_pcn`` and
+``burgers_multitime_pcn``: 2048 chains), the cold
 and warm misfit kernels at 32x32 and 64x64, the 64x64 DA-pCN
 (``darcy64_da_fused``: 1024 chains, blocks of 128, k = 48) and warm pCN
 (``darcy64_pcn_warm``: 2048 chains) kernels and the 32x32 warm pCN kernel
@@ -111,6 +112,8 @@ def worker(out_path: str, rows) -> int:
     rich = configs.darcy_da_richardson("rich3_w0.9", "cuda")
     burgers = configs.build("burgers_da_pcn", "cuda")
     bpos = burgers.init_positions(gen, 2048).cuda()
+    bfine, bmulti = (configs.build(c, "cuda").batched_potential_fn
+                     for c in ("burgers_pcn", "burgers_multitime_pcn"))
     da3 = configs.build("burgers_da3_pcn", "cuda")
     da3_kp = da3.kernel_params
 
@@ -163,6 +166,12 @@ def worker(out_path: str, rows) -> int:
             burgers.batched_potential_fn, burgers.batched_surrogate_fn, bpos,
             burgers.prior.mean, burgers.prior.scale, 0.15, 11, n_steps=s, thin=1,
             subchain_len=16, block_chains=512), 16, 8, 72),
+        "pcn_burgers": (lambda s: ops.fused_pcn_chain_recorded(
+            bfine, bpos, burgers.prior.mean, burgers.prior.scale, 0.15, 13, n_steps=s, thin=1,
+            block_chains=512), 16, 8, 264),
+        "pcn_burgers_multitime": (lambda s: ops.fused_pcn_chain_recorded(
+            bmulti, bpos, burgers.prior.mean, burgers.prior.scale, 0.15, 13, n_steps=s, thin=1,
+            block_chains=512), 16, 8, 264),
         "da3_burgers": (lambda s: ops.fused_da3_pcn_chain_recorded(
             da3.batched_potential_fn, da3.batched_mid_fn, da3.batched_surrogate_fn, bpos,
             da3.prior.mean, da3.prior.scale, da3_kp["beta"], 11, n_steps=s, thin=1,

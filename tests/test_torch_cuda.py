@@ -325,14 +325,14 @@ def test_burgers_kernels_match_plain(burgers_problem, kind, recorded):
         ref = da3._run_plain(fine._forward_plain, mid._forward_plain,
                              coarse._forward_plain, *args, **kw)
     elif kind == "da":
-        name = "fused_da_pcn_burgers_kernel"
+        name = da.BURGERS_KERNEL
         args = (pos, pm, ps, 0.15, 3)
         kw.update(n_steps=4, subchain_len=6, block_chains=128)
         got = da._launch(fine, coarse, *args, **kw)
         plain = da._run_plain_recorded if recorded else da._run_plain
         ref = plain(fine._forward_plain, coarse._forward_plain, *args, **kw)
     else:
-        name = "fused_pcn_burgers_kernel"
+        name = fused_pcn.BURGERS_KERNEL
         args = (pos, pm, ps, 0.15, 3, 4, 128)
         got = fused_pcn._launch(fine, *args, **kw)
         ref = fused_pcn._run_plain(fine._forward_plain, *args, **kw)
@@ -1118,6 +1118,154 @@ def test_da3_warp_kernel_refuses_what_it_does_not_take(burgers_problem):
         status = lib.ipx_da3_warp_geometry(*(ctypes.byref(lv.spec()) for lv in levels),
                                            ctypes.byref(args), 1, 1, out)
         assert "not supported" in lib.ipx_error_string(status).decode()
+
+
+# --- the Burgers DA and pCN one chain a warp (fused_da_pcn_burgers_warp_kernel,
+# fused_pcn_burgers_warp_kernel) and the one-chain-a-CTA kernels they leave
+
+
+def _burgers_misfit(n_cells, n_modes=16, m=16, obs_times=None, seed=0):
+    """A Burgers misfit on the card at ``n_cells`` cells (t = 0.2, m
+    observed cells), its data the plain forward at numpy-drawn coefficients
+    plus numpy noise."""
+    from ip_mcmc_tpu_torch.configs import burgers_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import burgers
+
+    obs = np.linspace(0, n_cells - 1, m).round().astype(int)
+    aux = burgers.burgers_aux(n_cells=n_cells, n_modes=n_modes, alpha=1.5, field_scale=1.0,
+                              t_final=0.2, obs_indices=obs, obs_times=obs_times,
+                              mean_profile=np.sin(2 * np.pi * (np.arange(n_cells) + 0.5)
+                                                  / n_cells))
+    r = np.random.default_rng(seed)
+    truth = burgers_misfit_from_arrays(aux, np.zeros(m * len(aux["segment_steps"])), 0.02)
+    u = torch.from_numpy(r.standard_normal((n_modes, 1)).astype(np.float32))
+    y = torch.cat([s[obs, 0] for s in truth.final_states(u)]).numpy()
+    y = (y + 0.02 * r.standard_normal(y.shape)).astype(np.float32)
+    return burgers_misfit_from_arrays(aux, y, 0.02).cuda()
+
+
+def _burgers_run(kind, pots, pos, thin, block):
+    """(kernel outputs, plain twin's) of the Burgers DA (``pots``: exact,
+    surrogate) or pCN (``pots``: one misfit) from ``pos``, 3 steps."""
+    pm = torch.zeros(pos.shape[1], device="cuda")
+    ps = torch.ones(pos.shape[1], device="cuda")
+    kw = {"thin": thin} if thin else {}
+    plain = tuple(p._forward_plain for p in pots)
+    if kind == "da":
+        kw.update(n_steps=3, subchain_len=4, block_chains=block)
+        run_plain = da._run_plain_recorded if thin else da._run_plain
+        return (da._launch(*pots, pos, pm, ps, 0.15, 31, **kw),
+                run_plain(*plain, pos, pm, ps, 0.15, 31, **kw))
+    args = (pm, ps, 0.15, 33, 3, block)
+    return (fused_pcn._launch(*pots, pos, *args, **kw),
+            fused_pcn._run_plain(*plain, pos, *args, **kw))
+
+
+@pytest.mark.parametrize("record", [False, True])
+@pytest.mark.parametrize("kind", ["da", "pcn", "pcn_multitime"])
+def test_burgers_warp_kernels_with_ragged_last_cta(burgers_problem, kind, record):
+    """13 chains in blocks of 8: two CTAs of 8 warps, the last with 3 spare
+    warps that run on zeros and store nothing. The 13 chains equal the first
+    13 of the kernel's 16-chain run bit for bit and agree with the plain
+    twin's (within 1e-4 on 99 % of chains, acceptance within 0.01)."""
+    p = burgers_problem
+    if kind == "da":
+        pots, name = (p.batched_potential_fn, p.batched_surrogate_fn), da.BURGERS_KERNEL
+    else:
+        config = "burgers_multitime_pcn" if kind == "pcn_multitime" else "burgers_pcn"
+        pots, name = (_build_on_card(config).batched_potential_fn,), fused_pcn.BURGERS_KERNEL
+    pos = p.init_positions(torch.Generator().manual_seed(30), 16).cuda()
+    thin = 1 if record else None
+    name = f"{name}<{'true' if record else 'false'}>"
+    before = _build.launch_counts[name]
+    (got, ref), (full, _) = (_burgers_run(kind, pots, pos[:n], thin, 8) for n in (13, 16))
+    assert _build.launch_counts[name] == before + 2
+    for g, f in zip(got, full):
+        assert torch.equal(g, f[:, :13] if g.dim() == 3 else f[:13])
+    if record:
+        assert got[2].shape == (3, 13, 16) and torch.equal(got[2][-1], got[0])
+        rec = (got[2] - ref[2]).abs().amax(dim=(0, 2))
+        assert float((rec <= 1e-4).double().mean()) >= 0.99
+    elif kind == "da":
+        assert abs(float(got[2].mean()) - float(ref[2].mean())) <= 1e-2
+    _chains_agree(got, ref, 3)
+
+
+def test_burgers_warp_geometry_matches_the_kernel(burgers_problem):
+    """fused_da_pcn.burgers_warp_geometry and fused_pcn.burgers_warp_geometry
+    (Python) give what the kernels' launches compute, on the configs' levels
+    and on 64-cell ones."""
+    import ctypes
+
+    p = burgers_problem
+    fine, coarse = p.batched_potential_fn, p.batched_surrogate_fn
+    lib = _build.library()
+    for n, block in ((2048, 512), (13, 8), (13, 13), (20, 4), (0, 512)):
+        pos = torch.zeros(n, 16, device="cuda")
+        args, _ = da._scaffold.chain_args(pos, p.prior.mean, p.prior.scale, 0, 1, block)
+        for exact, surr in ((fine, coarse), (coarse, coarse), (coarse, fine)):
+            out = (ctypes.c_int * 3)()
+            assert lib.ipx_da_pcn_burgers_warp_geometry(
+                ctypes.byref(exact.spec()), ctypes.byref(surr.spec()), ctypes.byref(args), 16,
+                out) == 0
+            ctas, w, smem = da.burgers_warp_geometry(n, block, cells=(exact.n, surr.n))
+            assert tuple(out) == (w, ctas, smem), (n, block, exact.n, surr.n)
+        for pot in (fine, coarse):
+            out = (ctypes.c_int * 3)()
+            assert lib.ipx_pcn_burgers_warp_geometry(ctypes.byref(pot.spec()),
+                                                     ctypes.byref(args), out) == 0
+            ctas, w, smem = fused_pcn.burgers_warp_geometry(n, block, cells=pot.n)
+            assert tuple(out) == (w, ctas, smem), (n, block, pot.n)
+
+
+@pytest.mark.parametrize("kind", ["da", "pcn"])
+def test_burgers_cta_kernels_take_what_the_warp_kernels_leave(kind):
+    """A 96-cell level and a prior of 8 modes: the warp kernels' geometry
+    refuses them (cudaErrorNotSupported), the entry points run them on the
+    one-chain-a-CTA kernels, which agree with their twins."""
+    import ctypes
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    lib = _build.library()
+    # each surrogate observes the same truth as its exact level (the seed)
+    for level, surr, d in ((_burgers_misfit(96, seed=1), _burgers_misfit(64, seed=1), 16),
+                           (_burgers_misfit(128, n_modes=8), _burgers_misfit(64, n_modes=8), 8)):
+        pots = (level, surr) if kind == "da" else (level,)
+        pos = (0.5 * torch.randn(64, d, generator=torch.Generator().manual_seed(31))).cuda()
+        args, _ = da._scaffold.chain_args(pos, torch.zeros(d, device="cuda"),
+                                          torch.ones(d, device="cuda"), 0, 1, 32)
+        out = (ctypes.c_int * 3)()
+        specs = [ctypes.byref(p.spec()) for p in pots]
+        status = (lib.ipx_da_pcn_burgers_warp_geometry(*specs, ctypes.byref(args), 4, out)
+                  if kind == "da" else
+                  lib.ipx_pcn_burgers_warp_geometry(*specs, ctypes.byref(args), out))
+        assert "not supported" in lib.ipx_error_string(status).decode()
+        stem = (da._burgers_stem(*pots, d) if kind == "da"
+                else fused_pcn._burgers_stem(pots[0], d))
+        assert stem == {"da": "fused_da_pcn_burgers_kernel", "pcn": "fused_pcn_burgers_kernel"}[kind]
+        for thin in (None, 1):
+            name = f"{stem}<{'false' if thin is None else 'true'}>"
+            before = _build.launch_counts[name]
+            got, ref = _burgers_run(kind, pots, pos, thin, 32)
+            assert _build.launch_counts[name] == before + 1
+            _chains_agree(got, ref, 3)
+
+
+@pytest.mark.parametrize("kind", ["da", "pcn"])
+def test_burgers_warp_kernels_on_64_cells_and_100_observations(kind):
+    """Levels of 64 cells only, 100 observations: the warp solve adds Φ in
+    the order of the one-chain-a-CTA kernel's CTA of 64 threads (C = 2, T =
+    64), and the chains agree with the twin's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    level = _burgers_misfit(64, m=100, seed=2)
+    pots = (level, level) if kind == "da" else (level,)
+    assert (da._burgers_stem(*pots) if kind == "da" else fused_pcn._burgers_stem(level)) == (
+        da.BURGERS_KERNEL if kind == "da" else fused_pcn.BURGERS_KERNEL)
+    pos = (0.5 * torch.randn(256, 16, generator=torch.Generator().manual_seed(32))).cuda()
+    got, ref = _burgers_run(kind, pots, pos, None, 64)
+    _chains_agree(got, ref, 3)
 
 
 # --- the functional ensemble sampler: one warp per chain (fused_fes_warp_kernel)
