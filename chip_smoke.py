@@ -17,10 +17,12 @@ Gaussians), times both, then drives the ported paths at full width:
                              a thread-block cluster, 7 CTAs an SM, the
                              factors read through L2
     darcy64_pcn_warm         warm pCN on 64 x 64 cells  (K5, K7), G chains
-                             a thread-block cluster
+                             a thread-block cluster; the warm misfit at the
+                             start positions on the same cluster level
     darcy64_da_fused         delayed acceptance on 64 x 64 cells with a
                              32 x 32 surrogate (K4, K5), G chains a
-                             thread-block cluster
+                             thread-block cluster; the exact misfit at the
+                             start positions on the same cluster level
     darcy_ess_fused          elliptical slice sampling  (K8), a chain a warp
     darcy_pcn_4096 --fused   cold pCN                   (K6), a chain a warp
     darcy_mala_fused         MALA, adjoint gradient     (K10), a chain a warp
@@ -305,7 +307,9 @@ def compare_misfit(results, pot, U, *, variant, paths, tol, x0=None,
     from ip_mcmc_tpu_torch.ops import _build
 
     warm = x0 is not None
-    name = "darcy_misfit_warm_kernel" if warm else pot.kernel_label
+    # the kernel the spec is sent to (at 64x64 on dst_trunc CG the cluster
+    # kernels, in the same sources as the one-draw-a-CTA kernels)
+    name = pot.warm_kernel_label if warm else pot.kernel_label
     kern = (lambda: pot(U, x0)) if warm else (lambda: pot(U))
     plain = ((lambda: pot._forward_warm_plain(U, x0)) if warm
              else (lambda: pot._forward_plain(U)))
@@ -337,6 +341,8 @@ def compare_misfit(results, pot, U, *, variant, paths, tol, x0=None,
     ms, plain_ms = cuda_time_ms(kern, 20), cuda_time_ms(plain, 3)
     row = {
         "name": name, "variant": variant, "route": "cuda",
+        # every warm misfit kernel is in fused_pcn.cu, every cold one in
+        # fused_da_pcn.cu
         "source": SRC + ("fused_pcn.cu" if warm else "fused_da_pcn.cu"),
         "replaces": replaces, "paths": paths, "max_abs_err": max_abs,
         "max_rel_err": float(rel.max()), "frac_within_rtol": frac,
@@ -1094,7 +1100,11 @@ def check_large_grids(problems, gen, results):
     cold misfit kernel (no path launches it: the warm runs start from the
     warm misfit), the warm misfit kernel from x0 = 0 and from a previous
     solution, and the warm pCN kernel (at 64x64 the cluster kernel), plain
-    and recorded."""
+    and recorded; at 64x64 both misfits run on the cluster level. Then the
+    Layout64 kernels on a 64x64 spec the cluster level leaves (K 196, cold
+    and warm; no path launches them)."""
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays, darcy_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
     from ip_mcmc_tpu_torch.ops import fused_pcn
 
     for config in ("darcy32_pcn_warm", "darcy64_pcn_warm"):
@@ -1132,6 +1142,24 @@ def check_large_grids(problems, gen, results):
                 variant=f"{what}, block {block}", paths=[config], source="fused_pcn.cu",
                 pots=(warm,), per_step_ops=ops)
 
+    # a finer prior than the layout of the cluster level holds (K 196)
+    aux = darcy.darcy_aux(n_grid=64, n_modes_per_dim=14, alpha=2.0, field_scale=10.0)
+    data, kw = problems["darcy64_pcn_warm"].data, dict(precond="dst_trunc", precond_modes=256)
+    cold = darcy_misfit_from_arrays(aux, data, 0.002, cg_iters=16, **kw).cuda()
+    warm, aux_dim = darcy_warm_misfit_from_arrays(aux, data, 0.002, cg_iters=4, **kw)
+    warm = warm.cuda()
+    assert not cold.on_cluster and not warm.on_cluster
+    U = torch.randn(cold.K, LAYOUT64_DRAWS, generator=gen).cuda()
+    what = f"64x64 dst_trunc-256, K {cold.K}: a spec the cluster level leaves"
+    compare_misfit(results, cold, U, variant=f"{what}, 16 CG", paths=[], tol=LARGE_BF16_TOL,
+                   replaces=JAX_DARCY + "542")
+    compare_misfit(results, warm, U, x0=torch.zeros(aux_dim, LAYOUT64_DRAWS, device="cuda"),
+                   variant=f"{what}, 4 CG, x0 = 0", paths=[], tol=LARGE_BF16_TOL,
+                   replaces=JAX_DARCY + "669")
+
+
+# the draws of the Layout64 rows (a spec the cluster level leaves)
+LAYOUT64_DRAWS = 256
 
 # darcy64_da_fused on the JAX package on a TPU v5e (config comment, l.861-867
 # and l.907-912; BASELINE.md round 5, item 7): what does not depend on the
@@ -1143,13 +1171,20 @@ TPU_DARCY64_DA = {"outer_accept": 0.82, "inner_accept": 0.184,
 DA64 = "fused_da_pcn_cluster_kernel"
 PCN64 = "fused_pcn_warm_cluster_kernel"
 PCN32 = "fused_pcn_warm_cluster32_kernel"
+# the 64x64 misfits at the start positions of the two 64x64 configs, on the
+# samplers' cluster level
+MISFIT64 = "darcy_misfit_cluster_kernel[n=64]"
+MISFIT64_WARM = "darcy_misfit_warm_cluster_kernel"
+# ... their instantiations as ptxas names them, mangled and demangled
+MISFIT64_PTXAS = {MISFIT64: ("darcy_misfit_cluster_kernel",),
+                  MISFIT64_WARM: ("darcy_misfit_warm_cluster_kernel",)}
 
 
 def check_da64(problem, gen, results):
     """darcy64_da_fused at its width (1024 chains, blocks of 128, k = 48):
-    the exact (64 x 64) and surrogate (32 x 32) misfit kernels, then the DA
-    kernel's 64 x 64 instantiation, plain and recorded, against the plain
-    loop."""
+    the exact (64 x 64, on the cluster level) and surrogate (32 x 32)
+    misfit kernels, then the DA kernel's 64 x 64 instantiation, plain and
+    recorded, against the plain loop."""
     from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
 
     exact, surr = problem.batched_potential_fn, problem.batched_surrogate_fn
@@ -1219,6 +1254,7 @@ def check_cluster(problems):
                 shipped.append(want)
     print(f"cluster geometry: Python mirror equals the C function for {DA64}, {PCN64} and "
           f"{PCN32} (shipped: {shipped[0]}, {shipped[1]} and {shipped[2]})", flush=True)
+    check_misfit_cluster_geometry(problems)
 
     block, steps = 8, 3
     for p, stem in ((da_p, DA64), (pcn_p, PCN64), (p32, PCN32)):
@@ -1259,6 +1295,53 @@ def check_cluster(problems):
                   f"{float(ref[1][:13].mean()):.4f}", flush=True)
             if not equal or frac < MIN_CHAIN_FRAC or rate > RATE_ATOL:
                 raise AssertionError(f"{name} on a ragged width disagrees")
+
+
+def check_misfit_cluster_geometry(problems):
+    """The standalone cluster misfits' geometry: for the two 64x64 configs'
+    misfits the Python mirror against the C function at their widths, a
+    ragged 13, 1 and 0 draws; for specs the cluster level leaves (the 32x32
+    surrogate, the 32x32 warm misfit, a 64x64 Jacobi misfit), C's
+    cudaErrorNotSupported against the mirror's refusal."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+    from ip_mcmc_tpu_torch.ops import _build, _cluster
+
+    lib = _build.library()
+    da_p, pcn_p = problems["darcy64_da_fused"], problems["darcy64_pcn_warm"]
+    aux = darcy.darcy_aux(n_grid=64, n_modes_per_dim=12, alpha=2.0, field_scale=10.0)
+    taken = ((da_p.batched_potential_fn, da_p.n_chains),
+             (pcn_p.batched_warm_potential[0], pcn_p.n_chains),
+             (pcn_p.batched_potential_fn, pcn_p.n_chains))
+    left = (da_p.batched_surrogate_fn, problems["darcy32_pcn_warm"].batched_warm_potential[0],
+            darcy_misfit_from_arrays(aux, pcn_p.data, 0.002, cg_iters=30).cuda())
+
+    def geometry(pot, B):
+        out = (ctypes.c_int * 4)()
+        return lib.ipx_darcy_misfit_cluster_geometry(ctypes.byref(pot.spec()), B, out), tuple(out)
+
+    shipped = []
+    for pot, width in taken:
+        kw = dict(n=pot.n, K=pot.K, precond=pot.precond, modes=pot.modes, solver=pot.solver)
+        for B in (width, 13, 1, 0):
+            status, out = geometry(pot, B)
+            want = _cluster.misfit_cluster_geometry(B, **kw)
+            if status != 0 or out != want:
+                raise AssertionError(f"misfit cluster geometry at {B} draws: C {out} (status "
+                                     f"{status}), Python {want}")
+        shipped.append(_cluster.misfit_cluster_geometry(width, **kw))
+    for pot in left:
+        status, _ = geometry(pot, 64)
+        takes = _cluster.misfit_cluster_takes(n=pot.n, K=pot.K, precond=pot.precond,
+                                              modes=pot.modes, solver=pot.solver)
+        if status != 801 or takes:  # cudaErrorNotSupported
+            raise AssertionError(f"cluster misfit on {pot.n}x{pot.n} {pot.precond}: C status "
+                                 f"{status}, Python takes {takes}")
+    print(f"misfit cluster geometry: Python mirror equals the C function for {MISFIT64} and "
+          f"{MISFIT64_WARM} (shipped: {shipped[0]} and {shipped[1]}); C and Python leave the "
+          f"same {len(left)} other specs to the layouts' kernels", flush=True)
 
 
 def check_geometry(what, cases, c_geometry, py_geometry):
@@ -1961,10 +2044,9 @@ PATHS = {
     "darcy_pcn_warm": ([], ("darcy_misfit_warm_kernel", f"{PCN_WARM}<false>",
                             f"{PCN_WARM}<true>")),
     "darcy32_pcn_warm": ([], ("darcy_misfit_warm_kernel", f"{PCN32}<false>", f"{PCN32}<true>")),
-    "darcy64_pcn_warm": ([], ("darcy_misfit_warm_kernel", f"{PCN64}<false>",
-                              f"{PCN64}<true>")),
-    "darcy64_da_fused": ([], ("darcy_misfit_kernel[n=64]", "darcy_misfit_kernel[n=32]",
-                              f"{DA64}<false>", f"{DA64}<true>")),
+    "darcy64_pcn_warm": ([], (MISFIT64_WARM, f"{PCN64}<false>", f"{PCN64}<true>")),
+    "darcy64_da_fused": ([], (MISFIT64, "darcy_misfit_kernel[n=32]", f"{DA64}<false>",
+                              f"{DA64}<true>")),
     "darcy_ess_fused": ([], ("darcy_misfit_kernel[n=16]", f"{ESS}<false>", f"{ESS}<true>")),
     "darcy_pcn_4096": (["--fused"], ("darcy_misfit_kernel[n=16]", f"{PCN_COLD}<false>",
                                      f"{PCN_COLD}<true>")),
@@ -2086,7 +2168,7 @@ def main() -> int:
     check_gradient_and_ensemble(problems, gen, results)
     check_burgers(problems, gen, results)
     check_burgers_warp(problems, gen, results)
-    attach_ptxas(results, ptxas, {**MALA_PTXAS, **PCN_PTXAS, **BURGERS_PTXAS})
+    attach_ptxas(results, ptxas, {**MALA_PTXAS, **PCN_PTXAS, **BURGERS_PTXAS, **MISFIT64_PTXAS})
     check_linear_family(problems, gen, results)
 
     # the fused linear-Gaussian paths, each with the counts set to 0 before it

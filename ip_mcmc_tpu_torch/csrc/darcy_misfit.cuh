@@ -1772,8 +1772,9 @@ __device__ __forceinline__ void apply_operator_warp(const WarpTruncSliceLevel& l
 namespace cg = cooperative_groups;
 
 // The cluster design of the 64 x 64 kernels (fused_da_pcn_cluster_kernel,
-// fused_pcn_warm_cluster_kernel; scripts/measure_da64_cluster_design.py
-// times the alternatives): kG chains (CTAs) a cluster; the CTA's layout
+// fused_pcn_warm_cluster_kernel, and the misfits at their start positions,
+// darcy_misfit_cluster_kernel and darcy_misfit_warm_cluster_kernel;
+// scripts/measure_da64_cluster_design.py times the alternatives): kG chains (CTAs) a cluster; the CTA's layout
 // (kCells cells a thread at 64 x 64 on kThreads threads, kMinCtas CTAs an
 // SM for the launch bound); kSurrMmaCoef, kSurrMmaBack: the surrogate's
 // V bf16(r) and its V^T coef on the tensor cores (bf16 mma.sync, f32
@@ -2401,6 +2402,95 @@ int launch_cluster(void (*kernel)(Args...), const ClusterGeometry& geo, void* st
   if (err != cudaSuccess) return static_cast<int>(err);
   if (clusters < 1) return cudaErrorInvalidConfiguration;
   return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
+}
+
+// --- the standalone 64 x 64 misfits on the samplers' cluster level ----------
+//
+// Phi (and, warm, the CG solution) for a (K, B) batch of draws, the misfit
+// that the 64 x 64 samplers evaluate at their start positions
+// (darcy_misfit_cluster_kernel in fused_da_pcn.cu,
+// darcy_misfit_warm_cluster_kernel in fused_pcn.cu): one draw a CTA, G
+// draws a thread-block cluster, the solve of the samplers' exact level
+// (ClusterExact), so that Phi0 and every proposal's Phi come from one
+// solve. One draw a CTA of Layout64 read the factors from L2 once a draw
+// (the f32 basis 2.4 MB once, the bf16 modes 2 MB twice an apply); the
+// cluster reads them once a cluster and runs the dst_trunc products on the
+// tensor cores with the draws as N. Spare CTAs of a ragged last cluster
+// run on zeros and write nothing.
+
+// What the two kernels take: U (K, B); warm: x0 (cells, B) in, x (cells,
+// B) out; Phi (B,) out.
+struct MisfitBatch {
+  IpxMisfitSpec s;
+  const float* U;
+  const float* x0;
+  int B;
+  float* phi;
+  float* x;
+};
+
+// Whether the two kernels take this spec (ipx_darcy_misfit and
+// ipx_darcy_misfit_warm send it to them, every other spec to the kernels
+// of its layout): a level of the 64 x 64 samplers. Mirrored by
+// ip_mcmc_tpu_torch/ops/_cluster.py misfit_cluster_takes.
+inline bool misfit_cluster_takes(const IpxMisfitSpec& s) {
+  return cluster_level_ok(s, kClusterExactN, s.K, kClusterMaxModes);
+}
+
+// Mirrored by ip_mcmc_tpu_torch/ops/_cluster.py misfit_cluster_geometry: G
+// draws a cluster (the design's kG), the spare CTAs of a ragged last
+// cluster; what misfit_cluster_takes refuses, cudaErrorNotSupported.
+inline int misfit_cluster_geometry(const IpxMisfitSpec& s, int B, ClusterGeometry* geo) {
+  if (!misfit_cluster_takes(s)) return cudaErrorNotSupported;
+  if (B < 0) return cudaErrorInvalidValue;
+  geo->g = ClusterDesign::kG;
+  geo->clusters = (B + geo->g - 1) / geo->g;
+  geo->ctas = geo->clusters * geo->g;
+  geo->threads = ClusterDesign::kThreads;
+  geo->smem = ClusterSmem::kBytes;
+  return cudaSuccess;
+}
+
+// The body of both kernels: draw blockIdx.x's coefficients to the buffer
+// the level reads u from (ClusterSmem::kState, as the samplers' state; the
+// set-up's first cluster barrier orders these writes before any CTA reads
+// them), WARM its cells of x0 to registers, one solve, then Phi from
+// thread 0 and (WARM) the thread's cells of x.
+template <bool WARM>
+__device__ void misfit_cluster_draw(const MisfitBatch& a) {
+  constexpr int C = ClusterExact::kC;
+  const int b = blockIdx.x, B = a.B;
+  const bool live = b < B;
+  float* u = cluster_f32(ClusterSmem::kState);
+  for (int k = threadIdx.x; k < a.s.K; k += blockDim.x)
+    u[k] = live ? a.U[static_cast<size_t>(k) * B + b] : 0.0f;
+  float x[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    x[c] = 0.0f;
+    if constexpr (WARM)
+      if (live) x[c] = a.x0[static_cast<size_t>(own_cell(c)) * B + b];
+  }
+  const float v = darcy_solve_cluster<WARM>(ClusterExact{&a.s}, u, x);
+  if (live) {
+    if constexpr (WARM) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) a.x[static_cast<size_t>(own_cell(c)) * B + b] = x[c];
+    }
+    if (threadIdx.x == 0) a.phi[b] = v;
+  }
+  cg::this_cluster().sync();  // no peer reads this CTA's shared memory after it exits
+}
+
+// Launches kernel (one of the two) on the batch: the status of the
+// geometry, of the occupancy check or of the launch.
+inline int launch_misfit_cluster(void (*kernel)(MisfitBatch), const MisfitBatch& a,
+                                 void* stream) {
+  ClusterGeometry geo;
+  const int status = misfit_cluster_geometry(a.s, a.B, &geo);
+  if (status != cudaSuccess) return status;
+  if (a.B == 0) return cudaSuccess;
+  return launch_cluster(kernel, geo, stream, a);
 }
 
 }  // namespace ipx

@@ -10,7 +10,12 @@
 // Pallas kernel inlines any traced JAX function):
 //
 //   darcy_misfit_kernel                 Phi for a (K, B) batch at one
-//                                       Darcy misfit spec.
+//                                       Darcy misfit spec, one draw a CTA
+//                                       of the spec's layout.
+//   darcy_misfit_cluster_kernel         the same on the specs of the 64x64
+//                                       samplers' exact level, one draw a
+//                                       CTA, G draws a thread-block
+//                                       cluster (ClusterLevel).
 //   fused_da_pcn_warp_kernel<SOLVER, RECORD>
 //                                       the 16x16 Darcy DA loop (8x8
 //                                       surrogate solved by CG or K17's
@@ -257,6 +262,15 @@ int launch_misfit(const IpxMisfitSpec& s, const float* U, int B, float* phi, voi
   else
     darcy_misfit_wide_kernel<Pot><<<B, threads, smem, st>>>(s, U, B, phi);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Phi for a (K, B) batch on the exact level of the 64 x 64 samplers, one
+// draw a CTA, G draws a thread-block cluster (misfit_cluster_draw in
+// darcy_misfit.cuh): darcy64_da_fused's exact misfit, 1024 draws of
+// dst_trunc-256 / 16 CG. The design is the samplers' (ClusterDesign).
+__global__ void __launch_bounds__(ClusterDesign::kThreads, ClusterDesign::kMinCtas)
+    darcy_misfit_cluster_kernel(const __grid_constant__ MisfitBatch a) {
+  misfit_cluster_draw<false>(a);
 }
 
 // --- the 64 x 64 kernel: one chain a CTA, G chains a thread-block cluster ------
@@ -686,9 +700,14 @@ const char* ipx_error_string(int code) {
 // sizeof(IpxMisfitSpec), against which the ctypes mirror is checked.
 int ipx_misfit_spec_size() { return static_cast<int>(sizeof(IpxMisfitSpec)); }
 
-// The layout follows the spec's grid, the solve its solver.
+// A spec of the 64 x 64 samplers' exact level (misfit_cluster_takes) goes
+// to darcy_misfit_cluster_kernel; for every other the layout follows the
+// spec's grid, the solve its solver.
 int ipx_darcy_misfit(const IpxMisfitSpec* s, const float* U, int B, float* phi,
                      void* stream) {
+  if (ipx::misfit_cluster_takes(*s))
+    return ipx::launch_misfit_cluster(ipx::darcy_misfit_cluster_kernel,
+                                      {*s, U, nullptr, B, phi, nullptr}, stream);
   const auto launch = [&](auto pot) {
     return ipx::launch_misfit<decltype(pot)>(*s, U, B, phi, stream);
   };
@@ -743,6 +762,22 @@ int ipx_darcy_cluster_geometry(const IpxMisfitSpec* exact, const IpxMisfitSpec* 
                                const IpxChainArgs* chain, int* out) {
   ipx::ClusterGeometry geo{0, 0, 0, 0, 0};
   const int status = ipx::cluster_geometry(*exact, surr, *chain, &geo);
+  out[0] = geo.g;
+  out[1] = geo.clusters;
+  out[2] = geo.ctas;
+  out[3] = static_cast<int>(geo.smem);
+  return status;
+}
+
+// The standalone cluster misfits' launch geometry (darcy_misfit_cluster_kernel;
+// darcy_misfit_warm_cluster_kernel of fused_pcn.cu) for this spec and B
+// draws: out = {draws a cluster, clusters, CTAs, dynamic shared-memory
+// bytes}; the status the launch would return before its occupancy check,
+// cudaErrorNotSupported for a spec that goes to the kernels of its layout
+// (the wrapper's mirror is checked against this on the card).
+int ipx_darcy_misfit_cluster_geometry(const IpxMisfitSpec* s, int B, int* out) {
+  ipx::ClusterGeometry geo{0, 0, 0, 0, 0};
+  const int status = ipx::misfit_cluster_geometry(*s, B, &geo);
   out[0] = geo.g;
   out[1] = geo.clusters;
   out[2] = geo.ctas;

@@ -8,7 +8,11 @@
 // darcy.make_batched_misfit_warm (ip_mcmc_tpu/models/darcy.py l.669).
 //
 //   darcy_misfit_warm_kernel<Pot>  (U (K, B), x0 (n*n, B)) -> (Phi (B,),
-//                                  x (n*n, B)): the warm-started misfit.
+//                                  x (n*n, B)): the warm-started misfit,
+//                                  one draw a CTA of the spec's layout.
+//   darcy_misfit_warm_cluster_kernel  the same on the specs of the 64 x 64
+//                                  samplers' exact level, one draw a CTA,
+//                                  G draws a thread-block cluster.
 //   fused_pcn_kernel<Pot, RECORD>  cold pCN: proposal, Phi, MH. The
 //                                  potential is a type: DarcyPot (Phi from
 //                                  x = 0) or BurgersPotential (K12,
@@ -40,10 +44,11 @@
 //
 // Layout and scaffold: fused_scaffold.cuh (one CTA per chain) and the
 // Darcy layouts of darcy_misfit.cuh: up to 16 x 16 one thread per cell; the
-// 32 x 32 and 64 x 64 grids (the cold misfit and cold pCN; the warm ones
-// run in clusters) several cells per thread, picked from the spec's grid at
-// launch. Phi (and x) at
-// the start positions come in from the standalone misfit kernels. Tags:
+// 32 x 32 and 64 x 64 grids (the cold misfit and cold pCN; the warm ones,
+// and at 64 x 64 the misfits of a dst_trunc CG spec, run in clusters)
+// several cells per thread, picked from the spec's grid at launch. Phi
+// (and x) at the start positions come in from the standalone misfit
+// kernels: at 64 x 64 from the cluster level of the samplers' steps. Tags:
 // normals 0 (keys 0, 1), MH uniform 2.
 //
 // What bounds them on the H100: per chain and step one solve (Burgers one
@@ -147,6 +152,16 @@ __global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
                                   const float* __restrict__ x0, int B, float* __restrict__ phi,
                                   float* __restrict__ x_out) {
   misfit_warm_batch<Pot>(s, U, x0, B, phi, x_out);
+}
+
+// (Phi, x) for a (K, B) batch from the starts x0 on the exact level of the
+// 64 x 64 samplers, one draw a CTA, G draws a thread-block cluster
+// (misfit_cluster_draw in darcy_misfit.cuh): darcy64_pcn_warm's warm
+// misfit, 2048 draws of dst_trunc-256 / 4 CG from x0 = 0, the solve of
+// fused_pcn_warm_cluster_kernel's steps. The design is ClusterDesign.
+__global__ void __launch_bounds__(ClusterDesign::kThreads, ClusterDesign::kMinCtas)
+    darcy_misfit_warm_cluster_kernel(const __grid_constant__ MisfitBatch a) {
+  misfit_cluster_draw<true>(a);
 }
 
 template <class Pot>
@@ -665,8 +680,14 @@ int launch_misfit_warm(const IpxMisfitSpec& s, const float* U, const float* x0, 
 
 extern "C" {
 
+// A spec of the 64 x 64 samplers' exact level (misfit_cluster_takes) goes
+// to darcy_misfit_warm_cluster_kernel; for every other the layout follows
+// the spec's grid.
 int ipx_darcy_misfit_warm(const IpxMisfitSpec* s, const float* U, const float* x0, int B,
                           float* phi, float* x, void* stream) {
+  if (ipx::misfit_cluster_takes(*s))
+    return ipx::launch_misfit_cluster(ipx::darcy_misfit_warm_cluster_kernel,
+                                      {*s, U, x0, B, phi, x}, stream);
   return ipx::with_darcy_layout<kSolverCg>(*s, [&](auto pot) {
     return ipx::launch_misfit_warm<decltype(pot)>(*s, U, x0, B, phi, x, stream);
   });

@@ -23,8 +23,13 @@ solves started from aux0.
 For CUDA tensors the modules launch ``darcy_misfit_kernel``
 (``csrc/fused_da_pcn.cu``), ``darcy_misfit_warm_kernel``
 (``csrc/fused_pcn.cu``), ``darcy_misfit_grad_kernel`` or
-``darcy_misfit_grad_warm_kernel`` (``csrc/fused_mala.cu``); for CPU tensors
-they run the plain versions. Those use the readable 2-D (n, n, B) layout;
+``darcy_misfit_grad_warm_kernel`` (``csrc/fused_mala.cu``), one draw a CTA;
+a misfit on the exact level of the 64×64 samplers
+(``_cluster.misfit_cluster_takes``: 64×64, dst_trunc, CG) goes to
+``darcy_misfit_cluster_kernel`` or ``darcy_misfit_warm_cluster_kernel``
+instead, G draws a thread-block cluster on the samplers' solve. The launch
+counts name the kernel (``kernel_label``, ``warm_kernel_label``). For CPU
+tensors they run the plain versions. Those use the readable 2-D (n, n, B) layout;
 the JAX flat layout with wrap masks, Kronecker factors and one-hot
 observation matmuls exists only because Mosaic lacks in-kernel reshapes
 and gathers.
@@ -40,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ip_mcmc_tpu_torch.models import kl
-from ip_mcmc_tpu_torch.ops import _build
+from ip_mcmc_tpu_torch.ops import _build, _cluster
 
 
 def default_observation_indices(n: int, n_obs_per_dim: int = 4):
@@ -188,8 +193,19 @@ class DarcyMisfit(nn.Module):
             )
 
     @property
+    def on_cluster(self) -> bool:
+        """Whether the card solves this misfit on the 64×64 samplers' cluster
+        level (``_cluster.misfit_cluster_takes``, ``misfit_cluster_takes``
+        of ``csrc/darcy_misfit.cuh``)."""
+        return _cluster.misfit_cluster_takes(n=self.n, K=self.K, precond=self.precond,
+                                             modes=self.modes, solver=self.solver)
+
+    @property
     def kernel_label(self) -> str:
-        """The launch count's name of this misfit's kernel."""
+        """The launch count's name of the kernel that ``ipx_darcy_misfit``
+        sends this misfit to."""
+        if self.on_cluster:
+            return f"darcy_misfit_cluster_kernel[n={self.n}]"
         tag = "" if self.solver == "cg" else f",{self.solver}"
         return f"darcy_misfit_kernel[n={self.n}{tag}]"
 
@@ -468,6 +484,13 @@ class DarcyMisfitWarm(DarcyMisfit):
     def aux_dim(self) -> int:
         return self.n * self.n
 
+    @property
+    def warm_kernel_label(self) -> str:
+        """The launch count's name of the kernel that
+        ``ipx_darcy_misfit_warm`` sends this misfit to."""
+        return ("darcy_misfit_warm_cluster_kernel" if self.on_cluster
+                else "darcy_misfit_warm_kernel")
+
     def forward(self, U: torch.Tensor, x0: torch.Tensor):
         self.check_input(U)
         if (x0.dtype != torch.float32 or x0.shape != (self.aux_dim, U.shape[1])
@@ -492,8 +515,8 @@ class DarcyMisfitWarm(DarcyMisfit):
             ctypes.byref(spec), U.data_ptr(), x0.data_ptr(), B, phi.data_ptr(),
             x.data_ptr(), torch.cuda.current_stream(U.device).cuda_stream,
         )
-        _build.check(status, "darcy_misfit_warm_kernel")
-        _build.launch_counts["darcy_misfit_warm_kernel"] += 1
+        _build.check(status, self.warm_kernel_label)
+        _build.launch_counts[self.warm_kernel_label] += 1
         return phi, x
 
     def _forward_warm_plain(self, U, x0):

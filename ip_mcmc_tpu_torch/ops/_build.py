@@ -238,6 +238,8 @@ def library():
         lib.bind("ipx_darcy_misfit", [spec, p, i, p, p])
         # spec, U (K, B), x0 (n², B), B, Φ (B,), x (n², B), stream
         lib.bind("ipx_darcy_misfit_warm", [spec, p, p, i, p, p, p])
+        # spec, B, out (4,): the cluster misfit kernels' geometry
+        lib.bind("ipx_darcy_misfit_cluster_geometry", [spec, i, p])
         # exact, surrogate, chain, Φ0 (n,), Φ*0 (n,), β, √(1−β²), k,
         # inner acceptance (n,), stream
         lib.bind("ipx_fused_da_pcn", [spec, spec, chain, p, p, f, f, i, p, p])

@@ -1,14 +1,20 @@
 """The launch geometry of the Darcy kernels that run in thread-block
 clusters: at 64×64 ``fused_da_pcn_cluster_kernel`` (``darcy64_da_fused``)
 and ``fused_pcn_warm_cluster_kernel`` (``darcy64_pcn_warm``), at 32×32
-``fused_pcn_warm_cluster32_kernel`` (``darcy32_pcn_warm``).
+``fused_pcn_warm_cluster32_kernel`` (``darcy32_pcn_warm``); and the
+standalone 64×64 misfits on the samplers' exact level,
+``darcy_misfit_cluster_kernel`` and ``darcy_misfit_warm_cluster_kernel``
+(Φ and x at the start positions of the two 64×64 configs).
 
-One chain runs per CTA, and the G CTAs of a cluster share each read of the
-factors (``ClusterLevel`` in ``csrc/darcy_misfit.cuh``), read through L2;
-at 32×32 in a layout of its own, at seven CTAs an SM. ``cluster_geometry``
-mirrors ``cluster_geometry`` there;
-``ipx_darcy_cluster_geometry`` returns the C side's, and the card tests and
-``chip_smoke.py`` hold the two equal.
+One chain (or draw) runs per CTA, and the G CTAs of a cluster share each
+read of the factors (``ClusterLevel`` in ``csrc/darcy_misfit.cuh``), read
+through L2; at 32×32 in a layout of its own, at seven CTAs an SM.
+``cluster_geometry`` mirrors ``cluster_geometry`` there,
+``misfit_cluster_takes`` and ``misfit_cluster_geometry`` mirror
+``misfit_cluster_takes`` and ``misfit_cluster_geometry``;
+``ipx_darcy_cluster_geometry`` and ``ipx_darcy_misfit_cluster_geometry``
+return the C side's, and the card tests and ``chip_smoke.py`` hold each
+pair equal.
 """
 
 from __future__ import annotations
@@ -94,3 +100,30 @@ def cluster_geometry(n_chains, block_chains, *, d=144, exact_n=EXACT_N, exact_mo
         raise ValueError(f"{smem} bytes of shared memory a CTA: the card gives {MAX_SMEM_BYTES}")
     clusters = -(-n_chains // G)
     return G, clusters, clusters * G, smem
+
+
+def misfit_cluster_takes(*, n, K, precond, modes, solver):
+    """Whether ``ipx_darcy_misfit`` / ``ipx_darcy_misfit_warm`` send a
+    misfit of these fields to the cluster misfit kernels: a level the 64×64
+    samplers take (an EXACT_N grid, K up to MAX_K, dst_trunc with a
+    positive multiple of 16 modes up to MAX_MODES, solved by CG). Every
+    other misfit runs one draw a CTA on the layout of its grid."""
+    return (n == EXACT_N and K <= MAX_K and precond == "dst_trunc" and modes > 0
+            and modes % 16 == 0 and modes <= min(n * n, MAX_MODES) and solver == "cg")
+
+
+def misfit_cluster_geometry(B, *, n=EXACT_N, K=MAX_K, precond="dst_trunc", modes=MAX_MODES,
+                            solver="cg"):
+    """(draws a cluster, clusters, CTAs, dynamic shared-memory bytes) of a
+    launch of the cluster misfit kernels on B draws: G draws a cluster (the
+    design's), one a CTA, the spare CTAs of a ragged last cluster run on
+    zeros; the samplers' layout. Raises ``ValueError`` for a misfit that
+    ``misfit_cluster_takes`` leaves to the other kernels, or B < 0."""
+    if not misfit_cluster_takes(n=n, K=K, precond=precond, modes=modes, solver=solver):
+        raise ValueError(f"the cluster misfit kernels take a {EXACT_N}x{EXACT_N} dst_trunc CG "
+                         f"misfit with K up to {MAX_K} and a multiple of 16 modes up to "
+                         f"{MAX_MODES}; got {n}x{n} {precond} ({modes} modes) {solver}, K {K}")
+    if B < 0:
+        raise ValueError(f"B {B}")
+    clusters = -(-B // CLUSTER_G)
+    return CLUSTER_G, clusters, clusters * CLUSTER_G, smem_bytes()

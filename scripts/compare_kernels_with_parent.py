@@ -24,11 +24,13 @@ those of the kernels in ``OLD_VS_NEW``, which this tree replaced by
 another design (the 16x16 DA kernel, one warp per chain; the 64x64 DA and
 warm pCN kernels and the 32x32 warm pCN kernel, G chains a thread-block
 cluster; the 16x16 warm pCN, whose dst_trunc products run on the tensor
-cores; their sums run in another order): there whether the outputs equal
-the parent's all the same, the share of chains (final state and records)
-within ``CHAIN_ATOL`` of the parent's and both acceptance rates are
-printed (two kernels that each round differently from the plain twin;
-chip_smoke.py holds each against the twin). The per-step times
+cores; the 64x64 dst_trunc misfits, cold and warm, on the 64x64 samplers'
+cluster level; their sums run in another order): there whether the outputs
+equal the parent's all the same, the share of chains (final state and
+records) within ``CHAIN_ATOL`` of the parent's and both acceptance rates
+are printed (two kernels that each round differently from the plain twin;
+chip_smoke.py holds each against the twin); for a misfit, Φ's relative
+difference (median, largest, share within 1e-3) and the solution's. The per-step times
 (CUDA events, slope between two launch lengths) are printed side by side
 with the parent's over this tree's, with the card's name and power limit.
 Then the registers and spill bytes that ptxas reported for each kernel of
@@ -51,8 +53,9 @@ import tempfile
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # kernels this tree replaced by another design: compared, not bit for bit
 OLD_VS_NEW = ("da_pcn", "da_pcn_richardson", "da_pcn_64", "pcn_warm_64", "pcn_warm_32",
-              "pcn_warm")
+              "pcn_warm", "misfit64_exact", "misfit64_cold", "misfit64_warm")
 CHAIN_ATOL = 1e-4  # chip_smoke.py's
+MISFIT_RTOL = 1e-3  # the rtol of chip_smoke.py's LARGE_BF16_TOL
 
 
 def _row(key: str) -> str:
@@ -67,6 +70,10 @@ def old_vs_new(parent: dict, new: dict, rows) -> None:
     import torch
 
     for row in OLD_VS_NEW:
+        if row.startswith("misfit"):
+            if rows is None or "misfits" in rows:
+                misfit_old_vs_new(parent, new, row)
+            continue
         if rows is not None and row not in rows:
             continue
         final = (new[f"{row}_0"] - parent[f"{row}_0"]).abs().amax(dim=1)
@@ -76,6 +83,26 @@ def old_vs_new(parent: dict, new: dict, rows) -> None:
         equal = all(torch.equal(parent[f"{row}_{i}"], new[f"{row}_{i}"]) for i in range(3))
         print(f"  {row}: bit for bit {equal}; {frac:.4f} of chains within {CHAIN_ATOL} of the "
               f"parent's (final state and records), acceptance parent {acc_p:.4f} new {acc_n:.4f}")
+
+
+def misfit_old_vs_new(parent: dict, new: dict, row: str) -> None:
+    """A misfit row of OLD_VS_NEW: bit for bit or not; Φ's relative
+    difference to the parent's, and (warm) the solution's per draw relative
+    to the draw's largest cell."""
+    import torch
+
+    keys = sorted(k for k in parent if k.rsplit("_", 1)[0] == row)
+    equal = all(torch.equal(parent[k], new[k]) for k in keys)
+    phi_p, phi_n = parent[f"{row}_phi"], new[f"{row}_phi"]
+    rel = (phi_n - phi_p).abs() / phi_p.abs()
+    line = (f"  {row}: bit for bit {equal}; Phi relative to the parent's: median "
+            f"{float(rel.median()):.3e}, max {float(rel.max()):.3e}, "
+            f"{float((rel <= MISFIT_RTOL).double().mean()):.4f} within {MISFIT_RTOL}")
+    if f"{row}_x" in parent:
+        x_p, x_n = parent[f"{row}_x"], new[f"{row}_x"]
+        err = (x_n - x_p).abs().amax(dim=0) / x_p.abs().amax(dim=0)
+        line += f"; solution: max {float(err.max()):.3e} of its largest cell"
+    print(line)
 
 
 def worker(out_path: str, rows) -> int:
@@ -117,12 +144,14 @@ def worker(out_path: str, rows) -> int:
     da3 = configs.build("burgers_da3_pcn", "cuda")
     da3_kp = da3.kernel_params
 
-    # the large grids: darcy64_da_fused's two misfits, the cold and warm
-    # misfits of darcy32_pcn_warm and darcy64_pcn_warm, 1024 draws each
+    # the large grids: darcy64_da_fused's two misfits and darcy32_pcn_warm's
+    # and darcy64_pcn_warm's cold misfits, 1024 draws each; their warm
+    # misfits at their configs' widths (2048 at 64x64, 1024 at 32x32)
     da64 = configs.build("darcy64_da_fused", "cuda")
     pcn64, pcn32 = (configs.build(c, "cuda") for c in ("darcy64_pcn_warm", "darcy32_pcn_warm"))
     U144 = da64.prior.sample(gen, 1024).T.contiguous()
     U64 = pcn32.prior.sample(gen, 1024).T.contiguous()
+    U144w = da64.prior.sample(gen, 2048).T.contiguous()
 
     outputs, times = {}, {}
     if rows is None or "misfits" in rows:
@@ -143,11 +172,11 @@ def worker(out_path: str, rows) -> int:
                              ("misfit64_surrogate", da64.batched_surrogate_fn, U144),
                              ("misfit64_cold", pcn64.batched_potential_fn, U144),
                              ("misfit32_cold", pcn32.batched_potential_fn, U64)):
-            outputs[name] = pot(V)
+            outputs[f"{name}_phi"] = pot(V)
             times[name] = time_ms(lambda: pot(V), 5)
-        for name, p, V in (("misfit64_warm", pcn64, U144), ("misfit32_warm", pcn32, U64)):
+        for name, p, V in (("misfit64_warm", pcn64, U144w), ("misfit32_warm", pcn32, U64)):
             w, dim = p.batched_warm_potential
-            z = torch.zeros(dim, 1024, device="cuda")
+            z = torch.zeros(dim, V.shape[1], device="cuda")
             outputs[f"{name}_phi"], outputs[f"{name}_x"] = w(V, z)
             times[name] = time_ms(lambda: w(V, z), 5)
     w64, w64_dim = pcn64.batched_warm_potential

@@ -181,3 +181,95 @@ def test_64_geometry_is_unchanged_by_the_32_layout():
     assert _cluster.cluster_geometry(1024, 128) == (8, 128, 1024, SMEM)
     assert _cluster.cluster_geometry(2048, 128, surr_n=None) == (8, 256, 2048, SMEM)
     assert (_cluster.CLUSTER_G, _cluster.CLUSTER_THREADS) == (8, 512)
+
+
+# --- the standalone 64² misfits on the samplers' cluster level ----------------
+# (darcy_misfit_cluster_kernel, darcy_misfit_warm_cluster_kernel)
+
+
+@pytest.mark.parametrize("B, clusters", [(1024, 128), (2048, 256), (13, 2), (1, 1), (0, 0)])
+def test_misfit_cluster_geometry(B, clusters):
+    """One draw a CTA, G draws a cluster, in the samplers' layout: the
+    widths of darcy64_da_fused's exact misfit (1024) and darcy64_pcn_warm's
+    warm misfit (2048), a ragged 13 (two clusters, 16 CTAs, 3 spare) and
+    none."""
+    assert _cluster.misfit_cluster_geometry(B) == (G, clusters, clusters * G, SMEM)
+
+
+def _takes(pot):
+    return _cluster.misfit_cluster_takes(n=pot.n, K=pot.K, precond=pot.precond,
+                                         modes=pot.modes, solver=pot.solver)
+
+
+def test_misfit_cluster_takes_the_specs_of_both_configs():
+    """darcy64_da_fused's exact misfit (dst_trunc-256, 16 CG), and
+    darcy64_pcn_warm's warm misfit (dst_trunc-256, 4 CG) and cold misfit
+    (dst_trunc-256, 30 CG, on no path): each a level of the 64² samplers."""
+    da_p, pcn_p = (configs.build(c, "cpu") for c in ("darcy64_da_fused", "darcy64_pcn_warm"))
+    for pot in (da_p.batched_potential_fn, pcn_p.batched_warm_potential[0],
+                pcn_p.batched_potential_fn):
+        assert _takes(pot) and pot.on_cluster
+        assert _cluster.misfit_cluster_geometry(
+            1024, n=pot.n, K=pot.K, precond=pot.precond, modes=pot.modes,
+            solver=pot.solver) == (G, 128, 1024, SMEM)
+    assert not _takes(da_p.batched_surrogate_fn)  # its 32² surrogate
+
+
+@pytest.mark.parametrize("kw", [
+    dict(precond="jacobi", modes=0),     # a 64² Jacobi misfit
+    dict(modes=100),                     # not a multiple of 16
+    dict(modes=272),                     # more than the layout holds
+    dict(K=200),                         # K above the layout's 144
+    dict(n=32, modes=128),               # the 32² grid
+    dict(solver="richardson"),           # K17's solve
+    dict(precond="dst", modes=0),        # the dense dst preconditioner
+])
+def test_misfit_cluster_leaves_the_other_specs(kw):
+    """What the cluster level does not take stays on the kernels of its
+    layout (one draw a CTA), and the geometry refuses it."""
+    spec = {**dict(n=64, K=144, precond="dst_trunc", modes=256, solver="cg"), **kw}
+    assert not _cluster.misfit_cluster_takes(**spec)
+    with pytest.raises(ValueError, match="cluster misfit kernels take"):
+        _cluster.misfit_cluster_geometry(64, **spec)
+
+
+def test_misfit_cluster_geometry_refuses_a_negative_width():
+    with pytest.raises(ValueError, match="B -1"):
+        _cluster.misfit_cluster_geometry(-1)
+
+
+def test_misfit_kernel_labels():
+    """The launch counts name the cluster kernels for the two 64² configs'
+    misfits and the kernels of their layout for every other shipped one."""
+    names = {}
+    for c in ("darcy64_da_fused", "darcy64_pcn_warm", "darcy32_pcn_warm", "darcy_pcn_warm",
+              "darcy_da_fused"):
+        p = configs.build(c, "cpu")
+        names[c] = [p.batched_potential_fn.kernel_label]
+        if p.batched_surrogate_fn is not None:
+            names[c].append(p.batched_surrogate_fn.kernel_label)
+        if p.batched_warm_potential is not None:
+            names[c].append(p.batched_warm_potential[0].warm_kernel_label)
+    assert names == {
+        "darcy64_da_fused": ["darcy_misfit_cluster_kernel[n=64]", "darcy_misfit_kernel[n=32]"],
+        "darcy64_pcn_warm": ["darcy_misfit_cluster_kernel[n=64]",
+                             "darcy_misfit_warm_cluster_kernel"],
+        "darcy32_pcn_warm": ["darcy_misfit_kernel[n=32]", "darcy_misfit_warm_kernel"],
+        "darcy_pcn_warm": ["darcy_misfit_kernel[n=16]", "darcy_misfit_warm_kernel"],
+        "darcy_da_fused": ["darcy_misfit_kernel[n=16]", "darcy_misfit_kernel[n=8]"],
+    }
+
+
+def test_misfit_kernel_labels_of_64_specs_the_cluster_leaves():
+    """A 64² Jacobi misfit, cold and warm, keeps the Layout64 kernels'
+    names."""
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays, darcy_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    aux = darcy.darcy_aux(n_grid=64, n_modes_per_dim=12, alpha=2.0, field_scale=10.0)
+    y = configs.build("darcy64_pcn_warm", "cpu").data
+    cold = darcy_misfit_from_arrays(aux, y, 0.002, cg_iters=16)
+    warm, _ = darcy_warm_misfit_from_arrays(aux, y, 0.002, cg_iters=16, precond="jacobi")
+    assert not cold.on_cluster and not warm.on_cluster
+    assert cold.kernel_label == "darcy_misfit_kernel[n=64]"
+    assert warm.warm_kernel_label == "darcy_misfit_warm_kernel"

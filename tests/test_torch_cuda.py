@@ -564,7 +564,8 @@ def large_problem(request):
 def test_large_grid_misfit_kernels_match_plain(large_problem):
     """The cold misfit (32²: Jacobi-96, all f32; 64²: dst_trunc-256, 30 CG)
     and the warm dst_trunc misfit from x0 = 0 and from that solution after
-    a pCN-sized move, several cells a thread; bf16 rounding flips as in
+    a pCN-sized move, several cells a thread (at 64² on the samplers'
+    cluster level); bf16 rounding flips as in
     tests/test_torch_darcy_large.py."""
     p = large_problem
     g = torch.Generator().manual_seed(7)
@@ -632,8 +633,9 @@ def darcy64_da():
 
 
 def test_darcy64_da_misfit_kernels_match_plain(darcy64_da):
-    """The exact misfit (64², dst_trunc-256, 16 CG, Layout64) and the
-    surrogate (32², dst_trunc-128, 3 CG, Layout32) of darcy64_da_fused;
+    """The exact misfit (64², dst_trunc-256, 16 CG, on the samplers' cluster
+    level) and the surrogate (32², dst_trunc-128, 3 CG, Layout32) of
+    darcy64_da_fused;
     bf16 rounding flips as in tests/test_torch_darcy64_da.py."""
     p = darcy64_da
     U = p.prior.sample(torch.Generator().manual_seed(10), 256).T.contiguous()
@@ -943,6 +945,112 @@ def test_cluster32_kernel_refuses_what_it_does_not_take():
         status = lib.ipx_darcy_cluster_geometry(ctypes.byref(warm.spec()), None,
                                                 ctypes.byref(args), out)
         assert "not supported" in lib.ipx_error_string(status).decode()
+
+
+# --- the standalone 64² misfits on the samplers' cluster level ----------------
+# --- (darcy_misfit_cluster_kernel, darcy_misfit_warm_cluster_kernel) ----------
+
+
+def _misfit_rel_ok(phi, ref):
+    """chip_smoke.py's LARGE_BF16_TOL: bf16 rounding flips, summed on the
+    tensor cores in another order than the plain twin's products."""
+    rel = _rel(phi, ref)
+    assert float(rel.median()) <= 2e-4
+    assert float((rel <= 1e-3).double().mean()) >= 0.90
+    assert float(rel.max()) <= 5e-3
+
+
+def test_misfit_cluster_kernel_on_a_ragged_width(darcy64_da):
+    """darcy64_da_fused's exact misfit on 13 draws: two clusters of 8 CTAs,
+    3 spare. A draw's columns of the cluster's products depend on it
+    alone, so Φ equals the first 13 of a 16-draw launch bit for bit and
+    agrees with the plain twin."""
+    pot = darcy64_da.batched_potential_fn
+    U = darcy64_da.prior.sample(torch.Generator().manual_seed(30), 16).T.contiguous()
+    assert pot.kernel_label == "darcy_misfit_cluster_kernel[n=64]"
+    before = _build.launch_counts[pot.kernel_label]
+    got, full = pot(U[:, :13].contiguous()), pot(U)
+    assert _build.launch_counts[pot.kernel_label] == before + 2
+    assert torch.equal(got, full[:13])
+    _misfit_rel_ok(got, pot._forward_plain(U[:, :13]))
+
+
+def test_misfit_warm_cluster_kernel_on_a_ragged_width():
+    """darcy64_pcn_warm's warm misfit on 13 draws, from x0 = 0 and from the
+    previous solution after a pCN-sized move: (Φ, x) equal the first 13 of
+    a 16-draw launch bit for bit and agree with the plain twin."""
+    p = _build_on_card("darcy64_pcn_warm")
+    warm, aux_dim = p.batched_warm_potential
+    assert warm.warm_kernel_label == "darcy_misfit_warm_cluster_kernel"
+    g = torch.Generator().manual_seed(31)
+    U = p.prior.sample(g, 16).T.contiguous()
+    U2 = (0.9982 * U + 0.06 * p.prior.sample(g, 16).T).contiguous()
+    x0 = torch.zeros(aux_dim, 16, device="cuda")
+    before = _build.launch_counts[warm.warm_kernel_label]
+    for V in (U, U2):
+        (phi, x), (phi16, x16) = warm(V[:, :13].contiguous(), x0[:, :13].contiguous()), warm(V, x0)
+        assert torch.equal(phi, phi16[:13]) and torch.equal(x, x16[:, :13])
+        ref_phi, ref_x = warm._forward_warm_plain(V[:, :13], x0[:, :13])
+        _misfit_rel_ok(phi, ref_phi)
+        assert float(_col_err(x, ref_x).max()) <= 5e-3
+        x0 = x16
+    assert _build.launch_counts[warm.warm_kernel_label] == before + 4
+
+
+def test_misfit_cluster_geometry_matches_the_kernel():
+    """ops/_cluster.py misfit_cluster_geometry and misfit_cluster_takes give
+    what the C function computes: the geometry of the specs it takes, and
+    cudaErrorNotSupported for those it leaves to the layouts' kernels."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+    from ip_mcmc_tpu_torch.ops import _cluster
+
+    da_p = _build_on_card("darcy64_da_fused")
+    pcn_p = _build_on_card("darcy64_pcn_warm")
+    aux = darcy.darcy_aux(n_grid=64, n_modes_per_dim=12, alpha=2.0, field_scale=10.0)
+    jacobi = darcy_misfit_from_arrays(aux, pcn_p.data, 0.002, cg_iters=16).cuda()
+    lib = _build.library()
+    pots = (da_p.batched_potential_fn, da_p.batched_surrogate_fn, pcn_p.batched_potential_fn,
+            pcn_p.batched_warm_potential[0], pcn_p.batched_warm_potential[0], jacobi)
+    for pot in pots:
+        kw = dict(n=pot.n, K=pot.K, precond=pot.precond, modes=pot.modes, solver=pot.solver)
+        for B in (1024, 2048, 13, 1, 0):
+            out = (ctypes.c_int * 4)()
+            status = lib.ipx_darcy_misfit_cluster_geometry(ctypes.byref(pot.spec()), B, out)
+            if _cluster.misfit_cluster_takes(**kw):
+                assert status == 0 and tuple(out) == _cluster.misfit_cluster_geometry(B, **kw)
+            else:
+                assert "not supported" in lib.ipx_error_string(status).decode()
+
+
+def test_layout64_misfits_take_a_spec_the_cluster_leaves():
+    """A 64² dst_trunc-256 misfit on a finer prior, K = 196 (above the
+    cluster layout's 144), cold (16 CG) and warm (4 CG from x0 = 0), stays
+    on the Layout64 kernels (one draw a CTA) and meets its twin under the
+    bound of the 64² rows."""
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays, darcy_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    p = _build_on_card("darcy64_pcn_warm")
+    aux = darcy.darcy_aux(n_grid=64, n_modes_per_dim=14, alpha=2.0, field_scale=10.0)
+    kw = dict(precond="dst_trunc", precond_modes=256)
+    cold = darcy_misfit_from_arrays(aux, p.data, 0.002, cg_iters=16, **kw).cuda()
+    warm, aux_dim = darcy_warm_misfit_from_arrays(aux, p.data, 0.002, cg_iters=4, **kw)
+    warm = warm.cuda()
+    assert cold.K == 196 and not cold.on_cluster and not warm.on_cluster
+    U = torch.randn(196, 64, generator=torch.Generator().manual_seed(32)).cuda()
+    before = (_build.launch_counts["darcy_misfit_kernel[n=64]"],
+              _build.launch_counts["darcy_misfit_warm_kernel"])
+    _misfit_rel_ok(cold(U), cold._forward_plain(U))
+    x0 = torch.zeros(aux_dim, 64, device="cuda")
+    phi, x = warm(U, x0)
+    ref_phi, ref_x = warm._forward_warm_plain(U, x0)
+    _misfit_rel_ok(phi, ref_phi)
+    assert float(_col_err(x, ref_x).max()) <= 5e-3
+    assert (_build.launch_counts["darcy_misfit_kernel[n=64]"],
+            _build.launch_counts["darcy_misfit_warm_kernel"]) == (before[0] + 1, before[1] + 1)
 
 
 # --- elliptical slice sampling: one warp per chain (fused_ess_warp_kernel) -----
