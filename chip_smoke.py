@@ -8,14 +8,17 @@ on the card at the shapes of the ported paths (4096 chains on the Darcy
 problem, 2048 on Burgers and lingauss_pcn, 8192 and 1024 on the 2-D
 Gaussians), times both, then drives the ported paths at full width:
 
-    darcy_da_fused           delayed-acceptance pCN     (K1-K5)
+    darcy_da_fused           delayed-acceptance pCN     (K1-K5); the exact
+                             misfit at the start positions a draw a warp on
+                             the DA kernel's exact level
     darcy_da_richardson      the same with each surrogate of
                              benchmarks/darcy_da_richardson.py: three solved
                              by Richardson (K17), the CG one beside them
     darcy_pcn_warm           warm-started pCN           (K7), a chain a warp
     darcy32_pcn_warm         warm pCN on 32 x 32 cells  (K5, K7), G chains
                              a thread-block cluster, 7 CTAs an SM, the
-                             factors read through L2
+                             factors read through L2; the warm misfit at
+                             the start positions on the same cluster level
     darcy64_pcn_warm         warm pCN on 64 x 64 cells  (K5, K7), G chains
                              a thread-block cluster; the warm misfit at the
                              start positions on the same cluster level
@@ -95,6 +98,12 @@ RICH_BF16_TOL = (5e-5, 1e-4, 0.80, 5e-3)
 # stop unconverged (on the CPU against JAX: up to 2.3e-4 from x0 = 0, 3.6e-5
 # from a carried solution; tests/test_torch_darcy_large.py)
 LARGE_BF16_TOL = (2e-4, 1e-3, 0.90, 5e-3)
+# 16 Jacobi CG iterations at 32x32 stop far from convergence, where f32
+# rounding is not damped: from x0 = 0 the plain version in f32 differs from
+# itself in f64 by a median over ten times F32_TOL's
+# (tests/test_torch_cluster.py), so summation order alone moves Phi as
+# bf16 flips do on the 32x32 grids; their bounds hold
+UNCONVERGED_32_TOL = LARGE_BF16_TOL
 # Gradients and adjoint solutions, per draw relative to the draw's largest
 # entry. The residuals are divided by sigma^2 = 4e-6 on their way into the
 # adjoint's right-hand side, which amplifies rounding in the forward
@@ -307,8 +316,9 @@ def compare_misfit(results, pot, U, *, variant, paths, tol, x0=None,
     from ip_mcmc_tpu_torch.ops import _build
 
     warm = x0 is not None
-    # the kernel the spec is sent to (at 64x64 on dst_trunc CG the cluster
-    # kernels, in the same sources as the one-draw-a-CTA kernels)
+    # the kernel the spec is sent to (at 64x64 and 32x32 on dst_trunc CG
+    # the cluster kernels, at 16x16 on the DA kernel's exact level the warp
+    # kernel, in the same sources as the one-draw-a-CTA kernels)
     name = pot.warm_kernel_label if warm else pot.kernel_label
     kern = (lambda: pot(U, x0)) if warm else (lambda: pot(U))
     plain = ((lambda: pot._forward_warm_plain(U, x0)) if warm
@@ -407,6 +417,8 @@ def compare_chain(results, stem, recorded, kern, plain, *, steps, kernel_long,
 # the 16x16 DA kernel: one warp per chain, the preconditioner's products
 # on the tensor cores over a CTA's chains
 DA16 = "fused_da_pcn_warp_kernel"
+# its exact misfit at the start positions, a draw a warp on its exact level
+MISFIT16 = "darcy_misfit_warp_kernel[n=16]"
 # elliptical slice sampling: one warp per chain, Jacobi solves
 ESS = "fused_ess_warp_kernel"
 # the ensemble sampler and the three-level Burgers DA: one warp per chain
@@ -1099,10 +1111,13 @@ def check_large_grids(problems, gen, results):
     """K5 and K7 on the 32x32 and 64x64 grids at their configs' widths: the
     cold misfit kernel (no path launches it: the warm runs start from the
     warm misfit), the warm misfit kernel from x0 = 0 and from a previous
-    solution, and the warm pCN kernel (at 64x64 the cluster kernel), plain
-    and recorded; at 64x64 both misfits run on the cluster level. Then the
-    Layout64 kernels on a 64x64 spec the cluster level leaves (K 196, cold
-    and warm; no path launches them)."""
+    solution, and the warm pCN kernel (the cluster kernel of each grid),
+    plain and recorded; the warm misfits, and at 64x64 the cold one, run on
+    the samplers' cluster level. Then the 32x32 cluster level's cold
+    misfit on a dst_trunc CG spec, the Layout32 warm kernel on a 32x32
+    spec the cluster level leaves (Jacobi / 16 CG), and the Layout64
+    kernels on a 64x64 spec the cluster level leaves (K 196, cold and
+    warm); no path launches these."""
     from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays, darcy_warm_misfit_from_arrays
     from ip_mcmc_tpu_torch.models import darcy
     from ip_mcmc_tpu_torch.ops import fused_pcn
@@ -1142,6 +1157,31 @@ def check_large_grids(problems, gen, results):
                 variant=f"{what}, block {block}", paths=[config], source="fused_pcn.cu",
                 pots=(warm,), per_step_ops=ops)
 
+    # the cold twin of darcy32_pcn_warm's warm misfit on the 32x32 cluster
+    # level (no path: the config's cold misfit is Jacobi)
+    p32 = problems["darcy32_pcn_warm"]
+    cold = misfit32_cold(p32)
+    assert cold.kernel_label == MISFIT32
+    U = p32.prior.sample(gen, p32.n_chains).T.contiguous()
+    compare_misfit(results, cold, U, variant=f"32x32 cold: dst_trunc-128, {cold.cg_iters} CG, K 64",
+                   paths=[], tol=LARGE_BF16_TOL, replaces=JAX_DARCY + "542")
+    # a 32x32 warm spec the cluster level leaves (Jacobi): the Layout32
+    # warm kernel, from x0 = 0 and from the previous solution
+    aux = darcy.darcy_aux(n_grid=32, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    warm, aux_dim = darcy_warm_misfit_from_arrays(aux, p32.data, 0.002, cg_iters=16,
+                                                  precond="jacobi")
+    warm = warm.cuda()
+    assert not warm.on_cluster and warm.warm_kernel_label == "darcy_misfit_warm_kernel"
+    step = p32.prior.sample(gen, p32.n_chains).T.contiguous()
+    beta = p32.kernel_params["beta"]
+    U2 = (math.sqrt(1 - beta ** 2) * U + beta * step).contiguous()  # a pCN move
+    what = "32x32 jacobi, 16 CG, K 64: a spec the cluster level leaves"
+    _, x1 = compare_misfit(results, warm, U, x0=torch.zeros(aux_dim, p32.n_chains, device="cuda"),
+                           variant=f"{what}, x0 = 0", paths=[], tol=UNCONVERGED_32_TOL,
+                           replaces=JAX_DARCY + "669")
+    compare_misfit(results, warm, U2, x0=x1, variant=f"{what}, x0 = previous solution",
+                   paths=[], tol=UNCONVERGED_32_TOL, replaces=JAX_DARCY + "669")
+
     # a finer prior than the layout of the cluster level holds (K 196)
     aux = darcy.darcy_aux(n_grid=64, n_modes_per_dim=14, alpha=2.0, field_scale=10.0)
     data, kw = problems["darcy64_pcn_warm"].data, dict(precond="dst_trunc", precond_modes=256)
@@ -1161,6 +1201,18 @@ def check_large_grids(problems, gen, results):
 # the draws of the Layout64 rows (a spec the cluster level leaves)
 LAYOUT64_DRAWS = 256
 
+
+def misfit32_cold(problem, cg_iters=16):
+    """A cold 32x32 dst_trunc-128 CG misfit on darcy32_pcn_warm's prior and
+    data: a spec of the 32x32 cluster level that no config's cold misfit
+    has (darcy_misfit_cluster32_kernel, the warm misfit's twin)."""
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    aux = darcy.darcy_aux(n_grid=32, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    return darcy_misfit_from_arrays(aux, problem.data, 0.002, cg_iters=cg_iters,
+                                    precond="dst_trunc", precond_modes=128).cuda()
+
 # darcy64_da_fused on the JAX package on a TPU v5e (config comment, l.861-867
 # and l.907-912; BASELINE.md round 5, item 7): what does not depend on the
 # hardware
@@ -1172,12 +1224,19 @@ DA64 = "fused_da_pcn_cluster_kernel"
 PCN64 = "fused_pcn_warm_cluster_kernel"
 PCN32 = "fused_pcn_warm_cluster32_kernel"
 # the 64x64 misfits at the start positions of the two 64x64 configs, on the
-# samplers' cluster level
+# samplers' cluster level; at 32x32 darcy32_pcn_warm's warm misfit and its
+# cold twin (no path), on the 32x32 warm pCN's level
 MISFIT64 = "darcy_misfit_cluster_kernel[n=64]"
 MISFIT64_WARM = "darcy_misfit_warm_cluster_kernel"
-# ... their instantiations as ptxas names them, mangled and demangled
-MISFIT64_PTXAS = {MISFIT64: ("darcy_misfit_cluster_kernel",),
-                  MISFIT64_WARM: ("darcy_misfit_warm_cluster_kernel",)}
+MISFIT32 = "darcy_misfit_cluster32_kernel[n=32]"
+MISFIT32_WARM = "darcy_misfit_warm_cluster32_kernel"
+# ... these and the 16x16 warp misfit as ptxas names them, mangled and
+# demangled (each name is in no other kernel's)
+MISFIT_PTXAS = {MISFIT64: ("darcy_misfit_cluster_kernel",),
+                MISFIT64_WARM: ("darcy_misfit_warm_cluster_kernel",),
+                MISFIT32: ("darcy_misfit_cluster32_kernel",),
+                MISFIT32_WARM: ("darcy_misfit_warm_cluster32_kernel",),
+                MISFIT16: ("darcy_misfit_warp_kernel",)}
 
 
 def check_da64(problem, gen, results):
@@ -1299,10 +1358,11 @@ def check_cluster(problems):
 
 def check_misfit_cluster_geometry(problems):
     """The standalone cluster misfits' geometry: for the two 64x64 configs'
-    misfits the Python mirror against the C function at their widths, a
-    ragged 13, 1 and 0 draws; for specs the cluster level leaves (the 32x32
-    surrogate, the 32x32 warm misfit, a 64x64 Jacobi misfit), C's
-    cudaErrorNotSupported against the mirror's refusal."""
+    misfits, darcy32_pcn_warm's warm misfit and its cold twin the Python
+    mirror against the C function at their widths, a ragged 13, 1 and 0
+    draws; for specs the cluster levels leave (darcy64_da_fused's 32x32
+    surrogate, K 144; darcy32_pcn_warm's cold Jacobi misfit; a 64x64 Jacobi
+    misfit), C's cudaErrorNotSupported against the mirror's refusal."""
     import ctypes
 
     from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
@@ -1311,11 +1371,14 @@ def check_misfit_cluster_geometry(problems):
 
     lib = _build.library()
     da_p, pcn_p = problems["darcy64_da_fused"], problems["darcy64_pcn_warm"]
+    p32 = problems["darcy32_pcn_warm"]
     aux = darcy.darcy_aux(n_grid=64, n_modes_per_dim=12, alpha=2.0, field_scale=10.0)
     taken = ((da_p.batched_potential_fn, da_p.n_chains),
              (pcn_p.batched_warm_potential[0], pcn_p.n_chains),
-             (pcn_p.batched_potential_fn, pcn_p.n_chains))
-    left = (da_p.batched_surrogate_fn, problems["darcy32_pcn_warm"].batched_warm_potential[0],
+             (pcn_p.batched_potential_fn, pcn_p.n_chains),
+             (p32.batched_warm_potential[0], p32.n_chains),
+             (misfit32_cold(p32), p32.n_chains))
+    left = (da_p.batched_surrogate_fn, p32.batched_potential_fn,
             darcy_misfit_from_arrays(aux, pcn_p.data, 0.002, cg_iters=30).cuda())
 
     def geometry(pot, B):
@@ -1324,7 +1387,7 @@ def check_misfit_cluster_geometry(problems):
 
     shipped = []
     for pot, width in taken:
-        kw = dict(n=pot.n, K=pot.K, precond=pot.precond, modes=pot.modes, solver=pot.solver)
+        kw = pot.spec_fields
         for B in (width, 13, 1, 0):
             status, out = geometry(pot, B)
             want = _cluster.misfit_cluster_geometry(B, **kw)
@@ -1334,14 +1397,84 @@ def check_misfit_cluster_geometry(problems):
         shipped.append(_cluster.misfit_cluster_geometry(width, **kw))
     for pot in left:
         status, _ = geometry(pot, 64)
-        takes = _cluster.misfit_cluster_takes(n=pot.n, K=pot.K, precond=pot.precond,
-                                              modes=pot.modes, solver=pot.solver)
+        takes = _cluster.misfit_cluster_takes(**pot.spec_fields)
         if status != 801 or takes:  # cudaErrorNotSupported
             raise AssertionError(f"cluster misfit on {pot.n}x{pot.n} {pot.precond}: C status "
                                  f"{status}, Python takes {takes}")
-    print(f"misfit cluster geometry: Python mirror equals the C function for {MISFIT64} and "
-          f"{MISFIT64_WARM} (shipped: {shipped[0]} and {shipped[1]}); C and Python leave the "
-          f"same {len(left)} other specs to the layouts' kernels", flush=True)
+    print(f"misfit cluster geometry: Python mirror equals the C function for {MISFIT64}, "
+          f"{MISFIT64_WARM}, {MISFIT32_WARM} and {MISFIT32} (shipped: {shipped[0]}, "
+          f"{shipped[1]}, {shipped[3]}); C and Python leave the same {len(left)} other specs "
+          f"to the layouts' kernels", flush=True)
+
+
+def check_misfit_levels(problems, richardson):
+    """What the standalone misfits on the samplers' levels add beside their
+    twins. For darcy_misfit_warp_kernel: the Python mirror of its rule and
+    geometry against the C function, for darcy_da_fused's exact misfit and
+    the Richardson runs' at 4096, a ragged 13, 1 and 0 draws; for the specs
+    it leaves (the 8x8 surrogates, CG and Richardson; the 16x16 Jacobi / 48
+    CG misfit of ESS, cold pCN and FES; a 32x32 misfit), C's
+    cudaErrorNotSupported against the mirror's refusal. Then a ragged width
+    for it and for the 32x32 cluster misfits, warm and cold: Φ (and x) on
+    13 draws equal bit for bit to the first 13 of the kernel's own 16-draw
+    run."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.ops import _build
+    from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
+
+    lib = _build.library()
+    da_p, p32 = problems["darcy_da_fused"], problems["darcy32_pcn_warm"]
+    rich = richardson["rich3_w0.9"]
+    taken = (da_p.batched_potential_fn, rich.batched_potential_fn)
+    left = (da_p.batched_surrogate_fn, rich.batched_surrogate_fn,
+            problems["darcy_ess_fused"].batched_potential_fn, misfit32_cold(p32))
+
+    def geometry(pot, B):
+        out = (ctypes.c_int * 3)()
+        return lib.ipx_darcy_misfit_warp_geometry(ctypes.byref(pot.spec()), B, out), tuple(out)
+
+    for pot in taken:
+        for B in (N_CHAINS, 13, 1, 0):
+            status, out = geometry(pot, B)
+            want = da.misfit_warp_geometry(B, **pot.spec_fields)
+            if status != 0 or out != want:
+                raise AssertionError(f"misfit warp geometry at {B} draws: C {out} (status "
+                                     f"{status}), Python {want}")
+    for pot in left:
+        status, _ = geometry(pot, 64)
+        if status != 801 or da.misfit_warp_takes(**pot.spec_fields):  # cudaErrorNotSupported
+            raise AssertionError(f"warp misfit on {pot.n}x{pot.n} {pot.precond} {pot.solver}: "
+                                 f"C status {status}")
+    print(f"misfit warp geometry: Python mirror equals the C function for {MISFIT16} "
+          f"(shipped: {da.misfit_warp_geometry(N_CHAINS)}); C and Python leave the same "
+          f"{len(left)} other specs to the other kernels", flush=True)
+
+    g = torch.Generator().manual_seed(33)
+    exact, cold32 = da_p.batched_potential_fn, misfit32_cold(p32)
+    warm32, aux_dim = p32.batched_warm_potential
+    for pot, prior, what in ((exact, da_p.prior, "16 draws a CTA, 3 spare warps"),
+                             (cold32, p32.prior, "8 draws a cluster, 3 spare CTAs")):
+        U = prior.sample(g, 16).T.contiguous()
+        got, full = pot(U[:, :13].contiguous()), pot(U)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, full[:13])
+        print(f"{pot.kernel_label} ragged (13 draws, {what}): equal to the first 13 of 16 "
+              f"{equal}", flush=True)
+        if not equal:
+            raise AssertionError(f"{pot.kernel_label} on a ragged width disagrees")
+    U = p32.prior.sample(g, 16).T.contiguous()
+    x0 = torch.zeros(aux_dim, 16, device="cuda")
+    for start in ("x0 = 0", "x0 = previous solution"):
+        (phi, x), (phi16, x16) = warm32(U[:, :13].contiguous(), x0[:, :13].contiguous()), warm32(U, x0)
+        torch.cuda.synchronize()
+        equal = torch.equal(phi, phi16[:13]) and torch.equal(x, x16[:, :13])
+        print(f"{MISFIT32_WARM} ragged (13 draws, 8 a cluster, 3 spare CTAs, {start}): (Phi, x) "
+              f"equal to the first 13 of 16 {equal}", flush=True)
+        if not equal:
+            raise AssertionError(f"{MISFIT32_WARM} on a ragged width disagrees")
+        U = (0.9968 * U + 0.08 * p32.prior.sample(g, 16).T).contiguous()  # a pCN move
+        x0 = x16
 
 
 def check_geometry(what, cases, c_geometry, py_geometry):
@@ -2039,11 +2172,11 @@ def run_lingauss_fused(problem):
 
 # config -> (CLI flags, kernels the run must launch)
 PATHS = {
-    "darcy_da_fused": ([], ("darcy_misfit_kernel[n=16]", "darcy_misfit_kernel[n=8]",
-                            f"{DA16}<false>", f"{DA16}<true>")),
+    "darcy_da_fused": ([], (MISFIT16, "darcy_misfit_kernel[n=8]", f"{DA16}<false>",
+                            f"{DA16}<true>")),
     "darcy_pcn_warm": ([], ("darcy_misfit_warm_kernel", f"{PCN_WARM}<false>",
                             f"{PCN_WARM}<true>")),
-    "darcy32_pcn_warm": ([], ("darcy_misfit_warm_kernel", f"{PCN32}<false>", f"{PCN32}<true>")),
+    "darcy32_pcn_warm": ([], (MISFIT32_WARM, f"{PCN32}<false>", f"{PCN32}<true>")),
     "darcy64_pcn_warm": ([], (MISFIT64_WARM, f"{PCN64}<false>", f"{PCN64}<true>")),
     "darcy64_da_fused": ([], (MISFIT64, "darcy_misfit_kernel[n=32]", f"{DA64}<false>",
                               f"{DA64}<true>")),
@@ -2160,6 +2293,7 @@ def main() -> int:
     check_large_grids(problems, gen, results)
     check_da64(problems["darcy64_da_fused"], gen, results)
     check_cluster(problems)
+    check_misfit_levels(problems, richardson)
     check_ess_warp(problems["darcy_ess_fused"])
     check_da3_warp(problems["burgers_da3_pcn"])
     check_fes_warp(problems["darcy_fes_fused"])
@@ -2168,7 +2302,7 @@ def main() -> int:
     check_gradient_and_ensemble(problems, gen, results)
     check_burgers(problems, gen, results)
     check_burgers_warp(problems, gen, results)
-    attach_ptxas(results, ptxas, {**MALA_PTXAS, **PCN_PTXAS, **BURGERS_PTXAS, **MISFIT64_PTXAS})
+    attach_ptxas(results, ptxas, {**MALA_PTXAS, **PCN_PTXAS, **BURGERS_PTXAS, **MISFIT_PTXAS})
     check_linear_family(problems, gen, results)
 
     # the fused linear-Gaussian paths, each with the counts set to 0 before it

@@ -1784,7 +1784,9 @@ namespace cg = cooperative_groups;
 // shared memory).
 struct ClusterDesign { static constexpr int kG = 8, kCells = 8, kThreads = 512, kMinCtas = 2; static constexpr bool kSurrMmaCoef = true, kSurrMmaBack = false; };
 
-// The 32 x 32 warm pCN kernel (fused_pcn_warm_cluster32_kernel;
+// The 32 x 32 warm pCN kernel (fused_pcn_warm_cluster32_kernel, and the
+// misfits at its start positions, darcy_misfit_warm_cluster32_kernel and
+// its cold twin darcy_misfit_cluster32_kernel;
 // scripts/measure_pcn32_cluster_design.py times the alternatives): kG
 // chains (CTAs) a cluster, kCells cells a thread on kThreads threads,
 // kMinCtas CTAs an SM for the launch bound. It reads the factors through
@@ -2404,22 +2406,24 @@ int launch_cluster(void (*kernel)(Args...), const ClusterGeometry& geo, void* st
   return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
 }
 
-// --- the standalone 64 x 64 misfits on the samplers' cluster level ----------
+// --- the standalone misfits on the samplers' cluster levels -----------------
 //
 // Phi (and, warm, the CG solution) for a (K, B) batch of draws, the misfit
-// that the 64 x 64 samplers evaluate at their start positions
-// (darcy_misfit_cluster_kernel in fused_da_pcn.cu,
-// darcy_misfit_warm_cluster_kernel in fused_pcn.cu): one draw a CTA, G
-// draws a thread-block cluster, the solve of the samplers' exact level
-// (ClusterExact), so that Phi0 and every proposal's Phi come from one
-// solve. One draw a CTA of Layout64 read the factors from L2 once a draw
-// (the f32 basis 2.4 MB once, the bf16 modes 2 MB twice an apply); the
-// cluster reads them once a cluster and runs the dst_trunc products on the
-// tensor cores with the draws as N. Spare CTAs of a ragged last cluster
-// run on zeros and write nothing.
+// that the cluster samplers evaluate at their start positions: one draw a
+// CTA, G draws a thread-block cluster, the solve of the samplers' exact
+// level, so that Phi0 and every proposal's Phi come from one solve. At
+// 64 x 64 (darcy_misfit_cluster_kernel in fused_da_pcn.cu,
+// darcy_misfit_warm_cluster_kernel in fused_pcn.cu) on ClusterExact; at
+// 32 x 32 (darcy_misfit_cluster32_kernel, darcy_misfit_warm_cluster32_kernel)
+// on Cluster32Exact, the level of the 32 x 32 warm pCN. One draw a CTA of
+// Layout64 / Layout32 read the factors from L2 once a draw (at 64 x 64 the
+// f32 basis 2.4 MB once, the bf16 modes 2 MB twice an apply; at 32 x 32
+// 256 KB and 256 KB); the cluster reads them once a cluster and runs the
+// dst_trunc products on the tensor cores with the draws as N. Spare CTAs of
+// a ragged last cluster run on zeros and write nothing.
 
-// What the two kernels take: U (K, B); warm: x0 (cells, B) in, x (cells,
-// B) out; Phi (B,) out.
+// What the kernels take: U (K, B); warm: x0 (cells, B) in, x (cells, B)
+// out; Phi (B,) out.
 struct MisfitBatch {
   IpxMisfitSpec s;
   const float* U;
@@ -2429,39 +2433,42 @@ struct MisfitBatch {
   float* x;
 };
 
-// Whether the two kernels take this spec (ipx_darcy_misfit and
+// Whether the cluster misfit kernels take this spec (ipx_darcy_misfit and
 // ipx_darcy_misfit_warm send it to them, every other spec to the kernels
-// of its layout): a level of the 64 x 64 samplers. Mirrored by
-// ip_mcmc_tpu_torch/ops/_cluster.py misfit_cluster_takes.
+// of its layout): a level of the 64 x 64 samplers or of the 32 x 32 warm
+// pCN. Mirrored by ip_mcmc_tpu_torch/ops/_cluster.py misfit_cluster_takes.
 inline bool misfit_cluster_takes(const IpxMisfitSpec& s) {
-  return cluster_level_ok(s, kClusterExactN, s.K, kClusterMaxModes);
+  return cluster_level_ok(s, kClusterExactN, s.K, kClusterMaxModes) ||
+         cluster_level_ok(s, kCluster32N, s.K, kCluster32MaxModes, kCluster32MaxK);
 }
 
 // Mirrored by ip_mcmc_tpu_torch/ops/_cluster.py misfit_cluster_geometry: G
-// draws a cluster (the design's kG), the spare CTAs of a ragged last
-// cluster; what misfit_cluster_takes refuses, cudaErrorNotSupported.
+// draws a cluster (the design's kG at the spec's grid), the spare CTAs of a
+// ragged last cluster; what misfit_cluster_takes refuses,
+// cudaErrorNotSupported.
 inline int misfit_cluster_geometry(const IpxMisfitSpec& s, int B, ClusterGeometry* geo) {
   if (!misfit_cluster_takes(s)) return cudaErrorNotSupported;
   if (B < 0) return cudaErrorInvalidValue;
-  geo->g = ClusterDesign::kG;
+  const bool n32 = s.n == kCluster32N;
+  geo->g = n32 ? Cluster32Design::kG : ClusterDesign::kG;
   geo->clusters = (B + geo->g - 1) / geo->g;
   geo->ctas = geo->clusters * geo->g;
-  geo->threads = ClusterDesign::kThreads;
-  geo->smem = ClusterSmem::kBytes;
+  geo->threads = n32 ? Cluster32Design::kThreads : ClusterDesign::kThreads;
+  geo->smem = n32 ? Cluster32Smem::kBytes : ClusterSmem::kBytes;
   return cudaSuccess;
 }
 
-// The body of both kernels: draw blockIdx.x's coefficients to the buffer
-// the level reads u from (ClusterSmem::kState, as the samplers' state; the
-// set-up's first cluster barrier orders these writes before any CTA reads
-// them), WARM its cells of x0 to registers, one solve, then Phi from
+// The body of the kernels on level L: draw blockIdx.x's coefficients to
+// the buffer the level reads u from (L's kState, as the samplers' state;
+// the set-up's first cluster barrier orders these writes before any CTA
+// reads them), WARM its cells of x0 to registers, one solve, then Phi from
 // thread 0 and (WARM) the thread's cells of x.
-template <bool WARM>
+template <bool WARM, class L>
 __device__ void misfit_cluster_draw(const MisfitBatch& a) {
-  constexpr int C = ClusterExact::kC;
+  constexpr int C = L::kC;
   const int b = blockIdx.x, B = a.B;
   const bool live = b < B;
-  float* u = cluster_f32(ClusterSmem::kState);
+  float* u = cluster_f32(L::Smem::kState);
   for (int k = threadIdx.x; k < a.s.K; k += blockDim.x)
     u[k] = live ? a.U[static_cast<size_t>(k) * B + b] : 0.0f;
   float x[C];
@@ -2471,7 +2478,7 @@ __device__ void misfit_cluster_draw(const MisfitBatch& a) {
     if constexpr (WARM)
       if (live) x[c] = a.x0[static_cast<size_t>(own_cell(c)) * B + b];
   }
-  const float v = darcy_solve_cluster<WARM>(ClusterExact{&a.s}, u, x);
+  const float v = darcy_solve_cluster<WARM>(L{&a.s}, u, x);
   if (live) {
     if constexpr (WARM) {
 #pragma unroll
@@ -2482,15 +2489,15 @@ __device__ void misfit_cluster_draw(const MisfitBatch& a) {
   cg::this_cluster().sync();  // no peer reads this CTA's shared memory after it exits
 }
 
-// Launches kernel (one of the two) on the batch: the status of the
-// geometry, of the occupancy check or of the launch.
-inline int launch_misfit_cluster(void (*kernel)(MisfitBatch), const MisfitBatch& a,
-                                 void* stream) {
+// Launches kernel (k64 at 64 x 64, k32 at 32 x 32) on the batch: the
+// status of the geometry, of the occupancy check or of the launch.
+inline int launch_misfit_cluster(void (*k64)(MisfitBatch), void (*k32)(MisfitBatch),
+                                 const MisfitBatch& a, void* stream) {
   ClusterGeometry geo;
   const int status = misfit_cluster_geometry(a.s, a.B, &geo);
   if (status != cudaSuccess) return status;
   if (a.B == 0) return cudaSuccess;
-  return launch_cluster(kernel, geo, stream, a);
+  return launch_cluster(a.s.n == kCluster32N ? k32 : k64, geo, stream, a);
 }
 
 }  // namespace ipx

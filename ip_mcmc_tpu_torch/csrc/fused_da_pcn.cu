@@ -16,6 +16,11 @@
 //                                       samplers' exact level, one draw a
 //                                       CTA, G draws a thread-block
 //                                       cluster (ClusterLevel).
+//   darcy_misfit_cluster32_kernel       the same on the level of the 32x32
+//                                       warm pCN (Cluster32Exact).
+//   darcy_misfit_warp_kernel            the same on the exact level of the
+//                                       16x16 DA kernel, one draw a warp
+//                                       (WarpLevel).
 //   fused_da_pcn_warp_kernel<SOLVER, RECORD>
 //                                       the 16x16 Darcy DA loop (8x8
 //                                       surrogate solved by CG or K17's
@@ -270,7 +275,16 @@ int launch_misfit(const IpxMisfitSpec& s, const float* U, int B, float* phi, voi
 // dst_trunc-256 / 16 CG. The design is the samplers' (ClusterDesign).
 __global__ void __launch_bounds__(ClusterDesign::kThreads, ClusterDesign::kMinCtas)
     darcy_misfit_cluster_kernel(const __grid_constant__ MisfitBatch a) {
-  misfit_cluster_draw<false>(a);
+  misfit_cluster_draw<false, ClusterExact>(a);
+}
+
+// The same on the level of the 32 x 32 warm pCN (Cluster32Exact): a cold
+// 32 x 32 dst_trunc CG misfit, the twin of darcy_misfit_warm_cluster32_kernel
+// (fused_pcn.cu). No shipped path launches it (darcy32_pcn_warm's cold
+// misfit is Jacobi). The design is Cluster32Design.
+__global__ void __launch_bounds__(Cluster32Design::kThreads, Cluster32Design::kMinCtas)
+    darcy_misfit_cluster32_kernel(const __grid_constant__ MisfitBatch a) {
+  misfit_cluster_draw<false, Cluster32Exact>(a);
 }
 
 // --- the 64 x 64 kernel: one chain a CTA, G chains a thread-block cluster ------
@@ -538,6 +552,113 @@ int launch_da_pcn_warp(const IpxMisfitSpec& exact, const IpxMisfitSpec& surr,
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- the standalone 16 x 16 exact misfit: one draw a warp ---------------------
+//
+// Phi for a (K, B) batch on the exact level of the 16 x 16 DA kernel
+// (darcy_da_fused's exact misfit, 4096 draws of dst_trunc-128 / 12 CG, and
+// the exact misfit of the four darcy_da_richardson runs): one draw a warp,
+// MisfitWarpDesign::kWarps draws a CTA, darcy_phi_warp<kSolverCg> on the
+// arithmetic of the DA kernel's exact correction (WarpLevel: lane l owns
+// cells l, l + 32, ...; the dst_trunc products over the CTA's draws by
+// mma.sync), so that Phi0 and every correction's Phi come from one solve.
+// One draw a CTA of Layout16 read V (bf16 128 x 256, 64 KB) twice in each
+// of 13 applies and the f32 basis (64 KB) once a draw, ~1.7 MB from L2 a
+// draw, and summed each dot product over the CTA's 256 threads; here the
+// CTA's draws share each read of the factors, and the dot products are
+// warp sums. The preconditioner has CTA barriers, so the spare warps of a
+// ragged last CTA run the solve on zeros and write nothing.
+
+// The design (scripts/measure_misfit_warp_design.py times the
+// alternatives): kWarps draws a CTA, one a warp; the launch bound's warps
+// an SM (kSmWarps); the level's factors staged in shared memory once a CTA
+// or read through L2 (kStaged). The DA kernel keeps them in L2 only because
+// its surrogate takes the shared memory; this kernel has it free. Measured
+// on the H100 at 4096 draws (PERF.md): 16 draws a CTA with the factors
+// staged (~215 KB, one CTA an SM) 0.143 ms a call, against 0.231 through
+// L2 at W = 16 and 0.27 / 0.32 at the DA kernel's W = 8 staged / through
+// L2; every design gives the same bits (a draw's column of the products
+// depends on it alone). The products run as the DA kernel's
+// (DaWarpDesign::kMma). Staged, a spec whose factors leave no room (above
+// 144 modes) goes to the one-draw-a-CTA kernel (misfit_warp_takes).
+struct MisfitWarpDesign { static constexpr int kWarps = 16, kSmWarps = 16; static constexpr bool kStaged = true; };
+constexpr int kMisfitWarpTiles = (MisfitWarpDesign::kWarps + 7) / 8;  // mma tiles of 8 draws
+constexpr int kMisfitWarpMinCtas = MisfitWarpDesign::kSmWarps >= 2 * MisfitWarpDesign::kWarps
+                                       ? MisfitWarpDesign::kSmWarps / MisfitWarpDesign::kWarps
+                                       : 1;
+// a warp's slice: the draw's u (64), then p, th, tv of 256 cells
+constexpr int kMisfitWarpFloats = kDaWarpD + 3 * kDaWarpExactN * kDaWarpExactN;
+
+using MisfitWarpExact =
+    WarpLevel<kDaWarpExactN, kMisfitWarpTiles, MisfitWarpDesign::kStaged, DaWarpDesign::kMma>;
+
+// Dynamic shared memory of a launch on this spec: the exchange, the staged
+// factors (if the design stages them), a slice a warp.
+inline size_t misfit_warp_smem(const IpxMisfitSpec& s) {
+  return xchg_bytes(8 * kMisfitWarpTiles) + (MisfitWarpDesign::kStaged ? warp_staged_bytes(s) : 0) +
+         sizeof(float) * kMisfitWarpFloats * MisfitWarpDesign::kWarps;
+}
+
+// Whether darcy_misfit_warp_kernel takes this spec (ipx_darcy_misfit sends
+// it there, every other spec to the kernels of its layout or to the
+// cluster level): the DA kernel's exact level with dst_trunc, i.e. 16 x
+// 16, K = 64, a positive multiple of 16 modes up to 256, CG, in the
+// shared memory of a CTA (staged: up to 144 modes). Mirrored by ip_mcmc_tpu_torch/ops/fused_da_pcn.py
+// misfit_warp_takes.
+inline bool misfit_warp_takes(const IpxMisfitSpec& s) {
+  return da_warp_level_ok(s, kDaWarpExactN, kSolverCg) && s.precond == kPrecondDstTrunc &&
+         misfit_warp_smem(s) <= 232448;
+}
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_da_pcn.py misfit_warp_geometry:
+// kWarps draws a CTA, a ragged last CTA runs spare warps; what
+// misfit_warp_takes refuses, cudaErrorNotSupported.
+inline int misfit_warp_geometry(const IpxMisfitSpec& s, int B, DaWarpGeometry* geo) {
+  if (!misfit_warp_takes(s)) return cudaErrorNotSupported;
+  if (B < 0) return cudaErrorInvalidValue;
+  geo->warps = MisfitWarpDesign::kWarps;
+  geo->ctas = (B + geo->warps - 1) / geo->warps;
+  geo->smem = misfit_warp_smem(s);
+  return cudaSuccess;
+}
+
+__global__ void __launch_bounds__(32 * MisfitWarpDesign::kWarps, kMisfitWarpMinCtas)
+    darcy_misfit_warp_kernel(const __grid_constant__ MisfitBatch a) {
+  extern __shared__ float4 misfit_warp_smem_buf[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(misfit_warp_smem_buf);
+  const PrecondXchg xg = carve_xchg(base, 8 * kMisfitWarpTiles);
+  base += xchg_bytes(8 * kMisfitWarpTiles);
+  const auto f = level_factors<MisfitWarpDesign::kStaged>(a.s, base);
+  if (MisfitWarpDesign::kStaged) base += warp_staged_bytes(a.s);
+  float* slices = reinterpret_cast<float*>(base);
+  // the CTA's draws' coefficients, W consecutive columns of U a row
+  const int W = blockDim.x >> 5, b0 = blockIdx.x * W, B = a.B;
+  for (int e = threadIdx.x; e < kDaWarpD * W; e += blockDim.x) {
+    const int k = e / W, j = e % W;
+    slices[j * kMisfitWarpFloats + k] =
+        b0 + j < B ? a.U[static_cast<size_t>(k) * B + b0 + j] : 0.0f;
+  }
+  float* u = slices + (threadIdx.x >> 5) * kMisfitWarpFloats;
+  const WarpSmem ws{u + kDaWarpD, u + kDaWarpD + 256, u + kDaWarpD + 512};
+  __syncthreads();  // the staged factors and every warp's u
+  const float v = darcy_phi_warp<kSolverCg>(MisfitWarpExact{&a.s, f, xg, ws}, u);
+  const int b = b0 + (threadIdx.x >> 5);
+  if ((threadIdx.x & 31) == 0 && b < B) a.phi[b] = v;
+}
+
+// Launches darcy_misfit_warp_kernel on the batch: the status of the
+// geometry or of the launch.
+inline int launch_misfit_warp(const MisfitBatch& a, void* stream) {
+  DaWarpGeometry geo;
+  const int status = misfit_warp_geometry(a.s, a.B, &geo);
+  if (status != cudaSuccess) return status;
+  if (a.B == 0) return cudaSuccess;
+  const int smem = static_cast<int>(geo.smem);
+  cudaFuncSetAttribute(darcy_misfit_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  darcy_misfit_warp_kernel<<<geo.ctas, 32 * geo.warps, smem, static_cast<cudaStream_t>(stream)>>>(
+      a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // --- one chain a warp: K4 on Burgers -------------------------------------------
 //
 // burgers_da_pcn (k = 16: 16 surrogate solves of 64 cells / 26 Godunov steps and one exact solve of
@@ -700,13 +821,18 @@ const char* ipx_error_string(int code) {
 // sizeof(IpxMisfitSpec), against which the ctypes mirror is checked.
 int ipx_misfit_spec_size() { return static_cast<int>(sizeof(IpxMisfitSpec)); }
 
-// A spec of the 64 x 64 samplers' exact level (misfit_cluster_takes) goes
-// to darcy_misfit_cluster_kernel; for every other the layout follows the
-// spec's grid, the solve its solver.
+// A spec of the 16 x 16 DA kernel's exact level (misfit_warp_takes) goes to
+// darcy_misfit_warp_kernel; one of a cluster sampler's level
+// (misfit_cluster_takes) to darcy_misfit_cluster_kernel (64 x 64) or
+// darcy_misfit_cluster32_kernel (32 x 32); for every other the layout
+// follows the spec's grid, the solve its solver.
 int ipx_darcy_misfit(const IpxMisfitSpec* s, const float* U, int B, float* phi,
                      void* stream) {
+  if (ipx::misfit_warp_takes(*s))
+    return ipx::launch_misfit_warp({*s, U, nullptr, B, phi, nullptr}, stream);
   if (ipx::misfit_cluster_takes(*s))
     return ipx::launch_misfit_cluster(ipx::darcy_misfit_cluster_kernel,
+                                      ipx::darcy_misfit_cluster32_kernel,
                                       {*s, U, nullptr, B, phi, nullptr}, stream);
   const auto launch = [&](auto pot) {
     return ipx::launch_misfit<decltype(pot)>(*s, U, B, phi, stream);
@@ -769,8 +895,10 @@ int ipx_darcy_cluster_geometry(const IpxMisfitSpec* exact, const IpxMisfitSpec* 
   return status;
 }
 
-// The standalone cluster misfits' launch geometry (darcy_misfit_cluster_kernel;
-// darcy_misfit_warm_cluster_kernel of fused_pcn.cu) for this spec and B
+// The standalone cluster misfits' launch geometry
+// (darcy_misfit_cluster_kernel, darcy_misfit_cluster32_kernel;
+// darcy_misfit_warm_cluster_kernel and darcy_misfit_warm_cluster32_kernel
+// of fused_pcn.cu) for this spec and B
 // draws: out = {draws a cluster, clusters, CTAs, dynamic shared-memory
 // bytes}; the status the launch would return before its occupancy check,
 // cudaErrorNotSupported for a spec that goes to the kernels of its layout
@@ -782,6 +910,20 @@ int ipx_darcy_misfit_cluster_geometry(const IpxMisfitSpec* s, int B, int* out) {
   out[1] = geo.clusters;
   out[2] = geo.ctas;
   out[3] = static_cast<int>(geo.smem);
+  return status;
+}
+
+// The standalone 16 x 16 exact misfit's launch geometry
+// (darcy_misfit_warp_kernel) for this spec and B draws: out = {draws a
+// CTA, CTAs, dynamic shared-memory bytes}; the status the launch would
+// return for them, cudaErrorNotSupported for a spec that goes to another
+// kernel (the wrapper's mirror is checked against this on the card).
+int ipx_darcy_misfit_warp_geometry(const IpxMisfitSpec* s, int B, int* out) {
+  ipx::DaWarpGeometry geo{0, 0, 0};
+  const int status = ipx::misfit_warp_geometry(*s, B, &geo);
+  out[0] = geo.warps;
+  out[1] = geo.ctas;
+  out[2] = static_cast<int>(geo.smem);
   return status;
 }
 

@@ -13,6 +13,8 @@
 //   darcy_misfit_warm_cluster_kernel  the same on the specs of the 64 x 64
 //                                  samplers' exact level, one draw a CTA,
 //                                  G draws a thread-block cluster.
+//   darcy_misfit_warm_cluster32_kernel  the same on the level of the 32 x 32
+//                                  warm pCN (Cluster32Exact).
 //   fused_pcn_kernel<Pot, RECORD>  cold pCN: proposal, Phi, MH. The
 //                                  potential is a type: DarcyPot (Phi from
 //                                  x = 0) or BurgersPotential (K12,
@@ -45,10 +47,11 @@
 // Layout and scaffold: fused_scaffold.cuh (one CTA per chain) and the
 // Darcy layouts of darcy_misfit.cuh: up to 16 x 16 one thread per cell; the
 // 32 x 32 and 64 x 64 grids (the cold misfit and cold pCN; the warm ones,
-// and at 64 x 64 the misfits of a dst_trunc CG spec, run in clusters)
+// and the misfits of a dst_trunc CG spec, run in clusters)
 // several cells per thread, picked from the spec's grid at launch. Phi
 // (and x) at the start positions come in from the standalone misfit
-// kernels: at 64 x 64 from the cluster level of the samplers' steps. Tags:
+// kernels: at 64 x 64, and at 32 x 32 for a dst_trunc CG spec, from the
+// cluster level of the samplers' steps. Tags:
 // normals 0 (keys 0, 1), MH uniform 2.
 //
 // What bounds them on the H100: per chain and step one solve (Burgers one
@@ -161,7 +164,16 @@ __global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
 // fused_pcn_warm_cluster_kernel's steps. The design is ClusterDesign.
 __global__ void __launch_bounds__(ClusterDesign::kThreads, ClusterDesign::kMinCtas)
     darcy_misfit_warm_cluster_kernel(const __grid_constant__ MisfitBatch a) {
-  misfit_cluster_draw<true>(a);
+  misfit_cluster_draw<true, ClusterExact>(a);
+}
+
+// The same on the level of the 32 x 32 warm pCN (Cluster32Exact, in its own
+// layout Cluster32Smem): darcy32_pcn_warm's warm misfit, 4096 draws of
+// dst_trunc-128 / 4 CG from x0 = 0, the solve of
+// fused_pcn_warm_cluster32_kernel's steps. The design is Cluster32Design.
+__global__ void __launch_bounds__(Cluster32Design::kThreads, Cluster32Design::kMinCtas)
+    darcy_misfit_warm_cluster32_kernel(const __grid_constant__ MisfitBatch a) {
+  misfit_cluster_draw<true, Cluster32Exact>(a);
 }
 
 template <class Pot>
@@ -680,13 +692,15 @@ int launch_misfit_warm(const IpxMisfitSpec& s, const float* U, const float* x0, 
 
 extern "C" {
 
-// A spec of the 64 x 64 samplers' exact level (misfit_cluster_takes) goes
-// to darcy_misfit_warm_cluster_kernel; for every other the layout follows
-// the spec's grid.
+// A spec of a cluster sampler's level (misfit_cluster_takes) goes to
+// darcy_misfit_warm_cluster_kernel (64 x 64) or
+// darcy_misfit_warm_cluster32_kernel (32 x 32); for every other the layout
+// follows the spec's grid.
 int ipx_darcy_misfit_warm(const IpxMisfitSpec* s, const float* U, const float* x0, int B,
                           float* phi, float* x, void* stream) {
   if (ipx::misfit_cluster_takes(*s))
     return ipx::launch_misfit_cluster(ipx::darcy_misfit_warm_cluster_kernel,
+                                      ipx::darcy_misfit_warm_cluster32_kernel,
                                       {*s, U, x0, B, phi, x}, stream);
   return ipx::with_darcy_layout<kSolverCg>(*s, [&](auto pot) {
     return ipx::launch_misfit_warm<decltype(pot)>(*s, U, x0, B, phi, x, stream);

@@ -24,12 +24,16 @@ For CUDA tensors the modules launch ``darcy_misfit_kernel``
 (``csrc/fused_da_pcn.cu``), ``darcy_misfit_warm_kernel``
 (``csrc/fused_pcn.cu``), ``darcy_misfit_grad_kernel`` or
 ``darcy_misfit_grad_warm_kernel`` (``csrc/fused_mala.cu``), one draw a CTA;
-a misfit on the exact level of the 64×64 samplers
-(``_cluster.misfit_cluster_takes``: 64×64, dst_trunc, CG) goes to
-``darcy_misfit_cluster_kernel`` or ``darcy_misfit_warm_cluster_kernel``
-instead, G draws a thread-block cluster on the samplers' solve. The launch
-counts name the kernel (``kernel_label``, ``warm_kernel_label``). For CPU
-tensors they run the plain versions. Those use the readable 2-D (n, n, B) layout;
+a misfit on the level of a cluster sampler
+(``_cluster.misfit_cluster_takes``: 64×64 or 32×32, dst_trunc, CG) goes to
+``darcy_misfit_cluster_kernel`` / ``darcy_misfit_warm_cluster_kernel`` (64×64)
+or ``darcy_misfit_cluster32_kernel`` / ``darcy_misfit_warm_cluster32_kernel``
+(32×32) instead, G draws a thread-block cluster on the samplers' solve; a
+cold misfit on the 16×16 DA kernel's exact level
+(``fused_da_pcn.misfit_warp_takes``: 16×16, K 64, dst_trunc, CG) to
+``darcy_misfit_warp_kernel``, a draw a warp on that kernel's solve. The
+launch counts name the kernel (``kernel_label``, ``warm_kernel_label``).
+For CPU tensors they run the plain versions. Those use the readable 2-D (n, n, B) layout;
 the JAX flat layout with wrap masks, Kronecker factors and one-hot
 observation matmuls exists only because Mosaic lacks in-kernel reshapes
 and gathers.
@@ -45,7 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ip_mcmc_tpu_torch.models import kl
-from ip_mcmc_tpu_torch.ops import _build, _cluster
+from ip_mcmc_tpu_torch.ops import _build, _cluster, fused_da_pcn
 
 
 def default_observation_indices(n: int, n_obs_per_dim: int = 4):
@@ -193,19 +197,31 @@ class DarcyMisfit(nn.Module):
             )
 
     @property
+    def spec_fields(self) -> dict:
+        """The fields the kernels' dispatch rules read (grid, K,
+        preconditioner, modes, solver), as keyword arguments of the rules'
+        Python mirrors."""
+        return dict(n=self.n, K=self.K, precond=self.precond, modes=self.modes,
+                    solver=self.solver)
+
+    @property
     def on_cluster(self) -> bool:
-        """Whether the card solves this misfit on the 64×64 samplers' cluster
-        level (``_cluster.misfit_cluster_takes``, ``misfit_cluster_takes``
-        of ``csrc/darcy_misfit.cuh``)."""
-        return _cluster.misfit_cluster_takes(n=self.n, K=self.K, precond=self.precond,
-                                             modes=self.modes, solver=self.solver)
+        """Whether the card solves this misfit on a cluster sampler's level,
+        64×64 or 32×32 (``_cluster.misfit_cluster_takes``,
+        ``misfit_cluster_takes`` of ``csrc/darcy_misfit.cuh``)."""
+        return _cluster.misfit_cluster_takes(**self.spec_fields)
 
     @property
     def kernel_label(self) -> str:
         """The launch count's name of the kernel that ``ipx_darcy_misfit``
-        sends this misfit to."""
+        sends this misfit to: a draw a warp on the 16×16 DA kernel's exact
+        level (``fused_da_pcn.misfit_warp_takes``), G draws a cluster on a
+        cluster sampler's level, or one draw a CTA."""
+        if fused_da_pcn.misfit_warp_takes(**self.spec_fields):
+            return f"darcy_misfit_warp_kernel[n={self.n}]"
         if self.on_cluster:
-            return f"darcy_misfit_cluster_kernel[n={self.n}]"
+            stem = "cluster32" if self.n == _cluster.N32 else "cluster"
+            return f"darcy_misfit_{stem}_kernel[n={self.n}]"
         tag = "" if self.solver == "cg" else f",{self.solver}"
         return f"darcy_misfit_kernel[n={self.n}{tag}]"
 
@@ -488,8 +504,10 @@ class DarcyMisfitWarm(DarcyMisfit):
     def warm_kernel_label(self) -> str:
         """The launch count's name of the kernel that
         ``ipx_darcy_misfit_warm`` sends this misfit to."""
-        return ("darcy_misfit_warm_cluster_kernel" if self.on_cluster
-                else "darcy_misfit_warm_kernel")
+        if not self.on_cluster:
+            return "darcy_misfit_warm_kernel"
+        return ("darcy_misfit_warm_cluster32_kernel" if self.n == _cluster.N32
+                else "darcy_misfit_warm_cluster_kernel")
 
     def forward(self, U: torch.Tensor, x0: torch.Tensor):
         self.check_input(U)

@@ -240,6 +240,8 @@ def library():
         lib.bind("ipx_darcy_misfit_warm", [spec, p, p, i, p, p, p])
         # spec, B, out (4,): the cluster misfit kernels' geometry
         lib.bind("ipx_darcy_misfit_cluster_geometry", [spec, i, p])
+        # spec, B, out (3,): the 16x16 warp misfit kernel's geometry
+        lib.bind("ipx_darcy_misfit_warp_geometry", [spec, i, p])
         # exact, surrogate, chain, Φ0 (n,), Φ*0 (n,), β, √(1−β²), k,
         # inner acceptance (n,), stream
         lib.bind("ipx_fused_da_pcn", [spec, spec, chain, p, p, f, f, i, p, p])

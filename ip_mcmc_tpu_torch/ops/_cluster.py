@@ -2,9 +2,11 @@
 clusters: at 64×64 ``fused_da_pcn_cluster_kernel`` (``darcy64_da_fused``)
 and ``fused_pcn_warm_cluster_kernel`` (``darcy64_pcn_warm``), at 32×32
 ``fused_pcn_warm_cluster32_kernel`` (``darcy32_pcn_warm``); and the
-standalone 64×64 misfits on the samplers' exact level,
+standalone misfits on those samplers' levels: at 64×64
 ``darcy_misfit_cluster_kernel`` and ``darcy_misfit_warm_cluster_kernel``
-(Φ and x at the start positions of the two 64×64 configs).
+(Φ and x at the start positions of the two 64×64 configs), at 32×32
+``darcy_misfit_warm_cluster32_kernel`` (``darcy32_pcn_warm``'s) and its
+cold twin ``darcy_misfit_cluster32_kernel``.
 
 One chain (or draw) runs per CTA, and the G CTAs of a cluster share each
 read of the factors (``ClusterLevel`` in ``csrc/darcy_misfit.cuh``), read
@@ -106,24 +108,32 @@ def misfit_cluster_takes(*, n, K, precond, modes, solver):
     """Whether ``ipx_darcy_misfit`` / ``ipx_darcy_misfit_warm`` send a
     misfit of these fields to the cluster misfit kernels: a level the 64×64
     samplers take (an EXACT_N grid, K up to MAX_K, dst_trunc with a
-    positive multiple of 16 modes up to MAX_MODES, solved by CG). Every
-    other misfit runs one draw a CTA on the layout of its grid."""
-    return (n == EXACT_N and K <= MAX_K and precond == "dst_trunc" and modes > 0
-            and modes % 16 == 0 and modes <= min(n * n, MAX_MODES) and solver == "cg")
+    positive multiple of 16 modes up to MAX_MODES, solved by CG) or the
+    32×32 warm pCN takes (an N32 grid, K up to MAX_K32, up to MAX_MODES32
+    modes). Every other misfit runs one draw a CTA on the layout of its
+    grid (or, at 16×16, on the DA kernel's warp level:
+    ``fused_da_pcn.misfit_warp_takes``)."""
+    most = {EXACT_N: (MAX_K, MAX_MODES), N32: (MAX_K32, MAX_MODES32)}.get(n)
+    return (most is not None and K <= most[0] and precond == "dst_trunc" and modes > 0
+            and modes % 16 == 0 and modes <= min(n * n, most[1]) and solver == "cg")
 
 
 def misfit_cluster_geometry(B, *, n=EXACT_N, K=MAX_K, precond="dst_trunc", modes=MAX_MODES,
                             solver="cg"):
     """(draws a cluster, clusters, CTAs, dynamic shared-memory bytes) of a
     launch of the cluster misfit kernels on B draws: G draws a cluster (the
-    design's), one a CTA, the spare CTAs of a ragged last cluster run on
-    zeros; the samplers' layout. Raises ``ValueError`` for a misfit that
+    design's at the grid), one a CTA, the spare CTAs of a ragged last
+    cluster run on zeros; the samplers' layout (at 32×32 the 32×32 warm
+    pCN's). Raises ``ValueError`` for a misfit that
     ``misfit_cluster_takes`` leaves to the other kernels, or B < 0."""
     if not misfit_cluster_takes(n=n, K=K, precond=precond, modes=modes, solver=solver):
         raise ValueError(f"the cluster misfit kernels take a {EXACT_N}x{EXACT_N} dst_trunc CG "
                          f"misfit with K up to {MAX_K} and a multiple of 16 modes up to "
-                         f"{MAX_MODES}; got {n}x{n} {precond} ({modes} modes) {solver}, K {K}")
+                         f"{MAX_MODES}, or a {N32}x{N32} one with K up to {MAX_K32} and up to "
+                         f"{MAX_MODES32} modes; got {n}x{n} {precond} ({modes} modes) {solver}, "
+                         f"K {K}")
     if B < 0:
         raise ValueError(f"B {B}")
-    clusters = -(-B // CLUSTER_G)
-    return CLUSTER_G, clusters, clusters * CLUSTER_G, smem_bytes()
+    G, smem = (CLUSTER32_G, smem_bytes32()) if n == N32 else (CLUSTER_G, smem_bytes())
+    clusters = -(-B // G)
+    return G, clusters, clusters * G, smem

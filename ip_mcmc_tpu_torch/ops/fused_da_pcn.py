@@ -31,6 +31,11 @@ callable (d, B) → (B,), so the algorithm tests can use analytic targets.
 Both draw from the counter-hash stream of ``ops/rng.py`` with the JAX
 tags: inner step j uses 4j, 4j+1 (normals) and 4j+2 (MH uniform); the
 outer correction 4k+2.
+
+``misfit_warp_takes`` and ``misfit_warp_geometry`` mirror the rule and the
+launch geometry of ``darcy_misfit_warp_kernel``, which evaluates the 16×16
+exact misfit at the start positions a draw a warp on this module's exact
+level (``models.darcy.DarcyMisfit`` launches it).
 """
 
 from __future__ import annotations
@@ -182,6 +187,51 @@ def warp_geometry(n_chains, block_chains, *, exact_n=WARP_EXACT_N,
         raise ValueError(f"{smem} bytes of shared memory a CTA: the card gives "
                          f"{MAX_SMEM_BYTES}")
     return -(-n_chains // w), w, smem
+
+
+# The standalone 16×16 exact misfit ``darcy_misfit_warp_kernel``
+# (``MisfitWarpDesign`` in ``csrc/fused_da_pcn.cu``): draws (warps) a CTA,
+# and whether the level's factors are staged in shared memory (else read
+# through L2). Its slice a warp: the draw's u, then p, th, tv of 256 cells.
+MISFIT_WARP_DRAWS, MISFIT_WARP_STAGED = 16, True
+_MISFIT_SLICE_BYTES = 4 * (WARP_D + 3 * WARP_EXACT_N ** 2)
+
+
+def _misfit_warp_smem(modes):
+    return (8 * -(-MISFIT_WARP_DRAWS // 8) * _XCHG_ROW_BYTES
+            + (_staged_bytes(WARP_EXACT_N, modes) if MISFIT_WARP_STAGED else 0)
+            + MISFIT_WARP_DRAWS * _MISFIT_SLICE_BYTES)
+
+
+def misfit_warp_takes(*, n, K, precond, modes, solver):
+    """Whether ``ipx_darcy_misfit`` sends a misfit of these fields to
+    ``darcy_misfit_warp_kernel``, as ``misfit_warp_takes`` in
+    ``csrc/fused_da_pcn.cu`` decides: the 16×16 DA kernel's exact level
+    with dst_trunc (a WARP_EXACT_N grid, K = WARP_D, a positive multiple of
+    16 modes up to the cells, CG) whose staged factors fit a CTA's shared
+    memory with the design's slices (up to 144 modes). Every other
+    misfit goes to the cluster level (``_cluster.misfit_cluster_takes``) or
+    runs one draw a CTA on the layout of its grid."""
+    return (n == WARP_EXACT_N and K == WARP_D and precond == "dst_trunc" and modes > 0
+            and modes % 16 == 0 and modes <= n * n and solver == "cg"
+            and _misfit_warp_smem(modes) <= MAX_SMEM_BYTES)
+
+
+def misfit_warp_geometry(B, *, n=WARP_EXACT_N, K=WARP_D, precond="dst_trunc", modes=128,
+                         solver="cg"):
+    """(draws a CTA, CTAs, dynamic shared-memory bytes) of a launch of
+    ``darcy_misfit_warp_kernel`` on B draws, as ``misfit_warp_geometry`` in
+    ``csrc/fused_da_pcn.cu`` computes it: a draw a warp, the design's draws
+    a CTA, the spare warps of a ragged last CTA run on zeros. Raises
+    ``ValueError`` for a misfit that ``misfit_warp_takes`` leaves to the
+    other kernels, or B < 0."""
+    if not misfit_warp_takes(n=n, K=K, precond=precond, modes=modes, solver=solver):
+        raise ValueError(f"the warp misfit kernel takes a {WARP_EXACT_N}x{WARP_EXACT_N} "
+                         f"dst_trunc CG misfit with K = {WARP_D} and a multiple of 16 modes; "
+                         f"got {n}x{n} {precond} ({modes} modes) {solver}, K {K}")
+    if B < 0:
+        raise ValueError(f"B {B}")
+    return MISFIT_WARP_DRAWS, -(-B // MISFIT_WARP_DRAWS), _misfit_warp_smem(modes)
 
 
 # ``DaBurgersWarpDesign`` in ``csrc/fused_da_pcn.cu``: chains (warps) a CTA

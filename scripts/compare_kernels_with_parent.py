@@ -4,6 +4,8 @@ chains bit for bit, and at what speed?
     git archive --prefix=_archive/parent/ <parent commit> | tar -x
     python scripts/compare_kernels_with_parent.py --parent _archive/parent
     python scripts/compare_kernels_with_parent.py --parent _archive/parent --rows mala,mala_warm
+    python scripts/compare_kernels_with_parent.py --parent _archive/parent \
+        --cli darcy_da_fused darcy32_pcn_warm darcy_da_richardson:cg3
 
 Runs the 16x16 Darcy kernels that both trees have (the misfit kernels with
 and without the adjoint gradient, DA-pCN with the CG and with the rich3
@@ -12,7 +14,8 @@ ensemble sampler and the Darcy RWM, each recorded, at 4096 chains on the
 16x16 Darcy configs), the Burgers DA-pCN, three-level DA-pCN and pCN
 kernels (``burgers_da_pcn``, ``burgers_da3_pcn``, ``burgers_pcn`` and
 ``burgers_multitime_pcn``: 2048 chains), the cold
-and warm misfit kernels at 32x32 and 64x64, the 64x64 DA-pCN
+and warm misfit kernels at 32x32 (darcy32_pcn_warm's, at 4096 draws, and
+a cold dst_trunc-128 / 16 CG one) and 64x64, the 64x64 DA-pCN
 (``darcy64_da_fused``: 1024 chains, blocks of 128, k = 48) and warm pCN
 (``darcy64_pcn_warm``: 2048 chains) kernels and the 32x32 warm pCN kernel
 (``darcy32_pcn_warm``: 4096 chains, blocks of 128), each recorded, in
@@ -25,7 +28,9 @@ another design (the 16x16 DA kernel, one warp per chain; the 64x64 DA and
 warm pCN kernels and the 32x32 warm pCN kernel, G chains a thread-block
 cluster; the 16x16 warm pCN, whose dst_trunc products run on the tensor
 cores; the 64x64 dst_trunc misfits, cold and warm, on the 64x64 samplers'
-cluster level; their sums run in another order): there whether the outputs
+cluster level; the 32x32 dst_trunc misfits, warm and cold, on the 32x32
+warm pCN's level; the 16x16 exact misfit of darcy_da_fused a draw a warp on
+the DA kernel's exact level; their sums run in another order): there whether the outputs
 equal the parent's all the same, the share of chains (final state and
 records) within ``CHAIN_ATOL`` of the parent's and both acceptance rates
 are printed (two kernels that each round differently from the plain twin;
@@ -38,6 +43,14 @@ both trees' builds (``_build/nvcc.log``) are set side by side. Exits
 non-zero on any difference beyond these, in the outputs or in ptxas'
 report. ``--rows`` runs only the named sampler rows (``misfits`` names the
 misfit kernels' rows), to compare two designs of a few kernels in turns.
+
+``--cli`` runs CLI configs in place of the kernel rows, in the same turns:
+each through ``runner.run_problem`` as ``python -m ip_mcmc_tpu_torch.run
+--config <name>`` runs it (a name ``darcy_da_richardson:<variant>`` builds
+``configs.darcy_da_richardson(variant)``, which has no CLI name). Prints
+each run's ``run_s`` and statistics, whether the two trees' statistics
+(acceptance rates, ``min_ess``, ``max_rhat``, the posterior mean) are equal
+digit for digit in the four runs, and one JSON line.
 """
 
 from __future__ import annotations
@@ -53,9 +66,15 @@ import tempfile
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # kernels this tree replaced by another design: compared, not bit for bit
 OLD_VS_NEW = ("da_pcn", "da_pcn_richardson", "da_pcn_64", "pcn_warm_64", "pcn_warm_32",
-              "pcn_warm", "misfit64_exact", "misfit64_cold", "misfit64_warm")
+              "pcn_warm", "misfit64_exact", "misfit64_cold", "misfit64_warm", "misfit_exact",
+              "misfit32_warm", "misfit32_dst")
 CHAIN_ATOL = 1e-4  # chip_smoke.py's
 MISFIT_RTOL = 1e-3  # the rtol of chip_smoke.py's LARGE_BF16_TOL
+TURNS = ("parent", "new", "new", "parent")
+# a CLI run's statistics that the two trees should share, and what is shown
+CLI_STATS = ("accept_rate", "inner_accept_rate", "mid_accept_rate", "min_ess", "max_rhat",
+             "posterior_mean")
+CLI_SHOWN = ("run_s", "ess_per_s", "min_ess", "max_rhat", "accept_rate", "inner_accept_rate")
 
 
 def _row(key: str) -> str:
@@ -109,6 +128,8 @@ def worker(out_path: str, rows) -> int:
     import torch
 
     from ip_mcmc_tpu_torch import configs, ops
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
     from ip_mcmc_tpu_torch.ops import fused_fes, fused_mala, fused_rwm
 
     def time_ms(fn, reps=3):
@@ -146,18 +167,23 @@ def worker(out_path: str, rows) -> int:
 
     # the large grids: darcy64_da_fused's two misfits and darcy32_pcn_warm's
     # and darcy64_pcn_warm's cold misfits, 1024 draws each; their warm
-    # misfits at their configs' widths (2048 at 64x64, 1024 at 32x32)
+    # misfits at their configs' widths (2048 at 64x64, 4096 at 32x32); a
+    # cold 32x32 dst_trunc-128 / 16 CG misfit (no config) at 4096
     da64 = configs.build("darcy64_da_fused", "cuda")
     pcn64, pcn32 = (configs.build(c, "cuda") for c in ("darcy64_pcn_warm", "darcy32_pcn_warm"))
     U144 = da64.prior.sample(gen, 1024).T.contiguous()
     U64 = pcn32.prior.sample(gen, 1024).T.contiguous()
     U144w = da64.prior.sample(gen, 2048).T.contiguous()
+    U64w = pcn32.prior.sample(gen, n).T.contiguous()
+    aux32 = darcy.darcy_aux(n_grid=32, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    dst32 = darcy_misfit_from_arrays(aux32, pcn32.data, 0.002, cg_iters=16, precond="dst_trunc",
+                                     precond_modes=128).cuda()
 
     outputs, times = {}, {}
     if rows is None or "misfits" in rows:
         for name, pot in (("misfit_exact", exact), ("misfit_surrogate", surr),
                           ("misfit_jacobi48", jacobi)):
-            outputs[name] = pot(U)
+            outputs[f"{name}_phi"] = pot(U)
             times[name] = time_ms(lambda: pot(U), 20)
         zeros = torch.zeros(aux_dim, n, device="cuda")
         outputs["misfit_warm_phi"], outputs["misfit_warm_x"] = warm(U, zeros)
@@ -171,10 +197,11 @@ def worker(out_path: str, rows) -> int:
         for name, pot, V in (("misfit64_exact", da64.batched_potential_fn, U144),
                              ("misfit64_surrogate", da64.batched_surrogate_fn, U144),
                              ("misfit64_cold", pcn64.batched_potential_fn, U144),
-                             ("misfit32_cold", pcn32.batched_potential_fn, U64)):
+                             ("misfit32_cold", pcn32.batched_potential_fn, U64),
+                             ("misfit32_dst", dst32, U64w)):
             outputs[f"{name}_phi"] = pot(V)
             times[name] = time_ms(lambda: pot(V), 5)
-        for name, p, V in (("misfit64_warm", pcn64, U144w), ("misfit32_warm", pcn32, U64)):
+        for name, p, V in (("misfit64_warm", pcn64, U144w), ("misfit32_warm", pcn32, U64w)):
             w, dim = p.batched_warm_potential
             z = torch.zeros(dim, V.shape[1], device="cuda")
             outputs[f"{name}_phi"], outputs[f"{name}_x"] = w(V, z)
@@ -247,37 +274,91 @@ def worker(out_path: str, rows) -> int:
     return 0
 
 
+def cli_worker(names) -> int:
+    import torch
+
+    from ip_mcmc_tpu_torch import configs, runner
+
+    out = {}
+    for name in names:
+        if name.startswith("darcy_da_richardson:"):
+            p = configs.darcy_da_richardson(name.split(":", 1)[1], "cuda")
+        else:
+            p = configs.build(name, "cuda")
+        out[name] = runner.run_problem(p, "cuda")
+        torch.cuda.synchronize()
+    print(json.dumps(out))
+    return 0
+
+
+def run_worker(tree: pathlib.Path, args) -> dict | None:
+    """This script's worker on ``args`` in a process of its own with
+    ``tree`` first on the import path: its last line as JSON, or None (its
+    output printed) if it failed."""
+    env = dict(os.environ, PYTHONPATH=str(tree))
+    proc = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()), *args],
+                          cwd=tree, env=env, capture_output=True, text=True)
+    if proc.returncode != 0:
+        print(proc.stdout, proc.stderr, file=sys.stderr)
+        return None
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="directory holding the other tree")
     ap.add_argument("--rows", help="comma-separated rows to run (default: all)")
+    ap.add_argument("--cli", nargs="+", metavar="CONFIG",
+                    help="run these CLI configs in place of the kernel rows")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     rows = None if args.rows is None else set(args.rows.split(","))
     if args.worker:
-        return worker(args.worker, rows)
+        return cli_worker(args.cli) if args.cli else worker(args.worker, rows)
     if not args.parent:
         ap.error("--parent is required")
-    import torch
-
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    print(f"card: {card}")
+    print(f"card: {card}", flush=True)
     trees = {"parent": pathlib.Path(args.parent).resolve(), "new": ROOT}
+    if args.cli:
+        return compare_cli(trees, args.cli, card)
+    return compare_kernels(trees, args.rows, rows)
+
+
+def compare_cli(trees, names, card) -> int:
+    runs = []
+    for which in TURNS:
+        stats = run_worker(trees[which], ["--worker", "cli", "--cli", *names])
+        if stats is None:
+            return 1
+        runs.append((which, stats))
+    report = {"card": card}
+    for name in names:
+        rows = [(which, m[name]) for which, m in runs]
+        for which, m in rows:
+            print(f"{name} {which}: " + ", ".join(f"{k} {m[k]}" for k in CLI_SHOWN if k in m),
+                  flush=True)
+        equal = all(rows[0][1].get(k) == m.get(k) for k in CLI_STATS for _, m in rows)
+        print(f"{name}: statistics equal in the four runs digit for digit {equal}", flush=True)
+        report[name] = {"runs": [{"tree": w, **{k: m[k] for k in CLI_SHOWN if k in m}}
+                                 for w, m in rows], "statistics_equal": equal}
+    print(json.dumps(report))
+    return 0
+
+
+def compare_kernels(trees, rows_arg, rows) -> int:
+    import torch
+
     results = []
     with tempfile.TemporaryDirectory() as tmp:
-        for i, which in enumerate(("parent", "new", "new", "parent")):
+        for i, which in enumerate(TURNS):
             out = os.path.join(tmp, f"{i}_{which}.pt")
-            env = dict(os.environ, PYTHONPATH=str(trees[which]))
-            proc = subprocess.run(
-                [sys.executable, str(pathlib.Path(__file__).resolve()), "--worker", out,
-                 *(["--rows", args.rows] if args.rows else [])],
-                cwd=trees[which], env=env, capture_output=True, text=True)
-            if proc.returncode != 0:
-                print(proc.stdout, proc.stderr, file=sys.stderr)
+            times = run_worker(trees[which],
+                               ["--worker", out, *(["--rows", rows_arg] if rows_arg else [])])
+            if times is None:
                 return 1
-            times = json.loads(proc.stdout.strip().splitlines()[-1])
             results.append((which, times, torch.load(out)))
             print(f"{which}: " + json.dumps(times), flush=True)
     ref = {"parent": results[0][2], "new": results[1][2]}

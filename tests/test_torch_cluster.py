@@ -220,7 +220,7 @@ def test_misfit_cluster_takes_the_specs_of_both_configs():
     dict(modes=100),                     # not a multiple of 16
     dict(modes=272),                     # more than the layout holds
     dict(K=200),                         # K above the layout's 144
-    dict(n=32, modes=128),               # the 32² grid
+    dict(n=32, modes=128),               # the 32² grid at K 144 (above its 64)
     dict(solver="richardson"),           # K17's solve
     dict(precond="dst", modes=0),        # the dense dst preconditioner
 ])
@@ -240,7 +240,9 @@ def test_misfit_cluster_geometry_refuses_a_negative_width():
 
 def test_misfit_kernel_labels():
     """The launch counts name the cluster kernels for the two 64² configs'
-    misfits and the kernels of their layout for every other shipped one."""
+    misfits and darcy32_pcn_warm's warm misfit, the warp kernel for
+    darcy_da_fused's exact misfit, and the kernels of their layout for
+    every other shipped one."""
     names = {}
     for c in ("darcy64_da_fused", "darcy64_pcn_warm", "darcy32_pcn_warm", "darcy_pcn_warm",
               "darcy_da_fused"):
@@ -254,9 +256,9 @@ def test_misfit_kernel_labels():
         "darcy64_da_fused": ["darcy_misfit_cluster_kernel[n=64]", "darcy_misfit_kernel[n=32]"],
         "darcy64_pcn_warm": ["darcy_misfit_cluster_kernel[n=64]",
                              "darcy_misfit_warm_cluster_kernel"],
-        "darcy32_pcn_warm": ["darcy_misfit_kernel[n=32]", "darcy_misfit_warm_kernel"],
+        "darcy32_pcn_warm": ["darcy_misfit_kernel[n=32]", "darcy_misfit_warm_cluster32_kernel"],
         "darcy_pcn_warm": ["darcy_misfit_kernel[n=16]", "darcy_misfit_warm_kernel"],
-        "darcy_da_fused": ["darcy_misfit_kernel[n=16]", "darcy_misfit_kernel[n=8]"],
+        "darcy_da_fused": ["darcy_misfit_warp_kernel[n=16]", "darcy_misfit_kernel[n=8]"],
     }
 
 
@@ -273,3 +275,103 @@ def test_misfit_kernel_labels_of_64_specs_the_cluster_leaves():
     assert not cold.on_cluster and not warm.on_cluster
     assert cold.kernel_label == "darcy_misfit_kernel[n=64]"
     assert warm.warm_kernel_label == "darcy_misfit_warm_kernel"
+
+
+# --- the standalone 32² misfits on the 32² warm pCN's cluster level -----------
+# (darcy_misfit_warm_cluster32_kernel, darcy_misfit_cluster32_kernel)
+
+
+def _misfit32(**kw):
+    """A cold 32² misfit on darcy32_pcn_warm's prior and data (dst_trunc-128,
+    16 CG unless ``kw`` says otherwise)."""
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    aux = darcy.darcy_aux(n_grid=32, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    data = configs.build("darcy32_pcn_warm", "cpu").data
+    return darcy_misfit_from_arrays(
+        aux, data, 0.002, **{**dict(cg_iters=16, precond="dst_trunc", precond_modes=128), **kw})
+
+
+@pytest.mark.parametrize("B, clusters", [(4096, 512), (1024, 128), (13, 2), (1, 1), (0, 0)])
+def test_misfit_cluster32_geometry(B, clusters):
+    """One draw a CTA, G draws a cluster, in the 32² warm pCN's layout:
+    darcy32_pcn_warm's width (4096), a ragged 13 (two clusters, 3 spare
+    CTAs) and none."""
+    kw = dict(n=32, K=64, precond="dst_trunc", modes=128, solver="cg")
+    assert _cluster.misfit_cluster_geometry(B, **kw) == (G32, clusters, clusters * G32, SMEM32)
+
+
+def test_misfit_cluster_takes_the_32_warm_misfit_and_its_cold_twin():
+    """darcy32_pcn_warm's warm misfit (dst_trunc-128 / 4 CG, K 64) is a
+    level of the 32² warm pCN, and so is a cold dst_trunc CG misfit on the
+    same grid (no config's); the config's cold Jacobi misfit is not."""
+    p = configs.build("darcy32_pcn_warm", "cpu")
+    warm, cold = p.batched_warm_potential[0], _misfit32()
+    for pot in (warm, cold):
+        assert _takes(pot) and pot.on_cluster and not da.misfit_warp_takes(**pot.spec_fields)
+        assert _cluster.misfit_cluster_geometry(p.n_chains, **pot.spec_fields) == (
+            G32, p.n_chains // G32, p.n_chains, SMEM32)
+    assert warm.warm_kernel_label == "darcy_misfit_warm_cluster32_kernel"
+    assert cold.kernel_label == "darcy_misfit_cluster32_kernel[n=32]"
+    assert not _takes(p.batched_potential_fn)
+
+
+@pytest.mark.parametrize("kw, what", [
+    (dict(precond="jacobi", cg_iters=96), "darcy32_pcn_warm's cold misfit"),
+    (dict(precond="dst", cg_iters=4), "the dense dst preconditioner"),
+    (dict(precond_modes=144), "more modes than the layout holds"),
+    (dict(precond_modes=120), "not a multiple of 16"),
+    (dict(solver="richardson", omega=0.9, cg_iters=3), "K17's solve"),
+])
+def test_misfit_cluster_leaves_other_32_specs(kw, what):
+    """What the 32² cluster level does not take keeps the Layout32 kernels'
+    names (one draw a CTA), and the geometry refuses it."""
+    if kw.get("precond") == "dst":
+        from ip_mcmc_tpu_torch.convert import darcy_warm_misfit_from_arrays
+        from ip_mcmc_tpu_torch.models import darcy
+
+        aux = darcy.darcy_aux(n_grid=32, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+        pot, _ = darcy_warm_misfit_from_arrays(
+            aux, configs.build("darcy32_pcn_warm", "cpu").data, 0.002, **kw)
+        assert pot.warm_kernel_label == "darcy_misfit_warm_kernel"
+    else:
+        pot = _misfit32(**kw)
+        tag = ",richardson" if pot.solver == "richardson" else ""
+        assert pot.kernel_label == f"darcy_misfit_kernel[n=32{tag}]"
+    assert not _takes(pot) and not pot.on_cluster, what
+    with pytest.raises(ValueError, match="cluster misfit kernels take"):
+        _cluster.misfit_cluster_geometry(64, **pot.spec_fields)
+
+
+def test_misfit_cluster_leaves_the_32_surrogate_of_darcy64_da():
+    """darcy64_da_fused's 32² surrogate (dst_trunc-128 / 3 CG) has K 144,
+    above the 32² level's 64: it stays on the Layout32 kernel."""
+    surr = configs.build("darcy64_da_fused", "cpu").batched_surrogate_fn
+    assert (surr.n, surr.K, surr.modes) == (32, 144, 128)
+    assert not _takes(surr) and surr.kernel_label == "darcy_misfit_kernel[n=32]"
+
+
+def test_the_left_32_warm_jacobi_spec_is_rounding_sensitive_from_zero():
+    """chip_smoke.py holds the Layout32 warm kernel on a 32² Jacobi / 16 CG
+    misfit (a spec the cluster level leaves) under UNCONVERGED_32_TOL, the
+    32² bounds, and not under F32_TOL: from x0 = 0 the solve stops far from
+    convergence, where f32 rounding is not damped. The plain version in f32
+    against itself in f64 shows it: the median relative difference of Φ is
+    more than ten times F32_TOL's median (2e-6), and every draw stays within
+    the 32² bounds' largest (5e-3)."""
+    from ip_mcmc_tpu_torch.convert import darcy_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    p = configs.build("darcy32_pcn_warm", "cpu")
+    aux = darcy.darcy_aux(n_grid=32, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    warm, aux_dim = darcy_warm_misfit_from_arrays(aux, p.data, 0.002, cg_iters=16,
+                                                  precond="jacobi")
+    assert not _takes(warm) and warm.warm_kernel_label == "darcy_misfit_warm_kernel"
+    U = p.prior.sample(torch.Generator().manual_seed(37), 32).T.contiguous()
+    x0 = torch.zeros(aux_dim, 32)
+    phi32 = warm._forward_warm_plain(U, x0)[0].double()
+    phi64 = warm.double()._forward_warm_plain(U.double(), x0.double())[0]
+    rel = (phi32 - phi64).abs() / phi64.abs()
+    assert float(rel.median()) > 2e-5
+    assert float(rel.max()) <= 5e-3

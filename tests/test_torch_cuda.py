@@ -40,7 +40,7 @@ def test_misfit_kernel_matches_plain(problem):
     g = torch.Generator().manual_seed(0)
     U = problem.prior.sample(g, 512).T.contiguous()
     for pot in (problem.batched_potential_fn, problem.batched_surrogate_fn):
-        name = f"darcy_misfit_kernel[n={pot.n}]"
+        name = pot.kernel_label  # the exact level: darcy_misfit_warp_kernel[n=16]
         before = _build.launch_counts[name]
         got = pot(U)
         assert _build.launch_counts[name] == before + 1
@@ -999,8 +999,9 @@ def test_misfit_warm_cluster_kernel_on_a_ragged_width():
 
 def test_misfit_cluster_geometry_matches_the_kernel():
     """ops/_cluster.py misfit_cluster_geometry and misfit_cluster_takes give
-    what the C function computes: the geometry of the specs it takes, and
-    cudaErrorNotSupported for those it leaves to the layouts' kernels."""
+    what the C function computes: the geometry of the specs it takes (64²
+    and 32²), and cudaErrorNotSupported for those it leaves to the layouts'
+    kernels."""
     import ctypes
 
     from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
@@ -1013,10 +1014,10 @@ def test_misfit_cluster_geometry_matches_the_kernel():
     jacobi = darcy_misfit_from_arrays(aux, pcn_p.data, 0.002, cg_iters=16).cuda()
     lib = _build.library()
     pots = (da_p.batched_potential_fn, da_p.batched_surrogate_fn, pcn_p.batched_potential_fn,
-            pcn_p.batched_warm_potential[0], pcn_p.batched_warm_potential[0], jacobi)
+            pcn_p.batched_warm_potential[0], jacobi, *_misfits32())
     for pot in pots:
-        kw = dict(n=pot.n, K=pot.K, precond=pot.precond, modes=pot.modes, solver=pot.solver)
-        for B in (1024, 2048, 13, 1, 0):
+        kw = pot.spec_fields
+        for B in (1024, 2048, 4096, 13, 1, 0):
             out = (ctypes.c_int * 4)()
             status = lib.ipx_darcy_misfit_cluster_geometry(ctypes.byref(pot.spec()), B, out)
             if _cluster.misfit_cluster_takes(**kw):
@@ -1051,6 +1052,167 @@ def test_layout64_misfits_take_a_spec_the_cluster_leaves():
     assert float(_col_err(x, ref_x).max()) <= 5e-3
     assert (_build.launch_counts["darcy_misfit_kernel[n=64]"],
             _build.launch_counts["darcy_misfit_warm_kernel"]) == (before[0] + 1, before[1] + 1)
+
+
+# --- the standalone 32² misfits on the 32² warm pCN's cluster level -----------
+# --- (darcy_misfit_warm_cluster32_kernel, darcy_misfit_cluster32_kernel) -------
+
+
+def _misfits32():
+    """darcy32_pcn_warm's warm misfit, its cold Jacobi misfit (a spec the
+    cluster level leaves), darcy64_da_fused's 32² surrogate (K 144, left
+    too) and a cold dst_trunc-128 / 16 CG misfit on the 32² level."""
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    p = _build_on_card("darcy32_pcn_warm")
+    aux = darcy.darcy_aux(n_grid=32, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    cold = darcy_misfit_from_arrays(aux, p.data, 0.002, cg_iters=16, precond="dst_trunc",
+                                    precond_modes=128).cuda()
+    surr = _build_on_card("darcy64_da_fused").batched_surrogate_fn
+    return p.batched_warm_potential[0], p.batched_potential_fn, surr, cold
+
+
+def test_misfit_warm_cluster32_kernel_on_a_ragged_width():
+    """darcy32_pcn_warm's warm misfit on 13 draws, from x0 = 0 and from the
+    previous solution after a pCN-sized move: (Φ, x) equal the first 13 of
+    a 16-draw launch bit for bit (two clusters of 8, 3 spare CTAs) and
+    agree with the plain twin under the 32² bound."""
+    p = _build_on_card("darcy32_pcn_warm")
+    warm, aux_dim = p.batched_warm_potential
+    assert warm.warm_kernel_label == "darcy_misfit_warm_cluster32_kernel"
+    g = torch.Generator().manual_seed(34)
+    U = p.prior.sample(g, 16).T.contiguous()
+    U2 = (0.9968 * U + 0.08 * p.prior.sample(g, 16).T).contiguous()
+    x0 = torch.zeros(aux_dim, 16, device="cuda")
+    before = _build.launch_counts[warm.warm_kernel_label]
+    for V in (U, U2):
+        (phi, x), (phi16, x16) = warm(V[:, :13].contiguous(), x0[:, :13].contiguous()), warm(V, x0)
+        assert torch.equal(phi, phi16[:13]) and torch.equal(x, x16[:, :13])
+        ref_phi, ref_x = warm._forward_warm_plain(V[:, :13], x0[:, :13])
+        _misfit_rel_ok(phi, ref_phi)
+        assert float(_col_err(x, ref_x).max()) <= 5e-3
+        x0 = x16
+    assert _build.launch_counts[warm.warm_kernel_label] == before + 4
+
+
+def test_misfit_cluster32_kernel_matches_plain():
+    """The cold twin on the 32² level (dst_trunc-128 / 16 CG, no config's
+    cold misfit) against its plain version, and on a ragged 13 draws equal
+    to the first 13 of a 16-draw launch bit for bit."""
+    cold = _misfits32()[3]
+    assert cold.kernel_label == "darcy_misfit_cluster32_kernel[n=32]"
+    U = torch.randn(64, 256, generator=torch.Generator().manual_seed(35)).cuda()
+    before = _build.launch_counts[cold.kernel_label]
+    _misfit_rel_ok(cold(U), cold._forward_plain(U))
+    got, full = cold(U[:, :13].contiguous()), cold(U[:, :16].contiguous())
+    assert torch.equal(got, full[:13])
+    assert _build.launch_counts[cold.kernel_label] == before + 3
+
+
+# --- the standalone 16² exact misfit a draw a warp (darcy_misfit_warp_kernel) --
+
+
+def test_misfit_warp_kernel_on_a_ragged_width(problem):
+    """darcy_da_fused's exact misfit on 13 draws: one CTA of 16 warps, 3
+    spare running on zeros. A draw's column of the CTA's products depends
+    on it alone, so Φ equals the first 13 of a 16-draw launch bit for bit;
+    against the plain twin under the bound of the 16² misfits."""
+    pot = problem.batched_potential_fn
+    assert pot.kernel_label == "darcy_misfit_warp_kernel[n=16]"
+    U = problem.prior.sample(torch.Generator().manual_seed(36), 512).T.contiguous()
+    before = _build.launch_counts[pot.kernel_label]
+    got, full = pot(U[:, :13].contiguous()), pot(U[:, :16].contiguous())
+    assert torch.equal(got, full[:13])
+    rel = _rel(pot(U), pot._forward_plain(U))
+    assert float(rel.median()) <= 2e-6
+    assert float((rel <= 1e-5).double().mean()) >= 0.80
+    assert float(rel.max()) <= 5e-3
+    assert _build.launch_counts[pot.kernel_label] == before + 3
+
+
+def test_misfit_warp_geometry_matches_the_kernel(problem):
+    """ops/fused_da_pcn.py misfit_warp_geometry and misfit_warp_takes give
+    what the C function computes: the geometry of the specs it takes (the
+    DA kernel's exact level), cudaErrorNotSupported for the others."""
+    import ctypes
+
+    lib = _build.library()
+    rich = configs.darcy_da_richardson("rich3_w0.9", "cuda")
+    pots = (problem.batched_potential_fn, problem.batched_surrogate_fn,
+            rich.batched_potential_fn, rich.batched_surrogate_fn,
+            _build_on_card("darcy_ess_fused").batched_potential_fn, *_misfits32())
+    taken = 0
+    for pot in pots:
+        for B in (4096, 13, 1, 0):
+            out = (ctypes.c_int * 3)()
+            status = lib.ipx_darcy_misfit_warp_geometry(ctypes.byref(pot.spec()), B, out)
+            if da.misfit_warp_takes(**pot.spec_fields):
+                assert status == 0 and tuple(out) == da.misfit_warp_geometry(B, **pot.spec_fields)
+                taken += 1
+            else:
+                assert "not supported" in lib.ipx_error_string(status).decode()
+    assert taken == 2 * 4
+
+
+def test_layout_misfits_take_the_specs_the_rules_leave():
+    """The specs the warp and the 32² cluster rules leave still launch the
+    one-draw-a-CTA kernels of their layout: the 16² Jacobi / 48 CG misfit
+    of ESS, cold pCN and FES; 16² dst_trunc-160 (more modes than the warp
+    kernel stages) and 16² Richardson; the 8² surrogates (CG and
+    Richardson); darcy32_pcn_warm's cold Jacobi misfit; darcy64_da_fused's
+    32² surrogate (K 144); a 32² warm Jacobi / 16 CG misfit, from x0 = 0
+    and from the previous solution. Each meets its twin under its bound
+    (bf16 preconditioners: chip_smoke.py's largest relative error, 5e-3;
+    Jacobi: f32 only, 1e-4; the 32² warm Jacobi solve stops unconverged,
+    where f32 rounding alone moves Φ by up to ~1e-3: chip_smoke.py's
+    UNCONVERGED_32_TOL, the 32² bounds)."""
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays, darcy_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    p = _build_on_card("darcy_da_fused")
+    rich = configs.darcy_da_richardson("rich3_w0.9", "cuda")
+    _, jacobi32, surr32, _ = _misfits32()
+    aux16 = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8)
+    dst160 = darcy_misfit_from_arrays(aux16, p.data, 0.002, cg_iters=12, precond="dst_trunc",
+                                      precond_modes=160).cuda()
+    rich16 = darcy_misfit_from_arrays(aux16, p.data, 0.002, cg_iters=3, precond="dst_trunc",
+                                      precond_modes=128, solver="richardson", omega=0.9).cuda()
+    cases = ((_build_on_card("darcy_ess_fused").batched_potential_fn,
+              "darcy_misfit_kernel[n=16]", 1e-4),
+             (dst160, "darcy_misfit_kernel[n=16]", 5e-3),
+             (rich16, "darcy_misfit_kernel[n=16,richardson]", 5e-3),
+             (p.batched_surrogate_fn, "darcy_misfit_kernel[n=8]", 5e-3),
+             (rich.batched_surrogate_fn, "darcy_misfit_kernel[n=8,richardson]", 5e-3),
+             (jacobi32, "darcy_misfit_kernel[n=32]", 1e-4),
+             (surr32, "darcy_misfit_kernel[n=32]", 5e-3))
+    g = torch.Generator().manual_seed(37)
+    for pot, label, max_rel in cases:
+        assert pot.kernel_label == label
+        U = torch.randn(pot.K, 128, generator=g).cuda()
+        before = _build.launch_counts[label]
+        rel = _rel(pot(U), pot._forward_plain(U))
+        assert _build.launch_counts[label] == before + 1
+        assert float(rel.max()) <= max_rel, label
+
+    p32 = _build_on_card("darcy32_pcn_warm")
+    aux32 = darcy.darcy_aux(n_grid=32, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    warm, aux_dim = darcy_warm_misfit_from_arrays(aux32, p32.data, 0.002, cg_iters=16,
+                                                  precond="jacobi")
+    warm = warm.cuda()
+    label = "darcy_misfit_warm_kernel"
+    assert warm.warm_kernel_label == label
+    U = p32.prior.sample(g, 128).T.contiguous()
+    U2 = (0.9968 * U + 0.08 * p32.prior.sample(g, 128).T).contiguous()
+    x0 = torch.zeros(aux_dim, 128, device="cuda")
+    before = _build.launch_counts[label]
+    for V in (U, U2):
+        phi, x = warm(V, x0)
+        ref_phi, ref_x = warm._forward_warm_plain(V, x0)
+        _misfit_rel_ok(phi, ref_phi)
+        assert float(_col_err(x, ref_x).max()) <= 5e-3
+        x0 = x
+    assert _build.launch_counts[label] == before + 2
 
 
 # --- elliptical slice sampling: one warp per chain (fused_ess_warp_kernel) -----
