@@ -39,11 +39,13 @@ Gaussians), times both, then drives the ported paths at full width:
                              chain a warp
     burgers_multitime_pcn --fused   the same, three observation times
     compare_paths            fused RWM on benchmarks/compare_paths.py's target,
-                             8192 chains x 2000 steps, beside the scan path (K14)
+                             8192 chains x 2000 steps, beside the scan path (K14),
+                             16 chains a warp
     gauss2d_rwm --fused      the runner's fused RWM branch, the config's
-                             phi_batched set by the caller (K14)
+                             phi_batched set by the caller (K14), 16 chains
+                             a warp
     lingauss_pcn fused       burn-in with in-kernel beta adaptation (K16),
-                             then dense-prior pCN (K15)
+                             then dense-prior pCN (K15), a chain a warp
     gauss2d_rwm, lingauss_pcn   the scan path through the CLI (no kernel)
 
 The fourteen fused configs and the two scan configs run through the port's
@@ -52,7 +54,7 @@ Before each path the launch counts are set to 0; after it they must show
 that the path went through its kernels (the scan path: its steps on the
 card) and through no plain version. Every phase raises on failure. Prints
 the card's name and power limit, the registers and spills that ptxas
-reported for every Darcy and Burgers sampler kernel, a JSON
+reported for every Darcy, Burgers and linear-Gaussian group sampler kernel, a JSON
 line of per-kernel results (time, plain time, roofline bound, launches),
 and as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
@@ -278,13 +280,17 @@ def burgers_misfit_bound(pot, B):
                  4 * B * (pot.K + 1) + constant_bytes(pot))
 
 
-def chain_bound(pots, n, d, per_step_ops, recorded):
-    """One step of a fused launch, counted as a launch of one step:
-    positions in and out, start values, acceptance and the constants once,
-    one record when recording, and the step's solves and draws."""
-    nbytes = 4 * n * (2 * d + 2) + sum(constant_bytes(p) for p in pots)
-    if recorded:
-        nbytes += 4 * n * d
+def chain_bound(pots, n, d, per_step_ops, recorded, *, launch_a_step=False):
+    """One step of a sampler: the step's solves and draws, and one record
+    when recording. A fused launch runs the whole n_steps loop, so the
+    state and the constants can stay on the chip from step to step: the
+    positions in and out, the start values, the acceptance and the
+    constants are the launch's bytes, which the slope between two launches
+    cancels, and a step moves none of them. Where each step is a launch
+    (``launch_a_step``: K16's host loop), a step moves them all."""
+    nbytes = 4 * n * d if recorded else 0
+    if launch_a_step:
+        nbytes += 4 * n * (2 * d + 2) + sum(constant_bytes(p) for p in pots)
     return bound(n * per_step_ops, nbytes)
 
 
@@ -437,6 +443,11 @@ PCN_WARM = "fused_pcn_warp_kernel[dst_trunc]"
 # other specs on the one-chain-a-CTA kernels
 DA_BURGERS = "fused_da_pcn_burgers_warp_kernel"
 PCN_BURGERS = "fused_pcn_burgers_warp_kernel"
+# K14 and K15 on the shipped linear-Gaussian specs: a chain on each group of
+# d lanes (ops/_gaussian_group.py); the other specs on the one-chain-a-CTA
+# kernels
+RWM_GROUP = "fused_rwm_group_kernel"
+PCN_DENSE_GROUP = "fused_pcn_dense_group_kernel"
 
 
 def check_da(problem, gen, results):
@@ -1788,21 +1799,24 @@ def run_richardson_da(richardson):
     return counts, rows
 
 
-# the sources of the Darcy and Burgers kernels (their linear-Gaussian
-# instantiations are left out by name)
+# the sources of the Darcy and Burgers kernels and of the linear-Gaussian
+# group kernels (the one-chain-a-CTA linear-Gaussian instantiations are left
+# out by name)
 SAMPLER_UNITS = ("fused_da_pcn.cu", "fused_pcn.cu", "fused_ess.cu", "fused_fes.cu",
-                 "fused_mala.cu", "fused_rwm.cu", "fused_da3_pcn.cu")
+                 "fused_mala.cu", "fused_rwm.cu", "fused_da3_pcn.cu", "fused_pcn_dense.cu")
 
 
 def sampler_ptxas_report():
-    """Registers and spill bytes of every Darcy and Burgers kernel in this
-    process's build (``_build.ptxas_report``), printed one kernel a line,
-    so that a spill in a sampler (one cost the Darcy DA kernel 6 % once)
-    shows in every run."""
+    """Registers and spill bytes of every Darcy and Burgers kernel and of
+    the linear-Gaussian group kernels in this process's build
+    (``_build.ptxas_report``), printed one kernel a line, so that a spill
+    in a sampler (one cost the Darcy DA kernel 6 % once) shows in every
+    run."""
     from ip_mcmc_tpu_torch.ops import _build
 
     rows = [r for r in _build.ptxas_report() if r["unit"] in SAMPLER_UNITS
-            and not any(k in r["kernel"].lower() for k in ("lineargaussian", "linear_gaussian"))]
+            and ("_group_kernel" in r["kernel"] or not any(
+                k in r["kernel"].lower() for k in ("lineargaussian", "linear_gaussian")))]
     if not rows:
         print("ptxas: no nvcc.log (the kernels were built by another process)", flush=True)
         return rows
@@ -1817,8 +1831,8 @@ def sampler_ptxas_report():
               f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads",
               flush=True)
     spilled = [r["kernel"] for r in rows if r["spill_stores"] or r["spill_loads"]]
-    print(f"ptxas: {len(rows)} Darcy and Burgers kernels, {len(spilled)} with spills",
-          flush=True)
+    print(f"ptxas: {len(rows)} Darcy, Burgers and linear-Gaussian group kernels, "
+          f"{len(spilled)} with spills", flush=True)
     return rows
 
 
@@ -1869,22 +1883,37 @@ def dense_cholesky(lam, seed=7):
     return torch.tensor(L, dtype=torch.float32, device="cuda")
 
 
+def linear_misfit(m, d, seed):
+    """A linear-Gaussian misfit of m seeded rows on d coordinates, σ 0.05
+    (lingauss_pcn's shape, with other m and d)."""
+    from ip_mcmc_tpu_torch.convert import linear_gaussian_from_arrays
+
+    r = np.random.default_rng(seed)
+    return linear_gaussian_from_arrays(r.standard_normal((m, d)) / np.sqrt(d),
+                                       0.1 * r.standard_normal(m), 0.05).cuda()
+
+
 def check_linear_family(problems, gen, results):
-    """K14 on the compare_paths target and on gauss2d_rwm's with the prior,
-    and on Darcy (an instantiation no shipped path launches); the
-    linear-Gaussian misfit kernel, K15 and K16 on lingauss_pcn's misfit at
-    2048 chains; each against its plain version, timed."""
+    """K14 on the compare_paths target and on gauss2d_rwm's with the prior
+    (the group kernel, 16 chains a warp), on a d = 3 target the group rule
+    leaves (one chain a CTA) and on Darcy (an instantiation no shipped path
+    launches); the linear-Gaussian misfit kernel, K15 (the group kernel, a
+    chain a warp; on an m = 40 misfit the rule leaves, one chain a CTA) and
+    K16 on lingauss_pcn's misfit at 2048 chains; each against its plain
+    version, timed."""
     from ip_mcmc_tpu_torch import configs
+    from ip_mcmc_tpu_torch.convert import linear_gaussian_from_arrays
     from ip_mcmc_tpu_torch.ops import fused_pcn_adapt, fused_pcn_dense, fused_rwm
 
     cp = compare_paths_potential()
     pos = torch.randn(CP_CHAINS, 2, generator=gen).cuda()
     per_step = linear_ops(cp) + Ops(RNG_OPS_PER_DRAW * 2)
+    assert fused_rwm.stem(cp, 2) == RWM_GROUP, fused_rwm.stem(cp, 2)
     compare_chain(
-        results, "fused_rwm_kernel", False,
+        results, RWM_GROUP, False,
         lambda s: fused_rwm._launch(cp, pos, 0.9, 41, s, CP_BLOCK),
         lambda s: fused_rwm._run_plain(cp._forward_plain, pos, 0.9, 41, s, CP_BLOCK),
-        steps=20, kernel_long=420, plain_long=40,
+        steps=20, kernel_long=2020, plain_long=40,
         variant=f"compare_paths target (d = 2, A = I), no prior, block {CP_BLOCK}",
         paths=["compare_paths"], source="fused_rwm.cu", pots=(cp,),
         per_step_ops=per_step, replaces=JAX_OPS + "284")
@@ -1894,17 +1923,32 @@ def check_linear_family(problems, gen, results):
     pos2 = p2.init_positions(gen, p2.n_chains).cuda()
     prior = dict(prior_mean=p2.prior.mean, prior_scale=p2.prior.scale)
     step = p2.kernel_params["step_size"]
-    for recorded in (False, True):
-        kw = dict(prior, **({"thin": 1} if recorded else {}))
-        compare_chain(
-            results, "fused_rwm_kernel", recorded,
-            lambda s: fused_rwm._launch(g2, pos2, step, 43, s, 512, **kw),
-            lambda s: fused_rwm._run_plain(g2._forward_plain, pos2, step, 43, s, 512, **kw),
-            steps=20, kernel_long=420, plain_long=40,
-            variant="gauss2d_rwm target (A = L^T, P = L L^T) + prior N(0, 10^2), block 512",
-            paths=["gauss2d_rwm --fused"], source="fused_rwm.cu", pots=(g2,),
-            per_step_ops=linear_ops(g2) + Ops((RNG_OPS_PER_DRAW + 4) * 2),
-            replaces=JAX_OPS + "284")
+    # a 3-D target the group rule leaves: one chain a CTA (no path)
+    g3 = linear_gaussian_from_arrays(np.eye(3), np.zeros(3), [1.4, 0.7, 1.0],
+                                     center=[1.0, -0.5, 0.25]).cuda()
+    pos3 = torch.randn(p2.n_chains, 3, generator=gen).cuda()
+    prior3 = dict(prior_mean=torch.zeros(3), prior_scale=torch.full((3,), 10.0))
+    for pot, d, ps, kernel, variant, paths in (
+            (g2, 2, pos2, RWM_GROUP,
+             "gauss2d_rwm target (A = L^T, P = L L^T) + prior N(0, 10^2), block 512",
+             ["gauss2d_rwm --fused"]),
+            (g3, 3, pos3, "fused_rwm_kernel",
+             "a d = 3 Gaussian (A = I) + prior N(0, 10^2), block 512, which the group rule "
+             "leaves to one chain a CTA (no shipped path)", [])):
+        kw0 = prior if d == 2 else prior3
+        assert fused_rwm.stem(pot, d) == kernel, (d, fused_rwm.stem(pot, d))
+        for recorded in (False, True):
+            kw = dict(kw0, **({"thin": 1} if recorded else {}))
+            compare_chain(
+                results, kernel, recorded,
+                lambda s, pot=pot, ps=ps, kw=kw: fused_rwm._launch(pot, ps, step, 43, s, 512,
+                                                                   **kw),
+                lambda s, pot=pot, ps=ps, kw=kw: fused_rwm._run_plain(
+                    pot._forward_plain, ps, step, 43, s, 512, **kw),
+                steps=20, kernel_long=2020, plain_long=40, variant=variant, paths=paths,
+                source="fused_rwm.cu", pots=(pot,),
+                per_step_ops=linear_ops(pot) + Ops((RNG_OPS_PER_DRAW + 4) * d),
+                replaces=JAX_OPS + "284")
 
     darcy_p = problems["darcy_pcn_4096"]
     jacobi = darcy_p.batched_potential_fn
@@ -1937,22 +1981,30 @@ def check_linear_family(problems, gen, results):
     # the main path's L is diag √λ, symmetric; a dense L also tests that the
     # kernel forms L z and not Lᵀ z. The bound counts L's nonzeros.
     dense = dense_cholesky(scale.double().cpu().numpy() ** 2)
-    for L, variant, paths in (
-            (chol, "prior's L = diag sqrt(lambda) (32 x 32, diagonal)", ["lingauss_pcn fused"]),
-            (dense, "a dense lower-triangular 32 x 32 L (no shipped path)", [])):
+    m40 = linear_misfit(40, d, seed=67)  # 40 rows: the group rule leaves it
+    for p, L, kernel, variant, paths in (
+            (pot, chol, PCN_DENSE_GROUP,
+             "lingauss_pcn misfit, prior's L = diag sqrt(lambda) (32 x 32, diagonal)",
+             ["lingauss_pcn fused"]),
+            (pot, dense, PCN_DENSE_GROUP,
+             "lingauss_pcn misfit, a dense lower-triangular 32 x 32 L (no shipped path)", []),
+            (m40, chol, "fused_pcn_dense_kernel",
+             "an m = 40, d = 32 misfit, which the group rule leaves to one chain a CTA, "
+             "L = diag sqrt(lambda) (no shipped path)", [])):
+        assert fused_pcn_dense.stem(p, d) == kernel, (p.m, fused_pcn_dense.stem(p, d))
         for recorded in (False, True):
             kw = {"thin": 1} if recorded else {}
             compare_chain(
-                results, "fused_pcn_dense_kernel", recorded,
-                lambda s: fused_pcn_dense._launch(pot, pos_l, zeros, L, 0.2, 53, s,
-                                                  LINGAUSS_BLOCK, **kw),
-                lambda s: fused_pcn_dense._run_plain(pot._forward_plain, pos_l, zeros, L,
-                                                     0.2, 53, s, LINGAUSS_BLOCK, **kw),
-                steps=20, kernel_long=420, plain_long=40,
-                variant=f"lingauss_pcn misfit, {variant}, block {LINGAUSS_BLOCK}",
-                paths=paths, source="fused_pcn_dense.cu", pots=(pot,),
-                per_step_ops=linear_ops(pot) + Ops((RNG_OPS_PER_DRAW + 4) * d
-                                                   + 2 * int(torch.count_nonzero(L))),
+                results, kernel, recorded,
+                lambda s, p=p, L=L, kw=kw: fused_pcn_dense._launch(
+                    p, pos_l, zeros, L, 0.2, 53, s, LINGAUSS_BLOCK, **kw),
+                lambda s, p=p, L=L, kw=kw: fused_pcn_dense._run_plain(
+                    p._forward_plain, pos_l, zeros, L, 0.2, 53, s, LINGAUSS_BLOCK, **kw),
+                steps=20, kernel_long=2020, plain_long=40,
+                variant=f"{variant}, block {LINGAUSS_BLOCK}",
+                paths=paths, source="fused_pcn_dense.cu", pots=(p,),
+                per_step_ops=linear_ops(p) + Ops((RNG_OPS_PER_DRAW + 4) * d
+                                                 + 2 * int(torch.count_nonzero(L))),
                 replaces=JAX_OPS + "653")
 
     # K16: the step loop runs on the host (two launches a step), so a step's
@@ -1984,7 +2036,7 @@ def check_linear_family(problems, gen, results):
         "ms_unit": ("one step, both launches and the host loop: the slope between "
                     "launches of 20 and 220 steps (plain: 20 and 40)"),
         **chain_bound((pot,), n, d, linear_ops(pot) + Ops((RNG_OPS_PER_DRAW + 4) * d + 8),
-                      False),
+                      False, launch_a_step=True),
         "library_ms": None,
     }
     print(f"  one step at full width: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
@@ -2024,6 +2076,102 @@ def check_linear_family(problems, gen, results):
     print(f"  one call: {ms:.5f} ms, plain {plain_ms:.4f} ms, bound {row['bound_ms']:.6f} ms "
           f"({row['bound_by']})", flush=True)
     results.append(row)
+
+
+def group_ptxas():
+    """The instantiations of the group kernels on the shipped specs
+    (fused_rwm_group_kernel<RECORD, 2, 2>, fused_pcn_dense_group_kernel<RECORD,
+    32, 32>), mangled and demangled, for ``attach_ptxas``."""
+    from ip_mcmc_tpu_torch.ops import _gaussian_group
+
+    return {f"{stem}<{rec}>": (f"{stem}ILb{int(rec == 'true')}ELi{d}ELi{g}E",
+                               f"{stem}<{rec}, {d}, {g}>")
+            for stem, d in ((RWM_GROUP, 2), (PCN_DENSE_GROUP, 32))
+            for g in (_gaussian_group.width(d),)
+            for rec in ("false", "true")}
+
+
+def check_linear_group():
+    """What the linear-Gaussian group kernels add beside their twins: the
+    Python mirror of the launch geometry against the C function (the three
+    shipped widths, ragged 13, 1 and 0 chains); the specs the takes-rule
+    leaves to the one-chain-a-CTA kernels (C: cudaErrorNotSupported, the
+    mirror: not taken); and a ragged width, 13 chains in blocks of 8 (d = 2:
+    three spare groups in the one live warp; d = 32: one CTA of 8 warps,
+    three spare), equal bit for bit to the first 13 of the kernel's own
+    16-chain run and within CHAIN_ATOL of the plain twin's, plain and
+    recorded, for RWM with the prior and for dense pCN at d = 2 (no shipped
+    path) and d = 32."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch import configs
+    from ip_mcmc_tpu_torch.convert import linear_gaussian_from_arrays
+    from ip_mcmc_tpu_torch.ops import _build, _gaussian_group, _scaffold
+    from ip_mcmc_tpu_torch.ops import fused_pcn_dense, fused_rwm
+
+    geometry = _build.library().ipx_gaussian_group_geometry
+
+    def c_geometry(pot, n, block):
+        pos = torch.zeros(n, pot.K, device="cuda")
+        args, _ = _scaffold.chain_args(pos, torch.zeros(pot.K), torch.ones(pot.K), 0, 1, block)
+        out, spec = (ctypes.c_int * 3)(), pot.spec()
+        return geometry(ctypes.byref(spec), ctypes.byref(args), out), tuple(out)
+
+    cp, g2 = compare_paths_potential(), configs.gauss2d_batched_potential().cuda()
+    lg, scale, chol = lingauss_potential()
+    for pot, n, block in ((cp, CP_CHAINS, CP_BLOCK), (g2, 1024, 512), (lg, 2048, LINGAUSS_BLOCK),
+                          (cp, 13, 8), (lg, 13, 8), (g2, 1, 1), (lg, 0, LINGAUSS_BLOCK)):
+        status, out = c_geometry(pot, n, block)
+        mirror = _gaussian_group.geometry(n, block, d=pot.K, m=pot.m)
+        if status != 0 or out != mirror:
+            raise AssertionError(
+                f"group geometry at d = {pot.K}, m = {pot.m}, {n} chains, block {block}: "
+                f"C {out} (status {status}), Python {mirror}")
+    print("linear-Gaussian group geometry: Python mirror equals the C function (shipped: "
+          f"{_gaussian_group.geometry(CP_CHAINS, CP_BLOCK, d=2, m=2)}, "
+          f"{_gaussian_group.geometry(2048, LINGAUSS_BLOCK, d=32, m=16)})", flush=True)
+    others = (linear_gaussian_from_arrays(np.eye(3), np.zeros(3), 1.0).cuda(),
+              linear_misfit(40, 32, seed=67), linear_misfit(16, 64, seed=68),
+              linear_misfit(8, 16, seed=69), linear_misfit(5, 2, seed=70))
+    for pot in others:
+        status = c_geometry(pot, 64, 64)[0]
+        takes = _gaussian_group.takes(pot.K, pot.m, pot.K)
+        stems = (fused_rwm.stem(pot, pot.K), fused_pcn_dense.stem(pot, pot.K))
+        if status != 801 or takes or stems != ("fused_rwm_kernel", "fused_pcn_dense_kernel"):
+            raise AssertionError(f"group rule on d = {pot.K}, m = {pot.m}: C status {status}, "
+                                 f"Python takes {takes}, kernels {stems}")
+    print(f"linear-Gaussian group rule: C and Python leave the same {len(others)} other specs "
+          "(d = 3; m = 40; d = 64; d = 16; d = 2, m = 5) to the one-chain-a-CTA kernels",
+          flush=True)
+
+    gen = torch.Generator().manual_seed(82)
+    pos2 = (3.0 * torch.randn(16, 2, generator=gen)).cuda()
+    pos32 = (torch.randn(16, 32, generator=gen).cuda() * scale).contiguous()
+    prior = dict(prior_mean=torch.zeros(2), prior_scale=torch.full((2,), 10.0))
+    zeros = torch.zeros(32, device="cuda")
+    eye2 = torch.eye(2, device="cuda")
+    for recorded in (False, True):
+        kw = {"thin": 1} if recorded else {}
+        tag = "true" if recorded else "false"
+        got, full = (fused_rwm._launch(g2, pos2[:n], 1.0, 83, 5, 8, **prior, **kw)
+                     for n in (13, 16))
+        ref = fused_rwm._run_plain(g2._forward_plain, pos2, 1.0, 83, 5, 8, **prior, **kw)
+        check_ragged(f"{RWM_GROUP}<{tag}>", "gauss2d + prior, 13 chains, 16 a warp, 5 steps",
+                     got, full, ref, recorded)
+        got, full = (fused_pcn_dense._launch(g2, pos2[:n], zeros[:2], eye2, 0.5, 85, 5, 8, **kw)
+                     for n in (13, 16))
+        ref = fused_pcn_dense._run_plain(g2._forward_plain, pos2, zeros[:2], eye2, 0.5, 85, 5,
+                                         8, **kw)
+        check_ragged(f"{PCN_DENSE_GROUP}<{tag}>",
+                     "gauss2d target, L = I, d = 2 (no shipped path), 13 chains, 16 a warp, "
+                     "5 steps", got, full, ref, recorded)
+        got, full = (fused_pcn_dense._launch(lg, pos32[:n], zeros, chol, 0.2, 84, 5, 8, **kw)
+                     for n in (13, 16))
+        ref = fused_pcn_dense._run_plain(lg._forward_plain, pos32, zeros, chol, 0.2, 84, 5, 8,
+                                         **kw)
+        check_ragged(f"{PCN_DENSE_GROUP}<{tag}>",
+                     "lingauss, 13 chains, a chain a warp, 8 a CTA, 5 steps", got, full, ref,
+                     recorded)
 
 
 def ran_on_host(label):
@@ -2304,19 +2452,20 @@ def main() -> int:
     check_burgers_warp(problems, gen, results)
     attach_ptxas(results, ptxas, {**MALA_PTXAS, **PCN_PTXAS, **BURGERS_PTXAS, **MISFIT_PTXAS})
     check_linear_family(problems, gen, results)
+    check_linear_group()
+    attach_ptxas(results, ptxas, group_ptxas())
 
     # the fused linear-Gaussian paths, each with the counts set to 0 before it
     counts = {}
     counts["compare_paths"], compare_paths = drive_phase(
-        "compare_paths", ("fused_rwm_kernel<false>", "scan_rwm_step[cuda]"),
-        run_compare_paths)
+        "compare_paths", (f"{RWM_GROUP}<false>", "scan_rwm_step[cuda]"), run_compare_paths)
     counts["gauss2d_rwm --fused"], _ = drive_phase(
-        "gauss2d_rwm --fused", ("fused_rwm_kernel<false>", "fused_rwm_kernel<true>"),
+        "gauss2d_rwm --fused", (f"{RWM_GROUP}<false>", f"{RWM_GROUP}<true>"),
         lambda: run_gauss2d_fused(problems["gauss2d_rwm"]))
     counts["lingauss_pcn fused"], _ = drive_phase(
         "lingauss_pcn fused",
         ("linear_gaussian_misfit_kernel", "fused_pcn_adapt_kernel", "pcn_adapt_update_kernel",
-         "fused_pcn_dense_kernel<false>", "fused_pcn_dense_kernel<true>"),
+         f"{PCN_DENSE_GROUP}<false>", f"{PCN_DENSE_GROUP}<true>"),
         lambda: run_lingauss_fused(problems["lingauss_pcn"]))
     richardson_counts, richardson_da = run_richardson_da(richardson)
     counts.update(richardson_counts)

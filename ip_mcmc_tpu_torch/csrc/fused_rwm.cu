@@ -8,12 +8,19 @@
 //   linear_gaussian_misfit_kernel  Phi for a (d, B) batch at one
 //                                  linear-Gaussian spec
 //                                  (gaussian_potential.cuh).
-//   fused_rwm_kernel<Pot, RECORD>  the whole n_steps loop in one launch:
+//   fused_rwm_group_kernel<RECORD, D, G>
+//                                  the whole n_steps loop in one launch:
 //                                  prop = pos + step_size xi, accepted when
 //                                  log u < Phi(pos) - Phi(prop), so a NaN
-//                                  Phi(prop) rejects. The potential is a
-//                                  type: LinearGaussianPotential or
-//                                  DarcyPotential (K5).
+//                                  Phi(prop) rejects; a chain on each group
+//                                  of G = d lanes, 32 / G a warp, no CTA
+//                                  barrier (gaussian_potential.cuh), for
+//                                  the linear-Gaussian specs that
+//                                  gaussian_group_takes (d = 2 or 32, m <=
+//                                  d: the shipped targets).
+//   fused_rwm_kernel<Pot, RECORD>  the same step, one chain a CTA, on every
+//                                  other LinearGaussianPotential spec and
+//                                  on DarcyPotential (K5).
 //
 // With `prior` set the step adds 1/2 |(U - mean) / scale|^2 to the
 // potential: the runner's fused RWM branch targets misfit + whitened prior,
@@ -23,12 +30,14 @@
 // Tags: normals 0 (keys 0, 1), MH uniform 2.
 //
 // What bounds it on the H100: per chain and step one potential, d normal
-// draws and one or two block reductions. On the linear-Gaussian targets
-// (d <= 32, one warp per chain) that is a few hundred dependent
-// instructions and four barriers per step, so latency and the 32 resident
-// CTAs per SM, not the f32 rate or memory, set the time; on Darcy one cold
-// solve (see fused_pcn.cu). One chain per CTA, the position in shared
-// memory, no staging.
+// draws and one or two sums. The group kernel keeps the state and the
+// potential's rows in registers and pays no barrier, so the latency of a
+// step's dependent chain (the normal draw, the row sum, one or two
+// butterflies, the MH uniform) sets its time, hidden by the SM's other
+// groups; 16 chains a warp at d = 2 fill the lanes that one chain a CTA left
+// idle. The one-chain-a-CTA kernel keeps the position in shared memory and
+// pays two barriers a block reduction (on Darcy: one cold solve, see
+// fused_pcn.cu).
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -121,6 +130,72 @@ int launch_rwm(const typename Pot::Spec& pot, const IpxChainArgs& chain, float s
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- a chain a group of lanes: K14 on the linear-Gaussian specs that
+// gaussian_group_takes (see gaussian_potential.cuh) ------------------------
+
+// K14 on G lanes: lane t holds coordinate t of pos (t < D) and row t of the
+// potential. The proposal, Phi and the prior in the one-chain-a-CTA step's
+// order and form (RwmStep), so the chains keep that kernel's bits.
+template <int D, int G>
+struct RwmGroupStep {
+  using Ctx = GroupChainCtxT<D, G>;
+  const RwmArgs<LinearGaussianPotential>& a;
+  GaussianGroupRow<D, G> row;
+  float pos, phi;
+
+  // the potential at the group's state u, the prior added when asked for
+  __device__ __forceinline__ float potential(const Ctx& x, float u) const {
+    float v = row.phi(u);
+    if (a.prior) {
+      const float z = Ctx::holds() ? (u - x.mean) / x.scale : 0.0f;
+      v = v + 0.5f * group_sum<G>(__fmul_rn(z, z));
+    }
+    return v;
+  }
+
+  __device__ void init(const Ctx& x) { phi = potential(x, pos); }
+
+  __device__ bool step(const Ctx& x, uint32_t i) {
+    const float prop = pos + a.step_size * x.normal1(i, 0u);
+    const float phi_prop = potential(x, prop);
+    const bool accept = logf(x.uniform(i, 2u)) < phi - phi_prop;  // the same in the group
+    phi = accept ? phi_prop : phi;
+    pos = accept ? prop : pos;
+    return accept;
+  }
+};
+
+template <bool RECORD, int D, int G>
+__global__ void __launch_bounds__(32 * GaussianGroupDesign::kWarps)
+    fused_rwm_group_kernel(const __grid_constant__ RwmArgs<LinearGaussianPotential> a) {
+  RwmGroupStep<D, G> step{a};
+  step.row.load(a.pot);
+  run_group_chain<RECORD, D, G>(a.chain, step);
+}
+
+// Launches fused_rwm_group_kernel<RECORD, d, G> (RECORD: chain.samples
+// given) for a spec that gaussian_group_takes.
+inline int launch_rwm_group(const IpxGaussianSpec& pot, const IpxChainArgs& chain,
+                            float step_size, int prior, void* stream) {
+  GaussianGroupGeometry geo;
+  const int status = gaussian_group_geometry(pot, chain, &geo);
+  if (status != cudaSuccess) return status;
+  if (chain.n == 0) return cudaSuccess;
+  const RwmArgs<LinearGaussianPotential> a{pot, chain, step_size, prior};
+  const dim3 grid(geo.ctas), block(32 * geo.warps);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  constexpr int G2 = gaussian_group_width(2), G32 = gaussian_group_width(32);
+  if (chain.d == 2 && chain.samples != nullptr)
+    fused_rwm_group_kernel<true, 2, G2><<<grid, block, 0, st>>>(a);
+  else if (chain.d == 2)
+    fused_rwm_group_kernel<false, 2, G2><<<grid, block, 0, st>>>(a);
+  else if (chain.samples != nullptr)
+    fused_rwm_group_kernel<true, 32, G32><<<grid, block, 0, st>>>(a);
+  else
+    fused_rwm_group_kernel<false, 32, G32><<<grid, block, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace ipx
 
 extern "C" {
@@ -139,9 +214,30 @@ int ipx_linear_gaussian_misfit(const IpxGaussianSpec* s, const float* U, int B, 
 }
 
 // prior != 0: the step adds the whitened prior of chain->mean / chain->scale.
+// What gaussian_group_takes (d = 2 or 32, m <= d) goes to
+// fused_rwm_group_kernel, every other spec to fused_rwm_kernel, one chain a
+// CTA.
 int ipx_fused_rwm(const IpxGaussianSpec* pot, const IpxChainArgs* chain, float step_size,
                   int prior, void* stream) {
+  if (ipx::gaussian_group_takes(*pot, chain->d))
+    return ipx::launch_rwm_group(*pot, *chain, step_size, prior, stream);
   return ipx::launch_rwm<ipx::LinearGaussianPotential>(*pot, *chain, step_size, prior, stream);
+}
+
+// The launch geometry of fused_rwm_group_kernel and of
+// fused_pcn_dense_group_kernel for this spec and these chain arguments: out
+// = {lanes a chain, warps a CTA, CTAs}; the status the launch would return
+// for them, cudaErrorNotSupported for a spec that goes to the
+// one-chain-a-CTA kernels (the wrappers' mirror is checked against this on
+// the card).
+int ipx_gaussian_group_geometry(const IpxGaussianSpec* pot, const IpxChainArgs* chain,
+                                int* out) {
+  ipx::GaussianGroupGeometry geo{0, 0, 0};
+  const int status = ipx::gaussian_group_geometry(*pot, *chain, &geo);
+  out[0] = geo.width;
+  out[1] = geo.warps;
+  out[2] = geo.ctas;
+  return status;
 }
 
 int ipx_fused_rwm_darcy(const IpxMisfitSpec* pot, const IpxChainArgs* chain, float step_size,

@@ -3,7 +3,8 @@
 // pallas_call l.260) and _run_fused_recorded (l.826, pallas_call l.950).
 //
 // run_chain runs one chain per CTA (run_cluster_chain: the same in a
-// thread-block cluster; run_warp_chain below: one a warp). It
+// thread-block cluster; run_warp_chain below: one a warp; run_group_chain:
+// one on each group of G lanes, the state in registers). It
 // loads the chain's position into shared memory, derives the per-block
 // seed uint32(seed + 7919 * block) and the chain's lane, runs the
 // n_steps loop around a Step, counts acceptances, stores every thin-th
@@ -221,6 +222,79 @@ __device__ void run_warp_chain(const IpxChainArgs& a, Step& step, float* pos) {
     for (int h = 0; h < Ctx::kPer; ++h)
       if (Ctx::holds(h)) a.out[row + l + 32 * h] = pos[l + 32 * h];
     if (l == 0) a.acc[x.c] = acc / static_cast<float>(a.n_steps);
+  }
+}
+
+// The context of one chain run by a group of G lanes of a warp
+// (run_group_chain<RECORD, D, G>): lane t = lane % G of the group holds
+// coordinate t < D of the state; lanes t >= D hold none. The chain, its
+// seed and its lane in the RNG tile are make_chain_ctx's for chain c, so
+// that lane t draws coordinate t of run_chain's chain c.
+template <int D, int G>
+struct GroupChainCtxT {
+  static_assert(D > 0 && D <= G && G <= 32 && (G & (G - 1)) == 0,
+                "a group of G lanes, a power of two up to a warp, holds d <= G");
+  int c;
+  bool live;
+  uint32_t bseed, lane, bc;  // lane: the chain's column in its block's tile
+  float mean, scale;         // coordinate t's prior mean and scale (t < D)
+
+  static __device__ __forceinline__ int t() { return threadIdx.x & (G - 1); }
+  static __device__ __forceinline__ bool holds() { return t() < D; }
+  // coordinate t of the (D, block) normal draw with tags tag, tag + 1, as
+  // ChainCtx::normal draws it (rows t and t - half share a pair)
+  __device__ __forceinline__ float normal1(uint32_t step, uint32_t tag) const {
+    return normal_coord(mix_key(bseed, step, tag), mix_key(bseed, step, tag + 1u), t(),
+                        (D + 1) / 2, lane, bc);
+  }
+  // this chain's element of the (1, block) uniform draw with tag `tag`
+  __device__ __forceinline__ float uniform(uint32_t step, uint32_t tag) const {
+    return uniform01(mix_key(bseed, step, tag), lane);
+  }
+};
+
+// The scaffold of the samplers that run a chain on each group of G lanes,
+// 32 / G chains a warp (the linear-Gaussian group kernels): group g of warp
+// w of CTA b runs chain c = (b W + w) 32 / G + g, with make_chain_ctx's seed
+// and lane, so that its draws are those of run_chain's chain c. The state
+// lives in registers: a Step holds `pos`, coordinate t of the state in lane
+// t < D (run_warp_chain keeps it in the warp's shared memory), and provides
+//
+//   void init(const GroupChainCtxT<D, G>&)
+//   bool step(const GroupChainCtxT<D, G>&, uint32_t)  the same answer in
+//                                                    every lane of the group
+//
+// Every lane of the warp makes the same Step calls (the steps exchange
+// through the warp's shared memory and by shuffles, each a warp-wide
+// __syncwarp or shuffle); the groups of chains c >= n (a ragged last
+// warp or CTA) run a chain of zeros and store nothing.
+template <bool RECORD, int D, int G, class Step>
+__device__ void run_group_chain(const IpxChainArgs& a, Step& step) {
+  using Ctx = GroupChainCtxT<D, G>;
+  const int t = Ctx::t();
+  Ctx x;
+  x.c = static_cast<int>((blockIdx.x * blockDim.x + threadIdx.x) / G);
+  x.live = x.c < a.n;
+  x.bc = static_cast<uint32_t>(a.block_chains);
+  x.lane = static_cast<uint32_t>(x.c) % x.bc;
+  x.bseed = static_cast<uint32_t>(a.seed) + 7919u * (static_cast<uint32_t>(x.c) / x.bc);
+  const bool own = Ctx::holds();
+  x.mean = own ? a.mean[t] : 0.0f;
+  x.scale = own ? a.scale[t] : 0.0f;
+  const size_t row = static_cast<size_t>(x.c) * D + t;
+  step.pos = own && x.live ? a.pos_in[row] : 0.0f;
+  step.init(x);
+  float acc = 0.0f;
+  for (int i = 0; i < a.n_steps; ++i) {
+    if (step.step(x, static_cast<uint32_t>(i))) acc += 1.0f;
+    if (RECORD && (i + 1) % a.thin == 0 && x.live && own) {
+      const size_t rec = static_cast<size_t>((i + 1) / a.thin - 1);
+      a.samples[rec * a.n * D + row] = step.pos;
+    }
+  }
+  if (x.live) {
+    if (own) a.out[row] = step.pos;
+    if (t == 0) a.acc[x.c] = acc / static_cast<float>(a.n_steps);
   }
 }
 

@@ -295,6 +295,8 @@ def library():
         lib.bind("ipx_fused_rwm_darcy", [spec, chain, f, i, p])
         # spec, chain, Lᵀ (d, d), β, √(1−β²), stream
         lib.bind("ipx_fused_pcn_dense", [gspec, chain, p, f, f, p])
+        # spec, chain, out (3,): the linear-Gaussian group kernels' geometry
+        lib.bind("ipx_gaussian_group_geometry", [gspec, chain, p])
         # spec, chain (state in place), Φ (n,), acceptance count (n,),
         # acceptance probability (n,), log β per block, step, stream
         lib.bind("ipx_fused_pcn_adapt", [gspec, chain, p, p, p, p, i, p])

@@ -7,9 +7,13 @@ One step: ξ = L z, prop = m + √(1 − β²)(pos − m) + β·ξ, accepted whe
 log u < Φ(pos) − Φ(prop) (a NaN Φ(prop) rejects). ``prior_chol`` is the
 lower Cholesky factor of the prior covariance.
 
-For CUDA tensors the entry points launch ``fused_pcn_dense_kernel<Pot,
-RECORD>`` (``csrc/fused_pcn_dense.cu``) on a ``LinearGaussianPotential``,
-the product L z written out in the kernel; for CPU tensors they run the
+For CUDA tensors the entry points launch one kernel for the whole
+``n_steps`` loop (``csrc/fused_pcn_dense.cu``) on a
+``LinearGaussianPotential``, the product L z written out in the kernel:
+``fused_pcn_dense_group_kernel<RECORD, d, G>`` (a chain on each group of G
+= d lanes, a warp at d = 32) for what ``_gaussian_group.takes`` (d = 2 or
+32, m ≤ d: the lingauss_pcn target), else ``fused_pcn_dense_kernel<Pot,
+RECORD>``, one chain a CTA; for CPU tensors they run the
 step builder below on ``_scaffold.run_plain``, with any features-first
 callable. Tags: normals 0 (keys 0, 1), MH uniform 2.
 """
@@ -20,7 +24,7 @@ import ctypes
 
 import torch
 
-from ip_mcmc_tpu_torch.ops import _build, _scaffold
+from ip_mcmc_tpu_torch.ops import _build, _gaussian_group, _scaffold
 
 # --- the plain version ------------------------------------------------------
 
@@ -63,6 +67,16 @@ def _run_plain(potential_fn, positions, prior_mean, prior_chol, beta, seed,
 # --- the kernel -------------------------------------------------------------
 
 
+def stem(potential_fn, d) -> str:
+    """The launch count's stem of the kernel that the card runs for the
+    linear-Gaussian ``potential_fn`` and chains of d coordinates:
+    ``fused_pcn_dense_group_kernel`` for what ``_gaussian_group.takes``,
+    else ``fused_pcn_dense_kernel``."""
+    return ("fused_pcn_dense_group_kernel"
+            if _gaussian_group.takes(d, potential_fn.m, potential_fn.K)
+            else "fused_pcn_dense_kernel")
+
+
 def _launch(potential_fn, positions, prior_mean, prior_chol, beta, seed,
             n_steps, block_chains, thin=None):
     _scaffold.require_family({"potential_fn": potential_fn},
@@ -82,7 +96,7 @@ def _launch(potential_fn, positions, prior_mean, prior_chol, beta, seed,
         ctypes.byref(spec), ctypes.byref(args), chol_t.data_ptr(), float(beta_t),
         float(contraction), torch.cuda.current_stream(positions.device).cuda_stream,
     )
-    name = _scaffold.kernel_name("fused_pcn_dense_kernel", thin is not None)
+    name = _scaffold.kernel_name(stem(potential_fn, d), thin is not None)
     _build.check(status, name)
     _build.launch_counts[name] += 1
     _, _, _, out, acc, samples = keep

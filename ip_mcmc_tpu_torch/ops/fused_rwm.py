@@ -9,12 +9,15 @@ One step: prop = pos + step_size·ξ, accepted when log u < Φ(pos) − Φ(prop)
 misfit + whitened prior (``ip_mcmc_tpu/runner.py`` l.637), the prior added
 in the step rather than folded into the potential.
 
-For CUDA tensors the entry points launch ``fused_rwm_kernel<Pot, RECORD>``
-(``csrc/fused_rwm.cu``), the whole ``n_steps`` loop in one launch, on a
-``LinearGaussianPotential`` or a ``DarcyMisfit`` (picked by the potential's
-family). For CPU tensors they run the step builder below on the plain
-scaffold ``_scaffold.run_plain``, with any features-first callable. Tags:
-normals 0 (keys 0, 1), MH uniform 2.
+For CUDA tensors the entry points launch one kernel for the whole
+``n_steps`` loop (``csrc/fused_rwm.cu``): on a ``LinearGaussianPotential``
+that ``_gaussian_group.takes`` (d = 2 or 32, m ≤ d: the shipped targets)
+``fused_rwm_group_kernel<RECORD, d, G>``, a chain on each group of G = d
+lanes; on any other linear-Gaussian spec ``fused_rwm_kernel<Pot, RECORD>``,
+one chain a CTA; on a ``DarcyMisfit`` ``fused_rwm_darcy_kernel`` (picked
+by the potential's family and spec). For CPU tensors they run the step
+builder below on the plain scaffold ``_scaffold.run_plain``, with any
+features-first callable. Tags: normals 0 (keys 0, 1), MH uniform 2.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import ctypes
 
 import torch
 
-from ip_mcmc_tpu_torch.ops import _build, _scaffold
+from ip_mcmc_tpu_torch.ops import _build, _gaussian_group, _scaffold
 
 # --- the plain version ------------------------------------------------------
 
@@ -75,6 +78,20 @@ def _run_plain(potential_fn, positions, step_size, seed, n_steps, block_chains,
 # --- the kernel -------------------------------------------------------------
 
 
+def stem(potential_fn, d) -> str:
+    """The launch count's stem of the kernel that the card runs for
+    ``potential_fn`` and chains of d coordinates: ``fused_rwm_group_kernel``
+    for a linear-Gaussian spec that ``_gaussian_group.takes``,
+    ``fused_rwm_kernel`` for any other, ``fused_rwm_darcy_kernel`` for a
+    ``DarcyMisfit``."""
+    family = _scaffold.require_family({"potential_fn": potential_fn},
+                                      families=("darcy", "linear"))
+    if family == "darcy":
+        return "fused_rwm_darcy_kernel"
+    return ("fused_rwm_group_kernel" if _gaussian_group.takes(d, potential_fn.m, potential_fn.K)
+            else "fused_rwm_kernel")
+
+
 def _launch(potential_fn, positions, step_size, seed, n_steps, block_chains,
             thin=None, prior_mean=None, prior_scale=None):
     family = _scaffold.require_family({"potential_fn": potential_fn},
@@ -88,13 +105,10 @@ def _launch(potential_fn, positions, step_size, seed, n_steps, block_chains,
     potential_fn.check_input(keep[0].T, "positions.T")
     spec = potential_fn.spec()
     lib = _build.library()
-    fn, stem = {
-        "linear": (lib.ipx_fused_rwm, "fused_rwm_kernel"),
-        "darcy": (lib.ipx_fused_rwm_darcy, "fused_rwm_darcy_kernel"),
-    }[family]
+    fn = lib.ipx_fused_rwm if family == "linear" else lib.ipx_fused_rwm_darcy
     status = fn(ctypes.byref(spec), ctypes.byref(args), float(step_size),
                 int(prior), torch.cuda.current_stream(positions.device).cuda_stream)
-    name = _scaffold.kernel_name(stem, thin is not None)
+    name = _scaffold.kernel_name(stem(potential_fn, d), thin is not None)
     _build.check(status, name)
     _build.launch_counts[name] += 1
     _, _, _, out, acc, samples = keep

@@ -105,13 +105,13 @@ def load_with(_build, sos):
         _build.build, _build._lib = build, lib
 
 
-def ptxas_row(build_dir, needle: str):
+def ptxas_row(build_dir, *needles: str):
     """What ptxas reported for the first kernel whose mangled name holds
-    ``needle`` in the build's ``nvcc.log``: (registers, spill stores, spill
-    loads), or None."""
+    every one of ``needles`` in the build's ``nvcc.log``: (registers, spill
+    stores, spill loads), or None."""
     from ip_mcmc_tpu_torch.ops import _build
 
     for r in _build.ptxas_report(build_dir / "nvcc.log"):
-        if needle in r["kernel"]:
+        if all(n in r["kernel"] for n in needles):
             return r["registers"], r["spill_stores"], r["spill_loads"]
     return None

@@ -18,7 +18,11 @@ and warm misfit kernels at 32x32 (darcy32_pcn_warm's, at 4096 draws, and
 a cold dst_trunc-128 / 16 CG one) and 64x64, the 64x64 DA-pCN
 (``darcy64_da_fused``: 1024 chains, blocks of 128, k = 48) and warm pCN
 (``darcy64_pcn_warm``: 2048 chains) kernels and the 32x32 warm pCN kernel
-(``darcy32_pcn_warm``: 4096 chains, blocks of 128), each recorded, in
+(``darcy32_pcn_warm``: 4096 chains, blocks of 128), each recorded, and
+the linear-Gaussian samplers on their shipped specs, plain and recorded:
+RWM on the compare_paths target (8192 chains, blocks of 1024) and on
+gauss2d_rwm's with its prior (1024, blocks of 512), dense-prior pCN on
+lingauss_pcn's misfit with L = diag √λ (2048, blocks of 256), in
 the order parent, this tree, this tree, parent, each in a process of its
 own with that tree first on the import path (each tree builds its own
 kernels). Each tree's two runs must equal one another bit for bit. Every
@@ -47,10 +51,14 @@ misfit kernels' rows), to compare two designs of a few kernels in turns.
 ``--cli`` runs CLI configs in place of the kernel rows, in the same turns:
 each through ``runner.run_problem`` as ``python -m ip_mcmc_tpu_torch.run
 --config <name>`` runs it (a name ``darcy_da_richardson:<variant>`` builds
-``configs.darcy_da_richardson(variant)``, which has no CLI name). Prints
+``configs.darcy_da_richardson(variant)``, which has no CLI name;
+``gauss2d_rwm:fused`` runs the runner's fused RWM branch with the config's
+``phi_batched`` set, and ``lingauss_pcn:fused`` the K16 burn-in and K15
+sampling run, each as that tree's ``chip_smoke.py`` drives it). Prints
 each run's ``run_s`` and statistics, whether the two trees' statistics
-(acceptance rates, ``min_ess``, ``max_rhat``, the posterior mean) are equal
-digit for digit in the four runs, and one JSON line.
+(acceptance rates, ``min_ess``, ``max_rhat``, the posterior mean, the
+adapted β and the error against the exact posterior mean) are equal digit
+for digit in the four runs, and one JSON line.
 """
 
 from __future__ import annotations
@@ -73,8 +81,9 @@ MISFIT_RTOL = 1e-3  # the rtol of chip_smoke.py's LARGE_BF16_TOL
 TURNS = ("parent", "new", "new", "parent")
 # a CLI run's statistics that the two trees should share, and what is shown
 CLI_STATS = ("accept_rate", "inner_accept_rate", "mid_accept_rate", "min_ess", "max_rhat",
-             "posterior_mean")
-CLI_SHOWN = ("run_s", "ess_per_s", "min_ess", "max_rhat", "accept_rate", "inner_accept_rate")
+             "posterior_mean", "beta", "burn_accept_rate", "mean_error_vs_exact")
+CLI_SHOWN = ("run_s", "ess_per_s", "min_ess", "max_rhat", "accept_rate", "inner_accept_rate",
+             "beta", "mean_error_vs_exact")
 
 
 def _row(key: str) -> str:
@@ -125,11 +134,13 @@ def misfit_old_vs_new(parent: dict, new: dict, row: str) -> None:
 
 
 def worker(out_path: str, rows) -> int:
+    import numpy as np
     import torch
 
     from ip_mcmc_tpu_torch import configs, ops
     from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
     from ip_mcmc_tpu_torch.models import darcy
+    from ip_mcmc_tpu_torch.convert import linear_gaussian_from_arrays
     from ip_mcmc_tpu_torch.ops import fused_fes, fused_mala, fused_rwm
 
     def time_ms(fn, reps=3):
@@ -211,7 +222,44 @@ def worker(out_path: str, rows) -> int:
     w32, w32_dim = pcn32.batched_warm_potential
     pos32 = pcn32.init_positions(gen, n).cuda()
 
+    # the linear-Gaussian samplers' shipped specs (chip_smoke.py's)
+    cp = linear_gaussian_from_arrays(np.eye(2), np.zeros(2), np.sqrt([2.0, 0.5]),
+                                     center=[1.0, -0.5]).cuda()
+    pos_cp = torch.randn(8192, 2, generator=gen).cuda()
+    g2p = configs.build("gauss2d_rwm", "cuda")
+    g2 = configs.gauss2d_batched_potential().cuda()
+    pos_g2 = g2p.init_positions(gen, g2p.n_chains).cuda()
+    A, lam, y, sigma = configs.lingauss_arrays()
+    lg = linear_gaussian_from_arrays(A, y, sigma).cuda()
+    sqrt_lam = torch.tensor(lam, dtype=torch.float32, device="cuda").sqrt()
+    pos_lg = (torch.randn(2048, 32, generator=gen).cuda() * sqrt_lam).contiguous()
+    zeros32 = torch.zeros(32, device="cuda")
+
+    def linear_rows(name, plain, recorded):
+        return {name: (plain, 20, 20, 2020),
+                f"{name}_rec": (recorded, 20, 20, 2020)}
+
     runs = {
+        **linear_rows(
+            "rwm_compare_paths",
+            lambda s: ops.fused_rwm_chain(cp, pos_cp, 0.9, 41, n_steps=s, block_chains=1024),
+            lambda s: ops.fused_rwm_chain_recorded(cp, pos_cp, 0.9, 41, n_steps=s, thin=1,
+                                                   block_chains=1024)),
+        **linear_rows(
+            "rwm_gauss2d",
+            lambda s: ops.fused_rwm_chain(g2, pos_g2, 1.0, 43, n_steps=s, block_chains=512,
+                                          prior_mean=g2p.prior.mean,
+                                          prior_scale=g2p.prior.scale),
+            lambda s: ops.fused_rwm_chain_recorded(g2, pos_g2, 1.0, 43, n_steps=s, thin=1,
+                                                   block_chains=512, prior_mean=g2p.prior.mean,
+                                                   prior_scale=g2p.prior.scale)),
+        **linear_rows(
+            "pcn_dense_lingauss",
+            lambda s: ops.fused_pcn_chain_dense(lg, pos_lg, zeros32, torch.diag(sqrt_lam), 0.2,
+                                                53, n_steps=s, block_chains=256),
+            lambda s: ops.fused_pcn_chain_dense_recorded(lg, pos_lg, zeros32,
+                                                         torch.diag(sqrt_lam), 0.2, 53,
+                                                         n_steps=s, thin=1, block_chains=256)),
         "da_pcn": (lambda s: ops.fused_da_pcn_chain_recorded(
             exact, surr, pos, pm, ps, 0.35, 11, n_steps=s, thin=1, subchain_len=48,
             block_chains=512), 4, 2, 10),
@@ -281,11 +329,19 @@ def cli_worker(names) -> int:
 
     out = {}
     for name in names:
-        if name.startswith("darcy_da_richardson:"):
-            p = configs.darcy_da_richardson(name.split(":", 1)[1], "cuda")
+        if name in ("gauss2d_rwm:fused", "lingauss_pcn:fused"):
+            import chip_smoke  # this tree's: its fused linear-Gaussian runs
+
+            p = configs.build(name.split(":")[0], "cuda")
+            run = (chip_smoke.run_gauss2d_fused if name.startswith("gauss2d")
+                   else chip_smoke.run_lingauss_fused)
+            out[name] = run(p)
         else:
-            p = configs.build(name, "cuda")
-        out[name] = runner.run_problem(p, "cuda")
+            if name.startswith("darcy_da_richardson:"):
+                p = configs.darcy_da_richardson(name.split(":", 1)[1], "cuda")
+            else:
+                p = configs.build(name, "cuda")
+            out[name] = runner.run_problem(p, "cuda")
         torch.cuda.synchronize()
     print(json.dumps(out))
     return 0

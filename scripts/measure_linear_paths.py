@@ -13,7 +13,11 @@ the same trace. Paths, at the sizes of ``chip_smoke.py``:
    misfit (2048 chains, 500 steps, two launches per step);
 3. dense-prior pCN on it, 1000 recorded steps;
 4. fused RWM on ``benchmarks/compare_paths.py``'s target, 8192 chains x
-   2000 steps.
+   2000 steps;
+5. the two fused paths whole, as ``chip_smoke.py`` drives them:
+   ``gauss2d_rwm --fused`` (the runner's fused RWM branch) and
+   ``lingauss_pcn fused`` (K16 burn-in, then K15: 500 steps and 1000
+   recorded).
 
 Prints the card's name and power limit and one JSON line.
 """
@@ -90,6 +94,9 @@ def main() -> int:
             chip_smoke.compare_paths_potential(),
             torch.zeros(chip_smoke.CP_CHAINS, 2, device="cuda"), 0.9, 1,
             n_steps=chip_smoke.CP_STEPS, block_chains=chip_smoke.CP_BLOCK),
+        "gauss2d_rwm --fused": lambda: chip_smoke.run_gauss2d_fused(
+            configs.build("gauss2d_rwm", "cuda")),
+        "lingauss_pcn fused": lambda: chip_smoke.run_lingauss_fused(lp),
     }
     for name, fn in runs.items():
         out[name] = summary(*profiled(fn))

@@ -407,19 +407,45 @@ def test_linear_gaussian_misfit_kernel_matches_plain(lingauss):
     assert torch.equal(zero(U), torch.zeros(512, device="cuda"))
 
 
+def _linear_misfit(m, d, seed):
+    """A seeded linear-Gaussian misfit of m rows on d coordinates, σ 0.05,
+    on the card."""
+    from ip_mcmc_tpu_torch.convert import linear_gaussian_from_arrays
+
+    r = np.random.default_rng(seed)
+    return linear_gaussian_from_arrays(r.standard_normal((m, d)) / np.sqrt(d),
+                                       0.1 * r.standard_normal(m), 0.05).cuda()
+
+
 @pytest.mark.parametrize("recorded", [False, True])
 @pytest.mark.parametrize("kind", ["rwm", "rwm_prior", "rwm_darcy", "pcn_dense",
-                                  "pcn_dense_full"])
+                                  "pcn_dense_full", "rwm_gauss2d", "rwm_d3", "rwm_m40",
+                                  "pcn_dense_d3", "pcn_dense_m40", "pcn_dense_gauss2d"])
 def test_linear_gaussian_kernels_match_plain(lingauss, warm_problem, kind, recorded):
+    """Each sampler against its plain twin on the kernel the takes-rule
+    picks: the group kernels on lingauss (d = 32, m = 16) and gauss2d (d =
+    2: RWM with the prior, dense pCN with L = I); one chain a CTA on d = 3
+    and on m = 40, which the rule leaves; Darcy RWM on its own kernel."""
     from ip_mcmc_tpu_torch.ops import fused_pcn_dense, fused_rwm
 
     pot, lam = lingauss
     g = torch.Generator().manual_seed(3)
     pos = (torch.randn(512, 32, generator=g).cuda() * lam.sqrt()).contiguous()
+    if kind.endswith("m40"):
+        pot = _linear_misfit(40, 32, seed=5)
+    elif kind.endswith("d3"):
+        pot = _linear_misfit(3, 3, seed=6)
+        pos, lam = torch.randn(512, 3, generator=g).cuda(), torch.ones(3, device="cuda")
+    elif kind.endswith("gauss2d"):
+        pot = configs.gauss2d_batched_potential().cuda()
+        pos, lam = (3.0 * torch.randn(512, 2, generator=g)).cuda(), torch.ones(2, device="cuda")
     kw = {"thin": 2} if recorded else {}
     steps, block = 8, 128
     if kind.startswith("pcn_dense"):
-        name = "fused_pcn_dense_kernel"
+        d = pos.shape[1]
+        name = fused_pcn_dense.stem(pot, d)
+        assert name == ("fused_pcn_dense_kernel" if kind in ("pcn_dense_d3", "pcn_dense_m40")
+                        else "fused_pcn_dense_group_kernel")
         chol = torch.diag(lam.sqrt())
         if kind == "pcn_dense_full":  # every entry below the diagonal nonzero
             G = torch.randn(32, 32, generator=g, dtype=torch.float64)
@@ -427,7 +453,7 @@ def test_linear_gaussian_kernels_match_plain(lingauss, warm_problem, kind, recor
             chol = torch.linalg.cholesky(D @ (G @ G.T / 32 + 0.5 * torch.eye(32)) @ D)
             assert bool((chol.tril(-1)[tuple(torch.tril_indices(32, 32, -1))] != 0).all())
             chol = chol.float()
-        args = (pos, torch.zeros(32), chol, 0.2, 5, steps, block)
+        args = (pos, torch.zeros(d), chol, 0.2, 5, steps, block)
         got = fused_pcn_dense._launch(pot, *args, **kw)
         ref = fused_pcn_dense._run_plain(pot._forward_plain, *args, **kw)
     else:
@@ -438,11 +464,14 @@ def test_linear_gaussian_kernels_match_plain(lingauss, warm_problem, kind, recor
         if kind != "rwm":
             prior = dict(prior_mean=torch.zeros(pos.shape[1]),
                          prior_scale=torch.ones(pos.shape[1]))
-        name = "fused_rwm_darcy_kernel" if kind == "rwm_darcy" else "fused_rwm_kernel"
+        name = fused_rwm.stem(pot, pos.shape[1])
+        assert name == {"rwm_darcy": "fused_rwm_darcy_kernel", "rwm_d3": "fused_rwm_kernel",
+                        "rwm_m40": "fused_rwm_kernel"}.get(kind, "fused_rwm_group_kernel")
         args = (pos, 0.01 if kind == "rwm_darcy" else 0.05, 5, steps, block)
         got = fused_rwm._launch(pot, *args, **kw, **prior)
         ref = fused_rwm._run_plain(pot._forward_plain, *args, **kw, **prior)
     assert _build.launch_counts[f"{name}<{'true' if recorded else 'false'}>"] >= 1
+    assert got[0].shape == ref[0].shape == pos.shape
     if recorded:
         assert got[2].shape == ref[2].shape == (steps // 2, 512, pos.shape[1])
         assert torch.equal(got[2][-1], got[0])
@@ -485,6 +514,96 @@ def test_linear_gaussian_kernels_refuse_other_potentials(lingauss, burgers_probl
     with pytest.raises(TypeError, match="LinearGaussianPotential"):
         ops.fused_pcn_chain_adapt(lambda U: U.sum(0), pos, torch.zeros(16),
                                   torch.ones(16), 0.5, 0, n_steps=1, block_chains=64)
+
+
+def _group_c_geometry(pot, n, block):
+    """ipx_gaussian_group_geometry on the card: (status, (G, warps, CTAs))."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.ops import _scaffold
+
+    pos = torch.zeros(n, pot.K, device="cuda")
+    args, _ = _scaffold.chain_args(pos, torch.zeros(pot.K), torch.ones(pot.K), 0, 1, block)
+    out, spec = (ctypes.c_int * 3)(), pot.spec()
+    status = _build.library().ipx_gaussian_group_geometry(
+        ctypes.byref(spec), ctypes.byref(args), out)
+    return status, tuple(out)
+
+
+def test_linear_group_geometry_matches_the_kernel(lingauss):
+    """ops/_gaussian_group.geometry (Python) gives what the group kernels'
+    launches compute, at the shipped widths, ragged, one chain and none."""
+    from ip_mcmc_tpu_torch.ops import _gaussian_group
+
+    pot, _ = lingauss
+    g2 = configs.gauss2d_batched_potential().cuda()
+    for p, n, block in ((g2, 8192, 1024), (g2, 1024, 512), (pot, 2048, 256), (g2, 13, 8),
+                        (pot, 13, 8), (_linear_misfit(1, 2, seed=7), 1, 1), (pot, 0, 256)):
+        assert _group_c_geometry(p, n, block) == (0, _gaussian_group.geometry(
+            n, block, d=p.K, m=p.m)), (p.K, p.m, n, block)
+
+
+def test_linear_group_rule_leaves_the_same_specs_in_c_and_python(lingauss):
+    """d = 3, m = 40, d = 64, d = 16, d = 2 with m = 5: C refuses them to the group kernels
+    (cudaErrorNotSupported), the mirror does not take them, and the entry
+    points run them on the one-chain-a-CTA kernels, which agree with their
+    twins."""
+    from ip_mcmc_tpu_torch.ops import _gaussian_group, fused_pcn_dense, fused_rwm
+
+    for m, d in ((3, 3), (40, 32), (16, 64), (8, 16), (5, 2)):
+        pot = _linear_misfit(m, d, seed=8)
+        assert _group_c_geometry(pot, 64, 64)[0] == 801  # cudaErrorNotSupported
+        assert not _gaussian_group.takes(d, m, d)
+        pos = torch.randn(64, d, generator=torch.Generator().manual_seed(9)).cuda()
+        before = _build.launch_counts["fused_rwm_kernel<false>"]
+        got = fused_rwm._launch(pot, pos, 0.02, 3, 4, 32)
+        assert _build.launch_counts["fused_rwm_kernel<false>"] == before + 1
+        _chains_agree(got, fused_rwm._run_plain(pot._forward_plain, pos, 0.02, 3, 4, 32), 4)
+        before = _build.launch_counts["fused_pcn_dense_kernel<false>"]
+        args = (pos, torch.zeros(d), 0.1 * torch.eye(d), 0.3, 3, 4, 32)
+        got = fused_pcn_dense._launch(pot, *args)
+        assert _build.launch_counts["fused_pcn_dense_kernel<false>"] == before + 1
+        _chains_agree(got, fused_pcn_dense._run_plain(pot._forward_plain, *args), 4)
+
+
+@pytest.mark.parametrize("record", [False, True])
+@pytest.mark.parametrize("kind", ["rwm_gauss2d", "rwm_lingauss", "pcn_dense_lingauss",
+                                  "pcn_dense_gauss2d"])
+def test_linear_group_kernels_with_ragged_last_warp(lingauss, kind, record):
+    """13 chains in blocks of 8: at d = 2 three spare groups in the one
+    live warp, at d = 32 one CTA with three spare warps. Equal bit for bit
+    to the first 13 of the kernel's own 16-chain run, within 1e-4 of the
+    plain twin's."""
+    from ip_mcmc_tpu_torch.ops import fused_pcn_dense, fused_rwm
+
+    pot, lam = lingauss
+    g = torch.Generator().manual_seed(10)
+    kw = {"thin": 1} if record else {}
+    if kind == "rwm_gauss2d":
+        pot = configs.gauss2d_batched_potential().cuda()
+        pos = (3.0 * torch.randn(16, 2, generator=g)).cuda()
+        prior = dict(prior_mean=torch.zeros(2), prior_scale=torch.full((2,), 10.0))
+        run = lambda x: fused_rwm._launch(pot, x, 1.0, 11, 5, 8, **prior, **kw)
+        ref = fused_rwm._run_plain(pot._forward_plain, pos, 1.0, 11, 5, 8, **prior, **kw)
+    elif kind == "rwm_lingauss":
+        pos = (torch.randn(16, 32, generator=g).cuda() * lam.sqrt()).contiguous()
+        run = lambda x: fused_rwm._launch(pot, x, 0.01, 11, 5, 8, **kw)
+        ref = fused_rwm._run_plain(pot._forward_plain, pos, 0.01, 11, 5, 8, **kw)
+    elif kind == "pcn_dense_gauss2d":
+        pot = configs.gauss2d_batched_potential().cuda()
+        pos = (3.0 * torch.randn(16, 2, generator=g)).cuda()
+        args = (torch.zeros(2), torch.eye(2), 0.5, 11, 5, 8)
+        run = lambda x: fused_pcn_dense._launch(pot, x, *args, **kw)
+        ref = fused_pcn_dense._run_plain(pot._forward_plain, pos, *args, **kw)
+    else:
+        pos = (torch.randn(16, 32, generator=g).cuda() * lam.sqrt()).contiguous()
+        args = (torch.zeros(32), torch.diag(lam.sqrt()), 0.2, 11, 5, 8)
+        run = lambda x: fused_pcn_dense._launch(pot, x, *args, **kw)
+        ref = fused_pcn_dense._run_plain(pot._forward_plain, pos, *args, **kw)
+    got, full = run(pos[:13]), run(pos)
+    for a, b in zip(got, full):
+        assert torch.equal(a, b[:, :13] if a.dim() == 3 else b[:13])
+    _chains_agree(got, tuple(t[:, :13] if t.dim() == 3 else t[:13] for t in ref), 5)
 
 
 # --- K17 (Richardson) and the large Darcy grids --------------------------------
