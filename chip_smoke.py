@@ -44,8 +44,10 @@ Gaussians), times both, then drives the ported paths at full width:
     gauss2d_rwm --fused      the runner's fused RWM branch, the config's
                              phi_batched set by the caller (K14), 16 chains
                              a warp
-    lingauss_pcn fused       burn-in with in-kernel beta adaptation (K16),
-                             then dense-prior pCN (K15), a chain a warp
+    lingauss_pcn fused       burn-in with in-kernel beta adaptation (K16)
+                             in one launch, a block of chains a thread-block
+                             cluster, then dense-prior pCN (K15), a chain a
+                             warp
     gauss2d_rwm, lingauss_pcn   the scan path through the CLI (no kernel)
 
 The fourteen fused configs and the two scan configs run through the port's
@@ -448,6 +450,8 @@ PCN_BURGERS = "fused_pcn_burgers_warp_kernel"
 # kernels
 RWM_GROUP = "fused_rwm_group_kernel"
 PCN_DENSE_GROUP = "fused_pcn_dense_group_kernel"
+# K16's whole burn-in in one launch, a block a thread-block cluster
+ADAPT_GROUP = "fused_pcn_adapt_group_kernel"
 
 
 def check_da(problem, gen, results):
@@ -1803,7 +1807,8 @@ def run_richardson_da(richardson):
 # group kernels (the one-chain-a-CTA linear-Gaussian instantiations are left
 # out by name)
 SAMPLER_UNITS = ("fused_da_pcn.cu", "fused_pcn.cu", "fused_ess.cu", "fused_fes.cu",
-                 "fused_mala.cu", "fused_rwm.cu", "fused_da3_pcn.cu", "fused_pcn_dense.cu")
+                 "fused_mala.cu", "fused_rwm.cu", "fused_da3_pcn.cu", "fused_pcn_dense.cu",
+                 "fused_pcn_adapt.cu")
 
 
 def sampler_ptxas_report():
@@ -1899,8 +1904,9 @@ def check_linear_family(problems, gen, results):
     leaves (one chain a CTA) and on Darcy (an instantiation no shipped path
     launches); the linear-Gaussian misfit kernel, K15 (the group kernel, a
     chain a warp; on an m = 40 misfit the rule leaves, one chain a CTA) and
-    K16 on lingauss_pcn's misfit at 2048 chains; each against its plain
-    version, timed."""
+    K16 on lingauss_pcn's misfit at 2048 chains (the group kernel, a block
+    a cluster, also bit for bit against the host loop of two launches a
+    step, which is timed too); each against its plain version, timed."""
     from ip_mcmc_tpu_torch import configs
     from ip_mcmc_tpu_torch.convert import linear_gaussian_from_arrays
     from ip_mcmc_tpu_torch.ops import fused_pcn_adapt, fused_pcn_dense, fused_rwm
@@ -1971,8 +1977,10 @@ def check_linear_family(problems, gen, results):
     pot, scale, chol = lingauss_potential()
     n, d = problems["lingauss_pcn"].n_chains, pot.K
     U = (torch.randn(d, n, generator=gen).cuda() * scale[:, None]).contiguous()
-    compare_small_misfit(results, pot, U, variant="lingauss_pcn misfit, m = 16, d = 32",
-                         paths=["lingauss_pcn fused"], tol=LINEAR_TOL, source="fused_rwm.cu",
+    # no shipped path launches it: every sampler on the linear-Gaussian
+    # targets forms Φ at the start in its own kernel
+    compare_small_misfit(results, pot, U, variant="lingauss_pcn misfit, m = 16, d = 32 (no "
+                         "shipped path)", paths=[], tol=LINEAR_TOL, source="fused_rwm.cu",
                          replaces=JAX_OPS + "99",
                          bound_row=bound(n * linear_ops(pot),
                                          4 * n * (pot.K + 1) + constant_bytes(pot)))
@@ -2007,39 +2015,71 @@ def check_linear_family(problems, gen, results):
                                                  + 2 * int(torch.count_nonzero(L))),
                 replaces=JAX_OPS + "653")
 
-    # K16: the step loop runs on the host (two launches a step), so a step's
-    # time is the slope over whole launches of the wrapper
+    # K16 on the shipped spec: the whole burn-in in one launch, a block a
+    # cluster; against the plain loop, and bit for bit against the host loop
+    # (two launches a step) that every spec the group rule leaves takes
     args = lambda s: (pos_l, zeros, scale, 0.5, 59, s, 0.3, 0.5, LINGAUSS_BLOCK)  # noqa: E731
-    got = fused_pcn_adapt._launch(pot, *args(20))
+    assert fused_pcn_adapt.stem(pot, d, LINGAUSS_BLOCK, n) == ADAPT_GROUP
+    geo = fused_pcn_adapt.group_geometry(n, LINGAUSS_BLOCK, d=d, m=pot.m)
+    k16_ops = linear_ops(pot) + Ops((RNG_OPS_PER_DRAW + 4) * d + 8)
+    got = fused_pcn_adapt._launch_group(pot, *args(20))
     ref = fused_pcn_adapt._run_plain(pot._forward_plain, *args(20))
+    two = fused_pcn_adapt._launch_steps(pot, *args(20))
     torch.cuda.synchronize()
-    dev = (got[0] - ref[0]).abs().max(dim=1).values
-    frac = float((dev <= CHAIN_ATOL).double().mean())
-    beta_rel = float(((got[2] - ref[2]).abs() / ref[2]).max())
-    print(f"fused_pcn_adapt_kernel + pcn_adapt_update_kernel ({n} chains, 20 steps, block "
-          f"{LINGAUSS_BLOCK}): {frac:.4f} of chains within {CHAIN_ATOL}, beta max rel "
-          f"{beta_rel:.3e} (equal on {float((got[2] == ref[2]).double().mean()):.4f}), "
-          f"acceptance kernel {float(got[1].mean()):.4f} plain {float(ref[1].mean()):.4f}",
-          flush=True)
-    if (frac < MIN_CHAIN_FRAC or beta_rel > BETA_RTOL
-            or abs(float(got[1].mean()) - float(ref[1].mean())) > RATE_ATOL):
-        raise AssertionError("fused_pcn_adapt disagrees with its plain version")
-    ms = slope_ms(lambda s: fused_pcn_adapt._launch(pot, *args(s)), 20, 220, 3)
+    same = [bool(torch.equal(a, b)) for a, b in zip(got, two)]
+    print(f"{ADAPT_GROUP} ({n} chains, 20 steps, block {LINGAUSS_BLOCK}) against the two "
+          f"launches a step: chains, acceptance, beta bit for bit {same}", flush=True)
+    if not all(same):
+        raise AssertionError(f"{ADAPT_GROUP} differs from the two-launch burn-in")
+    errs = {}  # name -> (max abs, share of chains within CHAIN_ATOL, beta max rel)
+    for name, out in ((ADAPT_GROUP, got), ("fused_pcn_adapt_kernel", two)):
+        dev = (out[0] - ref[0]).abs().max(dim=1).values
+        frac = float((dev <= CHAIN_ATOL).double().mean())
+        beta_rel = float(((out[2] - ref[2]).abs() / ref[2]).max())
+        errs[name] = (float(dev.max()), frac, beta_rel)
+        print(f"{name} ({n} chains, 20 steps, block {LINGAUSS_BLOCK}): {frac:.4f} of chains "
+              f"within {CHAIN_ATOL} of the plain loop, beta max rel {beta_rel:.3e} (equal on "
+              f"{float((out[2] == ref[2]).double().mean()):.4f}), acceptance kernel "
+              f"{float(out[1].mean()):.4f} plain {float(ref[1].mean()):.4f}", flush=True)
+        if (frac < MIN_CHAIN_FRAC or beta_rel > BETA_RTOL
+                or abs(float(out[1].mean()) - float(ref[1].mean())) > RATE_ATOL):
+            raise AssertionError(f"{name} disagrees with its plain version")
+    del got, ref, two
     plain_ms = slope_ms(lambda s: fused_pcn_adapt._run_plain(pot._forward_plain, *args(s)),
                         20, 40, 1)
+    ms = slope_ms(lambda s: fused_pcn_adapt._launch_group(pot, *args(s)), 20, 2020, 3)
     row = {
-        "name": "fused_pcn_adapt_kernel", "variant": f"lingauss_pcn misfit, diagonal prior, "
-        f"block {LINGAUSS_BLOCK}", "route": "cuda", "source": SRC + "fused_pcn_adapt.cu",
-        "replaces": JAX_OPS + "520", "paths": ["lingauss_pcn fused"],
-        "max_abs_err": float(dev.max()), "frac_chains_within_atol": frac,
-        "beta_max_rel_err": beta_rel, "ms": ms, "plain_ms": plain_ms,
+        "name": ADAPT_GROUP, "variant": f"lingauss_pcn misfit, diagonal prior, block "
+        f"{LINGAUSS_BLOCK} (a block a cluster of {geo[2]} CTAs of {geo[1]} warps)",
+        "route": "cuda",
+        "source": SRC + "fused_pcn_adapt.cu", "replaces": JAX_OPS + "520",
+        "paths": ["lingauss_pcn fused"], **dict(zip(
+            ("max_abs_err", "frac_chains_within_atol", "beta_max_rel_err"), errs[ADAPT_GROUP])),
+        "equal_to_two_launches": True, "ms": ms, "plain_ms": plain_ms,
+        "ms_unit": ("one step: the slope between one-launch burn-ins of 20 and 2020 steps "
+                    "(plain: 20 and 40)"),
+        **chain_bound((pot,), n, d, k16_ops, False), "library_ms": None,
+    }
+    print(f"  one step at full width: {ms:.5f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']})", flush=True)
+    results.append(row)
+
+    # the host loop on the same spec: what a spec the group rule leaves runs
+    # (m > d, d not 2 or 32, a block above 256); the slope over whole calls
+    ms = slope_ms(lambda s: fused_pcn_adapt._launch_steps(pot, *args(s)), 20, 220, 3)
+    row = {
+        "name": "fused_pcn_adapt_kernel", "variant": f"a spec the rule leaves: the host loop, "
+        f"timed on the lingauss_pcn misfit, diagonal prior, block {LINGAUSS_BLOCK}",
+        "route": "cuda", "source": SRC + "fused_pcn_adapt.cu", "replaces": JAX_OPS + "520",
+        "paths": [], **dict(zip(("max_abs_err", "frac_chains_within_atol", "beta_max_rel_err"),
+                                errs["fused_pcn_adapt_kernel"])),
+        "ms": ms, "plain_ms": plain_ms,
         "ms_unit": ("one step, both launches and the host loop: the slope between "
                     "launches of 20 and 220 steps (plain: 20 and 40)"),
-        **chain_bound((pot,), n, d, linear_ops(pot) + Ops((RNG_OPS_PER_DRAW + 4) * d + 8),
-                      False, launch_a_step=True),
+        **chain_bound((pot,), n, d, k16_ops, False, launch_a_step=True),
         "library_ms": None,
     }
-    print(f"  one step at full width: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+    print(f"  the host loop, one step at full width: {ms:.4f} ms, bound "
           f"{row['bound_ms']:.6f} ms ({row['bound_by']})", flush=True)
     results.append(row)
 
@@ -2067,9 +2107,9 @@ def check_linear_family(problems, gen, results):
         lambda: fused_pcn_adapt._update_plain(p, lb0, LINGAUSS_BLOCK, gamma, target), 20)
     nb = n // LINGAUSS_BLOCK
     row = {
-        "name": "pcn_adapt_update_kernel", "variant": f"{nb} blocks of {LINGAUSS_BLOCK}",
-        "route": "cuda", "source": SRC + "fused_pcn_adapt.cu", "replaces": JAX_OPS + "552",
-        "paths": ["lingauss_pcn fused"], "max_abs_err": b_abs,
+        "name": "pcn_adapt_update_kernel", "variant": f"a spec the rule leaves: {nb} blocks "
+        f"of {LINGAUSS_BLOCK}", "route": "cuda", "source": SRC + "fused_pcn_adapt.cu",
+        "replaces": JAX_OPS + "552", "paths": [], "max_abs_err": b_abs,
         "ms": ms, "plain_ms": plain_ms, "ms_unit": "one call",
         **bound(Ops(n + 8 * nb), 4 * (2 * n + 2 * nb)), "library_ms": None,
     }
@@ -2084,11 +2124,12 @@ def group_ptxas():
     32, 32>), mangled and demangled, for ``attach_ptxas``."""
     from ip_mcmc_tpu_torch.ops import _gaussian_group
 
-    return {f"{stem}<{rec}>": (f"{stem}ILb{int(rec == 'true')}ELi{d}ELi{g}E",
-                               f"{stem}<{rec}, {d}, {g}>")
-            for stem, d in ((RWM_GROUP, 2), (PCN_DENSE_GROUP, 32))
-            for g in (_gaussian_group.width(d),)
-            for rec in ("false", "true")}
+    return {**{f"{stem}<{rec}>": (f"{stem}ILb{int(rec == 'true')}ELi{d}ELi{g}E",
+                                  f"{stem}<{rec}, {d}, {g}>")
+               for stem, d in ((RWM_GROUP, 2), (PCN_DENSE_GROUP, 32))
+               for g in (_gaussian_group.width(d),)
+               for rec in ("false", "true")},
+            ADAPT_GROUP: (f"{ADAPT_GROUP}ILi32ELi32E", f"{ADAPT_GROUP}<32, 32>")}
 
 
 def check_linear_group():
@@ -2172,6 +2213,74 @@ def check_linear_group():
         check_ragged(f"{PCN_DENSE_GROUP}<{tag}>",
                      "lingauss, 13 chains, a chain a warp, 8 a CTA, 5 steps", got, full, ref,
                      recorded)
+
+
+def check_pcn_adapt_group():
+    """What K16's group kernel adds beside its twins: the Python mirror of
+    its launch geometry against the C function (the shipped spec, ragged
+    blocks, d = 2, one chain and none); the specs the takes-rule leaves to
+    the host loop (C: cudaErrorNotSupported, the mirror: not taken); and,
+    bit for bit against the host loop's two launches a step, a ragged
+    block (300 chains in blocks of 100: spare chains on the last CTA of
+    each cluster) and d = 2 (gauss2d, 1024 in blocks of 256, a CTA a
+    block), 30 steps each."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch import configs
+    from ip_mcmc_tpu_torch.ops import _build, _scaffold, fused_pcn_adapt
+
+    geometry = _build.library().ipx_pcn_adapt_group_geometry
+
+    def c_geometry(pot, n, block):
+        pos = torch.zeros(n, pot.K, device="cuda")
+        args, _ = _scaffold.chain_args(pos, torch.zeros(pot.K), torch.ones(pot.K), 0, 1, block)
+        out, spec = (ctypes.c_int * 5)(), pot.spec()
+        status = geometry(ctypes.byref(spec), ctypes.byref(args), out)
+        if status == 0 and out[4] < 1:
+            raise AssertionError(f"no cluster of {out[2]} CTAs fits the card")
+        return status, tuple(out)[:4], out[4]
+
+    lg, scale, _ = lingauss_potential()
+    g2 = configs.gauss2d_batched_potential().cuda()
+    for pot, n, block in ((lg, 2048, LINGAUSS_BLOCK), (lg, 300, 100), (lg, 14, 7),
+                          (g2, 1024, 256), (g2, 1, 1), (lg, 0, LINGAUSS_BLOCK)):
+        status, out, _ = c_geometry(pot, n, block)
+        mirror = fused_pcn_adapt.group_geometry(n, block, d=pot.K, m=pot.m)
+        if status != 0 or out != mirror:
+            raise AssertionError(
+                f"adaptive group geometry at d = {pot.K}, m = {pot.m}, {n} chains, block "
+                f"{block}: C {out} (status {status}), Python {mirror}")
+    print("adaptive pCN group geometry: Python mirror equals the C function (shipped: "
+          f"{fused_pcn_adapt.group_geometry(2048, LINGAUSS_BLOCK, d=32, m=16)}; such clusters "
+          f"the card holds at once: {c_geometry(lg, 2048, LINGAUSS_BLOCK)[2]})", flush=True)
+    left = ((linear_misfit(40, 32, seed=67), 256, 256), (linear_misfit(3, 3, seed=71), 64, 64),
+            (lg, 1024, 512), (g2, 1024, 512), (lg, 2000, LINGAUSS_BLOCK))
+    for pot, n, block in left:
+        status = c_geometry(pot, n, block)[0]
+        takes = fused_pcn_adapt.group_takes(pot.K, pot.m, pot.K, block, n)
+        if status != 801 or takes:
+            raise AssertionError(f"adaptive group rule on d = {pot.K}, m = {pot.m}, {n} chains, "
+                                 f"block {block}: C status {status}, Python takes {takes}")
+    print(f"adaptive pCN group rule: C and Python leave the same {len(left)} burn-ins (m = 40; "
+          "d = 3; blocks of 512 at d = 32 and d = 2; a ragged last block) to the host loop",
+          flush=True)
+
+    gen = torch.Generator().manual_seed(86)
+    for what, pot, pos, sc, block in (
+            ("lingauss, 300 chains in blocks of 100", lg,
+             (torch.randn(300, 32, generator=gen).cuda() * scale).contiguous(), scale, 100),
+            ("gauss2d target, d = 2 (no shipped path), 1024 chains in blocks of 256", g2,
+             (3.0 * torch.randn(1024, 2, generator=gen)).cuda(), torch.ones(2, device="cuda"),
+             256)):
+        d = pos.shape[1]
+        args = (pos, torch.zeros(d, device="cuda"), sc, 0.4, 87, 30, 0.234, 0.5, block)
+        got = fused_pcn_adapt._launch_group(pot, *args)
+        two = fused_pcn_adapt._launch_steps(pot, *args)
+        same = [bool(torch.equal(a, b)) for a, b in zip(got, two)]
+        print(f"{ADAPT_GROUP} ({what}, 30 steps) against the two launches a step: chains, "
+              f"acceptance, beta bit for bit {same}", flush=True)
+        if not all(same):
+            raise AssertionError(f"{ADAPT_GROUP} ({what}) differs from the two-launch burn-in")
 
 
 def ran_on_host(label):
@@ -2453,6 +2562,7 @@ def main() -> int:
     attach_ptxas(results, ptxas, {**MALA_PTXAS, **PCN_PTXAS, **BURGERS_PTXAS, **MISFIT_PTXAS})
     check_linear_family(problems, gen, results)
     check_linear_group()
+    check_pcn_adapt_group()
     attach_ptxas(results, ptxas, group_ptxas())
 
     # the fused linear-Gaussian paths, each with the counts set to 0 before it
@@ -2464,8 +2574,7 @@ def main() -> int:
         lambda: run_gauss2d_fused(problems["gauss2d_rwm"]))
     counts["lingauss_pcn fused"], _ = drive_phase(
         "lingauss_pcn fused",
-        ("linear_gaussian_misfit_kernel", "fused_pcn_adapt_kernel", "pcn_adapt_update_kernel",
-         f"{PCN_DENSE_GROUP}<false>", f"{PCN_DENSE_GROUP}<true>"),
+        (ADAPT_GROUP, f"{PCN_DENSE_GROUP}<false>", f"{PCN_DENSE_GROUP}<true>"),
         lambda: run_lingauss_fused(problems["lingauss_pcn"]))
     richardson_counts, richardson_da = run_richardson_da(richardson)
     counts.update(richardson_counts)

@@ -2332,14 +2332,6 @@ using Cluster32Exact =
     ClusterLevel<kCluster32N, Cluster32Design::kCells, Cluster32Design::kThreads,
                  Cluster32Design::kG, true, true, Cluster32Smem>;
 
-// The launch of a cluster kernel: chains (CTAs) a cluster, clusters, CTAs
-// (a multiple of G: the spare CTAs of a ragged last cluster run on zeros),
-// threads a CTA and dynamic shared memory.
-struct ClusterGeometry {
-  int g, clusters, ctas, threads;
-  size_t smem;
-};
-
 // A level the cluster kernels take: an n x n grid, K = d up to max_k,
 // dst_trunc with a multiple of 16 modes up to the cells and max_modes,
 // solved by CG.
@@ -2374,36 +2366,6 @@ inline int cluster_geometry(const IpxMisfitSpec& exact, const IpxMisfitSpec* sur
   geo->threads = n32 ? Cluster32Design::kThreads : ClusterDesign::kThreads;
   geo->smem = n32 ? Cluster32Smem::kBytes : ClusterSmem::kBytes;
   return geo->smem <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// Launches kernel<<<geo>>> in clusters of geo.g CTAs of geo.threads
-// threads (cudaLaunchKernelEx), after checking that such a cluster fits on
-// the card; the status of the launch or of the check.
-template <class... Args>
-int launch_cluster(void (*kernel)(Args...), const ClusterGeometry& geo, void* stream,
-                   Args... args) {
-  const int smem = static_cast<int>(geo.smem);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess && geo.g > 8)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = geo.g;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(geo.ctas);
-  cfg.blockDim = dim3(geo.threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (clusters < 1) return cudaErrorInvalidConfiguration;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
 }
 
 // --- the standalone misfits on the samplers' cluster levels -----------------

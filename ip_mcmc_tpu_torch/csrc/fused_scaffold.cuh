@@ -4,7 +4,9 @@
 //
 // run_chain runs one chain per CTA (run_cluster_chain: the same in a
 // thread-block cluster; run_warp_chain below: one a warp; run_group_chain:
-// one on each group of G lanes, the state in registers). It
+// one on each group of G lanes, the state in registers; run_group_pooled:
+// the same with the chains of a block on one cluster, meeting once a
+// step; launch_cluster launches a kernel in clusters). It
 // loads the chain's position into shared memory, derives the per-block
 // seed uint32(seed + 7919 * block) and the chain's lane, runs the
 // n_steps loop around a Step, counts acceptances, stores every thin-th
@@ -17,9 +19,12 @@
 //
 // and keeps pos[t] written by thread t only. The step counter restarts at
 // 0 in every launch, as in the JAX scaffold. A sampler whose chains read
-// one another (fused_fes.cu) cannot loop inside a CTA: it sets up a
-// WarpChainCtx of its own and leaves the step loop to the host.
+// one another loops inside a launch where a block of chains fits one
+// cluster (run_group_pooled); else (fused_fes.cu) it sets up a WarpChainCtx
+// of its own and leaves the step loop to the host.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -295,6 +300,126 @@ __device__ void run_group_chain(const IpxChainArgs& a, Step& step) {
   if (x.live) {
     if (own) a.out[row] = step.pos;
     if (t == 0) a.acc[x.c] = acc / static_cast<float>(a.n_steps);
+  }
+}
+
+// The launch of a cluster kernel: chains (CTAs) a cluster, clusters, CTAs
+// (a multiple of G: the spare CTAs of a ragged last cluster run on zeros),
+// threads a CTA and dynamic shared memory.
+struct ClusterGeometry {
+  int g, clusters, ctas, threads;
+  size_t smem;
+};
+
+// The launch of kernel<<<geo>>> in clusters of geo.g CTAs of geo.threads
+// threads (attr: its one attribute, the cluster dimension), after setting
+// the kernel's attributes; the status of that.
+template <class... Args>
+cudaError_t cluster_config(void (*kernel)(Args...), const ClusterGeometry& geo, void* stream,
+                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const int smem = static_cast<int>(geo.smem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && geo.g > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = geo.g;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = {};
+  cfg->gridDim = dim3(geo.ctas);
+  cfg->blockDim = dim3(geo.threads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = static_cast<cudaStream_t>(stream);
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return err;
+}
+
+// How many such clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters), or the error.
+template <class... Args>
+cudaError_t max_active_clusters(void (*kernel)(Args...), const ClusterGeometry& geo, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const cudaError_t err = cluster_config(kernel, geo, nullptr, &cfg, &attr);
+  return err != cudaSuccess ? err : cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
+// Launches kernel<<<geo>>> in clusters of geo.g CTAs of geo.threads
+// threads (cudaLaunchKernelEx), after checking that such a cluster fits on
+// the card; the status of the launch or of the check.
+template <class... Args>
+int launch_cluster(void (*kernel)(Args...), const ClusterGeometry& geo, void* stream,
+                   Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(kernel, geo, stream, &cfg, &attr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
+}
+
+// The scaffold of the samplers whose chains read one another once a step
+// (the adaptive pCN burn-in, fused_pcn_adapt.cu): a chain on each group of G
+// lanes with its state in registers, as in run_group_chain, but the chains
+// of one block of block_chains run together on one CTA or thread-block
+// cluster and meet once a step. This CTA runs chains first + j of block
+// `block` (with make_chain_ctx's seed and lane, so the draws of run_chain's
+// chain block * block_chains + first + j), j = (turn W + warp) 32 / G +
+// group: each group runs TURNS chains in turn. A chain past the block (a
+// ragged last CTA) runs on zeros and stores nothing. A Step holds `pos`,
+// coordinate t of each of its TURNS chains in lane t < D, and provides
+//
+//   void init(const Ctx (&)[TURNS])
+//   void step(const Ctx (&)[TURNS], uint32_t i, bool (&accepted)[TURNS])
+//                                                the TURNS chains'
+//                                                transitions
+//   void pool(const Ctx (&)[TURNS], uint32_t i)  once a step, after the
+//                                                transitions, in every
+//                                                thread of the CTA: what
+//                                                the chains of the block
+//                                                share
+//   void finish(const Ctx&, float accepted)      a live chain's outputs
+//                                                beside its position
+template <int D, int G, int TURNS, class Step>
+__device__ void run_group_pooled(const IpxChainArgs& a, Step& step, int block, int first) {
+  using Ctx = GroupChainCtxT<D, G>;
+  const int t = Ctx::t();
+  const bool own = Ctx::holds();
+  const int j0 = static_cast<int>(threadIdx.x >> 5) * (32 / G) + static_cast<int>(threadIdx.x & 31) / G;
+  const int per_turn = static_cast<int>(blockDim.x) / G;  // chains a turn
+  Ctx x[TURNS];
+  float acc[TURNS];
+#pragma unroll
+  for (int turn = 0; turn < TURNS; ++turn) {
+    const int e = first + turn * per_turn + j0;  // the chain in its block
+    x[turn].c = block * a.block_chains + e;
+    x[turn].live = e < a.block_chains;
+    x[turn].bc = static_cast<uint32_t>(a.block_chains);
+    x[turn].lane = static_cast<uint32_t>(e);
+    x[turn].bseed = static_cast<uint32_t>(a.seed) + 7919u * static_cast<uint32_t>(block);
+    x[turn].mean = own ? a.mean[t] : 0.0f;
+    x[turn].scale = own ? a.scale[t] : 0.0f;
+    step.pos[turn] = own && x[turn].live ? a.pos_in[static_cast<size_t>(x[turn].c) * D + t] : 0.0f;
+    acc[turn] = 0.0f;
+  }
+  step.init(x);
+  for (int i = 0; i < a.n_steps; ++i) {
+    bool accepted[TURNS];
+    step.step(x, static_cast<uint32_t>(i), accepted);
+#pragma unroll
+    for (int turn = 0; turn < TURNS; ++turn)
+      if (accepted[turn]) acc[turn] += 1.0f;
+    step.pool(x, static_cast<uint32_t>(i));
+  }
+#pragma unroll
+  for (int turn = 0; turn < TURNS; ++turn) {
+    if (!x[turn].live) continue;
+    if (own) a.out[static_cast<size_t>(x[turn].c) * D + t] = step.pos[turn];
+    step.finish(x[turn], acc[turn]);
   }
 }
 

@@ -182,16 +182,16 @@ __device__ __forceinline__ float group_sum(float v) {
 }
 
 // The group's D values, lane j's v in x[j] (j < D), in every lane of the
-// group, through the warp's 32 floats of shared memory: each lane writes its
-// v, then reads the group's D (float4 reads where D % 4 == 0), a __syncwarp
-// before the write (every lane has read the last gather's) and after it.
-// Every lane of the warp calls. At d = 32 this beat D shuffles by a few
-// per cent, at d = 2 it ties (scripts/measure_linear_group_design.py,
+// group, through the warp's 32 floats of shared memory (W warps a CTA): each
+// lane writes its v, then reads the group's D (float4 reads where D % 4 ==
+// 0), a __syncwarp before the write (every lane has read the last gather's)
+// and after it. Every lane of the warp calls. At d = 32 this beat D shuffles
+// by a few per cent, at d = 2 it ties (scripts/measure_linear_group_design.py,
 // PERF.md).
-template <int D, int G>
+template <int D, int G, int W = GaussianGroupDesign::kWarps>
 __device__ __forceinline__ void gather(float v, float (&x)[D]) {
   const int base = (threadIdx.x & 31) & ~(G - 1);
-  __shared__ __align__(16) float xch[32 * GaussianGroupDesign::kWarps];
+  __shared__ __align__(16) float xch[32 * W];
   float* buf = xch + (threadIdx.x & ~31);
   __syncwarp();
   buf[threadIdx.x & 31] = v;
@@ -213,8 +213,8 @@ __device__ __forceinline__ void gather(float v, float (&x)[D]) {
 
 // Lane t of a group of G lanes: its row of the potential, in registers for
 // the whole launch. Phi as gaussian_phi computes it, bit for bit, when d and
-// m are at most G (see above).
-template <int D, int G>
+// m are at most G (see above). W: warps a CTA (the gather's buffer).
+template <int D, int G, int W = GaussianGroupDesign::kWarps>
 struct GaussianGroupRow {
   static_assert(D <= G && G <= 32 && (G & (G - 1)) == 0, "a group of G lanes holds d <= G");
   float a[D];      // row t of A (t < m), else zeros
@@ -239,7 +239,7 @@ struct GaussianGroupRow {
   // loop-carried sq += r r is, so that no stage contracts it.
   __device__ __forceinline__ float phi(float u) const {
     float w[D];  // u_j - c_j, from lane j
-    gather<D, G>(u - c, w);
+    gather<D, G, W>(u - c, w);
     float acc = 0.0f;
 #pragma unroll
     for (int j = 0; j < D; ++j) acc += a[j] * w[j];

@@ -303,6 +303,12 @@ def library():
         # acceptance probability (n,), log β per block, β (n,), n,
         # block_chains, γ_i, target, log 1e-4, log 0.999, stream
         lib.bind("ipx_pcn_adapt_update", [p, p, p, i, i, f, f, f, f, p])
+        # spec, chain (out: final positions, acc: acceptance rates), β (n,),
+        # γ (n_steps,), target, log 1e-4, log 0.999, log β0, β0, 1 / n_steps,
+        # stream: the whole burn-in in one launch
+        lib.bind("ipx_fused_pcn_adapt_chain", [gspec, chain, p, p, f, f, f, f, f, f, p])
+        # spec, chain, out (4,): the adaptive group kernel's geometry
+        lib.bind("ipx_pcn_adapt_group_geometry", [gspec, chain, p])
         lib.bind("ipx_error_string", [i], ctypes.c_char_p)
         lib.bind("ipx_misfit_spec_size", [])
         _lib = lib

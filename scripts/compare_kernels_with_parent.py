@@ -22,7 +22,9 @@ a cold dst_trunc-128 / 16 CG one) and 64x64, the 64x64 DA-pCN
 the linear-Gaussian samplers on their shipped specs, plain and recorded:
 RWM on the compare_paths target (8192 chains, blocks of 1024) and on
 gauss2d_rwm's with its prior (1024, blocks of 512), dense-prior pCN on
-lingauss_pcn's misfit with L = diag √λ (2048, blocks of 256), in
+lingauss_pcn's misfit with L = diag √λ (2048, blocks of 256), and the
+adaptive pCN burn-in on it (``pcn_adapt_lingauss``: β adapted per block of
+256, 20 steps; times: the slope between burn-ins of 20 and 2020 steps), in
 the order parent, this tree, this tree, parent, each in a process of its
 own with that tree first on the import path (each tree builds its own
 kernels). Each tree's two runs must equal one another bit for bit. Every
@@ -55,7 +57,8 @@ each through ``runner.run_problem`` as ``python -m ip_mcmc_tpu_torch.run
 ``gauss2d_rwm:fused`` runs the runner's fused RWM branch with the config's
 ``phi_batched`` set, and ``lingauss_pcn:fused`` the K16 burn-in and K15
 sampling run, each as that tree's ``chip_smoke.py`` drives it). Prints
-each run's ``run_s`` and statistics, whether the two trees' statistics
+each run's ``run_s`` (and ``burn_s``, the burn-in of ``lingauss_pcn:fused``)
+and statistics, whether the two trees' statistics
 (acceptance rates, ``min_ess``, ``max_rhat``, the posterior mean, the
 adapted β and the error against the exact posterior mean) are equal digit
 for digit in the four runs, and one JSON line.
@@ -82,8 +85,8 @@ TURNS = ("parent", "new", "new", "parent")
 # a CLI run's statistics that the two trees should share, and what is shown
 CLI_STATS = ("accept_rate", "inner_accept_rate", "mid_accept_rate", "min_ess", "max_rhat",
              "posterior_mean", "beta", "burn_accept_rate", "mean_error_vs_exact")
-CLI_SHOWN = ("run_s", "ess_per_s", "min_ess", "max_rhat", "accept_rate", "inner_accept_rate",
-             "beta", "mean_error_vs_exact")
+CLI_SHOWN = ("run_s", "burn_s", "ess_per_s", "min_ess", "max_rhat", "accept_rate",
+             "inner_accept_rate", "beta", "mean_error_vs_exact")
 
 
 def _row(key: str) -> str:
@@ -260,6 +263,10 @@ def worker(out_path: str, rows) -> int:
             lambda s: ops.fused_pcn_chain_dense_recorded(lg, pos_lg, zeros32,
                                                          torch.diag(sqrt_lam), 0.2, 53,
                                                          n_steps=s, thin=1, block_chains=256)),
+        # K16's burn-in on lingauss_pcn's misfit (2048, blocks of 256)
+        "pcn_adapt_lingauss": (lambda s: ops.fused_pcn_chain_adapt(
+            lg, pos_lg, zeros32, sqrt_lam, 0.5, 59, n_steps=s, target_accept=0.3,
+            block_chains=256), 20, 20, 2020),
         "da_pcn": (lambda s: ops.fused_da_pcn_chain_recorded(
             exact, surr, pos, pm, ps, 0.35, 11, n_steps=s, thin=1, subchain_len=48,
             block_chains=512), 4, 2, 10),

@@ -10,7 +10,8 @@ the same trace. Paths, at the sizes of ``chip_smoke.py``:
 
 1. ``gauss2d_rwm`` and ``lingauss_pcn`` on the scan path (``runner``);
 2. the burn-in of the fused pCN with β adaptation on lingauss_pcn's
-   misfit (2048 chains, 500 steps, two launches per step);
+   misfit (2048 chains, 500 steps, one launch of
+   ``fused_pcn_adapt_group_kernel``);
 3. dense-prior pCN on it, 1000 recorded steps;
 4. fused RWM on ``benchmarks/compare_paths.py``'s target, 8192 chains x
    2000 steps;

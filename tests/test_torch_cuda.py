@@ -479,18 +479,22 @@ def test_linear_gaussian_kernels_match_plain(lingauss, warm_problem, kind, recor
 
 
 def test_pcn_adapt_kernels_match_plain(lingauss):
-    """Kernel and plain loop pool each block in the same order and update
-    log β without FMA contraction: β within 1e-5 relative (what differs is
-    Φ's rounding), the chains within 1e-4."""
+    """The burn-in on the shipped spec's kernel (fused_pcn_adapt_group_kernel,
+    one launch) against the plain loop: kernel and plain loop pool each
+    block in the same order and update log β without FMA contraction, so β
+    within 1e-5 relative (what differs is Φ's rounding), the chains within
+    1e-4."""
     from ip_mcmc_tpu_torch.ops import fused_pcn_adapt
 
     pot, lam = lingauss
     pos = (torch.randn(512, 32, generator=torch.Generator().manual_seed(4)).cuda()
            * lam.sqrt()).contiguous()
     args = (pos, torch.zeros(32), lam.sqrt(), 0.5, 6, 20, 0.3, 0.5, 128)
-    before = _build.launch_counts["fused_pcn_adapt_kernel"]
+    name = fused_pcn_adapt.GROUP_KERNEL
+    assert fused_pcn_adapt.stem(pot, 32, 128, 512) == name
+    before = _build.launch_counts[name]
     got = fused_pcn_adapt._launch(pot, *args)
-    assert _build.launch_counts["fused_pcn_adapt_kernel"] == before + 20
+    assert _build.launch_counts[name] == before + 1
     ref = fused_pcn_adapt._run_plain(pot._forward_plain, *args)
     _chains_agree(got, ref, 20)
     assert float(_rel(got[2], ref[2]).max()) <= 1e-5
@@ -498,6 +502,109 @@ def test_pcn_adapt_kernels_match_plain(lingauss):
     assert torch.equal(blocks, blocks[:, :1].expand_as(blocks))  # one β per block
     assert bool(((blocks[:, 0] - 0.5).abs() > 1e-3).all())  # moved from β0
     assert bool(((got[2] > 1e-4) & (got[2] < 0.999 + 1e-6)).all())
+
+
+def _adapt_case(kind, lingauss):
+    """(potential, positions, block) of a burn-in the group kernel takes:
+    the shipped spec (2048 chains of lingauss in blocks of 256), a ragged
+    one (300 in blocks of 100: spare chains on the last CTA of each
+    cluster), and d = 2 (gauss2d, 1024 in blocks of 256: a CTA a block)."""
+    pot, lam = lingauss
+    g = torch.Generator().manual_seed(12)
+    if kind == "gauss2d":
+        pot = configs.gauss2d_batched_potential().cuda()
+        return pot, (3.0 * torch.randn(1024, 2, generator=g)).cuda(), 256
+    n, block = {"shipped": (2048, 256), "ragged": (300, 100)}[kind]
+    return pot, (torch.randn(n, 32, generator=g).cuda() * lam.sqrt()).contiguous(), block
+
+
+@pytest.mark.parametrize("kind", ["shipped", "ragged", "gauss2d"])
+def test_pcn_adapt_group_equals_two_launches(lingauss, kind):
+    """The one-launch burn-in against the parent's host loop (two launches
+    a step) from the same start and seed: final chains, acceptance rates
+    and β bit for bit, 60 steps. One launch a call through the entry
+    point."""
+    from ip_mcmc_tpu_torch import ops
+    from ip_mcmc_tpu_torch.ops import fused_pcn_adapt
+
+    pot, pos, block = _adapt_case(kind, lingauss)
+    d = pos.shape[1]
+    args = (pos, torch.zeros(d), torch.ones(d) if kind == "gauss2d" else lingauss[1].sqrt(),
+            0.4, 13, 60, 0.234, 0.5, block)
+    name = fused_pcn_adapt.GROUP_KERNEL
+    counts = dict(_build.launch_counts)
+    got = ops.fused_pcn_chain_adapt(pot, *args[:5], n_steps=60, target_accept=0.234,
+                                    gain=0.5, block_chains=block)
+    assert _build.launch_counts[name] == counts.get(name, 0) + 1
+    assert _build.launch_counts["fused_pcn_adapt_kernel"] == counts.get(
+        "fused_pcn_adapt_kernel", 0)
+    ref = fused_pcn_adapt._launch_steps(pot, *args)
+    for a, b, what in zip(got, ref, ("chains", "acceptance", "beta")):
+        assert torch.equal(a, b), what
+    assert 0.0 < float(got[1].mean()) < 1.0
+
+
+def _adapt_c_geometry(pot, n, block, n_steps=1):
+    """ipx_pcn_adapt_group_geometry on the card: (status, (G, warps, CTAs a
+    cluster, CTAs)); the clusters the card holds at once must be 1 or more."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.ops import _scaffold
+
+    pos = torch.zeros(n, pot.K, device="cuda")
+    args, _ = _scaffold.chain_args(pos, torch.zeros(pot.K), torch.ones(pot.K), 0, n_steps,
+                                   block)
+    out, spec = (ctypes.c_int * 5)(), pot.spec()
+    status = _build.library().ipx_pcn_adapt_group_geometry(
+        ctypes.byref(spec), ctypes.byref(args), out)
+    assert status != 0 or out[4] >= 1
+    return status, tuple(out)[:4]
+
+
+def test_pcn_adapt_group_geometry_matches_the_kernel(lingauss):
+    """ops/fused_pcn_adapt.group_geometry (Python) gives what the group
+    kernel's launch computes, and both leave the same specs."""
+    from ip_mcmc_tpu_torch.ops import fused_pcn_adapt
+
+    pot, _ = lingauss
+    g2 = configs.gauss2d_batched_potential().cuda()
+    for p, n, block in ((pot, 2048, 256), (pot, 300, 100), (pot, 14, 7), (pot, 0, 256),
+                        (g2, 1024, 256), (g2, 1, 1), (_linear_misfit(32, 32, seed=7), 512, 128)):
+        assert _adapt_c_geometry(p, n, block) == (0, fused_pcn_adapt.group_geometry(
+            n, block, d=p.K, m=p.m)), (p.K, p.m, n, block)
+    for p, n, block in ((_linear_misfit(40, 32, seed=8), 256, 256),
+                        (_linear_misfit(3, 3, seed=8), 64, 64), (pot, 1024, 512),
+                        (g2, 1024, 512), (pot, 512, 384)):
+        assert _adapt_c_geometry(p, n, block)[0] == 801  # cudaErrorNotSupported
+        assert not fused_pcn_adapt.group_takes(p.K, p.m, p.K, block, n)
+
+
+@pytest.mark.parametrize("kind", ["m40", "block512"])
+def test_pcn_adapt_left_specs_keep_two_launches_a_step(lingauss, kind):
+    """A spec the group rule leaves (m = 40 > d; a block of 512, more than
+    a cluster) runs the host loop: two launches a step, no group launch,
+    and agrees with the plain loop."""
+    from ip_mcmc_tpu_torch import ops
+    from ip_mcmc_tpu_torch.ops import fused_pcn_adapt
+
+    pot, lam = lingauss
+    if kind == "m40":
+        pot = _linear_misfit(40, 32, seed=9)
+    pos = (torch.randn(1024, 32, generator=torch.Generator().manual_seed(14)).cuda()
+           * lam.sqrt()).contiguous()
+    block = 512 if kind == "block512" else 256
+    assert fused_pcn_adapt.stem(pot, 32, block, 1024) == "fused_pcn_adapt_kernel"
+    counts = dict(_build.launch_counts)
+    got = ops.fused_pcn_chain_adapt(pot, pos, torch.zeros(32), lam.sqrt(), 0.4, 15,
+                                    n_steps=10, target_accept=0.3, block_chains=block)
+    for k in ("fused_pcn_adapt_kernel", "pcn_adapt_update_kernel"):
+        assert _build.launch_counts[k] == counts.get(k, 0) + 10
+    assert _build.launch_counts[fused_pcn_adapt.GROUP_KERNEL] == counts.get(
+        fused_pcn_adapt.GROUP_KERNEL, 0)
+    ref = fused_pcn_adapt._run_plain(pot._forward_plain, pos, torch.zeros(32), lam.sqrt(),
+                                     0.4, 15, 10, 0.3, 0.5, block)
+    _chains_agree(got, ref, 10)
+    assert float(_rel(got[2], ref[2]).max()) <= 1e-5
 
 
 def test_linear_gaussian_kernels_refuse_other_potentials(lingauss, burgers_problem):
