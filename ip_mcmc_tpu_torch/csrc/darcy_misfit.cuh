@@ -1292,6 +1292,15 @@ __device__ __forceinline__ void apply_operator_warp(const WarpSliceLevel& lv,
   lv.stencil(op, p, Ap);
 }
 
+// Whether a cold misfit is WarpSliceLevel's: its grid and K, Jacobi (no
+// modes), CG. The standalone misfits a draw a warp on it
+// (darcy_misfit_slice_kernel, darcy_misfit_grad_warp_kernel) take what
+// this takes.
+inline bool warp_slice_spec(const IpxMisfitSpec& s) {
+  return s.n == WarpSliceLevel::kN && s.K == WarpSliceLevel::kK && s.precond == kPrecondJacobi &&
+         s.modes == 0 && s.solver == kSolverCg && s.m >= 0;
+}
+
 // --- the adjoint gradient on a warp: MALA ------------------------------------
 //
 // The value and gradient of darcy_value_and_grad for one chain on one warp,

@@ -21,6 +21,10 @@
 //   darcy_misfit_warp_kernel            the same on the exact level of the
 //                                       16x16 DA kernel, one draw a warp
 //                                       (WarpLevel).
+//   darcy_misfit_slice_kernel           the same on the 16x16 Jacobi spec of
+//                                       the ESS, cold pCN and FES samplers'
+//                                       solve, one draw a warp
+//                                       (WarpSliceLevel).
 //   fused_da_pcn_warp_kernel<SOLVER, RECORD>
 //                                       the 16x16 Darcy DA loop (8x8
 //                                       surrogate solved by CG or K17's
@@ -659,6 +663,93 @@ inline int launch_misfit_warp(const MisfitBatch& a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- the standalone 16 x 16 Jacobi misfit: one draw a warp ---------------------
+//
+// Phi for a (K, B) batch of the cold 16 x 16 Jacobi CG misfit (Phi0 of
+// darcy_ess_fused, darcy_pcn_4096 --fused and darcy_fes_fused: Jacobi / 48
+// CG, 4096 draws) on the solve its samplers run, WarpSliceLevel: one draw a
+// warp, lane l owning eight cells of one 32-cell slice, the dot products
+// added in block_sum's order, so that Phi has the bits of the one-draw-a-CTA
+// kernel (darcy_misfit_kernel on Layout16, 256 threads, a CTA barrier on
+// every stencil and block_sum). The KL basis is staged once a CTA, padded as
+// the level reads it; each warp's slice holds its draw's u and the solve's
+// p, th, tv. A Jacobi solve needs no other draw, so after the staging
+// barrier the spare warps of a ragged last CTA leave.
+
+// The design (scripts/measure_misfit_slice_design.py times the
+// alternatives): kWarps draws a CTA, one a warp; the launch bound's warps
+// an SM (kSmWarps: 16 caps a thread at 128 registers, 32 at 64). Measured
+// on the H100 at 4096 draws (PERF.md): 32 draws a CTA at 64 registers, no
+// spill (one wave of 128 CTAs), 0.100 ms a call, against 0.110 at W = 16
+// (107 registers) and 0.119 at W = 8; the basis read through L2 instead,
+// 0.155-0.160; every design gives the same bits.
+struct MisfitSliceDesign { static constexpr int kWarps = 32, kSmWarps = 32; };
+constexpr int kMisfitSliceMinCtas = MisfitSliceDesign::kSmWarps >= 2 * MisfitSliceDesign::kWarps
+                                        ? MisfitSliceDesign::kSmWarps / MisfitSliceDesign::kWarps
+                                        : 1;
+// a warp's slice: the draw's u (K), then p, th, tv (the level's padded cells)
+constexpr int kMisfitSliceFloats = WarpSliceLevel::kK + 3 * WarpSliceLevel::kStride;
+
+// Dynamic shared memory of a launch: the staged basis, a slice a warp.
+constexpr size_t kMisfitSliceSmem =
+    WarpSliceLevel::staged_bytes() + sizeof(float) * kMisfitSliceFloats * MisfitSliceDesign::kWarps;
+static_assert(kMisfitSliceSmem <= 232448, "the design's CTA exceeds the card's shared memory");
+
+// Whether darcy_misfit_slice_kernel takes this spec (ipx_darcy_misfit sends
+// it there): WarpSliceLevel's, i.e. 16 x 16, K = 64, Jacobi, CG
+// (warp_slice_spec). Mirrored by ip_mcmc_tpu_torch/ops/fused_da_pcn.py
+// misfit_slice_takes.
+inline bool misfit_slice_takes(const IpxMisfitSpec& s) { return warp_slice_spec(s); }
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_da_pcn.py misfit_slice_geometry:
+// kWarps draws a CTA, the spare warps of a ragged last CTA leave; what
+// misfit_slice_takes refuses, cudaErrorNotSupported.
+inline int misfit_slice_geometry(const IpxMisfitSpec& s, int B, DaWarpGeometry* geo) {
+  if (!misfit_slice_takes(s)) return cudaErrorNotSupported;
+  if (B < 0) return cudaErrorInvalidValue;
+  geo->warps = MisfitSliceDesign::kWarps;
+  geo->ctas = (B + geo->warps - 1) / geo->warps;
+  geo->smem = kMisfitSliceSmem;
+  return cudaSuccess;
+}
+
+__global__ void __launch_bounds__(32 * MisfitSliceDesign::kWarps, kMisfitSliceMinCtas)
+    darcy_misfit_slice_kernel(const __grid_constant__ MisfitBatch a) {
+  constexpr int kStride = WarpSliceLevel::kStride, K = WarpSliceLevel::kK;
+  extern __shared__ float4 misfit_slice_smem_buf[];
+  float* staged = reinterpret_cast<float*>(misfit_slice_smem_buf);
+  const float* basis = WarpSliceLevel::stage(a.s, staged);
+  float* slices = staged + WarpSliceLevel::staged_bytes() / sizeof(float);
+  // the CTA's draws' coefficients, W consecutive columns of U a row
+  const int W = blockDim.x >> 5, b0 = blockIdx.x * W, B = a.B;
+  for (int e = threadIdx.x; e < K * W; e += blockDim.x) {
+    const int k = e / W, j = e % W;
+    if (b0 + j < B) slices[j * kMisfitSliceFloats + k] = a.U[static_cast<size_t>(k) * B + b0 + j];
+  }
+  __syncthreads();  // the staged basis and every warp's u
+  const int b = b0 + (threadIdx.x >> 5);
+  if (b >= B) return;  // a spare warp: no CTA barrier follows
+  float* u = slices + (threadIdx.x >> 5) * kMisfitSliceFloats;
+  const WarpSmem ws{u + K, u + K + kStride, u + K + 2 * kStride};
+  const float v = WarpSliceLevel{&a.s, basis, ws}.phi(u);
+  if ((threadIdx.x & 31) == 0) a.phi[b] = v;
+}
+
+// Launches darcy_misfit_slice_kernel on the batch: the status of the
+// geometry or of the launch.
+inline int launch_misfit_slice(const MisfitBatch& a, void* stream) {
+  DaWarpGeometry geo;
+  const int status = misfit_slice_geometry(a.s, a.B, &geo);
+  if (status != cudaSuccess) return status;
+  if (a.B == 0) return cudaSuccess;
+  const int smem = static_cast<int>(geo.smem);
+  cudaFuncSetAttribute(darcy_misfit_slice_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  darcy_misfit_slice_kernel<<<geo.ctas, 32 * geo.warps, smem, static_cast<cudaStream_t>(stream)>>>(
+      a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // --- one chain a warp: K4 on Burgers -------------------------------------------
 //
 // burgers_da_pcn (k = 16: 16 surrogate solves of 64 cells / 26 Godunov steps and one exact solve of
@@ -822,14 +913,18 @@ const char* ipx_error_string(int code) {
 int ipx_misfit_spec_size() { return static_cast<int>(sizeof(IpxMisfitSpec)); }
 
 // A spec of the 16 x 16 DA kernel's exact level (misfit_warp_takes) goes to
-// darcy_misfit_warp_kernel; one of a cluster sampler's level
-// (misfit_cluster_takes) to darcy_misfit_cluster_kernel (64 x 64) or
-// darcy_misfit_cluster32_kernel (32 x 32); for every other the layout
-// follows the spec's grid, the solve its solver.
+// darcy_misfit_warp_kernel; the 16 x 16 Jacobi spec of the ESS, cold pCN
+// and FES samplers' solve (misfit_slice_takes) to darcy_misfit_slice_kernel;
+// one of a cluster sampler's level (misfit_cluster_takes) to
+// darcy_misfit_cluster_kernel (64 x 64) or darcy_misfit_cluster32_kernel
+// (32 x 32); for every other the layout follows the spec's grid, the solve
+// its solver.
 int ipx_darcy_misfit(const IpxMisfitSpec* s, const float* U, int B, float* phi,
                      void* stream) {
   if (ipx::misfit_warp_takes(*s))
     return ipx::launch_misfit_warp({*s, U, nullptr, B, phi, nullptr}, stream);
+  if (ipx::misfit_slice_takes(*s))
+    return ipx::launch_misfit_slice({*s, U, nullptr, B, phi, nullptr}, stream);
   if (ipx::misfit_cluster_takes(*s))
     return ipx::launch_misfit_cluster(ipx::darcy_misfit_cluster_kernel,
                                       ipx::darcy_misfit_cluster32_kernel,
@@ -921,6 +1016,20 @@ int ipx_darcy_misfit_cluster_geometry(const IpxMisfitSpec* s, int B, int* out) {
 int ipx_darcy_misfit_warp_geometry(const IpxMisfitSpec* s, int B, int* out) {
   ipx::DaWarpGeometry geo{0, 0, 0};
   const int status = ipx::misfit_warp_geometry(*s, B, &geo);
+  out[0] = geo.warps;
+  out[1] = geo.ctas;
+  out[2] = static_cast<int>(geo.smem);
+  return status;
+}
+
+// The standalone 16 x 16 Jacobi misfit's launch geometry
+// (darcy_misfit_slice_kernel) for this spec and B draws: out = {draws a
+// CTA, CTAs, dynamic shared-memory bytes}; the status the launch would
+// return for them, cudaErrorNotSupported for a spec that goes to another
+// kernel (the wrapper's mirror is checked against this on the card).
+int ipx_darcy_misfit_slice_geometry(const IpxMisfitSpec* s, int B, int* out) {
+  ipx::DaWarpGeometry geo{0, 0, 0};
+  const int status = ipx::misfit_slice_geometry(*s, B, &geo);
   out[0] = geo.warps;
   out[1] = geo.ctas;
   out[2] = static_cast<int>(geo.smem);

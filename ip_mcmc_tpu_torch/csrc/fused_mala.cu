@@ -10,7 +10,9 @@
 // darcy.make_batched_misfit_mala_warm (l.783).
 //
 //   darcy_misfit_grad_kernel       U (K, B) -> Phi (B,), grad (K, B): both
-//                                  solves from zero.
+//                                  solves from zero, one draw a CTA.
+//   darcy_misfit_grad_warp_kernel  the same on the cold MALA kernel's spec,
+//                                  one draw a warp (WarpSliceLevel).
 //   darcy_misfit_grad_warm_kernel  (U, aux0 (2 n*n, B)) -> Phi, grad, aux:
 //                                  rows [0, n*n) of aux carry the forward
 //                                  solution, rows [n*n, 2 n*n) the adjoint
@@ -290,14 +292,124 @@ int launch_mala_warp(const MalaArgs& a, const MalaWarpGeometry& geo, cudaStream_
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- the standalone cold gradient misfit: one draw a warp ----------------------
+//
+// Phi and its gradient for a (K, B) batch of the cold 16 x 16 Jacobi CG
+// misfit (darcy_mala_fused's start positions: Jacobi / 48 + 48 CG, 4096
+// draws) on the solve of the cold MALA kernel: one draw a warp,
+// darcy_value_and_grad_warp<false> on WarpSliceLevel (both solves from
+// zero, no prior folded), every sum in the order of the one-draw-a-CTA
+// kernel's threads, so that Phi and the gradient have the bits of
+// darcy_misfit_grad_kernel<false> (256 threads, a CTA barrier on every
+// stencil and block_sum). The KL basis is staged once a CTA; each warp's
+// slice holds its draw's u, the field a, the forward solution and the
+// solve's p, th, tv. Each lane writes its coordinates l and l + 32 of the
+// gradient to its draw's column.
+
+// The design (scripts/measure_misfit_slice_design.py times the
+// alternatives): kWarps draws a CTA, one a warp; the launch bound's warps
+// an SM (kSmWarps). Measured on the H100 at 4096 draws (PERF.md): W = 16
+// at 109 registers 0.21 ms a call; the gradient's rows handed through
+// shared memory and written W consecutive columns a row after a CTA
+// barrier, as fast (0.2110 / 0.2106); W = 8 0.275; a 64- or 80-register
+// bound spills (0.231, 0.293); the basis through L2 0.258. W = 32 does not
+// fit: 266 KB of shared memory.
+struct MisfitGradWarpDesign { static constexpr int kWarps = 16, kSmWarps = 16; };
+constexpr int kMisfitGradWarpMinCtas =
+    MisfitGradWarpDesign::kSmWarps >= 2 * MisfitGradWarpDesign::kWarps
+        ? MisfitGradWarpDesign::kSmWarps / MisfitGradWarpDesign::kWarps
+        : 1;
+// a warp's floats: u, then slices: the field a, the forward solution, p,
+// th, tv
+constexpr int kMisfitGradWarpFloats = kMalaD + 5 * WarpSliceLevel::kStride;
+
+// What the kernel takes: U (K, B) in; Phi (B,), the gradient (K, B) out.
+struct GradBatch {
+  IpxMisfitSpec s;
+  const float* U;
+  int B;
+  float* phi;
+  float* grad;
+};
+
+// Dynamic shared memory of a launch: the staged basis, a slice a warp.
+constexpr size_t kMisfitGradWarpSmem =
+    WarpSliceLevel::staged_bytes() + sizeof(float) * kMisfitGradWarpFloats * MisfitGradWarpDesign::kWarps;
+static_assert(kMisfitGradWarpSmem <= 232448, "the design's CTA exceeds the card's shared memory");
+
+// Whether darcy_misfit_grad_warp_kernel takes this spec (ipx_darcy_misfit_grad
+// sends it there when no aux0 is given): WarpSliceLevel's, i.e. 16 x 16, K
+// = 64, Jacobi, CG (warp_slice_spec), the cold MALA kernel's. Mirrored by
+// ip_mcmc_tpu_torch/ops/fused_mala.py misfit_grad_warp_takes.
+inline bool misfit_grad_warp_takes(const IpxMisfitSpec& s) { return warp_slice_spec(s); }
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_mala.py misfit_grad_warp_geometry:
+// kWarps draws a CTA, the spare warps of a ragged last CTA solve nothing;
+// what misfit_grad_warp_takes refuses, cudaErrorNotSupported.
+inline int misfit_grad_warp_geometry(const IpxMisfitSpec& s, int B, MalaWarpGeometry* geo) {
+  if (!misfit_grad_warp_takes(s)) return cudaErrorNotSupported;
+  if (B < 0) return cudaErrorInvalidValue;
+  geo->warps = MisfitGradWarpDesign::kWarps;
+  geo->ctas = (B + geo->warps - 1) / geo->warps;
+  geo->smem = kMisfitGradWarpSmem;
+  return cudaSuccess;
+}
+
+__global__ void __launch_bounds__(32 * MisfitGradWarpDesign::kWarps, kMisfitGradWarpMinCtas)
+    darcy_misfit_grad_warp_kernel(const __grid_constant__ GradBatch a) {
+  constexpr int kStride = WarpSliceLevel::kStride;
+  extern __shared__ float4 misfit_grad_warp_smem_buf[];
+  float* staged = reinterpret_cast<float*>(misfit_grad_warp_smem_buf);
+  const float* basis = WarpSliceLevel::stage(a.s, staged);
+  float* slices = staged + WarpSliceLevel::staged_bytes() / sizeof(float);
+  // the CTA's draws' coefficients, W consecutive columns of U a row
+  const int W = blockDim.x >> 5, b0 = blockIdx.x * W, B = a.B;
+  for (int e = threadIdx.x; e < kMalaD * W; e += blockDim.x) {
+    const int k = e / W, j = e % W;
+    if (b0 + j < B) slices[j * kMisfitGradWarpFloats + k] = a.U[static_cast<size_t>(k) * B + b0 + j];
+  }
+  __syncthreads();  // the staged basis and every warp's u
+  const int l = threadIdx.x & 31, b = b0 + (threadIdx.x >> 5);
+  float* u = slices + (threadIdx.x >> 5) * kMisfitGradWarpFloats;
+  if (b < B) {  // a spare warp solves nothing
+    float* slice = u + kMalaD;  // af, xf, p, th, tv
+    WarpSliceLevel lv{&a.s, basis, {slice + 2 * kStride, slice + 3 * kStride, slice + 4 * kStride}};
+    const float zeros[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float g[2];
+    const float v = darcy_value_and_grad_warp<false>(lv, u, slice, slice + kStride, zeros, zeros, g);
+    if (l == 0) a.phi[b] = v;
+    a.grad[static_cast<size_t>(l) * B + b] = g[0];
+    a.grad[static_cast<size_t>(l + 32) * B + b] = g[1];
+  }
+}
+
+// Launches darcy_misfit_grad_warp_kernel on the batch: the status of the
+// geometry or of the launch.
+inline int launch_misfit_grad_warp(const GradBatch& a, void* stream) {
+  MalaWarpGeometry geo;
+  const int status = misfit_grad_warp_geometry(a.s, a.B, &geo);
+  if (status != cudaSuccess) return status;
+  if (a.B == 0) return cudaSuccess;
+  const int smem = static_cast<int>(geo.smem);
+  cudaFuncSetAttribute(darcy_misfit_grad_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  darcy_misfit_grad_warp_kernel<<<geo.ctas, 32 * geo.warps, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace ipx
 
 extern "C" {
 
-// aux0 == null: both solves from zero (darcy_misfit_grad_kernel); else from
-// aux0, and aux receives the solutions (darcy_misfit_grad_warm_kernel).
+// aux0 == null: both solves from zero, on darcy_misfit_grad_warp_kernel for
+// the cold MALA kernel's spec (misfit_grad_warp_takes), else on
+// darcy_misfit_grad_kernel<false>; aux0 given: from aux0, and aux receives
+// the solutions (darcy_misfit_grad_warm_kernel).
 int ipx_darcy_misfit_grad(const IpxMisfitSpec* s, const float* U, const float* aux0, int B,
                           float* phi, float* grad, float* aux, void* stream) {
+  if (aux0 == nullptr && ipx::misfit_grad_warp_takes(*s))
+    return ipx::launch_misfit_grad_warp({*s, U, B, phi, grad}, stream);
   const int cells = s->n * s->n;
   const int threads = ipx::round_up32(cells);
   if (threads > 1024 || s->K <= 0 || s->modes < 0 || B < 0 || s->solver != kSolverCg)
@@ -341,6 +453,21 @@ int ipx_mala_warp_geometry(const IpxMisfitSpec* pot, const IpxChainArgs* chain, 
                            int* out) {
   ipx::MalaWarpGeometry geo{0, 0, 0};
   const int status = ipx::mala_warp_geometry(*pot, *chain, warm != 0, &geo);
+  out[0] = geo.warps;
+  out[1] = geo.ctas;
+  out[2] = static_cast<int>(geo.smem);
+  return status;
+}
+
+// The standalone cold gradient misfit's launch geometry
+// (darcy_misfit_grad_warp_kernel) for this spec and B draws: out = {draws a
+// CTA, CTAs, dynamic shared-memory bytes}; the status the launch would
+// return for them, cudaErrorNotSupported for a spec that goes to
+// darcy_misfit_grad_kernel (the wrapper's mirror is checked against this on
+// the card).
+int ipx_darcy_misfit_grad_warp_geometry(const IpxMisfitSpec* s, int B, int* out) {
+  ipx::MalaWarpGeometry geo{0, 0, 0};
+  const int status = ipx::misfit_grad_warp_geometry(*s, B, &geo);
   out[0] = geo.warps;
   out[1] = geo.ctas;
   out[2] = static_cast<int>(geo.smem);

@@ -31,8 +31,13 @@ or ``darcy_misfit_cluster32_kernel`` / ``darcy_misfit_warm_cluster32_kernel``
 (32×32) instead, G draws a thread-block cluster on the samplers' solve; a
 cold misfit on the 16×16 DA kernel's exact level
 (``fused_da_pcn.misfit_warp_takes``: 16×16, K 64, dst_trunc, CG) to
-``darcy_misfit_warp_kernel``, a draw a warp on that kernel's solve. The
-launch counts name the kernel (``kernel_label``, ``warm_kernel_label``).
+``darcy_misfit_warp_kernel``, a draw a warp on that kernel's solve; the
+cold 16×16 Jacobi CG misfit of the ESS, pCN, FES and MALA kernels
+(``fused_da_pcn.misfit_slice_takes``, ``fused_mala.misfit_grad_warp_takes``:
+16×16, K 64, Jacobi, CG) to ``darcy_misfit_slice_kernel`` and, for its
+value and gradient, ``darcy_misfit_grad_warp_kernel``, a draw a warp on
+their samplers' solve. The launch counts name the kernel (``kernel_label``,
+``grad_kernel_label``, ``warm_kernel_label``).
 For CPU tensors they run the plain versions. Those use the readable 2-D (n, n, B) layout;
 the JAX flat layout with wrap masks, Kronecker factors and one-hot
 observation matmuls exists only because Mosaic lacks in-kernel reshapes
@@ -49,7 +54,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ip_mcmc_tpu_torch.models import kl
-from ip_mcmc_tpu_torch.ops import _build, _cluster, fused_da_pcn
+from ip_mcmc_tpu_torch.ops import _build, _cluster, fused_da_pcn, fused_mala
 
 
 def default_observation_indices(n: int, n_obs_per_dim: int = 4):
@@ -215,10 +220,14 @@ class DarcyMisfit(nn.Module):
     def kernel_label(self) -> str:
         """The launch count's name of the kernel that ``ipx_darcy_misfit``
         sends this misfit to: a draw a warp on the 16×16 DA kernel's exact
-        level (``fused_da_pcn.misfit_warp_takes``), G draws a cluster on a
+        level (``fused_da_pcn.misfit_warp_takes``), a draw a warp on the
+        16×16 Jacobi solve of the ESS, cold pCN and FES kernels
+        (``fused_da_pcn.misfit_slice_takes``), G draws a cluster on a
         cluster sampler's level, or one draw a CTA."""
         if fused_da_pcn.misfit_warp_takes(**self.spec_fields):
             return f"darcy_misfit_warp_kernel[n={self.n}]"
+        if fused_da_pcn.misfit_slice_takes(**self.spec_fields):
+            return f"darcy_misfit_slice_kernel[n={self.n}]"
         if self.on_cluster:
             stem = "cluster32" if self.n == _cluster.N32 else "cluster"
             return f"darcy_misfit_{stem}_kernel[n={self.n}]"
@@ -273,8 +282,18 @@ class DarcyMisfit(nn.Module):
         _build.launch_counts[self.kernel_label] += 1
         return phi
 
+    @property
+    def grad_kernel_label(self) -> str:
+        """The launch count's name of the kernel that ``ipx_darcy_misfit_grad``
+        sends this misfit's cold value and gradient to: a draw a warp on the
+        cold MALA kernel's solve (``fused_mala.misfit_grad_warp_takes``), or
+        one draw a CTA."""
+        if fused_mala.misfit_grad_warp_takes(**self.spec_fields):
+            return f"{fused_mala.GRAD_WARP_KERNEL}[n={self.n}]"
+        return f"darcy_misfit_grad_kernel[n={self.n}]"
+
     def _grad_kernel(self, U, aux0):
-        """``darcy_misfit_grad_kernel`` (``aux0`` None) or
+        """``grad_kernel_label``'s kernel (``aux0`` None) or
         ``darcy_misfit_grad_warm_kernel``: (Φ, ∇Φ, aux or None)."""
         self.check_input(U)
         U = U.contiguous()
@@ -293,8 +312,7 @@ class DarcyMisfit(nn.Module):
             grad.data_ptr(), aux.data_ptr() if warm else None,
             torch.cuda.current_stream(U.device).cuda_stream,
         )
-        name = ("darcy_misfit_grad_warm_kernel" if warm
-                else f"darcy_misfit_grad_kernel[n={self.n}]")
+        name = "darcy_misfit_grad_warm_kernel" if warm else self.grad_kernel_label
         _build.check(status, name)
         _build.launch_counts[name] += 1
         return phi, grad, aux

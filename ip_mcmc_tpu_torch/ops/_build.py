@@ -242,6 +242,8 @@ def library():
         lib.bind("ipx_darcy_misfit_cluster_geometry", [spec, i, p])
         # spec, B, out (3,): the 16x16 warp misfit kernel's geometry
         lib.bind("ipx_darcy_misfit_warp_geometry", [spec, i, p])
+        # spec, B, out (3,): the 16x16 Jacobi slice misfit kernel's geometry
+        lib.bind("ipx_darcy_misfit_slice_geometry", [spec, i, p])
         # exact, surrogate, chain, Φ0 (n,), Φ*0 (n,), β, √(1−β²), k,
         # inner acceptance (n,), stream
         lib.bind("ipx_fused_da_pcn", [spec, spec, chain, p, p, f, f, i, p, p])
@@ -261,6 +263,8 @@ def library():
         # spec, U (K, B), aux0 (2n², B) or null (cold), B, Φ (B,), ∇Φ (K, B),
         # aux (2n², B) or null, stream
         lib.bind("ipx_darcy_misfit_grad", [spec, p, p, i, p, p, p, p])
+        # spec, B, out (3,): the cold warp gradient misfit kernel's geometry
+        lib.bind("ipx_darcy_misfit_grad_warp_geometry", [spec, i, p])
         # spec, chain, Φ0 (n,), ∇Φ0 (d, n), aux0 (2n², n) or null (cold), ε,
         # stream
         lib.bind("ipx_fused_mala", [spec, chain, p, p, p, f, p])

@@ -35,7 +35,10 @@ outer correction 4k+2.
 ``misfit_warp_takes`` and ``misfit_warp_geometry`` mirror the rule and the
 launch geometry of ``darcy_misfit_warp_kernel``, which evaluates the 16×16
 exact misfit at the start positions a draw a warp on this module's exact
-level (``models.darcy.DarcyMisfit`` launches it).
+level (``models.darcy.DarcyMisfit`` launches it); ``misfit_slice_takes``
+and ``misfit_slice_geometry`` those of ``darcy_misfit_slice_kernel``, the
+16×16 Jacobi misfit a draw a warp on the solve of the ESS, cold pCN and
+FES kernels.
 """
 
 from __future__ import annotations
@@ -232,6 +235,48 @@ def misfit_warp_geometry(B, *, n=WARP_EXACT_N, K=WARP_D, precond="dst_trunc", mo
     if B < 0:
         raise ValueError(f"B {B}")
     return MISFIT_WARP_DRAWS, -(-B // MISFIT_WARP_DRAWS), _misfit_warp_smem(modes)
+
+
+# The standalone 16×16 Jacobi misfit ``darcy_misfit_slice_kernel``
+# (``MisfitSliceDesign`` in ``csrc/fused_da_pcn.cu``): draws (warps) a CTA.
+# It solves on ``WarpSliceLevel`` (``csrc/darcy_misfit.cuh``), which pads
+# the cells by 4 after every 32 (a slice of SLICE_FLOATS): the basis staged
+# once a CTA (K rows), and a warp's u, then p, th, tv.
+MISFIT_SLICE_DRAWS = 32
+SLICE_FLOATS = WARP_EXACT_N ** 2 + 4 * WARP_EXACT_N ** 2 // 32
+SLICE_BASIS_BYTES = 4 * WARP_D * SLICE_FLOATS
+_MISFIT_SLICE_WARP_BYTES = 4 * (WARP_D + 3 * SLICE_FLOATS)
+
+
+def misfit_slice_takes(*, n, K, precond, modes, solver):
+    """Whether ``ipx_darcy_misfit`` sends a misfit of these fields to
+    ``darcy_misfit_slice_kernel``, as ``misfit_slice_takes`` in
+    ``csrc/fused_da_pcn.cu`` decides: ``WarpSliceLevel``'s misfits
+    (``warp_slice_spec`` in ``csrc/darcy_misfit.cuh``: a WARP_EXACT_N grid,
+    K = WARP_D, Jacobi with no modes, CG), the solve of the ESS, cold pCN,
+    FES and cold MALA kernels. Every other misfit goes to the other
+    kernels (``misfit_warp_takes``, the cluster level, or one draw a CTA on
+    the layout of its grid)."""
+    return (n == WARP_EXACT_N and K == WARP_D and precond == "jacobi" and modes == 0
+            and solver == "cg")
+
+
+def misfit_slice_geometry(B, *, n=WARP_EXACT_N, K=WARP_D, precond="jacobi", modes=0,
+                          solver="cg"):
+    """(draws a CTA, CTAs, dynamic shared-memory bytes) of a launch of
+    ``darcy_misfit_slice_kernel`` on B draws, as ``misfit_slice_geometry``
+    in ``csrc/fused_da_pcn.cu`` computes it: a draw a warp, the design's
+    draws a CTA, the spare warps of a ragged last CTA leave after the
+    staging. Raises ``ValueError`` for a misfit that ``misfit_slice_takes``
+    leaves to the other kernels, or B < 0."""
+    if not misfit_slice_takes(n=n, K=K, precond=precond, modes=modes, solver=solver):
+        raise ValueError(f"the slice misfit kernel takes a {WARP_EXACT_N}x{WARP_EXACT_N} "
+                         f"Jacobi CG misfit with K = {WARP_D}; got {n}x{n} {precond} "
+                         f"({modes} modes) {solver}, K {K}")
+    if B < 0:
+        raise ValueError(f"B {B}")
+    return (MISFIT_SLICE_DRAWS, -(-B // MISFIT_SLICE_DRAWS),
+            SLICE_BASIS_BYTES + MISFIT_SLICE_DRAWS * _MISFIT_SLICE_WARP_BYTES)
 
 
 # ``DaBurgersWarpDesign`` in ``csrc/fused_da_pcn.cu``: chains (warps) a CTA

@@ -30,6 +30,11 @@ a 16×16 Jacobi CG ``DarcyMisfit``, the warm one on a 16×16 dense-``dst`` CG
 plain scaffold ``_scaffold.run_plain``, which take every misfit; the cold
 one takes any differentiable features-first callable (a ``DarcyMisfit``
 differentiates by its adjoint). Tags: normals 0 (keys 0, 1), MH uniform 2.
+
+``misfit_grad_warp_takes`` and ``misfit_grad_warp_geometry`` mirror the
+rule and the launch geometry of ``darcy_misfit_grad_warp_kernel``, which
+evaluates Φ and ∇Φ at the cold kernel's start positions a draw a warp on
+its solve (``models.darcy.DarcyMisfit.value_and_grad`` launches it).
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import ctypes
 
 import torch
 
-from ip_mcmc_tpu_torch.ops import _build, _scaffold
+from ip_mcmc_tpu_torch.ops import _build, _scaffold, fused_da_pcn
 
 # --- the plain versions -----------------------------------------------------
 
@@ -209,6 +214,45 @@ def warp_geometry(n_chains, block_chains, *, warm=False, n=WARP_N, d=WARP_D,
         raise ValueError(f"{smem} bytes of shared memory a CTA: the card gives "
                          f"{MAX_SMEM_BYTES}")
     return -(-n_chains // w), w, smem
+
+
+# The standalone cold gradient misfit ``darcy_misfit_grad_warp_kernel``
+# (``MisfitGradWarpDesign`` in ``csrc/fused_mala.cu``): draws (warps) a CTA;
+# after the staged basis, a warp's u (d floats) and the slices of the field
+# a, the forward solution and the solve (p, th, tv).
+GRAD_WARP_DRAWS = 16
+GRAD_WARP_KERNEL = "darcy_misfit_grad_warp_kernel"
+_GRAD_WARP_BYTES = 4 * (WARP_D + 5 * SLICE_FLOATS)
+
+
+def misfit_grad_warp_takes(*, n, K, precond, modes, solver):
+    """Whether ``ipx_darcy_misfit_grad`` sends a cold misfit of these fields
+    (no aux0) to ``darcy_misfit_grad_warp_kernel``, as
+    ``misfit_grad_warp_takes`` in ``csrc/fused_mala.cu`` decides: the rule
+    of ``fused_da_pcn.misfit_slice_takes`` (``WarpSliceLevel``'s misfits:
+    16×16, K = 64, Jacobi, CG; the cold MALA kernel's). Every other gradient
+    misfit, and every warm one, goes to the one-draw-a-CTA kernels
+    (``darcy_misfit_grad_kernel``, ``darcy_misfit_grad_warm_kernel``)."""
+    return fused_da_pcn.misfit_slice_takes(n=n, K=K, precond=precond, modes=modes,
+                                           solver=solver)
+
+
+def misfit_grad_warp_geometry(B, *, n=WARP_N, K=WARP_D, precond="jacobi", modes=0,
+                              solver="cg"):
+    """(draws a CTA, CTAs, dynamic shared-memory bytes) of a launch of
+    ``darcy_misfit_grad_warp_kernel`` on B draws, as
+    ``misfit_grad_warp_geometry`` in ``csrc/fused_mala.cu`` computes it: a
+    draw a warp, the design's draws a CTA, the spare warps of a ragged
+    last CTA solve nothing. Raises ``ValueError`` for a misfit that
+    ``misfit_grad_warp_takes`` leaves to the other kernels, or B < 0."""
+    if not misfit_grad_warp_takes(n=n, K=K, precond=precond, modes=modes, solver=solver):
+        raise ValueError(f"the warp gradient misfit kernel takes a {WARP_N}x{WARP_N} Jacobi "
+                         f"CG misfit with K = {WARP_D}; got {n}x{n} {precond} ({modes} modes) "
+                         f"{solver}, K {K}")
+    if B < 0:
+        raise ValueError(f"B {B}")
+    return (GRAD_WARP_DRAWS, -(-B // GRAD_WARP_DRAWS),
+            BASIS_BYTES + GRAD_WARP_DRAWS * _GRAD_WARP_BYTES)
 
 
 def _launch(potential_fn, positions, prior_mean, prior_scale, step_size, seed,

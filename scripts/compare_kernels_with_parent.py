@@ -47,8 +47,11 @@ with the parent's over this tree's, with the card's name and power limit.
 Then the registers and spill bytes that ptxas reported for each kernel of
 both trees' builds (``_build/nvcc.log``) are set side by side. Exits
 non-zero on any difference beyond these, in the outputs or in ptxas'
-report. ``--rows`` runs only the named sampler rows (``misfits`` names the
-misfit kernels' rows), to compare two designs of a few kernels in turns.
+report. ``--rows`` runs only the named rows (``misfits`` names all the
+misfit kernels' rows; ``misfit_jacobi48`` and ``misfit_grad`` are the 16x16
+Jacobi / 48 CG value and value-and-gradient misfits, which a tree may run a
+draw a CTA or a draw a warp and which must agree bit for bit either way),
+to compare two designs of a few kernels in turns.
 
 ``--cli`` runs CLI configs in place of the kernel rows, in the same turns:
 each through ``runner.run_problem`` as ``python -m ip_mcmc_tpu_torch.run
@@ -56,7 +59,8 @@ each through ``runner.run_problem`` as ``python -m ip_mcmc_tpu_torch.run
 ``configs.darcy_da_richardson(variant)``, which has no CLI name;
 ``gauss2d_rwm:fused`` runs the runner's fused RWM branch with the config's
 ``phi_batched`` set, and ``lingauss_pcn:fused`` the K16 burn-in and K15
-sampling run, each as that tree's ``chip_smoke.py`` drives it). Prints
+sampling run, each as that tree's ``chip_smoke.py`` drives it; any other
+``<name>:fused`` is the CLI's ``--fused``, e.g. ``darcy_pcn_4096:fused``). Prints
 each run's ``run_s`` (and ``burn_s``, the burn-in of ``lingauss_pcn:fused``)
 and statistics, whether the two trees' statistics
 (acceptance rates, ``min_ess``, ``max_rhat``, the posterior mean, the
@@ -102,7 +106,7 @@ def old_vs_new(parent: dict, new: dict, rows) -> None:
 
     for row in OLD_VS_NEW:
         if row.startswith("misfit"):
-            if rows is None or "misfits" in rows:
+            if rows is None or "misfits" in rows or row in rows:
                 misfit_old_vs_new(parent, new, row)
             continue
         if rows is not None and row not in rows:
@@ -194,28 +198,37 @@ def worker(out_path: str, rows) -> int:
                                      precond_modes=128).cuda()
 
     outputs, times = {}, {}
-    if rows is None or "misfits" in rows:
-        for name, pot in (("misfit_exact", exact), ("misfit_surrogate", surr),
-                          ("misfit_jacobi48", jacobi)):
+
+    def misfit_row(name):  # "misfits" runs every misfit row
+        return rows is None or "misfits" in rows or name in rows
+
+    for name, pot in (("misfit_exact", exact), ("misfit_surrogate", surr),
+                      ("misfit_jacobi48", jacobi)):
+        if misfit_row(name):
             outputs[f"{name}_phi"] = pot(U)
             times[name] = time_ms(lambda: pot(U), 20)
+    if misfit_row("misfit_warm"):
         zeros = torch.zeros(aux_dim, n, device="cuda")
         outputs["misfit_warm_phi"], outputs["misfit_warm_x"] = warm(U, zeros)
         times["misfit_warm"] = time_ms(lambda: warm(U, zeros), 20)
+    if misfit_row("misfit_grad"):
         outputs["misfit_grad_phi"], outputs["misfit_grad_g"] = jacobi.value_and_grad(U)
-        times["misfit_grad"] = time_ms(lambda: jacobi.value_and_grad(U), 5)
+        times["misfit_grad"] = time_ms(lambda: jacobi.value_and_grad(U), 20)
+    if misfit_row("misfit_grad_warm"):
         pag_zeros = torch.zeros(pag_dim, n, device="cuda")
         for i, t in enumerate(pag(U, pag_zeros)):
             outputs[f"misfit_grad_warm_{i}"] = t
         times["misfit_grad_warm"] = time_ms(lambda: pag(U, pag_zeros), 5)
-        for name, pot, V in (("misfit64_exact", da64.batched_potential_fn, U144),
-                             ("misfit64_surrogate", da64.batched_surrogate_fn, U144),
-                             ("misfit64_cold", pcn64.batched_potential_fn, U144),
-                             ("misfit32_cold", pcn32.batched_potential_fn, U64),
-                             ("misfit32_dst", dst32, U64w)):
+    for name, pot, V in (("misfit64_exact", da64.batched_potential_fn, U144),
+                         ("misfit64_surrogate", da64.batched_surrogate_fn, U144),
+                         ("misfit64_cold", pcn64.batched_potential_fn, U144),
+                         ("misfit32_cold", pcn32.batched_potential_fn, U64),
+                         ("misfit32_dst", dst32, U64w)):
+        if misfit_row(name):
             outputs[f"{name}_phi"] = pot(V)
             times[name] = time_ms(lambda: pot(V), 5)
-        for name, p, V in (("misfit64_warm", pcn64, U144w), ("misfit32_warm", pcn32, U64w)):
+    for name, p, V in (("misfit64_warm", pcn64, U144w), ("misfit32_warm", pcn32, U64w)):
+        if misfit_row(name):
             w, dim = p.batched_warm_potential
             z = torch.zeros(dim, V.shape[1], device="cuda")
             outputs[f"{name}_phi"], outputs[f"{name}_x"] = w(V, z)
@@ -347,7 +360,9 @@ def cli_worker(names) -> int:
             if name.startswith("darcy_da_richardson:"):
                 p = configs.darcy_da_richardson(name.split(":", 1)[1], "cuda")
             else:
-                p = configs.build(name, "cuda")
+                p = configs.build(name.split(":")[0], "cuda")
+            if name.endswith(":fused"):  # the CLI's --fused
+                p.kernel_params = {**p.kernel_params, "fused": True}
             out[name] = runner.run_problem(p, "cuda")
         torch.cuda.synchronize()
     print(json.dumps(out))

@@ -241,8 +241,9 @@ def test_misfit_cluster_geometry_refuses_a_negative_width():
 def test_misfit_kernel_labels():
     """The launch counts name the cluster kernels for the two 64² configs'
     misfits and darcy32_pcn_warm's warm misfit, the warp kernel for
-    darcy_da_fused's exact misfit, and the kernels of their layout for
-    every other shipped one."""
+    darcy_da_fused's exact misfit, the slice kernel for darcy_pcn_warm's
+    cold 16² Jacobi misfit, and the kernels of their layout for every other
+    shipped one."""
     names = {}
     for c in ("darcy64_da_fused", "darcy64_pcn_warm", "darcy32_pcn_warm", "darcy_pcn_warm",
               "darcy_da_fused"):
@@ -257,7 +258,7 @@ def test_misfit_kernel_labels():
         "darcy64_pcn_warm": ["darcy_misfit_cluster_kernel[n=64]",
                              "darcy_misfit_warm_cluster_kernel"],
         "darcy32_pcn_warm": ["darcy_misfit_kernel[n=32]", "darcy_misfit_warm_cluster32_kernel"],
-        "darcy_pcn_warm": ["darcy_misfit_kernel[n=16]", "darcy_misfit_warm_kernel"],
+        "darcy_pcn_warm": ["darcy_misfit_slice_kernel[n=16]", "darcy_misfit_warm_kernel"],
         "darcy_da_fused": ["darcy_misfit_warp_kernel[n=16]", "darcy_misfit_kernel[n=8]"],
     }
 

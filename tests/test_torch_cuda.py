@@ -173,11 +173,13 @@ def _col_err(got, ref):
 
 
 def test_grad_misfit_kernel_matches_plain(mala_warm_problem):
-    """Φ and ∇Φ of the cold Jacobi-48 adjoint pair: f32 only, so only the
-    order of the sums differs."""
+    """Φ and ∇Φ of the cold Jacobi-48 adjoint pair (a draw a warp,
+    darcy_misfit_grad_warp_kernel): f32 only, so only the order of the sums
+    differs."""
     pot = mala_warm_problem.batched_potential_fn
     U = mala_warm_problem.prior.sample(torch.Generator().manual_seed(0), 512).T.contiguous()
-    name = f"darcy_misfit_grad_kernel[n={pot.n}]"
+    name = pot.grad_kernel_label
+    assert name == "darcy_misfit_grad_warp_kernel[n=16]"
     before = _build.launch_counts[name]
     phi, grad = pot.value_and_grad(U)
     assert _build.launch_counts[name] == before + 1
@@ -1382,11 +1384,13 @@ def test_misfit_warp_geometry_matches_the_kernel(problem):
 
 
 def test_layout_misfits_take_the_specs_the_rules_leave():
-    """The specs the warp and the 32² cluster rules leave still launch the
-    one-draw-a-CTA kernels of their layout: the 16² Jacobi / 48 CG misfit
-    of ESS, cold pCN and FES; 16² dst_trunc-160 (more modes than the warp
-    kernel stages) and 16² Richardson; the 8² surrogates (CG and
-    Richardson); darcy32_pcn_warm's cold Jacobi misfit; darcy64_da_fused's
+    """The specs the warp, slice and 32² cluster rules leave still launch
+    the one-draw-a-CTA kernels of their layout: a 16² Jacobi misfit with K
+    36 (the 16² Jacobi / 48 CG misfit of ESS, cold pCN and FES, K 64, goes
+    to the slice kernel a draw a warp, held here under the same bound); 16²
+    dst_trunc-160 (more modes than the warp kernel stages) and 16²
+    Richardson; the 8² surrogates (CG and Richardson); darcy32_pcn_warm's
+    cold Jacobi misfit; darcy64_da_fused's
     32² surrogate (K 144); a 32² warm Jacobi / 16 CG misfit, from x0 = 0
     and from the previous solution. Each meets its twin under its bound
     (bf16 preconditioners: chip_smoke.py's largest relative error, 5e-3;
@@ -1404,8 +1408,12 @@ def test_layout_misfits_take_the_specs_the_rules_leave():
                                       precond_modes=160).cuda()
     rich16 = darcy_misfit_from_arrays(aux16, p.data, 0.002, cg_iters=3, precond="dst_trunc",
                                       precond_modes=128, solver="richardson", omega=0.9).cuda()
-    cases = ((_build_on_card("darcy_ess_fused").batched_potential_fn,
-              "darcy_misfit_kernel[n=16]", 1e-4),
+    ess = _build_on_card("darcy_ess_fused")
+    k36 = darcy_misfit_from_arrays(darcy.darcy_aux(n_grid=16, n_modes_per_dim=6, alpha=2.0,
+                                                   field_scale=10.0),
+                                   ess.data, 0.002).cuda()
+    cases = ((ess.batched_potential_fn, "darcy_misfit_slice_kernel[n=16]", 1e-4),
+             (k36, "darcy_misfit_kernel[n=16]", 1e-4),
              (dst160, "darcy_misfit_kernel[n=16]", 5e-3),
              (rich16, "darcy_misfit_kernel[n=16,richardson]", 5e-3),
              (p.batched_surrogate_fn, "darcy_misfit_kernel[n=8]", 5e-3),
@@ -1439,6 +1447,91 @@ def test_layout_misfits_take_the_specs_the_rules_leave():
         assert float(_col_err(x, ref_x).max()) <= 5e-3
         x0 = x
     assert _build.launch_counts[label] == before + 2
+
+
+# --- the standalone 16² Jacobi misfits a draw a warp --------------------------
+# (darcy_misfit_slice_kernel, darcy_misfit_grad_warp_kernel)
+
+
+def test_misfit_slice_kernel_matches_plain(warm_problem):
+    """The 16² Jacobi / 48 CG misfit (Φ0 of ESS, cold pCN and FES; here
+    darcy_pcn_warm's cold one) a draw a warp: f32 only, so only the order of
+    the sums differs from the plain twin."""
+    pot = warm_problem.batched_potential_fn
+    assert pot.kernel_label == "darcy_misfit_slice_kernel[n=16]"
+    U = warm_problem.prior.sample(torch.Generator().manual_seed(38), 512).T.contiguous()
+    before = _build.launch_counts[pot.kernel_label]
+    rel = _rel(pot(U), pot._forward_plain(U))
+    assert _build.launch_counts[pot.kernel_label] == before + 1
+    assert float((rel <= 1e-5).double().mean()) >= 0.99 and float(rel.max()) <= 1e-4
+
+
+def test_misfit_slice_kernels_on_a_ragged_width(warm_problem):
+    """13 draws: one CTA, its other warps spare, solving nothing. A draw's
+    warp needs no other, so Φ (and the gradient) equal the first 13 of a
+    16-draw launch bit for bit."""
+    pot = warm_problem.batched_potential_fn
+    U = warm_problem.prior.sample(torch.Generator().manual_seed(39), 16).T.contiguous()
+    U13 = U[:, :13].contiguous()
+    assert torch.equal(pot(U13), pot(U)[:13])
+    (phi, g), (phi16, g16) = pot.value_and_grad(U13), pot.value_and_grad(U)
+    assert torch.equal(phi, phi16[:13]) and torch.equal(g, g16[:, :13])
+
+
+def test_misfit_slice_geometry_matches_the_kernel(warm_problem):
+    """ops/fused_da_pcn.py misfit_slice_geometry / misfit_slice_takes and
+    ops/fused_mala.py misfit_grad_warp_geometry / misfit_grad_warp_takes give
+    what the C functions compute: the geometry of the Jacobi spec they take,
+    cudaErrorNotSupported for the specs they leave."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    lib = _build.library()
+    p = _build_on_card("darcy_da_fused")
+    rich = configs.darcy_da_richardson("rich3_w0.9", "cuda")
+    k36 = darcy_misfit_from_arrays(darcy.darcy_aux(n_grid=16, n_modes_per_dim=6, alpha=2.0,
+                                                   field_scale=10.0),
+                                   warm_problem.data, 0.002).cuda()
+    pots = (warm_problem.batched_potential_fn, p.batched_potential_fn, p.batched_surrogate_fn,
+            rich.batched_potential_fn, rich.batched_surrogate_fn, k36, *_misfits32())
+    rules = ((lib.ipx_darcy_misfit_slice_geometry, da.misfit_slice_takes,
+              da.misfit_slice_geometry),
+             (lib.ipx_darcy_misfit_grad_warp_geometry, fused_mala.misfit_grad_warp_takes,
+              fused_mala.misfit_grad_warp_geometry))
+    for c_geometry, takes, geometry in rules:
+        taken = 0
+        for pot in pots:
+            for B in (4096, 13, 1, 0):
+                out = (ctypes.c_int * 3)()
+                status = c_geometry(ctypes.byref(pot.spec()), B, out)
+                if takes(**pot.spec_fields):
+                    assert status == 0 and tuple(out) == geometry(B, **pot.spec_fields)
+                    taken += 1
+                else:
+                    assert "not supported" in lib.ipx_error_string(status).decode()
+        assert taken == 4
+
+
+def test_grad_kernel_takes_a_spec_the_warp_rule_leaves(problem):
+    """A 16² dst_trunc-128 / 12 CG gradient (the DA exact level's spec, no
+    config) stays on darcy_misfit_grad_kernel, one draw a CTA, and meets
+    its plain twin under chip_smoke.py's bf16 bounds (BF16_TOL,
+    GRAD_BF16_TOL: the preconditioner's bf16 roundings flip)."""
+    pot = problem.batched_potential_fn
+    name = pot.grad_kernel_label
+    assert name == "darcy_misfit_grad_kernel[n=16]"
+    U = problem.prior.sample(torch.Generator().manual_seed(40), 512).T.contiguous()
+    before = _build.launch_counts[name]
+    phi, grad = pot.value_and_grad(U)
+    assert _build.launch_counts[name] == before + 1
+    phi_ref, grad_ref = pot._value_and_grad_plain(U)[:2]
+    rel, err = _rel(phi, phi_ref), _col_err(grad, grad_ref)
+    assert float(rel.median()) <= 2e-6 and float(rel.max()) <= 5e-3
+    assert float((rel <= 1e-5).double().mean()) >= 0.80
+    assert float(err.median()) <= 1e-4 and float(err.max()) <= 5e-2
+    assert float((err <= 1e-3).double().mean()) >= 0.90
 
 
 # --- elliptical slice sampling: one warp per chain (fused_ess_warp_kernel) -----

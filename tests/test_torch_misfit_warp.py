@@ -74,13 +74,15 @@ def _leaves(pot):
 
 @pytest.mark.parametrize("config", ["darcy_ess_fused", "darcy_pcn_4096", "darcy_fes_fused"])
 def test_rule_leaves_the_16_jacobi_misfits(config):
-    """The 16² Jacobi / 48 CG misfit (Φ0 of ESS, cold pCN and FES) stays on
-    darcy_misfit_kernel[n=16]: its samplers solve on WarpSliceLevel in
-    block_sum's order, which WarpLevel would not keep."""
+    """The 16² Jacobi / 48 CG misfit (Φ0 of ESS, cold pCN and FES) is not
+    this kernel's: WarpLevel would not keep block_sum's order. It goes to
+    darcy_misfit_slice_kernel[n=16], a draw a warp on WarpSliceLevel, the
+    solve its samplers run (tests/test_torch_misfit_slice.py)."""
     pot = configs.build(config, "cpu").batched_potential_fn
     assert (pot.n, pot.precond, pot.cg_iters) == (16, "jacobi", 48)
     _leaves(pot)
-    assert pot.kernel_label == "darcy_misfit_kernel[n=16]"
+    assert da.misfit_slice_takes(**pot.spec_fields)
+    assert pot.kernel_label == "darcy_misfit_slice_kernel[n=16]"
 
 
 @pytest.mark.parametrize("variant, label", [("cg3", "darcy_misfit_kernel[n=8]"),
