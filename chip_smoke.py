@@ -24,12 +24,15 @@ Gaussians), times both, then drives the ported paths at full width:
                              start positions on the same cluster level
     darcy64_da_fused         delayed acceptance on 64 x 64 cells with a
                              32 x 32 surrogate (K4, K5), G chains a
-                             thread-block cluster; the exact misfit at the
-                             start positions on the same cluster level
+                             thread-block cluster; the exact misfit and the
+                             surrogate at the start positions on the same
+                             cluster levels
     darcy_ess_fused          elliptical slice sampling  (K8), a chain a warp
     darcy_pcn_4096 --fused   cold pCN                   (K6), a chain a warp
     darcy_mala_fused         MALA, adjoint gradient     (K10), a chain a warp
-    darcy_mala_warm          warm-started MALA          (K11), a chain a warp
+    darcy_mala_warm          warm-started MALA          (K11), a chain a warp;
+                             the value and gradient at the start positions
+                             a draw a warp on the same solve
     darcy_fes_fused          functional ensemble sampler (K9), a chain a warp
     burgers_da3_pcn          three-level delayed acceptance (K12, K13), a
                              chain a warp
@@ -432,6 +435,9 @@ MISFIT16 = "darcy_misfit_warp_kernel[n=16]"
 # solve (WarpSliceLevel)
 MISFIT_SLICE = "darcy_misfit_slice_kernel[n=16]"
 GRAD_WARP = "darcy_misfit_grad_warp_kernel[n=16]"
+# the warm value and gradient of warm MALA at the start positions: a draw a
+# warp on its sampler's solve (WarpDstSliceLevel)
+GRAD_WARM_WARP = "darcy_misfit_grad_warm_warp_kernel[n=16]"
 # elliptical slice sampling: one warp per chain, Jacobi solves
 ESS = "fused_ess_warp_kernel"
 # the ensemble sampler and the three-level Burgers DA: one warp per chain
@@ -692,7 +698,7 @@ def compare_grad_misfit(results, pot, U, *, variant, paths, phi_tol, grad_tol,
     warm = aux0 is not None
     N = pot.n * pot.n
     if warm:
-        name = "darcy_misfit_grad_warm_kernel"
+        name = pot.grad_warm_kernel_label
         kern = lambda: pot(U, aux0)
         plain = lambda: pot._value_and_grad_plain(U, aux0[:N], aux0[N:])
         replaces = "ip_mcmc_tpu/models/darcy.py:783"
@@ -736,6 +742,18 @@ def compare_grad_misfit(results, pot, U, *, variant, paths, phi_tol, grad_tol,
     return got
 
 
+def mala_warm_jacobi(problem, cg_iters=48):
+    """A warm 16x16 Jacobi CG value-and-gradient pair on the MALA configs'
+    prior and data: a warm spec the warp rule leaves (no config), on
+    darcy_misfit_grad_kernel<true>."""
+    from ip_mcmc_tpu_torch.convert import darcy_mala_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    aux = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    return darcy_mala_warm_misfit_from_arrays(aux, problem.data, 0.002, cg_iters=cg_iters,
+                                              precond="jacobi")[0].cuda()
+
+
 def check_gradient_and_ensemble(problems, gen, results):
     """The two value-and-gradient misfit kernels, then K10, K11 and K9 at
     their configs' blocks, each plain and recorded."""
@@ -763,13 +781,23 @@ def check_gradient_and_ensemble(problems, gen, results):
                         "the warp rule leaves, one draw a CTA (no path)", paths=[],
                         phi_tol=BF16_TOL, grad_tol=GRAD_BF16_TOL)
     zeros = torch.zeros(aux_dim, N_CHAINS, device="cuda")
-    out = compare_grad_misfit(results, pag, U, aux0=zeros, variant="dst, 6 + 6 CG, aux0 = 0",
+    assert pag.grad_warm_kernel_label == GRAD_WARM_WARP, pag.grad_warm_kernel_label
+    what = f"dst, 6 + 6 CG, a draw a warp, {fused_mala.GRAD_WARM_WARP_DRAWS} a CTA"
+    out = compare_grad_misfit(results, pag, U, aux0=zeros, variant=f"{what}, aux0 = 0",
                               paths=["darcy_mala_warm"], phi_tol=BF16_COLD_START_TOL,
                               grad_tol=GRAD_BF16_TOL)
     compare_grad_misfit(results, pag, U2, aux0=out[2],
-                        variant="dst, 6 + 6 CG, aux0 = previous solutions",
+                        variant=f"{what}, aux0 = previous solutions",
                         paths=["darcy_mala_warm"], phi_tol=BF16_TOL,
                         grad_tol=GRAD_BF16_TOL)
+    # the one-draw-a-CTA warm kernel on a 16x16 warm spec the rule leaves (no
+    # config): Jacobi / 48 + 48 CG, from aux0 = 0 the cold pair's arithmetic
+    jacobi_warm = mala_warm_jacobi(warm_p)
+    assert jacobi_warm.grad_warm_kernel_label == "darcy_misfit_grad_warm_kernel"
+    compare_grad_misfit(results, jacobi_warm, U, aux0=zeros,
+                        variant="16x16 jacobi, 48 + 48 CG, aux0 = 0: a spec the warp rule "
+                        "leaves, one draw a CTA (no path)", paths=[], phi_tol=F32_TOL,
+                        grad_tol=GRAD_F32_TOL)
 
     pos = cold_p.init_positions(gen, N_CHAINS).cuda()
     d = pos.shape[1]
@@ -1284,6 +1312,9 @@ MISFIT64 = "darcy_misfit_cluster_kernel[n=64]"
 MISFIT64_WARM = "darcy_misfit_warm_cluster_kernel"
 MISFIT32 = "darcy_misfit_cluster32_kernel[n=32]"
 MISFIT32_WARM = "darcy_misfit_warm_cluster32_kernel"
+# darcy64_da_fused's 32x32 surrogate at its start positions, on the 64x64 DA
+# kernel's surrogate level
+MISFIT_SURR = "darcy_misfit_surr_cluster_kernel[n=32]"
 # ... these and the 16x16 warp misfit as ptxas names them, mangled and
 # demangled (each name is in no other kernel's)
 MISFIT_PTXAS = {MISFIT64: ("darcy_misfit_cluster_kernel",),
@@ -1291,19 +1322,21 @@ MISFIT_PTXAS = {MISFIT64: ("darcy_misfit_cluster_kernel",),
                 MISFIT32: ("darcy_misfit_cluster32_kernel",),
                 MISFIT32_WARM: ("darcy_misfit_warm_cluster32_kernel",),
                 MISFIT16: ("darcy_misfit_warp_kernel",),
-                MISFIT_SLICE: ("darcy_misfit_slice_kernel",)}
+                MISFIT_SLICE: ("darcy_misfit_slice_kernel",),
+                MISFIT_SURR: ("darcy_misfit_surr_cluster_kernel",)}
 
 
 def check_da64(problem, gen, results):
     """darcy64_da_fused at its width (1024 chains, blocks of 128, k = 48):
-    the exact (64 x 64, on the cluster level) and surrogate (32 x 32)
-    misfit kernels, then the DA kernel's 64 x 64 instantiation, plain and
-    recorded, against the plain loop."""
+    the exact (64 x 64) and surrogate (32 x 32) misfit kernels, each on the
+    DA kernel's cluster level, then the DA kernel's 64 x 64 instantiation,
+    plain and recorded, against the plain loop."""
     from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
 
     exact, surr = problem.batched_potential_fn, problem.batched_surrogate_fn
     n_chains, kp = problem.n_chains, problem.kernel_params
     U = problem.prior.sample(gen, n_chains).T.contiguous()
+    assert (exact.kernel_label, surr.kernel_label) == (MISFIT64, MISFIT_SURR)
     for pot, level in ((exact, "exact"), (surr, "surrogate")):
         compare_misfit(results, pot, U,
                        variant=(f"{level}: {pot.n}x{pot.n} dst_trunc-{pot.modes}, "
@@ -1413,11 +1446,13 @@ def check_cluster(problems):
 
 def check_misfit_cluster_geometry(problems):
     """The standalone cluster misfits' geometry: for the two 64x64 configs'
-    misfits, darcy32_pcn_warm's warm misfit and its cold twin the Python
-    mirror against the C function at their widths, a ragged 13, 1 and 0
-    draws; for specs the cluster levels leave (darcy64_da_fused's 32x32
-    surrogate, K 144; darcy32_pcn_warm's cold Jacobi misfit; a 64x64 Jacobi
-    misfit), C's cudaErrorNotSupported against the mirror's refusal."""
+    misfits (darcy64_da_fused's 32x32 surrogate, K 144, on the DA kernel's
+    surrogate level), darcy32_pcn_warm's warm misfit and its cold twin the
+    Python mirror against the C function at their widths, a ragged 13, 1
+    and 0 draws; for specs the cluster levels leave (darcy32_pcn_warm's cold
+    Jacobi misfit; a 64x64 Jacobi misfit; 32x32 surrogates with K 196,
+    Jacobi, Richardson or 144 modes), C's cudaErrorNotSupported against the
+    mirror's refusal."""
     import ctypes
 
     from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
@@ -1432,9 +1467,11 @@ def check_misfit_cluster_geometry(problems):
              (pcn_p.batched_warm_potential[0], pcn_p.n_chains),
              (pcn_p.batched_potential_fn, pcn_p.n_chains),
              (p32.batched_warm_potential[0], p32.n_chains),
-             (misfit32_cold(p32), p32.n_chains))
-    left = (da_p.batched_surrogate_fn, p32.batched_potential_fn,
-            darcy_misfit_from_arrays(aux, pcn_p.data, 0.002, cg_iters=30).cuda())
+             (misfit32_cold(p32), p32.n_chains),
+             (da_p.batched_surrogate_fn, da_p.n_chains))
+    left = (p32.batched_potential_fn,
+            darcy_misfit_from_arrays(aux, pcn_p.data, 0.002, cg_iters=30).cuda(),
+            *surrogates_left().values())
 
     def geometry(pot, B):
         out = (ctypes.c_int * 4)()
@@ -1457,9 +1494,30 @@ def check_misfit_cluster_geometry(problems):
             raise AssertionError(f"cluster misfit on {pot.n}x{pot.n} {pot.precond}: C status "
                                  f"{status}, Python takes {takes}")
     print(f"misfit cluster geometry: Python mirror equals the C function for {MISFIT64}, "
-          f"{MISFIT64_WARM}, {MISFIT32_WARM} and {MISFIT32} (shipped: {shipped[0]}, "
-          f"{shipped[1]}, {shipped[3]}); C and Python leave the same {len(left)} other specs "
-          f"to the layouts' kernels", flush=True)
+          f"{MISFIT64_WARM}, {MISFIT32_WARM}, {MISFIT32} and {MISFIT_SURR} (shipped: "
+          f"{shipped[0]}, {shipped[1]}, {shipped[3]}, {shipped[5]}); C and Python leave the same "
+          f"{len(left)} other specs to the layouts' kernels", flush=True)
+
+
+def surrogates_left():
+    """32x32 cold misfits on darcy64_da_fused's surrogate prior and data
+    that no cluster level takes: K 196, Jacobi / 16 CG, K17's Richardson,
+    144 modes ({name: misfit}, on the card)."""
+    from ip_mcmc_tpu_torch import configs
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    fx = np.load(configs.DARCY64_DA_FIXTURE)
+
+    def misfit(modes_per_dim=12, **kw):
+        aux = darcy.darcy_aux(n_grid=32, n_modes_per_dim=modes_per_dim, alpha=2.0,
+                              field_scale=10.0, obs_indices=fx["obs_coarse"])
+        kw = {"cg_iters": 3, "precond": "dst_trunc", "precond_modes": 128, **kw}
+        return darcy_misfit_from_arrays(aux, fx["y_surr"], fx["surr_scale"], **kw).cuda()
+
+    return {"K196": misfit(14), "jacobi": misfit(precond="jacobi", cg_iters=16),
+            "richardson": misfit(solver="richardson", omega=0.9),
+            "modes144": misfit(precond_modes=144)}
 
 
 def check_misfit_levels(problems, richardson):
@@ -1531,6 +1589,77 @@ def check_misfit_levels(problems, richardson):
         U = (0.9968 * U + 0.08 * p32.prior.sample(g, 16).T).contiguous()  # a pCN move
         x0 = x16
     check_slice_misfits(problems, left[:2] + taken + left[3:])
+    check_warm_surr_misfits(problems, left[:3] + taken)
+
+
+def check_warm_surr_misfits(problems, others):
+    """For darcy_misfit_grad_warm_warp_kernel (warm MALA's value and
+    gradient a draw a warp): the Python mirror of its rule and geometry
+    against the C function at 4096, a ragged 13, 1 and 0 draws; for
+    ``others`` and the 16x16 warm Jacobi and dst_trunc-128 pairs (specs the
+    rule leaves), C's cudaErrorNotSupported against the mirror's refusal.
+    Then a ragged width for it, from aux0 = 0 and from the previous aux, and
+    for darcy_misfit_surr_cluster_kernel (darcy64_da_fused's 32x32
+    surrogate, 8 draws a cluster): the outputs on 13 draws equal bit for bit
+    to the first 13 of the kernel's own 16-draw run."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.convert import darcy_mala_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+    from ip_mcmc_tpu_torch.ops import _build, fused_mala
+
+    lib = _build.library()
+    p = problems["darcy_mala_warm"]
+    pag, aux_dim = p.batched_warm_potential
+    aux16 = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    dst_trunc = darcy_mala_warm_misfit_from_arrays(aux16, p.data, 0.002, cg_iters=6,
+                                                   precond="dst_trunc")[0].cuda()
+    left = (*others, mala_warm_jacobi(p), dst_trunc, p.batched_potential_fn)
+
+    def c_call(pot, B):
+        out = (ctypes.c_int * 3)()
+        return (lib.ipx_darcy_misfit_grad_warm_warp_geometry(ctypes.byref(pot.spec()), B, out),
+                tuple(out))
+
+    for B in (N_CHAINS, 13, 1, 0):
+        status, out = c_call(pag, B)
+        want = fused_mala.misfit_grad_warm_warp_geometry(B, **pag.spec_fields)
+        if status != 0 or out != want:
+            raise AssertionError(f"{GRAD_WARM_WARP} geometry at {B} draws: C {out} (status "
+                                 f"{status}), Python {want}")
+    for pot in left:
+        status, _ = c_call(pot, 64)
+        if status != 801 or fused_mala.misfit_grad_warm_warp_takes(**pot.spec_fields):
+            raise AssertionError(f"{GRAD_WARM_WARP} on {pot.n}x{pot.n} {pot.precond} "
+                                 f"({pot.modes} modes) {pot.solver}, K {pot.K}: C status {status}")
+    print(f"{GRAD_WARM_WARP} geometry: Python mirror equals the C function (shipped: "
+          f"{fused_mala.misfit_grad_warm_warp_geometry(N_CHAINS)}); C and Python leave the same "
+          f"{len(left)} other specs to the other kernels", flush=True)
+
+    g = torch.Generator().manual_seed(35)
+    U = p.prior.sample(g, 16).T.contiguous()
+    aux0 = torch.zeros(aux_dim, 16, device="cuda")
+    for start in ("aux0 = 0", "aux0 = previous solutions"):
+        got, full = pag(U[:, :13].contiguous(), aux0[:, :13].contiguous()), pag(U, aux0)
+        torch.cuda.synchronize()
+        equal = torch.equal(got[0], full[0][:13]) and all(
+            torch.equal(a, b[:, :13]) for a, b in zip(got[1:], full[1:]))
+        print(f"{GRAD_WARM_WARP} ragged (13 draws, one CTA, 3 spare warps, {start}): (Phi, "
+              f"grad, aux) equal to the first 13 of 16 {equal}", flush=True)
+        if not equal:
+            raise AssertionError(f"{GRAD_WARM_WARP} on a ragged width disagrees")
+        U = (U + 0.012 * p.prior.sample(g, 16).T).contiguous()  # a MALA-sized move
+        aux0 = full[2]
+    da64 = problems["darcy64_da_fused"]
+    surr = da64.batched_surrogate_fn
+    U = da64.prior.sample(g, 16).T.contiguous()
+    got, full = surr(U[:, :13].contiguous()), surr(U)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, full[:13])
+    print(f"{MISFIT_SURR} ragged (13 draws, 8 a cluster, 3 spare CTAs): equal to the first 13 "
+          f"of 16 {equal}", flush=True)
+    if not equal:
+        raise AssertionError(f"{MISFIT_SURR} on a ragged width disagrees")
 
 
 def check_slice_misfits(problems, others):
@@ -1835,8 +1964,12 @@ MALA_PTXAS = {
     f"{stem}<{rec}>": (f"fused_mala_warp_kernelILb{int(rec == 'true')}ELi{pc}E",
                        f"fused_mala_warp_kernel<{rec}, {pc}>")
     for stem, pc in ((MALA_COLD, 0), (MALA_WARM, 2)) for rec in ("false", "true")}
-# ... and the cold gradient misfit a draw a warp
+# ... and the cold and warm gradient misfits a draw a warp, and the warm one
+# a draw a CTA (darcy_misfit_grad_kernel<true>)
 MALA_PTXAS[GRAD_WARP] = ("darcy_misfit_grad_warp_kernel",)
+MALA_PTXAS[GRAD_WARM_WARP] = ("darcy_misfit_grad_warm_warp_kernel",)
+MALA_PTXAS["darcy_misfit_grad_warm_kernel"] = ("darcy_misfit_grad_kernelILb1E",
+                                               "darcy_misfit_grad_kernel<true>")
 # ... of fused_pcn_warp_kernel<RECORD, PRECOND> (kPrecondJacobi 0,
 # kPrecondDstTrunc 1)
 PCN_PTXAS = {
@@ -2610,13 +2743,11 @@ PATHS = {
                             f"{PCN_WARM}<true>")),
     "darcy32_pcn_warm": ([], (MISFIT32_WARM, f"{PCN32}<false>", f"{PCN32}<true>")),
     "darcy64_pcn_warm": ([], (MISFIT64_WARM, f"{PCN64}<false>", f"{PCN64}<true>")),
-    "darcy64_da_fused": ([], (MISFIT64, "darcy_misfit_kernel[n=32]", f"{DA64}<false>",
-                              f"{DA64}<true>")),
+    "darcy64_da_fused": ([], (MISFIT64, MISFIT_SURR, f"{DA64}<false>", f"{DA64}<true>")),
     "darcy_ess_fused": ([], (MISFIT_SLICE, f"{ESS}<false>", f"{ESS}<true>")),
     "darcy_pcn_4096": (["--fused"], (MISFIT_SLICE, f"{PCN_COLD}<false>", f"{PCN_COLD}<true>")),
     "darcy_mala_fused": ([], (GRAD_WARP, f"{MALA_COLD}<false>", f"{MALA_COLD}<true>")),
-    "darcy_mala_warm": ([], ("darcy_misfit_grad_warm_kernel", f"{MALA_WARM}<false>",
-                             f"{MALA_WARM}<true>")),
+    "darcy_mala_warm": ([], (GRAD_WARM_WARP, f"{MALA_WARM}<false>", f"{MALA_WARM}<true>")),
     "darcy_fes_fused": ([], (MISFIT_SLICE, f"{FES}<false>", f"{FES}<true>")),
     "burgers_da3_pcn": ([], (
         "burgers_misfit_kernel[n=128,steps=154]", "burgers_misfit_kernel[n=128,steps=52]",
@@ -2637,11 +2768,13 @@ PATHS = {
 }
 SCAN_PATHS = ("gauss2d_rwm", "lingauss_pcn")
 # one-draw-a-CTA kernels that a path launched before its spec went to a
-# kernel a draw a warp: the path must not launch them
+# kernel a draw a warp or a cluster level: the path must not launch them
 RETIRED = {"darcy_ess_fused": ("darcy_misfit_kernel[n=16]",),
            "darcy_pcn_4096": ("darcy_misfit_kernel[n=16]",),
            "darcy_fes_fused": ("darcy_misfit_kernel[n=16]",),
-           "darcy_mala_fused": ("darcy_misfit_grad_kernel[n=16]",)}
+           "darcy_mala_fused": ("darcy_misfit_grad_kernel[n=16]",),
+           "darcy_mala_warm": ("darcy_misfit_grad_warm_kernel",),
+           "darcy64_da_fused": ("darcy_misfit_kernel[n=32]",)}
 
 
 def run_cli(config, flags, n_samples):

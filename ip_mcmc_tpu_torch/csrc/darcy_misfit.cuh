@@ -1782,7 +1782,8 @@ namespace cg = cooperative_groups;
 
 // The cluster design of the 64 x 64 kernels (fused_da_pcn_cluster_kernel,
 // fused_pcn_warm_cluster_kernel, and the misfits at their start positions,
-// darcy_misfit_cluster_kernel and darcy_misfit_warm_cluster_kernel;
+// darcy_misfit_cluster_kernel, darcy_misfit_warm_cluster_kernel and, on the
+// surrogate level, darcy_misfit_surr_cluster_kernel;
 // scripts/measure_da64_cluster_design.py times the alternatives): kG chains (CTAs) a cluster; the CTA's layout
 // (kCells cells a thread at 64 x 64 on kThreads threads, kMinCtas CTAs an
 // SM for the launch bound); kSurrMmaCoef, kSurrMmaBack: the surrogate's
@@ -2386,7 +2387,10 @@ inline int cluster_geometry(const IpxMisfitSpec& exact, const IpxMisfitSpec* sur
 // 64 x 64 (darcy_misfit_cluster_kernel in fused_da_pcn.cu,
 // darcy_misfit_warm_cluster_kernel in fused_pcn.cu) on ClusterExact; at
 // 32 x 32 (darcy_misfit_cluster32_kernel, darcy_misfit_warm_cluster32_kernel)
-// on Cluster32Exact, the level of the 32 x 32 warm pCN. One draw a CTA of
+// on Cluster32Exact, the level of the 32 x 32 warm pCN; the 64 x 64 DA
+// kernel's 32 x 32 surrogate (darcy_misfit_surr_cluster_kernel, Phi* at its
+// start positions) on ClusterSurr, so that Phi*0 and every proposal's Phi*
+// come from one solve too. One draw a CTA of
 // Layout64 / Layout32 read the factors from L2 once a draw (at 64 x 64 the
 // f32 basis 2.4 MB once, the bf16 modes 2 MB twice an apply; at 32 x 32
 // 256 KB and 256 KB); the cluster reads them once a cluster and runs the
@@ -2404,23 +2408,52 @@ struct MisfitBatch {
   float* x;
 };
 
-// Whether the cluster misfit kernels take this spec (ipx_darcy_misfit and
-// ipx_darcy_misfit_warm send it to them, every other spec to the kernels
-// of its layout): a level of the 64 x 64 samplers or of the 32 x 32 warm
-// pCN. Mirrored by ip_mcmc_tpu_torch/ops/_cluster.py misfit_cluster_takes.
+// The cluster level a standalone misfit runs on: the exact level of the
+// 64 x 64 samplers (ClusterExact), the level of the 32 x 32 warm pCN
+// (Cluster32Exact), the 32 x 32 surrogate level of the 64 x 64 DA kernel
+// (ClusterSurr), or none. The surrogate level is tried after the 32 x 32
+// one, so that a 32 x 32 spec with K up to kCluster32MaxK stays there: it
+// takes 32 x 32 specs with kCluster32MaxK < K <= kClusterMaxK.
+enum MisfitClusterLevel {
+  kNoClusterLevel,
+  kClusterLevelExact,
+  kClusterLevel32,
+  kClusterLevelSurr
+};
+inline MisfitClusterLevel misfit_cluster_level(const IpxMisfitSpec& s) {
+  if (cluster_level_ok(s, kClusterExactN, s.K, kClusterMaxModes)) return kClusterLevelExact;
+  if (cluster_level_ok(s, kCluster32N, s.K, kCluster32MaxModes, kCluster32MaxK))
+    return kClusterLevel32;
+  if (cluster_level_ok(s, kClusterSurrN, s.K, kClusterSurrMaxModes)) return kClusterLevelSurr;
+  return kNoClusterLevel;
+}
+
+// Whether the cluster misfit kernels take this spec (ipx_darcy_misfit sends
+// it to them, every other spec to the kernels of its layout): a spec of
+// one of the three levels of misfit_cluster_level. Mirrored by
+// ip_mcmc_tpu_torch/ops/_cluster.py misfit_cluster_takes.
 inline bool misfit_cluster_takes(const IpxMisfitSpec& s) {
-  return cluster_level_ok(s, kClusterExactN, s.K, kClusterMaxModes) ||
-         cluster_level_ok(s, kCluster32N, s.K, kCluster32MaxModes, kCluster32MaxK);
+  return misfit_cluster_level(s) != kNoClusterLevel;
+}
+
+// The same for a warm misfit (ipx_darcy_misfit_warm): the exact level of
+// the 64 x 64 samplers or the level of the 32 x 32 warm pCN. No sampler
+// carries a solution on the surrogate level, so a warm spec of it keeps the
+// kernel of its layout. Mirrored by misfit_cluster_takes(..., warm=True).
+inline bool misfit_cluster_warm_takes(const IpxMisfitSpec& s) {
+  const MisfitClusterLevel level = misfit_cluster_level(s);
+  return level == kClusterLevelExact || level == kClusterLevel32;
 }
 
 // Mirrored by ip_mcmc_tpu_torch/ops/_cluster.py misfit_cluster_geometry: G
-// draws a cluster (the design's kG at the spec's grid), the spare CTAs of a
-// ragged last cluster; what misfit_cluster_takes refuses,
-// cudaErrorNotSupported.
+// draws a cluster (the design's kG at the level: Cluster32Design at the
+// 32 x 32 warm pCN's, ClusterDesign at the two levels of the 64 x 64
+// samplers), the spare CTAs of a ragged last cluster; what
+// misfit_cluster_takes refuses, cudaErrorNotSupported.
 inline int misfit_cluster_geometry(const IpxMisfitSpec& s, int B, ClusterGeometry* geo) {
   if (!misfit_cluster_takes(s)) return cudaErrorNotSupported;
   if (B < 0) return cudaErrorInvalidValue;
-  const bool n32 = s.n == kCluster32N;
+  const bool n32 = misfit_cluster_level(s) == kClusterLevel32;
   geo->g = n32 ? Cluster32Design::kG : ClusterDesign::kG;
   geo->clusters = (B + geo->g - 1) / geo->g;
   geo->ctas = geo->clusters * geo->g;
@@ -2432,16 +2465,21 @@ inline int misfit_cluster_geometry(const IpxMisfitSpec& s, int B, ClusterGeometr
 // The body of the kernels on level L: draw blockIdx.x's coefficients to
 // the buffer the level reads u from (L's kState, as the samplers' state;
 // the set-up's first cluster barrier orders these writes before any CTA
-// reads them), WARM its cells of x0 to registers, one solve, then Phi from
-// thread 0 and (WARM) the thread's cells of x.
+// reads them), the level's columns of V where it keeps them in shared
+// memory (ClusterSurr, as DaClusterStep stages them before its surrogate
+// solves; a no-op on a level with MMA_BACK, which reads V through L2; the
+// same barrier orders them), WARM its cells of x0 to registers, one solve,
+// then Phi from thread 0 and (WARM) the thread's cells of x.
 template <bool WARM, class L>
 __device__ void misfit_cluster_draw(const MisfitBatch& a) {
   constexpr int C = L::kC;
   const int b = blockIdx.x, B = a.B;
   const bool live = b < B;
+  const L lv{&a.s};
   float* u = cluster_f32(L::Smem::kState);
   for (int k = threadIdx.x; k < a.s.K; k += blockDim.x)
     u[k] = live ? a.U[static_cast<size_t>(k) * B + b] : 0.0f;
+  lv.stage_columns();
   float x[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -2449,7 +2487,7 @@ __device__ void misfit_cluster_draw(const MisfitBatch& a) {
     if constexpr (WARM)
       if (live) x[c] = a.x0[static_cast<size_t>(own_cell(c)) * B + b];
   }
-  const float v = darcy_solve_cluster<WARM>(L{&a.s}, u, x);
+  const float v = darcy_solve_cluster<WARM>(lv, u, x);
   if (live) {
     if constexpr (WARM) {
 #pragma unroll
@@ -2460,15 +2498,22 @@ __device__ void misfit_cluster_draw(const MisfitBatch& a) {
   cg::this_cluster().sync();  // no peer reads this CTA's shared memory after it exits
 }
 
-// Launches kernel (k64 at 64 x 64, k32 at 32 x 32) on the batch: the
-// status of the geometry, of the occupancy check or of the launch.
+// Launches the kernel of the spec's level (k64 on ClusterExact, k32 on
+// Cluster32Exact, ksurr on ClusterSurr; null: cudaErrorNotSupported) on the
+// batch: the status of the geometry, of the occupancy check or of the
+// launch.
 inline int launch_misfit_cluster(void (*k64)(MisfitBatch), void (*k32)(MisfitBatch),
-                                 const MisfitBatch& a, void* stream) {
+                                 void (*ksurr)(MisfitBatch), const MisfitBatch& a,
+                                 void* stream) {
   ClusterGeometry geo;
   const int status = misfit_cluster_geometry(a.s, a.B, &geo);
   if (status != cudaSuccess) return status;
+  const MisfitClusterLevel level = misfit_cluster_level(a.s);
+  void (*kernel)(MisfitBatch) =
+      level == kClusterLevel32 ? k32 : level == kClusterLevelSurr ? ksurr : k64;
+  if (kernel == nullptr) return cudaErrorNotSupported;
   if (a.B == 0) return cudaSuccess;
-  return launch_cluster(a.s.n == kCluster32N ? k32 : k64, geo, stream, a);
+  return launch_cluster(kernel, geo, stream, a);
 }
 
 }  // namespace ipx

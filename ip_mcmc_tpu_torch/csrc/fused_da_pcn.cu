@@ -18,6 +18,9 @@
 //                                       cluster (ClusterLevel).
 //   darcy_misfit_cluster32_kernel       the same on the level of the 32x32
 //                                       warm pCN (Cluster32Exact).
+//   darcy_misfit_surr_cluster_kernel    the same on the 32x32 surrogate
+//                                       level of the 64x64 DA kernel
+//                                       (ClusterSurr).
 //   darcy_misfit_warp_kernel            the same on the exact level of the
 //                                       16x16 DA kernel, one draw a warp
 //                                       (WarpLevel).
@@ -289,6 +292,21 @@ __global__ void __launch_bounds__(ClusterDesign::kThreads, ClusterDesign::kMinCt
 __global__ void __launch_bounds__(Cluster32Design::kThreads, Cluster32Design::kMinCtas)
     darcy_misfit_cluster32_kernel(const __grid_constant__ MisfitBatch a) {
   misfit_cluster_draw<false, Cluster32Exact>(a);
+}
+
+// Phi* for a (K, B) batch on the 32 x 32 surrogate level of the 64 x 64 DA
+// kernel (ClusterSurr), one draw a CTA, G draws a thread-block cluster:
+// darcy64_da_fused's surrogate at its start positions, 1024 draws of
+// dst_trunc-128 / 3 CG with K = 144, so that Phi*0 and every proposal's
+// Phi* come from one solve (the DA acceptance takes their difference). The
+// design is the DA kernel's (ClusterDesign): 512 threads, 2 CTAs an SM, the
+// ClusterSmem layout, whose free floats past the 32 x 32 cells hold this
+// CTA's columns of V for the CUDA-core V^T coef (a layout sized for 32 x 32
+// would not hold them). One draw a CTA of Layout32 read the f32 basis (590
+// KB) once a draw and V (256 KB) twice an apply from L2.
+__global__ void __launch_bounds__(ClusterDesign::kThreads, ClusterDesign::kMinCtas)
+    darcy_misfit_surr_cluster_kernel(const __grid_constant__ MisfitBatch a) {
+  misfit_cluster_draw<false, ClusterSurr>(a);
 }
 
 // --- the 64 x 64 kernel: one chain a CTA, G chains a thread-block cluster ------
@@ -916,9 +934,10 @@ int ipx_misfit_spec_size() { return static_cast<int>(sizeof(IpxMisfitSpec)); }
 // darcy_misfit_warp_kernel; the 16 x 16 Jacobi spec of the ESS, cold pCN
 // and FES samplers' solve (misfit_slice_takes) to darcy_misfit_slice_kernel;
 // one of a cluster sampler's level (misfit_cluster_takes) to
-// darcy_misfit_cluster_kernel (64 x 64) or darcy_misfit_cluster32_kernel
-// (32 x 32); for every other the layout follows the spec's grid, the solve
-// its solver.
+// darcy_misfit_cluster_kernel (64 x 64), darcy_misfit_cluster32_kernel (the
+// 32 x 32 warm pCN's) or darcy_misfit_surr_cluster_kernel (the 64 x 64 DA
+// kernel's 32 x 32 surrogate); for every other the layout follows the
+// spec's grid, the solve its solver.
 int ipx_darcy_misfit(const IpxMisfitSpec* s, const float* U, int B, float* phi,
                      void* stream) {
   if (ipx::misfit_warp_takes(*s))
@@ -928,6 +947,7 @@ int ipx_darcy_misfit(const IpxMisfitSpec* s, const float* U, int B, float* phi,
   if (ipx::misfit_cluster_takes(*s))
     return ipx::launch_misfit_cluster(ipx::darcy_misfit_cluster_kernel,
                                       ipx::darcy_misfit_cluster32_kernel,
+                                      ipx::darcy_misfit_surr_cluster_kernel,
                                       {*s, U, nullptr, B, phi, nullptr}, stream);
   const auto launch = [&](auto pot) {
     return ipx::launch_misfit<decltype(pot)>(*s, U, B, phi, stream);
@@ -991,7 +1011,8 @@ int ipx_darcy_cluster_geometry(const IpxMisfitSpec* exact, const IpxMisfitSpec* 
 }
 
 // The standalone cluster misfits' launch geometry
-// (darcy_misfit_cluster_kernel, darcy_misfit_cluster32_kernel;
+// (darcy_misfit_cluster_kernel, darcy_misfit_cluster32_kernel,
+// darcy_misfit_surr_cluster_kernel;
 // darcy_misfit_warm_cluster_kernel and darcy_misfit_warm_cluster32_kernel
 // of fused_pcn.cu) for this spec and B
 // draws: out = {draws a cluster, clusters, CTAs, dynamic shared-memory

@@ -16,7 +16,11 @@
 //   darcy_misfit_grad_warm_kernel  (U, aux0 (2 n*n, B)) -> Phi, grad, aux:
 //                                  rows [0, n*n) of aux carry the forward
 //                                  solution, rows [n*n, 2 n*n) the adjoint
-//                                  one; both solves start from aux0.
+//                                  one; both solves start from aux0. One
+//                                  draw a CTA (darcy_misfit_grad_kernel<true>).
+//   darcy_misfit_grad_warm_warp_kernel
+//                                  the same on the warm MALA kernel's spec,
+//                                  one draw a warp (WarpDstSliceLevel).
 //   fused_mala_warp_kernel<RECORD, PRECOND>
 //                                  MALA on Phi + the whitened prior, one
 //                                  chain a warp: PRECOND kPrecondJacobi is
@@ -398,6 +402,166 @@ inline int launch_misfit_grad_warp(const GradBatch& a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- the standalone warm gradient misfit: one draw a warp ----------------------
+//
+// Phi, its gradient and the two solutions for a (K, B) batch of the warm
+// 16 x 16 dense-dst CG misfit (darcy_mala_warm's start positions: dst / 6 +
+// 6 CG from aux0 = 0, 4096 draws) on the solve of the warm MALA kernel: one
+// draw a warp, darcy_value_and_grad_warp<true> on WarpDstSliceLevel (both
+// solves from the draw's cells of aux0, no prior folded), every sum in the
+// order of the one-draw-a-CTA kernel's threads and the dense dst's four bf16
+// roundings where apply_dst rounds, so that Phi, the gradient and the
+// solutions have the bits of darcy_misfit_grad_kernel<true>. The KL basis,
+// S, S^T and the dst eigenvalues are staged once a CTA; each warp's slice
+// holds its draw's u, the field a, the forward solution, the solve's p, th,
+// tv and the dst stage buffer. aux0 comes in and aux goes out through the
+// warps' slices, W consecutive columns of a row at a time, behind a CTA
+// barrier at each end of the solves (the spare warps of a ragged last CTA
+// solve nothing); each lane writes its coordinates l and l + 32 of the
+// gradient to its draw's column.
+
+// The design (scripts/measure_misfit_warm_surr_design.py times the
+// alternatives): kWarps draws a CTA, one a warp; the launch bound's warps an
+// SM (kSmWarps). Measured on the H100 at 4096 draws from aux0 = 0 (PERF.md):
+// W = 16 at 128 registers 0.178-0.181 ms a call; each lane reading its
+// cells of aux0 and writing those of aux straight from its registers (32
+// rows a warp load, 4 bytes of each 32-byte sector), no CTA barrier after
+// the staging, 0.199-0.204; W = 8 0.298; W = 4 0.330; an 80-register bound
+// spills and loses (0.323). W = 32 does not fit: 306 KB of shared memory.
+struct MisfitGradWarmWarpDesign { static constexpr int kWarps = 16, kSmWarps = 16; };
+constexpr int kMisfitGradWarmWarpMinCtas =
+    MisfitGradWarmWarpDesign::kSmWarps >= 2 * MisfitGradWarmWarpDesign::kWarps
+        ? MisfitGradWarmWarpDesign::kSmWarps / MisfitGradWarmWarpDesign::kWarps
+        : 1;
+// a warp's floats: u, then slices: the field a, the forward solution, p,
+// th, tv, the dst stage buffer
+constexpr int kMisfitGradWarmWarpFloats = kMalaD + 6 * WarpSliceLevel::kStride;
+
+// What the kernel takes: U (K, B) and aux0 (2 cells, B) in; Phi (B,), the
+// gradient (K, B) and aux (2 cells, B) out.
+struct GradWarmBatch {
+  IpxMisfitSpec s;
+  const float* U;
+  const float* aux0;
+  int B;
+  float* phi;
+  float* grad;
+  float* aux;
+};
+
+// Dynamic shared memory of a launch: the staged basis, S, S^T and lam (as
+// the warm MALA kernel stages them), a slice a warp.
+constexpr size_t kMisfitGradWarmWarpSmem =
+    MalaWarpStep<kPrecondDst>::kStagedBytes +
+    sizeof(float) * kMisfitGradWarmWarpFloats * MisfitGradWarmWarpDesign::kWarps;
+static_assert(kMisfitGradWarmWarpSmem <= 232448,
+              "the design's CTA exceeds the card's shared memory");
+
+// Whether darcy_misfit_grad_warm_warp_kernel takes this spec
+// (ipx_darcy_misfit_grad sends it there when aux0 is given): the warm MALA
+// kernel's, i.e. 16 x 16, K = 64, dense dst with no modes, CG. Mirrored by
+// ip_mcmc_tpu_torch/ops/fused_mala.py misfit_grad_warm_warp_takes.
+inline bool misfit_grad_warm_warp_takes(const IpxMisfitSpec& s) {
+  return s.n == WarpSliceLevel::kN && s.K == kMalaD && s.precond == kPrecondDst &&
+         s.modes == 0 && s.solver == kSolverCg && s.m >= 0;
+}
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_mala.py
+// misfit_grad_warm_warp_geometry: kWarps draws a CTA, the spare warps of a
+// ragged last CTA solve nothing; what misfit_grad_warm_warp_takes refuses,
+// cudaErrorNotSupported.
+inline int misfit_grad_warm_warp_geometry(const IpxMisfitSpec& s, int B, MalaWarpGeometry* geo) {
+  if (!misfit_grad_warm_warp_takes(s)) return cudaErrorNotSupported;
+  if (B < 0) return cudaErrorInvalidValue;
+  geo->warps = MisfitGradWarmWarpDesign::kWarps;
+  geo->ctas = (B + geo->warps - 1) / geo->warps;
+  geo->smem = kMisfitGradWarmWarpSmem;
+  return cudaSuccess;
+}
+
+__global__ void __launch_bounds__(32 * MisfitGradWarmWarpDesign::kWarps,
+                                  kMisfitGradWarmWarpMinCtas)
+    darcy_misfit_grad_warm_warp_kernel(const __grid_constant__ GradWarmBatch a) {
+  constexpr int kStride = WarpSliceLevel::kStride, kCells = WarpSliceLevel::kCells;
+  extern __shared__ float4 misfit_grad_warm_warp_smem_buf[];
+  float* staged = reinterpret_cast<float*>(misfit_grad_warm_warp_smem_buf);
+  unsigned char* dst = reinterpret_cast<unsigned char*>(misfit_grad_warm_warp_smem_buf) +
+                       WarpSliceLevel::staged_bytes();
+  const float* basis = WarpSliceLevel::stage(a.s, staged);
+  WarpDstSliceLevel::stage_dst(a.s, dst);
+  float* slices = staged + MalaWarpStep<kPrecondDst>::kStagedBytes / sizeof(float);
+  // the CTA's draws' coefficients, W consecutive columns of U a row
+  const int W = blockDim.x >> 5, b0 = blockIdx.x * W, B = a.B;
+  for (int e = threadIdx.x; e < kMalaD * W; e += blockDim.x) {
+    const int k = e / W, j = e % W;
+    if (b0 + j < B)
+      slices[j * kMisfitGradWarmWarpFloats + k] = a.U[static_cast<size_t>(k) * B + b0 + j];
+  }
+  // the draws' aux0, rows [0, cells) to the slice a and [cells, 2 cells) to
+  // the slice x, W consecutive columns a row (both slices are free before
+  // the solve)
+  for (int e = threadIdx.x; e < 2 * kCells * W; e += blockDim.x) {
+    const int r = e / W, j = e % W;
+    if (b0 + j < B)
+      slices[j * kMisfitGradWarmWarpFloats + kMalaD + (r < kCells ? 0 : kStride) +
+             WarpSliceLevel::pad(r % kCells)] = a.aux0[static_cast<size_t>(r) * B + b0 + j];
+  }
+  __syncthreads();  // the staged factors, every warp's u and aux0
+  const int l = threadIdx.x & 31, b = b0 + (threadIdx.x >> 5);
+  float* u = slices + (threadIdx.x >> 5) * kMisfitGradWarmWarpFloats;
+  float* slice = u + kMalaD;  // af, xf, p, th, tv, q
+  if (b < B) {  // a spare warp solves nothing
+    const __nv_bfloat16* S = WarpDstSliceLevel::staged_S(dst);
+    const WarpSmem ws{slice + 2 * kStride, slice + 3 * kStride, slice + 4 * kStride};
+    WarpDstSliceLevel lv{
+        WarpSliceLevel{&a.s, basis, ws},
+        S,
+        S + WarpSliceLevel::kN * WarpDstSliceLevel::kRow,
+        WarpDstSliceLevel::staged_lam(dst),
+        reinterpret_cast<__nv_bfloat16*>(slice + 5 * kStride),
+        1.0f};
+    float x0[8], l0[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      x0[k] = slice[WarpSliceLevel::at(k)];
+      l0[k] = slice[kStride + WarpSliceLevel::at(k)];
+    }
+    float g[2];
+    const float v = darcy_value_and_grad_warp<true>(lv, u, slice, slice + kStride, x0, l0, g);
+    if (l == 0) a.phi[b] = v;
+    a.grad[static_cast<size_t>(l) * B + b] = g[0];
+    a.grad[static_cast<size_t>(l + 32) * B + b] = g[1];
+    // the adjoint solution (where darcy_value_and_grad_warp leaves it,
+    // lv.ws.th) to the slice a, free after the solve, beside the forward
+    // one in x
+#pragma unroll
+    for (int k = 0; k < 8; ++k) slice[WarpSliceLevel::at(k)] = lv.ws.th[WarpSliceLevel::at(k)];
+  }
+  __syncthreads();  // every warp's solutions
+  for (int e = threadIdx.x; e < 2 * kCells * W; e += blockDim.x) {
+    const int r = e / W, j = e % W;
+    if (b0 + j < B)
+      a.aux[static_cast<size_t>(r) * B + b0 + j] =
+          slices[j * kMisfitGradWarmWarpFloats + kMalaD + (r < kCells ? kStride : 0) +
+                 WarpSliceLevel::pad(r % kCells)];
+  }
+}
+
+// Launches darcy_misfit_grad_warm_warp_kernel on the batch: the status of
+// the geometry or of the launch.
+inline int launch_misfit_grad_warm_warp(const GradWarmBatch& a, void* stream) {
+  MalaWarpGeometry geo;
+  const int status = misfit_grad_warm_warp_geometry(a.s, a.B, &geo);
+  if (status != cudaSuccess) return status;
+  if (a.B == 0) return cudaSuccess;
+  const int smem = static_cast<int>(geo.smem);
+  cudaFuncSetAttribute(darcy_misfit_grad_warm_warp_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  darcy_misfit_grad_warm_warp_kernel<<<geo.ctas, 32 * geo.warps, smem,
+                                       static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace ipx
 
 extern "C" {
@@ -405,11 +569,15 @@ extern "C" {
 // aux0 == null: both solves from zero, on darcy_misfit_grad_warp_kernel for
 // the cold MALA kernel's spec (misfit_grad_warp_takes), else on
 // darcy_misfit_grad_kernel<false>; aux0 given: from aux0, and aux receives
-// the solutions (darcy_misfit_grad_warm_kernel).
+// the solutions, on darcy_misfit_grad_warm_warp_kernel for the warm MALA
+// kernel's spec (misfit_grad_warm_warp_takes), else on
+// darcy_misfit_grad_kernel<true> (darcy_misfit_grad_warm_kernel).
 int ipx_darcy_misfit_grad(const IpxMisfitSpec* s, const float* U, const float* aux0, int B,
                           float* phi, float* grad, float* aux, void* stream) {
   if (aux0 == nullptr && ipx::misfit_grad_warp_takes(*s))
     return ipx::launch_misfit_grad_warp({*s, U, B, phi, grad}, stream);
+  if (aux0 != nullptr && ipx::misfit_grad_warm_warp_takes(*s))
+    return ipx::launch_misfit_grad_warm_warp({*s, U, aux0, B, phi, grad, aux}, stream);
   const int cells = s->n * s->n;
   const int threads = ipx::round_up32(cells);
   if (threads > 1024 || s->K <= 0 || s->modes < 0 || B < 0 || s->solver != kSolverCg)
@@ -468,6 +636,21 @@ int ipx_mala_warp_geometry(const IpxMisfitSpec* pot, const IpxChainArgs* chain, 
 int ipx_darcy_misfit_grad_warp_geometry(const IpxMisfitSpec* s, int B, int* out) {
   ipx::MalaWarpGeometry geo{0, 0, 0};
   const int status = ipx::misfit_grad_warp_geometry(*s, B, &geo);
+  out[0] = geo.warps;
+  out[1] = geo.ctas;
+  out[2] = static_cast<int>(geo.smem);
+  return status;
+}
+
+// The standalone warm gradient misfit's launch geometry
+// (darcy_misfit_grad_warm_warp_kernel) for this spec and B draws: out =
+// {draws a CTA, CTAs, dynamic shared-memory bytes}; the status the launch
+// would return for them, cudaErrorNotSupported for a spec that goes to
+// darcy_misfit_grad_kernel<true> (the wrapper's mirror is checked against
+// this on the card).
+int ipx_darcy_misfit_grad_warm_warp_geometry(const IpxMisfitSpec* s, int B, int* out) {
+  ipx::MalaWarpGeometry geo{0, 0, 0};
+  const int status = ipx::misfit_grad_warm_warp_geometry(*s, B, &geo);
   out[0] = geo.warps;
   out[1] = geo.ctas;
   out[2] = static_cast<int>(geo.smem);

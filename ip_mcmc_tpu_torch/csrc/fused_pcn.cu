@@ -692,15 +692,16 @@ int launch_misfit_warm(const IpxMisfitSpec& s, const float* U, const float* x0, 
 
 extern "C" {
 
-// A spec of a cluster sampler's level (misfit_cluster_takes) goes to
-// darcy_misfit_warm_cluster_kernel (64 x 64) or
-// darcy_misfit_warm_cluster32_kernel (32 x 32); for every other the layout
-// follows the spec's grid.
+// A spec of a cluster sampler's level that a warm sampler solves on
+// (misfit_cluster_warm_takes) goes to darcy_misfit_warm_cluster_kernel
+// (64 x 64) or darcy_misfit_warm_cluster32_kernel (32 x 32); for every
+// other, a spec of the 64 x 64 DA kernel's surrogate level among them, the
+// layout follows the spec's grid.
 int ipx_darcy_misfit_warm(const IpxMisfitSpec* s, const float* U, const float* x0, int B,
                           float* phi, float* x, void* stream) {
-  if (ipx::misfit_cluster_takes(*s))
+  if (ipx::misfit_cluster_warm_takes(*s))
     return ipx::launch_misfit_cluster(ipx::darcy_misfit_warm_cluster_kernel,
-                                      ipx::darcy_misfit_warm_cluster32_kernel,
+                                      ipx::darcy_misfit_warm_cluster32_kernel, nullptr,
                                       {*s, U, x0, B, phi, x}, stream);
   return ipx::with_darcy_layout<kSolverCg>(*s, [&](auto pot) {
     return ipx::launch_misfit_warm<decltype(pot)>(*s, U, x0, B, phi, x, stream);

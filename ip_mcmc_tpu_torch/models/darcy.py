@@ -28,7 +28,12 @@ a misfit on the level of a cluster sampler
 (``_cluster.misfit_cluster_takes``: 64×64 or 32×32, dst_trunc, CG) goes to
 ``darcy_misfit_cluster_kernel`` / ``darcy_misfit_warm_cluster_kernel`` (64×64)
 or ``darcy_misfit_cluster32_kernel`` / ``darcy_misfit_warm_cluster32_kernel``
-(32×32) instead, G draws a thread-block cluster on the samplers' solve; a
+(32×32) instead, G draws a thread-block cluster on the samplers' solve, a
+cold one on the 64×64 DA kernel's 32×32 surrogate level (K above 64) to
+``darcy_misfit_surr_cluster_kernel``; the warm MALA kernel's value and
+gradient (``fused_mala.misfit_grad_warm_warp_takes``: 16×16, K 64, dense
+dst, CG) to ``darcy_misfit_grad_warm_warp_kernel``, a draw a warp on its
+solve; a
 cold misfit on the 16×16 DA kernel's exact level
 (``fused_da_pcn.misfit_warp_takes``: 16×16, K 64, dst_trunc, CG) to
 ``darcy_misfit_warp_kernel``, a draw a warp on that kernel's solve; the
@@ -211,8 +216,9 @@ class DarcyMisfit(nn.Module):
 
     @property
     def on_cluster(self) -> bool:
-        """Whether the card solves this misfit on a cluster sampler's level,
-        64×64 or 32×32 (``_cluster.misfit_cluster_takes``,
+        """Whether the card solves this misfit on a cluster sampler's level:
+        the 64×64 samplers' exact level, the 32×32 warm pCN's or the 64×64 DA
+        kernel's 32×32 surrogate level (``_cluster.misfit_cluster_takes``,
         ``misfit_cluster_takes`` of ``csrc/darcy_misfit.cuh``)."""
         return _cluster.misfit_cluster_takes(**self.spec_fields)
 
@@ -223,14 +229,16 @@ class DarcyMisfit(nn.Module):
         level (``fused_da_pcn.misfit_warp_takes``), a draw a warp on the
         16×16 Jacobi solve of the ESS, cold pCN and FES kernels
         (``fused_da_pcn.misfit_slice_takes``), G draws a cluster on a
-        cluster sampler's level, or one draw a CTA."""
+        cluster sampler's level (``_cluster.misfit_cluster_level``: the
+        64×64 samplers' exact level, the 32×32 warm pCN's, the 64×64 DA
+        kernel's 32×32 surrogate level), or one draw a CTA."""
         if fused_da_pcn.misfit_warp_takes(**self.spec_fields):
             return f"darcy_misfit_warp_kernel[n={self.n}]"
         if fused_da_pcn.misfit_slice_takes(**self.spec_fields):
             return f"darcy_misfit_slice_kernel[n={self.n}]"
-        if self.on_cluster:
-            stem = "cluster32" if self.n == _cluster.N32 else "cluster"
-            return f"darcy_misfit_{stem}_kernel[n={self.n}]"
+        level = _cluster.misfit_cluster_level(**self.spec_fields)
+        if level is not None:
+            return f"{_cluster.MISFIT_KERNELS[level]}[n={self.n}]"
         tag = "" if self.solver == "cg" else f",{self.solver}"
         return f"darcy_misfit_kernel[n={self.n}{tag}]"
 
@@ -292,9 +300,19 @@ class DarcyMisfit(nn.Module):
             return f"{fused_mala.GRAD_WARP_KERNEL}[n={self.n}]"
         return f"darcy_misfit_grad_kernel[n={self.n}]"
 
+    @property
+    def grad_warm_kernel_label(self) -> str:
+        """The launch count's name of the kernel that ``ipx_darcy_misfit_grad``
+        sends this misfit's warm value and gradient to (aux0 given): a draw a
+        warp on the warm MALA kernel's solve
+        (``fused_mala.misfit_grad_warm_warp_takes``), or one draw a CTA."""
+        if fused_mala.misfit_grad_warm_warp_takes(**self.spec_fields):
+            return f"{fused_mala.GRAD_WARM_WARP_KERNEL}[n={self.n}]"
+        return "darcy_misfit_grad_warm_kernel"
+
     def _grad_kernel(self, U, aux0):
         """``grad_kernel_label``'s kernel (``aux0`` None) or
-        ``darcy_misfit_grad_warm_kernel``: (Φ, ∇Φ, aux or None)."""
+        ``grad_warm_kernel_label``'s: (Φ, ∇Φ, aux or None)."""
         self.check_input(U)
         U = U.contiguous()
         B = U.shape[1]
@@ -312,7 +330,7 @@ class DarcyMisfit(nn.Module):
             grad.data_ptr(), aux.data_ptr() if warm else None,
             torch.cuda.current_stream(U.device).cuda_stream,
         )
-        name = "darcy_misfit_grad_warm_kernel" if warm else self.grad_kernel_label
+        name = self.grad_warm_kernel_label if warm else self.grad_kernel_label
         _build.check(status, name)
         _build.launch_counts[name] += 1
         return phi, grad, aux
@@ -521,8 +539,10 @@ class DarcyMisfitWarm(DarcyMisfit):
     @property
     def warm_kernel_label(self) -> str:
         """The launch count's name of the kernel that
-        ``ipx_darcy_misfit_warm`` sends this misfit to."""
-        if not self.on_cluster:
+        ``ipx_darcy_misfit_warm`` sends this misfit to: the cluster levels a
+        warm sampler solves on (``_cluster.misfit_cluster_takes`` with
+        ``warm=True``), or one draw a CTA."""
+        if not _cluster.misfit_cluster_takes(**self.spec_fields, warm=True):
             return "darcy_misfit_warm_kernel"
         return ("darcy_misfit_warm_cluster32_kernel" if self.n == _cluster.N32
                 else "darcy_misfit_warm_cluster_kernel")

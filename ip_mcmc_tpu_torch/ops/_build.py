@@ -265,6 +265,8 @@ def library():
         lib.bind("ipx_darcy_misfit_grad", [spec, p, p, i, p, p, p, p])
         # spec, B, out (3,): the cold warp gradient misfit kernel's geometry
         lib.bind("ipx_darcy_misfit_grad_warp_geometry", [spec, i, p])
+        # spec, B, out (3,): the warm warp gradient misfit kernel's geometry
+        lib.bind("ipx_darcy_misfit_grad_warm_warp_geometry", [spec, i, p])
         # spec, chain, Φ0 (n,), ∇Φ0 (d, n), aux0 (2n², n) or null (cold), ε,
         # stream
         lib.bind("ipx_fused_mala", [spec, chain, p, p, p, f, p])

@@ -6,14 +6,18 @@ standalone misfits on those samplers' levels: at 64×64
 ``darcy_misfit_cluster_kernel`` and ``darcy_misfit_warm_cluster_kernel``
 (Φ and x at the start positions of the two 64×64 configs), at 32×32
 ``darcy_misfit_warm_cluster32_kernel`` (``darcy32_pcn_warm``'s) and its
-cold twin ``darcy_misfit_cluster32_kernel``.
+cold twin ``darcy_misfit_cluster32_kernel``, and on the 64×64 DA kernel's
+32×32 surrogate level ``darcy_misfit_surr_cluster_kernel``
+(``darcy64_da_fused``'s Φ* at its start positions).
 
 One chain (or draw) runs per CTA, and the G CTAs of a cluster share each
 read of the factors (``ClusterLevel`` in ``csrc/darcy_misfit.cuh``), read
 through L2; at 32×32 in a layout of its own, at seven CTAs an SM.
 ``cluster_geometry`` mirrors ``cluster_geometry`` there,
-``misfit_cluster_takes`` and ``misfit_cluster_geometry`` mirror
-``misfit_cluster_takes`` and ``misfit_cluster_geometry``;
+``misfit_cluster_level``, ``misfit_cluster_takes`` and
+``misfit_cluster_geometry`` mirror ``misfit_cluster_level``,
+``misfit_cluster_takes`` / ``misfit_cluster_warm_takes`` and
+``misfit_cluster_geometry``;
 ``ipx_darcy_cluster_geometry`` and ``ipx_darcy_misfit_cluster_geometry``
 return the C side's, and the card tests and ``chip_smoke.py`` hold each
 pair equal.
@@ -104,36 +108,68 @@ def cluster_geometry(n_chains, block_chains, *, d=144, exact_n=EXACT_N, exact_mo
     return G, clusters, clusters * G, smem
 
 
-def misfit_cluster_takes(*, n, K, precond, modes, solver):
-    """Whether ``ipx_darcy_misfit`` / ``ipx_darcy_misfit_warm`` send a
-    misfit of these fields to the cluster misfit kernels: a level the 64×64
-    samplers take (an EXACT_N grid, K up to MAX_K, dst_trunc with a
-    positive multiple of 16 modes up to MAX_MODES, solved by CG) or the
-    32×32 warm pCN takes (an N32 grid, K up to MAX_K32, up to MAX_MODES32
-    modes). Every other misfit runs one draw a CTA on the layout of its
-    grid (or, at 16×16, on the DA kernel's warp level:
-    ``fused_da_pcn.misfit_warp_takes``)."""
-    most = {EXACT_N: (MAX_K, MAX_MODES), N32: (MAX_K32, MAX_MODES32)}.get(n)
-    return (most is not None and K <= most[0] and precond == "dst_trunc" and modes > 0
-            and modes % 16 == 0 and modes <= min(n * n, most[1]) and solver == "cg")
+# The levels a standalone misfit runs on (``misfit_cluster_level`` in
+# ``csrc/darcy_misfit.cuh``) and the launch count's stem of each one's
+# cold kernel: the exact level of the 64×64 samplers, the level of the
+# 32×32 warm pCN, the 64×64 DA kernel's 32×32 surrogate level
+EXACT, EXACT32, SURR = "exact", "exact32", "surrogate"
+MISFIT_KERNELS = {EXACT: "darcy_misfit_cluster_kernel", EXACT32: "darcy_misfit_cluster32_kernel",
+                  SURR: "darcy_misfit_surr_cluster_kernel"}
+
+
+def misfit_cluster_level(*, n, K, precond, modes, solver):
+    """The cluster level a misfit of these fields runs on, as
+    ``misfit_cluster_level`` in ``csrc/darcy_misfit.cuh`` decides: EXACT, a
+    level the 64×64 samplers take (an EXACT_N grid, K up to MAX_K, dst_trunc
+    with a positive multiple of 16 modes up to MAX_MODES, solved by CG);
+    EXACT32, the 32×32 warm pCN's (an N32 grid, K up to MAX_K32, up to
+    MAX_MODES32 modes); SURR, the 64×64 DA kernel's surrogate (a SURR_N grid,
+    K up to MAX_K, up to MAX_SURR_MODES modes), tried after EXACT32, so that
+    it takes MAX_K32 < K ≤ MAX_K; or None."""
+    def level_ok(grid, most_k, most_modes):
+        return (n == grid and K <= most_k and precond == "dst_trunc" and modes > 0
+                and modes % 16 == 0 and modes <= min(n * n, most_modes) and solver == "cg")
+
+    if level_ok(EXACT_N, MAX_K, MAX_MODES):
+        return EXACT
+    if level_ok(N32, MAX_K32, MAX_MODES32):
+        return EXACT32
+    if level_ok(SURR_N, MAX_K, MAX_SURR_MODES):
+        return SURR
+    return None
+
+
+def misfit_cluster_takes(*, n, K, precond, modes, solver, warm=False):
+    """Whether ``ipx_darcy_misfit`` (``warm``: ``ipx_darcy_misfit_warm``)
+    sends a misfit of these fields to the cluster misfit kernels: a spec of
+    one of the three levels of ``misfit_cluster_level`` (the 64×64
+    samplers' exact level, the 32×32 warm pCN's, the 64×64 DA kernel's
+    32×32 surrogate level), or, warm, of the first two (no sampler carries a
+    solution on the surrogate level). Every other misfit runs one draw a CTA
+    on the layout of its grid (or, at 16×16, on a warp level:
+    ``fused_da_pcn.misfit_warp_takes``, ``misfit_slice_takes``)."""
+    level = misfit_cluster_level(n=n, K=K, precond=precond, modes=modes, solver=solver)
+    return level is not None and not (warm and level == SURR)
 
 
 def misfit_cluster_geometry(B, *, n=EXACT_N, K=MAX_K, precond="dst_trunc", modes=MAX_MODES,
                             solver="cg"):
     """(draws a cluster, clusters, CTAs, dynamic shared-memory bytes) of a
     launch of the cluster misfit kernels on B draws: G draws a cluster (the
-    design's at the grid), one a CTA, the spare CTAs of a ragged last
-    cluster run on zeros; the samplers' layout (at 32×32 the 32×32 warm
-    pCN's). Raises ``ValueError`` for a misfit that
-    ``misfit_cluster_takes`` leaves to the other kernels, or B < 0."""
-    if not misfit_cluster_takes(n=n, K=K, precond=precond, modes=modes, solver=solver):
+    design's at the level), one a CTA, the spare CTAs of a ragged last
+    cluster run on zeros; the samplers' layout (on the 32×32 warm pCN's
+    level its own, on the 64×64 DA kernel's surrogate level the 64×64
+    one). Raises ``ValueError`` for a misfit that ``misfit_cluster_takes``
+    leaves to the other kernels, or B < 0."""
+    level = misfit_cluster_level(n=n, K=K, precond=precond, modes=modes, solver=solver)
+    if level is None:
         raise ValueError(f"the cluster misfit kernels take a {EXACT_N}x{EXACT_N} dst_trunc CG "
                          f"misfit with K up to {MAX_K} and a multiple of 16 modes up to "
-                         f"{MAX_MODES}, or a {N32}x{N32} one with K up to {MAX_K32} and up to "
+                         f"{MAX_MODES}, or a {N32}x{N32} one with K up to {MAX_K} and up to "
                          f"{MAX_MODES32} modes; got {n}x{n} {precond} ({modes} modes) {solver}, "
                          f"K {K}")
     if B < 0:
         raise ValueError(f"B {B}")
-    G, smem = (CLUSTER32_G, smem_bytes32()) if n == N32 else (CLUSTER_G, smem_bytes())
+    G, smem = (CLUSTER32_G, smem_bytes32()) if level == EXACT32 else (CLUSTER_G, smem_bytes())
     clusters = -(-B // G)
     return G, clusters, clusters * G, smem

@@ -34,7 +34,11 @@ differentiates by its adjoint). Tags: normals 0 (keys 0, 1), MH uniform 2.
 ``misfit_grad_warp_takes`` and ``misfit_grad_warp_geometry`` mirror the
 rule and the launch geometry of ``darcy_misfit_grad_warp_kernel``, which
 evaluates Φ and ∇Φ at the cold kernel's start positions a draw a warp on
-its solve (``models.darcy.DarcyMisfit.value_and_grad`` launches it).
+its solve (``models.darcy.DarcyMisfit.value_and_grad`` launches it);
+``misfit_grad_warm_warp_takes`` and ``misfit_grad_warm_warp_geometry`` those
+of ``darcy_misfit_grad_warm_warp_kernel``, the same for the warm kernel
+(Φ, ∇Φ and the two solutions from aux0, a draw a warp on its solve;
+``models.darcy.DarcyMisfitMalaWarm`` launches it).
 """
 
 from __future__ import annotations
@@ -230,9 +234,9 @@ def misfit_grad_warp_takes(*, n, K, precond, modes, solver):
     (no aux0) to ``darcy_misfit_grad_warp_kernel``, as
     ``misfit_grad_warp_takes`` in ``csrc/fused_mala.cu`` decides: the rule
     of ``fused_da_pcn.misfit_slice_takes`` (``WarpSliceLevel``'s misfits:
-    16×16, K = 64, Jacobi, CG; the cold MALA kernel's). Every other gradient
-    misfit, and every warm one, goes to the one-draw-a-CTA kernels
-    (``darcy_misfit_grad_kernel``, ``darcy_misfit_grad_warm_kernel``)."""
+    16×16, K = 64, Jacobi, CG; the cold MALA kernel's). Every other cold
+    gradient misfit goes to the one-draw-a-CTA ``darcy_misfit_grad_kernel``;
+    a warm one follows ``misfit_grad_warm_warp_takes``."""
     return fused_da_pcn.misfit_slice_takes(n=n, K=K, precond=precond, modes=modes,
                                            solver=solver)
 
@@ -253,6 +257,46 @@ def misfit_grad_warp_geometry(B, *, n=WARP_N, K=WARP_D, precond="jacobi", modes=
         raise ValueError(f"B {B}")
     return (GRAD_WARP_DRAWS, -(-B // GRAD_WARP_DRAWS),
             BASIS_BYTES + GRAD_WARP_DRAWS * _GRAD_WARP_BYTES)
+
+
+# The standalone warm gradient misfit ``darcy_misfit_grad_warm_warp_kernel``
+# (``MisfitGradWarmWarpDesign`` in ``csrc/fused_mala.cu``): draws (warps) a
+# CTA; after the staged basis, S, Sᵀ and λ, a warp's u (d floats) and the
+# slices of the field a, the forward solution, the solve (p, th, tv) and the
+# dst stage buffer.
+GRAD_WARM_WARP_DRAWS = 16
+GRAD_WARM_WARP_KERNEL = "darcy_misfit_grad_warm_warp_kernel"
+_GRAD_WARM_WARP_BYTES = 4 * (WARP_D + 6 * SLICE_FLOATS)
+
+
+def misfit_grad_warm_warp_takes(*, n, K, precond, modes, solver):
+    """Whether ``ipx_darcy_misfit_grad`` sends a warm misfit of these fields
+    (aux0 given) to ``darcy_misfit_grad_warm_warp_kernel``, as
+    ``misfit_grad_warm_warp_takes`` in ``csrc/fused_mala.cu`` decides: the
+    warm MALA kernel's (a WARP_N grid, K = WARP_D, the dense dst
+    preconditioner with no modes, CG). Every other warm misfit (Jacobi or
+    dst_trunc, another grid or K) goes to the one-draw-a-CTA
+    ``darcy_misfit_grad_warm_kernel``."""
+    return (n == WARP_N and K == WARP_D and precond == "dst" and modes == 0
+            and solver == "cg")
+
+
+def misfit_grad_warm_warp_geometry(B, *, n=WARP_N, K=WARP_D, precond="dst", modes=0,
+                                   solver="cg"):
+    """(draws a CTA, CTAs, dynamic shared-memory bytes) of a launch of
+    ``darcy_misfit_grad_warm_warp_kernel`` on B draws, as
+    ``misfit_grad_warm_warp_geometry`` in ``csrc/fused_mala.cu`` computes
+    it: a draw a warp, the design's draws a CTA, the spare warps of a
+    ragged last CTA solve nothing. Raises ``ValueError`` for a misfit that
+    ``misfit_grad_warm_warp_takes`` leaves to the other kernel, or B < 0."""
+    if not misfit_grad_warm_warp_takes(n=n, K=K, precond=precond, modes=modes, solver=solver):
+        raise ValueError(f"the warm warp gradient misfit kernel takes a {WARP_N}x{WARP_N} dense "
+                         f"dst CG misfit with K = {WARP_D}; got {n}x{n} {precond} ({modes} "
+                         f"modes) {solver}, K {K}")
+    if B < 0:
+        raise ValueError(f"B {B}")
+    return (GRAD_WARM_WARP_DRAWS, -(-B // GRAD_WARM_WARP_DRAWS),
+            BASIS_BYTES + DST_BYTES + GRAD_WARM_WARP_DRAWS * _GRAD_WARM_WARP_BYTES)
 
 
 def _launch(potential_fn, positions, prior_mean, prior_scale, step_size, seed,

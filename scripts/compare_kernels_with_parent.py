@@ -36,7 +36,8 @@ cluster; the 16x16 warm pCN, whose dst_trunc products run on the tensor
 cores; the 64x64 dst_trunc misfits, cold and warm, on the 64x64 samplers'
 cluster level; the 32x32 dst_trunc misfits, warm and cold, on the 32x32
 warm pCN's level; the 16x16 exact misfit of darcy_da_fused a draw a warp on
-the DA kernel's exact level; their sums run in another order): there whether the outputs
+the DA kernel's exact level; darcy64_da_fused's 32x32 surrogate on the 64x64
+DA kernel's surrogate level; their sums run in another order): there whether the outputs
 equal the parent's all the same, the share of chains (final state and
 records) within ``CHAIN_ATOL`` of the parent's and both acceptance rates
 are printed (two kernels that each round differently from the plain twin;
@@ -49,8 +50,10 @@ both trees' builds (``_build/nvcc.log``) are set side by side. Exits
 non-zero on any difference beyond these, in the outputs or in ptxas'
 report. ``--rows`` runs only the named rows (``misfits`` names all the
 misfit kernels' rows; ``misfit_jacobi48`` and ``misfit_grad`` are the 16x16
-Jacobi / 48 CG value and value-and-gradient misfits, which a tree may run a
-draw a CTA or a draw a warp and which must agree bit for bit either way),
+Jacobi / 48 CG value and value-and-gradient misfits, and ``misfit_grad_warm``
+darcy_mala_warm's warm value and gradient (from aux0 = 0, then from those
+solutions after a MALA-sized move), which a tree may run a draw a CTA or a
+draw a warp and which must agree bit for bit either way),
 to compare two designs of a few kernels in turns.
 
 ``--cli`` runs CLI configs in place of the kernel rows, in the same turns:
@@ -82,7 +85,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 # kernels this tree replaced by another design: compared, not bit for bit
 OLD_VS_NEW = ("da_pcn", "da_pcn_richardson", "da_pcn_64", "pcn_warm_64", "pcn_warm_32",
               "pcn_warm", "misfit64_exact", "misfit64_cold", "misfit64_warm", "misfit_exact",
-              "misfit32_warm", "misfit32_dst")
+              "misfit32_warm", "misfit32_dst", "misfit64_surrogate")
 CHAIN_ATOL = 1e-4  # chip_smoke.py's
 MISFIT_RTOL = 1e-3  # the rtol of chip_smoke.py's LARGE_BF16_TOL
 TURNS = ("parent", "new", "new", "parent")
@@ -216,9 +219,12 @@ def worker(out_path: str, rows) -> int:
         times["misfit_grad"] = time_ms(lambda: jacobi.value_and_grad(U), 20)
     if misfit_row("misfit_grad_warm"):
         pag_zeros = torch.zeros(pag_dim, n, device="cuda")
-        for i, t in enumerate(pag(U, pag_zeros)):
+        first = pag(U, pag_zeros)
+        step = da.prior.sample(torch.Generator().manual_seed(98), n).T
+        U2 = (U + 0.012 * step).contiguous()  # a MALA-sized move
+        for i, t in enumerate((*first, *pag(U2, first[2]))):
             outputs[f"misfit_grad_warm_{i}"] = t
-        times["misfit_grad_warm"] = time_ms(lambda: pag(U, pag_zeros), 5)
+        times["misfit_grad_warm"] = time_ms(lambda: pag(U, pag_zeros), 20)
     for name, pot, V in (("misfit64_exact", da64.batched_potential_fn, U144),
                          ("misfit64_surrogate", da64.batched_surrogate_fn, U144),
                          ("misfit64_cold", pcn64.batched_potential_fn, U144),
@@ -226,7 +232,7 @@ def worker(out_path: str, rows) -> int:
                          ("misfit32_dst", dst32, U64w)):
         if misfit_row(name):
             outputs[f"{name}_phi"] = pot(V)
-            times[name] = time_ms(lambda: pot(V), 5)
+            times[name] = time_ms(lambda: pot(V), 20 if name == "misfit64_surrogate" else 5)
     for name, p, V in (("misfit64_warm", pcn64, U144w), ("misfit32_warm", pcn32, U64w)):
         if misfit_row(name):
             w, dim = p.batched_warm_potential

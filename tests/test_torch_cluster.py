@@ -204,7 +204,9 @@ def _takes(pot):
 def test_misfit_cluster_takes_the_specs_of_both_configs():
     """darcy64_da_fused's exact misfit (dst_trunc-256, 16 CG), and
     darcy64_pcn_warm's warm misfit (dst_trunc-256, 4 CG) and cold misfit
-    (dst_trunc-256, 30 CG, on no path): each a level of the 64² samplers."""
+    (dst_trunc-256, 30 CG, on no path): each the exact level of the 64²
+    samplers; darcy64_da_fused's 32² surrogate is the DA kernel's other
+    level, in the same design."""
     da_p, pcn_p = (configs.build(c, "cpu") for c in ("darcy64_da_fused", "darcy64_pcn_warm"))
     for pot in (da_p.batched_potential_fn, pcn_p.batched_warm_potential[0],
                 pcn_p.batched_potential_fn):
@@ -212,7 +214,8 @@ def test_misfit_cluster_takes_the_specs_of_both_configs():
         assert _cluster.misfit_cluster_geometry(
             1024, n=pot.n, K=pot.K, precond=pot.precond, modes=pot.modes,
             solver=pot.solver) == (G, 128, 1024, SMEM)
-    assert not _takes(da_p.batched_surrogate_fn)  # its 32² surrogate
+    surr = da_p.batched_surrogate_fn  # its 32² surrogate: the other level
+    assert _takes(surr) and _cluster.misfit_cluster_level(**surr.spec_fields) == _cluster.SURR
 
 
 @pytest.mark.parametrize("kw", [
@@ -220,7 +223,7 @@ def test_misfit_cluster_takes_the_specs_of_both_configs():
     dict(modes=100),                     # not a multiple of 16
     dict(modes=272),                     # more than the layout holds
     dict(K=200),                         # K above the layout's 144
-    dict(n=32, modes=128),               # the 32² grid at K 144 (above its 64)
+    dict(n=32, modes=144),               # the 32² grid above its levels' 128 modes
     dict(solver="richardson"),           # K17's solve
     dict(precond="dst", modes=0),        # the dense dst preconditioner
 ])
@@ -240,7 +243,8 @@ def test_misfit_cluster_geometry_refuses_a_negative_width():
 
 def test_misfit_kernel_labels():
     """The launch counts name the cluster kernels for the two 64² configs'
-    misfits and darcy32_pcn_warm's warm misfit, the warp kernel for
+    misfits (darcy64_da_fused's surrogate on the DA kernel's 32² level) and
+    darcy32_pcn_warm's warm misfit, the warp kernel for
     darcy_da_fused's exact misfit, the slice kernel for darcy_pcn_warm's
     cold 16² Jacobi misfit, and the kernels of their layout for every other
     shipped one."""
@@ -254,7 +258,8 @@ def test_misfit_kernel_labels():
         if p.batched_warm_potential is not None:
             names[c].append(p.batched_warm_potential[0].warm_kernel_label)
     assert names == {
-        "darcy64_da_fused": ["darcy_misfit_cluster_kernel[n=64]", "darcy_misfit_kernel[n=32]"],
+        "darcy64_da_fused": ["darcy_misfit_cluster_kernel[n=64]",
+                             "darcy_misfit_surr_cluster_kernel[n=32]"],
         "darcy64_pcn_warm": ["darcy_misfit_cluster_kernel[n=64]",
                              "darcy_misfit_warm_cluster_kernel"],
         "darcy32_pcn_warm": ["darcy_misfit_kernel[n=32]", "darcy_misfit_warm_cluster32_kernel"],
@@ -347,10 +352,13 @@ def test_misfit_cluster_leaves_other_32_specs(kw, what):
 
 def test_misfit_cluster_leaves_the_32_surrogate_of_darcy64_da():
     """darcy64_da_fused's 32² surrogate (dst_trunc-128 / 3 CG) has K 144,
-    above the 32² level's 64: it stays on the Layout32 kernel."""
+    above the 32² warm pCN level's 64: the 32² level leaves it, and the
+    64² DA kernel's surrogate level, tried after it, takes it
+    (darcy_misfit_surr_cluster_kernel, the DA kernel's design)."""
     surr = configs.build("darcy64_da_fused", "cpu").batched_surrogate_fn
     assert (surr.n, surr.K, surr.modes) == (32, 144, 128)
-    assert not _takes(surr) and surr.kernel_label == "darcy_misfit_kernel[n=32]"
+    assert _cluster.misfit_cluster_level(**surr.spec_fields) == _cluster.SURR
+    assert _takes(surr) and surr.kernel_label == "darcy_misfit_surr_cluster_kernel[n=32]"
 
 
 def test_the_left_32_warm_jacobi_spec_is_rounding_sensitive_from_zero():

@@ -194,18 +194,21 @@ def test_grad_misfit_kernel_matches_plain(mala_warm_problem):
 
 
 def test_grad_warm_misfit_kernel_matches_plain(mala_warm_problem):
-    """(Φ, ∇Φ, aux) of the dst / 6 + 6 CG pair from aux0 = 0 and from that
-    aux after a MALA-sized move; bf16 rounding flips as in
+    """(Φ, ∇Φ, aux) of the dst / 6 + 6 CG pair (a draw a warp,
+    darcy_misfit_grad_warm_warp_kernel) from aux0 = 0 and from that aux after
+    a MALA-sized move; bf16 rounding flips as in
     tests/test_torch_darcy_warm.py."""
     pag, aux_dim = mala_warm_problem.batched_warm_potential
     g = torch.Generator().manual_seed(1)
     U = mala_warm_problem.prior.sample(g, 512).T.contiguous()
     U2 = (U + 0.012 * mala_warm_problem.prior.sample(g, 512).T).contiguous()
     zeros = torch.zeros(aux_dim, 512, device="cuda")
-    before = _build.launch_counts["darcy_misfit_grad_warm_kernel"]
+    name = pag.grad_warm_kernel_label
+    assert name == "darcy_misfit_grad_warm_warp_kernel[n=16]"
+    before = _build.launch_counts[name]
     out1 = pag(U, zeros)
     out2 = pag(U2, out1[2])
-    assert _build.launch_counts["darcy_misfit_grad_warm_kernel"] == before + 2
+    assert _build.launch_counts[name] == before + 2
     N = aux_dim // 2
     for got, ref in ((out1, pag._value_and_grad_plain(U, zeros[:N], zeros[N:])),
                      (out2, pag._value_and_grad_plain(U2, out1[2][:N], out1[2][N:]))):
@@ -215,6 +218,89 @@ def test_grad_warm_misfit_kernel_matches_plain(mala_warm_problem):
         assert float(_col_err(got[1], ref[1]).max()) <= 2e-2
         assert float(_col_err(got[2][:N], ref[2]).max()) <= 5e-3
         assert float(_col_err(got[2][N:], ref[3]).max()) <= 2e-2
+
+
+def test_grad_warm_kernel_takes_a_spec_the_warp_rule_leaves(mala_warm_problem):
+    """A 16² warm Jacobi / 48 + 48 CG pair (no config) stays on
+    darcy_misfit_grad_kernel<true>, one draw a CTA, from aux0 = 0 (the cold
+    pair's arithmetic) and from that aux after a MALA-sized move, and meets
+    its plain twin under the cold pair's bounds: f32 only, so Φ within 1e-4
+    and the gradient and solutions within 1e-3 of a draw's largest entry."""
+    from ip_mcmc_tpu_torch.convert import darcy_mala_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    p = mala_warm_problem
+    aux = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    pag, aux_dim = darcy_mala_warm_misfit_from_arrays(aux, p.data, 0.002, cg_iters=48,
+                                                      precond="jacobi")
+    pag = pag.cuda()
+    name = pag.grad_warm_kernel_label
+    assert name == "darcy_misfit_grad_warm_kernel"
+    g = torch.Generator().manual_seed(41)
+    U = p.prior.sample(g, 512).T.contiguous()
+    U2 = (U + 0.012 * p.prior.sample(g, 512).T).contiguous()
+    zeros = torch.zeros(aux_dim, 512, device="cuda")
+    before = _build.launch_counts[name]
+    out1 = pag(U, zeros)
+    out2 = pag(U2, out1[2])
+    assert _build.launch_counts[name] == before + 2
+    N = aux_dim // 2
+    for got, ref in ((out1, pag._value_and_grad_plain(U, zeros[:N], zeros[N:])),
+                     (out2, pag._value_and_grad_plain(U2, out1[2][:N], out1[2][N:]))):
+        assert float(_rel(got[0], ref[0]).max()) <= 1e-4
+        assert float(_col_err(got[1], ref[1]).max()) <= 1e-3
+        assert float(_col_err(got[2][:N], ref[2]).max()) <= 1e-3
+        assert float(_col_err(got[2][N:], ref[3]).max()) <= 1e-3
+
+
+def test_grad_warm_warp_kernel_on_a_ragged_width(mala_warm_problem):
+    """darcy_mala_warm's warm pair on 13 draws: one CTA of 16 warps, 3
+    spare leaving after the staging. A draw's warp needs no other, so (Φ,
+    ∇Φ, aux) from aux0 = 0 and from the previous aux equal the first 13 of
+    a 16-draw launch bit for bit."""
+    pag, aux_dim = mala_warm_problem.batched_warm_potential
+    g = torch.Generator().manual_seed(42)
+    U = mala_warm_problem.prior.sample(g, 16).T.contiguous()
+    aux0 = torch.zeros(aux_dim, 16, device="cuda")
+    for _ in range(2):
+        got, full = pag(U[:, :13].contiguous(), aux0[:, :13].contiguous()), pag(U, aux0)
+        assert torch.equal(got[0], full[0][:13])
+        assert all(torch.equal(a, b[:, :13]) for a, b in zip(got[1:], full[1:]))
+        U = (U + 0.012 * mala_warm_problem.prior.sample(g, 16).T).contiguous()
+        aux0 = full[2]
+
+
+def test_grad_warm_warp_geometry_matches_the_kernel(mala_warm_problem):
+    """ops/fused_mala.py misfit_grad_warm_warp_geometry and
+    misfit_grad_warm_warp_takes give what the C function computes: the
+    geometry of the warm MALA kernel's spec, cudaErrorNotSupported for the
+    specs the rule leaves (warm Jacobi and dst_trunc pairs, the cold
+    Jacobi misfit, the 32² misfits)."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.convert import darcy_mala_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    lib = _build.library()
+    p = mala_warm_problem
+    aux = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    left = [darcy_mala_warm_misfit_from_arrays(aux, p.data, 0.002, cg_iters=6, precond=pc,
+                                               precond_modes=128)[0].cuda()
+            for pc in ("jacobi", "dst_trunc")]
+    pots = (p.batched_warm_potential[0], *left, p.batched_potential_fn, *_misfits32())
+    taken = 0
+    for pot in pots:
+        for B in (4096, 13, 1, 0):
+            out = (ctypes.c_int * 3)()
+            status = lib.ipx_darcy_misfit_grad_warm_warp_geometry(ctypes.byref(pot.spec()), B,
+                                                                  out)
+            if fused_mala.misfit_grad_warm_warp_takes(**pot.spec_fields):
+                assert status == 0 and tuple(out) == fused_mala.misfit_grad_warm_warp_geometry(
+                    B, **pot.spec_fields)
+                taken += 1
+            else:
+                assert "not supported" in lib.ipx_error_string(status).decode()
+    assert taken == 4
 
 
 @pytest.mark.parametrize("recorded", [False, True])
@@ -1288,8 +1374,9 @@ def test_layout64_misfits_take_a_spec_the_cluster_leaves():
 
 def _misfits32():
     """darcy32_pcn_warm's warm misfit, its cold Jacobi misfit (a spec the
-    cluster level leaves), darcy64_da_fused's 32² surrogate (K 144, left
-    too) and a cold dst_trunc-128 / 16 CG misfit on the 32² level."""
+    cluster level leaves), darcy64_da_fused's 32² surrogate (K 144: the 64²
+    DA kernel's surrogate level) and a cold dst_trunc-128 / 16 CG misfit on
+    the 32² level."""
     from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
     from ip_mcmc_tpu_torch.models import darcy
 
@@ -1322,6 +1409,22 @@ def test_misfit_warm_cluster32_kernel_on_a_ragged_width():
         assert float(_col_err(x, ref_x).max()) <= 5e-3
         x0 = x16
     assert _build.launch_counts[warm.warm_kernel_label] == before + 4
+
+
+def test_misfit_surr_cluster_kernel_on_a_ragged_width():
+    """darcy64_da_fused's 32² surrogate on 13 draws: two clusters of 8
+    CTAs, 3 spare. A draw's columns of the cluster's products depend on it
+    alone, so Φ* equals the first 13 of a 16-draw launch bit for bit and
+    agrees with the plain twin."""
+    p = _build_on_card("darcy64_da_fused")
+    surr = p.batched_surrogate_fn
+    assert surr.kernel_label == "darcy_misfit_surr_cluster_kernel[n=32]"
+    U = p.prior.sample(torch.Generator().manual_seed(43), 16).T.contiguous()
+    before = _build.launch_counts[surr.kernel_label]
+    got, full = surr(U[:, :13].contiguous()), surr(U)
+    assert _build.launch_counts[surr.kernel_label] == before + 2
+    assert torch.equal(got, full[:13])
+    _misfit_rel_ok(got, surr._forward_plain(U[:, :13]))
 
 
 def test_misfit_cluster32_kernel_matches_plain():
@@ -1390,8 +1493,9 @@ def test_layout_misfits_take_the_specs_the_rules_leave():
     to the slice kernel a draw a warp, held here under the same bound); 16²
     dst_trunc-160 (more modes than the warp kernel stages) and 16²
     Richardson; the 8² surrogates (CG and Richardson); darcy32_pcn_warm's
-    cold Jacobi misfit; darcy64_da_fused's
-    32² surrogate (K 144); a 32² warm Jacobi / 16 CG misfit, from x0 = 0
+    cold Jacobi misfit (and darcy64_da_fused's 32² surrogate, K 144, which
+    the 64² DA kernel's surrogate level takes, held here under the same
+    bound); a 32² warm Jacobi / 16 CG misfit, from x0 = 0
     and from the previous solution. Each meets its twin under its bound
     (bf16 preconditioners: chip_smoke.py's largest relative error, 5e-3;
     Jacobi: f32 only, 1e-4; the 32² warm Jacobi solve stops unconverged,
@@ -1419,7 +1523,7 @@ def test_layout_misfits_take_the_specs_the_rules_leave():
              (p.batched_surrogate_fn, "darcy_misfit_kernel[n=8]", 5e-3),
              (rich.batched_surrogate_fn, "darcy_misfit_kernel[n=8,richardson]", 5e-3),
              (jacobi32, "darcy_misfit_kernel[n=32]", 1e-4),
-             (surr32, "darcy_misfit_kernel[n=32]", 5e-3))
+             (surr32, "darcy_misfit_surr_cluster_kernel[n=32]", 5e-3))
     g = torch.Generator().manual_seed(37)
     for pot, label, max_rel in cases:
         assert pot.kernel_label == label
