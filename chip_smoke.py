@@ -9,12 +9,15 @@ problem, 2048 on Burgers and lingauss_pcn, 8192 and 1024 on the 2-D
 Gaussians), times both, then drives the ported paths at full width:
 
     darcy_da_fused           delayed-acceptance pCN     (K1-K5); the exact
-                             misfit at the start positions a draw a warp on
-                             the DA kernel's exact level
+                             misfit and the surrogate at the start
+                             positions a draw a warp on the DA kernel's
+                             exact and 8 x 8 levels
     darcy_da_richardson      the same with each surrogate of
                              benchmarks/darcy_da_richardson.py: three solved
                              by Richardson (K17), the CG one beside them
-    darcy_pcn_warm           warm-started pCN           (K7), a chain a warp
+    darcy_pcn_warm           warm-started pCN           (K7), a chain a warp;
+                             the warm misfit at the start positions a draw
+                             a warp on its solve
     darcy32_pcn_warm         warm pCN on 32 x 32 cells  (K5, K7), G chains
                              a thread-block cluster, 7 CTAs an SM, the
                              factors read through L2; the warm misfit at
@@ -90,7 +93,13 @@ import torch
 BF16_TOL = (2e-6, 1e-5, 0.80, 5e-3)   # the bounds of tests/test_torch_darcy.py
 # 4 iterations from x0 = 0 stop in an unconverged solve, where a flip is
 # not damped (tests/test_torch_darcy_warm.py: median <= 5e-6, >= 94% within
-# 1e-4, max 7e-4 against JAX):
+# 1e-4, max 7e-4 against JAX). There f32 summation order alone moves Phi:
+# at 4096 draws of darcy_pcn_warm's spec the f32 plain version lies a
+# median 1.8-1.9e-5 from itself in f64 with the same bf16 roundings, and a
+# kernel that adds in another order (the tensor cores' products) 1.9-2.1e-5
+# from the f32 one (PERF.md). The warm misfit a draw a warp on K7's level is
+# held against the f64 version (float64_twin), which takes the twin's own
+# rounding out of the distance:
 BF16_COLD_START_TOL = (2e-5, 1e-4, 0.90, 5e-3)
 # every input f32 (Jacobi): summation order only
 F32_TOL = (2e-6, 1e-5, 0.99, 1e-4)
@@ -319,11 +328,13 @@ def plain_potential(pot, warm=False):
 
 
 def compare_misfit(results, pot, U, *, variant, paths, tol, x0=None,
-                   replaces):
+                   replaces, f64=False):
     """One misfit kernel launch against its plain version on the same
     inputs; appends the result row. ``paths``: the configs whose CLI runs
     launch this variant (none for an option that no shipped config uses).
-    Returns the kernel's output."""
+    ``f64``: hold it against the plain version in f64 with the same bf16
+    roundings (``float64_twin``) rather than in f32, and print the f32
+    twin's distance beside. Returns the kernel's output."""
     from ip_mcmc_tpu_torch.ops import _build
 
     warm = x0 is not None
@@ -338,6 +349,11 @@ def compare_misfit(results, pot, U, *, variant, paths, tol, x0=None,
     got, ref = kern(), plain()
     torch.cuda.synchronize()
     assert _build.launch_counts[name] == before + 1, f"{name} did not launch"
+    twin32 = None
+    if f64:
+        twin32, twin = ref, pot.float64_twin()
+        ref = (twin._forward_warm_plain(U.double(), x0.double()) if warm
+               else twin._forward_plain(U.double()))
     phi, phi_ref = (got[0], ref[0]) if warm else (got, ref)
     B = U.shape[1]
     assert phi.shape == phi_ref.shape == (B,)
@@ -347,6 +363,14 @@ def compare_misfit(results, pot, U, *, variant, paths, tol, x0=None,
     frac = float((rel <= rtol).double().mean())
     line = (f"{name} ({variant}, {B} draws): {frac:.4f} within rtol {rtol}, "
             f"median rel {float(rel.median()):.3e}, max rel {float(rel.max()):.3e}")
+    if f64:
+        phi32 = twin32[0] if warm else twin32
+        rel32 = ((phi32 - phi_ref).abs() / phi_ref.abs()).cpu()
+        rel_k32 = ((phi - phi32).abs() / phi32.abs()).cpu()
+        line += (f" against the plain version in f64 (the f32 twin against it: median "
+                 f"{float(rel32.median()):.3e}, {float((rel32 <= rtol).double().mean()):.4f} "
+                 f"within rtol, max {float(rel32.max()):.3e}; the kernel against the f32 twin: "
+                 f"median {float(rel_k32.median()):.3e}, max {float(rel_k32.max()):.3e})")
     max_abs = float((phi - phi_ref).abs().max())
     bad = float(rel.median()) > median or frac < min_frac or float(rel.max()) > rtol_max
     if warm:
@@ -366,6 +390,7 @@ def compare_misfit(results, pot, U, *, variant, paths, tol, x0=None,
         # fused_da_pcn.cu
         "source": SRC + ("fused_pcn.cu" if warm else "fused_da_pcn.cu"),
         "replaces": replaces, "paths": paths, "max_abs_err": max_abs,
+        "reference": "plain version in f64" if f64 else "plain version",
         "max_rel_err": float(rel.max()), "frac_within_rtol": frac,
         "ms": ms, "plain_ms": plain_ms, "ms_unit": f"one call, {B} draws",
         **misfit_bound(pot, B, warm), "library_ms": None,
@@ -428,8 +453,14 @@ def compare_chain(results, stem, recorded, kern, plain, *, steps, kernel_long,
 # the 16x16 DA kernel: one warp per chain, the preconditioner's products
 # on the tensor cores over a CTA's chains
 DA16 = "fused_da_pcn_warp_kernel"
-# its exact misfit at the start positions, a draw a warp on its exact level
+# its exact misfit and its 8x8 surrogate (CG or Richardson) at the start
+# positions, a draw a warp on its exact and surrogate levels
 MISFIT16 = "darcy_misfit_warp_kernel[n=16]"
+MISFIT8 = "darcy_misfit_warp_kernel[n=8]"
+MISFIT8_RICH = "darcy_misfit_warp_kernel[n=8,richardson]"
+# darcy_pcn_warm's warm misfit at the start positions, a draw a warp on the
+# warm pCN's solve (WarpTruncSliceLevel)
+MISFIT_WARM16 = "darcy_misfit_warm_warp_kernel[n=16]"
 # the 16x16 Jacobi misfit of ESS, cold pCN and FES at the start positions,
 # and its value and gradient for cold MALA: a draw a warp on their samplers'
 # solve (WarpSliceLevel)
@@ -473,9 +504,19 @@ def check_da(problem, gen, results):
     compare_misfit(results, exact, U, variant="exact: dst_trunc-128, 12 CG",
                    paths=["darcy_da_fused"], tol=BF16_TOL,
                    replaces="ip_mcmc_tpu/models/darcy.py:542")
-    compare_misfit(results, surr, U, variant="surrogate: dst_trunc-64, 3 CG",
-                   paths=["darcy_da_fused"], tol=BF16_TOL,
+    assert (exact.kernel_label, surr.kernel_label) == (MISFIT16, MISFIT8)
+    compare_misfit(results, surr, U,
+                   variant=(f"surrogate: dst_trunc-64, 3 CG, a draw a warp, "
+                            f"{da.MISFIT_SURR_WARP_DRAWS} a CTA"),
+                   paths=["darcy_da_fused", richardson_path("cg3")], tol=BF16_TOL,
                    replaces="ip_mcmc_tpu/models/darcy.py:542")
+    # the one-draw-a-CTA kernel on an 8x8 spec the warp rule leaves (no
+    # config): K 36
+    k36 = misfit8_left()
+    assert k36.kernel_label == "darcy_misfit_kernel[n=8]", k36.kernel_label
+    compare_misfit(results, k36, torch.randn(k36.K, N_CHAINS, generator=gen).cuda(),
+                   variant="8x8 K 36, dst_trunc-64, 3 CG: a spec the warp rule leaves, one draw "
+                   "a CTA (no path)", paths=[], tol=BF16_TOL, replaces=JAX_DARCY + "542")
     pos = problem.init_positions(gen, N_CHAINS).cuda()
     block, k, outer = 512, 48, 2
     args = (exact, surr, pos, problem.prior.mean, problem.prior.scale, 0.35, 11)
@@ -499,29 +540,36 @@ def check_da(problem, gen, results):
 
 
 def check_warm_misfit(problem, gen, results):
-    """The warm misfit kernel: the shipped dst_trunc-64 / 4 CG from x0 = 0
-    and from a previous solution, the dense dst / 4 CG, and Jacobi."""
+    """The warm misfit kernels: the shipped dst_trunc-64 / 4 CG a draw a warp
+    on the warm pCN's solve, from x0 = 0 (against the plain version in f64)
+    and from a previous solution; the
+    one-draw-a-CTA kernel on the dense dst / 4 CG and on Jacobi, specs the
+    warm warp rule leaves."""
     from ip_mcmc_tpu_torch.convert import darcy_warm_misfit_from_arrays
     from ip_mcmc_tpu_torch.models import darcy
+    from ip_mcmc_tpu_torch.ops import fused_pcn
 
     warm, aux_dim = problem.batched_warm_potential
+    assert warm.warm_kernel_label == MISFIT_WARM16, warm.warm_kernel_label
     U = problem.prior.sample(gen, N_CHAINS).T.contiguous()
     step = problem.prior.sample(gen, N_CHAINS).T.contiguous()
     U2 = (math.sqrt(1 - 0.08 ** 2) * U + 0.08 * step).contiguous()  # a pCN move
     zeros = torch.zeros(aux_dim, N_CHAINS, device="cuda")
     replaces = "ip_mcmc_tpu/models/darcy.py:669"
+    what = f"dst_trunc-64, 4 CG, a draw a warp, {fused_pcn.MISFIT_WARM_WARP_DRAWS} a CTA"
     _, x1 = compare_misfit(
-        results, warm, U, x0=zeros, variant="dst_trunc-64, 4 CG, x0 = 0",
-        paths=["darcy_pcn_warm"], tol=BF16_COLD_START_TOL, replaces=replaces)
+        results, warm, U, x0=zeros, variant=f"{what}, x0 = 0",
+        paths=["darcy_pcn_warm"], tol=BF16_COLD_START_TOL, replaces=replaces, f64=True)
     compare_misfit(
-        results, warm, U2, x0=x1, variant="dst_trunc-64, 4 CG, x0 = previous solution",
+        results, warm, U2, x0=x1, variant=f"{what}, x0 = previous solution",
         paths=["darcy_pcn_warm"], tol=BF16_TOL, replaces=replaces)
     aux = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
-    # options of the warm misfit that no shipped config uses: no path
-    # launches them
+    # options of the warm misfit that no shipped config uses, which the warm
+    # warp rule leaves to the one-draw-a-CTA kernel: no path launches them
     for precond, iters, tol in (("dst", 4, BF16_TOL), ("jacobi", 16, F32_TOL)):
         other = darcy_warm_misfit_from_arrays(
             aux, problem.data, 0.002, cg_iters=iters, precond=precond)[0].cuda()
+        assert other.warm_kernel_label == "darcy_misfit_warm_kernel", other.warm_kernel_label
         compare_misfit(
             results, other, U2, x0=x1,
             variant=f"{precond}, {iters} CG, x0 = previous solution",
@@ -1148,9 +1196,43 @@ def richardson_path(variant):
     return f"darcy_da_richardson[{variant}]"
 
 
+def misfit8_left(**kw):
+    """An 8x8 cold misfit on darcy_da_fused's surrogate observations and data
+    with K 36 (dst_trunc-64 / 3 CG unless ``kw`` says otherwise): a spec the
+    warp rule leaves to the one-draw-a-CTA kernel (no config)."""
+    from ip_mcmc_tpu_torch import configs
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    fx = np.load(configs.FIXTURE)
+    aux = darcy.darcy_aux(n_grid=8, n_modes_per_dim=6, alpha=2.0, field_scale=10.0,
+                          obs_indices=fx["obs_coarse"])
+    kw = {"cg_iters": 3, "precond": "dst_trunc", "precond_modes": 64, **kw}
+    return darcy_misfit_from_arrays(aux, fx["y_surr"], fx["surr_scale"], **kw).cuda()
+
+
+def misfits_left_by_warp_rules(problem):
+    """Cold misfits that no rule of the 16x16 DA kernel's levels takes (on
+    the card): 8x8 with K 36 by CG and by Richardson, 12x12 dst_trunc-64 / 3
+    CG and 16x16 Richardson on ``problem``'s data (no config)."""
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    def misfit(n_grid, **kw):
+        aux = darcy.darcy_aux(n_grid=n_grid, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+        return darcy_misfit_from_arrays(aux, problem.data, 0.002, cg_iters=3,
+                                        precond="dst_trunc", **kw).cuda()
+
+    return (misfit8_left(), misfit8_left(solver="richardson", omega=0.9),
+            misfit(12, precond_modes=64),
+            misfit(16, precond_modes=128, solver="richardson", omega=0.9))
+
+
 def check_richardson(richardson, gen, results):
-    """K17 in the standalone misfit kernel at each Richardson surrogate of
-    benchmarks/darcy_da_richardson.py, then the DA kernel's Richardson
+    """K17 in the standalone misfit kernel a draw a warp on the DA kernel's
+    8x8 level at each Richardson surrogate of
+    benchmarks/darcy_da_richardson.py, and in the one-draw-a-CTA kernel on an
+    8x8 spec the warp rule leaves (K 36); then the DA kernel's Richardson
     surrogate instantiation against its plain loop at 4096 chains."""
     from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
 
@@ -1158,12 +1240,20 @@ def check_richardson(richardson, gen, results):
     for variant in rich:
         p = richardson[variant]
         surr = p.batched_surrogate_fn
+        assert surr.kernel_label == MISFIT8_RICH, surr.kernel_label
         U = p.prior.sample(gen, N_CHAINS).T.contiguous()
         compare_misfit(results, surr, U,
                        variant=(f"{variant}: 8x8 dst_trunc-64, {surr.cg_iters} Richardson "
-                                f"iterations, omega {surr.omega:.1f}"),
+                                f"iterations, omega {surr.omega:.1f}, a draw a warp, "
+                                f"{da.MISFIT_SURR_WARP_DRAWS} a CTA"),
                        paths=[richardson_path(variant)], tol=RICH_BF16_TOL,
                        replaces=JAX_DARCY + "401")
+    k36 = misfit8_left(solver="richardson", omega=0.9)
+    assert k36.kernel_label == "darcy_misfit_kernel[n=8,richardson]", k36.kernel_label
+    compare_misfit(results, k36, torch.randn(k36.K, N_CHAINS, generator=gen).cuda(),
+                   variant="8x8 K 36, dst_trunc-64, 3 Richardson iterations, omega 0.9: a spec "
+                   "the warp rule leaves, one draw a CTA (no path)", paths=[],
+                   tol=RICH_BF16_TOL, replaces=JAX_DARCY + "401")
     p = richardson["rich3_w0.9"]
     exact, surr = p.batched_potential_fn, p.batched_surrogate_fn
     pos = p.init_positions(gen, N_CHAINS).cuda()
@@ -1317,11 +1407,15 @@ MISFIT32_WARM = "darcy_misfit_warm_cluster32_kernel"
 MISFIT_SURR = "darcy_misfit_surr_cluster_kernel[n=32]"
 # ... these and the 16x16 warp misfit as ptxas names them, mangled and
 # demangled (each name is in no other kernel's)
-MISFIT_PTXAS = {MISFIT64: ("darcy_misfit_cluster_kernel",),
+MISFIT_PTXAS = {MISFIT8: ("darcy_misfit_warp_kernelILi8ELi0E", "darcy_misfit_warp_kernel<8, 0>"),
+                MISFIT8_RICH: ("darcy_misfit_warp_kernelILi8ELi1E",
+                               "darcy_misfit_warp_kernel<8, 1>"),
+                MISFIT_WARM16: ("darcy_misfit_warm_warp_kernel",),
+                MISFIT64: ("darcy_misfit_cluster_kernel",),
                 MISFIT64_WARM: ("darcy_misfit_warm_cluster_kernel",),
                 MISFIT32: ("darcy_misfit_cluster32_kernel",),
                 MISFIT32_WARM: ("darcy_misfit_warm_cluster32_kernel",),
-                MISFIT16: ("darcy_misfit_warp_kernel",),
+                MISFIT16: ("darcy_misfit_warp_kernelILi16ELi0E", "darcy_misfit_warp_kernel<16, 0>"),
                 MISFIT_SLICE: ("darcy_misfit_slice_kernel",),
                 MISFIT_SURR: ("darcy_misfit_surr_cluster_kernel",)}
 
@@ -1522,12 +1616,13 @@ def surrogates_left():
 
 def check_misfit_levels(problems, richardson):
     """What the standalone misfits on the samplers' levels add beside their
-    twins. For darcy_misfit_warp_kernel: the Python mirror of its rule and
-    geometry against the C function, for darcy_da_fused's exact misfit and
-    the Richardson runs' at 4096, a ragged 13, 1 and 0 draws; for the specs
-    it leaves (the 8x8 surrogates, CG and Richardson; the 16x16 Jacobi / 48
-    CG misfit of ESS, cold pCN and FES; a 32x32 misfit), C's
-    cudaErrorNotSupported against the mirror's refusal. Then a ragged width
+    twins. For darcy_misfit_warp_kernel on the 16x16 DA kernel's exact
+    level: the Python mirror of its rule and geometry against the C
+    function, for darcy_da_fused's exact misfit and the Richardson runs' at
+    4096, a ragged 13, 1 and 0 draws; for the specs no level takes (the
+    16x16 Jacobi / 48 CG misfit of ESS, cold pCN and FES; a 32x32 misfit;
+    misfits_left_by_warp_rules), C's cudaErrorNotSupported against the
+    mirror's refusal (its 8x8 level: check_warm16_surr8). Then a ragged width
     for it and for the 32x32 cluster misfits, warm and cold: Φ (and x) on
     13 draws equal bit for bit to the first 13 of the kernel's own 16-draw
     run."""
@@ -1540,8 +1635,9 @@ def check_misfit_levels(problems, richardson):
     da_p, p32 = problems["darcy_da_fused"], problems["darcy32_pcn_warm"]
     rich = richardson["rich3_w0.9"]
     taken = (da_p.batched_potential_fn, rich.batched_potential_fn)
-    left = (da_p.batched_surrogate_fn, rich.batched_surrogate_fn,
-            problems["darcy_ess_fused"].batched_potential_fn, misfit32_cold(p32))
+    surr8 = (da_p.batched_surrogate_fn, rich.batched_surrogate_fn)
+    left = (problems["darcy_ess_fused"].batched_potential_fn, misfit32_cold(p32),
+            *misfits_left_by_warp_rules(da_p))
 
     def geometry(pot, B):
         out = (ctypes.c_int * 3)()
@@ -1562,6 +1658,7 @@ def check_misfit_levels(problems, richardson):
     print(f"misfit warp geometry: Python mirror equals the C function for {MISFIT16} "
           f"(shipped: {da.misfit_warp_geometry(N_CHAINS)}); C and Python leave the same "
           f"{len(left)} other specs to the other kernels", flush=True)
+    check_warm16_surr8(problems, richardson, left)
 
     g = torch.Generator().manual_seed(33)
     exact, cold32 = da_p.batched_potential_fn, misfit32_cold(p32)
@@ -1588,8 +1685,89 @@ def check_misfit_levels(problems, richardson):
             raise AssertionError(f"{MISFIT32_WARM} on a ragged width disagrees")
         U = (0.9968 * U + 0.08 * p32.prior.sample(g, 16).T).contiguous()  # a pCN move
         x0 = x16
-    check_slice_misfits(problems, left[:2] + taken + left[3:])
-    check_warm_surr_misfits(problems, left[:3] + taken)
+    check_slice_misfits(problems, surr8 + taken + left[1:2])
+    check_warm_surr_misfits(problems, surr8 + left[:1] + taken)
+
+
+def check_warm16_surr8(problems, richardson, left):
+    """What the two misfits a draw a warp on the 16x16 samplers' levels add
+    beside their twins: for darcy_misfit_warm_warp_kernel (darcy_pcn_warm's
+    warm misfit) and darcy_misfit_warp_kernel on the 8x8 level (the
+    surrogates of darcy_da_fused and the three Richardson runs), the Python
+    mirrors of their rules and geometries against the C functions at 4096,
+    4091, 13, 1 and 0 draws; for the specs each rule leaves (the warm: dense
+    dst, Jacobi, 128 modes, the 32x32 level's, the cold misfits; the 8x8:
+    ``left``), C's cudaErrorNotSupported against the mirror's refusal. Then
+    ragged widths: the outputs on 4091 and 13 draws equal bit for bit to the
+    first of the kernel's own 4096-draw run (warm: from x0 = 0 and from the
+    previous solution)."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.convert import darcy_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+    from ip_mcmc_tpu_torch.ops import _build, fused_pcn
+    from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
+
+    lib = _build.library()
+    warm_p, da_p = problems["darcy_pcn_warm"], problems["darcy_da_fused"]
+    warm, aux_dim = warm_p.batched_warm_potential
+    surrs = (da_p.batched_surrogate_fn,
+             *(p.batched_surrogate_fn for v, p in richardson.items() if v != "cg3"))
+    aux = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    warm_left = (*(darcy_warm_misfit_from_arrays(aux, warm_p.data, 0.002, cg_iters=it,
+                                                 precond=pc, precond_modes=128)[0].cuda()
+                   for pc, it in (("dst", 4), ("jacobi", 16), ("dst_trunc", 4))),
+                 problems["darcy32_pcn_warm"].batched_warm_potential[0],
+                 warm_p.batched_potential_fn, da_p.batched_potential_fn, *surrs)
+    rules = ((MISFIT_WARM16, lib.ipx_darcy_misfit_warm_warp_geometry,
+              fused_pcn.misfit_warm_warp_takes, fused_pcn.misfit_warm_warp_geometry,
+              (warm,), warm_left),
+             (f"{MISFIT8} / {MISFIT8_RICH}", lib.ipx_darcy_misfit_warp_geometry,
+              da.misfit_warp_takes, da.misfit_warp_geometry, surrs, left))
+    for name, c_geometry, takes, geometry, taken, leaves in rules:
+        out = (ctypes.c_int * 3)()
+        for pot in taken:
+            for B in (N_CHAINS, N_CHAINS - 5, 13, 1, 0):
+                status = c_geometry(ctypes.byref(pot.spec()), B, out)
+                want = geometry(B, **pot.spec_fields)
+                if status != 0 or tuple(out) != want or not takes(**pot.spec_fields):
+                    raise AssertionError(f"{name} geometry at {B} draws: C {tuple(out)} "
+                                         f"(status {status}), Python {want}")
+        for pot in leaves:
+            status = c_geometry(ctypes.byref(pot.spec()), 64, out)
+            if status != 801 or takes(**pot.spec_fields):  # cudaErrorNotSupported
+                raise AssertionError(f"{name} on {pot.n}x{pot.n} {pot.precond} ({pot.modes} "
+                                     f"modes) {pot.solver}, K {pot.K}: C status {status}")
+        print(f"{name} geometry: Python mirror equals the C function on {len(taken)} shipped "
+              f"specs (at {N_CHAINS}: {geometry(N_CHAINS, **taken[0].spec_fields)}); C and "
+              f"Python leave the same {len(leaves)} other specs to the other kernels",
+              flush=True)
+
+    g = torch.Generator().manual_seed(36)
+    U = warm_p.prior.sample(g, N_CHAINS).T.contiguous()
+    x0 = torch.zeros(aux_dim, N_CHAINS, device="cuda")
+    for start in ("x0 = 0", "x0 = previous solution"):
+        full = warm(U, x0)
+        for B in (N_CHAINS - 5, 13):
+            got = warm(U[:, :B].contiguous(), x0[:, :B].contiguous())
+            torch.cuda.synchronize()
+            equal = torch.equal(got[0], full[0][:B]) and torch.equal(got[1], full[1][:, :B])
+            print(f"{MISFIT_WARM16} ragged ({B} draws, {start}): (Phi, x) equal to the first "
+                  f"{B} of {N_CHAINS} {equal}", flush=True)
+            if not equal:
+                raise AssertionError(f"{MISFIT_WARM16} on a ragged width disagrees")
+        U = (0.9968 * U + 0.08 * warm_p.prior.sample(g, N_CHAINS).T).contiguous()  # a pCN move
+        x0 = full[1]
+    for surr in surrs:
+        full = surr(U)
+        for B in (N_CHAINS - 5, 13):
+            got = surr(U[:, :B].contiguous())
+            torch.cuda.synchronize()
+            equal = torch.equal(got, full[:B])
+            print(f"{surr.kernel_label} ragged ({B} draws, {surr.solver} {surr.cg_iters}): "
+                  f"equal to the first {B} of {N_CHAINS} {equal}", flush=True)
+            if not equal:
+                raise AssertionError(f"{surr.kernel_label} on a ragged width disagrees")
 
 
 def check_warm_surr_misfits(problems, others):
@@ -2020,6 +2198,12 @@ def run_richardson_da(richardson):
         kernels = (p.batched_potential_fn.kernel_label, surr.kernel_label,
                    f"{da}<false>", f"{da}<true>")
         counts[p.name], m = drive_phase(p.name, kernels, lambda: runner.run_problem(p, "cuda"))
+        # the one-draw-a-CTA 8x8 kernel, which the surrogate left for its
+        # DA kernel's level a draw a warp
+        retired = {k: v for k, v in counts[p.name].items()
+                   if k.startswith("darcy_misfit_kernel[n=8") and v}
+        if retired:
+            raise AssertionError(f"{p.name} launched {retired}")
         assert m["n_chains"] == p.n_chains and math.isfinite(m["max_rhat"])
         assert all(math.isfinite(v) for v in m["posterior_mean"])
         assert 0.0 < m["accept_rate"] <= 1.0 and 0.0 < m["inner_accept_rate"] <= 1.0
@@ -2737,10 +2921,8 @@ def run_lingauss_fused(problem):
 
 # config -> (CLI flags, kernels the run must launch)
 PATHS = {
-    "darcy_da_fused": ([], (MISFIT16, "darcy_misfit_kernel[n=8]", f"{DA16}<false>",
-                            f"{DA16}<true>")),
-    "darcy_pcn_warm": ([], ("darcy_misfit_warm_kernel", f"{PCN_WARM}<false>",
-                            f"{PCN_WARM}<true>")),
+    "darcy_da_fused": ([], (MISFIT16, MISFIT8, f"{DA16}<false>", f"{DA16}<true>")),
+    "darcy_pcn_warm": ([], (MISFIT_WARM16, f"{PCN_WARM}<false>", f"{PCN_WARM}<true>")),
     "darcy32_pcn_warm": ([], (MISFIT32_WARM, f"{PCN32}<false>", f"{PCN32}<true>")),
     "darcy64_pcn_warm": ([], (MISFIT64_WARM, f"{PCN64}<false>", f"{PCN64}<true>")),
     "darcy64_da_fused": ([], (MISFIT64, MISFIT_SURR, f"{DA64}<false>", f"{DA64}<true>")),
@@ -2774,7 +2956,9 @@ RETIRED = {"darcy_ess_fused": ("darcy_misfit_kernel[n=16]",),
            "darcy_fes_fused": ("darcy_misfit_kernel[n=16]",),
            "darcy_mala_fused": ("darcy_misfit_grad_kernel[n=16]",),
            "darcy_mala_warm": ("darcy_misfit_grad_warm_kernel",),
-           "darcy64_da_fused": ("darcy_misfit_kernel[n=32]",)}
+           "darcy64_da_fused": ("darcy_misfit_kernel[n=32]",),
+           "darcy_pcn_warm": ("darcy_misfit_warm_kernel",),
+           "darcy_da_fused": ("darcy_misfit_kernel[n=8]",)}
 
 
 def run_cli(config, flags, n_samples):

@@ -21,9 +21,11 @@
 //   darcy_misfit_surr_cluster_kernel    the same on the 32x32 surrogate
 //                                       level of the 64x64 DA kernel
 //                                       (ClusterSurr).
-//   darcy_misfit_warp_kernel            the same on the exact level of the
-//                                       16x16 DA kernel, one draw a warp
-//                                       (WarpLevel).
+//   darcy_misfit_warp_kernel<N, SOLVER> the same on a level of the 16x16 DA
+//                                       kernel, one draw a warp (WarpLevel):
+//                                       its exact level (N = 16, CG) and its
+//                                       8x8 surrogate level (N = 8, CG or
+//                                       K17's Richardson).
 //   darcy_misfit_slice_kernel           the same on the 16x16 Jacobi spec of
 //                                       the ESS, cold pCN and FES samplers'
 //                                       solve, one draw a warp
@@ -101,6 +103,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "burgers_misfit.cuh"
 #include "darcy_misfit.cuh"
@@ -574,111 +577,152 @@ int launch_da_pcn_warp(const IpxMisfitSpec& exact, const IpxMisfitSpec& surr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// --- the standalone 16 x 16 exact misfit: one draw a warp ---------------------
+// --- the standalone misfits on the 16 x 16 DA kernel's levels: one draw a warp --
 //
-// Phi for a (K, B) batch on the exact level of the 16 x 16 DA kernel
-// (darcy_da_fused's exact misfit, 4096 draws of dst_trunc-128 / 12 CG, and
-// the exact misfit of the four darcy_da_richardson runs): one draw a warp,
-// MisfitWarpDesign::kWarps draws a CTA, darcy_phi_warp<kSolverCg> on the
-// arithmetic of the DA kernel's exact correction (WarpLevel: lane l owns
-// cells l, l + 32, ...; the dst_trunc products over the CTA's draws by
-// mma.sync), so that Phi0 and every correction's Phi come from one solve.
-// One draw a CTA of Layout16 read V (bf16 128 x 256, 64 KB) twice in each
-// of 13 applies and the f32 basis (64 KB) once a draw, ~1.7 MB from L2 a
-// draw, and summed each dot product over the CTA's 256 threads; here the
-// CTA's draws share each read of the factors, and the dot products are
-// warp sums. The preconditioner has CTA barriers, so the spare warps of a
-// ragged last CTA run the solve on zeros and write nothing.
+// Phi for a (K, B) batch on a level of the 16 x 16 DA kernel, one draw a
+// warp, darcy_phi_warp<SOLVER> on the level's WarpLevel arithmetic (lane l
+// owns cells l, l + 32, ...; the dst_trunc products over the CTA's draws by
+// mma.sync), so that Phi0 (Phi*0) and every correction's Phi (proposal's
+// Phi*) come from one solve:
+//
+//   darcy_misfit_warp_kernel<16, kSolverCg>  the exact level: darcy_da_fused's
+//       exact misfit, 4096 draws of dst_trunc-128 / 12 CG, and the exact
+//       misfit of the four darcy_da_richardson runs. One draw a CTA of
+//       Layout16 read V (bf16 128 x 256, 64 KB) twice in each of 13 applies
+//       and the f32 basis (64 KB) once a draw, ~1.7 MB from L2 a draw, and
+//       summed each dot product over the CTA's 256 threads.
+//   darcy_misfit_warp_kernel<8, SOLVER>  the 8 x 8 surrogate level
+//       (DaWarpSurr, solved by CG or by K17's Richardson): the surrogate of
+//       darcy_da_fused and of darcy_da_richardson[cg3], 4096 draws of
+//       dst_trunc-64 / 3 CG, and those of the three Richardson runs. One draw
+//       a CTA of Layout16 ran 64 of its 256 threads on the 64 cells and paid a
+//       CTA barrier for every stencil, dot product and preconditioner apply.
+//
+// Here the CTA's draws share each read of the factors, and the dot
+// products are warp sums. The preconditioner has CTA barriers, so the spare
+// warps of a ragged last CTA run the solve on zeros and write nothing.
 
-// The design (scripts/measure_misfit_warp_design.py times the
-// alternatives): kWarps draws a CTA, one a warp; the launch bound's warps
-// an SM (kSmWarps); the level's factors staged in shared memory once a CTA
-// or read through L2 (kStaged). The DA kernel keeps them in L2 only because
-// its surrogate takes the shared memory; this kernel has it free. Measured
-// on the H100 at 4096 draws (PERF.md): 16 draws a CTA with the factors
-// staged (~215 KB, one CTA an SM) 0.143 ms a call, against 0.231 through
-// L2 at W = 16 and 0.27 / 0.32 at the DA kernel's W = 8 staged / through
-// L2; every design gives the same bits (a draw's column of the products
-// depends on it alone). The products run as the DA kernel's
+// The designs (scripts/measure_misfit_warp_design.py and, at 8 x 8,
+// scripts/measure_misfit_warm16_surr8_design.py time the alternatives):
+// kWarps draws a CTA, one a warp; the launch bound's warps an SM
+// (kSmWarps); the level's factors staged in shared memory once a CTA or read
+// through L2 (kStaged). The DA kernel keeps the exact level's in L2 only
+// because its surrogate takes the shared memory; this kernel has it free.
+// Measured on the H100 at 4096 draws (PERF.md): 16 draws a CTA with the
+// factors staged (~215 KB, one CTA an SM) 0.143 ms a call, against 0.231
+// through L2 at W = 16 and 0.27 / 0.32 at the DA kernel's W = 8 staged /
+// through L2; every design gives the same bits (a draw's column of the
+// products depends on it alone). The products run as the DA kernel's
 // (DaWarpDesign::kMma). Staged, a spec whose factors leave no room (above
-// 144 modes) goes to the one-draw-a-CTA kernel (misfit_warp_takes).
+// 144 modes) goes to the one-draw-a-CTA kernel (misfit_warp_takes). The 8 x 8
+// level stages its factors (25 KB), as the DA kernel does.
 struct MisfitWarpDesign { static constexpr int kWarps = 16, kSmWarps = 16; static constexpr bool kStaged = true; };
-constexpr int kMisfitWarpTiles = (MisfitWarpDesign::kWarps + 7) / 8;  // mma tiles of 8 draws
-constexpr int kMisfitWarpMinCtas = MisfitWarpDesign::kSmWarps >= 2 * MisfitWarpDesign::kWarps
-                                       ? MisfitWarpDesign::kSmWarps / MisfitWarpDesign::kWarps
-                                       : 1;
-// a warp's slice: the draw's u (64), then p, th, tv of 256 cells
-constexpr int kMisfitWarpFloats = kDaWarpD + 3 * kDaWarpExactN * kDaWarpExactN;
+struct MisfitSurrWarpDesign { static constexpr int kWarps = 16, kSmWarps = 32; };
 
-using MisfitWarpExact =
-    WarpLevel<kDaWarpExactN, kMisfitWarpTiles, MisfitWarpDesign::kStaged, DaWarpDesign::kMma>;
+// A level of the kernel: the grid side N (kDaWarpExactN or kDaWarpSurrN),
+// its design, mma tiles of 8 draws, the launch bound's CTAs an SM, a warp's
+// slice (the draw's u, then p, th, tv of N^2 cells) and the level's
+// arithmetic.
+template <int N>
+struct MisfitWarp {
+  static_assert(N == kDaWarpExactN || N == kDaWarpSurrN, "a level of the 16 x 16 DA kernel");
+  using Design = std::conditional_t<N == kDaWarpExactN, MisfitWarpDesign, MisfitSurrWarpDesign>;
+  static constexpr bool kStaged = N == kDaWarpExactN ? MisfitWarpDesign::kStaged : true;
+  static constexpr int kTiles = (Design::kWarps + 7) / 8;
+  static constexpr int kMinCtas =
+      Design::kSmWarps >= 2 * Design::kWarps ? Design::kSmWarps / Design::kWarps : 1;
+  static constexpr int kFloats = kDaWarpD + 3 * N * N;
+  using Level = WarpLevel<N, kTiles, kStaged, DaWarpDesign::kMma>;
 
-// Dynamic shared memory of a launch on this spec: the exchange, the staged
-// factors (if the design stages them), a slice a warp.
-inline size_t misfit_warp_smem(const IpxMisfitSpec& s) {
-  return xchg_bytes(8 * kMisfitWarpTiles) + (MisfitWarpDesign::kStaged ? warp_staged_bytes(s) : 0) +
-         sizeof(float) * kMisfitWarpFloats * MisfitWarpDesign::kWarps;
-}
+  // Dynamic shared memory of a launch on this spec: the exchange, the
+  // staged factors (if the design stages them), a slice a warp.
+  static size_t smem(const IpxMisfitSpec& s) {
+    return xchg_bytes(8 * kTiles) + (kStaged ? warp_staged_bytes(s) : 0) +
+           sizeof(float) * kFloats * Design::kWarps;
+  }
+};
 
 // Whether darcy_misfit_warp_kernel takes this spec (ipx_darcy_misfit sends
 // it there, every other spec to the kernels of its layout or to the
-// cluster level): the DA kernel's exact level with dst_trunc, i.e. 16 x
-// 16, K = 64, a positive multiple of 16 modes up to 256, CG, in the
-// shared memory of a CTA (staged: up to 144 modes). Mirrored by ip_mcmc_tpu_torch/ops/fused_da_pcn.py
-// misfit_warp_takes.
+// cluster level): a level of the 16 x 16 DA kernel in the shared memory of
+// a CTA, i.e. K = 64 and either its exact level with dst_trunc (16 x 16, a
+// positive multiple of 16 modes up to 256, CG; staged: up to 144 modes) or
+// its surrogate level as da_warp_geometry takes it (8 x 8, dst_trunc with a
+// multiple of 16 modes up to 64 or Jacobi, CG or Richardson). Mirrored by
+// ip_mcmc_tpu_torch/ops/fused_da_pcn.py misfit_warp_takes.
 inline bool misfit_warp_takes(const IpxMisfitSpec& s) {
-  return da_warp_level_ok(s, kDaWarpExactN, kSolverCg) && s.precond == kPrecondDstTrunc &&
-         misfit_warp_smem(s) <= 232448;
+  if (s.n == kDaWarpExactN)
+    return da_warp_level_ok(s, kDaWarpExactN, kSolverCg) && s.precond == kPrecondDstTrunc &&
+           MisfitWarp<kDaWarpExactN>::smem(s) <= 232448;
+  if (s.n == kDaWarpSurrN)
+    return (s.solver == kSolverCg || s.solver == kSolverRichardson) &&
+           da_warp_level_ok(s, kDaWarpSurrN, s.solver) &&
+           MisfitWarp<kDaWarpSurrN>::smem(s) <= 232448;
+  return false;
 }
 
 // Mirrored by ip_mcmc_tpu_torch/ops/fused_da_pcn.py misfit_warp_geometry:
-// kWarps draws a CTA, a ragged last CTA runs spare warps; what
+// the level's kWarps draws a CTA, a ragged last CTA runs spare warps; what
 // misfit_warp_takes refuses, cudaErrorNotSupported.
 inline int misfit_warp_geometry(const IpxMisfitSpec& s, int B, DaWarpGeometry* geo) {
   if (!misfit_warp_takes(s)) return cudaErrorNotSupported;
   if (B < 0) return cudaErrorInvalidValue;
-  geo->warps = MisfitWarpDesign::kWarps;
+  const bool exact = s.n == kDaWarpExactN;
+  geo->warps = exact ? MisfitWarp<kDaWarpExactN>::Design::kWarps
+                     : MisfitWarp<kDaWarpSurrN>::Design::kWarps;
   geo->ctas = (B + geo->warps - 1) / geo->warps;
-  geo->smem = misfit_warp_smem(s);
+  geo->smem = exact ? MisfitWarp<kDaWarpExactN>::smem(s) : MisfitWarp<kDaWarpSurrN>::smem(s);
   return cudaSuccess;
 }
 
-__global__ void __launch_bounds__(32 * MisfitWarpDesign::kWarps, kMisfitWarpMinCtas)
+template <int N, int SOLVER>
+__global__ void __launch_bounds__(32 * MisfitWarp<N>::Design::kWarps, MisfitWarp<N>::kMinCtas)
     darcy_misfit_warp_kernel(const __grid_constant__ MisfitBatch a) {
+  using M = MisfitWarp<N>;
   extern __shared__ float4 misfit_warp_smem_buf[];
   unsigned char* base = reinterpret_cast<unsigned char*>(misfit_warp_smem_buf);
-  const PrecondXchg xg = carve_xchg(base, 8 * kMisfitWarpTiles);
-  base += xchg_bytes(8 * kMisfitWarpTiles);
-  const auto f = level_factors<MisfitWarpDesign::kStaged>(a.s, base);
-  if (MisfitWarpDesign::kStaged) base += warp_staged_bytes(a.s);
+  const PrecondXchg xg = carve_xchg(base, 8 * M::kTiles);
+  base += xchg_bytes(8 * M::kTiles);
+  const auto f = level_factors<M::kStaged>(a.s, base);
+  if (M::kStaged) base += warp_staged_bytes(a.s);
   float* slices = reinterpret_cast<float*>(base);
   // the CTA's draws' coefficients, W consecutive columns of U a row
   const int W = blockDim.x >> 5, b0 = blockIdx.x * W, B = a.B;
   for (int e = threadIdx.x; e < kDaWarpD * W; e += blockDim.x) {
     const int k = e / W, j = e % W;
-    slices[j * kMisfitWarpFloats + k] =
-        b0 + j < B ? a.U[static_cast<size_t>(k) * B + b0 + j] : 0.0f;
+    slices[j * M::kFloats + k] = b0 + j < B ? a.U[static_cast<size_t>(k) * B + b0 + j] : 0.0f;
   }
-  float* u = slices + (threadIdx.x >> 5) * kMisfitWarpFloats;
-  const WarpSmem ws{u + kDaWarpD, u + kDaWarpD + 256, u + kDaWarpD + 512};
+  float* u = slices + (threadIdx.x >> 5) * M::kFloats;
+  const WarpSmem ws{u + kDaWarpD, u + kDaWarpD + N * N, u + kDaWarpD + 2 * N * N};
   __syncthreads();  // the staged factors and every warp's u
-  const float v = darcy_phi_warp<kSolverCg>(MisfitWarpExact{&a.s, f, xg, ws}, u);
+  const float v = darcy_phi_warp<SOLVER>(typename M::Level{&a.s, f, xg, ws}, u);
   const int b = b0 + (threadIdx.x >> 5);
   if ((threadIdx.x & 31) == 0 && b < B) a.phi[b] = v;
 }
 
-// Launches darcy_misfit_warp_kernel on the batch: the status of the
-// geometry or of the launch.
+template <int N, int SOLVER>
+inline int launch_misfit_warp_level(const MisfitBatch& a, const DaWarpGeometry& geo,
+                                    void* stream) {
+  const int smem = static_cast<int>(geo.smem);
+  cudaFuncSetAttribute(darcy_misfit_warp_kernel<N, SOLVER>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  darcy_misfit_warp_kernel<N, SOLVER><<<geo.ctas, 32 * geo.warps, smem,
+                                        static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches darcy_misfit_warp_kernel on the batch, at the spec's level and
+// by its solver: the status of the geometry or of the launch.
 inline int launch_misfit_warp(const MisfitBatch& a, void* stream) {
   DaWarpGeometry geo;
   const int status = misfit_warp_geometry(a.s, a.B, &geo);
   if (status != cudaSuccess) return status;
   if (a.B == 0) return cudaSuccess;
-  const int smem = static_cast<int>(geo.smem);
-  cudaFuncSetAttribute(darcy_misfit_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  darcy_misfit_warp_kernel<<<geo.ctas, 32 * geo.warps, smem, static_cast<cudaStream_t>(stream)>>>(
-      a);
-  return static_cast<int>(cudaGetLastError());
+  if (a.s.n == kDaWarpExactN)
+    return launch_misfit_warp_level<kDaWarpExactN, kSolverCg>(a, geo, stream);
+  if (a.s.solver == kSolverRichardson)
+    return launch_misfit_warp_level<kDaWarpSurrN, kSolverRichardson>(a, geo, stream);
+  return launch_misfit_warp_level<kDaWarpSurrN, kSolverCg>(a, geo, stream);
 }
 
 // --- the standalone 16 x 16 Jacobi misfit: one draw a warp ---------------------
@@ -930,8 +974,9 @@ const char* ipx_error_string(int code) {
 // sizeof(IpxMisfitSpec), against which the ctypes mirror is checked.
 int ipx_misfit_spec_size() { return static_cast<int>(sizeof(IpxMisfitSpec)); }
 
-// A spec of the 16 x 16 DA kernel's exact level (misfit_warp_takes) goes to
-// darcy_misfit_warp_kernel; the 16 x 16 Jacobi spec of the ESS, cold pCN
+// A spec of a level of the 16 x 16 DA kernel (misfit_warp_takes: its exact
+// level, its 8 x 8 surrogate level by CG or Richardson) goes to
+// darcy_misfit_warp_kernel<N, SOLVER>; the 16 x 16 Jacobi spec of the ESS, cold pCN
 // and FES samplers' solve (misfit_slice_takes) to darcy_misfit_slice_kernel;
 // one of a cluster sampler's level (misfit_cluster_takes) to
 // darcy_misfit_cluster_kernel (64 x 64), darcy_misfit_cluster32_kernel (the
@@ -1029,8 +1074,8 @@ int ipx_darcy_misfit_cluster_geometry(const IpxMisfitSpec* s, int B, int* out) {
   return status;
 }
 
-// The standalone 16 x 16 exact misfit's launch geometry
-// (darcy_misfit_warp_kernel) for this spec and B draws: out = {draws a
+// The launch geometry of the standalone misfits on the 16 x 16 DA kernel's
+// levels (darcy_misfit_warp_kernel<N, SOLVER>) for this spec and B draws: out = {draws a
 // CTA, CTAs, dynamic shared-memory bytes}; the status the launch would
 // return for them, cudaErrorNotSupported for a spec that goes to another
 // kernel (the wrapper's mirror is checked against this on the card).

@@ -10,6 +10,9 @@
 //   darcy_misfit_warm_kernel<Pot>  (U (K, B), x0 (n*n, B)) -> (Phi (B,),
 //                                  x (n*n, B)): the warm-started misfit,
 //                                  one draw a CTA of the spec's layout.
+//   darcy_misfit_warm_warp_kernel  the same on a spec of the 16 x 16 warm
+//                                  pCN below, one draw a warp on its
+//                                  level (WarpTruncSliceLevel).
 //   darcy_misfit_warm_cluster_kernel  the same on the specs of the 64 x 64
 //                                  samplers' exact level, one draw a CTA,
 //                                  G draws a thread-block cluster.
@@ -523,6 +526,131 @@ inline int launch_pcn_warps(const IpxMisfitSpec& pot, const IpxChainArgs& chain,
                 : launch_pcn_warp<false, kPrecondDstTrunc>(a, geo, st);
 }
 
+// --- the standalone 16 x 16 warm misfit: one draw a warp ----------------------
+//
+// (Phi, x) for a (K, B) batch of the warm 16 x 16 dst_trunc CG misfit from
+// the starts x0 (darcy_pcn_warm's start positions: dst_trunc-64 / 4 CG from
+// x0 = 0, 4096 draws): one draw a warp on K7's own warm level,
+// WarpTruncSliceLevel::phi_warm (darcy_misfit.cuh: WarpSliceLevel's set-up,
+// stencil and dot products in block_sum's order, the start in eight
+// registers a lane, the dst_trunc products over the CTA's draws by
+// mma.sync), so that (Phi, x) are, bit for bit, the warm solve that
+// fused_pcn_warp_kernel<., kPrecondDstTrunc> makes of the same u from the
+// same start. One draw a CTA of Layout16 (darcy_misfit_warm_kernel, 0.374
+// ms of device time at 4096 draws on an H100 80GB HBM3, 700 W; PERF.md)
+// summed every dot product over its 256 threads behind CTA barriers. The
+// basis, the exchange and V are staged once a CTA; each warp's slice holds
+// its draw's u and the solve's p, th, tv. x0 comes in and x goes out through
+// the th slices, W consecutive columns of a row at a time, behind a CTA
+// barrier at each end. The products meet behind three CTA barriers an
+// apply, so every warp of a ragged last CTA runs the whole solve: a spare
+// warp solves u = 0 from x = 0 and writes nothing. A draw's column of the
+// products depends on that draw alone, so a ragged launch gives the draws'
+// bits of a full one.
+
+// The design (scripts/measure_misfit_warm16_surr8_design.py times the
+// alternatives): kWarps draws a CTA, one a warp, at most the exchange's
+// rows; the launch bound's warps an SM (kSmWarps).
+struct MisfitWarmWarpDesign { static constexpr int kWarps = 16, kSmWarps = 16; };
+static_assert(MisfitWarmWarpDesign::kWarps <= WarpTruncSliceLevel::kRows, "the exchange's rows");
+constexpr int kMisfitWarmWarpMinCtas =
+    MisfitWarmWarpDesign::kSmWarps >= 2 * MisfitWarmWarpDesign::kWarps
+        ? MisfitWarmWarpDesign::kSmWarps / MisfitWarmWarpDesign::kWarps
+        : 1;
+// a warp's floats: the draw's u, the slices p, th, tv
+constexpr int kMisfitWarmWarpFloats = kPcnD + 3 * WarpSliceLevel::kStride;
+
+// Dynamic shared memory of a launch on a misfit of `modes` modes: the
+// basis, the exchange and V staged, a slice a warp (225,856 bytes at
+// kMaxModes: less than K7's CTA, whose slices hold two positions).
+inline size_t misfit_warm_warp_smem(int modes) {
+  return WarpSliceLevel::staged_bytes() + WarpTruncSliceLevel::staged_bytes(modes) +
+         sizeof(float) * kMisfitWarmWarpFloats * MisfitWarmWarpDesign::kWarps;
+}
+
+// Whether darcy_misfit_warm_warp_kernel takes this spec
+// (ipx_darcy_misfit_warm sends it there): the warm branch of pcn_warp_takes
+// (16 x 16, K = 64, CG, dst_trunc with a multiple of kModeTile modes up to
+// kMaxModes). Mirrored by ip_mcmc_tpu_torch/ops/fused_pcn.py
+// misfit_warm_warp_takes.
+inline bool misfit_warm_warp_takes(const IpxMisfitSpec& s) {
+  return pcn_warp_takes(s, kPcnD, true);
+}
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_pcn.py misfit_warm_warp_geometry:
+// kWarps draws a CTA, the spare warps of a ragged last CTA solving on
+// zeros; what misfit_warm_warp_takes refuses, cudaErrorNotSupported.
+inline int misfit_warm_warp_geometry(const IpxMisfitSpec& s, int B, PcnWarpGeometry* geo) {
+  if (!misfit_warm_warp_takes(s)) return cudaErrorNotSupported;
+  if (B < 0) return cudaErrorInvalidValue;
+  geo->warps = MisfitWarmWarpDesign::kWarps;
+  geo->ctas = (B + geo->warps - 1) / geo->warps;
+  geo->smem = misfit_warm_warp_smem(s.modes);
+  return cudaSuccess;
+}
+
+__global__ void __launch_bounds__(32 * MisfitWarmWarpDesign::kWarps, kMisfitWarmWarpMinCtas)
+    darcy_misfit_warm_warp_kernel(const __grid_constant__ MisfitBatch a) {
+  constexpr int kStride = WarpSliceLevel::kStride, kCells = WarpSliceLevel::kCells;
+  constexpr int kC = WarpSliceLevel::kC;
+  extern __shared__ float4 misfit_warm_warp_smem_buf[];
+  unsigned char* const base = reinterpret_cast<unsigned char*>(misfit_warm_warp_smem_buf);
+  const float* basis = WarpSliceLevel::stage(a.s, reinterpret_cast<float*>(base));
+  unsigned char* const staged = base + WarpSliceLevel::staged_bytes();
+  float* slices =
+      reinterpret_cast<float*>(staged + WarpTruncSliceLevel::staged_bytes(a.s.modes));
+  // the CTA's draws' coefficients and starts, W consecutive columns of U and
+  // x0 a row (x0 to the slice th, free before the solve); zeros for the
+  // spare warps
+  const int W = blockDim.x >> 5, b0 = blockIdx.x * W, B = a.B;
+  for (int e = threadIdx.x; e < kPcnD * W; e += blockDim.x) {
+    const int k = e / W, j = e % W;
+    slices[j * kMisfitWarmWarpFloats + k] =
+        b0 + j < B ? a.U[static_cast<size_t>(k) * B + b0 + j] : 0.0f;
+  }
+  for (int e = threadIdx.x; e < kCells * W; e += blockDim.x) {
+    const int r = e / W, j = e % W;
+    slices[j * kMisfitWarmWarpFloats + kPcnD + kStride + WarpSliceLevel::pad(r)] =
+        b0 + j < B ? a.x0[static_cast<size_t>(r) * B + b0 + j] : 0.0f;
+  }
+  float* u = slices + (threadIdx.x >> 5) * kMisfitWarmWarpFloats;
+  float* slice = u + kPcnD;  // p, th, tv
+  const WarpSmem ws{slice, slice + kStride, slice + 2 * kStride};
+  WarpTruncSliceLevel lv = WarpTruncSliceLevel::make(WarpSliceLevel{&a.s, basis, ws}, staged);
+  __syncthreads();  // the staged factors, every warp's u and x0
+  float x[kC];
+#pragma unroll
+  for (int k = 0; k < kC; ++k) x[k] = ws.th[WarpSliceLevel::at(k)];
+  __syncwarp();  // the reads end before the set-up writes th
+  const float v = lv.phi_warm(u, x);  // every warp: the products' CTA barriers
+#pragma unroll
+  for (int k = 0; k < kC; ++k) ws.th[WarpSliceLevel::at(k)] = x[k];
+  const int b = b0 + (threadIdx.x >> 5);
+  if ((threadIdx.x & 31) == 0 && b < B) a.phi[b] = v;
+  __syncthreads();  // every warp's solution
+  for (int e = threadIdx.x; e < kCells * W; e += blockDim.x) {
+    const int r = e / W, j = e % W;
+    if (b0 + j < B)
+      a.x[static_cast<size_t>(r) * B + b0 + j] =
+          slices[j * kMisfitWarmWarpFloats + kPcnD + kStride + WarpSliceLevel::pad(r)];
+  }
+}
+
+// Launches darcy_misfit_warm_warp_kernel on the batch: the status of the
+// geometry or of the launch.
+inline int launch_misfit_warm_warp(const MisfitBatch& a, void* stream) {
+  PcnWarpGeometry geo;
+  const int status = misfit_warm_warp_geometry(a.s, a.B, &geo);
+  if (status != cudaSuccess) return status;
+  if (a.B == 0) return cudaSuccess;
+  const int smem = static_cast<int>(geo.smem);
+  cudaFuncSetAttribute(darcy_misfit_warm_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  darcy_misfit_warm_warp_kernel<<<geo.ctas, 32 * geo.warps, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // --- one chain a warp: K6 on Burgers -----------------------------------------
 //
 // burgers_pcn and burgers_multitime_pcn (128 cells; 154 Godunov steps a pCN step, one segment or
@@ -692,13 +820,17 @@ int launch_misfit_warm(const IpxMisfitSpec& s, const float* U, const float* x0, 
 
 extern "C" {
 
-// A spec of a cluster sampler's level that a warm sampler solves on
-// (misfit_cluster_warm_takes) goes to darcy_misfit_warm_cluster_kernel
-// (64 x 64) or darcy_misfit_warm_cluster32_kernel (32 x 32); for every
-// other, a spec of the 64 x 64 DA kernel's surrogate level among them, the
-// layout follows the spec's grid.
+// A spec of the 16 x 16 warm pCN (misfit_warm_warp_takes) goes to
+// darcy_misfit_warm_warp_kernel; one of a cluster sampler's level that a
+// warm sampler solves on (misfit_cluster_warm_takes) to
+// darcy_misfit_warm_cluster_kernel (64 x 64) or
+// darcy_misfit_warm_cluster32_kernel (32 x 32); for every other, a spec of
+// the 64 x 64 DA kernel's surrogate level among them, the layout follows the
+// spec's grid.
 int ipx_darcy_misfit_warm(const IpxMisfitSpec* s, const float* U, const float* x0, int B,
                           float* phi, float* x, void* stream) {
+  if (ipx::misfit_warm_warp_takes(*s))
+    return ipx::launch_misfit_warm_warp({*s, U, x0, B, phi, x}, stream);
   if (ipx::misfit_cluster_warm_takes(*s))
     return ipx::launch_misfit_cluster(ipx::darcy_misfit_warm_cluster_kernel,
                                       ipx::darcy_misfit_warm_cluster32_kernel, nullptr,
@@ -734,6 +866,20 @@ int ipx_pcn_warp_geometry(const IpxMisfitSpec* pot, const IpxChainArgs* chain, i
                           int* out) {
   ipx::PcnWarpGeometry geo{0, 0, 0};
   const int status = ipx::pcn_warp_geometry(*pot, *chain, warm != 0, &geo);
+  out[0] = geo.warps;
+  out[1] = geo.ctas;
+  out[2] = static_cast<int>(geo.smem);
+  return status;
+}
+
+// The standalone 16 x 16 warm misfit's launch geometry
+// (darcy_misfit_warm_warp_kernel) for this spec and B draws: out = {draws a
+// CTA, CTAs, dynamic shared-memory bytes}; the status the launch would
+// return for them, cudaErrorNotSupported for a spec that goes to another
+// kernel (the wrapper's mirror is checked against this on the card).
+int ipx_darcy_misfit_warm_warp_geometry(const IpxMisfitSpec* s, int B, int* out) {
+  ipx::PcnWarpGeometry geo{0, 0, 0};
+  const int status = ipx::misfit_warm_warp_geometry(*s, B, &geo);
   out[0] = geo.warps;
   out[1] = geo.ctas;
   out[2] = static_cast<int>(geo.smem);

@@ -33,10 +33,15 @@ cold one on the 64×64 DA kernel's 32×32 surrogate level (K above 64) to
 ``darcy_misfit_surr_cluster_kernel``; the warm MALA kernel's value and
 gradient (``fused_mala.misfit_grad_warm_warp_takes``: 16×16, K 64, dense
 dst, CG) to ``darcy_misfit_grad_warm_warp_kernel``, a draw a warp on its
-solve; a
-cold misfit on the 16×16 DA kernel's exact level
-(``fused_da_pcn.misfit_warp_takes``: 16×16, K 64, dst_trunc, CG) to
-``darcy_misfit_warp_kernel``, a draw a warp on that kernel's solve; the
+solve; the warm misfit of the 16×16 warm pCN
+(``fused_pcn.misfit_warm_warp_takes``: 16×16, K 64, dst_trunc of up to 112
+modes, CG) to ``darcy_misfit_warm_warp_kernel``, a draw a warp on that
+kernel's solve; a cold misfit on a
+level of the 16×16 DA kernel
+(``fused_da_pcn.misfit_warp_takes``: 16×16, K 64, dst_trunc, CG, its exact
+level; 8×8, K 64, dst_trunc or Jacobi, CG or Richardson, its surrogate
+level) to ``darcy_misfit_warp_kernel``, a draw a warp on that kernel's
+solve; the
 cold 16×16 Jacobi CG misfit of the ESS, pCN, FES and MALA kernels
 (``fused_da_pcn.misfit_slice_takes``, ``fused_mala.misfit_grad_warp_takes``:
 16×16, K 64, Jacobi, CG) to ``darcy_misfit_slice_kernel`` and, for its
@@ -51,6 +56,7 @@ and gathers.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 
 import numpy as np
@@ -59,7 +65,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ip_mcmc_tpu_torch.models import kl
-from ip_mcmc_tpu_torch.ops import _build, _cluster, fused_da_pcn, fused_mala
+from ip_mcmc_tpu_torch.ops import _build, _cluster, fused_da_pcn, fused_mala, fused_pcn
 
 
 def default_observation_indices(n: int, n_obs_per_dim: int = 4):
@@ -225,21 +231,22 @@ class DarcyMisfit(nn.Module):
     @property
     def kernel_label(self) -> str:
         """The launch count's name of the kernel that ``ipx_darcy_misfit``
-        sends this misfit to: a draw a warp on the 16×16 DA kernel's exact
-        level (``fused_da_pcn.misfit_warp_takes``), a draw a warp on the
+        sends this misfit to: a draw a warp on a level of the 16×16 DA
+        kernel, the exact one or the 8×8 surrogate by its solver
+        (``fused_da_pcn.misfit_warp_takes``), a draw a warp on the
         16×16 Jacobi solve of the ESS, cold pCN and FES kernels
         (``fused_da_pcn.misfit_slice_takes``), G draws a cluster on a
         cluster sampler's level (``_cluster.misfit_cluster_level``: the
         64×64 samplers' exact level, the 32×32 warm pCN's, the 64×64 DA
         kernel's 32×32 surrogate level), or one draw a CTA."""
+        tag = "" if self.solver == "cg" else f",{self.solver}"
         if fused_da_pcn.misfit_warp_takes(**self.spec_fields):
-            return f"darcy_misfit_warp_kernel[n={self.n}]"
+            return f"{fused_da_pcn.MISFIT_WARP_KERNEL}[n={self.n}{tag}]"
         if fused_da_pcn.misfit_slice_takes(**self.spec_fields):
             return f"darcy_misfit_slice_kernel[n={self.n}]"
         level = _cluster.misfit_cluster_level(**self.spec_fields)
         if level is not None:
             return f"{_cluster.MISFIT_KERNELS[level]}[n={self.n}]"
-        tag = "" if self.solver == "cg" else f",{self.solver}"
         return f"darcy_misfit_kernel[n={self.n}{tag}]"
 
     # --- the kernel -------------------------------------------------------
@@ -342,23 +349,23 @@ class DarcyMisfit(nn.Module):
         dense fast-Poisson apply Sᵀ-transforms(q(S-transforms(q(r)) / (λ ā)))
         along columns then rows, no D⁻¹ term; q rounds to the factors'
         dtype (bf16: bf16 inputs with f32 accumulation — products of bf16
-        values are exact in f32)."""
+        values are exact in f32), the rest in r's dtype."""
         if self.precond == "dst":
             return self._precond_dst(r, a_bar)
         z = inv_diag * r
         if not self.modes:
             return z
-        dt, Vf = self.V.dtype, self.V.to(torch.float32)
-        rt = (Vf @ r.to(dt).to(torch.float32)) / (
+        dt, Vf = self.V.dtype, self.V.to(r.dtype)
+        rt = (Vf @ r.to(dt).to(r.dtype)) / (
             self.lam[:, None] * a_bar[None, :]
         )
-        return z + Vf.T @ rt.to(dt).to(torch.float32)
+        return z + Vf.T @ rt.to(dt).to(r.dtype)
 
     def _precond_dst(self, r, a_bar):
-        n, dt, S = self.n, self.S.dtype, self.S.to(torch.float32)
+        n, dt, S = self.n, self.S.dtype, self.S.to(r.dtype)
 
         def q(v):
-            return v.to(dt).to(torch.float32)
+            return v.to(dt).to(r.dtype)
 
         y = torch.einsum("kj,ijb->ikb", S, q(r.reshape(n, n, -1)))
         rt = torch.einsum("ki,ijb->kjb", S, q(y)) / (
@@ -452,6 +459,21 @@ class DarcyMisfit(nn.Module):
         """(y − x at the observed cells) / σ, (m, B)."""
         return (self.data[:, None] - x[self.obs.long()]) / self.noise[:, None]
 
+    def float64_twin(self):
+        """A copy whose plain version computes in f64 with the same bf16
+        roundings: its f32 buffers in f64, the preconditioner's bf16
+        factors kept (``_precond`` rounds r and the coefficients to them and
+        works in r's dtype). Feed it f64 inputs. From x0 = 0 a few CG
+        iterations stop unconverged, where f32 summation order alone moves
+        Φ by about 2e-5 relative at the 16×16 warm pCN's spec (PERF.md):
+        against this copy, a kernel's distance is its own rounding, not the
+        f32 twin's as well."""
+        twin = copy.deepcopy(self)
+        for name, buf in twin.named_buffers():
+            if buf.dtype == torch.float32:
+                setattr(twin, name, buf.double())
+        return twin
+
     def _solve_plain(self, U, x0=None):
         """(Φ (B,), x (n², B)); the CG starts from ``x0`` (n², B) when given,
         else from 0."""
@@ -539,9 +561,13 @@ class DarcyMisfitWarm(DarcyMisfit):
     @property
     def warm_kernel_label(self) -> str:
         """The launch count's name of the kernel that
-        ``ipx_darcy_misfit_warm`` sends this misfit to: the cluster levels a
-        warm sampler solves on (``_cluster.misfit_cluster_takes`` with
-        ``warm=True``), or one draw a CTA."""
+        ``ipx_darcy_misfit_warm`` sends this misfit to: a draw a warp on the
+        16×16 warm pCN's solve (``fused_pcn.misfit_warm_warp_takes``), the
+        cluster levels a warm sampler solves on
+        (``_cluster.misfit_cluster_takes`` with ``warm=True``), or one draw a
+        CTA."""
+        if fused_pcn.misfit_warm_warp_takes(**self.spec_fields):
+            return f"{fused_pcn.MISFIT_WARM_WARP_KERNEL}[n={self.n}]"
         if not _cluster.misfit_cluster_takes(**self.spec_fields, warm=True):
             return "darcy_misfit_warm_kernel"
         return ("darcy_misfit_warm_cluster32_kernel" if self.n == _cluster.N32

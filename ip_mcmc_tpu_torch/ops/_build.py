@@ -240,8 +240,11 @@ def library():
         lib.bind("ipx_darcy_misfit_warm", [spec, p, p, i, p, p, p])
         # spec, B, out (4,): the cluster misfit kernels' geometry
         lib.bind("ipx_darcy_misfit_cluster_geometry", [spec, i, p])
-        # spec, B, out (3,): the 16x16 warp misfit kernel's geometry
+        # spec, B, out (3,): the geometry of the warp misfit kernel on the
+        # 16x16 DA kernel's levels
         lib.bind("ipx_darcy_misfit_warp_geometry", [spec, i, p])
+        # spec, B, out (3,): the 16x16 warm warp misfit kernel's geometry
+        lib.bind("ipx_darcy_misfit_warm_warp_geometry", [spec, i, p])
         # spec, B, out (3,): the 16x16 Jacobi slice misfit kernel's geometry
         lib.bind("ipx_darcy_misfit_slice_geometry", [spec, i, p])
         # exact, surrogate, chain, Φ0 (n,), Φ*0 (n,), β, √(1−β²), k,

@@ -33,9 +33,10 @@ tags: inner step j uses 4j, 4j+1 (normals) and 4j+2 (MH uniform); the
 outer correction 4k+2.
 
 ``misfit_warp_takes`` and ``misfit_warp_geometry`` mirror the rule and the
-launch geometry of ``darcy_misfit_warp_kernel``, which evaluates the 16×16
-exact misfit at the start positions a draw a warp on this module's exact
-level (``models.darcy.DarcyMisfit`` launches it); ``misfit_slice_takes``
+launch geometry of ``darcy_misfit_warp_kernel<N, SOLVER>``, which evaluates
+the 16×16 exact misfit and the 8×8 surrogate (CG or Richardson) at the
+start positions a draw a warp on this module's levels
+(``models.darcy.DarcyMisfit`` launches it); ``misfit_slice_takes``
 and ``misfit_slice_geometry`` those of ``darcy_misfit_slice_kernel``, the
 16×16 Jacobi misfit a draw a warp on the solve of the ESS, cold pCN and
 FES kernels.
@@ -192,49 +193,70 @@ def warp_geometry(n_chains, block_chains, *, exact_n=WARP_EXACT_N,
     return -(-n_chains // w), w, smem
 
 
-# The standalone 16×16 exact misfit ``darcy_misfit_warp_kernel``
-# (``MisfitWarpDesign`` in ``csrc/fused_da_pcn.cu``): draws (warps) a CTA,
-# and whether the level's factors are staged in shared memory (else read
-# through L2). Its slice a warp: the draw's u, then p, th, tv of 256 cells.
+# The standalone misfits on the 16×16 DA kernel's levels
+# ``darcy_misfit_warp_kernel<N, SOLVER>`` (``MisfitWarpDesign`` and, at 8×8,
+# ``MisfitSurrWarpDesign`` in ``csrc/fused_da_pcn.cu``): draws (warps) a CTA,
+# and whether the exact level's factors are staged in shared memory (else
+# read through L2; the 8×8 level's are staged). Its slice a warp: the draw's
+# u, then p, th, tv of the level's cells.
 MISFIT_WARP_DRAWS, MISFIT_WARP_STAGED = 16, True
-_MISFIT_SLICE_BYTES = 4 * (WARP_D + 3 * WARP_EXACT_N ** 2)
+MISFIT_SURR_WARP_DRAWS = 16
+MISFIT_WARP_KERNEL = "darcy_misfit_warp_kernel"
 
 
-def _misfit_warp_smem(modes):
-    return (8 * -(-MISFIT_WARP_DRAWS // 8) * _XCHG_ROW_BYTES
-            + (_staged_bytes(WARP_EXACT_N, modes) if MISFIT_WARP_STAGED else 0)
-            + MISFIT_WARP_DRAWS * _MISFIT_SLICE_BYTES)
+def _misfit_warp_draws(n):
+    return MISFIT_WARP_DRAWS if n == WARP_EXACT_N else MISFIT_SURR_WARP_DRAWS
+
+
+def _misfit_warp_smem(modes, n=WARP_EXACT_N):
+    draws = _misfit_warp_draws(n)
+    staged = MISFIT_WARP_STAGED if n == WARP_EXACT_N else True
+    return (8 * -(-draws // 8) * _XCHG_ROW_BYTES
+            + (_staged_bytes(n, modes) if staged else 0)
+            + draws * 4 * (WARP_D + 3 * n * n))
 
 
 def misfit_warp_takes(*, n, K, precond, modes, solver):
     """Whether ``ipx_darcy_misfit`` sends a misfit of these fields to
     ``darcy_misfit_warp_kernel``, as ``misfit_warp_takes`` in
-    ``csrc/fused_da_pcn.cu`` decides: the 16×16 DA kernel's exact level
-    with dst_trunc (a WARP_EXACT_N grid, K = WARP_D, a positive multiple of
-    16 modes up to the cells, CG) whose staged factors fit a CTA's shared
-    memory with the design's slices (up to 144 modes). Every other
-    misfit goes to the cluster level (``_cluster.misfit_cluster_takes``) or
-    runs one draw a CTA on the layout of its grid."""
-    return (n == WARP_EXACT_N and K == WARP_D and precond == "dst_trunc" and modes > 0
-            and modes % 16 == 0 and modes <= n * n and solver == "cg"
-            and _misfit_warp_smem(modes) <= MAX_SMEM_BYTES)
+    ``csrc/fused_da_pcn.cu`` decides: a level of the 16×16 DA kernel whose
+    factors fit a CTA's shared memory with the design's slices, K = WARP_D:
+    its exact level with dst_trunc (a WARP_EXACT_N grid, a positive multiple
+    of 16 modes up to the cells, CG; up to 144 modes staged), or its
+    surrogate level as ``warp_geometry`` takes it (a WARP_SURR_N grid,
+    dst_trunc with a multiple of 16 modes up to the cells or Jacobi, CG or
+    Richardson). Every other misfit goes to the cluster level
+    (``_cluster.misfit_cluster_takes``) or runs one draw a CTA on the layout
+    of its grid."""
+    if K != WARP_D or _misfit_warp_smem(modes, n) > MAX_SMEM_BYTES:
+        return False
+    if n == WARP_EXACT_N:
+        return (precond == "dst_trunc" and modes > 0 and modes % 16 == 0 and modes <= n * n
+                and solver == "cg")
+    if n == WARP_SURR_N:
+        return (((precond == "dst_trunc" and modes > 0 and modes % 16 == 0 and modes <= n * n)
+                 or (precond == "jacobi" and modes == 0))
+                and solver in ("cg", "richardson"))
+    return False
 
 
 def misfit_warp_geometry(B, *, n=WARP_EXACT_N, K=WARP_D, precond="dst_trunc", modes=128,
                          solver="cg"):
     """(draws a CTA, CTAs, dynamic shared-memory bytes) of a launch of
     ``darcy_misfit_warp_kernel`` on B draws, as ``misfit_warp_geometry`` in
-    ``csrc/fused_da_pcn.cu`` computes it: a draw a warp, the design's draws
+    ``csrc/fused_da_pcn.cu`` computes it: a draw a warp, the level's draws
     a CTA, the spare warps of a ragged last CTA run on zeros. Raises
     ``ValueError`` for a misfit that ``misfit_warp_takes`` leaves to the
     other kernels, or B < 0."""
     if not misfit_warp_takes(n=n, K=K, precond=precond, modes=modes, solver=solver):
         raise ValueError(f"the warp misfit kernel takes a {WARP_EXACT_N}x{WARP_EXACT_N} "
-                         f"dst_trunc CG misfit with K = {WARP_D} and a multiple of 16 modes; "
-                         f"got {n}x{n} {precond} ({modes} modes) {solver}, K {K}")
+                         f"dst_trunc CG misfit or a {WARP_SURR_N}x{WARP_SURR_N} dst_trunc or "
+                         f"Jacobi misfit by CG or Richardson, K = {WARP_D}, a multiple of 16 "
+                         f"modes; got {n}x{n} {precond} ({modes} modes) {solver}, K {K}")
     if B < 0:
         raise ValueError(f"B {B}")
-    return MISFIT_WARP_DRAWS, -(-B // MISFIT_WARP_DRAWS), _misfit_warp_smem(modes)
+    draws = _misfit_warp_draws(n)
+    return draws, -(-B // draws), _misfit_warp_smem(modes, n)
 
 
 # The standalone 16×16 Jacobi misfit ``darcy_misfit_slice_kernel``

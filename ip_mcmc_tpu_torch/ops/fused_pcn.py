@@ -32,6 +32,11 @@ the whole ``n_steps`` loop in one launch, picked by the spec
   ``fused_pcn_warm_cluster32_kernel<RECORD>``, whose thread-block clusters
   of ``_cluster.cluster_geometry``'s chains share each read of the factors.
 
+``misfit_warm_warp_takes`` and ``misfit_warm_warp_geometry`` mirror the rule
+and the launch geometry of ``darcy_misfit_warm_warp_kernel``, which
+evaluates the warm misfit at the start positions from x0 a draw a warp on
+the warm warp kernel's level (``models.darcy.DarcyMisfitWarm`` launches it).
+
 For CPU tensors they run the step builders below on the plain scaffold
 ``_scaffold.run_plain``, with any features-first callable.
 Tags: normals 0 (keys 0, 1), MH uniform 2.
@@ -191,6 +196,52 @@ def warp_geometry(n_chains, block_chains, *, warm=False, n=WARP_N, d=WARP_D,
         raise ValueError(f"{smem} bytes of shared memory a CTA: the card gives "
                          f"{MAX_SMEM_BYTES}")
     return -(-n_chains // w), w, smem
+
+
+# The standalone 16×16 warm misfit ``darcy_misfit_warm_warp_kernel``
+# (``MisfitWarmWarpDesign`` in ``csrc/fused_pcn.cu``): draws (warps) a CTA on
+# the warm warp kernel's level (``WarpTruncSliceLevel``); after the staged
+# basis, the exchange and V (XCHG_BYTES + 2 V_ROW modes), a warp's u (d
+# floats) and the slices p, th, tv.
+MISFIT_WARM_WARP_DRAWS = 16
+MISFIT_WARM_WARP_KERNEL = "darcy_misfit_warm_warp_kernel"
+_MISFIT_WARM_WARP_BYTES = 4 * (WARP_D + 3 * SLICE_FLOATS)
+
+
+def _misfit_warm_warp_smem(modes):
+    return (BASIS_BYTES + XCHG_BYTES + 2 * V_ROW * modes
+            + MISFIT_WARM_WARP_DRAWS * _MISFIT_WARM_WARP_BYTES)
+
+
+def misfit_warm_warp_takes(*, n, K, precond, modes, solver):
+    """Whether ``ipx_darcy_misfit_warm`` sends a warm misfit of these fields
+    to ``darcy_misfit_warm_warp_kernel``, as ``misfit_warm_warp_takes`` in
+    ``csrc/fused_pcn.cu`` decides: the warm branch of ``warp_takes`` with d
+    = K (a WARP_N grid, K = WARP_D, CG, dst_trunc of a multiple of
+    MODE_TILE modes up to MAX_WARP_MODES; the design's CTA holds them all).
+    Every other warm misfit (dense dst, Jacobi, more modes, another grid or
+    K) goes to the cluster levels or to the one-draw-a-CTA
+    ``darcy_misfit_warm_kernel``."""
+    return warp_takes(True, n=n, d=K, precond=precond, modes=modes, solver=solver)
+
+
+def misfit_warm_warp_geometry(B, *, n=WARP_N, K=WARP_D, precond="dst_trunc", modes=64,
+                              solver="cg"):
+    """(draws a CTA, CTAs, dynamic shared-memory bytes) of a launch of
+    ``darcy_misfit_warm_warp_kernel`` on B draws, as
+    ``misfit_warm_warp_geometry`` in ``csrc/fused_pcn.cu`` computes it: a
+    draw a warp, the design's draws a CTA, the spare warps of a ragged last
+    CTA solving on zeros. Raises ``ValueError`` for a misfit that
+    ``misfit_warm_warp_takes`` leaves to the other kernels, or B < 0."""
+    if not misfit_warm_warp_takes(n=n, K=K, precond=precond, modes=modes, solver=solver):
+        raise ValueError(f"the warm warp misfit kernel takes a {WARP_N}x{WARP_N} dst_trunc CG "
+                         f"misfit with K = {WARP_D} and a multiple of {MODE_TILE} modes up to "
+                         f"{MAX_WARP_MODES}; got {n}x{n} {precond} ({modes} modes) {solver}, "
+                         f"K {K}")
+    if B < 0:
+        raise ValueError(f"B {B}")
+    return (MISFIT_WARM_WARP_DRAWS, -(-B // MISFIT_WARM_WARP_DRAWS),
+            _misfit_warm_warp_smem(modes))
 
 
 def _darcy_stem(pot, warm, d=WARP_D):

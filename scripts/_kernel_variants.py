@@ -1,6 +1,6 @@
 """Shared by the scripts that time variants of the CUDA kernels on one card:
-the card's name, CUDA-event timing, and builds of ``csrc/`` with lines
-patched, loaded as the package loads its own.
+the card's name, CUDA-event and profiler timing, and builds of ``csrc/``
+with lines patched, loaded as the package loads its own.
 """
 
 from __future__ import annotations
@@ -28,6 +28,25 @@ def event_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, needles) -> float | None:
+    """Device time of one call of ``fn``: the time that torch.profiler
+    (CUPTI) records in the kernels whose names hold one of ``needles``, over
+    ``reps`` calls after a warm-up, divided by ``reps``; None when it
+    records none. A small call's CUDA-event time (``event_ms``) can be the
+    host's time to issue it; this is the card's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+             for e in prof.key_averages() if any(n in e.key for n in needles))
+    return us / reps / 1e3 if us else None
 
 
 def slope_ms(run, short: int, long: int, reps: int = 3) -> float:

@@ -37,14 +37,23 @@ cores; the 64x64 dst_trunc misfits, cold and warm, on the 64x64 samplers'
 cluster level; the 32x32 dst_trunc misfits, warm and cold, on the 32x32
 warm pCN's level; the 16x16 exact misfit of darcy_da_fused a draw a warp on
 the DA kernel's exact level; darcy64_da_fused's 32x32 surrogate on the 64x64
-DA kernel's surrogate level; their sums run in another order): there whether the outputs
+DA kernel's surrogate level; darcy_pcn_warm's warm misfit, from x0 = 0
+(``misfit_warm``) and from those solutions after a pCN move
+(``misfit_warm_prev``), a draw a warp on the warm pCN's level, its
+products on the tensor cores; the 8x8
+surrogates of darcy_da_fused (``misfit_surrogate``) and of the Richardson
+runs (``misfit_surr_rich3`` / ``_rich4`` / ``_rich2``) a draw a warp on the
+16x16 DA kernel's surrogate level; their sums run in another order): there whether the outputs
 equal the parent's all the same, the share of chains (final state and
 records) within ``CHAIN_ATOL`` of the parent's and both acceptance rates
 are printed (two kernels that each round differently from the plain twin;
 chip_smoke.py holds each against the twin); for a misfit, Φ's relative
 difference (median, largest, share within 1e-3) and the solution's. The per-step times
 (CUDA events, slope between two launch lengths) are printed side by side
-with the parent's over this tree's, with the card's name and power limit.
+with the parent's over this tree's, with the card's name and power limit;
+a misfit row's time a call (CUDA events around its calls, which a small
+call can leave waiting on the host) has its device time beside it
+(``<row>@device``: what torch.profiler records in its kernel).
 Then the registers and spill bytes that ptxas reported for each kernel of
 both trees' builds (``_build/nvcc.log``) are set side by side. Exits
 non-zero on any difference beyond these, in the outputs or in ptxas'
@@ -85,7 +94,9 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 # kernels this tree replaced by another design: compared, not bit for bit
 OLD_VS_NEW = ("da_pcn", "da_pcn_richardson", "da_pcn_64", "pcn_warm_64", "pcn_warm_32",
               "pcn_warm", "misfit64_exact", "misfit64_cold", "misfit64_warm", "misfit_exact",
-              "misfit32_warm", "misfit32_dst", "misfit64_surrogate")
+              "misfit32_warm", "misfit32_dst", "misfit64_surrogate", "misfit_warm",
+              "misfit_warm_prev", "misfit_surrogate", "misfit_surr_rich3", "misfit_surr_rich4",
+              "misfit_surr_rich2")
 CHAIN_ATOL = 1e-4  # chip_smoke.py's
 MISFIT_RTOL = 1e-3  # the rtol of chip_smoke.py's LARGE_BF16_TOL
 TURNS = ("parent", "new", "new", "parent")
@@ -153,6 +164,8 @@ def worker(out_path: str, rows) -> int:
     from ip_mcmc_tpu_torch.convert import linear_gaussian_from_arrays
     from ip_mcmc_tpu_torch.ops import fused_fes, fused_mala, fused_rwm
 
+    from _kernel_variants import device_ms
+
     def time_ms(fn, reps=3):
         fn()
         torch.cuda.synchronize()
@@ -163,6 +176,13 @@ def worker(out_path: str, rows) -> int:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
+
+    def timed(name, fn, reps):
+        """The row's time a call (CUDA events) and, beside it as
+        ``<name>@device``, the device time that the profiler records in its
+        misfit kernel (a small call's event time can be the host's)."""
+        times[name] = time_ms(fn, reps)
+        times[f"{name}@device"] = device_ms(fn, reps, ("misfit",))
 
     def slope(run, short, long):
         return (time_ms(lambda: run(long)) - time_ms(lambda: run(short))) / (long - short)
@@ -205,18 +225,25 @@ def worker(out_path: str, rows) -> int:
     def misfit_row(name):  # "misfits" runs every misfit row
         return rows is None or "misfits" in rows or name in rows
 
+    rich_surr = {f"misfit_surr_{v.split('_')[0]}": configs.darcy_da_richardson(
+        v, "cuda").batched_surrogate_fn for v in ("rich3_w0.9", "rich4_w0.8", "rich2_w0.9")}
     for name, pot in (("misfit_exact", exact), ("misfit_surrogate", surr),
-                      ("misfit_jacobi48", jacobi)):
+                      ("misfit_jacobi48", jacobi), *rich_surr.items()):
         if misfit_row(name):
             outputs[f"{name}_phi"] = pot(U)
-            times[name] = time_ms(lambda: pot(U), 20)
-    if misfit_row("misfit_warm"):
+            timed(name, lambda: pot(U), 20)
+    if misfit_row("misfit_warm") or misfit_row("misfit_warm_prev"):
         zeros = torch.zeros(aux_dim, n, device="cuda")
         outputs["misfit_warm_phi"], outputs["misfit_warm_x"] = warm(U, zeros)
-        times["misfit_warm"] = time_ms(lambda: warm(U, zeros), 20)
+        timed("misfit_warm", lambda: warm(U, zeros), 20)
+        step = da.prior.sample(torch.Generator().manual_seed(97), n).T
+        U2 = (0.9968 * U + 0.08 * step).contiguous()  # a pCN move
+        x1 = outputs["misfit_warm_x"]
+        outputs["misfit_warm_prev_phi"], outputs["misfit_warm_prev_x"] = warm(U2, x1)
+        timed("misfit_warm_prev", lambda: warm(U2, x1), 20)
     if misfit_row("misfit_grad"):
         outputs["misfit_grad_phi"], outputs["misfit_grad_g"] = jacobi.value_and_grad(U)
-        times["misfit_grad"] = time_ms(lambda: jacobi.value_and_grad(U), 20)
+        timed("misfit_grad", lambda: jacobi.value_and_grad(U), 20)
     if misfit_row("misfit_grad_warm"):
         pag_zeros = torch.zeros(pag_dim, n, device="cuda")
         first = pag(U, pag_zeros)
@@ -224,7 +251,7 @@ def worker(out_path: str, rows) -> int:
         U2 = (U + 0.012 * step).contiguous()  # a MALA-sized move
         for i, t in enumerate((*first, *pag(U2, first[2]))):
             outputs[f"misfit_grad_warm_{i}"] = t
-        times["misfit_grad_warm"] = time_ms(lambda: pag(U, pag_zeros), 20)
+        timed("misfit_grad_warm", lambda: pag(U, pag_zeros), 20)
     for name, pot, V in (("misfit64_exact", da64.batched_potential_fn, U144),
                          ("misfit64_surrogate", da64.batched_surrogate_fn, U144),
                          ("misfit64_cold", pcn64.batched_potential_fn, U144),
@@ -232,13 +259,13 @@ def worker(out_path: str, rows) -> int:
                          ("misfit32_dst", dst32, U64w)):
         if misfit_row(name):
             outputs[f"{name}_phi"] = pot(V)
-            times[name] = time_ms(lambda: pot(V), 20 if name == "misfit64_surrogate" else 5)
+            timed(name, lambda: pot(V), 20 if name == "misfit64_surrogate" else 5)
     for name, p, V in (("misfit64_warm", pcn64, U144w), ("misfit32_warm", pcn32, U64w)):
         if misfit_row(name):
             w, dim = p.batched_warm_potential
             z = torch.zeros(dim, V.shape[1], device="cuda")
             outputs[f"{name}_phi"], outputs[f"{name}_x"] = w(V, z)
-            times[name] = time_ms(lambda: w(V, z), 5)
+            timed(name, lambda: w(V, z), 5)
     w64, w64_dim = pcn64.batched_warm_potential
     pos64 = da64.init_positions(gen, 2048).cuda()
     w32, w32_dim = pcn32.batched_warm_potential

@@ -72,14 +72,14 @@ def main() -> int:
     builds = build_designs(_build, SOURCE, (SOURCE,), m.group(0),
                            {d: design_line(*d) for d in others}, "misfit_warp")
     libs, rows = {shipped: shipped_lib}, []
-    print_ptxas(_build.BUILD_DIR, label(shipped), "darcy_misfit_warp_kernel")
+    print_ptxas(_build.BUILD_DIR, label(shipped), "darcy_misfit_warp_kernelILi16E")
     for d in others:
         if isinstance(builds[d], str):
             print(f"{label(d)}: does not build ({builds[d]})", flush=True)
             rows.append({"design": label(d), "ms": None, "refused": builds[d]})
             continue
         libs[d] = load_with(_build, builds[d][0])
-        print_ptxas(builds[d][1], label(d), "darcy_misfit_warp_kernel")
+        print_ptxas(builds[d][1], label(d), "darcy_misfit_warp_kernelILi16E")
     ref = exact(U)
     torch.cuda.synchronize()
     for d in (shipped, *[d for d in others if d in libs], shipped):

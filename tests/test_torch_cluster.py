@@ -263,8 +263,9 @@ def test_misfit_kernel_labels():
         "darcy64_pcn_warm": ["darcy_misfit_cluster_kernel[n=64]",
                              "darcy_misfit_warm_cluster_kernel"],
         "darcy32_pcn_warm": ["darcy_misfit_kernel[n=32]", "darcy_misfit_warm_cluster32_kernel"],
-        "darcy_pcn_warm": ["darcy_misfit_slice_kernel[n=16]", "darcy_misfit_warm_kernel"],
-        "darcy_da_fused": ["darcy_misfit_warp_kernel[n=16]", "darcy_misfit_kernel[n=8]"],
+        "darcy_pcn_warm": ["darcy_misfit_slice_kernel[n=16]",
+                           "darcy_misfit_warm_warp_kernel[n=16]"],
+        "darcy_da_fused": ["darcy_misfit_warp_kernel[n=16]", "darcy_misfit_warp_kernel[n=8]"],
     }
 
 

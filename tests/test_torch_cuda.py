@@ -96,17 +96,24 @@ def test_jacobi_misfit_kernel_matches_plain(warm_problem):
 
 
 def test_warm_misfit_kernel_matches_plain(warm_problem):
-    """(Φ, x) from x0 = 0 and from that solution after a pCN-sized move;
-    bf16 rounding flips as in tests/test_torch_darcy_warm.py."""
+    """(Φ, x) from x0 = 0 and from that solution after a pCN-sized move, a
+    draw a warp on the warm pCN's level (darcy_misfit_warm_warp_kernel);
+    bf16 rounding flips as in tests/test_torch_darcy_warm.py. From x0 = 0
+    against the plain version in f64 with the same bf16 roundings
+    (float64_twin): four CG iterations from zero stop unconverged, where f32
+    summation order alone moves Φ, the f32 twin's as much as the kernel's."""
     warm, aux_dim = warm_problem.batched_warm_potential
+    name = warm.warm_kernel_label
+    assert name == "darcy_misfit_warm_warp_kernel[n=16]"
     g = torch.Generator().manual_seed(1)
     U = warm_problem.prior.sample(g, 512).T.contiguous()
     U2 = (0.9968 * U + 0.08 * warm_problem.prior.sample(g, 512).T).contiguous()
-    before = _build.launch_counts["darcy_misfit_warm_kernel"]
+    before = _build.launch_counts[name]
     phi1, x1 = warm(U, torch.zeros(aux_dim, 512, device="cuda"))
     phi2, x2 = warm(U2, x1)
-    assert _build.launch_counts["darcy_misfit_warm_kernel"] == before + 2
-    ref1 = warm._forward_warm_plain(U, torch.zeros(aux_dim, 512, device="cuda"))
+    assert _build.launch_counts[name] == before + 2
+    ref1 = warm.float64_twin()._forward_warm_plain(
+        U.double(), torch.zeros(aux_dim, 512, dtype=torch.float64, device="cuda"))
     ref2 = warm._forward_warm_plain(U2, x1)
     rel1, rel2 = _rel(phi1, ref1[0]), _rel(phi2, ref2[0])
     assert float(rel1.median()) <= 2e-5 and float(rel1.max()) <= 5e-3
@@ -1465,7 +1472,8 @@ def test_misfit_warp_kernel_on_a_ragged_width(problem):
 def test_misfit_warp_geometry_matches_the_kernel(problem):
     """ops/fused_da_pcn.py misfit_warp_geometry and misfit_warp_takes give
     what the C function computes: the geometry of the specs it takes (the
-    DA kernel's exact level), cudaErrorNotSupported for the others."""
+    DA kernel's exact level and its 8² surrogate level, CG and Richardson),
+    cudaErrorNotSupported for the others."""
     import ctypes
 
     lib = _build.library()
@@ -1483,7 +1491,7 @@ def test_misfit_warp_geometry_matches_the_kernel(problem):
                 taken += 1
             else:
                 assert "not supported" in lib.ipx_error_string(status).decode()
-    assert taken == 2 * 4
+    assert taken == 4 * 4
 
 
 def test_layout_misfits_take_the_specs_the_rules_leave():
@@ -1492,7 +1500,8 @@ def test_layout_misfits_take_the_specs_the_rules_leave():
     36 (the 16² Jacobi / 48 CG misfit of ESS, cold pCN and FES, K 64, goes
     to the slice kernel a draw a warp, held here under the same bound); 16²
     dst_trunc-160 (more modes than the warp kernel stages) and 16²
-    Richardson; the 8² surrogates (CG and Richardson); darcy32_pcn_warm's
+    Richardson; 8² misfits with K 36 (CG and Richardson: the 8² surrogates
+    of the DA runs, K 64, go to the warp kernel); darcy32_pcn_warm's
     cold Jacobi misfit (and darcy64_da_fused's 32² surrogate, K 144, which
     the 64² DA kernel's surrogate level takes, held here under the same
     bound); a 32² warm Jacobi / 16 CG misfit, from x0 = 0
@@ -1505,7 +1514,6 @@ def test_layout_misfits_take_the_specs_the_rules_leave():
     from ip_mcmc_tpu_torch.models import darcy
 
     p = _build_on_card("darcy_da_fused")
-    rich = configs.darcy_da_richardson("rich3_w0.9", "cuda")
     _, jacobi32, surr32, _ = _misfits32()
     aux16 = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8)
     dst160 = darcy_misfit_from_arrays(aux16, p.data, 0.002, cg_iters=12, precond="dst_trunc",
@@ -1516,12 +1524,13 @@ def test_layout_misfits_take_the_specs_the_rules_leave():
     k36 = darcy_misfit_from_arrays(darcy.darcy_aux(n_grid=16, n_modes_per_dim=6, alpha=2.0,
                                                    field_scale=10.0),
                                    ess.data, 0.002).cuda()
+    left8 = _specs8_left()
     cases = ((ess.batched_potential_fn, "darcy_misfit_slice_kernel[n=16]", 1e-4),
              (k36, "darcy_misfit_kernel[n=16]", 1e-4),
              (dst160, "darcy_misfit_kernel[n=16]", 5e-3),
              (rich16, "darcy_misfit_kernel[n=16,richardson]", 5e-3),
-             (p.batched_surrogate_fn, "darcy_misfit_kernel[n=8]", 5e-3),
-             (rich.batched_surrogate_fn, "darcy_misfit_kernel[n=8,richardson]", 5e-3),
+             (left8["8x8 K36"], "darcy_misfit_kernel[n=8]", 5e-3),
+             (left8["8x8 K36 richardson"], "darcy_misfit_kernel[n=8,richardson]", 5e-3),
              (jacobi32, "darcy_misfit_kernel[n=32]", 1e-4),
              (surr32, "darcy_misfit_surr_cluster_kernel[n=32]", 5e-3))
     g = torch.Generator().manual_seed(37)
@@ -2123,3 +2132,335 @@ def test_mala_warp_kernel_refuses_what_it_does_not_take(problem):
     args, _ = da._scaffold.chain_args(pos, pm, ps, 0, 1, 16)
     status = lib.ipx_mala_warp_geometry(ctypes.byref(jacobi.spec()), ctypes.byref(args), 1, out)
     assert "not supported" in lib.ipx_error_string(status).decode()
+
+
+# --- the standalone 16² warm misfit and the 8² surrogate a draw a warp ---------
+# (darcy_misfit_warm_warp_kernel, darcy_misfit_warp_kernel<8, SOLVER>)
+
+WARM_WARP = "darcy_misfit_warm_warp_kernel[n=16]"
+SURR_WARP = {"cg": "darcy_misfit_warp_kernel[n=8]",
+             "richardson": "darcy_misfit_warp_kernel[n=8,richardson]"}
+
+
+def _warm_pair(p, n, seed):
+    """(U, U2 a pCN move away, zeros) for ``n`` draws of ``p``'s prior."""
+    g = torch.Generator().manual_seed(seed)
+    U = p.prior.sample(g, n).T.contiguous()
+    U2 = (0.9968 * U + 0.08 * p.prior.sample(g, n).T).contiguous()
+    return U, U2, torch.zeros(p.batched_warm_potential[1], n, device="cuda")
+
+
+def test_misfit_warm_warp_kernel_matches_plain_at_full_width(warm_problem):
+    """darcy_pcn_warm's warm misfit (dst_trunc-64 / 4 CG) at its 4096 draws
+    under chip_smoke.py's bounds: from x0 = 0 against the plain version in
+    f64 with the same bf16 roundings (BF16_COLD_START_TOL: four CG
+    iterations from zero stop unconverged, where f32 summation order alone
+    moves Φ, the f32 twin's as much as the tensor cores'), and from that
+    solution after a pCN move against the f32 twin (BF16_TOL)."""
+    warm = warm_problem.batched_warm_potential[0]
+    assert warm.warm_kernel_label == WARM_WARP
+    U, U2, zeros = _warm_pair(warm_problem, 4096, 44)
+    before = _build.launch_counts[WARM_WARP]
+    phi1, x1 = warm(U, zeros)
+    phi2, x2 = warm(U2, x1)
+    assert _build.launch_counts[WARM_WARP] == before + 2
+    f64 = warm.float64_twin()._forward_warm_plain(U.double(), zeros.double())
+    for (phi, x), ref, (median, rtol, frac) in (
+            ((phi1, x1), f64, (2e-5, 1e-4, 0.90)),
+            ((phi2, x2), warm._forward_warm_plain(U2, x1), (2e-6, 1e-5, 0.80))):
+        rel = _rel(phi, ref[0])
+        assert float(rel.median()) <= median and float(rel.max()) <= 5e-3
+        assert float((rel <= rtol).double().mean()) >= frac
+        assert float(_col_err(x, ref[1]).max()) <= 5e-3
+
+
+@pytest.mark.parametrize("B", [4091, 1, 0])
+def test_misfit_warm_warp_kernel_on_ragged_widths(warm_problem, B):
+    """B draws of a 4096-draw batch: the last CTA's spare warps solve u = 0
+    from x = 0 and write nothing; a draw's column of the CTA's products
+    depends on it alone, so (Φ, x) equal the first B of the 4096-draw launch
+    bit for bit, from x0 = 0 and from the previous solution."""
+    warm = warm_problem.batched_warm_potential[0]
+    U, U2, x0 = _warm_pair(warm_problem, 4096, 45)
+    for V in (U, U2):
+        full = warm(V, x0)
+        got = warm(V[:, :B].contiguous(), x0[:, :B].contiguous())
+        assert got[0].shape == (B,) and got[1].shape == (warm.aux_dim, B)
+        assert torch.equal(got[0], full[0][:B]) and torch.equal(got[1], full[1][:, :B])
+        x0 = full[1]
+
+
+def _warm_modes(p, modes):
+    """A 16² dst_trunc / 4 CG warm misfit of ``modes`` modes on ``p``'s data
+    (no config: darcy_pcn_warm's is 64)."""
+    from ip_mcmc_tpu_torch.convert import darcy_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    aux = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    return darcy_warm_misfit_from_arrays(aux, p.data, 0.002, cg_iters=4, precond="dst_trunc",
+                                         precond_modes=modes)[0].cuda()
+
+
+@pytest.mark.parametrize("modes", [48, 112])
+def test_misfit_warm_warp_kernel_on_other_mode_counts(warm_problem, modes):
+    """The warm rule takes a multiple of 16 modes up to 112: at 48 and at
+    112 (the most the CTA's shared memory holds) the kernel launches with
+    the geometry its Python mirror gives and meets its twin, from x0 = 0 and
+    from the previous solution, under the bound of the one-draw-a-CTA
+    kernel's bf16 specs (5e-3)."""
+    import ctypes
+
+    warm = _warm_modes(warm_problem, modes)
+    assert warm.warm_kernel_label == WARM_WARP
+    out = (ctypes.c_int * 3)()
+    status = _build.library().ipx_darcy_misfit_warm_warp_geometry(ctypes.byref(warm.spec()),
+                                                                  1024, out)
+    assert status == 0 and tuple(out) == fused_pcn.misfit_warm_warp_geometry(
+        1024, **warm.spec_fields)
+    U, U2, x0 = _warm_pair(warm_problem, 1024, 51)
+    before = _build.launch_counts[WARM_WARP]
+    for V in (U, U2):
+        phi, x = warm(V, x0)
+        ref_phi, ref_x = warm._forward_warm_plain(V, x0)
+        assert bool(torch.isfinite(phi).all())
+        assert float(_rel(phi, ref_phi).max()) <= 5e-3
+        assert float(_col_err(x, ref_x).max()) <= 5e-3
+        x0 = x
+    assert _build.launch_counts[WARM_WARP] == before + 2
+
+
+def _warm_specs_left(p):
+    """16² warm misfits the warm warp rule leaves: dense dst / 4 CG, Jacobi /
+    16 CG, dst_trunc-128 (above 112 modes); and darcy32_pcn_warm's warm
+    misfit (the 32² cluster level)."""
+    from ip_mcmc_tpu_torch.convert import darcy_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    aux = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    left = [darcy_warm_misfit_from_arrays(aux, p.data, 0.002, cg_iters=it, precond=pc,
+                                          precond_modes=128)[0].cuda()
+            for pc, it in (("dst", 4), ("jacobi", 16), ("dst_trunc", 4))]
+    return (*left, _build_on_card("darcy32_pcn_warm").batched_warm_potential[0])
+
+
+def test_misfit_warm_warp_rule_and_geometry_match_the_kernel(warm_problem):
+    """ops/fused_pcn.py misfit_warm_warp_takes and misfit_warm_warp_geometry
+    give what the C function computes: the geometry of darcy_pcn_warm's warm
+    misfit at 4096, 13, 1 and 0 draws, cudaErrorNotSupported for the warm
+    specs the rule leaves and for the cold misfits."""
+    import ctypes
+
+    lib = _build.library()
+    warm = warm_problem.batched_warm_potential[0]
+    left = (*_warm_specs_left(warm_problem), warm_problem.batched_potential_fn,
+            _build_on_card("darcy_da_fused").batched_potential_fn)
+    out = (ctypes.c_int * 3)()
+    for B in (4096, 13, 1, 0):
+        status = lib.ipx_darcy_misfit_warm_warp_geometry(ctypes.byref(warm.spec()), B, out)
+        assert status == 0 and fused_pcn.misfit_warm_warp_takes(**warm.spec_fields)
+        assert tuple(out) == fused_pcn.misfit_warm_warp_geometry(B, **warm.spec_fields)
+    for pot in left:
+        status = lib.ipx_darcy_misfit_warm_warp_geometry(ctypes.byref(pot.spec()), 64, out)
+        assert "not supported" in lib.ipx_error_string(status).decode()
+        assert not fused_pcn.misfit_warm_warp_takes(**pot.spec_fields)
+
+
+def test_warm_kernel_takes_the_warm_specs_the_warp_rule_leaves(warm_problem):
+    """The 16² warm specs the rule leaves stay on darcy_misfit_warm_kernel
+    (one draw a CTA) and meet their twins from x0 = 0 and from the previous
+    solution: bf16 preconditioners under 5e-3, Jacobi f32 only under 1e-4."""
+    g = torch.Generator().manual_seed(46)
+    for pot, max_rel in zip(_warm_specs_left(warm_problem)[:3], (5e-3, 1e-4, 5e-3)):
+        assert pot.warm_kernel_label == "darcy_misfit_warm_kernel"
+        U = warm_problem.prior.sample(g, 256).T.contiguous()
+        x0 = torch.zeros(pot.aux_dim, 256, device="cuda")
+        before = _build.launch_counts["darcy_misfit_warm_kernel"]
+        for _ in range(2):
+            phi, x = pot(U, x0)
+            ref_phi, ref_x = pot._forward_warm_plain(U, x0)
+            assert float(_rel(phi, ref_phi).max()) <= max_rel, pot.precond
+            assert float(_col_err(x, ref_x).max()) <= max(max_rel, 1e-3), pot.precond
+            U, x0 = (0.9968 * U + 0.08 * warm_problem.prior.sample(g, 256).T).contiguous(), x
+        assert _build.launch_counts["darcy_misfit_warm_kernel"] == before + 2
+
+
+def _surrogates():
+    """{variant: (exact, surrogate)} of darcy_da_fused (cg3's spec) and the
+    three Richardson runs."""
+    p = _build_on_card("darcy_da_fused")
+    rich = {v: configs.darcy_da_richardson(v, "cuda")
+            for v in configs.RICHARDSON_VARIANTS if v != "cg3"}
+    return {"darcy_da_fused": (p.batched_potential_fn, p.batched_surrogate_fn),
+            **{v: (q.batched_potential_fn, q.batched_surrogate_fn) for v, q in rich.items()}}
+
+
+def test_misfit_surr_warp_kernel_matches_plain_at_full_width():
+    """The 8² surrogates at 4096 draws a draw a warp against the plain twin:
+    CG under BF16_TOL, Richardson under RICH_BF16_TOL (chip_smoke.py's)."""
+    surrogates = _surrogates()
+    g = torch.Generator().manual_seed(47)
+    for name, (_, surr) in surrogates.items():
+        label = SURR_WARP[surr.solver]
+        assert surr.kernel_label == label
+        U = torch.randn(64, 4096, generator=g).cuda()
+        before = _build.launch_counts[label]
+        rel = _rel(surr(U), surr._forward_plain(U))
+        assert _build.launch_counts[label] == before + 1
+        median, rtol = (2e-6, 1e-5) if surr.solver == "cg" else (5e-5, 1e-4)
+        assert float(rel.median()) <= median and float(rel.max()) <= 5e-3, name
+        assert float((rel <= rtol).double().mean()) >= 0.80, name
+
+
+@pytest.mark.parametrize("B", [4091, 1, 0])
+def test_misfit_surr_warp_kernel_on_ragged_widths(B):
+    """B draws of a 4096-draw batch, CG and Richardson: the spare warps of
+    the last CTA run on zeros; Φ* equals the first B of the 4096-draw
+    launch bit for bit."""
+    surrogates = _surrogates()
+    U = torch.randn(64, 4096, generator=torch.Generator().manual_seed(48)).cuda()
+    for name, (_, surr) in surrogates.items():
+        got, full = surr(U[:, :B].contiguous()), surr(U)
+        assert got.shape == (B,) and torch.equal(got, full[:B]), name
+
+
+def _specs8_left():
+    """Cold misfits the warp rule leaves: on darcy_da_fused's surrogate
+    observations and data, 8² with K 36 (CG and Richardson); on its exact
+    data, 12² dst_trunc-64 / 3 CG and 16² Richardson."""
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    _build_on_card("darcy_da_fused")
+    fx = np.load(configs.FIXTURE)
+
+    def misfit(n_grid, modes_per_dim, surrogate=False, **kw):
+        obs = {"obs_indices": fx["obs_coarse"]} if surrogate else {}
+        aux = darcy.darcy_aux(n_grid=n_grid, n_modes_per_dim=modes_per_dim, alpha=2.0,
+                              field_scale=10.0, **obs)
+        y, sigma = (fx["y_surr"], fx["surr_scale"]) if surrogate else (fx["y"], 0.002)
+        kw = {"cg_iters": 3, "precond": "dst_trunc", "precond_modes": 64, **kw}
+        return darcy_misfit_from_arrays(aux, y, sigma, **kw).cuda()
+
+    return {"8x8 K36": misfit(8, 6, True),
+            "8x8 K36 richardson": misfit(8, 6, True, solver="richardson", omega=0.9),
+            "12x12": misfit(12, 8),
+            "16x16 richardson": misfit(16, 8, precond_modes=128, solver="richardson",
+                                       omega=0.9)}
+
+
+def test_misfit_warp_rule_and_geometry_match_the_kernel_at_8():
+    """ops/fused_da_pcn.py misfit_warp_takes and misfit_warp_geometry give
+    what the C function computes on the four shipped 8² surrogates (4096,
+    13, 1, 0 draws), and both leave the same specs (_specs8_left)."""
+    import ctypes
+
+    surrogates = _surrogates()
+    lib = _build.library()
+    out = (ctypes.c_int * 3)()
+    for _, surr in surrogates.values():
+        for B in (4096, 13, 1, 0):
+            status = lib.ipx_darcy_misfit_warp_geometry(ctypes.byref(surr.spec()), B, out)
+            assert status == 0 and da.misfit_warp_takes(**surr.spec_fields)
+            assert tuple(out) == da.misfit_warp_geometry(B, **surr.spec_fields)
+    for name, pot in _specs8_left().items():
+        status = lib.ipx_darcy_misfit_warp_geometry(ctypes.byref(pot.spec()), 64, out)
+        assert "not supported" in lib.ipx_error_string(status).decode(), name
+        assert not da.misfit_warp_takes(**pot.spec_fields), name
+
+
+def _jacobi8():
+    """8² Jacobi / 3 iteration surrogates on darcy_da_fused's surrogate data,
+    K 64, by CG and by Richardson (ω 0.9): specs the 8² branch of the warp
+    rule takes that no config uses."""
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    _build_on_card("darcy_da_fused")
+    fx = np.load(configs.FIXTURE)
+    aux = darcy.darcy_aux(n_grid=8, n_modes_per_dim=8, alpha=2.0, field_scale=10.0,
+                          obs_indices=fx["obs_coarse"])
+    return {solver: darcy_misfit_from_arrays(aux, fx["y_surr"], fx["surr_scale"], cg_iters=3,
+                                             precond="jacobi", solver=solver,
+                                             **({"omega": 0.9} if solver == "richardson"
+                                                else {})).cuda()
+            for solver in ("cg", "richardson")}
+
+
+@pytest.mark.parametrize("solver", ["cg", "richardson"])
+def test_misfit_surr_warp_kernel_on_a_jacobi_surrogate(solver):
+    """The 8² branch takes a Jacobi surrogate too (the DA kernel's 8² level
+    solves one): the C geometry equals the mirror's, the kernel launches a
+    draw a warp and meets its twin at 4096 draws under chip_smoke.py's
+    bounds for f32-only solves (F32_TOL; Richardson: RICH_BF16_TOL, its
+    residual recomputed as b - Ax)."""
+    import ctypes
+
+    pot = _jacobi8()[solver]
+    label = SURR_WARP[solver]
+    assert pot.kernel_label == label and da.misfit_warp_takes(**pot.spec_fields)
+    out = (ctypes.c_int * 3)()
+    for B in (4096, 13):
+        status = _build.library().ipx_darcy_misfit_warp_geometry(ctypes.byref(pot.spec()), B, out)
+        assert status == 0 and tuple(out) == da.misfit_warp_geometry(B, **pot.spec_fields)
+    U = torch.randn(64, 4096, generator=torch.Generator().manual_seed(52)).cuda()
+    before = _build.launch_counts[label]
+    rel = _rel(pot(U), pot._forward_plain(U))
+    assert _build.launch_counts[label] == before + 1
+    median, rtol, frac, max_rel = ((2e-6, 1e-5, 0.99, 1e-4) if solver == "cg"
+                                   else (5e-5, 1e-4, 0.80, 5e-3))
+    assert float(rel.median()) <= median and float(rel.max()) <= max_rel
+    assert float((rel <= rtol).double().mean()) >= frac
+
+
+def test_layout16_kernel_takes_the_specs_the_warp_rule_leaves_at_8_to_16():
+    """The cold specs of _specs8_left stay on darcy_misfit_kernel (one draw a
+    CTA of Layout16, by their solver) and meet their twins under 5e-3."""
+    g = torch.Generator().manual_seed(49)
+    for name, pot in _specs8_left().items():
+        tag = ",richardson" if pot.solver == "richardson" else ""
+        label = f"darcy_misfit_kernel[n={pot.n}{tag}]"
+        assert pot.kernel_label == label, name
+        U = torch.randn(pot.K, 256, generator=g).cuda()
+        before = _build.launch_counts[label]
+        rel = _rel(pot(U), pot._forward_plain(U))
+        assert _build.launch_counts[label] == before + 1
+        assert float(rel.max()) <= 5e-3, name
+
+
+def test_warm16_and_surr8_equal_their_samplers_own_solves(warm_problem):
+    """Each standalone misfit a draw a warp equals its sampler's own first
+    solve of the same u bit for bit: the warm misfit (darcy_pcn_warm's 64
+    modes, and 48 and 112) K7's warm solve from x0 = 0, (Φ, x); each 8²
+    surrogate the DA kernel's first surrogate solve (CG and Richardson).
+    The samplers are copies patched to write that solve
+    (scripts/measure_misfit_warm16_surr8_design.py), run one step at beta =
+    0 under a zero prior mean."""
+    import importlib.util
+    import pathlib
+    import sys
+
+    scripts = pathlib.Path(__file__).resolve().parent.parent / "scripts"
+    sys.path.insert(0, str(scripts))
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "measure_misfit_warm16_surr8_design", scripts / "measure_misfit_warm16_surr8_design.py")
+        design = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(design)
+    finally:
+        sys.path.remove(str(scripts))
+    _build.library()
+    warm = warm_problem.batched_warm_potential[0]
+    U = warm_problem.prior.sample(torch.Generator().manual_seed(50), 1024).T.contiguous()
+    pairs = _surrogates()
+    lib = design.first_solve_library(_build)
+    (phi_k7, x_k7), sps = design.sampler_first_solves(_build, lib, warm, U, list(pairs.values()))
+    zeros = torch.zeros(warm.aux_dim, U.shape[1], device="cuda")
+    phi, x = warm(U, zeros)
+    assert torch.equal(phi, phi_k7) and torch.equal(x, x_k7)
+    for (name, (_, surr)), sp in zip(pairs.items(), sps):
+        assert torch.equal(surr(U), sp), name
+    for modes in (48, 112):
+        other = _warm_modes(warm_problem, modes)
+        (phi_k7, x_k7), _ = design.sampler_first_solves(_build, lib, other, U, [])
+        phi, x = other(U, zeros)
+        assert torch.equal(phi, phi_k7) and torch.equal(x, x_k7), modes

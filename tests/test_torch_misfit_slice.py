@@ -74,8 +74,8 @@ LEFT_LABELS = {
     "dst_trunc-128": ("darcy_misfit_warp_kernel[n=16]", "darcy_misfit_grad_kernel[n=16]"),
     "dst_trunc-160": ("darcy_misfit_kernel[n=16]", "darcy_misfit_grad_kernel[n=16]"),
     "richardson16": ("darcy_misfit_kernel[n=16,richardson]", "darcy_misfit_grad_kernel[n=16]"),
-    "surrogate8": ("darcy_misfit_kernel[n=8]", "darcy_misfit_grad_kernel[n=8]"),
-    "surrogate8_richardson": ("darcy_misfit_kernel[n=8,richardson]",
+    "surrogate8": ("darcy_misfit_warp_kernel[n=8]", "darcy_misfit_grad_kernel[n=8]"),
+    "surrogate8_richardson": ("darcy_misfit_warp_kernel[n=8,richardson]",
                               "darcy_misfit_grad_kernel[n=8]"),
     "jacobi32": ("darcy_misfit_kernel[n=32]", "darcy_misfit_grad_kernel[n=32]"),
     "K36": ("darcy_misfit_kernel[n=16]", "darcy_misfit_grad_kernel[n=16]"),

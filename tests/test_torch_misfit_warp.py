@@ -18,6 +18,7 @@ from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
 from ip_mcmc_tpu_torch.models import darcy
 from ip_mcmc_tpu_torch.ops import _build
 from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
+from ip_mcmc_tpu_torch.ops import fused_pcn
 
 torch.set_num_threads(1)
 
@@ -88,10 +89,17 @@ def test_rule_leaves_the_16_jacobi_misfits(config):
 @pytest.mark.parametrize("variant, label", [("cg3", "darcy_misfit_kernel[n=8]"),
                                             ("rich3_w0.9", "darcy_misfit_kernel[n=8,richardson]")])
 def test_rule_leaves_the_8_surrogates(variant, label):
-    """The 8² surrogates, by CG and by Richardson (K17), keep their kernel."""
+    """The 8² surrogates, by CG and by Richardson (K17), which left this
+    rule for the one-draw-a-CTA kernel ``label``, are now taken: the rule
+    covers the DA kernel's 8² surrogate level too, and the label names
+    this kernel on that level with the solver's tag (the rest of the 8²
+    level's tests: tests/test_torch_misfit_warm16_surr8.py)."""
     pot = configs.darcy_da_richardson(variant, "cpu").batched_surrogate_fn
-    _leaves(pot)
-    assert pot.kernel_label == label
+    assert da.misfit_warp_takes(**pot.spec_fields)
+    assert pot.kernel_label != label
+    assert pot.kernel_label == label.replace("darcy_misfit_kernel", "darcy_misfit_warp_kernel")
+    assert da.misfit_warp_geometry(4096, **pot.spec_fields)[:2] == (da.MISFIT_SURR_WARP_DRAWS,
+                                                                     256)
 
 
 @pytest.mark.parametrize("kw", [
@@ -163,10 +171,14 @@ def test_mirror_constants_follow_the_design_line():
 
 def test_warm_and_gradient_misfits_keep_their_kernels():
     """The warm and gradient entries never consult the rule: darcy_pcn_warm's
-    warm misfit (16² dst_trunc-64, which the rule would take cold) and the
-    MALA gradient misfits keep their kernels' names."""
+    warm misfit (16² dst_trunc-64, which the rule would take cold) goes by
+    its own rule (fused_pcn.misfit_warm_warp_takes) to the warm pCN's level
+    a draw a warp, and the MALA gradient misfits keep their kernels'
+    names."""
     warm = configs.build("darcy_pcn_warm", "cpu").batched_warm_potential[0]
-    assert da.misfit_warp_takes(**warm.spec_fields) and warm.warm_kernel_label == "darcy_misfit_warm_kernel"
+    assert da.misfit_warp_takes(**warm.spec_fields)
+    assert fused_pcn.misfit_warm_warp_takes(**warm.spec_fields)
+    assert warm.warm_kernel_label == "darcy_misfit_warm_warp_kernel[n=16]"
     before = dict(_build.launch_counts)
     jacobi = configs.build("darcy_mala_fused", "cpu").batched_potential_fn
     U = torch.zeros(64, 2)
