@@ -38,7 +38,9 @@ Gaussians), times both, then drives the ported paths at full width:
                              a draw a warp on the same solve
     darcy_fes_fused          functional ensemble sampler (K9), a chain a warp
     burgers_da3_pcn          three-level delayed acceptance (K12, K13), a
-                             chain a warp
+                             chain a warp; the misfits at the start
+                             positions a draw a warp on the same solve (as
+                             on the three Burgers paths below)
     burgers_da_pcn           delayed acceptance on Burgers  (K4, K12), a
                              chain a warp
     burgers_pcn --fused      cold pCN on Burgers            (K6, K12), a
@@ -55,8 +57,11 @@ Gaussians), times both, then drives the ported paths at full width:
                              cluster, then dense-prior pCN (K15), a chain a
                              warp
     gauss2d_rwm, lingauss_pcn   the scan path through the CLI (no kernel)
+    darcy_pcn_4096 scan, darcy64_pcn   the scan path on the single-particle
+                             Darcy forward (plain PyTorch, no kernel), its
+                             potential first held to the same on the CPU
 
-The fourteen fused configs and the two scan configs run through the port's
+The fourteen fused configs and the four scan paths run through the port's
 CLI, the other paths through the entry points (``runner``, ``ops``).
 Before each path the launch counts are set to 0; after it they must show
 that the path went through its kernels (the scan path: its steps on the
@@ -172,6 +177,24 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, needle: str):
+    """Device time of one call of ``fn``: what torch.profiler (CUPTI)
+    records in the kernels whose names hold ``needle`` over ``reps`` calls
+    after a warm-up, divided by ``reps``; None when it records none. A small
+    call's CUDA-event time can be the host's time to issue it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+             for e in prof.key_averages() if needle in e.key)
+    return us / reps / 1e3 if us else None
 
 
 def slope_ms(run, short: int, long: int, reps: int) -> float:
@@ -487,6 +510,13 @@ PCN_WARM = "fused_pcn_warp_kernel[dst_trunc]"
 # other specs on the one-chain-a-CTA kernels
 DA_BURGERS = "fused_da_pcn_burgers_warp_kernel"
 PCN_BURGERS = "fused_pcn_burgers_warp_kernel"
+# K12, the Burgers misfit at the start positions: a draw a warp on the
+# samplers' solve at the configs' levels (ops/_burgers_warp.py
+# misfit_takes), a draw a CTA at any other; the levels' tags
+BURGERS_MISFIT = "burgers_misfit_warp_kernel"
+BURGERS_MISFIT_CTA = "burgers_misfit_kernel"
+FINE, MID, COARSE, MULTI = ("[n=128,steps=154]", "[n=128,steps=52]", "[n=64,steps=26]",
+                            "[n=128,steps=54+54+46]")
 # K14 and K15 on the shipped linear-Gaussian specs: a chain on each group of
 # d lanes (ops/_gaussian_group.py); the other specs on the one-chain-a-CTA
 # kernels
@@ -945,17 +975,20 @@ def compare_small_misfit(results, pot, U, *, variant, paths, tol, source, replac
     wide = U.repeat(1, 8)
     ms = cuda_time_ms(lambda: pot(wide), 50) / 8
     call_ms, plain_ms = cuda_time_ms(kern, 200), cuda_time_ms(plain, 3)
+    dev_ms = device_ms(kern, 50, name.split("[")[0])
     row = {
         "name": name, "variant": variant, "route": "cuda", "source": SRC + source,
         "replaces": replaces, "paths": paths, "max_abs_err": float((got - ref).abs().max()),
         "max_rel_err": float(rel.max()), "frac_within_rtol": frac,
-        "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+        "ms": ms, "call_ms": call_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "ms_unit": (f"{B} draws: ms per {B} of one call of {8 * B}, call_ms and "
-                    f"plain_ms one call of {B}"),
+                    f"plain_ms one call of {B}, device_ms the profiler's kernel time "
+                    f"of one call of {B}"),
         **bound_row, "library_ms": None,
     }
+    dev = "not recorded" if dev_ms is None else f"{dev_ms:.5f}"
     print(f"  time per {B} draws: kernel {ms:.5f} ms (one call of {B} through the "
-          f"wrapper {call_ms:.4f}), plain {plain_ms:.3f} ms, bound "
+          f"wrapper {call_ms:.4f}, on the device {dev}), plain {plain_ms:.3f} ms, bound "
           f"{row['bound_ms']:.6f} ms ({row['bound_by']})", flush=True)
     results.append(row)
 
@@ -1175,6 +1208,89 @@ def check_burgers_warp(problems, gen, results):
             steps=4, kernel_long=132, plain_long=12,
             variant=f"96 cells (a spec the warp kernel leaves), block {block}",
             paths=[], source="fused_pcn.cu", pots=(wide,), per_step_ops=ops_of(wide) + draws)
+
+
+def padded_burgers(pot):
+    """``pot`` with a 17th KL mode of zeros: a level that the warp rule
+    leaves (K != 16), so its kernel is the one-draw-a-CTA
+    burgers_misfit_kernel. Fed U with a row of zeros added, it adds an exact
+    zero to each cell's KL sum, so its Phi has the bits of that kernel on
+    ``pot`` itself."""
+    import copy
+
+    padded = copy.deepcopy(pot)
+    padded.basis = torch.cat([pot.basis, torch.zeros_like(pot.basis[:1])])
+    padded.K = pot.K + 1
+    return padded
+
+
+def check_burgers_misfit_warp(problems, gen, results):
+    """K12 a draw a warp (burgers_misfit_warp_kernel) beside the kernel it
+    replaced on the configs' levels (burgers_misfit_kernel, one draw a CTA):
+    the Python mirrors of the rule and the geometry against
+    ipx_burgers_misfit_warp_geometry at 2048, 2047, 13, 1 and 0 draws on
+    the four levels, and on levels the rule leaves (96 cells, 8 modes, 17
+    modes) C's cudaErrorNotSupported against the mirror's refusal; then at
+    each level Phi at 2048 draws equal bit for bit to burgers_misfit_kernel's
+    on the same level padded by a mode of zeros (``padded_burgers``), and
+    on 2047 and 13 draws to the first of the 2048; last, burgers_misfit_kernel
+    on a 96-cell level against its plain version and timed (no config has
+    such a level: 0 launches on the paths)."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.ops import _build, _burgers_warp
+
+    lib = _build.library()
+    da3_p, multi_p = problems["burgers_da3_pcn"], problems["burgers_multitime_pcn"]
+    levels = (da3_p.batched_potential_fn, da3_p.batched_mid_fn, da3_p.batched_surrogate_fn,
+              multi_p.batched_potential_fn)
+    wide = burgers_level(96, seed=5)
+    leaves = (wide, burgers_level(128, n_modes=8, seed=6), padded_burgers(levels[0]))
+    out = (ctypes.c_int * 3)()
+    n = da3_p.n_chains
+    for pot in levels:
+        for B in (n, n - 1, 13, 1, 0):
+            status = lib.ipx_burgers_misfit_warp_geometry(ctypes.byref(pot.spec()), B, out)
+            want = _burgers_warp.misfit_geometry(B, pot.n, pot.K)
+            if status != 0 or tuple(out) != want or not _burgers_warp.misfit_takes(pot.n, pot.K):
+                raise AssertionError(f"{pot.kernel_label} geometry at {B} draws: C {tuple(out)} "
+                                     f"(status {status}), Python {want}")
+    for pot in leaves:
+        status = lib.ipx_burgers_misfit_warp_geometry(ctypes.byref(pot.spec()), 64, out)
+        if (status != 801 or _burgers_warp.misfit_takes(pot.n, pot.K)  # cudaErrorNotSupported
+                or not pot.kernel_label.startswith(BURGERS_MISFIT_CTA + "[")):
+            raise AssertionError(f"{pot.kernel_label} ({pot.n} cells, K {pot.K}): C status "
+                                 f"{status}")
+    print(f"{BURGERS_MISFIT} geometry: Python mirror equals the C function on the "
+          f"{len(levels)} levels (at {n}: {_burgers_warp.misfit_geometry(n, 128)} at 128 cells, "
+          f"{_burgers_warp.misfit_geometry(n, 64)} at 64); C and Python leave the same "
+          f"{len(leaves)} other levels to {BURGERS_MISFIT_CTA}", flush=True)
+
+    U = da3_p.prior.sample(gen, n).T.contiguous()
+    U17 = torch.cat([U, torch.zeros_like(U[:1])])
+    for pot in levels:
+        padded = padded_burgers(pot)
+        before = _build.launch_counts[padded.kernel_label]
+        full, old = pot(U), padded(U17)
+        torch.cuda.synchronize()
+        assert _build.launch_counts[padded.kernel_label] == before + 1
+        equal = torch.equal(full, old)
+        print(f"{pot.kernel_label} ({n} draws): Phi equal to {padded.kernel_label}'s on the "
+              f"level padded by a zero mode {equal}", flush=True)
+        if not equal:
+            raise AssertionError(f"{pot.kernel_label} is not {BURGERS_MISFIT_CTA}'s bit for bit")
+        for B in (n - 1, 13):
+            got = pot(U[:, :B].contiguous())
+            torch.cuda.synchronize()
+            if not torch.equal(got, full[:B]):
+                raise AssertionError(f"{pot.kernel_label} on {B} draws disagrees")
+        print(f"{pot.kernel_label} ragged ({n - 1} and 13 draws): equal to the first of {n}",
+              flush=True)
+    compare_small_misfit(
+        results, wide, U, variant="96 cells, 116 steps (a level the warp kernel leaves)",
+        paths=[], tol=BURGERS_TOL, source="fused_da3_pcn.cu",
+        replaces="ip_mcmc_tpu/models/burgers.py:153",
+        bound_row=burgers_misfit_bound(wide, U.shape[1]))
 
 
 # --- K17 (Richardson) and the large Darcy grids ----------------------------------
@@ -2161,7 +2277,13 @@ BURGERS_PTXAS = {
     **{f"{name}_burgers_kernel<{rec}>": (
         f"{name}_kernelIN3ipx16BurgersPotentialELb{int(rec == 'true')}E",
         f"{name}_kernel<ipx::BurgersPotential, {rec}")
-       for name in ("fused_da_pcn", "fused_pcn") for rec in ("false", "true")}}
+       for name in ("fused_da_pcn", "fused_pcn") for rec in ("false", "true")},
+    # the standalone misfit: <C, T> = <4, 128> at 128 cells, <2, 64> at 64
+    **{BURGERS_MISFIT + tag: (f"{BURGERS_MISFIT}ILi{c}ELi{32 * c}E",
+                              f"{BURGERS_MISFIT}<{c}, {32 * c}>")
+       for tag, c in ((FINE, 4), (MID, 4), (MULTI, 4), (COARSE, 2))},
+    BURGERS_MISFIT_CTA + "[n=96,steps=116]": ("21burgers_misfit_kernel",
+                                              "ipx::burgers_misfit_kernel(")}
 
 
 def report_da64(problem, metrics):
@@ -2917,6 +3039,35 @@ def run_lingauss_fused(problem):
     return out
 
 
+# --- the single-particle Darcy forward (the scan path, plain PyTorch) ---------
+
+# Φ on the card against the same plain code on the CPU: f32 in other
+# summation orders (cuBLAS and the CUDA reductions against the CPU's), which
+# the CPU tests bound at 1e-5 relative against the JAX package
+# (tests/test_torch_darcy_forward.py)
+DARCY_FORWARD_RTOL = 1e-5
+
+
+def check_darcy_forward(problems):
+    """The scan path's potential of darcy_pcn_4096 (16x16, Jacobi / 48
+    CG) and darcy64_pcn (64x64, dst / 24 CG) on 16 prior draws, half of
+    them tripled (rougher fields), on the card against the same config's on
+    the CPU: finite, of shape (16,), within DARCY_FORWARD_RTOL."""
+    from ip_mcmc_tpu_torch import configs
+
+    for path in ("darcy_pcn_4096 scan", "darcy64_pcn"):
+        p, ref = problems[path], configs.build(config_of(path), "cpu")
+        u = p.prior.sample(torch.Generator().manual_seed(71), 16).cpu()
+        u[8:] *= 3.0
+        got = p.potential_fn(u.cuda()).cpu()
+        want = ref.potential_fn(u)
+        rel = ((got - want).abs() / want.abs()).max()
+        print(f"{path} potential (16 draws): card against CPU max rel {float(rel):.3e}",
+              flush=True)
+        if got.shape != (16,) or not bool(torch.isfinite(got).all()) or rel > DARCY_FORWARD_RTOL:
+            raise AssertionError(f"{path}: the potential on the card disagrees with the CPU's")
+
+
 # --- the CLI runs ---------------------------------------------------------------
 
 # config -> (CLI flags, kernels the run must launch)
@@ -2931,24 +3082,33 @@ PATHS = {
     "darcy_mala_fused": ([], (GRAD_WARP, f"{MALA_COLD}<false>", f"{MALA_COLD}<true>")),
     "darcy_mala_warm": ([], (GRAD_WARM_WARP, f"{MALA_WARM}<false>", f"{MALA_WARM}<true>")),
     "darcy_fes_fused": ([], (MISFIT_SLICE, f"{FES}<false>", f"{FES}<true>")),
-    "burgers_da3_pcn": ([], (
-        "burgers_misfit_kernel[n=128,steps=154]", "burgers_misfit_kernel[n=128,steps=52]",
-        "burgers_misfit_kernel[n=64,steps=26]", f"{DA3}<false>", f"{DA3}<true>")),
-    "burgers_da_pcn": ([], (
-        "burgers_misfit_kernel[n=128,steps=154]", "burgers_misfit_kernel[n=64,steps=26]",
-        f"{DA_BURGERS}<false>", f"{DA_BURGERS}<true>")),
-    "burgers_pcn": (["--fused"], (
-        "burgers_misfit_kernel[n=128,steps=154]", f"{PCN_BURGERS}<false>",
-        f"{PCN_BURGERS}<true>")),
-    "burgers_multitime_pcn": (["--fused"], (
-        "burgers_misfit_kernel[n=128,steps=54+54+46]", f"{PCN_BURGERS}<false>",
-        f"{PCN_BURGERS}<true>")),
+    "burgers_da3_pcn": ([], (*(BURGERS_MISFIT + tag for tag in (FINE, MID, COARSE)),
+                             f"{DA3}<false>", f"{DA3}<true>")),
+    "burgers_da_pcn": ([], (BURGERS_MISFIT + FINE, BURGERS_MISFIT + COARSE,
+                            f"{DA_BURGERS}<false>", f"{DA_BURGERS}<true>")),
+    "burgers_pcn": (["--fused"], (BURGERS_MISFIT + FINE, f"{PCN_BURGERS}<false>",
+                                  f"{PCN_BURGERS}<true>")),
+    "burgers_multitime_pcn": (["--fused"], (BURGERS_MISFIT + MULTI, f"{PCN_BURGERS}<false>",
+                                            f"{PCN_BURGERS}<true>")),
     # the scan path: plain PyTorch on the card, no kernel of the port; the
     # scan steps count themselves by the device they ran on
     "gauss2d_rwm": ([], ("scan_rwm_step[cuda]",)),
     "lingauss_pcn": ([], ("scan_pcn_step[cuda]",)),
+    # ... on the single-particle Darcy forward (the name "darcy_pcn_4096" is
+    # its --fused run's)
+    "darcy_pcn_4096 scan": ([], ("scan_pcn_step[cuda]",)),
+    "darcy64_pcn": ([], ("scan_pcn_step[cuda]",)),
 }
-SCAN_PATHS = ("gauss2d_rwm", "lingauss_pcn")
+# a path's config where the two differ
+PATH_CONFIG = {"darcy_pcn_4096 scan": "darcy_pcn_4096"}
+SCAN_PATHS = ("gauss2d_rwm", "lingauss_pcn", "darcy_pcn_4096 scan", "darcy64_pcn")
+# the scan paths whose posterior mean has a closed form (the config's truth)
+CLOSED_FORM = ("gauss2d_rwm", "lingauss_pcn")
+# the Darcy scan paths' samples: their warm-up (500 and 300 steps) runs in
+# full, twice, as the runner's protocol has it; a step is a plain PyTorch
+# CG solve of some thousand launches, so the samples are cut to stay within
+# the script's time
+DARCY_SCAN_SAMPLES = 100
 # one-draw-a-CTA kernels that a path launched before its spec went to a
 # kernel a draw a warp or a cluster level: the path must not launch them
 RETIRED = {"darcy_ess_fused": ("darcy_misfit_kernel[n=16]",),
@@ -2958,7 +3118,15 @@ RETIRED = {"darcy_ess_fused": ("darcy_misfit_kernel[n=16]",),
            "darcy_mala_warm": ("darcy_misfit_grad_warm_kernel",),
            "darcy64_da_fused": ("darcy_misfit_kernel[n=32]",),
            "darcy_pcn_warm": ("darcy_misfit_warm_kernel",),
-           "darcy_da_fused": ("darcy_misfit_kernel[n=8]",)}
+           "darcy_da_fused": ("darcy_misfit_kernel[n=8]",),
+           "burgers_da3_pcn": tuple(BURGERS_MISFIT_CTA + tag for tag in (FINE, MID, COARSE)),
+           "burgers_da_pcn": (BURGERS_MISFIT_CTA + FINE, BURGERS_MISFIT_CTA + COARSE),
+           "burgers_pcn": (BURGERS_MISFIT_CTA + FINE,),
+           "burgers_multitime_pcn": (BURGERS_MISFIT_CTA + MULTI,)}
+
+
+def config_of(path):
+    return PATH_CONFIG.get(path, path)
 
 
 def run_cli(config, flags, n_samples):
@@ -2980,7 +3148,7 @@ def drive_path(config, problem, n_samples):
     counts, the metrics)."""
     flags, kernels = PATHS[config]
     counts, metrics = drive_phase(config, kernels,
-                                  lambda: run_cli(config, flags, n_samples))
+                                  lambda: run_cli(config_of(config), flags, n_samples))
     print(f"{config} metrics: " + json.dumps(metrics), flush=True)
     for k in RETIRED.get(config, ()):
         if counts.get(k, 0):
@@ -3013,6 +3181,7 @@ def drive_path(config, problem, n_samples):
     if config in SCAN_PATHS:  # the JAX one-dispatch keys
         assert metrics["program_count"] == 1 and metrics["sampling_steps_per_s"] > 0.0
         assert ("mean_error_vs_exact" in metrics) == (problem.exact_mean is not None)
+    if config in CLOSED_FORM:
         err = max(abs(a - b) for a, b in zip(metrics["posterior_mean"], problem.truth))
         assert err < 0.1, f"{config}: posterior mean off the closed form by {err}"
     return counts, metrics
@@ -3037,7 +3206,7 @@ def main() -> int:
           f"{len(_build.sources()[1])} sources in parallel)", flush=True)
     ptxas = sampler_ptxas_report()
 
-    problems = {name: configs.build(name, "cuda") for name in PATHS}
+    problems = {name: configs.build(config_of(name), "cuda") for name in PATHS}
     gen = torch.Generator().manual_seed(1234)
     results = []
     check_da(problems["darcy_da_fused"], gen, results)
@@ -3058,12 +3227,14 @@ def main() -> int:
     check_gradient_and_ensemble(problems, gen, results)
     check_burgers(problems, gen, results)
     check_burgers_warp(problems, gen, results)
+    check_burgers_misfit_warp(problems, gen, results)
     attach_ptxas(results, ptxas, {**MALA_PTXAS, **PCN_PTXAS, **BURGERS_PTXAS, **MISFIT_PTXAS})
     check_linear_family(problems, gen, results)
     check_linear_d2(gen, results)
     check_linear_group()
     check_pcn_adapt_group()
     attach_ptxas(results, ptxas, group_ptxas())
+    check_darcy_forward(problems)
 
     # the fused linear-Gaussian paths, each with the counts set to 0 before it
     counts = {}
@@ -3111,6 +3282,8 @@ def main() -> int:
         n_samples = problem.n_samples
         if config not in SCAN_PATHS:
             n_samples = max(8, int(problem.n_samples * cut))
+        elif config not in CLOSED_FORM:
+            n_samples = DARCY_SCAN_SAMPLES
         if n_samples != problem.n_samples:
             print(f"{config}: n_samples cut from {problem.n_samples} to "
                   f"{n_samples} to fit the time limit (width unchanged: "

@@ -1,13 +1,13 @@
 """Named configurations of the port (mirrors ``ip_mcmc_tpu/configs``).
 
 Ported so far: on the 16×16 Darcy problem ``darcy_da_fused``,
-``darcy_pcn_4096`` (its fused path), ``darcy_pcn_warm``,
+``darcy_pcn_4096`` (its fused and its scan path), ``darcy_pcn_warm``,
 ``darcy_ess_fused``, ``darcy_fes_fused``, ``darcy_mala_fused`` and
 ``darcy_mala_warm``, and the builder ``darcy_da_richardson(variant)``
 (``benchmarks/darcy_da_richardson.py``'s DA runs; JAX registers no config
 for them); on the 32×32 and 64×64 grids ``darcy32_pcn_warm``,
-``darcy64_pcn_warm`` and ``darcy64_da_fused`` (64×64 exact, 32×32
-surrogate); on the 128-cell Burgers initial-data inversion
+``darcy64_pcn_warm``, ``darcy64_da_fused`` (64×64 exact, 32×32
+surrogate) and ``darcy64_pcn`` (the scan path); on the 128-cell Burgers initial-data inversion
 ``burgers_pcn`` and ``burgers_multitime_pcn`` (their fused paths),
 ``burgers_da_pcn`` and ``burgers_da3_pcn``; on the scan path BASELINE
 configs 1 and 2, ``gauss2d_rwm`` (RWM on a 2-D Gaussian) and
@@ -189,6 +189,17 @@ def lingauss_pcn(device) -> Problem:
 # --- the Darcy coefficient inversion ------------------------------------------
 
 
+def _darcy_potential(device, y, **forward):
+    """The scan path's Φ of a Darcy config: ``misfit_potential`` of the
+    single-particle forward (``models.darcy.make_darcy_forward`` with
+    ``forward``'s arguments) on the data y, noise N(0, 0.002²)."""
+    fwd, _ = darcy.make_darcy_forward(device=device, **forward)
+    m = len(y)
+    noise = dist.DiagGaussian(mean=torch.zeros(m, device=device),
+                              scale=0.002 * torch.ones(m, device=device))
+    return potentials.misfit_potential(fwd, torch.tensor(y, device=device), noise)
+
+
 def _darcy_problem(device):
     """What the 16×16 Darcy configs share (``_darcy_problem`` of the JAX
     configs): the whitened prior, the aux constants, y, the truth and the
@@ -206,8 +217,10 @@ def _darcy_problem(device):
 
 @register
 def darcy_pcn_4096(device) -> Problem:
-    """Darcy coefficient inversion by pCN, 64-dim KL, 4096 chains; the port
-    runs its fused path (``--fused``)."""
+    """BASELINE config 4: Darcy coefficient inversion, 64-dim KL, 4096 chains.
+    Both paths run: the scan pCN with warmup_pcn on the single-particle
+    forward (Jacobi, 48 CG), and with ``--fused`` the fused kernel on the
+    batched misfit."""
     prior, _, y, u_true, phi_batched = _darcy_problem(device)
     return Problem(
         name="darcy_pcn_4096",
@@ -221,6 +234,8 @@ def darcy_pcn_4096(device) -> Problem:
         data=y,
         truth=u_true,
         notes="elliptic PDE inversion; whitened KL coordinates",
+        potential_fn=_darcy_potential(device, y, n_grid=16, n_modes_per_dim=8, alpha=2.0,
+                                      field_scale=10.0),
         batched_potential_fn=phi_batched,
     )
 
@@ -511,6 +526,35 @@ def darcy64_pcn_warm(device) -> Problem:
         n_samples=300,
         burn_in=300,
         notes="64x64 grid entirely in the fused kernel (dst_trunc)",
+    )
+
+
+@register
+def darcy64_pcn(device) -> Problem:
+    """Large-grid Darcy (64² cells, 144-dim KL) on the scan path: pCN with
+    warmup_pcn on the single-particle forward, dst fast-Poisson CG of 24
+    iterations (the data of ``darcy64.npz``, which JAX's darcy64_pcn and
+    darcy64_pcn_warm draw alike)."""
+    fx = np.load(DARCY64_FIXTURE)
+    K = 144
+    prior = dist.DiagGaussian(
+        mean=torch.zeros(K, device=device), scale=torch.ones(K, device=device)
+    )
+    return Problem(
+        name="darcy64_pcn",
+        dim=K,
+        prior=prior,
+        kernel="pcn",
+        kernel_params={"beta": 0.06, "adapt": True},
+        n_chains=512,
+        n_samples=300,
+        burn_in=300,
+        data=fx["y"],
+        truth=fx["u_true"],
+        notes="64x64 grid, DST-PCG forward solve",
+        potential_fn=_darcy_potential(device, fx["y"], n_grid=64, n_modes_per_dim=12,
+                                      alpha=2.0, field_scale=10.0, cg_iters=24,
+                                      precond="dst"),
     )
 
 

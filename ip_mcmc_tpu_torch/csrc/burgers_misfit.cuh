@@ -3,12 +3,12 @@
 // godunov_flux2 (l.25). On the TPU the whole finite-volume time loop is
 // traced into the fused Pallas kernel with chains on the vector lanes.
 // Here burgers_phi runs one chain on a CTA, thread t owning cell t of the
-// periodic grid (t < n_cells): the misfit kernel, and the Burgers DA and
+// periodic grid (t < n_cells): the misfit kernel and the Burgers DA and
 // pCN samplers on a spec that the warp solve does not take (a level of
 // other than 64 or 128 cells, or K != 16: burgers_warp_takes).
 // burgers_phi_warp (below) runs one chain on a warp, with the same bits:
-// the three-level DA kernel, and the Burgers DA and pCN samplers on every
-// spec that it takes (the shipped configs').
+// the three-level DA kernel, and the standalone misfit and the Burgers DA
+// and pCN samplers on every spec that it takes (the shipped configs').
 //
 //   state = mean + basis^T u                  16 multiply-adds per cell
 //   per segment: seg_steps Godunov steps      u -= c (2F_{i+1/2} - 2F_{i-1/2}),

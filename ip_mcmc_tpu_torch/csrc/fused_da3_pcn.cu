@@ -9,14 +9,18 @@
 // inlined Burgers misfits (K12, burgers_misfit.cuh; replaces
 // ip_mcmc_tpu/models/burgers.py make_batched_misfit l.153).
 //
-//   burgers_misfit_kernel                 Phi for a (K, B) batch at one
-//                                         Burgers misfit spec.
+//   burgers_misfit_warp_kernel<C, T>      Phi for a (K, B) batch at a level
+//                                         of the samplers' warp solve, one
+//                                         draw a warp.
+//   burgers_misfit_kernel                 the same at any other Burgers
+//                                         misfit spec, one draw a CTA.
 //   fused_da3_pcn_warp_kernel<RECORD>     the whole n_steps loop in one
 //                                         launch, one chain a warp.
 //
 // Per outer step: k_mid times (k_inner pCN steps against the coarse
 // potential, then a middle correction), then one fine correction. Phi at
-// the start positions comes in from three burgers_misfit_kernel launches.
+// the start positions comes in from three launches of the standalone
+// misfit, a draw a warp on the same solve.
 //
 // What bounds it on the H100: at the shipped k_inner = 8, k_mid = 24 an
 // outer step is 192 coarse solves of 26 Godunov steps, 24 middle solves of
@@ -56,6 +60,87 @@ __global__ void __launch_bounds__(1024)
   __syncthreads();
   const float v = burgers_phi(s, u, ws);
   if (threadIdx.x == 0) phi[b] = v;
+}
+
+// --- the standalone misfit: one draw a warp --------------------------------
+//
+// Phi for a (K, B) batch at a level that the samplers' warp solve takes
+// (burgers_warp_takes with d = K: 64 or 128 cells, K = 16; the Burgers
+// configs' fine, middle, coarse and multi-time levels), on that solve:
+// burgers_phi_warp<C, T>, one draw a warp, C cells a lane, the edge cells by
+// shuffle, no CTA barrier after the staging. burgers_misfit_kernel above runs
+// one draw a CTA, a thread a cell, and pays a barrier every Godunov step. T
+// is that kernel's CTA, round_up32(n_cells) threads, so Phi adds in its
+// block_sum order and keeps its bits: at 64 cells T = 64, where the samplers
+// (burgers_level_phi) add over 128. The level's basis and mean are staged
+// once a CTA ((K + 1) cells floats); a warp's slice holds its draw's K
+// coefficients and the gather buffer of the level's cells. A spare warp of a
+// ragged last CTA leaves after the staging barrier: no CTA barrier follows,
+// and a warp's shuffles involve its own lanes only.
+
+// The design (scripts/measure_burgers_misfit_warp_design.py times the
+// alternatives): kWarps draws a CTA, one a warp; the launch bound's warps
+// an SM (kSmWarps: 32 caps a thread at 64 registers, 16 at 128).
+struct MisfitBurgersWarpDesign { static constexpr int kWarps = 16, kSmWarps = 32; };
+constexpr int kMisfitBurgersWarpMinCtas =
+    MisfitBurgersWarpDesign::kSmWarps >= 2 * MisfitBurgersWarpDesign::kWarps
+        ? MisfitBurgersWarpDesign::kSmWarps / MisfitBurgersWarpDesign::kWarps
+        : 1;
+
+template <int C, int T>
+__global__ void __launch_bounds__(32 * MisfitBurgersWarpDesign::kWarps, kMisfitBurgersWarpMinCtas)
+    burgers_misfit_warp_kernel(const __grid_constant__ IpxBurgersSpec s,
+                               const float* __restrict__ U, int B, float* __restrict__ phi) {
+  constexpr int kSlice = kBurgersWarpK + 32 * C;  // a warp's u, then its gather buffer
+  extern __shared__ float4 misfit_burgers_warp_smem[];
+  BurgersWarpLevel lv{&s};
+  float* slices = lv.stage(reinterpret_cast<float*>(misfit_burgers_warp_smem));
+  // the CTA's draws' coefficients, W consecutive columns of U a row
+  const int W = blockDim.x >> 5, warp = threadIdx.x >> 5, b0 = blockIdx.x * W;
+  for (int e = threadIdx.x; e < kBurgersWarpK * W; e += blockDim.x) {
+    const int k = e / W, j = e % W;
+    if (b0 + j < B) slices[j * kSlice + k] = U[static_cast<size_t>(k) * B + b0 + j];
+  }
+  __syncthreads();  // the staged level and every warp's coefficients
+  const int b = b0 + warp;
+  if (b >= B) return;
+  float* u = slices + warp * kSlice;
+  lv.state = u + kBurgersWarpK;
+  const float v = burgers_phi_warp<C, T>(lv, u);
+  if ((threadIdx.x & 31) == 0) phi[b] = v;
+}
+
+// What a launch takes: draws (warps) a CTA, CTAs, dynamic shared memory.
+struct MisfitBurgersWarpGeometry {
+  int warps, ctas;
+  size_t smem;
+};
+
+// Mirrored by ip_mcmc_tpu_torch/ops/_burgers_warp.py misfit_takes and
+// misfit_geometry: a level that burgers_warp_takes for chains of K
+// coordinates, else cudaErrorNotSupported (burgers_misfit_kernel takes
+// it); kWarps draws a CTA, a ragged last CTA runs spare warps.
+inline int misfit_burgers_warp_geometry(const IpxBurgersSpec& s, int B,
+                                        MisfitBurgersWarpGeometry* geo) {
+  if (!burgers_warp_takes(s, s.K)) return cudaErrorNotSupported;
+  if (B < 0) return cudaErrorInvalidValue;
+  geo->warps = MisfitBurgersWarpDesign::kWarps;
+  geo->ctas = (B + geo->warps - 1) / geo->warps;
+  geo->smem = sizeof(float) * (BurgersWarpLevel::staged_floats(s.n_cells) +
+                               geo->warps * (kBurgersWarpK + s.n_cells));
+  return geo->smem <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int C, int T>
+inline int launch_misfit_burgers_warp(const IpxBurgersSpec& s, const float* U, int B,
+                                      float* phi, const MisfitBurgersWarpGeometry& geo,
+                                      void* stream) {
+  const int smem = static_cast<int>(geo.smem);
+  cudaFuncSetAttribute(burgers_misfit_warp_kernel<C, T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  burgers_misfit_warp_kernel<C, T><<<geo.ctas, 32 * geo.warps, smem,
+                                     static_cast<cudaStream_t>(stream)>>>(s, U, B, phi);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The design: kWarps chains a CTA at most, one a warp; the launch bound's
@@ -212,11 +297,22 @@ inline int da3_warp_geometry(const IpxBurgersSpec& fine, const IpxBurgersSpec& m
 
 extern "C" {
 
+// A level that the samplers' warp solve takes (burgers_warp_takes) goes to
+// burgers_misfit_warp_kernel, a draw a warp, in the order of a CTA of
+// round_up32(n_cells) threads; every other to burgers_misfit_kernel, a draw
+// a CTA of that many threads.
 int ipx_burgers_misfit(const IpxBurgersSpec* s, const float* U, int B, float* phi,
                        void* stream) {
   const int threads = ipx::round_up32(s->n_cells);
   if (!ipx::BurgersPotential::valid(*s) || threads > 1024 || B < 0) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
+  if (ipx::burgers_warp_takes(*s, s->K)) {
+    ipx::MisfitBurgersWarpGeometry geo;
+    const int status = ipx::misfit_burgers_warp_geometry(*s, B, &geo);
+    if (status != cudaSuccess) return status;
+    return threads == 64 ? ipx::launch_misfit_burgers_warp<2, 64>(*s, U, B, phi, geo, stream)
+                         : ipx::launch_misfit_burgers_warp<4, 128>(*s, U, B, phi, geo, stream);
+  }
   const size_t smem =
       sizeof(float) *
       (s->K + ipx::BurgersPotential::workspace_floats(ipx::BurgersPotential::extent(*s)));
@@ -249,6 +345,21 @@ int ipx_fused_da3_pcn_burgers(const IpxBurgersSpec* fine, const IpxBurgersSpec* 
     ipx::fused_da3_pcn_warp_kernel<false><<<geo.ctas, threads, smem, st>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The standalone misfit's launch geometry a draw a warp
+// (burgers_misfit_warp_kernel) for this spec and B draws: out = {draws a
+// CTA, CTAs, dynamic shared-memory bytes}; the status the launch would
+// return for them, cudaErrorNotSupported for a spec that goes to
+// burgers_misfit_kernel (the wrapper's mirror is checked against this on
+// the card).
+int ipx_burgers_misfit_warp_geometry(const IpxBurgersSpec* s, int B, int* out) {
+  ipx::MisfitBurgersWarpGeometry geo{0, 0, 0};
+  const int status = ipx::misfit_burgers_warp_geometry(*s, B, &geo);
+  out[0] = geo.warps;
+  out[1] = geo.ctas;
+  out[2] = static_cast<int>(geo.smem);
+  return status;
 }
 
 // The kernel's launch geometry for these specs and chain arguments: out =

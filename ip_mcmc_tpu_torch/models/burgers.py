@@ -10,7 +10,10 @@ per segment that many Godunov steps, the state at the observed cells after
 each segment, ½‖(y − pred)/σ‖². Shocks make the map non-differentiable:
 there is no gradient.
 
-For CUDA tensors the module launches ``burgers_misfit_kernel``
+For CUDA tensors the module launches ``burgers_misfit_warp_kernel``, a
+draw a warp on the Burgers samplers' solve, on a level that it takes
+(``_burgers_warp.misfit_takes``: 64 or 128 cells, K = 16; the shipped
+configs'), and ``burgers_misfit_kernel``, a draw a CTA, on any other
 (``csrc/fused_da3_pcn.cu``, device code in ``csrc/burgers_misfit.cuh``);
 for CPU tensors it runs the plain version. That observes with a gather; the
 JAX one-hot observation matmul exists only because Mosaic lowers no gather.
@@ -25,7 +28,7 @@ import torch
 from torch import nn
 
 from ip_mcmc_tpu_torch.models import kl
-from ip_mcmc_tpu_torch.ops import _build
+from ip_mcmc_tpu_torch.ops import _build, _burgers_warp
 
 
 def burgers_aux(n_cells: int = 128, n_modes: int = 16, alpha: float = 1.5,
@@ -153,10 +156,16 @@ class BurgersMisfit(nn.Module):
         return float(np.float32(0.5 * self.dt_over_h))
 
     @property
+    def _tag(self) -> str:
+        return f"[n={self.n},steps={'+'.join(str(s) for s in self.segments)}]"
+
+    @property
     def kernel_label(self) -> str:
-        """This misfit's name in the launch counts."""
-        steps = "+".join(str(s) for s in self.segments)
-        return f"burgers_misfit_kernel[n={self.n},steps={steps}]"
+        """This misfit's name in the launch counts: the kernel that its
+        spec goes to."""
+        if _burgers_warp.misfit_takes(self.n, self.K):
+            return _burgers_warp.MISFIT_WARP_KERNEL + self._tag
+        return "burgers_misfit_kernel" + self._tag
 
     def forward(self, U: torch.Tensor) -> torch.Tensor:
         if U.device.type == "cuda":
@@ -200,7 +209,7 @@ class BurgersMisfit(nn.Module):
             ctypes.byref(spec), U.data_ptr(), B, phi.data_ptr(),
             torch.cuda.current_stream(U.device).cuda_stream,
         )
-        _build.check(status, "burgers_misfit_kernel")
+        _build.check(status, self.kernel_label)
         _build.launch_counts[self.kernel_label] += 1
         return phi
 
@@ -219,7 +228,7 @@ class BurgersMisfit(nn.Module):
     def _forward_plain(self, U: torch.Tensor) -> torch.Tensor:
         """Plain Φ on any device."""
         self.check_input(U)
-        _build.launch_counts[self.kernel_label.replace("kernel", "plain")] += 1
+        _build.launch_counts["burgers_misfit_plain" + self._tag] += 1
         obs = self.obs.long()
         pred = torch.cat([s[obs] for s in self.final_states(U)], dim=0)
         r = (self.data[:, None] - pred) / self.noise[:, None]

@@ -64,6 +64,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ip_mcmc_tpu_torch._device import resolve_device
 from ip_mcmc_tpu_torch.models import kl
 from ip_mcmc_tpu_torch.ops import _build, _cluster, fused_da_pcn, fused_mala, fused_pcn
 
@@ -641,3 +642,261 @@ class DarcyMisfitMalaWarm(DarcyMisfit):
         N = self.n * self.n
         phi, grad, x, lam = self._value_and_grad_plain(U, aux0[:N], aux0[N:])
         return phi, grad, torch.cat([x, lam], dim=0)
+
+
+# --- the single-particle forward (make_darcy_forward) -------------------------
+#
+# The scan path's Darcy forward: one coefficient vector u (K,) → pressure at
+# the observation cells, with the chains written out as leading batch
+# dimensions (the JAX package vmaps it). Plain PyTorch on (..., n, n) grids:
+# no TPU kernel of the JAX package runs it, so no kernel of the port does.
+
+
+def _stencil_indices(n: int):
+    """Static scatter indices of the 5-point finite-volume stencil on an
+    n×n grid: the cells on either side of each horizontal face (h_left,
+    h_right) and vertical face (v_top, v_bot), and the boundary cells of
+    each edge (b_cells; a corner twice)."""
+    idx = np.arange(n * n).reshape(n, n)
+    return (idx[:, :-1].ravel(), idx[:, 1:].ravel(), idx[:-1, :].ravel(),
+            idx[1:, :].ravel(),
+            np.concatenate([idx[0, :], idx[-1, :], idx[:, 0], idx[:, -1]]))
+
+
+def assemble_operator(a, indices, n: int):
+    """The dense SPD operator A(a) (..., n², n²) of a conductivity field a
+    (..., n, n), in ``assemble_operator``'s order of additions."""
+    h_left, h_right, v_top, v_bot, b_cells = (torch.as_tensor(i, device=a.device)
+                                              for i in indices)
+    h2 = float(n * n)
+    af = a.reshape(*a.shape[:-2], n * n)
+    N = n * n
+    t_h = 2.0 * af[..., h_left] * af[..., h_right] / (af[..., h_left] + af[..., h_right]) * h2
+    t_v = 2.0 * af[..., v_top] * af[..., v_bot] / (af[..., v_top] + af[..., v_bot]) * h2
+    t_b = 2.0 * af[..., b_cells] * h2  # Dirichlet: half a cell to the boundary
+    A = torch.zeros(*a.shape[:-2], N, N, dtype=a.dtype, device=a.device)
+    A[..., h_left, h_right] += -t_h
+    A[..., h_right, h_left] += -t_h
+    A[..., v_top, v_bot] += -t_v
+    A[..., v_bot, v_top] += -t_v
+    diag = torch.zeros_like(af)
+    for cells, t in ((h_left, t_h), (h_right, t_h), (v_top, t_v), (v_bot, t_v), (b_cells, t_b)):
+        diag = diag.index_add(-1, cells, t)  # b_cells holds each corner twice
+    return A + torch.diag_embed(diag)
+
+
+def _face_transmissibilities(a, n: int):
+    """Harmonic-mean face transmissibilities × 1/h² of a field (..., n, n):
+    t_h (..., n, n − 1), t_v (..., n − 1, n)."""
+    h2 = float(n * n)
+    left, right = a[..., :, :-1], a[..., :, 1:]
+    top, bot = a[..., :-1, :], a[..., 1:, :]
+    return 2.0 * left * right / (left + right) * h2, 2.0 * top * bot / (top + bot) * h2
+
+
+def apply_operator(a, p, n: int):
+    """Matrix-free A(a) p on (..., n, n) grids: the stencil arithmetic of
+    ``assemble_operator``'s matrix, in ``apply_operator``'s order of
+    additions (the faces, then the Dirichlet edges: top, bottom, left,
+    right)."""
+    tb = 2.0 * float(n * n)
+    t_h, t_v = _face_transmissibilities(a, n)
+    flux_h = t_h * (p[..., :, :-1] - p[..., :, 1:])
+    flux_v = t_v * (p[..., :-1, :] - p[..., 1:, :])
+    out = torch.zeros(torch.broadcast_shapes(a.shape, p.shape), dtype=p.dtype, device=p.device)
+    out[..., :, :-1] += flux_h
+    out[..., :, 1:] += -flux_h
+    out[..., :-1, :] += flux_v
+    out[..., 1:, :] += -flux_v
+    out[..., 0, :] += tb * a[..., 0, :] * p[..., 0, :]
+    out[..., -1, :] += tb * a[..., -1, :] * p[..., -1, :]
+    out[..., :, 0] += tb * a[..., :, 0] * p[..., :, 0]
+    out[..., :, -1] += tb * a[..., :, -1] * p[..., :, -1]
+    return out
+
+
+def _operator_diagonal(a, n: int):
+    """diag(A(a)) as a (..., n, n) grid, for the Jacobi preconditioner."""
+    tb = 2.0 * float(n * n)
+    t_h, t_v = _face_transmissibilities(a, n)
+    d = torch.zeros_like(a)
+    d[..., :, :-1] += t_h
+    d[..., :, 1:] += t_h
+    d[..., :-1, :] += t_v
+    d[..., 1:, :] += t_v
+    d[..., 0, :] += tb * a[..., 0, :]
+    d[..., -1, :] += tb * a[..., -1, :]
+    d[..., :, 0] += tb * a[..., :, 0]
+    d[..., :, -1] += tb * a[..., :, -1]
+    return d
+
+
+def dst_basis(n: int, device=None):
+    """The orthonormal sine basis S (n, n) of ``dst_factors`` and the 1-D
+    eigenvalues 2 − 2cos(πk/n), k = 1..n (in units of a·n²), both f32."""
+    S, _ = dst_factors(n)
+    eig = 2.0 - 2.0 * np.cos(np.pi * np.arange(1, n + 1) / n)
+    return (torch.tensor(S, dtype=torch.float32, device=device),
+            torch.tensor(eig, dtype=torch.float32, device=device))
+
+
+def make_dst_preconditioner(a, n: int):
+    """The fast-Poisson preconditioner M = A(ā), ā the geometric mean of
+    each chain's field: M⁻¹r = Sᵀ[(S r Sᵀ) / λ]S in f32 (not the bf16 flat
+    apply of the batched misfits), λ_ij = ā n²(e_i + e_j). ``a`` (..., n,
+    n); returns r (..., n, n) ↦ (..., n, n)."""
+    S, e = dst_basis(n, a.device)
+    a_bar = torch.exp(torch.mean(torch.log(a), dim=(-2, -1)))
+    lam = a_bar[..., None, None] * float(n * n) * (e[:, None] + e[None, :])
+
+    def inv_m(r):
+        return S.T @ ((S @ r @ S.T) / lam) @ S
+
+    return inv_m
+
+
+def _solver(a, n, n_iters, precond, solver, omega):
+    """b ↦ x ≈ A(a)⁻¹ b on (..., n, n): ``n_iters`` CG iterations (α = 0
+    where pAp ≤ 0, β = 0 where rz ≤ 0: a converged solve stays put) or
+    fixed-ω preconditioned Richardson, Jacobi or ``dst``."""
+    if precond == "dst":
+        inv_m = make_dst_preconditioner(a, n)
+    elif precond == "jacobi":
+        inv_diag = 1.0 / _operator_diagonal(a, n)
+        inv_m = lambda r: inv_diag * r  # noqa: E731
+    else:
+        raise ValueError(f"precond must be 'jacobi' or 'dst', got {precond!r}")
+    if solver not in ("cg", "richardson"):
+        raise ValueError(f"solver must be 'cg' or 'richardson', got {solver!r}")
+
+    def dots(u, v):
+        return torch.sum(u * v, dim=(-2, -1))[..., None, None]
+
+    def richardson(b):
+        x = omega * inv_m(b)
+        for _ in range(n_iters - 1):
+            x = x + omega * inv_m(b - apply_operator(a, x, n))
+        return x
+
+    def cg(b):
+        x, r = torch.zeros_like(b), b
+        z = inv_m(r)
+        p, rz = z, dots(r, z)
+        zero = torch.zeros_like(rz)
+        for _ in range(n_iters):
+            Ap = apply_operator(a, p, n)
+            denom = dots(p, Ap)
+            alpha = torch.where(denom > 0.0, rz / torch.where(denom > 0.0, denom, 1.0), zero)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = inv_m(r)
+            rz_new = dots(r, z)
+            beta = torch.where(rz > 0.0, rz_new / torch.where(rz > 0.0, rz, 1.0), zero)
+            p = z + beta * p
+            rz = rz_new
+        return x
+
+    return richardson if solver == "richardson" else cg
+
+
+class _ImplicitSolve(torch.autograd.Function):
+    """x = solve(b) for A(a) x = b whose backward is the implicit adjoint
+    (``lax.custom_linear_solve(symmetric=True)``): λ = solve(x̄) with the
+    same solver (A is symmetric), b̄ = λ, ā = −∂_a[λᵀ A(a) x]. The solver's
+    own dependence on a (the preconditioner) is not differentiated, as in
+    JAX: Richardson's adjoint is Richardson."""
+
+    @staticmethod
+    def forward(ctx, a, b, n, make_solve):
+        x = make_solve(a)(b)
+        ctx.save_for_backward(a, x)
+        ctx.n, ctx.make_solve = n, make_solve
+        return x
+
+    @staticmethod
+    def backward(ctx, x_bar):
+        a, x = ctx.saved_tensors
+        lam = ctx.make_solve(a)(x_bar)
+        with torch.enable_grad():
+            a_ = a.detach().requires_grad_()
+            (a_bar,) = torch.autograd.grad(apply_operator(a_, x, ctx.n), a_, grad_outputs=-lam)
+        return a_bar, lam, None, None
+
+
+def solve_cg(a, f, n: int, n_iters: int = 48, precond: str = "jacobi",
+             solver: str = "cg", omega: float = 1.0):
+    """A(a) p = f by ``n_iters`` iterations of preconditioned CG (or
+    Richardson), matrix-free, for fields a (..., n, n) and a source f (n²,)
+    or (..., n²); returns p (..., n²). Differentiable by the implicit
+    adjoint (``_ImplicitSolve``), not through the iterations."""
+    b = f.reshape(*f.shape[:-1], n, n).expand(a.shape)
+
+    def make_solve(field):
+        return _solver(field, n, n_iters, precond, solver, float(omega))
+
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        p = _ImplicitSolve.apply(a, b, n, make_solve)
+    else:
+        p = make_solve(a)(b)
+    return p.reshape(*a.shape[:-2], n * n)
+
+
+def make_darcy_forward(n_grid: int = 16, n_modes_per_dim: int = 8, alpha: float = 2.0,
+                       field_scale: float = 10.0, obs_indices=None, source=None,
+                       log_a_mean: float = 0.0, method: str = "cg", cg_iters: int = 48,
+                       precond: str = "jacobi", solver: str = "cg", omega: float = 1.0,
+                       device="cuda"):
+    """(forward, aux): forward(u) maps whitened KL coefficients u (..., K)
+    to the pressure at the observation cells (..., m), chains on the
+    leading dimensions: log a = log_a_mean + u · scaled_basis, then
+    ``solve_cg`` (``method="cg"``) or a dense Cholesky solve of
+    ``assemble_operator`` (``"dense"``). ``aux`` holds the JAX package's
+    keys: scaled_basis (K, n²), eigenvalues (K,), obs_indices (m,), n_grid,
+    stencil_indices, source (n²,), tensors on ``device`` (the card unless
+    the caller asks for the CPU)."""
+    if method not in ("cg", "dense", "sharded"):
+        raise ValueError(f"method must be 'cg', 'dense' or 'sharded', got {method!r}")
+    if method == "sharded":
+        raise NotImplementedError(
+            "method='sharded' (the grid row-sharded over a 'model' mesh axis) is not ported: "
+            "the port's multi-device slice, ROADMAP Queue 1 item 5")
+    device = resolve_device(str(device))
+    consts = darcy_aux(n_grid, n_modes_per_dim, alpha, field_scale, obs_indices)
+    if source is not None:
+        consts["source"] = np.asarray(source, np.float32).reshape(-1)
+    aux = {
+        "scaled_basis": torch.tensor(consts["scaled_basis"], device=device),
+        "eigenvalues": torch.tensor(consts["eigenvalues"], dtype=torch.float32, device=device),
+        "obs_indices": torch.as_tensor(consts["obs_indices"], dtype=torch.long, device=device),
+        "n_grid": n_grid,
+        "stencil_indices": _stencil_indices(n_grid),
+        "source": torch.tensor(consts["source"], device=device),
+    }
+    basis, obs, f = aux["scaled_basis"], aux["obs_indices"], aux["source"]
+
+    def forward(u):
+        a = torch.exp(log_a_mean + u @ basis).reshape(*u.shape[:-1], n_grid, n_grid)
+        if method == "cg":
+            p = solve_cg(a, f, n_grid, n_iters=cg_iters, precond=precond, solver=solver,
+                         omega=omega)
+        else:
+            p = _dense_solve(a, aux)
+        return p[..., obs]
+
+    return forward, aux
+
+
+def _dense_solve(a, aux):
+    """A(a)⁻¹ f by Cholesky (``method="dense"``), (..., n²)."""
+    A = assemble_operator(a, aux["stencil_indices"], aux["n_grid"])
+    L = torch.linalg.cholesky(A)
+    f = aux["source"].expand(*a.shape[:-2], -1)
+    return torch.cholesky_solve(f[..., None], L)[..., 0]
+
+
+def solve_pressure(u, aux, log_a_mean: float = 0.0):
+    """The whole pressure field (..., n, n) of coefficients u (..., K), by
+    the dense Cholesky solve (diagnostics, plots)."""
+    n = aux["n_grid"]
+    a = torch.exp(log_a_mean + u @ aux["scaled_basis"]).reshape(*u.shape[:-1], n, n)
+    return _dense_solve(a, aux).reshape(*u.shape[:-1], n, n)

@@ -283,6 +283,8 @@ def library():
         lib.bind("ipx_fes_warp_geometry", [spec, chain, i, p])
         # the Burgers instantiations: the same arguments on the other spec
         lib.bind("ipx_burgers_misfit", [bspec, p, i, p, p])
+        # spec, B, out (3,): the geometry of the Burgers misfit a draw a warp
+        lib.bind("ipx_burgers_misfit_warp_geometry", [bspec, i, p])
         lib.bind("ipx_fused_da_pcn_burgers", [bspec, bspec, chain, p, p, f, f, i, p, p])
         # exact, surrogate, chain, k, out (3,): the Burgers DA warp kernel's
         # geometry

@@ -1,7 +1,8 @@
 """CLI entry: ``python -m ip_mcmc_tpu_torch.run --config darcy_da_fused``
-(``--list`` names the configs; ``darcy_pcn_4096``, ``burgers_pcn`` and
-``burgers_multitime_pcn`` need ``--fused``; ``gauss2d_rwm`` and
-``lingauss_pcn`` run the scan path).
+(``--list`` names the configs; ``burgers_pcn`` and
+``burgers_multitime_pcn`` need ``--fused``; ``darcy_pcn_4096`` runs the
+scan path, or with ``--fused`` the fused kernel; ``gauss2d_rwm``,
+``lingauss_pcn`` and ``darcy64_pcn`` run the scan path).
 
 Prints one JSON line of metrics (the keys of ``ip_mcmc_tpu.run``). Runs on
 the card by default; ``--device cpu`` runs the kernels' plain versions.
@@ -27,10 +28,11 @@ def main(argv=None):
                     help="'cuda' (default; fails without a card) or 'cpu'")
     ap.add_argument(
         "--fused", action="store_true",
-        help="use the fully fused path (the pCN configs whose scan path "
-        "is not ported: darcy_pcn_4096, burgers_pcn, burgers_multitime_pcn; "
-        "the other fused configs set it themselves, and gauss2d_rwm and "
-        "lingauss_pcn have no batched potential and run the scan path)",
+        help="use the fully fused path (darcy_pcn_4096, which runs the scan "
+        "path without it, and burgers_pcn, burgers_multitime_pcn, whose scan "
+        "path is not ported; the other fused configs set it themselves, and "
+        "gauss2d_rwm, lingauss_pcn and darcy64_pcn have no batched potential "
+        "and run the scan path)",
     )
     ap.add_argument("--list", action="store_true", help="list configs and exit")
     args = ap.parse_args(argv)

@@ -365,7 +365,8 @@ def run_problem(problem, device, seed: int = 0, n_chains=None,
             f"{', '.join(FUSED_KERNELS)} paths (kernel_params['fused'] and a "
             "batched potential; pass --fused to a pCN config that has one) "
             f"and the scan {' and '.join(SCAN_KERNELS)} paths of the configs "
-            "with a potential_fn (gauss2d_rwm, lingauss_pcn); the "
-            "single-particle Darcy and Burgers forward models are not"
+            "with a potential_fn (gauss2d_rwm, lingauss_pcn, and on the "
+            "single-particle Darcy forward darcy_pcn_4096 and darcy64_pcn); "
+            "the single-particle Burgers forward is not"
         )
     return _finalize(metrics, t_start)

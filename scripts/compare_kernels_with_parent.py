@@ -58,7 +58,9 @@ Then the registers and spill bytes that ptxas reported for each kernel of
 both trees' builds (``_build/nvcc.log``) are set side by side. Exits
 non-zero on any difference beyond these, in the outputs or in ptxas'
 report. ``--rows`` runs only the named rows (``misfits`` names all the
-misfit kernels' rows; ``misfit_jacobi48`` and ``misfit_grad`` are the 16x16
+misfit kernels' rows; ``misfit_burgers`` the four Burgers levels' (K12,
+2048 draws, bit for bit whether a tree runs them a draw a CTA or a draw a
+warp); ``misfit_jacobi48`` and ``misfit_grad`` are the 16x16
 Jacobi / 48 CG value and value-and-gradient misfits, and ``misfit_grad_warm``
 darcy_mala_warm's warm value and gradient (from aux0 = 0, then from those
 solutions after a MALA-sized move), which a tree may run a draw a CTA or a
@@ -223,7 +225,8 @@ def worker(out_path: str, rows) -> int:
     outputs, times = {}, {}
 
     def misfit_row(name):  # "misfits" runs every misfit row
-        return rows is None or "misfits" in rows or name in rows
+        return (rows is None or "misfits" in rows or name in rows
+                or (name.startswith("misfit_burgers_") and "misfit_burgers" in rows))
 
     rich_surr = {f"misfit_surr_{v.split('_')[0]}": configs.darcy_da_richardson(
         v, "cuda").batched_surrogate_fn for v in ("rich3_w0.9", "rich4_w0.8", "rich2_w0.9")}
@@ -232,6 +235,16 @@ def worker(out_path: str, rows) -> int:
         if misfit_row(name):
             outputs[f"{name}_phi"] = pot(U)
             timed(name, lambda: pot(U), 20)
+    # K12 at the Burgers configs' four levels, 2048 draws (the levels that a
+    # tree runs a draw a CTA or a draw a warp, with the same bits either way)
+    bU = da3.prior.sample(torch.Generator().manual_seed(96), 2048).T.contiguous()
+    for name, pot in (("misfit_burgers_fine", da3.batched_potential_fn),
+                      ("misfit_burgers_mid", da3.batched_mid_fn),
+                      ("misfit_burgers_coarse", da3.batched_surrogate_fn),
+                      ("misfit_burgers_multitime", bmulti)):
+        if misfit_row(name):
+            outputs[f"{name}_phi"] = pot(bU)
+            timed(name, lambda: pot(bU), 200)
     if misfit_row("misfit_warm") or misfit_row("misfit_warm_prev"):
         zeros = torch.zeros(aux_dim, n, device="cuda")
         outputs["misfit_warm_phi"], outputs["misfit_warm_x"] = warm(U, zeros)

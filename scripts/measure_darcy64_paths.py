@@ -1,12 +1,14 @@
 """Where the time goes on CLI paths, by default the two 64x64 Darcy ones, on
 one NVIDIA GPU.
 
-    python scripts/measure_darcy64_paths.py [--fused] [config ...]
+    python scripts/measure_darcy64_paths.py [--fused] [--burn-in N] [--n-samples N] [config ...]
 
 Each config (by default ``darcy64_da_fused`` and ``darcy64_pcn_warm``) runs
 once through the runner as the CLI runs it, ``--fused`` as the CLI's flag
 sets it (``darcy_pcn_4096`` and the Burgers pCN configs need it; the metrics
-of that run are printed), then
+of that run are printed; ``--burn-in`` and ``--n-samples`` shorten the run,
+as a scan path of some thousand launches a step needs under the profiler),
+then
 once more under ``torch.profiler`` (``measure_linear_paths.profiled``):
 the device time of every kernel and copy, summed, against the host wall
 of the same run gives the device's idle share, and the trace gives each
@@ -17,6 +19,7 @@ one JSON line.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import sys
@@ -44,14 +47,19 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("configs", nargs="*", default=["darcy64_da_fused", "darcy64_pcn_warm"])
     ap.add_argument("--fused", action="store_true", help="the CLI's --fused")
+    ap.add_argument("--burn-in", type=int, default=None, help="in place of the config's")
+    ap.add_argument("--n-samples", type=int, default=None, help="in place of the config's")
     args = ap.parse_args()
     out = {"card": card}
     for name in args.configs:
         p = configs.build(name, "cuda")
         if args.fused:  # as ip_mcmc_tpu_torch/run.py sets it
             p.kernel_params = {**p.kernel_params, "fused": True}
+        if args.burn_in is not None:
+            p = dataclasses.replace(p, burn_in=args.burn_in)
         runs = []
-        row = summary(*profiled(lambda: runs.append(runner.run_problem(p, "cuda"))))
+        row = summary(*profiled(lambda: runs.append(
+            runner.run_problem(p, "cuda", n_samples=args.n_samples))))
         row["metrics_unprofiled"] = {k: runs[0][k] for k in KEYS if k in runs[0]}
         row["metrics_profiled"] = {k: runs[1][k] for k in KEYS if k in runs[1]}
         out[name] = row

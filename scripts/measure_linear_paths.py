@@ -74,7 +74,7 @@ def main() -> int:
     from ip_mcmc_tpu_torch import configs, ops, runner
 
     out = {"card": card}
-    for name in chip_smoke.SCAN_PATHS:
+    for name in chip_smoke.CLOSED_FORM:  # the linear-Gaussian scan paths
         p = configs.build(name, "cuda")
         out[name] = summary(*profiled(lambda: runner.run_problem(p, "cuda", seed=0)))
         print(name + ": " + json.dumps(out[name]), flush=True)

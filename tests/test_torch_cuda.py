@@ -403,6 +403,94 @@ def test_burgers_misfit_kernel_passes_nan_on(burgers_problem):
     assert bool(torch.isnan(got[7])) and int(torch.isnan(got).sum()) == 1
 
 
+# --- K12 a draw a warp (burgers_misfit_warp_kernel) beside the kernel it
+# replaced on the configs' levels (burgers_misfit_kernel, a draw a CTA)
+
+
+def _burgers_misfit_levels(p):
+    """The fine, middle and coarse levels and the multi-time one."""
+    return (*_burgers_levels(p), _build_on_card("burgers_multitime_pcn").batched_potential_fn)
+
+
+def _padded_burgers(pot):
+    """``pot`` with a 17th KL mode of zeros: the rule leaves K = 17 to
+    burgers_misfit_kernel, and fed U with a row of zeros the mode adds an
+    exact zero to each cell's KL sum."""
+    import copy
+
+    padded = copy.deepcopy(pot)
+    padded.basis = torch.cat([pot.basis, torch.zeros_like(pot.basis[:1])])
+    padded.K = pot.K + 1
+    return padded
+
+
+@pytest.mark.parametrize("B", [2048, 2047, 13])
+def test_burgers_misfit_warp_kernel_is_the_cta_kernel_bit_for_bit(burgers_problem, B):
+    """At the four levels the kernel a draw a warp gives burgers_misfit_kernel's
+    Φ bit for bit, that kernel running on the same level padded by a zero
+    mode: at the configs' 2048 draws, and at 2047 and 13 (a ragged last CTA
+    of 1 and of 3 spare warps)."""
+    U = burgers_problem.prior.sample(torch.Generator().manual_seed(2), B).T.contiguous()
+    U17 = torch.cat([U, torch.zeros_like(U[:1])])
+    for pot in _burgers_misfit_levels(burgers_problem):
+        padded = _padded_burgers(pot)
+        assert pot.kernel_label.startswith("burgers_misfit_warp_kernel[")
+        assert padded.kernel_label.startswith("burgers_misfit_kernel[")
+        before = [_build.launch_counts[x.kernel_label] for x in (pot, padded)]
+        got, old = pot(U), padded(U17)
+        assert [_build.launch_counts[x.kernel_label] for x in (pot, padded)] == [
+            c + 1 for c in before]
+        assert got.shape == (B,) and torch.equal(got, old), pot.kernel_label
+
+
+def test_burgers_misfit_warp_kernel_passes_nan_on(burgers_problem):
+    """A NaN coefficient gives that draw's Φ NaN and no other draw's, on
+    each level (the warps of a CTA share nothing but the staged level)."""
+    U = burgers_problem.prior.sample(torch.Generator().manual_seed(3), 64).T.contiguous()
+    U[5, 7] = float("nan")
+    for pot in _burgers_misfit_levels(burgers_problem):
+        got = pot(U)
+        assert bool(torch.isnan(got[7])) and int(torch.isnan(got).sum()) == 1
+
+
+def test_burgers_misfit_warp_geometry_matches_the_kernel(burgers_problem):
+    """_burgers_warp.misfit_geometry (Python) gives what
+    ipx_burgers_misfit_warp_geometry computes on the four levels at 2048,
+    2047, 13, 1 and 0 draws; on levels the rule leaves (96 cells, 8 modes,
+    a zero 17th mode) C says cudaErrorNotSupported and the mirror refuses."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.ops import _burgers_warp
+
+    lib = _build.library()
+    out = (ctypes.c_int * 3)()
+    levels = _burgers_misfit_levels(burgers_problem)
+    for pot in levels:
+        for B in (2048, 2047, 13, 1, 0):
+            assert lib.ipx_burgers_misfit_warp_geometry(ctypes.byref(pot.spec()), B, out) == 0
+            assert tuple(out) == _burgers_warp.misfit_geometry(B, pot.n, pot.K), (pot.n, B)
+    for pot in (_burgers_misfit(96), _burgers_misfit(128, n_modes=8),
+                _padded_burgers(levels[0])):
+        status = lib.ipx_burgers_misfit_warp_geometry(ctypes.byref(pot.spec()), 64, out)
+        assert "not supported" in lib.ipx_error_string(status).decode()
+        assert not _burgers_warp.misfit_takes(pot.n, pot.K)
+
+
+def test_burgers_misfit_cta_kernel_takes_a_level_the_warp_kernel_leaves():
+    """A 96-cell level runs on burgers_misfit_kernel, within 1e-5 of its
+    plain version (the KL sum's order may move an initial state by an ulp,
+    as in test_burgers_misfit_kernel_matches_plain)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    pot = _burgers_misfit(96)
+    assert pot.kernel_label.startswith("burgers_misfit_kernel[n=96,")
+    U = (0.5 * torch.randn(16, 512, generator=torch.Generator().manual_seed(4))).cuda()
+    before = _build.launch_counts[pot.kernel_label]
+    got = pot(U)
+    assert _build.launch_counts[pot.kernel_label] == before + 1
+    assert float(_rel(got, pot._forward_plain(U)).max()) <= 1e-5
+
+
 @pytest.mark.parametrize("recorded", [False, True])
 @pytest.mark.parametrize("kind", ["da3", "da", "pcn"])
 def test_burgers_kernels_match_plain(burgers_problem, kind, recorded):

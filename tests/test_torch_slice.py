@@ -260,13 +260,15 @@ BURGERS = ("burgers_pcn", "burgers_multitime_pcn", "burgers_da_pcn",
 def test_cli_lists_seven_configs(capsys):
     """The seven Darcy configs and, since the Burgers path, its four; since
     the scan path, gauss2d_rwm and lingauss_pcn; since the large grids,
-    darcy32_pcn_warm, darcy64_pcn_warm and darcy64_da_fused."""
+    darcy32_pcn_warm, darcy64_pcn_warm and darcy64_da_fused; since the
+    single-particle Darcy forward, darcy64_pcn."""
     assert run.main(["--list"]) == 0
     names = [ln.split()[0] for ln in capsys.readouterr().out.strip().splitlines()]
     assert names == sorted(SINGLE_LEVEL + GRADIENT_AND_ENSEMBLE
                            + ("darcy_da_fused",) + BURGERS
                            + ("gauss2d_rwm", "lingauss_pcn")
-                           + ("darcy32_pcn_warm", "darcy64_pcn_warm", "darcy64_da_fused"))
+                           + ("darcy32_pcn_warm", "darcy64_pcn_warm", "darcy64_da_fused")
+                           + ("darcy64_pcn",))
 
 
 def test_rwm_is_not_ported():
@@ -281,10 +283,13 @@ def test_rwm_is_not_ported():
 
 
 def test_unfused_pcn_config_is_not_ported():
-    """darcy_pcn_4096 runs only with --fused; anything else raises."""
+    """A pCN config with a batched potential and no scan potential (as
+    darcy_pcn_4096 was before the single-particle Darcy forward, which
+    tests/test_torch_darcy_forward.py runs) runs only with --fused;
+    anything else raises."""
+    p = dataclasses.replace(configs.build("darcy_pcn_4096", "cpu"), potential_fn=None)
     with pytest.raises(NotImplementedError, match="--fused"):
-        run.main(["--config", "darcy_pcn_4096", "--device", "cpu",
-                  "--n-chains", "64", "--n-samples", "4"])
+        runner.run_problem(p, "cpu", n_chains=64, n_samples=4)
 
 
 def test_cuda_device_is_never_a_silent_fallback():
