@@ -60,9 +60,24 @@ Gaussians), times both, then drives the ported paths at full width:
     darcy_pcn_4096 scan, darcy64_pcn   the scan path on the single-particle
                              Darcy forward (plain PyTorch, no kernel), its
                              potential first held to the same on the CPU
+    burgers_pcn scan, burgers_multitime_pcn scan   the scan path on the
+                             single-particle Burgers forward
+    darcy_da_pcn             scan delayed acceptance (an 8-CG surrogate
+                             subchain, a 48-CG correction)
+    lingauss_elliptical, lingauss_fes   elliptical slice sampling and the
+                             functional ensemble sampler on the scan path
+    ode_mala, ode_hmc        MALA and HMC on the RK4 Lotka-Volterra forward,
+                             gradients by autograd; the potentials and the
+                             gradient first held to the CPU's, and one
+                             gradient at 1024 chains timed
+    multimodal_pt, multimodal_pt_mala   parallel tempering, pCN and MALA
+                             mutations
 
-The fourteen fused configs and the four scan paths run through the port's
-CLI, the other paths through the entry points (``runner``, ``ops``).
+The fourteen fused configs and the scan paths run through the port's CLI
+(the slow scan paths with their samples cut, darcy_da_pcn to 50), but for
+the ODE paths, which run through ``runner.run_problem`` with their Adam
+iterations and burn-in cut; the other paths run through the entry points
+(``runner``, ``ops``).
 Before each path the launch counts are set to 0; after it they must show
 that the path went through its kernels (the scan path: its steps on the
 card) and through no plain version. Every phase raises on failure. Prints
@@ -3068,6 +3083,77 @@ def check_darcy_forward(problems):
             raise AssertionError(f"{path}: the potential on the card disagrees with the CPU's")
 
 
+# the Burgers and ODE forwards of the scan path on the card against the CPU.
+# Burgers: the same f32 Godunov arithmetic, the KL sum in another order
+# (tests/test_torch_burgers_forward.py: within 5e-7 of JAX's forward). The
+# ODE: the card contracts the RK4 multiply-adds into one rounding and sums
+# the misfit in another order; over 200 steps the CPU tests see 1.4e-5
+# between two f32 orders on a forward value (tests/test_torch_ode.py), so
+# Φ and ∇Φ (of each draw's largest entry) within 1e-4.
+BURGERS_FORWARD_RTOL = 1e-5
+ODE_RTOL = 1e-4
+ODE_GRAD_REPS = 5
+
+
+def check_scan_forwards(problems):
+    """The scan potentials of the Burgers paths (16 prior draws, half
+    tripled) and of ode_mala (Φ and ∇log π on 16 draws, half doubled) on the
+    card against the same config's on the CPU; then one ∇log π of ode_mala at
+    1024 chains timed (host clock around synchronised calls, after a warm-up)
+    and its device launches counted (profiler). Returns the timing."""
+    from ip_mcmc_tpu_torch import configs
+    from ip_mcmc_tpu_torch.kernels import base
+
+    for path in ("burgers_pcn scan", "burgers_multitime_pcn scan"):
+        p, ref = problems[path], configs.build(config_of(path), "cpu")
+        u = p.prior.sample(torch.Generator().manual_seed(72), 16).cpu()
+        u[8:] *= 3.0
+        got = p.potential_fn(u.cuda()).cpu()
+        want = ref.potential_fn(u)
+        rel = float(((got - want).abs() / want.abs()).max())
+        print(f"{path} potential (16 draws): card against CPU max rel {rel:.3e}", flush=True)
+        if got.shape != (16,) or not bool(torch.isfinite(got).all()) or rel > BURGERS_FORWARD_RTOL:
+            raise AssertionError(f"{path}: the potential on the card disagrees with the CPU's")
+
+    p, ref = problems["ode_mala"], configs.build("ode_mala", "cpu")
+    u = p.prior.sample(torch.Generator().manual_seed(73), 16).cpu()
+    u[8:] *= 2.0
+    got_v, got_g = base.value_and_grad(p.log_density_fn)(u.cuda())
+    want_v, want_g = base.value_and_grad(ref.log_density_fn)(u)
+    rel_v = float(((got_v.cpu() - want_v).abs() / want_v.abs()).max())
+    rel_g = float(((got_g.cpu() - want_g).abs().amax(1) / want_g.abs().amax(1)).max())
+    print(f"ode_mala log pi and its gradient (16 draws): card against CPU max rel "
+          f"{rel_v:.3e}, {rel_g:.3e} of each draw's largest entry", flush=True)
+    if not (bool(torch.isfinite(got_g).all()) and rel_v <= ODE_RTOL and rel_g <= ODE_RTOL):
+        raise AssertionError("ode_mala: log pi or its gradient on the card disagrees "
+                             "with the CPU's")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    x = p.init_positions(torch.Generator().manual_seed(74), p.n_chains).cuda()
+    vg = base.value_and_grad(p.log_density_fn)
+    vg(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ODE_GRAD_REPS):
+        vg(x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / ODE_GRAD_REPS * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        vg(x)
+        torch.cuda.synchronize()
+    launches, device_us = 0, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            launches += ev.count
+            device_us += (getattr(ev, "self_device_time_total", 0)
+                          or getattr(ev, "self_cuda_time_total", 0))
+    out = {"chains": p.n_chains, "rk4_steps": 200, "ms": ms, "launches": launches,
+           "device_ms": device_us / 1e3}
+    print("ode_mala gradient of log pi: " + json.dumps(out), flush=True)
+    return out
+
+
 # --- the CLI runs ---------------------------------------------------------------
 
 # config -> (CLI flags, kernels the run must launch)
@@ -3098,17 +3184,40 @@ PATHS = {
     # its --fused run's)
     "darcy_pcn_4096 scan": ([], ("scan_pcn_step[cuda]",)),
     "darcy64_pcn": ([], ("scan_pcn_step[cuda]",)),
+    # ... on the single-particle Burgers forward, and the other scan kernels
+    "burgers_pcn scan": ([], ("scan_pcn_step[cuda]",)),
+    "burgers_multitime_pcn scan": ([], ("scan_pcn_step[cuda]",)),
+    "darcy_da_pcn": ([], ("scan_da_pcn_step[cuda]",)),
+    "lingauss_elliptical": ([], ("scan_ess_step[cuda]",)),
+    "lingauss_fes": ([], ("scan_fes_step[cuda]",)),
+    "ode_mala": ([], ("scan_mala_step[cuda]",)),
+    "ode_hmc": ([], ("scan_hmc_step[cuda]",)),
+    "multimodal_pt": ([], ("scan_pt_step[cuda]",)),
+    "multimodal_pt_mala": ([], ("scan_pt_mala_step[cuda]",)),
 }
 # a path's config where the two differ
-PATH_CONFIG = {"darcy_pcn_4096 scan": "darcy_pcn_4096"}
-SCAN_PATHS = ("gauss2d_rwm", "lingauss_pcn", "darcy_pcn_4096 scan", "darcy64_pcn")
+PATH_CONFIG = {"darcy_pcn_4096 scan": "darcy_pcn_4096",
+               "burgers_pcn scan": "burgers_pcn",
+               "burgers_multitime_pcn scan": "burgers_multitime_pcn"}
+SCAN_PATHS = ("gauss2d_rwm", "lingauss_pcn", "darcy_pcn_4096 scan", "darcy64_pcn",
+              "burgers_pcn scan", "burgers_multitime_pcn scan", "darcy_da_pcn",
+              "lingauss_elliptical", "lingauss_fes", "ode_mala", "ode_hmc",
+              "multimodal_pt", "multimodal_pt_mala")
+# the scan paths of their own runner functions (the others: one dispatch)
+FES_PT_PATHS = ("lingauss_fes", "multimodal_pt", "multimodal_pt_mala")
 # the scan paths whose posterior mean has a closed form (the config's truth)
 CLOSED_FORM = ("gauss2d_rwm", "lingauss_pcn")
-# the Darcy scan paths' samples: their warm-up (500 and 300 steps) runs in
-# full, twice, as the runner's protocol has it; a step is a plain PyTorch
-# CG solve of some thousand launches, so the samples are cut to stay within
-# the script's time
-DARCY_SCAN_SAMPLES = 100
+CONJUGATE = ("lingauss_elliptical", "lingauss_fes")  # lingauss_pcn's posterior
+# The samples of the scan paths whose steps take milliseconds (plain
+# PyTorch, a thousand small launches a solve, a gradient 13 thousand): the
+# warm-up or burn-in runs in full, twice, as the runner's protocol has it,
+# unless SCAN_SHORT cuts it too; the ODE paths cut their Adam iterations
+# (map_init) and warm-up, through runner.run_problem. Every cut is printed.
+SCAN_SAMPLES = {"darcy_pcn_4096 scan": 100, "darcy64_pcn": 100, "burgers_pcn scan": 100,
+                "burgers_multitime_pcn scan": 100, "darcy_da_pcn": 50,
+                "lingauss_elliptical": 200, "ode_mala": 20, "ode_hmc": 4}
+SCAN_SHORT = {"ode_mala": {"burn_in": 20, "map_init": 20},
+              "ode_hmc": {"burn_in": 4, "map_init": 10}}
 # one-draw-a-CTA kernels that a path launched before its spec went to a
 # kernel a draw a warp or a cluster level: the path must not launch them
 RETIRED = {"darcy_ess_fused": ("darcy_misfit_kernel[n=16]",),
@@ -3144,47 +3253,87 @@ def run_cli(config, flags, n_samples):
 
 
 def drive_path(config, problem, n_samples):
-    """One CLI run as a ``drive_phase``; checks its metrics. Returns (the
-    counts, the metrics)."""
+    """One CLI run (or, for the paths of SCAN_SHORT, one run of
+    ``runner.run_problem`` on the config with those fields cut) as a
+    ``drive_phase``; checks its metrics. Returns (the counts, the
+    metrics)."""
+    import dataclasses
+
+    from ip_mcmc_tpu_torch import runner
+
     flags, kernels = PATHS[config]
-    counts, metrics = drive_phase(config, kernels,
-                                  lambda: run_cli(config_of(config), flags, n_samples))
+    short = SCAN_SHORT.get(config)
+    if short:
+        kp = {**problem.kernel_params, "map_init": short["map_init"]}
+        cut = dataclasses.replace(problem, burn_in=short["burn_in"], kernel_params=kp)
+        run = lambda: runner.run_problem(cut, "cuda", seed=0, n_samples=n_samples)  # noqa: E731
+    else:
+        run = lambda: run_cli(config_of(config), flags, n_samples)  # noqa: E731
+    counts, metrics = drive_phase(config, kernels, run)
     print(f"{config} metrics: " + json.dumps(metrics), flush=True)
+    check_metrics(config, problem, n_samples, counts, metrics)
+    return counts, metrics
+
+
+def check_metrics(config, problem, n_samples, counts, metrics):
+    """The checks of a path's run: no retired kernel launched, the JAX
+    runner's keys of that path, rates in (0, 1], finite statistics."""
+    flags = PATHS[config][0]
+    short = SCAN_SHORT.get(config)
     for k in RETIRED.get(config, ()):
         if counts.get(k, 0):
             raise AssertionError(f"{config} launched {k} {counts[k]} times")
     assert metrics["n_chains"] == problem.n_chains
     assert metrics["n_samples"] == n_samples
     assert math.isfinite(metrics["max_rhat"]), "max_rhat is not finite"
-    rates = ["accept_rate"]
     kp = problem.kernel_params
+    fused = bool(kp.get("fused")) or "--fused" in flags
+    # elliptical slice sampling on the scan path accepts every step and
+    # reports no rate (the fused kernel reports its shrink loop's)
+    rates = [] if problem.kernel == "elliptical" and not fused else ["accept_rate"]
+    assert ("accept_rate" in metrics) == bool(rates)
     if problem.kernel == "da_pcn":
-        # three levels report the middle correction's rate, two the inner
+        # three levels report the middle correction's rate, two the inner;
+        # the scan path reports neither (as JAX's one-dispatch path)
         three = bool(kp.get("k_mid"))
-        rates.append("mid_accept_rate" if three else "inner_accept_rate")
-        assert ("mid_accept_rate" in metrics) == three
-        assert ("inner_accept_rate" in metrics) == (not three)
-        assert metrics["outer_steps_per_s"] > 0.0
+        if fused:
+            rates.append("mid_accept_rate" if three else "inner_accept_rate")
+        assert ("mid_accept_rate" in metrics) == (fused and three)
+        assert ("inner_accept_rate" in metrics) == (fused and not three)
+        assert metrics["outer_steps_per_s"] > 0.0 and "steps_per_s" not in metrics
         inner = kp["k_inner"] * kp["k_mid"] if three else kp["subchain_len"]
         assert math.isclose(metrics["inner_steps_per_s"],
                             metrics["outer_steps_per_s"] * inner, rel_tol=1e-9)
     else:
         assert "inner_accept_rate" not in metrics and "mid_accept_rate" not in metrics
         assert metrics["steps_per_s"] > 0.0
-    assert ("stretch_accept_rate" in metrics) == (problem.kernel == "fes")
-    if problem.kernel == "fes":
-        rates.append("stretch_accept_rate")
+    fes = problem.kernel == "fes"
+    assert ("stretch_accept_rate" in metrics) == (fes and fused)
+    assert ("pcn_accept_rate" in metrics) == (fes and not fused)
+    if fes:
+        rates.append("stretch_accept_rate" if fused else "pcn_accept_rate")
+    if problem.kernel == "pt":
+        rates.append("swap_rate_per_attempt")
+        n_temps = kp["n_temps"]
+        assert metrics["n_temps"] == n_temps == len(metrics["betas"])
+        assert math.isclose(metrics["replica_steps_per_s"],
+                            metrics["steps_per_s"] * n_temps, rel_tol=1e-9)
+        assert len(metrics["swap_rate_per_pair"]) == n_temps - 1
+        assert 0.3 <= metrics["mode_balance"] <= 0.7, (
+            f"{config}: mode balance {metrics['mode_balance']}")
     for key in rates:
         assert 0.0 < metrics[key] <= 1.0, f"{key} = {metrics[key]}"
     assert all(math.isfinite(v) for v in metrics["posterior_mean"])
     assert len(metrics["posterior_mean"]) == problem.dim
-    if config in SCAN_PATHS:  # the JAX one-dispatch keys
+    if config in SCAN_PATHS and config not in FES_PT_PATHS:  # the JAX one-dispatch keys
         assert metrics["program_count"] == 1 and metrics["sampling_steps_per_s"] > 0.0
         assert ("mean_error_vs_exact" in metrics) == (problem.exact_mean is not None)
-    if config in CLOSED_FORM:
+    if short:
+        assert metrics["map_init_iters"] == short["map_init"]
+        assert metrics["warm_steps"] == short["burn_in"]
+    if config in CLOSED_FORM + CONJUGATE:
         err = max(abs(a - b) for a, b in zip(metrics["posterior_mean"], problem.truth))
         assert err < 0.1, f"{config}: posterior mean off the closed form by {err}"
-    return counts, metrics
 
 
 def main() -> int:
@@ -3235,6 +3384,7 @@ def main() -> int:
     check_pcn_adapt_group()
     attach_ptxas(results, ptxas, group_ptxas())
     check_darcy_forward(problems)
+    ode_gradient = check_scan_forwards(problems)
 
     # the fused linear-Gaussian paths, each with the counts set to 0 before it
     counts = {}
@@ -3252,7 +3402,7 @@ def main() -> int:
 
     # the fourteen fused CLI paths, as shipped unless their predicted time
     # exceeds the budget: then every path's n_samples is cut by the same
-    # factor; the two scan paths (host-bound, a few seconds) as shipped
+    # factor; the scan paths as shipped but for SCAN_SAMPLES and SCAN_SHORT
     step_ms = {
         "darcy_da_fused": f"{DA16}<true>",
         "darcy_pcn_warm": f"{PCN_WARM}<true>",
@@ -3282,12 +3432,17 @@ def main() -> int:
         n_samples = problem.n_samples
         if config not in SCAN_PATHS:
             n_samples = max(8, int(problem.n_samples * cut))
-        elif config not in CLOSED_FORM:
-            n_samples = DARCY_SCAN_SAMPLES
+        else:
+            n_samples = SCAN_SAMPLES.get(config, n_samples)
         if n_samples != problem.n_samples:
             print(f"{config}: n_samples cut from {problem.n_samples} to "
                   f"{n_samples} to fit the time limit (width unchanged: "
                   f"{problem.n_chains} chains)", flush=True)
+        for field, value in SCAN_SHORT.get(config, {}).items():
+            shipped = (problem.burn_in if field == "burn_in"
+                       else problem.kernel_params[field])
+            print(f"{config}: {field} cut from {shipped} to {value} to fit the time "
+                  "limit (width unchanged)", flush=True)
         counts[config], metrics = drive_path(config, problem, n_samples)
         if config == "darcy64_da_fused":
             darcy64_da = report_da64(problem, metrics)
@@ -3301,7 +3456,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": results, "card": card, "compare_paths": compare_paths,
                       "richardson_da": richardson_da, "darcy64_da": darcy64_da,
-                      "ptxas": ptxas}))
+                      "ode_gradient": ode_gradient, "ptxas": ptxas}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,10 @@ its layout (``models/darcy.py``, ``ops/``, ``configs/``, ``runner.py``,
 16×16 grid (delayed-acceptance pCN, the main path ``darcy_da_fused``;
 cold and warm-started pCN; elliptical slice sampling) through
 hand-written CUDA kernels (``csrc/``). Every kernel has a plain PyTorch version beside it; the
-wrappers take the plain version only for tensors on the CPU.
+wrappers take the plain version only for tensors on the CPU. The scan path
+(``kernels/``, ``driver.py``, ``adapt/``: RWM, pCN, delayed acceptance,
+elliptical slice sampling, the ensemble sampler, MALA, HMC, parallel
+tempering) is plain PyTorch over the chains.
 
 Importing the package builds nothing: the CUDA sources are compiled at
 the first kernel launch (``ops/_build.py``).

@@ -1,7 +1,15 @@
 """Warm-up adaptation of the scan path (mirrors ``ip_mcmc_tpu/adapt``:
-``dual_averaging`` and ``warmup_rwm`` / ``warmup_pcn``)."""
+``dual_averaging``, ``warmup_rwm`` / ``warmup_pcn`` / ``warmup_mala`` /
+``warmup_hmc`` and ``map_localize``)."""
 
 from ip_mcmc_tpu_torch.adapt import dual_averaging
-from ip_mcmc_tpu_torch.adapt.warmup import warmup_pcn, warmup_rwm
+from ip_mcmc_tpu_torch.adapt.warmup import (
+    map_localize,
+    warmup_hmc,
+    warmup_mala,
+    warmup_pcn,
+    warmup_rwm,
+)
 
-__all__ = ["dual_averaging", "warmup_pcn", "warmup_rwm"]
+__all__ = ["dual_averaging", "map_localize", "warmup_hmc", "warmup_mala",
+           "warmup_pcn", "warmup_rwm"]

@@ -1,15 +1,16 @@
 """Warm-up drivers of the scan path (mirrors ``ip_mcmc_tpu/adapt/warmup.py``
-``warmup_rwm`` and ``warmup_pcn``): the acceptance signal and, for RWM, the
-proposal covariance are pooled across chains every step; the kernel is
-rebuilt each step around the current hyper-parameters (tensors on the
-device, so no step waits for the host); adaptation is frozen afterwards."""
+``warmup_rwm``, ``warmup_pcn``, ``warmup_mala``, ``warmup_hmc`` and
+``map_localize``): the acceptance signal and the proposal covariance or
+mass matrix are pooled across chains every step; the kernel is rebuilt
+each step around the current hyper-parameters (tensors on the device, so
+no step waits for the host); adaptation is frozen afterwards."""
 
 from __future__ import annotations
 
 import torch
 
 from ip_mcmc_tpu_torch.adapt import dual_averaging as da
-from ip_mcmc_tpu_torch.kernels import pcn, rwm
+from ip_mcmc_tpu_torch.kernels import hmc, mala, pcn, rwm
 
 
 def _pooled_cov(positions, jitter=1e-6):
@@ -62,3 +63,60 @@ def warmup_pcn(potential_fn, prior, state, generator, num_steps=500,
         state, info = kernel(generator, state)
         das = da.update(das, torch.mean(info.accept_prob), target=target_accept)
     return state, torch.sigmoid(das.log_x_avg)
+
+
+def _variance_inv_mass(positions, jitter=1e-6):
+    """Diagonal M⁻¹ from the cross-chain variances (population variance,
+    as ``jnp.var``)."""
+    return 1.0 / (torch.var(positions, dim=0, unbiased=False) + jitter)
+
+
+def map_localize(log_density_fn, positions, num_steps=200, learning_rate=0.05):
+    """Move each chain towards a posterior mode by Adam ascent on log π
+    before the warm-up (optax's ``adam`` defaults: β 0.9 / 0.999, ε 1e-8).
+    Adam is elementwise, so one optimiser over the (n, d) leaf is JAX's
+    ``vmap`` of one optimiser a chain. Returns the moved positions."""
+    p = positions.detach().clone().requires_grad_(True)
+    opt = torch.optim.Adam([p], lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    with torch.enable_grad():
+        for _ in range(num_steps):
+            opt.zero_grad(set_to_none=True)
+            (-log_density_fn(p)).sum().backward()
+            opt.step()
+    return p.detach()
+
+
+def warmup_mala(log_density_fn, state, generator, num_steps=500,
+                initial_step_size=0.05, target_accept=0.574):
+    """Adapt the MALA step size (dual averaging) and a dense preconditioner
+    Σ = L Lᵀ from the cross-chain covariance. Returns (state, step_size,
+    chol)."""
+    dev = state.position.device
+    das = da.init(initial_step_size, dev)
+    chol = torch.eye(state.position.shape[1], dtype=state.position.dtype,
+                     device=dev)
+    for _ in range(num_steps):
+        kernel = mala.build_kernel(log_density_fn, step_size=da.current(das),
+                                   precond=chol)
+        state, info = kernel(generator, state)
+        das = da.update(das, torch.mean(info.accept_prob), target=target_accept)
+        chol = _cholesky(_pooled_cov(state.position))
+    return state, da.final(das), chol
+
+
+def warmup_hmc(log_density_fn, state, generator, num_steps=300,
+               num_integration_steps=8, initial_step_size=0.1, target_accept=0.8):
+    """Adapt the HMC step size (dual averaging) and a diagonal mass from the
+    cross-chain variances. Returns (state, step_size, inv_mass)."""
+    dev = state.position.device
+    das = da.init(initial_step_size, dev)
+    inv_mass = torch.ones(state.position.shape[1], dtype=state.position.dtype,
+                          device=dev)
+    for _ in range(num_steps):
+        kernel = hmc.build_kernel(log_density_fn, step_size=da.current(das),
+                                  num_integration_steps=num_integration_steps,
+                                  inv_mass=inv_mass)
+        state, info = kernel(generator, state)
+        das = da.update(das, torch.mean(info.accept_prob), target=target_accept)
+        inv_mass = _variance_inv_mass(state.position)
+    return state, da.final(das), inv_mass

@@ -1,24 +1,29 @@
 """Named configurations of the port (mirrors ``ip_mcmc_tpu/configs``).
 
 Ported so far: on the 16×16 Darcy problem ``darcy_da_fused``,
-``darcy_pcn_4096`` (its fused and its scan path), ``darcy_pcn_warm``,
+``darcy_pcn_4096`` (its fused and its scan path), ``darcy_da_pcn`` (scan
+delayed acceptance on the single-particle forward), ``darcy_pcn_warm``,
 ``darcy_ess_fused``, ``darcy_fes_fused``, ``darcy_mala_fused`` and
 ``darcy_mala_warm``, and the builder ``darcy_da_richardson(variant)``
 (``benchmarks/darcy_da_richardson.py``'s DA runs; JAX registers no config
 for them); on the 32×32 and 64×64 grids ``darcy32_pcn_warm``,
 ``darcy64_pcn_warm``, ``darcy64_da_fused`` (64×64 exact, 32×32
-surrogate) and ``darcy64_pcn`` (the scan path); on the 128-cell Burgers initial-data inversion
-``burgers_pcn`` and ``burgers_multitime_pcn`` (their fused paths),
-``burgers_da_pcn`` and ``burgers_da3_pcn``; on the scan path BASELINE
-configs 1 and 2, ``gauss2d_rwm`` (RWM on a 2-D Gaussian) and
-``lingauss_pcn`` (pCN on a linear-Gaussian inverse problem). The
+surrogate) and ``darcy64_pcn`` (the scan path); on the 128-cell Burgers
+initial-data inversion ``burgers_pcn`` and ``burgers_multitime_pcn``
+(their scan and fused paths), ``burgers_da_pcn`` and ``burgers_da3_pcn``;
+on the scan path BASELINE configs 1 and 2, ``gauss2d_rwm`` (RWM on a 2-D
+Gaussian) and ``lingauss_pcn`` (pCN on a linear-Gaussian inverse problem),
+with ``lingauss_elliptical`` and ``lingauss_fes`` on the same problem;
+BASELINE config 3a ``ode_mala`` and ``ode_hmc`` (Lotka–Volterra log-rates,
+RK4); ``multimodal_pt`` and ``multimodal_pt_mala`` (parallel tempering on a
+bimodal target). ``NOT_PORTED`` names the JAX configs still to come. The
 deterministic constants (KL bases, means, observation cells, sources, time
 steps, preconditioner factors, the numpy-drawn forward matrix) are computed
 here in numpy; the arrays the JAX configs draw with JAX keys (the data, the
 truths, the surrogates' calibrations) are read from the committed fixtures
 ``darcy16_da.npz``, ``darcy16_richardson.npz``, ``darcy32.npz``,
-``darcy64.npz``, ``darcy64_da.npz``, ``burgers128.npz`` and
-``lingauss32.npz`` (written by
+``darcy64.npz``, ``darcy64_da.npz``, ``burgers128.npz``,
+``lingauss32.npz`` and ``lv.npz`` (written by
 ``scripts/freeze_torch_fixtures.py``).
 """
 
@@ -40,7 +45,7 @@ from ip_mcmc_tpu_torch.convert import (
     darcy_warm_misfit_from_arrays,
     linear_gaussian_from_arrays,
 )
-from ip_mcmc_tpu_torch.models import burgers, darcy, kl, linear
+from ip_mcmc_tpu_torch.models import burgers, darcy, kl, linear, ode
 
 _HERE = pathlib.Path(__file__).resolve().parent
 FIXTURE = _HERE / "darcy16_da.npz"
@@ -50,6 +55,7 @@ DARCY64_FIXTURE = _HERE / "darcy64.npz"
 DARCY64_DA_FIXTURE = _HERE / "darcy64_da.npz"
 BURGERS_FIXTURE = _HERE / "burgers128.npz"
 LINGAUSS_FIXTURE = _HERE / "lingauss32.npz"
+LV_FIXTURE = _HERE / "lv.npz"
 
 
 @dataclasses.dataclass
@@ -57,7 +63,7 @@ class Problem:
     name: str
     dim: int
     prior: dist.DiagGaussian
-    kernel: str  # rwm | pcn | elliptical | da_pcn | fes | mala
+    kernel: str  # rwm | pcn | elliptical | da_pcn | fes | mala | hmc | pt
     kernel_params: dict
     n_chains: int
     n_samples: int
@@ -73,6 +79,7 @@ class Problem:
     # single-particle forward model is not ported)
     potential_fn: Optional[Callable] = None
     batched_potential_fn: Optional[Callable] = None  # (d, B) -> (B,)
+    surrogate_potential_fn: Optional[Callable] = None  # scan da_pcn Φ*, (n, d) -> (n,)
     batched_surrogate_fn: Optional[Callable] = None  # fused da_pcn Φ*
     batched_mid_fn: Optional[Callable] = None  # 3-level DA middle level
     # fused warm pCN: (module (U, x0) -> (Φ, x), aux_dim); fused warm MALA:
@@ -92,6 +99,28 @@ class Problem:
 
 REGISTRY: dict = {}
 
+# the JAX package's configs that the port does not run yet, each with the
+# kernel, kernel_params option or model it needs (the runner refuses a
+# problem that asks for one of those) and what that is
+NOT_PORTED = {
+    "ode_nuts": ("nuts", "the NUTS kernel (kernels/nuts.py) and warmup_nuts"),
+    "ode_chees": ("chees", "the ChEES-HMC kernel (kernels/chees_hmc.py) and its runner path"),
+    "darcy_smc": ("smc", "the SMC sampler (smc.py)"),
+    "darcy_smc_warm": ("smc", "the SMC sampler (smc.py)"),
+    "lingauss_advi": ("vi", "variational inference (vi.py)"),
+    "darcy_advi": ("vi", "variational inference (vi.py)"),
+    "darcy_advi_warmstart": ("vi_init", "a variational warm start (vi.py)"),
+    "darcy_da_pod": ("pod_surrogate",
+                     "the POD surrogate (models/darcy.py make_pod_surrogate)"),
+    "darcy_da_pod_online": ("pod_enrich", "the online POD surrogate and pod_enrich"),
+    "darcy_composed_pcn": ("pcn_composed",
+                           "the composed chains x model mesh (parallel/composed.py)"),
+    "darcy_composed_mala": ("mala_composed",
+                            "the composed chains x model mesh (parallel/composed.py)"),
+    "darcy_composed_ess": ("ess_composed",
+                           "the composed chains x model mesh (parallel/composed.py)"),
+}
+
 
 def register(fn):
     REGISTRY[fn.__name__] = fn
@@ -99,7 +128,12 @@ def register(fn):
 
 
 def build(name: str, device) -> Problem:
-    """Build a named Problem with its tensors on ``device``."""
+    """Build a named Problem with its tensors on ``device``. A JAX config
+    that the port does not run yet raises ``NotImplementedError``."""
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"config '{name}' is not ported: it needs {NOT_PORTED[name][1]}. "
+            f"Ported: {', '.join(sorted(REGISTRY))}")
     if name not in REGISTRY:
         raise KeyError(f"unknown config '{name}'; have {sorted(REGISTRY)}")
     return REGISTRY[name](torch.device(device))
@@ -186,6 +220,133 @@ def lingauss_pcn(device) -> Problem:
     )
 
 
+@register
+def lingauss_elliptical(device) -> Problem:
+    """Elliptical slice sampling (tuning-free) on the config-2 problem."""
+    p = lingauss_pcn(device)
+    p.name = "lingauss_elliptical"
+    p.kernel = "elliptical"
+    p.kernel_params = {}
+    return p
+
+
+@register
+def lingauss_fes(device) -> Problem:
+    """Functional ensemble sampler on the config-2 problem: affine-invariant
+    stretch moves on the 6 leading KL modes + pCN complement (Coullon–Webber
+    2020)."""
+    p = lingauss_pcn(device)
+    p.name = "lingauss_fes"
+    p.kernel = "fes"
+    p.kernel_params = {"n_low_modes": 6, "pcn_beta": 0.25}
+    return p
+
+
+# --- the Lotka–Volterra ODE (the gradient samplers) ----------------------------
+
+LV_Y0 = np.array([1.0, 0.5], np.float32)
+LV_DT, LV_STEPS = 0.05, 200  # t in [0, 10]
+LV_OBS = np.arange(10, 201, 10)  # every 0.5 time units
+
+
+def _lv_problem(device, kernel: str, kernel_params: dict, n_chains: int) -> Problem:
+    """Lotka–Volterra log-rate inference: RK4 in log populations, 200 steps
+    of 0.05, both species observed every 10 steps (40 values), noise 0.1,
+    prior N(0, 0.3²) on the four log-rates. y and the truth are frozen in
+    ``lv.npz`` (the noise is drawn with a JAX key)."""
+    fx = np.load(LV_FIXTURE)
+    fwd = ode.make_lotka_volterra_forward(LV_Y0, LV_DT, LV_STEPS, LV_OBS)
+    m = 2 * len(LV_OBS)
+    noise = dist.DiagGaussian(mean=torch.zeros(m, device=device),
+                              scale=0.1 * torch.ones(m, device=device))
+    prior = dist.DiagGaussian(mean=torch.zeros(4, device=device),
+                              scale=0.3 * torch.ones(4, device=device))
+    return Problem(
+        name=f"ode_{kernel}",
+        dim=4,
+        prior=prior,
+        kernel=kernel,
+        kernel_params=kernel_params,
+        n_chains=n_chains,
+        n_samples=1000,
+        burn_in=500,
+        data=fx["y"],
+        truth=fx["theta_true"],
+        notes="Lotka-Volterra log-rate inference; smooth, autograd through RK4",
+        potential_fn=potentials.misfit_potential(
+            fwd, torch.tensor(fx["y"], device=device), noise),
+    )
+
+
+@register
+def ode_mala(device) -> Problem:
+    """BASELINE config 3a: MALA on the ODE forward model."""
+    return _lv_problem(device, "mala",
+                       {"step_size": 0.05, "adapt": True, "map_init": 300}, 1024)
+
+
+@register
+def ode_hmc(device) -> Problem:
+    """Fixed-trajectory HMC variant of config 3."""
+    return _lv_problem(device, "hmc",
+                       {"step_size": 0.05, "num_integration_steps": 8,
+                        "adapt": True, "map_init": 300}, 512)
+
+
+# --- the bimodal target (parallel tempering) ----------------------------------
+
+
+def _bimodal_problem(device):
+    """2-D Gaussian mixture with modes at ±(sep, sep), scale sig, under a
+    N(0, 3²) reference measure: (prior, Φ, sep, sig) with Φ = −log mix −
+    Φ_prior, so that Φ with the prior is the mixture."""
+    sep, sig = 2.5, 0.3
+    prior = dist.DiagGaussian(mean=torch.zeros(2, device=device),
+                              scale=3.0 * torch.ones(2, device=device))
+    mode = torch.tensor([sep, sep], device=device)
+
+    def phi(u):
+        a = -0.5 * torch.sum((u - mode) ** 2, dim=-1) / sig**2
+        b = -0.5 * torch.sum((u + mode) ** 2, dim=-1) / sig**2
+        return -torch.logaddexp(a, b) - prior.potential(u)
+
+    return prior, phi, sep, sig
+
+
+@register
+def multimodal_pt(device) -> Problem:
+    """Parallel tempering on a bimodal target: 8-rung tempered-pCN ladder
+    with equi-acceptance adaptation, cold chain recorded; the headline is
+    the cold chain's mode balance."""
+    prior, phi, sep, sig = _bimodal_problem(device)
+    return Problem(
+        name="multimodal_pt",
+        dim=2,
+        prior=prior,
+        kernel="pt",
+        kernel_params={"n_temps": 8, "pcn_step": 0.4, "beta_min": 0.05,
+                       "adapt_ladder": True, "swap_center": 0.4},
+        n_chains=256,
+        n_samples=800,
+        burn_in=300,
+        truth=np.zeros(2),  # symmetric mixture: exact mean is 0
+        notes="cold-chain mode balance ≈ 0.5/0.5; swaps transport hot-chain jumps",
+        potential_fn=phi,
+    )
+
+
+@register
+def multimodal_pt_mala(device) -> Problem:
+    """PT with MALA mutations on the bimodal target (gradient proposals per
+    replica, ladder swaps identical)."""
+    p = multimodal_pt(device)
+    p.name = "multimodal_pt_mala"
+    p.kernel_params = {"n_temps": 8, "step_size": 0.25, "beta_min": 0.05,
+                       "mutation": "mala", "adapt_ladder": True,
+                       "swap_center": 0.4, "pcn_step": 0.4}
+    return p
+
+
 # --- the Darcy coefficient inversion ------------------------------------------
 
 
@@ -237,6 +398,32 @@ def darcy_pcn_4096(device) -> Problem:
         potential_fn=_darcy_potential(device, y, n_grid=16, n_modes_per_dim=8, alpha=2.0,
                                       field_scale=10.0),
         batched_potential_fn=phi_batched,
+    )
+
+
+@register
+def darcy_da_pcn(device) -> Problem:
+    """Delayed-acceptance pCN on Darcy, scan path: a 4-step subchain on a
+    loose-CG surrogate (the single-particle forward with 8 Jacobi-PCG
+    iterations against the exact 48), one exact correction per outer
+    step."""
+    prior, _, y, u_true, phi_batched = _darcy_problem(device)
+    darcy16 = dict(n_grid=16, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    return Problem(
+        name="darcy_da_pcn",
+        dim=64,
+        prior=prior,
+        kernel="da_pcn",
+        kernel_params={"beta": 0.08, "subchain_len": 4},
+        n_chains=4096,
+        n_samples=250,
+        burn_in=150,
+        data=y,
+        truth=u_true,
+        notes="two-level: loose-CG surrogate subchain + exact correction",
+        potential_fn=_darcy_potential(device, y, **darcy16),
+        batched_potential_fn=phi_batched,
+        surrogate_potential_fn=_darcy_potential(device, y, cg_iters=8, **darcy16),
     )
 
 
@@ -621,6 +808,19 @@ def _burgers_problem(device, obs_times=None):
     return prior, aux, fx
 
 
+def _burgers_potential(device, y, obs_times=None):
+    """The scan path's Φ of a Burgers config: ``misfit_potential`` of the
+    single-particle forward (128 cells, 16 modes, t = 0.2, the sine mean,
+    ``obs_times``) on the data y, noise N(0, 0.02²)."""
+    fwd, _ = burgers.make_burgers_forward(
+        n_cells=128, n_modes=16, alpha=1.5, field_scale=1.0, t_final=0.2,
+        mean_profile=_sine_mean(128), obs_times=obs_times, device=device)
+    m = len(y)
+    noise = dist.DiagGaussian(mean=torch.zeros(m, device=device),
+                              scale=0.02 * torch.ones(m, device=device))
+    return potentials.misfit_potential(fwd, torch.tensor(y, device=device), noise)
+
+
 def _burgers_calibrated_surrogate(aux, fx, n_coarse):
     """The two-level-calibrated coarse Burgers misfit
     (``_burgers_calibrated_surrogate`` of the JAX configs): ``n_coarse``
@@ -644,8 +844,9 @@ def _burgers_calibrated_surrogate(aux, fx, n_coarse):
 
 @register
 def burgers_pcn(device) -> Problem:
-    """Burgers initial-data inversion by pCN (shock-forming forward map);
-    the port runs its fused path (``--fused``)."""
+    """Burgers initial-data inversion by pCN (shock-forming forward map):
+    the scan path on the single-particle forward, or with ``--fused`` the
+    fused kernel on the batched misfit."""
     prior, aux, fx = _burgers_problem(device)
     return Problem(
         name="burgers_pcn",
@@ -659,6 +860,7 @@ def burgers_pcn(device) -> Problem:
         data=fx["y"],
         truth=fx["u_true"],
         notes="shock-forming forward map: derivative-free kernels only",
+        potential_fn=_burgers_potential(device, fx["y"]),
         batched_potential_fn=burgers_misfit_from_arrays(
             aux, fx["y"], 0.02).to(device),
     )
@@ -667,7 +869,7 @@ def burgers_pcn(device) -> Problem:
 @register
 def burgers_multitime_pcn(device) -> Problem:
     """Burgers inversion observing the evolution at three times (48
-    observations); the port runs its fused path (``--fused``)."""
+    observations): the scan path, or with ``--fused`` the fused kernel."""
     prior, aux, fx = _burgers_problem(device, obs_times=[0.07, 0.14, 0.2])
     return Problem(
         name="burgers_multitime_pcn",
@@ -681,6 +883,8 @@ def burgers_multitime_pcn(device) -> Problem:
         data=fx["y_multitime"],
         truth=fx["u_true"],
         notes="evolution observed at t=0.07/0.14/0.2 (48 observations)",
+        potential_fn=_burgers_potential(device, fx["y_multitime"],
+                                        obs_times=[0.07, 0.14, 0.2]),
         batched_potential_fn=burgers_misfit_from_arrays(
             aux, fx["y_multitime"], 0.02).to(device),
     )

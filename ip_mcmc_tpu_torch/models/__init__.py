@@ -1,1 +1,1 @@
-"""Forward models of the port: Darcy, Burgers, and the linear model."""
+"""Forward models of the port: Darcy, Burgers, the RK4 ODEs and the linear model."""

@@ -4,7 +4,10 @@ interval, finite-volume Godunov (mirrors ``ip_mcmc_tpu/models/burgers.py``).
 ``burgers_aux`` builds the constants of ``make_burgers_forward`` (scaled
 Fourier KL basis, mean profile, observation cells, the CFL-safe time step
 and the step count of each inter-observation segment) in numpy.
-``BurgersMisfit`` is ``make_batched_misfit`` (K12): Φ for a features-first
+``make_burgers_forward`` and ``integrate`` are the single-particle forward
+of the scan path (chains on the leading dimensions, plain PyTorch: some ten
+small operations a Godunov step). ``BurgersMisfit`` is
+``make_batched_misfit`` (K12): Φ for a features-first
 (K, B) batch of whitened KL coefficients — initial state ``mean + Bᵀu``,
 per segment that many Godunov steps, the state at the observed cells after
 each segment, ½‖(y − pred)/σ‖². Shocks make the map non-differentiable:
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ip_mcmc_tpu_torch._device import resolve_device
 from ip_mcmc_tpu_torch.models import kl
 from ip_mcmc_tpu_torch.ops import _build, _burgers_warp
 
@@ -92,13 +96,64 @@ def godunov_flux2(u_left: torch.Tensor, u_right: torch.Tensor) -> torch.Tensor:
     return torch.maximum(fl, fr)
 
 
-def step_burgers(state: torch.Tensor, dt_over_h: float) -> torch.Tensor:
-    """One periodic finite-volume step u_i −= dt/h (F_{i+½} − F_{i−½}) on a
-    (cells, B) state: cells on the first axis, chains last, as the body of
-    the JAX batched misfit."""
-    flux2_right = godunov_flux2(state, torch.roll(state, -1, 0))  # 2F_{i+½}
-    flux2_left = torch.roll(flux2_right, 1, 0)                    # 2F_{i−½}
+def step_burgers(state: torch.Tensor, dt_over_h: float, dim: int = 0) -> torch.Tensor:
+    """One periodic finite-volume step u_i −= dt/h (F_{i+½} − F_{i−½}) with
+    the cells on ``dim``: the first axis of a (cells, B) state, as the body
+    of the JAX batched misfit, or the last (``dim=-1``) of a chains-first
+    (..., cells) one, as JAX's ``step_burgers``."""
+    flux2_right = godunov_flux2(state, torch.roll(state, -1, dim))  # 2F_{i+½}
+    flux2_left = torch.roll(flux2_right, 1, dim)                    # 2F_{i−½}
     return state - (0.5 * dt_over_h) * (flux2_right - flux2_left)
+
+
+def integrate(u0: torch.Tensor, dt: float, n_steps: int, record_every: int = 0):
+    """``n_steps`` Godunov steps of a chains-first (..., cells) state, cell
+    width 1/cells. ``record_every`` 0: the final state; else also the
+    states after every ``record_every``-th step, (steps // record_every,
+    ..., cells)."""
+    dt_over_h = dt * u0.shape[-1]
+    state, traj = u0, []
+    for i in range(1, int(n_steps) + 1):
+        state = step_burgers(state, dt_over_h, dim=-1)
+        if record_every and i % record_every == 0:
+            traj.append(state)
+    if record_every == 0:
+        return state
+    return state, torch.stack(traj) if traj else state.new_zeros((0,) + state.shape)
+
+
+def make_burgers_forward(n_cells: int = 128, n_modes: int = 16, alpha: float = 1.5,
+                         field_scale: float = 2.0, t_final: float = 0.3,
+                         cfl_amax: float = 3.0, obs_indices=None, mean_profile=None,
+                         obs_times=None, device="cuda"):
+    """(forward, aux): forward(u) maps whitened KL coefficients u (..., K)
+    to the state at the observation cells after each segment of
+    ``burgers_aux`` (at ``t_final``, or at each of ``obs_times``),
+    concatenated segment-major: (..., segments · m). The initial state is
+    mean + u · scaled_basis; chains stay on the leading dimensions. ``aux``
+    holds ``burgers_aux``'s keys, the arrays as tensors on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    device = resolve_device(str(device))
+    consts = burgers_aux(n_cells, n_modes, alpha, field_scale, t_final, cfl_amax,
+                         obs_indices, mean_profile, obs_times)
+    aux = dict(consts)
+    for k in ("scaled_basis", "mean"):
+        aux[k] = torch.tensor(consts[k], device=device)
+    aux["eigenvalues"] = torch.tensor(consts["eigenvalues"], dtype=torch.float32,
+                                      device=device)
+    aux["obs_indices"] = torch.as_tensor(consts["obs_indices"], dtype=torch.long,
+                                         device=device)
+    basis, mean, obs, dt = aux["scaled_basis"], aux["mean"], aux["obs_indices"], aux["dt"]
+
+    def forward(u):
+        state = mean + u @ basis
+        outs = []
+        for seg in consts["segment_steps"]:
+            state = integrate(state, dt, int(seg))
+            outs.append(state[..., obs])
+        return torch.cat(outs, dim=-1)
+
+    return forward, aux
 
 
 class BurgersMisfit(nn.Module):

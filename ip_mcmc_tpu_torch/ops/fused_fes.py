@@ -1,7 +1,7 @@
 """The functional ensemble sampler, fused (K9; mirrors
 ``ip_mcmc_tpu/ops/fused_mcmc.py`` ``fused_fes_chain`` l.1105,
 ``fused_fes_chain_recorded`` l.1148 and ``_make_fes_step_builder`` l.571;
-``choose_n_low_modes`` is ``ip_mcmc_tpu/kernels/ensemble.py`` l.34).
+``choose_n_low_modes`` lives in ``kernels/ensemble.py``, as in JAX).
 
 Each block of ``block_chains`` chains is one walker ensemble. One step, in
 whitened coordinates w = (pos − m)/s: two red-black sub-steps, in which the
@@ -32,31 +32,10 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
+from ip_mcmc_tpu_torch.kernels.ensemble import choose_n_low_modes  # noqa: F401
 from ip_mcmc_tpu_torch.ops import _build, _scaffold, fused_ess
-
-
-def choose_n_low_modes(eigenvalues, energy_frac=0.9, min_modes=2,
-                       max_modes=None):
-    """Spectral-energy criterion for the stretch-move dimension: the
-    smallest M whose leading-M KL eigenvalue mass reaches ``energy_frac``
-    of the total spectrum. ``eigenvalues``: the KL spectrum of the
-    underlying field, not the whitened prior scale (isotropic by
-    construction). Returns a Python int."""
-    lam = np.sort(np.asarray(eigenvalues, dtype=np.float64))[::-1]
-    if lam.size == 0 or not np.all(np.isfinite(lam)) or np.any(lam < 0):
-        raise ValueError("eigenvalues must be a finite nonnegative spectrum")
-    total = lam.sum()
-    if total <= 0:
-        raise ValueError("eigenvalue spectrum sums to zero")
-    frac = np.cumsum(lam) / total
-    m = int(np.searchsorted(frac, energy_frac) + 1)
-    m = max(m, int(min_modes))
-    if max_modes is not None:
-        m = min(m, int(max_modes))
-    return min(m, int(lam.size))
 
 
 def _check_block(block_chains):

@@ -1,8 +1,13 @@
 """CLI entry: ``python -m ip_mcmc_tpu_torch.run --config darcy_da_fused``
-(``--list`` names the configs; ``burgers_pcn`` and
-``burgers_multitime_pcn`` need ``--fused``; ``darcy_pcn_4096`` runs the
-scan path, or with ``--fused`` the fused kernel; ``gauss2d_rwm``,
-``lingauss_pcn`` and ``darcy64_pcn`` run the scan path).
+(``--list`` names the configs). The fused configs run their CUDA kernels;
+``darcy_pcn_4096``, ``burgers_pcn`` and ``burgers_multitime_pcn`` run the
+scan path, or with ``--fused`` their fused kernel; ``gauss2d_rwm``,
+``lingauss_pcn``, ``lingauss_elliptical``, ``lingauss_fes``,
+``darcy64_pcn``, ``darcy_da_pcn``, ``ode_mala``, ``ode_hmc``,
+``multimodal_pt`` and ``multimodal_pt_mala`` run the scan path (plain
+PyTorch over the chains). A JAX config not ported yet (``ode_nuts``,
+``ode_chees``, the SMC, VI, POD and composed ones) raises
+``NotImplementedError``.
 
 Prints one JSON line of metrics (the keys of ``ip_mcmc_tpu.run``). Runs on
 the card by default; ``--device cpu`` runs the kernels' plain versions.
@@ -28,11 +33,10 @@ def main(argv=None):
                     help="'cuda' (default; fails without a card) or 'cpu'")
     ap.add_argument(
         "--fused", action="store_true",
-        help="use the fully fused path (darcy_pcn_4096, which runs the scan "
-        "path without it, and burgers_pcn, burgers_multitime_pcn, whose scan "
-        "path is not ported; the other fused configs set it themselves, and "
-        "gauss2d_rwm, lingauss_pcn and darcy64_pcn have no batched potential "
-        "and run the scan path)",
+        help="use the fully fused path (darcy_pcn_4096, burgers_pcn and "
+        "burgers_multitime_pcn, which run the scan path without it; the other "
+        "fused configs set it themselves, and the configs with no batched "
+        "potential run the scan path)",
     )
     ap.add_argument("--list", action="store_true", help="list configs and exit")
     args = ap.parse_args(argv)
@@ -46,7 +50,7 @@ def main(argv=None):
         return 0
     if args.config is None:
         ap.error("--config is required (or use --list)")
-    if args.config not in configs.REGISTRY:
+    if args.config not in configs.REGISTRY and args.config not in configs.NOT_PORTED:
         ap.error(
             f"unknown config {args.config!r} (choose from "
             f"{', '.join(sorted(configs.REGISTRY))})"

@@ -2,9 +2,12 @@
 ``ip_mcmc_tpu/runner.py``: ``run_problem``; ``_run_fused_mcmc``'s ``da_pcn``
 (two- and three-level), ``pcn`` (cold and warm), ``elliptical``, ``fes``,
 ``mala`` (cold and warm) and ``rwm`` branches; the scan path's
-``_setup_kernel_state`` (``rwm``, ``pcn``) and ``_run_one_dispatch``;
-``_resolve_n_low_modes``, ``_finalize``). Returns the JAX runner's
-JSON-able metrics dict, key for key.
+``_setup_kernel_state`` (``rwm``, ``pcn``, ``da_pcn``, ``elliptical``,
+``mala``, ``hmc``, with ``map_init``) and ``_run_one_dispatch``; ``_run_fes``,
+``_run_pt`` and ``_pt_pair_metrics``; ``_resolve_n_low_modes``,
+``_finalize``). Returns the JAX runner's JSON-able metrics dict, key for
+key. NUTS, ChEES, SMC, VI, the composed samplers and POD enrichment are not
+ported: the runner refuses them (``NotImplementedError``).
 
 Fused timing protocol (as the JAX runner's): the burn launch uses seed 1
 and is timed as ``warmup_s`` (on the card it also pays the kernels' build
@@ -12,7 +15,8 @@ at first use); the recorded launch uses seed 2 and runs twice — the first
 call builds and runs, the identical second call is timed as ``run_s``, and
 the difference is ``compile_s``. ``first_dispatch_s`` is the time of the
 first device synchronisation. The scan path's protocol is
-``_run_one_dispatch``'s.
+``_run_one_dispatch``'s; ``_run_fes`` and ``_run_pt`` run their sampling
+twice and time the second run.
 """
 
 from __future__ import annotations
@@ -22,17 +26,35 @@ import time
 import numpy as np
 import torch
 
-from ip_mcmc_tpu_torch import diagnostics, driver, ops
-from ip_mcmc_tpu_torch.adapt import warmup_pcn, warmup_rwm
-from ip_mcmc_tpu_torch.kernels import pcn, rwm
-from ip_mcmc_tpu_torch.ops.fused_fes import choose_n_low_modes
+from ip_mcmc_tpu_torch import configs, diagnostics, driver, ops
+from ip_mcmc_tpu_torch.adapt import (
+    map_localize,
+    warmup_hmc,
+    warmup_mala,
+    warmup_pcn,
+    warmup_rwm,
+)
+from ip_mcmc_tpu_torch.kernels import (
+    da_pcn,
+    elliptical,
+    ensemble,
+    hmc,
+    mala,
+    pcn,
+    rwm,
+    tempering,
+)
+from ip_mcmc_tpu_torch.kernels.ensemble import choose_n_low_modes
 
 # metric keys that name wall-time phases (attribution in _finalize)
 _PHASE_KEYS = ("warmup_s", "trace_s", "compile_s", "first_dispatch_s", "run_s",
                "diag_s")
-# the kernels with a fused path, and those with a scan path
+# the kernels with a fused path, those of the one-dispatch scan path, and
+# the kernels and kernel_params options the port does not run yet (those
+# that configs.NOT_PORTED's configs need)
 FUSED_KERNELS = ("pcn", "elliptical", "da_pcn", "fes", "mala", "rwm")
-SCAN_KERNELS = ("rwm", "pcn")
+SCAN_KERNELS = ("rwm", "pcn", "da_pcn", "elliptical", "mala", "hmc")
+NOT_PORTED = tuple(sorted({need for need, _ in configs.NOT_PORTED.values()}))
 
 
 def _barrier(device):
@@ -241,19 +263,25 @@ def _setup_kernel_state(problem, positions, generator):
     """(kernel, state, warm_steps) of the scan path. With
     ``kernel_params["adapt"]`` the warm-up (``problem.burn_in`` steps,
     drawn from ``generator``) replaces the burn-in, and ``warm_steps``
-    counts its chain steps."""
+    counts its chain steps; ``map_init`` (MALA, HMC) first moves the
+    positions by that many Adam iterations, which are not chain steps."""
     kp = dict(problem.kernel_params)
     adapt = kp.pop("adapt", False)
+    map_init = kp.pop("map_init", 0)
     kp.pop("fused", None)
     kp.pop("block_chains", None)
     warm_steps = 0
+    num_warm = problem.burn_in or 300
+    if map_init and problem.kernel in ("mala", "hmc"):
+        positions = map_localize(problem.log_density_fn, positions,
+                                 num_steps=map_init)
     if problem.kernel == "rwm":
         logpi = problem.log_density_fn
         state = driver.init_chains(rwm.init, positions, logpi)
         if adapt:
-            warm_steps += problem.burn_in or 300
+            warm_steps += num_warm
             state, step_size, chol = warmup_rwm(
-                logpi, state, generator, num_steps=problem.burn_in or 300,
+                logpi, state, generator, num_steps=num_warm,
                 initial_step_size=kp.get("step_size", 0.5))
             kernel = rwm.build_kernel(logpi, step_size=step_size, scale=chol)
         else:
@@ -262,13 +290,56 @@ def _setup_kernel_state(problem, positions, generator):
         phi, prior = problem.potential_fn, problem.prior
         state = driver.init_chains(pcn.init, positions, phi)
         if adapt:
-            warm_steps += problem.burn_in or 300
+            warm_steps += num_warm
             state, beta = warmup_pcn(
-                phi, prior, state, generator, num_steps=problem.burn_in or 300,
+                phi, prior, state, generator, num_steps=num_warm,
                 initial_beta=kp.get("beta", 0.2))
             kernel = pcn.build_kernel(phi, prior, beta=beta)
         else:
             kernel = pcn.build_kernel(phi, prior, **kp)
+    elif problem.kernel == "da_pcn":
+        phi, prior = problem.potential_fn, problem.prior
+        surr = problem.surrogate_potential_fn
+        if surr is None:
+            raise ValueError(
+                f"config {problem.name}: kernel 'da_pcn' needs surrogate_potential_fn")
+        if "k_mid" in kp or "k_inner" in kp:
+            raise ValueError(
+                f"config {problem.name}: 3-level delayed acceptance "
+                "(k_inner/k_mid) is fused-only — set kernel_params"
+                "['fused']=True and provide batched potential/mid/surrogate "
+                "functions (see burgers_da3_pcn)")
+        state = driver.init_chains(da_pcn.init, positions, phi, surr)
+        kernel = da_pcn.build_kernel(phi, surr, prior, **kp)
+    elif problem.kernel == "elliptical":
+        phi, prior = problem.potential_fn, problem.prior
+        state = driver.init_chains(elliptical.init, positions, phi)
+        kernel = elliptical.build_kernel(phi, prior, **kp)
+    elif problem.kernel == "mala":
+        logpi = problem.log_density_fn
+        state = driver.init_chains(mala.init, positions, logpi)
+        if adapt:
+            warm_steps += num_warm
+            state, eps, precond = warmup_mala(
+                logpi, state, generator, num_steps=num_warm,
+                initial_step_size=kp.get("step_size", 0.05))
+            kernel = mala.build_kernel(logpi, step_size=eps, precond=precond)
+        else:
+            kernel = mala.build_kernel(logpi, **kp)
+    elif problem.kernel == "hmc":
+        logpi = problem.log_density_fn
+        state = driver.init_chains(hmc.init, positions, logpi)
+        nint = kp.get("num_integration_steps", 8)
+        if adapt:
+            warm_steps += num_warm
+            state, eps, inv_mass = warmup_hmc(
+                logpi, state, generator, num_steps=num_warm,
+                num_integration_steps=nint,
+                initial_step_size=kp.get("step_size", 0.1))
+            kernel = hmc.build_kernel(logpi, step_size=eps,
+                                      num_integration_steps=nint, inv_mass=inv_mass)
+        else:
+            kernel = hmc.build_kernel(logpi, **kp)
     else:
         raise ValueError(f"unknown scan kernel {problem.kernel}")
     return kernel, state, warm_steps
@@ -333,40 +404,211 @@ def _run_one_dispatch(problem, seed, n_chains, n_samples, device):
         "ess_per_s": float(summ["min_ess"]) / run_s,
         "max_rhat": float(summ["max_rhat"]),
         "posterior_mean": flat_mean.tolist(),
-        "steps_per_s": total_steps / run_s,
-        "accept_rate": float(info_means.accepted.mean()),
     }
+    if kp.get("map_init"):
+        metrics["map_init_iters"] = int(kp["map_init"])
+    if problem.kernel == "da_pcn":
+        # an outer step hides subchain_len surrogate steps: name the unit
+        k_total = int(kp.get("subchain_len", 4))
+        metrics["outer_steps_per_s"] = total_steps / run_s
+        metrics["inner_steps_per_s"] = total_steps * k_total / run_s
+    else:
+        metrics["steps_per_s"] = total_steps / run_s
+    if hasattr(info_means, "accepted"):  # ESS has no accept/reject
+        metrics["accept_rate"] = float(info_means.accepted.mean())
     if problem.exact_mean is not None:
         metrics["mean_error_vs_exact"] = float(
             np.abs(flat_mean - problem.exact_mean).max())
     return metrics
 
 
+def _run_fes(problem, seed, n_chains, n_samples, device):
+    """The functional ensemble sampler's scan path (the JAX runner's
+    ``_run_fes``): the walker ensemble is the chain axis; sampling runs
+    twice from the same seed and the second run is ``run_s``. Positions
+    from a host generator seeded with ``seed``, the run from one on
+    ``device`` seeded with ``seed`` + 2."""
+    kp = dict(problem.kernel_params)
+    positions = problem.init_positions(
+        torch.Generator().manual_seed(int(seed)), n_chains).to(device)
+
+    def sample():
+        out = ensemble.sample_fes(
+            problem.potential_fn, problem.prior, positions,
+            torch.Generator(device).manual_seed(int(seed) + 2),
+            _resolve_n_low_modes(kp, problem),
+            stretch_a=kp.get("stretch_a", 2.0), pcn_beta=kp.get("pcn_beta", 0.2),
+            n_samples=n_samples, burn_in=problem.burn_in, thin=problem.thin)
+        _barrier(device)
+        return out
+
+    t0 = time.perf_counter()
+    sample()
+    compile_and_run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, samples, infos = sample()
+    run_s = time.perf_counter() - t0
+
+    summ, diag_s = _summarize_timed(samples)
+    return {
+        "config": problem.name,
+        "kernel": "fes",
+        "n_chains": int(n_chains),
+        "n_samples": int(n_samples),
+        "dim": int(problem.dim),
+        "compile_s": max(compile_and_run_s - run_s, 0.0),
+        "run_s": run_s,
+        "steps_per_s": (problem.burn_in + n_samples * problem.thin) * n_chains / run_s,
+        "diag_s": diag_s,
+        "min_ess": float(summ["min_ess"]),
+        "ess_per_s": float(summ["min_ess"]) / run_s,
+        "max_rhat": float(summ["max_rhat"]),
+        "accept_rate": float(infos.stretch_accept.mean()),
+        "pcn_accept_rate": float(infos.pcn_accept.mean()),
+        "posterior_mean": summ["mean"].tolist(),
+    }
+
+
+def _pt_pair_metrics(infos, n_temps, adapt_pair_rates):
+    """Per-pair swap acceptance per attempt: the chain means of
+    pair_swap_prob (0 when inactive) over those of pair_active, summed over
+    the retained steps."""
+    prob = infos.pair_swap_prob[:, : n_temps - 1].cpu().numpy()
+    act = infos.pair_active[:, : n_temps - 1].cpu().numpy()
+    rates = prob.sum(axis=0) / np.maximum(act.sum(axis=0), 1e-9)
+    out = {
+        "swap_rate_per_pair": rates.tolist(),
+        "swap_spread": float(rates.max() - rates.min()),
+    }
+    if adapt_pair_rates is not None:
+        out["adapt_pair_rates"] = adapt_pair_rates.cpu().tolist()
+    return out
+
+
+def _run_pt(problem, seed, n_chains, n_samples, device):
+    """Parallel tempering (the JAX runner's ``_run_pt``): equi-acceptance
+    ladder adaptation (doubling as burn-in, timed as ``warmup_s``), then the
+    frozen-ladder kernel, sampled twice from the same seed with the cold
+    replica recorded; the second run is ``run_s``. ``mode_balance`` is the
+    share of cold samples with a positive first coordinate. Positions from
+    a host generator seeded with ``seed``; the adaptation and the sampling
+    draw from generators on ``device`` seeded with ``seed`` + 1 and + 2."""
+    kp = dict(problem.kernel_params)
+    n_temps = kp.get("n_temps", 8)
+    beta_min = kp.get("beta_min", 0.05)
+    pcn_step = kp.get("pcn_step", 0.25)
+    mutation = kp.get("mutation", "pcn")
+    phi, prior = problem.potential_fn, problem.prior
+    positions = problem.init_positions(
+        torch.Generator().manual_seed(int(seed)), n_chains).to(device)
+
+    t0 = time.perf_counter()
+    adapt_pair_rates = None
+    if kp.get("adapt_ladder", True):
+        states, betas, adapt_pair_rates = tempering.adapt_ladder(
+            phi, prior, positions, torch.Generator(device).manual_seed(int(seed) + 1),
+            n_temps=n_temps, num_steps=problem.burn_in or 300,
+            swap_center=kp.get("swap_center", 0.4),
+            pcn_step=pcn_step, beta_min=beta_min, mutation=mutation,
+            step_size=kp.get("step_size", 0.05))
+        burn = 0
+    else:
+        betas = tempering.geometric_ladder(n_temps, beta_min)
+        init = tempering.init_mala if mutation == "mala" else tempering.init
+        states = init(positions, phi, n_temps)
+        burn = problem.burn_in
+    if mutation == "mala":
+        kernel = tempering.build_mala_kernel(phi, prior, betas,
+                                             step_size=kp.get("step_size", 0.05))
+    else:
+        kernel = tempering.build_kernel(phi, prior, betas, pcn_step=pcn_step)
+    _barrier(device)
+    warm_s = time.perf_counter() - t0
+
+    def sample():
+        out = driver.sample_chains(
+            kernel, states, torch.Generator(device).manual_seed(int(seed) + 2),
+            n_samples=n_samples, burn_in=burn, thin=problem.thin,
+            record_fn=tempering.cold_chain)
+        _barrier(device)
+        return out
+
+    t0 = time.perf_counter()
+    sample()
+    compile_and_run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, samples, infos = sample()
+    run_s = time.perf_counter() - t0
+
+    summ, diag_s = _summarize_timed(samples)
+    steps = (burn + n_samples * problem.thin) * n_chains
+    return {
+        "config": problem.name,
+        "kernel": f"pt({mutation})",
+        "n_chains": int(n_chains),
+        "n_temps": int(n_temps),
+        "n_samples": int(n_samples),
+        "dim": int(problem.dim),
+        "warmup_s": warm_s,
+        "compile_s": max(compile_and_run_s - run_s, 0.0),
+        "run_s": run_s,
+        # one PT step = n_temps replica mutations + a swap round
+        "steps_per_s": steps / run_s,
+        "replica_steps_per_s": steps * n_temps / run_s,
+        "diag_s": diag_s,
+        "min_ess": float(summ["min_ess"]),
+        "ess_per_s": float(summ["min_ess"]) / run_s,
+        "max_rhat": float(summ["max_rhat"]),
+        "accept_rate": float(infos.accept_rate.mean()),
+        "swap_rate_per_attempt": float(infos.swap_rate.mean()),
+        **_pt_pair_metrics(infos, n_temps, adapt_pair_rates),
+        "betas": torch.as_tensor(betas).cpu().tolist(),
+        "mode_balance": float((samples[..., 0] > 0).to(torch.float32).mean()),
+        "posterior_mean": summ["mean"].tolist(),
+    }
+
+
+def _refuse(problem, what):
+    raise NotImplementedError(
+        f"config {problem.name}: {what} is not ported. Ported are the fused "
+        f"{', '.join(FUSED_KERNELS)} paths (kernel_params['fused'] and a "
+        "batched potential; pass --fused to a pCN config that has one), the "
+        f"scan {', '.join(SCAN_KERNELS)} paths and the scan fes and pt paths "
+        "of the configs with a potential_fn; not ported: "
+        f"{', '.join(NOT_PORTED)}")
+
+
 def run_problem(problem, device, seed: int = 0, n_chains=None,
                 n_samples=None):
     """Execute a Problem end-to-end on ``device``; returns a metrics dict.
     ``seed`` seeds the host-side ``torch.Generator`` of the initial
-    positions (and, on the scan path, the device generators of the
+    positions (and, on the scan paths, the device generators of the
     warm-up and the sampling)."""
     t_start = time.perf_counter()
     device = torch.device(device)
     n_chains = n_chains or problem.n_chains
     n_samples = n_samples or problem.n_samples
-    if (problem.kernel in FUSED_KERNELS and problem.kernel_params.get("fused")
-            and problem.batched_potential_fn is not None):
+    kp = problem.kernel_params
+    fused = (problem.kernel in FUSED_KERNELS and kp.get("fused")
+             and problem.batched_potential_fn is not None)
+    if problem.kernel in NOT_PORTED:
+        _refuse(problem, f"the '{problem.kernel}' kernel")
+    for option in NOT_PORTED:
+        if kp.get(option):
+            _refuse(problem, option)
+    if fused:
         generator = torch.Generator().manual_seed(int(seed))
         metrics = _run_fused_mcmc(problem, generator, n_chains, n_samples,
                                   device)
-    elif problem.kernel in SCAN_KERNELS and problem.potential_fn is not None:
+    elif problem.potential_fn is None:
+        _refuse(problem, f"the scan '{problem.kernel}' path without a "
+                "single-particle potential_fn")
+    elif problem.kernel == "fes":
+        metrics = _run_fes(problem, seed, n_chains, n_samples, device)
+    elif problem.kernel == "pt":
+        metrics = _run_pt(problem, seed, n_chains, n_samples, device)
+    elif problem.kernel in SCAN_KERNELS:
         metrics = _run_one_dispatch(problem, seed, n_chains, n_samples, device)
     else:
-        raise NotImplementedError(
-            f"config {problem.name}: not ported. Ported are the fused "
-            f"{', '.join(FUSED_KERNELS)} paths (kernel_params['fused'] and a "
-            "batched potential; pass --fused to a pCN config that has one) "
-            f"and the scan {' and '.join(SCAN_KERNELS)} paths of the configs "
-            "with a potential_fn (gauss2d_rwm, lingauss_pcn, and on the "
-            "single-particle Darcy forward darcy_pcn_4096 and darcy64_pcn); "
-            "the single-particle Burgers forward is not"
-        )
+        _refuse(problem, f"the '{problem.kernel}' kernel")
     return _finalize(metrics, t_start)

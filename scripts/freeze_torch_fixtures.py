@@ -37,6 +37,10 @@ under key 402 through the single-particle forwards (dense ``dst``, 24 CG
 at 64², 3 at 32²): ``y_surr``, ``surr_scale`` and ``obs_coarse`` into
 ``darcy64_da.npz``.
 
+``ode_mala`` / ``ode_hmc`` (``_lv_problem``): the true log-rates
+``theta_true`` and the data ``y`` (the RK4 forward plus the noise draw
+under key 200) into ``lv.npz``.
+
 The Richardson DA runs of ``benchmarks/darcy_da_richardson.py``
 (``configs.darcy_da_richardson``): the NumPy oracle's ``u_true`` and ``y``
 (``default_rng(7)``, noise 0.002) and, for each 8×8 surrogate of
@@ -52,7 +56,7 @@ exact posterior mean, so its ``u_true`` is drawn again by the config's own
 call. With no argument every file is written; a kind writes its own.
 
     JAX_PLATFORMS=cpu python scripts/freeze_torch_fixtures.py \
-        [darcy|burgers|lingauss|darcy32|darcy64|darcy64_da|richardson]
+        [darcy|burgers|lingauss|darcy32|darcy64|darcy64_da|richardson|lv]
 """
 
 from __future__ import annotations
@@ -71,6 +75,7 @@ LARGE_GRID = {  # kind -> (JAX config, fixture)
     "darcy64": ("darcy64_pcn_warm", ROOT / "ip_mcmc_tpu_torch" / "configs" / "darcy64.npz"),
 }
 RICHARDSON_FIXTURE = ROOT / "ip_mcmc_tpu_torch" / "configs" / "darcy16_richardson.npz"
+LV_FIXTURE = ROOT / "ip_mcmc_tpu_torch" / "configs" / "lv.npz"
 DA_FIXTURES = {  # kind -> (JAX config, fixture)
     "darcy": ("darcy_da_fused", FIXTURE),
     "darcy64_da": ("darcy64_da_fused",
@@ -132,6 +137,12 @@ def truth_and_data(problem) -> dict:
             "y": np.asarray(problem.data, np.float32)}
 
 
+def lv_fixture_arrays(problem) -> dict:
+    """``theta_true`` and ``y`` of a built JAX ``ode_mala`` Problem."""
+    return {"theta_true": np.asarray(problem.truth, np.float32),
+            "y": np.asarray(problem.data, np.float32)}
+
+
 def richardson_fixture_arrays() -> dict:
     """The oracle's truth and data and each surrogate's calibration, as
     ``benchmarks/darcy_da_richardson.py`` builds them."""
@@ -161,7 +172,7 @@ def richardson_fixture_arrays() -> dict:
 
 
 def main(argv=None):
-    kinds = {*DA_FIXTURES, "burgers", "lingauss", *LARGE_GRID, "richardson"}
+    kinds = {*DA_FIXTURES, "burgers", "lingauss", *LARGE_GRID, "richardson", "lv"}
     which = set(argv or sys.argv[1:]) or kinds
     if not which <= kinds:
         raise SystemExit(f"usage: {sys.argv[0]} [{'|'.join(sorted(kinds))}]")
@@ -192,6 +203,9 @@ def main(argv=None):
     if "richardson" in which:
         np.savez(RICHARDSON_FIXTURE, **richardson_fixture_arrays())
         written.append(RICHARDSON_FIXTURE)
+    if "lv" in which:
+        np.savez(LV_FIXTURE, **lv_fixture_arrays(configs.build("ode_mala")))
+        written.append(LV_FIXTURE)
     for path in written:
         print(f"wrote {path} ({path.stat().st_size} bytes)")
 

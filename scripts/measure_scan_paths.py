@@ -1,0 +1,214 @@
+"""Time the scan paths' steps and the ODE gradient on the card.
+
+    python scripts/measure_scan_paths.py [--reps N] [--runs CONFIG[:CUTS] ...] [--out FILE]
+
+At each config's full width, on the card: one ``ode_mala`` gradient of
+log π at 1024 chains (the 200-step RK4 solve and its backward), the
+Burgers potential at 2048 chains (one and three observation times), one
+step of each scan kernel of ``darcy_da_pcn``, ``lingauss_elliptical``,
+``lingauss_fes``, ``multimodal_pt``, ``multimodal_pt_mala``, ``ode_mala`` and ``ode_hmc``.
+For each: milliseconds a call (host clock around a synchronised loop,
+after a warm-up), the operations the call dispatches (``aten`` ops, counted
+by a dispatch mode), the CUDA activities the profiler records for one call
+and their summed device time, and the device's idle share of that call.
+Prints one JSON line per row (and with ``--out`` writes them all to that
+JSON file). ``--runs`` then runs whole
+configs through ``runner.run_problem`` on the card, as the CLI does, and
+prints each one's metrics: ``ode_hmc:burn_in=20,map_init=300,n_samples=40``
+cuts those fields (``n_samples`` the run's, the others the config's); a bare
+name runs as shipped. ``--runs`` alone skips the step rows (``--reps 0``).
+Needs a card; exits 1 without.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+class _CountOps(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _profile(fn):
+    """(CUDA activities, their summed device µs, wall µs) of one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    n, us = 0, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:  # kernels and copies
+            n += ev.count
+            us += (getattr(ev, "self_device_time_total", 0)
+                   or getattr(ev, "self_cuda_time_total", 0))
+    return n, us, wall_us
+
+
+def row(name, fn, reps, **extra):
+    counter = _CountOps()
+    with counter:
+        fn()
+    n_act, dev_us, wall_us = _profile(fn)
+    out = {"name": name, "ms": _ms(fn, reps), "aten_ops": counter.n,
+           "cuda_activities": n_act, "device_ms": dev_us / 1e3,
+           "idle_share": 1.0 - dev_us / wall_us if wall_us else None, **extra}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=5, help="0: no step rows")
+    ap.add_argument("--runs", nargs="*", default=[], metavar="CONFIG[:CUTS]")
+    ap.add_argument("--out", default=None, help="a JSON file for every row and run")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("measure_scan_paths: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=False).stdout.strip()
+    print(f"card: {card}", flush=True)
+
+    from ip_mcmc_tpu_torch import configs
+    from ip_mcmc_tpu_torch.kernels import (
+        base, da_pcn, elliptical, ensemble, hmc, mala, pcn, tempering)
+
+    dev = "cuda"
+    rows = []
+    runs = [run_config(spec) for spec in args.runs]
+    if args.reps < 1:
+        write_out(args.out, card, rows, runs)
+        return 0
+
+    def start(p, n, seed=0):
+        return p.init_positions(torch.Generator().manual_seed(seed), n).to(dev)
+
+    ode = configs.build("ode_mala", dev)
+    x = start(ode, 1024)
+    vg = base.value_and_grad(ode.log_density_fn)
+    rows.append(row("ode_mala gradient of log pi, 1024 chains", lambda: vg(x), args.reps))
+    rows.append(row("ode_mala log pi alone, 1024 chains",
+                    lambda: ode.log_density_fn(x), args.reps))
+
+    for name in ("burgers_pcn", "burgers_multitime_pcn"):
+        p = configs.build(name, dev)
+        u = start(p, 2048)
+        rows.append(row(f"{name} scan potential, 2048 chains",
+                        lambda p=p, u=u: p.potential_fn(u), args.reps))
+
+    def step_row(name, kernel, state, reps, **extra):
+        g = torch.Generator(dev).manual_seed(1)
+        return row(name, lambda: kernel(g, state), reps, **extra)
+
+    p = configs.build("darcy_da_pcn", dev)
+    kp = p.kernel_params
+    st = da_pcn.init(start(p, p.n_chains), p.potential_fn, p.surrogate_potential_fn)
+    rows.append(step_row("darcy_da_pcn outer step, 4096 chains",
+                         da_pcn.build_kernel(p.potential_fn, p.surrogate_potential_fn,
+                                             p.prior, kp["beta"], kp["subchain_len"]),
+                         st, args.reps))
+
+    p = configs.build("lingauss_elliptical", dev)
+    st = elliptical.init(start(p, p.n_chains), p.potential_fn)
+    k = elliptical.build_kernel(p.potential_fn, p.prior)
+    _, info = k(torch.Generator(dev).manual_seed(1), st)
+    rows.append(step_row(
+        "lingauss_elliptical step, 2048 chains", k, st, args.reps,
+        mean_evals=float(info.n_evals.float().mean()), max_evals=int(info.n_evals.max())))
+
+    p = configs.build("lingauss_fes", dev)
+    st = ensemble.init(start(p, p.n_chains), p.potential_fn)
+    rows.append(step_row("lingauss_fes step, 2048 walkers",
+                         ensemble.build_kernel(p.potential_fn, p.prior, 6, pcn_beta=0.25),
+                         st, args.reps))
+
+    for name, mala_pt in (("multimodal_pt", False), ("multimodal_pt_mala", True)):
+        p = configs.build(name, dev)
+        betas = tempering.geometric_ladder(8, 0.05)
+        if mala_pt:
+            st = tempering.init_mala(start(p, p.n_chains), p.potential_fn, 8)
+            k = tempering.build_mala_kernel(p.potential_fn, p.prior, betas, step_size=0.25)
+        else:
+            st = tempering.init(start(p, p.n_chains), p.potential_fn, 8)
+            k = tempering.build_kernel(p.potential_fn, p.prior, betas, pcn_step=0.4)
+        rows.append(step_row(f"{name} step, 256 chains x 8 replicas", k, st, args.reps))
+
+    p = configs.build("ode_mala", dev)
+    st = mala.init(start(p, p.n_chains), p.log_density_fn)
+    rows.append(step_row("ode_mala step, 1024 chains",
+                         mala.build_kernel(p.log_density_fn, 0.05), st, args.reps))
+    p = configs.build("ode_hmc", dev)
+    st = hmc.init(start(p, p.n_chains), p.log_density_fn)
+    rows.append(step_row("ode_hmc step (8 leapfrog steps), 512 chains",
+                         hmc.build_kernel(p.log_density_fn, 0.05, 8), st,
+                         max(1, args.reps // 2)))
+    p = configs.build("burgers_pcn", dev)
+    st = pcn.init(start(p, p.n_chains), p.potential_fn)
+    rows.append(step_row("burgers_pcn scan step, 2048 chains",
+                         pcn.build_kernel(p.potential_fn, p.prior, 0.15), st, args.reps))
+
+    write_out(args.out, card, rows, runs)
+    return 0
+
+
+def run_config(spec):
+    """One config through runner.run_problem on the card, optionally cut
+    (``name:field=value,...``); prints and returns its metrics."""
+    import dataclasses
+
+    from ip_mcmc_tpu_torch import configs, runner
+
+    name, _, cuts = spec.partition(":")
+    p = configs.build(name, "cuda")
+    fields = dict(kv.split("=") for kv in cuts.split(",")) if cuts else {}
+    n_samples = int(fields.pop("n_samples", p.n_samples))
+    kp = dict(p.kernel_params)
+    for k in [k for k in fields if k in kp]:
+        kp[k] = int(fields.pop(k))
+    p = dataclasses.replace(p, kernel_params=kp, **{k: int(v) for k, v in fields.items()})
+    m = runner.run_problem(p, "cuda", seed=0, n_samples=n_samples)
+    m["cuts"] = cuts
+    print(f"{name} metrics: " + json.dumps(m), flush=True)
+    return m
+
+
+def write_out(path, card, rows, runs):
+    if path:
+        pathlib.Path(path).write_text(json.dumps(
+            {"card": card, "rows": rows, "runs": runs}, indent=1))
+
+
+if __name__ == "__main__":
+    sys.exit(main())
