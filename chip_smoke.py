@@ -72,12 +72,30 @@ Gaussians), times both, then drives the ported paths at full width:
                              gradient at 1024 chains timed
     multimodal_pt, multimodal_pt_mala   parallel tempering, pCN and MALA
                              mutations
+    darcy_smc                BASELINE config 5: tempered SMC, the mutation
+                             pCN on the single-particle Darcy forward
+    darcy_smc_warm           the same on the batched warm misfit (dense dst,
+                             6 CG), which runs darcy_misfit_warm_kernel; the
+                             kernel first held against its plain version at
+                             that spec, from x0 = 0 and from a previous
+                             solution
+    lingauss_advi, darcy_advi   full-rank and mean-field ADVI (gradients by
+                             autograd, the Darcy one through the implicit
+                             adjoint; darcy_advi's steps cut)
+    darcy_advi_warmstart     a cut ADVI fit, then the scan pCN of
+                             darcy_pcn_4096 from its draws
+    darcy_da_pod, darcy_da_pod_online   scan delayed acceptance on a POD
+                             surrogate (batched Cholesky), the second
+                             enriched during burn-in
 
-The fourteen fused configs and the scan paths run through the port's CLI
-(the slow scan paths with their samples cut, darcy_da_pcn to 50), but for
-the ODE paths, which run through ``runner.run_problem`` with their Adam
-iterations and burn-in cut; the other paths run through the entry points
-(``runner``, ``ops``).
+The fourteen fused configs, the scan, SMC and VI paths run through the
+port's CLI (the slow scan paths with their samples cut, darcy_da_pcn to 25
+and the POD paths to 20), but for the ODE paths, which run through
+``runner.run_problem`` with their Adam iterations and burn-in cut,
+darcy_pcn_4096's scan path and darcy_da_pod, likewise with their warm-up
+or burn-in cut, and darcy_advi and darcy_advi_warmstart, with their ADVI
+steps cut; the other paths run through the entry points (``runner``,
+``ops``).
 Before each path the launch counts are set to 0; after it they must show
 that the path went through its kernels (the scan path: its steps on the
 card) and through no plain version. Every phase raises on failure. Prints
@@ -619,6 +637,31 @@ def check_warm_misfit(problem, gen, results):
             results, other, U2, x0=x1,
             variant=f"{precond}, {iters} CG, x0 = previous solution",
             paths=[], tol=tol, replaces=replaces)
+
+
+def check_smc_warm_misfit(problem, gen, results):
+    """darcy_smc_warm's mutation misfit, dense dst / 6 CG, at 4096 draws:
+    darcy_misfit_warm_kernel (one draw a CTA) against its plain version
+    from x0 = 0, as the first of the run's 8 initial sweeps starts (against
+    the plain version in f64 with the same bf16 roundings), and from the
+    solution of the 8 sweeps after a pCN move, as a mutation step starts."""
+    warm, _ = problem.batched_warm_potential
+    assert (warm.precond, warm.cg_iters) == ("dst", 6), (warm.precond, warm.cg_iters)
+    assert warm.warm_kernel_label == "darcy_misfit_warm_kernel", warm.warm_kernel_label
+    U = problem.prior.sample(gen, N_CHAINS).T.contiguous()
+    step = problem.prior.sample(gen, N_CHAINS).T.contiguous()
+    U2 = (math.sqrt(1 - 0.15 ** 2) * U + 0.15 * step).contiguous()  # a mutation move
+    zeros = torch.zeros(warm.aux_dim, N_CHAINS, device="cuda")
+    replaces = "ip_mcmc_tpu/models/darcy.py:669"
+    what = "dense dst, 6 CG, one draw a CTA"
+    _, x = compare_misfit(results, warm, U, x0=zeros, variant=f"{what}, x0 = 0",
+                          paths=["darcy_smc_warm"], tol=BF16_COLD_START_TOL,
+                          replaces=replaces, f64=True)
+    for _ in range(7):
+        _, x = warm(U, x)
+    compare_misfit(results, warm, U2, x0=x,
+                   variant=f"{what}, x0 = the solution of the 8 initial sweeps",
+                   paths=["darcy_smc_warm"], tol=BF16_TOL, replaces=replaces)
 
 
 class CountingPotential:
@@ -3194,6 +3237,15 @@ PATHS = {
     "ode_hmc": ([], ("scan_hmc_step[cuda]",)),
     "multimodal_pt": ([], ("scan_pt_step[cuda]",)),
     "multimodal_pt_mala": ([], ("scan_pt_mala_step[cuda]",)),
+    # tempered SMC (a count a stage), the warm one's mutation on the warm
+    # misfit's kernel; ADVI (a count a step); the POD surrogates on scan DA
+    "darcy_smc": ([], ("scan_smc_stage[cuda]",)),
+    "darcy_smc_warm": ([], ("darcy_misfit_warm_kernel", "scan_smc_stage[cuda]")),
+    "lingauss_advi": ([], ("vi_step[cuda]",)),
+    "darcy_advi": ([], ("vi_step[cuda]",)),
+    "darcy_advi_warmstart": ([], ("vi_step[cuda]", "scan_pcn_step[cuda]")),
+    "darcy_da_pod": ([], ("scan_da_pcn_step[cuda]",)),
+    "darcy_da_pod_online": ([], ("scan_da_pcn_step[cuda]",)),
 }
 # a path's config where the two differ
 PATH_CONFIG = {"darcy_pcn_4096 scan": "darcy_pcn_4096",
@@ -3202,7 +3254,11 @@ PATH_CONFIG = {"darcy_pcn_4096 scan": "darcy_pcn_4096",
 SCAN_PATHS = ("gauss2d_rwm", "lingauss_pcn", "darcy_pcn_4096 scan", "darcy64_pcn",
               "burgers_pcn scan", "burgers_multitime_pcn scan", "darcy_da_pcn",
               "lingauss_elliptical", "lingauss_fes", "ode_mala", "ode_hmc",
-              "multimodal_pt", "multimodal_pt_mala")
+              "multimodal_pt", "multimodal_pt_mala", "darcy_advi_warmstart",
+              "darcy_da_pod", "darcy_da_pod_online")
+# the SMC and VI paths: their own keys (no chains, samples or R-hat)
+SMC_PATHS = ("darcy_smc", "darcy_smc_warm")
+VI_PATHS = ("lingauss_advi", "darcy_advi")
 # the scan paths of their own runner functions (the others: one dispatch)
 FES_PT_PATHS = ("lingauss_fes", "multimodal_pt", "multimodal_pt_mala")
 # the scan paths whose posterior mean has a closed form (the config's truth)
@@ -3212,12 +3268,26 @@ CONJUGATE = ("lingauss_elliptical", "lingauss_fes")  # lingauss_pcn's posterior
 # PyTorch, a thousand small launches a solve, a gradient 13 thousand): the
 # warm-up or burn-in runs in full, twice, as the runner's protocol has it,
 # unless SCAN_SHORT cuts it too; the ODE paths cut their Adam iterations
-# (map_init) and warm-up, through runner.run_problem. Every cut is printed.
-SCAN_SAMPLES = {"darcy_pcn_4096 scan": 100, "darcy64_pcn": 100, "burgers_pcn scan": 100,
-                "burgers_multitime_pcn scan": 100, "darcy_da_pcn": 50,
-                "lingauss_elliptical": 200, "ode_mala": 20, "ode_hmc": 4}
+# (map_init) and warm-up, darcy_pcn_4096's scan path its warm-up and
+# darcy_da_pod its burn-in, through runner.run_problem. Every cut is printed.
+SCAN_SAMPLES = {"darcy_pcn_4096 scan": 50, "darcy64_pcn": 100, "burgers_pcn scan": 100,
+                "burgers_multitime_pcn scan": 100, "darcy_da_pcn": 25,
+                "lingauss_elliptical": 200, "ode_mala": 20, "ode_hmc": 4,
+                "darcy_advi_warmstart": 50, "darcy_da_pod": 20,
+                "darcy_da_pod_online": 20}
 SCAN_SHORT = {"ode_mala": {"burn_in": 20, "map_init": 20},
-              "ode_hmc": {"burn_in": 4, "map_init": 10}}
+              "ode_hmc": {"burn_in": 4, "map_init": 10},
+              "darcy_pcn_4096 scan": {"burn_in": 200},
+              "darcy_da_pod": {"burn_in": 50}}
+# ADVI steps of the Darcy VI paths (each a forward and an adjoint of the
+# 48-CG solve at 32 samples, thousands of small launches), through
+# runner.run_problem; lingauss_advi runs its 3000 as shipped
+VI_STEPS = {"darcy_advi": 50, "darcy_advi_warmstart": 100}
+# darcy_smc_warm's log evidence within this of darcy_smc's (the same
+# posterior; ten seeds of each on the TPU: standard deviations 0.20 and
+# 0.13, BASELINE.md)
+SMC_EVIDENCE_ATOL = 1.0
+SMC_WARM_SWEEPS = 8  # smc.run_batched's init_sweeps
 # one-draw-a-CTA kernels that a path launched before its spec went to a
 # kernel a draw a warp or a cluster level: the path must not launch them
 RETIRED = {"darcy_ess_fused": ("darcy_misfit_kernel[n=16]",),
@@ -3264,8 +3334,16 @@ def drive_path(config, problem, n_samples):
     flags, kernels = PATHS[config]
     short = SCAN_SHORT.get(config)
     if short:
-        kp = {**problem.kernel_params, "map_init": short["map_init"]}
+        kp = {**problem.kernel_params, **{k: v for k, v in short.items() if k != "burn_in"}}
         cut = dataclasses.replace(problem, burn_in=short["burn_in"], kernel_params=kp)
+        run = lambda: runner.run_problem(cut, "cuda", seed=0, n_samples=n_samples)  # noqa: E731
+    elif config in VI_STEPS:
+        kp = dict(problem.kernel_params)
+        if "vi_init" in kp:
+            kp["vi_init"] = {**kp["vi_init"], "num_steps": VI_STEPS[config]}
+        else:
+            kp["num_steps"] = VI_STEPS[config]
+        cut = dataclasses.replace(problem, kernel_params=kp)
         run = lambda: runner.run_problem(cut, "cuda", seed=0, n_samples=n_samples)  # noqa: E731
     else:
         run = lambda: run_cli(config_of(config), flags, n_samples)  # noqa: E731
@@ -3275,9 +3353,39 @@ def drive_path(config, problem, n_samples):
     return counts, metrics
 
 
+def check_smc_vi_metrics(config, problem, metrics):
+    """The checks of an SMC or VI run: the JAX runner's keys of that path;
+    SMC reaches beta = 1 with a mutation acceptance in (0, 1] and a finite
+    evidence; lingauss_advi's moments within 0.02 of the closed form."""
+    assert all(math.isfinite(v) for v in metrics["posterior_mean"])
+    assert len(metrics["posterior_mean"]) == problem.dim
+    if config in SMC_PATHS:
+        warm = config == "darcy_smc_warm"
+        assert metrics["kernel"] == ("smc(batched+warm)" if warm else "smc")
+        assert metrics["n_particles"] == problem.n_chains
+        assert metrics["final_beta"] == 1.0, metrics["final_beta"]
+        assert 0.0 < metrics["mean_mutation_accept"] <= 1.0
+        assert 1 <= metrics["n_stages"] <= problem.kernel_params["max_stages"]
+        assert math.isfinite(metrics["log_evidence"]) and math.isfinite(
+            metrics["log_evidence_ti"])
+        assert metrics["particles_per_s"] > 0.0
+        return
+    full_rank = problem.kernel_params["full_rank"]
+    assert metrics["kernel"] == ("vi(full_rank)" if full_rank else "vi(mean_field)")
+    assert metrics["num_steps"] == VI_STEPS.get(config, problem.kernel_params["num_steps"])
+    assert math.isfinite(metrics["final_elbo"]) and metrics["elbo_steps_per_s"] > 0.0
+    assert ("cov_error_vs_exact" in metrics) == full_rank
+    if config == "lingauss_advi":
+        assert metrics["mean_error_vs_exact"] < 0.02, metrics["mean_error_vs_exact"]
+        assert metrics["cov_error_vs_exact"] < 0.02, metrics["cov_error_vs_exact"]
+
+
 def check_metrics(config, problem, n_samples, counts, metrics):
     """The checks of a path's run: no retired kernel launched, the JAX
     runner's keys of that path, rates in (0, 1], finite statistics."""
+    if config in SMC_PATHS + VI_PATHS:
+        check_smc_vi_metrics(config, problem, metrics)
+        return
     flags = PATHS[config][0]
     short = SCAN_SHORT.get(config)
     for k in RETIRED.get(config, ()):
@@ -3329,11 +3437,43 @@ def check_metrics(config, problem, n_samples, counts, metrics):
         assert metrics["program_count"] == 1 and metrics["sampling_steps_per_s"] > 0.0
         assert ("mean_error_vs_exact" in metrics) == (problem.exact_mean is not None)
     if short:
-        assert metrics["map_init_iters"] == short["map_init"]
-        assert metrics["warm_steps"] == short["burn_in"]
+        assert metrics.get("map_init_iters") == short.get("map_init")
+        adapt = problem.kernel_params.get("adapt")
+        assert metrics["warm_steps" if adapt else "burn_steps"] == short["burn_in"]
     if config in CLOSED_FORM + CONJUGATE:
         err = max(abs(a - b) for a, b in zip(metrics["posterior_mean"], problem.truth))
         assert err < 0.1, f"{config}: posterior mean off the closed form by {err}"
+    if config == "darcy_advi_warmstart":
+        assert metrics["init_potential_vi"] < 0.2 * metrics["init_potential_prior"], (
+            metrics["init_potential_vi"], metrics["init_potential_prior"])
+        assert metrics["vi_fit_s"] > 0.0
+    if config == "darcy_da_pod_online":
+        spec = problem.kernel_params["pod_enrich"]
+        assert len(metrics["pod_enrich_indicator_max"]) == spec["epochs"]
+        assert all(math.isfinite(v) for v in metrics["pod_enrich_indicator_mean"])
+        assert metrics["burn_steps"] == max(
+            problem.burn_in - spec["epochs"] * spec["segment_steps"], 0)
+
+
+def check_smc_evidence(runs, counts, problem):
+    """darcy_smc_warm against darcy_smc: log evidence within
+    SMC_EVIDENCE_ATOL, and the warm misfit's kernel launched 8 + 5 a stage
+    in each of the runner's two runs."""
+    cold, warm = runs["darcy_smc"], runs["darcy_smc_warm"]
+    gap = abs(warm["log_evidence"] - cold["log_evidence"])
+    out = {"log_evidence": cold["log_evidence"], "log_evidence_warm": warm["log_evidence"],
+           "gap": gap, "n_stages": cold["n_stages"], "n_stages_warm": warm["n_stages"]}
+    print("darcy_smc against darcy_smc_warm: " + json.dumps(out), flush=True)
+    if gap >= SMC_EVIDENCE_ATOL:
+        raise AssertionError(f"darcy_smc_warm's log evidence is {gap} from darcy_smc's")
+    steps = problem.kernel_params["mutation_steps"]
+    want = 2 * (SMC_WARM_SWEEPS + steps * warm["n_stages"])
+    got = counts["darcy_smc_warm"].get("darcy_misfit_warm_kernel", 0)
+    if got != want:
+        raise AssertionError(f"darcy_smc_warm launched darcy_misfit_warm_kernel {got} "
+                             f"times, not 2 x ({SMC_WARM_SWEEPS} + {steps} x "
+                             f"{warm['n_stages']})")
+    return out
 
 
 def main() -> int:
@@ -3363,6 +3503,7 @@ def main() -> int:
                   for v in configs.RICHARDSON_VARIANTS}
     check_richardson(richardson, gen, results)
     check_warm_misfit(problems["darcy_pcn_warm"], gen, results)
+    check_smc_warm_misfit(problems["darcy_smc_warm"], gen, results)
     check_single_level(problems, gen, results)
     check_large_grids(problems, gen, results)
     check_da64(problems["darcy64_da_fused"], gen, results)
@@ -3400,6 +3541,7 @@ def main() -> int:
     richardson_counts, richardson_da = run_richardson_da(richardson)
     counts.update(richardson_counts)
 
+    new_paths = {}  # the SMC, VI and POD paths' metrics, for the result line
     # the fourteen fused CLI paths, as shipped unless their predicted time
     # exceeds the budget: then every path's n_samples is cut by the same
     # factor; the scan paths as shipped but for SCAN_SAMPLES and SCAN_SHORT
@@ -3430,7 +3572,9 @@ def main() -> int:
           flush=True)
     for config, problem in problems.items():
         n_samples = problem.n_samples
-        if config not in SCAN_PATHS:
+        if config in SMC_PATHS + VI_PATHS:
+            pass  # no samples: particles or ADVI steps
+        elif config not in SCAN_PATHS:
             n_samples = max(8, int(problem.n_samples * cut))
         else:
             n_samples = SCAN_SAMPLES.get(config, n_samples)
@@ -3443,9 +3587,18 @@ def main() -> int:
                        else problem.kernel_params[field])
             print(f"{config}: {field} cut from {shipped} to {value} to fit the time "
                   "limit (width unchanged)", flush=True)
+        if config in VI_STEPS:
+            kp = problem.kernel_params
+            shipped = kp["vi_init"]["num_steps"] if "vi_init" in kp else kp["num_steps"]
+            print(f"{config}: ADVI num_steps cut from {shipped} to {VI_STEPS[config]} to "
+                  "fit the time limit (Monte Carlo batch unchanged)", flush=True)
         counts[config], metrics = drive_path(config, problem, n_samples)
         if config == "darcy64_da_fused":
             darcy64_da = report_da64(problem, metrics)
+        if config in SMC_PATHS + VI_PATHS + ("darcy_advi_warmstart", "darcy_da_pod",
+                                             "darcy_da_pod_online"):
+            new_paths[config] = {k: v for k, v in metrics.items() if k != "posterior_mean"}
+    smc = check_smc_evidence(new_paths, counts, problems["darcy_smc_warm"])
 
     # launches of each variant: those of the runs that use it (0 for an
     # option that no shipped config uses)
@@ -3456,7 +3609,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": results, "card": card, "compare_paths": compare_paths,
                       "richardson_da": richardson_da, "darcy64_da": darcy64_da,
-                      "ode_gradient": ode_gradient, "ptxas": ptxas}))
+                      "ode_gradient": ode_gradient, "smc_evidence": smc,
+                      "smc_vi_pod_runs": new_paths, "ptxas": ptxas}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,7 +9,8 @@ hand-written CUDA kernels (``csrc/``). Every kernel has a plain PyTorch version 
 wrappers take the plain version only for tensors on the CPU. The scan path
 (``kernels/``, ``driver.py``, ``adapt/``: RWM, pCN, delayed acceptance,
 elliptical slice sampling, the ensemble sampler, MALA, HMC, parallel
-tempering) is plain PyTorch over the chains.
+tempering), tempered SMC (``smc.py``) and ADVI (``vi.py``) are plain
+PyTorch over the chains.
 
 Importing the package builds nothing: the CUDA sources are compiled at
 the first kernel launch (``ops/_build.py``).

@@ -16,14 +16,20 @@ Gaussian) and ``lingauss_pcn`` (pCN on a linear-Gaussian inverse problem),
 with ``lingauss_elliptical`` and ``lingauss_fes`` on the same problem;
 BASELINE config 3a ``ode_mala`` and ``ode_hmc`` (Lotka–Volterra log-rates,
 RK4); ``multimodal_pt`` and ``multimodal_pt_mala`` (parallel tempering on a
-bimodal target). ``NOT_PORTED`` names the JAX configs still to come. The
+bimodal target); BASELINE config 5 ``darcy_smc`` (tempered SMC on the
+single-particle forward) and ``darcy_smc_warm`` (its batched mutation on the
+warm dense-``dst`` misfit); ADVI: ``lingauss_advi``, ``darcy_advi`` and the
+VI warm start ``darcy_advi_warmstart``; delayed acceptance on POD
+surrogates, ``darcy_da_pod`` and ``darcy_da_pod_online`` (enriched during
+burn-in). ``NOT_PORTED`` names the JAX configs still to come. The
 deterministic constants (KL bases, means, observation cells, sources, time
 steps, preconditioner factors, the numpy-drawn forward matrix) are computed
 here in numpy; the arrays the JAX configs draw with JAX keys (the data, the
-truths, the surrogates' calibrations) are read from the committed fixtures
-``darcy16_da.npz``, ``darcy16_richardson.npz``, ``darcy32.npz``,
-``darcy64.npz``, ``darcy64_da.npz``, ``burgers128.npz``,
-``lingauss32.npz`` and ``lv.npz`` (written by
+truths, the surrogates' calibrations, the POD snapshots' prior draws) are
+read from the committed fixtures ``darcy16_da.npz``,
+``darcy16_richardson.npz``, ``darcy32.npz``, ``darcy64.npz``,
+``darcy64_da.npz``, ``burgers128.npz``, ``lingauss32.npz``, ``lv.npz`` and
+``darcy16_pod.npz`` (written by
 ``scripts/freeze_torch_fixtures.py``).
 """
 
@@ -56,6 +62,7 @@ DARCY64_DA_FIXTURE = _HERE / "darcy64_da.npz"
 BURGERS_FIXTURE = _HERE / "burgers128.npz"
 LINGAUSS_FIXTURE = _HERE / "lingauss32.npz"
 LV_FIXTURE = _HERE / "lv.npz"
+POD_FIXTURE = _HERE / "darcy16_pod.npz"
 
 
 @dataclasses.dataclass
@@ -63,7 +70,7 @@ class Problem:
     name: str
     dim: int
     prior: dist.DiagGaussian
-    kernel: str  # rwm | pcn | elliptical | da_pcn | fes | mala | hmc | pt
+    kernel: str  # rwm | pcn | elliptical | da_pcn | fes | mala | hmc | pt | smc | vi
     kernel_params: dict
     n_chains: int
     n_samples: int
@@ -85,6 +92,11 @@ class Problem:
     # fused warm pCN: (module (U, x0) -> (Φ, x), aux_dim); fused warm MALA:
     # (module (U, aux0) -> (Φ, ∇Φ, aux), aux_dim)
     batched_warm_potential: Optional[tuple] = None
+    # (generator, n) -> (n, d) chain starts in place of prior draws (the VI
+    # and POD-enrichment warm starts install one)
+    init_positions_fn: Optional[Callable] = None
+    # online POD enrichment: positions (n, d) -> (new surrogate, stats)
+    surrogate_enrich_fn: Optional[Callable] = None
 
     @property
     def log_density_fn(self):
@@ -93,8 +105,11 @@ class Problem:
     def init_positions(self, generator: torch.Generator, n=None):
         """(n, d) prior draws from ``generator`` (host-side, so a seed gives
         the same start on every device; they differ from the JAX package's
-        threefry draws by construction)."""
-        return self.prior.sample(generator, n or self.n_chains)
+        threefry draws by construction), or ``init_positions_fn``'s."""
+        n = n or self.n_chains
+        if self.init_positions_fn is not None:
+            return self.init_positions_fn(generator, n)
+        return self.prior.sample(generator, n)
 
 
 REGISTRY: dict = {}
@@ -105,14 +120,6 @@ REGISTRY: dict = {}
 NOT_PORTED = {
     "ode_nuts": ("nuts", "the NUTS kernel (kernels/nuts.py) and warmup_nuts"),
     "ode_chees": ("chees", "the ChEES-HMC kernel (kernels/chees_hmc.py) and its runner path"),
-    "darcy_smc": ("smc", "the SMC sampler (smc.py)"),
-    "darcy_smc_warm": ("smc", "the SMC sampler (smc.py)"),
-    "lingauss_advi": ("vi", "variational inference (vi.py)"),
-    "darcy_advi": ("vi", "variational inference (vi.py)"),
-    "darcy_advi_warmstart": ("vi_init", "a variational warm start (vi.py)"),
-    "darcy_da_pod": ("pod_surrogate",
-                     "the POD surrogate (models/darcy.py make_pod_surrogate)"),
-    "darcy_da_pod_online": ("pod_enrich", "the online POD surrogate and pod_enrich"),
     "darcy_composed_pcn": ("pcn_composed",
                            "the composed chains x model mesh (parallel/composed.py)"),
     "darcy_composed_mala": ("mala_composed",
@@ -350,6 +357,10 @@ def multimodal_pt_mala(device) -> Problem:
 # --- the Darcy coefficient inversion ------------------------------------------
 
 
+# the 16×16 Darcy problem's forward (``_darcy_problem``'s geometry)
+DARCY16 = dict(n_grid=16, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+
+
 def _darcy_potential(device, y, **forward):
     """The scan path's Φ of a Darcy config: ``misfit_potential`` of the
     single-particle forward (``models.darcy.make_darcy_forward`` with
@@ -395,8 +406,7 @@ def darcy_pcn_4096(device) -> Problem:
         data=y,
         truth=u_true,
         notes="elliptic PDE inversion; whitened KL coordinates",
-        potential_fn=_darcy_potential(device, y, n_grid=16, n_modes_per_dim=8, alpha=2.0,
-                                      field_scale=10.0),
+        potential_fn=_darcy_potential(device, y, **DARCY16),
         batched_potential_fn=phi_batched,
     )
 
@@ -408,7 +418,6 @@ def darcy_da_pcn(device) -> Problem:
     iterations against the exact 48), one exact correction per outer
     step."""
     prior, _, y, u_true, phi_batched = _darcy_problem(device)
-    darcy16 = dict(n_grid=16, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
     return Problem(
         name="darcy_da_pcn",
         dim=64,
@@ -421,9 +430,9 @@ def darcy_da_pcn(device) -> Problem:
         data=y,
         truth=u_true,
         notes="two-level: loose-CG surrogate subchain + exact correction",
-        potential_fn=_darcy_potential(device, y, **darcy16),
+        potential_fn=_darcy_potential(device, y, **DARCY16),
         batched_potential_fn=phi_batched,
-        surrogate_potential_fn=_darcy_potential(device, y, cg_iters=8, **darcy16),
+        surrogate_potential_fn=_darcy_potential(device, y, cg_iters=8, **DARCY16),
     )
 
 
@@ -944,3 +953,169 @@ def burgers_da3_pcn(device) -> Problem:
             aux, fx, 64).to(device),
         batched_mid_fn=_burgers_calibrated_surrogate(aux, fx, 128).to(device),
     )
+
+
+# --- tempered SMC, ADVI and the POD surrogates ----------------------------------
+
+
+@register
+def darcy_smc(device) -> Problem:
+    """BASELINE config 5: adaptive tempered SMC on the Darcy inverse
+    problem, the mutation pCN on the single-particle forward (Jacobi, 48
+    CG)."""
+    prior, _, y, u_true, _ = _darcy_problem(device)
+    return Problem(
+        name="darcy_smc",
+        dim=64,
+        prior=prior,
+        kernel="smc",
+        kernel_params={"ess_target": 0.5, "mutation_steps": 5, "pcn_step": 0.15,
+                       "max_stages": 60},
+        n_chains=4096,  # particles
+        n_samples=0,
+        burn_in=0,
+        data=y,
+        truth=u_true,
+        notes="adaptive beta ladder; systematic resampling",
+        potential_fn=_darcy_potential(device, y, **DARCY16),
+    )
+
+
+@register
+def darcy_smc_warm(device) -> Problem:
+    """Config 5 on the batched mutation (``smc.run_batched``): each particle
+    carries its converged solve through the mutation steps and the
+    resampling, so an evaluation is 6 dense-``dst`` CG iterations from it
+    (``DarcyMisfitWarm``) instead of the cold 48."""
+    prior, aux, y, u_true, phi_batched = _darcy_problem(device)
+    warm, aux_dim = darcy_warm_misfit_from_arrays(aux, y, 0.002, cg_iters=6,
+                                                  precond="dst")
+    return Problem(
+        name="darcy_smc_warm",
+        dim=64,
+        prior=prior,
+        kernel="smc",
+        kernel_params={"batched": True, "warm": True, "ess_target": 0.5,
+                       "mutation_steps": 5, "pcn_step": 0.15, "max_stages": 60},
+        n_chains=4096,
+        n_samples=0,
+        burn_in=0,
+        data=y,
+        truth=u_true,
+        notes="same posterior/algorithm as darcy_smc; warm batched mutation",
+        potential_fn=_darcy_potential(device, y, **DARCY16),
+        batched_potential_fn=phi_batched,
+        batched_warm_potential=(warm.to(device), aux_dim),
+    )
+
+
+@register
+def lingauss_advi(device) -> Problem:
+    """Full-rank ADVI on the config-2 linear-Gaussian problem: the posterior
+    is Gaussian and conjugate, so the family is exact at the optimum and the
+    runner reports the fitted moments' errors against the closed form."""
+    p = lingauss_pcn(device)
+    p.name = "lingauss_advi"
+    p.kernel = "vi"
+    _, lam, y, sigma = lingauss_arrays()
+    # the JAX config's exact covariance: A drawn again in f64
+    A = np.random.default_rng(42).standard_normal((16, 32)) / np.sqrt(32)
+    _, exact_cov = linear.conjugate_posterior(A, np.zeros(32), np.asarray(lam),
+                                              sigma**2 * np.ones(16), y)
+    p.kernel_params = {"full_rank": True, "num_steps": 3000, "n_mc_samples": 64,
+                       "learning_rate": 3e-2, "exact_cov": exact_cov}
+    p.notes = "full-rank family exact for this conjugate posterior"
+    return p
+
+
+@register
+def darcy_advi(device) -> Problem:
+    """Mean-field ADVI on the Darcy inverse problem, the ELBO's gradient
+    through the single-particle forward's implicit adjoint."""
+    prior, _, y, u_true, _ = _darcy_problem(device)
+    return Problem(
+        name="darcy_advi",
+        dim=64,
+        prior=prior,
+        kernel="vi",
+        kernel_params={"full_rank": False, "num_steps": 1500, "n_mc_samples": 32,
+                       "learning_rate": 5e-2},
+        n_chains=0,
+        n_samples=0,
+        burn_in=0,
+        data=y,
+        truth=u_true,
+        notes="mean-field ADVI; ELBO maximized through the PDE solve",
+        potential_fn=_darcy_potential(device, y, **DARCY16),
+    )
+
+
+@register
+def darcy_advi_warmstart(device) -> Problem:
+    """VI → MCMC warm start: a short mean-field ADVI fit places the pCN
+    chains of ``darcy_pcn_4096`` at the variational posterior instead of the
+    prior (burn-in 100 instead of 500); the runner reports the fit's time and
+    the start positions' mean misfit beside prior draws'. The scan path, or
+    the fused kernel with ``--fused``."""
+    p = darcy_pcn_4096(device)
+    p.name = "darcy_advi_warmstart"
+    p.burn_in = 100
+    p.kernel_params = {"beta": 0.08, "adapt": True,
+                       "vi_init": {"full_rank": False, "num_steps": 800,
+                                   "n_mc_samples": 32, "learning_rate": 5e-2}}
+    p.notes = "chains start at the ADVI variational posterior"
+    return p
+
+
+def _darcy_pod_problem(device, name, surrogate, kernel_params, notes, **extra):
+    prior, _, y, u_true, phi_batched = _darcy_problem(device)
+    return Problem(
+        name=name,
+        dim=64,
+        prior=prior,
+        kernel="da_pcn",
+        kernel_params=kernel_params,
+        n_chains=4096,
+        n_samples=250,
+        burn_in=150,
+        data=y,
+        truth=u_true,
+        notes=notes,
+        potential_fn=_darcy_potential(device, y, **DARCY16),
+        batched_potential_fn=phi_batched,
+        surrogate_potential_fn=surrogate,
+        **extra,
+    )
+
+
+@register
+def darcy_da_pod(device) -> Problem:
+    """Delayed-acceptance pCN with a POD reduced-order surrogate: rank-20
+    Galerkin projection from 64 offline prior solves; the subchain runs on
+    the 20 × 20 reduced system, one full solve per ``subchain_len``
+    proposals corrects exactly."""
+    _, aux = darcy.make_darcy_forward(device=device, **DARCY16)
+    phi_pod = darcy.make_pod_surrogate(aux, np.load(FIXTURE)["y"], 0.002,
+                                       np.load(POD_FIXTURE)["draws"], rank=20)
+    return _darcy_pod_problem(device, "darcy_da_pod", phi_pod,
+                              {"beta": 0.08, "subchain_len": 4},
+                              "reduced-order subchain + exact correction")
+
+
+@register
+def darcy_da_pod_online(device) -> Problem:
+    """``darcy_da_pod`` with online POD enrichment: 24 prior snapshots and
+    an automatic rank, then between burn-in segments full solves at the
+    chain positions with the worst reduced residual and a rebuilt basis; the
+    surrogate is frozen before any recorded sample (the runner's
+    ``_pod_enrich_burnin``), so the DA posterior stays exact."""
+    _, aux = darcy.make_darcy_forward(device=device, **DARCY16)
+    phi_pod, enrich = darcy.make_pod_surrogate_online(
+        aux, np.load(FIXTURE)["y"], 0.002, np.load(POD_FIXTURE)["draws_online"],
+        rank="auto", enrich_batch=8)
+    return _darcy_pod_problem(
+        device, "darcy_da_pod_online", phi_pod,
+        {"beta": 0.08, "subchain_len": 4,
+         "pod_enrich": {"epochs": 3, "segment_steps": 40}},
+        "online-enriched reduced-order subchain + exact correction",
+        surrogate_enrich_fn=enrich)

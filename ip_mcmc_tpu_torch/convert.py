@@ -22,12 +22,20 @@ per-observation noise scale — and returns the port's ``BurgersMisfit``.
 ``linear_gaussian_from_arrays`` takes A (m, d), y (m,), a scalar or
 per-row σ and an optional center c (d,) and returns the
 ``LinearGaussianPotential`` ½‖(y − A(U − c))/σ‖².
+
+``vi_params_from_arrays`` takes fitted variational parameters of
+``ip_mcmc_tpu.vi`` (an object with ``mu`` and ``log_sigma`` — mean-field —
+or ``mu`` and ``chol_flat`` — full-rank — as arrays) and returns the port's
+``vi.MeanFieldParams`` or ``vi.FullRankParams``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
+from ip_mcmc_tpu_torch import vi
 from ip_mcmc_tpu_torch.models.burgers import BurgersMisfit
 from ip_mcmc_tpu_torch.models.linear import LinearGaussianPotential
 from ip_mcmc_tpu_torch.models.darcy import (
@@ -104,3 +112,12 @@ def linear_gaussian_from_arrays(A, data, noise_scale,
         np.asarray(noise_scale, np.float32),
         None if center is None else np.asarray(center, np.float32),
     )
+
+
+def vi_params_from_arrays(params, device="cpu"):
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    if hasattr(params, "log_sigma"):
+        return vi.MeanFieldParams(mu=t(params.mu), log_sigma=t(params.log_sigma))
+    return vi.FullRankParams(mu=t(params.mu), chol_flat=t(params.chol_flat))

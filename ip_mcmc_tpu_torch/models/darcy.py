@@ -19,6 +19,10 @@ with the dense ``dst`` preconditioner as a third choice.
 ``DarcyMisfitMalaWarm`` is ``make_batched_misfit_mala_warm``: (U, aux0) →
 (Φ, ∇Φ, aux), aux stacking the forward and the adjoint solution, both
 solves started from aux0.
+``choose_pod_rank``, ``make_pod_surrogate`` and
+``make_pod_surrogate_online`` are the POD reduced-order surrogates of the
+scan delayed-acceptance path (plain PyTorch and a batched Cholesky; no TPU
+kernel runs them).
 
 For CUDA tensors the modules launch ``darcy_misfit_kernel``
 (``csrc/fused_da_pcn.cu``), ``darcy_misfit_warm_kernel``
@@ -65,6 +69,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ip_mcmc_tpu_torch._device import resolve_device
+from ip_mcmc_tpu_torch.kernels.base import normals
 from ip_mcmc_tpu_torch.models import kl
 from ip_mcmc_tpu_torch.ops import _build, _cluster, fused_da_pcn, fused_mala, fused_pcn
 
@@ -900,3 +905,157 @@ def solve_pressure(u, aux, log_a_mean: float = 0.0):
     n = aux["n_grid"]
     a = torch.exp(log_a_mean + u @ aux["scaled_basis"]).reshape(*u.shape[:-1], n, n)
     return _dense_solve(a, aux).reshape(*u.shape[:-1], n, n)
+
+
+# --- the POD reduced-order surrogates (make_pod_surrogate{,_online}) ----------
+#
+# Offline, full solves at prior draws (120 dst-preconditioned CG iterations)
+# and the rank-r POD basis V of the pressure snapshots; online, the chain's
+# operator projected onto V, (Vᵀ A(a) V) c = Vᵀ f solved by a batched r × r
+# Cholesky (a library call, as in the JAX package: no TPU kernel runs it).
+# Delayed acceptance removes any surrogate error.
+
+
+def choose_pod_rank(singular_values, energy_tol: float = 1e-6, min_rank: int = 2,
+                    max_rank=None):
+    """The smallest r whose discarded squared-singular-value mass is below
+    ``energy_tol`` of the total, at least ``min_rank``, at most ``max_rank``
+    and the number of values (numpy, offline)."""
+    s2 = np.square(np.asarray(singular_values, np.float64))
+    if s2.size == 0 or s2.sum() <= 0:
+        raise ValueError("singular values must be a nonempty positive set")
+    tail = 1.0 - np.cumsum(s2) / s2.sum()
+    r = int(np.searchsorted(-tail, -energy_tol) + 1)
+    r = max(r, int(min_rank))
+    if max_rank is not None:
+        r = min(r, int(max_rank))
+    return min(r, int(s2.size))
+
+
+class _Pod:
+    """The constants of a POD surrogate on ``aux`` (``make_darcy_forward``'s:
+    tensors on one device) and the snapshot-to-basis step."""
+
+    def __init__(self, aux, data, noise_scale, log_a_mean, energy_tol):
+        self.basis, self.n = aux["scaled_basis"], int(aux["n_grid"])
+        self.f, self.obs = aux["source"], aux["obs_indices"]
+        dev = self.basis.device
+        self.data = torch.tensor(np.asarray(data, np.float32), device=dev)
+        self.noise = torch.tensor(np.asarray(noise_scale, np.float32), device=dev)
+        self.log_a_mean, self.energy_tol = log_a_mean, energy_tol
+
+    def field(self, u):
+        """(..., K) -> a (..., n, n)."""
+        return torch.exp(self.log_a_mean + u @ self.basis).reshape(
+            *u.shape[:-1], self.n, self.n)
+
+    def full_solve(self, u):
+        """Snapshots (S, n²) of coefficients (S, K)."""
+        return solve_cg(self.field(u), self.f, self.n, n_iters=120, precond="dst")
+
+    def pod(self, snapshots, rank):
+        """(V (n², r) orthonormal columns, singular values, r)."""
+        _, s, vt = torch.linalg.svd(snapshots, full_matrices=False)
+        r = (choose_pod_rank(s.cpu().numpy(), self.energy_tol, max_rank=snapshots.shape[0])
+             if rank == "auto" else int(rank))
+        return vt[:r].T.contiguous(), s, r
+
+    def reduced(self, V, u):
+        """(A(a) V (..., n², r), the reduced solution c (..., r)). The
+        Galerkin matrix is symmetrised, as ``jnp.linalg.cholesky`` does with
+        its input; a factorisation that fails gives NaN, as in JAX."""
+        n, r = self.n, V.shape[1]
+        a = self.field(u)[..., None, :, :]
+        AV = apply_operator(a, V.T.reshape(r, n, n), n).reshape(
+            *u.shape[:-1], r, n * n).transpose(-1, -2)
+        Ar = V.T @ AV
+        L, info = torch.linalg.cholesky_ex(0.5 * (Ar + Ar.transpose(-1, -2)))
+        L = torch.where((info == 0)[..., None, None], L, torch.full_like(L, torch.nan))
+        rhs = (V.T @ self.f).expand(*u.shape[:-1], r)[..., None]
+        return AV, torch.cholesky_solve(rhs, L)[..., 0]
+
+    def misfit(self, V):
+        """Φ_r: (..., K) -> (...,), ½‖(y − V_obs c)/σ‖²."""
+        obs_V = V[self.obs]
+
+        def phi_r(u):
+            _, c = self.reduced(V, u)
+            res = (self.data - c @ obs_V.T) / self.noise
+            return 0.5 * torch.sum(res * res, dim=-1)
+
+        return phi_r
+
+    def indicator(self, V, u):
+        """‖A(a) V c − f‖ / ‖f‖ of the reduced solution: the reduced-basis
+        a-posteriori indicator, no full solve."""
+        AV, c = self.reduced(V, u)
+        r = (AV @ c[..., None])[..., 0] - self.f
+        return torch.linalg.vector_norm(r, dim=-1) / torch.linalg.vector_norm(self.f)
+
+
+def make_pod_surrogate(aux, data, noise_scale, draws, rank=20, log_a_mean: float = 0.0,
+                       energy_tol: float = 1e-6, greedy_rounds: int = 0,
+                       n_candidates: int = 128, greedy_batch: int = 8, generator=None,
+                       prior_scale=None, return_info: bool = False):
+    """Data-driven reduced-order misfit (Cui–Marzouk–Willcox 1403.4290):
+    snapshots by full solves at the prior draws ``draws`` (S, K), the rank-r
+    POD basis (``rank="auto"``: ``choose_pod_rank(energy_tol)``), and Φ_r of
+    the Galerkin-projected operator. ``greedy_rounds > 0`` enriches the
+    snapshots by the weak-greedy recipe: each round scores ``n_candidates``
+    prior draws from ``generator`` (times ``prior_scale``) by the reduced
+    residual and full-solves the ``greedy_batch`` worst. ``aux``:
+    ``make_darcy_forward``'s. Returns Φ_r: (..., K) -> (...,), or (Φ_r,
+    info) with ``return_info`` (rank, snapshot count, singular values, the
+    rounds' max / mean indicators)."""
+    pod = _Pod(aux, data, noise_scale, log_a_mean, energy_tol)
+    dev = pod.basis.device
+    snapshots = pod.full_solve(torch.as_tensor(draws, dtype=torch.float32).to(dev))
+    scale = (torch.ones(pod.basis.shape[0], device=dev) if prior_scale is None
+             else torch.as_tensor(prior_scale, dtype=torch.float32).to(dev))
+    history = []
+    for _ in range(int(greedy_rounds)):
+        V, _, _ = pod.pod(snapshots, rank)
+        cands = scale * normals(generator, (n_candidates, pod.basis.shape[0]), dev)
+        res = pod.indicator(V, cands)
+        history.append({"max": float(res.max()), "mean": float(res.mean())})
+        worst = torch.argsort(res)[-int(greedy_batch):]
+        snapshots = torch.cat([snapshots, pod.full_solve(cands[worst])], dim=0)
+    V, s, r = pod.pod(snapshots, rank)
+    phi_r = pod.misfit(V)
+    if return_info:
+        return phi_r, {"rank": int(r), "n_snapshots": int(snapshots.shape[0]),
+                       "singular_values": s.cpu().numpy(), "residual_history": history}
+    return phi_r
+
+
+def make_pod_surrogate_online(aux, data, noise_scale, draws, rank="auto",
+                              log_a_mean: float = 0.0, energy_tol: float = 1e-6,
+                              enrich_batch: int = 8):
+    """A POD surrogate that chain positions can enrich: returns (Φ_r,
+    enrich), ``enrich(positions (n, K)) -> (Φ_r', stats)`` scoring the
+    positions by the reduced residual, full-solving the ``enrich_batch``
+    worst, appending them to the snapshots and rebuilding the basis.
+    ``stats``: the indicator's max and mean over the positions before the
+    enrichment, and the snapshot count. The runner freezes the surrogate
+    before any recorded sample, so delayed acceptance keeps the posterior
+    exact."""
+    pod = _Pod(aux, data, noise_scale, log_a_mean, energy_tol)
+    state = {"snapshots": pod.full_solve(
+        torch.as_tensor(draws, dtype=torch.float32).to(pod.basis.device))}
+
+    def build():
+        V, _, _ = pod.pod(state["snapshots"], rank)
+        state["V"] = V
+        return pod.misfit(V)
+
+    def enrich(positions):
+        positions = torch.as_tensor(positions).to(pod.basis.device)
+        res = pod.indicator(state["V"], positions)
+        stats = {"indicator_max": float(res.max()), "indicator_mean": float(res.mean()),
+                 "n_snapshots": int(state["snapshots"].shape[0])}
+        worst = torch.argsort(res)[-int(enrich_batch):]
+        state["snapshots"] = torch.cat(
+            [state["snapshots"], pod.full_solve(positions[worst])], dim=0)
+        return build(), stats
+
+    return build(), enrich

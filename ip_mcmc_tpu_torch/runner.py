@@ -4,10 +4,11 @@
 ``mala`` (cold and warm) and ``rwm`` branches; the scan path's
 ``_setup_kernel_state`` (``rwm``, ``pcn``, ``da_pcn``, ``elliptical``,
 ``mala``, ``hmc``, with ``map_init``) and ``_run_one_dispatch``; ``_run_fes``,
-``_run_pt`` and ``_pt_pair_metrics``; ``_resolve_n_low_modes``,
-``_finalize``). Returns the JAX runner's JSON-able metrics dict, key for
-key. NUTS, ChEES, SMC, VI, the composed samplers and POD enrichment are not
-ported: the runner refuses them (``NotImplementedError``).
+``_run_pt`` and ``_pt_pair_metrics``; ``_run_smc``, ``_run_vi``, ``_vi_warm_start`` and
+``_pod_enrich_burnin``; ``_resolve_n_low_modes``, ``_finalize``). Returns
+the JAX runner's JSON-able metrics dict, key for key. NUTS, ChEES and the
+composed samplers are not ported: the runner refuses them
+(``NotImplementedError``).
 
 Fused timing protocol (as the JAX runner's): the burn launch uses seed 1
 and is timed as ``warmup_s`` (on the card it also pays the kernels' build
@@ -16,17 +17,19 @@ call builds and runs, the identical second call is timed as ``run_s``, and
 the difference is ``compile_s``. ``first_dispatch_s`` is the time of the
 first device synchronisation. The scan path's protocol is
 ``_run_one_dispatch``'s; ``_run_fes`` and ``_run_pt`` run their sampling
-twice and time the second run.
+twice and time the second run, as ``_run_smc`` runs the sampler; ``_run_vi``
+times its one fit.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from ip_mcmc_tpu_torch import configs, diagnostics, driver, ops
+from ip_mcmc_tpu_torch import configs, diagnostics, driver, ops, smc, vi
 from ip_mcmc_tpu_torch.adapt import (
     map_localize,
     warmup_hmc,
@@ -48,7 +51,7 @@ from ip_mcmc_tpu_torch.kernels.ensemble import choose_n_low_modes
 
 # metric keys that name wall-time phases (attribution in _finalize)
 _PHASE_KEYS = ("warmup_s", "trace_s", "compile_s", "first_dispatch_s", "run_s",
-               "diag_s")
+               "diag_s", "fit_s", "vi_fit_s", "pod_enrich_s")
 # the kernels with a fused path, those of the one-dispatch scan path, and
 # the kernels and kernel_params options the port does not run yet (those
 # that configs.NOT_PORTED's configs need)
@@ -270,6 +273,8 @@ def _setup_kernel_state(problem, positions, generator):
     map_init = kp.pop("map_init", 0)
     kp.pop("fused", None)
     kp.pop("block_chains", None)
+    kp.pop("vi_init", None)  # the warm starts: consumed by run_problem
+    kp.pop("pod_enrich", None)
     warm_steps = 0
     num_warm = problem.burn_in or 300
     if map_init and problem.kernel in ("mala", "hmc"):
@@ -568,13 +573,182 @@ def _run_pt(problem, seed, n_chains, n_samples, device):
     }
 
 
+def _run_smc(problem, seed, n_particles, device):
+    """Tempered SMC (the JAX runner's ``_run_smc``): ``smc.run`` on the
+    single-particle potential, or with ``kernel_params["batched"]``
+    ``smc.run_batched`` on the batched one (with ``warm``, the warm misfit
+    carrying each particle's solve). Runs twice, each from a generator on
+    ``device`` seeded with ``seed``; the second run is ``run_s``, the first
+    one's excess ``compile_s`` (the kernels' build at first use)."""
+    kp = dict(problem.kernel_params)
+    if kp.pop("batched", False):
+        extra = {}
+        if kp.pop("warm", False) and problem.batched_warm_potential is not None:
+            phi2, aux_dim = problem.batched_warm_potential
+            extra = dict(warm_potential_fn=phi2, aux_dim=aux_dim)
+        kernel_name = "smc(batched" + ("+warm)" if extra else ")")
+
+        def go():
+            return smc.run_batched(
+                problem.batched_potential_fn, problem.prior.mean, problem.prior.scale,
+                torch.Generator(device).manual_seed(int(seed)), n_particles=n_particles,
+                **extra, **kp)
+
+        particle_axis = 1
+    else:
+        kernel_name = "smc"
+
+        def go():
+            return smc.run(problem.potential_fn, problem.prior,
+                           torch.Generator(device).manual_seed(int(seed)),
+                           n_particles=n_particles, **kp)
+
+        particle_axis = 0
+
+    t0 = time.perf_counter()
+    go()
+    _barrier(device)
+    compile_and_run = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, info = go()
+    _barrier(device)
+    run_s = time.perf_counter() - t0
+    n_stages = int(info.n_stages)
+    return {
+        "config": problem.name,
+        "kernel": kernel_name,
+        "n_particles": int(n_particles),
+        "dim": int(problem.dim),
+        "compile_s": max(compile_and_run - run_s, 0.0),
+        "run_s": run_s,
+        "n_stages": n_stages,
+        "log_evidence": float(state.log_z),
+        "log_evidence_ti": smc.thermodynamic_log_z(info),
+        "final_beta": float(state.beta),
+        "mean_mutation_accept": float(np.nanmean(info.accept_rates[:n_stages].cpu().numpy())),
+        "posterior_mean": state.particles.mean(dim=particle_axis).cpu().tolist(),
+        "particles_per_s": n_particles * n_stages / run_s,
+    }
+
+
+def _run_vi(problem, seed, device):
+    """ADVI (the JAX runner's ``_run_vi``): fit once, from a generator on
+    ``device`` seeded with ``seed``; the fitted moments, and their errors
+    against the exact posterior where the config has one (the truth as the
+    mean, ``kernel_params["exact_cov"]``)."""
+    kp = dict(problem.kernel_params)
+    exact_cov = kp.pop("exact_cov", None)
+    num_steps = kp.get("num_steps", 2000)
+    t0 = time.perf_counter()
+    params, elbo = vi.fit(
+        problem.log_density_fn, problem.dim, torch.Generator(device).manual_seed(int(seed)),
+        num_steps=num_steps, n_samples=kp.get("n_mc_samples", 64),
+        learning_rate=kp.get("learning_rate", 5e-2), full_rank=kp.get("full_rank", False))
+    _barrier(device)
+    fit_s = time.perf_counter() - t0
+    mean, cov = (t.cpu().numpy() for t in vi.posterior_moments(params))
+    elbo = elbo.cpu().numpy()
+    metrics = {
+        "config": problem.name,
+        "kernel": "vi" + ("(full_rank)" if kp.get("full_rank") else "(mean_field)"),
+        "dim": int(problem.dim),
+        "num_steps": int(num_steps),
+        "fit_s": fit_s,
+        "elbo_steps_per_s": num_steps / fit_s,
+        "final_elbo": float(elbo[-100:].mean()),  # the tail, averaged over MC noise
+        "posterior_mean": mean.tolist(),
+    }
+    if problem.truth is not None:
+        metrics["mean_error_vs_exact"] = float(np.abs(mean - np.asarray(problem.truth)).max())
+    if exact_cov is not None:
+        metrics["cov_error_vs_exact"] = float(np.abs(cov - np.asarray(exact_cov)).max())
+    return metrics
+
+
+def _vi_warm_start(problem, seed, device):
+    """``kernel_params["vi_init"]``: a short ADVI fit (generator on
+    ``device`` seeded with ``seed`` + 71) whose family becomes the chains'
+    initialiser (``init_positions_fn``). Returns what the warm start buys:
+    the mean misfit of VI draws beside prior draws, both from the same
+    standard normals (host generators seeded with ``seed`` + 72)."""
+    cfg = problem.kernel_params["vi_init"]
+    cfg = cfg if isinstance(cfg, dict) else {}
+    t0 = time.perf_counter()
+    params, elbo = vi.fit(
+        problem.log_density_fn, problem.dim,
+        torch.Generator(device).manual_seed(int(seed) + 71),
+        num_steps=cfg.get("num_steps", 800), n_samples=cfg.get("n_mc_samples", 32),
+        learning_rate=cfg.get("learning_rate", 5e-2), full_rank=cfg.get("full_rank", False))
+    _barrier(device)
+    fit_s = time.perf_counter() - t0
+    problem.init_positions_fn = lambda g, n: vi.warm_start(params, g, n)
+
+    n_cmp = min(256, problem.n_chains or 256)
+    vi_pos = vi.warm_start(params, torch.Generator().manual_seed(int(seed) + 72), n_cmp)
+    prior_pos = problem.prior.sample(torch.Generator().manual_seed(int(seed) + 72), n_cmp)
+    return {
+        "vi_fit_s": fit_s,
+        "vi_final_elbo": float(elbo[-50:].mean()),
+        "init_potential_vi": float(problem.potential_fn(vi_pos).mean()),
+        "init_potential_prior": float(problem.potential_fn(prior_pos).mean()),
+    }
+
+
+def _pod_enrich_burnin(problem, seed, n_chains, device):
+    """Online POD enrichment during burn-in (the JAX runner's
+    ``_pod_enrich_burnin``): ``epochs`` segments of ``segment_steps`` scan
+    DA-pCN steps; after each, ``problem.surrogate_enrich_fn`` full-solves
+    the positions with the worst reduced residual and rebuilds the basis.
+    The surrogate is then frozen on ``problem`` with the positions as the
+    chains' start and the burn-in shortened by the steps taken, so the
+    recorded chain is a time-homogeneous DA kernel. Positions from a host
+    generator seeded with ``seed`` + 72, segment e's draws from one on
+    ``device`` seeded with ``seed`` + 73 + e. Returns the indicator
+    history."""
+    if problem.surrogate_enrich_fn is None:
+        raise ValueError(
+            f"config {problem.name}: kernel_params['pod_enrich'] needs "
+            "surrogate_enrich_fn (see darcy.make_pod_surrogate_online)")
+    spec = problem.kernel_params["pod_enrich"]
+    spec = spec if isinstance(spec, dict) else {}
+    epochs, seg = int(spec.get("epochs", 3)), int(spec.get("segment_steps", 40))
+    kp = {k: v for k, v in problem.kernel_params.items() if k in ("beta", "subchain_len")}
+    phi, prior, surr = problem.potential_fn, problem.prior, problem.surrogate_potential_fn
+    t0 = time.perf_counter()
+    positions = problem.init_positions(
+        torch.Generator().manual_seed(int(seed) + 72), n_chains).to(device)
+    history = []
+    for e in range(epochs):
+        kernel = da_pcn.build_kernel(phi, surr, prior, **kp)
+        state = driver.init_chains(da_pcn.init, positions, phi, surr)
+        state, _, _ = driver.sample_chains(
+            kernel, state, torch.Generator(device).manual_seed(int(seed) + 73 + e),
+            n_samples=1, burn_in=seg - 1)
+        positions = state.position
+        surr, stats = problem.surrogate_enrich_fn(positions)
+        history.append(stats)
+
+    problem.surrogate_potential_fn = surr
+    problem.init_positions_fn = lambda g, n: positions[:n]
+    problem.burn_in = max(problem.burn_in - epochs * seg, 0)
+    return {
+        "pod_enrich_epochs": epochs,
+        "pod_enrich_segment_steps": seg,
+        "pod_enrich_s": time.perf_counter() - t0,
+        "pod_enrich_indicator_max": [h["indicator_max"] for h in history],
+        "pod_enrich_indicator_mean": [h["indicator_mean"] for h in history],
+    }
+
+
 def _refuse(problem, what):
     raise NotImplementedError(
         f"config {problem.name}: {what} is not ported. Ported are the fused "
         f"{', '.join(FUSED_KERNELS)} paths (kernel_params['fused'] and a "
         "batched potential; pass --fused to a pCN config that has one), the "
         f"scan {', '.join(SCAN_KERNELS)} paths and the scan fes and pt paths "
-        "of the configs with a potential_fn; not ported: "
+        "of the configs with a potential_fn, tempered SMC (smc; batched and "
+        "warm with kernel_params['batched']), ADVI (vi), the vi_init warm "
+        "start and pod_enrich on the scan da_pcn path; not ported: "
         f"{', '.join(NOT_PORTED)}")
 
 
@@ -583,19 +757,45 @@ def run_problem(problem, device, seed: int = 0, n_chains=None,
     """Execute a Problem end-to-end on ``device``; returns a metrics dict.
     ``seed`` seeds the host-side ``torch.Generator`` of the initial
     positions (and, on the scan paths, the device generators of the
-    warm-up and the sampling)."""
+    warm-up and the sampling; SMC and VI draw from a device generator
+    seeded with it)."""
     t_start = time.perf_counter()
     device = torch.device(device)
     n_chains = n_chains or problem.n_chains
     n_samples = n_samples or problem.n_samples
     kp = problem.kernel_params
-    fused = (problem.kernel in FUSED_KERNELS and kp.get("fused")
-             and problem.batched_potential_fn is not None)
     if problem.kernel in NOT_PORTED:
         _refuse(problem, f"the '{problem.kernel}' kernel")
     for option in NOT_PORTED:
         if kp.get(option):
             _refuse(problem, option)
+    if problem.kernel == "vi":
+        return _finalize(_run_vi(problem, seed, device), t_start)
+
+    fused = (problem.kernel in FUSED_KERNELS and kp.get("fused")
+             and problem.batched_potential_fn is not None)
+    extra = {}
+    pod_enrich = problem.kernel == "da_pcn" and kp.get("pod_enrich")
+    if kp.get("vi_init") or pod_enrich:
+        # the warm starts install init_positions_fn, a surrogate and a
+        # shorter burn-in: on a shallow copy, so that the caller's problem
+        # starts from its configured state on a second run
+        problem = dataclasses.replace(problem)
+    if kp.get("vi_init"):
+        extra = _vi_warm_start(problem, seed, device)
+    if pod_enrich:
+        if kp.get("fused"):
+            # the fused branch reads batched_surrogate_fn, which enrichment
+            # does not rebuild
+            raise ValueError(
+                f"config {problem.name}: kernel_params['pod_enrich'] is not "
+                "supported with fused=True — enrichment rebuilds the unfused "
+                "surrogate_potential_fn only (use the scan da_pcn path, or "
+                "drop pod_enrich)")
+        extra.update(_pod_enrich_burnin(problem, seed, n_chains, device))
+
+    if problem.kernel == "smc":
+        return _finalize(_run_smc(problem, seed, n_chains, device), t_start)
     if fused:
         generator = torch.Generator().manual_seed(int(seed))
         metrics = _run_fused_mcmc(problem, generator, n_chains, n_samples,
@@ -611,4 +811,5 @@ def run_problem(problem, device, seed: int = 0, n_chains=None,
         metrics = _run_one_dispatch(problem, seed, n_chains, n_samples, device)
     else:
         _refuse(problem, f"the '{problem.kernel}' kernel")
+    metrics.update(extra)
     return _finalize(metrics, t_start)

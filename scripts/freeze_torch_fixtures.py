@@ -49,6 +49,12 @@ through the single-particle forward with the surrogate's own solver):
 ``y_surr_<variant>`` and ``scale_<variant>`` into
 ``darcy16_richardson.npz``.
 
+``darcy_da_pod`` / ``darcy_da_pod_online``: the prior draws of their POD
+snapshots, drawn as ``models/darcy.py`` ``make_pod_surrogate`` and
+``make_pod_surrogate_online`` draw them from ``jax.random.key(777)`` (64 × 64
+from the second half of its split; 24 × 64 from the key itself):
+``draws`` and ``draws_online`` into ``darcy16_pod.npz``.
+
 The arrays are read from the JAX package's own built Problems (their data,
 their truth, and the closures of their surrogate misfits), so nothing of
 the calibrations is re-implemented here; ``lingauss_pcn``'s truth is the
@@ -56,7 +62,7 @@ exact posterior mean, so its ``u_true`` is drawn again by the config's own
 call. With no argument every file is written; a kind writes its own.
 
     JAX_PLATFORMS=cpu python scripts/freeze_torch_fixtures.py \
-        [darcy|burgers|lingauss|darcy32|darcy64|darcy64_da|richardson|lv]
+        [darcy|burgers|lingauss|darcy32|darcy64|darcy64_da|richardson|lv|pod]
 """
 
 from __future__ import annotations
@@ -76,6 +82,7 @@ LARGE_GRID = {  # kind -> (JAX config, fixture)
 }
 RICHARDSON_FIXTURE = ROOT / "ip_mcmc_tpu_torch" / "configs" / "darcy16_richardson.npz"
 LV_FIXTURE = ROOT / "ip_mcmc_tpu_torch" / "configs" / "lv.npz"
+POD_FIXTURE = ROOT / "ip_mcmc_tpu_torch" / "configs" / "darcy16_pod.npz"
 DA_FIXTURES = {  # kind -> (JAX config, fixture)
     "darcy": ("darcy_da_fused", FIXTURE),
     "darcy64_da": ("darcy64_da_fused",
@@ -171,8 +178,19 @@ def richardson_fixture_arrays() -> dict:
     return out
 
 
+def pod_fixture_arrays() -> dict:
+    """The snapshot draws of the two POD configs (K = 64, unit prior
+    scale), as their JAX builders draw them."""
+    import jax
+
+    key = jax.random.key(777)
+    _, key0 = jax.random.split(key)
+    return {"draws": np.asarray(jax.random.normal(key0, (64, 64)), np.float32),
+            "draws_online": np.asarray(jax.random.normal(key, (24, 64)), np.float32)}
+
+
 def main(argv=None):
-    kinds = {*DA_FIXTURES, "burgers", "lingauss", *LARGE_GRID, "richardson", "lv"}
+    kinds = {*DA_FIXTURES, "burgers", "lingauss", *LARGE_GRID, "richardson", "lv", "pod"}
     which = set(argv or sys.argv[1:]) or kinds
     if not which <= kinds:
         raise SystemExit(f"usage: {sys.argv[0]} [{'|'.join(sorted(kinds))}]")
@@ -206,6 +224,9 @@ def main(argv=None):
     if "lv" in which:
         np.savez(LV_FIXTURE, **lv_fixture_arrays(configs.build("ode_mala")))
         written.append(LV_FIXTURE)
+    if "pod" in which:
+        np.savez(POD_FIXTURE, **pod_fixture_arrays())
+        written.append(POD_FIXTURE)
     for path in written:
         print(f"wrote {path} ({path.stat().st_size} bytes)")
 

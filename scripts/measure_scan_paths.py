@@ -1,12 +1,17 @@
 """Time the scan paths' steps and the ODE gradient on the card.
 
     python scripts/measure_scan_paths.py [--reps N] [--runs CONFIG[:CUTS] ...] [--out FILE]
+        [--only-smc-vi-pod]
 
 At each config's full width, on the card: one ``ode_mala`` gradient of
 log π at 1024 chains (the 200-step RK4 solve and its backward), the
 Burgers potential at 2048 chains (one and three observation times), one
 step of each scan kernel of ``darcy_da_pcn``, ``lingauss_elliptical``,
-``lingauss_fes``, ``multimodal_pt``, ``multimodal_pt_mala``, ``ode_mala`` and ``ode_hmc``.
+``lingauss_fes``, ``multimodal_pt``, ``multimodal_pt_mala``, ``ode_mala`` and ``ode_hmc``;
+the first stage of ``darcy_smc`` and of ``darcy_smc_warm`` at 4096
+particles, one ADVI step of ``lingauss_advi`` and of ``darcy_advi``, the
+POD surrogate of ``darcy_da_pod`` at 4096 chains and one outer step of its
+delayed acceptance.
 For each: milliseconds a call (host clock around a synchronised loop,
 after a warm-up), the operations the call dispatches (``aten`` ops, counted
 by a dispatch mode), the CUDA activities the profiler records for one call
@@ -16,7 +21,8 @@ JSON file). ``--runs`` then runs whole
 configs through ``runner.run_problem`` on the card, as the CLI does, and
 prints each one's metrics: ``ode_hmc:burn_in=20,map_init=300,n_samples=40``
 cuts those fields (``n_samples`` the run's, the others the config's); a bare
-name runs as shipped. ``--runs`` alone skips the step rows (``--reps 0``).
+name runs as shipped. ``--runs`` alone skips the step rows (``--reps 0``);
+``--only-smc-vi-pod`` keeps only the SMC, ADVI and POD rows.
 Needs a card; exits 1 without.
 """
 
@@ -92,6 +98,8 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=5, help="0: no step rows")
     ap.add_argument("--runs", nargs="*", default=[], metavar="CONFIG[:CUTS]")
     ap.add_argument("--out", default=None, help="a JSON file for every row and run")
+    ap.add_argument("--only-smc-vi-pod", action="store_true",
+                    help="of the step rows, only the SMC, ADVI and POD ones")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure_scan_paths: no CUDA device", file=sys.stderr)
@@ -114,6 +122,11 @@ def main(argv=None):
 
     def start(p, n, seed=0):
         return p.init_positions(torch.Generator().manual_seed(seed), n).to(dev)
+
+    if args.only_smc_vi_pod:
+        smc_vi_pod_rows(rows, start, args.reps)
+        write_out(args.out, card, rows, runs)
+        return 0
 
     ode = configs.build("ode_mala", dev)
     x = start(ode, 1024)
@@ -179,8 +192,76 @@ def main(argv=None):
     rows.append(step_row("burgers_pcn scan step, 2048 chains",
                          pcn.build_kernel(p.potential_fn, p.prior, 0.15), st, args.reps))
 
+    smc_vi_pod_rows(rows, start, args.reps)
     write_out(args.out, card, rows, runs)
     return 0
+
+
+def smc_vi_pod_rows(rows, start, reps):
+    """Tempered SMC's first stage (cold and warm), an ADVI step and the POD
+    surrogate's delayed acceptance, each at its config's width."""
+    from ip_mcmc_tpu_torch import configs, smc, vi
+    from ip_mcmc_tpu_torch.kernels import base, da_pcn
+
+    dev = "cuda"
+    p = configs.build("darcy_smc", dev)
+    kp = p.kernel_params
+    x = start(p, p.n_chains)
+    zero = torch.zeros((), device=dev)
+    st = smc.SMCState(particles=x, potentials=p.potential_fn(x), beta=zero, log_z=zero,
+                      stage=0)
+    g = torch.Generator(dev).manual_seed(1)
+
+    def draws(_, m):
+        return (p.prior.scale_apply(base.normals(g, (m, p.dim), dev)),
+                base.uniforms(g, (m,), dev))
+
+    rows.append(row("darcy_smc first stage (bisection, resampling, 5 pCN steps), 4096",
+                    lambda: smc.stage(st, p.potential_fn, p.prior,
+                                      smc.draw_u0(g, p.n_chains, dev), draws,
+                                      mutation_steps=kp["mutation_steps"],
+                                      pcn_step=kp["pcn_step"]), reps))
+
+    p = configs.build("darcy_smc_warm", dev)
+    warm, aux_dim = p.batched_warm_potential
+    U = start(p, p.n_chains).T.contiguous()
+    X = torch.zeros(aux_dim, p.n_chains, device=dev)
+    for _ in range(8):
+        phi, X = warm(U, X)
+    st = smc.SMCState(particles=U, potentials=phi, beta=zero, log_z=zero, stage=0,
+                      warm_aux=X)
+    pm, ps = p.prior.mean[:, None], p.prior.scale[:, None]
+    k = kp["mutation_steps"]
+
+    def warm_stage():
+        xi = base.normals(g, (k, p.dim, p.n_chains), dev)
+        log_u = torch.log(base.uniforms(g, (k, p.n_chains), dev))
+        return smc.stage_batched(st, warm, pm, ps, smc.draw_u0(g, p.n_chains, dev), xi,
+                                 log_u, pcn_step=kp["pcn_step"])
+
+    rows.append(row("darcy_smc_warm first stage (5 warm dense-dst 6-CG misfits), 4096",
+                    warm_stage, reps))
+
+    for name in ("lingauss_advi", "darcy_advi"):
+        p = configs.build(name, dev)
+        kp = p.kernel_params
+        rows.append(row(f"{name} ADVI step, {kp['n_mc_samples']} samples",
+                        lambda p=p, kp=kp: vi.fit(
+                            p.log_density_fn, p.dim, g, num_steps=1,
+                            n_samples=kp["n_mc_samples"],
+                            learning_rate=kp["learning_rate"],
+                            full_rank=kp["full_rank"]), reps))
+
+    p = configs.build("darcy_da_pod", dev)
+    kp = p.kernel_params
+    x = start(p, p.n_chains)
+    rows.append(row("darcy_da_pod POD surrogate (rank 20), 4096",
+                    lambda: p.surrogate_potential_fn(x), reps))
+    st = da_pcn.init(x, p.potential_fn, p.surrogate_potential_fn)
+    kernel = da_pcn.build_kernel(p.potential_fn, p.surrogate_potential_fn, p.prior,
+                                 kp["beta"], kp["subchain_len"])
+    rows.append(row("darcy_da_pod outer step: 4 POD + 48-CG exact, 4096",
+                    lambda: kernel(g, st), reps))
 
 
 def run_config(spec):

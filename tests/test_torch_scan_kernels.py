@@ -326,9 +326,9 @@ NOT_PORTED = {  # JAX config -> the kernel and parameters it runs
                           "map_init": 300}),
     "ode_chees": ("chees", {"step_size": 0.05, "trajectory_length": 0.5,
                             "map_init": 300}),
-    "darcy_smc": ("smc", {}),
-    "lingauss_advi": ("vi", {}),
     "darcy_composed_pcn": ("pcn_composed", {"beta": 0.08}),
+    "darcy_composed_mala": ("mala_composed", {"step_size": 0.05}),
+    "darcy_composed_ess": ("ess_composed", {"max_shrink": 20}),
 }
 
 
@@ -346,7 +346,11 @@ def test_unported_configs_are_refused(name):
 
 
 def test_pod_enrichment_is_refused(darcy_da):
+    """pod_enrich with fused=True: the JAX runner's ValueError, before any
+    enrichment (the fused branch reads batched_surrogate_fn, which
+    enrichment does not rebuild)."""
     _, p = darcy_da
-    p = dataclasses.replace(p, kernel_params={**p.kernel_params, "pod_enrich": True})
-    with pytest.raises(NotImplementedError, match="pod_enrich"):
+    p = dataclasses.replace(p, kernel_params={**p.kernel_params, "fused": True,
+                                              "pod_enrich": {"epochs": 3}})
+    with pytest.raises(ValueError, match="pod_enrich.*fused=True"):
         runner.run_problem(p, "cpu", n_chains=8, n_samples=2)

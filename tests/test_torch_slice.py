@@ -264,7 +264,10 @@ def test_cli_lists_seven_configs(capsys):
     single-particle Darcy forward, darcy64_pcn; since the rest of the
     derivative-free scan path and the ODE gradient samplers, darcy_da_pcn,
     lingauss_elliptical, lingauss_fes, ode_mala, ode_hmc, multimodal_pt and
-    multimodal_pt_mala. The configs not ported yet are not listed."""
+    multimodal_pt_mala; since tempered SMC, ADVI and the POD surrogates,
+    darcy_smc, darcy_smc_warm, lingauss_advi, darcy_advi,
+    darcy_advi_warmstart, darcy_da_pod and darcy_da_pod_online. The configs
+    not ported yet are not listed."""
     assert run.main(["--list"]) == 0
     names = [ln.split()[0] for ln in capsys.readouterr().out.strip().splitlines()]
     assert names == sorted(SINGLE_LEVEL + GRADIENT_AND_ENSEMBLE
@@ -273,7 +276,9 @@ def test_cli_lists_seven_configs(capsys):
                            + ("darcy32_pcn_warm", "darcy64_pcn_warm", "darcy64_da_fused")
                            + ("darcy64_pcn",)
                            + ("darcy_da_pcn", "lingauss_elliptical", "lingauss_fes",
-                              "ode_mala", "ode_hmc", "multimodal_pt", "multimodal_pt_mala"))
+                              "ode_mala", "ode_hmc", "multimodal_pt", "multimodal_pt_mala")
+                           + ("darcy_smc", "darcy_smc_warm", "lingauss_advi", "darcy_advi",
+                              "darcy_advi_warmstart", "darcy_da_pod", "darcy_da_pod_online"))
     assert not set(names) & set(configs.NOT_PORTED)
 
 
