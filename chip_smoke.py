@@ -66,19 +66,26 @@ Gaussians), times both, then drives the ported paths at full width:
                              subchain, a 48-CG correction)
     lingauss_elliptical, lingauss_fes   elliptical slice sampling and the
                              functional ensemble sampler on the scan path
-    ode_mala, ode_hmc        MALA and HMC on the RK4 Lotka-Volterra forward,
-                             gradients by autograd; the potentials and the
-                             gradient first held to the CPU's, and one
-                             gradient at 1024 chains timed
+    ode_mala, ode_hmc        MALA and HMC on the RK4 Lotka-Volterra forward;
+                             each gradient one launch of
+                             lv_misfit_grad_kernel (its discrete adjoint),
+                             the kernel first held against its plain
+                             version (autograd through the RK4 loop) at 256,
+                             512 and 1024 chains, and one gradient at 1024
+                             chains timed beside the plain path's
+    ode_nuts, ode_chees      BASELINE config 3b, NUTS, and ChEES-HMC on the
+                             same kernel, at 256 and 512 chains
     multimodal_pt, multimodal_pt_mala   parallel tempering, pCN and MALA
                              mutations
     darcy_smc                BASELINE config 5: tempered SMC, the mutation
                              pCN on the single-particle Darcy forward
     darcy_smc_warm           the same on the batched warm misfit (dense dst,
-                             6 CG), which runs darcy_misfit_warm_kernel; the
-                             kernel first held against its plain version at
-                             that spec, from x0 = 0 and from a previous
-                             solution
+                             6 CG), a draw a warp on warm MALA's level
+                             (darcy_misfit_warm_dst_warp_kernel); the kernel
+                             first held against its plain version at that
+                             spec, from x0 = 0 and from a previous solution,
+                             and against the one-draw-a-CTA kernel it
+                             replaces, bit for bit
     lingauss_advi, darcy_advi   full-rank and mean-field ADVI (gradients by
                              autograd, the Darcy one through the implicit
                              adjoint; darcy_advi's steps cut)
@@ -517,6 +524,10 @@ MISFIT8_RICH = "darcy_misfit_warp_kernel[n=8,richardson]"
 # darcy_pcn_warm's warm misfit at the start positions, a draw a warp on the
 # warm pCN's solve (WarpTruncSliceLevel)
 MISFIT_WARM16 = "darcy_misfit_warm_warp_kernel[n=16]"
+# darcy_smc_warm's dense-dst warm misfit, a draw a warp on warm MALA's solve
+# (WarpDstSliceLevel), and the one-draw-a-CTA kernel it replaces
+MISFIT_WARM_DST = "darcy_misfit_warm_dst_warp_kernel[n=16]"
+MISFIT_WARM_CTA = "darcy_misfit_warm_kernel"
 # the 16x16 Jacobi misfit of ESS, cold pCN and FES at the start positions,
 # and its value and gradient for cold MALA: a draw a warp on their samplers'
 # solve (WarpSliceLevel)
@@ -605,9 +616,9 @@ def check_da(problem, gen, results):
 def check_warm_misfit(problem, gen, results):
     """The warm misfit kernels: the shipped dst_trunc-64 / 4 CG a draw a warp
     on the warm pCN's solve, from x0 = 0 (against the plain version in f64)
-    and from a previous solution; the
-    one-draw-a-CTA kernel on the dense dst / 4 CG and on Jacobi, specs the
-    warm warp rule leaves."""
+    and from a previous solution; the dense dst / 4 CG, which the warm warp
+    rule leaves to the dense-dst one (a draw a warp), and Jacobi / 16 CG,
+    which both leave to the one-draw-a-CTA kernel."""
     from ip_mcmc_tpu_torch.convert import darcy_warm_misfit_from_arrays
     from ip_mcmc_tpu_torch.models import darcy
     from ip_mcmc_tpu_torch.ops import fused_pcn
@@ -628,11 +639,13 @@ def check_warm_misfit(problem, gen, results):
         paths=["darcy_pcn_warm"], tol=BF16_TOL, replaces=replaces)
     aux = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
     # options of the warm misfit that no shipped config uses, which the warm
-    # warp rule leaves to the one-draw-a-CTA kernel: no path launches them
-    for precond, iters, tol in (("dst", 4, BF16_TOL), ("jacobi", 16, F32_TOL)):
+    # warp rule leaves to the dense-dst warp kernel and to the one-draw-a-CTA
+    # kernel: no path launches them
+    for precond, iters, tol, label in (("dst", 4, BF16_TOL, MISFIT_WARM_DST),
+                                       ("jacobi", 16, F32_TOL, MISFIT_WARM_CTA)):
         other = darcy_warm_misfit_from_arrays(
             aux, problem.data, 0.002, cg_iters=iters, precond=precond)[0].cuda()
-        assert other.warm_kernel_label == "darcy_misfit_warm_kernel", other.warm_kernel_label
+        assert other.warm_kernel_label == label, other.warm_kernel_label
         compare_misfit(
             results, other, U2, x0=x1,
             variant=f"{precond}, {iters} CG, x0 = previous solution",
@@ -640,28 +653,53 @@ def check_warm_misfit(problem, gen, results):
 
 
 def check_smc_warm_misfit(problem, gen, results):
-    """darcy_smc_warm's mutation misfit, dense dst / 6 CG, at 4096 draws:
-    darcy_misfit_warm_kernel (one draw a CTA) against its plain version
-    from x0 = 0, as the first of the run's 8 initial sweeps starts (against
-    the plain version in f64 with the same bf16 roundings), and from the
-    solution of the 8 sweeps after a pCN move, as a mutation step starts."""
+    """darcy_smc_warm's mutation misfit, dense dst / 6 CG, at 4096 draws, a
+    draw a warp on warm MALA's level (darcy_misfit_warm_dst_warp_kernel):
+    against its plain version from x0 = 0, as the first of the run's 8
+    initial sweeps starts (against the plain version in f64 with the same
+    bf16 roundings), and from the solution of the 8 sweeps after a pCN
+    move, as a mutation step starts; on both inputs against the
+    one-draw-a-CTA darcy_misfit_warm_kernel it replaces, bit for bit (the
+    draws that differ counted), the two timed in turns (parent, new, new,
+    parent: CUDA events through the wrapper and the profiler's device
+    time). Returns the comparison."""
     warm, _ = problem.batched_warm_potential
     assert (warm.precond, warm.cg_iters) == ("dst", 6), (warm.precond, warm.cg_iters)
-    assert warm.warm_kernel_label == "darcy_misfit_warm_kernel", warm.warm_kernel_label
+    assert warm.warm_kernel_label == MISFIT_WARM_DST, warm.warm_kernel_label
     U = problem.prior.sample(gen, N_CHAINS).T.contiguous()
     step = problem.prior.sample(gen, N_CHAINS).T.contiguous()
     U2 = (math.sqrt(1 - 0.15 ** 2) * U + 0.15 * step).contiguous()  # a mutation move
     zeros = torch.zeros(warm.aux_dim, N_CHAINS, device="cuda")
     replaces = "ip_mcmc_tpu/models/darcy.py:669"
-    what = "dense dst, 6 CG, one draw a CTA"
+    what = "dense dst, 6 CG, a draw a warp, 16 a CTA"
     _, x = compare_misfit(results, warm, U, x0=zeros, variant=f"{what}, x0 = 0",
                           paths=["darcy_smc_warm"], tol=BF16_COLD_START_TOL,
                           replaces=replaces, f64=True)
+    rows = [results[-1]]
     for _ in range(7):
         _, x = warm(U, x)
     compare_misfit(results, warm, U2, x0=x,
                    variant=f"{what}, x0 = the solution of the 8 initial sweeps",
                    paths=["darcy_smc_warm"], tol=BF16_TOL, replaces=replaces)
+    rows.append(results[-1])
+    out = {}
+    for row, (u, x0) in zip(rows, ((U, zeros), (U2, x))):
+        new = lambda u=u, x0=x0: warm(u, x0)  # noqa: E731
+        parent = lambda u=u, x0=x0: warm.forward_layout(u, x0)  # noqa: E731
+        (phi, xs), (phi_p, xs_p) = new(), parent()
+        differ = int(((phi != phi_p) | (xs != xs_p).any(dim=0)).sum())
+        turns = [cuda_time_ms(f, 20) for f in (parent, new, new, parent)]
+        dev = [device_ms(f, 20, n) for f, n in ((parent, "darcy_misfit_warm_kernel<"),
+                                                 (new, "darcy_misfit_warm_dst_warp_kernel"))]
+        row.update(parent_kernel=MISFIT_WARM_CTA, draws_differing_from_parent=differ,
+                   in_turns_ms=turns, device_ms=dev[1], parent_device_ms=dev[0])
+        out[row["variant"]] = {"draws_differing": differ, "in_turns_ms": turns,
+                               "device_ms_parent_new": dev}
+        print(f"{MISFIT_WARM_DST} ({row['variant']}) against {MISFIT_WARM_CTA}: {differ} of "
+              f"{N_CHAINS} draws differ; in turns parent / new / new / parent "
+              + " / ".join(f"{t:.4f}" for t in turns)
+              + f" ms; device {dev[0]} / {dev[1]} ms", flush=True)
+    return out
 
 
 class CountingPotential:
@@ -1585,6 +1623,7 @@ MISFIT_PTXAS = {MISFIT8: ("darcy_misfit_warp_kernelILi8ELi0E", "darcy_misfit_war
                 MISFIT8_RICH: ("darcy_misfit_warp_kernelILi8ELi1E",
                                "darcy_misfit_warp_kernel<8, 1>"),
                 MISFIT_WARM16: ("darcy_misfit_warm_warp_kernel",),
+                MISFIT_WARM_DST: ("darcy_misfit_warm_dst_warp_kernel",),
                 MISFIT64: ("darcy_misfit_cluster_kernel",),
                 MISFIT64_WARM: ("darcy_misfit_warm_cluster_kernel",),
                 MISFIT32: ("darcy_misfit_cluster32_kernel",),
@@ -2406,7 +2445,7 @@ def run_richardson_da(richardson):
 # the sources of the Darcy and Burgers kernels and of the linear-Gaussian
 # group kernels (the one-chain-a-CTA linear-Gaussian instantiations are left
 # out by name)
-SAMPLER_UNITS = ("fused_da_pcn.cu", "fused_pcn.cu", "fused_ess.cu", "fused_fes.cu",
+SAMPLER_UNITS = ("lv_rk4.cu", "fused_da_pcn.cu", "fused_pcn.cu", "fused_ess.cu", "fused_fes.cu",
                  "fused_mala.cu", "fused_rwm.cu", "fused_da3_pcn.cu", "fused_pcn_dense.cu",
                  "fused_pcn_adapt.cu")
 
@@ -2436,7 +2475,7 @@ def sampler_ptxas_report():
               f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads",
               flush=True)
     spilled = [r["kernel"] for r in rows if r["spill_stores"] or r["spill_loads"]]
-    print(f"ptxas: {len(rows)} Darcy, Burgers and linear-Gaussian group kernels, "
+    print(f"ptxas: {len(rows)} Darcy, Burgers, linear-Gaussian group and LV kernels, "
           f"{len(spilled)} with spills", flush=True)
     return rows
 
@@ -3129,21 +3168,162 @@ def check_darcy_forward(problems):
 # the Burgers and ODE forwards of the scan path on the card against the CPU.
 # Burgers: the same f32 Godunov arithmetic, the KL sum in another order
 # (tests/test_torch_burgers_forward.py: within 5e-7 of JAX's forward). The
-# ODE: the card contracts the RK4 multiply-adds into one rounding and sums
-# the misfit in another order; over 200 steps the CPU tests see 1.4e-5
-# between two f32 orders on a forward value (tests/test_torch_ode.py), so
-# Φ and ∇Φ (of each draw's largest entry) within 1e-4.
+# ODE: on the card Phi and its gradient come from lv_misfit_grad_kernel (the
+# RK4 multiply-adds contracted into one rounding, the adjoint's own
+# roundings: tests/test_torch_lv_kernel.py holds its algorithm within 1.2e-6
+# of autograd's gradient on the CPU); over 200 steps the CPU tests see
+# 1.4e-5 between two f32 orders on a forward value (tests/test_torch_ode.py),
+# so Phi and the gradient (of each draw's largest entry) within 1e-4.
 BURGERS_FORWARD_RTOL = 1e-5
 ODE_RTOL = 1e-4
 ODE_GRAD_REPS = 5
+# lv_misfit_grad_kernel against its plain version on the card (autograd
+# through the RK4 loop; and that loop in f64): Phi within LV_PHI_RTOL
+# relative, the gradient within LV_GRAD_TOL of each chain's largest entry
+LV_PHI_RTOL, LV_GRAD_TOL = 1e-4, 1e-3
+LV = "lv_misfit_grad_kernel"
+# the ODE paths by width: the kernel's rows of the kernels line
+LV_WIDTHS = {256: ["ode_nuts"], 512: ["ode_hmc", "ode_chees"], 1024: ["ode_mala"]}
+# f32 operations of one RK4 step for one chain that the value and gradient
+# need, an exp counted as one and a multiply-add as two: the forward (4 stages
+# of 2 exp and 2 multiply-adds, 3 stage inputs of 2 multiply-adds, the
+# increment and the update) 50; its adjoint (per stage 10, the stage inputs'
+# and the state's cotangents 24) 64. The kernel recomputes each step's
+# forward in its backward rather than store the stages' e^Y: not counted
+LV_STEP_OPS = 50 + 64
+# per observed value: e^z, the whitened residual (a subtract and a divide),
+# its square added (a multiply-add), and its derivative -w e^z / sigma added
+# to the cotangent (a multiply, a divide, an add)
+LV_OBS_OPS = 8
 
 
-def check_scan_forwards(problems):
+def lv_bound(spec, n):
+    """The least time of one launch on n chains: its operations (the steps,
+    the misfit and its injections, the rates and the gradient's chain rule)
+    or its bytes (theta in, Phi and the gradient out, the spec once)."""
+    obs = spec.obs_step.numel() * spec.species.numel()
+    ops = n * (LV_STEP_OPS * spec.n_steps + LV_OBS_OPS * obs + 8)
+    spec_bytes = sum(t.numel() * t.element_size()
+                     for t in (spec.obs_step, spec.species, spec.data, spec.noise))
+    return bound(Ops(f32=ops), n * 4 * (4 + 1 + 4) + spec_bytes)
+
+
+def lv_launch_ms(theta, spec, launches=200):
+    """lv_misfit_grad_kernel's time a launch with the wrapper's host path
+    left out: CUDA events around ``launches`` back-to-back launches through
+    its C entry on buffers allocated once (a launch's host cost, a few µs,
+    is below its device time, so the events time the card)."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.ops import _build
+
+    lib, n = _build.library(), theta.shape[0]
+    states = torch.empty((spec.n_steps + 1) * 2 * n, device="cuda")
+    phi, grad = torch.empty(n, device="cuda"), torch.empty(n, 4, device="cuda")
+    args = (ctypes.byref(spec.c_struct), theta.data_ptr(), n, states.data_ptr(),
+            phi.data_ptr(), grad.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib.ipx_lv_misfit_grad(*args), LV)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        lib.ipx_lv_misfit_grad(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def check_lv_kernel(problems, results):
+    """lv_misfit_grad_kernel at each ODE path's width (256, 512, 1024 prior
+    draws, half doubled) against its plain version on the same inputs
+    (autograd through the RK4 loop on the card) and against that loop in
+    f64: Phi within LV_PHI_RTOL, the gradient within LV_GRAD_TOL of each
+    chain's largest entry, the measured maxima printed; its time (CUDA
+    events through the wrapper, and over back-to-back launches through its
+    C entry: the card's time) beside the plain version's and its bound.
+    Appends a kernels-line row a width."""
+    from ip_mcmc_tpu_torch.ops import _build, lv_rk4
+
+    p = problems["ode_mala"]
+    pot = p.potential_fn
+    for n, paths in LV_WIDTHS.items():
+        th = p.prior.sample(torch.Generator().manual_seed(75 + n), n)
+        th[n // 2:] *= 2.0
+        before = _build.launch_counts[LV]
+        phi, grad = lv_rk4.misfit_and_grad(th, pot.spec)
+        torch.cuda.synchronize()
+        assert _build.launch_counts[LV] == before + 1, f"{LV} did not launch"
+        errs = {}
+        for ref_name, (ref_phi, ref_grad) in (
+                ("plain", pot.plain_value_and_grad(th)),
+                ("plain f64", pot.plain_value_and_grad(th.double()))):
+            phi_rel = float(((phi.double() - ref_phi).abs() / ref_phi.abs()).max())
+            grad_rel = float(((grad.double() - ref_grad).abs().amax(1)
+                              / ref_grad.abs().amax(1)).max())
+            errs[ref_name] = (phi_rel, grad_rel, float((phi.double() - ref_phi).abs().max()))
+        line = "; ".join(f"against the {k}: Phi max rel {v[0]:.3e}, gradient max {v[1]:.3e} of "
+                         f"each chain's largest entry" for k, v in errs.items())
+        print(f"{LV} ({n} chains): {line}", flush=True)
+        if not (bool(torch.isfinite(phi).all()) and bool(torch.isfinite(grad).all())
+                and all(v[0] <= LV_PHI_RTOL and v[1] <= LV_GRAD_TOL for v in errs.values())):
+            raise AssertionError(f"{LV} ({n} chains) disagrees with its plain version")
+        kern = lambda th=th: lv_rk4.misfit_and_grad(th, pot.spec)  # noqa: E731
+        ms, plain_ms = cuda_time_ms(kern, 20), cuda_time_ms(lambda: pot.plain_value_and_grad(th), 3)
+        row = {"name": LV, "variant": f"{n} chains, 200 RK4 steps, 40 observations",
+               "route": "cuda", "source": SRC + "lv_rk4.cu",
+               "replaces": "none: ip_mcmc_tpu/models/ode.py:56 under jax.value_and_grad "
+                           "(lax.scan, no Pallas kernel)",
+               "paths": paths, "max_abs_err": errs["plain"][2],
+               "reference": "plain version (autograd through the RK4 loop)",
+               "max_rel_err": errs["plain"][0], "grad_max_err": errs["plain"][1],
+               "f64_phi_max_rel": errs["plain f64"][0], "f64_grad_max": errs["plain f64"][1],
+               "ms": ms, "back_to_back_ms": lv_launch_ms(th, pot.spec), "plain_ms": plain_ms,
+               "ms_unit": f"one call, {n} chains", **lv_bound(pot.spec, n), "library_ms": None}
+        print(f"  time per call: kernel {ms:.4f} ms (back to back "
+              f"{row['back_to_back_ms']:.4f}), plain "
+              f"{plain_ms:.2f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']})",
+              flush=True)
+        results.append(row)
+
+
+def gradient_launches(vg, x):
+    """Host ms (a synchronised loop after a warm-up), launches and device ms
+    of one call of ``vg(x)``: the profiler's over ODE_GRAD_REPS calls, a
+    call's share (a profile can lose its last few device records: over
+    several calls they weigh less)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    vg(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ODE_GRAD_REPS):
+        vg(x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / ODE_GRAD_REPS * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ODE_GRAD_REPS):
+            vg(x)
+        torch.cuda.synchronize()
+    launches, device_us = 0, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            launches += ev.count
+            device_us += (getattr(ev, "self_device_time_total", 0)
+                          or getattr(ev, "self_cuda_time_total", 0))
+    return {"ms": ms, "launches": launches / ODE_GRAD_REPS,
+            "device_ms": device_us / 1e3 / ODE_GRAD_REPS}
+
+
+def check_scan_forwards(problems, results):
     """The scan potentials of the Burgers paths (16 prior draws, half
-    tripled) and of ode_mala (Φ and ∇log π on 16 draws, half doubled) on the
-    card against the same config's on the CPU; then one ∇log π of ode_mala at
-    1024 chains timed (host clock around synchronised calls, after a warm-up)
-    and its device launches counted (profiler). Returns the timing."""
+    tripled) and of ode_mala (Phi and the gradient of log pi on 16 draws,
+    half doubled; on the card through lv_misfit_grad_kernel) on the card
+    against the same config's on the CPU; then lv_misfit_grad_kernel against
+    its plain version at each ODE width (check_lv_kernel); then one gradient
+    of log pi of ode_mala at 1024 chains through the kernel and through the
+    plain version, each timed (host clock around synchronised calls, after
+    a warm-up) and its device launches counted (profiler). Returns the
+    timings."""
     from ip_mcmc_tpu_torch import configs
     from ip_mcmc_tpu_torch.kernels import base
 
@@ -3165,34 +3345,19 @@ def check_scan_forwards(problems):
     want_v, want_g = base.value_and_grad(ref.log_density_fn)(u)
     rel_v = float(((got_v.cpu() - want_v).abs() / want_v.abs()).max())
     rel_g = float(((got_g.cpu() - want_g).abs().amax(1) / want_g.abs().amax(1)).max())
-    print(f"ode_mala log pi and its gradient (16 draws): card against CPU max rel "
+    print(f"ode_mala log pi and its gradient (16 draws): card (the kernel) against CPU max rel "
           f"{rel_v:.3e}, {rel_g:.3e} of each draw's largest entry", flush=True)
     if not (bool(torch.isfinite(got_g).all()) and rel_v <= ODE_RTOL and rel_g <= ODE_RTOL):
         raise AssertionError("ode_mala: log pi or its gradient on the card disagrees "
                              "with the CPU's")
 
-    from torch.profiler import ProfilerActivity, profile
-
+    check_lv_kernel(problems, results)
     x = p.init_positions(torch.Generator().manual_seed(74), p.n_chains).cuda()
-    vg = base.value_and_grad(p.log_density_fn)
-    vg(x)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(ODE_GRAD_REPS):
-        vg(x)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / ODE_GRAD_REPS * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        vg(x)
-        torch.cuda.synchronize()
-    launches, device_us = 0, 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            launches += ev.count
-            device_us += (getattr(ev, "self_device_time_total", 0)
-                          or getattr(ev, "self_cuda_time_total", 0))
-    out = {"chains": p.n_chains, "rk4_steps": 200, "ms": ms, "launches": launches,
-           "device_ms": device_us / 1e3}
+    pot = p.potential_fn
+    out = {"chains": p.n_chains, "rk4_steps": 200,
+           "kernel": gradient_launches(base.value_and_grad(p.log_density_fn), x),
+           "plain": gradient_launches(base.value_and_grad(
+               lambda t: -pot.plain(t) - p.prior.potential(t)), x)}
     print("ode_mala gradient of log pi: " + json.dumps(out), flush=True)
     return out
 
@@ -3233,14 +3398,18 @@ PATHS = {
     "darcy_da_pcn": ([], ("scan_da_pcn_step[cuda]",)),
     "lingauss_elliptical": ([], ("scan_ess_step[cuda]",)),
     "lingauss_fes": ([], ("scan_fes_step[cuda]",)),
-    "ode_mala": ([], ("scan_mala_step[cuda]",)),
-    "ode_hmc": ([], ("scan_hmc_step[cuda]",)),
+    # the ODE gradient samplers: each gradient one launch of the
+    # Lotka-Volterra kernel
+    "ode_mala": ([], ("scan_mala_step[cuda]", LV)),
+    "ode_hmc": ([], ("scan_hmc_step[cuda]", LV)),
+    "ode_nuts": ([], ("scan_nuts_step[cuda]", LV)),
+    "ode_chees": ([], ("scan_chees_step[cuda]", LV)),
     "multimodal_pt": ([], ("scan_pt_step[cuda]",)),
     "multimodal_pt_mala": ([], ("scan_pt_mala_step[cuda]",)),
     # tempered SMC (a count a stage), the warm one's mutation on the warm
     # misfit's kernel; ADVI (a count a step); the POD surrogates on scan DA
     "darcy_smc": ([], ("scan_smc_stage[cuda]",)),
-    "darcy_smc_warm": ([], ("darcy_misfit_warm_kernel", "scan_smc_stage[cuda]")),
+    "darcy_smc_warm": ([], (MISFIT_WARM_DST, "scan_smc_stage[cuda]")),
     "lingauss_advi": ([], ("vi_step[cuda]",)),
     "darcy_advi": ([], ("vi_step[cuda]",)),
     "darcy_advi_warmstart": ([], ("vi_step[cuda]", "scan_pcn_step[cuda]")),
@@ -3253,30 +3422,32 @@ PATH_CONFIG = {"darcy_pcn_4096 scan": "darcy_pcn_4096",
                "burgers_multitime_pcn scan": "burgers_multitime_pcn"}
 SCAN_PATHS = ("gauss2d_rwm", "lingauss_pcn", "darcy_pcn_4096 scan", "darcy64_pcn",
               "burgers_pcn scan", "burgers_multitime_pcn scan", "darcy_da_pcn",
-              "lingauss_elliptical", "lingauss_fes", "ode_mala", "ode_hmc",
-              "multimodal_pt", "multimodal_pt_mala", "darcy_advi_warmstart",
+              "lingauss_elliptical", "lingauss_fes", "ode_mala", "ode_hmc", "ode_nuts",
+              "ode_chees", "multimodal_pt", "multimodal_pt_mala", "darcy_advi_warmstart",
               "darcy_da_pod", "darcy_da_pod_online")
 # the SMC and VI paths: their own keys (no chains, samples or R-hat)
 SMC_PATHS = ("darcy_smc", "darcy_smc_warm")
 VI_PATHS = ("lingauss_advi", "darcy_advi")
 # the scan paths of their own runner functions (the others: one dispatch)
-FES_PT_PATHS = ("lingauss_fes", "multimodal_pt", "multimodal_pt_mala")
+OWN_RUNNER_PATHS = ("lingauss_fes", "multimodal_pt", "multimodal_pt_mala", "ode_chees")
+ODE_PATHS = ("ode_mala", "ode_hmc", "ode_nuts", "ode_chees")
 # the scan paths whose posterior mean has a closed form (the config's truth)
 CLOSED_FORM = ("gauss2d_rwm", "lingauss_pcn")
 CONJUGATE = ("lingauss_elliptical", "lingauss_fes")  # lingauss_pcn's posterior
 # The samples of the scan paths whose steps take milliseconds (plain
-# PyTorch, a thousand small launches a solve, a gradient 13 thousand): the
-# warm-up or burn-in runs in full, twice, as the runner's protocol has it,
-# unless SCAN_SHORT cuts it too; the ODE paths cut their Adam iterations
-# (map_init) and warm-up, darcy_pcn_4096's scan path its warm-up and
-# darcy_da_pod its burn-in, through runner.run_problem. Every cut is printed.
+# PyTorch, a thousand small launches a solve; a NUTS transition tens of
+# leaves of ~1 ms of host time each): the warm-up or burn-in runs in full,
+# twice, as the runner's protocol has it, unless SCAN_SHORT cuts it too;
+# ode_hmc and ode_nuts cut their warm-up, darcy_pcn_4096's scan path its
+# warm-up and darcy_da_pod its burn-in, through runner.run_problem; ode_mala,
+# each gradient one kernel launch, runs as shipped. Every cut is printed.
 SCAN_SAMPLES = {"darcy_pcn_4096 scan": 50, "darcy64_pcn": 100, "burgers_pcn scan": 100,
                 "burgers_multitime_pcn scan": 100, "darcy_da_pcn": 25,
-                "lingauss_elliptical": 200, "ode_mala": 20, "ode_hmc": 4,
+                "lingauss_elliptical": 200, "ode_hmc": 200, "ode_nuts": 30, "ode_chees": 100,
                 "darcy_advi_warmstart": 50, "darcy_da_pod": 20,
                 "darcy_da_pod_online": 20}
-SCAN_SHORT = {"ode_mala": {"burn_in": 20, "map_init": 20},
-              "ode_hmc": {"burn_in": 4, "map_init": 10},
+SCAN_SHORT = {"ode_hmc": {"burn_in": 100},
+              "ode_nuts": {"burn_in": 30},
               "darcy_pcn_4096 scan": {"burn_in": 200},
               "darcy_da_pod": {"burn_in": 50}}
 # ADVI steps of the Darcy VI paths (each a forward and an adjoint of the
@@ -3296,7 +3467,8 @@ RETIRED = {"darcy_ess_fused": ("darcy_misfit_kernel[n=16]",),
            "darcy_mala_fused": ("darcy_misfit_grad_kernel[n=16]",),
            "darcy_mala_warm": ("darcy_misfit_grad_warm_kernel",),
            "darcy64_da_fused": ("darcy_misfit_kernel[n=32]",),
-           "darcy_pcn_warm": ("darcy_misfit_warm_kernel",),
+           "darcy_pcn_warm": (MISFIT_WARM_CTA,),
+           "darcy_smc_warm": (MISFIT_WARM_CTA,),
            "darcy_da_fused": ("darcy_misfit_kernel[n=8]",),
            "burgers_da3_pcn": tuple(BURGERS_MISFIT_CTA + tag for tag in (FINE, MID, COARSE)),
            "burgers_da_pcn": (BURGERS_MISFIT_CTA + FINE, BURGERS_MISFIT_CTA + COARSE),
@@ -3433,13 +3605,19 @@ def check_metrics(config, problem, n_samples, counts, metrics):
         assert 0.0 < metrics[key] <= 1.0, f"{key} = {metrics[key]}"
     assert all(math.isfinite(v) for v in metrics["posterior_mean"])
     assert len(metrics["posterior_mean"]) == problem.dim
-    if config in SCAN_PATHS and config not in FES_PT_PATHS:  # the JAX one-dispatch keys
+    if config in SCAN_PATHS and config not in OWN_RUNNER_PATHS:  # the JAX one-dispatch keys
         assert metrics["program_count"] == 1 and metrics["sampling_steps_per_s"] > 0.0
         assert ("mean_error_vs_exact" in metrics) == (problem.exact_mean is not None)
-    if short:
-        assert metrics.get("map_init_iters") == short.get("map_init")
+    if short and problem.kernel != "chees":
+        assert metrics.get("map_init_iters") == short.get("map_init", kp.get("map_init"))
         adapt = problem.kernel_params.get("adapt")
         assert metrics["warm_steps" if adapt else "burn_steps"] == short["burn_in"]
+    if problem.kernel == "nuts":
+        assert 1.0 <= metrics["mean_tree_depth"] <= kp["max_depth"], metrics["mean_tree_depth"]
+    if problem.kernel == "chees":
+        assert 0.0 < metrics["step_size"] <= metrics["trajectory_length"], metrics
+    if config in ODE_PATHS:
+        check_ode_launches(config, problem, counts, short)
     if config in CLOSED_FORM + CONJUGATE:
         err = max(abs(a - b) for a, b in zip(metrics["posterior_mean"], problem.truth))
         assert err < 0.1, f"{config}: posterior mean off the closed form by {err}"
@@ -3455,10 +3633,33 @@ def check_metrics(config, problem, n_samples, counts, metrics):
             problem.burn_in - spec["epochs"] * spec["segment_steps"], 0)
 
 
+def check_ode_launches(config, problem, counts, short):
+    """Every gradient of an ODE path is one launch of the Lotka-Volterra
+    kernel (drive_phase has seen no plain launch, so no RK4 ran by
+    autograd): per pass of the runner, map_init Adam iterations and the
+    start's gradient, then per MALA step one, per HMC step its leapfrog
+    count, per NUTS transition at least one (a leaf), per ChEES step at
+    least one (a leapfrog step; ChEES runs map_init and its warm-up once
+    and its sampling twice)."""
+    kp = problem.kernel_params
+    map_init = (short or {}).get("map_init", kp.get("map_init", 0))
+    steps = counts.get(f"scan_{problem.kernel}_step[cuda]", 0)
+    got = counts.get(LV, 0)
+    per_step = {"mala": 1, "hmc": kp.get("num_integration_steps", 8)}.get(problem.kernel)
+    starts = map_init + 1 if problem.kernel == "chees" else 2 * (map_init + 1)
+    want = starts + (per_step or 1) * steps
+    ok = got == want if per_step else got >= want
+    print(f"{config}: {got} launches of {LV} for {steps} steps "
+          f"({'exactly' if per_step else 'at least'} {want})", flush=True)
+    if not ok or steps < 1:
+        raise AssertionError(f"{config}: {got} launches of {LV} for {steps} steps, "
+                             f"{'not' if per_step else 'below'} {want}")
+
+
 def check_smc_evidence(runs, counts, problem):
     """darcy_smc_warm against darcy_smc: log evidence within
-    SMC_EVIDENCE_ATOL, and the warm misfit's kernel launched 8 + 5 a stage
-    in each of the runner's two runs."""
+    SMC_EVIDENCE_ATOL, and the warm misfit's kernel (a draw a warp)
+    launched 8 + 5 a stage in each of the runner's two runs."""
     cold, warm = runs["darcy_smc"], runs["darcy_smc_warm"]
     gap = abs(warm["log_evidence"] - cold["log_evidence"])
     out = {"log_evidence": cold["log_evidence"], "log_evidence_warm": warm["log_evidence"],
@@ -3468,9 +3669,9 @@ def check_smc_evidence(runs, counts, problem):
         raise AssertionError(f"darcy_smc_warm's log evidence is {gap} from darcy_smc's")
     steps = problem.kernel_params["mutation_steps"]
     want = 2 * (SMC_WARM_SWEEPS + steps * warm["n_stages"])
-    got = counts["darcy_smc_warm"].get("darcy_misfit_warm_kernel", 0)
+    got = counts["darcy_smc_warm"].get(MISFIT_WARM_DST, 0)
     if got != want:
-        raise AssertionError(f"darcy_smc_warm launched darcy_misfit_warm_kernel {got} "
+        raise AssertionError(f"darcy_smc_warm launched {MISFIT_WARM_DST} {got} "
                              f"times, not 2 x ({SMC_WARM_SWEEPS} + {steps} x "
                              f"{warm['n_stages']})")
     return out
@@ -3503,7 +3704,7 @@ def main() -> int:
                   for v in configs.RICHARDSON_VARIANTS}
     check_richardson(richardson, gen, results)
     check_warm_misfit(problems["darcy_pcn_warm"], gen, results)
-    check_smc_warm_misfit(problems["darcy_smc_warm"], gen, results)
+    smc_warm_misfit = check_smc_warm_misfit(problems["darcy_smc_warm"], gen, results)
     check_single_level(problems, gen, results)
     check_large_grids(problems, gen, results)
     check_da64(problems["darcy64_da_fused"], gen, results)
@@ -3525,7 +3726,8 @@ def main() -> int:
     check_pcn_adapt_group()
     attach_ptxas(results, ptxas, group_ptxas())
     check_darcy_forward(problems)
-    ode_gradient = check_scan_forwards(problems)
+    ode_gradient = check_scan_forwards(problems, results)
+    attach_ptxas(results, ptxas, {LV: ("lv_misfit_grad_kernel",)})
 
     # the fused linear-Gaussian paths, each with the counts set to 0 before it
     counts = {}
@@ -3610,6 +3812,7 @@ def main() -> int:
     print(json.dumps({"kernels": results, "card": card, "compare_paths": compare_paths,
                       "richardson_da": richardson_da, "darcy64_da": darcy64_da,
                       "ode_gradient": ode_gradient, "smc_evidence": smc,
+                      "smc_warm_misfit": smc_warm_misfit,
                       "smc_vi_pod_runs": new_paths, "ptxas": ptxas}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

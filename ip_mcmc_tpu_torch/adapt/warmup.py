@@ -1,6 +1,6 @@
 """Warm-up drivers of the scan path (mirrors ``ip_mcmc_tpu/adapt/warmup.py``
-``warmup_rwm``, ``warmup_pcn``, ``warmup_mala``, ``warmup_hmc`` and
-``map_localize``): the acceptance signal and the proposal covariance or
+``warmup_rwm``, ``warmup_pcn``, ``warmup_mala``, ``warmup_hmc``,
+``warmup_nuts`` and ``map_localize``): the acceptance signal and the proposal covariance or
 mass matrix are pooled across chains every step; the kernel is rebuilt
 each step around the current hyper-parameters (tensors on the device, so
 no step waits for the host); adaptation is frozen afterwards."""
@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from ip_mcmc_tpu_torch.adapt import dual_averaging as da
-from ip_mcmc_tpu_torch.kernels import hmc, mala, pcn, rwm
+from ip_mcmc_tpu_torch.kernels import hmc, mala, nuts, pcn, rwm
 
 
 def _pooled_cov(positions, jitter=1e-6):
@@ -116,6 +116,24 @@ def warmup_hmc(log_density_fn, state, generator, num_steps=300,
         kernel = hmc.build_kernel(log_density_fn, step_size=da.current(das),
                                   num_integration_steps=num_integration_steps,
                                   inv_mass=inv_mass)
+        state, info = kernel(generator, state)
+        das = da.update(das, torch.mean(info.accept_prob), target=target_accept)
+        inv_mass = _variance_inv_mass(state.position)
+    return state, da.final(das), inv_mass
+
+
+def warmup_nuts(log_density_fn, state, generator, num_steps=300, max_depth=8,
+                initial_step_size=0.1, target_accept=0.8):
+    """Adapt the NUTS step size (dual averaging on the chains' mean leaf
+    acceptance) and a diagonal mass from the cross-chain variances. Returns
+    (state, step_size, inv_mass)."""
+    dev = state.position.device
+    das = da.init(initial_step_size, dev)
+    inv_mass = torch.ones(state.position.shape[1], dtype=state.position.dtype,
+                          device=dev)
+    for _ in range(num_steps):
+        kernel = nuts.build_kernel(log_density_fn, step_size=da.current(das),
+                                   max_depth=max_depth, inv_mass=inv_mass)
         state, info = kernel(generator, state)
         das = da.update(das, torch.mean(info.accept_prob), target=target_accept)
         inv_mass = _variance_inv_mass(state.position)

@@ -14,8 +14,9 @@ initial-data inversion ``burgers_pcn`` and ``burgers_multitime_pcn``
 on the scan path BASELINE configs 1 and 2, ``gauss2d_rwm`` (RWM on a 2-D
 Gaussian) and ``lingauss_pcn`` (pCN on a linear-Gaussian inverse problem),
 with ``lingauss_elliptical`` and ``lingauss_fes`` on the same problem;
-BASELINE config 3a ``ode_mala`` and ``ode_hmc`` (Lotka–Volterra log-rates,
-RK4); ``multimodal_pt`` and ``multimodal_pt_mala`` (parallel tempering on a
+BASELINE config 3a ``ode_mala``, 3b ``ode_nuts``, ``ode_hmc`` and
+``ode_chees`` (Lotka–Volterra log-rates, RK4; the misfit and its gradient
+one kernel on the card); ``multimodal_pt`` and ``multimodal_pt_mala`` (parallel tempering on a
 bimodal target); BASELINE config 5 ``darcy_smc`` (tempered SMC on the
 single-particle forward) and ``darcy_smc_warm`` (its batched mutation on the
 warm dense-``dst`` misfit); ADVI: ``lingauss_advi``, ``darcy_advi`` and the
@@ -70,7 +71,7 @@ class Problem:
     name: str
     dim: int
     prior: dist.DiagGaussian
-    kernel: str  # rwm | pcn | elliptical | da_pcn | fes | mala | hmc | pt | smc | vi
+    kernel: str  # rwm pcn elliptical da_pcn fes mala hmc nuts chees pt smc vi
     kernel_params: dict
     n_chains: int
     n_samples: int
@@ -118,8 +119,6 @@ REGISTRY: dict = {}
 # kernel, kernel_params option or model it needs (the runner refuses a
 # problem that asks for one of those) and what that is
 NOT_PORTED = {
-    "ode_nuts": ("nuts", "the NUTS kernel (kernels/nuts.py) and warmup_nuts"),
-    "ode_chees": ("chees", "the ChEES-HMC kernel (kernels/chees_hmc.py) and its runner path"),
     "darcy_composed_pcn": ("pcn_composed",
                            "the composed chains x model mesh (parallel/composed.py)"),
     "darcy_composed_mala": ("mala_composed",
@@ -262,7 +261,6 @@ def _lv_problem(device, kernel: str, kernel_params: dict, n_chains: int) -> Prob
     prior N(0, 0.3²) on the four log-rates. y and the truth are frozen in
     ``lv.npz`` (the noise is drawn with a JAX key)."""
     fx = np.load(LV_FIXTURE)
-    fwd = ode.make_lotka_volterra_forward(LV_Y0, LV_DT, LV_STEPS, LV_OBS)
     m = 2 * len(LV_OBS)
     noise = dist.DiagGaussian(mean=torch.zeros(m, device=device),
                               scale=0.1 * torch.ones(m, device=device))
@@ -280,8 +278,8 @@ def _lv_problem(device, kernel: str, kernel_params: dict, n_chains: int) -> Prob
         data=fx["y"],
         truth=fx["theta_true"],
         notes="Lotka-Volterra log-rate inference; smooth, autograd through RK4",
-        potential_fn=potentials.misfit_potential(
-            fwd, torch.tensor(fx["y"], device=device), noise),
+        potential_fn=ode.LotkaVolterraMisfit(
+            LV_Y0, LV_DT, LV_STEPS, LV_OBS, torch.tensor(fx["y"], device=device), noise),
     )
 
 
@@ -298,6 +296,26 @@ def ode_hmc(device) -> Problem:
     return _lv_problem(device, "hmc",
                        {"step_size": 0.05, "num_integration_steps": 8,
                         "adapt": True, "map_init": 300}, 512)
+
+
+@register
+def ode_chees(device) -> Problem:
+    """ChEES-HMC on the ODE forward model: one trajectory length for every
+    chain, adapted across them (the ensemble alternative to NUTS)."""
+    p = _lv_problem(device, "chees",
+                    {"step_size": 0.05, "trajectory_length": 0.5, "map_init": 300}, 512)
+    p.burn_in = 300
+    return p
+
+
+@register
+def ode_nuts(device) -> Problem:
+    """BASELINE config 3b: NUTS on the ODE forward model."""
+    p = _lv_problem(device, "nuts",
+                    {"step_size": 0.05, "max_depth": 8, "adapt": True, "map_init": 300}, 256)
+    p.n_samples = 500
+    p.burn_in = 200
+    return p
 
 
 # --- the bimodal target (parallel tempering) ----------------------------------

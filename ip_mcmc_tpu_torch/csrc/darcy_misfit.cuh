@@ -1436,6 +1436,27 @@ __device__ __forceinline__ void apply_operator_warp(const WarpDstSliceLevel& lv,
   lv.stencil(op, p, Ap);
 }
 
+// Phi(u) for the chain of this warp from the lane's cells x of a previous
+// solution, which the solve replaces by its own, on a level whose
+// preconditioner scales by a_bar (WarpDstSliceLevel, WarpTruncSliceLevel):
+// the set-up, a_bar (Sum log a in block_sum's order), the warm CG, the
+// residuals.
+template <class L>
+__device__ float darcy_phi_warm_warp(L& lv, const float* u, float (&x)[L::kC]) {
+  constexpr int C = L::kC;
+  const WarpOperator<C> op = lv.setup(u);
+  float log_a[C], b[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    log_a[k] = logf(lv.ws.p[L::at(k)]);  // a, where setup left it
+    b[k] = lv.s->source[L::cell(k)];
+  }
+  __syncwarp();  // the reads end before sum writes p
+  lv.a_bar = expf(lv.sum(log_a) / static_cast<float>(L::kCells));
+  darcy_cg_warp<true>(lv, op, b, x);
+  return lv.observe(x);
+}
+
 // One level of the KL product's reduce-and-scatter: the lane's 2 O sums
 // v[0..2 O) become the O of its half (v[e + O] when bit O of the lane is
 // set, else v[e]), each plus the other lane's sum of the same mode.
@@ -1702,20 +1723,9 @@ struct WarpTruncSliceLevel : WarpSliceLevel {
   }
 
   // Phi(u) for the chain of this warp from the lane's cells x of a previous
-  // solution, which the solve replaces by its own: the set-up, a_bar (Sum
-  // log a in block_sum's order), the warm CG, the residuals.
+  // solution (darcy_phi_warm_warp).
   __device__ float phi_warm(const float* u, float (&x)[kC]) {
-    const WarpOperator<kC> op = setup(u);
-    float log_a[kC], b[kC];
-#pragma unroll
-    for (int k = 0; k < kC; ++k) {
-      log_a[k] = logf(ws.p[at(k)]);  // a, where setup left it
-      b[k] = s->source[cell(k)];
-    }
-    __syncwarp();  // the reads end before sum writes p
-    a_bar = expf(sum(log_a) / static_cast<float>(kCells));
-    darcy_cg_warp<true>(*this, op, b, x);
-    return observe(x);
+    return darcy_phi_warm_warp(*this, u, x);
   }
 };
 

@@ -13,6 +13,10 @@
 //   darcy_misfit_warm_warp_kernel  the same on a spec of the 16 x 16 warm
 //                                  pCN below, one draw a warp on its
 //                                  level (WarpTruncSliceLevel).
+//   darcy_misfit_warm_dst_warp_kernel  the same on a 16 x 16 dense-dst CG
+//                                  spec (darcy_smc_warm's mutation), one
+//                                  draw a warp on warm MALA's level
+//                                  (WarpDstSliceLevel).
 //   darcy_misfit_warm_cluster_kernel  the same on the specs of the 64 x 64
 //                                  samplers' exact level, one draw a CTA,
 //                                  G draws a thread-block cluster.
@@ -651,6 +655,141 @@ inline int launch_misfit_warm_warp(const MisfitBatch& a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- the standalone 16 x 16 dense-dst warm misfit: one draw a warp -----------
+//
+// (Phi, x) for a (K, B) batch of the warm 16 x 16 dense-dst CG misfit from
+// the starts x0 (darcy_smc_warm's mutation: dst / 6 CG at 4096 particles, 8
+// sweeps from x0 = 0, then 5 a stage, each from the particle's carried
+// solution): one draw a warp on warm MALA's level, WarpDstSliceLevel
+// (darcy_misfit.cuh: WarpSliceLevel's set-up, stencil and dot products in
+// block_sum's order, the dense dst's four stages on the warp from bf16
+// operands, rounded where apply_dst rounds), through
+// darcy_phi_warm_warp: the forward half of
+// darcy_misfit_grad_warm_warp_kernel (fused_mala.cu), which keeps the bits
+// of the one-draw-a-CTA kernels. One draw a CTA of Layout16
+// (darcy_misfit_warm_kernel: 0.300 ms a call at 4096 draws on an H100 80GB
+// HBM3, 700 W; PERF.md) sums every dot product over its 256 threads behind
+// CTA barriers, with no other work for the SM to overlap. What bounds a draw
+// here is the latency of its solve's dependent chain (12 stencil applies,
+// 7 dense dst applies of four 16-term stages, 20 sums a CG iteration), not
+// the bytes (the 64 + 256 floats in, 1 + 256 out) or the operations. So: a
+// draw a warp, none waiting on another, 16 a CTA. The KL basis, S, S^T and
+// the dst eigenvalues are staged once a CTA; each warp's slice holds its
+// draw's u and the solve's p, th, tv and the dst stage buffer. x0 comes in
+// and x goes out through the th slices, W consecutive columns of a row at a
+// time, behind a CTA barrier at each end; the spare warps of a ragged last
+// CTA solve nothing.
+
+// The design (scripts/measure_misfit_warm_dst_design.py times the
+// alternatives): kWarps draws a CTA, one a warp; the launch bound's warps
+// an SM (kSmWarps).
+struct MisfitWarmDstWarpDesign { static constexpr int kWarps = 16, kSmWarps = 16; };
+constexpr int kMisfitWarmDstWarpMinCtas =
+    MisfitWarmDstWarpDesign::kSmWarps >= 2 * MisfitWarmDstWarpDesign::kWarps
+        ? MisfitWarmDstWarpDesign::kSmWarps / MisfitWarmDstWarpDesign::kWarps
+        : 1;
+// a warp's floats: the draw's u, the slices p, th, tv, the dst stage buffer
+constexpr int kMisfitWarmDstWarpFloats = kPcnD + 4 * WarpSliceLevel::kStride;
+// Dynamic shared memory of a launch: the staged basis, S, S^T and lam, a
+// slice a warp.
+constexpr size_t kMisfitWarmDstWarpSmem =
+    WarpSliceLevel::staged_bytes() + WarpDstSliceLevel::staged_dst_bytes() +
+    sizeof(float) * kMisfitWarmDstWarpFloats * MisfitWarmDstWarpDesign::kWarps;
+static_assert(kMisfitWarmDstWarpSmem <= 232448,
+              "the design's CTA exceeds the card's shared memory");
+
+// Whether darcy_misfit_warm_dst_warp_kernel takes this spec
+// (ipx_darcy_misfit_warm sends it there): WarpDstSliceLevel's, i.e. 16 x
+// 16, K = 64, dense dst with no modes, CG, any cg_iters. Mirrored by
+// ip_mcmc_tpu_torch/ops/fused_pcn.py misfit_warm_dst_warp_takes.
+inline bool misfit_warm_dst_warp_takes(const IpxMisfitSpec& s) {
+  return s.n == WarpSliceLevel::kN && s.K == kPcnD && s.precond == kPrecondDst &&
+         s.modes == 0 && s.solver == kSolverCg && s.m >= 0;
+}
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_pcn.py
+// misfit_warm_dst_warp_geometry: kWarps draws a CTA; what
+// misfit_warm_dst_warp_takes refuses, cudaErrorNotSupported.
+inline int misfit_warm_dst_warp_geometry(const IpxMisfitSpec& s, int B, PcnWarpGeometry* geo) {
+  if (!misfit_warm_dst_warp_takes(s)) return cudaErrorNotSupported;
+  if (B < 0) return cudaErrorInvalidValue;
+  geo->warps = MisfitWarmDstWarpDesign::kWarps;
+  geo->ctas = (B + geo->warps - 1) / geo->warps;
+  geo->smem = kMisfitWarmDstWarpSmem;
+  return cudaSuccess;
+}
+
+__global__ void __launch_bounds__(32 * MisfitWarmDstWarpDesign::kWarps,
+                                  kMisfitWarmDstWarpMinCtas)
+    darcy_misfit_warm_dst_warp_kernel(const __grid_constant__ MisfitBatch a) {
+  constexpr int kStride = WarpSliceLevel::kStride, kCells = WarpSliceLevel::kCells;
+  constexpr int kC = WarpSliceLevel::kC;
+  extern __shared__ float4 misfit_warm_dst_warp_smem_buf[];
+  unsigned char* const base = reinterpret_cast<unsigned char*>(misfit_warm_dst_warp_smem_buf);
+  const float* basis = WarpSliceLevel::stage(a.s, reinterpret_cast<float*>(base));
+  unsigned char* const dst = base + WarpSliceLevel::staged_bytes();
+  WarpDstSliceLevel::stage_dst(a.s, dst);
+  float* slices = reinterpret_cast<float*>(dst + WarpDstSliceLevel::staged_dst_bytes());
+  // the CTA's draws' coefficients and starts, W consecutive columns of U and
+  // x0 a row (x0 to the slice th, free before the solve)
+  const int W = blockDim.x >> 5, b0 = blockIdx.x * W, B = a.B;
+  for (int e = threadIdx.x; e < kPcnD * W; e += blockDim.x) {
+    const int k = e / W, j = e % W;
+    if (b0 + j < B)
+      slices[j * kMisfitWarmDstWarpFloats + k] = a.U[static_cast<size_t>(k) * B + b0 + j];
+  }
+  for (int e = threadIdx.x; e < kCells * W; e += blockDim.x) {
+    const int r = e / W, j = e % W;
+    if (b0 + j < B)
+      slices[j * kMisfitWarmDstWarpFloats + kPcnD + kStride + WarpSliceLevel::pad(r)] =
+          a.x0[static_cast<size_t>(r) * B + b0 + j];
+  }
+  __syncthreads();  // the staged factors, every warp's u and x0
+  const int b = b0 + (threadIdx.x >> 5);
+  float* u = slices + (threadIdx.x >> 5) * kMisfitWarmDstWarpFloats;
+  float* slice = u + kPcnD;  // p, th, tv, q
+  if (b < B) {  // a spare warp solves nothing
+    const WarpSmem ws{slice, slice + kStride, slice + 2 * kStride};
+    const __nv_bfloat16* S = WarpDstSliceLevel::staged_S(dst);
+    WarpDstSliceLevel lv{WarpSliceLevel{&a.s, basis, ws},
+                         S,
+                         S + WarpSliceLevel::kN * WarpDstSliceLevel::kRow,
+                         WarpDstSliceLevel::staged_lam(dst),
+                         reinterpret_cast<__nv_bfloat16*>(slice + 3 * kStride),
+                         1.0f};
+    float x[kC];
+#pragma unroll
+    for (int k = 0; k < kC; ++k) x[k] = ws.th[WarpSliceLevel::at(k)];
+    __syncwarp();  // the reads end before the set-up writes th
+    const float v = darcy_phi_warm_warp(lv, u, x);
+#pragma unroll
+    for (int k = 0; k < kC; ++k) ws.th[WarpSliceLevel::at(k)] = x[k];
+    if ((threadIdx.x & 31) == 0) a.phi[b] = v;
+  }
+  __syncthreads();  // every warp's solution
+  for (int e = threadIdx.x; e < kCells * W; e += blockDim.x) {
+    const int r = e / W, j = e % W;
+    if (b0 + j < B)
+      a.x[static_cast<size_t>(r) * B + b0 + j] =
+          slices[j * kMisfitWarmDstWarpFloats + kPcnD + kStride + WarpSliceLevel::pad(r)];
+  }
+}
+
+// Launches darcy_misfit_warm_dst_warp_kernel on the batch: the status of the
+// geometry or of the launch.
+inline int launch_misfit_warm_dst_warp(const MisfitBatch& a, void* stream) {
+  PcnWarpGeometry geo;
+  const int status = misfit_warm_dst_warp_geometry(a.s, a.B, &geo);
+  if (status != cudaSuccess) return status;
+  if (a.B == 0) return cudaSuccess;
+  const int smem = static_cast<int>(geo.smem);
+  cudaFuncSetAttribute(darcy_misfit_warm_dst_warp_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  darcy_misfit_warm_dst_warp_kernel<<<geo.ctas, 32 * geo.warps, smem,
+                                      static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // --- one chain a warp: K6 on Burgers -----------------------------------------
 //
 // burgers_pcn and burgers_multitime_pcn (128 cells; 154 Godunov steps a pCN step, one segment or
@@ -820,24 +959,35 @@ int launch_misfit_warm(const IpxMisfitSpec& s, const float* U, const float* x0, 
 
 extern "C" {
 
+// The one-draw-a-CTA kernel of the spec's layout (darcy_misfit_warm_kernel up
+// to 16 x 16), whatever the rules above say: the kernel a spec no rule takes
+// runs on, and the reference that the kernels a draw a warp are held to.
+int ipx_darcy_misfit_warm_layout(const IpxMisfitSpec* s, const float* U, const float* x0, int B,
+                                 float* phi, float* x, void* stream) {
+  return ipx::with_darcy_layout<kSolverCg>(*s, [&](auto pot) {
+    return ipx::launch_misfit_warm<decltype(pot)>(*s, U, x0, B, phi, x, stream);
+  });
+}
+
 // A spec of the 16 x 16 warm pCN (misfit_warm_warp_takes) goes to
-// darcy_misfit_warm_warp_kernel; one of a cluster sampler's level that a
-// warm sampler solves on (misfit_cluster_warm_takes) to
-// darcy_misfit_warm_cluster_kernel (64 x 64) or
-// darcy_misfit_warm_cluster32_kernel (32 x 32); for every other, a spec of
+// darcy_misfit_warm_warp_kernel; a 16 x 16 dense-dst one
+// (misfit_warm_dst_warp_takes) to darcy_misfit_warm_dst_warp_kernel; one of
+// a cluster sampler's level that a warm sampler solves on
+// (misfit_cluster_warm_takes) to darcy_misfit_warm_cluster_kernel (64 x 64)
+// or darcy_misfit_warm_cluster32_kernel (32 x 32); for every other, a spec of
 // the 64 x 64 DA kernel's surrogate level among them, the layout follows the
-// spec's grid.
+// spec's grid (ipx_darcy_misfit_warm_layout).
 int ipx_darcy_misfit_warm(const IpxMisfitSpec* s, const float* U, const float* x0, int B,
                           float* phi, float* x, void* stream) {
   if (ipx::misfit_warm_warp_takes(*s))
     return ipx::launch_misfit_warm_warp({*s, U, x0, B, phi, x}, stream);
+  if (ipx::misfit_warm_dst_warp_takes(*s))
+    return ipx::launch_misfit_warm_dst_warp({*s, U, x0, B, phi, x}, stream);
   if (ipx::misfit_cluster_warm_takes(*s))
     return ipx::launch_misfit_cluster(ipx::darcy_misfit_warm_cluster_kernel,
                                       ipx::darcy_misfit_warm_cluster32_kernel, nullptr,
                                       {*s, U, x0, B, phi, x}, stream);
-  return ipx::with_darcy_layout<kSolverCg>(*s, [&](auto pot) {
-    return ipx::launch_misfit_warm<decltype(pot)>(*s, U, x0, B, phi, x, stream);
-  });
+  return ipx_darcy_misfit_warm_layout(s, U, x0, B, phi, x, stream);
 }
 
 // x0 == null: cold pCN, else warm. What fused_pcn_warp_kernel takes
@@ -880,6 +1030,20 @@ int ipx_pcn_warp_geometry(const IpxMisfitSpec* pot, const IpxChainArgs* chain, i
 int ipx_darcy_misfit_warm_warp_geometry(const IpxMisfitSpec* s, int B, int* out) {
   ipx::PcnWarpGeometry geo{0, 0, 0};
   const int status = ipx::misfit_warm_warp_geometry(*s, B, &geo);
+  out[0] = geo.warps;
+  out[1] = geo.ctas;
+  out[2] = static_cast<int>(geo.smem);
+  return status;
+}
+
+// The standalone 16 x 16 dense-dst warm misfit's launch geometry
+// (darcy_misfit_warm_dst_warp_kernel) for this spec and B draws: out =
+// {draws a CTA, CTAs, dynamic shared-memory bytes}; the status the launch
+// would return for them, cudaErrorNotSupported for a spec that goes to
+// another kernel (the wrapper's mirror is checked against this on the card).
+int ipx_darcy_misfit_warm_dst_warp_geometry(const IpxMisfitSpec* s, int B, int* out) {
+  ipx::PcnWarpGeometry geo{0, 0, 0};
+  const int status = ipx::misfit_warm_dst_warp_geometry(*s, B, &geo);
   out[0] = geo.warps;
   out[1] = geo.ctas;
   out[2] = static_cast<int>(geo.smem);

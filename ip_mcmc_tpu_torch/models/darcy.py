@@ -568,12 +568,15 @@ class DarcyMisfitWarm(DarcyMisfit):
     def warm_kernel_label(self) -> str:
         """The launch count's name of the kernel that
         ``ipx_darcy_misfit_warm`` sends this misfit to: a draw a warp on the
-        16×16 warm pCN's solve (``fused_pcn.misfit_warm_warp_takes``), the
-        cluster levels a warm sampler solves on
+        16×16 warm pCN's solve (``fused_pcn.misfit_warm_warp_takes``) or, at
+        dense dst, on warm MALA's (``fused_pcn.misfit_warm_dst_warp_takes``),
+        the cluster levels a warm sampler solves on
         (``_cluster.misfit_cluster_takes`` with ``warm=True``), or one draw a
         CTA."""
         if fused_pcn.misfit_warm_warp_takes(**self.spec_fields):
             return f"{fused_pcn.MISFIT_WARM_WARP_KERNEL}[n={self.n}]"
+        if fused_pcn.misfit_warm_dst_warp_takes(**self.spec_fields):
+            return f"{fused_pcn.MISFIT_WARM_DST_WARP_KERNEL}[n={self.n}]"
         if not _cluster.misfit_cluster_takes(**self.spec_fields, warm=True):
             return "darcy_misfit_warm_kernel"
         return ("darcy_misfit_warm_cluster32_kernel" if self.n == _cluster.N32
@@ -593,19 +596,31 @@ class DarcyMisfitWarm(DarcyMisfit):
             return self._forward_warm_plain(U, x0)
         raise ValueError(f"DarcyMisfitWarm: unsupported device {U.device}")
 
-    def _forward_warm_kernel(self, U, x0):
+    def _forward_warm_kernel(self, U, x0, layout=False):
         U, x0 = U.contiguous(), x0.contiguous()
         B = U.shape[1]
         phi = torch.empty(B, dtype=torch.float32, device=U.device)
         x = torch.empty_like(x0)
         spec = self.spec()
-        status = _build.library().ipx_darcy_misfit_warm(
+        lib = _build.library()
+        launch = lib.ipx_darcy_misfit_warm_layout if layout else lib.ipx_darcy_misfit_warm
+        label = "darcy_misfit_warm_kernel" if layout else self.warm_kernel_label
+        status = launch(
             ctypes.byref(spec), U.data_ptr(), x0.data_ptr(), B, phi.data_ptr(),
             x.data_ptr(), torch.cuda.current_stream(U.device).cuda_stream,
         )
-        _build.check(status, self.warm_kernel_label)
-        _build.launch_counts[self.warm_kernel_label] += 1
+        _build.check(status, label)
+        _build.launch_counts[label] += 1
         return phi, x
+
+    def forward_layout(self, U: torch.Tensor, x0: torch.Tensor):
+        """(Φ, x) on the one-draw-a-CTA kernel of the grid's layout
+        (``darcy_misfit_warm_kernel`` up to 16×16), whatever kernel the
+        rules pick for this misfit: the reference that the kernels a draw a
+        warp are held to on the card. CUDA tensors only."""
+        if U.device.type != "cuda":
+            raise ValueError(f"forward_layout launches a kernel: got {U.device}")
+        return self._forward_warm_kernel(U, x0, layout=True)
 
     def _forward_warm_plain(self, U, x0):
         _build.launch_counts["darcy_misfit_warm_plain"] += 1

@@ -11,13 +11,18 @@ stages.
 its rates formed once a solve, so a stage is one ``exp``, a swap of the two
 species and one fused multiply-add; the stage inputs and the update are
 fused adds. The arithmetic is JAX's up to the contraction of a multiply and
-an add into one rounding."""
+an add into one rounding. ``LotkaVolterraMisfit`` is the configs' misfit of
+that forward: on the card one kernel gives its value and gradient
+(``ops/lv_rk4.py``), on the CPU this module's loop under autograd."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from ip_mcmc_tpu_torch import potentials
+from ip_mcmc_tpu_torch.ops import _build, lv_rk4
 
 
 def _rk4_step(field, y, dt, params):
@@ -99,6 +104,47 @@ def make_lotka_volterra_forward(y0, dt, n_steps, obs_indices, obs_species=(0, 1)
         return pred.reshape(rates.shape[:-1] + (-1,))
 
     return forward
+
+
+PLAIN = "lv_misfit_plain"  # the plain version's launch count
+
+
+class LotkaVolterraMisfit:
+    """Φ(θ) = ½‖(y − G(θ)) / σ‖² of the Lotka–Volterra forward
+    (``make_lotka_volterra_forward``) for (..., 4) log-rates. On a CUDA
+    tensor it runs ``ops/lv_rk4.py``'s kernel, which gives Φ and ∇Φ of every
+    chain in one launch (autograd reaches ∇Φ through
+    ``LvMisfitFunction``); on a CPU tensor the plain version,
+    ``potentials.misfit_potential`` of the forward, differentiated by
+    autograd through the RK4 loop. ``noise`` is a ``DiagGaussian`` of zero
+    mean."""
+
+    def __init__(self, y0, dt, n_steps, obs_indices, data, noise, obs_species=(0, 1)):
+        self.plain = potentials.misfit_potential(
+            make_lotka_volterra_forward(y0, dt, n_steps, obs_indices, obs_species), data, noise)
+        self.spec = lv_rk4.LvSpec.build(y0, dt, n_steps, obs_indices, obs_species,
+                                        torch.as_tensor(data).cpu().numpy(),
+                                        noise.scale.cpu().numpy(), noise.scale.device)
+
+    def __call__(self, theta):
+        if theta.device.type == "cuda":
+            lead = theta.shape[:-1]
+            phi = lv_rk4.LvMisfitFunction.apply(theta.reshape(-1, 4), self.spec)
+            return phi.reshape(lead)
+        if theta.device.type != "cpu":
+            raise ValueError(f"LotkaVolterraMisfit: unsupported device {theta.device}")
+        _build.launch_counts[PLAIN] += 1
+        return self.plain(theta)
+
+    def plain_value_and_grad(self, theta):
+        """Φ and ∇Φ of the plain version on ``theta``'s device, by autograd
+        through the RK4 loop: the kernel's reference on the card."""
+        _build.launch_counts[PLAIN] += 1
+        with torch.enable_grad():
+            x = theta.detach().requires_grad_(True)
+            phi = self.plain(x)
+            (grad,) = torch.autograd.grad(phi.sum(), x)
+        return phi.detach(), grad
 
 
 def logistic_field(y, theta):

@@ -109,6 +109,24 @@ class GaussianSpec(ctypes.Structure):
     ]
 
 
+class LvSpec(ctypes.Structure):
+    """Mirror of ``IpxLvSpec`` in ``csrc/lv_rk4.cu``."""
+
+    _fields_ = [
+        ("obs_step", ctypes.c_void_p),
+        ("species", ctypes.c_void_p),
+        ("data", ctypes.c_void_p),
+        ("noise", ctypes.c_void_p),
+        ("z0", ctypes.c_float * 2),
+        ("half_dt", ctypes.c_float),
+        ("dt", ctypes.c_float),
+        ("dt6", ctypes.c_float),
+        ("n_steps", ctypes.c_int),
+        ("T", ctypes.c_int),
+        ("S", ctypes.c_int),
+    ]
+
+
 class ChainArgs(ctypes.Structure):
     """Mirror of ``IpxChainArgs`` in ``csrc/fused_scaffold.cuh``."""
 
@@ -243,8 +261,13 @@ def library():
         # spec, B, out (3,): the geometry of the warp misfit kernel on the
         # 16x16 DA kernel's levels
         lib.bind("ipx_darcy_misfit_warp_geometry", [spec, i, p])
+        # the same arguments: the one-draw-a-CTA kernel of the spec's layout
+        lib.bind("ipx_darcy_misfit_warm_layout", [spec, p, p, i, p, p, p])
         # spec, B, out (3,): the 16x16 warm warp misfit kernel's geometry
         lib.bind("ipx_darcy_misfit_warm_warp_geometry", [spec, i, p])
+        # spec, B, out (3,): the 16x16 dense-dst warm warp misfit kernel's
+        # geometry
+        lib.bind("ipx_darcy_misfit_warm_dst_warp_geometry", [spec, i, p])
         # spec, B, out (3,): the 16x16 Jacobi slice misfit kernel's geometry
         lib.bind("ipx_darcy_misfit_slice_geometry", [spec, i, p])
         # exact, surrogate, chain, Φ0 (n,), Φ*0 (n,), β, √(1−β²), k,
@@ -320,6 +343,10 @@ def library():
         lib.bind("ipx_fused_pcn_adapt_chain", [gspec, chain, p, p, f, f, f, f, f, f, p])
         # spec, chain, out (4,): the adaptive group kernel's geometry
         lib.bind("ipx_pcn_adapt_group_geometry", [gspec, chain, p])
+        # the Lotka-Volterra misfit and gradient: spec, θ (n, 4), n, states
+        # scratch ((n_steps + 1) 2n), Φ (n,), ∇Φ (n, 4), stream
+        lib.bind("ipx_lv_misfit_grad", [ctypes.POINTER(LvSpec), p, i, p, p, p, p])
+        lib.bind("ipx_lv_spec_size", [])
         lib.bind("ipx_error_string", [i], ctypes.c_char_p)
         lib.bind("ipx_misfit_spec_size", [])
         _lib = lib

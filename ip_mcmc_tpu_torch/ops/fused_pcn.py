@@ -35,7 +35,10 @@ the whole ``n_steps`` loop in one launch, picked by the spec
 ``misfit_warm_warp_takes`` and ``misfit_warm_warp_geometry`` mirror the rule
 and the launch geometry of ``darcy_misfit_warm_warp_kernel``, which
 evaluates the warm misfit at the start positions from x0 a draw a warp on
-the warm warp kernel's level (``models.darcy.DarcyMisfitWarm`` launches it).
+the warm warp kernel's level (``models.darcy.DarcyMisfitWarm`` launches it);
+``misfit_warm_dst_warp_takes`` and ``misfit_warm_dst_warp_geometry`` those of
+``darcy_misfit_warm_dst_warp_kernel``, the dense-dst warm misfit of
+``darcy_smc_warm`` a draw a warp on warm MALA's level.
 
 For CPU tensors they run the step builders below on the plain scaffold
 ``_scaffold.run_plain``, with any features-first callable.
@@ -242,6 +245,48 @@ def misfit_warm_warp_geometry(B, *, n=WARP_N, K=WARP_D, precond="dst_trunc", mod
         raise ValueError(f"B {B}")
     return (MISFIT_WARM_WARP_DRAWS, -(-B // MISFIT_WARM_WARP_DRAWS),
             _misfit_warm_warp_smem(modes))
+
+
+# The standalone 16×16 dense-dst warm misfit ``darcy_misfit_warm_dst_warp_kernel``
+# (``MisfitWarmDstWarpDesign`` in ``csrc/fused_pcn.cu``): draws (warps) a CTA
+# on warm MALA's level (``WarpDstSliceLevel``); after the staged basis, S, Sᵀ
+# and λ (DST_BYTES), a warp's u (d floats), the slices p, th, tv and the dst
+# stage buffer.
+MISFIT_WARM_DST_WARP_DRAWS = 16
+MISFIT_WARM_DST_WARP_KERNEL = "darcy_misfit_warm_dst_warp_kernel"
+DST_BYTES = 2 * 2 * WARP_N * 24 + 4 * SLICE_FLOATS  # S and Sᵀ in bf16 rows of 24, λ
+_MISFIT_WARM_DST_WARP_BYTES = 4 * (WARP_D + 4 * SLICE_FLOATS)
+
+
+def misfit_warm_dst_warp_takes(*, n, K, precond, modes, solver):
+    """Whether ``ipx_darcy_misfit_warm`` sends a warm misfit of these fields
+    to ``darcy_misfit_warm_dst_warp_kernel``, as
+    ``misfit_warm_dst_warp_takes`` in ``csrc/fused_pcn.cu`` decides: a
+    WARP_N grid, K = WARP_D, the dense dst preconditioner with no modes, CG,
+    any number of CG iterations (``darcy_smc_warm``'s mutation misfit). The
+    dst_trunc specs of ``misfit_warm_warp_takes`` are tried first; Jacobi,
+    another grid or K go to the cluster levels or to the one-draw-a-CTA
+    ``darcy_misfit_warm_kernel``."""
+    return (n == WARP_N and K == WARP_D and precond == "dst" and modes == 0
+            and solver == "cg")
+
+
+def misfit_warm_dst_warp_geometry(B, *, n=WARP_N, K=WARP_D, precond="dst", modes=0,
+                                  solver="cg"):
+    """(draws a CTA, CTAs, dynamic shared-memory bytes) of a launch of
+    ``darcy_misfit_warm_dst_warp_kernel`` on B draws, as
+    ``misfit_warm_dst_warp_geometry`` in ``csrc/fused_pcn.cu`` computes it:
+    a draw a warp, the design's draws a CTA, the spare warps of a ragged
+    last CTA solve nothing. Raises ``ValueError`` for a misfit that
+    ``misfit_warm_dst_warp_takes`` leaves to the other kernels, or B < 0."""
+    if not misfit_warm_dst_warp_takes(n=n, K=K, precond=precond, modes=modes, solver=solver):
+        raise ValueError(f"the dense-dst warm warp misfit kernel takes a {WARP_N}x{WARP_N} "
+                         f"dense dst CG misfit with K = {WARP_D}; got {n}x{n} {precond} "
+                         f"({modes} modes) {solver}, K {K}")
+    if B < 0:
+        raise ValueError(f"B {B}")
+    return (MISFIT_WARM_DST_WARP_DRAWS, -(-B // MISFIT_WARM_DST_WARP_DRAWS),
+            BASIS_BYTES + DST_BYTES + MISFIT_WARM_DST_WARP_DRAWS * _MISFIT_WARM_DST_WARP_BYTES)
 
 
 def _darcy_stem(pot, warm, d=WARP_D):

@@ -4,14 +4,14 @@
 scan path, or with ``--fused`` their fused kernel; ``gauss2d_rwm``,
 ``lingauss_pcn``, ``lingauss_elliptical``, ``lingauss_fes``,
 ``darcy64_pcn``, ``darcy_da_pcn``, ``ode_mala``, ``ode_hmc``,
-``multimodal_pt`` and ``multimodal_pt_mala`` run the scan path (plain
-PyTorch over the chains), as do ``darcy_da_pod`` and ``darcy_da_pod_online``
+``ode_nuts``, ``ode_chees``, ``multimodal_pt`` and ``multimodal_pt_mala``
+run the scan path (plain PyTorch over the chains; the ODE configs' misfit
+and gradient one kernel on the card), as do ``darcy_da_pod`` and ``darcy_da_pod_online``
 (delayed acceptance on a POD surrogate) and ``darcy_advi_warmstart`` (with
 ``--fused``, the fused kernel); ``darcy_smc`` and ``darcy_smc_warm`` run
 tempered SMC (the warm one's mutation on the warm misfit's kernel),
 ``lingauss_advi`` and ``darcy_advi`` ADVI. A JAX config not ported yet
-(``ode_nuts``, ``ode_chees``, the composed ones) raises
-``NotImplementedError``.
+(the three composed ones) raises ``NotImplementedError``.
 
 Prints one JSON line of metrics (the keys of ``ip_mcmc_tpu.run``). Runs on
 the card by default; ``--device cpu`` runs the kernels' plain versions.

@@ -3,12 +3,13 @@
 (two- and three-level), ``pcn`` (cold and warm), ``elliptical``, ``fes``,
 ``mala`` (cold and warm) and ``rwm`` branches; the scan path's
 ``_setup_kernel_state`` (``rwm``, ``pcn``, ``da_pcn``, ``elliptical``,
-``mala``, ``hmc``, with ``map_init``) and ``_run_one_dispatch``; ``_run_fes``,
-``_run_pt`` and ``_pt_pair_metrics``; ``_run_smc``, ``_run_vi``, ``_vi_warm_start`` and
-``_pod_enrich_burnin``; ``_resolve_n_low_modes``, ``_finalize``). Returns
-the JAX runner's JSON-able metrics dict, key for key. NUTS, ChEES and the
-composed samplers are not ported: the runner refuses them
-(``NotImplementedError``).
+``mala``, ``hmc``, ``nuts``, with ``map_init``) and ``_run_one_dispatch``;
+``_run_chees``, ``_run_fes``, ``_run_pt`` and ``_pt_pair_metrics``;
+``_run_smc``, ``_run_vi``, ``_vi_warm_start`` and ``_pod_enrich_burnin``;
+``_resolve_n_low_modes``, ``_finalize``). Returns the JAX runner's JSON-able
+metrics dict, key for key. The composed samplers (the chains × model mesh
+of the three ``darcy_composed_*`` configs) are not ported: the runner
+refuses them (``NotImplementedError``).
 
 Fused timing protocol (as the JAX runner's): the burn launch uses seed 1
 and is timed as ``warmup_s`` (on the card it also pays the kernels' build
@@ -16,9 +17,9 @@ at first use); the recorded launch uses seed 2 and runs twice — the first
 call builds and runs, the identical second call is timed as ``run_s``, and
 the difference is ``compile_s``. ``first_dispatch_s`` is the time of the
 first device synchronisation. The scan path's protocol is
-``_run_one_dispatch``'s; ``_run_fes`` and ``_run_pt`` run their sampling
-twice and time the second run, as ``_run_smc`` runs the sampler; ``_run_vi``
-times its one fit.
+``_run_one_dispatch``'s; ``_run_chees`` times its warm-up, then, as
+``_run_fes`` and ``_run_pt``, runs its sampling twice and times the second
+run, as ``_run_smc`` runs the sampler; ``_run_vi`` times its one fit.
 """
 
 from __future__ import annotations
@@ -34,15 +35,18 @@ from ip_mcmc_tpu_torch.adapt import (
     map_localize,
     warmup_hmc,
     warmup_mala,
+    warmup_nuts,
     warmup_pcn,
     warmup_rwm,
 )
 from ip_mcmc_tpu_torch.kernels import (
+    chees_hmc,
     da_pcn,
     elliptical,
     ensemble,
     hmc,
     mala,
+    nuts,
     pcn,
     rwm,
     tempering,
@@ -56,7 +60,7 @@ _PHASE_KEYS = ("warmup_s", "trace_s", "compile_s", "first_dispatch_s", "run_s",
 # the kernels and kernel_params options the port does not run yet (those
 # that configs.NOT_PORTED's configs need)
 FUSED_KERNELS = ("pcn", "elliptical", "da_pcn", "fes", "mala", "rwm")
-SCAN_KERNELS = ("rwm", "pcn", "da_pcn", "elliptical", "mala", "hmc")
+SCAN_KERNELS = ("rwm", "pcn", "da_pcn", "elliptical", "mala", "hmc", "nuts")
 NOT_PORTED = tuple(sorted({need for need, _ in configs.NOT_PORTED.values()}))
 
 
@@ -266,7 +270,7 @@ def _setup_kernel_state(problem, positions, generator):
     """(kernel, state, warm_steps) of the scan path. With
     ``kernel_params["adapt"]`` the warm-up (``problem.burn_in`` steps,
     drawn from ``generator``) replaces the burn-in, and ``warm_steps``
-    counts its chain steps; ``map_init`` (MALA, HMC) first moves the
+    counts its chain steps; ``map_init`` (MALA, HMC, NUTS) first moves the
     positions by that many Adam iterations, which are not chain steps."""
     kp = dict(problem.kernel_params)
     adapt = kp.pop("adapt", False)
@@ -277,7 +281,7 @@ def _setup_kernel_state(problem, positions, generator):
     kp.pop("pod_enrich", None)
     warm_steps = 0
     num_warm = problem.burn_in or 300
-    if map_init and problem.kernel in ("mala", "hmc"):
+    if map_init and problem.kernel in ("mala", "hmc", "nuts"):
         positions = map_localize(problem.log_density_fn, positions,
                                  num_steps=map_init)
     if problem.kernel == "rwm":
@@ -345,6 +349,20 @@ def _setup_kernel_state(problem, positions, generator):
                                       num_integration_steps=nint, inv_mass=inv_mass)
         else:
             kernel = hmc.build_kernel(logpi, **kp)
+    elif problem.kernel == "nuts":
+        logpi = problem.log_density_fn
+        state = driver.init_chains(nuts.init, positions, logpi)
+        md = kp.get("max_depth", 8)
+        if adapt:
+            num_warm = problem.burn_in or 200
+            warm_steps += num_warm
+            state, eps, inv_mass = warmup_nuts(
+                logpi, state, generator, num_steps=num_warm, max_depth=md,
+                initial_step_size=kp.get("step_size", 0.1))
+            kernel = nuts.build_kernel(logpi, step_size=eps, max_depth=md,
+                                       inv_mass=inv_mass)
+        else:
+            kernel = nuts.build_kernel(logpi, **kp)
     else:
         raise ValueError(f"unknown scan kernel {problem.kernel}")
     return kernel, state, warm_steps
@@ -421,10 +439,72 @@ def _run_one_dispatch(problem, seed, n_chains, n_samples, device):
         metrics["steps_per_s"] = total_steps / run_s
     if hasattr(info_means, "accepted"):  # ESS has no accept/reject
         metrics["accept_rate"] = float(info_means.accepted.mean())
+    if problem.kernel == "nuts":  # the mean leaf acceptance, and the tree depth
+        metrics["accept_rate"] = float(info_means.accept_prob.mean())
+        metrics["mean_tree_depth"] = float(info_means.depth.mean())
     if problem.exact_mean is not None:
         metrics["mean_error_vs_exact"] = float(
             np.abs(flat_mean - problem.exact_mean).max())
     return metrics
+
+
+def _run_chees(problem, seed, n_chains, n_samples, device):
+    """ChEES-HMC (the JAX runner's ``_run_chees``): the batch kernel's own
+    warm-up (``problem.burn_in`` steps, timed as ``warmup_s``), then the
+    sampling with (ε, τ) frozen, run twice from the same seed; the second
+    run is ``run_s``. Positions from a host generator seeded with ``seed``,
+    moved by ``map_init`` Adam iterations; the warm-up and the sampling
+    draw from generators on ``device`` seeded with ``seed`` + 1 and + 2."""
+    kp = dict(problem.kernel_params)
+    logpi = problem.log_density_fn
+    positions = problem.init_positions(
+        torch.Generator().manual_seed(int(seed)), n_chains).to(device)
+    map_init = kp.pop("map_init", 0)
+    if map_init:
+        positions = map_localize(logpi, positions, num_steps=map_init)
+
+    t0 = time.perf_counter()
+    state, eps, traj, inv_mass = chees_hmc.warmup_chees(
+        logpi, positions, torch.Generator(device).manual_seed(int(seed) + 1),
+        num_steps=problem.burn_in or 400, initial_step_size=kp.get("step_size", 0.1),
+        initial_trajectory=kp.get("trajectory_length", 1.0))
+    _barrier(device)
+    warm_s = time.perf_counter() - t0
+
+    def sample():
+        out = chees_hmc.sample_chees(
+            logpi, state, torch.Generator(device).manual_seed(int(seed) + 2), eps, traj,
+            inv_mass, n_samples=n_samples, burn_in=0, thin=problem.thin)
+        _barrier(device)
+        return out
+
+    t0 = time.perf_counter()
+    sample()
+    compile_and_run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, samples, infos = sample()
+    run_s = time.perf_counter() - t0
+
+    summ, diag_s = _summarize_timed(samples)
+    return {
+        "config": problem.name,
+        "kernel": "chees",
+        "n_chains": int(n_chains),
+        "n_samples": int(n_samples),
+        "dim": int(problem.dim),
+        "warmup_s": warm_s,
+        "compile_s": max(compile_and_run_s - run_s, 0.0),
+        "run_s": run_s,
+        "steps_per_s": n_samples * problem.thin * n_chains / run_s,
+        "diag_s": diag_s,
+        "min_ess": float(summ["min_ess"]),
+        "ess_per_s": float(summ["min_ess"]) / run_s,
+        "max_rhat": float(summ["max_rhat"]),
+        "accept_rate": float(infos.accept_prob.mean()),
+        "step_size": float(eps),
+        "trajectory_length": float(traj),
+        "posterior_mean": summ["mean"].tolist(),
+    }
 
 
 def _run_fes(problem, seed, n_chains, n_samples, device):
@@ -745,7 +825,7 @@ def _refuse(problem, what):
         f"config {problem.name}: {what} is not ported. Ported are the fused "
         f"{', '.join(FUSED_KERNELS)} paths (kernel_params['fused'] and a "
         "batched potential; pass --fused to a pCN config that has one), the "
-        f"scan {', '.join(SCAN_KERNELS)} paths and the scan fes and pt paths "
+        f"scan {', '.join(SCAN_KERNELS)} paths and the scan chees, fes and pt paths "
         "of the configs with a potential_fn, tempered SMC (smc; batched and "
         "warm with kernel_params['batched']), ADVI (vi), the vi_init warm "
         "start and pod_enrich on the scan da_pcn path; not ported: "
@@ -803,6 +883,8 @@ def run_problem(problem, device, seed: int = 0, n_chains=None,
     elif problem.potential_fn is None:
         _refuse(problem, f"the scan '{problem.kernel}' path without a "
                 "single-particle potential_fn")
+    elif problem.kernel == "chees":
+        metrics = _run_chees(problem, seed, n_chains, n_samples, device)
     elif problem.kernel == "fes":
         metrics = _run_fes(problem, seed, n_chains, n_samples, device)
     elif problem.kernel == "pt":

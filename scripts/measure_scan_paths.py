@@ -1,7 +1,7 @@
 """Time the scan paths' steps and the ODE gradient on the card.
 
     python scripts/measure_scan_paths.py [--reps N] [--runs CONFIG[:CUTS] ...] [--out FILE]
-        [--only-smc-vi-pod]
+        [--only-smc-vi-pod | --only-ode]
 
 At each config's full width, on the card: one ``ode_mala`` gradient of
 log π at 1024 chains (the 200-step RK4 solve and its backward), the
@@ -22,7 +22,20 @@ configs through ``runner.run_problem`` on the card, as the CLI does, and
 prints each one's metrics: ``ode_hmc:burn_in=20,map_init=300,n_samples=40``
 cuts those fields (``n_samples`` the run's, the others the config's); a bare
 name runs as shipped. ``--runs`` alone skips the step rows (``--reps 0``);
-``--only-smc-vi-pod`` keeps only the SMC, ADVI and POD rows.
+``--only-smc-vi-pod`` keeps only the SMC, ADVI and POD rows; ``--only-ode``
+only the ODE rows: the Lotka–Volterra kernel alone (``lv_misfit_grad_kernel``)
+at 256, 512 and 1024 chains (also timed by CUDA events over back-to-back
+launches through its C entry, the wrapper's host path left out:
+``chip_smoke.lv_launch_ms``), one gradient of log π at 1024 chains through it
+and through the plain version (autograd through the RK4 loop), one step of
+``ode_mala`` and ``ode_hmc``, and one NUTS transition of ``ode_nuts`` (256
+chains, after 100 Adam iterations and 30 warm-up transitions; the same
+draws each call) at the shipped spacing of the host reads
+(``nuts.CHECK_EVERY``), then every 1, 2, 4, 8 and 16 leaves in turns (up
+and down, three rounds; four transitions of distinct draws a turn, the
+median, least and largest turn), and one
+ChEES step of ``ode_chees`` (512 chains, after 100 Adam iterations and 30
+warm-up steps).
 Needs a card; exits 1 without.
 """
 
@@ -100,6 +113,8 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="a JSON file for every row and run")
     ap.add_argument("--only-smc-vi-pod", action="store_true",
                     help="of the step rows, only the SMC, ADVI and POD ones")
+    ap.add_argument("--only-ode", action="store_true",
+                    help="of the step rows, only the ODE ones (the LV kernel, NUTS, ChEES)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure_scan_paths: no CUDA device", file=sys.stderr)
@@ -125,6 +140,10 @@ def main(argv=None):
 
     if args.only_smc_vi_pod:
         smc_vi_pod_rows(rows, start, args.reps)
+        write_out(args.out, card, rows, runs)
+        return 0
+    if args.only_ode:
+        ode_rows(rows, start, args.reps)
         write_out(args.out, card, rows, runs)
         return 0
 
@@ -262,6 +281,102 @@ def smc_vi_pod_rows(rows, start, reps):
                                  kp["beta"], kp["subchain_len"])
     rows.append(row("darcy_da_pod outer step: 4 POD + 48-CG exact, 4096",
                     lambda: kernel(g, st), reps))
+
+
+# the NUTS host-read spacings of --only-ode: transitions a turn, rounds of turns
+NUTS_SEEDS, NUTS_ROUNDS = 4, 3
+
+
+def ode_rows(rows, start, reps):
+    """The ODE rows of ``--only-ode``."""
+    from chip_smoke import lv_launch_ms
+    from ip_mcmc_tpu_torch import configs
+    from ip_mcmc_tpu_torch.adapt import map_localize, warmup_nuts
+    from ip_mcmc_tpu_torch.kernels import base, chees_hmc, hmc, mala, nuts
+    from ip_mcmc_tpu_torch.ops import lv_rk4
+
+    p = configs.build("ode_mala", "cuda")
+    pot = p.potential_fn
+    for n in (256, 512, 1024):
+        th = start(p, n)
+        rows.append(row(f"lv_misfit_grad_kernel alone, {n} chains",
+                        lambda th=th: lv_rk4.misfit_and_grad(th, pot.spec), reps,
+                        back_to_back_ms=lv_launch_ms(th, pot.spec)))
+    x = start(p, 1024)
+    rows.append(row("ode_mala gradient of log pi through the kernel, 1024 chains",
+                    lambda: base.value_and_grad(p.log_density_fn)(x), reps))
+    plain = base.value_and_grad(lambda t: -pot.plain(t) - p.prior.potential(t))
+    rows.append(row("ode_mala gradient of log pi, the plain version, 1024 chains",
+                    lambda: plain(x), reps))
+
+    def step_row(name, kernel, state, **extra):
+        g = torch.Generator("cuda").manual_seed(1)
+        return row(name, lambda: kernel(g, state), reps, **extra)
+
+    st = mala.init(x, p.log_density_fn)
+    rows.append(step_row("ode_mala step, 1024 chains", mala.build_kernel(p.log_density_fn, 0.05),
+                         st))
+    p = configs.build("ode_hmc", "cuda")
+    st = hmc.init(start(p, p.n_chains), p.log_density_fn)
+    rows.append(step_row("ode_hmc step (8 leapfrog steps), 512 chains",
+                         hmc.build_kernel(p.log_density_fn, 0.05, 8), st))
+
+    p = configs.build("ode_nuts", "cuda")
+    logpi = p.log_density_fn
+    pos = map_localize(logpi, start(p, p.n_chains), num_steps=100)
+    st, eps, inv_mass = warmup_nuts(logpi, nuts.init(pos, logpi),
+                                    torch.Generator("cuda").manual_seed(2), num_steps=30,
+                                    max_depth=8, initial_step_size=0.05)
+    kernel = nuts.build_kernel(logpi, eps, 8, inv_mass)
+    infos = [kernel(torch.Generator("cuda").manual_seed(seed), st)[1]
+             for seed in range(1, NUTS_SEEDS + 1)]
+    tree = dict(step_size=float(eps),
+                mean_depth=float(torch.cat([i.depth for i in infos]).float().mean()),
+                max_depth=int(torch.cat([i.depth for i in infos]).max()),
+                mean_leaves=float(torch.cat([i.num_steps for i in infos]).float().mean()))
+    rows.append(row(f"ode_nuts transition, 256 chains, a host read every {nuts.CHECK_EVERY} "
+                    "leaves (shipped)", lambda: kernel(torch.Generator("cuda").manual_seed(1), st),
+                    reps, **tree))
+
+    def transitions():  # NUTS_SEEDS transitions from st, the draws of seeds 1, 2, ...
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for seed in range(1, NUTS_SEEDS + 1):
+            kernel(torch.Generator("cuda").manual_seed(seed), st)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / NUTS_SEEDS * 1e3
+
+    # the spacing of the host reads in turns (up, then down, NUTS_ROUNDS
+    # times): every spacing meets the same trees, and the host's drift
+    # within the call falls on all of them alike
+    spacings, shipped = (1, 2, 4, 8, 16), nuts.CHECK_EVERY
+    times = {e: [] for e in spacings}
+    try:
+        for every in (spacings + spacings[::-1]) * NUTS_ROUNDS:
+            nuts.CHECK_EVERY = every
+            times[every].append(transitions())
+    finally:
+        nuts.CHECK_EVERY = shipped
+    for every in spacings:
+        ms = sorted(times[every])
+        out = {"name": f"ode_nuts transition, 256 chains, a host read every {every} leaves, "
+                       f"in turns ({NUTS_SEEDS} transitions a turn)",
+               "ms": ms[len(ms) // 2], "ms_min": ms[0], "ms_max": ms[-1], "ms_turns": times[every],
+               **tree}
+        print(json.dumps(out), flush=True)
+        rows.append(out)
+
+    p = configs.build("ode_chees", "cuda")
+    logpi = p.log_density_fn
+    pos = map_localize(logpi, start(p, p.n_chains), num_steps=100)
+    st, eps, tau, inv_mass = chees_hmc.warmup_chees(
+        logpi, pos, torch.Generator("cuda").manual_seed(2), num_steps=30,
+        initial_step_size=0.05, initial_trajectory=0.5)
+    n_leap = int(torch.clamp(torch.ceil(chees_hmc.halton(30) * tau / eps), min=1))
+    rows.append(row("ode_chees step, 512 chains",
+                    lambda: chees_hmc.step(logpi, st, torch.Generator("cuda").manual_seed(1), 30,
+                                           eps, tau, inv_mass), reps,
+                    step_size=float(eps), trajectory_length=float(tau), n_leap=n_leap))
 
 
 def run_config(spec):

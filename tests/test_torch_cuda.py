@@ -2354,22 +2354,26 @@ def test_misfit_warm_warp_rule_and_geometry_match_the_kernel(warm_problem):
 
 
 def test_warm_kernel_takes_the_warm_specs_the_warp_rule_leaves(warm_problem):
-    """The 16² warm specs the rule leaves stay on darcy_misfit_warm_kernel
-    (one draw a CTA) and meet their twins from x0 = 0 and from the previous
+    """The 16² warm specs the rule leaves go to darcy_misfit_warm_kernel
+    (one draw a CTA; the dense dst one to darcy_misfit_warm_dst_warp_kernel,
+    a draw a warp) and meet their twins from x0 = 0 and from the previous
     solution: bf16 preconditioners under 5e-3, Jacobi f32 only under 1e-4."""
     g = torch.Generator().manual_seed(46)
-    for pot, max_rel in zip(_warm_specs_left(warm_problem)[:3], (5e-3, 1e-4, 5e-3)):
-        assert pot.warm_kernel_label == "darcy_misfit_warm_kernel"
+    labels = ("darcy_misfit_warm_dst_warp_kernel[n=16]", "darcy_misfit_warm_kernel",
+              "darcy_misfit_warm_kernel")
+    for pot, max_rel, label in zip(_warm_specs_left(warm_problem)[:3], (5e-3, 1e-4, 5e-3),
+                                   labels):
+        assert pot.warm_kernel_label == label
         U = warm_problem.prior.sample(g, 256).T.contiguous()
         x0 = torch.zeros(pot.aux_dim, 256, device="cuda")
-        before = _build.launch_counts["darcy_misfit_warm_kernel"]
+        before = _build.launch_counts[label]
         for _ in range(2):
             phi, x = pot(U, x0)
             ref_phi, ref_x = pot._forward_warm_plain(U, x0)
             assert float(_rel(phi, ref_phi).max()) <= max_rel, pot.precond
             assert float(_col_err(x, ref_x).max()) <= max(max_rel, 1e-3), pot.precond
             U, x0 = (0.9968 * U + 0.08 * warm_problem.prior.sample(g, 256).T).contiguous(), x
-        assert _build.launch_counts["darcy_misfit_warm_kernel"] == before + 2
+        assert _build.launch_counts[label] == before + 2
 
 
 def _surrogates():
@@ -2552,3 +2556,116 @@ def test_warm16_and_surr8_equal_their_samplers_own_solves(warm_problem):
         (phi_k7, x_k7), _ = design.sampler_first_solves(_build, lib, other, U, [])
         phi, x = other(U, zeros)
         assert torch.equal(phi, phi_k7) and torch.equal(x, x_k7), modes
+
+
+# --- the 16² dense-dst warm misfit a draw a warp (darcy_smc_warm) -------------
+
+
+@pytest.fixture
+def smc_warm_problem():
+    return _build_on_card("darcy_smc_warm")
+
+
+def test_warm_dst_warp_kernel_is_the_cta_kernel_bit_for_bit(smc_warm_problem):
+    """darcy_smc_warm's dense dst / 6 CG misfit on darcy_misfit_warm_dst_warp_kernel
+    against the one-draw-a-CTA darcy_misfit_warm_kernel it replaces
+    (forward_layout), at 4096 draws from x0 = 0 and from the solution after
+    a mutation-sized move: (Φ, x) bit for bit (warm MALA's level keeps the
+    CTA's sum orders and bf16 roundings)."""
+    warm, aux_dim = smc_warm_problem.batched_warm_potential
+    assert warm.warm_kernel_label == "darcy_misfit_warm_dst_warp_kernel[n=16]"
+    g = torch.Generator().manual_seed(60)
+    U = smc_warm_problem.prior.sample(g, 4096).T.contiguous()
+    U2 = (0.989 * U + 0.15 * smc_warm_problem.prior.sample(g, 4096).T).contiguous()
+    x0 = torch.zeros(aux_dim, 4096, device="cuda")
+    before = _build.launch_counts[warm.warm_kernel_label]
+    for u in (U, U2):
+        phi, x = warm(u, x0)
+        phi_ref, x_ref = warm.forward_layout(u, x0)
+        assert torch.equal(phi, phi_ref) and torch.equal(x, x_ref)
+        x0 = x
+    assert _build.launch_counts[warm.warm_kernel_label] == before + 2
+
+
+def test_warm_dst_warp_kernel_on_a_ragged_width(smc_warm_problem):
+    """13 draws: one CTA, 3 spare warps; the first 13 of a 16-draw launch."""
+    warm, aux_dim = smc_warm_problem.batched_warm_potential
+    U = smc_warm_problem.prior.sample(torch.Generator().manual_seed(61), 16).T.contiguous()
+    x0 = torch.zeros(aux_dim, 16, device="cuda")
+    got, full = warm(U[:, :13].contiguous(), x0[:, :13].contiguous()), warm(U, x0)
+    assert torch.equal(got[0], full[0][:13]) and torch.equal(got[1], full[1][:, :13])
+
+
+def test_warm_dst_warp_geometry_matches_the_kernel(smc_warm_problem):
+    """ops/fused_pcn.py misfit_warm_dst_warp_geometry and
+    misfit_warm_dst_warp_takes give what the C function computes:
+    cudaErrorNotSupported (801) for a Jacobi and a dst_trunc warm spec."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.convert import darcy_warm_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    lib = _build.library()
+    aux = darcy.darcy_aux(n_grid=16, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    left = [darcy_warm_misfit_from_arrays(aux, smc_warm_problem.data, 0.002, cg_iters=6,
+                                          precond=pc, precond_modes=64)[0].cuda()
+            for pc in ("jacobi", "dst_trunc")]
+    for pot in (smc_warm_problem.batched_warm_potential[0], *left):
+        for B in (4096, 13, 1, 0):
+            out = (ctypes.c_int * 3)()
+            spec = pot.spec()
+            status = lib.ipx_darcy_misfit_warm_dst_warp_geometry(ctypes.byref(spec), B, out)
+            if fused_pcn.misfit_warm_dst_warp_takes(**pot.spec_fields):
+                assert status == 0 and tuple(out) == fused_pcn.misfit_warm_dst_warp_geometry(
+                    B, **pot.spec_fields)
+            else:
+                assert status == 801
+
+
+# --- the Lotka-Volterra misfit and gradient (lv_misfit_grad_kernel) ----------
+
+
+@pytest.fixture
+def ode_problem():
+    return _build_on_card("ode_mala")
+
+
+def test_lv_kernel_matches_plain(ode_problem):
+    """Φ and ∇Φ of 1024 chains (prior draws, half doubled) in one launch
+    against the plain version (autograd through the RK4 loop on the card):
+    Φ within 1e-4 relative, ∇Φ within 1e-3 of each chain's largest entry;
+    and against the kernel's algorithm in PyTorch (adjoint_reference, the
+    same f32 arithmetic up to the contraction of products into sums)."""
+    from ip_mcmc_tpu_torch.ops import lv_rk4
+
+    pot = ode_problem.potential_fn
+    th = ode_problem.prior.sample(torch.Generator().manual_seed(62), 1024)
+    th[512:] *= 2.0
+    before = _build.launch_counts[lv_rk4.KERNEL]
+    phi, grad = lv_rk4.misfit_and_grad(th, pot.spec)
+    assert _build.launch_counts[lv_rk4.KERNEL] == before + 1
+    for ref_phi, ref_grad in (pot.plain_value_and_grad(th),
+                              lv_rk4.adjoint_reference(th, pot.spec)):
+        assert float(_rel(phi, ref_phi).max()) <= 1e-4
+        assert float(_col_err(grad.T, ref_grad.T).max()) <= 1e-3
+
+
+def test_lv_kernel_through_autograd(ode_problem):
+    """log π's gradient (base.value_and_grad) is the kernel's, one launch a
+    gradient; a second derivative raises; a ragged width and (..., 4)
+    batches reshape."""
+    from ip_mcmc_tpu_torch.kernels import base
+    from ip_mcmc_tpu_torch.ops import lv_rk4
+
+    pot = ode_problem.potential_fn
+    th = ode_problem.prior.sample(torch.Generator().manual_seed(63), 77)
+    before = _build.launch_counts[lv_rk4.KERNEL]
+    _, g = base.value_and_grad(ode_problem.log_density_fn)(th)
+    assert _build.launch_counts[lv_rk4.KERNEL] == before + 1
+    phi, grad = lv_rk4.misfit_and_grad(th, pot.spec)
+    assert torch.allclose(g, -grad - th / 0.09, rtol=1e-6, atol=1e-6)
+    assert torch.equal(pot(th.reshape(7, 11, 4)), phi.reshape(7, 11))
+    x = th.clone().requires_grad_(True)
+    (gx,) = torch.autograd.grad(pot(x).sum(), x, create_graph=True)
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(gx.sum(), x)

@@ -126,7 +126,7 @@ def test_warp_rule_takes_the_8_surrogates(name):
 
 
 @pytest.mark.parametrize("name, label", [
-    ("dst", "darcy_misfit_warm_kernel"),            # the dense dst preconditioner
+    ("dst", "darcy_misfit_warm_dst_warp_kernel[n=16]"),  # dense dst: warm MALA's level
     ("jacobi", "darcy_misfit_warm_kernel"),         # Jacobi
     ("dst_trunc-128", "darcy_misfit_warm_kernel"),  # 128 > 112 modes
     ("warm8", "darcy_misfit_warm_kernel"),          # an 8² warm spec
@@ -135,8 +135,9 @@ def test_warp_rule_takes_the_8_surrogates(name):
     ("richardson16", "darcy_misfit_kernel[n=16,richardson]"),  # Richardson at 16²
 ])
 def test_rules_leave_the_other_specs(name, label):
-    """Each leaves the spec to the kernel it had (one draw a CTA), both
-    geometry mirrors refuse it, and the label names that kernel."""
+    """Each leaves the spec to another kernel (one draw a CTA; the 16²
+    dense dst one a draw a warp on warm MALA's level), both geometry mirrors
+    refuse it, and the label names that kernel."""
     pot = _left(name)
     assert not fused_pcn.misfit_warm_warp_takes(**pot.spec_fields)
     with pytest.raises(ValueError, match="warm warp misfit kernel takes"):

@@ -322,10 +322,6 @@ def test_lingauss_runs_print_jax_runner_keys(name, capsys):
 # --- what the runner refuses ---------------------------------------------------------
 
 NOT_PORTED = {  # JAX config -> the kernel and parameters it runs
-    "ode_nuts": ("nuts", {"step_size": 0.05, "max_depth": 8, "adapt": True,
-                          "map_init": 300}),
-    "ode_chees": ("chees", {"step_size": 0.05, "trajectory_length": 0.5,
-                            "map_init": 300}),
     "darcy_composed_pcn": ("pcn_composed", {"beta": 0.08}),
     "darcy_composed_mala": ("mala_composed", {"step_size": 0.05}),
     "darcy_composed_ess": ("ess_composed", {"max_shrink": 20}),

@@ -266,8 +266,9 @@ def test_cli_lists_seven_configs(capsys):
     lingauss_elliptical, lingauss_fes, ode_mala, ode_hmc, multimodal_pt and
     multimodal_pt_mala; since tempered SMC, ADVI and the POD surrogates,
     darcy_smc, darcy_smc_warm, lingauss_advi, darcy_advi,
-    darcy_advi_warmstart, darcy_da_pod and darcy_da_pod_online. The configs
-    not ported yet are not listed."""
+    darcy_advi_warmstart, darcy_da_pod and darcy_da_pod_online; since NUTS
+    and ChEES, ode_nuts and ode_chees. The configs not ported yet are not
+    listed."""
     assert run.main(["--list"]) == 0
     names = [ln.split()[0] for ln in capsys.readouterr().out.strip().splitlines()]
     assert names == sorted(SINGLE_LEVEL + GRADIENT_AND_ENSEMBLE
@@ -278,7 +279,8 @@ def test_cli_lists_seven_configs(capsys):
                            + ("darcy_da_pcn", "lingauss_elliptical", "lingauss_fes",
                               "ode_mala", "ode_hmc", "multimodal_pt", "multimodal_pt_mala")
                            + ("darcy_smc", "darcy_smc_warm", "lingauss_advi", "darcy_advi",
-                              "darcy_advi_warmstart", "darcy_da_pod", "darcy_da_pod_online"))
+                              "darcy_advi_warmstart", "darcy_da_pod", "darcy_da_pod_online")
+                           + ("ode_nuts", "ode_chees"))
     assert not set(names) & set(configs.NOT_PORTED)
 
 
