@@ -68,10 +68,14 @@ Gaussians), times both, then drives the ported paths at full width:
                              functional ensemble sampler on the scan path
     ode_mala, ode_hmc        MALA and HMC on the RK4 Lotka-Volterra forward;
                              each gradient one launch of
-                             lv_misfit_grad_kernel (its discrete adjoint),
+                             lv_misfit_grad_kernel (its discrete adjoint from
+                             the stage exponentials kept in shared memory),
                              the kernel first held against its plain
                              version (autograd through the RK4 loop) at 256,
-                             512 and 1024 chains, and one gradient at 1024
+                             512 and 1024 chains and against the states
+                             kernel it replaced, bit for bit, timed beside
+                             it and the latency floor; the states kernel on
+                             a spec the rule leaves; one gradient at 1024
                              chains timed beside the plain path's
     ode_nuts, ode_chees      BASELINE config 3b, NUTS, and ChEES-HMC on the
                              same kernel, at 256 and 512 chains
@@ -94,6 +98,14 @@ Gaussians), times both, then drives the ported paths at full width:
     darcy_da_pod, darcy_da_pod_online   scan delayed acceptance on a POD
                              surrogate (batched Cholesky), the second
                              enriched during burn-in
+    checkpoint ode_mala      checkpoint.CheckpointingDriver and the in-scan
+                             checkpoints over ode_mala's MALA kernel at 1024
+                             chains: a run interrupted and resumed from disk
+                             equals the uninterrupted one bit for bit
+    ode_mala --metrics-log --tensorboard --profile-dir   the CLI's three
+                             observability flags at 50 samples: the metrics
+                             log, its TensorBoard events read back, and the
+                             Chrome trace's device events of the LV kernel
 
 The fourteen fused configs, the scan, SMC and VI paths run through the
 port's CLI (the slow scan paths with their samples cut, darcy_da_pcn to 25
@@ -222,19 +234,27 @@ def cuda_time_ms(fn, reps: int) -> float:
 def device_ms(fn, reps: int, needle: str):
     """Device time of one call of ``fn``: what torch.profiler (CUPTI)
     records in the kernels whose names hold ``needle`` over ``reps`` calls
-    after a warm-up, divided by ``reps``; None when it records none. A small
-    call's CUDA-event time can be the host's time to issue it."""
+    after a warm-up, divided by ``reps``; None when three profiles in a row
+    record none (a profile has come back without its device records). A
+    small call's CUDA-event time can be the host's time to issue it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
-             for e in prof.key_averages() if needle in e.key)
-    return us / reps / 1e3 if us else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+                 for e in prof.key_averages() if needle in e.key)
+        if us:
+            return us / reps / 1e3
+    return None
+
+
+def ms_text(ms, digits=4) -> str:
+    return "not recorded" if ms is None else f"{ms:.{digits}f}"
 
 
 def slope_ms(run, short: int, long: int, reps: int) -> float:
@@ -3184,12 +3204,18 @@ LV_PHI_RTOL, LV_GRAD_TOL = 1e-4, 1e-3
 LV = "lv_misfit_grad_kernel"
 # the ODE paths by width: the kernel's rows of the kernels line
 LV_WIDTHS = {256: ["ode_nuts"], 512: ["ode_hmc", "ode_chees"], 1024: ["ode_mala"]}
+LV_STATES = "lv_misfit_grad_states_kernel"
+# a spec the stages kernel leaves (its e^Y exceed a CTA's shared memory): the
+# configs' span in LV_LEFT_STEPS steps, on the states kernel
+LV_LEFT_STEPS = 4000
 # f32 operations of one RK4 step for one chain that the value and gradient
 # need, an exp counted as one and a multiply-add as two: the forward (4 stages
 # of 2 exp and 2 multiply-adds, 3 stage inputs of 2 multiply-adds, the
 # increment and the update) 50; its adjoint (per stage 10, the stage inputs'
-# and the state's cotangents 24) 64. The kernel recomputes each step's
-# forward in its backward rather than store the stages' e^Y: not counted
+# and the state's cotangents 24) 64. lv_misfit_grad_kernel computes just
+# these, reading the stages' e^Y back from shared memory; the states kernel
+# of the specs it leaves recomputes each step's forward in its backward: not
+# counted
 LV_STEP_OPS = 50 + 64
 # per observed value: e^z, the whitened residual (a subtract and a divide),
 # its square added (a multiply-add), and its derivative -w e^z / sigma added
@@ -3208,82 +3234,162 @@ def lv_bound(spec, n):
     return bound(Ops(f32=ops), n * 4 * (4 + 1 + 4) + spec_bytes)
 
 
-def lv_launch_ms(theta, spec, launches=200):
-    """lv_misfit_grad_kernel's time a launch with the wrapper's host path
-    left out: CUDA events around ``launches`` back-to-back launches through
-    its C entry on buffers allocated once (a launch's host cost, a few µs,
-    is below its device time, so the events time the card)."""
+def lv_launch_ms(theta, spec, states_kernel=False, launches=200):
+    """A launch's time with the wrapper's host path left out: CUDA events
+    around ``launches`` back-to-back launches through the C entry on
+    buffers allocated once (a launch's host cost, a few µs, is below its
+    device time, so the events time the card); lv_misfit_grad_kernel, or
+    with ``states_kernel`` lv_misfit_grad_states_kernel and its scratch."""
     import ctypes
 
     from ip_mcmc_tpu_torch.ops import _build
 
     lib, n = _build.library(), theta.shape[0]
-    states = torch.empty((spec.n_steps + 1) * 2 * n, device="cuda")
+    entry = lib.ipx_lv_misfit_grad_states if states_kernel else lib.ipx_lv_misfit_grad
+    states = torch.empty((spec.n_steps + 1) * 2 * n, device="cuda") if states_kernel else None
     phi, grad = torch.empty(n, device="cuda"), torch.empty(n, 4, device="cuda")
-    args = (ctypes.byref(spec.c_struct), theta.data_ptr(), n, states.data_ptr(),
-            phi.data_ptr(), grad.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _build.check(lib.ipx_lv_misfit_grad(*args), LV)
+    args = (ctypes.byref(spec.c_struct), theta.data_ptr(), n,
+            None if states is None else states.data_ptr(), phi.data_ptr(), grad.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(entry(*args), LV)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(launches):
-        lib.ipx_lv_misfit_grad(*args)
+        entry(*args)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / launches
 
 
+def lv_errors(phi, grad, refs):
+    """Phi's largest relative error, the gradient's largest of each chain's
+    largest entry and Phi's largest absolute error against each reference
+    (name -> (Phi, gradient))."""
+    return {k: (float(((phi.double() - v[0]).abs() / v[0].abs()).max()),
+                float(((grad.double() - v[1]).abs().amax(1) / v[1].abs().amax(1)).max()),
+                float((phi.double() - v[0]).abs().max())) for k, v in refs.items()}
+
+
+def lv_within(phi, grad, errs):
+    return (bool(torch.isfinite(phi).all()) and bool(torch.isfinite(grad).all())
+            and all(v[0] <= LV_PHI_RTOL and v[1] <= LV_GRAD_TOL for v in errs.values()))
+
+
+LV_REPLACES = ("none: ip_mcmc_tpu/models/ode.py:56 under jax.value_and_grad "
+               "(lax.scan, no Pallas kernel)")
+
+
 def check_lv_kernel(problems, results):
-    """lv_misfit_grad_kernel at each ODE path's width (256, 512, 1024 prior
-    draws, half doubled) against its plain version on the same inputs
-    (autograd through the RK4 loop on the card) and against that loop in
-    f64: Phi within LV_PHI_RTOL, the gradient within LV_GRAD_TOL of each
-    chain's largest entry, the measured maxima printed; its time (CUDA
-    events through the wrapper, and over back-to-back launches through its
-    C entry: the card's time) beside the plain version's and its bound.
-    Appends a kernels-line row a width."""
+    """lv_misfit_grad_kernel (the stage exponentials in shared memory) at
+    each ODE path's width (256, 512, 1024 prior draws, half doubled) against
+    its plain version on the same inputs (autograd through the RK4 loop on
+    the card) and against that loop in f64: Phi within LV_PHI_RTOL, the
+    gradient within LV_GRAD_TOL of each chain's largest entry, the measured
+    maxima printed; and against lv_misfit_grad_states_kernel, the kernel it
+    replaced, bit for bit (the count of chains that differ printed; 0 is
+    required). Its time (CUDA events through the wrapper; over back-to-back
+    launches through its C entry; the profiler's device time) beside the
+    states kernel's, the plain version's, its bound and the latency floor
+    (lv_forward_floor_kernel: one thread, the forward's stage chain alone).
+    Then the states kernel on a spec the stages kernel leaves
+    (LV_LEFT_STEPS steps of the configs' span) through misfit_and_grad,
+    against its plain version. Appends a kernels-line row a width, and one
+    for the states kernel."""
+    from ip_mcmc_tpu_torch import distributions as dist
+    from ip_mcmc_tpu_torch import configs
+    from ip_mcmc_tpu_torch.models import ode
     from ip_mcmc_tpu_torch.ops import _build, lv_rk4
 
     p = problems["ode_mala"]
     pot = p.potential_fn
+    floor_theta = p.prior.sample(torch.Generator().manual_seed(74), 1)[0]
+    floor_ms = device_ms(lambda: lv_rk4.forward_floor(floor_theta, pot.spec), 50,
+                         lv_rk4.FLOOR_KERNEL)
+    print(f"{LV} latency floor (one thread, {pot.spec.n_steps} steps x 4 stages forward, "
+          f"nothing kept): {ms_text(floor_ms)} ms of device time", flush=True)
     for n, paths in LV_WIDTHS.items():
         th = p.prior.sample(torch.Generator().manual_seed(75 + n), n)
         th[n // 2:] *= 2.0
-        before = _build.launch_counts[LV]
+        before = dict(_build.launch_counts)
         phi, grad = lv_rk4.misfit_and_grad(th, pot.spec)
         torch.cuda.synchronize()
-        assert _build.launch_counts[LV] == before + 1, f"{LV} did not launch"
-        errs = {}
-        for ref_name, (ref_phi, ref_grad) in (
-                ("plain", pot.plain_value_and_grad(th)),
-                ("plain f64", pot.plain_value_and_grad(th.double()))):
-            phi_rel = float(((phi.double() - ref_phi).abs() / ref_phi.abs()).max())
-            grad_rel = float(((grad.double() - ref_grad).abs().amax(1)
-                              / ref_grad.abs().amax(1)).max())
-            errs[ref_name] = (phi_rel, grad_rel, float((phi.double() - ref_phi).abs().max()))
+        assert _build.launch_counts[LV] == before.get(LV, 0) + 1, f"{LV} did not launch"
+        assert _build.launch_counts[LV_STATES] == before.get(LV_STATES, 0), f"{LV_STATES} ran"
+        errs = lv_errors(phi, grad, {"plain": pot.plain_value_and_grad(th),
+                                     "plain f64": pot.plain_value_and_grad(th.double())})
+        parent = lv_rk4.misfit_and_grad_states(th, pot.spec)
+        differ = int(((phi != parent[0]) | (grad != parent[1]).any(dim=1)).sum())
         line = "; ".join(f"against the {k}: Phi max rel {v[0]:.3e}, gradient max {v[1]:.3e} of "
                          f"each chain's largest entry" for k, v in errs.items())
-        print(f"{LV} ({n} chains): {line}", flush=True)
-        if not (bool(torch.isfinite(phi).all()) and bool(torch.isfinite(grad).all())
-                and all(v[0] <= LV_PHI_RTOL and v[1] <= LV_GRAD_TOL for v in errs.values())):
-            raise AssertionError(f"{LV} ({n} chains) disagrees with its plain version")
+        print(f"{LV} ({n} chains): {line}; {differ} of {n} chains differ from {LV_STATES}",
+              flush=True)
+        if not lv_within(phi, grad, errs) or differ:
+            raise AssertionError(f"{LV} ({n} chains) disagrees with its plain version or "
+                                 f"with {LV_STATES}")
         kern = lambda th=th: lv_rk4.misfit_and_grad(th, pot.spec)  # noqa: E731
+        states = lambda th=th: lv_rk4.misfit_and_grad_states(th, pot.spec)  # noqa: E731
         ms, plain_ms = cuda_time_ms(kern, 20), cuda_time_ms(lambda: pot.plain_value_and_grad(th), 3)
         row = {"name": LV, "variant": f"{n} chains, 200 RK4 steps, 40 observations",
-               "route": "cuda", "source": SRC + "lv_rk4.cu",
-               "replaces": "none: ip_mcmc_tpu/models/ode.py:56 under jax.value_and_grad "
-                           "(lax.scan, no Pallas kernel)",
+               "route": "cuda", "source": SRC + "lv_rk4.cu", "replaces": LV_REPLACES,
                "paths": paths, "max_abs_err": errs["plain"][2],
                "reference": "plain version (autograd through the RK4 loop)",
                "max_rel_err": errs["plain"][0], "grad_max_err": errs["plain"][1],
                "f64_phi_max_rel": errs["plain f64"][0], "f64_grad_max": errs["plain f64"][1],
-               "ms": ms, "back_to_back_ms": lv_launch_ms(th, pot.spec), "plain_ms": plain_ms,
+               "chains_differing_from_states_kernel": differ,
+               "ms": ms, "back_to_back_ms": lv_launch_ms(th, pot.spec),
+               "device_ms": device_ms(kern, 50, LV),
+               "states_kernel_ms": cuda_time_ms(states, 20),
+               "states_kernel_back_to_back_ms": lv_launch_ms(th, pot.spec, states_kernel=True),
+               "states_kernel_device_ms": device_ms(states, 50, LV_STATES),
+               "floor_device_ms": floor_ms, "plain_ms": plain_ms,
                "ms_unit": f"one call, {n} chains", **lv_bound(pot.spec, n), "library_ms": None}
         print(f"  time per call: kernel {ms:.4f} ms (back to back "
-              f"{row['back_to_back_ms']:.4f}), plain "
-              f"{plain_ms:.2f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']})",
-              flush=True)
+              f"{row['back_to_back_ms']:.4f}, device {ms_text(row['device_ms'])}), {LV_STATES} "
+              f"{row['states_kernel_ms']:.4f} (back to back "
+              f"{row['states_kernel_back_to_back_ms']:.4f}, device "
+              f"{ms_text(row['states_kernel_device_ms'])}), plain {plain_ms:.2f} ms, bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']}), latency floor "
+              f"{ms_text(floor_ms)} ms", flush=True)
         results.append(row)
+
+    # a spec the rule leaves: the configs' span in LV_LEFT_STEPS steps
+    n = 1024
+    data = torch.tensor(np.load(configs.LV_FIXTURE)["y"], device="cuda")
+    left = ode.LotkaVolterraMisfit(
+        configs.LV_Y0, configs.LV_DT * configs.LV_STEPS / LV_LEFT_STEPS, LV_LEFT_STEPS,
+        [i * LV_LEFT_STEPS // configs.LV_STEPS for i in configs.LV_OBS], data,
+        dist.DiagGaussian(mean=0 * data, scale=0.1 + 0 * data))
+    if lv_rk4.stages_takes(left.spec):
+        raise AssertionError(f"{LV_LEFT_STEPS} steps fit {LV}'s shared memory")
+    th = p.prior.sample(torch.Generator().manual_seed(76), n)
+    before = dict(_build.launch_counts)
+    phi, grad = lv_rk4.misfit_and_grad(th, left.spec)
+    torch.cuda.synchronize()
+    if (_build.launch_counts[LV_STATES] != before.get(LV_STATES, 0) + 1
+            or _build.launch_counts[LV] != before.get(LV, 0)):
+        raise AssertionError(f"a spec of {LV_LEFT_STEPS} steps did not run on {LV_STATES}")
+    t0 = time.perf_counter()
+    ref = left.plain_value_and_grad(th)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3  # one call: ~4 s of launches
+    errs = lv_errors(phi, grad, {"plain": ref})
+    print(f"{LV_STATES} ({n} chains, {LV_LEFT_STEPS} steps, the rule leaves it): Phi max rel "
+          f"{errs['plain'][0]:.3e}, gradient max {errs['plain'][1]:.3e}", flush=True)
+    if not lv_within(phi, grad, errs):
+        raise AssertionError(f"{LV_STATES} disagrees with its plain version")
+    kern = lambda: lv_rk4.misfit_and_grad(th, left.spec)  # noqa: E731
+    row = {"name": LV_STATES, "variant": f"{n} chains, {LV_LEFT_STEPS} RK4 steps, 40 "
+                                         "observations (a spec the stages kernel leaves)",
+           "route": "cuda", "source": SRC + "lv_rk4.cu", "replaces": LV_REPLACES, "paths": [],
+           "max_abs_err": errs["plain"][2], "reference": "plain version",
+           "max_rel_err": errs["plain"][0], "grad_max_err": errs["plain"][1],
+           "ms": cuda_time_ms(kern, 5), "device_ms": device_ms(kern, 5, LV_STATES),
+           "plain_ms": plain_ms,
+           "ms_unit": f"one call, {n} chains", **lv_bound(left.spec, n), "library_ms": None}
+    print(f"  time per call: {row['ms']:.4f} ms (device {ms_text(row['device_ms'])}), plain "
+          f"{row['plain_ms']:.1f} ms, bound {row['bound_ms']:.6f} ms", flush=True)
+    results.append(row)
 
 
 def gradient_launches(vg, x):
@@ -3677,6 +3783,111 @@ def check_smc_evidence(runs, counts, problem):
     return out
 
 
+# the checkpoint phase: ode_mala's MALA kernel at its width, the config's
+# step size, no adaptation; CKPT_CHUNKS chunks of CKPT_CHUNK samples
+CKPT_CHUNK, CKPT_CHUNKS = 20, 3
+# the CLI phase: ode_mala through the CLI with the three observability flags
+CLI_FLAGS_SAMPLES = 50
+
+
+def run_checkpoint_phase(problem):
+    """checkpoint.CheckpointingDriver over ode_mala's MALA kernel (every
+    gradient one launch of lv_misfit_grad_kernel) at 1024 chains, started
+    near the config's truth (some moves accepted, required): the run
+    of CKPT_CHUNKS chunks, then the same interrupted after chunk 1 and
+    resumed from disk, which must give the uninterrupted run's samples bit
+    for bit; then sample_chains_inscan with a checkpoint every CKPT_CHUNK
+    samples, stopped after two of them and resumed from latest_inscan, the
+    same. Files in a temporary directory, removed after."""
+    import tempfile
+
+    from ip_mcmc_tpu_torch import checkpoint, driver
+    from ip_mcmc_tpu_torch.kernels import mala
+
+    kp = problem.kernel_params
+    kernel = mala.build_kernel(problem.log_density_fn, kp["step_size"])
+    # near the truth, where some proposals of that unpreconditioned step are
+    # accepted, so that the samples depend on every draw
+    noise = torch.randn(problem.n_chains, 4, generator=torch.Generator().manual_seed(80))
+    x0 = (torch.as_tensor(problem.truth, dtype=torch.float32) + 0.02 * noise).cuda()
+    state = driver.init_chains(mala.init, x0, problem.log_density_fn)
+    n = CKPT_CHUNK * CKPT_CHUNKS
+    out = {"chains": problem.n_chains, "step_size": kp["step_size"], "samples": n}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = lambda d: checkpoint.CheckpointingDriver(  # noqa: E731
+            f"{tmp}/{d}", kernel, 26, chunk_size=CKPT_CHUNK)
+        _, full = ck("full").run(state, n)
+        _, part = ck("int").run(state, 2 * CKPT_CHUNK)
+        _, rest = ck("int").resume(state, n)
+        _, s_full, info = checkpoint.sample_chains_inscan(
+            kernel, state, 26, n_samples=n, every=CKPT_CHUNK, directory=f"{tmp}/inscan_full")
+        _, s_a, _ = checkpoint.sample_chains_inscan(
+            kernel, state, 26, n_samples=2 * CKPT_CHUNK, every=CKPT_CHUNK,
+            directory=f"{tmp}/inscan")
+        start, st = checkpoint.latest_inscan(f"{tmp}/inscan", state)
+        _, s_b, _ = checkpoint.sample_chains_inscan(
+            kernel, st, 26, n_samples=n - start, every=CKPT_CHUNK, directory=f"{tmp}/inscan",
+            start_sample=start)
+    out["chunked_resume_bit_for_bit"] = bool(torch.equal(full, torch.cat([part, rest])))
+    out["inscan_resume_bit_for_bit"] = bool(torch.equal(s_full, torch.cat([s_a, s_b])))
+    out["inscan_resumed_at"] = start
+    out["accept_rate"] = float(info.accepted.mean())
+    out["finite"] = bool(torch.isfinite(full).all()) and full.shape == (n, problem.n_chains, 4)
+    print("checkpoint phase: " + json.dumps(out), flush=True)
+    if not (out["chunked_resume_bit_for_bit"] and out["inscan_resume_bit_for_bit"]
+            and start == 2 * CKPT_CHUNK and out["finite"] and out["accept_rate"] > 0):
+        raise AssertionError(f"the resumed runs differ from the uninterrupted ones: {out}")
+    return out
+
+
+def run_cli_flags_phase():
+    """python -m ip_mcmc_tpu_torch.run --config ode_mala --n-samples 50
+    --metrics-log --tensorboard --profile-dir (in-process, into a temporary
+    directory): the log's run_complete record holds every metric key the
+    CLI printed, read_events reads its scalars back, and the Chrome trace of
+    the timed run holds device events of lv_misfit_grad_kernel (fails, and
+    says so, if torch.profiler records no device event here)."""
+    import glob
+    import os
+    import tempfile
+
+    from ip_mcmc_tpu_torch.utils import tensorboard as tb
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log, logdir, prof = f"{tmp}/metrics.jsonl", f"{tmp}/tb", f"{tmp}/prof"
+        metrics = run_cli("ode_mala", ["--metrics-log", log, "--tensorboard", logdir,
+                                       "--profile-dir", prof], CLI_FLAGS_SAMPLES)
+        records = [json.loads(ln) for ln in open(log)]
+        done = [r for r in records if r["event"] == "run_complete"]
+        missing = (set(metrics) - {"setup_s", "cli_total_s", "tensorboard_events"}
+                   - set(done[0] if done else {}))
+        events = tb.read_events(metrics["tensorboard_events"])
+        scalars = [e for e in events if e[2]]
+        traces = glob.glob(os.path.join(prof, "*.json"))
+        trace_bytes = sum(os.path.getsize(t) for t in traces)
+        kernel_events = [e for t in traces for e in json.load(open(t))["traceEvents"]
+                         if e.get("cat") == "kernel"]
+        lv = [e for e in kernel_events if LV in e.get("name", "")]
+    out = {"records": len(records), "run_complete": len(done),
+           "accept_trace_records": sum(r["event"] == "accept_trace" for r in records),
+           "missing_keys": sorted(missing), "events": len(events),
+           "scalar_events": len(scalars), "trace_files": len(traces),
+           "trace_mb": trace_bytes / 2**20, "device_kernel_events": len(kernel_events),
+           f"{LV}_events": len(lv),
+           f"{LV}_device_ms": sum(e.get("dur", 0.0) for e in lv) / 1e3,
+           "run_s": metrics["run_s"], "min_ess": metrics["min_ess"]}
+    print("CLI flags phase (ode_mala): " + json.dumps(out), flush=True)
+    if len(done) != 1 or missing or not scalars or not out["accept_trace_records"]:
+        raise AssertionError(f"the metrics log or the TensorBoard events are wrong: {out}")
+    if abs(scalars[0][2]["min_ess"] - metrics["min_ess"]) > 1e-6 * abs(metrics["min_ess"]):
+        raise AssertionError("the TensorBoard events do not read back the run's min_ess")
+    if not lv:
+        raise AssertionError(f"the --profile-dir trace holds no device event of {LV} "
+                             f"({len(kernel_events)} kernel events): torch.profiler "
+                             "recorded no card activity here")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3727,7 +3938,8 @@ def main() -> int:
     attach_ptxas(results, ptxas, group_ptxas())
     check_darcy_forward(problems)
     ode_gradient = check_scan_forwards(problems, results)
-    attach_ptxas(results, ptxas, {LV: ("lv_misfit_grad_kernel",)})
+    attach_ptxas(results, ptxas, {LV: ("lv_misfit_grad_kernel",),
+                                  LV_STATES: ("lv_misfit_grad_states_kernel",)})
 
     # the fused linear-Gaussian paths, each with the counts set to 0 before it
     counts = {}
@@ -3801,6 +4013,13 @@ def main() -> int:
                                              "darcy_da_pod_online"):
             new_paths[config] = {k: v for k, v in metrics.items() if k != "posterior_mean"}
     smc = check_smc_evidence(new_paths, counts, problems["darcy_smc_warm"])
+    # checkpoint / resume and the CLI's observability flags on the ODE path
+    counts["checkpoint ode_mala"], checkpoint_phase = drive_phase(
+        "checkpoint ode_mala", (LV, "scan_mala_step[cuda]"),
+        lambda: run_checkpoint_phase(problems["ode_mala"]))
+    counts["ode_mala --metrics-log --tensorboard --profile-dir"], cli_flags = drive_phase(
+        "ode_mala --metrics-log --tensorboard --profile-dir", (LV, "scan_mala_step[cuda]"),
+        run_cli_flags_phase)
 
     # launches of each variant: those of the runs that use it (0 for an
     # option that no shipped config uses)
@@ -3813,7 +4032,8 @@ def main() -> int:
                       "richardson_da": richardson_da, "darcy64_da": darcy64_da,
                       "ode_gradient": ode_gradient, "smc_evidence": smc,
                       "smc_warm_misfit": smc_warm_misfit,
-                      "smc_vi_pod_runs": new_paths, "ptxas": ptxas}))
+                      "smc_vi_pod_runs": new_paths, "checkpoint": checkpoint_phase,
+                      "cli_flags": cli_flags, "ptxas": ptxas}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

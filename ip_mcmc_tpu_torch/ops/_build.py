@@ -344,8 +344,17 @@ def library():
         # spec, chain, out (4,): the adaptive group kernel's geometry
         lib.bind("ipx_pcn_adapt_group_geometry", [gspec, chain, p])
         # the Lotka-Volterra misfit and gradient: spec, θ (n, 4), n, states
-        # scratch ((n_steps + 1) 2n), Φ (n,), ∇Φ (n, 4), stream
-        lib.bind("ipx_lv_misfit_grad", [ctypes.POINTER(LvSpec), p, i, p, p, p, p])
+        # scratch ((n_steps + 1) 2n; null for a spec lv_stages_takes sends to
+        # lv_misfit_grad_kernel, which keeps its stages on chip), Φ (n,),
+        # ∇Φ (n, 4), stream
+        lspec = ctypes.POINTER(LvSpec)
+        lib.bind("ipx_lv_misfit_grad", [lspec, p, i, p, p, p, p])
+        # the same arguments: lv_misfit_grad_states_kernel whatever the rule
+        lib.bind("ipx_lv_misfit_grad_states", [lspec, p, i, p, p, p, p])
+        # spec, n, out (3,): lv_misfit_grad_kernel's geometry
+        lib.bind("ipx_lv_stages_geometry", [lspec, i, p])
+        # spec, θ (4,), out (2,), stream: the kernels' latency floor
+        lib.bind("ipx_lv_forward_floor", [lspec, p, p, p])
         lib.bind("ipx_lv_spec_size", [])
         lib.bind("ipx_error_string", [i], ctypes.c_char_p)
         lib.bind("ipx_misfit_spec_size", [])

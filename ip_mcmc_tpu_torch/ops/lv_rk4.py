@@ -1,5 +1,5 @@
 """The Lotka–Volterra misfit and its gradient in one kernel
-(``csrc/lv_rk4.cu`` ``lv_misfit_grad_kernel``), behind autograd.
+(``csrc/lv_rk4.cu``), behind autograd.
 
 No Pallas kernel stands behind it: the JAX package takes this function's
 value and gradient with ``jax.value_and_grad`` of
@@ -11,6 +11,16 @@ launches a gradient on the card. The kernel computes Φ and ∇Φ of every chain
 in one launch: the forward in the plain version's arithmetic, then the
 discrete adjoint of each RK4 step (``adjoint_reference`` spells it out in
 PyTorch, and the CPU tests hold it against autograd).
+
+Two kernels compute it. ``lv_misfit_grad_kernel`` keeps each step's stage
+exponentials in shared memory, two chains a CTA, and its backward recomputes
+nothing; it takes the specs whose exponentials fit a CTA (``stages_takes``,
+the mirror of ``lv_stages_takes``: with the configs' 40 observed values up
+to 3,627 steps; the configs have 200).
+``lv_misfit_grad_states_kernel`` takes every other spec: the states in a
+global scratch that the wrapper allocates, each step's stages recomputed in
+the backward; ``misfit_and_grad_states`` reaches it for any spec. Both give
+the same bits.
 
 ``LvMisfitFunction`` wraps it for autograd: the forward launches the kernel
 and keeps ∇Φ, the backward returns ``grad_out[:, None] * ∇Φ``; a second
@@ -30,7 +40,35 @@ from torch.autograd.function import once_differentiable
 
 from ip_mcmc_tpu_torch.ops import _build
 
-KERNEL = "lv_misfit_grad_kernel"  # the launch count's name
+KERNEL = "lv_misfit_grad_kernel"  # the launch counts' names
+STATES_KERNEL = "lv_misfit_grad_states_kernel"
+# Mirrors of LvStagesDesign::kChains, kLvStageValues and kLvMaxSmem
+STAGES_CHAINS, STAGE_VALUES, MAX_SMEM = 2, 8, 232448
+
+
+def stages_smem(spec) -> int:
+    """Dynamic shared-memory bytes of a CTA of ``lv_misfit_grad_kernel``
+    (``lv_stages_smem``): each chain's 8 f32 stage exponentials a step and
+    its T · S injections."""
+    return (spec.n_steps * STAGE_VALUES + spec.data.numel()) * 4 * STAGES_CHAINS
+
+
+def stages_takes(spec) -> bool:
+    """Whether ``ipx_lv_misfit_grad`` sends ``spec`` to
+    ``lv_misfit_grad_kernel``, as ``lv_stages_takes`` decides: a CTA's
+    chains keep their stages and injections in its shared memory (the
+    configs' 200 steps and 40 observed values: 13,120 bytes)."""
+    return stages_smem(spec) <= MAX_SMEM
+
+
+def stages_geometry(n: int, spec):
+    """(chains a CTA, CTAs, dynamic shared-memory bytes) of
+    ``lv_misfit_grad_kernel`` on n chains (``lv_stages_geometry``); raises
+    ``ValueError`` for a spec that ``stages_takes`` refuses."""
+    if not stages_takes(spec):
+        raise ValueError(f"{KERNEL} keeps the stages of a CTA's chains in {MAX_SMEM} bytes; "
+                         f"{spec.n_steps} steps need {stages_smem(spec)}")
+    return STAGES_CHAINS, -(-n // STAGES_CHAINS), stages_smem(spec)
 
 
 @dataclasses.dataclass
@@ -89,10 +127,7 @@ class LvSpec:
                              int(self.species.numel()))
 
 
-def misfit_and_grad(theta: torch.Tensor, spec: LvSpec):
-    """Φ (n,) and ∇Φ (n, 4) of the (n, 4) log-rates ``theta`` on the card:
-    one launch of ``lv_misfit_grad_kernel``. CUDA tensors only (the CPU's
-    is the plain version, ``models.ode.LotkaVolterraMisfit``)."""
+def _check(theta, spec):
     if theta.device.type != "cuda":
         raise ValueError(f"{KERNEL} runs on the card; got a tensor on {theta.device}")
     if theta.dtype != torch.float32 or theta.dim() != 2 or theta.shape[1] != 4:
@@ -100,21 +135,65 @@ def misfit_and_grad(theta: torch.Tensor, spec: LvSpec):
                          f"{tuple(theta.shape)}")
     if spec.data.device != theta.device:
         raise ValueError(f"the spec lies on {spec.data.device}, theta on {theta.device}")
-    theta = theta.contiguous()
-    n = theta.shape[0]
-    states = torch.empty((spec.n_steps + 1) * 2 * max(n, 1), dtype=torch.float32,
-                         device=theta.device)
-    phi = torch.empty(n, dtype=torch.float32, device=theta.device)
-    grad = torch.empty(n, 4, dtype=torch.float32, device=theta.device)
     lib = _build.library()
     if lib.ipx_lv_spec_size() != ctypes.sizeof(_build.LvSpec):
         raise RuntimeError("_build.LvSpec does not mirror IpxLvSpec")
-    status = lib.ipx_lv_misfit_grad(
-        ctypes.byref(spec.c_struct), theta.data_ptr(), n, states.data_ptr(), phi.data_ptr(),
-        grad.data_ptr(), torch.cuda.current_stream(theta.device).cuda_stream)
-    _build.check(status, KERNEL)
-    _build.launch_counts[KERNEL] += 1
+    return theta.contiguous(), lib
+
+
+def _launch(entry, name, theta, spec, states):
+    n = theta.shape[0]
+    phi = torch.empty(n, dtype=torch.float32, device=theta.device)
+    grad = torch.empty(n, 4, dtype=torch.float32, device=theta.device)
+    status = entry(ctypes.byref(spec.c_struct), theta.data_ptr(), n,
+                   None if states is None else states.data_ptr(), phi.data_ptr(),
+                   grad.data_ptr(), torch.cuda.current_stream(theta.device).cuda_stream)
+    _build.check(status, name)
+    _build.launch_counts[name] += 1
     return phi, grad
+
+
+def _states(theta, spec):
+    return torch.empty((spec.n_steps + 1) * 2 * max(theta.shape[0], 1), dtype=torch.float32,
+                       device=theta.device)
+
+
+def misfit_and_grad(theta: torch.Tensor, spec: LvSpec):
+    """Φ (n,) and ∇Φ (n, 4) of the (n, 4) log-rates ``theta`` on the card:
+    one launch of ``lv_misfit_grad_kernel``, or of
+    ``lv_misfit_grad_states_kernel`` with its scratch for a spec that
+    ``stages_takes`` refuses. CUDA tensors only (the CPU's is the plain
+    version, ``models.ode.LotkaVolterraMisfit``)."""
+    theta, lib = _check(theta, spec)
+    if stages_takes(spec):
+        return _launch(lib.ipx_lv_misfit_grad, KERNEL, theta, spec, None)
+    return _launch(lib.ipx_lv_misfit_grad, STATES_KERNEL, theta, spec, _states(theta, spec))
+
+
+def misfit_and_grad_states(theta: torch.Tensor, spec: LvSpec):
+    """The same by ``lv_misfit_grad_states_kernel`` whatever the rule says:
+    the kernel ``lv_misfit_grad_kernel`` replaced on the configs' specs, the
+    reference it is held to bit for bit."""
+    theta, lib = _check(theta, spec)
+    return _launch(lib.ipx_lv_misfit_grad_states, STATES_KERNEL, theta, spec,
+                   _states(theta, spec))
+
+
+FLOOR_KERNEL = "lv_forward_floor_kernel"
+
+
+def forward_floor(theta: torch.Tensor, spec: LvSpec):
+    """The latency floor of both kernels, on no path: one thread runs the
+    forward's stage chain of ``theta`` (4,) and returns the last state (2,),
+    the plain version's z_N. For timing beside the kernels."""
+    theta, lib = _check(theta.reshape(1, 4), spec)
+    out = torch.empty(2, dtype=torch.float32, device=theta.device)
+    _build.check(lib.ipx_lv_forward_floor(ctypes.byref(spec.c_struct), theta.data_ptr(),
+                                          out.data_ptr(),
+                                          torch.cuda.current_stream(theta.device).cuda_stream),
+                 FLOOR_KERNEL)
+    _build.launch_counts[FLOOR_KERNEL] += 1
+    return out
 
 
 class LvMisfitFunction(torch.autograd.Function):
@@ -134,14 +213,9 @@ class LvMisfitFunction(torch.autograd.Function):
         return grad_out[:, None] * grad, None
 
 
-def adjoint_reference(theta: torch.Tensor, spec: LvSpec):
-    """The kernel's algorithm in PyTorch over the chains (any float type):
-    the forward with every state kept, Φ summed observation by observation,
-    then the discrete adjoint of each RK4 step from n_steps down to 1, the
-    injections at the observed steps, the cotangents of (c, s) carried to
-    the log-rates. Returns (Φ, ∇Φ). For the tests, which hold it against
-    autograd through the plain version."""
-    f = theta.dtype
+def _forward_stages(theta, spec):
+    """The rates' (c, s), every state and each step's four stages' e^Y, the
+    kernel's forward in PyTorch (any float type)."""
     rate = torch.exp(theta)
     c = torch.stack([rate[:, 0], -rate[:, 2]], -1)
     s = torch.stack([-rate[:, 1], rate[:, 3]], -1)
@@ -151,50 +225,142 @@ def adjoint_reference(theta: torch.Tensor, spec: LvSpec):
         e = torch.exp(y)
         return c + s * e.flip(-1), e
 
-    def step(y):
+    y = torch.tensor(spec.z0, dtype=theta.dtype, device=theta.device).expand(theta.shape[0], 2)
+    states, stages = [y], [None]
+    for _ in range(spec.n_steps):
         k1, e1 = stage(y)
         k2, e2 = stage(y + hh * k1)
         k3, e3 = stage(y + hh * k2)
         k4, e4 = stage(y + h * k3)
-        return y + h6 * (k1 + 2.0 * k2 + 2.0 * k3 + k4), (e1, e2, e3, e4)
-
-    y = torch.tensor(spec.z0, dtype=f, device=theta.device).expand(theta.shape[0], 2)
-    states = [y]
-    for _ in range(spec.n_steps):
-        y = step(y)[0]
+        y = y + h6 * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
         states.append(y)
-    obs = spec.obs_step.tolist()
-    species = spec.species.tolist()
+        stages.append((e1, e2, e3, e4))
+    return rate, c, s, states, stages
+
+
+def _misfit_and_injections(theta, spec, states):
+    """Φ summed observation by observation in the spec's order, and each
+    observed step's derivatives of Φ by its state, (species, value) in the
+    kernel's order of injection (observations down, species up)."""
+    f = theta.dtype
     data, noise = spec.data.to(f), spec.noise.to(f)
+    species = spec.species.tolist()
     phi = torch.zeros(theta.shape[0], dtype=f, device=theta.device)
-    inject = {}
-    for t, i in enumerate(obs):
+    rows = {}
+    for t, i in enumerate(spec.obs_step.tolist()):
+        row = rows.setdefault(i, [])
+        row.append([])
         for j, sp in enumerate(species):
             pred = torch.exp(states[i][:, sp])
             w = (data[t, j] - pred) / noise[t, j]
             phi = phi + w * w
-            lam = inject.setdefault(i, torch.zeros_like(y))
-            lam[:, sp] -= w * pred / noise[t, j]
-    phi = 0.5 * phi
+            row[-1].append((sp, -w * pred / noise[t, j]))
+    inject = {i: [x for row in reversed(r) for x in row] for i, r in rows.items()}
+    return 0.5 * phi, inject
 
-    def jt(e, kb):  # J(Y)^T kb
-        return torch.stack([s[:, 1] * e[:, 0] * kb[:, 1], s[:, 0] * e[:, 1] * kb[:, 0]], -1)
 
-    lam = torch.zeros_like(y)
-    gc, gs = torch.zeros_like(y), torch.zeros_like(y)
-    for i in range(spec.n_steps, 0, -1):
-        lam = lam + inject.get(i, 0.0)
-        es = step(states[i - 1])[1]
-        kb = [h6 * lam, 2.0 * h6 * lam, 2.0 * h6 * lam, h6 * lam]
-        ybar = lam
-        for q, coef in ((3, h), (2, hh), (1, hh), (0, None)):
-            gc = gc + kb[q]
-            gs = gs + kb[q] * es[q].flip(-1)
-            yb = jt(es[q], kb[q])
-            ybar = ybar + yb
-            if coef is not None:
-                kb[q - 1] = kb[q - 1] + coef * yb
-        lam = ybar
-    grad = torch.stack([gc[:, 0] * rate[:, 0], -gs[:, 0] * rate[:, 1],
+def _step_adjoint(spec, s, es, lam, gc, gs):
+    """The adjoint of one RK4 step from its stages' e^Y: λ_i → λ_{i-1} (less
+    the injections at i − 1), the cotangents of (c, s) added to gc, gs."""
+    h, hh, h6 = spec.dt, 0.5 * spec.dt, spec.dt / 6.0
+    kb = [h6 * lam, 2.0 * h6 * lam, 2.0 * h6 * lam, h6 * lam]
+    ybar = lam
+    for q, coef in ((3, h), (2, hh), (1, hh), (0, None)):
+        gc = gc + kb[q]
+        gs = gs + kb[q] * es[q].flip(-1)
+        e = es[q]
+        yb = torch.stack([s[:, 1] * e[:, 0] * kb[q][:, 1], s[:, 0] * e[:, 1] * kb[q][:, 0]], -1)
+        ybar = ybar + yb
+        if coef is not None:
+            kb[q - 1] = kb[q - 1] + coef * yb
+    return ybar, gc, gs
+
+
+def _inject(lam, inject, i):
+    for sp, dz in inject.get(i, ()):
+        lam = lam.clone()
+        lam[:, sp] += dz
+    return lam
+
+
+def _gradient(rate, gc, gs):
+    """Through (c, s) = ((α, −γ), (−β, δ)) and rate = e^θ."""
+    return torch.stack([gc[:, 0] * rate[:, 0], -gs[:, 0] * rate[:, 1],
                         -gc[:, 1] * rate[:, 2], gs[:, 1] * rate[:, 3]], -1)
-    return phi, grad
+
+
+def adjoint_reference(theta: torch.Tensor, spec: LvSpec):
+    """The kernel's algorithm in PyTorch over the chains (any float type):
+    the forward with every state kept, Φ summed observation by observation,
+    then the discrete adjoint of each RK4 step from n_steps down to 1, the
+    injections at the observed steps, the cotangents of (c, s) carried to
+    the log-rates. Returns (Φ, ∇Φ). For the tests, which hold it against
+    autograd through the plain version."""
+    rate, _, s, states, stages = _forward_stages(theta, spec)
+    phi, inject = _misfit_and_injections(theta, spec, states)
+    lam = torch.zeros_like(states[0])
+    gc, gs = torch.zeros_like(lam), torch.zeros_like(lam)
+    for i in range(spec.n_steps, 0, -1):
+        lam = _inject(lam, inject, i)
+        lam, gc, gs = _step_adjoint(spec, s, stages[i], lam, gc, gs)
+    return phi, _gradient(rate, gc, gs)
+
+
+def adjoint_scan_reference(theta: torch.Tensor, spec: LvSpec, lanes: int = 32):
+    """The same gradient in the association of the warp-parallel adjoint
+    (``scripts/lv_warp_adjoint.cuh``): lane l of ``lanes`` owns steps a..b,
+    ⌈n_steps / lanes⌉ of them, and composes its affine map
+    T_l: λ⁺_b → λ⁺_{a−1} (A λ + v, the injections at a − 1 .. b − 1 but
+    step 0 inside); a Hillis–Steele scan composes S_l = T_l ∘ S_{l+off} for
+    off = 1, 2, 4, …; lane l sweeps its steps again from S_{l+1}(λ⁺_N),
+    adding the cotangents of (c, s), which a butterfly sums over the lanes.
+    Returns (Φ, ∇Φ)."""
+    rate, _, s, states, stages = _forward_stages(theta, spec)
+    phi, inject = _misfit_and_injections(theta, spec, states)
+    N = spec.n_steps
+    per = -(-N // lanes)
+    zero = torch.zeros_like(states[0])
+    one = torch.ones_like(zero[:, 0])
+    identity = (torch.stack([one, 0 * one], -1), torch.stack([0 * one, one], -1), zero)
+
+    def step_only(es, lam):
+        return _step_adjoint(spec, s, es, lam, zero, zero)[0]
+
+    blocks, maps = [], []
+    for lane in range(lanes):
+        a, b = lane * per + 1, min(lane * per + per, N)
+        blocks.append((a, b))
+        c0, c1, v = identity
+        for i in range(b, a - 1, -1):
+            c0, c1, v = (step_only(stages[i], c0), step_only(stages[i], c1),
+                         step_only(stages[i], v))
+            if i - 1 >= 1:
+                v = _inject(v, inject, i - 1)
+        maps.append((c0, c1, v))
+
+    def after(f, g):  # f ∘ g: the columns f A g's and f(g's offset)
+        def mat(x):
+            return torch.stack([f[0][:, 0] * x[:, 0] + f[1][:, 0] * x[:, 1],
+                                f[0][:, 1] * x[:, 0] + f[1][:, 1] * x[:, 1]], -1)
+        return mat(g[0]), mat(g[1]), mat(g[2]) + f[2]
+
+    off = 1
+    while off < lanes:
+        maps = [after(maps[l], maps[l + off]) if l + off < lanes else maps[l]
+                for l in range(lanes)]
+        off *= 2
+    top = _inject(zero, inject, N)
+    g = []
+    for lane, (a, b) in enumerate(blocks):
+        lam = top if lane == lanes - 1 else after(maps[lane + 1], (zero, zero, top))[2]
+        gc, gs = zero, zero
+        for i in range(b, a - 1, -1):
+            lam, gc, gs = _step_adjoint(spec, s, stages[i], lam, gc, gs)
+            if i - 1 >= a:
+                lam = _inject(lam, inject, i - 1)
+        g.append(torch.cat([gc, gs], -1))
+    off = lanes // 2
+    while off:
+        g = [g[l] + g[l ^ off] for l in range(lanes)]
+        off //= 2
+    return phi, _gradient(rate, g[0][:, :2], g[0][:, 2:])

@@ -52,6 +52,7 @@ from ip_mcmc_tpu_torch.kernels import (
     tempering,
 )
 from ip_mcmc_tpu_torch.kernels.ensemble import choose_n_low_modes
+from ip_mcmc_tpu_torch.utils.logging import MetricsLogger, profile_region
 
 # metric keys that name wall-time phases (attribution in _finalize)
 _PHASE_KEYS = ("warmup_s", "trace_s", "compile_s", "first_dispatch_s", "run_s",
@@ -76,9 +77,12 @@ def _summarize_timed(samples):
     return summ, time.perf_counter() - t0
 
 
-def _finalize(metrics, t_start):
+def _finalize(metrics, t_start, metrics_log=None, accept_trace=None):
     """End-to-end wall, unattributed remainder, the per-invocation ESS rate
-    and the R̂ convergence flag (``runner._finalize``)."""
+    and the R̂ convergence flag (``runner._finalize``); with ``metrics_log``
+    the ``run_complete`` record of the metrics, then, for the scan path,
+    the chain-mean acceptance of about 50 retained steps
+    (``accept_trace`` records, at JAX's spacing)."""
     metrics["total_wall_s"] = time.perf_counter() - t_start
     metrics["unattributed_s"] = metrics["total_wall_s"] - sum(
         metrics.get(k, 0.0) for k in _PHASE_KEYS
@@ -95,6 +99,15 @@ def _finalize(metrics, t_start):
                 f"max_rhat {rhat:.2f} > 1.1: chains not converged — treat "
                 "posterior_mean as unreliable; increase n_samples/burn_in"
             )
+    if metrics_log is not None:
+        logger = MetricsLogger(path=metrics_log)
+        logger.log({"event": "run_complete", **metrics})
+        if accept_trace is not None:
+            acc = accept_trace.detach().cpu().numpy()
+            for i in range(0, len(acc), max(1, len(acc) // 50)):
+                logger.log({"event": "accept_trace", "step": int(i),
+                            "accept": float(acc[i])})
+        logger.close()
     return metrics
 
 
@@ -368,7 +381,7 @@ def _setup_kernel_state(problem, positions, generator):
     return kernel, state, warm_steps
 
 
-def _run_one_dispatch(problem, seed, n_chains, n_samples, device):
+def _run_one_dispatch(problem, seed, n_chains, n_samples, device, profile_dir=None):
     """The scan path (the JAX runner's ``_run_one_dispatch``): warm-up +
     burn-in + sampling + ESS/R̂ diagnostics, run twice from the same seed;
     the second, identical run is timed as ``run_s`` and the first one's
@@ -380,7 +393,11 @@ def _run_one_dispatch(problem, seed, n_chains, n_samples, device):
     from a host generator seeded with ``seed``; the warm-up and the sampling
     draw from two generators on ``device``, seeded with ``seed`` + 1 and
     ``seed`` + 2. ``steps_per_s`` counts every chain step of a run (warm-up,
-    burn-in, sampling); ``sampling_steps_per_s`` the sampling steps."""
+    burn-in, sampling); ``sampling_steps_per_s`` the sampling steps. With
+    ``profile_dir`` the timed run is traced by ``torch.profiler`` (host
+    and card) into the Chrome trace ``{profile_dir}/{config}_run.trace.json``
+    (``utils.logging.profile_region``), where the JAX runner traces it. Returns (metrics, the chain-mean acceptance of each retained
+    step, or None)."""
     kp = problem.kernel_params
     burn = 0 if kp.get("adapt", False) else problem.burn_in
     thin = problem.thin
@@ -402,9 +419,11 @@ def _run_one_dispatch(problem, seed, n_chains, n_samples, device):
     t0 = time.perf_counter()
     pipeline()
     first_call_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    summ, info_means, warm_steps = pipeline()
-    run_s = time.perf_counter() - t0
+    with profile_region(f"{problem.name}_run", profile=bool(profile_dir),
+                        profile_dir=profile_dir):
+        t0 = time.perf_counter()
+        summ, info_means, warm_steps = pipeline()
+        run_s = time.perf_counter() - t0
 
     total_steps = (warm_steps + burn + n_samples * thin) * n_chains
     flat_mean = summ["mean"].cpu().numpy()
@@ -445,7 +464,8 @@ def _run_one_dispatch(problem, seed, n_chains, n_samples, device):
     if problem.exact_mean is not None:
         metrics["mean_error_vs_exact"] = float(
             np.abs(flat_mean - problem.exact_mean).max())
-    return metrics
+    trace = getattr(info_means, "accepted", getattr(info_means, "accept_prob", None))
+    return metrics, trace
 
 
 def _run_chees(problem, seed, n_chains, n_samples, device):
@@ -833,12 +853,14 @@ def _refuse(problem, what):
 
 
 def run_problem(problem, device, seed: int = 0, n_chains=None,
-                n_samples=None):
+                n_samples=None, profile_dir=None, metrics_log=None):
     """Execute a Problem end-to-end on ``device``; returns a metrics dict.
     ``seed`` seeds the host-side ``torch.Generator`` of the initial
     positions (and, on the scan paths, the device generators of the
     warm-up and the sampling; SMC and VI draw from a device generator
-    seeded with it)."""
+    seeded with it). ``profile_dir``: trace the scan path's timed run into
+    it (``_run_one_dispatch``); ``metrics_log``: append the run's records
+    to that JSON-lines file (``_finalize``), on every path."""
     t_start = time.perf_counter()
     device = torch.device(device)
     n_chains = n_chains or problem.n_chains
@@ -850,8 +872,9 @@ def run_problem(problem, device, seed: int = 0, n_chains=None,
         if kp.get(option):
             _refuse(problem, option)
     if problem.kernel == "vi":
-        return _finalize(_run_vi(problem, seed, device), t_start)
+        return _finalize(_run_vi(problem, seed, device), t_start, metrics_log)
 
+    trace = None  # the scan path's acceptance trace
     fused = (problem.kernel in FUSED_KERNELS and kp.get("fused")
              and problem.batched_potential_fn is not None)
     extra = {}
@@ -875,7 +898,7 @@ def run_problem(problem, device, seed: int = 0, n_chains=None,
         extra.update(_pod_enrich_burnin(problem, seed, n_chains, device))
 
     if problem.kernel == "smc":
-        return _finalize(_run_smc(problem, seed, n_chains, device), t_start)
+        return _finalize(_run_smc(problem, seed, n_chains, device), t_start, metrics_log)
     if fused:
         generator = torch.Generator().manual_seed(int(seed))
         metrics = _run_fused_mcmc(problem, generator, n_chains, n_samples,
@@ -890,8 +913,9 @@ def run_problem(problem, device, seed: int = 0, n_chains=None,
     elif problem.kernel == "pt":
         metrics = _run_pt(problem, seed, n_chains, n_samples, device)
     elif problem.kernel in SCAN_KERNELS:
-        metrics = _run_one_dispatch(problem, seed, n_chains, n_samples, device)
+        metrics, trace = _run_one_dispatch(problem, seed, n_chains, n_samples, device,
+                                           profile_dir=profile_dir)
     else:
         _refuse(problem, f"the '{problem.kernel}' kernel")
     metrics.update(extra)
-    return _finalize(metrics, t_start)
+    return _finalize(metrics, t_start, metrics_log, trace)

@@ -15,7 +15,16 @@ out, against autograd through the plain version. Tolerances: in float64
 both sides are the same function, so Φ within 1e-12 and ∇Φ within 1e-10 of
 each chain's largest entry (measured 3.6e-15 / 3.1e-15); in f32 the adjoint's
 own roundings against autograd's, Φ within 1e-6 relative and ∇Φ within
-2e-5 of each chain's largest entry (measured 3.7e-7 and 1.2e-6)."""
+2e-5 of each chain's largest entry (measured 3.7e-7 and 1.2e-6). The
+warp-parallel adjoint's association (``adjoint_scan_reference``) is held to
+autograd in float64 with the same bounds (measured 7e-16 / 2e-15).
+
+The rule that sends a spec to ``lv_misfit_grad_kernel`` (its stage
+exponentials in shared memory) and its Python mirror are checked here against
+the C source's constants; on the card (marked ``cuda``, skipped here) the C
+rule and the Python rule agree, a spec the rule leaves runs on
+``lv_misfit_grad_states_kernel``, and on the configs' spec no chain's Φ or
+∇Φ differs between the two kernels."""
 
 import pathlib
 import re
@@ -84,6 +93,8 @@ def test_cpu_runs_the_plain_version_bit_for_bit(misfit):
 def test_the_kernel_entry_refuses_cpu_tensors(misfit):
     with pytest.raises(ValueError, match="runs on the card"):
         lv_rk4.misfit_and_grad(_thetas(), misfit.spec)
+    with pytest.raises(ValueError, match="runs on the card"):
+        lv_rk4.misfit_and_grad_states(_thetas(), misfit.spec)
     with pytest.raises(ValueError, match="runs on the card"):
         lv_rk4.LvMisfitFunction.apply(_thetas(), misfit.spec)
 
@@ -159,3 +170,146 @@ def test_adjoint_reference_is_the_gradient(misfit, which):
         got_v, got_g = lv_rk4.adjoint_reference(th, pot.spec)
         assert float(((got_v - want_v).abs() / want_v.abs()).max()) <= phi_tol
         assert _rel(got_g, want_g) <= grad_tol
+
+
+@pytest.mark.parametrize("which", ["configs", "unsorted", "one species", "fewer steps than lanes"])
+def test_adjoint_scan_reference_is_the_gradient(misfit, which):
+    """The warp-parallel adjoint's association (lanes' affine maps composed
+    by a Hillis–Steele scan, a butterfly sum) against autograd in float64."""
+    pot = {"configs": misfit, "unsorted": _misfit_on([30, 0, 40, 10, 30]),
+           "one species": _misfit_on([40, 20, 5], species=(1,)),
+           "fewer steps than lanes": _misfit_on([0, 5, 20, 13], n_steps=20)}[which]
+    th = _thetas(dtype=np.float64)
+    want_v, want_g = pot.plain_value_and_grad(th)
+    got_v, got_g = lv_rk4.adjoint_scan_reference(th, pot.spec)
+    assert float(((got_v - want_v).abs() / want_v.abs()).max()) <= 1e-12
+    assert _rel(got_g, want_g) <= 1e-10
+
+
+def _c_constant(name):
+    src = (pathlib.Path(_build.CSRC) / "lv_rk4.cu").read_text()
+    return int(re.search(rf"\b{name}\b\s*=\s*(\d+)", src).group(1))
+
+
+def test_stages_rule_mirrors_the_c_source(misfit):
+    """stages_takes / stages_geometry use lv_rk4.cu's constants: two chains
+    a CTA, 8 f32 a step and the T · S injections each, a CTA's 232,448
+    bytes; with the configs' 40 observed values up to 3,627 steps."""
+    import dataclasses
+
+    assert (lv_rk4.STAGES_CHAINS, lv_rk4.STAGE_VALUES, lv_rk4.MAX_SMEM) == (
+        _c_constant("kChains"), _c_constant("kLvStageValues"), _c_constant("kLvMaxSmem"))
+    steps = lambda k: dataclasses.replace(misfit.spec, n_steps=k)  # noqa: E731
+    assert lv_rk4.stages_takes(misfit.spec) and lv_rk4.stages_takes(steps(3627))
+    assert not lv_rk4.stages_takes(steps(3628))
+    assert lv_rk4.stages_geometry(1024, misfit.spec) == (2, 512, 13120)
+    assert lv_rk4.stages_geometry(77, misfit.spec) == (2, 39, 13120)
+    with pytest.raises(ValueError, match="3628 steps need 232512"):
+        lv_rk4.stages_geometry(256, steps(3628))
+
+
+@pytest.mark.parametrize("n_steps, kernel, scratch", [
+    (200, lv_rk4.KERNEL, False), (3628, lv_rk4.STATES_KERNEL, True)])
+def test_wrapper_allocates_the_states_only_for_the_states_kernel(monkeypatch, misfit, n_steps,
+                                                                 kernel, scratch):
+    """misfit_and_grad passes no scratch (null) for a spec the stages kernel
+    takes and counts that kernel; for a spec the rule leaves it allocates
+    the (n_steps + 1) · 2n states and counts the states kernel. The forced
+    entry always passes the scratch."""
+    import dataclasses
+    import types
+
+    seen = []
+
+    class Lib:
+        def ipx_lv_misfit_grad(self, *a):
+            seen.append(("rule", a[3]))
+            return 0
+
+        def ipx_lv_misfit_grad_states(self, *a):
+            seen.append(("states", a[3]))
+            return 0
+
+    spec = dataclasses.replace(misfit.spec, n_steps=n_steps)
+    th = _thetas()
+    monkeypatch.setattr(lv_rk4, "_check", lambda theta, spec: (theta, Lib()))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    before = dict(_build.launch_counts)
+    lv_rk4.misfit_and_grad(th, spec)
+    assert _build.launch_counts[kernel] == before.get(kernel, 0) + 1
+    assert seen[0][0] == "rule" and (seen[0][1] is not None) == scratch
+    lv_rk4.misfit_and_grad_states(th, spec)
+    assert seen[1][0] == "states" and seen[1][1] is not None
+
+
+# --- on the card ----------------------------------------------------------------
+
+
+@pytest.fixture
+def card_misfit():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return configs.build("ode_mala", "cuda")
+
+
+@pytest.mark.cuda
+def test_c_and_python_stages_rules_agree(card_misfit):
+    """ipx_lv_stages_geometry (the C rule) against stages_geometry /
+    stages_takes, for step counts around the limit and ragged widths."""
+    import ctypes
+
+    lib = _build.library()
+    for n_steps in (1, 200, 3000, 3631, 3632, 8000):
+        spec = lv_rk4.LvSpec.build([1.0, 0.5], 0.01, n_steps, [n_steps], [0, 1], [1.0, 1.0],
+                                   [0.1, 0.1], "cuda")
+        for n in (1, 77, 256, 1024):
+            out = (ctypes.c_int * 3)()
+            status = lib.ipx_lv_stages_geometry(ctypes.byref(spec.c_struct), n, out)
+            if lv_rk4.stages_takes(spec):
+                assert status == 0 and tuple(out) == lv_rk4.stages_geometry(n, spec)
+            else:
+                assert status == 801  # cudaErrorNotSupported
+
+
+@pytest.mark.cuda
+def test_a_spec_the_rule_leaves_runs_on_the_states_kernel(card_misfit):
+    """4,000 steps of 0.0025 (the configs' span) exceed a CTA's shared
+    memory: misfit_and_grad launches lv_misfit_grad_states_kernel, the same
+    bits as the forced entry, within the plain version's tolerances."""
+    ones = torch.ones(20, device="cuda")
+    pot = ode.LotkaVolterraMisfit(configs.LV_Y0, 0.0025, 4000, [400 * k for k in range(1, 11)],
+                                  ones, dist.DiagGaussian(mean=0 * ones, scale=0.1 * ones))
+    assert not lv_rk4.stages_takes(pot.spec)
+    th = card_misfit.prior.sample(torch.Generator().manual_seed(64), 256)
+    before = dict(_build.launch_counts)
+    phi, grad = lv_rk4.misfit_and_grad(th, pot.spec)
+    assert _build.launch_counts[lv_rk4.STATES_KERNEL] == before.get(lv_rk4.STATES_KERNEL, 0) + 1
+    assert _build.launch_counts[lv_rk4.KERNEL] == before.get(lv_rk4.KERNEL, 0)
+    ref = lv_rk4.misfit_and_grad_states(th, pot.spec)
+    assert torch.equal(phi, ref[0]) and torch.equal(grad, ref[1])
+    want_v, want_g = pot.plain_value_and_grad(th)
+    assert float(((phi - want_v).abs() / want_v.abs()).max()) <= 1e-4
+    assert _rel(grad, want_g) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 512, 1024])
+def test_stages_kernel_against_the_states_kernel(card_misfit, n):
+    """On the configs' spec (prior draws, half doubled) the stages kernel
+    gives the states kernel's Φ and ∇Φ bit for bit: 0 of n chains differ;
+    and it allocates no states scratch (the peak memory of a call stays
+    below the scratch's size)."""
+    pot = card_misfit.potential_fn
+    th = card_misfit.prior.sample(torch.Generator().manual_seed(75 + n), n)
+    th[n // 2:] *= 2.0
+    ref = lv_rk4.misfit_and_grad_states(th, pot.spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    phi, grad = lv_rk4.misfit_and_grad(th, pot.spec)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < (pot.spec.n_steps + 1) * 2 * n * 4
+    differ = int(((phi != ref[0]) | (grad != ref[1]).any(dim=1)).sum())
+    print(f"{n} chains: {differ} of {n} differ from lv_misfit_grad_states_kernel")
+    assert differ == 0
