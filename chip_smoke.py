@@ -106,6 +106,17 @@ Gaussians), times both, then drives the ported paths at full width:
                              observability flags at 50 samples: the metrics
                              log, its TensorBoard events read back, and the
                              Chrome trace's device events of the LV kernel
+    darcy_da_fused --devices 1   the multi-device layer in a world of one
+                             NCCL rank: darcy_da_fused at 4096 chains
+                             through the CLI with --devices 1 (the runner
+                             on the chain mesh, parallel.sharded_fused_chain),
+                             bit for bit the unsharded run (its recorded
+                             launch and its statistics)
+    darcy_composed_pcn, darcy_composed_mala, darcy_composed_ess   the
+                             composed ('chains', 'model') mesh at 512
+                             chains through the CLI with --devices 1 (a
+                             (1, 1) mesh; the burn-in and samples cut)
+    examples/darcy_inversion the port's example script on the card, cut
 
 The fourteen fused configs, the scan, SMC and VI paths run through the
 port's CLI (the slow scan paths with their samples cut, darcy_da_pcn to 25
@@ -596,13 +607,14 @@ def check_da(problem, gen, results):
     exact, surr = problem.batched_potential_fn, problem.batched_surrogate_fn
     U = problem.prior.sample(gen, N_CHAINS).T.contiguous()
     compare_misfit(results, exact, U, variant="exact: dst_trunc-128, 12 CG",
-                   paths=["darcy_da_fused"], tol=BF16_TOL,
+                   paths=["darcy_da_fused", PARALLEL_DA], tol=BF16_TOL,
                    replaces="ip_mcmc_tpu/models/darcy.py:542")
     assert (exact.kernel_label, surr.kernel_label) == (MISFIT16, MISFIT8)
     compare_misfit(results, surr, U,
                    variant=(f"surrogate: dst_trunc-64, 3 CG, a draw a warp, "
                             f"{da.MISFIT_SURR_WARP_DRAWS} a CTA"),
-                   paths=["darcy_da_fused", richardson_path("cg3")], tol=BF16_TOL,
+                   paths=["darcy_da_fused", PARALLEL_DA, richardson_path("cg3")],
+                   tol=BF16_TOL,
                    replaces="ip_mcmc_tpu/models/darcy.py:542")
     # the one-draw-a-CTA kernel on an 8x8 spec the warp rule leaves (no
     # config): K 36
@@ -629,7 +641,7 @@ def check_da(problem, gen, results):
         compare_chain(results, DA16, recorded, kern, plain,
                       steps=outer, kernel_long=outer + 8, plain_long=2 * outer,
                       variant=f"block {block}, k={k}",
-                      paths=["darcy_da_fused"], source="fused_da_pcn.cu",
+                      paths=["darcy_da_fused", PARALLEL_DA], source="fused_da_pcn.cu",
                       pots=(exact, surr), per_step_ops=ops)
 
 
@@ -3470,6 +3482,21 @@ def check_scan_forwards(problems, results):
 
 # --- the CLI runs ---------------------------------------------------------------
 
+# the multi-device paths (a world of one NCCL rank), each through the CLI
+# with --devices 1: darcy_da_fused on the chain mesh, the composed configs
+PARALLEL_DA = "darcy_da_fused --devices 1"
+COMPOSED = ("darcy_composed_pcn", "darcy_composed_mala", "darcy_composed_ess")
+# the composed configs' depth in this script: a step runs one (pCN), two
+# (MALA) or one a shrink trip (ESS, ~14 trips at 512 chains) 150-iteration
+# CG solves of ~14,000 small operations each, host-bound (~0.3 s a pCN step
+# on an H100, PERF.md); the runner samples twice; the width, 512 chains,
+# as shipped
+COMPOSED_CUT = {"darcy_composed_pcn": {"burn_in": 10, "n_samples": 10},
+                "darcy_composed_mala": {"burn_in": 5, "n_samples": 5},
+                "darcy_composed_ess": {"burn_in": 0, "n_samples": 4}}
+# the example script's run on the card
+EXAMPLE_ARGS = ["--n-chains", "256", "--n-samples", "50", "--burn-in", "50"]
+
 # config -> (CLI flags, kernels the run must launch)
 PATHS = {
     "darcy_da_fused": ([], (MISFIT16, MISFIT8, f"{DA16}<false>", f"{DA16}<true>")),
@@ -3521,9 +3548,18 @@ PATHS = {
     "darcy_advi_warmstart": ([], ("vi_step[cuda]", "scan_pcn_step[cuda]")),
     "darcy_da_pod": ([], ("scan_da_pcn_step[cuda]",)),
     "darcy_da_pod_online": ([], ("scan_da_pcn_step[cuda]",)),
+    # the multi-device layer: the DA kernels launched on the chain mesh's
+    # shard; the composed samplers' steps (plain PyTorch and NCCL on the card)
+    PARALLEL_DA: (["--devices", "1"], (MISFIT16, MISFIT8, f"{DA16}<false>", f"{DA16}<true>")),
+    "darcy_composed_pcn": (["--devices", "1"], ("scan_composed_pcn_step[cuda]",)),
+    "darcy_composed_mala": (["--devices", "1"], ("scan_composed_mala_step[cuda]",)),
+    "darcy_composed_ess": (["--devices", "1"], ("scan_composed_ess_step[cuda]",)),
 }
+# the paths of run_parallel_phase, driven after the others
+PARALLEL_PATHS = (PARALLEL_DA, *COMPOSED)
 # a path's config where the two differ
-PATH_CONFIG = {"darcy_pcn_4096 scan": "darcy_pcn_4096",
+PATH_CONFIG = {PARALLEL_DA: "darcy_da_fused",
+               "darcy_pcn_4096 scan": "darcy_pcn_4096",
                "burgers_pcn scan": "burgers_pcn",
                "burgers_multitime_pcn scan": "burgers_multitime_pcn"}
 SCAN_PATHS = ("gauss2d_rwm", "lingauss_pcn", "darcy_pcn_4096 scan", "darcy64_pcn",
@@ -3576,6 +3612,7 @@ RETIRED = {"darcy_ess_fused": ("darcy_misfit_kernel[n=16]",),
            "darcy_pcn_warm": (MISFIT_WARM_CTA,),
            "darcy_smc_warm": (MISFIT_WARM_CTA,),
            "darcy_da_fused": ("darcy_misfit_kernel[n=8]",),
+           PARALLEL_DA: ("darcy_misfit_kernel[n=8]",),
            "burgers_da3_pcn": tuple(BURGERS_MISFIT_CTA + tag for tag in (FINE, MID, COARSE)),
            "burgers_da_pcn": (BURGERS_MISFIT_CTA + FINE, BURGERS_MISFIT_CTA + COARSE),
            "burgers_pcn": (BURGERS_MISFIT_CTA + FINE,),
@@ -3888,6 +3925,120 @@ def run_cli_flags_phase():
     return out
 
 
+def check_composed_metrics(config, problem, cut, metrics):
+    """A composed run's checks: the JAX runner's _run_composed keys, a
+    (1, 1) mesh at the config's width, finite statistics; pCN and MALA
+    accept something, ESS evaluates at least once a step."""
+    kind = problem.kernel.split("_")[0]
+    assert metrics["kernel"] == f"{kind}(composed chains x model)", metrics["kernel"]
+    assert metrics["mesh_shape"] == [1, 1], metrics["mesh_shape"]
+    assert metrics["n_chains"] == problem.n_chains and metrics["n_samples"] == cut["n_samples"]
+    assert math.isfinite(metrics["max_rhat"]) and math.isfinite(metrics["min_ess"])
+    assert all(math.isfinite(v) for v in metrics["posterior_mean"])
+    assert len(metrics["posterior_mean"]) == problem.dim
+    steps = cut["burn_in"] + cut["n_samples"] * problem.thin
+    assert math.isclose(metrics["steps_per_s"], problem.n_chains * steps / metrics["run_s"],
+                        rel_tol=1e-9)
+    if kind == "ess":
+        assert "accept_rate" not in metrics
+        assert metrics["mean_evals_per_step"] >= 1.0, metrics["mean_evals_per_step"]
+    else:
+        assert "mean_evals_per_step" not in metrics
+        assert 0.0 < metrics["accept_rate"] <= 1.0, metrics["accept_rate"]
+
+
+def run_parallel_phase(problems, counts, n_samples):
+    """The multi-device layer in a world of one NCCL rank (never gloo):
+    darcy_da_fused at full width through the CLI with --devices 1 (the
+    runner on the chain mesh), its recorded launch through
+    sharded_fused_chain bit for bit the unsharded launch's and its
+    statistics those of the unsharded run (rank 0's seed offset is 0);
+    then the three composed configs through the CLI with --devices 1,
+    their burn-in and samples cut (COMPOSED_CUT). Each CLI run is a
+    drive_phase; the unsharded reference runs outside the counted windows.
+    Returns the phase's record."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from ip_mcmc_tpu_torch import configs, ops, parallel, runner
+
+    parallel.distributed_init(device="cuda")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"the world's backend is {dist.get_backend()}, not nccl")
+    mesh = parallel.make_chain_mesh(n_devices=1)
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    p = problems[PARALLEL_DA]
+    kp = p.kernel_params
+    pos = p.init_positions(torch.Generator().manual_seed(21), p.n_chains).cuda()
+    kw = dict(prior_mean=p.prior.mean, prior_scale=p.prior.scale, beta=kp["beta"],
+              subchain_len=kp["subchain_len"], block_chains=kp.get("block_chains", 512),
+              n_steps=8, thin=2)
+    direct = ops.fused_da_pcn_chain_recorded(p.batched_potential_fn, p.batched_surrogate_fn,
+                                              pos, seed=5, **kw)
+    sharded = parallel.sharded_fused_chain(
+        lambda phi, x, **k: ops.fused_da_pcn_chain_recorded(phi, p.batched_surrogate_fn, x, **k),
+        mesh, p.batched_potential_fn, pos, seed=5, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(direct, sharded)):
+        raise AssertionError("the sharded recorded DA launch differs from the unsharded one")
+    t0 = time.perf_counter()
+    ref = runner.run_problem(p, "cuda", seed=0, n_samples=n_samples)
+    ref_wall = time.perf_counter() - t0
+    counts[PARALLEL_DA], metrics = drive_phase(
+        PARALLEL_DA, PATHS[PARALLEL_DA][1],
+        lambda: run_cli(config_of(PARALLEL_DA), PATHS[PARALLEL_DA][0], n_samples))
+    print(f"{PARALLEL_DA} metrics: " + json.dumps(metrics), flush=True)
+    check_metrics(PARALLEL_DA, p, n_samples, counts[PARALLEL_DA], metrics)
+    if dist.get_world_size() != 1 or dist.get_backend() != "nccl":
+        raise AssertionError(f"{PARALLEL_DA} left a world of {dist.get_world_size()} on "
+                             f"{dist.get_backend()}")
+    # the CLI's line went through JSON: the reference's values too
+    ref = json.loads(json.dumps(ref))
+    stats = ("min_ess", "max_rhat", "accept_rate", "inner_accept_rate", "posterior_mean")
+    differ = [k for k in stats if metrics[k] != ref[k]]
+    if differ:
+        raise AssertionError(f"{PARALLEL_DA}: {differ} differ from the unsharded run's")
+    out[PARALLEL_DA] = {"recorded_launch_bitwise": True, "statistics_equal": True,
+                        "n_samples": n_samples, "run_s": metrics["run_s"],
+                        "unsharded_run_s": ref["run_s"], "unsharded_wall_s": ref_wall,
+                        "outer_steps_per_s": metrics["outer_steps_per_s"]}
+    for name in COMPOSED:
+        cut = COMPOSED_CUT[name]
+        problem = problems[name]
+        print(f"{name}: burn_in cut from {problem.burn_in} to {cut['burn_in']} and n_samples "
+              f"from {problem.n_samples} to {cut['n_samples']} to fit the time limit (width "
+              f"unchanged: {problem.n_chains} chains)", flush=True)
+        shipped = configs.REGISTRY[name]
+        configs.REGISTRY[name] = lambda device, f=shipped, b=cut["burn_in"]: (
+            dataclasses.replace(f(device), burn_in=b))
+        try:
+            counts[name], m = drive_phase(
+                name, PATHS[name][1], lambda: run_cli(name, PATHS[name][0], cut["n_samples"]))
+        finally:
+            configs.REGISTRY[name] = shipped
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"{name} ran on {dist.get_backend()}")
+        print(f"{name} metrics: " + json.dumps(m), flush=True)
+        check_composed_metrics(name, problem, cut, m)
+        out[name] = {**cut, **{k: v for k, v in m.items() if k != "posterior_mean"}}
+    parallel.shutdown()
+    return out
+
+
+def run_examples_phase():
+    """The port's darcy_inversion example on the card, cut (EXAMPLE_ARGS):
+    its scan pCN's steps on the card, a finite field error."""
+    from ip_mcmc_tpu_torch.examples import darcy_inversion
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = darcy_inversion.main(EXAMPLE_ARGS)
+    print("examples/darcy_inversion " + " ".join(EXAMPLE_ARGS) + ":\n" + buf.getvalue().strip(),
+          flush=True)
+    assert 0.0 < out["accept_rate"] <= 1.0 and math.isfinite(out["field_error"]), out
+    return {"args": EXAMPLE_ARGS, **out}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3985,6 +4136,8 @@ def main() -> int:
     print(f"predicted device time of the fourteen fused runs as shipped: {predicted:.1f} s",
           flush=True)
     for config, problem in problems.items():
+        if config in PARALLEL_PATHS:
+            continue  # run_parallel_phase's, below
         n_samples = problem.n_samples
         if config in SMC_PATHS + VI_PATHS:
             pass  # no samples: particles or ADVI steps
@@ -4013,6 +4166,11 @@ def main() -> int:
                                              "darcy_da_pod_online"):
             new_paths[config] = {k: v for k, v in metrics.items() if k != "posterior_mean"}
     smc = check_smc_evidence(new_paths, counts, problems["darcy_smc_warm"])
+    # the multi-device layer, darcy_da_fused at the samples its CLI run took
+    parallel_phase = run_parallel_phase(problems, counts, max(8, int(
+        problems[PARALLEL_DA].n_samples * cut)))
+    counts["examples darcy_inversion"], examples_phase = drive_phase(
+        "examples darcy_inversion", ("scan_pcn_step[cuda]",), run_examples_phase)
     # checkpoint / resume and the CLI's observability flags on the ODE path
     counts["checkpoint ode_mala"], checkpoint_phase = drive_phase(
         "checkpoint ode_mala", (LV, "scan_mala_step[cuda]"),
@@ -4033,7 +4191,8 @@ def main() -> int:
                       "ode_gradient": ode_gradient, "smc_evidence": smc,
                       "smc_warm_misfit": smc_warm_misfit,
                       "smc_vi_pod_runs": new_paths, "checkpoint": checkpoint_phase,
-                      "cli_flags": cli_flags, "ptxas": ptxas}))
+                      "cli_flags": cli_flags, "parallel": parallel_phase,
+                      "examples": examples_phase, "ptxas": ptxas}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,7 +22,9 @@ single-particle forward) and ``darcy_smc_warm`` (its batched mutation on the
 warm dense-``dst`` misfit); ADVI: ``lingauss_advi``, ``darcy_advi`` and the
 VI warm start ``darcy_advi_warmstart``; delayed acceptance on POD
 surrogates, ``darcy_da_pod`` and ``darcy_da_pod_online`` (enriched during
-burn-in). ``NOT_PORTED`` names the JAX configs still to come. The
+burn-in); on the composed ('chains', 'model') mesh ``darcy_composed_pcn``,
+``darcy_composed_mala`` and ``darcy_composed_ess`` (``parallel/composed.py``):
+all 36 of the JAX package's configs. The
 deterministic constants (KL bases, means, observation cells, sources, time
 steps, preconditioner factors, the numpy-drawn forward matrix) are computed
 here in numpy; the arrays the JAX configs draw with JAX keys (the data, the
@@ -71,7 +73,9 @@ class Problem:
     name: str
     dim: int
     prior: dist.DiagGaussian
-    kernel: str  # rwm pcn elliptical da_pcn fes mala hmc nuts chees pt smc vi
+    # rwm pcn elliptical da_pcn fes mala hmc nuts chees pt smc vi, and the
+    # composed mesh's pcn_composed mala_composed ess_composed
+    kernel: str
     kernel_params: dict
     n_chains: int
     n_samples: int
@@ -115,18 +119,6 @@ class Problem:
 
 REGISTRY: dict = {}
 
-# the JAX package's configs that the port does not run yet, each with the
-# kernel, kernel_params option or model it needs (the runner refuses a
-# problem that asks for one of those) and what that is
-NOT_PORTED = {
-    "darcy_composed_pcn": ("pcn_composed",
-                           "the composed chains x model mesh (parallel/composed.py)"),
-    "darcy_composed_mala": ("mala_composed",
-                            "the composed chains x model mesh (parallel/composed.py)"),
-    "darcy_composed_ess": ("ess_composed",
-                           "the composed chains x model mesh (parallel/composed.py)"),
-}
-
 
 def register(fn):
     REGISTRY[fn.__name__] = fn
@@ -134,12 +126,7 @@ def register(fn):
 
 
 def build(name: str, device) -> Problem:
-    """Build a named Problem with its tensors on ``device``. A JAX config
-    that the port does not run yet raises ``NotImplementedError``."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"config '{name}' is not ported: it needs {NOT_PORTED[name][1]}. "
-            f"Ported: {', '.join(sorted(REGISTRY))}")
+    """Build a named Problem with its tensors on ``device``."""
     if name not in REGISTRY:
         raise KeyError(f"unknown config '{name}'; have {sorted(REGISTRY)}")
     return REGISTRY[name](torch.device(device))
@@ -427,6 +414,57 @@ def darcy_pcn_4096(device) -> Problem:
         potential_fn=_darcy_potential(device, y, **DARCY16),
         batched_potential_fn=phi_batched,
     )
+
+
+def _darcy_composed(device, name, kernel, kp, notes) -> Problem:
+    """A composed ('chains', 'model') mesh config (``darcy_composed_*`` of
+    the JAX configs): the 16×16 Darcy posterior, 512 chains, 300 burn-in
+    steps and 300 samples, every forward a 150-iteration Jacobi CG with the
+    grid's rows sharded over 'model' (``parallel/composed.py``); the mesh's
+    shape follows the world's size (``runner._run_composed``)."""
+    prior, _, y, u_true, _ = _darcy_problem(device)
+    _, aux = darcy.make_darcy_forward(device=device, **DARCY16)
+    return Problem(
+        name=name,
+        dim=64,
+        prior=prior,
+        kernel=kernel,
+        kernel_params={**kp, "cg_iters": 150, "aux": aux, "noise_scale": 0.002},
+        n_chains=512,
+        n_samples=300,
+        burn_in=300,
+        data=y,
+        truth=u_true,
+        notes=notes,
+        potential_fn=_darcy_potential(device, y, **DARCY16),
+    )
+
+
+@register
+def darcy_composed_pcn(device) -> Problem:
+    """Composed ('chains', 'model') mesh: Darcy pCN, the chains sharded and
+    each chain's forward solve row-sharded over 'model'; one rank is the
+    (1, 1) mesh."""
+    return _darcy_composed(device, "darcy_composed_pcn", "pcn_composed", {"beta": 0.08},
+                           "grid-sharded forward solves UNDER chain sharding")
+
+
+@register
+def darcy_composed_mala(device) -> Problem:
+    """Composed ('chains', 'model') mesh with gradient-based sampling: MALA
+    whose ∇Φ comes from the distributed adjoint solve (forward CG, adjoint
+    CG, face derivatives, all row-sharded over 'model')."""
+    return _darcy_composed(device, "darcy_composed_mala", "mala_composed", {"step_size": 0.05},
+                           "distributed adjoint gradients under chain sharding")
+
+
+@register
+def darcy_composed_ess(device) -> Problem:
+    """Composed ('chains', 'model') mesh with tuning-free sampling:
+    elliptical slice sampling, its shrink loop ending on the same trip on
+    every rank."""
+    return _darcy_composed(device, "darcy_composed_ess", "ess_composed", {"max_shrink": 20},
+                           "rejection-free slice sampling on grid-sharded solves")
 
 
 @register

@@ -1,5 +1,6 @@
 """Priors and noise models (mirrors ``ip_mcmc_tpu.distributions``:
-``DiagGaussian``, ``Gaussian`` and ``gaussian_kl_prior``).
+``DiagGaussian``, ``Gaussian``, ``LogNormal``, ``IndependentProduct`` and
+``gaussian_kl_prior``).
 
 Draws come from an explicit ``torch.Generator``; batches of chains are a
 leading dimension written out (the JAX package ``vmap``s single draws).
@@ -107,6 +108,64 @@ class Gaussian:
     def potential(self, x):
         w = self.whiten(x)
         return 0.5 * torch.sum(w * w, dim=-1)
+
+
+@dataclasses.dataclass
+class LogNormal:
+    """Componentwise log-normal: log x ~ N(mu, diag(sigma²)) (the
+    reference's ``LogNormalDistribution``: positive parameters)."""
+
+    mu: torch.Tensor  # (d,)
+    sigma: torch.Tensor  # (d,)
+
+    @property
+    def dim(self) -> int:
+        return self.mu.shape[-1]
+
+    def sample(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        """(n, d) draws."""
+        return torch.exp(self.mu + self.sigma * _normals(generator, n, self.dim,
+                                                         self.mu.device))
+
+    def log_prob(self, x):
+        logx = torch.log(x)
+        z = (logx - self.mu) / self.sigma
+        return torch.sum(-0.5 * z * z - logx - torch.log(self.sigma) - 0.5 * _LOG_2PI,
+                         dim=-1)
+
+    def potential(self, x):
+        return -self.log_prob(x)
+
+
+@dataclasses.dataclass
+class IndependentProduct:
+    """Independent blocks over consecutive coordinate slices (the
+    reference's ``IndependentDistributions``): ``dists`` the blocks,
+    ``dims`` their dimensions."""
+
+    dists: tuple
+    dims: tuple
+
+    @classmethod
+    def of(cls, *dists):
+        return cls(dists=tuple(dists), dims=tuple(int(d.dim) for d in dists))
+
+    @property
+    def dim(self) -> int:
+        return sum(self.dims)
+
+    def _split(self, x):
+        return torch.split(x, list(self.dims), dim=-1)
+
+    def sample(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        """(n, d) draws, block after block from ``generator``."""
+        return torch.cat([d.sample(generator, n) for d in self.dists], dim=-1)
+
+    def log_prob(self, x):
+        return sum(d.log_prob(p) for d, p in zip(self.dists, self._split(x)))
+
+    def potential(self, x):
+        return -self.log_prob(x)
 
 
 def gaussian_kl_prior(eigenvalues, mean=None, device="cpu") -> DiagGaussian:

@@ -24,12 +24,14 @@ def _chain_mean(info):
 
 
 def sample_chains(kernel, state, generator, *, n_samples, burn_in=0, thin=1,
-                  record_fn=None):
+                  record_fn=None, info_fn=_chain_mean):
     """Run the chains; return (final state, samples (n_samples, n, ...),
     info means). ``kernel(generator, state) -> (state, info)``;
     ``record_fn``: state → what is recorded (default ``state.position``).
     The info means are the info's dataclass with each field the chain mean
-    of the last step of every retained sample, stacked: (n_samples, ...)."""
+    of the last step of every retained sample, stacked: (n_samples, ...);
+    ``info_fn``: a retained step's info → the dict of what is stacked (by
+    default the chain means)."""
     if record_fn is None:
         record_fn = lambda s: s.position  # noqa: E731
     for _ in range(burn_in):
@@ -39,7 +41,7 @@ def sample_chains(kernel, state, generator, *, n_samples, burn_in=0, thin=1,
         for _ in range(thin):
             state, info = kernel(generator, state)
         samples.append(record_fn(state))
-        means.append(_chain_mean(info))
+        means.append(info_fn(info))
     info_means = type(info)(**{k: torch.stack([m[k] for m in means])
                                for k in means[0]})
     return state, torch.stack(samples), info_means

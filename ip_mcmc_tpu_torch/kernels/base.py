@@ -64,18 +64,52 @@ def count_step(count_as, device):
     _build.launch_counts[f"{count_as}[{torch.device(device).type}]"] += 1
 
 
-def normals(generator, shape, device):
+@dataclasses.dataclass
+class RowShard:
+    """The generator of one rank's rows ``start:stop`` of an ``n_total``
+    chain batch sharded over ranks (``parallel.sample_chains_sharded``).
+    ``normals`` and ``uniforms`` draw the whole batch from ``generator``
+    and keep the rank's rows, so every chain draws what it draws in one
+    process, whatever the number of ranks."""
+
+    generator: torch.Generator
+    n_total: int
+    start: int
+    stop: int
+
+    @property
+    def device(self):
+        return self.generator.device
+
+
+def _draw(fn, generator, shape, device, chain_axis):
+    if isinstance(generator, RowShard):
+        shape = list(shape)
+        if shape[chain_axis] != generator.stop - generator.start:
+            raise ValueError(
+                f"draw of shape {tuple(shape)}: axis {chain_axis} is not the "
+                f"{generator.stop - generator.start} chains of this rank")
+        shape[chain_axis] = generator.n_total
+        x = fn(shape, generator=generator.generator, dtype=torch.float32,
+               device=generator.device)
+        x = x.narrow(chain_axis, generator.start, generator.stop - generator.start)
+    else:
+        x = fn(shape, generator=generator, dtype=torch.float32,
+               device=generator.device)
+    return x.to(device)
+
+
+def normals(generator, shape, device, chain_axis=0):
     """Standard normals of ``shape`` from ``generator`` (on its own device),
     moved to ``device``: a seed gives the same draws wherever the chains
-    live."""
-    return torch.randn(shape, generator=generator, dtype=torch.float32,
-                       device=generator.device).to(device)
+    live. ``chain_axis``: the axis of ``shape`` that counts the chains (a
+    ``RowShard`` draws it whole)."""
+    return _draw(torch.randn, generator, shape, device, chain_axis)
 
 
-def uniforms(generator, shape, device):
+def uniforms(generator, shape, device, chain_axis=0):
     """Uniforms on [0, 1) of ``shape``, drawn as ``normals`` draws."""
-    return torch.rand(shape, generator=generator, dtype=torch.float32,
-                      device=generator.device).to(device)
+    return _draw(torch.rand, generator, shape, device, chain_axis)
 
 
 def draws(generator, state, count_as):

@@ -85,8 +85,8 @@ def build_kernel(potential_fn, surrogate_fn, prior, beta, subchain_len=4):
         n, d = state.position.shape
         dev = state.position.device
         count_step("scan_da_pcn_step", dev)
-        xi = prior.scale_apply(normals(generator, (subchain_len, n, d), dev))
-        u_inner = uniforms(generator, (subchain_len, n), dev)
+        xi = prior.scale_apply(normals(generator, (subchain_len, n, d), dev, chain_axis=1))
+        u_inner = uniforms(generator, (subchain_len, n), dev, chain_axis=1)
         return transition(state, xi, u_inner, uniforms(generator, (n,), dev))
 
     kernel.transition = transition

@@ -98,7 +98,7 @@ def build_kernel(potential_fn, prior, max_shrink=30):
         u_level = uniforms(generator, (n,), dev)
         u_theta = uniforms(generator, (n,), dev)
         return transition(state, nu, u_level, u_theta,
-                          uniforms(generator, (max_shrink, n), dev))
+                          uniforms(generator, (max_shrink, n), dev, chain_axis=1))
 
     kernel.transition = transition
     return kernel

@@ -72,6 +72,7 @@ from ip_mcmc_tpu_torch._device import resolve_device
 from ip_mcmc_tpu_torch.kernels.base import normals
 from ip_mcmc_tpu_torch.models import kl
 from ip_mcmc_tpu_torch.ops import _build, _cluster, fused_da_pcn, fused_mala, fused_pcn
+from ip_mcmc_tpu_torch.parallel import grid_shard
 
 
 def default_observation_indices(n: int, n_obs_per_dim: int = 4):
@@ -865,22 +866,31 @@ def make_darcy_forward(n_grid: int = 16, n_modes_per_dim: int = 8, alpha: float 
                        field_scale: float = 10.0, obs_indices=None, source=None,
                        log_a_mean: float = 0.0, method: str = "cg", cg_iters: int = 48,
                        precond: str = "jacobi", solver: str = "cg", omega: float = 1.0,
-                       device="cuda"):
+                       device="cuda", mesh=None):
     """(forward, aux): forward(u) maps whitened KL coefficients u (..., K)
     to the pressure at the observation cells (..., m), chains on the
     leading dimensions: log a = log_a_mean + u · scaled_basis, then
-    ``solve_cg`` (``method="cg"``) or a dense Cholesky solve of
-    ``assemble_operator`` (``"dense"``). ``aux`` holds the JAX package's
+    ``solve_cg`` (``method="cg"``), a dense Cholesky solve of
+    ``assemble_operator`` (``"dense"``), or (``"sharded"``) the Jacobi-PCG
+    solve with the grid's rows sharded over the 'model' axis of ``mesh``
+    (``parallel.grid_shard.sharded_solve_cg``: one halo exchange and two
+    ``all_reduce`` sums an iteration; every rank of the model group calls
+    the forward together; no gradient). ``mesh`` None there: the 'model'
+    mesh of the whole world (a world of one on ``device`` if none runs);
+    ``n_grid`` must divide over its ranks. ``aux`` holds the JAX package's
     keys: scaled_basis (K, n²), eigenvalues (K,), obs_indices (m,), n_grid,
     stencil_indices, source (n²,), tensors on ``device`` (the card unless
     the caller asks for the CPU)."""
     if method not in ("cg", "dense", "sharded"):
         raise ValueError(f"method must be 'cg', 'dense' or 'sharded', got {method!r}")
-    if method == "sharded":
-        raise NotImplementedError(
-            "method='sharded' (the grid row-sharded over a 'model' mesh axis) is not ported: "
-            "the port's multi-device slice, ROADMAP Queue 1 item 5")
     device = resolve_device(str(device))
+    if method == "sharded":
+        if mesh is None:
+            mesh = grid_shard.make_model_mesh(device=device)
+        if n_grid % mesh.shape[1]:
+            raise ValueError(
+                f"n_grid {n_grid} must divide over the {mesh.shape[1]}-device 'model' "
+                "axis (row-block decomposition)")
     consts = darcy_aux(n_grid, n_modes_per_dim, alpha, field_scale, obs_indices)
     if source is not None:
         consts["source"] = np.asarray(source, np.float32).reshape(-1)
@@ -899,6 +909,8 @@ def make_darcy_forward(n_grid: int = 16, n_modes_per_dim: int = 8, alpha: float 
         if method == "cg":
             p = solve_cg(a, f, n_grid, n_iters=cg_iters, precond=precond, solver=solver,
                          omega=omega)
+        elif method == "sharded":
+            p = grid_shard.sharded_solve_cg(a, f, n_grid, mesh, n_iters=cg_iters)
         else:
             p = _dense_solve(a, aux)
         return p[..., obs]

@@ -78,6 +78,26 @@ def tile_index(rows: int, block: int, device):
     )
 
 
+# --- draws of (seed, step, chain id): the multi-device samplers -------------
+
+
+def chain_uniforms(seed: int, step: int, tag: int, idx):
+    """Uniforms in (0, 1) of the stream (``seed``, ``step``, ``tag``) at
+    the int64 indices ``idx`` (a chain's global id, or an element of its
+    row): the same number wherever that chain lives."""
+    return uniform_from_bits(hash_bits(mix_key(int(seed), int(step), tag), idx))
+
+
+def chain_normals(seed: int, step: int, tag: int, gids, d: int):
+    """(len(gids), d) standard normals of the chains ``gids``: Box–Muller
+    on the streams ``tag`` and ``tag`` + 1, ⌈d/2⌉ pairs a chain."""
+    half = (d + 1) // 2
+    idx = gids[:, None] * half + torch.arange(half, device=gids.device)
+    radius = torch.sqrt(-2.0 * torch.log(chain_uniforms(seed, step, tag, idx)))
+    theta = TWO_PI * chain_uniforms(seed, step, tag + 1, idx)
+    return torch.cat([radius * torch.cos(theta), radius * torch.sin(theta)], dim=1)[:, :d]
+
+
 # --- scalar-key forms with the JAX signatures, on the CPU (for the tests) --
 
 

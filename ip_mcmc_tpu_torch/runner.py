@@ -6,10 +6,21 @@
 ``mala``, ``hmc``, ``nuts``, with ``map_init``) and ``_run_one_dispatch``;
 ``_run_chees``, ``_run_fes``, ``_run_pt`` and ``_pt_pair_metrics``;
 ``_run_smc``, ``_run_vi``, ``_vi_warm_start`` and ``_pod_enrich_burnin``;
-``_resolve_n_low_modes``, ``_finalize``). Returns the JAX runner's JSON-able
-metrics dict, key for key. The composed samplers (the chains × model mesh
-of the three ``darcy_composed_*`` configs) are not ported: the runner
-refuses them (``NotImplementedError``).
+``_resolve_n_low_modes``, ``_finalize``) and ``_run_composed`` (the
+three ``darcy_composed_*`` configs on a ('chains', 'model') mesh). Returns
+the JAX runner's JSON-able metrics dict, key for key.
+
+With a chain ``mesh`` (``parallel.make_chain_mesh``: a ``torch.distributed``
+world, one process a device) the fused path launches each rank's shard
+through ``parallel.sharded_fused_chain`` and the scan path samples each
+rank's rows through ``parallel.sample_chains_sharded`` after a warm-up
+(and a VI or POD warm start) run whole on every rank (as the JAX runner
+keeps it eager and replicated), so a sharded run gives the
+single-process run's chains; every rank ends with the same metrics. The
+composed configs shard over the mesh they are given, else one of the
+world's size. The other paths (SMC, VI, ChEES, PT, the scan FES) do not
+shard: a mesh of more than one rank is refused there, rather than every
+rank running the whole problem.
 
 Fused timing protocol (as the JAX runner's): the burn launch uses seed 1
 and is timed as ``warmup_s`` (on the card it also pays the kernels' build
@@ -30,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from ip_mcmc_tpu_torch import configs, diagnostics, driver, ops, smc, vi
+from ip_mcmc_tpu_torch import diagnostics, driver, ops, parallel, smc, vi
 from ip_mcmc_tpu_torch.adapt import (
     map_localize,
     warmup_hmc,
@@ -52,17 +63,17 @@ from ip_mcmc_tpu_torch.kernels import (
     tempering,
 )
 from ip_mcmc_tpu_torch.kernels.ensemble import choose_n_low_modes
+from ip_mcmc_tpu_torch.parallel import composed
 from ip_mcmc_tpu_torch.utils.logging import MetricsLogger, profile_region
 
 # metric keys that name wall-time phases (attribution in _finalize)
 _PHASE_KEYS = ("warmup_s", "trace_s", "compile_s", "first_dispatch_s", "run_s",
                "diag_s", "fit_s", "vi_fit_s", "pod_enrich_s")
 # the kernels with a fused path, those of the one-dispatch scan path, and
-# the kernels and kernel_params options the port does not run yet (those
-# that configs.NOT_PORTED's configs need)
+# those of the composed ('chains', 'model') mesh
 FUSED_KERNELS = ("pcn", "elliptical", "da_pcn", "fes", "mala", "rwm")
 SCAN_KERNELS = ("rwm", "pcn", "da_pcn", "elliptical", "mala", "hmc", "nuts")
-NOT_PORTED = tuple(sorted({need for need, _ in configs.NOT_PORTED.values()}))
+COMPOSED_KERNELS = ("pcn_composed", "mala_composed", "ess_composed")
 
 
 def _barrier(device):
@@ -133,12 +144,14 @@ def _resolve_n_low_modes(kp, problem):
     return int(m)
 
 
-def _run_fused_mcmc(problem, generator, n_chains, n_samples, device):
+def _run_fused_mcmc(problem, generator, n_chains, n_samples, device, mesh=None):
     """The fused path: burn-in launch + recorded sampling launch,
     diagnostics on the recorded series. pCN, ESS and the ensemble sampler
     are prior-reversible and consume the data misfit alone; MALA and RWM
     target the full posterior, so the whitened prior goes to the sampler,
-    which adds it in its step."""
+    which adds it in its step. With a chain ``mesh`` each launch runs on
+    every rank's shard (``parallel.sharded_fused_chain``, rank r's seed
+    offset by r · ``SEED_STRIDE``) and its outputs are gathered."""
     kp = dict(problem.kernel_params)
     block = min(int(kp.get("block_chains", 512)), n_chains)
     run_kw = dict(prior_mean=problem.prior.mean,
@@ -206,6 +219,12 @@ def _run_fused_mcmc(problem, generator, n_chains, n_samples, device):
         raise NotImplementedError(
             f"config {problem.name}: fused '{problem.kernel}' is not ported"
         )
+    if mesh is not None:
+        # bind the sampler now: `chain` and `chain_rec` are rebound below
+        def sharded(fn):
+            return lambda p, pos, **kw: parallel.sharded_fused_chain(fn, mesh, p, pos, **kw)
+
+        chain, chain_rec = sharded(chain), sharded(chain_rec)
     positions = problem.init_positions(generator, n_chains).to(device)
 
     t0 = time.perf_counter()
@@ -381,7 +400,8 @@ def _setup_kernel_state(problem, positions, generator):
     return kernel, state, warm_steps
 
 
-def _run_one_dispatch(problem, seed, n_chains, n_samples, device, profile_dir=None):
+def _run_one_dispatch(problem, seed, n_chains, n_samples, device, profile_dir=None,
+                      mesh=None):
     """The scan path (the JAX runner's ``_run_one_dispatch``): warm-up +
     burn-in + sampling + ESS/R̂ diagnostics, run twice from the same seed;
     the second, identical run is timed as ``run_s`` and the first one's
@@ -396,8 +416,11 @@ def _run_one_dispatch(problem, seed, n_chains, n_samples, device, profile_dir=No
     burn-in, sampling); ``sampling_steps_per_s`` the sampling steps. With
     ``profile_dir`` the timed run is traced by ``torch.profiler`` (host
     and card) into the Chrome trace ``{profile_dir}/{config}_run.trace.json``
-    (``utils.logging.profile_region``), where the JAX runner traces it. Returns (metrics, the chain-mean acceptance of each retained
-    step, or None)."""
+    (``utils.logging.profile_region``), where the JAX runner traces it.
+    With a chain ``mesh`` the warm-up runs whole on every rank and the
+    sampling on each rank's rows (``parallel.sample_chains_sharded``): the
+    single-process run's samples and statistics, bit for bit. Returns
+    (metrics, the chain-mean acceptance of each retained step, or None)."""
     kp = problem.kernel_params
     burn = 0 if kp.get("adapt", False) else problem.burn_in
     thin = problem.thin
@@ -409,9 +432,14 @@ def _run_one_dispatch(problem, seed, n_chains, n_samples, device, profile_dir=No
         gen_run = torch.Generator(device).manual_seed(int(seed) + 2)
         kernel, state, warm_steps = _setup_kernel_state(problem, positions,
                                                         gen_warm)
-        _, samples, info_means = driver.sample_chains(
-            kernel, state, gen_run, n_samples=n_samples, burn_in=burn,
-            thin=thin)
+        if mesh is None:
+            _, samples, info_means = driver.sample_chains(
+                kernel, state, gen_run, n_samples=n_samples, burn_in=burn,
+                thin=thin)
+        else:
+            _, samples, info_means = parallel.sample_chains_sharded(
+                kernel, state, gen_run, mesh, n_samples=n_samples, burn_in=burn,
+                thin=thin)
         summ = diagnostics.summarize(samples)
         float(summ["min_ess"])  # the device's work is done
         return summ, info_means, warm_steps
@@ -466,6 +494,88 @@ def _run_one_dispatch(problem, seed, n_chains, n_samples, device, profile_dir=No
             np.abs(flat_mean - problem.exact_mean).max())
     trace = getattr(info_means, "accepted", getattr(info_means, "accept_prob", None))
     return metrics, trace
+
+
+def _run_composed(problem, seed, n_chains, n_samples, device, mesh=None):
+    """The composed ('chains', 'model') mesh path (the JAX runner's
+    ``_run_composed``): pCN, MALA or ESS with the chains sharded over
+    'chains' and every chain's Darcy solve row-sharded over 'model'
+    (``parallel/composed.py``). The mesh is the caller's ``mesh`` (any
+    (c, m) shape of the world), else one of shape
+    ``kernel_params["mesh_shape"]``, else, from the world's size w (a world
+    of one on ``device`` if none runs), (w / m, m) with m the first of 4, 2
+    that divides both w and the grid, else 1. Positions from a host
+    generator seeded with ``seed``; the draws from the counter-hash stream
+    of seed + 2. Samples twice; the second run is ``run_s``."""
+    kp = dict(problem.kernel_params)
+    aux = kp.pop("aux")
+    noise_scale = kp.pop("noise_scale")
+    cg_iters = kp.get("cg_iters", 150)
+    if mesh is None:
+        mesh_shape = kp.get("mesh_shape")
+        if mesh_shape is None:
+            parallel.distributed_init(device=device)
+            n_dev = torch.distributed.get_world_size()
+            n_grid = int(aux["n_grid"])
+            m = next((c for c in (4, 2) if n_dev % c == 0 and n_grid % c == 0), 1)
+            mesh_shape = (n_dev // m, m)
+        mesh = composed.make_composed_mesh(*mesh_shape, device=device)
+        _check_mesh_device(mesh, device)
+    u0 = problem.init_positions(torch.Generator().manual_seed(int(seed)), n_chains)
+    common = dict(mesh=mesh, u0=u0, seed=int(seed) + 2, n_samples=n_samples,
+                  burn_in=problem.burn_in, thin=problem.thin, cg_iters=cg_iters)
+    if problem.kernel == "ess_composed":
+        def sample():
+            return composed.sample_composed_elliptical(
+                aux, problem.data, noise_scale, max_shrink=kp.get("max_shrink", 20), **common)
+    elif problem.kernel == "mala_composed":
+        def sample():
+            return composed.sample_composed_mala(
+                aux, problem.data, noise_scale, step_size=kp.get("step_size", 0.05), **common)
+    else:
+        def sample():
+            return composed.sample_composed_pcn(
+                aux, problem.data, noise_scale, beta=kp.get("beta", 0.2), **common)
+
+    t0 = time.perf_counter()
+    float(sample()[1])
+    compile_and_run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    samples, stat = sample()
+    stat = float(stat)
+    run_s = time.perf_counter() - t0
+
+    summ, diag_s = _summarize_timed(samples)
+    total_steps = problem.burn_in + n_samples * problem.thin
+    return {
+        "config": problem.name,
+        "kernel": f"{problem.kernel.split('_')[0]}(composed chains x model)",
+        "mesh_shape": list(mesh.shape),
+        "n_chains": int(n_chains),
+        "n_samples": int(n_samples),
+        "dim": int(problem.dim),
+        "compile_s": max(compile_and_run_s - run_s, 0.0),
+        "run_s": run_s,
+        "steps_per_s": n_chains * total_steps / run_s,
+        "diag_s": diag_s,
+        "min_ess": float(summ["min_ess"]),
+        "ess_per_s": float(summ["min_ess"]) / run_s,
+        "max_rhat": float(summ["max_rhat"]),
+        # elliptical slice sampling rejects nothing: its statistic is the
+        # mean number of forward evaluations a step
+        ("mean_evals_per_step" if problem.kernel == "ess_composed"
+         else "accept_rate"): stat,
+        "posterior_mean": summ["mean"].tolist(),
+    }
+
+
+def _check_mesh_device(mesh, device):
+    """A mesh's world runs on one kind of device, the one asked for: a
+    gloo world never stands in for the card, nor NCCL for the CPU."""
+    if mesh.device.type != torch.device(device).type:
+        raise ValueError(
+            f"the mesh's world runs on {mesh.device.type} "
+            f"({torch.distributed.get_backend()}), the run asked for {device}")
 
 
 def _run_chees(problem, seed, n_chains, n_samples, device):
@@ -848,35 +958,48 @@ def _refuse(problem, what):
         f"scan {', '.join(SCAN_KERNELS)} paths and the scan chees, fes and pt paths "
         "of the configs with a potential_fn, tempered SMC (smc; batched and "
         "warm with kernel_params['batched']), ADVI (vi), the vi_init warm "
-        "start and pod_enrich on the scan da_pcn path; not ported: "
-        f"{', '.join(NOT_PORTED)}")
+        "start and pod_enrich on the scan da_pcn path, and the composed "
+        f"{', '.join(COMPOSED_KERNELS)} paths")
 
 
 def run_problem(problem, device, seed: int = 0, n_chains=None,
-                n_samples=None, profile_dir=None, metrics_log=None):
+                n_samples=None, profile_dir=None, metrics_log=None, mesh=None):
     """Execute a Problem end-to-end on ``device``; returns a metrics dict.
     ``seed`` seeds the host-side ``torch.Generator`` of the initial
     positions (and, on the scan paths, the device generators of the
     warm-up and the sampling; SMC and VI draw from a device generator
     seeded with it). ``profile_dir``: trace the scan path's timed run into
     it (``_run_one_dispatch``); ``metrics_log``: append the run's records
-    to that JSON-lines file (``_finalize``), on every path."""
+    to that JSON-lines file (``_finalize``), on every path. ``mesh``: a
+    chain mesh (``parallel.make_chain_mesh``) whose ranks share the chains
+    of the fused and the one-dispatch scan paths, or the composed configs'
+    mesh; its world must run on ``device``'s kind of device. A mesh of more
+    than one rank on a path that does not shard raises ``ValueError``."""
     t_start = time.perf_counter()
     device = torch.device(device)
     n_chains = n_chains or problem.n_chains
     n_samples = n_samples or problem.n_samples
     kp = problem.kernel_params
-    if problem.kernel in NOT_PORTED:
-        _refuse(problem, f"the '{problem.kernel}' kernel")
-    for option in NOT_PORTED:
-        if kp.get(option):
-            _refuse(problem, option)
+    if mesh is not None:
+        _check_mesh_device(mesh, device)
+        device = mesh.device
+    if problem.kernel in COMPOSED_KERNELS:
+        return _finalize(_run_composed(problem, seed, n_chains, n_samples, device, mesh),
+                         t_start, metrics_log)
+    fused = (problem.kernel in FUSED_KERNELS and kp.get("fused")
+             and problem.batched_potential_fn is not None)
+    sharded = fused or (problem.kernel in SCAN_KERNELS and problem.potential_fn is not None)
+    if mesh is not None and mesh.size > 1 and not sharded:
+        raise ValueError(
+            f"config {problem.name}: the '{problem.kernel}' path does not shard, so "
+            f"each of the mesh's {mesh.size} ranks would run the whole problem; the "
+            f"paths that shard are the fused ({', '.join(FUSED_KERNELS)}), the "
+            f"one-dispatch scan ({', '.join(SCAN_KERNELS)}) and the composed "
+            f"({', '.join(COMPOSED_KERNELS)}) ones (run this config in one process)")
     if problem.kernel == "vi":
         return _finalize(_run_vi(problem, seed, device), t_start, metrics_log)
 
     trace = None  # the scan path's acceptance trace
-    fused = (problem.kernel in FUSED_KERNELS and kp.get("fused")
-             and problem.batched_potential_fn is not None)
     extra = {}
     pod_enrich = problem.kernel == "da_pcn" and kp.get("pod_enrich")
     if kp.get("vi_init") or pod_enrich:
@@ -902,7 +1025,7 @@ def run_problem(problem, device, seed: int = 0, n_chains=None,
     if fused:
         generator = torch.Generator().manual_seed(int(seed))
         metrics = _run_fused_mcmc(problem, generator, n_chains, n_samples,
-                                  device)
+                                  device, mesh=mesh)
     elif problem.potential_fn is None:
         _refuse(problem, f"the scan '{problem.kernel}' path without a "
                 "single-particle potential_fn")
@@ -914,7 +1037,7 @@ def run_problem(problem, device, seed: int = 0, n_chains=None,
         metrics = _run_pt(problem, seed, n_chains, n_samples, device)
     elif problem.kernel in SCAN_KERNELS:
         metrics, trace = _run_one_dispatch(problem, seed, n_chains, n_samples, device,
-                                           profile_dir=profile_dir)
+                                           profile_dir=profile_dir, mesh=mesh)
     else:
         _refuse(problem, f"the '{problem.kernel}' kernel")
     metrics.update(extra)

@@ -194,4 +194,4 @@ def test_config_matches_jax(problems):
     for attr in ("name", "dim", "kernel", "kernel_params", "n_chains", "n_samples",
                  "burn_in", "thin"):
         assert getattr(p, attr) == getattr(jp, attr), attr
-    assert "ode_chees" not in configs.NOT_PORTED
+    assert "ode_chees" in configs.REGISTRY

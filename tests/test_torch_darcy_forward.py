@@ -189,10 +189,26 @@ def test_implicit_adjoint_gradient_matches_jax_grad(precond, solver, omega):
 
 
 def test_sharded_method_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        darcy.make_darcy_forward(method="sharded", device="cpu")
+    """The 'sharded' method, ported since the multi-device layer: in a
+    world of one rank (a gloo process group of size 1, started here) its
+    forward is the single-device CG forward within 1e-5 relative (the same
+    Jacobi CG, its dot products through all_reduce); an unknown method
+    raises. Worlds of 2 and 4 ranks: tests/test_torch_composed.py."""
+    from ip_mcmc_tpu_torch import parallel
+
     with pytest.raises(ValueError, match="method"):
         darcy.make_darcy_forward(method="lu", device="cpu")
+    try:
+        fwd, _ = darcy.make_darcy_forward(n_grid=16, n_modes_per_dim=4, cg_iters=100,
+                                          method="sharded", device="cpu")
+        ref, _ = darcy.make_darcy_forward(n_grid=16, n_modes_per_dim=4, cg_iters=100,
+                                          device="cpu")
+        u = torch.tensor(0.5 * np.random.default_rng(3).standard_normal((3, 16)),
+                         dtype=torch.float32)
+        want = ref(u)
+        assert torch.allclose(fwd(u), want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    finally:
+        parallel.shutdown()
 
 
 # --- the configs -------------------------------------------------------------------

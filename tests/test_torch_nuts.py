@@ -220,4 +220,4 @@ def test_config_matches_jax(problems):
     for attr in ("name", "dim", "kernel", "kernel_params", "n_chains", "n_samples",
                  "burn_in", "thin"):
         assert getattr(p, attr) == getattr(jp, attr), attr
-    assert "ode_nuts" not in configs.NOT_PORTED and "nuts" in runner.SCAN_KERNELS
+    assert "ode_nuts" in configs.REGISTRY and "nuts" in runner.SCAN_KERNELS

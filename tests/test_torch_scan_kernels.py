@@ -321,7 +321,8 @@ def test_lingauss_runs_print_jax_runner_keys(name, capsys):
 
 # --- what the runner refuses ---------------------------------------------------------
 
-NOT_PORTED = {  # JAX config -> the kernel and parameters it runs
+NOT_PORTED = {  # JAX config -> the kernel and parameters it runs (ported since the
+    # multi-device layer; tests/test_torch_composed.py runs them)
     "darcy_composed_pcn": ("pcn_composed", {"beta": 0.08}),
     "darcy_composed_mala": ("mala_composed", {"step_size": 0.05}),
     "darcy_composed_ess": ("ess_composed", {"max_shrink": 20}),
@@ -330,15 +331,19 @@ NOT_PORTED = {  # JAX config -> the kernel and parameters it runs
 
 @pytest.mark.parametrize("name", sorted(NOT_PORTED))
 def test_unported_configs_are_refused(name):
-    """The CLI and configs.build refuse the JAX config by name, the runner a
-    problem that asks for its kernel; each message names what is ported."""
-    with pytest.raises(NotImplementedError, match="Ported: .*ode_mala"):
-        run.main(["--config", name, "--device", "cpu"])
+    """The composed configs, refused until the multi-device layer, are now
+    built under JAX's kernel and parameters and reach the runner's composed
+    path; what the runner still refuses (a kernel it does not know) names
+    the composed paths among the ported ones."""
     kernel, kp = NOT_PORTED[name]
-    assert jconfigs.build(name).kernel == kernel
-    p = dataclasses.replace(configs.build("ode_mala", "cpu"), kernel=kernel, kernel_params=kp)
-    with pytest.raises(NotImplementedError, match="scan rwm, pcn, da_pcn, elliptical, mala"):
-        runner.run_problem(p, "cpu", n_chains=8, n_samples=2)
+    p = configs.build(name, "cpu")
+    assert jconfigs.build(name).kernel == kernel == p.kernel
+    assert kernel in runner.COMPOSED_KERNELS
+    assert {k: p.kernel_params[k] for k in kp} == kp
+    q = dataclasses.replace(configs.build("ode_mala", "cpu"), kernel=kernel + "_x", kernel_params=kp)
+    with pytest.raises(NotImplementedError, match="scan rwm, pcn, da_pcn, elliptical, mala.*"
+                       "pcn_composed, mala_composed, ess_composed"):
+        runner.run_problem(q, "cpu", n_chains=8, n_samples=2)
 
 
 def test_pod_enrichment_is_refused(darcy_da):

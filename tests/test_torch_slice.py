@@ -267,8 +267,8 @@ def test_cli_lists_seven_configs(capsys):
     multimodal_pt_mala; since tempered SMC, ADVI and the POD surrogates,
     darcy_smc, darcy_smc_warm, lingauss_advi, darcy_advi,
     darcy_advi_warmstart, darcy_da_pod and darcy_da_pod_online; since NUTS
-    and ChEES, ode_nuts and ode_chees. The configs not ported yet are not
-    listed."""
+    and ChEES, ode_nuts and ode_chees; since the multi-device layer the
+    three composed ones: every config of the JAX package."""
     assert run.main(["--list"]) == 0
     names = [ln.split()[0] for ln in capsys.readouterr().out.strip().splitlines()]
     assert names == sorted(SINGLE_LEVEL + GRADIENT_AND_ENSEMBLE
@@ -280,8 +280,11 @@ def test_cli_lists_seven_configs(capsys):
                               "ode_mala", "ode_hmc", "multimodal_pt", "multimodal_pt_mala")
                            + ("darcy_smc", "darcy_smc_warm", "lingauss_advi", "darcy_advi",
                               "darcy_advi_warmstart", "darcy_da_pod", "darcy_da_pod_online")
-                           + ("ode_nuts", "ode_chees"))
-    assert not set(names) & set(configs.NOT_PORTED)
+                           + ("ode_nuts", "ode_chees")
+                           + ("darcy_composed_pcn", "darcy_composed_mala",
+                              "darcy_composed_ess"))
+    assert set(names) == set(jconfigs.REGISTRY) and len(names) == 36
+    assert not hasattr(configs, "NOT_PORTED")
 
 
 def test_rwm_is_not_ported():
@@ -312,6 +315,36 @@ def test_cuda_device_is_never_a_silent_fallback():
         with pytest.raises(RuntimeError, match="cuda"):
             resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+# the JAX package's modules that the port has no module for, with the reason
+NO_PORT_MODULE = {
+    "utils/struct.py": "JAX pytree registration; the port's state classes are dataclasses",
+}
+# the JAX modules whose port lies under other paths: the Pallas samplers of
+# ops/fused_mcmc.py, one port module a sampler, beside the scaffold and the RNG
+PORTED_AS = {
+    "ops/fused_mcmc.py": ("ops/_scaffold.py", "ops/rng.py", "ops/fused_rwm.py",
+                          "ops/fused_pcn.py", "ops/fused_pcn_dense.py", "ops/fused_pcn_adapt.py",
+                          "ops/fused_da_pcn.py", "ops/fused_da3_pcn.py", "ops/fused_ess.py",
+                          "ops/fused_fes.py", "ops/fused_mala.py"),
+}
+
+
+def test_every_jax_module_has_a_port_module():
+    """Each ``ip_mcmc_tpu/**/*.py`` has a module of the same path under
+    ``ip_mcmc_tpu_torch/`` (the port does all that the JAX package does),
+    but for NO_PORT_MODULE's, each with its reason; the JAX package's
+    examples have the port's counterparts."""
+    jax_root, port_root = ROOT / "ip_mcmc_tpu", ROOT / "ip_mcmc_tpu_torch"
+    modules = sorted(str(f.relative_to(jax_root)) for f in jax_root.rglob("*.py"))
+    assert len(modules) > 40
+    missing = [m for m in modules if not all(
+        (port_root / f).is_file() for f in PORTED_AS.get(m, (m,))) and m not in NO_PORT_MODULE]
+    assert missing == []
+    assert all(not (port_root / m).exists() for m in NO_PORT_MODULE)
+    for example in sorted((ROOT / "examples").iterdir()):
+        assert (port_root / "examples" / example.name).is_file(), example.name
 
 
 def test_port_never_imports_jax():
