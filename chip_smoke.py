@@ -37,6 +37,14 @@ Gaussians), times both, then drives the ported paths at full width:
                              the value and gradient at the start positions
                              a draw a warp on the same solve
     darcy_fes_fused          functional ensemble sampler (K9), a chain a warp
+    (no path)                the one-chain-a-CTA kernels that the samplers'
+                             takes-rules send the specs their Hopper designs
+                             leave (ESS, FES, cold and warm MALA, DA at 16 x 16
+                             and 48 x 48 + 24 x 24, warm pCN at 24 x 24, 32 x 32
+                             and 48 x 48, three-level Burgers DA at 96 / 96 /
+                             48 cells), each held against its plain twin at
+                             its family's chain count; no path may launch
+                             them (RESTORED)
     burgers_da3_pcn          three-level delayed acceptance (K12, K13), a
                              chain a warp; the misfits at the start
                              positions a draw a warp on the same solve (as
@@ -1700,6 +1708,302 @@ def check_da64(problem, gen, results):
                       plain_long=4, variant=f"64x64 exact, 32x32 surrogate, block {block}, k={k}",
                       paths=["darcy64_da_fused"], source="fused_da_pcn.cu",
                       pots=(exact, surr), per_step_ops=ops)
+
+
+# --- the specs the Hopper designs leave: one chain a CTA ------------------------
+#
+# Each sampler's takes-rule (the C ``*_route``, mirrored by the wrapper's
+# ``route``) sends the specs its Hopper design takes to that design and the
+# rest of its domain to a one-chain-a-CTA kernel; no shipped config sends
+# one there (RETIRED lists them for every path). The specs below hold each
+# such kernel against its plain twin at the chain counts of its family's
+# configs: 4096 on the 16x16 class and at 24x24 and 32x32, 2048 at 48x48
+# (darcy64_pcn_warm's) and on Burgers, 1024 for the DA pair of the 64x64
+# class (darcy64_da_fused's).
+ESS_CTA, FES_CTA = "fused_ess_kernel", "fused_fes_kernel"
+MALA_CTA, MALA_WARM_CTA = "fused_mala_kernel", "fused_mala_warm_kernel"
+DA16_CTA, DA64_CTA = "fused_da_pcn_kernel[layout16]", "fused_da_pcn_kernel[layout64]"
+PCN32_CTA, PCN64_CTA = "fused_pcn_warm_kernel[layout32]", "fused_pcn_warm_kernel[layout64]"
+DA3_CTA = "fused_da3_pcn_kernel"
+RESTORED = (ESS_CTA, FES_CTA, MALA_CTA, MALA_WARM_CTA, DA16_CTA, DA64_CTA, PCN32_CTA, PCN64_CTA,
+            DA3_CTA)
+# the step builders of ip_mcmc_tpu/ops/fused_mcmc.py the kernels replace
+RESTORED_REPLACES = {ESS_CTA: "680", FES_CTA: "571", MALA_CTA: "784", MALA_WARM_CTA: "732",
+                     DA16_CTA: "325", DA64_CTA: "325", PCN32_CTA: "486", PCN64_CTA: "486",
+                     DA3_CTA: "391"}
+
+
+# ... their instantiations as ptxas names them, mangled and demangled
+_DA_POTS = {DA16_CTA: ("8Layout16ELi0EEELb{b}ES3_E", "Layout16, 0>, {r}, ipx::DarcyPot<ipx::Layout16, 0>"),
+            DA64_CTA: ("10DaLayout64ELi0EEELb{b}E", "DaLayout64, 0>, {r}, ")}
+RESTORED_PTXAS = {
+    **{f"{stem}<{r}>": (f"{len(stem)}{stem}ILb{b}E", f"ipx::{stem}<{r}>")
+       for stem in (ESS_CTA, FES_CTA, MALA_CTA, MALA_WARM_CTA, DA3_CTA)
+       for b, r in ((0, "false"), (1, "true"))},
+    **{f"{stem}<{r}>": (f"fused_da_pcn_kernelINS_8DarcyPotINS_{m.format(b=b)}",
+                        f"fused_da_pcn_kernel<ipx::DarcyPot<ipx::{d.format(r=r)}")
+       for stem, (m, d) in _DA_POTS.items() for b, r in ((0, "false"), (1, "true"))},
+    **{f"{stem}<{r}>": (f"fused_pcn_warm_kernelINS_8DarcyPotINS_8{lay}ELi0EEELb{b}E",
+                        f"fused_pcn_warm_kernel<ipx::DarcyPot<ipx::{lay}, 0>, {r}>")
+       for stem, lay in ((PCN32_CTA, "Layout32"), (PCN64_CTA, "Layout64"))
+       for b, r in ((0, "false"), (1, "true"))}}
+
+
+def synthetic_darcy(n, per_dim, *, seed, kind="cold", noise=0.01, **kw):
+    """A Darcy misfit on the card on an n x n grid with per_dim^2 KL modes,
+    its data its own converged plain solve (300 Jacobi CG) at a numpy draw of
+    the prior plus numpy noise; ``kind``: cold (DarcyMisfit), warm
+    (DarcyMisfitWarm) or mala (DarcyMisfitMalaWarm); ``kw``: the solve."""
+    from ip_mcmc_tpu_torch import convert
+    from ip_mcmc_tpu_torch.models import darcy
+
+    aux = darcy.darcy_aux(n_grid=n, n_modes_per_dim=per_dim, alpha=2.0, field_scale=10.0)
+    r = np.random.default_rng(seed)
+    truth = convert.darcy_misfit_from_arrays(aux, np.zeros(len(aux["obs_indices"])), noise,
+                                             cg_iters=300)
+    u = torch.from_numpy(r.standard_normal((per_dim * per_dim, 1)).astype(np.float32))
+    x = truth._solve_plain(u)[1][:, 0].numpy()
+    y = (x[aux["obs_indices"]] + noise * r.standard_normal(len(aux["obs_indices"])))
+    build = {"cold": convert.darcy_misfit_from_arrays,
+             "warm": convert.darcy_warm_misfit_from_arrays,
+             "mala": convert.darcy_mala_warm_misfit_from_arrays}[kind]
+    pot = build(aux, y.astype(np.float32), noise, **kw)
+    return (pot[0] if kind != "cold" else pot).cuda()
+
+
+def synthetic_burgers(cells, K, *, seed, noise=0.02):
+    """Three Burgers levels on the card, (fine, middle, coarse): ``cells``
+    cells fine (t = 0.2 at the conservative CFL bound) and middle (CFL 1),
+    cells / 2 coarse (CFL 1, observed at the nearest cells), K KL modes, the
+    data the fine model at a numpy prior draw plus numpy noise."""
+    from ip_mcmc_tpu_torch.convert import burgers_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import burgers
+
+    def sine_mean(n):
+        return (0.5 * np.sin(2 * np.pi * (np.arange(n) + 0.5) / n)).astype(np.float32)
+
+    fine = burgers.burgers_aux(n_cells=cells, n_modes=K, alpha=1.5, field_scale=1.0,
+                               t_final=0.2, mean_profile=sine_mean(cells))
+    obs = fine["obs_indices"]
+    obs_c = np.clip(np.round((obs + 0.5) / 2 - 0.5).astype(int), 0, cells // 2 - 1)
+    levels = [fine, burgers.burgers_aux(n_cells=cells, n_modes=K, alpha=1.5, field_scale=1.0,
+                                        t_final=0.2, mean_profile=sine_mean(cells),
+                                        cfl_amax=1.0),
+              burgers.burgers_aux(n_cells=cells // 2, n_modes=K, alpha=1.5, field_scale=1.0,
+                                  t_final=0.2, mean_profile=sine_mean(cells // 2),
+                                  obs_indices=obs_c, cfl_amax=1.0)]
+    r = np.random.default_rng(seed)
+    truth = burgers_misfit_from_arrays(fine, np.zeros(len(obs)), noise)
+    (state,) = truth.final_states(torch.from_numpy(r.standard_normal((K, 1)).astype(np.float32)))
+    y = (state[obs, 0].numpy() + noise * r.standard_normal(len(obs))).astype(np.float32)
+    return tuple(burgers_misfit_from_arrays(a, y, noise).cuda() for a in levels)
+
+
+def launched(name, fn, per_step=None):
+    """``fn`` that asserts that each call launched the kernel ``name`` (the
+    one the rule picked) once, or ``per_step`` times a step it runs."""
+    from ip_mcmc_tpu_torch.ops import _build
+
+    def run(steps):
+        before = _build.launch_counts[name]
+        out = fn(steps)
+        got = _build.launch_counts[name] - before
+        assert got == (per_step * steps if per_step else 1), f"{name}: {got} launches"
+        return out
+    return run
+
+
+def check_restored(problems, gen, results):
+    """Each one-chain-a-CTA kernel that a takes-rule sends the specs its
+    Hopper design leaves, plain and recorded, against the plain loop on the
+    same start and seed (compare_chain's tolerances), at its family's chain
+    counts; the C rule and its Python mirror agree on every spec."""
+    import ctypes
+
+    from ip_mcmc_tpu_torch.ops import _build, _scaffold
+    from ip_mcmc_tpu_torch.ops import fused_da3_pcn as da3
+    from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
+    from ip_mcmc_tpu_torch.ops import fused_ess, fused_fes, fused_mala, fused_pcn
+
+    lib = _build.library()
+    t0 = time.perf_counter()
+    ROUTE = {v: k for k, v in _scaffold.ROUTES.items()}
+
+    def case(stem, recorded, kern, plain, *, steps, long, plain_long, variant, source, pots,
+             ops, per_step=None):
+        name = f"{stem}<{'true' if recorded else 'false'}>"
+        compare_chain(results, stem, recorded, launched(name, kern, per_step), plain,
+                      steps=steps, kernel_long=long, plain_long=plain_long,
+                      variant=f"{variant} (a spec the Hopper design leaves; no path)",
+                      paths=[], source=source, pots=pots, per_step_ops=ops,
+                      replaces=JAX_OPS + RESTORED_REPLACES[stem])
+
+    def agree(what, c_route, py_route):
+        if c_route != ROUTE[py_route]:
+            raise AssertionError(f"{what}: C route {c_route}, Python {py_route}")
+
+    darcy16 = problems["darcy_da_fused"].batched_potential_fn  # dst_trunc-128, 12 CG
+    prior16 = problems["darcy_da_fused"].prior
+    n16 = N_CHAINS
+    pos16 = prior16.sample(gen, n16).contiguous()
+    pm16, ps16 = prior16.mean, prior16.scale
+
+    # K8: the DA exact level's dst_trunc-128 at 16x16, and 12x12 Jacobi, d = 36
+    jac12 = synthetic_darcy(12, 6, seed=41, cg_iters=48)
+    shrink, block = problems["darcy_ess_fused"].kernel_params["max_shrink"], 128
+    for pot in (darcy16, jac12):
+        d = pot.K
+        agree("ESS", lib.ipx_ess_route(ctypes.byref(pot.spec()), d),
+              fused_ess.route(**pot.spec_fields, d=d))
+        assert fused_ess.route(**pot.spec_fields, d=d) == "cta"
+        pos = pos16 if d == 64 else torch.randn(n16, d, generator=gen).to(pos16.device)
+        pm, ps = torch.zeros_like(pos[0]), torch.ones_like(pos[0])
+        counting = CountingPotential(pot, shrink)
+        fused_ess._run_plain(counting, pos, pm, ps, 17, 6, shrink, block)
+        per_step = sum(counting.per_step[2:]) / 4
+        for recorded in (False, True):
+            kw = {"thin": 1} if recorded else {}
+            fn = fused_ess.fused_ess_chain_recorded if recorded else fused_ess.fused_ess_chain
+            case(ESS_CTA, recorded,
+                 lambda s: fn(pot, pos, pm, ps, 17, n_steps=s, max_shrink=shrink,
+                              block_chains=block, **kw),
+                 lambda s: fused_ess._run_plain(plain_potential(pot), pos, pm, ps, 17, s,
+                                                shrink, block, **kw),
+                 steps=2, long=6, plain_long=4,
+                 variant=(f"{pot.n}x{pot.n} {pot.precond}-{pot.modes}, {pot.cg_iters} CG, "
+                          f"d = {d}, max_shrink {shrink}, block {block}"),
+                 source="fused_ess.cu", pots=(pot,),
+                 ops=per_step * solve_ops(pot, False) + Ops(RNG_OPS_PER_DRAW * d))
+
+    # K9 on the same 16x16 dst_trunc-128
+    d = 64
+    agree("FES", lib.ipx_fes_route(ctypes.byref(darcy16.spec()), d),
+          fused_fes.route(**darcy16.spec_fields, d=d))
+    args = (pos16, pm16, ps16, 8, 23, 0.08, 2.0)
+    for recorded in (False, True):
+        kw = {"thin": 1} if recorded else {}
+        case(FES_CTA, recorded,
+             lambda s: fused_fes._launch(darcy16, *args, s, block, **kw),
+             lambda s: fused_fes._run_plain(plain_potential(darcy16), *args, s, block, **kw),
+             steps=2, long=6, plain_long=4, per_step=2,
+             variant=f"16x16 dst_trunc-128, 12 CG, M = 8, block {block}, two launches a step",
+             source="fused_fes.cu", pots=(darcy16,),
+             ops=2 * solve_ops(darcy16, False) + Ops(RNG_OPS_PER_DRAW * d))
+
+    # K10 cold on the 16x16 dst_trunc-128 (12 + 12 CG); K11 warm on 16x16
+    # Jacobi / 48 + 48 CG
+    eps = problems["darcy_mala_warm"].kernel_params["step_size"]
+    mala_warm = mala_warm_jacobi(problems["darcy_mala_warm"])
+    for stem, pot, warm in ((MALA_CTA, darcy16, False), (MALA_WARM_CTA, mala_warm, True)):
+        agree("MALA", lib.ipx_mala_route(ctypes.byref(pot.spec()), d, int(warm)),
+              fused_mala.route(warm, **pot.spec_fields, d=d))
+        extra = {"aux_dim": pot.aux_dim} if warm else {}
+        for recorded in (False, True):
+            kw = dict(extra, thin=1) if recorded else extra
+            case(stem, recorded,
+                 lambda s: fused_mala._launch(pot, pos16, pm16, ps16, eps, 19, s, block, **kw),
+                 lambda s: fused_mala._run_plain(plain_potential(pot, warm=warm), pos16, pm16,
+                                                 ps16, eps, 19, s, block, **kw),
+                 steps=2, long=6, plain_long=4,
+                 variant=(f"16x16 {pot.precond}{'-' + str(pot.modes) if pot.modes else ''}, "
+                          f"{pot.cg_iters} + {pot.cg_iters} CG, block {block}"),
+                 source="fused_mala.cu", pots=(pot,),
+                 ops=grad_ops(pot, warm) + Ops(RNG_OPS_PER_DRAW * d))
+
+    # K4 / K5: 16x16 exact with a 12x12 Jacobi surrogate, d = 64, 4096
+    # chains; 48x48 dst_trunc exact with a 24x24 CG surrogate, K = 144, 1024
+    k = 8
+    surr12 = synthetic_darcy(12, 8, seed=42, cg_iters=3)
+    exact48 = synthetic_darcy(48, 12, seed=43, cg_iters=16, precond="dst_trunc",
+                              precond_modes=256)
+    surr24 = synthetic_darcy(24, 12, seed=44, cg_iters=3, precond="dst_trunc",
+                             precond_modes=128)
+    p64 = problems["darcy64_da_fused"]
+    for stem, exact, surr, prior, n, beta in (
+            (DA16_CTA, darcy16, surr12, prior16, n16, 0.35),
+            (DA64_CTA, exact48, surr24, p64.prior, p64.n_chains, 0.3)):
+        dd = exact.K
+        agree("DA", lib.ipx_da_pcn_route(ctypes.byref(exact.spec()), ctypes.byref(surr.spec()),
+                                         dd),
+              da.route(exact.spec_fields, surr.spec_fields, dd))
+        assert da._darcy_stem(exact, surr) == stem
+        pos = prior.sample(gen, n).contiguous()
+        a = (exact, surr, pos, prior.mean, prior.scale, beta, 11)
+        pa = (plain_potential(exact), plain_potential(surr), *a[2:])
+        kw = dict(subchain_len=k, block_chains=128)
+        small = n < n16
+        for recorded in (False, True):
+            if recorded:
+                kern = lambda s: da.fused_da_pcn_chain_recorded(*a, n_steps=s, thin=1, **kw)
+                plain = lambda s: da._run_plain_recorded(*pa, n_steps=s, thin=1, **kw)
+            else:
+                kern = lambda s: da.fused_da_pcn_chain(*a, n_steps=s, **kw)
+                plain = lambda s: da._run_plain(*pa, n_steps=s, **kw)
+            case(stem, recorded, kern, plain, steps=1 if small else 2, long=3 if small else 4,
+                 plain_long=2 if small else 4,
+                 variant=(f"{exact.n}x{exact.n} {exact.precond} / {exact.cg_iters} CG exact, "
+                          f"{surr.n}x{surr.n} {surr.precond} / {surr.cg_iters} CG surrogate, "
+                          f"K = {dd}, k = {k}, block 128"),
+                 source="fused_da_pcn.cu", pots=(exact, surr),
+                 ops=(k * (solve_ops(surr, False) + Ops(RNG_OPS_PER_DRAW * dd))
+                      + solve_ops(exact, False)))
+
+    # K7 warm above 16x16 off the cluster levels: 24x24 dst_trunc, 32x32
+    # Jacobi / 16 CG (4096 chains), 48x48 dst_trunc (2048, K = 144)
+    n48 = problems["darcy64_pcn_warm"].n_chains
+    for stem, pot, n, beta in (
+            (PCN32_CTA, synthetic_darcy(24, 8, seed=45, kind="warm", cg_iters=4,
+                                        precond="dst_trunc", precond_modes=128), n16, 0.08),
+            (PCN32_CTA, synthetic_darcy(32, 8, seed=46, kind="warm", cg_iters=16), n16, 0.08),
+            (PCN64_CTA, synthetic_darcy(48, 12, seed=47, kind="warm", cg_iters=4,
+                                        precond="dst_trunc", precond_modes=256), n48, 0.06)):
+        dd = pot.K
+        agree("pCN", lib.ipx_pcn_route(ctypes.byref(pot.spec()), dd, 1),
+              fused_pcn.route(True, **pot.spec_fields, d=dd))
+        assert fused_pcn._darcy_stem(pot, True) == stem
+        pos = torch.randn(n, dd, generator=gen).to(pos16.device)
+        pm, ps = torch.zeros_like(pos[0]), torch.ones_like(pos[0])
+        a = (pot, pos, pm, ps, beta, 13)
+        for recorded in (False, True):
+            kw = {"aux_dim": pot.aux_dim, **({"thin": 1} if recorded else {})}
+            fn = fused_pcn.fused_pcn_chain_warm_recorded if recorded else \
+                fused_pcn.fused_pcn_chain_warm
+            case(stem, recorded,
+                 lambda s: fn(*a, n_steps=s, block_chains=128, **kw),
+                 lambda s: fused_pcn._run_plain(plain_potential(pot, warm=True), *a[1:], s,
+                                                128, **kw),
+                 steps=2, long=10, plain_long=6,
+                 variant=(f"{pot.n}x{pot.n} {pot.precond}"
+                          f"{'-' + str(pot.modes) if pot.modes else ''}, {pot.cg_iters} CG "
+                          f"warm, K = {dd}, block 128"),
+                 source="fused_pcn.cu", pots=(pot,),
+                 ops=solve_ops(pot, True) + Ops(RNG_OPS_PER_DRAW * dd))
+
+    # K13: levels of 96 / 96 / 48 cells, K = d = 32, 2048 chains
+    levels = synthetic_burgers(96, 32, seed=48)
+    dd, n = 32, problems["burgers_da3_pcn"].n_chains
+    agree("DA3", lib.ipx_da3_route(*(ctypes.byref(lv.spec()) for lv in levels), dd),
+          da3.route([(lv.n, lv.K) for lv in levels], dd))
+    pos = torch.randn(n, dd, generator=gen).to(pos16.device)
+    pm, ps = torch.zeros_like(pos[0]), torch.ones_like(pos[0])
+    k_inner, k_mid = 4, 2
+    a = (*levels, pos, pm, ps, 0.25, 29)
+    pa = (*(plain_potential(lv) for lv in levels), *a[3:])
+    draws = Ops(RNG_OPS_PER_DRAW * dd)
+    ops = (k_mid * (k_inner * (burgers_solve_ops(levels[2]) + draws)
+                    + burgers_solve_ops(levels[1])) + burgers_solve_ops(levels[0]))
+    for recorded in (False, True):
+        kw = dict(k_inner=k_inner, k_mid=k_mid, block_chains=128,
+                  **({"thin": 1} if recorded else {}))
+        fn = da3.fused_da3_pcn_chain_recorded if recorded else da3.fused_da3_pcn_chain
+        case(DA3_CTA, recorded, lambda s: fn(*a, n_steps=s, **kw),
+             lambda s: da3._run_plain(*pa, s, k_inner, k_mid, 128,
+                                      thin=1 if recorded else None),
+             steps=2, long=6, plain_long=4,
+             variant=(f"96 / 96 / 48 cells, K = d = 32, k_inner {k_inner}, k_mid {k_mid}, "
+                      "block 128"),
+             source="fused_da3_pcn.cu", pots=levels, ops=ops)
+    print(f"restored one-chain-a-CTA kernels: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def check_cluster(problems):
@@ -3617,6 +3921,10 @@ RETIRED = {"darcy_ess_fused": ("darcy_misfit_kernel[n=16]",),
            "burgers_da_pcn": (BURGERS_MISFIT_CTA + FINE, BURGERS_MISFIT_CTA + COARSE),
            "burgers_pcn": (BURGERS_MISFIT_CTA + FINE,),
            "burgers_multitime_pcn": (BURGERS_MISFIT_CTA + MULTI,)}
+# ... and the one-chain-a-CTA kernels of the specs the Hopper designs leave
+RETIRED = {path: RETIRED.get(path, ()) + tuple(f"{stem}<{r}>" for stem in RESTORED
+                                               for r in ("false", "true"))
+           for path in PATHS}
 
 
 def config_of(path):
@@ -4078,10 +4386,12 @@ def main() -> int:
     check_mala_warp(problems["darcy_mala_warm"])
     check_pcn_warp(problems)
     check_gradient_and_ensemble(problems, gen, results)
+    check_restored(problems, gen, results)
     check_burgers(problems, gen, results)
     check_burgers_warp(problems, gen, results)
     check_burgers_misfit_warp(problems, gen, results)
-    attach_ptxas(results, ptxas, {**MALA_PTXAS, **PCN_PTXAS, **BURGERS_PTXAS, **MISFIT_PTXAS})
+    attach_ptxas(results, ptxas, {**MALA_PTXAS, **PCN_PTXAS, **BURGERS_PTXAS, **MISFIT_PTXAS,
+                                  **RESTORED_PTXAS})
     check_linear_family(problems, gen, results)
     check_linear_d2(gen, results)
     check_linear_group()
@@ -4178,6 +4488,12 @@ def main() -> int:
     counts["ode_mala --metrics-log --tensorboard --profile-dir"], cli_flags = drive_phase(
         "ode_mala --metrics-log --tensorboard --profile-dir", (LV, "scan_mala_step[cuda]"),
         run_cli_flags_phase)
+
+    # no path launched a kernel of the specs the Hopper designs leave
+    for path, c in counts.items():
+        hit = {k: v for k, v in c.items() if k.split("<")[0] in RESTORED and v}
+        if hit:
+            raise AssertionError(f"{path} launched {hit}")
 
     # launches of each variant: those of the runs that use it (0 for an
     # option that no shipped config uses)

@@ -610,6 +610,38 @@ struct DarcyPot {
 
 using DarcyPotential = DarcyPot<Layout16>;
 
+// The layout of a surrogate solved in the CTA of an exact level whose
+// layout is Exact (the one-chain-a-CTA DA kernel runs both levels in one
+// CTA): Exact's threads and CTAs per SM, and as many cells a thread as the
+// surrogate's N x N grid needs on them.
+template <class Exact, int N>
+struct SurrogateLayout {
+  static constexpr int kThreads = Exact::kThreads, kMinCtas = Exact::kMinCtas;
+  static constexpr int kCells = (N * N + kThreads - 1) / kThreads;
+};
+
+// A spec that a one-chain-a-CTA sampler takes where its Hopper design
+// leaves it: an n x n grid of up to max_cells cells, K = d up to max_d (a
+// thread a coordinate), a preconditioner the solve knows (Jacobi or dense
+// dst with no modes, dst_trunc with some), solved by `solver`. Mirrored by
+// ip_mcmc_tpu_torch/ops/_scaffold.py cta_spec.
+inline bool darcy_cta_spec(const IpxMisfitSpec& s, int d, int max_cells, int max_d,
+                           int solver = kSolverCg) {
+  const bool precond = s.precond == kPrecondDstTrunc
+                           ? s.modes > 0
+                           : (s.precond == kPrecondJacobi || s.precond == kPrecondDst) &&
+                                 s.modes == 0;
+  return s.n > 0 && s.n * s.n <= max_cells && s.K == d && d > 0 && d <= max_d && precond &&
+         s.solver == solver && s.m >= 0;
+}
+
+// The threads of the layout that with_darcy_layout picks for a grid of
+// `cells` cells: the most coordinates a one-chain-a-CTA sampler on it takes.
+inline int darcy_layout_threads(int cells) {
+  if (cells <= DarcyPot<Layout16>::kMaxCells) return Layout16::kThreads;
+  return cells <= DarcyPot<Layout32>::kMaxCells ? Layout32::kThreads : Layout64::kThreads;
+}
+
 // Calls f(Pot{}) with the Darcy potential type whose layout takes the n x n
 // grid of `s` (the smallest that does) and whose solver is SOLVER; the
 // launchers refuse what no layout takes (Pot::valid).

@@ -16,6 +16,12 @@
 //                                         misfit spec, one draw a CTA.
 //   fused_da3_pcn_warp_kernel<RECORD>     the whole n_steps loop in one
 //                                         launch, one chain a warp.
+//   fused_da3_pcn_kernel<RECORD>          the same one chain a CTA, on the
+//                                         levels the warp kernel leaves:
+//                                         any three Burgers levels of up to
+//                                         128 cells, K = d up to 128.
+//                                         da3_route sends each spec to one
+//                                         of the two.
 //
 // Per outer step: k_mid times (k_inner pCN steps against the coarse
 // potential, then a middle correction), then one fine correction. Phi at
@@ -38,7 +44,10 @@
 // SMs) to hide its latency. Phi adds in burgers_phi's order, so the chains
 // take the one-chain-a-CTA kernel's bits. The design is the line
 // Da3WarpDesign (scripts/measure_da3_warp_design.py times the
-// alternatives, PERF.md the numbers).
+// alternatives, PERF.md the numbers). fused_da3_pcn_kernel is that first
+// design (BurgersPotential's CTA, a thread a cell, a barrier a time step),
+// kept for the levels the warp solve does not take; no shipped config
+// sends it one.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -261,6 +270,135 @@ __global__ void __launch_bounds__(32 * Da3WarpDesign::kWarps, kDa3WarpMinCtas)
         fmaxf(static_cast<float>(a.chain.n_steps) * static_cast<float>(a.k_mid), 1.0f);
 }
 
+// K13 one chain a CTA, with Da3WarpStep's tags: thread t < d holds
+// coordinate t of the four positions.
+struct Da3Step {
+  const Da3Args& a;
+  float* pos0;  // outer state
+  float* pos;   // middle-level state
+  float* p1;    // inner (coarse) state
+  float* prop;  // proposal
+  BurgersSmem ws;
+  float phi0, mid0, surr0, mid_acc;
+
+  __device__ void init(const ChainCtx& c) {
+    phi0 = a.phi0[c.c];
+    mid0 = a.mid0[c.c];
+    surr0 = a.surr0[c.c];
+    if (c.own) pos[c.t] = p1[c.t] = pos0[c.t];
+    __syncthreads();
+  }
+
+  __device__ bool step(const ChainCtx& c, uint32_t i) {
+    const uint32_t k1 = static_cast<uint32_t>(a.k_inner), k2 = static_cast<uint32_t>(a.k_mid);
+    float mid_phi = mid0, surr = surr0;  // at pos, which equals pos0 here
+    for (uint32_t j2 = 0; j2 < k2; ++j2) {
+      float s1 = surr;  // at p1, which equals pos here
+      for (uint32_t j1 = 0; j1 < k1; ++j1) {
+        const uint32_t tag = 4u * (j2 * k1 + j1);
+        if (c.own) {
+          const float xi = c.scale_t * c.normal(i, tag);
+          prop[c.t] = c.mean_t + a.contraction * (p1[c.t] - c.mean_t) + a.beta * xi;
+        }
+        __syncthreads();
+        const float sp = burgers_phi(a.coarse, prop, ws);
+        if (logf(c.uniform(i, tag + 2u)) < s1 - sp) {  // the same in every thread
+          s1 = sp;
+          if (c.own) p1[c.t] = prop[c.t];
+        }
+      }
+      __syncthreads();
+      const float mid_end = burgers_phi(a.mid, p1, ws);
+      float lr = (mid_phi - mid_end) - (surr - s1);  // coarse -> middle correction
+      if (isnan(lr)) lr = -INFINITY;
+      if (logf(c.uniform(i, 4u * k1 * k2 + 4u * j2 + 2u)) < lr) {
+        mid_acc += 1.0f;
+        mid_phi = mid_end;
+        surr = s1;
+        if (c.own) pos[c.t] = p1[c.t];
+      } else if (c.own) {
+        p1[c.t] = pos[c.t];
+      }
+    }
+    __syncthreads();
+    const float pe = burgers_phi(a.fine, pos, ws);
+    float log_ratio = (phi0 - pe) - (mid0 - mid_phi);  // middle -> fine correction
+    if (isnan(log_ratio)) log_ratio = -INFINITY;
+    const bool accept = logf(c.uniform(i, 4u * k1 * k2 + 4u * k2 + 2u)) < log_ratio;
+    if (accept) {
+      phi0 = pe;
+      mid0 = mid_phi;
+      surr0 = surr;
+      if (c.own) pos0[c.t] = pos[c.t];
+    } else if (c.own) {
+      pos[c.t] = p1[c.t] = pos0[c.t];
+    }
+    return accept;
+  }
+};
+
+template <bool RECORD>
+__global__ void __launch_bounds__(BurgersPotential::kMaxThreads, BurgersPotential::kMinCtasPerSm)
+    fused_da3_pcn_kernel(const __grid_constant__ Da3Args a) {
+  extern __shared__ float da3_smem[];
+  using Pot = BurgersPotential;
+  const int d = a.chain.d;
+  const Pot::Extent extent =
+      Pot::join(Pot::extent(a.fine), Pot::join(Pot::extent(a.mid), Pot::extent(a.coarse)));
+  float* pos0 = da3_smem;
+  float* pos = pos0 + d;
+  float* p1 = pos + d;
+  float* prop = p1 + d;
+  Da3Step step{a, pos0, pos, p1, prop, Pot::carve(prop + d, extent), 0.0f, 0.0f, 0.0f, 0.0f};
+  run_chain<RECORD>(a.chain, step, pos0);
+  if (threadIdx.x == 0)
+    a.mid_rate[blockIdx.x] =
+        step.mid_acc /
+        fmaxf(static_cast<float>(a.chain.n_steps) * static_cast<float>(a.k_mid), 1.0f);
+}
+
+// Whether the warp kernel takes the three levels for chains of d
+// coordinates: every level one of the warp solve's (burgers_warp_takes: 64
+// or 128 cells, K = d = 16). Mirrored by
+// ip_mcmc_tpu_torch/ops/fused_da3_pcn.py warp_takes.
+inline bool da3_warp_takes(const IpxBurgersSpec& fine, const IpxBurgersSpec& mid,
+                           const IpxBurgersSpec& coarse, int d) {
+  return burgers_warp_takes(fine, d) && burgers_warp_takes(mid, d) &&
+         burgers_warp_takes(coarse, d);
+}
+
+// The kernel the levels go to: the warp kernel for what it takes, the
+// one-chain-a-CTA kernel for any other three valid levels of up to 128
+// cells (BurgersPotential's CTA, a thread a cell) with K = d up to 128,
+// none else. Mirrored by ip_mcmc_tpu_torch/ops/fused_da3_pcn.py route.
+inline int da3_route(const IpxBurgersSpec& fine, const IpxBurgersSpec& mid,
+                     const IpxBurgersSpec& coarse, int d) {
+  if (da3_warp_takes(fine, mid, coarse, d)) return kRouteWarp;
+  const IpxBurgersSpec* levels[3] = {&fine, &mid, &coarse};
+  for (const IpxBurgersSpec* s : levels)
+    if (!BurgersPotential::valid(*s) || s->n_cells > BurgersPotential::kMaxThreads ||
+        s->K != d || d > BurgersPotential::kMaxThreads)
+      return kRouteRefused;
+  return kRouteCta;
+}
+
+// Launches fused_da3_pcn_kernel<RECORD> (RECORD: chain.samples given) on
+// levels of da3_route's kRouteCta.
+inline int launch_da3_cta(const Da3Args& a, void* stream) {
+  using Pot = BurgersPotential;
+  const Pot::Extent extent =
+      Pot::join(Pot::extent(a.fine), Pot::join(Pot::extent(a.mid), Pot::extent(a.coarse)));
+  const int threads = chain_threads(a.chain, extent.cells, a.fine.K, Pot::kMaxThreads);
+  if (threads == 0 || a.k_inner < 0 || a.k_mid < 0) return cudaErrorInvalidValue;
+  if (a.chain.n == 0) return cudaSuccess;
+  // state (4d) + misfit workspace
+  const size_t smem = sizeof(float) * (4 * a.chain.d + Pot::workspace_floats(extent));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.chain.samples != nullptr) fused_da3_pcn_kernel<true><<<a.chain.n, threads, smem, st>>>(a);
+  else fused_da3_pcn_kernel<false><<<a.chain.n, threads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // What a launch takes: warps (chains) a CTA, CTAs, dynamic shared memory.
 struct Da3WarpGeometry {
   int warps, ctas;
@@ -269,7 +407,7 @@ struct Da3WarpGeometry {
 
 // Mirrored by ip_mcmc_tpu_torch/ops/fused_da3_pcn.py warp_geometry: three
 // Burgers levels that burgers_warp_takes (64 or 128 cells each, K = d =
-// 16; else cudaErrorNotSupported). W: the largest power of two up to
+// 16; else cudaErrorNotSupported, an invalid level cudaErrorInvalidValue). W: the largest power of two up to
 // kWarps that divides block_chains; a ragged last CTA runs spare warps.
 inline int da3_warp_geometry(const IpxBurgersSpec& fine, const IpxBurgersSpec& mid,
                              const IpxBurgersSpec& coarse, const IpxChainArgs& chain,
@@ -321,11 +459,19 @@ int ipx_burgers_misfit(const IpxBurgersSpec* s, const float* U, int B, float* ph
   return static_cast<int>(cudaGetLastError());
 }
 
+// da3_route picks the kernel: the warp kernel, the one-chain-a-CTA kernel,
+// or none (cudaErrorNotSupported).
 int ipx_fused_da3_pcn_burgers(const IpxBurgersSpec* fine, const IpxBurgersSpec* mid,
                               const IpxBurgersSpec* coarse, const IpxChainArgs* chain,
                               const float* phi0, const float* mid0, const float* surr0,
                               float beta, float contraction, int k_inner, int k_mid,
                               float* mid_rate, void* stream) {
+  const int route = ipx::da3_route(*fine, *mid, *coarse, chain->d);
+  if (route == ipx::kRouteCta)
+    return ipx::launch_da3_cta({*fine, *mid, *coarse, *chain, phi0, mid0, surr0, beta,
+                                contraction, k_inner, k_mid, mid_rate},
+                               stream);
+  if (route != ipx::kRouteWarp) return cudaErrorNotSupported;
   ipx::Da3WarpGeometry geo;
   const int status =
       ipx::da3_warp_geometry(*fine, *mid, *coarse, *chain, k_inner, k_mid, &geo);
@@ -360,6 +506,14 @@ int ipx_burgers_misfit_warp_geometry(const IpxBurgersSpec* s, int B, int* out) {
   out[1] = geo.ctas;
   out[2] = static_cast<int>(geo.smem);
   return status;
+}
+
+// The kernel ipx_fused_da3_pcn_burgers sends these levels to, for chains of
+// d coordinates (ipx::kRoute*; the wrapper's mirror is checked against this
+// on the card).
+int ipx_da3_route(const IpxBurgersSpec* fine, const IpxBurgersSpec* mid,
+                  const IpxBurgersSpec* coarse, int d) {
+  return ipx::da3_route(*fine, *mid, *coarse, d);
 }
 
 // The kernel's launch geometry for these specs and chain arguments: out =

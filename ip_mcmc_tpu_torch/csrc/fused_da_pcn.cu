@@ -44,8 +44,16 @@
 //                                       shipped config's), one chain per
 //                                       warp (burgers_misfit.cuh's warp
 //                                       solve).
-//   fused_da_pcn_kernel<Pot, RECORD>    the Burgers DA loop on the other
-//                                       specs, one chain per CTA.
+//   fused_da_pcn_kernel<Pot, RECORD, Surr>
+//                                       one chain per CTA: the Burgers DA
+//                                       loop on the other specs, and the
+//                                       Darcy DA loop on the pairs that the
+//                                       warp and cluster kernels leave
+//                                       (da_route): both levels up to 16x16
+//                                       (the surrogate no finer, solved by
+//                                       CG or Richardson), or an exact grid
+//                                       of 33x33 to 64x64 with a CG
+//                                       surrogate of 17x17 to 32x32.
 //
 // Each runs the whole n_steps loop in one launch; RECORD stores every
 // thin-th state into (n_rec, n, d) with a plain store. Chain state and
@@ -238,8 +246,12 @@ int launch_da_pcn(const typename Pot::Spec& exact, const typename Pot::Spec& sur
                   const IpxChainArgs& chain, const float* phi0, const float* surr0,
                   float beta, float contraction, int k, float* inner, void* stream) {
   const typename Pot::Extent extent = Pot::join(Pot::extent(exact), Pot::extent(surr));
-  const int threads =
+  // enough threads for the cells of both levels, each at its cells a thread
+  const int t_exact =
       chain_threads(chain, extent.cells, exact.K, Pot::kMaxThreads, Pot::kCellsPerThread);
+  const int t_surr = chain_threads(chain, Surr::extent(surr).cells, exact.K, Pot::kMaxThreads,
+                                   Surr::kCellsPerThread);
+  const int threads = t_exact == 0 || t_surr == 0 ? 0 : (t_exact > t_surr ? t_exact : t_surr);
   const int d = chain.d, n = chain.n;
   // the surrogate is solved on the exact level's threads, which must own
   // its every cell
@@ -262,6 +274,16 @@ int launch_da_pcn(const typename Pot::Spec& exact, const typename Pot::Spec& sur
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The one-chain-a-CTA Darcy DA kernel of the 64x64 class: the exact level
+// on 4 cells a thread x 1024 threads, 1 CTA per SM, and the 32x32-class
+// surrogate on the same threads at one cell each (the layout measured
+// fastest for this kernel when it was the path of darcy64_da_fused: 45.0
+// ms an outer step at 1024 chains against 47.4 on Layout64's CTA, which
+// spilled 3.7 times the bytes; PERF.md).
+struct DaLayout64 { static constexpr int kCells = 4, kThreads = 1024, kMinCtas = 1; };
+using DaExact64 = DarcyPot<DaLayout64>;
+using DaSurrogate32 = DarcyPot<SurrogateLayout<DaLayout64, 32>>;
 
 // Launches darcy_misfit_kernel<Pot> (or its bounded form).
 template <class Pot>
@@ -503,14 +525,50 @@ inline bool da_warp_level_ok(const IpxMisfitSpec& s, int n, int solver) {
   return s.n == n && s.K == kDaWarpD && precond && s.solver == solver && s.m >= 0;
 }
 
-// Mirrored by ip_mcmc_tpu_torch/ops/fused_da_pcn.py warp_geometry. W: the
-// largest power of two up to kWarps that divides block_chains (so that a
-// CTA's chains share their RNG block); a ragged last CTA runs spare warps.
+// Whether the 16 x 16 warp kernel takes the pair for chains of d
+// coordinates, its surrogate solved by surr_solver: a 16 x 16 exact level by
+// CG and an 8 x 8 surrogate, d = K = 64 (da_warp_level_ok). Mirrored by
+// ip_mcmc_tpu_torch/ops/fused_da_pcn.py warp_takes.
+inline bool da_warp_takes(const IpxMisfitSpec& exact, const IpxMisfitSpec& surr, int d,
+                          int surr_solver) {
+  return da_warp_level_ok(exact, kDaWarpExactN, kSolverCg) &&
+         da_warp_level_ok(surr, kDaWarpSurrN, surr_solver) && d == kDaWarpD;
+}
+
+// The kernel a Darcy pair goes to: the 16 x 16 warp kernel or the 64 x 64
+// cluster kernel (cluster_geometry: dst_trunc CG at both levels) for what
+// they take; one chain a CTA for the rest of two domains: both levels up
+// to 16 x 16 with the surrogate no finer than the exact grid, solved by CG
+// or Richardson (Layout16), and an exact grid of 33 x 33 to 64 x 64 with a
+// CG surrogate of 17 x 17 to 32 x 32 (DaLayout64); K = d at both levels.
+// Every other pair: none. Mirrored by ip_mcmc_tpu_torch/ops/fused_da_pcn.py
+// route.
+inline int da_route(const IpxMisfitSpec& exact, const IpxMisfitSpec& surr, int d) {
+  const int surr_solver = surr.solver == kSolverRichardson ? kSolverRichardson : kSolverCg;
+  if (da_warp_takes(exact, surr, d, surr_solver)) return kRouteWarp;
+  if (cluster_level_ok(exact, kClusterExactN, d, kClusterMaxModes) &&
+      cluster_level_ok(surr, kClusterSurrN, d, kClusterSurrMaxModes))
+    return kRouteCluster;
+  constexpr int k16 = DarcyPotential::kMaxCells, k32 = DarcyPot<Layout32>::kMaxCells;
+  const int exact_cells = exact.n * exact.n, surr_cells = surr.n * surr.n;
+  if (surr.n <= exact.n && exact_cells <= k16 &&
+      darcy_cta_spec(exact, d, k16, DarcyPotential::kMaxThreads) &&
+      darcy_cta_spec(surr, d, k16, DarcyPotential::kMaxThreads, surr.solver))
+    return kRouteCta;
+  if (exact_cells > k32 && surr_cells > k16 &&
+      darcy_cta_spec(exact, d, DaExact64::kMaxCells, DaExact64::kMaxThreads) &&
+      darcy_cta_spec(surr, d, k32, DaExact64::kMaxThreads))
+    return kRouteCta;
+  return kRouteRefused;
+}
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_da_pcn.py warp_geometry: what
+// da_warp_takes (else cudaErrorNotSupported). W: the largest power of two up
+// to kWarps that divides block_chains (so that a CTA's chains share their
+// RNG block); a ragged last CTA runs spare warps.
 inline int da_warp_geometry(const IpxMisfitSpec& exact, const IpxMisfitSpec& surr,
                             const IpxChainArgs& chain, int surr_solver, DaWarpGeometry* geo) {
-  if (!da_warp_level_ok(exact, kDaWarpExactN, kSolverCg) ||
-      !da_warp_level_ok(surr, kDaWarpSurrN, surr_solver) || chain.d != kDaWarpD)
-    return cudaErrorNotSupported;
+  if (!da_warp_takes(exact, surr, chain.d, surr_solver)) return cudaErrorNotSupported;
   if (chain.block_chains <= 0 || chain.n < 0 || chain.n_steps < 0 ||
       (chain.samples != nullptr && chain.thin <= 0))
     return cudaErrorInvalidValue;
@@ -1002,27 +1060,46 @@ int ipx_darcy_misfit(const IpxMisfitSpec* s, const float* U, int B, float* phi,
   return ipx::with_darcy_layout<kSolverCg>(*s, launch);
 }
 
-// The kernel follows the two grids: both up to 16x16 (the exact misfit
-// solved by CG, the surrogate by CG or by Richardson) the warp kernel, a
-// 64x64 exact grid with a 32x32 surrogate the cluster kernel, which takes a
-// dst_trunc CG solve at both levels. Any other pair or solve is refused
-// with cudaErrorNotSupported, not run by another kernel.
+// da_route picks the kernel: the 16x16 warp kernel (its surrogate solved by
+// CG or Richardson), the 64x64 cluster kernel, the one-chain-a-CTA kernel
+// of the pair's class (fused_da_pcn_kernel on Layout16, the surrogate's
+// solve by its solver; on DaLayout64 with the surrogate on DaSurrogate32),
+// or none: any other pair or solve is refused with cudaErrorNotSupported,
+// not run by another kernel.
 int ipx_fused_da_pcn(const IpxMisfitSpec* exact, const IpxMisfitSpec* surr,
                      const IpxChainArgs* chain, const float* phi0, const float* surr0,
                      float beta, float contraction, int k, float* inner, void* stream) {
   using ipx::DarcyPotential;
-  const int exact_cells = exact->n * exact->n, surr_cells = surr->n * surr->n;
-  if (exact_cells <= DarcyPotential::kMaxCells && surr_cells <= DarcyPotential::kMaxCells) {
-    if (surr->solver == kSolverRichardson)
-      return ipx::launch_da_pcn_warp<kSolverRichardson>(*exact, *surr, *chain, phi0, surr0,
-                                                        beta, contraction, k, inner, stream);
-    return ipx::launch_da_pcn_warp<kSolverCg>(*exact, *surr, *chain, phi0, surr0, beta,
-                                              contraction, k, inner, stream);
+  const bool richardson = surr->solver == kSolverRichardson;
+  switch (ipx::da_route(*exact, *surr, chain->d)) {
+    case ipx::kRouteWarp:
+      if (richardson)
+        return ipx::launch_da_pcn_warp<kSolverRichardson>(*exact, *surr, *chain, phi0, surr0,
+                                                          beta, contraction, k, inner, stream);
+      return ipx::launch_da_pcn_warp<kSolverCg>(*exact, *surr, *chain, phi0, surr0, beta,
+                                                contraction, k, inner, stream);
+    case ipx::kRouteCluster:
+      return ipx::launch_da_pcn_cluster(*exact, *surr, *chain, phi0, surr0, beta, contraction,
+                                        k, inner, stream);
+    case ipx::kRouteCta:
+      if (exact->n * exact->n > DarcyPotential::kMaxCells)
+        return ipx::launch_da_pcn<ipx::DaExact64, ipx::DaSurrogate32>(
+            *exact, *surr, *chain, phi0, surr0, beta, contraction, k, inner, stream);
+      if (richardson)
+        return ipx::launch_da_pcn<DarcyPotential, ipx::DarcyPot<ipx::Layout16, kSolverRichardson>>(
+            *exact, *surr, *chain, phi0, surr0, beta, contraction, k, inner, stream);
+      return ipx::launch_da_pcn<DarcyPotential>(*exact, *surr, *chain, phi0, surr0, beta,
+                                                contraction, k, inner, stream);
+    default:
+      return cudaErrorNotSupported;
   }
-  if (exact->n == ipx::kClusterExactN && surr->n == ipx::kClusterSurrN)
-    return ipx::launch_da_pcn_cluster(*exact, *surr, *chain, phi0, surr0, beta, contraction, k,
-                                      inner, stream);
-  return cudaErrorNotSupported;
+}
+
+// The kernel ipx_fused_da_pcn sends this pair to, for chains of d
+// coordinates (ipx::kRoute*; the wrapper's mirror is checked against this
+// on the card).
+int ipx_da_pcn_route(const IpxMisfitSpec* exact, const IpxMisfitSpec* surr, int d) {
+  return ipx::da_route(*exact, *surr, d);
 }
 
 // The 16 x 16 kernel's launch geometry for these specs and chain

@@ -8,6 +8,11 @@
 //                                  level log y = -Phi + log u, an angle
 //                                  theta on a bracket that shrinks towards
 //                                  0, at most max_shrink misfit evaluations.
+//   fused_ess_kernel<RECORD>       the same step one chain a CTA, on the
+//                                  specs the warp kernel leaves: any CG
+//                                  Darcy misfit up to 16 x 16 (Jacobi,
+//                                  dst_trunc, dst; K = d). ess_route sends
+//                                  each spec to one of the two.
 //
 // The Pallas kernel pays max_shrink batched evaluations per step behind
 // per-chain done masks, because its chains share lanes. Here a chain is a
@@ -34,6 +39,12 @@
 // staged in shared memory once a CTA. The design is the line EssWarpDesign
 // (scripts/measure_ess_warp_design.py times the alternatives, PERF.md the
 // numbers).
+//
+// fused_ess_kernel is the first design, kept for the specs the warp
+// kernel's one level does not hold (another grid, preconditioner or d):
+// one chain a CTA of Layout16 (a thread a cell), the solve of
+// darcy_misfit.cuh's darcy_phi with its CTA barriers, the factors read
+// through L1 / L2. No shipped config sends it a spec.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -121,21 +132,99 @@ __global__ void __launch_bounds__(32 * EssWarpDesign::kWarps, kEssWarpMinCtas)
   run_warp_chain<RECORD>(a.chain, step, w);
 }
 
+// K8 one chain a CTA: thread t < d holds coordinate t of pos and prop.
+struct EssStep {
+  const EssArgs& a;
+  float* pos;
+  float* prop;
+  MisfitSmem ws;
+  float phi;
+
+  __device__ void init(const ChainCtx& c) { phi = a.phi0[c.c]; }
+
+  __device__ bool step(const ChainCtx& c, uint32_t i) {
+    float nu = 0.0f, centered = 0.0f;
+    if (c.own) {
+      nu = c.scale_t * c.normal(i, 0u);
+      centered = pos[c.t] - c.mean_t;
+    }
+    const float log_y = -phi + logf(c.uniform(i, 2u));
+    float theta = kTwoPi * c.uniform(i, 4u);
+    float lo = theta - kTwoPi, hi = theta;
+    for (int k = 0; k < a.max_shrink; ++k) {
+      if (c.own) prop[c.t] = centered * cosf(theta) + nu * sinf(theta) + c.mean_t;
+      __syncthreads();
+      const float phi_prop = darcy_phi(a.pot, prop, ws);
+      if (-phi_prop > log_y) {  // the same in every thread
+        phi = phi_prop;
+        if (c.own) pos[c.t] = prop[c.t];
+        return true;
+      }
+      // shrink the bracket towards 0
+      if (theta >= 0.0f) hi = theta;
+      else lo = theta;
+      theta = lo + (hi - lo) * c.uniform(i, 16u + static_cast<uint32_t>(k));
+    }
+    return false;
+  }
+};
+
+template <bool RECORD>
+__global__ void __launch_bounds__(DarcyPotential::kMaxThreads, DarcyPotential::kMinCtasPerSm)
+    fused_ess_kernel(const __grid_constant__ EssArgs a) {
+  extern __shared__ float ess_smem[];
+  float* pos = ess_smem;
+  float* prop = pos + a.chain.d;
+  EssStep step{a, pos, prop, carve_misfit_smem(prop + a.chain.d, a.pot.n * a.pot.n, a.pot.modes),
+               0.0f};
+  run_chain<RECORD>(a.chain, step, pos);
+}
+
+// Launches fused_ess_kernel<RECORD> (RECORD: chain.samples given) on a spec
+// of ess_route's kRouteCta.
+inline int launch_ess_cta(const EssArgs& a, void* stream) {
+  const int cells = a.pot.n * a.pot.n;
+  const int threads = chain_threads(a.chain, cells, a.pot.K, DarcyPotential::kMaxThreads);
+  if (threads == 0 || a.max_shrink < 0) return cudaErrorInvalidValue;
+  if (a.chain.n == 0) return cudaSuccess;
+  const size_t smem = sizeof(float) * (2 * a.chain.d + misfit_smem_floats(cells, a.pot.modes));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.chain.samples != nullptr) fused_ess_kernel<true><<<a.chain.n, threads, smem, st>>>(a);
+  else fused_ess_kernel<false><<<a.chain.n, threads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // What a launch takes: warps (chains) a CTA, CTAs, dynamic shared memory.
 struct EssWarpGeometry {
   int warps, ctas;
   size_t smem;
 };
 
-// Mirrored by ip_mcmc_tpu_torch/ops/fused_ess.py warp_geometry: a 16 x 16
-// Jacobi CG misfit with d = K = 64 (else cudaErrorNotSupported). W: the
-// largest power of two up to kWarps that divides block_chains; a ragged
-// last CTA runs spare warps.
+// Whether the warp kernel takes the spec for chains of d coordinates: a
+// 16 x 16 Jacobi CG misfit with d = K = 64. Mirrored by
+// ip_mcmc_tpu_torch/ops/fused_ess.py warp_takes.
+inline bool ess_warp_takes(const IpxMisfitSpec& s, int d) {
+  return s.n == kEssN && s.K == kEssD && d == kEssD && s.precond == kPrecondJacobi &&
+         s.modes == 0 && s.solver == kSolverCg && s.m >= 0;
+}
+
+// The kernel a spec goes to: the warp kernel for what it takes, the
+// one-chain-a-CTA kernel for any other CG misfit up to 16 x 16 with K = d,
+// none above. Mirrored by ip_mcmc_tpu_torch/ops/fused_ess.py route.
+inline int ess_route(const IpxMisfitSpec& s, int d) {
+  if (ess_warp_takes(s, d)) return kRouteWarp;
+  if (darcy_cta_spec(s, d, DarcyPotential::kMaxCells, DarcyPotential::kMaxThreads))
+    return kRouteCta;
+  return kRouteRefused;
+}
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_ess.py warp_geometry: what
+// ess_warp_takes (else cudaErrorNotSupported). W: the largest power of two
+// up to kWarps that divides block_chains; a ragged last CTA runs spare
+// warps.
 inline int ess_warp_geometry(const IpxMisfitSpec& s, const IpxChainArgs& chain, int max_shrink,
                              EssWarpGeometry* geo) {
-  if (s.n != kEssN || s.K != kEssD || chain.d != kEssD || s.precond != kPrecondJacobi ||
-      s.modes != 0 || s.solver != kSolverCg || s.m < 0)
-    return cudaErrorNotSupported;
+  if (!ess_warp_takes(s, chain.d)) return cudaErrorNotSupported;
   if (chain.block_chains <= 0 || chain.n < 0 || chain.n_steps < 0 || max_shrink < 0 ||
       (chain.samples != nullptr && chain.thin <= 0))
     return cudaErrorInvalidValue;
@@ -151,8 +240,14 @@ inline int ess_warp_geometry(const IpxMisfitSpec& s, const IpxChainArgs& chain, 
 
 extern "C" {
 
+// ess_route picks the kernel: the warp kernel, the one-chain-a-CTA kernel,
+// or none (cudaErrorNotSupported).
 int ipx_fused_ess(const IpxMisfitSpec* pot, const IpxChainArgs* chain, const float* phi0,
                   int max_shrink, void* stream) {
+  const int route = ipx::ess_route(*pot, chain->d);
+  if (route == ipx::kRouteCta)
+    return ipx::launch_ess_cta({*pot, *chain, phi0, max_shrink}, stream);
+  if (route != ipx::kRouteWarp) return cudaErrorNotSupported;
   ipx::EssWarpGeometry geo;
   const int status = ipx::ess_warp_geometry(*pot, *chain, max_shrink, &geo);
   if (status != cudaSuccess) return status;
@@ -185,5 +280,9 @@ int ipx_ess_warp_geometry(const IpxMisfitSpec* pot, const IpxChainArgs* chain, i
   out[2] = static_cast<int>(geo.smem);
   return status;
 }
+
+// The kernel ipx_fused_ess sends this spec to, for chains of d coordinates
+// (ipx::kRoute*; the wrapper's mirror is checked against this on the card).
+int ipx_ess_route(const IpxMisfitSpec* pot, int d) { return ipx::ess_route(*pot, d); }
 
 }  // extern "C"

@@ -10,6 +10,11 @@
 //                                  stretch move on the first M whitened
 //                                  coordinates against a partner chain of
 //                                  the other parity, then pCN on the rest.
+//   fused_fes_kernel<RECORD>       the same launch one chain a CTA, on the
+//                                  specs the warp kernel leaves: any CG
+//                                  Darcy misfit up to 16 x 16 with K = d.
+//                                  fes_route sends each spec to one of the
+//                                  two.
 //
 // Each block of block_chains chains is one walker ensemble. A step is two
 // red-black sub-steps: in sub-step `sub` the chains whose lane has parity
@@ -48,6 +53,8 @@
 // basis staged once a CTA, the dot products in block_sum's order), and
 // adds d_prior in block_sum's order too, so that the chains take the
 // one-chain-a-CTA kernel's bits. The design is the line FesWarpDesign.
+// fused_fes_kernel is that first design, kept for the specs the warp
+// kernel's one level does not hold (no shipped config sends it one).
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -180,25 +187,117 @@ __global__ void __launch_bounds__(32 * FesWarpDesign::kWarps, kFesWarpMinCtas)
   }
 }
 
+// The same one chain a CTA: CTA b runs the chain of lane 2 (b mod bc/2) +
+// sub in block b / (bc/2); thread t < d holds coordinate t.
+template <bool RECORD>
+__global__ void __launch_bounds__(DarcyPotential::kMaxThreads, DarcyPotential::kMinCtasPerSm)
+    fused_fes_kernel(const __grid_constant__ FesArgs a) {
+  extern __shared__ float fes_smem[];
+  const int d = a.chain.d, bc = a.chain.block_chains, half = bc / 2;
+  const int blk = blockIdx.x / half, my_lane = 2 * (blockIdx.x % half) + a.sub;
+  const ChainCtx c = make_chain_ctx(a.chain, blk * bc + my_lane);
+  float* pos = const_cast<float*>(a.chain.pos_in);
+  float* prop = fes_smem;
+  const MisfitSmem ws = carve_misfit_smem(prop + d, a.pot.n * a.pot.n, a.pot.modes);
+  const uint32_t i = static_cast<uint32_t>(a.step);
+  const bool low = c.t < a.n_low;
+  const size_t row = static_cast<size_t>(c.c) * d;
+
+  float phi = a.phi[c.c];
+  float w = c.own ? (pos[row + c.t] - c.mean_t) / c.scale_t : 0.0f;
+
+  // the stretch move of sub-step a.sub; the shift is the (1, 1) draw of the
+  // block
+  const uint32_t tag0 = a.sub ? 40u : 32u;
+  const int shift =
+      static_cast<int>(floorf(uniform01(mix_key(c.bseed, i, tag0), 0u) * static_cast<float>(half))) *
+          2 + 1;
+  const int partner = blk * bc + ((my_lane - shift) % bc + bc) % bc;
+  const float uz = c.uniform(i, tag0 + 2u);
+  const float zq = (a.stretch_a - 1.0f) * uz + 1.0f;
+  const float z = zq * zq / a.stretch_a;
+  float w_prop = w;
+  if (c.own && low) {
+    const float wp = (pos[static_cast<size_t>(partner) * d + c.t] - c.mean_t) / c.scale_t;
+    w_prop = wp + z * (w - wp);
+  }
+  if (c.own) prop[c.t] = c.mean_t + c.scale_t * w_prop;
+  __syncthreads();
+  float phi_p = darcy_phi(a.pot, prop, ws);
+  const float d_prior =
+      0.5f * block_sum((c.own && low) ? w_prop * w_prop - w * w : 0.0f, ws.red);
+  float log_ratio = static_cast<float>(a.n_low - 1) * logf(z) - (phi_p - phi) - d_prior;
+  if (isnan(log_ratio)) log_ratio = -INFINITY;
+  const bool st_ok = logf(c.uniform(i, tag0 + 4u)) < log_ratio;
+  if (st_ok) {
+    w = w_prop;
+    phi = phi_p;
+  }
+
+  // pCN on the complement rows
+  w_prop = w;
+  if (c.own && !low) w_prop = a.contraction * w + a.beta * c.normal(i, 48u);
+  if (c.own) prop[c.t] = c.mean_t + c.scale_t * w_prop;
+  __syncthreads();
+  phi_p = darcy_phi(a.pot, prop, ws);
+  const bool ok = logf(c.uniform(i, 52u)) < phi - phi_p;
+  if (ok) {
+    w = w_prop;
+    phi = phi_p;
+  }
+
+  if (c.own) {
+    const float v = c.mean_t + c.scale_t * w;
+    pos[row + c.t] = v;
+    if (RECORD) a.record[row + c.t] = v;
+  }
+  if (c.t == 0) {
+    a.phi[c.c] = phi;
+    if (st_ok) a.st_acc[c.c] += 1.0f;
+    if (ok) a.pcn_acc[c.c] += 1.0f;
+  }
+}
+
 // What a launch takes: warps (chains) a CTA, CTAs, dynamic shared memory.
 struct FesWarpGeometry {
   int warps, ctas;
   size_t smem;
 };
 
-// Mirrored by ip_mcmc_tpu_torch/ops/fused_fes.py warp_geometry: a 16 x 16
-// Jacobi CG misfit with d = K = 64 (else cudaErrorNotSupported), whole
-// ensembles of an even block_chains. A launch runs the n / 2 chains of one
-// parity. W: the largest power of two up to kWarps that divides
-// block_chains; a ragged last CTA runs spare warps, which return.
+// Whether the warp kernel takes the spec for chains of d coordinates: a
+// 16 x 16 Jacobi CG misfit with d = K = 64 (elliptical slice sampling's
+// level). Mirrored by ip_mcmc_tpu_torch/ops/fused_fes.py warp_takes.
+inline bool fes_warp_takes(const IpxMisfitSpec& s, int d) {
+  return s.n == WarpSliceLevel::kN && s.K == kFesD && d == kFesD &&
+         s.precond == kPrecondJacobi && s.modes == 0 && s.solver == kSolverCg && s.m >= 0;
+}
+
+// The kernel a spec goes to: the warp kernel for what it takes, the
+// one-chain-a-CTA kernel for any other CG misfit up to 16 x 16 with K = d,
+// none above. Mirrored by ip_mcmc_tpu_torch/ops/fused_fes.py route.
+inline int fes_route(const IpxMisfitSpec& s, int d) {
+  if (fes_warp_takes(s, d)) return kRouteWarp;
+  if (darcy_cta_spec(s, d, DarcyPotential::kMaxCells, DarcyPotential::kMaxThreads))
+    return kRouteCta;
+  return kRouteRefused;
+}
+
+// Whole ensembles of an even block_chains, n_low in [0, d]: what both
+// kernels check.
+inline bool fes_ensembles_ok(const IpxChainArgs& chain, int n_low) {
+  return chain.block_chains > 0 && chain.block_chains % 2 == 0 && chain.n >= 0 &&
+         chain.n % chain.block_chains == 0 && n_low >= 0 && n_low <= chain.d;
+}
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_fes.py warp_geometry: what
+// fes_warp_takes (else cudaErrorNotSupported), whole ensembles of an even
+// block_chains. A launch runs the n / 2 chains of one parity. W: the
+// largest power of two up to kWarps that divides block_chains; a ragged
+// last CTA runs spare warps, which return.
 inline int fes_warp_geometry(const IpxMisfitSpec& s, const IpxChainArgs& chain, int n_low,
                              FesWarpGeometry* geo) {
-  if (s.n != WarpSliceLevel::kN || s.K != kFesD || chain.d != kFesD ||
-      s.precond != kPrecondJacobi || s.modes != 0 || s.solver != kSolverCg || s.m < 0)
-    return cudaErrorNotSupported;
-  if (chain.block_chains <= 0 || chain.block_chains % 2 || chain.n < 0 ||
-      chain.n % chain.block_chains || n_low < 0 || n_low > kFesD)
-    return cudaErrorInvalidValue;
+  if (!fes_warp_takes(s, chain.d)) return cudaErrorNotSupported;
+  if (!fes_ensembles_ok(chain, n_low)) return cudaErrorInvalidValue;
   int w = FesWarpDesign::kWarps;
   while (chain.block_chains % w) w /= 2;
   geo->warps = w;
@@ -213,17 +312,34 @@ extern "C" {
 
 // One launch: step `step`, the chains of parity `sub`. `record`: where this
 // launch stores its chains' new state, or null.
+// fes_route picks the kernel: the warp kernel, the one-chain-a-CTA
+// kernel, or none (cudaErrorNotSupported).
 int ipx_fused_fes(const IpxMisfitSpec* pot, const IpxChainArgs* chain, float* phi,
                   float* pcn_acc, float* st_acc, float* record, float beta, float contraction,
                   float stretch_a, int n_low, int step, int sub, void* stream) {
+  const int route = ipx::fes_route(*pot, chain->d);
+  if (route == ipx::kRouteRefused) return cudaErrorNotSupported;
+  const ipx::FesArgs a{*pot, *chain, phi, pcn_acc, st_acc, record, beta, contraction,
+                       stretch_a, n_low, step, sub};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == ipx::kRouteCta) {
+    const int cells = pot->n * pot->n;
+    const int threads =
+        ipx::chain_threads(*chain, cells, pot->K, ipx::DarcyPotential::kMaxThreads);
+    if (threads == 0 || !ipx::fes_ensembles_ok(*chain, n_low) || step < 0 ||
+        (sub != 0 && sub != 1))
+      return cudaErrorInvalidValue;
+    if (chain->n == 0) return cudaSuccess;
+    const size_t smem = sizeof(float) * (chain->d + ipx::misfit_smem_floats(cells, pot->modes));
+    if (record != nullptr) ipx::fused_fes_kernel<true><<<chain->n / 2, threads, smem, st>>>(a);
+    else ipx::fused_fes_kernel<false><<<chain->n / 2, threads, smem, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
   ipx::FesWarpGeometry geo;
   const int status = ipx::fes_warp_geometry(*pot, *chain, n_low, &geo);
   if (status != cudaSuccess) return status;
   if (step < 0 || (sub != 0 && sub != 1)) return cudaErrorInvalidValue;
   if (chain->n == 0) return cudaSuccess;
-  const ipx::FesArgs a{*pot, *chain, phi, pcn_acc, st_acc, record, beta, contraction,
-                       stretch_a, n_low, step, sub};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int threads = 32 * geo.warps, smem = static_cast<int>(geo.smem);
   if (record != nullptr) {
     cudaFuncSetAttribute(ipx::fused_fes_warp_kernel<true>,
@@ -250,5 +366,9 @@ int ipx_fes_warp_geometry(const IpxMisfitSpec* pot, const IpxChainArgs* chain, i
   out[2] = static_cast<int>(geo.smem);
   return status;
 }
+
+// The kernel ipx_fused_fes sends this spec to, for chains of d coordinates
+// (ipx::kRoute*; the wrapper's mirror is checked against this on the card).
+int ipx_fes_route(const IpxMisfitSpec* pot, int d) { return ipx::fes_route(*pot, d); }
 
 }  // extern "C"

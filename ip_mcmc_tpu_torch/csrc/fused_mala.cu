@@ -27,6 +27,12 @@
 //                                  the cold kernel (K10), kPrecondDst the
 //                                  warm one (K11), each chain carrying the
 //                                  two solutions of its current state.
+//   fused_mala_kernel<RECORD>, fused_mala_warm_kernel<RECORD>
+//                                  cold and warm MALA one chain a CTA, on
+//                                  the specs the warp kernel leaves: any
+//                                  CG Darcy misfit up to 16 x 16 with K =
+//                                  d, any preconditioner. mala_route sends
+//                                  each spec to one kernel or the other.
 //
 // One step: prop = pos - eps^2/2 g + eps xi, value and gradient at prop,
 // log ratio (phi - phi') + log q(pos | prop) - log q(prop | pos) with NaN
@@ -59,7 +65,11 @@
 // once a CTA; a warp's slices hold the state, the solve's vectors, the
 // forward solution and (warm) the carried solutions. W and the launch
 // bound are the line MalaWarpDesign (scripts/measure_mala_warp_design.py
-// times the alternatives, PERF.md the numbers).
+// times the alternatives, PERF.md the numbers). The one-chain-a-CTA
+// kernels are that first design, kept for the specs the warp kernel's two
+// levels do not hold, on darcy_value_and_grad<WARM> (the solve of the
+// standalone gradient misfits on such specs); no shipped config sends them
+// one.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -105,6 +115,133 @@ struct MalaArgs {
   const float* aux0;  // (2 cells, n) solutions at pos_in (warm only)
   float eps;
 };
+
+// MALA (K10 / K11) one chain a CTA: thread t < d holds coordinate t of pos,
+// prop and the gradient; WARM: the accepted state's forward and adjoint
+// solutions in xs, ls (thread t's cell t), the starts of both solves.
+template <bool WARM>
+struct MalaStep {
+  const MalaArgs& a;
+  float* pos;
+  float* prop;
+  float* gp;  // gradient of the misfit at the proposal
+  MisfitSmem ws;
+  GradSmem gs;
+  float* xs;  // [cells] forward solution of the accepted state (warm)
+  float* ls;  // [cells] adjoint solution of the accepted state (warm)
+  float phi, g;
+
+  // adds the prior's 1/2 |z|^2 to phi_v and z / scale to this thread's g_v
+  __device__ void fold(const ChainCtx& c, const float* u, float& phi_v, float& g_v) const {
+    const float z = c.own ? (u[c.t] - c.mean_t) / c.scale_t : 0.0f;
+    phi_v = phi_v + 0.5f * block_sum(z * z, ws.red);
+    if (c.own) g_v = g_v + z / c.scale_t;
+  }
+
+  __device__ void init(const ChainCtx& c) {
+    const int n = a.chain.n, cells = a.pot.n * a.pot.n;
+    phi = a.phi0[c.c];
+    g = c.own ? a.g0[static_cast<size_t>(c.t) * n + c.c] : 0.0f;
+    fold(c, pos, phi, g);
+    if (WARM && c.t < cells) {
+      xs[c.t] = a.aux0[static_cast<size_t>(c.t) * n + c.c];
+      ls[c.t] = a.aux0[static_cast<size_t>(cells + c.t) * n + c.c];
+    }
+  }
+
+  __device__ bool step(const ChainCtx& c, uint32_t i) {
+    const int cells = a.pot.n * a.pot.n;
+    const float eps = a.eps;
+    const float half_eps2 = 0.5f * eps * eps;
+    const float inv2e2 = 1.0f / (2.0f * eps * eps);
+    float xi = 0.0f;
+    if (c.own) {
+      xi = c.normal(i, 0u);
+      prop[c.t] = (pos[c.t] - half_eps2 * g) + eps * xi;
+    }
+    if (WARM && c.t < cells) {
+      gs.x[c.t] = xs[c.t];
+      gs.lam[c.t] = ls[c.t];
+    }
+    __syncthreads();
+    float phi_p = darcy_value_and_grad<WARM>(a.pot, prop, ws, gs, gp);
+    float g_p = c.own ? gp[c.t] : 0.0f;
+    fold(c, prop, phi_p, g_p);
+    const float d_rev = c.own ? pos[c.t] - (prop[c.t] - half_eps2 * g_p) : 0.0f;
+    const float log_q_rev = -block_sum(d_rev * d_rev, ws.red) * inv2e2;
+    const float log_q_fwd = -block_sum(xi * xi, ws.red) * 0.5f;
+    float log_ratio = (phi - phi_p) + log_q_rev - log_q_fwd;
+    if (isnan(log_ratio)) log_ratio = -INFINITY;
+    const bool accept = logf(c.uniform(i, 2u)) < log_ratio;
+    if (accept) {
+      phi = phi_p;
+      g = g_p;
+      if (c.own) pos[c.t] = prop[c.t];
+      if (WARM && c.t < cells) {
+        xs[c.t] = gs.x[c.t];
+        ls[c.t] = gs.lam[c.t];
+      }
+    }
+    return accept;
+  }
+};
+
+// Shared memory of a chain: pos, prop, the gradient, the misfit's and the
+// gradient's workspaces, (warm) the accepted state's two solutions.
+inline size_t mala_smem_floats(int d, int cells, int modes, int m, bool warm) {
+  return 3 * d + misfit_smem_floats(cells, modes) + grad_smem_floats(cells, m) +
+         (warm ? 2 * cells : 0);
+}
+
+template <bool RECORD, bool WARM>
+__device__ void mala_chain(const MalaArgs& a) {
+  extern __shared__ float mala_smem[];
+  const int d = a.chain.d, cells = a.pot.n * a.pot.n;
+  float* pos = mala_smem;
+  float* prop = pos + d;
+  float* gp = prop + d;
+  float* work = gp + d;
+  float* grad = work + misfit_smem_floats(cells, a.pot.modes);
+  float* xs = grad + grad_smem_floats(cells, a.pot.m);
+  MalaStep<WARM> step{a,  pos, prop, gp, carve_misfit_smem(work, cells, a.pot.modes),
+                      carve_grad_smem(grad, cells), xs, xs + cells, 0.0f, 0.0f};
+  run_chain<RECORD>(a.chain, step, pos);
+}
+
+template <bool RECORD>
+__global__ void __launch_bounds__(DarcyPotential::kMaxThreads, DarcyPotential::kMinCtasPerSm)
+    fused_mala_kernel(const __grid_constant__ MalaArgs a) {
+  mala_chain<RECORD, false>(a);
+}
+
+template <bool RECORD>
+__global__ void __launch_bounds__(DarcyPotential::kMaxThreads, DarcyPotential::kMinCtasPerSm)
+    fused_mala_warm_kernel(const __grid_constant__ MalaArgs a) {
+  mala_chain<RECORD, true>(a);
+}
+
+// Launches fused_mala_kernel<RECORD> or, with aux0 given,
+// fused_mala_warm_kernel<RECORD> (RECORD: chain.samples given) on a spec of
+// mala_route's kRouteCta.
+inline int launch_mala_cta(const MalaArgs& a, void* stream) {
+  const int cells = a.pot.n * a.pot.n;
+  const int threads = chain_threads(a.chain, cells, a.pot.K, DarcyPotential::kMaxThreads);
+  if (threads == 0) return cudaErrorInvalidValue;
+  if (a.chain.n == 0) return cudaSuccess;
+  const bool warm = a.aux0 != nullptr, record = a.chain.samples != nullptr;
+  const size_t smem =
+      sizeof(float) * mala_smem_floats(a.chain.d, cells, a.pot.modes, a.pot.m, warm);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n = a.chain.n;
+  if (!warm) {
+    if (record) fused_mala_kernel<true><<<n, threads, smem, st>>>(a);
+    else fused_mala_kernel<false><<<n, threads, smem, st>>>(a);
+  } else {
+    if (record) fused_mala_warm_kernel<true><<<n, threads, smem, st>>>(a);
+    else fused_mala_warm_kernel<false><<<n, threads, smem, st>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The design: kWarps chains a CTA at most, one a warp; the launch bound's
 // warps an SM (kSmWarps: 32 caps a thread at 65536 / 1024 = 64 registers,
@@ -263,16 +400,32 @@ struct MalaWarpGeometry {
   size_t smem;
 };
 
-// Mirrored by ip_mcmc_tpu_torch/ops/fused_mala.py warp_geometry: a 16 x 16
-// CG misfit with d = K = 64, Jacobi (cold) or dense dst (warm), else
-// cudaErrorNotSupported. W: the largest power of two up to kWarps that
-// divides block_chains; a ragged last CTA runs spare warps.
+// Whether the warp kernel takes the spec for chains of d coordinates: a
+// 16 x 16 CG misfit with d = K = 64, Jacobi (cold) or dense dst (warm).
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_mala.py warp_takes.
+inline bool mala_warp_takes(const IpxMisfitSpec& s, int d, bool warm) {
+  return s.n == WarpSliceLevel::kN && s.K == kMalaD && d == kMalaD &&
+         s.precond == (warm ? kPrecondDst : kPrecondJacobi) && s.modes == 0 &&
+         s.solver == kSolverCg && s.m >= 0;
+}
+
+// The kernel a spec goes to: the warp kernel for what it takes, the
+// one-chain-a-CTA kernels for any other CG misfit up to 16 x 16 with K = d,
+// none above. Mirrored by ip_mcmc_tpu_torch/ops/fused_mala.py route.
+inline int mala_route(const IpxMisfitSpec& s, int d, bool warm) {
+  if (mala_warp_takes(s, d, warm)) return kRouteWarp;
+  if (darcy_cta_spec(s, d, DarcyPotential::kMaxCells, DarcyPotential::kMaxThreads))
+    return kRouteCta;
+  return kRouteRefused;
+}
+
+// Mirrored by ip_mcmc_tpu_torch/ops/fused_mala.py warp_geometry: what
+// mala_warp_takes, else cudaErrorNotSupported. W: the largest power of two
+// up to kWarps that divides block_chains; a ragged last CTA runs spare
+// warps.
 inline int mala_warp_geometry(const IpxMisfitSpec& s, const IpxChainArgs& chain, bool warm,
                               MalaWarpGeometry* geo) {
-  if (s.n != WarpSliceLevel::kN || s.K != kMalaD || chain.d != kMalaD ||
-      s.precond != (warm ? kPrecondDst : kPrecondJacobi) || s.modes != 0 ||
-      s.solver != kSolverCg || s.m < 0)
-    return cudaErrorNotSupported;
+  if (!mala_warp_takes(s, chain.d, warm)) return cudaErrorNotSupported;
   if (chain.block_chains <= 0 || chain.n < 0 || chain.n_steps < 0 ||
       (chain.samples != nullptr && chain.thin <= 0))
     return cudaErrorInvalidValue;
@@ -594,11 +747,17 @@ int ipx_darcy_misfit_grad(const IpxMisfitSpec* s, const float* U, const float* a
   return static_cast<int>(cudaGetLastError());
 }
 
-// aux0 == null: cold MALA (fused_mala_warp_kernel<RECORD, kPrecondJacobi>);
-// else warm (<RECORD, kPrecondDst>).
+// aux0 == null: cold MALA, else warm. mala_route picks the kernel: the warp
+// kernel (fused_mala_warp_kernel<RECORD, kPrecondJacobi> cold, <RECORD,
+// kPrecondDst> warm), the one-chain-a-CTA kernels (fused_mala_kernel,
+// fused_mala_warm_kernel), or none (cudaErrorNotSupported).
 int ipx_fused_mala(const IpxMisfitSpec* pot, const IpxChainArgs* chain, const float* phi0,
                    const float* g0, const float* aux0, float eps, void* stream) {
   const bool warm = aux0 != nullptr;
+  const int route = ipx::mala_route(*pot, chain->d, warm);
+  if (route == ipx::kRouteCta)
+    return ipx::launch_mala_cta({*pot, *chain, phi0, g0, aux0, eps}, stream);
+  if (route != ipx::kRouteWarp) return cudaErrorNotSupported;
   ipx::MalaWarpGeometry geo;
   const int status = ipx::mala_warp_geometry(*pot, *chain, warm, &geo);
   if (status != cudaSuccess) return status;
@@ -625,6 +784,13 @@ int ipx_mala_warp_geometry(const IpxMisfitSpec* pot, const IpxChainArgs* chain, 
   out[1] = geo.ctas;
   out[2] = static_cast<int>(geo.smem);
   return status;
+}
+
+// The kernel ipx_fused_mala sends this spec to, for chains of d coordinates
+// and warm (0: cold; ipx::kRoute*; the wrapper's mirror is checked against
+// this on the card).
+int ipx_mala_route(const IpxMisfitSpec* pot, int d, int warm) {
+  return ipx::mala_route(*pot, d, warm != 0);
 }
 
 // The standalone cold gradient misfit's launch geometry

@@ -30,7 +30,9 @@
 //                                  solution: each thread keeps its cells of
 //                                  the accepted x in registers, the
 //                                  proposal's solve starts from them, and x
-//                                  follows the MH select (up to 16 x 16).
+//                                  follows the MH select (any grid up to
+//                                  64 x 64 that the kernels below leave,
+//                                  in the layout of its grid).
 //   fused_pcn_warm_cluster_kernel<RECORD>  the same on 64 x 64, G chains
 //                                  a thread-block cluster.
 //   fused_pcn_warm_cluster32_kernel<RECORD>  the same on 32 x 32, in a
@@ -42,7 +44,8 @@
 //                                  warm on a dst_trunc CG one (a multiple
 //                                  of 16 modes up to 112; kPrecondDstTrunc,
 //                                  K7). ipx_fused_pcn sends it every spec
-//                                  it takes, the kernels above the rest.
+//                                  it takes, the kernels above the rest
+//                                  (pcn_route).
 //   fused_pcn_burgers_warp_kernel<RECORD>  K6 on a Burgers misfit of 64
 //                                  or 128 cells with d = K = 16, one chain
 //                                  a warp (burgers_misfit.cuh's warp
@@ -480,6 +483,30 @@ inline bool pcn_warp_takes(const IpxMisfitSpec& s, int d, bool warm) {
   return s.precond == kPrecondJacobi && s.modes == 0;
 }
 
+// Whether a cluster kernel takes a warm spec for chains of d coordinates
+// (cluster_geometry with no surrogate): 64 x 64 or 32 x 32, dst_trunc CG.
+inline bool pcn_cluster_takes(const IpxMisfitSpec& s, int d) {
+  return s.n == kCluster32N
+             ? cluster_level_ok(s, kCluster32N, d, kCluster32MaxModes, kCluster32MaxK)
+             : cluster_level_ok(s, kClusterExactN, d, kClusterMaxModes);
+}
+
+// The kernel a spec goes to. Cold: the warp kernel for what it takes,
+// fused_pcn_kernel in the layout of its grid for every other (which
+// refuses a grid above 64 x 64). Warm: the warp kernel or a cluster kernel
+// for what they take, fused_pcn_warm_kernel in the layout of its grid for
+// any other CG spec up to 64 x 64 with K = d, none above. Mirrored by
+// ip_mcmc_tpu_torch/ops/fused_pcn.py route.
+inline int pcn_route(const IpxMisfitSpec& s, int d, bool warm) {
+  if (pcn_warp_takes(s, d, warm)) return kRouteWarp;
+  if (!warm) return kRouteCta;
+  if (pcn_cluster_takes(s, d)) return kRouteCluster;
+  const int cells = s.n * s.n;
+  if (darcy_cta_spec(s, d, DarcyPot<Layout64>::kMaxCells, darcy_layout_threads(cells)))
+    return kRouteCta;
+  return kRouteRefused;
+}
+
 // Mirrored by ip_mcmc_tpu_torch/ops/fused_pcn.py warp_geometry: what
 // pcn_warp_takes refuses, cudaErrorNotSupported. W: the largest power of
 // two up to kWarps that divides block_chains; a ragged last CTA runs spare
@@ -907,8 +934,7 @@ inline int launch_pcn_burgers_warp(const IpxBurgersSpec& pot, const IpxChainArgs
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches fused_pcn_kernel<Pot, RECORD> or, with x0 given (Darcy up to
-// 16 x 16: the larger grids have the cluster kernels above),
+// Launches fused_pcn_kernel<Pot, RECORD> or, with x0 given (Darcy),
 // fused_pcn_warm_kernel<Pot, RECORD> (RECORD: chain.samples given).
 template <class Pot>
 int launch_pcn(const typename Pot::Spec& pot, const IpxChainArgs& chain, const float* phi0,
@@ -926,12 +952,8 @@ int launch_pcn(const typename Pot::Spec& pot, const IpxChainArgs& chain, const f
     if (record) fused_pcn_kernel<Pot, true><<<chain.n, threads, smem, st>>>(a);
     else fused_pcn_kernel<Pot, false><<<chain.n, threads, smem, st>>>(a);
   } else if constexpr (std::is_same_v<typename Pot::Spec, IpxMisfitSpec>) {
-    if constexpr (Pot::kMaxCells <= DarcyPot<Layout16>::kMaxCells) {
-      if (record) fused_pcn_warm_kernel<Pot, true><<<chain.n, threads, smem, st>>>(a);
-      else fused_pcn_warm_kernel<Pot, false><<<chain.n, threads, smem, st>>>(a);
-    } else {
-      return cudaErrorInvalidValue;
-    }
+    if (record) fused_pcn_warm_kernel<Pot, true><<<chain.n, threads, smem, st>>>(a);
+    else fused_pcn_warm_kernel<Pot, false><<<chain.n, threads, smem, st>>>(a);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -990,21 +1012,34 @@ int ipx_darcy_misfit_warm(const IpxMisfitSpec* s, const float* U, const float* x
   return ipx_darcy_misfit_warm_layout(s, U, x0, B, phi, x, stream);
 }
 
-// x0 == null: cold pCN, else warm. What fused_pcn_warp_kernel takes
-// (pcn_warp_takes: 16 x 16, d = K = 64, Jacobi cold or dst_trunc warm) goes
-// to it; the rest to fused_pcn_kernel, to fused_pcn_warm_kernel (up to
-// 16 x 16) or to the cluster kernels (above, which take 32 x 32 and 64 x 64
-// with a dst_trunc CG solve and refuse the rest of the grids above 16 x 16
-// with cudaErrorNotSupported). The layout follows the spec's grid.
+// x0 == null: cold pCN, else warm. pcn_route picks the kernel: what
+// fused_pcn_warp_kernel takes (pcn_warp_takes: 16 x 16, d = K = 64, Jacobi
+// cold or dst_trunc warm) goes to it; a warm spec of the cluster kernels
+// (pcn_cluster_takes: 32 x 32 and 64 x 64 with a dst_trunc CG solve) to
+// them; the rest to fused_pcn_kernel or fused_pcn_warm_kernel, whose layout
+// follows the spec's grid; a warm spec above 64 x 64 is refused with
+// cudaErrorNotSupported.
 int ipx_fused_pcn(const IpxMisfitSpec* pot, const IpxChainArgs* chain, const float* phi0,
                   const float* x0, float beta, float contraction, void* stream) {
-  if (ipx::pcn_warp_takes(*pot, chain->d, x0 != nullptr))
-    return ipx::launch_pcn_warps(*pot, *chain, phi0, x0, beta, contraction, stream);
-  if (x0 != nullptr && pot->n * pot->n > ipx::DarcyPotential::kMaxCells)
-    return ipx::launch_pcn_warm_cluster(*pot, *chain, phi0, x0, beta, contraction, stream);
-  return ipx::with_darcy_layout<kSolverCg>(*pot, [&](auto p) {
-    return ipx::launch_pcn<decltype(p)>(*pot, *chain, phi0, x0, beta, contraction, stream);
-  });
+  switch (ipx::pcn_route(*pot, chain->d, x0 != nullptr)) {
+    case ipx::kRouteWarp:
+      return ipx::launch_pcn_warps(*pot, *chain, phi0, x0, beta, contraction, stream);
+    case ipx::kRouteCluster:
+      return ipx::launch_pcn_warm_cluster(*pot, *chain, phi0, x0, beta, contraction, stream);
+    case ipx::kRouteCta:
+      return ipx::with_darcy_layout<kSolverCg>(*pot, [&](auto p) {
+        return ipx::launch_pcn<decltype(p)>(*pot, *chain, phi0, x0, beta, contraction, stream);
+      });
+    default:
+      return cudaErrorNotSupported;
+  }
+}
+
+// The kernel ipx_fused_pcn sends this spec to, for chains of d coordinates
+// and warm (0: cold; ipx::kRoute*; the wrapper's mirror is checked against
+// this on the card).
+int ipx_pcn_route(const IpxMisfitSpec* pot, int d, int warm) {
+  return ipx::pcn_route(*pot, d, warm != 0);
 }
 
 // The warp kernel's launch geometry for this spec, these chain arguments

@@ -423,6 +423,13 @@ __device__ void run_group_pooled(const IpxChainArgs& a, Step& step, int block, i
   }
 }
 
+// The kernel that a sampler's dispatch sends a spec to, as its takes-rules
+// decide (the ipx_*_route functions, each mirrored by its wrapper's
+// `route`): the Hopper design a chain a warp or G chains a thread-block
+// cluster for the specs it takes, one chain a CTA for the rest of the
+// domain, and outside it none (cudaErrorNotSupported).
+enum { kRouteRefused = 0, kRouteWarp = 1, kRouteCluster = 2, kRouteCta = 3 };
+
 // What every launch of a sampler checks; threads for it (enough for the
 // cells of the largest grid at cells_per_thread each, at least d, at most
 // the kernel's launch bound) or 0.

@@ -275,6 +275,8 @@ def library():
         lib.bind("ipx_fused_da_pcn", [spec, spec, chain, p, p, f, f, i, p, p])
         # exact, surrogate, chain, out (3,): the 16x16 DA kernel's geometry
         lib.bind("ipx_da_pcn_warp_geometry", [spec, spec, chain, p])
+        # exact, surrogate, d: the kernel the pair goes to (ROUTES)
+        lib.bind("ipx_da_pcn_route", [spec, spec, i])
         # exact, surrogate or null (warm pCN), chain, out (4,): the cluster
         # kernels' geometry (64x64, and the 32x32 warm pCN)
         lib.bind("ipx_darcy_cluster_geometry", [spec, spec, chain, p])
@@ -282,10 +284,14 @@ def library():
         lib.bind("ipx_fused_pcn", [spec, chain, p, p, f, f, p])
         # spec, chain, warm, out (3,): the 16x16 pCN warp kernel's geometry
         lib.bind("ipx_pcn_warp_geometry", [spec, chain, i, p])
+        # spec, d, warm: the kernel the spec goes to (ROUTES)
+        lib.bind("ipx_pcn_route", [spec, i, i])
         # spec, chain, Φ0 (n,), max_shrink, stream
         lib.bind("ipx_fused_ess", [spec, chain, p, i, p])
         # spec, chain, max_shrink, out (3,): the ESS kernel's geometry
         lib.bind("ipx_ess_warp_geometry", [spec, chain, i, p])
+        # spec, d: the kernel the spec goes to (ROUTES)
+        lib.bind("ipx_ess_route", [spec, i])
         # spec, U (K, B), aux0 (2n², B) or null (cold), B, Φ (B,), ∇Φ (K, B),
         # aux (2n², B) or null, stream
         lib.bind("ipx_darcy_misfit_grad", [spec, p, p, i, p, p, p, p])
@@ -298,12 +304,16 @@ def library():
         lib.bind("ipx_fused_mala", [spec, chain, p, p, p, f, p])
         # spec, chain, warm, out (3,): the MALA kernel's geometry
         lib.bind("ipx_mala_warp_geometry", [spec, chain, i, p])
+        # spec, d, warm: the kernel the spec goes to (ROUTES)
+        lib.bind("ipx_mala_route", [spec, i, i])
         # spec, chain (state in place), Φ (n,), pCN and stretch acceptance
         # counts (n,), record (n, d) or null, β, √(1−β²), a, M, step, parity,
         # stream
         lib.bind("ipx_fused_fes", [spec, chain, p, p, p, p, f, f, f, i, i, i, p])
         # spec, chain, M, out (3,): the ensemble kernel's geometry
         lib.bind("ipx_fes_warp_geometry", [spec, chain, i, p])
+        # spec, d: the kernel the spec goes to (ROUTES)
+        lib.bind("ipx_fes_route", [spec, i])
         # the Burgers instantiations: the same arguments on the other spec
         lib.bind("ipx_burgers_misfit", [bspec, p, i, p, p])
         # spec, B, out (3,): the geometry of the Burgers misfit a draw a warp
@@ -322,6 +332,8 @@ def library():
                  [bspec, bspec, bspec, chain, p, p, p, f, f, i, i, p, p])
         # fine, middle, coarse, chain, k_inner, k_mid, out (3,): its geometry
         lib.bind("ipx_da3_warp_geometry", [bspec, bspec, bspec, chain, i, i, p])
+        # fine, middle, coarse, d: the kernel the levels go to (ROUTES)
+        lib.bind("ipx_da3_route", [bspec, bspec, bspec, i])
         # the linear-Gaussian potential: spec, U (d, B), B, Φ (B,), stream
         lib.bind("ipx_linear_gaussian_misfit", [gspec, p, i, p, p])
         # spec, chain, step size, prior (0 / 1), stream

@@ -117,6 +117,14 @@ MISFIT_KERNELS = {EXACT: "darcy_misfit_cluster_kernel", EXACT32: "darcy_misfit_c
                   SURR: "darcy_misfit_surr_cluster_kernel"}
 
 
+def level_ok(*, n, K, precond, modes, solver, grid, most_k, most_modes):
+    """``cluster_level_ok`` in ``csrc/darcy_misfit.cuh``: a ``grid``² level,
+    K up to ``most_k``, dst_trunc with a positive multiple of 16 modes up to
+    the cells and ``most_modes``, solved by CG."""
+    return (n == grid and K <= most_k and precond == "dst_trunc" and modes > 0
+            and modes % 16 == 0 and modes <= min(n * n, most_modes) and solver == "cg")
+
+
 def misfit_cluster_level(*, n, K, precond, modes, solver):
     """The cluster level a misfit of these fields runs on, as
     ``misfit_cluster_level`` in ``csrc/darcy_misfit.cuh`` decides: EXACT, a
@@ -126,15 +134,12 @@ def misfit_cluster_level(*, n, K, precond, modes, solver):
     MAX_MODES32 modes); SURR, the 64×64 DA kernel's surrogate (a SURR_N grid,
     K up to MAX_K, up to MAX_SURR_MODES modes), tried after EXACT32, so that
     it takes MAX_K32 < K ≤ MAX_K; or None."""
-    def level_ok(grid, most_k, most_modes):
-        return (n == grid and K <= most_k and precond == "dst_trunc" and modes > 0
-                and modes % 16 == 0 and modes <= min(n * n, most_modes) and solver == "cg")
-
-    if level_ok(EXACT_N, MAX_K, MAX_MODES):
+    fields = dict(n=n, K=K, precond=precond, modes=modes, solver=solver)
+    if level_ok(**fields, grid=EXACT_N, most_k=MAX_K, most_modes=MAX_MODES):
         return EXACT
-    if level_ok(N32, MAX_K32, MAX_MODES32):
+    if level_ok(**fields, grid=N32, most_k=MAX_K32, most_modes=MAX_MODES32):
         return EXACT32
-    if level_ok(SURR_N, MAX_K, MAX_SURR_MODES):
+    if level_ok(**fields, grid=SURR_N, most_k=MAX_K, most_modes=MAX_SURR_MODES):
         return SURR
     return None
 

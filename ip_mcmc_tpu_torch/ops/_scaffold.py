@@ -205,3 +205,41 @@ def chain_args(positions, prior_mean, prior_scale, seed, n_steps,
 
 def kernel_name(stem: str, recorded: bool) -> str:
     return f"{stem}<{'true' if recorded else 'false'}>"
+
+
+# --- the samplers' takes-rules -------------------------------------------------
+
+# The kernel that a sampler's dispatch sends a spec to, by the code its C
+# rule returns (``kRoute*`` in ``csrc/fused_scaffold.cuh``; each wrapper's
+# ``route`` mirrors its ``ipx_*_route``): the Hopper design a chain a warp
+# or G chains a thread-block cluster, one chain a CTA for the rest of the
+# domain, and outside it none (the kernel refuses it: not supported).
+ROUTES = {0: None, 1: "warp", 2: "cluster", 3: "cta"}
+# The Darcy CTA layouts (``Layout16`` / ``Layout32`` / ``Layout64`` in
+# ``csrc/darcy_misfit.cuh``): the most cells each takes, its threads.
+LAYOUTS = ((256, 256), (1024, 1024), (4096, 512))
+
+
+def _layout(cells):
+    return next((i for i, (most, _) in enumerate(LAYOUTS) if cells <= most), len(LAYOUTS) - 1)
+
+
+def layout_threads(cells):
+    """The threads of the layout that ``with_darcy_layout`` picks for a grid
+    of ``cells`` cells (``darcy_layout_threads``)."""
+    return LAYOUTS[_layout(cells)][1]
+
+
+def layout_side(cells):
+    """The grid side of that layout's class: 16, 32 or 64."""
+    return 16 << _layout(cells)
+
+
+def cta_spec(*, n, K, precond, modes, solver, d, max_cells, max_d, want="cg"):
+    """Whether a one-chain-a-CTA sampler takes a Darcy misfit of these
+    fields for chains of d coordinates, as ``darcy_cta_spec`` in
+    ``csrc/darcy_misfit.cuh`` decides: an n×n grid of up to ``max_cells``
+    cells, K = d up to ``max_d``, a preconditioner the solve knows (Jacobi or
+    dense dst with no modes, dst_trunc with some), solved by ``want``."""
+    ok = modes > 0 if precond == "dst_trunc" else precond in ("jacobi", "dst") and modes == 0
+    return 0 < n * n <= max_cells and K == d and 0 < d <= max_d and ok and solver == want

@@ -12,11 +12,14 @@ so the level above may take its endpoint as a proposal. The main
 acceptance output is the fine correction's; the third output of the plain
 entry point is the middle correction's rate.
 
-For CUDA tensors the entry points launch ``fused_da3_pcn_warp_kernel<RECORD>``
-(``csrc/fused_da3_pcn.cu``), the whole ``n_steps`` loop in one launch, one
-chain a warp, ``warp_geometry``'s chains a CTA, on three ``BurgersMisfit``
-potentials of 64 or 128 cells with d = K = 16 (the kernel refuses others
-and the wrapper raises). For CPU tensors they run
+For CUDA tensors the entry points launch a kernel of
+``csrc/fused_da3_pcn.cu``, the whole ``n_steps`` loop in one launch, as
+``route`` says (``da3_route`` there decides): ``fused_da3_pcn_warp_kernel<RECORD>``,
+one chain a warp, ``warp_geometry``'s chains a CTA, on three
+``BurgersMisfit`` potentials of 64 or 128 cells with d = K = 16
+(``warp_takes``), and ``fused_da3_pcn_kernel<RECORD>``, one chain a CTA, on
+any other three levels of up to 128 cells with K = d up to 128; the
+kernels refuse others and the wrapper raises. For CPU tensors they run
 the step builder below on the plain scaffold ``_scaffold.run_plain``,
 which takes any three features-first callables (d, B) → (B,). Tags: inner
 step (j2, j1) draws with t = 4(j2·k_inner + j1) (normals t, t+1; uniform
@@ -125,6 +128,28 @@ WARP_D = _burgers_warp.WARP_D
 LEVEL_FLOATS, MAX_SMEM_BYTES = _burgers_warp.LEVEL_FLOATS, _burgers_warp.MAX_SMEM_BYTES
 WARP_SLICE_BYTES = _burgers_warp.slice_bytes(4)
 KERNEL = "fused_da3_pcn_warp_kernel"  # the launch count's stem
+CTA_KERNEL = "fused_da3_pcn_kernel"  # the one-chain-a-CTA kernel's
+CTA_CELLS = 128  # the most cells a level, and the most coordinates (BurgersPotential's CTA)
+
+
+def warp_takes(levels, d):
+    """Whether the warp kernel takes the levels (fine, middle, coarse: each
+    ``(cells, K)``) for chains of d coordinates, as ``da3_warp_takes`` in
+    ``csrc/fused_da3_pcn.cu`` decides: each a level of the warp solve
+    (``_burgers_warp.takes``)."""
+    return all(_burgers_warp.takes(cells, K, d) for cells, K in levels)
+
+
+def route(levels, d):
+    """The kernel ``ipx_fused_da3_pcn_burgers`` sends the levels (each
+    ``(cells, K)``) to, as ``da3_route`` decides: "warp" for what
+    ``warp_takes``, "cta" for any other levels of up to CTA_CELLS cells with
+    K = d up to CTA_CELLS, None (refused) else."""
+    if warp_takes(levels, d):
+        return "warp"
+    if all(0 < cells <= CTA_CELLS and K == d for cells, K in levels) and 0 < d <= CTA_CELLS:
+        return "cta"
+    return None
 
 
 def warp_geometry(n_chains, block_chains, *, cells=(128, 128, 64), d=WARP_D,
@@ -161,7 +186,8 @@ def _launch(pot_fine, pot_mid, pot_coarse, positions, prior_mean, prior_scale,
         int(k_inner), int(k_mid), mid_rate.data_ptr(),
         torch.cuda.current_stream(U.device).cuda_stream,
     )
-    name = _scaffold.kernel_name(KERNEL, thin is not None)
+    kernel = route([(pot.n, pot.K) for pot in pots.values()], U.shape[0])
+    name = _scaffold.kernel_name(CTA_KERNEL if kernel == "cta" else KERNEL, thin is not None)
     _build.check(status, name)
     _build.launch_counts[name] += 1
     _, _, _, out, acc, samples = keep

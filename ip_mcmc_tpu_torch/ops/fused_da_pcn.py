@@ -23,7 +23,12 @@ the tensor cores; for a pair of ``BurgersMisfit`` potentials that
 config's), ``fused_da_pcn_burgers_warp_kernel<RECORD>``, one warp per chain
 and ``burgers_warp_geometry``'s chains a CTA, and for any other Burgers
 pair ``fused_da_pcn_kernel<Pot, RECORD>``, one CTA per chain
-(``_burgers_stem`` names the kernel the pair gets). The kernels refuse any
+(``_burgers_stem`` names the kernel the pair gets). A Darcy pair that the
+warp and cluster kernels leave runs on ``fused_da_pcn_kernel<Pot, RECORD,
+Surr>``, one chain per CTA: both levels up to 16×16 (the surrogate no finer
+than the exact grid, by CG or Richardson), or an exact grid of 33×33 to
+64×64 with a CG surrogate of 17×17 to 32×32. ``route`` mirrors
+``da_route``, the rule of ``ipx_fused_da_pcn``; the kernels refuse any
 other Darcy pair and the wrapper raises. For CPU tensors they run
 ``_run_plain`` / ``_run_plain_recorded``: the step builder below on the
 plain scaffold ``_scaffold.run_plain``, which takes any features-first
@@ -49,7 +54,7 @@ import math
 
 import torch
 
-from ip_mcmc_tpu_torch.ops import _build, _burgers_warp, _scaffold
+from ip_mcmc_tpu_torch.ops import _build, _burgers_warp, _cluster, _scaffold
 
 
 # --- the plain version ------------------------------------------------------
@@ -158,6 +163,53 @@ def _staged_bytes(n, modes, K=WARP_D):
     eigenvalues, the bf16 modes with rows padded by 8 (a multiple of 16)."""
     b = 4 * (K * n * n + modes) + 2 * modes * (n * n + 8)
     return -(-b // 16) * 16
+
+
+def _warp_level(n, K, precond, modes, solver, *, grid, want):
+    """``da_warp_level_ok``: a level of the warp kernel, d = K = WARP_D."""
+    ok = (precond == "dst_trunc" and 0 < modes <= n * n and modes % 16 == 0
+          or precond == "jacobi" and modes == 0)
+    return n == grid and K == WARP_D and ok and solver == want
+
+
+def warp_takes(exact, surr, d):
+    """Whether the 16×16 warp kernel takes the pair (each a dict of the
+    misfit's ``spec_fields``) for chains of d coordinates, as
+    ``da_warp_takes`` in ``csrc/fused_da_pcn.cu`` decides: a WARP_EXACT_N²
+    CG exact level and a WARP_SURR_N² surrogate (CG or Richardson), Jacobi
+    or dst_trunc of a multiple of 16 modes, d = K = WARP_D."""
+    return (d == WARP_D and _warp_level(**exact, grid=WARP_EXACT_N, want="cg")
+            and _warp_level(**surr, grid=WARP_SURR_N,
+                            want="richardson" if surr["solver"] == "richardson" else "cg"))
+
+
+def route(exact, surr, d):
+    """The kernel ``ipx_fused_da_pcn`` sends a Darcy pair (each a dict of
+    the misfit's ``spec_fields``) to, as ``da_route`` decides: "warp" for
+    what ``warp_takes``; "cluster" for a 64×64 dst_trunc CG exact level
+    with a 32×32 one (``_cluster``'s exact and surrogate levels); "cta" for
+    both levels up to 16×16 (the surrogate no finer, by CG or Richardson;
+    d up to 256) and for an exact grid of 33×33 to 64×64 with a CG
+    surrogate of 17×17 to 32×32 (d up to 1024), K = d at both; None
+    (refused) for every other pair."""
+    if warp_takes(exact, surr, d):
+        return "warp"
+    if (exact["K"] == surr["K"] == d
+            and _cluster.level_ok(**exact, grid=_cluster.EXACT_N, most_k=_cluster.MAX_K,
+                                  most_modes=_cluster.MAX_MODES)
+            and _cluster.level_ok(**surr, grid=_cluster.SURR_N, most_k=_cluster.MAX_K,
+                                  most_modes=_cluster.MAX_SURR_MODES)):
+        return "cluster"
+    e, s = exact["n"] ** 2, surr["n"] ** 2
+    if surr["n"] <= exact["n"] and e <= 256:
+        if (_scaffold.cta_spec(**exact, d=d, max_cells=256, max_d=256)
+                and _scaffold.cta_spec(**surr, d=d, max_cells=256, max_d=256,
+                                       want=surr["solver"])):
+            return "cta"
+    elif (e > 1024 and s > 256 and _scaffold.cta_spec(**exact, d=d, max_cells=4096, max_d=1024)
+          and _scaffold.cta_spec(**surr, d=d, max_cells=1024, max_d=1024)):
+        return "cta"
+    return None
 
 
 def warp_geometry(n_chains, block_chains, *, exact_n=WARP_EXACT_N,
@@ -330,14 +382,23 @@ def _burgers_stem(pot_exact, pot_surr, d=_burgers_warp.WARP_D):
     return "fused_da_pcn_burgers_kernel"
 
 
-def _darcy_stem(pot_exact, pot_surr):
-    """The launch count's name of the Darcy kernel: the 16×16 one by its
-    surrogate's solver, the 64×64 one (thread-block clusters) alone."""
-    if max(pot_exact.n, pot_surr.n) > 16:
+def _darcy_stem(pot_exact, pot_surr, d=None):
+    """The launch count's name of the Darcy kernel that ``ipx_fused_da_pcn``
+    picks for the pair and d (``route``; d None: the exact misfit's K): the
+    16×16 warp kernel by its
+    surrogate's solver, the 64×64 one (thread-block clusters), or one chain
+    a CTA by its layout (``[layout16]``, with the surrogate's solver if not
+    CG, or ``[layout64]``). A refused pair keeps the name of the kernel of
+    its exact grid's class."""
+    kernel = route(pot_exact.spec_fields, pot_surr.spec_fields,
+                   pot_exact.K if d is None else d)
+    tag = "" if pot_surr.solver == "cg" else f"surrogate={pot_surr.solver}"
+    if kernel == "warp":
+        return f"fused_da_pcn_warp_kernel[{tag}]" if tag else "fused_da_pcn_warp_kernel"
+    if kernel == "cluster":
         return "fused_da_pcn_cluster_kernel"
-    if pot_surr.solver != "cg":
-        return f"fused_da_pcn_warp_kernel[surrogate={pot_surr.solver}]"
-    return "fused_da_pcn_warp_kernel"
+    side = 16 if pot_exact.n <= 16 else 64
+    return f"fused_da_pcn_kernel[layout{side}{',' + tag if tag else ''}]"
 
 
 def _launch(pot_exact, pot_surr, positions, prior_mean, prior_scale, beta,
@@ -358,11 +419,7 @@ def _launch(pot_exact, pot_surr, positions, prior_mean, prior_scale, beta,
     es, ss = pot_exact.spec(), pot_surr.spec()
     lib = _build.library()
     if family == "darcy":
-        if max(pot_exact.n, pot_surr.n) <= 16:  # refused here with the reason
-            warp_geometry(U.shape[1], block_chains, exact_n=pot_exact.n,
-                          exact_modes=pot_exact.modes, surr_n=pot_surr.n,
-                          surr_modes=pot_surr.modes, d=U.shape[0])
-        fn, stem = lib.ipx_fused_da_pcn, _darcy_stem(pot_exact, pot_surr)
+        fn, stem = lib.ipx_fused_da_pcn, _darcy_stem(pot_exact, pot_surr, U.shape[0])
     else:
         fn = lib.ipx_fused_da_pcn_burgers
         stem = _burgers_stem(pot_exact, pot_surr, U.shape[0])

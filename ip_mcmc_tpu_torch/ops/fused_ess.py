@@ -10,12 +10,15 @@ angle θ on a bracket of width 2π, then proposes (pos − m)·cos θ + ν·sin 
 always in the slice); the returned "acceptance" is the share of steps that
 found a point within the budget. A NaN Φ(prop) never accepts.
 
-For CUDA tensors the entry points launch ``fused_ess_warp_kernel<RECORD>``
-(``csrc/fused_ess.cu``) on a 16×16 Jacobi ``DarcyMisfit`` with d = 64 (the
-kernel refuses any other and the wrapper raises): one chain a warp,
-``warp_geometry``'s chains a CTA. There a chain that is done leaves the
-shrink loop, where the plain version (and the JAX kernel) evaluate every
-chain ``max_shrink`` times behind done masks: the masked evaluations change
+For CUDA tensors the entry points launch a kernel of ``csrc/fused_ess.cu``,
+as ``route`` says (``ess_route`` there decides):
+``fused_ess_warp_kernel<RECORD>`` on what ``warp_takes``, a 16×16 Jacobi
+``DarcyMisfit`` with d = 64 (one chain a warp, ``warp_geometry``'s chains
+a CTA), and ``fused_ess_kernel<RECORD>`` on any other CG ``DarcyMisfit`` up
+to 16×16 with K = d (one chain a CTA); the kernels refuse a larger grid and
+the wrapper raises. There a chain that is done leaves the shrink loop,
+where the plain version (and the JAX kernel) evaluate every chain
+``max_shrink`` times behind done masks: the masked evaluations change
 nothing. For CPU tensors they run the step builder below on
 ``_scaffold.run_plain``. Tags: ν 0 (keys 0, 1), log y uniform 2, θ uniform
 4, shrink draw k 16 + k.
@@ -98,6 +101,28 @@ BASIS_BYTES = 4 * WARP_D * PADDED_CELLS
 WARP_SLICE_BYTES = 4 * (2 * WARP_D + 3 * PADDED_CELLS)
 MAX_SMEM_BYTES = 232_448  # what a CTA of the H100 may use
 KERNEL = "fused_ess_warp_kernel"  # the launch count's stem
+CTA_KERNEL = "fused_ess_kernel"  # the one-chain-a-CTA kernel's
+CTA_N = 16  # the largest grid side the one-chain-a-CTA kernel takes (Layout16)
+
+
+def warp_takes(*, n, d, K, precond, modes, solver):
+    """Whether the warp kernel takes a misfit of these fields for chains of
+    d coordinates, as ``ess_warp_takes`` in ``csrc/fused_ess.cu`` decides: a
+    WARP_N² Jacobi CG misfit with d = K = WARP_D."""
+    return (n, d, K, precond, modes, solver) == (WARP_N, WARP_D, WARP_D, "jacobi", 0, "cg")
+
+
+def route(*, n, d, K, precond, modes, solver):
+    """The kernel ``ipx_fused_ess`` sends a misfit of these fields to, as
+    ``ess_route`` decides: "warp" for what ``warp_takes``, "cta" for any
+    other CG misfit up to CTA_N² with K = d (up to its 256 threads), None
+    (refused) above."""
+    if warp_takes(n=n, d=d, K=K, precond=precond, modes=modes, solver=solver):
+        return "warp"
+    if _scaffold.cta_spec(n=n, K=K, precond=precond, modes=modes, solver=solver, d=d,
+                          max_cells=CTA_N * CTA_N, max_d=CTA_N * CTA_N):
+        return "cta"
+    return None
 
 
 def warp_geometry(n_chains, block_chains, *, n=WARP_N, d=WARP_D, precond="jacobi",
@@ -108,8 +133,9 @@ def warp_geometry(n_chains, block_chains, *, n=WARP_N, d=WARP_D, precond="jacobi
     ``block_chains``; a ragged last CTA runs spare warps. The bytes: the
     staged basis and a slice a warp (BASIS_BYTES, WARP_SLICE_BYTES).
     Raises ``ValueError`` for a grid, d or preconditioner the kernel does
-    not take and for shared memory the card cannot give a CTA."""
-    if (n, d, precond, modes) != (WARP_N, WARP_D, "jacobi", 0):
+    not take (``warp_takes``: the card runs it on another kernel or refuses
+    it) and for shared memory the card cannot give a CTA."""
+    if not warp_takes(n=n, d=d, K=d, precond=precond, modes=modes, solver="cg"):
         raise ValueError(
             f"the ESS kernel takes a {WARP_N}x{WARP_N} grid, d = {WARP_D} and the Jacobi "
             f"preconditioner; got {n}x{n}, d = {d}, {precond} with {modes} modes")
@@ -138,7 +164,8 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, seed, n_steps,
         ctypes.byref(spec), ctypes.byref(args), phi0.data_ptr(),
         int(max_shrink), torch.cuda.current_stream(U.device).cuda_stream,
     )
-    name = _scaffold.kernel_name(KERNEL, thin is not None)
+    kernel = route(**potential_fn.spec_fields, d=U.shape[0])
+    name = _scaffold.kernel_name(CTA_KERNEL if kernel == "cta" else KERNEL, thin is not None)
     _build.check(status, name)
     _build.launch_counts[name] += 1
     _, _, _, out, acc, samples = keep

@@ -13,10 +13,13 @@ accepted with log ratio (M − 1)·log z − (Φ' − Φ) − ½Σ_{rows<M}(w'²
 then pCN on the other rows. Returns the pCN move's acceptance and, third,
 the stretch move's (both sub-steps count, the steps divide).
 
-For CUDA tensors the entry points launch ``fused_fes_warp_kernel<RECORD>``
-(``csrc/fused_fes.cu``) on a 16×16 Jacobi ``DarcyMisfit`` with d = 64 (the
-kernel refuses any other and the wrapper raises): one chain a warp,
-``warp_geometry``'s chains a CTA. A chain reads other chains of its block
+For CUDA tensors the entry points launch a kernel of ``csrc/fused_fes.cu``,
+as ``route`` says (``fes_route`` there decides): ``fused_fes_warp_kernel<RECORD>``
+on what ``warp_takes``, a 16×16 Jacobi ``DarcyMisfit`` with d = 64 (one
+chain a warp, ``warp_geometry``'s chains a CTA), and
+``fused_fes_kernel<RECORD>`` on any other CG ``DarcyMisfit`` up to 16×16
+with K = d (one chain a CTA); the kernels refuse a larger grid and the
+wrapper raises. A chain reads other chains of its block
 there, so the state lives in device memory and the step loop is here: two
 launches per step, each running the chains of one parity, stream order
 being the barrier between the sub-steps. A chain is evaluated only in its own parity's sub-step (the
@@ -137,6 +140,21 @@ BASIS_BYTES = fused_ess.BASIS_BYTES
 WARP_SLICE_BYTES = fused_ess.WARP_SLICE_BYTES - 4 * WARP_D
 MAX_SMEM_BYTES = fused_ess.MAX_SMEM_BYTES
 KERNEL = "fused_fes_warp_kernel"  # the launch count's stem
+CTA_KERNEL = "fused_fes_kernel"  # the one-chain-a-CTA kernel's
+
+
+def warp_takes(*, n, d, K, precond, modes, solver):
+    """Whether the warp kernel takes a misfit of these fields for chains of
+    d coordinates, as ``fes_warp_takes`` in ``csrc/fused_fes.cu`` decides:
+    elliptical slice sampling's (``fused_ess.warp_takes``)."""
+    return fused_ess.warp_takes(n=n, d=d, K=K, precond=precond, modes=modes, solver=solver)
+
+
+def route(*, n, d, K, precond, modes, solver):
+    """The kernel ``ipx_fused_fes`` sends a misfit of these fields to, as
+    ``fes_route`` decides: elliptical slice sampling's rule
+    (``fused_ess.route``): "warp", "cta" or None."""
+    return fused_ess.route(n=n, d=d, K=K, precond=precond, modes=modes, solver=solver)
 
 
 def warp_geometry(n_chains, block_chains, *, n=WARP_N, d=WARP_D,
@@ -147,8 +165,9 @@ def warp_geometry(n_chains, block_chains, *, n=WARP_N, d=WARP_D,
     CTA: the largest power of two up to WARP_CHAINS that divides
     ``block_chains``; a ragged last CTA runs spare warps. Raises
     ``ValueError`` for a grid, d or preconditioner the kernel does not
-    take, for an odd ``block_chains`` or a ragged last ensemble."""
-    if (n, d, precond, modes) != (WARP_N, WARP_D, "jacobi", 0):
+    take (``warp_takes``), for an odd ``block_chains`` or a ragged last
+    ensemble."""
+    if not warp_takes(n=n, d=d, K=d, precond=precond, modes=modes, solver="cg"):
         raise ValueError(
             f"the ensemble kernel takes a {WARP_N}x{WARP_N} grid, d = {WARP_D} and the "
             f"Jacobi preconditioner; got {n}x{n}, d = {d}, {precond} with {modes} modes")
@@ -186,11 +205,12 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, n_low_modes,
     spec = potential_fn.spec()
     fes = _build.library().ipx_fused_fes
     stream = torch.cuda.current_stream(state.device).cuda_stream
+    stem = CTA_KERNEL if route(**potential_fn.spec_fields, d=d) == "cta" else KERNEL
     for i in range(n_steps):
         record = None
         if thin is not None and (i + 1) % thin == 0:
             record = samples[(i + 1) // thin - 1].data_ptr()
-        name = _scaffold.kernel_name(KERNEL, record is not None)
+        name = _scaffold.kernel_name(stem, record is not None)
         for sub in (0, 1):  # stream order is the barrier between them
             status = fes(
                 ctypes.byref(spec), ctypes.byref(args), phi.data_ptr(),

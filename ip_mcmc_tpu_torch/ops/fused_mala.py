@@ -21,12 +21,16 @@ folded in by the step builder, as in JAX. ``init`` solves from zeros in
 every launch: the carried aux is not an output, and the chain is weakly
 non-Markov through it, by design.
 
-For CUDA tensors the entry points launch ``fused_mala_warp_kernel<RECORD,
-PRECOND>`` (``csrc/fused_mala.cu``), the whole ``n_steps`` loop in one
-launch, one chain a warp, ``warp_geometry``'s chains a CTA: the cold form on
-a 16×16 Jacobi CG ``DarcyMisfit``, the warm one on a 16×16 dense-``dst`` CG
-``DarcyMisfitMalaWarm``, both with d = K = 64 (anything else raises
-``ValueError``). For CPU tensors they run the step builders below on the
+For CUDA tensors the entry points launch a kernel of ``csrc/fused_mala.cu``,
+the whole ``n_steps`` loop in one launch, as ``route`` says (``mala_route``
+there decides): ``fused_mala_warp_kernel<RECORD, PRECOND>`` on what
+``warp_takes``, one chain a warp, ``warp_geometry``'s chains a CTA: the
+cold form on a 16×16 Jacobi CG ``DarcyMisfit``, the warm one on a 16×16
+dense-``dst`` CG ``DarcyMisfitMalaWarm``, both with d = K = 64; and
+``fused_mala_kernel<RECORD>`` / ``fused_mala_warm_kernel<RECORD>``, one
+chain a CTA, on any other CG misfit up to 16×16 with K = d, any
+preconditioner. A larger grid raises ``ValueError`` before any launch.
+For CPU tensors they run the step builders below on the
 plain scaffold ``_scaffold.run_plain``, which take every misfit; the cold
 one takes any differentiable features-first callable (a ``DarcyMisfit``
 differentiates by its adjoint). Tags: normals 0 (keys 0, 1), MH uniform 2.
@@ -186,9 +190,37 @@ def warp_slice_bytes(warm):
     return 4 * (2 * WARP_D + (8 if warm else 5) * SLICE_FLOATS)
 
 
+# the one-chain-a-CTA kernels' stems, cold and warm, and the largest grid
+# side they take (Layout16)
+CTA_KERNELS = {False: "fused_mala_kernel", True: "fused_mala_warm_kernel"}
+CTA_N = 16
+
+
 def stem(warm):
     """The launch count's stem of the cold (Jacobi) or warm (dst) kernel."""
     return f"{KERNEL}[{'dst' if warm else 'jacobi'}]"
+
+
+def warp_takes(warm, *, n, d, K, precond, modes, solver):
+    """Whether the warp kernel takes a misfit of these fields for chains of
+    d coordinates, as ``mala_warp_takes`` in ``csrc/fused_mala.cu`` decides:
+    a WARP_N² CG misfit with d = K = WARP_D, Jacobi (cold) or dense dst
+    (warm), no modes."""
+    want = "dst" if warm else "jacobi"
+    return (n, d, K, precond, modes, solver) == (WARP_N, WARP_D, WARP_D, want, 0, "cg")
+
+
+def route(warm, *, n, d, K, precond, modes, solver):
+    """The kernel ``ipx_fused_mala`` sends a misfit of these fields to, as
+    ``mala_route`` decides: "warp" for what ``warp_takes``, "cta" for any
+    other CG misfit up to CTA_N² with K = d (up to its 256 threads), None
+    (refused) above."""
+    if warp_takes(warm, n=n, d=d, K=K, precond=precond, modes=modes, solver=solver):
+        return "warp"
+    if _scaffold.cta_spec(n=n, K=K, precond=precond, modes=modes, solver=solver, d=d,
+                          max_cells=CTA_N * CTA_N, max_d=CTA_N * CTA_N):
+        return "cta"
+    return None
 
 
 def warp_geometry(n_chains, block_chains, *, warm=False, n=WARP_N, d=WARP_D,
@@ -199,11 +231,12 @@ def warp_geometry(n_chains, block_chains, *, warm=False, n=WARP_N, d=WARP_D,
     ``block_chains``; a ragged last CTA runs spare warps. The bytes: the
     staged basis (warm: and S, Sᵀ, λ) and a slice a warp. Raises
     ``ValueError`` for a grid, d, preconditioner or solver the kernel does
-    not take (cold: Jacobi, warm: dense ``dst``; ``precond`` None is the one
-    it takes) and for shared memory the card cannot give a CTA."""
+    not take (``warp_takes``; cold: Jacobi, warm: dense ``dst``; ``precond``
+    None is the one it takes) and for shared memory the card cannot give a
+    CTA."""
     want = "dst" if warm else "jacobi"
     precond = want if precond is None else precond
-    if (n, d, precond, modes, solver) != (WARP_N, WARP_D, want, 0, "cg"):
+    if not warp_takes(warm, n=n, d=d, K=d, precond=precond, modes=modes, solver=solver):
         raise ValueError(
             f"the {'warm' if warm else 'cold'} MALA kernel takes a {WARP_N}x{WARP_N} "
             f"CG grid, d = {WARP_D} and the {want} preconditioner; got {n}x{n}, "
@@ -309,9 +342,13 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, step_size, seed,
             f"aux_dim {aux_dim} is not the misfit's {potential_fn.aux_dim}"
         )
     n, d = positions.shape
-    warp_geometry(n, block_chains, warm=warm, n=potential_fn.n, d=d,
-                  precond=potential_fn.precond, modes=potential_fn.modes,
-                  solver=potential_fn.solver)
+    kernel = route(warm, **potential_fn.spec_fields, d=d)
+    if kernel is None:  # refused here, before any launch, with the reason
+        f = potential_fn.spec_fields
+        raise ValueError(
+            f"the {'warm' if warm else 'cold'} MALA kernels take a CG grid of up to "
+            f"{CTA_N}x{CTA_N} with K = d; got {f['n']}x{f['n']}, K = {f['K']}, d = {d}, "
+            f"{f['solver']}")
     args, keep = _scaffold.chain_args(positions, prior_mean, prior_scale,
                                       seed, n_steps, block_chains, thin)
     U = keep[0].T.contiguous()
@@ -331,7 +368,8 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, step_size, seed,
         float(torch.as_tensor(step_size, dtype=torch.float32)),
         torch.cuda.current_stream(U.device).cuda_stream,
     )
-    name = _scaffold.kernel_name(stem(warm), thin is not None)
+    name = _scaffold.kernel_name(CTA_KERNELS[warm] if kernel == "cta" else stem(warm),
+                                 thin is not None)
     _build.check(status, name)
     _build.launch_counts[name] += 1
     _, _, _, out, acc, samples = keep

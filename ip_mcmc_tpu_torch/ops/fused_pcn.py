@@ -24,13 +24,18 @@ the whole ``n_steps`` loop in one launch, picked by the spec
   ``_burgers_warp.takes`` (64 or 128 cells, d = K = 16: the shipped
   configs'), one chain a warp, ``burgers_warp_geometry``'s chains a CTA
   (``ipx_fused_pcn_burgers`` picks it; ``_burgers_stem`` names it);
-- else ``fused_pcn_kernel<Pot, RECORD>``, the cold kernel on a
-  ``DarcyMisfit`` or a ``BurgersMisfit`` (picked by the potential's
-  family), and ``fused_pcn_warm_kernel<RECORD>`` on a ``DarcyMisfitWarm``
-  up to 16×16, one chain a CTA; on a 64×64 grid the warm one is
-  ``fused_pcn_warm_cluster_kernel<RECORD>`` and on a 32×32 grid
-  ``fused_pcn_warm_cluster32_kernel<RECORD>``, whose thread-block clusters
-  of ``_cluster.cluster_geometry``'s chains share each read of the factors.
+- for a warm ``DarcyMisfitWarm`` that ``cluster_takes`` (a 64×64 or a
+  32×32 dst_trunc CG misfit), ``fused_pcn_warm_cluster_kernel<RECORD>``
+  (64×64) or ``fused_pcn_warm_cluster32_kernel<RECORD>`` (32×32), whose
+  thread-block clusters of ``_cluster.cluster_geometry``'s chains share
+  each read of the factors;
+- else, one chain a CTA in the layout of the grid, ``fused_pcn_kernel<Pot,
+  RECORD>``, the cold kernel on a ``DarcyMisfit`` or a ``BurgersMisfit``
+  (picked by the potential's family), and ``fused_pcn_warm_kernel<Pot,
+  RECORD>`` on any other CG ``DarcyMisfitWarm`` up to 64×64 with K = d; a
+  warm grid above 64×64 is refused and the wrapper raises.
+
+``route`` mirrors ``pcn_route``, the rule of ``ipx_fused_pcn``.
 
 ``misfit_warm_warp_takes`` and ``misfit_warm_warp_geometry`` mirror the rule
 and the launch geometry of ``darcy_misfit_warm_warp_kernel``, which
@@ -51,7 +56,7 @@ import ctypes
 
 import torch
 
-from ip_mcmc_tpu_torch.ops import _build, _burgers_warp, _scaffold
+from ip_mcmc_tpu_torch.ops import _build, _burgers_warp, _cluster, _scaffold
 
 # --- the plain version ------------------------------------------------------
 
@@ -166,6 +171,42 @@ def warp_takes(warm, *, n, d, precond, modes, solver="cg"):
     if warm:
         return precond == "dst_trunc" and 0 < modes <= MAX_WARP_MODES and modes % MODE_TILE == 0
     return precond == "jacobi" and modes == 0
+
+
+def cluster_takes(*, n, d, K, precond, modes, solver):
+    """Whether a cluster kernel takes a warm misfit of these fields for
+    chains of d coordinates, as ``pcn_cluster_takes`` in ``csrc/fused_pcn.cu``
+    decides (``_cluster.cluster_geometry`` with no surrogate): the 64×64
+    samplers' exact level or the 32×32 warm pCN's, K = d."""
+    fields = dict(n=n, K=K, precond=precond, modes=modes, solver=solver)
+    if n == _cluster.N32:
+        ok = _cluster.level_ok(**fields, grid=_cluster.N32, most_k=_cluster.MAX_K32,
+                               most_modes=_cluster.MAX_MODES32)
+    else:
+        ok = _cluster.level_ok(**fields, grid=_cluster.EXACT_N, most_k=_cluster.MAX_K,
+                               most_modes=_cluster.MAX_MODES)
+    return K == d and ok
+
+
+def route(warm, *, n, d, K, precond, modes, solver):
+    """The kernel ``ipx_fused_pcn`` sends a Darcy misfit of these fields to,
+    as ``pcn_route`` decides: "warp" for what ``warp_takes``; cold, "cta"
+    for every other (the kernel of the grid's layout, which refuses a grid
+    above 64×64); warm, "cluster" for what ``cluster_takes``, "cta" for any
+    other CG misfit up to 64×64 with K = d (up to its layout's threads),
+    None (refused) above."""
+    if warp_takes(warm, n=n, d=d, precond=precond, modes=modes, solver=solver) and K == d:
+        return "warp"
+    if not warm:
+        return "cta"
+    if cluster_takes(n=n, d=d, K=K, precond=precond, modes=modes, solver=solver):
+        return "cluster"
+    cells = n * n
+    if _scaffold.cta_spec(n=n, K=K, precond=precond, modes=modes, solver=solver, d=d,
+                          max_cells=_scaffold.LAYOUTS[-1][0],
+                          max_d=_scaffold.layout_threads(cells)):
+        return "cta"
+    return None
 
 
 def warp_geometry(n_chains, block_chains, *, warm=False, n=WARP_N, d=WARP_D,
@@ -289,20 +330,23 @@ def misfit_warm_dst_warp_geometry(B, *, n=WARP_N, K=WARP_D, precond="dst", modes
             BASIS_BYTES + DST_BYTES + MISFIT_WARM_DST_WARP_DRAWS * _MISFIT_WARM_DST_WARP_BYTES)
 
 
-def _darcy_stem(pot, warm, d=WARP_D):
+def _darcy_stem(pot, warm, d=None):
     """The launch count's name of the Darcy kernel that ``ipx_fused_pcn``
-    picks for the misfit ``pot`` and d: the warp kernel for what
-    ``warp_takes``; else one chain a CTA, the warm one above 16×16 in
-    thread-block clusters (``_cluster``), on the 64×64 class and on the
-    32×32 class (which takes 32×32 only)."""
-    if warp_takes(warm, n=pot.n, d=d, precond=pot.precond, modes=pot.modes,
-                  solver=pot.solver):
+    picks for the misfit ``pot`` and d (``route``; d None: the misfit's K):
+    the warp kernel; the
+    cluster kernel of the grid (64×64 or 32×32); one chain a CTA, the warm
+    one named by its layout above 16×16 (``[layout32]``, ``[layout64]``).
+    A refused spec keeps the name of the CTA kernel it would have run on."""
+    kernel = route(warm, **pot.spec_fields, d=pot.K if d is None else d)
+    if kernel == "warp":
         return stem(warm)
+    if kernel == "cluster":
+        return ("fused_pcn_warm_cluster32_kernel" if pot.n == _cluster.N32
+                else "fused_pcn_warm_cluster_kernel")
     if not warm:
         return "fused_pcn_kernel"
-    if pot.n > 32:
-        return "fused_pcn_warm_cluster_kernel"
-    return "fused_pcn_warm_cluster32_kernel" if pot.n > 16 else "fused_pcn_warm_kernel"
+    side = _scaffold.layout_side(pot.n * pot.n)
+    return "fused_pcn_warm_kernel" if side == 16 else f"fused_pcn_warm_kernel[layout{side}]"
 
 
 # ``PcnBurgersWarpDesign`` in ``csrc/fused_pcn.cu``: chains (warps) a CTA

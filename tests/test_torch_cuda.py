@@ -1084,31 +1084,65 @@ def test_da_kernel_at_64_with_32_surrogate_matches_plain(darcy64_da, record):
     _chains_agree(got, ref, 2)
 
 
-def test_da_kernel_refuses_other_grid_pairs(darcy64_da):
-    """Two kernels take 16² with 8² and 64² with a 32² CG surrogate; any
-    other pair of grids (or a Richardson surrogate at 32²) is refused by
-    the kernel (cudaErrorNotSupported) and the wrapper raises. The cluster
-    kernel takes a 64² exact grid only, so an exact grid of the 64² class
-    that is not 64² (40²) is refused as not supported too."""
+def _da_misfit(y, n, **kw):
+    """A dst_trunc-64 / 3 CG misfit on an n² grid with 144 KL modes."""
     from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
     from ip_mcmc_tpu_torch.models import darcy
+
+    aux = darcy.darcy_aux(n_grid=n, n_modes_per_dim=12, alpha=2.0, field_scale=10.0)
+    return darcy_misfit_from_arrays(aux, y, 0.002, cg_iters=3, precond="dst_trunc",
+                                    precond_modes=64, **kw).cuda()
+
+
+def test_da_kernel_refuses_other_grid_pairs(darcy64_da):
+    """The DA kernels take both levels up to 16² and a 33²–64² exact grid
+    with a 17²–32² CG surrogate; any other pair of grids (a 64² exact grid
+    with a 16² surrogate, a 16² exact grid with a finer 32² surrogate, a 32²
+    exact grid) or a Richardson surrogate at 32² is refused by the kernel
+    (cudaErrorNotSupported), the rule says none in C and in Python, and the
+    wrapper raises."""
+    import ctypes
 
     p = darcy64_da
     exact, surr = p.batched_potential_fn, p.batched_surrogate_fn
     y = surr.data.cpu().numpy()
-
-    def misfit(n, **kw):
-        aux = darcy.darcy_aux(n_grid=n, n_modes_per_dim=12, alpha=2.0, field_scale=10.0)
-        return darcy_misfit_from_arrays(aux, y, 0.002, cg_iters=3, precond="dst_trunc",
-                                        precond_modes=64, **kw).cuda()
-
     pos = p.init_positions(torch.Generator().manual_seed(12), 128).cuda()
-    pairs = [(exact, misfit(16)), (misfit(16), surr), (misfit(32), surr),
-             (exact, misfit(32, solver="richardson", omega=0.9))]
-    for (e, s), why in zip(pairs + [(misfit(40), surr)], ["not supported"] * 5):
-        with pytest.raises(RuntimeError, match=f"launch failed.*{why}"):
+    pairs = [(exact, _da_misfit(y, 16)), (_da_misfit(y, 16), surr), (_da_misfit(y, 32), surr),
+             (exact, _da_misfit(y, 32, solver="richardson", omega=0.9))]
+    lib = _build.library()
+    for e, s in pairs:
+        with pytest.raises(RuntimeError, match="launch failed.*not supported"):
             da.fused_da_pcn_chain(e, s, pos, p.prior.mean, p.prior.scale, 0.4, 0,
                                   n_steps=1, subchain_len=2, block_chains=128)
+        assert da.route(e.spec_fields, s.spec_fields, 144) is None
+        assert lib.ipx_da_pcn_route(ctypes.byref(e.spec()), ctypes.byref(s.spec()), 144) == 0
+
+
+@pytest.mark.parametrize("record", [False, True])
+def test_da_kernel_takes_the_pairs_the_cluster_kernel_leaves(darcy64_da, record):
+    """An exact grid of the 64² class that is not 64² (40²) with the 32²
+    surrogate: one chain a CTA (fused_da_pcn_kernel[layout64]), 128 chains,
+    one outer step of k = 2, against the plain twin."""
+    p = darcy64_da
+    surr = p.batched_surrogate_fn
+    exact = _da_misfit(surr.data.cpu().numpy(), 40)
+    pos = p.init_positions(torch.Generator().manual_seed(12), 128).cuda()
+    name = _scaffold_name("fused_da_pcn_kernel[layout64]", record)
+    assert da._darcy_stem(exact, surr) == "fused_da_pcn_kernel[layout64]"
+    args = (exact, surr, pos, p.prior.mean, p.prior.scale, 0.4, 3)
+    plain = (exact._forward_plain, surr._forward_plain, *args[2:])
+    kw = dict(subchain_len=2, block_chains=128)
+    before = _build.launch_counts[name]
+    if record:
+        got = da.fused_da_pcn_chain_recorded(*args, n_steps=1, thin=1, **kw)
+        ref = da._run_plain_recorded(*plain, n_steps=1, thin=1, **kw)
+    else:
+        got = da.fused_da_pcn_chain(*args, n_steps=1, **kw)
+        ref = da._run_plain(*plain, n_steps=1, **kw)
+    assert _build.launch_counts[name] == before + 1
+    dev = (got[0] - ref[0]).abs().max(dim=1).values
+    assert float((dev <= 1e-4).double().mean()) >= 0.99
+    assert abs(float(got[1].mean()) - float(ref[1].mean())) <= 1e-2
 
 
 # --- the 16² DA kernel: one warp per chain (fused_da_pcn_warp_kernel) ----------
@@ -1191,9 +1225,11 @@ def test_da16_geometry_matches_the_kernel():
 
 
 def test_da16_kernel_refuses_what_it_does_not_take():
-    """d other than 64 (a KL basis of 36 modes), an 8² exact level: the
-    wrapper raises before launching, and the kernel itself refuses them
-    (cudaErrorNotSupported)."""
+    """d other than 64 (a KL basis of 36 modes), an 8² exact level: the warp
+    kernel's geometry refuses them (cudaErrorNotSupported; the Python mirror
+    raises). The first pair runs one chain a CTA
+    (fused_da_pcn_kernel[layout16]); the second, a surrogate finer than its
+    exact grid, is refused by the rule and the wrapper raises."""
     import ctypes
 
     from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
@@ -1214,8 +1250,19 @@ def test_da16_kernel_refuses_what_it_does_not_take():
         pos = torch.zeros(16, d, device="cuda")
         mean, scale = torch.zeros(d), torch.ones(d)
         with pytest.raises(ValueError, match=why):
-            da.fused_da_pcn_chain(e, s, pos, mean, scale, 0.35, 0, n_steps=1,
-                                  subchain_len=2, block_chains=16)
+            da.warp_geometry(16, 16, exact_n=e.n, exact_modes=e.modes, surr_n=s.n,
+                             surr_modes=s.modes, d=d)
+        if s.n <= e.n:
+            name = "fused_da_pcn_kernel[layout16]<false>"
+            before = _build.launch_counts[name]
+            out = da.fused_da_pcn_chain(e, s, pos, mean, scale, 0.35, 0, n_steps=1,
+                                        subchain_len=2, block_chains=16)
+            assert _build.launch_counts[name] == before + 1
+            assert bool(torch.isfinite(out[0]).all())
+        else:
+            with pytest.raises(RuntimeError, match="launch failed.*not supported"):
+                da.fused_da_pcn_chain(e, s, pos, mean, scale, 0.35, 0, n_steps=1,
+                                      subchain_len=2, block_chains=16)
         args, _ = da._scaffold.chain_args(pos, mean, scale, 0, 1, 16)
         out = (ctypes.c_int * 3)()
         status = lib.ipx_da_pcn_warp_geometry(ctypes.byref(e.spec()), ctypes.byref(s.spec()),
@@ -1302,8 +1349,9 @@ def test_cluster_geometry_matches_the_kernel():
 
 def test_cluster_kernels_refuse_what_they_do_not_take():
     """A 64² warm misfit with Jacobi (no modes) or with modes not a multiple
-    of 16: the warm pCN cluster kernel refuses it (cudaErrorNotSupported),
-    the geometry function too, and the wrapper raises."""
+    of 16: the warm pCN cluster kernel's geometry refuses it
+    (cudaErrorNotSupported), and the rule sends it one chain a CTA
+    (fused_pcn_warm_kernel[layout64]), which runs it."""
     import ctypes
 
     from ip_mcmc_tpu_torch.convert import darcy_warm_misfit_from_arrays
@@ -1314,12 +1362,15 @@ def test_cluster_kernels_refuse_what_they_do_not_take():
     y = p.batched_potential_fn.data.cpu().numpy()
     lib = _build.library()
     pos = p.init_positions(torch.Generator().manual_seed(24), 16).cuda()
+    name = "fused_pcn_warm_kernel[layout64]<false>"
     for kw in (dict(precond="jacobi"), dict(precond="dst_trunc", precond_modes=100)):
         warm, aux_dim = darcy_warm_misfit_from_arrays(aux, y, 0.002, cg_iters=4, **kw)
         warm = warm.cuda()
-        with pytest.raises(RuntimeError, match="launch failed.*not supported"):
-            fused_pcn.fused_pcn_chain_warm(warm, pos, p.prior.mean, p.prior.scale, 0.06, 0,
-                                           n_steps=1, aux_dim=aux_dim, block_chains=16)
+        before = _build.launch_counts[name]
+        out = fused_pcn.fused_pcn_chain_warm(warm, pos, p.prior.mean, p.prior.scale, 0.06, 0,
+                                             n_steps=1, aux_dim=aux_dim, block_chains=16)
+        assert _build.launch_counts[name] == before + 1
+        assert bool(torch.isfinite(out[0]).all())
         args, _ = da._scaffold.chain_args(pos, p.prior.mean, p.prior.scale, 0, 1, 16)
         out = (ctypes.c_int * 4)()
         status = lib.ipx_darcy_cluster_geometry(ctypes.byref(warm.spec()), None,
@@ -1330,8 +1381,9 @@ def test_cluster_kernels_refuse_what_they_do_not_take():
 def test_cluster32_kernel_refuses_what_it_does_not_take():
     """A 32² warm misfit with Jacobi (no modes) or with modes not a multiple
     of 16, and a grid of the 32² class that is not 32² (24²): the 32² warm
-    pCN cluster kernel refuses them (cudaErrorNotSupported), the geometry
-    function too, and the wrapper raises."""
+    pCN cluster kernel's geometry refuses them (cudaErrorNotSupported), and
+    the rule sends them one chain a CTA (fused_pcn_warm_kernel[layout32]),
+    which runs them."""
     import ctypes
 
     from ip_mcmc_tpu_torch.convert import darcy_warm_misfit_from_arrays
@@ -1346,9 +1398,12 @@ def test_cluster32_kernel_refuses_what_it_does_not_take():
         aux = darcy.darcy_aux(n_grid=n, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
         warm, aux_dim = darcy_warm_misfit_from_arrays(aux, y, 0.002, cg_iters=4, **kw)
         warm = warm.cuda()
-        with pytest.raises(RuntimeError, match="launch failed.*not supported"):
-            fused_pcn.fused_pcn_chain_warm(warm, pos, p.prior.mean, p.prior.scale, 0.08, 0,
-                                           n_steps=1, aux_dim=aux_dim, block_chains=16)
+        name = "fused_pcn_warm_kernel[layout32]<false>"
+        before = _build.launch_counts[name]
+        out = fused_pcn.fused_pcn_chain_warm(warm, pos, p.prior.mean, p.prior.scale, 0.08, 0,
+                                             n_steps=1, aux_dim=aux_dim, block_chains=16)
+        assert _build.launch_counts[name] == before + 1
+        assert bool(torch.isfinite(out[0]).all())
         args, _ = da._scaffold.chain_args(pos, p.prior.mean, p.prior.scale, 0, 1, 16)
         out = (ctypes.c_int * 4)()
         status = lib.ipx_darcy_cluster_geometry(ctypes.byref(warm.spec()), None,
@@ -1782,8 +1837,10 @@ def test_ess_warp_geometry_matches_the_kernel(warm_problem):
 
 def test_ess_warp_kernel_refuses_what_it_does_not_take(problem):
     """A dst_trunc misfit (darcy_da_fused's exact level) and a 32² Jacobi
-    misfit: the kernel refuses them (cudaErrorNotSupported) and the wrapper
-    raises; the geometry function says the same."""
+    misfit: the warp kernel's geometry function refuses them
+    (cudaErrorNotSupported). The first runs one chain a CTA
+    (fused_ess_kernel); the second, above 16², is refused by the rule and
+    the wrapper raises."""
     import ctypes
 
     big = _build_on_card("darcy32_pcn_warm").batched_potential_fn
@@ -1791,9 +1848,15 @@ def test_ess_warp_kernel_refuses_what_it_does_not_take(problem):
     pos = problem.init_positions(torch.Generator().manual_seed(27), 16).cuda()
     pm, ps = problem.prior.mean, problem.prior.scale
     for pot in (problem.batched_potential_fn, big):
-        with pytest.raises(RuntimeError, match="launch failed.*not supported"):
+        if pot is big:
+            with pytest.raises(RuntimeError, match="launch failed.*not supported"):
+                fused_ess.fused_ess_chain(pot, pos, pm, ps, 0, n_steps=1, max_shrink=2,
+                                          block_chains=16)
+        else:
+            before = _build.launch_counts["fused_ess_kernel<false>"]
             fused_ess.fused_ess_chain(pot, pos, pm, ps, 0, n_steps=1, max_shrink=2,
                                       block_chains=16)
+            assert _build.launch_counts["fused_ess_kernel<false>"] == before + 1
         args, _ = da._scaffold.chain_args(pos, pm, ps, 0, 1, 16)
         out = (ctypes.c_int * 3)()
         status = lib.ipx_ess_warp_geometry(ctypes.byref(pot.spec()), ctypes.byref(args), 2, out)
@@ -1877,9 +1940,11 @@ def test_da3_warp_geometry_matches_the_kernel(burgers_problem):
 
 
 def test_da3_warp_kernel_refuses_what_it_does_not_take(burgers_problem):
-    """A level of 32 cells and a prior of 8 modes: the kernel refuses them
-    (cudaErrorNotSupported) and the wrapper raises; the geometry function
-    says the same."""
+    """A level of 32 cells and a prior of 8 modes: the warp kernel's
+    geometry function refuses them (cudaErrorNotSupported), and the rule
+    sends them one chain a CTA (fused_da3_pcn_kernel), which runs them; a
+    level of 256 cells, above the CTA's 128, is refused by the rule and the
+    wrapper raises."""
     import ctypes
 
     from ip_mcmc_tpu_torch.configs import burgers_misfit_from_arrays
@@ -1900,14 +1965,21 @@ def test_da3_warp_kernel_refuses_what_it_does_not_take(burgers_problem):
                       ((small(128, 8), small(128, 8), small(64, 8)), 8)):
         pos = torch.zeros(16, d, device="cuda")
         pm, ps = torch.zeros(d, device="cuda"), torch.ones(d, device="cuda")
-        with pytest.raises(RuntimeError, match="launch failed.*not supported"):
-            da3.fused_da3_pcn_chain(*levels, pos, pm, ps, 0.25, 0, n_steps=1, k_inner=1,
-                                    k_mid=1, block_chains=16)
+        before = _build.launch_counts["fused_da3_pcn_kernel<false>"]
+        out = da3.fused_da3_pcn_chain(*levels, pos, pm, ps, 0.25, 0, n_steps=1, k_inner=1,
+                                      k_mid=1, block_chains=16)
+        assert _build.launch_counts["fused_da3_pcn_kernel<false>"] == before + 1
+        assert bool(torch.isfinite(out[0]).all())
         args, _ = da._scaffold.chain_args(pos, pm, ps, 0, 1, 16)
         out = (ctypes.c_int * 3)()
         status = lib.ipx_da3_warp_geometry(*(ctypes.byref(lv.spec()) for lv in levels),
                                            ctypes.byref(args), 1, 1, out)
         assert "not supported" in lib.ipx_error_string(status).decode()
+    pos = torch.zeros(16, 16, device="cuda")
+    pm, ps = torch.zeros(16, device="cuda"), torch.ones(16, device="cuda")
+    with pytest.raises(RuntimeError, match="launch failed.*not supported"):
+        da3.fused_da3_pcn_chain(small(256, 16), mid, small(64, 16), pos, pm, ps, 0.25, 0,
+                                n_steps=1, k_inner=1, k_mid=1, block_chains=16)
 
 
 # --- the Burgers DA and pCN one chain a warp (fused_da_pcn_burgers_warp_kernel,
@@ -2108,9 +2180,11 @@ def test_fes_warp_geometry_matches_the_kernel(warm_problem):
 
 def test_fes_warp_kernel_refuses_what_it_does_not_take(problem):
     """A dst_trunc misfit (darcy_da_fused's exact level) and a 32² Jacobi
-    misfit: the kernel refuses them (cudaErrorNotSupported) and the wrapper
-    raises; the geometry function says the same. An odd ensemble or a
-    ragged last one: the entry point raises, the geometry function returns
+    misfit: the warp kernel's geometry function refuses them
+    (cudaErrorNotSupported). The first runs one chain a CTA
+    (fused_fes_kernel, two launches a step); the second, above 16², is
+    refused by the rule and the wrapper raises. An odd ensemble or a ragged
+    last one: the entry point raises, the geometry function returns
     cudaErrorInvalidValue."""
     import ctypes
 
@@ -2120,8 +2194,13 @@ def test_fes_warp_kernel_refuses_what_it_does_not_take(problem):
     pm, ps = problem.prior.mean, problem.prior.scale
     out = (ctypes.c_int * 3)()
     for pot in (problem.batched_potential_fn, big):
-        with pytest.raises(RuntimeError, match="launch failed.*not supported"):
+        if pot is big:
+            with pytest.raises(RuntimeError, match="launch failed.*not supported"):
+                fused_fes.fused_fes_chain(pot, pos, pm, ps, 8, 0, n_steps=1, block_chains=16)
+        else:
+            before = _build.launch_counts["fused_fes_kernel<false>"]
             fused_fes.fused_fes_chain(pot, pos, pm, ps, 8, 0, n_steps=1, block_chains=16)
+            assert _build.launch_counts["fused_fes_kernel<false>"] == before + 2
         args, _ = da._scaffold.chain_args(pos, pm, ps, 0, 1, 16)
         status = lib.ipx_fes_warp_geometry(ctypes.byref(pot.spec()), ctypes.byref(args), 8, out)
         assert "not supported" in lib.ipx_error_string(status).decode()
@@ -2196,9 +2275,11 @@ def test_mala_warp_geometry_matches_the_kernel(mala_warm_problem):
 
 def test_mala_warp_kernel_refuses_what_it_does_not_take(problem):
     """A dst_trunc misfit (darcy_da_fused's exact level) and a 32² Jacobi
-    misfit: the entry point raises ValueError (the geometry mirror) before
-    any launch, and the C geometry function says "not supported", as it
-    does for the cold Jacobi misfit given to the warm kernel."""
+    misfit: the C geometry function of the warp kernel says "not
+    supported", as it does for the cold Jacobi misfit given to the warm
+    kernel. The first runs one chain a CTA (fused_mala_kernel); for the
+    second, above 16², the entry point raises ValueError (the rule's
+    mirror) before any launch."""
     import ctypes
 
     big = _build_on_card("darcy32_pcn_warm").batched_potential_fn
@@ -2209,10 +2290,16 @@ def test_mala_warp_kernel_refuses_what_it_does_not_take(problem):
     out = (ctypes.c_int * 3)()
     for pot in (problem.batched_potential_fn, big):
         before = dict(_build.launch_counts)
-        with pytest.raises(ValueError, match="MALA kernel takes"):
+        if pot is big:
+            with pytest.raises(ValueError, match="MALA kernels take"):
+                fused_mala.fused_mala_chain(pot, pos, 0.01, 0, n_steps=1, block_chains=16,
+                                            prior_mean=pm, prior_scale=ps)
+            assert dict(_build.launch_counts) == before
+        else:
             fused_mala.fused_mala_chain(pot, pos, 0.01, 0, n_steps=1, block_chains=16,
                                         prior_mean=pm, prior_scale=ps)
-        assert dict(_build.launch_counts) == before
+            assert (_build.launch_counts["fused_mala_kernel<false>"]
+                    == before.get("fused_mala_kernel<false>", 0) + 1)
         args, _ = da._scaffold.chain_args(pos, pm, ps, 0, 1, 16)
         status = lib.ipx_mala_warp_geometry(ctypes.byref(pot.spec()), ctypes.byref(args), 0,
                                             out)
@@ -2669,3 +2756,202 @@ def test_lv_kernel_through_autograd(ode_problem):
     (gx,) = torch.autograd.grad(pot(x).sum(), x, create_graph=True)
     with pytest.raises(RuntimeError):
         torch.autograd.grad(gx.sum(), x)
+
+
+# --- the one-chain-a-CTA kernels of the specs the Hopper designs leave ----------
+# (each sampler's takes-rule: ess_route, fes_route, mala_route, da_route,
+# pcn_route, da3_route, and their Python mirrors ``route``)
+
+
+def _restored_case(name):
+    """(kernel stem, launches a step or None for one a call, kern(steps,
+    thin), plain(steps, thin)) of a spec of chip_smoke.py's phase at 64
+    chains (the Burgers and 48² ones at 32)."""
+    from chip_smoke import mala_warm_jacobi, synthetic_burgers, synthetic_darcy
+
+    from ip_mcmc_tpu_torch.ops import fused_da3_pcn as da3
+
+    g = torch.Generator().manual_seed(61)
+    if name in ("ess", "ess36", "fes", "mala", "mala_warm", "da16"):
+        p = _build_on_card("darcy_da_fused")
+        pot = p.batched_potential_fn  # 16² dst_trunc-128, 12 CG
+        if name == "ess36":
+            pot = synthetic_darcy(12, 6, seed=41, cg_iters=48)
+        if name == "mala_warm":
+            pot = mala_warm_jacobi(_build_on_card("darcy_mala_warm"))
+        d = pot.K
+        pos = torch.randn(64, d, generator=g).cuda()
+        pm, ps = torch.zeros(d, device="cuda"), torch.ones(d, device="cuda")
+        plain = pot._forward_warm_plain if name == "mala_warm" else pot._forward_plain
+        if name in ("ess", "ess36"):
+            return ("fused_ess_kernel", None,
+                    lambda s, t: fused_ess._launch(pot, pos, pm, ps, 5, s, 6, 32, thin=t),
+                    lambda s, t: fused_ess._run_plain(plain, pos, pm, ps, 5, s, 6, 32, thin=t))
+        if name == "fes":
+            a = (pos, pm, ps, 8, 5, 0.08, 2.0)
+            return ("fused_fes_kernel", 2,
+                    lambda s, t: fused_fes._launch(pot, *a, s, 32, thin=t),
+                    lambda s, t: fused_fes._run_plain(plain, *a, s, 32, thin=t))
+        if name in ("mala", "mala_warm"):
+            kw = {"aux_dim": pot.aux_dim} if name == "mala_warm" else {}
+            stem = "fused_mala_warm_kernel" if kw else "fused_mala_kernel"
+            return (stem, None,
+                    lambda s, t: fused_mala._launch(pot, pos, pm, ps, 0.012, 5, s, 32, thin=t,
+                                                    **kw),
+                    lambda s, t: fused_mala._run_plain(plain, pos, pm, ps, 0.012, 5, s, 32,
+                                                       thin=t, **kw))
+        surr = synthetic_darcy(12, 8, seed=42, cg_iters=3)
+        return _da_case("fused_da_pcn_kernel[layout16]", pot, surr, pos, pm, ps)
+    if name == "da64":
+        exact = synthetic_darcy(48, 12, seed=43, cg_iters=16, precond="dst_trunc",
+                                precond_modes=256)
+        surr = synthetic_darcy(24, 12, seed=44, cg_iters=3, precond="dst_trunc",
+                               precond_modes=128)
+        pos = torch.randn(32, 144, generator=g).cuda()
+        pm, ps = torch.zeros(144, device="cuda"), torch.ones(144, device="cuda")
+        return _da_case("fused_da_pcn_kernel[layout64]", exact, surr, pos, pm, ps)
+    if name.startswith("pcn"):
+        n = int(name[3:])
+        kw = dict(cg_iters=16) if n == 32 else dict(cg_iters=4, precond="dst_trunc",
+                                                     precond_modes=128 if n < 48 else 256)
+        pot = synthetic_darcy(n, 8 if n < 48 else 12, seed=45, kind="warm", **kw)
+        d = pot.K
+        pos = torch.randn(64 if n < 48 else 32, d, generator=g).cuda()
+        pm, ps = torch.zeros(d, device="cuda"), torch.ones(d, device="cuda")
+        stem = f"fused_pcn_warm_kernel[layout{32 if n <= 32 else 64}]"
+        return (stem, None,
+                lambda s, t: (fused_pcn.fused_pcn_chain_warm_recorded(
+                    pot, pos, pm, ps, 0.08, 5, n_steps=s, thin=t, aux_dim=pot.aux_dim,
+                    block_chains=32) if t else fused_pcn.fused_pcn_chain_warm(
+                    pot, pos, pm, ps, 0.08, 5, n_steps=s, aux_dim=pot.aux_dim,
+                    block_chains=32)),
+                lambda s, t: fused_pcn._run_plain(pot._forward_warm_plain, pos, pm, ps, 0.08,
+                                                  5, s, 32, thin=t, aux_dim=pot.aux_dim))
+    levels = synthetic_burgers(96, 32, seed=48)
+    pos = torch.randn(32, 32, generator=g).cuda()
+    pm, ps = torch.zeros(32, device="cuda"), torch.ones(32, device="cuda")
+    a = (*levels, pos, pm, ps, 0.25, 5)
+    pa = (*(lv._forward_plain for lv in levels), *a[3:])
+    return ("fused_da3_pcn_kernel", None,
+            lambda s, t: da3._launch(*a, s, 2, 2, 32, thin=t),
+            lambda s, t: da3._run_plain(*pa, s, 2, 2, 32, thin=t))
+
+
+def _da_case(stem, exact, surr, pos, pm, ps):
+    assert da._darcy_stem(exact, surr) == stem
+    a = (exact, surr, pos, pm, ps, 0.3, 5)
+    pa = (exact._forward_plain, surr._forward_plain, *a[2:])
+    kw = dict(subchain_len=3, block_chains=32)
+
+    def kern(s, t):
+        if t:
+            return da.fused_da_pcn_chain_recorded(*a, n_steps=s, thin=t, **kw)
+        return da.fused_da_pcn_chain(*a, n_steps=s, **kw)
+
+    def plain(s, t):
+        if t:
+            return da._run_plain_recorded(*pa, n_steps=s, thin=t, **kw)
+        return da._run_plain(*pa, n_steps=s, **kw)
+    return stem, None, kern, plain
+
+
+RESTORED = ["ess", "ess36", "fes", "mala", "mala_warm", "da16", "da64", "pcn24", "pcn32",
+            "pcn48", "da3"]
+# the specs whose preconditioner rounds its inputs to bf16 (dst_trunc)
+BF16_SPECS = ("ess", "fes", "mala", "da16", "da64", "pcn24", "pcn48")
+
+
+@pytest.mark.parametrize("record", [False, True])
+@pytest.mark.parametrize("name", RESTORED)
+def test_restored_cta_kernels_match_plain(name, record):
+    """Each spec of chip_smoke.py's phase of the one-chain-a-CTA kernels, at
+    32 or 64 chains and 2 steps: the rule's kernel launched (its count), and
+    within 1e-4 of the plain twin on 99 % of chains (with bf16
+    preconditioner inputs 95 %: a rounding flip can turn one MH decision
+    and part a chain, one of 64 here; chip_smoke.py holds 99 % of 4096),
+    the mean acceptance within 1e-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    stem, per_step, kern, plain = _restored_case(name)
+    thin = 1 if record else None
+    key = _scaffold_name(stem, record)
+    before = _build.launch_counts[key]
+    got, ref = kern(2, thin), plain(2, thin)
+    assert _build.launch_counts[key] == before + (2 * per_step if per_step else 1)
+    least = 0.95 if name in BF16_SPECS else 0.99
+    if record:
+        rec = (got[2] - ref[2]).abs().amax(dim=(0, 2))
+        assert float((rec <= 1e-4).double().mean()) >= least
+    dev = (got[0] - ref[0]).abs().max(dim=1).values
+    assert float((dev <= 1e-4).double().mean()) >= least
+    assert abs(float(got[1].mean()) - float(ref[1].mean())) <= 1e-2
+
+
+def test_routes_agree_in_c_and_python():
+    """For every new rule, the C route (ipx_*_route) and its Python mirror
+    (``route``) send the shipped specs, the opened ones and the refused ones
+    to the same kernel."""
+    import ctypes
+
+    from chip_smoke import synthetic_burgers, synthetic_darcy
+
+    from ip_mcmc_tpu_torch.ops import _scaffold
+    from ip_mcmc_tpu_torch.ops import fused_da3_pcn as da3
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    code = {v: k for k, v in _scaffold.ROUTES.items()}
+    lib = _build.library()
+    ref = lambda p: ctypes.byref(p.spec())
+    shipped = {c: _build_on_card(c) for c in ("darcy_da_fused", "darcy_pcn_warm",
+                                              "darcy32_pcn_warm", "darcy64_pcn_warm",
+                                              "darcy64_da_fused", "darcy_mala_warm",
+                                              "darcy_pcn_4096", "burgers_da3_pcn")}
+    jac16 = shipped["darcy_pcn_4096"].batched_potential_fn
+    dst16 = shipped["darcy_da_fused"].batched_potential_fn
+    cold = [jac16, dst16, synthetic_darcy(12, 6, seed=1, cg_iters=4),
+            synthetic_darcy(8, 4, seed=2, cg_iters=4, precond="dst_trunc", precond_modes=32),
+            synthetic_darcy(24, 8, seed=3, cg_iters=4)]
+    for pot in cold:
+        f = pot.spec_fields
+        for d in (pot.K, pot.K - 1):
+            assert lib.ipx_ess_route(ref(pot), d) == code[fused_ess.route(**f, d=d)], (f, d)
+            assert lib.ipx_fes_route(ref(pot), d) == code[fused_fes.route(**f, d=d)], (f, d)
+            assert lib.ipx_mala_route(ref(pot), d, 0) == code[fused_mala.route(False, **f, d=d)]
+            assert lib.ipx_pcn_route(ref(pot), d, 0) == code[fused_pcn.route(False, **f, d=d)]
+    warm = [shipped["darcy_pcn_warm"].batched_warm_potential[0],
+            shipped["darcy32_pcn_warm"].batched_warm_potential[0],
+            shipped["darcy64_pcn_warm"].batched_warm_potential[0],
+            synthetic_darcy(24, 8, seed=4, kind="warm", cg_iters=4, precond="dst_trunc",
+                            precond_modes=128),
+            synthetic_darcy(32, 8, seed=5, kind="warm", cg_iters=4),
+            synthetic_darcy(48, 12, seed=6, kind="warm", cg_iters=4),
+            synthetic_darcy(72, 12, seed=7, kind="warm", cg_iters=2)]
+    for pot in warm:
+        f = pot.spec_fields
+        for d in (pot.K, pot.K - 1):
+            assert lib.ipx_pcn_route(ref(pot), d, 1) == code[fused_pcn.route(True, **f, d=d)]
+    mala_warm = [shipped["darcy_mala_warm"].batched_warm_potential[0],
+                 synthetic_darcy(16, 8, seed=8, kind="mala", cg_iters=4),
+                 synthetic_darcy(20, 8, seed=9, kind="mala", cg_iters=4, precond="dst")]
+    for pot in mala_warm:
+        f = pot.spec_fields
+        assert lib.ipx_mala_route(ref(pot), pot.K, 1) == code[fused_mala.route(True, **f,
+                                                                               d=pot.K)]
+    p64 = shipped["darcy64_da_fused"]
+    y = p64.batched_surrogate_fn.data.cpu().numpy()
+    pairs = [(dst16, shipped["darcy_da_fused"].batched_surrogate_fn),
+             (p64.batched_potential_fn, p64.batched_surrogate_fn),
+             (dst16, synthetic_darcy(12, 8, seed=10, cg_iters=3)),
+             (_da_misfit(y, 40), p64.batched_surrogate_fn),
+             (_da_misfit(y, 16), _da_misfit(y, 32)), (_da_misfit(y, 32), _da_misfit(y, 32)),
+             (p64.batched_potential_fn, _da_misfit(y, 32, solver="richardson", omega=0.9))]
+    for e, s_ in pairs:
+        for d in (e.K, e.K - 1):
+            assert (lib.ipx_da_pcn_route(ref(e), ref(s_), d)
+                    == code[da.route(e.spec_fields, s_.spec_fields, d)]), (e.n, s_.n, d)
+    p3 = shipped["burgers_da3_pcn"]
+    for levels, d in ((_burgers_levels(p3), 16), (synthetic_burgers(96, 32, seed=11), 32),
+                      (synthetic_burgers(96, 32, seed=11), 16)):
+        assert (lib.ipx_da3_route(*(ref(lv) for lv in levels), d)
+                == code[da3.route([(lv.n, lv.K) for lv in levels], d)])

@@ -252,3 +252,72 @@ def test_warp_geometry_refuses_what_the_kernel_does_not_take():
         da.warp_geometry(64, 64, exact_modes=100)
     with pytest.raises(ValueError, match="232448"):
         da.warp_geometry(64, 64, chains=16, exact_staged=True)
+
+
+# --- a pair the card runs one chain a CTA (fused_da_pcn_kernel[layout16]) ----
+
+
+def test_da_chain_on_an_8_6_pair_matches_jax():
+    """An 8×8 Jacobi exact level (12 CG) with a 6×6 Jacobi surrogate (3 CG),
+    16 KL modes, 64 chains: every input f32, so at least 62 chains end within
+    1e-4 of JAX's with the same outer and inner acceptance."""
+    from test_torch_fused_pcn import NOISE, small_darcy
+
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
+    aux_j, aux_t, y = small_darcy()
+    _, aux6_j = jdarcy.make_darcy_forward(n_grid=6, n_modes_per_dim=4, alpha=2.0,
+                                          field_scale=10.0)
+    aux6_t = darcy.darcy_aux(n_grid=6, n_modes_per_dim=4, alpha=2.0, field_scale=10.0)
+    je, js = (jdarcy.make_batched_misfit(aux_j, y, NOISE, cg_iters=12),
+              jdarcy.make_batched_misfit(aux6_j, y, 0.01, cg_iters=3))
+    te, ts = (darcy_misfit_from_arrays(aux_t, y, NOISE, cg_iters=12),
+              darcy_misfit_from_arrays(aux6_t, y, 0.01, cg_iters=3))
+    assert da.route(te.spec_fields, ts.spec_fields, 16) == "cta"
+    d = 16
+    pos = (0.3 * np.random.default_rng(17).standard_normal((N, d))).astype(np.float32)
+    pm, ps = np.zeros(d, np.float32), np.ones(d, np.float32)
+    kw = dict(n_steps=2, subchain_len=3, block_chains=BLOCK)
+    fj, aj, ij = jops.fused_da_pcn_chain(je, js, jnp.asarray(pos), pm, ps, 0.2, SEED, **kw)
+    ft, at, it = da.fused_da_pcn_chain(te, ts, torch.from_numpy(pos), pm, ps, 0.2, SEED, **kw)
+    ok = _agreeing(ft, fj)
+    assert ok.sum() >= 62
+    np.testing.assert_array_equal(at.numpy()[ok], np.asarray(aj)[ok])
+    np.testing.assert_array_equal(it.numpy()[ok], np.asarray(ij)[ok])
+    assert 0.0 < float(it.mean()) < 1.0
+
+
+def _f(n, K=64, precond="dst_trunc", modes=64, solver="cg"):
+    return dict(n=n, K=K, precond=precond, modes=modes, solver=solver)
+
+
+# the takes-rule (``da_route``'s mirror): exact, surrogate, d, the kernel
+ROUTES = [
+    (_f(16, modes=128), _f(8), 64, "warp"),  # darcy_da_fused
+    (_f(16, modes=128), _f(8, solver="richardson"), 64, "warp"),  # a rich3 run
+    (_f(64, K=144, modes=256), _f(32, K=144, modes=128), 144, "cluster"),  # darcy64_da_fused
+    (_f(16), _f(12, precond="jacobi", modes=0), 64, "cta"),
+    (_f(16), _f(12, precond="jacobi", modes=0, solver="richardson"), 64, "cta"),
+    (_f(16, K=36), _f(8, K=36), 36, "cta"),
+    (_f(8, K=16, precond="jacobi", modes=0), _f(6, K=16, precond="jacobi", modes=0), 16,
+     "cta"),
+    (_f(48, K=144, modes=256), _f(24, K=144, modes=128), 144, "cta"),
+    (_f(64, K=144, precond="jacobi", modes=0), _f(32, K=144, modes=128), 144, "cta"),
+    (_f(64, K=144, modes=100), _f(32, K=144, modes=128), 144, "cta"),
+    (_f(8), _f(16), 64, None),  # a surrogate finer than its exact grid
+    (_f(64, K=144, modes=256), _f(32, K=144, solver="richardson"), 144, None),
+    (_f(64, K=144, modes=256), _f(16, K=144), 144, None),
+    (_f(32, K=144), _f(16, K=144), 144, None),
+    (_f(72, K=144), _f(32, K=144), 144, None),
+    (_f(16), _f(8, K=36), 64, None),  # K != d
+]
+
+
+@pytest.mark.parametrize("exact, surr, d, kernel", ROUTES)
+def test_route_sends_each_pair_to_its_kernel(exact, surr, d, kernel):
+    """Shipped pairs go to the warp and cluster kernels, the rest of the two
+    domains one chain a CTA, other pairs nowhere; ``warp_takes`` is the warp
+    route."""
+    assert da.route(exact, surr, d) == kernel
+    assert da.warp_takes(exact, surr, d) == (kernel == "warp")

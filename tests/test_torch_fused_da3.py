@@ -156,3 +156,70 @@ def test_shape_checks_and_kernel_potential_types(levels):
     with pytest.raises(TypeError, match="mid_fn.*BurgersMisfit"):
         da3._launch(pots[0], phi_exact, pots[2], torch.zeros(32, D), PM, PS,
                     0.3, 0, 2, 2, 2, 16)
+
+
+# --- levels the card runs one chain a CTA (fused_da3_pcn_kernel) ---------------
+
+
+def _levels_48(noise=0.05):
+    """48 / 48 / 24-cell levels (10, 4 and 2 time steps), K = 24 KL modes, 8
+    observations: none a level of the warp solve. ((JAX's), (port's))."""
+    from test_torch_burgers import burgers_misfit_from_arrays, jburgers, sine_mean
+
+    from ip_mcmc_tpu_torch.models import burgers
+
+    obs = np.arange(2, 48, 6)
+    grids = [dict(n_cells=48, cfl_amax=3.0, obs_indices=obs),
+             dict(n_cells=48, cfl_amax=1.0, obs_indices=obs),
+             dict(n_cells=24, cfl_amax=1.0, obs_indices=obs // 2)]
+    aux = []
+    for g in grids:
+        kw = dict(n_modes=24, alpha=1.5, field_scale=1.0, t_final=0.05,
+                  mean_profile=sine_mean(g["n_cells"]), **g)
+        aux.append((jburgers.make_burgers_forward(**kw)[1], burgers.burgers_aux(**kw)))
+    y = (0.3 * np.random.default_rng(401).standard_normal(8)).astype(np.float32)
+    return (tuple(jburgers.make_batched_misfit(a[0], y, noise) for a in aux),
+            tuple(burgers_misfit_from_arrays(a[1], y, noise) for a in aux))
+
+
+def test_da3_chain_on_48_cell_levels_matches_jax():
+    """K = d = 24 on 48 / 48 / 24 cells, 32 chains, 2 outer steps: at least
+    30 of 32 chains end within 1e-4 of JAX's with the same decisions."""
+    jax_pots, pots = _levels_48()
+    d, n = 24, 32
+    assert da3.route([(p.n, p.K) for p in pots], d) == "cta"
+    pos = (0.5 * np.random.default_rng(9).standard_normal((n, d))).astype(np.float32)
+    pm, ps = np.zeros(d, np.float32), np.ones(d, np.float32)
+    kw = dict(n_steps=2, k_inner=2, k_mid=2, block_chains=16)
+    fj, aj, mj = jops.fused_da3_pcn_chain(*jax_pots, jnp.asarray(pos), pm, ps, 0.25, SEED, **kw)
+    ft, at, mt = ops.fused_da3_pcn_chain(*pots, torch.from_numpy(pos), pm, ps, 0.25, SEED, **kw)
+    ok = _agreeing(ft, fj)
+    assert ok.sum() >= 30
+    np.testing.assert_array_equal(np.rint(at.numpy()[ok] * 2), np.rint(np.asarray(aj)[ok] * 2))
+    np.testing.assert_array_equal(np.rint(mt.numpy()[ok] * 4), np.rint(np.asarray(mj)[ok] * 4))
+    assert 0.0 < float(mt.mean()) < 1.0
+
+
+# the takes-rule (``da3_route``'s mirror): (cells, K) of the fine, middle and
+# coarse levels, d, the kernel
+ROUTES = [
+    (((128, 16), (128, 16), (64, 16)), 16, "warp"),  # burgers_da3_pcn
+    (((64, 16), (64, 16), (64, 16)), 16, "warp"),
+    (((96, 32), (96, 32), (48, 32)), 32, "cta"),
+    (((48, 24), (48, 24), (24, 24)), 24, "cta"),
+    (((32, 16), (32, 16), (16, 16)), 16, "cta"),
+    (((128, 16), (128, 16), (32, 16)), 16, "cta"),
+    (((128, 128), (128, 128), (64, 128)), 128, "cta"),
+    (((256, 16), (128, 16), (64, 16)), 16, None),  # above 128 cells
+    (((128, 16), (128, 16), (64, 8)), 16, None),  # K != d
+    (((128, 144), (128, 144), (64, 144)), 144, None),
+]
+
+
+@pytest.mark.parametrize("levels, d, kernel", ROUTES)
+def test_route_sends_each_spec_to_its_kernel(levels, d, kernel):
+    """Shipped levels go to the warp kernel, the rest up to 128 cells and
+    K = d up to 128 one chain a CTA, others nowhere; ``warp_takes`` is the
+    warp route."""
+    assert da3.route(levels, d) == kernel
+    assert da3.warp_takes(levels, d) == (kernel == "warp")

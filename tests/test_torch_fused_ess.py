@@ -106,3 +106,44 @@ def test_argument_checks_and_kernel_potential_type():
     # the CUDA kernel refuses a callable before touching any device
     with pytest.raises(TypeError, match="DarcyMisfit"):
         fused_ess._launch(phi, pos, np.zeros(2), np.ones(2), 0, 2, 4, 16)
+
+
+def test_ess_dst_trunc_chain_matches_jax():
+    """An 8×8 dst_trunc misfit (32 modes, 4 CG), a spec the card runs one
+    chain a CTA (fused_ess_kernel): bf16 preconditioner inputs, so a
+    rounding flip can move a slice and part a chain from JAX's; most chains
+    within 1e-4, mean acceptance within 0.05."""
+    pot_j, pot_t = cold_pair(small_darcy(), cg_iters=4, precond="dst_trunc",
+                             precond_modes=32)
+    pos = positions(6)
+    kw = dict(n_steps=3, max_shrink=SHRINK, block_chains=BLOCK)
+    out_j = [np.asarray(o) for o in jops.fused_ess_chain(pot_j, jnp.asarray(pos), PM, PS, 8,
+                                                         **kw)]
+    out_t = [o.numpy() for o in ops.fused_ess_chain(pot_t, torch.from_numpy(pos), PM, PS, 8,
+                                                    **kw)]
+    assert agreeing(out_t[0], out_j[0]).sum() >= 56
+    assert abs(out_t[1].mean() - out_j[1].mean()) <= 0.05
+    assert fused_ess.route(**pot_t.spec_fields, d=K) == "cta"
+
+
+# the takes-rule (``ess_route``'s mirror): a spec's fields, d, the kernel
+ROUTES = [
+    (dict(n=16, K=64, precond="jacobi", modes=0, solver="cg"), 64, "warp"),  # darcy_ess_fused
+    (dict(n=16, K=64, precond="dst_trunc", modes=128, solver="cg"), 64, "cta"),
+    (dict(n=16, K=64, precond="dst", modes=0, solver="cg"), 64, "cta"),
+    (dict(n=12, K=36, precond="jacobi", modes=0, solver="cg"), 36, "cta"),
+    (dict(n=8, K=16, precond="dst_trunc", modes=32, solver="cg"), 16, "cta"),
+    (dict(n=16, K=64, precond="jacobi", modes=0, solver="cg"), 48, None),  # K != d
+    (dict(n=17, K=64, precond="jacobi", modes=0, solver="cg"), 64, None),  # above 16²
+    (dict(n=32, K=64, precond="jacobi", modes=0, solver="cg"), 64, None),
+    (dict(n=16, K=64, precond="jacobi", modes=0, solver="richardson"), 64, None),
+]
+
+
+@pytest.mark.parametrize("fields, d, kernel", ROUTES)
+def test_route_sends_each_spec_to_its_kernel(fields, d, kernel):
+    """Shipped specs go to the warp kernel, the rest of the 16² class to the
+    one-chain-a-CTA kernel, larger grids nowhere; ``warp_takes`` is the
+    warp route."""
+    assert fused_ess.route(**fields, d=d) == kernel
+    assert fused_ess.warp_takes(**fields, d=d) == (kernel == "warp")

@@ -163,3 +163,45 @@ def test_kernel_takes_darcy_misfits_only(pots):
     with pytest.raises(TypeError, match="DarcyMisfit"):
         fused_fes._launch(lambda U: U.sum(0), torch.zeros(64, K), PM2, PS2, M, 0,
                           0.1, 2.0, 2, 64)
+
+
+def test_fes_dst_trunc_chain_matches_jax():
+    """An 8×8 dst_trunc misfit (32 modes, 4 CG), a spec the card runs one
+    chain a CTA (fused_fes_kernel): bf16 preconditioner inputs, so a
+    rounding flip can turn a decision and part a chain (and its partners)
+    from JAX's; most chains within 1e-4, mean rates within 0.05."""
+    aux_j, aux_t, y = small_darcy()
+    kw = dict(cg_iters=4, precond="dst_trunc", precond_modes=32)
+    pot_j = jdarcy.make_batched_misfit(aux_j, y, NOISE, **kw)
+    pot_t = darcy_misfit_from_arrays(aux_t, y, NOISE, **kw)
+    pos = positions(7)
+    kw = dict(pcn_beta=0.1, stretch_a=2.0, n_steps=3, block_chains=BLOCK)
+    out_j = [np.asarray(o) for o in jops.fused_fes_chain(pot_j, jnp.asarray(pos), PM2, PS2,
+                                                         M, 6, **kw)]
+    out_t = [o.numpy() for o in ops.fused_fes_chain(pot_t, torch.from_numpy(pos), PM2, PS2,
+                                                    M, 6, **kw)]
+    assert agreeing(out_t[0], out_j[0]).sum() >= 56
+    for r in (1, 2):
+        assert abs(out_t[r].mean() - out_j[r].mean()) <= 0.05
+    assert fused_fes.route(**pot_t.spec_fields, d=K) == "cta"
+
+
+# the takes-rule (``fes_route``'s mirror, elliptical slice sampling's rule):
+# a spec's fields, d, the kernel
+ROUTES = [
+    (dict(n=16, K=64, precond="jacobi", modes=0, solver="cg"), 64, "warp"),  # darcy_fes_fused
+    (dict(n=16, K=64, precond="dst_trunc", modes=128, solver="cg"), 64, "cta"),
+    (dict(n=8, K=16, precond="dst_trunc", modes=32, solver="cg"), 16, "cta"),
+    (dict(n=8, K=16, precond="jacobi", modes=0, solver="cg"), 16, "cta"),
+    (dict(n=16, K=64, precond="jacobi", modes=0, solver="cg"), 32, None),  # K != d
+    (dict(n=24, K=64, precond="dst_trunc", modes=128, solver="cg"), 64, None),
+]
+
+
+@pytest.mark.parametrize("fields, d, kernel", ROUTES)
+def test_route_sends_each_spec_to_its_kernel(fields, d, kernel):
+    """Shipped specs go to the warp kernel, the rest of the 16² class to the
+    one-chain-a-CTA kernel, larger grids nowhere; ``warp_takes`` is the
+    warp route."""
+    assert fused_fes.route(**fields, d=d) == kernel
+    assert fused_fes.warp_takes(**fields, d=d) == (kernel == "warp")

@@ -32,19 +32,19 @@ def problem():
     return small_darcy()
 
 
-def cold_pair(problem, pm, ps, cg_iters=12):
+def cold_pair(problem, pm, ps, cg_iters=12, **kw):
     """(JAX closure misfit + prior, as the JAX runner builds it; the port's
     misfit, which gets the prior as arguments)."""
     aux_j, aux_t, y = problem
     phi_b = jdarcy.make_batched_misfit(aux_j, y, NOISE, cg_iters=cg_iters,
-                                       differentiable=True)
+                                       differentiable=True, **kw)
     pm_j, ps_j = jnp.asarray(pm), jnp.asarray(ps)
 
     def phi_full(U):
         z = (U - pm_j[:, None]) / ps_j[:, None]
         return phi_b(U) + 0.5 * jnp.sum(z * z, axis=0)
 
-    return phi_full, darcy_misfit_from_arrays(aux_t, y, NOISE, cg_iters=cg_iters)
+    return phi_full, darcy_misfit_from_arrays(aux_t, y, NOISE, cg_iters=cg_iters, **kw)
 
 
 def warm_pair(problem, precond="jacobi", cg_iters=6):
@@ -202,3 +202,45 @@ def test_argument_checks_and_kernel_potential_types(problem):
         fused_mala._launch(pag, pos, PM, PS, EPS, 0, 2, 64)
     with pytest.raises(TypeError, match="DarcyMisfitMalaWarm"):
         fused_mala._launch(cold, pos, PM, PS, EPS, 0, 2, 64, aux_dim=aux_dim)
+
+
+def test_mala_dst_trunc_chain_matches_jax(problem):
+    """A cold 8×8 dst_trunc misfit (32 modes, 4 + 4 CG), a spec the card runs
+    one chain a CTA (fused_mala_kernel): bf16 preconditioner inputs, so a
+    rounding flip can turn an MH decision and part a chain from JAX's; most
+    chains within 1e-4, mean acceptance within 0.05."""
+    phi_full, pot = cold_pair(problem, PM2, PS2, cg_iters=4, precond="dst_trunc",
+                              precond_modes=32)
+    pos = positions(3)
+    kw = dict(n_steps=3, block_chains=BLOCK)
+    out_j = jops.fused_mala_chain(phi_full, jnp.asarray(pos), EPS, 4, **kw)
+    out_t = ops.fused_mala_chain(pot, torch.from_numpy(pos), EPS, 4, prior_mean=PM2,
+                                 prior_scale=PS2, **kw)
+    assert agreeing(out_t[0].numpy(), np.asarray(out_j[0])).sum() >= 56
+    assert abs(float(out_t[1].mean()) - float(np.asarray(out_j[1]).mean())) <= 0.05
+    assert fused_mala.route(False, **pot.spec_fields, d=K) == "cta"
+
+
+# the takes-rule (``mala_route``'s mirror): warm, a spec's fields, d, the
+# kernel
+ROUTES = [
+    (False, dict(n=16, K=64, precond="jacobi", modes=0, solver="cg"), 64, "warp"),
+    (True, dict(n=16, K=64, precond="dst", modes=0, solver="cg"), 64, "warp"),
+    (False, dict(n=16, K=64, precond="dst_trunc", modes=128, solver="cg"), 64, "cta"),
+    (True, dict(n=16, K=64, precond="jacobi", modes=0, solver="cg"), 64, "cta"),
+    (True, dict(n=16, K=64, precond="dst_trunc", modes=64, solver="cg"), 64, "cta"),
+    (False, dict(n=16, K=64, precond="dst", modes=0, solver="cg"), 64, "cta"),
+    (False, dict(n=8, K=16, precond="dst_trunc", modes=32, solver="cg"), 16, "cta"),
+    (False, dict(n=16, K=64, precond="jacobi", modes=0, solver="cg"), 63, None),  # K != d
+    (True, dict(n=32, K=64, precond="dst", modes=0, solver="cg"), 64, None),
+    (False, dict(n=20, K=64, precond="jacobi", modes=0, solver="cg"), 64, None),
+]
+
+
+@pytest.mark.parametrize("warm, fields, d, kernel", ROUTES)
+def test_route_sends_each_spec_to_its_kernel(warm, fields, d, kernel):
+    """Shipped specs go to the warp kernel, the rest of the 16² class to the
+    one-chain-a-CTA kernels, larger grids nowhere; ``warp_takes`` is the
+    warp route."""
+    assert fused_mala.route(warm, **fields, d=d) == kernel
+    assert fused_mala.warp_takes(warm, **fields, d=d) == (kernel == "warp")

@@ -53,10 +53,10 @@ def agreeing(a, b):
     return np.abs(np.asarray(a) - np.asarray(b)).max(axis=-1) <= 1e-4
 
 
-def cold_pair(problem, cg_iters=12):
+def cold_pair(problem, cg_iters=12, **kw):
     aux_j, aux_t, y = problem
-    return (jdarcy.make_batched_misfit(aux_j, y, NOISE, cg_iters=cg_iters),
-            darcy_misfit_from_arrays(aux_t, y, NOISE, cg_iters=cg_iters))
+    return (jdarcy.make_batched_misfit(aux_j, y, NOISE, cg_iters=cg_iters, **kw),
+            darcy_misfit_from_arrays(aux_t, y, NOISE, cg_iters=cg_iters, **kw))
 
 
 def warm_pair(problem, precond="jacobi", cg_iters=6):
@@ -229,3 +229,63 @@ def test_warm_kernel_refuses_a_burgers_potential():
     with pytest.raises(TypeError, match="DarcyMisfitWarm"):
         fused_pcn._launch(pots[0], torch.zeros(32, K), PM, PS, BETA, 0, 2, 16,
                           aux_dim=32)
+
+
+# --- a warm spec the card runs one chain a CTA above 16² ------------------------
+# --- (fused_pcn_warm_kernel[layout32]) -----------------------------------------
+
+
+def test_pcn_warm_chain_on_a_20_grid_matches_jax():
+    """A 20×20 Jacobi warm misfit (6 CG), 16 KL modes, 64 chains: every input
+    f32, so at least 62 chains end within 1e-4 of JAX's, with the same
+    acceptance."""
+    _, aux_j = jdarcy.make_darcy_forward(n_grid=20, n_modes_per_dim=4, alpha=2.0,
+                                         field_scale=10.0)
+    aux_t = darcy.darcy_aux(n_grid=20, n_modes_per_dim=4, alpha=2.0, field_scale=10.0)
+    y = (0.05 * np.random.default_rng(301).standard_normal(16)).astype(np.float32)
+    kw = dict(cg_iters=6, precond="jacobi")
+    pot_j, aux_dim = jdarcy.make_batched_misfit_warm(aux_j, y, 0.05, **kw)
+    pot_t, _ = darcy_warm_misfit_from_arrays(aux_t, y, 0.05, **kw)
+    assert aux_dim == 400
+    assert fused_pcn.route(True, **pot_t.spec_fields, d=K) == "cta"
+    assert fused_pcn._darcy_stem(pot_t, True) == "fused_pcn_warm_kernel[layout32]"
+    out = run_both(jops.fused_pcn_chain_warm, ops.fused_pcn_chain_warm, pot_j, pot_t,
+                   positions(8), 8, n_steps=3, aux_dim=aux_dim)
+    ok = agreeing(out[1][0], out[0][0])
+    assert ok.sum() >= 62
+    np.testing.assert_array_equal(np.rint(out[1][1][ok] * 3), np.rint(out[0][1][ok] * 3))
+    assert 0.0 < out[1][1].mean() < 1.0
+
+
+def _f(n, K=64, precond="dst_trunc", modes=64, solver="cg"):
+    return dict(n=n, K=K, precond=precond, modes=modes, solver=solver)
+
+
+# the takes-rule (``pcn_route``'s mirror): warm, a spec's fields, d, the kernel
+ROUTES = [
+    (False, _f(16, precond="jacobi", modes=0), 64, "warp"),  # darcy_pcn_4096 --fused
+    (True, _f(16), 64, "warp"),  # darcy_pcn_warm
+    (True, _f(32, modes=128), 64, "cluster"),  # darcy32_pcn_warm
+    (True, _f(64, K=144, modes=256), 144, "cluster"),  # darcy64_pcn_warm
+    (False, _f(64, K=144, modes=256), 144, "cta"),
+    (False, _f(16, modes=128), 64, "cta"),
+    (True, _f(16, precond="jacobi", modes=0), 64, "cta"),
+    (True, _f(24, modes=128), 64, "cta"),
+    (True, _f(32, precond="jacobi", modes=0), 64, "cta"),
+    (True, _f(32, modes=100), 64, "cta"),
+    (True, _f(32, K=100, modes=128), 100, "cta"),
+    (True, _f(48, modes=128), 64, "cta"),
+    (True, _f(64, K=144, precond="dst", modes=0), 144, "cta"),
+    (True, _f(64, K=144, modes=100), 144, "cta"),
+    (True, _f(20, K=16, precond="jacobi", modes=0), 16, "cta"),
+    (True, _f(72, K=144), 144, None),  # above 64²
+    (True, _f(48, K=600), 600, None),  # more coordinates than Layout64's threads
+    (True, _f(24), 32, None),  # K != d
+]
+
+
+@pytest.mark.parametrize("warm, fields, d, kernel", ROUTES)
+def test_route_sends_each_spec_to_its_kernel(warm, fields, d, kernel):
+    """Shipped specs go to the warp and cluster kernels, the rest one chain a
+    CTA in the layout of its grid, a warm grid above 64² nowhere."""
+    assert fused_pcn.route(warm, **fields, d=d) == kernel

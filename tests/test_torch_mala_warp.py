@@ -77,14 +77,21 @@ def test_warp_geometry_refuses_shared_memory_over_the_limit(monkeypatch, warm, s
 
 
 def test_card_entry_points_refuse_before_any_launch():
-    """The launch calls the mirror first: a dst_trunc misfit raises its
-    ValueError before any misfit or sampler kernel runs (here on CPU
-    tensors, which the launch never gets further with)."""
+    """The launch calls the takes-rule first: a misfit on a 20×20 grid, which
+    no MALA kernel takes, raises its ValueError before any misfit or sampler
+    kernel runs (here on CPU tensors, which the launch never gets further
+    with); darcy_da_fused's 16×16 dst_trunc misfit, which the one-chain-a-CTA
+    kernel takes, passes the rule."""
+    from ip_mcmc_tpu_torch.convert import darcy_misfit_from_arrays
+    from ip_mcmc_tpu_torch.models import darcy
+
     p = configs.build("darcy_da_fused", "cpu")
-    pot = p.batched_potential_fn
-    with pytest.raises(ValueError, match="MALA kernel takes"):
+    aux = darcy.darcy_aux(n_grid=20, n_modes_per_dim=8, alpha=2.0, field_scale=10.0)
+    pot = darcy_misfit_from_arrays(aux, np.zeros(16, np.float32), 0.01, cg_iters=2)
+    with pytest.raises(ValueError, match="MALA kernels take"):
         fused_mala._launch(pot, torch.zeros(16, 64), p.prior.mean, p.prior.scale, 0.01, 0, 1,
                            16)
+    assert fused_mala.route(False, **p.batched_potential_fn.spec_fields, d=64) == "cta"
 
 
 # --- the orders of the sums ---------------------------------------------------
