@@ -64,6 +64,16 @@ Gaussians), times both, then drives the ported paths at full width:
                              in one launch, a block of chains a thread-block
                              cluster, then dense-prior pCN (K15), a chain a
                              warp
+    lingauss_elliptical fused, lingauss_fes fused, lingauss_pcn fused pcn /
+    mala / da_pcn / da3_pcn   the runner's fused branch on lingauss_pcn's
+                             problem at 2048 chains, the config's burn-in and
+                             samples, the misfit a LinearGaussianPotential
+                             (the DA levels sigma x 1.25 and x 1.1): ESS,
+                             FES, cold pCN, MALA, DA and three-level DA, one
+                             chain a CTA (check_linear_family_fused holds each
+                             kernel to its twin first); each posterior mean
+                             within 4 Monte Carlo standard errors of the
+                             conjugate one in every coordinate
     gauss2d_rwm, lingauss_pcn   the scan path through the CLI (no kernel)
     darcy_pcn_4096 scan, darcy64_pcn   the scan path on the single-particle
                              Darcy forward (plain PyTorch, no kernel), its
@@ -505,11 +515,12 @@ def compare_misfit(results, pot, U, *, variant, paths, tol, x0=None,
 
 def compare_chain(results, stem, recorded, kern, plain, *, steps, kernel_long,
                   plain_long, variant, paths, source, pots, per_step_ops,
-                  replaces=None):
+                  replaces=None, rate_atol=None):
     """One fused launch of ``steps`` steps against the plain loop from the
     same start and seed, then the time of one step of each as the slope up
     to a longer launch; appends the result row. ``kern`` and ``plain`` take
-    the number of steps."""
+    the number of steps. ``rate_atol``: the mean rates' tolerance, if not
+    RATE_ATOL."""
     name = f"{stem}<{'true' if recorded else 'false'}>"
     got, ref = kern(steps), plain(steps)
     torch.cuda.synchronize()
@@ -533,7 +544,7 @@ def compare_chain(results, stem, recorded, kern, plain, *, steps, kernel_long,
         line += (f", third output kernel {float(got[2].mean()):.4f} plain "
                  f"{float(ref[2].mean()):.4f}")
     print(line, flush=True)
-    if frac < MIN_CHAIN_FRAC or max(rate_err) > RATE_ATOL:
+    if frac < MIN_CHAIN_FRAC or max(rate_err) > (rate_atol or RATE_ATOL):
         raise AssertionError(f"{name} disagrees with its plain version")
     del got, ref
     ms = slope_ms(kern, steps, kernel_long, 3)
@@ -1734,11 +1745,18 @@ RESTORED_REPLACES = {ESS_CTA: "680", FES_CTA: "571", MALA_CTA: "784", MALA_WARM_
 
 
 # ... their instantiations as ptxas names them, mangled and demangled
+_DARCY16 = ("8DarcyPotINS_8Layout16ELi0EEE", "DarcyPot<ipx::Layout16, 0>")
 _DA_POTS = {DA16_CTA: ("8Layout16ELi0EEELb{b}ES3_E", "Layout16, 0>, {r}, ipx::DarcyPot<ipx::Layout16, 0>"),
             DA64_CTA: ("10DaLayout64ELi0EEELb{b}E", "DaLayout64, 0>, {r}, ")}
+# (ESS, FES, cold MALA and three-level DA are templates on the potential
+# type since the linear-Gaussian family took them)
+_CTA_POTS = {ESS_CTA: _DARCY16, FES_CTA: _DARCY16, MALA_CTA: _DARCY16,
+             DA3_CTA: ("16BurgersPotentialE", "BurgersPotential")}
 RESTORED_PTXAS = {
-    **{f"{stem}<{r}>": (f"{len(stem)}{stem}ILb{b}E", f"ipx::{stem}<{r}>")
-       for stem in (ESS_CTA, FES_CTA, MALA_CTA, MALA_WARM_CTA, DA3_CTA)
+    **{f"{stem}<{r}>": (f"{len(stem)}{stem}INS_{m}Lb{b}E", f"ipx::{stem}<ipx::{p}, {r}>")
+       for stem, (m, p) in _CTA_POTS.items() for b, r in ((0, "false"), (1, "true"))},
+    **{f"{MALA_WARM_CTA}<{r}>": (f"{len(MALA_WARM_CTA)}{MALA_WARM_CTA}ILb{b}E",
+                                 f"ipx::{MALA_WARM_CTA}<{r}>")
        for b, r in ((0, "false"), (1, "true"))},
     **{f"{stem}<{r}>": (f"fused_da_pcn_kernelINS_8DarcyPotINS_{m.format(b=b)}",
                         f"fused_da_pcn_kernel<ipx::DarcyPot<ipx::{d.format(r=r)}")
@@ -2784,6 +2802,10 @@ def run_richardson_da(richardson):
 SAMPLER_UNITS = ("lv_rk4.cu", "fused_da_pcn.cu", "fused_pcn.cu", "fused_ess.cu", "fused_fes.cu",
                  "fused_mala.cu", "fused_rwm.cu", "fused_da3_pcn.cu", "fused_pcn_dense.cu",
                  "fused_pcn_adapt.cu")
+# the units whose kernels on LinearGaussianPotential are the six fused
+# samplers of check_linear_family_fused (their rows are printed too)
+LINEAR_FUSED_UNITS = ("fused_pcn.cu", "fused_da_pcn.cu", "fused_ess.cu", "fused_fes.cu",
+                      "fused_mala.cu", "fused_da3_pcn.cu")
 
 
 def sampler_ptxas_report():
@@ -2795,8 +2817,9 @@ def sampler_ptxas_report():
     from ip_mcmc_tpu_torch.ops import _build
 
     rows = [r for r in _build.ptxas_report() if r["unit"] in SAMPLER_UNITS
-            and ("_group_kernel" in r["kernel"] or not any(
-                k in r["kernel"].lower() for k in ("lineargaussian", "linear_gaussian")))]
+            and ("_group_kernel" in r["kernel"] or r["unit"] in LINEAR_FUSED_UNITS
+                 or "misfit_grad_kernel" in r["kernel"] or not any(
+                     k in r["kernel"].lower() for k in ("lineargaussian", "linear_gaussian")))]
     if not rows:
         print("ptxas: no nvcc.log (the kernels were built by another process)", flush=True)
         return rows
@@ -2952,10 +2975,12 @@ def check_linear_family(problems, gen, results):
     pot, scale, chol = lingauss_potential()
     n, d = problems["lingauss_pcn"].n_chains, pot.K
     U = (torch.randn(d, n, generator=gen).cuda() * scale[:, None]).contiguous()
-    # no shipped path launches it: every sampler on the linear-Gaussian
-    # targets forms Φ at the start in its own kernel
-    compare_small_misfit(results, pot, U, variant="lingauss_pcn misfit, m = 16, d = 32 (no "
-                         "shipped path)", paths=[], tol=LINEAR_TOL, source="fused_rwm.cu",
+    # K14-K16 form Φ at the start in their own kernels; the six samplers of
+    # LINEAR_FUSED but MALA get it from this one
+    compare_small_misfit(results, pot, U, variant="lingauss_pcn misfit, m = 16, d = 32 (the "
+                         "start positions of the fused samplers of LINEAR_FUSED but MALA)",
+                         paths=[p for p, c in LINEAR_FUSED.items() if c[3] != LIN_MALA],
+                         tol=LINEAR_TOL, source="fused_rwm.cu",
                          replaces=JAX_OPS + "99",
                          bound_row=bound(n * linear_ops(pot),
                                          4 * n * (pot.K + 1) + constant_bytes(pot)))
@@ -3472,6 +3497,330 @@ def run_lingauss_fused(problem):
     return out
 
 
+# --- the six fused samplers on the linear-Gaussian potential ------------------
+
+# The fused samplers that take a LinearGaussianPotential one chain a CTA
+# (csrc/gaussian_potential.cuh linear_cta_takes), and the kernels of their
+# start positions: Phi (pCN, ESS, FES, DA, DA3) and Phi with its gradient
+# (MALA), one draw a CTA
+LIN_PCN, LIN_ESS, LIN_FES = ("fused_pcn_kernel[linear]", "fused_ess_kernel[linear]",
+                             "fused_fes_kernel[linear]")
+LIN_MALA, LIN_DA, LIN_DA3 = ("fused_mala_kernel[linear]", "fused_da_pcn_kernel[linear]",
+                             "fused_da3_pcn_kernel[linear]")
+LINEAR_MISFIT, LINEAR_GRAD = "linear_gaussian_misfit_kernel", "linear_gaussian_misfit_grad_kernel"
+# MALA's step on lingauss_pcn's posterior (the prior's KL scale sqrt(lambda)
+# folded in), chosen for an acceptance in 0.5-0.8: 0.73 at 2048 chains on
+# the CPU's plain loop, the config's burn-in and samples
+MALA_LINEAR_STEP = 0.02
+# the delayed-acceptance levels: the same A with sigma scaled (surrogate,
+# middle)
+SURR_SIGMA, MID_SIGMA = 1.25, 1.1
+# lingauss_pcn's problem (d = 32, m = 16, sigma 0.05, lingauss32.npz, 2048
+# chains, the config's burn-in 500 and 1000 samples) through the runner's
+# fused branch on each sampler: path -> (config, configs.build overrides
+# besides the potentials, sigma factors of the other levels, kernel stem)
+LINEAR_FUSED = {
+    "lingauss_elliptical fused": (
+        "lingauss_elliptical", {"kernel_params": {"fused": True, "max_shrink": 30}}, {},
+        LIN_ESS),
+    "lingauss_fes fused": (
+        "lingauss_fes", {"kernel_params": {"fused": True, "n_low_modes": 6, "pcn_beta": 0.25,
+                                           "stretch_a": 2.0}}, {}, LIN_FES),
+    # the fused branch ignores kernel_params["adapt"], as JAX's: beta 0.2
+    "lingauss_pcn fused pcn": (
+        "lingauss_pcn", {"kernel_params": {"fused": True, "beta": 0.2, "adapt": True}}, {},
+        LIN_PCN),
+    "lingauss_pcn fused mala": (
+        "lingauss_pcn", {"kernel": "mala",
+                         "kernel_params": {"fused": True, "step_size": MALA_LINEAR_STEP}}, {},
+        LIN_MALA),
+    "lingauss_pcn fused da_pcn": (
+        "lingauss_pcn", {"kernel": "da_pcn",
+                         "kernel_params": {"fused": True, "beta": 0.2, "subchain_len": 4}},
+        {"batched_surrogate_fn": SURR_SIGMA}, LIN_DA),
+    "lingauss_pcn fused da3_pcn": (
+        "lingauss_pcn", {"kernel": "da_pcn",
+                         "kernel_params": {"fused": True, "beta": 0.2, "k_inner": 4,
+                                           "k_mid": 2}},
+        {"batched_mid_fn": MID_SIGMA, "batched_surrogate_fn": SURR_SIGMA}, LIN_DA3),
+}
+# the JAX step builder each kernel replaces (ip_mcmc_tpu/ops/fused_mcmc.py)
+LINEAR_FUSED_REPLACES = {LIN_PCN: "303", LIN_ESS: "680", LIN_FES: "571", LIN_MALA: "784",
+                         LIN_DA: "325", LIN_DA3: "391"}
+# a path's posterior mean within this many Monte Carlo standard errors of
+# the conjugate one in every coordinate (each coordinate's error from the
+# run's ESS)
+LINEAR_Z = 4.0
+# The six kernels' instantiations as ptxas names them, mangled and demangled
+_LIN = "NS_23LinearGaussianPotentialE"
+LINEAR_FUSED_PTXAS = {
+    **{f"{stem}<{r}>": (f"{len(k)}{k}I{_LIN}Lb{b}E", f"ipx::{k}<ipx::LinearGaussianPotential, {r}")
+       for stem, k in ((LIN_PCN, "fused_pcn_kernel"), (LIN_ESS, "fused_ess_kernel"),
+                       (LIN_FES, "fused_fes_kernel"), (LIN_MALA, "fused_mala_kernel"),
+                       (LIN_DA, "fused_da_pcn_kernel"), (LIN_DA3, "fused_da3_pcn_kernel"))
+       for b, r in ((0, "false"), (1, "true"))},
+    LINEAR_GRAD: ("34linear_gaussian_misfit_grad_kernel", "linear_gaussian_misfit_grad_kernel("),
+}
+
+
+def linear_fused_kernels(path):
+    """The kernels a path must launch: its start positions' and its
+    sampler's, plain and recorded."""
+    stem = LINEAR_FUSED[path][3]
+    return (LINEAR_GRAD if stem == LIN_MALA else LINEAR_MISFIT, f"{stem}<false>",
+            f"{stem}<true>")
+
+
+def linear_fused_problem(path, device="cuda"):
+    """The path's problem: ``configs.build`` with lingauss_pcn's misfit as a
+    LinearGaussianPotential (``convert.linear_gaussian_from_arrays`` on
+    ``configs.lingauss_arrays()``) and the path's overrides."""
+    from ip_mcmc_tpu_torch import configs
+    from ip_mcmc_tpu_torch.convert import linear_gaussian_from_arrays
+
+    config, over, levels, _ = LINEAR_FUSED[path]
+    A, _, y, sigma = configs.lingauss_arrays()
+    level = lambda f: linear_gaussian_from_arrays(A, y, sigma * f).to(device)  # noqa: E731
+    return configs.build(config, device, batched_potential_fn=level(1.0), **over,
+                         **{k: level(f) for k, f in levels.items()})
+
+
+def compare_linear_grad(results, pot, U, *, variant, paths):
+    """``linear_gaussian_misfit_grad_kernel`` (Phi and its gradient, one
+    draw a CTA) against the plain version on the same draws: Phi to
+    LINEAR_TOL, each gradient coordinate within 1e-5 of sum_i |A_ik w_i|
+    (its terms' magnitudes, w the weights r / sigma); timed as
+    compare_small_misfit times a misfit; appends the result row."""
+    from ip_mcmc_tpu_torch.ops import _build
+
+    name = pot.grad_kernel_label
+    kern, plain = (lambda: pot.value_and_grad(U)), (lambda: pot._value_and_grad_plain(U))
+    before = _build.launch_counts[name]
+    (phi, g), (phi_ref, g_ref) = kern(), plain()
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1, f"{name} did not launch"
+    B = U.shape[1]
+    assert phi.shape == (B,) and g.shape == U.shape
+    assert bool(torch.isfinite(phi).all() and torch.isfinite(g).all()), f"{name}: non-finite"
+    rel = ((phi - phi_ref).abs() / phi_ref.abs()).cpu()
+    line, bad, frac = within(rel, LINEAR_TOL, "Phi")
+    w = (pot.data[:, None] - pot.A @ (U - pot.center[:, None])) / pot.noise[:, None] ** 2
+    scale = pot.A.abs().T @ w.abs()
+    g_err = float(((g - g_ref).abs() / scale.clamp_min(1e-30)).max())
+    print(f"{name} ({variant}, {B} draws): {line}; gradient error relative to its terms "
+          f"{g_err:.2e}", flush=True)
+    if bad or g_err > 1e-5:
+        raise AssertionError(f"{name} ({variant}) disagrees with its plain version")
+    wide = U.repeat(1, 8)
+    ms = cuda_time_ms(lambda: pot.value_and_grad(wide), 50) / 8
+    call_ms, plain_ms = cuda_time_ms(kern, 200), cuda_time_ms(plain, 3)
+    dev_ms = device_ms(kern, 50, name)
+    d, m = pot.K, pot.m
+    row = {
+        "name": name, "variant": variant, "route": "cuda", "source": SRC + "fused_rwm.cu",
+        "replaces": "none: the value and gradient that the step builder of "
+                    + JAX_OPS + "784 takes at the start positions (jax.vjp, "
+                    + JAX_OPS + "99)",
+        "paths": paths, "max_abs_err": float((g - g_ref).abs().max()),
+        "max_rel_err": float(rel.max()), "frac_within_rtol": frac,
+        "ms": ms, "call_ms": call_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "ms_unit": (f"{B} draws: ms per {B} of one call of {8 * B}, call_ms and plain_ms "
+                    f"one call of {B}, device_ms the profiler's kernel time of one call "
+                    f"of {B}"),
+        **bound(B * (linear_ops(pot) + Ops(2 * d * m + m)),
+                4 * B * (2 * d + 1) + constant_bytes(pot)),
+        "library_ms": None,
+    }
+    dev = "not recorded" if dev_ms is None else f"{dev_ms:.5f}"
+    print(f"  time per {B} draws: kernel {ms:.5f} ms (one call of {B} through the "
+          f"wrapper {call_ms:.4f}, on the device {dev}), plain {plain_ms:.3f} ms, bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']})", flush=True)
+    results.append(row)
+
+
+def check_linear_family_fused(problems, gen, results):
+    """The six fused samplers on lingauss_pcn's misfit at its 2048 chains,
+    each kernel (plain and recorded) against its plain loop from the same
+    start and seed: at least 99 % of the chains within CHAIN_ATOL and every
+    mean rate within 1e-4; a step timed as the slope between two launch
+    lengths. The path's own settings (LINEAR_FUSED), blocks of 512 as the
+    runner's fused branch; the start-position gradient kernel. (The C
+    routes against their mirrors: the card tests, test_routes_agree_in_c_and_python.)"""
+    from ip_mcmc_tpu_torch.ops import fused_da3_pcn as da3
+    from ip_mcmc_tpu_torch.ops import fused_da_pcn as da
+    from ip_mcmc_tpu_torch.ops import fused_ess, fused_fes, fused_mala, fused_pcn
+
+    t0 = time.perf_counter()
+    probs = {path: problems[path] for path in LINEAR_FUSED}
+    pot = probs["lingauss_pcn fused pcn"].batched_potential_fn
+    p0 = probs["lingauss_pcn fused pcn"]
+    n, d = p0.n_chains, pot.K
+    pm, ps = p0.prior.mean, p0.prior.scale
+    pos = p0.init_positions(gen, n).cuda()
+    block = min(512, n)
+    draws = Ops((RNG_OPS_PER_DRAW + 4) * d)
+    lin = linear_ops(pot)
+
+    def compare(stem, recorded, kern, plain, *, steps, long, plain_long, variant, path, levels,
+                ops, source):
+        compare_chain(results, stem, recorded, kern, plain, steps=steps, kernel_long=long,
+                      plain_long=plain_long, variant=f"{variant}, block {block}", paths=[path],
+                      source=source, pots=levels, per_step_ops=ops,
+                      replaces=JAX_OPS + LINEAR_FUSED_REPLACES[stem], rate_atol=1e-4)
+
+    for recorded in (False, True):
+        kw = {"thin": 1} if recorded else {}
+        # cold pCN
+        beta = probs["lingauss_pcn fused pcn"].kernel_params["beta"]
+        compare(LIN_PCN, recorded,
+                launched(f"{LIN_PCN}<{str(recorded).lower()}>", lambda s, kw=kw: fused_pcn._launch(
+                    pot, pos, pm, ps, beta, 73, s, block, **kw)),
+                lambda s, kw=kw: fused_pcn._run_plain(pot._forward_plain, pos, pm, ps, beta, 73,
+                                                      s, block, **kw),
+                steps=20, long=1020, plain_long=60, variant=f"beta {beta}",
+                path="lingauss_pcn fused pcn", levels=(pot,), ops=lin + draws,
+                source="fused_pcn.cu")
+        # MALA: its step size, the prior folded in
+        eps = probs["lingauss_pcn fused mala"].kernel_params["step_size"]
+        compare(LIN_MALA, recorded,
+                launched(f"{LIN_MALA}<{str(recorded).lower()}>", lambda s, kw=kw: fused_mala._launch(
+                    pot, pos, pm, ps, eps, 79, s, block, **kw)),
+                lambda s, kw=kw: fused_mala._run_plain(pot._forward_plain, pos, pm, ps, eps, 79,
+                                                       s, block, **kw),
+                steps=20, long=1020, plain_long=60, variant=f"step size {eps}, prior folded in",
+                path="lingauss_pcn fused mala", levels=(pot,),
+                ops=lin + Ops(2 * d * pot.m + pot.m + 12 * d) + draws, source="fused_mala.cu")
+
+    # ESS: what this run's data needs, the evaluations of the timed steps
+    shrink = probs["lingauss_elliptical fused"].kernel_params["max_shrink"]
+    steps, long = 20, 320
+    counting = CountingPotential(pot, shrink)
+    fused_ess._run_plain(counting, pos, pm, ps, 83, long, shrink, block)
+    evals = sum(counting.per_step[steps:]) / (long - steps)
+    print(f"{LIN_ESS}: {evals:.3f} evaluations per step of a budget of {shrink} in steps "
+          f"{steps + 1}-{long}", flush=True)
+    for recorded in (False, True):
+        kw = {"thin": 1} if recorded else {}
+        compare(LIN_ESS, recorded,
+                launched(f"{LIN_ESS}<{str(recorded).lower()}>", lambda s, kw=kw: fused_ess._launch(
+                    pot, pos, pm, ps, 83, s, shrink, block, **kw)),
+                lambda s, kw=kw: fused_ess._run_plain(pot._forward_plain, pos, pm, ps, 83, s,
+                                                      shrink, block, **kw),
+                steps=steps, long=long, plain_long=40, variant=f"max_shrink {shrink}",
+                path="lingauss_elliptical fused", levels=(pot,),
+                ops=evals * (lin + Ops(2 * d)) + draws, source="fused_ess.cu")
+        results[-1]["evals_per_step"] = evals
+
+    # FES: two launches a step (one a lane parity), two evaluations a chain
+    kp = probs["lingauss_fes fused"].kernel_params
+    fes_args = (pos, pm, ps, kp["n_low_modes"], 89, kp["pcn_beta"], kp["stretch_a"])
+    for recorded in (False, True):
+        kw = {"thin": 1} if recorded else {}
+        compare(LIN_FES, recorded,
+                launched(f"{LIN_FES}<{str(recorded).lower()}>",
+                         lambda s, kw=kw: fused_fes._launch(pot, *fes_args, s, block, **kw),
+                         per_step=2),
+                lambda s, kw=kw: fused_fes._run_plain(pot._forward_plain, *fes_args, s, block,
+                                                      **kw),
+                steps=8, long=208, plain_long=24,
+                variant=f"M = {kp['n_low_modes']}, a {kp['stretch_a']}, pCN beta "
+                        f"{kp['pcn_beta']}; two launches a step",
+                path="lingauss_fes fused", levels=(pot,), ops=2 * lin + draws,
+                source="fused_fes.cu")
+
+    # DA and three-level DA on the same A with sigma scaled
+    pda, pda3 = probs["lingauss_pcn fused da_pcn"], probs["lingauss_pcn fused da3_pcn"]
+    surr, mid = pda.batched_surrogate_fn, pda3.batched_mid_fn
+    k = pda.kernel_params["subchain_len"]
+    k1, k2 = pda3.kernel_params["k_inner"], pda3.kernel_params["k_mid"]
+    beta_da, beta_da3 = pda.kernel_params["beta"], pda3.kernel_params["beta"]
+    for recorded in (False, True):
+        kw = {"thin": 1} if recorded else {}
+        plain_da = da._run_plain_recorded if recorded else da._run_plain
+        compare(LIN_DA, recorded,
+                launched(f"{LIN_DA}<{str(recorded).lower()}>", lambda s, kw=kw: da._launch(
+                    pot, surr, pos, pm, ps, beta_da, 97, s, k, block, **kw)),
+                (lambda s: plain_da(pot._forward_plain, surr._forward_plain, pos, pm, ps,
+                                    beta_da, 97, s, 1, k, block)) if recorded else
+                (lambda s: plain_da(pot._forward_plain, surr._forward_plain, pos, pm, ps,
+                                    beta_da, 97, s, k, block)),
+                steps=10, long=410, plain_long=30,
+                variant=f"k = {k}, surrogate sigma x {SURR_SIGMA}",
+                path="lingauss_pcn fused da_pcn", levels=(pot, surr),
+                ops=k * (lin + draws) + lin, source="fused_da_pcn.cu")
+        compare(LIN_DA3, recorded,
+                launched(f"{LIN_DA3}<{str(recorded).lower()}>", lambda s, kw=kw: da3._launch(
+                    pot, mid, surr, pos, pm, ps, beta_da3, 101, s, k1, k2, block, **kw)),
+                lambda s, kw=kw: da3._run_plain(pot._forward_plain, mid._forward_plain,
+                                                surr._forward_plain, pos, pm, ps, beta_da3, 101,
+                                                s, k1, k2, block, **kw),
+                steps=10, long=410, plain_long=30,
+                variant=f"k_inner {k1}, k_mid {k2}, middle sigma x {MID_SIGMA}, surrogate "
+                        f"sigma x {SURR_SIGMA}",
+                path="lingauss_pcn fused da3_pcn", levels=(pot, mid, surr),
+                ops=k1 * k2 * (lin + draws) + k2 * lin + lin, source="fused_da3_pcn.cu")
+
+    U = pos.T.contiguous()
+    compare_linear_grad(results, pot, U, variant="lingauss_pcn misfit, m = 16, d = 32 (cold "
+                        "MALA's start positions)", paths=["lingauss_pcn fused mala"])
+    print(f"check_linear_family_fused: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def run_linear_fused(path, problem, n_samples):
+    """One run of the path through ``runner.run_problem`` (the runner's
+    fused branch: a launch for the burn-in, a recorded launch for the
+    samples, twice); its posterior mean against the conjugate one, each
+    coordinate within LINEAR_Z Monte Carlo standard errors (the closed-form
+    posterior variance over the run's ESS of that coordinate, which the
+    runner's summary computes and this keeps). Returns the metrics, with
+    ``mean_error_vs_exact`` and ``max_z_vs_exact``."""
+    from ip_mcmc_tpu_torch import configs, runner
+    from ip_mcmc_tpu_torch.models import linear
+
+    kept = {}
+    summarize = runner._summarize_timed
+
+    def keep(samples):
+        summ, s = summarize(samples)
+        kept.update(summ)
+        return summ, s
+
+    runner._summarize_timed = keep
+    try:
+        m = runner.run_problem(problem, problem.batched_potential_fn.A.device,
+                               n_samples=n_samples)
+    finally:
+        runner._summarize_timed = summarize
+    A, lam, y, sigma = configs.lingauss_arrays()
+    exact, cov = linear.conjugate_posterior(A, np.zeros(problem.dim), lam,
+                                            sigma**2 * np.ones(len(y)), y)
+    got = np.asarray(m["posterior_mean"])
+    z = np.abs(got - exact) / np.sqrt(np.diag(cov) / kept["ess"].cpu().numpy())
+    m["mean_error_vs_exact"] = float(np.abs(got - exact).max())
+    m["max_z_vs_exact"] = float(z.max())
+    if not float(z.max()) <= LINEAR_Z:
+        raise AssertionError(f"{path}: posterior mean {float(z.max()):.2f} Monte Carlo "
+                             f"standard errors from the conjugate one (coordinate "
+                             f"{int(z.argmax())}; limit {LINEAR_Z})")
+    return m
+
+
+def report_linear_fused(path_metrics):
+    """The six linear-Gaussian fused paths beside the scan path of their
+    config: run_s, the rates, min_ess, the error of the posterior mean
+    against the conjugate one (and in Monte Carlo standard errors)."""
+    keys = ("run_s", "warmup_s", "accept_rate", "inner_accept_rate", "mid_accept_rate",
+            "stretch_accept_rate", "min_ess", "max_rhat", "mean_error_vs_exact",
+            "max_z_vs_exact")
+    out = {}
+    for path, (config, *_rest) in LINEAR_FUSED.items():
+        m, scan = path_metrics[path], path_metrics.get(config, {})
+        out[path] = {**{k: m[k] for k in keys if k in m},
+                     "scan_run_s": scan.get("run_s"),
+                     "scan_mean_error_vs_exact": scan.get("mean_error_vs_exact")}
+        print(f"{path}: " + json.dumps(out[path]), flush=True)
+    return out
+
 # --- the single-particle Darcy forward (the scan path, plain PyTorch) ---------
 
 # Φ on the card against the same plain code on the CPU: f32 in other
@@ -3835,6 +4184,10 @@ PATHS = {
     "darcy_da_pcn": ([], ("scan_da_pcn_step[cuda]",)),
     "lingauss_elliptical": ([], ("scan_ess_step[cuda]",)),
     "lingauss_fes": ([], ("scan_fes_step[cuda]",)),
+    # the six fused samplers on lingauss_pcn's misfit as a
+    # LinearGaussianPotential, one chain a CTA, through runner.run_problem
+    # (run_linear_fused); each against the conjugate posterior
+    **{path: ([], linear_fused_kernels(path)) for path in LINEAR_FUSED},
     # the ODE gradient samplers: each gradient one launch of the
     # Lotka-Volterra kernel
     "ode_mala": ([], ("scan_mala_step[cuda]", LV)),
@@ -3865,7 +4218,8 @@ PARALLEL_PATHS = (PARALLEL_DA, *COMPOSED)
 PATH_CONFIG = {PARALLEL_DA: "darcy_da_fused",
                "darcy_pcn_4096 scan": "darcy_pcn_4096",
                "burgers_pcn scan": "burgers_pcn",
-               "burgers_multitime_pcn scan": "burgers_multitime_pcn"}
+               "burgers_multitime_pcn scan": "burgers_multitime_pcn",
+               **{path: cfg[0] for path, cfg in LINEAR_FUSED.items()}}
 SCAN_PATHS = ("gauss2d_rwm", "lingauss_pcn", "darcy_pcn_4096 scan", "darcy64_pcn",
               "burgers_pcn scan", "burgers_multitime_pcn scan", "darcy_da_pcn",
               "lingauss_elliptical", "lingauss_fes", "ode_mala", "ode_hmc", "ode_nuts",
@@ -3960,6 +4314,8 @@ def drive_path(config, problem, n_samples):
         kp = {**problem.kernel_params, **{k: v for k, v in short.items() if k != "burn_in"}}
         cut = dataclasses.replace(problem, burn_in=short["burn_in"], kernel_params=kp)
         run = lambda: runner.run_problem(cut, "cuda", seed=0, n_samples=n_samples)  # noqa: E731
+    elif config in LINEAR_FUSED:
+        run = lambda: run_linear_fused(config, problem, n_samples)  # noqa: E731
     elif config in VI_STEPS:
         kp = dict(problem.kernel_params)
         if "vi_init" in kp:
@@ -4366,7 +4722,8 @@ def main() -> int:
           f"{len(_build.sources()[1])} sources in parallel)", flush=True)
     ptxas = sampler_ptxas_report()
 
-    problems = {name: configs.build(config_of(name), "cuda") for name in PATHS}
+    problems = {name: (linear_fused_problem(name) if name in LINEAR_FUSED
+                       else configs.build(config_of(name), "cuda")) for name in PATHS}
     gen = torch.Generator().manual_seed(1234)
     results = []
     check_da(problems["darcy_da_fused"], gen, results)
@@ -4393,6 +4750,8 @@ def main() -> int:
     attach_ptxas(results, ptxas, {**MALA_PTXAS, **PCN_PTXAS, **BURGERS_PTXAS, **MISFIT_PTXAS,
                                   **RESTORED_PTXAS})
     check_linear_family(problems, gen, results)
+    check_linear_family_fused(problems, gen, results)
+    attach_ptxas(results, ptxas, LINEAR_FUSED_PTXAS)
     check_linear_d2(gen, results)
     check_linear_group()
     check_pcn_adapt_group()
@@ -4417,6 +4776,7 @@ def main() -> int:
     counts.update(richardson_counts)
 
     new_paths = {}  # the SMC, VI and POD paths' metrics, for the result line
+    path_metrics = {}
     # the fourteen fused CLI paths, as shipped unless their predicted time
     # exceeds the budget: then every path's n_samples is cut by the same
     # factor; the scan paths as shipped but for SCAN_SAMPLES and SCAN_SHORT
@@ -4449,8 +4809,8 @@ def main() -> int:
         if config in PARALLEL_PATHS:
             continue  # run_parallel_phase's, below
         n_samples = problem.n_samples
-        if config in SMC_PATHS + VI_PATHS:
-            pass  # no samples: particles or ADVI steps
+        if config in SMC_PATHS + VI_PATHS + tuple(LINEAR_FUSED):
+            pass  # no samples (particles or ADVI steps), or the config's own
         elif config not in SCAN_PATHS:
             n_samples = max(8, int(problem.n_samples * cut))
         else:
@@ -4470,12 +4830,14 @@ def main() -> int:
             print(f"{config}: ADVI num_steps cut from {shipped} to {VI_STEPS[config]} to "
                   "fit the time limit (Monte Carlo batch unchanged)", flush=True)
         counts[config], metrics = drive_path(config, problem, n_samples)
+        path_metrics[config] = metrics
         if config == "darcy64_da_fused":
             darcy64_da = report_da64(problem, metrics)
         if config in SMC_PATHS + VI_PATHS + ("darcy_advi_warmstart", "darcy_da_pod",
                                              "darcy_da_pod_online"):
             new_paths[config] = {k: v for k, v in metrics.items() if k != "posterior_mean"}
     smc = check_smc_evidence(new_paths, counts, problems["darcy_smc_warm"])
+    linear_oracle = report_linear_fused(path_metrics)
     # the multi-device layer, darcy_da_fused at the samples its CLI run took
     parallel_phase = run_parallel_phase(problems, counts, max(8, int(
         problems[PARALLEL_DA].n_samples * cut)))
@@ -4508,7 +4870,8 @@ def main() -> int:
                       "smc_warm_misfit": smc_warm_misfit,
                       "smc_vi_pod_runs": new_paths, "checkpoint": checkpoint_phase,
                       "cli_flags": cli_flags, "parallel": parallel_phase,
-                      "examples": examples_phase, "ptxas": ptxas}))
+                      "examples": examples_phase, "linear_oracle": linear_oracle,
+                      "ptxas": ptxas}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

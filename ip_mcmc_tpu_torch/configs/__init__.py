@@ -125,11 +125,17 @@ def register(fn):
     return fn
 
 
-def build(name: str, device) -> Problem:
-    """Build a named Problem with its tensors on ``device``."""
+def build(name: str, device, **overrides) -> Problem:
+    """Build a named Problem with its tensors on ``device``; each override
+    that is not None replaces that field (as the JAX package's ``build``
+    does, e.g. ``batched_potential_fn=..., kernel_params=...``)."""
     if name not in REGISTRY:
         raise KeyError(f"unknown config '{name}'; have {sorted(REGISTRY)}")
-    return REGISTRY[name](torch.device(device))
+    p = REGISTRY[name](torch.device(device))
+    for k, v in overrides.items():
+        if v is not None:
+            setattr(p, k, v)
+    return p
 
 
 # --- the analytic and linear-Gaussian configs (the scan path) -----------------

@@ -16,12 +16,16 @@
 //                                         misfit spec, one draw a CTA.
 //   fused_da3_pcn_warp_kernel<RECORD>     the whole n_steps loop in one
 //                                         launch, one chain a warp.
-//   fused_da3_pcn_kernel<RECORD>          the same one chain a CTA, on the
+//   fused_da3_pcn_kernel<Pot, RECORD>     the same one chain a CTA, on the
 //                                         levels the warp kernel leaves:
 //                                         any three Burgers levels of up to
 //                                         128 cells, K = d up to 128.
 //                                         da3_route sends each spec to one
-//                                         of the two.
+//                                         of the two. Pot
+//                                         LinearGaussianPotential: any three
+//                                         linear-Gaussian levels that
+//                                         linear_cta_takes
+//                                         (ipx_fused_da3_pcn_linear).
 //
 // Per outer step: k_mid times (k_inner pCN steps against the coarse
 // potential, then a middle correction), then one fine correction. Phi at
@@ -55,6 +59,7 @@
 
 #include "burgers_misfit.cuh"
 #include "fused_scaffold.cuh"
+#include "gaussian_potential.cuh"
 
 namespace ipx {
 
@@ -165,8 +170,9 @@ constexpr int kDa3D = kBurgersWarpK;  // coordinates of a chain, one a lane of l
 // bases and means
 constexpr int kDa3WarpFloats = 4 * kDa3D + kBurgersWarpCells;
 
-struct Da3Args {
-  IpxBurgersSpec fine, mid, coarse;
+template <class Spec>
+struct Da3ArgsT {
+  Spec fine, mid, coarse;
   IpxChainArgs chain;
   const float* phi0;   // (n,) fine Phi at pos_in
   const float* mid0;   // (n,) middle Phi at pos_in
@@ -175,6 +181,7 @@ struct Da3Args {
   int k_inner, k_mid;
   float* mid_rate;  // (n,) middle-correction acceptance rate
 };
+using Da3Args = Da3ArgsT<IpxBurgersSpec>;
 
 // K13 on a warp. Tags as in the JAX step builder (l.442-466): inner step
 // (j2, j1) draws its normals with t = 4 (j2 k_inner + j1) (keys t, t + 1)
@@ -271,14 +278,16 @@ __global__ void __launch_bounds__(32 * Da3WarpDesign::kWarps, kDa3WarpMinCtas)
 }
 
 // K13 one chain a CTA, with Da3WarpStep's tags: thread t < d holds
-// coordinate t of the four positions.
+// coordinate t of the four positions; the levels are of the potential
+// type Pot (BurgersPotential, LinearGaussianPotential).
+template <class Pot>
 struct Da3Step {
-  const Da3Args& a;
+  const Da3ArgsT<typename Pot::Spec>& a;
   float* pos0;  // outer state
   float* pos;   // middle-level state
   float* p1;    // inner (coarse) state
   float* prop;  // proposal
-  BurgersSmem ws;
+  typename Pot::Workspace ws;
   float phi0, mid0, surr0, mid_acc;
 
   __device__ void init(const ChainCtx& c) {
@@ -301,14 +310,14 @@ struct Da3Step {
           prop[c.t] = c.mean_t + a.contraction * (p1[c.t] - c.mean_t) + a.beta * xi;
         }
         __syncthreads();
-        const float sp = burgers_phi(a.coarse, prop, ws);
+        const float sp = Pot::phi(a.coarse, prop, ws);
         if (logf(c.uniform(i, tag + 2u)) < s1 - sp) {  // the same in every thread
           s1 = sp;
           if (c.own) p1[c.t] = prop[c.t];
         }
       }
       __syncthreads();
-      const float mid_end = burgers_phi(a.mid, p1, ws);
+      const float mid_end = Pot::phi(a.mid, p1, ws);
       float lr = (mid_phi - mid_end) - (surr - s1);  // coarse -> middle correction
       if (isnan(lr)) lr = -INFINITY;
       if (logf(c.uniform(i, 4u * k1 * k2 + 4u * j2 + 2u)) < lr) {
@@ -321,7 +330,7 @@ struct Da3Step {
       }
     }
     __syncthreads();
-    const float pe = burgers_phi(a.fine, pos, ws);
+    const float pe = Pot::phi(a.fine, pos, ws);
     float log_ratio = (phi0 - pe) - (mid0 - mid_phi);  // middle -> fine correction
     if (isnan(log_ratio)) log_ratio = -INFINITY;
     const bool accept = logf(c.uniform(i, 4u * k1 * k2 + 4u * k2 + 2u)) < log_ratio;
@@ -337,19 +346,19 @@ struct Da3Step {
   }
 };
 
-template <bool RECORD>
-__global__ void __launch_bounds__(BurgersPotential::kMaxThreads, BurgersPotential::kMinCtasPerSm)
-    fused_da3_pcn_kernel(const __grid_constant__ Da3Args a) {
+template <class Pot, bool RECORD>
+__global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
+    fused_da3_pcn_kernel(const __grid_constant__ Da3ArgsT<typename Pot::Spec> a) {
   extern __shared__ float da3_smem[];
-  using Pot = BurgersPotential;
   const int d = a.chain.d;
-  const Pot::Extent extent =
+  const typename Pot::Extent extent =
       Pot::join(Pot::extent(a.fine), Pot::join(Pot::extent(a.mid), Pot::extent(a.coarse)));
   float* pos0 = da3_smem;
   float* pos = pos0 + d;
   float* p1 = pos + d;
   float* prop = p1 + d;
-  Da3Step step{a, pos0, pos, p1, prop, Pot::carve(prop + d, extent), 0.0f, 0.0f, 0.0f, 0.0f};
+  Da3Step<Pot> step{a,   pos0, pos,  p1,   prop, Pot::carve(prop + d, extent),
+                    0.0f, 0.0f, 0.0f, 0.0f};
   run_chain<RECORD>(a.chain, step, pos0);
   if (threadIdx.x == 0)
     a.mid_rate[blockIdx.x] =
@@ -382,11 +391,12 @@ inline int da3_route(const IpxBurgersSpec& fine, const IpxBurgersSpec& mid,
   return kRouteCta;
 }
 
-// Launches fused_da3_pcn_kernel<RECORD> (RECORD: chain.samples given) on
-// levels of da3_route's kRouteCta.
-inline int launch_da3_cta(const Da3Args& a, void* stream) {
-  using Pot = BurgersPotential;
-  const Pot::Extent extent =
+// Launches fused_da3_pcn_kernel<Pot, RECORD> (RECORD: chain.samples given)
+// on levels of da3_route's (or, linear-Gaussian, da3_linear_route's)
+// kRouteCta.
+template <class Pot>
+int launch_da3_cta(const Da3ArgsT<typename Pot::Spec>& a, void* stream) {
+  const typename Pot::Extent extent =
       Pot::join(Pot::extent(a.fine), Pot::join(Pot::extent(a.mid), Pot::extent(a.coarse)));
   const int threads = chain_threads(a.chain, extent.cells, a.fine.K, Pot::kMaxThreads);
   if (threads == 0 || a.k_inner < 0 || a.k_mid < 0) return cudaErrorInvalidValue;
@@ -394,9 +404,21 @@ inline int launch_da3_cta(const Da3Args& a, void* stream) {
   // state (4d) + misfit workspace
   const size_t smem = sizeof(float) * (4 * a.chain.d + Pot::workspace_floats(extent));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.chain.samples != nullptr) fused_da3_pcn_kernel<true><<<a.chain.n, threads, smem, st>>>(a);
-  else fused_da3_pcn_kernel<false><<<a.chain.n, threads, smem, st>>>(a);
+  if (a.chain.samples != nullptr)
+    fused_da3_pcn_kernel<Pot, true><<<a.chain.n, threads, smem, st>>>(a);
+  else
+    fused_da3_pcn_kernel<Pot, false><<<a.chain.n, threads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel three linear-Gaussian levels go to: one chain a CTA when
+// linear_cta_takes every level, else none. Mirrored by
+// ip_mcmc_tpu_torch/ops/_scaffold.py linear_route.
+inline int da3_linear_route(const IpxGaussianSpec& fine, const IpxGaussianSpec& mid,
+                            const IpxGaussianSpec& coarse, int d) {
+  return linear_cta_takes(fine, d) && linear_cta_takes(mid, d) && linear_cta_takes(coarse, d)
+             ? kRouteCta
+             : kRouteRefused;
 }
 
 // What a launch takes: warps (chains) a CTA, CTAs, dynamic shared memory.
@@ -468,9 +490,10 @@ int ipx_fused_da3_pcn_burgers(const IpxBurgersSpec* fine, const IpxBurgersSpec* 
                               float* mid_rate, void* stream) {
   const int route = ipx::da3_route(*fine, *mid, *coarse, chain->d);
   if (route == ipx::kRouteCta)
-    return ipx::launch_da3_cta({*fine, *mid, *coarse, *chain, phi0, mid0, surr0, beta,
-                                contraction, k_inner, k_mid, mid_rate},
-                               stream);
+    return ipx::launch_da3_cta<ipx::BurgersPotential>({*fine, *mid, *coarse, *chain, phi0, mid0,
+                                                       surr0, beta, contraction, k_inner, k_mid,
+                                                       mid_rate},
+                                                      stream);
   if (route != ipx::kRouteWarp) return cudaErrorNotSupported;
   ipx::Da3WarpGeometry geo;
   const int status =
@@ -506,6 +529,28 @@ int ipx_burgers_misfit_warp_geometry(const IpxBurgersSpec* s, int B, int* out) {
   out[1] = geo.ctas;
   out[2] = static_cast<int>(geo.smem);
   return status;
+}
+
+// Three linear-Gaussian levels that linear_cta_takes go to
+// fused_da3_pcn_kernel<LinearGaussianPotential, ·>, one chain a CTA; any
+// others are refused (cudaErrorNotSupported).
+int ipx_fused_da3_pcn_linear(const IpxGaussianSpec* fine, const IpxGaussianSpec* mid,
+                             const IpxGaussianSpec* coarse, const IpxChainArgs* chain,
+                             const float* phi0, const float* mid0, const float* surr0,
+                             float beta, float contraction, int k_inner, int k_mid,
+                             float* mid_rate, void* stream) {
+  if (ipx::da3_linear_route(*fine, *mid, *coarse, chain->d) != ipx::kRouteCta)
+    return cudaErrorNotSupported;
+  return ipx::launch_da3_cta<ipx::LinearGaussianPotential>(
+      {*fine, *mid, *coarse, *chain, phi0, mid0, surr0, beta, contraction, k_inner, k_mid,
+       mid_rate},
+      stream);
+}
+
+// The kernel ipx_fused_da3_pcn_linear sends these levels to (ipx::kRoute*).
+int ipx_da3_linear_route(const IpxGaussianSpec* fine, const IpxGaussianSpec* mid,
+                         const IpxGaussianSpec* coarse, int d) {
+  return ipx::da3_linear_route(*fine, *mid, *coarse, d);
 }
 
 // The kernel ipx_fused_da3_pcn_burgers sends these levels to, for chains of

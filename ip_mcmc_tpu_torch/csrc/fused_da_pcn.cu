@@ -53,7 +53,11 @@
 //                                       (the surrogate no finer, solved by
 //                                       CG or Richardson), or an exact grid
 //                                       of 33x33 to 64x64 with a CG
-//                                       surrogate of 17x17 to 32x32.
+//                                       surrogate of 17x17 to 32x32; and
+//                                       the DA loop on two linear-Gaussian
+//                                       levels (LinearGaussianPotential,
+//                                       ipx_fused_da_pcn_linear: every pair
+//                                       that linear_cta_takes).
 //
 // Each runs the whole n_steps loop in one launch; RECORD stores every
 // thin-th state into (n_rec, n, d) with a plain store. Chain state and
@@ -116,6 +120,7 @@
 #include "burgers_misfit.cuh"
 #include "darcy_misfit.cuh"
 #include "fused_scaffold.cuh"
+#include "gaussian_potential.cuh"
 
 namespace ipx {
 
@@ -560,6 +565,13 @@ inline int da_route(const IpxMisfitSpec& exact, const IpxMisfitSpec& surr, int d
       darcy_cta_spec(surr, d, k32, DaExact64::kMaxThreads))
     return kRouteCta;
   return kRouteRefused;
+}
+
+// The kernel a linear-Gaussian pair goes to: one chain a CTA when
+// linear_cta_takes both levels, else none. Mirrored by
+// ip_mcmc_tpu_torch/ops/_scaffold.py linear_route.
+inline int da_linear_route(const IpxGaussianSpec& exact, const IpxGaussianSpec& surr, int d) {
+  return linear_cta_takes(exact, d) && linear_cta_takes(surr, d) ? kRouteCta : kRouteRefused;
 }
 
 // Mirrored by ip_mcmc_tpu_torch/ops/fused_da_pcn.py warp_geometry: what
@@ -1191,6 +1203,25 @@ int ipx_fused_da_pcn_burgers(const IpxBurgersSpec* exact, const IpxBurgersSpec* 
                                            contraction, k, inner, stream);
   return ipx::launch_da_pcn<ipx::BurgersPotential>(*exact, *surr, *chain, phi0, surr0, beta,
                                                    contraction, k, inner, stream);
+}
+
+// A linear-Gaussian pair that linear_cta_takes at both levels goes to
+// fused_da_pcn_kernel<LinearGaussianPotential, ·>, one chain a CTA; any
+// other is refused (cudaErrorNotSupported).
+int ipx_fused_da_pcn_linear(const IpxGaussianSpec* exact, const IpxGaussianSpec* surr,
+                            const IpxChainArgs* chain, const float* phi0, const float* surr0,
+                            float beta, float contraction, int k, float* inner, void* stream) {
+  if (ipx::da_linear_route(*exact, *surr, chain->d) != ipx::kRouteCta)
+    return cudaErrorNotSupported;
+  return ipx::launch_da_pcn<ipx::LinearGaussianPotential>(*exact, *surr, *chain, phi0, surr0,
+                                                          beta, contraction, k, inner, stream);
+}
+
+// The kernel ipx_fused_da_pcn_linear sends this pair to, for chains of d
+// coordinates (ipx::kRoute*; the wrapper's mirror is checked against this
+// on the card).
+int ipx_da_pcn_linear_route(const IpxGaussianSpec* exact, const IpxGaussianSpec* surr, int d) {
+  return ipx::da_linear_route(*exact, *surr, d);
 }
 
 // The Burgers warp kernel's launch geometry for these specs, chain

@@ -8,11 +8,14 @@
 //                                  level log y = -Phi + log u, an angle
 //                                  theta on a bracket that shrinks towards
 //                                  0, at most max_shrink misfit evaluations.
-//   fused_ess_kernel<RECORD>       the same step one chain a CTA, on the
+//   fused_ess_kernel<Pot, RECORD>  the same step one chain a CTA, on the
 //                                  specs the warp kernel leaves: any CG
 //                                  Darcy misfit up to 16 x 16 (Jacobi,
 //                                  dst_trunc, dst; K = d). ess_route sends
-//                                  each spec to one of the two.
+//                                  each spec to one of the two. Pot
+//                                  LinearGaussianPotential: every
+//                                  linear-Gaussian spec that
+//                                  linear_cta_takes (ipx_fused_ess_linear).
 //
 // The Pallas kernel pays max_shrink batched evaluations per step behind
 // per-chain done masks, because its chains share lanes. Here a chain is a
@@ -44,7 +47,10 @@
 // kernel's one level does not hold (another grid, preconditioner or d):
 // one chain a CTA of Layout16 (a thread a cell), the solve of
 // darcy_misfit.cuh's darcy_phi with its CTA barriers, the factors read
-// through L1 / L2. No shipped config sends it a spec.
+// through L1 / L2. No shipped config sends it a spec. On a linear-Gaussian
+// spec it runs the same step on gaussian_phi (a thread a row, one block
+// reduction an evaluation): at lingauss_elliptical's d = 32, m = 16 a CTA is
+// one warp, and the step waits on the shrink loop's dependent evaluations.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -52,6 +58,7 @@
 
 #include "darcy_misfit.cuh"
 #include "fused_scaffold.cuh"
+#include "gaussian_potential.cuh"
 
 namespace ipx {
 
@@ -67,12 +74,14 @@ constexpr int kEssN = 16, kEssD = 64;
 // cells); before the slices, the staged basis
 constexpr int kEssWarpFloats = 2 * kEssD + 3 * WarpSliceLevel::kStride;
 
-struct EssArgs {
-  IpxMisfitSpec pot;
+template <class Spec>
+struct EssArgsT {
+  Spec pot;
   IpxChainArgs chain;
   const float* phi0;  // (n,) Phi at pos_in
   int max_shrink;
 };
+using EssArgs = EssArgsT<IpxMisfitSpec>;
 
 // K8 on a warp: the lane holds coordinates l and l + 32 of pos and prop.
 struct EssWarpStep {
@@ -133,11 +142,12 @@ __global__ void __launch_bounds__(32 * EssWarpDesign::kWarps, kEssWarpMinCtas)
 }
 
 // K8 one chain a CTA: thread t < d holds coordinate t of pos and prop.
+template <class Pot>
 struct EssStep {
-  const EssArgs& a;
+  const EssArgsT<typename Pot::Spec>& a;
   float* pos;
   float* prop;
-  MisfitSmem ws;
+  typename Pot::Workspace ws;
   float phi;
 
   __device__ void init(const ChainCtx& c) { phi = a.phi0[c.c]; }
@@ -154,7 +164,7 @@ struct EssStep {
     for (int k = 0; k < a.max_shrink; ++k) {
       if (c.own) prop[c.t] = centered * cosf(theta) + nu * sinf(theta) + c.mean_t;
       __syncthreads();
-      const float phi_prop = darcy_phi(a.pot, prop, ws);
+      const float phi_prop = Pot::phi(a.pot, prop, ws);
       if (-phi_prop > log_y) {  // the same in every thread
         phi = phi_prop;
         if (c.own) pos[c.t] = prop[c.t];
@@ -169,28 +179,31 @@ struct EssStep {
   }
 };
 
-template <bool RECORD>
-__global__ void __launch_bounds__(DarcyPotential::kMaxThreads, DarcyPotential::kMinCtasPerSm)
-    fused_ess_kernel(const __grid_constant__ EssArgs a) {
+template <class Pot, bool RECORD>
+__global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
+    fused_ess_kernel(const __grid_constant__ EssArgsT<typename Pot::Spec> a) {
   extern __shared__ float ess_smem[];
   float* pos = ess_smem;
   float* prop = pos + a.chain.d;
-  EssStep step{a, pos, prop, carve_misfit_smem(prop + a.chain.d, a.pot.n * a.pot.n, a.pot.modes),
-               0.0f};
+  EssStep<Pot> step{a, pos, prop, Pot::carve(prop + a.chain.d, Pot::extent(a.pot)), 0.0f};
   run_chain<RECORD>(a.chain, step, pos);
 }
 
-// Launches fused_ess_kernel<RECORD> (RECORD: chain.samples given) on a spec
-// of ess_route's kRouteCta.
-inline int launch_ess_cta(const EssArgs& a, void* stream) {
-  const int cells = a.pot.n * a.pot.n;
-  const int threads = chain_threads(a.chain, cells, a.pot.K, DarcyPotential::kMaxThreads);
-  if (threads == 0 || a.max_shrink < 0) return cudaErrorInvalidValue;
+// Launches fused_ess_kernel<Pot, RECORD> (RECORD: chain.samples given) on
+// a spec of ess_route's (or, linear-Gaussian, linear_route's) kRouteCta.
+template <class Pot>
+int launch_ess_cta(const EssArgsT<typename Pot::Spec>& a, void* stream) {
+  const typename Pot::Extent extent = Pot::extent(a.pot);
+  const int threads =
+      chain_threads(a.chain, extent.cells, a.pot.K, Pot::kMaxThreads, Pot::kCellsPerThread);
+  if (threads == 0 || a.max_shrink < 0 || !Pot::valid(a.pot)) return cudaErrorInvalidValue;
   if (a.chain.n == 0) return cudaSuccess;
-  const size_t smem = sizeof(float) * (2 * a.chain.d + misfit_smem_floats(cells, a.pot.modes));
+  const size_t smem = sizeof(float) * (2 * a.chain.d + Pot::workspace_floats(extent));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.chain.samples != nullptr) fused_ess_kernel<true><<<a.chain.n, threads, smem, st>>>(a);
-  else fused_ess_kernel<false><<<a.chain.n, threads, smem, st>>>(a);
+  if (a.chain.samples != nullptr)
+    fused_ess_kernel<Pot, true><<<a.chain.n, threads, smem, st>>>(a);
+  else
+    fused_ess_kernel<Pot, false><<<a.chain.n, threads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -246,7 +259,7 @@ int ipx_fused_ess(const IpxMisfitSpec* pot, const IpxChainArgs* chain, const flo
                   int max_shrink, void* stream) {
   const int route = ipx::ess_route(*pot, chain->d);
   if (route == ipx::kRouteCta)
-    return ipx::launch_ess_cta({*pot, *chain, phi0, max_shrink}, stream);
+    return ipx::launch_ess_cta<ipx::DarcyPotential>({*pot, *chain, phi0, max_shrink}, stream);
   if (route != ipx::kRouteWarp) return cudaErrorNotSupported;
   ipx::EssWarpGeometry geo;
   const int status = ipx::ess_warp_geometry(*pot, *chain, max_shrink, &geo);
@@ -284,5 +297,18 @@ int ipx_ess_warp_geometry(const IpxMisfitSpec* pot, const IpxChainArgs* chain, i
 // The kernel ipx_fused_ess sends this spec to, for chains of d coordinates
 // (ipx::kRoute*; the wrapper's mirror is checked against this on the card).
 int ipx_ess_route(const IpxMisfitSpec* pot, int d) { return ipx::ess_route(*pot, d); }
+
+// A linear-Gaussian spec that linear_cta_takes goes to
+// fused_ess_kernel<LinearGaussianPotential, ·>, one chain a CTA; any other
+// is refused (cudaErrorNotSupported).
+int ipx_fused_ess_linear(const IpxGaussianSpec* pot, const IpxChainArgs* chain,
+                         const float* phi0, int max_shrink, void* stream) {
+  if (ipx::linear_route(*pot, chain->d) != ipx::kRouteCta) return cudaErrorNotSupported;
+  return ipx::launch_ess_cta<ipx::LinearGaussianPotential>({*pot, *chain, phi0, max_shrink},
+                                                           stream);
+}
+
+// The kernel ipx_fused_ess_linear sends this spec to (ipx::kRoute*).
+int ipx_ess_linear_route(const IpxGaussianSpec* pot, int d) { return ipx::linear_route(*pot, d); }
 
 }  // extern "C"

@@ -10,11 +10,14 @@
 //                                  stretch move on the first M whitened
 //                                  coordinates against a partner chain of
 //                                  the other parity, then pCN on the rest.
-//   fused_fes_kernel<RECORD>       the same launch one chain a CTA, on the
+//   fused_fes_kernel<Pot, RECORD>  the same launch one chain a CTA, on the
 //                                  specs the warp kernel leaves: any CG
 //                                  Darcy misfit up to 16 x 16 with K = d.
 //                                  fes_route sends each spec to one of the
-//                                  two.
+//                                  two. Pot LinearGaussianPotential: every
+//                                  linear-Gaussian spec that
+//                                  linear_cta_takes (ipx_fused_fes_linear),
+//                                  two launches a step as on Darcy.
 //
 // Each block of block_chains chains is one walker ensemble. A step is two
 // red-black sub-steps: in sub-step `sub` the chains whose lane has parity
@@ -62,6 +65,7 @@
 
 #include "darcy_misfit.cuh"
 #include "fused_scaffold.cuh"
+#include "gaussian_potential.cuh"
 
 namespace ipx {
 
@@ -76,8 +80,9 @@ constexpr int kFesD = WarpSliceLevel::kK;
 // before the slices, the staged basis
 constexpr int kFesWarpFloats = kFesD + 3 * WarpSliceLevel::kStride;
 
-struct FesArgs {
-  IpxMisfitSpec pot;
+template <class Spec>
+struct FesArgsT {
+  Spec pot;
   IpxChainArgs chain;  // pos_in: the state (n, d), updated in place; out and acc are null
   float* phi;          // (n,) Phi of the state, updated in place
   float* pcn_acc;      // (n,) accepted pCN moves so far
@@ -86,6 +91,7 @@ struct FesArgs {
   float beta, contraction, stretch_a;
   int n_low, step, sub;
 };
+using FesArgs = FesArgsT<IpxMisfitSpec>;
 
 // Warp g of the launch runs the chain of lane 2 (g mod bc/2) + sub in
 // block g / (bc/2); the lane holds coordinates l and l + 32.
@@ -189,16 +195,16 @@ __global__ void __launch_bounds__(32 * FesWarpDesign::kWarps, kFesWarpMinCtas)
 
 // The same one chain a CTA: CTA b runs the chain of lane 2 (b mod bc/2) +
 // sub in block b / (bc/2); thread t < d holds coordinate t.
-template <bool RECORD>
-__global__ void __launch_bounds__(DarcyPotential::kMaxThreads, DarcyPotential::kMinCtasPerSm)
-    fused_fes_kernel(const __grid_constant__ FesArgs a) {
+template <class Pot, bool RECORD>
+__global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
+    fused_fes_kernel(const __grid_constant__ FesArgsT<typename Pot::Spec> a) {
   extern __shared__ float fes_smem[];
   const int d = a.chain.d, bc = a.chain.block_chains, half = bc / 2;
   const int blk = blockIdx.x / half, my_lane = 2 * (blockIdx.x % half) + a.sub;
   const ChainCtx c = make_chain_ctx(a.chain, blk * bc + my_lane);
   float* pos = const_cast<float*>(a.chain.pos_in);
   float* prop = fes_smem;
-  const MisfitSmem ws = carve_misfit_smem(prop + d, a.pot.n * a.pot.n, a.pot.modes);
+  const typename Pot::Workspace ws = Pot::carve(prop + d, Pot::extent(a.pot));
   const uint32_t i = static_cast<uint32_t>(a.step);
   const bool low = c.t < a.n_low;
   const size_t row = static_cast<size_t>(c.c) * d;
@@ -223,7 +229,7 @@ __global__ void __launch_bounds__(DarcyPotential::kMaxThreads, DarcyPotential::k
   }
   if (c.own) prop[c.t] = c.mean_t + c.scale_t * w_prop;
   __syncthreads();
-  float phi_p = darcy_phi(a.pot, prop, ws);
+  float phi_p = Pot::phi(a.pot, prop, ws);
   const float d_prior =
       0.5f * block_sum((c.own && low) ? w_prop * w_prop - w * w : 0.0f, ws.red);
   float log_ratio = static_cast<float>(a.n_low - 1) * logf(z) - (phi_p - phi) - d_prior;
@@ -239,7 +245,7 @@ __global__ void __launch_bounds__(DarcyPotential::kMaxThreads, DarcyPotential::k
   if (c.own && !low) w_prop = a.contraction * w + a.beta * c.normal(i, 48u);
   if (c.own) prop[c.t] = c.mean_t + c.scale_t * w_prop;
   __syncthreads();
-  phi_p = darcy_phi(a.pot, prop, ws);
+  phi_p = Pot::phi(a.pot, prop, ws);
   const bool ok = logf(c.uniform(i, 52u)) < phi - phi_p;
   if (ok) {
     w = w_prop;
@@ -289,6 +295,24 @@ inline bool fes_ensembles_ok(const IpxChainArgs& chain, int n_low) {
          chain.n % chain.block_chains == 0 && n_low >= 0 && n_low <= chain.d;
 }
 
+// Launches fused_fes_kernel<Pot, RECORD> (RECORD: a.record given) for the
+// chains of parity a.sub, on a spec of fes_route's (or, linear-Gaussian,
+// linear_route's) kRouteCta.
+template <class Pot>
+int launch_fes_cta(const FesArgsT<typename Pot::Spec>& a, cudaStream_t st) {
+  const typename Pot::Extent extent = Pot::extent(a.pot);
+  const int threads =
+      chain_threads(a.chain, extent.cells, a.pot.K, Pot::kMaxThreads, Pot::kCellsPerThread);
+  if (threads == 0 || !Pot::valid(a.pot) || !fes_ensembles_ok(a.chain, a.n_low) || a.step < 0 ||
+      (a.sub != 0 && a.sub != 1))
+    return cudaErrorInvalidValue;
+  if (a.chain.n == 0) return cudaSuccess;
+  const size_t smem = sizeof(float) * (a.chain.d + Pot::workspace_floats(extent));
+  if (a.record != nullptr) fused_fes_kernel<Pot, true><<<a.chain.n / 2, threads, smem, st>>>(a);
+  else fused_fes_kernel<Pot, false><<<a.chain.n / 2, threads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Mirrored by ip_mcmc_tpu_torch/ops/fused_fes.py warp_geometry: what
 // fes_warp_takes (else cudaErrorNotSupported), whole ensembles of an even
 // block_chains. A launch runs the n / 2 chains of one parity. W: the
@@ -322,19 +346,7 @@ int ipx_fused_fes(const IpxMisfitSpec* pot, const IpxChainArgs* chain, float* ph
   const ipx::FesArgs a{*pot, *chain, phi, pcn_acc, st_acc, record, beta, contraction,
                        stretch_a, n_low, step, sub};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route == ipx::kRouteCta) {
-    const int cells = pot->n * pot->n;
-    const int threads =
-        ipx::chain_threads(*chain, cells, pot->K, ipx::DarcyPotential::kMaxThreads);
-    if (threads == 0 || !ipx::fes_ensembles_ok(*chain, n_low) || step < 0 ||
-        (sub != 0 && sub != 1))
-      return cudaErrorInvalidValue;
-    if (chain->n == 0) return cudaSuccess;
-    const size_t smem = sizeof(float) * (chain->d + ipx::misfit_smem_floats(cells, pot->modes));
-    if (record != nullptr) ipx::fused_fes_kernel<true><<<chain->n / 2, threads, smem, st>>>(a);
-    else ipx::fused_fes_kernel<false><<<chain->n / 2, threads, smem, st>>>(a);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (route == ipx::kRouteCta) return ipx::launch_fes_cta<ipx::DarcyPotential>(a, st);
   ipx::FesWarpGeometry geo;
   const int status = ipx::fes_warp_geometry(*pot, *chain, n_low, &geo);
   if (status != cudaSuccess) return status;
@@ -370,5 +382,21 @@ int ipx_fes_warp_geometry(const IpxMisfitSpec* pot, const IpxChainArgs* chain, i
 // The kernel ipx_fused_fes sends this spec to, for chains of d coordinates
 // (ipx::kRoute*; the wrapper's mirror is checked against this on the card).
 int ipx_fes_route(const IpxMisfitSpec* pot, int d) { return ipx::fes_route(*pot, d); }
+
+// The same launch on a linear-Gaussian spec: what linear_cta_takes goes to
+// fused_fes_kernel<LinearGaussianPotential, ·>, one chain a CTA; any other
+// is refused (cudaErrorNotSupported).
+int ipx_fused_fes_linear(const IpxGaussianSpec* pot, const IpxChainArgs* chain, float* phi,
+                         float* pcn_acc, float* st_acc, float* record, float beta,
+                         float contraction, float stretch_a, int n_low, int step, int sub,
+                         void* stream) {
+  if (ipx::linear_route(*pot, chain->d) != ipx::kRouteCta) return cudaErrorNotSupported;
+  const ipx::FesArgsT<IpxGaussianSpec> a{*pot,      *chain, phi,   pcn_acc, st_acc, record,
+                                         beta,      contraction, stretch_a, n_low,   step,   sub};
+  return ipx::launch_fes_cta<ipx::LinearGaussianPotential>(a, static_cast<cudaStream_t>(stream));
+}
+
+// The kernel ipx_fused_fes_linear sends this spec to (ipx::kRoute*).
+int ipx_fes_linear_route(const IpxGaussianSpec* pot, int d) { return ipx::linear_route(*pot, d); }
 
 }  // extern "C"

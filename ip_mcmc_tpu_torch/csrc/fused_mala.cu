@@ -27,12 +27,18 @@
 //                                  the cold kernel (K10), kPrecondDst the
 //                                  warm one (K11), each chain carrying the
 //                                  two solutions of its current state.
-//   fused_mala_kernel<RECORD>, fused_mala_warm_kernel<RECORD>
+//   fused_mala_kernel<Pot, RECORD>, fused_mala_warm_kernel<RECORD>
 //                                  cold and warm MALA one chain a CTA, on
 //                                  the specs the warp kernel leaves: any
 //                                  CG Darcy misfit up to 16 x 16 with K =
 //                                  d, any preconditioner. mala_route sends
 //                                  each spec to one kernel or the other.
+//                                  Cold, Pot LinearGaussianPotential: every
+//                                  linear-Gaussian spec that
+//                                  linear_cta_takes (ipx_fused_mala_linear),
+//                                  the gradient -A^T ((y - A (u - c)) /
+//                                  sigma^2) a thread a coordinate
+//                                  (gaussian_potential.cuh).
 //
 // One step: prop = pos - eps^2/2 g + eps xi, value and gradient at prop,
 // log ratio (phi - phi') + log q(pos | prop) - log q(prop | pos) with NaN
@@ -78,6 +84,7 @@
 
 #include "darcy_misfit.cuh"
 #include "fused_scaffold.cuh"
+#include "gaussian_potential.cuh"
 
 namespace ipx {
 
@@ -107,29 +114,47 @@ __global__ void darcy_misfit_grad_kernel(IpxMisfitSpec s, const float* __restric
   if (t == 0) phi[b] = v;
 }
 
-struct MalaArgs {
-  IpxMisfitSpec pot;
+template <class Spec>
+struct MalaArgsT {
+  Spec pot;
   IpxChainArgs chain;
   const float* phi0;  // (n,) misfit at pos_in
   const float* g0;    // (d, n) its gradient
   const float* aux0;  // (2 cells, n) solutions at pos_in (warm only)
   float eps;
 };
+using MalaArgs = MalaArgsT<IpxMisfitSpec>;
 
 // MALA (K10 / K11) one chain a CTA: thread t < d holds coordinate t of pos,
-// prop and the gradient; WARM: the accepted state's forward and adjoint
-// solutions in xs, ls (thread t's cell t), the starts of both solves.
-template <bool WARM>
+// prop and the gradient; WARM (Darcy only): the accepted state's forward
+// and adjoint solutions in xs, ls (thread t's cell t), the starts of both
+// solves. Pot: DarcyPotential (the adjoint gradient of both solves,
+// darcy_value_and_grad, in gs) or LinearGaussianPotential (its
+// value_and_grad; gs unused).
+template <class Pot, bool WARM>
 struct MalaStep {
-  const MalaArgs& a;
+  static constexpr bool kDarcy = std::is_same_v<Pot, DarcyPotential>;
+  static_assert(kDarcy || !WARM, "warm MALA carries the Darcy solutions");
+  const MalaArgsT<typename Pot::Spec>& a;
   float* pos;
   float* prop;
   float* gp;  // gradient of the misfit at the proposal
-  MisfitSmem ws;
+  typename Pot::Workspace ws;
   GradSmem gs;
   float* xs;  // [cells] forward solution of the accepted state (warm)
   float* ls;  // [cells] adjoint solution of the accepted state (warm)
   float phi, g;
+
+  __device__ int cells() const {
+    if constexpr (WARM) return a.pot.n * a.pot.n;
+    else return 0;
+  }
+
+  // the misfit at prop, its gradient in gp (thread t's coordinate t)
+  __device__ float value_and_grad() {
+    if constexpr (kDarcy) return darcy_value_and_grad<WARM>(a.pot, prop, ws, gs, gp);
+    else return Pot::value_and_grad(a.pot, prop, ws, gp);
+  }
 
   // adds the prior's 1/2 |z|^2 to phi_v and z / scale to this thread's g_v
   __device__ void fold(const ChainCtx& c, const float* u, float& phi_v, float& g_v) const {
@@ -139,18 +164,17 @@ struct MalaStep {
   }
 
   __device__ void init(const ChainCtx& c) {
-    const int n = a.chain.n, cells = a.pot.n * a.pot.n;
+    const int n = a.chain.n;
     phi = a.phi0[c.c];
     g = c.own ? a.g0[static_cast<size_t>(c.t) * n + c.c] : 0.0f;
     fold(c, pos, phi, g);
-    if (WARM && c.t < cells) {
+    if (WARM && c.t < cells()) {
       xs[c.t] = a.aux0[static_cast<size_t>(c.t) * n + c.c];
-      ls[c.t] = a.aux0[static_cast<size_t>(cells + c.t) * n + c.c];
+      ls[c.t] = a.aux0[static_cast<size_t>(cells() + c.t) * n + c.c];
     }
   }
 
   __device__ bool step(const ChainCtx& c, uint32_t i) {
-    const int cells = a.pot.n * a.pot.n;
     const float eps = a.eps;
     const float half_eps2 = 0.5f * eps * eps;
     const float inv2e2 = 1.0f / (2.0f * eps * eps);
@@ -159,12 +183,12 @@ struct MalaStep {
       xi = c.normal(i, 0u);
       prop[c.t] = (pos[c.t] - half_eps2 * g) + eps * xi;
     }
-    if (WARM && c.t < cells) {
+    if (WARM && c.t < cells()) {
       gs.x[c.t] = xs[c.t];
       gs.lam[c.t] = ls[c.t];
     }
     __syncthreads();
-    float phi_p = darcy_value_and_grad<WARM>(a.pot, prop, ws, gs, gp);
+    float phi_p = value_and_grad();
     float g_p = c.own ? gp[c.t] : 0.0f;
     fold(c, prop, phi_p, g_p);
     const float d_rev = c.own ? pos[c.t] - (prop[c.t] - half_eps2 * g_p) : 0.0f;
@@ -177,7 +201,7 @@ struct MalaStep {
       phi = phi_p;
       g = g_p;
       if (c.own) pos[c.t] = prop[c.t];
-      if (WARM && c.t < cells) {
+      if (WARM && c.t < cells()) {
         xs[c.t] = gs.x[c.t];
         ls[c.t] = gs.lam[c.t];
       }
@@ -193,34 +217,41 @@ inline size_t mala_smem_floats(int d, int cells, int modes, int m, bool warm) {
          (warm ? 2 * cells : 0);
 }
 
-template <bool RECORD, bool WARM>
-__device__ void mala_chain(const MalaArgs& a) {
+template <class Pot, bool RECORD, bool WARM>
+__device__ void mala_chain(const MalaArgsT<typename Pot::Spec>& a) {
   extern __shared__ float mala_smem[];
-  const int d = a.chain.d, cells = a.pot.n * a.pot.n;
+  const int d = a.chain.d;
   float* pos = mala_smem;
   float* prop = pos + d;
   float* gp = prop + d;
   float* work = gp + d;
-  float* grad = work + misfit_smem_floats(cells, a.pot.modes);
-  float* xs = grad + grad_smem_floats(cells, a.pot.m);
-  MalaStep<WARM> step{a,  pos, prop, gp, carve_misfit_smem(work, cells, a.pot.modes),
-                      carve_grad_smem(grad, cells), xs, xs + cells, 0.0f, 0.0f};
-  run_chain<RECORD>(a.chain, step, pos);
+  if constexpr (MalaStep<Pot, WARM>::kDarcy) {
+    const int cells = a.pot.n * a.pot.n;
+    float* grad = work + misfit_smem_floats(cells, a.pot.modes);
+    float* xs = grad + grad_smem_floats(cells, a.pot.m);
+    MalaStep<Pot, WARM> step{a,  pos, prop, gp, carve_misfit_smem(work, cells, a.pot.modes),
+                             carve_grad_smem(grad, cells), xs, xs + cells, 0.0f, 0.0f};
+    run_chain<RECORD>(a.chain, step, pos);
+  } else {
+    MalaStep<Pot, WARM> step{a,       pos,     prop, gp, Pot::carve(work, Pot::extent(a.pot)),
+                             GradSmem{}, nullptr, nullptr, 0.0f, 0.0f};
+    run_chain<RECORD>(a.chain, step, pos);
+  }
 }
 
-template <bool RECORD>
-__global__ void __launch_bounds__(DarcyPotential::kMaxThreads, DarcyPotential::kMinCtasPerSm)
-    fused_mala_kernel(const __grid_constant__ MalaArgs a) {
-  mala_chain<RECORD, false>(a);
+template <class Pot, bool RECORD>
+__global__ void __launch_bounds__(Pot::kMaxThreads, Pot::kMinCtasPerSm)
+    fused_mala_kernel(const __grid_constant__ MalaArgsT<typename Pot::Spec> a) {
+  mala_chain<Pot, RECORD, false>(a);
 }
 
 template <bool RECORD>
 __global__ void __launch_bounds__(DarcyPotential::kMaxThreads, DarcyPotential::kMinCtasPerSm)
     fused_mala_warm_kernel(const __grid_constant__ MalaArgs a) {
-  mala_chain<RECORD, true>(a);
+  mala_chain<DarcyPotential, RECORD, true>(a);
 }
 
-// Launches fused_mala_kernel<RECORD> or, with aux0 given,
+// Launches fused_mala_kernel<DarcyPotential, RECORD> or, with aux0 given,
 // fused_mala_warm_kernel<RECORD> (RECORD: chain.samples given) on a spec of
 // mala_route's kRouteCta.
 inline int launch_mala_cta(const MalaArgs& a, void* stream) {
@@ -234,12 +265,28 @@ inline int launch_mala_cta(const MalaArgs& a, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = a.chain.n;
   if (!warm) {
-    if (record) fused_mala_kernel<true><<<n, threads, smem, st>>>(a);
-    else fused_mala_kernel<false><<<n, threads, smem, st>>>(a);
+    if (record) fused_mala_kernel<DarcyPotential, true><<<n, threads, smem, st>>>(a);
+    else fused_mala_kernel<DarcyPotential, false><<<n, threads, smem, st>>>(a);
   } else {
     if (record) fused_mala_warm_kernel<true><<<n, threads, smem, st>>>(a);
     else fused_mala_warm_kernel<false><<<n, threads, smem, st>>>(a);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches fused_mala_kernel<LinearGaussianPotential, RECORD> on a
+// linear-Gaussian spec of linear_route's kRouteCta: pos, prop, the
+// gradient and value_and_grad's workspace (the m weights) in shared memory.
+inline int launch_mala_linear(const MalaArgsT<IpxGaussianSpec>& a, void* stream) {
+  using Pot = LinearGaussianPotential;
+  const int threads = chain_threads(a.chain, Pot::extent(a.pot).cells, a.pot.K, Pot::kMaxThreads);
+  if (threads == 0 || !Pot::valid(a.pot) || a.aux0 != nullptr) return cudaErrorInvalidValue;
+  if (a.chain.n == 0) return cudaSuccess;
+  const size_t smem = sizeof(float) * (3 * a.chain.d + Pot::grad_workspace_floats(a.pot));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n = a.chain.n;
+  if (a.chain.samples != nullptr) fused_mala_kernel<Pot, true><<<n, threads, smem, st>>>(a);
+  else fused_mala_kernel<Pot, false><<<n, threads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -791,6 +838,21 @@ int ipx_mala_warp_geometry(const IpxMisfitSpec* pot, const IpxChainArgs* chain, 
 // this on the card).
 int ipx_mala_route(const IpxMisfitSpec* pot, int d, int warm) {
   return ipx::mala_route(*pot, d, warm != 0);
+}
+
+// Cold MALA on a linear-Gaussian spec: what linear_cta_takes goes to
+// fused_mala_kernel<LinearGaussianPotential, ·>, one chain a CTA; any
+// other is refused (cudaErrorNotSupported). Phi0 and g0 come from
+// ipx_linear_gaussian_misfit_grad (fused_rwm.cu).
+int ipx_fused_mala_linear(const IpxGaussianSpec* pot, const IpxChainArgs* chain,
+                          const float* phi0, const float* g0, float eps, void* stream) {
+  if (ipx::linear_route(*pot, chain->d) != ipx::kRouteCta) return cudaErrorNotSupported;
+  return ipx::launch_mala_linear({*pot, *chain, phi0, g0, nullptr, eps}, stream);
+}
+
+// The kernel ipx_fused_mala_linear sends this spec to (ipx::kRoute*).
+int ipx_mala_linear_route(const IpxGaussianSpec* pot, int d) {
+  return ipx::linear_route(*pot, d);
 }
 
 // The standalone cold gradient misfit's launch geometry

@@ -24,8 +24,11 @@
 //                                  warm pCN (Cluster32Exact).
 //   fused_pcn_kernel<Pot, RECORD>  cold pCN: proposal, Phi, MH. The
 //                                  potential is a type: DarcyPot (Phi from
-//                                  x = 0) or BurgersPotential (K12,
-//                                  burgers_misfit.cuh).
+//                                  x = 0), BurgersPotential (K12,
+//                                  burgers_misfit.cuh) or
+//                                  LinearGaussianPotential
+//                                  (gaussian_potential.cuh: ipx_fused_pcn_linear,
+//                                  every spec that linear_cta_takes).
 //   fused_pcn_warm_kernel<Pot, RECORD>  pCN carrying each chain's CG
 //                                  solution: each thread keeps its cells of
 //                                  the accepted x in registers, the
@@ -118,6 +121,7 @@
 #include "burgers_misfit.cuh"
 #include "darcy_misfit.cuh"
 #include "fused_scaffold.cuh"
+#include "gaussian_potential.cuh"
 
 namespace ipx {
 
@@ -1095,6 +1099,21 @@ int ipx_fused_pcn_burgers(const IpxBurgersSpec* pot, const IpxChainArgs* chain,
   return ipx::launch_pcn<ipx::BurgersPotential>(*pot, *chain, phi0, nullptr, beta, contraction,
                                                 stream);
 }
+
+// A linear-Gaussian spec that linear_cta_takes goes to
+// fused_pcn_kernel<LinearGaussianPotential, ·>, one chain a CTA; any other
+// is refused (cudaErrorNotSupported).
+int ipx_fused_pcn_linear(const IpxGaussianSpec* pot, const IpxChainArgs* chain,
+                         const float* phi0, float beta, float contraction, void* stream) {
+  if (ipx::linear_route(*pot, chain->d) != ipx::kRouteCta) return cudaErrorNotSupported;
+  return ipx::launch_pcn<ipx::LinearGaussianPotential>(*pot, *chain, phi0, nullptr, beta,
+                                                       contraction, stream);
+}
+
+// The kernel ipx_fused_pcn_linear sends this spec to, for chains of d
+// coordinates (ipx::kRoute*; the wrapper's mirror is checked against this
+// on the card).
+int ipx_pcn_linear_route(const IpxGaussianSpec* pot, int d) { return ipx::linear_route(*pot, d); }
 
 // The Burgers warp kernel's launch geometry for this spec and these chain
 // arguments: out = {chains a CTA, CTAs, dynamic shared-memory bytes}; the

@@ -8,6 +8,13 @@
 //   linear_gaussian_misfit_kernel  Phi for a (d, B) batch at one
 //                                  linear-Gaussian spec
 //                                  (gaussian_potential.cuh).
+//   linear_gaussian_misfit_grad_kernel
+//                                  Phi and grad Phi (d, B) for such a
+//                                  batch, one draw a CTA: the start
+//                                  positions of the cold MALA kernel on a
+//                                  linear-Gaussian spec (fused_mala.cu),
+//                                  whose JAX step builder's init evaluates
+//                                  the value and gradient.
 //   fused_rwm_group_kernel<RECORD, D, G>
 //                                  the whole n_steps loop in one launch:
 //                                  prop = pos + step_size xi, accepted when
@@ -60,6 +67,22 @@ __global__ void __launch_bounds__(LinearGaussianPotential::kMaxThreads)
   for (int k = threadIdx.x; k < s.K; k += blockDim.x) u[k] = U[static_cast<size_t>(k) * B + b];
   __syncthreads();
   const float v = gaussian_phi(s, u, ws);
+  if (threadIdx.x == 0) phi[b] = v;
+}
+
+__global__ void __launch_bounds__(LinearGaussianPotential::kMaxThreads)
+    linear_gaussian_misfit_grad_kernel(IpxGaussianSpec s, const float* __restrict__ U, int B,
+                                       float* __restrict__ phi, float* __restrict__ grad) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x;
+  float* u = smem;
+  float* g = u + s.K;
+  const GaussianSmem ws =
+      LinearGaussianPotential::carve(g + s.K, LinearGaussianPotential::extent(s));
+  for (int k = threadIdx.x; k < s.K; k += blockDim.x) u[k] = U[static_cast<size_t>(k) * B + b];
+  __syncthreads();
+  const float v = gaussian_value_and_grad(s, u, ws, g);
+  for (int k = threadIdx.x; k < s.K; k += blockDim.x) grad[static_cast<size_t>(k) * B + b] = g[k];
   if (threadIdx.x == 0) phi[b] = v;
 }
 
@@ -210,6 +233,22 @@ int ipx_linear_gaussian_misfit(const IpxGaussianSpec* s, const float* U, int B, 
   const size_t smem = sizeof(float) * (s->K + LinearGaussianPotential::workspace_floats(e));
   ipx::linear_gaussian_misfit_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       *s, U, B, phi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Phi (B,) and grad Phi (d, B) for U (d, B), one draw a CTA.
+int ipx_linear_gaussian_misfit_grad(const IpxGaussianSpec* s, const float* U, int B, float* phi,
+                                    float* grad, void* stream) {
+  using ipx::LinearGaussianPotential;
+  const LinearGaussianPotential::Extent e = LinearGaussianPotential::extent(*s);
+  const int threads = ipx::round_up32(e.cells > s->K ? e.cells : s->K);
+  if (!LinearGaussianPotential::valid(*s) || B < 0) return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const size_t smem =
+      sizeof(float) * (2 * s->K + LinearGaussianPotential::grad_workspace_floats(*s));
+  ipx::linear_gaussian_misfit_grad_kernel<<<B, threads, smem,
+                                            static_cast<cudaStream_t>(stream)>>>(*s, U, B, phi,
+                                                                                 grad);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -50,6 +50,7 @@ namespace ipx {
 
 struct GaussianSmem {
   float* red;  // [32] warp partials
+  float* res;  // [m] (y - A (u - c)) / sigma^2: the gradient's weights (value_and_grad only)
 };
 
 // Phi for the chain whose position u[0..d) sits in shared memory; the same
@@ -67,8 +68,38 @@ __device__ float gaussian_phi(const IpxGaussianSpec& s, const float* u, const Ga
   return 0.5f * block_sum(sq, ws.red);
 }
 
+// Phi and its gradient dPhi/du = -A^T ((y - A (u - c)) / sigma^2) for the
+// chain whose position u[0..d) sits in shared memory: Phi (gaussian_phi's,
+// bit for bit) in every thread, coordinate t of the gradient in g[t],
+// written by thread t (t < d, and t + blockDim.x, ...). Thread i < m keeps
+// its row's r_i / sigma_i in ws.res; after block_sum's barriers thread t
+// adds row t of At (column t of A) against them, i ascending. Every thread
+// of the CTA calls; the caller has synchronised after writing u, and makes
+// a barrier before the next call writes ws.res.
+__device__ float gaussian_value_and_grad(const IpxGaussianSpec& s, const float* u,
+                                         const GaussianSmem& ws, float* g) {
+  float sq = 0.0f;
+  for (int row = threadIdx.x; row < s.m; row += blockDim.x) {
+    float acc = 0.0f;
+    for (int j = 0; j < s.K; ++j)
+      acc += s.At[static_cast<size_t>(j) * s.m + row] * (u[j] - s.center[j]);
+    const float r = (s.data[row] - acc) / s.noise[row];
+    ws.res[row] = r / s.noise[row];
+    sq += r * r;
+  }
+  const float phi = 0.5f * block_sum(sq, ws.red);
+  for (int t = threadIdx.x; t < s.K; t += blockDim.x) {
+    const float* col = s.At + static_cast<size_t>(t) * s.m;
+    float acc = 0.0f;
+    for (int i = 0; i < s.m; ++i) acc += col[i] * ws.res[i];
+    g[t] = -acc;
+  }
+  return phi;
+}
+
 // The linear-Gaussian potential as the potential type of the samplers that
-// take one (fused_rwm.cu, fused_pcn_dense.cu, fused_pcn_adapt.cu).
+// take one (fused_rwm.cu, fused_pcn_dense.cu, fused_pcn_adapt.cu, and one
+// chain a CTA: cold pCN, DA-pCN, three-level DA, ESS, FES, cold MALA).
 struct LinearGaussianPotential {
   using Spec = IpxGaussianSpec;
   using Workspace = GaussianSmem;
@@ -89,8 +120,12 @@ struct LinearGaussianPotential {
     return {a.cells > b.cells ? a.cells : b.cells};
   }
   static __host__ __device__ __forceinline__ int workspace_floats(Extent) { return 32; }
+  // what value_and_grad's workspace holds besides: the m weights of ws.res
+  static __host__ __device__ __forceinline__ int grad_workspace_floats(const Spec& s) {
+    return 32 + s.m;
+  }
   static __device__ __forceinline__ Workspace carve(float* base, Extent) {
-    return GaussianSmem{base};
+    return GaussianSmem{base, base + 32};
   }
   static bool valid(const Spec& s) { return s.m >= 0 && s.K > 0 && s.K <= kMaxThreads; }
 
@@ -98,7 +133,24 @@ struct LinearGaussianPotential {
                                               const Workspace& ws) {
     return gaussian_phi(s, u, ws);
   }
+  // ws carved from grad_workspace_floats(s) floats
+  static __device__ __forceinline__ float value_and_grad(const Spec& s, const float* u,
+                                                         const Workspace& ws, float* g) {
+    return gaussian_value_and_grad(s, u, ws, g);
+  }
 };
+
+// Whether the one-chain-a-CTA samplers of cold pCN, DA-pCN, three-level DA,
+// ESS, FES and cold MALA take a linear-Gaussian spec for chains of d
+// coordinates (each sampler's *_route sends it to kRouteCta): K = d, a
+// thread a coordinate up to kMaxThreads (the rows loop over the CTA), m >=
+// 0. Mirrored by ip_mcmc_tpu_torch/ops/_scaffold.py linear_route.
+inline bool linear_cta_takes(const IpxGaussianSpec& s, int d) {
+  return s.K == d && d > 0 && d <= LinearGaussianPotential::kMaxThreads && s.m >= 0;
+}
+inline int linear_route(const IpxGaussianSpec& s, int d) {
+  return linear_cta_takes(s, d) ? kRouteCta : kRouteRefused;
+}
 
 
 // --- several chains a warp: the group kernels of K14 and K15 ----------------

@@ -70,6 +70,7 @@ class LinearGaussianPotential(nn.Module):
 
     MAX_DIM = 256  # LinearGaussianPotential::kMaxThreads, csrc/gaussian_potential.cuh
     kernel_label = "linear_gaussian_misfit_kernel"
+    grad_kernel_label = "linear_gaussian_misfit_grad_kernel"
 
     def __init__(self, A, data, noise_scale, center=None):
         super().__init__()
@@ -117,10 +118,11 @@ class LinearGaussianPotential(nn.Module):
             m=self.m, K=self.K,
         )
 
-    def check_input(self, U: torch.Tensor, what: str = "U"):
-        if U.dtype != torch.float32 or U.dim() != 2 or U.shape[0] != self.K:
+    def check_input(self, U: torch.Tensor, what: str = "U", dtype=torch.float32):
+        if U.dtype != dtype or U.dim() != 2 or U.shape[0] != self.K:
+            want = "f32" if dtype == torch.float32 else str(dtype)
             raise ValueError(
-                f"{what}: expected f32 (d={self.K}, B), got {U.dtype} "
+                f"{what}: expected {want} (d={self.K}, B), got {U.dtype} "
                 f"{tuple(U.shape)}"
             )
         if U.device != self.A.device:
@@ -143,7 +145,39 @@ class LinearGaussianPotential(nn.Module):
         _build.launch_counts[self.kernel_label] += 1
         return phi
 
+    def value_and_grad(self, U: torch.Tensor):
+        """(Φ (B,), ∇Φ (d, B)) with ∇Φ = −Aᵀ((y − A(U − c))/σ²): for CUDA
+        tensors one launch of ``linear_gaussian_misfit_grad_kernel``
+        (``csrc/fused_rwm.cu``; the start positions of cold MALA), for CPU
+        tensors the plain version."""
+        if U.device.type == "cuda":
+            self.check_input(U)
+            U = U.contiguous()
+            B = U.shape[1]
+            phi = torch.empty(B, dtype=torch.float32, device=U.device)
+            grad = torch.empty_like(U)
+            spec = self.spec()
+            status = _build.library().ipx_linear_gaussian_misfit_grad(
+                ctypes.byref(spec), U.data_ptr(), B, phi.data_ptr(), grad.data_ptr(),
+                torch.cuda.current_stream(U.device).cuda_stream,
+            )
+            _build.check(status, self.grad_kernel_label)
+            _build.launch_counts[self.grad_kernel_label] += 1
+            return phi, grad
+        if U.device.type == "cpu":
+            return self._value_and_grad_plain(U)
+        raise ValueError(f"LinearGaussianPotential: unsupported device {U.device}")
+
     # --- the plain version ------------------------------------------------
+
+    def _value_and_grad_plain(self, U: torch.Tensor):
+        """Plain (Φ, ∇Φ) on any device, in the kernel's form: the weights
+        r/σ, then ∇Φ = −Aᵀ(r/σ). In the buffers' dtype (f64 after
+        ``.double()``)."""
+        self.check_input(U, dtype=self.A.dtype)
+        _build.launch_counts["linear_gaussian_misfit_grad_plain"] += 1
+        r = (self.data[:, None] - self.A @ (U - self.center[:, None])) / self.noise[:, None]
+        return 0.5 * torch.sum(r * r, dim=0), -(self.A.T @ (r / self.noise[:, None]))
 
     def _forward_plain(self, U: torch.Tensor) -> torch.Tensor:
         """Plain Φ on any device."""

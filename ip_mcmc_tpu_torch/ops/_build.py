@@ -336,6 +336,25 @@ def library():
         lib.bind("ipx_da3_route", [bspec, bspec, bspec, i])
         # the linear-Gaussian potential: spec, U (d, B), B, Φ (B,), stream
         lib.bind("ipx_linear_gaussian_misfit", [gspec, p, i, p, p])
+        # spec, U (d, B), B, Φ (B,), ∇Φ (d, B), stream
+        lib.bind("ipx_linear_gaussian_misfit_grad", [gspec, p, i, p, p, p])
+        # the six samplers on the linear-Gaussian potential, one chain a CTA:
+        # the arguments of their Darcy / Burgers entry points on this spec
+        # (no carried solution), and each one's route (ROUTES)
+        lib.bind("ipx_fused_pcn_linear", [gspec, chain, p, f, f, p])
+        lib.bind("ipx_pcn_linear_route", [gspec, i])
+        lib.bind("ipx_fused_da_pcn_linear", [gspec, gspec, chain, p, p, f, f, i, p, p])
+        lib.bind("ipx_da_pcn_linear_route", [gspec, gspec, i])
+        lib.bind("ipx_fused_da3_pcn_linear",
+                 [gspec, gspec, gspec, chain, p, p, p, f, f, i, i, p, p])
+        lib.bind("ipx_da3_linear_route", [gspec, gspec, gspec, i])
+        lib.bind("ipx_fused_ess_linear", [gspec, chain, p, i, p])
+        lib.bind("ipx_ess_linear_route", [gspec, i])
+        lib.bind("ipx_fused_fes_linear", [gspec, chain, p, p, p, p, f, f, f, i, i, i, p])
+        lib.bind("ipx_fes_linear_route", [gspec, i])
+        # spec, chain, Φ0 (n,), ∇Φ0 (d, n), ε, stream
+        lib.bind("ipx_fused_mala_linear", [gspec, chain, p, p, f, p])
+        lib.bind("ipx_mala_linear_route", [gspec, i])
         # spec, chain, step size, prior (0 / 1), stream
         lib.bind("ipx_fused_rwm", [gspec, chain, f, i, p])
         lib.bind("ipx_fused_rwm_darcy", [spec, chain, f, i, p])

@@ -146,7 +146,9 @@ def require_family(pots: dict, families=("darcy",), warm=False,
     else:
         classes = {"burgers": burgers.BurgersMisfit, "darcy": darcy.DarcyMisfit,
                    "linear": linear.LinearGaussianPotential}
-    classes = {f: classes[f] for f in sorted(families)}
+    # named in this order, the Darcy misfit last: a refusal names every
+    # family the kernel takes
+    classes = {f: classes[f] for f in ("linear", "burgers", "darcy") if f in families}
     wanted = " or ".join(c.__name__ for c in classes.values())
     found = {}
     for name, pot in pots.items():
@@ -169,6 +171,30 @@ def require_family(pots: dict, families=("darcy",), warm=False,
             f"the potentials of one launch must be of one family, got {found}"
         )
     return family
+
+
+def linear_route(d, *pots):
+    """The kernel that cold pCN, DA-pCN, three-level DA, ESS, FES and cold
+    MALA send linear-Gaussian levels ``pots`` to for chains of d
+    coordinates, as ``linear_cta_takes`` in ``csrc/gaussian_potential.cuh``
+    decides (each sampler's ``ipx_*_linear_route``): "cta", one chain a
+    CTA, when every level has K = d, a thread a coordinate up to
+    ``LinearGaussianPotential.MAX_DIM``; None (refused) else."""
+    from ip_mcmc_tpu_torch.models.linear import LinearGaussianPotential
+
+    ok = 0 < d <= LinearGaussianPotential.MAX_DIM and all(p.K == d and p.m >= 0 for p in pots)
+    return "cta" if ok else None
+
+
+def require_linear_route(sampler, d, *pots):
+    """Raises ``ValueError`` before any launch where ``linear_route``
+    refuses."""
+    from ip_mcmc_tpu_torch.models.linear import LinearGaussianPotential
+
+    if linear_route(d, *pots) is None:
+        raise ValueError(
+            f"the {sampler} kernel takes linear-Gaussian levels with K = d up to "
+            f"{LinearGaussianPotential.MAX_DIM}; got K = {[p.K for p in pots]}, d = {d}")
 
 
 def chain_args(positions, prior_mean, prior_scale, seed, n_steps,

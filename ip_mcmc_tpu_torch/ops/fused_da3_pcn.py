@@ -19,7 +19,12 @@ one chain a warp, ``warp_geometry``'s chains a CTA, on three
 ``BurgersMisfit`` potentials of 64 or 128 cells with d = K = 16
 (``warp_takes``), and ``fused_da3_pcn_kernel<RECORD>``, one chain a CTA, on
 any other three levels of up to 128 cells with K = d up to 128; the
-kernels refuse others and the wrapper raises. For CPU tensors they run
+kernels refuse others and the wrapper raises. Three
+``LinearGaussianPotential`` levels with K = d up to 256
+(``_scaffold.linear_route``) run on
+``fused_da3_pcn_kernel<LinearGaussianPotential, RECORD>``, one chain a CTA
+(``ipx_fused_da3_pcn_linear``); another d raises ``ValueError`` before any
+launch. For CPU tensors they run
 the step builder below on the plain scaffold ``_scaffold.run_plain``,
 which takes any three features-first callables (d, B) → (B,). Tags: inner
 step (j2, j1) draws with t = 4(j2·k_inner + j1) (normals t, t+1; uniform
@@ -129,6 +134,7 @@ LEVEL_FLOATS, MAX_SMEM_BYTES = _burgers_warp.LEVEL_FLOATS, _burgers_warp.MAX_SME
 WARP_SLICE_BYTES = _burgers_warp.slice_bytes(4)
 KERNEL = "fused_da3_pcn_warp_kernel"  # the launch count's stem
 CTA_KERNEL = "fused_da3_pcn_kernel"  # the one-chain-a-CTA kernel's
+LINEAR_KERNEL = "fused_da3_pcn_kernel[linear]"  # its instantiation on LinearGaussianPotential
 CTA_CELLS = 128  # the most cells a level, and the most coordinates (BurgersPotential's CTA)
 
 
@@ -168,7 +174,9 @@ def _launch(pot_fine, pot_mid, pot_coarse, positions, prior_mean, prior_scale,
             beta, seed, n_steps, k_inner, k_mid, block_chains, thin=None):
     pots = {"potential_fn": pot_fine, "mid_fn": pot_mid,
             "surrogate_fn": pot_coarse}
-    _scaffold.require_family(pots, families=("burgers",))
+    family = _scaffold.require_family(pots, families=("burgers", "linear"))
+    if family == "linear":
+        _scaffold.require_linear_route("three-level DA", positions.shape[1], *pots.values())
     args, keep = _scaffold.chain_args(positions, prior_mean, prior_scale,
                                       seed, n_steps, block_chains, thin)
     U = keep[0].T.contiguous()
@@ -180,14 +188,20 @@ def _launch(pot_fine, pot_mid, pot_coarse, positions, prior_mean, prior_scale,
     mid_rate = torch.empty(U.shape[1], dtype=torch.float32, device=U.device)
     beta_t, contraction = _scaffold.contraction(beta)
     specs = [pot.spec() for pot in pots.values()]
-    status = _build.library().ipx_fused_da3_pcn_burgers(
+    lib = _build.library()
+    fn = lib.ipx_fused_da3_pcn_linear if family == "linear" else lib.ipx_fused_da3_pcn_burgers
+    status = fn(
         *(ctypes.byref(s) for s in specs), ctypes.byref(args),
         *(t.data_ptr() for t in start), float(beta_t), float(contraction),
         int(k_inner), int(k_mid), mid_rate.data_ptr(),
         torch.cuda.current_stream(U.device).cuda_stream,
     )
-    kernel = route([(pot.n, pot.K) for pot in pots.values()], U.shape[0])
-    name = _scaffold.kernel_name(CTA_KERNEL if kernel == "cta" else KERNEL, thin is not None)
+    if family == "linear":
+        stem = LINEAR_KERNEL
+    else:
+        kernel = route([(pot.n, pot.K) for pot in pots.values()], U.shape[0])
+        stem = CTA_KERNEL if kernel == "cta" else KERNEL
+    name = _scaffold.kernel_name(stem, thin is not None)
     _build.check(status, name)
     _build.launch_counts[name] += 1
     _, _, _, out, acc, samples = keep

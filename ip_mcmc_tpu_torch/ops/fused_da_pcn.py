@@ -29,7 +29,12 @@ Surr>``, one chain per CTA: both levels up to 16×16 (the surrogate no finer
 than the exact grid, by CG or Richardson), or an exact grid of 33×33 to
 64×64 with a CG surrogate of 17×17 to 32×32. ``route`` mirrors
 ``da_route``, the rule of ``ipx_fused_da_pcn``; the kernels refuse any
-other Darcy pair and the wrapper raises. For CPU tensors they run
+other Darcy pair and the wrapper raises. A pair of
+``LinearGaussianPotential`` levels with K = d up to 256
+(``_scaffold.linear_route``) runs on
+``fused_da_pcn_kernel<LinearGaussianPotential, RECORD>``, one chain a CTA
+(``ipx_fused_da_pcn_linear``); another d raises ``ValueError`` before any
+launch. For CPU tensors they run
 ``_run_plain`` / ``_run_plain_recorded``: the step builder below on the
 plain scaffold ``_scaffold.run_plain``, which takes any features-first
 callable (d, B) → (B,), so the algorithm tests can use analytic targets.
@@ -401,11 +406,17 @@ def _darcy_stem(pot_exact, pot_surr, d=None):
     return f"fused_da_pcn_kernel[layout{side}{',' + tag if tag else ''}]"
 
 
+# the launch count's stem of fused_da_pcn_kernel<LinearGaussianPotential, ·>
+LINEAR_KERNEL = "fused_da_pcn_kernel[linear]"
+
+
 def _launch(pot_exact, pot_surr, positions, prior_mean, prior_scale, beta,
             seed, n_steps, subchain_len, block_chains, thin=None):
     family = _scaffold.require_family(
         {"potential_fn": pot_exact, "surrogate_fn": pot_surr},
-        families=("darcy", "burgers"), richardson=("surrogate_fn",))
+        families=("darcy", "burgers", "linear"), richardson=("surrogate_fn",))
+    if family == "linear":
+        _scaffold.require_linear_route("DA-pCN", positions.shape[1], pot_exact, pot_surr)
     args, keep = _scaffold.chain_args(positions, prior_mean, prior_scale,
                                       seed, n_steps, block_chains, thin)
     U = keep[0].T.contiguous()
@@ -420,6 +431,8 @@ def _launch(pot_exact, pot_surr, positions, prior_mean, prior_scale, beta,
     lib = _build.library()
     if family == "darcy":
         fn, stem = lib.ipx_fused_da_pcn, _darcy_stem(pot_exact, pot_surr, U.shape[0])
+    elif family == "linear":
+        fn, stem = lib.ipx_fused_da_pcn_linear, LINEAR_KERNEL
     else:
         fn = lib.ipx_fused_da_pcn_burgers
         stem = _burgers_stem(pot_exact, pot_surr, U.shape[0])

@@ -16,7 +16,11 @@ as ``route`` says (``ess_route`` there decides):
 ``DarcyMisfit`` with d = 64 (one chain a warp, ``warp_geometry``'s chains
 a CTA), and ``fused_ess_kernel<RECORD>`` on any other CG ``DarcyMisfit`` up
 to 16×16 with K = d (one chain a CTA); the kernels refuse a larger grid and
-the wrapper raises. There a chain that is done leaves the shrink loop,
+the wrapper raises. A ``LinearGaussianPotential`` with K = d up to 256
+(``_scaffold.linear_route``) runs on
+``fused_ess_kernel<LinearGaussianPotential, RECORD>``, one chain a CTA
+(``ipx_fused_ess_linear``); another d raises ``ValueError`` before any
+launch. There a chain that is done leaves the shrink loop,
 where the plain version (and the JAX kernel) evaluate every chain
 ``max_shrink`` times behind done masks: the masked evaluations change
 nothing. For CPU tensors they run the step builder below on
@@ -102,6 +106,7 @@ WARP_SLICE_BYTES = 4 * (2 * WARP_D + 3 * PADDED_CELLS)
 MAX_SMEM_BYTES = 232_448  # what a CTA of the H100 may use
 KERNEL = "fused_ess_warp_kernel"  # the launch count's stem
 CTA_KERNEL = "fused_ess_kernel"  # the one-chain-a-CTA kernel's
+LINEAR_KERNEL = "fused_ess_kernel[linear]"  # its instantiation on LinearGaussianPotential
 CTA_N = 16  # the largest grid side the one-chain-a-CTA kernel takes (Layout16)
 
 
@@ -153,19 +158,27 @@ def warp_geometry(n_chains, block_chains, *, n=WARP_N, d=WARP_D, precond="jacobi
 
 def _launch(potential_fn, positions, prior_mean, prior_scale, seed, n_steps,
             max_shrink, block_chains, thin=None):
-    _scaffold.require_family({"potential_fn": potential_fn})
+    family = _scaffold.require_family({"potential_fn": potential_fn},
+                                      families=("darcy", "linear"))
+    if family == "linear":
+        _scaffold.require_linear_route("ESS", positions.shape[1], potential_fn)
     args, keep = _scaffold.chain_args(positions, prior_mean, prior_scale,
                                       seed, n_steps, block_chains, thin)
     U = keep[0].T.contiguous()
     potential_fn.check_input(U, "positions.T")
     phi0 = potential_fn(U)  # the step builder's init, by the misfit kernel
     spec = potential_fn.spec()
-    status = _build.library().ipx_fused_ess(
+    lib = _build.library()
+    if family == "linear":
+        fn, stem = lib.ipx_fused_ess_linear, LINEAR_KERNEL
+    else:
+        kernel = route(**potential_fn.spec_fields, d=U.shape[0])
+        fn, stem = lib.ipx_fused_ess, CTA_KERNEL if kernel == "cta" else KERNEL
+    status = fn(
         ctypes.byref(spec), ctypes.byref(args), phi0.data_ptr(),
         int(max_shrink), torch.cuda.current_stream(U.device).cuda_stream,
     )
-    kernel = route(**potential_fn.spec_fields, d=U.shape[0])
-    name = _scaffold.kernel_name(CTA_KERNEL if kernel == "cta" else KERNEL, thin is not None)
+    name = _scaffold.kernel_name(stem, thin is not None)
     _build.check(status, name)
     _build.launch_counts[name] += 1
     _, _, _, out, acc, samples = keep

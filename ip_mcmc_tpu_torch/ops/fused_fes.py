@@ -19,7 +19,11 @@ on what ``warp_takes``, a 16×16 Jacobi ``DarcyMisfit`` with d = 64 (one
 chain a warp, ``warp_geometry``'s chains a CTA), and
 ``fused_fes_kernel<RECORD>`` on any other CG ``DarcyMisfit`` up to 16×16
 with K = d (one chain a CTA); the kernels refuse a larger grid and the
-wrapper raises. A chain reads other chains of its block
+wrapper raises. A ``LinearGaussianPotential`` with K = d up to 256
+(``_scaffold.linear_route``) runs on
+``fused_fes_kernel<LinearGaussianPotential, RECORD>``, one chain a CTA
+(``ipx_fused_fes_linear``); another d raises ``ValueError`` before any
+launch. A chain reads other chains of its block
 there, so the state lives in device memory and the step loop is here: two
 launches per step, each running the chains of one parity, stream order
 being the barrier between the sub-steps. A chain is evaluated only in its own parity's sub-step (the
@@ -141,6 +145,7 @@ WARP_SLICE_BYTES = fused_ess.WARP_SLICE_BYTES - 4 * WARP_D
 MAX_SMEM_BYTES = fused_ess.MAX_SMEM_BYTES
 KERNEL = "fused_fes_warp_kernel"  # the launch count's stem
 CTA_KERNEL = "fused_fes_kernel"  # the one-chain-a-CTA kernel's
+LINEAR_KERNEL = "fused_fes_kernel[linear]"  # its instantiation on LinearGaussianPotential
 
 
 def warp_takes(*, n, d, K, precond, modes, solver):
@@ -186,7 +191,10 @@ def warp_geometry(n_chains, block_chains, *, n=WARP_N, d=WARP_D,
 
 def _launch(potential_fn, positions, prior_mean, prior_scale, n_low_modes,
             seed, pcn_beta, stretch_a, n_steps, block_chains, thin=None):
-    _scaffold.require_family({"potential_fn": potential_fn})
+    family = _scaffold.require_family({"potential_fn": potential_fn},
+                                      families=("darcy", "linear"))
+    if family == "linear":
+        _scaffold.require_linear_route("ensemble", positions.shape[1], potential_fn)
     # the chain's state: updated in place by every launch
     state = positions.clone(memory_format=torch.contiguous_format)
     args, keep = _scaffold.chain_args(state, prior_mean, prior_scale, seed,
@@ -203,9 +211,13 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, n_low_modes,
     samples = keep[5]
     beta_t, contraction = _scaffold.contraction(pcn_beta)
     spec = potential_fn.spec()
-    fes = _build.library().ipx_fused_fes
+    lib = _build.library()
     stream = torch.cuda.current_stream(state.device).cuda_stream
-    stem = CTA_KERNEL if route(**potential_fn.spec_fields, d=d) == "cta" else KERNEL
+    if family == "linear":
+        fes, stem = lib.ipx_fused_fes_linear, LINEAR_KERNEL
+    else:
+        fes = lib.ipx_fused_fes
+        stem = CTA_KERNEL if route(**potential_fn.spec_fields, d=d) == "cta" else KERNEL
     for i in range(n_steps):
         record = None
         if thin is not None and (i + 1) % thin == 0:

@@ -29,7 +29,12 @@ cold form on a 16×16 Jacobi CG ``DarcyMisfit``, the warm one on a 16×16
 dense-``dst`` CG ``DarcyMisfitMalaWarm``, both with d = K = 64; and
 ``fused_mala_kernel<RECORD>`` / ``fused_mala_warm_kernel<RECORD>``, one
 chain a CTA, on any other CG misfit up to 16×16 with K = d, any
-preconditioner. A larger grid raises ``ValueError`` before any launch.
+preconditioner. A larger grid raises ``ValueError`` before any launch. The
+cold form also takes a ``LinearGaussianPotential`` with K = d up to 256
+(``_scaffold.linear_route``): ``fused_mala_kernel<LinearGaussianPotential,
+RECORD>``, one chain a CTA, its gradient −Aᵀ((y − A(u − c))/σ²) a thread a
+coordinate, Φ0 and ∇Φ0 from ``LinearGaussianPotential.value_and_grad``
+(``linear_gaussian_misfit_grad_kernel``); another d raises ``ValueError``.
 For CPU tensors they run the step builders below on the
 plain scaffold ``_scaffold.run_plain``, which take every misfit; the cold
 one takes any differentiable features-first callable (a ``DarcyMisfit``
@@ -193,6 +198,7 @@ def warp_slice_bytes(warm):
 # the one-chain-a-CTA kernels' stems, cold and warm, and the largest grid
 # side they take (Layout16)
 CTA_KERNELS = {False: "fused_mala_kernel", True: "fused_mala_warm_kernel"}
+LINEAR_KERNEL = "fused_mala_kernel[linear]"  # the cold one on LinearGaussianPotential
 CTA_N = 16
 
 
@@ -335,14 +341,19 @@ def misfit_grad_warm_warp_geometry(B, *, n=WARP_N, K=WARP_D, precond="dst", mode
 def _launch(potential_fn, positions, prior_mean, prior_scale, step_size, seed,
             n_steps, block_chains, thin=None, aux_dim=None):
     warm = aux_dim is not None
-    _scaffold.require_family({"potential_fn": potential_fn},
-                             warm="mala" if warm else False)
+    family = _scaffold.require_family(
+        {"potential_fn": potential_fn},
+        families=("darcy",) if warm else ("darcy", "linear"), warm="mala" if warm else False)
     if warm and aux_dim != potential_fn.aux_dim:
         raise ValueError(
             f"aux_dim {aux_dim} is not the misfit's {potential_fn.aux_dim}"
         )
     n, d = positions.shape
-    kernel = route(warm, **potential_fn.spec_fields, d=d)
+    if family == "linear":
+        _scaffold.require_linear_route("MALA", d, potential_fn)
+        kernel = "linear"
+    else:
+        kernel = route(warm, **potential_fn.spec_fields, d=d)
     if kernel is None:  # refused here, before any launch, with the reason
         f = potential_fn.spec_fields
         raise ValueError(
@@ -362,14 +373,17 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, step_size, seed,
     else:
         (phi0, g0), aux0 = potential_fn.value_and_grad(U), None
     spec = potential_fn.spec()
-    status = _build.library().ipx_fused_mala(
-        ctypes.byref(spec), ctypes.byref(args), phi0.data_ptr(), g0.data_ptr(),
-        aux0.data_ptr() if warm else None,
+    lib = _build.library()
+    # the Darcy entry takes the carried solutions, null for the cold kernels
+    fn, carried = ((lib.ipx_fused_mala_linear, ()) if kernel == "linear"
+                   else (lib.ipx_fused_mala, (aux0.data_ptr() if warm else None,)))
+    status = fn(
+        ctypes.byref(spec), ctypes.byref(args), phi0.data_ptr(), g0.data_ptr(), *carried,
         float(torch.as_tensor(step_size, dtype=torch.float32)),
         torch.cuda.current_stream(U.device).cuda_stream,
     )
-    name = _scaffold.kernel_name(CTA_KERNELS[warm] if kernel == "cta" else stem(warm),
-                                 thin is not None)
+    stems = {"linear": LINEAR_KERNEL, "cta": CTA_KERNELS[warm], "warp": stem(warm)}
+    name = _scaffold.kernel_name(stems[kernel], thin is not None)
     _build.check(status, name)
     _build.launch_counts[name] += 1
     _, _, _, out, acc, samples = keep

@@ -33,7 +33,12 @@ the whole ``n_steps`` loop in one launch, picked by the spec
   RECORD>``, the cold kernel on a ``DarcyMisfit`` or a ``BurgersMisfit``
   (picked by the potential's family), and ``fused_pcn_warm_kernel<Pot,
   RECORD>`` on any other CG ``DarcyMisfitWarm`` up to 64×64 with K = d; a
-  warm grid above 64×64 is refused and the wrapper raises.
+  warm grid above 64×64 is refused and the wrapper raises;
+- a cold ``LinearGaussianPotential`` with K = d up to 256
+  (``_scaffold.linear_route``) on ``fused_pcn_kernel<LinearGaussianPotential,
+  RECORD>``, one chain a CTA (``ipx_fused_pcn_linear``; count
+  ``fused_pcn_kernel[linear]``); any other d raises ``ValueError`` before
+  any launch.
 
 ``route`` mirrors ``pcn_route``, the rule of ``ipx_fused_pcn``.
 
@@ -377,12 +382,18 @@ def _burgers_stem(pot, d=_burgers_warp.WARP_D):
     return "fused_pcn_burgers_kernel"
 
 
+# the launch count's stem of fused_pcn_kernel<LinearGaussianPotential, ·>
+LINEAR_KERNEL = "fused_pcn_kernel[linear]"
+
+
 def _launch(potential_fn, positions, prior_mean, prior_scale, beta, seed,
             n_steps, block_chains, thin=None, aux_dim=None):
     warm = aux_dim is not None
     family = _scaffold.require_family(
         {"potential_fn": potential_fn},
-        families=("darcy",) if warm else ("darcy", "burgers"), warm=warm)
+        families=("darcy",) if warm else ("darcy", "burgers", "linear"), warm=warm)
+    if family == "linear":
+        _scaffold.require_linear_route("pCN", positions.shape[1], potential_fn)
     if warm and aux_dim != potential_fn.aux_dim:
         raise ValueError(
             f"aux_dim {aux_dim} is not the misfit's {potential_fn.aux_dim}"
@@ -408,6 +419,8 @@ def _launch(potential_fn, positions, prior_mean, prior_scale, beta, seed,
     if family == "darcy":
         fn, name = lib.ipx_fused_pcn, _darcy_stem(potential_fn, warm, positions.shape[1])
         carried = (x0.data_ptr() if warm else None,)
+    elif family == "linear":
+        fn, carried, name = lib.ipx_fused_pcn_linear, (), LINEAR_KERNEL
     else:
         fn, carried = lib.ipx_fused_pcn_burgers, ()
         name = _burgers_stem(potential_fn, positions.shape[1])

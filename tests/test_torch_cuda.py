@@ -601,6 +601,91 @@ def _linear_misfit(m, d, seed):
 
 
 @pytest.mark.parametrize("recorded", [False, True])
+@pytest.mark.parametrize("sampler", ["pcn", "ess", "fes", "mala", "da_pcn", "da3_pcn"])
+def test_linear_family_fused_kernels_match_plain(lingauss, sampler, recorded):
+    """The six samplers one chain a CTA on lingauss_pcn's misfit (the
+    surrogate and middle levels: σ × 1.25 and × 1.1), each against its
+    plain twin from the same start and seed: the chains within 1e-4, the
+    mean rates within 1e-4; MALA's start value and gradient by its kernel.
+    A d the takes-rule refuses raises before any launch."""
+    from ip_mcmc_tpu_torch.convert import linear_gaussian_from_arrays
+    from ip_mcmc_tpu_torch.ops import fused_da3_pcn
+
+    pot, lam = lingauss
+    A, _, y, sigma = configs.lingauss_arrays()
+    surr = linear_gaussian_from_arrays(A, y, 1.25 * sigma).cuda()
+    mid = linear_gaussian_from_arrays(A, y, 1.1 * sigma).cuda()
+    g = torch.Generator().manual_seed(17)
+    pos = (torch.randn(512, 32, generator=g).cuda() * lam.sqrt()).contiguous()
+    pm, ps = torch.zeros(32), lam.sqrt()
+    steps, block = 12, 128
+    kw = {"thin": 2} if recorded else {}
+    plain = pot._forward_plain
+    runs = {
+        "pcn": (fused_pcn.LINEAR_KERNEL,
+                lambda: fused_pcn._launch(pot, pos, pm, ps, 0.2, 5, steps, block, **kw),
+                lambda: fused_pcn._run_plain(plain, pos, pm, ps, 0.2, 5, steps, block, **kw)),
+        "ess": (fused_ess.LINEAR_KERNEL,
+                lambda: fused_ess._launch(pot, pos, pm, ps, 5, steps, 30, block, **kw),
+                lambda: fused_ess._run_plain(plain, pos, pm, ps, 5, steps, 30, block, **kw)),
+        "fes": (fused_fes.LINEAR_KERNEL,
+                lambda: fused_fes._launch(pot, pos, pm, ps, 6, 5, 0.25, 2.0, steps, block,
+                                          **kw),
+                lambda: fused_fes._run_plain(plain, pos, pm, ps, 6, 5, 0.25, 2.0, steps,
+                                             block, **kw)),
+        "mala": (fused_mala.LINEAR_KERNEL,
+                 lambda: fused_mala._launch(pot, pos, pm, ps, 0.02, 5, steps, block, **kw),
+                 lambda: fused_mala._run_plain(plain, pos, pm, ps, 0.02, 5, steps, block,
+                                               **kw)),
+        "da_pcn": (da.LINEAR_KERNEL,
+                   lambda: da._launch(pot, surr, pos, pm, ps, 0.2, 5, steps, 4, block, **kw),
+                   (lambda: da._run_plain_recorded(plain, surr._forward_plain, pos, pm, ps,
+                                                   0.2, 5, steps, 2, 4, block)) if recorded
+                   else (lambda: da._run_plain(plain, surr._forward_plain, pos, pm, ps, 0.2,
+                                               5, steps, 4, block))),
+        "da3_pcn": (fused_da3_pcn.LINEAR_KERNEL,
+                    lambda: fused_da3_pcn._launch(pot, mid, surr, pos, pm, ps, 0.2, 5, steps,
+                                                  4, 2, block, **kw),
+                    lambda: fused_da3_pcn._run_plain(plain, mid._forward_plain,
+                                                     surr._forward_plain, pos, pm, ps, 0.2, 5,
+                                                     steps, 4, 2, block, **kw)),
+    }
+    stem, kern, ref = runs[sampler]
+    name = f"{stem}<{'true' if recorded else 'false'}>"
+    start = (pot.grad_kernel_label if sampler == "mala" else pot.kernel_label)
+    before = dict(_build.launch_counts)
+    got = kern()
+    if sampler == "fes":  # two launches a step, those of the recorded steps <true>
+        both = [f"{stem}<false>", f"{stem}<true>"]
+        assert (sum(_build.launch_counts[k] - before.get(k, 0) for k in both) == 2 * steps)
+    else:
+        assert _build.launch_counts[name] == before.get(name, 0) + 1
+    levels = {"da_pcn": 2, "da3_pcn": 3}.get(sampler, 1)  # Φ0 of each level
+    assert _build.launch_counts[start] == before.get(start, 0) + levels
+    want = ref()
+    dev = (got[0] - want[0]).abs().max(dim=1).values
+    assert float((dev <= 1e-4).double().mean()) >= 0.99
+    for a, b in zip(got[1:], want[1:]):
+        if a.dim() == 1:
+            assert abs(float(a.mean()) - float(b.mean())) <= 1e-4
+        else:
+            assert a.shape == b.shape == (steps // 2, 512, 32)
+            assert float(((a - b).abs().max(dim=2).values <= 1e-4).double().mean()) >= 0.99
+    if sampler == "mala":
+        U = pos.T.contiguous()
+        (phi, grad), (phi_ref, grad_ref) = pot.value_and_grad(U), pot._value_and_grad_plain(U)
+        assert float(_rel(phi, phi_ref).max()) <= 1e-5
+        w = (pot.data[:, None] - pot.A @ U) / pot.noise[:, None] ** 2
+        assert float(((grad - grad_ref).abs() / (pot.A.abs().T @ w.abs())).max()) <= 1e-5
+    short = pos[:, :31].contiguous()
+    with pytest.raises(ValueError, match="linear-Gaussian levels with K = d"):
+        if sampler in ("da_pcn", "da3_pcn"):
+            da._launch(pot, surr, short, pm[:31], ps[:31], 0.2, 5, 2, 4, block)
+        else:
+            fused_pcn._launch(pot, short, pm[:31], ps[:31], 0.2, 5, 2, block)
+
+
+@pytest.mark.parametrize("recorded", [False, True])
 @pytest.mark.parametrize("kind", ["rwm", "rwm_prior", "rwm_darcy", "pcn_dense",
                                   "pcn_dense_full", "rwm_gauss2d", "rwm_d3", "rwm_m40",
                                   "pcn_dense_d3", "pcn_dense_m40", "pcn_dense_gauss2d"])
@@ -2955,3 +3040,17 @@ def test_routes_agree_in_c_and_python():
                       (synthetic_burgers(96, 32, seed=11), 16)):
         assert (lib.ipx_da3_route(*(ref(lv) for lv in levels), d)
                 == code[da3.route([(lv.n, lv.K) for lv in levels], d)])
+    # the linear-Gaussian specs of the six samplers: lingauss_pcn's, m above
+    # d, the widest d a CTA takes, m = 0; each at K = d and K = d - 1
+    lin = [_linear_misfit(16, 32, seed=12), _linear_misfit(40, 32, seed=13),
+           _linear_misfit(2, 256, seed=14), _linear_misfit(0, 4, seed=15)]
+    for pot in lin:
+        for d in (pot.K, pot.K - 1):
+            want = code[_scaffold.linear_route(d, pot)]
+            for fn in (lib.ipx_pcn_linear_route, lib.ipx_ess_linear_route,
+                       lib.ipx_fes_linear_route, lib.ipx_mala_linear_route):
+                assert fn(ref(pot), d) == want, (fn, pot.m, pot.K, d)
+            assert (lib.ipx_da_pcn_linear_route(ref(pot), ref(lin[0]), d)
+                    == code[_scaffold.linear_route(d, pot, lin[0])])
+            assert (lib.ipx_da3_linear_route(ref(lin[0]), ref(pot), ref(pot), d)
+                    == code[_scaffold.linear_route(d, lin[0], pot, pot)])
